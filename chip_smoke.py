@@ -7,15 +7,34 @@ Run from the repository root with no arguments:
 
 Phases (each raises on failure, so the script exits non-zero):
 
-1. device — requires CUDA, prints the card's name and power limit;
-2. build — compiles the affinity kernel from ``src/`` with nvcc;
-3. kernel vs plain — the CUDA kernel against the plain torch version on
-   the card, bitwise, at the reference tests' shapes, the simulator's
-   round buckets and a large round; prints per-shape times;
+1. device — requires CUDA, prints the card's name and power limit; turns
+   TF32 off for matmuls and cuDNN (the reference's numbers are fp32 or
+   bf16, never TF32);
+2. build — compiles all three kernels from ``src/`` with nvcc, one
+   process per source, started together; prints each build's registers,
+   shared memory and spills;
+3. affinity kernel vs plain — the CUDA kernel against the plain torch
+   version on the card, bitwise, at the reference tests' shapes, the
+   simulator's round buckets and a large round; prints per-shape times;
 4. engine parity — ``simulate_batch`` scoring rounds on the card against
    the host-only ``SimEngine``, identical results;
 5. full width — the paper cell (100 workflows of all sizes at 12 wf/min,
-   all five policies, seed 0) through ``simulate_batch`` on the card.
+   all five policies, seed 0) through ``simulate_batch`` on the card;
+6. attention and SSD kernels vs plain — flash attention and the SSD
+   chunk kernel against their plain torch versions on the card at the
+   reference sweep's shapes and at zamba2-1.2b's (and mamba2-780m's)
+   serving shapes, both request sets' lengths included (bf16 attention
+   element by element within one bf16 step of the plain version); prints
+   kernel, plain, bound and library times;
+7. serving at full width — zamba2-1.2b (38 layers, d_model 2048, seeded
+   random fp32 weights, bf16 compute) through ``build`` and the serve
+   builders:
+   after an untimed warm-up request, (a) 4 requests × 2048-token
+   prompts, 32 greedy decode tokens each, every step held against
+   ``forward``; (b) 1 request × 32,768-token prompt, 8 decode tokens.
+   Every prefill's attention and SSD go through the kernels (launch
+   counts checked); a ``torch.profiler`` pass then splits one prefill and
+   one decode step of each by kernel and gives the device's idle share.
 
 The second-last lines are the kernel record (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is the device record.
@@ -23,6 +42,7 @@ The second-last lines are the kernel record (JSON) and the card's
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import functools
 import json
 import shutil
@@ -39,6 +59,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device-memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 peak outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 OPS_PER_PAIR = 20              # divides, adds, multiplies, ceils, compares
 GS = dict(gs_read=50.0, gs_write=30.0, bp_ms=1000.0)
 FIELDS = ("best_vm", "best_tier", "est_finish", "est_cost")
@@ -149,19 +170,33 @@ def phase_device(torch) -> str:
     return smi
 
 
+def kernel_libs() -> dict:
+    from repro_torch.kernels.affinity import kernel as aff
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd import kernel as ssd
+    return {"affinity": aff.LIB, "flash_attention": fa.LIB, "ssd": ssd.LIB}
+
+
 def phase_build() -> None:
-    """Build from the checkout's source: any library an earlier run left
-    in the (git-ignored) build directory is removed first."""
-    from repro_torch.kernels.affinity import kernel
-    shutil.rmtree(kernel.BUILD_ROOT, ignore_errors=True)
+    """Build every kernel from the checkout's source, one nvcc process per
+    source, all started together; any library an earlier run left in the
+    (git-ignored) build directories is removed first."""
+    libs = kernel_libs()
+    for lib in libs.values():
+        shutil.rmtree(lib.build_root, ignore_errors=True)
     t0 = time.perf_counter()
-    lib = kernel.build()
-    kernel._load()
-    log(f"[build] affinity kernel {lib.relative_to(ROOT)}: nvcc "
-        f"{kernel.build_info['seconds']:.3f} s, build + load "
-        f"{time.perf_counter() - t0:.3f} s")
-    for line in kernel.build_info.get("log", "").splitlines():
-        log(f"[build]   {line}")
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        built = {name: pool.submit(lib.build) for name, lib in libs.items()}
+        paths = {name: fut.result() for name, fut in built.items()}
+    wall = time.perf_counter() - t0
+    for name, lib in libs.items():
+        lib.load()
+        log(f"[build] {name}: {paths[name].relative_to(ROOT)}, nvcc "
+            f"{lib.build_info['seconds']:.3f} s, flags "
+            f"{' '.join(lib.flags)}")
+        for line in lib.build_info.get("log", "").splitlines():
+            log(f"[build]   {line}")
+    log(f"[build] all {len(libs)} kernels built in parallel in {wall:.3f} s")
 
 
 def phase_kernel(torch) -> dict:
@@ -320,6 +355,412 @@ def phase_full_width(torch) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Flash attention and SSD: kernels vs plain on the card
+# ---------------------------------------------------------------------------
+
+# (B, L, H, D, causal, dtype): the reference sweep (tests/test_kernels.py,
+# test_flash_attention_sweep), then zamba2-1.2b's shared-attention shapes
+# for request sets (a) and (b) below.
+FA_SWEEP = [(2, 256, 4, 64, True, "float32"),
+            (1, 128, 2, 128, False, "float32"),
+            (2, 200, 3, 64, True, "float32"),
+            (1, 96, 1, 32, True, "float32"),
+            (2, 256, 2, 64, True, "bfloat16")]
+FA_SERVING = [(4, 2048, 32, 64, True, "bfloat16"),
+              (1, 32768, 32, 64, True, "bfloat16")]
+FA_HEADLINE = FA_SERVING[0]
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # max|Δ| over the output
+# bf16 outputs are also held element by element to one bf16 rounding step
+# of the reference plus fp32 slack, |Δ| <= 2^-7·|ref| + 1e-6: the kernel
+# and the plain version both compute in fp32 and round once to bf16, so a
+# flat bound alone would let small outputs (long rows) be wrong.
+FA_BF16_REL, FA_BF16_ABS = 2.0 ** -7, 1e-6
+# (B, L, H, P, N, Q): the reference sweep (test_ssd_kernel_sweep), then
+# zamba2-1.2b's and mamba2-780m's SSD shapes at a 2048-token prompt and
+# zamba2-1.2b's at request set (b)'s 32,768-token prompt.
+SSD_SWEEP = [(2, 128, 3, 32, 16, 32), (1, 256, 2, 64, 128, 64),
+             (2, 64, 4, 16, 32, 16), (1, 128, 1, 64, 64, 128)]
+SSD_SERVING = [(4, 2048, 64, 64, 64, 64), (1, 2048, 48, 64, 128, 64),
+               (1, 32768, 64, 64, 64, 64)]
+SSD_HEADLINE = SSD_SERVING[0]
+SSD_ATOL = 1e-4      # the sweep's absolute bound
+SSD_REL = 1e-4       # full width: max|Δ| <= 1e-4 · max|ref|
+
+
+def esize(dtype: str) -> int:
+    return 2 if dtype == "bfloat16" else 4
+
+
+def peak_ops(dtype: str) -> float:
+    return BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+
+
+def bound(flops: float, nbytes: float, dtype: str):
+    """(least ms, what bounds it): operations at the dtype's peak rate or
+    bytes at the memory rate, whichever takes longer."""
+    by_ops = flops / peak_ops(dtype) * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
+
+
+def fa_bound(B, L, H, D, causal, dtype):
+    """4·D flops per unmasked (q, k) pair; q, k, v and o moved once."""
+    pairs = L * (L + 1) // 2 if causal else L * L
+    return bound(4 * B * H * D * pairs, 4 * B * L * H * D * esize(dtype),
+                 dtype)
+
+
+def ssd_bound(B, L, H, P, N, Q, dtype):
+    """2Q²N + 2Q²P + 2QNP flops per (b, h, chunk); x, dt, cum, y and the
+    chunk states per head, B and C once per (b, chunk)."""
+    nc = L // Q
+    flops = B * H * nc * (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P)
+    nbytes = (B * L * H * P * (esize(dtype) + 4) + 2 * B * L * H * 4
+              + 2 * B * L * N * esize(dtype) + B * nc * H * N * P * 4)
+    return bound(flops, nbytes, dtype)
+
+
+def timed_ms(torch, fn, budget_s: float = 0.3, max_reps: int = 25) -> float:
+    """Median CUDA-event time (ms) of single calls after one warm-up call;
+    at least 3 calls, more while they fit ``budget_s``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    while len(times) < max_reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        if len(times) >= 3 and sum(times) / 1e3 > budget_s:
+            break
+    return statistics.median(times)
+
+
+def max_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_attention(torch) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    dev = torch.device("cuda")
+    log("[fa] per call, ms (CUDA events, median after a warm-up): kernel; "
+        "plain = the torch version on the card; library = "
+        "F.scaled_dot_product_attention(is_causal) on the same tensors "
+        "([B, H, L, D] views; timed only, never used by the port); bound "
+        "= the least time for the work and what bounds it")
+    rows, worst = {}, 0.0
+    for i, shape in enumerate(FA_SWEEP + FA_SERVING):
+        B, L, H, D, causal, dtype = shape
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        tdt = getattr(torch, dtype)
+        q, k, v = (torch.randn((B, L, H, D), generator=gen, device=dev)
+                   .to(tdt) for _ in range(3))
+        got = flash_attention_cuda(q, k, v, causal)
+        want = attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, want)
+        if not err <= FA_TOL[dtype]:
+            raise AssertionError(f"flash attention {shape}: max|Δ| {err} "
+                                 f"> {FA_TOL[dtype]}")
+        rel = ""
+        if dtype == "bfloat16":
+            ratio = float(((got.float() - want.float()).abs()
+                           / (FA_BF16_REL * want.float().abs()
+                              + FA_BF16_ABS)).max())
+            if not ratio <= 1.0:
+                raise AssertionError(
+                    f"flash attention {shape}: an element's |Δ| is {ratio} "
+                    f"times its bound 2^-7·|ref| + {FA_BF16_ABS}")
+            rel = (f"; worst |Δ| / (2^-7·|ref| + {FA_BF16_ABS}) "
+                   f"{ratio:.4g} <= 1")
+        worst = max(worst, err)
+        ms = timed_ms(torch, lambda: flash_attention_cuda(q, k, v, causal))
+        plain = timed_ms(torch, lambda: attention_ref(q, k, v, causal))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        bms, bby = fa_bound(B, L, H, D, causal, dtype)
+        rows[shape] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=bms, bound_by=bby, err=err)
+        log(f"[fa] [B,H,L,D]={[B, H, L, D]} causal={causal} {dtype}: "
+            f"kernel {ms:.5f} plain {plain:.5f} library {lib:.5f} bound "
+            f"{bms:.6f} ({bby}); max|Δ| {err:.3g} <= {FA_TOL[dtype]}{rel}")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return dict(rows=rows, max_abs_err=worst)
+
+
+def ssd_inputs(torch, shape, seed):
+    """The reference sweep's recipe on the card: x, B, C normal, dt in
+    [0.01, 0.2], A in -[0.5, 2]."""
+    B, L, H, P, N, _ = shape
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, L, H, P), generator=gen, device=dev)
+    dt = 0.01 + 0.19 * torch.rand((B, L, H), generator=gen, device=dev)
+    A = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
+    Bm = torch.randn((B, L, N), generator=gen, device=dev)
+    Cm = torch.randn((B, L, N), generator=gen, device=dev)
+    return x, dt, A, Bm, Cm
+
+
+def phase_ssd(torch) -> dict:
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.kernel import ssd_chunks_cuda
+    from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_chunks_ref,
+                                             ssd_ref)
+    log("[ssd] per call, ms: kernel = the chunk kernel; plain = its torch "
+        "version (ssd_chunks_ref); scan = the whole ssd() through the "
+        "kernel vs ssd_ref; bound = the least time for the chunk work; no "
+        "single PyTorch call computes this function (library_ms = null)")
+    rows, worst = {}, 0.0
+    for i, shape in enumerate(SSD_SWEEP):
+        Q = shape[-1]
+        x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 200 + i)
+        got = ops.ssd(x, dt, A, Bm, Cm, chunk=Q)
+        want = ssd_ref(x, dt, A, Bm, Cm, chunk=Q)
+        torch.cuda.synchronize()
+        errs = [max_err(torch, g, w) for g, w in zip(got, want)]
+        if not max(errs) <= SSD_ATOL:
+            raise AssertionError(f"ssd {shape}: max|Δ| y {errs[0]}, state "
+                                 f"{errs[1]} > {SSD_ATOL}")
+        worst = max(worst, *errs)
+        log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} float32: max|Δ| y "
+            f"{errs[0]:.3g} state {errs[1]:.3g} <= {SSD_ATOL}")
+    for i, shape in enumerate(SSD_SERVING):
+        Q = shape[-1]
+        x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 300 + i)
+        # The serving path feeds x, B and C in bf16.
+        xb, Bb, Cb = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+        cum = chunk_cumsum(dt, A, Q)
+        got = ssd_chunks_cuda(xb, dt, cum, Bb, Cb, Q)
+        want = ssd_chunks_ref(xb, dt, cum, Bb, Cb, Q)
+        # The whole scan on the same (bf16-valued) inputs in fp32, so that
+        # y is compared before any bf16 rounding.
+        xf, Bf, Cf = xb.float(), Bb.float(), Cb.float()
+        got_scan = ops.ssd(xf, dt, A, Bf, Cf, chunk=Q)
+        want_scan = ssd_ref(xf, dt, A, Bf, Cf, chunk=Q)
+        torch.cuda.synchronize()
+        for name, g, w in (("y_intra", got[0], want[0]),
+                           ("chunk states", got[1], want[1]),
+                           ("y", got_scan[0], want_scan[0]),
+                           ("final state", got_scan[1], want_scan[1])):
+            err, scale = max_err(torch, g, w), float(w.abs().max())
+            if not err <= SSD_REL * scale:
+                raise AssertionError(f"ssd {shape} {name}: max|Δ| {err} > "
+                                     f"{SSD_REL} * {scale}")
+            worst = max(worst, err)
+            log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} {name}: max|Δ| "
+                f"{err:.3g} <= {SSD_REL} * max|ref| {scale:.4g}")
+        ms = timed_ms(torch, lambda: ssd_chunks_cuda(xb, dt, cum, Bb, Cb, Q))
+        plain = timed_ms(torch, lambda: ssd_chunks_ref(xb, dt, cum, Bb, Cb,
+                                                       Q))
+        scan = timed_ms(torch, lambda: ops.ssd(xb, dt, A, Bb, Cb, chunk=Q))
+        scan_plain = timed_ms(torch, lambda: ssd_ref(xb, dt, A, Bb, Cb,
+                                                     chunk=Q))
+        bms, bby = ssd_bound(*shape, "bfloat16")
+        rows[shape] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                           bound_by=bby, scan_ms=scan,
+                           scan_plain_ms=scan_plain)
+        log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} bfloat16: kernel {ms:.5f} "
+            f"plain {plain:.5f} bound {bms:.6f} ({bby}); scan {scan:.5f} "
+            f"vs ssd_ref {scan_plain:.5f}")
+    torch.cuda.empty_cache()
+    return dict(rows=rows, max_abs_err=worst)
+
+
+# ---------------------------------------------------------------------------
+# Serving at full width
+# ---------------------------------------------------------------------------
+
+# (name, requests, prompt tokens, greedy decode tokens).  (b) is the
+# prefill_32k shape's length with its batch cut from 32 to 1 to fit the
+# time limit.
+REQUESTS = [("a", 4, 2048, 32), ("b", 1, 32768, 8)]
+DECODE_BAR = 0.15    # tests/test_models.py: max|Δ| < 0.15·max(max|ref|, 1)
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_request(torch, model, params, B, L, steps, seed, counts=None):
+    """Prefill B prompts of L seeded tokens, then ``steps`` greedy decode
+    steps, through the serve builders.  ``counts`` (callable → tuple)
+    is read around the prefill and the decode loop."""
+    from repro_torch.serve.serve_step import build_decode_step, \
+        build_prefill
+    dev = model.device
+    prefill = build_prefill(model, "prefill_32k", device=dev,
+                            max_seq=L + steps)
+    decode = build_decode_step(model, "decode_32k", device=dev)
+    prompt = torch.randint(0, model.cfg.vocab, (B, L), dtype=torch.int64,
+                           generator=torch.Generator().manual_seed(seed))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    c0 = counts() if counts else None
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, state = prefill(params, {"tokens": prompt})
+    sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    c1 = counts() if counts else None
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    fed, dec_logits, step_ms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fed.append(tok)
+        logits, state = decode(params, state, tok)
+        dec_logits.append(logits[:, 0])
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        sync(torch, dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    c2 = counts() if counts else None
+    dec = torch.stack(dec_logits, 1).float()
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError("non-finite decode logits")
+    if int(state["length"]) != L + steps:
+        raise AssertionError(f"state length {int(state['length'])} != "
+                             f"{L + steps}")
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else float("nan"))
+    return dict(prompt=prompt, fed=torch.cat(fed, 1), dec_logits=dec,
+                prefill_s=prefill_s, step_ms=step_ms, peak_gib=peak,
+                counts=(c0, c1, c2))
+
+
+def check_decode_vs_forward(torch, model, params, res) -> float:
+    """Each decode step's logits against ``forward`` over the prompt plus
+    the fed tokens, at the same position.  The forward sequence is padded
+    to a whole number of SSD chunks (64) with tokens after every compared
+    position, which causality keeps out of the compared logits."""
+    prompt, fed = res["prompt"], res["fed"].cpu()
+    seq = torch.cat([prompt, fed], 1)
+    n = seq.shape[1]
+    pad = -n % 64 if n > 64 else 0
+    seq = torch.cat([seq, torch.zeros((seq.shape[0], pad),
+                                      dtype=seq.dtype)], 1)
+    with torch.inference_mode():
+        full = model.forward(params, {"tokens": seq.to(model.device)})
+    L, steps = prompt.shape[1], fed.shape[1]
+    ref = full[:, L:L + steps].float()                   # [B, steps, V]
+    err = (res["dec_logits"] - ref).abs().amax(dim=(0, 2))
+    bar = DECODE_BAR * ref.abs().amax(dim=(0, 2)).clamp(min=1.0)
+    if not bool((err < bar).all()):
+        raise AssertionError(f"decode vs forward: max|Δ| per step "
+                             f"{err.tolist()} vs bars {bar.tolist()}")
+    worst = int((err / bar).argmax())
+    log(f"[serve] decode vs forward over {L} + {steps} tokens (padded to "
+        f"{seq.shape[1]}), each step under its bar; closest step {worst}: "
+        f"max|Δ| {float(err[worst]):.4g} < {float(bar[worst]):.4g}; "
+        f"max|Δ| over all steps {float(err.max()):.4g}")
+    return float(err.max())
+
+
+def device_breakdown(torch, fn) -> dict:
+    """Device time (ms) of one call of ``fn`` by kernel, from a
+    ``torch.profiler`` trace: the two ported kernels by name, every other
+    device kernel as ``other``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"fa_kernel": 0.0, "ssd_chunk_kernel": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        name = next((n for n in out if n in ev.key), "other")
+        out[name] += us / 1e3
+    return out
+
+
+def phase_serving(torch) -> dict:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import build
+    from repro_torch.models.hybrid import n_attn_apps
+    from repro_torch.serve.serve_step import build_decode_step, \
+        build_prefill
+    model = build("zamba2-1.2b", device="cuda")
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    # Parameters at the RunConfig's param_dtype (fp32), as the reference
+    # serves them; the layers cast to the compute dtype as they go.
+    params = model.init(0)
+    torch.cuda.synchronize()
+    log(f"[serve] zamba2-1.2b: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {model.n_params():,} parameters from a seeded "
+        f"generator in {time.perf_counter() - t0:.3f} s, parameters "
+        f"{model.run.param_dtype}, compute {model.run.compute_dtype}")
+    per_prefill = (n_attn_apps(cfg), cfg.n_layers)
+    # Warm-up request (cuBLAS handles, the allocator's pools, first
+    # launches), outside the timed and counted run.
+    serve_request(torch, model, params, 1, 64, 2, seed=0)
+    fa_ops.LAUNCHES = 0
+    ssd_ops.LAUNCHES = 0
+    counts = lambda: (fa_ops.LAUNCHES, ssd_ops.LAUNCHES)  # noqa: E731
+    results = {}
+    for name, B, L, steps in REQUESTS:
+        res = serve_request(torch, model, params, B, L, steps, seed=L,
+                            counts=counts)
+        c0, c1, c2 = res["counts"]
+        got = (c1[0] - c0[0], c1[1] - c0[1])
+        if got != per_prefill:
+            raise AssertionError(f"({name}) prefill launched {got} (FA, "
+                                 f"SSD) kernels, expected {per_prefill}")
+        if c2 != c1:
+            raise AssertionError(f"({name}) decode launched a prefill "
+                                 f"kernel")
+        results[name] = res
+        step_ms = res["step_ms"]
+        log(f"[serve] ({name}) {B} x {L}-token prompts: prefill "
+            f"{res['prefill_s']:.3f} s ({B * L / res['prefill_s']:.1f} "
+            f"tokens/s), {got[0]} FA + {got[1]} SSD launches; {steps} "
+            f"greedy decode steps: median {statistics.median(step_ms):.3f} "
+            f"ms, max {max(step_ms):.3f} ms per step (host clock, "
+            f"synchronised), {B * steps * 1e3 / sum(step_ms):.1f} tokens/s; "
+            f"peak allocated {res['peak_gib']:.3f} GiB")
+    launches = counts()
+    check_decode_vs_forward(torch, model, params, results["a"])
+    # Where the device time goes: one more prefill and decode step of each
+    # request set under the profiler; idle share against the unprofiled
+    # wall times above.
+    for name, B, L, _ in REQUESTS:
+        res = results[name]
+        prompt = res["prompt"].cuda()
+        prefill = build_prefill(model, "prefill_32k", max_seq=L + 1)
+        decode = build_decode_step(model, "decode_32k")
+        _, state = prefill(params, {"tokens": prompt})
+        tok = res["fed"][:, :1]
+        for what, fn, wall_ms in (
+                ("prefill", lambda: prefill(params, {"tokens": prompt}),
+                 res["prefill_s"] * 1e3),
+                ("decode step", lambda: decode(params, state, tok),
+                 statistics.median(res["step_ms"]))):
+            by = device_breakdown(torch, fn)
+            busy = sum(by.values())
+            log(f"[serve] ({name}) {what} device time by kernel, ms: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in by.items())
+                + f"; busy {busy:.3f} of {wall_ms:.3f} wall, idle share "
+                f"{max(0.0, 1 - busy / wall_ms):.4f}")
+        del state
+    return dict(fa_launches=launches[0], ssd_launches=launches[1])
+
+
 def main() -> int:
     import torch
     smi = phase_device(torch)
@@ -327,7 +768,13 @@ def main() -> int:
     k = phase_kernel(torch)
     phase_parity()
     launches = phase_full_width(torch)
+    fa = phase_attention(torch)
+    sd = phase_ssd(torch)
+    serve = phase_serving(torch)
     head = k["rows"][HEADLINE]
+    fa_head = fa["rows"][FA_HEADLINE]
+    ssd_head = sd["rows"][SSD_HEADLINE]
+    B, L, H, D, _, _ = FA_HEADLINE
     record = {"kernels": [{
         "name": "affinity",
         "route": "cuda",
@@ -343,6 +790,33 @@ def main() -> int:
         "shape": list(HEADLINE),
         "h2d_ms": head["h2d_ms"],
         "device_ms": head["device_ms"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+        "launches": serve["fa_launches"],
+        "max_abs_err": fa["max_abs_err"],
+        "ms": fa_head["ms"],
+        "plain_ms": fa_head["plain_ms"],
+        "bound_ms": fa_head["bound_ms"],
+        "bound_by": fa_head["bound_by"],
+        "library_ms": fa_head["library_ms"],
+        "shape": [B, H, L, D],
+    }, {
+        "name": "ssd_chunk",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:22",
+        "launches": serve["ssd_launches"],
+        "max_abs_err": sd["max_abs_err"],
+        "ms": ssd_head["ms"],
+        "plain_ms": ssd_head["plain_ms"],
+        "bound_ms": ssd_head["bound_ms"],
+        "bound_by": ssd_head["bound_by"],
+        "library_ms": None,
+        "shape": list(SSD_HEADLINE),
     }]}
     print(json.dumps(record))
     print(smi)

@@ -62,7 +62,7 @@ from ..chaos import ChaosConfig
 from .engine import (STREAM_SNAPSHOT_VERSION, SimState,
                      _object_state_forced, profile_overhead_s)
 from .cycles import CycleRequest, multi_cycle
-from ..kernels.affinity import ops as aff_ops
+from ..device import resolve_device
 from ..obs import events as obs_events
 from ..obs import monitor as obs_monitor
 from ..obs.events import EventLog
@@ -171,7 +171,7 @@ class BatchSimEngine:
         seed, and injections stay bit-exact with a ``SimEngine`` run of
         the same (policy, workflows, seed, chaos)."""
         self.cfg = cfg
-        self.device = aff_ops.resolve_device(device)
+        self.device = resolve_device(device)
         self.batched = batched
         self.redistribute = redistribute
         pre = predistributed or [None] * len(members)

@@ -52,6 +52,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels.affinity import ops as aff_ops
 from ..sim.cloud import VM, VMPool
 from .scheduler import Placement, Policy, select
@@ -451,7 +452,7 @@ def multi_cycle(cfg: PlatformConfig, requests: Sequence[CycleRequest],
     ``device``: where rounds are scored — ``"cuda"`` (the default for
     ``None``) runs the CUDA kernel, ``"cpu"`` the plain torch version.
     """
-    dev = aff_ops.resolve_device(device)
+    dev = resolve_device(device)
     rb = _ROUND_BUFFERS.for_device(dev)
     while True:
         active = []

@@ -43,7 +43,7 @@ from .types import (
     degradation_tables,
 )
 from ..chaos import ChaosConfig, chaos_draws
-from ..kernels.affinity import ops as aff_ops
+from ..device import resolve_device
 from ..obs import events as obs_events
 from ..obs import monitor as obs_monitor
 from ..obs import timeseries as obs_ts
@@ -1419,7 +1419,7 @@ class SimEngine(SimState):
                          profile=profile, events=events, chaos=chaos,
                          monitor=monitor)
         self.batched = batched
-        self.device = aff_ops.resolve_device(device)
+        self.device = resolve_device(device)
 
     # ---- main loop -----------------------------------------------------------
     def run(self) -> SimResult:

@@ -1,9 +1,9 @@
 """Build and launch the CUDA affinity kernel (``csrc/affinity.cu``).
 
 The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C entry point, cached under ``build/`` next
-to this file in a directory keyed on the source's hash, and loaded with
-``ctypes``.  Nothing is built or loaded when this module is imported.
+shared library with a plain C entry point (``kernels/build.py``), cached
+under ``build/`` next to this file, and loaded with ``ctypes``.  Nothing
+is built or loaded when this module is imported.
 
 Build flags: ``-O3 -fmad=false`` and no fast-math — the kernel must stay
 bitwise equal to the plain torch version (``ref.py``), so every fp32
@@ -12,86 +12,26 @@ division is IEEE round-to-nearest and no multiply-add is contracted.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
-from typing import Optional
 
 import torch
 
+from ..build import CudaLibrary, check_launch
 from .ref import AffinityOut, folded_scalars
 
-_HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "affinity.cu"
-BUILD_ROOT = _HERE / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
 MAX_GRID_Y = 65535
 
-_lib: Optional[ctypes.CDLL] = None
-# What the last compile in this process reported: seconds and nvcc's
-# output (``-Xptxas -v``: registers, spills).
-build_info: dict = {}
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.affinity_launch
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [P] * 9 + [I] * 3 + [F] * 4 + [P] * 5
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    raise RuntimeError("nvcc not found: the affinity kernel is built at "
-                       "first use and needs the CUDA toolkit")
-
-
-def build() -> Path:
-    """Compile the kernel if this source has not been built yet; return
-    the shared library's path."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out_dir = BUILD_ROOT / f"affinity-{digest[:16]}"
-    lib = out_dir / "libaffinity.so"
-    if lib.exists():
-        return lib
-    nvcc = _nvcc()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    # Build into a temporary name and rename: a concurrent process never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      log=(proc.stdout + proc.stderr).strip())
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.affinity_launch
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P] * 9 + [I] * 3 + [F] * 4 + [P] * 5
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+LIB = CudaLibrary("affinity",
+                  Path(__file__).resolve().parent / "csrc" / "affinity.cu",
+                  ("-fmad=false",), _bind)
 
 
 _F32, _I32 = torch.float32, torch.int32
@@ -140,10 +80,9 @@ def affinity_cuda(size_mi, out_mb, budget, missing_mb, cont_ms, tier,
     est_f = torch.empty((B, T), dtype=_F32, device=device)
     est_c = torch.empty((B, T), dtype=_F32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _load().affinity_launch(
+    err = LIB.load().affinity_launch(
         *(a.data_ptr() for a in args), B, T, V, k, rgs_r, rgs_w, rbp,
         best_vm.data_ptr(), best_tier.data_ptr(), est_f.data_ptr(),
         est_c.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"affinity kernel launch failed: CUDA error {err}")
+    check_launch(err, "affinity")
     return AffinityOut(best_vm, best_tier, est_f, est_c)

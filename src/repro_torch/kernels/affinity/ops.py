@@ -15,28 +15,11 @@ show that its main path went through the kernel.
 """
 from __future__ import annotations
 
-from typing import Union
-
-import torch
-
 from .ref import AffinityOut, affinity_ref
 
 # Kernel launches made through this module (reset it to 0 and read it
 # back around a run).
 LAUNCHES = 0
-
-
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """``None`` means ``"cuda"``.  A CUDA device with no CUDA available
-    raises: the port never carries on on the CPU unless asked to."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain torch version on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def affinity_batch(size_mi, out_mb, budget, missing_mb, cont_ms, tier,

@@ -141,12 +141,13 @@ def test_dispatch_cpu_tensor_takes_plain_version():
 
 
 def test_resolve_device():
-    assert tops.resolve_device("cpu") == torch.device("cpu")
+    from repro_torch.device import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            tops.resolve_device(None)
+            resolve_device(None)
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            tops.resolve_device("cuda")
+            resolve_device("cuda")
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():

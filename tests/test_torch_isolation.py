@@ -1,8 +1,10 @@
 """repro_torch stands alone: no jax, nothing of the reference package.
 
 * A subprocess that blocks ``jax`` (``sys.modules["jax"] = None``)
-  imports ``repro_torch.core.batch_engine`` and runs a tiny CPU grid;
-  afterwards no ``repro.*`` or ``jax*`` module is loaded.
+  imports ``repro_torch.core.batch_engine`` and runs a tiny CPU grid,
+  then builds the zamba2-1.2b smoke model on the CPU, prefills a prompt
+  through the serve builders and decodes one token; afterwards no
+  ``repro.*`` or ``jax*`` module is loaded.
 * A source scan of ``src/repro_torch/`` and ``chip_smoke.py`` finds no
   ``import jax`` and no import of ``repro.``.
 * Without a CUDA device, the entry points refuse to run unless the caller
@@ -34,6 +36,18 @@ wl = generate_workload(cfg, WorkloadSpec(n_workflows=3, seed=0,
 grid = simulate_batch(cfg, ALL_POLICIES, wl, seed=0, batched=True,
                       device="cpu")
 assert len(grid.entries) == len(ALL_POLICIES)
+import torch
+from repro_torch.models import build
+from repro_torch.serve.serve_step import build_decode_step, build_prefill
+m = build("zamba2-1.2b", smoke=True, device="cpu")
+params = m.init(0)
+toks = torch.randint(0, m.cfg.vocab, (2, 16),
+                     generator=torch.Generator().manual_seed(0))
+logits, state = build_prefill(m, "prefill_32k", device="cpu",
+                              max_seq=24)(params, {"tokens": toks})
+logits, state = build_decode_step(m, "decode_32k", device="cpu")(
+    params, state, logits.argmax(-1))
+assert logits.shape == (2, 1, m.cfg.vocab) and int(state["length"]) == 17
 bad = sorted(m for m in sys.modules
              if m == "repro" or m.startswith("repro.")
              or m == "jax" or m.startswith(("jax.", "jaxlib")))
@@ -88,3 +102,21 @@ def test_entry_points_default_to_cuda():
         SimEngine(cfg, policy, wl, seed=0)
     # Asking for the CPU runs.
     assert SimEngine(cfg, policy, wl, seed=0, device="cpu").run().workflows
+
+
+def test_serving_entry_points_default_to_cuda():
+    from repro_torch.models import build
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.serve.serve_step import build_decode_step, \
+        build_prefill
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build("zamba2-1.2b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"w": [1.0]})
+    m = build("zamba2-1.2b", smoke=True, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_prefill(m, "prefill_32k")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_decode_step(m, "decode_32k")
