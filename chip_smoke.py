@@ -23,9 +23,10 @@ Phases (each raises on failure, so the script exits non-zero):
 6. attention and SSD kernels vs plain — flash attention and the SSD
    chunk kernel against their plain torch versions on the card at the
    reference sweep's shapes and at zamba2-1.2b's (and mamba2-780m's)
-   serving shapes, both request sets' lengths included (bf16 attention
-   element by element within one bf16 step of the plain version); prints
-   kernel, plain, bound and library times;
+   serving shapes, both request sets' lengths included (bf16 attention,
+   on the tensor-core kernel at every head width, element by element
+   within one bf16 step of the plain version); prints kernel, plain,
+   bound and library times and achieved TFLOP/s;
 7. serving at full width — zamba2-1.2b (38 layers, d_model 2048, seeded
    random fp32 weights, bf16 compute) through ``build`` and the serve
    builders:
@@ -366,7 +367,10 @@ FA_SWEEP = [(2, 256, 4, 64, True, "float32"),
             (1, 128, 2, 128, False, "float32"),
             (2, 200, 3, 64, True, "float32"),
             (1, 96, 1, 32, True, "float32"),
-            (2, 256, 2, 64, True, "bfloat16")]
+            (2, 256, 2, 64, True, "bfloat16"),
+            (1, 128, 2, 128, False, "bfloat16"),
+            (2, 200, 3, 64, True, "bfloat16"),
+            (1, 96, 1, 32, True, "bfloat16")]
 FA_SERVING = [(4, 2048, 32, 64, True, "bfloat16"),
               (1, 32768, 32, 64, True, "bfloat16")]
 FA_HEADLINE = FA_SERVING[0]
@@ -405,11 +409,15 @@ def bound(flops: float, nbytes: float, dtype: str):
                                                               "bytes")
 
 
+def fa_pairs(B, L, H, causal):
+    """Unmasked (q, k) pairs."""
+    return B * H * (L * (L + 1) // 2 if causal else L * L)
+
+
 def fa_bound(B, L, H, D, causal, dtype):
     """4·D flops per unmasked (q, k) pair; q, k, v and o moved once."""
-    pairs = L * (L + 1) // 2 if causal else L * L
-    return bound(4 * B * H * D * pairs, 4 * B * L * H * D * esize(dtype),
-                 dtype)
+    return bound(4 * D * fa_pairs(B, L, H, causal),
+                 4 * B * L * H * D * esize(dtype), dtype)
 
 
 def ssd_bound(B, L, H, P, N, Q, dtype):
@@ -451,11 +459,14 @@ def phase_attention(torch) -> dict:
         flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
     dev = torch.device("cuda")
-    log("[fa] per call, ms (CUDA events, median after a warm-up): kernel; "
-        "plain = the torch version on the card; library = "
-        "F.scaled_dot_product_attention(is_causal) on the same tensors "
-        "([B, H, L, D] views; timed only, never used by the port); bound "
-        "= the least time for the work and what bounds it")
+    log("[fa] per call, ms (CUDA events, median after a warm-up): kernel "
+        "(bf16: tensor cores; fp32: CUDA cores); plain = the torch version "
+        "on the card; library = F.scaled_dot_product_attention(is_causal) "
+        "on the same tensors ([B, H, L, D] views; timed only, never used "
+        "by the port); bound = the least time for the work (4·D flops per "
+        "pair) and what bounds it; TFLOP/s = those flops over the kernel "
+        "time; MMA floor = the bf16 kernel's own tensor-core work (8·D "
+        "flops per pair: p·v three times) at the bf16 peak")
     rows, worst = {}, 0.0
     for i, shape in enumerate(FA_SWEEP + FA_SERVING):
         B, L, H, D, causal, dtype = shape
@@ -488,11 +499,20 @@ def phase_attention(torch) -> dict:
         lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
         bms, bby = fa_bound(B, L, H, D, causal, dtype)
+        pairs = fa_pairs(B, L, H, causal)
+        tflops = 4 * D * pairs / (ms * 1e-3) / 1e12
         rows[shape] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=bms, bound_by=bby, err=err)
+                           bound_ms=bms, bound_by=bby, err=err,
+                           tflops=tflops)
+        extra = ""
+        if dtype == "bfloat16":
+            extra += (f"; MMA floor "
+                      f"{8 * D * pairs / BF16_OPS_PER_S * 1e3:.6f}")
         log(f"[fa] [B,H,L,D]={[B, H, L, D]} causal={causal} {dtype}: "
             f"kernel {ms:.5f} plain {plain:.5f} library {lib:.5f} bound "
-            f"{bms:.6f} ({bby}); max|Δ| {err:.3g} <= {FA_TOL[dtype]}{rel}")
+            f"{bms:.6f} ({bby}); {tflops:.1f} TFLOP/s, kernel/library "
+            f"{ms / lib:.2f}{extra}; max|Δ| {err:.3g} <= "
+            f"{FA_TOL[dtype]}{rel}")
         del q, k, v, got, want
     torch.cuda.empty_cache()
     return dict(rows=rows, max_abs_err=worst)
@@ -804,6 +824,7 @@ def main() -> int:
         "bound_by": fa_head["bound_by"],
         "library_ms": fa_head["library_ms"],
         "shape": [B, H, L, D],
+        "tflops": fa_head["tflops"],
     }, {
         "name": "ssd_chunk",
         "route": "cuda",

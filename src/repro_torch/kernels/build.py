@@ -73,8 +73,10 @@ class CudaLibrary:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         try:
+            # The source comes first, so that a library flag (``-l``)
+            # follows the object that needs it.
             proc = subprocess.run(
-                [compiler, *self.flags, "-o", tmp, str(self.source)],
+                [compiler, str(self.source), *self.flags, "-o", tmp],
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {self.source.name} "

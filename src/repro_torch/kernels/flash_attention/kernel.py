@@ -3,9 +3,20 @@
 
 Compiled at first use with ``nvcc`` for ``sm_90a`` (``kernels/build.py``)
 and loaded with ``ctypes``; nothing is built when this module is
-imported.  Build flags: ``-O3``, no fast-math (``expf`` and the final
-division are the accurate ones), multiply-add contraction allowed — the
-kernel is held to a tolerance against the plain version, not to bits.
+imported.  Build flags: ``kernels/build.py``'s base flags (``-O3``,
+``-Xptxas -v``) and ``-lcuda``, for the driver's
+``cuTensorMapEncodeTiled`` that builds the TMA tensor maps; no
+``--use_fast_math``, multiply-add contraction allowed — the kernel is
+held to a tolerance against the plain version, not to bits.  The bf16
+kernel takes its exponentials from ``ex2.approx.ftz`` on the
+special-function unit (inline PTX); the fp32 kernel uses the accurate
+``expf``.  Both divide by the row sum with the accurate division.
+
+The dtype picks the kernel: bf16 (the model's serving dtype) goes to
+``fa_kernel_tc`` (wgmma on the tensor cores, K and V through a TMA ring,
+p split into three bf16 terms so that the products stay exact); fp32
+(the reference sweep's dtype, held to 2e-5) goes to ``fa_kernel_f32`` on
+the CUDA cores.
 """
 from __future__ import annotations
 
@@ -31,8 +42,8 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 LIB = CudaLibrary(
     "flash_attention",
-    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu", (),
-    _bind)
+    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
+    ("-lcuda",), _bind)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
