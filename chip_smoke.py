@@ -10,32 +10,39 @@ Phases (each raises on failure, so the script exits non-zero):
 1. device — requires CUDA, prints the card's name and power limit; turns
    TF32 off for matmuls and cuDNN (the reference's numbers are fp32 or
    bf16, never TF32);
-2. build — compiles all three kernels from ``src/`` with nvcc, one
-   process per source, started together; prints each build's registers,
-   shared memory and spills;
+2. build — compiles the three kernel sources from ``src/`` with nvcc,
+   one process per source, started together; prints each build's
+   registers, shared memory and spills;
 3. affinity kernel vs plain — the CUDA kernel against the plain torch
    version on the card, bitwise, at the reference tests' shapes, the
-   simulator's round buckets and a large round; prints per-shape times;
+   simulator's round buckets and a large round, both through the nine-
+   tensor wrapper and through a packed round (stage, one copy over, the
+   kernel, one copy back, one wait); prints per-shape times, the packed
+   round's time and its link bound at a host-to-device rate measured
+   from one large page-locked copy;
 4. engine parity — ``simulate_batch`` scoring rounds on the card against
    the host-only ``SimEngine``, identical results;
 5. full width — the paper cell (100 workflows of all sizes at 12 wf/min,
    all five policies, seed 0) through ``simulate_batch`` on the card;
 6. attention and SSD kernels vs plain — flash attention and the SSD
-   chunk kernel against their plain torch versions on the card at the
-   reference sweep's shapes and at zamba2-1.2b's (and mamba2-780m's)
-   serving shapes, both request sets' lengths included (bf16 attention,
-   on the tensor-core kernel at every head width, element by element
-   within one bf16 step of the plain version); prints kernel, plain,
-   bound and library times and achieved TFLOP/s;
+   chunk and carry kernels against their plain torch versions on the
+   card at the reference sweep's shapes and at zamba2-1.2b's (and
+   mamba2-780m's) serving shapes, both request sets' lengths included
+   (bf16 attention, on the tensor-core kernel at every head width,
+   element by element within one bf16 step of the plain version; the
+   bf16 SSD chunk pass on the tensor cores, with the worst ratio to its
+   bar at one, two and three bf16 terms); prints kernel, plain, bound
+   and library times and achieved TFLOP/s, and the whole ``ssd()``;
 7. serving at full width — zamba2-1.2b (38 layers, d_model 2048, seeded
    random fp32 weights, bf16 compute) through ``build`` and the serve
    builders:
    after an untimed warm-up request, (a) 4 requests × 2048-token
    prompts, 32 greedy decode tokens each, every step held against
    ``forward``; (b) 1 request × 32,768-token prompt, 8 decode tokens.
-   Every prefill's attention and SSD go through the kernels (launch
-   counts checked); a ``torch.profiler`` pass then splits one prefill and
-   one decode step of each by kernel and gives the device's idle share.
+   Every prefill's attention and SSD (chunk and carry) go through the
+   kernels (launch counts checked); a ``torch.profiler`` pass then splits
+   one prefill and one decode step of each by kernel and gives the
+   device's idle share.
 
 The second-last lines are the kernel record (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is the device record.
@@ -200,32 +207,89 @@ def phase_build() -> None:
     log(f"[build] all {len(libs)} kernels built in parallel in {wall:.3f} s")
 
 
+def link_rate(torch) -> float:
+    """Host-to-device bytes per second of one large page-locked copy
+    (256 MiB, CUDA events, median of three after a warm-up)."""
+    host = torch.empty(1 << 28, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty_like(host, device="cuda")
+    dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return host.numel() / statistics.median(times)
+
+
+def host_ms(fn, run=RUN, reps=REPS) -> float:
+    """Median over ``reps`` of (host-clock time of ``run`` calls) / ``run``,
+    for work that ends in a synchronisation of its own."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        for _ in range(run):
+            fn()
+        times.append((time.perf_counter() - t) * 1e3 / run)
+    return statistics.median(times)
+
+
+def round_bytes(B, T, V) -> int:
+    """Bytes a packed round moves over the link: its nine arrays at its
+    own layout one way, the four packed [B, T] outputs back."""
+    from repro_torch.kernels.affinity.ops import round_layout
+    return round_layout(B, T, V)[1] + 16 * B * T
+
+
 def phase_kernel(torch) -> dict:
     from repro_torch.kernels.affinity.kernel import affinity_cuda
+    from repro_torch.kernels.affinity.ops import PackedRound, affinity_round
     from repro_torch.kernels.affinity.ref import affinity_ref
     dev = torch.device("cuda")
+    rate = link_rate(torch)
     shapes = [((b, t, v), 0) for b in (1, 3) for t, v in TEST_TV]
     shapes += [(s, s[1] // 2) for s in BUCKETS]
     shapes += [(LARGE, 0)]
+    log(f"[kernel] link: one 256 MiB page-locked host-to-device copy at "
+        f"{rate / 1e9:.3f} GB/s")
     log("[kernel] no single PyTorch call computes this function "
         "(library_ms = null)")
     log("[kernel] per call, ms: kernel = wrapper + launch, 20 back-to-back "
         "(CUDA events); device = the kernel alone (torch.profiler); h2d = "
-        "the round's nine tensors from pinned memory; plain = the torch "
-        "version on the card; bound = the least time for the work")
-    log("[kernel] shape             kernel    device      h2d     plain"
-        "     bound")
+        "the round's nine tensors from pinned memory; round = a packed "
+        "round: stage the nine arrays, one copy over, the kernel, one copy "
+        "of the packed outputs back, one wait (host clock); link = the "
+        "packed round's bytes at the measured link rate; plain = the torch "
+        "version on the card; bound = the least time for the scoring")
+    log("[kernel] shape             kernel    device      h2d     round"
+        "      link     plain     bound")
     max_err, rows = 0.0, {}
     for i, ((B, T, V), inert) in enumerate(shapes):
-        host = [torch.from_numpy(a).pin_memory()
-                for a in make_round(np.random.default_rng(i), B, T, V, inert)]
+        arrs = make_round(np.random.default_rng(i), B, T, V, inert)
+        host = [torch.from_numpy(a).pin_memory() for a in arrs]
         args = [h.to(dev) for h in host]
         want = affinity_ref(*args, **GS)
         got = affinity_cuda(*args, **GS)
+        view = PackedRound(B, T, V, dev).view(B, T, V)
+
+        def stage_and_score():
+            for dst, src in zip(view.arrays, arrs):
+                dst[...] = src
+            return affinity_round(view, **GS)
+        packed = stage_and_score()
         torch.cuda.synchronize()
-        for name, a, b in zip(FIELDS, want, got):
+        for name, a, b, c in zip(FIELDS, want, got, packed):
             if not torch.equal(a, b):
                 raise AssertionError(f"kernel != plain at {(B, T, V)}: {name}")
+            if not np.array_equal(a.cpu().numpy(), c):
+                raise AssertionError(f"packed round != plain at "
+                                     f"{(B, T, V)}: {name}")
             max_err = max(max_err, float((a.double() - b.double())
                                          .abs().max()))
         launch = functools.partial(affinity_cuda, *args, **GS)
@@ -233,14 +297,19 @@ def phase_kernel(torch) -> dict:
         dev_ms = device_ms(torch, launch, "affinity_kernel")
         h2d = per_call_ms(torch, lambda: [h.to(dev, non_blocking=True)
                                           for h in host])
+        rnd = host_ms(stage_and_score)
+        link = round_bytes(B, T, V) / rate * 1e3
         plain = per_call_ms(torch, lambda: affinity_ref(*args, **GS), run=5)
         bound, bound_by = round_bound(B, T, V)
         rows[(B, T, V)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                               h2d_ms=h2d, bound_ms=bound, bound_by=bound_by)
+                               h2d_ms=h2d, round_ms=rnd, link_ms=link,
+                               bound_ms=bound, bound_by=bound_by)
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.5f}"
         log(f"[kernel] {str([B, T, V]):16s} {ms:9.5f} {dev_txt:>9s} "
-            f"{h2d:8.5f} {plain:9.5f} {bound:9.6f}  equal")
-    return dict(max_abs_err=max_err, rows=rows)
+            f"{h2d:8.5f} {rnd:9.5f} {link:9.5f} {plain:9.5f} {bound:9.6f}"
+            f"  equal")
+        del view
+    return dict(max_abs_err=max_err, rows=rows, link_rate=rate)
 
 
 def signature(res):
@@ -296,7 +365,7 @@ def phase_parity() -> None:
         cycles.AUCTION_TAIL_PAIRS = tail
 
 
-def phase_full_width(torch) -> int:
+def phase_full_width(torch, rate: float) -> int:
     from repro_torch.core import cycles
     from repro_torch.core.batch_engine import simulate_batch
     from repro_torch.core.scheduler import ALL_POLICIES
@@ -311,14 +380,16 @@ def phase_full_width(torch) -> int:
     n_tasks = sum(w.n_tasks for w in wl)
     buckets = collections.Counter()
     round_s = [0.0]
+    link_bytes = [0]
     score_round = cycles._score_round
 
-    def counted(cfg_, tensors, device):
-        # Host clock around one round's copy-in, scoring and copy-back
-        # (the copy-back synchronises the stream).
-        buckets[tuple(tensors[3].shape)] += 1
+    def counted(cfg_, view):
+        # Host clock around one round's copy-in, scoring, copy-back and
+        # wait; the bytes it moved over the link.
+        buckets[view.shape] += 1
+        link_bytes[0] += round_bytes(*view.shape)
         t = time.perf_counter()
-        out = score_round(cfg_, tensors, device)
+        out = score_round(cfg_, view)
         round_s[0] += time.perf_counter() - t
         return out
 
@@ -339,8 +410,11 @@ def phase_full_width(torch) -> int:
     log(f"[full] paper cell: {len(wl)} workflows, {n_tasks} tasks, "
         f"{len(ALL_POLICIES)} policies, seed 0")
     log(f"[full] wall {wall:.3f} s, kernel launches {launches}, rounds on "
-        f"the card (H2D + kernel + D2H, host clock) {round_s[0]:.3f} s = "
-        f"{round_s[0] / wall:.4f} of wall")
+        f"the card (H2D + kernel + D2H + wait, host clock) "
+        f"{round_s[0]:.3f} s = {round_s[0] / wall:.4f} of wall, "
+        f"{round_s[0] / launches * 1e3:.5f} ms per round; their "
+        f"{link_bytes[0] / 1e9:.4f} GB over the link need "
+        f"{link_bytes[0] / rate:.4f} s at {rate / 1e9:.3f} GB/s")
     top = ", ".join(f"{list(k)}x{v}" for k, v in buckets.most_common(12))
     log(f"[full] launches by [B,T,V] bucket ({len(buckets)} buckets): {top}")
     for e in grid.entries:
@@ -532,16 +606,44 @@ def ssd_inputs(torch, shape, seed):
     return x, dt, A, Bm, Cm
 
 
+def carry_bound(B, L, H, P, N, Q, dtype):
+    """2·N flops per y element on the CUDA cores; y_intra and the chunk
+    states read once (fp32), C and cum, y written in ``dtype`` and the
+    final state (fp32)."""
+    nc = L // Q
+    flops = 2 * B * L * H * N * P + 2 * B * nc * H * N * P
+    nbytes = (B * L * H * P * (4 + esize(dtype)) + B * nc * H * N * P * 4
+              + B * L * N * esize(dtype) + B * L * H * 4 + B * H * N * P * 4)
+    return bound(flops, nbytes, "float32")
+
+
 def phase_ssd(torch) -> dict:
     from repro_torch.kernels.ssd import ops
-    from repro_torch.kernels.ssd.kernel import ssd_chunks_cuda
-    from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_chunks_ref,
-                                             ssd_ref)
-    log("[ssd] per call, ms: kernel = the chunk kernel; plain = its torch "
-        "version (ssd_chunks_ref); scan = the whole ssd() through the "
-        "kernel vs ssd_ref; bound = the least time for the chunk work; no "
-        "single PyTorch call computes this function (library_ms = null)")
-    rows, worst = {}, 0.0
+    from repro_torch.kernels.ssd.kernel import (TERMS, ssd_carry_cuda,
+                                                ssd_chunks_cuda)
+    from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_carry_ref,
+                                             ssd_chunks_ref, ssd_ref)
+    log("[ssd] per call, ms: chunk = the chunk kernel (bf16: tensor cores, "
+        f"{TERMS} bf16 terms); chunk plain = ssd_chunks_ref; carry = the "
+        "carry kernel (y in bf16); carry plain = ssd_carry_ref (ssd_combine "
+        "and the cast); scan = the whole ssd() through both kernels vs "
+        "ssd_ref; bound = the least time for each kernel's work; no single "
+        "PyTorch call computes either function (library_ms = null)")
+    rows, worst, carry_worst = {}, 0.0, 0.0
+
+    def hold(shape, name, got, want, bar_rel=SSD_REL):
+        nonlocal worst, carry_worst
+        err, scale = max_err(torch, got, want), float(want.abs().max())
+        if not err <= bar_rel * scale:
+            raise AssertionError(f"ssd {shape} {name}: max|Δ| {err} > "
+                                 f"{bar_rel} * {scale}")
+        if name.startswith("carry"):
+            carry_worst = max(carry_worst, err)
+        else:
+            worst = max(worst, err)
+        log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} {name}: max|Δ| {err:.3g} "
+            f"<= {bar_rel} * max|ref| {scale:.4g}")
+
     for i, shape in enumerate(SSD_SWEEP):
         Q = shape[-1]
         x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 200 + i)
@@ -556,45 +658,88 @@ def phase_ssd(torch) -> dict:
         log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} float32: max|Δ| y "
             f"{errs[0]:.3g} state {errs[1]:.3g} <= {SSD_ATOL}")
     for i, shape in enumerate(SSD_SERVING):
-        Q = shape[-1]
+        B, L, H, P, N, Q = shape
         x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 300 + i)
         # The serving path feeds x, B and C in bf16.
         xb, Bb, Cb = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+        del x, Bm, Cm
         cum = chunk_cumsum(dt, A, Q)
+        want = tuple(t.contiguous()
+                     for t in ssd_chunks_ref(xb, dt, cum, Bb, Cb, Q))
         got = ssd_chunks_cuda(xb, dt, cum, Bb, Cb, Q)
-        want = ssd_chunks_ref(xb, dt, cum, Bb, Cb, Q)
+        hold(shape, "y_intra", got[0], want[0])
+        hold(shape, "chunk states", got[1], want[1])
+        del got
+        # The worst ratio to the bar by bf16 term count (the kernel takes
+        # TERMS; the others are measured, not held).
+        ratios = {}
+        for terms in (1, 2, 3):
+            g = ssd_chunks_cuda(xb, dt, cum, Bb, Cb, Q, terms=terms)
+            ratios[terms] = max(max_err(torch, a, w)
+                                / (SSD_REL * float(w.abs().max()))
+                                for a, w in zip(g, want))
+            del g
+        log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} worst max|Δ| / bar by bf16 "
+            f"terms: " + ", ".join(f"{t}: {r:.4g}" for t, r in
+                                   ratios.items()))
+        # The carry kernel against ssd_combine on the plain chunk outputs,
+        # with and without an initial state, y in fp32.
+        h0 = torch.randn((B, H, N, P), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(400 + i))
+        for init, tag in ((None, ""), (h0, " (init state)")):
+            gy, gf = ssd_carry_cuda(*want, cum, Cb, Q, init)
+            wy, wf = ssd_carry_ref(*want, cum, Cb, Q, init)
+            hold(shape, "carry y" + tag, gy, wy)
+            hold(shape, "carry final state" + tag, gf, wf)
+            del gy, gf, wy, wf
         # The whole scan on the same (bf16-valued) inputs in fp32, so that
-        # y is compared before any bf16 rounding.
+        # y is compared before any bf16 rounding; then in bf16, y within
+        # one bf16 step of the fp32 reference.
         xf, Bf, Cf = xb.float(), Bb.float(), Cb.float()
         got_scan = ops.ssd(xf, dt, A, Bf, Cf, chunk=Q)
         want_scan = ssd_ref(xf, dt, A, Bf, Cf, chunk=Q)
-        torch.cuda.synchronize()
-        for name, g, w in (("y_intra", got[0], want[0]),
-                           ("chunk states", got[1], want[1]),
-                           ("y", got_scan[0], want_scan[0]),
-                           ("final state", got_scan[1], want_scan[1])):
-            err, scale = max_err(torch, g, w), float(w.abs().max())
-            if not err <= SSD_REL * scale:
-                raise AssertionError(f"ssd {shape} {name}: max|Δ| {err} > "
-                                     f"{SSD_REL} * {scale}")
-            worst = max(worst, err)
-            log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} {name}: max|Δ| "
-                f"{err:.3g} <= {SSD_REL} * max|ref| {scale:.4g}")
+        hold(shape, "y", got_scan[0], want_scan[0])
+        hold(shape, "final state", got_scan[1], want_scan[1])
+        del got_scan, xf, Bf, Cf
+        yb, fb = ops.ssd(xb, dt, A, Bb, Cb, chunk=Q)
+        wy = want_scan[0]
+        step = float(((yb.float() - wy).abs()
+                      / (2.0 ** -8 * wy.abs() + SSD_REL * float(
+                          wy.abs().max()))).max())
+        if not step <= 1.0:
+            raise AssertionError(f"ssd {shape} bf16 y: {step} times its "
+                                 f"bound 2^-8·|ref| + {SSD_REL}·max|ref|")
+        hold(shape, "final state (bf16 scan)", fb, want_scan[1])
+        log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} y (bf16 scan): worst |Δ| / "
+            f"(2^-8·|ref| + {SSD_REL}·max|ref|) {step:.4g} <= 1")
+        del yb, fb, want_scan, wy
+        yi, st = want
         ms = timed_ms(torch, lambda: ssd_chunks_cuda(xb, dt, cum, Bb, Cb, Q))
         plain = timed_ms(torch, lambda: ssd_chunks_ref(xb, dt, cum, Bb, Cb,
                                                        Q))
+        carry = timed_ms(torch, lambda: ssd_carry_cuda(
+            yi, st, cum, Cb, Q, None, torch.bfloat16))
+        carry_plain = timed_ms(torch, lambda: ssd_carry_ref(
+            yi, st, cum, Cb, Q, None, torch.bfloat16))
         scan = timed_ms(torch, lambda: ops.ssd(xb, dt, A, Bb, Cb, chunk=Q))
         scan_plain = timed_ms(torch, lambda: ssd_ref(xb, dt, A, Bb, Cb,
                                                      chunk=Q))
         bms, bby = ssd_bound(*shape, "bfloat16")
+        cbms, cbby = carry_bound(*shape, "bfloat16")
         rows[shape] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
-                           bound_by=bby, scan_ms=scan,
-                           scan_plain_ms=scan_plain)
-        log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} bfloat16: kernel {ms:.5f} "
-            f"plain {plain:.5f} bound {bms:.6f} ({bby}); scan {scan:.5f} "
-            f"vs ssd_ref {scan_plain:.5f}")
-    torch.cuda.empty_cache()
-    return dict(rows=rows, max_abs_err=worst)
+                           bound_by=bby, carry_ms=carry,
+                           carry_plain_ms=carry_plain, carry_bound_ms=cbms,
+                           carry_bound_by=cbby, scan_ms=scan,
+                           scan_plain_ms=scan_plain, ratios=ratios)
+        log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} bfloat16: chunk {ms:.5f} "
+            f"plain {plain:.5f} bound {bms:.6f} ({bby}); carry {carry:.5f} "
+            f"plain {carry_plain:.5f} bound {cbms:.6f} ({cbby}); scan "
+            f"{scan:.5f} vs ssd_ref {scan_plain:.5f}")
+        del xb, Bb, Cb, want, yi, st, cum, h0
+        torch.cuda.empty_cache()
+    return dict(rows=rows, max_abs_err=worst, carry_max_abs_err=carry_worst,
+                terms=TERMS)
 
 
 # ---------------------------------------------------------------------------
@@ -688,8 +833,10 @@ def check_decode_vs_forward(torch, model, params, res) -> float:
 
 def device_breakdown(torch, fn) -> dict:
     """Device time (ms) of one call of ``fn`` by kernel, from a
-    ``torch.profiler`` trace: the two ported kernels by name, every other
-    device kernel as ``other``."""
+    ``torch.profiler`` trace: the ported kernels by name (``ssd_chunk``
+    covers ``ssd_chunk_tc`` and ``ssd_chunk_kernel``, ``ssd_carry`` covers
+    ``ssd_carry_tc`` and ``ssd_carry_kernel``), every other device kernel
+    as ``other``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -697,7 +844,8 @@ def device_breakdown(torch, fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = {"fa_kernel": 0.0, "ssd_chunk_kernel": 0.0, "other": 0.0}
+    out = {"fa_kernel": 0.0, "ssd_chunk": 0.0, "ssd_carry": 0.0,
+           "other": 0.0}
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
             continue
@@ -706,6 +854,15 @@ def device_breakdown(torch, fn) -> dict:
         name = next((n for n in out if n in ev.key), "other")
         out[name] += us / 1e3
     return out
+
+
+def check_breakdown(by: dict, what: str) -> None:
+    """A prefill runs all three ported kernels: each must show device
+    time in its own column."""
+    missing = [k for k in ("fa_kernel", "ssd_chunk", "ssd_carry")
+               if not by[k] > 0]
+    if missing:
+        raise AssertionError(f"{what}: no device time under {missing}")
 
 
 def phase_serving(torch) -> dict:
@@ -726,22 +883,25 @@ def phase_serving(torch) -> dict:
         f"{cfg.d_model}, {model.n_params():,} parameters from a seeded "
         f"generator in {time.perf_counter() - t0:.3f} s, parameters "
         f"{model.run.param_dtype}, compute {model.run.compute_dtype}")
-    per_prefill = (n_attn_apps(cfg), cfg.n_layers)
+    per_prefill = (n_attn_apps(cfg), cfg.n_layers, cfg.n_layers)
     # Warm-up request (cuBLAS handles, the allocator's pools, first
     # launches), outside the timed and counted run.
     serve_request(torch, model, params, 1, 64, 2, seed=0)
     fa_ops.LAUNCHES = 0
     ssd_ops.LAUNCHES = 0
-    counts = lambda: (fa_ops.LAUNCHES, ssd_ops.LAUNCHES)  # noqa: E731
+    ssd_ops.CARRY_LAUNCHES = 0
+    counts = lambda: (fa_ops.LAUNCHES, ssd_ops.LAUNCHES,  # noqa: E731
+                      ssd_ops.CARRY_LAUNCHES)
     results = {}
     for name, B, L, steps in REQUESTS:
         res = serve_request(torch, model, params, B, L, steps, seed=L,
                             counts=counts)
         c0, c1, c2 = res["counts"]
-        got = (c1[0] - c0[0], c1[1] - c0[1])
+        got = tuple(b - a for a, b in zip(c0, c1))
         if got != per_prefill:
             raise AssertionError(f"({name}) prefill launched {got} (FA, "
-                                 f"SSD) kernels, expected {per_prefill}")
+                                 f"SSD chunk, SSD carry) kernels, expected "
+                                 f"{per_prefill}")
         if c2 != c1:
             raise AssertionError(f"({name}) decode launched a prefill "
                                  f"kernel")
@@ -749,7 +909,8 @@ def phase_serving(torch) -> dict:
         step_ms = res["step_ms"]
         log(f"[serve] ({name}) {B} x {L}-token prompts: prefill "
             f"{res['prefill_s']:.3f} s ({B * L / res['prefill_s']:.1f} "
-            f"tokens/s), {got[0]} FA + {got[1]} SSD launches; {steps} "
+            f"tokens/s), {got[0]} FA + {got[1]} SSD chunk + {got[2]} SSD "
+            f"carry launches; {steps} "
             f"greedy decode steps: median {statistics.median(step_ms):.3f} "
             f"ms, max {max(step_ms):.3f} ms per step (host clock, "
             f"synchronised), {B * steps * 1e3 / sum(step_ms):.1f} tokens/s; "
@@ -772,13 +933,16 @@ def phase_serving(torch) -> dict:
                 ("decode step", lambda: decode(params, state, tok),
                  statistics.median(res["step_ms"]))):
             by = device_breakdown(torch, fn)
+            if what == "prefill":
+                check_breakdown(by, f"({name}) prefill")
             busy = sum(by.values())
             log(f"[serve] ({name}) {what} device time by kernel, ms: "
                 + ", ".join(f"{k} {v:.3f}" for k, v in by.items())
                 + f"; busy {busy:.3f} of {wall_ms:.3f} wall, idle share "
                 f"{max(0.0, 1 - busy / wall_ms):.4f}")
         del state
-    return dict(fa_launches=launches[0], ssd_launches=launches[1])
+    return dict(fa_launches=launches[0], ssd_launches=launches[1],
+                carry_launches=launches[2])
 
 
 def main() -> int:
@@ -787,7 +951,7 @@ def main() -> int:
     phase_build()
     k = phase_kernel(torch)
     phase_parity()
-    launches = phase_full_width(torch)
+    launches = phase_full_width(torch, k["link_rate"])
     fa = phase_attention(torch)
     sd = phase_ssd(torch)
     serve = phase_serving(torch)
@@ -810,6 +974,8 @@ def main() -> int:
         "shape": list(HEADLINE),
         "h2d_ms": head["h2d_ms"],
         "device_ms": head["device_ms"],
+        "round_ms": head["round_ms"],
+        "link_ms": head["link_ms"],
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -836,6 +1002,22 @@ def main() -> int:
         "plain_ms": ssd_head["plain_ms"],
         "bound_ms": ssd_head["bound_ms"],
         "bound_by": ssd_head["bound_by"],
+        "library_ms": None,
+        "shape": list(SSD_HEADLINE),
+        "terms": sd["terms"],
+    }, {
+        "name": "ssd_carry",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        # No Pallas kernel: the reference's jax.lax.scan and einsum.
+        "replaces": "src/repro/kernels/ssd/ops.py:40",
+        "tpu_kernel": False,
+        "launches": serve["carry_launches"],
+        "max_abs_err": sd["carry_max_abs_err"],
+        "ms": ssd_head["carry_ms"],
+        "plain_ms": ssd_head["carry_plain_ms"],
+        "bound_ms": ssd_head["carry_bound_ms"],
+        "bound_by": ssd_head["carry_bound_by"],
         "library_ms": None,
         "shape": list(SSD_HEADLINE),
     }]}

@@ -19,12 +19,13 @@ live-state registry, not from per-VM Python calls: VM-type attributes
 are vmid-indexed gathers, container-delay vectors come from the pool's
 incremental ``app_image`` / ``app_active`` sets, and sharing-scope masks
 from ``tag_members`` — each computed once per distinct app/tag per
-cycle.  Auction rounds write into resident padded ``[B, T, V]`` buffers
+cycle.  Auction rounds write into resident packed ``[B, T, V]`` buffers
 (:class:`_RoundBuffers`) instead of re-allocating pad+stack copies, so
 the batched kernel call pays no per-round host rebuild cost.  On a CUDA
-device the buffers are pinned host tensors: each round goes over in
-``non_blocking`` host-to-device copies, and the four ``[B, T]`` outputs
-come back for the host-side commit.
+device a round's nine arrays sit in one page-locked buffer at the
+round's own shape: it goes over in one asynchronous copy into a resident
+device buffer, and the four ``[B, T]`` outputs come back packed in one
+copy and one wait for the host-side commit.
 
 Two callers consume the auction:
 
@@ -156,7 +157,7 @@ def _p2(n: int) -> int:
 
 
 class _RoundBuffers:
-    """Resident padded pair buffers for auction rounds, bucketed by
+    """Resident packed round buffers for auction rounds, bucketed by
     power-of-two ``(Bp, Tp, Vp)`` shape.
 
     Mixed-size rounds (a big round followed by small ones, the normal
@@ -165,18 +166,19 @@ class _RoundBuffers:
     * multiple buckets stay resident (dict, LRU-evicted once the summed
       ``B·T·V`` exceeds ``MAX_RESIDENT_ELEMS``);
     * a round reuses the smallest resident bucket that covers its shape
-      (up to ``COVER_SLACK``× element blowup — padding is inert, and
-      riding a slightly-larger resident bucket beats allocating a new
-      one), growing buckets geometrically via the power-of-two dims;
-    * resets clear only the region the bucket's previous round actually
-      wrote (tracked per bucket), not the whole allocation — small
-      rounds in a big bucket pay memsets proportional to their own size.
+      (up to ``COVER_SLACK``× element blowup — riding a slightly-larger
+      resident bucket beats allocating a new one), growing buckets
+      geometrically via the power-of-two dims;
+    * a round is laid out at its own shape inside the bucket
+      (:class:`~repro_torch.kernels.affinity.ops.RoundView`), so on a
+      CUDA device it copies its own bytes, not the bucket's.
 
-    Each bucket is a pair ``(tensors, arrays)``: nine torch tensors and
-    their numpy views, which :meth:`CycleRequest.propose_into` writes
-    through.  With ``pinned=True`` (rounds bound for a CUDA device) the
-    tensors are page-locked host memory, so the round's host-to-device
-    copies can run ``non_blocking``; on the CPU they are plain tensors.
+    Each bucket is one :class:`~repro_torch.kernels.affinity.ops.
+    PackedRound`: one host allocation for the nine arrays (page-locked
+    for a CUDA device, plain on the CPU) and, on a CUDA device, its
+    resident device twin and packed output buffers.
+    :meth:`CycleRequest.propose_into` writes through the view's numpy
+    arrays.
 
     The cache is thread-local (each thread driving engines gets its own
     buffers — rounds from concurrent runs never interleave on shared
@@ -184,7 +186,7 @@ class _RoundBuffers:
     pinning hundreds of MB at module scope.
     """
 
-    __slots__ = ("buckets", "used", "lru", "pinned")
+    __slots__ = ("buckets", "lru", "device")
 
     # Largest summed B·T·V kept alive between rounds (~4M pair elements
     # ⇒ ≲50 MB across the six [B,T,V] arrays).
@@ -192,47 +194,10 @@ class _RoundBuffers:
     # Max element blowup tolerated when riding a larger resident bucket.
     COVER_SLACK = 4
 
-    def __init__(self, pinned: bool = False):
-        self.buckets = {}   # (Bp, Tp, Vp) -> (tensors, arrays)
-        self.used = {}      # (Bp, Tp, Vp) -> (B, T, V) region to reset
+    def __init__(self, device: Union[str, torch.device] = "cpu"):
+        self.buckets = {}   # (Bp, Tp, Vp) -> PackedRound
         self.lru = []       # keys, most-recently-used last
-        self.pinned = pinned
-
-    def _alloc(self, Bp: int, Tp: int, Vp: int):
-        f32, i32 = torch.float32, torch.int32
-
-        def full(shape, value, dtype=f32):
-            return torch.full(shape, value, dtype=dtype,
-                              pin_memory=self.pinned)
-
-        tensors = (
-            full((Bp, Tp), 0.0),              # size
-            full((Bp, Tp), 0.0),              # out_mb
-            full((Bp, Tp), -1.0),             # budget (inert: -1)
-            full((Bp, Tp, Vp), 0.0),          # missing
-            full((Bp, Tp, Vp), 0.0),          # cont
-            full((Bp, Tp, Vp), 0, i32),       # tier (inert: 0)
-            full((Bp, Vp), 1.0),              # mips (no div-by-zero)
-            full((Bp, Vp), 1.0),              # bw
-            full((Bp, Vp), 1.0),              # price
-        )
-        return tensors, tuple(t.numpy() for t in tensors)
-
-    @staticmethod
-    def _reset(bufs, region) -> None:
-        B, T, V = region
-        if B == 0:
-            return
-        size, out_mb, budget, missing, cont, tier, mips, bw, price = bufs[1]
-        size[:B, :T] = 0.0
-        out_mb[:B, :T] = 0.0
-        budget[:B, :T] = -1.0
-        missing[:B, :T, :V] = 0.0
-        cont[:B, :T, :V] = 0.0
-        tier[:B, :T, :V] = 0
-        mips[:B, :V] = 1.0
-        bw[:B, :V] = 1.0
-        price[:B, :V] = 1.0
+        self.device = torch.device(device)
 
     def _touch(self, key) -> None:
         if self.lru and self.lru[-1] == key:
@@ -244,6 +209,11 @@ class _RoundBuffers:
         self.lru.append(key)
 
     def get(self, Bp: int, Tp: int, Vp: int):
+        """The round ``[Bp, Tp, Vp]``'s view in a resident bucket, reset to
+        inert padding.  The whole view is reset, at the round's own size:
+        where the previous round of the bucket had the same shape, that
+        clears what its views covered; where the shape changed, the bytes
+        hold another layout."""
         req = Bp * Tp * Vp
         best = None
         for key in self.buckets:
@@ -253,40 +223,34 @@ class _RoundBuffers:
                     best = key
         if best is not None \
                 and best[0] * best[1] * best[2] <= self.COVER_SLACK * req:
-            bufs = self.buckets[best]
-            self._reset(bufs, self.used[best])
-            # Upper bound of what this round may write (propose_into
-            # writes member rows within the requested dims only).
-            self.used[best] = (Bp, Tp, Vp)
+            view = self.buckets[best].view(Bp, Tp, Vp)
+            view.reset()
             self._touch(best)
-            return bufs
-        bufs = self._alloc(Bp, Tp, Vp)
+            return view
+        view = aff_ops.PackedRound(Bp, Tp, Vp, self.device).view(Bp, Tp, Vp)
+        view.reset()
         if req <= self.MAX_RESIDENT_ELEMS:
             key = (Bp, Tp, Vp)
-            self.buckets[key] = bufs
-            self.used[key] = (Bp, Tp, Vp)
+            self.buckets[key] = view.bucket
             self._touch(key)
             total = sum(k[0] * k[1] * k[2] for k in self.buckets)
             while total > self.MAX_RESIDENT_ELEMS and len(self.lru) > 1:
                 old = self.lru.pop(0)
                 total -= old[0] * old[1] * old[2]
                 del self.buckets[old]
-                del self.used[old]
         # else: one-shot buffers — leave resident buckets intact.
-        return bufs
+        return view
 
 
 class _ThreadLocalBuffers(threading.local):
     def __init__(self):
-        self.host = _RoundBuffers(pinned=False)
-        self.pinned = None  # created on the first CUDA round
+        self.by_device = {}
 
     def for_device(self, device: torch.device) -> _RoundBuffers:
-        if device.type != "cuda":
-            return self.host
-        if self.pinned is None:
-            self.pinned = _RoundBuffers(pinned=True)
-        return self.pinned
+        rb = self.by_device.get(device)
+        if rb is None:
+            rb = self.by_device[device] = _RoundBuffers(device)
+        return rb
 
 
 _ROUND_BUFFERS = _ThreadLocalBuffers()
@@ -418,17 +382,15 @@ class CycleRequest:
         self.stalled = not committed
 
 
-def _score_round(cfg: PlatformConfig, tensors, device: torch.device):
-    """Score one staged round on ``device``; return the four ``[B, T]``
-    outputs as host numpy arrays.  On a CUDA device the pinned round is
-    copied over ``non_blocking``; the outputs' copies back synchronise
-    the stream, so the pinned buffers are free again when this returns."""
-    if device.type == "cuda":
-        tensors = [t.to(device, non_blocking=True) for t in tensors]
-    res = aff_ops.affinity_batch(
-        *tensors, gs_read=cfg.gs_read_mbps, gs_write=cfg.gs_write_mbps,
+def _score_round(cfg: PlatformConfig, view):
+    """Score one staged round (a packed ``RoundView``) where its bucket
+    lives; return the four ``[B, T]`` outputs as host numpy arrays.  On a
+    CUDA device the round goes over in one copy, and the packed outputs
+    come back in one copy and one wait, so the host buffers are free
+    again when this returns."""
+    return aff_ops.affinity_round(
+        view, gs_read=cfg.gs_read_mbps, gs_write=cfg.gs_write_mbps,
         bp_ms=float(cfg.billing_period_ms))
-    return [o.cpu().numpy() for o in res]
 
 
 def multi_cycle(cfg: PlatformConfig, requests: Sequence[CycleRequest],
@@ -470,10 +432,10 @@ def multi_cycle(cfg: PlatformConfig, requests: Sequence[CycleRequest],
         # Batch dim rounds to 1, 2, 4, … (a solo auction stays unpadded);
         # rows beyond the active members keep the inert padding.
         Bp = 1 << max(len(active) - 1, 0).bit_length()
-        tensors, arrays = rb.get(Bp, Tp, Vp)
+        view = rb.get(Bp, Tp, Vp)
         for b, r in enumerate(active):
-            r.propose_into(arrays, b)
-        best, tiers, fins, costs_ = _score_round(cfg, tensors, dev)
+            r.propose_into(view.arrays, b)
+        best, tiers, fins, costs_ = _score_round(cfg, view)
         for b, r in enumerate(active):
             r.commit(best[b], tiers[b], fins[b], costs_[b])
     return [r.placements for r in requests]

@@ -1,5 +1,10 @@
 """Build and launch the CUDA affinity kernel (``csrc/affinity.cu``).
 
+Two launchers share the kernel: :func:`affinity_cuda` takes nine separate
+tensors and checks them on every call; :func:`launch_packed` scores a
+packed round (``ops.PackedRound``), whose buffers :func:`check_packed`
+checks once, when the bucket is made.
+
 The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C entry point (``kernels/build.py``), cached
 under ``build/`` next to this file, and loaded with ``ctypes``.  Nothing
@@ -86,3 +91,38 @@ def affinity_cuda(size_mi, out_mb, budget, missing_mb, cont_ms, tier,
         est_c.data_ptr(), stream)
     check_launch(err, "affinity")
     return AffinityOut(best_vm, best_tier, est_f, est_c)
+
+
+def check_packed(bucket) -> None:
+    """Check a packed round's buffers once: one CUDA device, 32-bit
+    sizes, 16-byte-aligned bases (every array inside sits at a 16-byte
+    offset) and a batch the grid can hold."""
+    from .ops import round_layout
+    Bp, Tp, Vp = bucket.shape
+    if Bp > MAX_GRID_Y:
+        raise ValueError(f"batch {Bp} exceeds the grid's {MAX_GRID_Y}")
+    if min(bucket.shape) < 1:
+        raise ValueError(f"empty bucket {list(bucket.shape)}")
+    want = {"dev": (bucket.dev, torch.uint8, round_layout(Bp, Tp, Vp)[1]),
+            "out_dev": (bucket.out_dev, _I32, 4 * Bp * Tp)}
+    for name, (t, dtype, numel) in want.items():
+        if t.device != bucket.device or t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{bucket.device}")
+        if t.dtype != dtype or t.numel() != numel or not t.is_contiguous():
+            raise ValueError(f"{name} must be {numel} contiguous {dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    if not bucket.host.is_pinned() or not bucket.out_host.is_pinned():
+        raise ValueError("a CUDA bucket's host buffers must be page-locked")
+
+
+def launch_packed(view, scalars, stream: int) -> None:
+    """Launch the kernel on a packed round already on the card (``view``
+    is an ``ops.RoundView`` of a bucket that :func:`check_packed`
+    accepted); ``scalars`` are ``ref.folded_scalars``.  Does not
+    synchronise."""
+    B, T, V = view.shape
+    err = LIB.load().affinity_launch(*view.in_ptrs, B, T, V, *scalars,
+                                     *view.out_ptrs, stream)
+    check_launch(err, "affinity")

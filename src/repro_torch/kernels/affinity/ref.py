@@ -24,6 +24,7 @@ expressions in the same order from the same :func:`folded_scalars`.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -42,10 +43,11 @@ class AffinityOut(NamedTuple):
     est_cost: torch.Tensor   # [.., T] f32 cents
 
 
+@lru_cache(maxsize=64)
 def folded_scalars(gs_read: float, gs_write: float,
                    bp_ms: float) -> Tuple[float, float, float, float]:
     """``(K, 1/gs_read, 1/gs_write, 1/bp_ms)``, each an exact fp32 value
-    held in a Python float."""
+    held in a Python float; computed once per platform configuration."""
     f32 = np.float32
     k = f32(f32(MS) * f32(CEIL_TOL))
     return (float(k), float(f32(1.0 / gs_read)), float(f32(1.0 / gs_write)),

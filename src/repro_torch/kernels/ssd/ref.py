@@ -11,7 +11,8 @@ via the SSD chunk decomposition, split the way the CUDA kernel splits it:
 * :func:`ssd_chunks_ref` — the intra-chunk "masked attention" term and
   each chunk's own state (the kernel's plain version);
 * :func:`ssd_combine` — the inter-chunk state carry and its ``C · h``
-  contribution (torch ops on both the CPU and the CUDA path).
+  contribution; with the cast to the output dtype
+  (:func:`ssd_carry_ref`) it is the carry kernel's plain version.
 
 :func:`ssd_decode_ref` is the single-token recurrence.  The reference
 has no kernel for it (plain jnp), so this torch version *is* the port of
@@ -99,6 +100,17 @@ def ssd_combine(y_intra: torch.Tensor, states: torch.Tensor,
         * torch.exp(cumc)[..., None]
     y = y_intra.reshape(Bsz, nc, chunk, H, P) + y_inter
     return y.reshape(Bsz, L, H, P), h
+
+
+def ssd_carry_ref(y_intra: torch.Tensor, states: torch.Tensor,
+                  cum: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                  init_state: Optional[torch.Tensor] = None,
+                  out_dtype: torch.dtype = F32
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The carry kernel's plain version: :func:`ssd_combine`, then y cast
+    to ``out_dtype``."""
+    y, final = ssd_combine(y_intra, states, cum, Cm, chunk, init_state)
+    return y.to(out_dtype), final
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -12,6 +12,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core.jax_cycles as r_cyc
 import repro.core.jax_engine as r_je
@@ -144,18 +145,122 @@ def test_engine_cycles_match_reference(seed, monkeypatch):
     assert logs["ref"] == logs["port"]
 
 
+INERT = (0.0, 0.0, -1.0, 0.0, 0.0, 0, 1.0, 1.0, 1.0)
+
+
+def _assert_inert(view):
+    for a, value in zip(view.arrays, INERT):
+        assert (a == value).all()
+
+
 def test_round_buffers_cover_and_reset():
-    """A smaller round rides the resident covering bucket and the
-    used-region reset restores inert padding (the reference's contract),
+    """A smaller round rides the resident covering bucket, laid out at
+    its own shape in the same allocation, and sees only inert padding
+    after a larger round dirtied every array (the reference's contract),
     through the numpy views of the torch buffers."""
     rb = t_cyc._RoundBuffers()
-    tensors, big = rb.get(4, 16, 16)
-    big[5][:2, :8, :8] = 7
-    t2, again = rb.get(4, 16, 8)
-    assert t2[5] is tensors[5]
-    assert not tensors[5].any() and not again[5].any()
-    assert big[2][0, 0] == -1.0
-    assert np.shares_memory(again[5], tensors[5].numpy())
-    _, tiny = rb.get(1, 2, 2)
-    assert tiny[5].shape == (1, 2, 2)
-    assert not tensors[0].is_pinned()
+    big = rb.get(4, 16, 16)
+    _assert_inert(big)
+    for a in big.arrays:
+        a[...] = 7
+    again = rb.get(4, 16, 8)
+    assert again.bucket is big.bucket
+    assert again.tensors[5].shape == (4, 16, 8)
+    assert np.shares_memory(again.arrays[5], big.bucket.host.numpy())
+    assert again.nbytes < big.nbytes
+    _assert_inert(again)
+    for a in again.arrays:
+        a[...] = 5
+    assert rb.get(4, 16, 8) is again          # same shape: same views
+    _assert_inert(again)
+    tiny = rb.get(1, 2, 2)
+    assert tiny.tensors[5].shape == (1, 2, 2)
+    _assert_inert(tiny)
+    assert not big.bucket.host.is_pinned()
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2), (4, 16, 8), (2, 37, 100),
+                                   (1, 256, 1024)])
+def test_packed_views_aligned_and_shaped_to_the_round(shape):
+    """Every array of a packed round starts on a 16-byte boundary, has
+    the round's own shape and dtype, and the nine sit back to back
+    inside the round's bytes."""
+    from repro_torch.kernels.affinity.ops import PackedRound, round_layout
+    B, T, V = shape
+    bucket = PackedRound(2 * B, 2 * T, 2 * V, torch.device("cpu"))
+    view = bucket.view(B, T, V)
+    base = bucket.host.data_ptr()
+    offsets, nbytes = round_layout(B, T, V)
+    want = [(B, T)] * 3 + [(B, T, V)] * 3 + [(B, V)] * 3
+    assert view.nbytes == nbytes <= bucket.host.numel()
+    for t, a, off, shp in zip(view.tensors, view.arrays, offsets, want):
+        assert t.shape == shp and t.is_contiguous()
+        assert t.data_ptr() - base == off and off % 16 == 0
+        assert off + 4 * t.numel() <= nbytes
+        assert a.ctypes.data == t.data_ptr()
+    assert view.tensors[5].dtype == torch.int32
+    assert all(t.dtype == torch.float32
+               for i, t in enumerate(view.tensors) if i != 5)
+
+
+@pytest.mark.parametrize("trial", range(4))
+def test_round_riding_a_larger_bucket_matches_reference(trial, monkeypatch):
+    """Rounds staged inside a larger resident bucket (dirtied by an
+    earlier, larger round) give the reference's ``multi_cycle``
+    placements bit for bit."""
+    rb = t_cyc._RoundBuffers()
+    dirty = rb.get(8, 64, 64)
+    for a in dirty.arrays:
+        a[...] = 3
+    monkeypatch.setattr(t_cyc._ROUND_BUFFERS, "by_device",
+                        {torch.device("cpu"): rb})
+    monkeypatch.setattr(t_cyc._RoundBuffers, "COVER_SLACK", 1 << 20)
+    shapes = []
+    score = t_cyc._score_round
+
+    def counted(cfg, view):
+        shapes.append((view.shape, view.bucket.shape))
+        return score(cfg, view)
+    monkeypatch.setattr(t_cyc, "_score_round", counted)
+    budgets = (0.001, 0.5, 5.0, 500.0)
+    want = _run_multi(REF, r_cyc, trial, budgets, use_pallas=False)
+    got = _run_multi(PORT, t_cyc, trial, budgets, device="cpu")
+    assert want == got
+    assert shapes and all(b == (8, 64, 64) for _, b in shapes)
+    assert any(s != b for s, b in shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trial", range(3))
+def test_cuda_packed_round_matches_plain(trial):
+    """The packed round on the card (one copy each way, one launch)
+    against the plain version on the same views, bit for bit, for rounds
+    at and below their bucket's shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.affinity import ops
+    rng = np.random.default_rng(trial)
+    bucket = ops.PackedRound(4, 256, 1024, torch.device("cuda"))
+    for B, T, V in [(4, 256, 1024), (1, 256, 1024), (2, 64, 512),
+                    (4, 2, 512), (1, 37, 100)]:
+        view = bucket.view(B, T, V)
+        view.reset()
+        Tr, Vr = max(1, T - 3), max(1, V - 5)
+        size, out_mb, budget, miss, cont, tier, mips, bw, price = \
+            view.arrays
+        size[:, :Tr] = rng.uniform(10, 900, (B, Tr))
+        out_mb[:, :Tr] = rng.uniform(1, 150, (B, Tr))
+        budget[:, :Tr] = rng.uniform(5, 500, (B, Tr))
+        miss[:, :Tr, :Vr] = rng.uniform(0, 200, (B, Tr, Vr))
+        cont[:, :Tr, :Vr] = rng.choice([0., 400., 10000.], (B, Tr, Vr))
+        tier[:, :Tr, :Vr] = rng.choice([0, 1, 2, 3], (B, Tr, Vr))
+        mips[:, :Vr] = rng.choice([2., 4., 8., 16.], (B, Vr))
+        bw[:, :Vr] = rng.uniform(5, 40, (B, Vr))
+        price[:, :Vr] = rng.choice([1., 2., 4., 8.], (B, Vr))
+        want = ops.affinity_ref(*(t.cuda() for t in view.tensors),
+                                50.0, 30.0, 1000.0)
+        before = ops.LAUNCHES
+        got = ops.affinity_round(view, 50.0, 30.0, 1000.0)
+        assert ops.LAUNCHES == before + 1
+        for w, g in zip(want, got):
+            assert np.array_equal(w.cpu().numpy(), g)

@@ -91,7 +91,7 @@ def test_every_round_scored_matches_reference(seed, monkeypatch):
     score = t_cyc._score_round
 
     def counted(*a):
-        rounds.append(a[1][3].shape)
+        rounds.append(a[1].shape)
         return score(*a)
     monkeypatch.setattr(t_cyc, "_score_round", counted)
     want = r_be.simulate_batch(RCFG, r_sched.ALL_POLICIES, r_workload(seed),
