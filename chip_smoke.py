@@ -15,11 +15,12 @@ Phases (each raises on failure, so the script exits non-zero):
    registers, shared memory and spills;
 3. affinity kernel vs plain — the CUDA kernel against the plain torch
    version on the card, bitwise, at the reference tests' shapes, the
-   simulator's round buckets and a large round, both through the nine-
-   tensor wrapper and through a packed round (stage, one copy over, the
-   kernel, one copy back, one wait); prints per-shape times, the packed
-   round's time and its link bound at a host-to-device rate measured
-   from one large page-locked copy;
+   main paths' round buckets (the five most frequent of phases 5 and 8
+   among them; both phases check it) and a large round, both through
+   the nine-tensor wrapper and through a packed round (stage, one copy
+   over, the kernel, one copy back, one wait); prints per-shape times,
+   the packed round's time and its link bound at a host-to-device rate
+   measured from one large page-locked copy;
 4. engine parity — ``simulate_batch`` scoring rounds on the card against
    the host-only ``SimEngine``, identical results;
 5. full width — the paper cell (100 workflows of all sizes at 12 wf/min,
@@ -42,7 +43,25 @@ Phases (each raises on failure, so the script exits non-zero):
    Every prefill's attention and SSD (chunk and carry) go through the
    kernels (launch counts checked); a ``torch.profiler`` pass then splits
    one prefill and one decode step of each by kernel and gives the
-   device's idle share.
+   device's idle share;
+8. experiments — the harness through ``repro_torch.exp.run``: two
+   processes started together build the affinity library into an
+   emptied build directory (one library left, each launch equal to the
+   plain version); (a) ``paper-smoke`` through ``main`` on a two-worker
+   spawn pool on the card and in one process on the CPU, one cell per
+   batch; (b) ``online-smoke`` and ``online-chaos-smoke`` on the card and
+   on the CPU — the card's artifacts equal the CPU's field by field but
+   for ``wall_s``, ``use_pallas`` and ``workers``, every trace, JSONL,
+   ``monitor.json`` and dashboard file byte-identical, ``--check-floors``
+   passing; ``online-chaos-smoke`` stopped after two stream checkpoints
+   (exit 3) and resumed equals the uninterrupted run; (c) the paper
+   grid's hottest workload cell (montage, 12 wf/min, budgets 0.25–0.5,
+   100 workflows of all sizes, five policies, seed 0) through
+   ``run_grid(workers=1, device="cuda")``: 23,005 launches, dispatch
+   7,928 rounds / 3,051 batched calls, every task placed and every
+   makespan and cost finite, rounds timed as in phase 5; then the same
+   cell through ``run_grid(device="cpu")``, whose artifact the card's
+   equals but for the backend fields.
 
 The second-last lines are the kernel record (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is the device record.
@@ -53,6 +72,7 @@ import collections
 import concurrent.futures
 import functools
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -72,12 +92,17 @@ OPS_PER_PAIR = 20              # divides, adds, multiplies, ceils, compares
 GS = dict(gs_read=50.0, gs_write=30.0, bp_ms=1000.0)
 FIELDS = ("best_vm", "best_tier", "est_finish", "est_cost")
 # (B, T, V) shapes: the reference kernel tests' (T, V) at B = 1 and 3, the
-# main path's round buckets (half their rows inert), and one large round.
+# main paths' round buckets (half their rows inert), among them the
+# HELD_TOP most frequent of phase 5's paper cell and of phase 8's hot cell
+# (both phases check that), and one large round.
 TEST_TV = [(16, 32), (37, 100), (64, 7), (1, 1)]
 BUCKETS = [(1, 64, 64), (1, 64, 128), (1, 512, 128), (2, 512, 512),
-           (1, 256, 1024), (4, 4, 1024)]
+           (1, 256, 1024), (4, 4, 1024),
+           (1, 256, 256), (1, 512, 256), (1, 256, 512), (1, 2, 512),
+           (4, 2, 1024), (2, 256, 512), (1, 512, 512)]
+HELD_TOP = 5
 LARGE = (16, 1024, 1024)
-HEADLINE = (1, 256, 1024)      # the most frequent bucket of the paper cell
+HEADLINE = (1, 256, 1024)      # the shape the kernel record reports
 REPS = 10        # timed runs per measurement (the median is kept)
 RUN = 20         # back-to-back calls per timed run
 
@@ -365,27 +390,20 @@ def phase_parity() -> None:
         cycles.AUCTION_TAIL_PAIRS = tail
 
 
-def phase_full_width(torch, rate: float) -> int:
+def timed_rounds(torch, fn):
+    """Run ``fn()`` with the affinity launch count set to 0 and every
+    round's host-clock time (copy-in, scoring, copy-back, wait) summed
+    through the ``cycles._score_round`` seam.  Returns ``fn``'s result,
+    the wall, the launches, the rounds by ``[B, T, V]`` bucket, the
+    seconds in rounds and the bytes the rounds moved over the link."""
     from repro_torch.core import cycles
-    from repro_torch.core.batch_engine import simulate_batch
-    from repro_torch.core.scheduler import ALL_POLICIES
-    from repro_torch.core.types import PlatformConfig
     from repro_torch.kernels.affinity import ops
-    from repro_torch.workflows.workload import WorkloadSpec, \
-        generate_workload
-    cfg = PlatformConfig()
-    spec = WorkloadSpec(n_workflows=100, arrival_rate_per_min=12.0, seed=0,
-                        sizes=("small", "medium", "large"))
-    wl = generate_workload(cfg, spec)
-    n_tasks = sum(w.n_tasks for w in wl)
     buckets = collections.Counter()
     round_s = [0.0]
     link_bytes = [0]
     score_round = cycles._score_round
 
     def counted(cfg_, view):
-        # Host clock around one round's copy-in, scoring, copy-back and
-        # wait; the bytes it moved over the link.
         buckets[view.shape] += 1
         link_bytes[0] += round_bytes(*view.shape)
         t = time.perf_counter()
@@ -397,26 +415,61 @@ def phase_full_width(torch, rate: float) -> int:
     try:
         ops.LAUNCHES = 0
         t0 = time.perf_counter()
-        grid = simulate_batch(cfg, ALL_POLICIES, wl, seed=0)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.LAUNCHES
     finally:
         cycles._score_round = score_round
     if launches <= 0:
-        raise AssertionError("full-width run launched no kernel")
+        raise AssertionError("the run launched no affinity kernel")
     if sum(buckets.values()) != launches:
         raise AssertionError("bucket count disagrees with the launch count")
+    return out, wall, launches, buckets, round_s[0], link_bytes[0]
+
+
+def check_held(tag, buckets) -> None:
+    """The run's ``HELD_TOP`` most frequent round buckets are among the
+    shapes phase 3 holds against the plain version."""
+    top = [tuple(b) for b, _ in buckets.most_common(HELD_TOP)]
+    missing = [b for b in top if b not in BUCKETS]
+    if missing:
+        raise AssertionError(f"[{tag}] frequent buckets {missing} are not "
+                             f"held against the plain version in phase 3")
+    log(f"[{tag}] the {HELD_TOP} most frequent buckets {top} are held "
+        f"against the plain version in phase 3")
+
+
+def log_rounds(tag, wall, launches, buckets, round_s, link_bytes, rate):
+    log(f"[{tag}] wall {wall:.3f} s, kernel launches {launches} "
+        f"({launches / wall:.1f} per s of wall), rounds on "
+        f"the card (H2D + kernel + D2H + wait, host clock) "
+        f"{round_s:.3f} s = {round_s / wall:.4f} of wall, "
+        f"{round_s / launches * 1e3:.5f} ms per round; their "
+        f"{link_bytes / 1e9:.4f} GB over the link need "
+        f"{link_bytes / rate:.4f} s at {rate / 1e9:.3f} GB/s")
+    top = ", ".join(f"{list(k)}x{v}" for k, v in buckets.most_common(12))
+    log(f"[{tag}] launches by [B,T,V] bucket ({len(buckets)} buckets): "
+        f"{top}")
+
+
+def phase_full_width(torch, rate: float) -> int:
+    from repro_torch.core.batch_engine import simulate_batch
+    from repro_torch.core.scheduler import ALL_POLICIES
+    from repro_torch.core.types import PlatformConfig
+    from repro_torch.workflows.workload import WorkloadSpec, \
+        generate_workload
+    cfg = PlatformConfig()
+    spec = WorkloadSpec(n_workflows=100, arrival_rate_per_min=12.0, seed=0,
+                        sizes=("small", "medium", "large"))
+    wl = generate_workload(cfg, spec)
+    n_tasks = sum(w.n_tasks for w in wl)
+    grid, wall, launches, buckets, round_s, link_bytes = timed_rounds(
+        torch, lambda: simulate_batch(cfg, ALL_POLICIES, wl, seed=0))
     log(f"[full] paper cell: {len(wl)} workflows, {n_tasks} tasks, "
         f"{len(ALL_POLICIES)} policies, seed 0")
-    log(f"[full] wall {wall:.3f} s, kernel launches {launches}, rounds on "
-        f"the card (H2D + kernel + D2H + wait, host clock) "
-        f"{round_s[0]:.3f} s = {round_s[0] / wall:.4f} of wall, "
-        f"{round_s[0] / launches * 1e3:.5f} ms per round; their "
-        f"{link_bytes[0] / 1e9:.4f} GB over the link need "
-        f"{link_bytes[0] / rate:.4f} s at {rate / 1e9:.3f} GB/s")
-    top = ", ".join(f"{list(k)}x{v}" for k, v in buckets.most_common(12))
-    log(f"[full] launches by [B,T,V] bucket ({len(buckets)} buckets): {top}")
+    log_rounds("full", wall, launches, buckets, round_s, link_bytes, rate)
+    check_held("full", buckets)
     for e in grid.entries:
         res = e.result
         if len(res.workflows) != len(wl) or any(
@@ -945,6 +998,236 @@ def phase_serving(torch) -> dict:
                 carry_launches=launches[2])
 
 
+# ---------------------------------------------------------------------------
+# Experiments: the harness end to end
+# ---------------------------------------------------------------------------
+
+# Backend fields of an artifact: everything else must match between the
+# card and the CPU.
+BACKEND_FIELDS = ("wall_s", "use_pallas", "workers")
+# The paper grid's workload cell that sends the most auction rounds to
+# the kernel among those timed on the reference; its dispatch counts do
+# not depend on the device (the dispatcher decides on pair counts).
+HOT_CELL = dict(apps=("montage",), rates=(12.0,),
+                budget_intervals=((0.25, 0.5),), seeds=(0,))
+HOT_CELL_DISPATCH = {"rounds": 7928, "batched_calls": 3051}
+# Rounds the cell scores, counted at the ``_score_round`` seam of a CPU
+# run: one kernel launch each on the card.
+HOT_CELL_LAUNCHES = 23005
+
+BUILD_RACE = r"""
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from repro_torch.kernels.affinity.kernel import LIB, affinity_cuda
+from repro_torch.kernels.affinity.ref import affinity_ref
+LIB.load()
+args = [torch.from_numpy(a).cuda() for a in
+        cs.make_round(np.random.default_rng(int(sys.argv[2])), 2, 512, 512,
+                      100)]
+want = affinity_ref(*args, **cs.GS)
+got = affinity_cuda(*args, **cs.GS)
+assert all(torch.equal(a, b) for a, b in zip(want, got)), "kernel != plain"
+print("nvcc", LIB.build_info.get("seconds"))
+"""
+
+
+def build_race() -> None:
+    """Two processes started together each build the affinity library
+    into an emptied build directory, load it and hold one launch against
+    the plain version: concurrent first builds leave one library and no
+    partial file."""
+    from repro_torch.kernels.affinity.kernel import LIB
+    shutil.rmtree(LIB.build_root, ignore_errors=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", BUILD_RACE, str(ROOT),
+                               str(i)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for i in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"concurrent build failed:\n{err[-3000:]}")
+    files = sorted(str(f.relative_to(LIB.build_root))
+                   for f in LIB.build_root.rglob("*") if f.is_file())
+    if len(files) != 1 or not files[0].endswith("libaffinity.so"):
+        raise AssertionError(f"concurrent builds left {files}")
+    nvcc_s = "; ".join(out.strip() for out, _ in outs)
+    log(f"[exp] two processes built the affinity library at once in "
+        f"{time.perf_counter() - t0:.3f} s ({nvcc_s} s): one library "
+        f"left, {files[0]}; each launch equal to the plain version")
+
+
+def exp_cli(args, expect_exit=None) -> float:
+    """``repro_torch.exp.run.main(args)``; returns its wall.  A run meant
+    to stop (``expect_exit``) must exit with that code."""
+    from repro_torch.exp import run as exp_run
+    t0 = time.perf_counter()
+    try:
+        exp_run.main(args)
+    except SystemExit as e:
+        if expect_exit is None or e.code != expect_exit:
+            raise
+    else:
+        if expect_exit is not None:
+            raise AssertionError(f"{args}: expected exit {expect_exit}")
+    return time.perf_counter() - t0
+
+
+def exp_args(grid: str, out: Path, device: str, *extra) -> list:
+    return ["--grid", grid, "--device", device, "--out", str(out),
+            "--trace-dir", str(out / "traces"),
+            "--report-dir", str(out / "reports"), *extra]
+
+
+def same_runs(a: Path, b: Path, what: str, skip=BACKEND_FIELDS) -> dict:
+    """Artifacts equal field by field except ``skip``; reports equal but
+    for the wall; every trace and report file byte-identical."""
+    from repro_torch.exp import run as exp_run
+    got = json.loads((a / exp_run.ARTIFACT_NAME).read_text())
+    want = json.loads((b / exp_run.ARTIFACT_NAME).read_text())
+    diff = sorted(k for k in set(got) | set(want)
+                  if k not in skip and got.get(k) != want.get(k))
+    if diff:
+        raise AssertionError(f"{what}: artifacts differ in {diff}")
+    md = [re.sub(r"wall [0-9.]+s", "wall", (d / exp_run.REPORT_NAME)
+                 .read_text()) for d in (a, b)]
+    if md[0] != md[1]:
+        raise AssertionError(f"{what}: {exp_run.REPORT_NAME} differs")
+    n = 0
+    for sub in ("traces", "reports"):
+        names = sorted(p.name for p in (b / sub).iterdir())
+        if not names or sorted(p.name for p in (a / sub).iterdir()) != names:
+            raise AssertionError(f"{what}: {sub} file lists differ")
+        for name in names:
+            if (a / sub / name).read_bytes() != (b / sub / name).read_bytes():
+                raise AssertionError(f"{what}: {sub}/{name} differs")
+        n += len(names)
+    log(f"[exp] {what}: artifacts equal but for {', '.join(skip)}; "
+        f"{n} trace and report files byte-identical")
+    return got
+
+
+def phase_experiments(torch, rate: float) -> dict:
+    """The harness through ``repro_torch.exp.run``: smoke grids on the
+    card against the CPU, a stream interrupted and resumed, the floor
+    gate, then the paper grid's hottest workload cell at full width."""
+    import dataclasses
+    import tempfile
+    from repro_torch.core.types import PlatformConfig
+    from repro_torch.exp import run as exp_run
+    from repro_torch.exp.scenarios import get_scenario
+    from repro_torch.kernels.affinity import ops
+    from repro_torch.workflows.workload import cell_workload
+    build_race()
+    walls = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_exp_"))
+    try:
+        # (a) paper-smoke: a spawn pool of two workers on the card against
+        # one process on the CPU, one cell per batch so that the pool's
+        # chunking is the serial run's.
+        per = ["--cells-per-batch", "1"]
+        walls["paper-smoke cuda, 2 workers"] = exp_cli(exp_args(
+            "paper-smoke", tmp / "a_cuda", "cuda", "--workers", "2",
+            "--check-floors", *per))
+        walls["paper-smoke cpu"] = exp_cli(exp_args(
+            "paper-smoke", tmp / "a_cpu", "cpu", "--workers", "1", *per))
+        art = same_runs(tmp / "a_cuda", tmp / "a_cpu",
+                        "paper-smoke cuda (2 workers) vs cpu")
+        if art["use_pallas"] != "cuda" or art["workers"] != 2:
+            raise AssertionError("paper-smoke did not run on the card's pool")
+        # (b) the online smoke grids, in-process.
+        online = {}
+        for grid in ("online-smoke", "online-chaos-smoke"):
+            ops.LAUNCHES = 0
+            walls[f"{grid} cuda"] = exp_cli(exp_args(
+                grid, tmp / f"{grid}_cuda", "cuda", "--check-floors"))
+            online[grid] = ops.LAUNCHES
+            walls[f"{grid} cpu"] = exp_cli(exp_args(
+                grid, tmp / f"{grid}_cpu", "cpu"))
+            same_runs(tmp / f"{grid}_cuda", tmp / f"{grid}_cpu",
+                      f"{grid} cuda vs cpu")
+        # Interrupt after two stream checkpoints (exit 3), then resume.
+        cut = tmp / "chaos_cut"
+        ck = ["--ckpt-dir", str(tmp / "ckpt")]
+        walls["online-chaos-smoke cuda, cut"] = exp_cli(exp_args(
+            "online-chaos-smoke", cut, "cuda", *ck, "--ckpt-every-s", "0",
+            "--stop-after-ckpts", "2"), expect_exit=3)
+        walls["online-chaos-smoke cuda, resumed"] = exp_cli(exp_args(
+            "online-chaos-smoke", cut, "cuda", *ck, "--resume"))
+        same_runs(cut, tmp / "online-chaos-smoke_cuda",
+                  "online-chaos-smoke resumed vs uninterrupted",
+                  skip=("wall_s",))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for what, wall in walls.items():
+        log(f"[exp] wall {what}: {wall:.3f} s")
+    log(f"[exp] floor gate OK on paper-smoke, online-smoke and "
+        f"online-chaos-smoke (--check-floors with --report-dir); kernel "
+        f"launches in-process: " + ", ".join(f"{g} {n}"
+                                             for g, n in online.items()))
+
+    # (c) full width: one workload cell of the paper grid, in-process so
+    # that the launch count is this process's; then the same cell on the
+    # CPU, which the card's artifact must equal but for the backend fields.
+    scen = dataclasses.replace(get_scenario("paper"), **HOT_CELL)
+    art, wall, launches, buckets, round_s, link_bytes = timed_rounds(
+        torch, lambda: exp_run.run_grid(scen, workers=1, device="cuda"))
+    t0 = time.perf_counter()
+    cpu = exp_run.run_grid(scen, workers=1, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    diff = sorted(k for k in set(art) | set(cpu)
+                  if k not in BACKEND_FIELDS and art.get(k) != cpu.get(k))
+    if diff:
+        raise AssertionError(f"hot cell: card and CPU artifacts differ in "
+                             f"{diff}")
+    if launches != HOT_CELL_LAUNCHES:
+        raise AssertionError(f"hot cell: {launches} kernel launches, "
+                             f"expected {HOT_CELL_LAUNCHES}")
+    disp = {k: art["dispatch"][k] for k in HOT_CELL_DISPATCH}
+    if disp != HOT_CELL_DISPATCH:
+        raise AssertionError(f"hot cell dispatch {disp} != "
+                             f"{HOT_CELL_DISPATCH}")
+    cell, = scen.workload_cells()
+    wl = cell_workload(PlatformConfig(), cell.app, cell.rate,
+                       cell.budget_interval, cell.workload_seed,
+                       scen.n_workflows, scen.sizes)
+    n_tasks = sum(w.n_tasks for w in wl)
+    if sorted(r["policy"] for r in art["cells"]) != sorted(scen.policies):
+        raise AssertionError("hot cell: a policy's row is missing")
+    for r in art["cells"]:
+        # Every task placed once (the tier histogram counts placements).
+        if (r["n_workflows"] != scen.n_workflows
+                or sum(r["tier_hist"].values()) != n_tasks):
+            raise AssertionError(f"{r['policy']}: not every workflow ran "
+                                 f"to its end")
+        vals = [r[k] for k in ("mean_makespan_s", "p95_makespan_s",
+                               "mean_cost_budget_ratio", "vm_lease_s")]
+        if not np.isfinite(vals).all() or min(vals) <= 0:
+            raise AssertionError(f"{r['policy']}: makespan or cost not "
+                                 f"finite and positive: {vals}")
+    log(f"[exp] paper grid cell {HOT_CELL}: {scen.n_workflows} workflows "
+        f"({n_tasks} tasks) of sizes {scen.sizes}, {len(scen.policies)} "
+        f"policies, through run_grid(workers=1, device='cuda'); the "
+        f"artifact equal to the CPU run's (wall {cpu_wall:.3f} s) but for "
+        f"{', '.join(BACKEND_FIELDS)}")
+    log(f"[exp] dispatch rounds {disp['rounds']}, batched calls "
+        f"{disp['batched_calls']} ({disp['rounds'] / wall:.1f} rounds per "
+        f"s of wall)")
+    log_rounds("exp", wall, launches, buckets, round_s, link_bytes, rate)
+    check_held("exp", buckets)
+    for pol, s in art["summary_by_policy"].items():
+        log(f"[exp] {pol:9s} mean makespan {s['mean_makespan_s']:.1f} s  "
+            f"budget met {s['budget_met_mean']:.3f}  cost/budget "
+            f"{s['mean_cost_budget_ratio']:.3f}  util "
+            f"{s['utilization_mean']:.3f}")
+    log(f"[exp] ebpsm_vs_mslbl_makespan_ratio "
+        f"{art['ebpsm_vs_mslbl_makespan_ratio']}")
+    return dict(launches=launches, wall=wall, round_s=round_s)
+
+
 def main() -> int:
     import torch
     smi = phase_device(torch)
@@ -955,6 +1238,7 @@ def main() -> int:
     fa = phase_attention(torch)
     sd = phase_ssd(torch)
     serve = phase_serving(torch)
+    exp = phase_experiments(torch, k["link_rate"])
     head = k["rows"][HEADLINE]
     fa_head = fa["rows"][FA_HEADLINE]
     ssd_head = sd["rows"][SSD_HEADLINE]
@@ -965,6 +1249,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/affinity/csrc/affinity.cu",
         "replaces": "src/repro/kernels/affinity/kernel.py:24",
         "launches": launches,
+        # The experiment harness's full-width cell (phase 8).
+        "launches_exp_run": exp["launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

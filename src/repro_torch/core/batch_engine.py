@@ -60,7 +60,8 @@ import numpy as np
 from . import budget as budget_mod
 from ..chaos import ChaosConfig
 from .engine import (STREAM_SNAPSHOT_VERSION, SimState,
-                     _object_state_forced, profile_overhead_s)
+                     _object_state_forced, load_residue,
+                     profile_overhead_s)
 from .cycles import CycleRequest, multi_cycle
 from ..device import resolve_device
 from ..obs import events as obs_events
@@ -372,7 +373,7 @@ class BatchSimEngine:
             raise ValueError(
                 f"snapshot has {snap.get('n_members')} members, "
                 f"engine has {len(self.states)}")
-        residue = _pickle.loads(snap["residue"])
+        residue = load_residue(snap["residue"])
         arrays: Dict[str, np.ndarray] = snap["arrays"]
         version = snap.get("version", 1)
         per_member: List[Dict[str, np.ndarray]] = \

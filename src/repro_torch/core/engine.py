@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
+import io as _io
 import math as _math
 import os as _os
 import pickle as _pickle
@@ -89,6 +90,29 @@ def _object_state_forced() -> bool:
 #     it rides the opaque elog pickle as ``elog.sub`` — v2 snapshots
 #     written before the monitor existed restore with ``sub = None``.
 STREAM_SNAPSHOT_VERSION = 2
+
+
+class _ResidueUnpickler(_pickle.Unpickler):
+    """Unpickles a snapshot residue written by either package: the
+    reference package's classes (``repro.<module>``) resolve to this
+    package's copies of the same framework-free modules, so a resumed
+    stream never imports the reference."""
+
+    def find_class(self, module, name):
+        if module == "repro" or module.startswith("repro."):
+            ported = "repro_torch" + module[len("repro"):]
+            try:
+                return super().find_class(ported, name)
+            except (ImportError, AttributeError) as e:
+                raise _pickle.UnpicklingError(
+                    f"snapshot residue names {module}.{name}, which has "
+                    f"no counterpart {ported}.{name}") from e
+        return super().find_class(module, name)
+
+
+def load_residue(data: bytes):
+    """``pickle.loads`` of a snapshot residue (see ``_ResidueUnpickler``)."""
+    return _ResidueUnpickler(_io.BytesIO(data)).load()
 
 
 def new_profile() -> Dict[str, float]:
@@ -1303,7 +1327,7 @@ class SimState:
                 f"snapshot version {snap.get('version')} is newer than "
                 f"supported {STREAM_SNAPSHOT_VERSION}")
         arrays: Dict[str, np.ndarray] = snap["arrays"]
-        residue = _pickle.loads(snap["residue"])
+        residue = load_residue(snap["residue"])
         # Mutable per-task fields written by Algorithm 1/3 / MSLBL.
         tb = arrays["task_budget"].tolist()
         tl = arrays["task_level"].tolist()

@@ -4,11 +4,13 @@
   imports ``repro_torch.core.batch_engine`` and runs a tiny CPU grid,
   then builds the zamba2-1.2b smoke model on the CPU, prefills a prompt
   through the serve builders and decodes one token; afterwards no
-  ``repro.*`` or ``jax*`` module is loaded.
+  ``repro.*`` or ``jax*`` module is loaded.  A second such subprocess
+  imports ``repro_torch.exp.run`` and runs a one-cell ``paper-smoke``
+  grid and a checkpointed, resumed stream with trace and report files.
 * A source scan of ``src/repro_torch/`` and ``chip_smoke.py`` finds no
   ``import jax`` and no import of ``repro.``.
-* Without a CUDA device, the entry points refuse to run unless the caller
-  asks for the CPU.
+* Without a CUDA device, the entry points (the experiment harness and
+  its CLI included) refuse to run unless the caller asks for the CPU.
 """
 import os
 import re
@@ -62,6 +64,40 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     # "jax" itself sits in sys.modules as the None blocker, nothing else.
+    assert proc.stdout.strip().splitlines()[-1] == "LOADED ['jax']"
+
+
+EXP_CHILD = r"""
+import dataclasses, sys, tempfile
+sys.modules["jax"] = None
+from repro_torch.exp.run import main, run_grid
+from repro_torch.exp.scenarios import get_scenario
+one = dataclasses.replace(get_scenario("paper-smoke"), apps=("montage",),
+                          rates=(6.0,), budget_intervals=((0.5, 1.0),))
+with tempfile.TemporaryDirectory() as d:
+    art = run_grid(one, device="cpu", trace_dir=d + "/t", report_dir=d + "/r")
+    assert len(art["cells"]) == 5 and art["use_pallas"] == "cpu"
+    args = ["--grid", "online-smoke", "--device", "cpu", "--out", d,
+            "--ckpt-dir", d + "/ck", "--trace-dir", d + "/t"]
+    try:
+        main(args + ["--ckpt-every-s", "0", "--stop-after-ckpts", "1"])
+        raise AssertionError("the stream was not interrupted")
+    except SystemExit as e:
+        assert e.code == 3, e.code
+    main(args + ["--resume"])
+bad = sorted(m for m in sys.modules
+             if m == "repro" or m.startswith("repro.")
+             or m == "jax" or m.startswith(("jax.", "jaxlib")))
+print("LOADED", bad)
+"""
+
+
+def test_experiment_harness_runs_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    proc = subprocess.run([sys.executable, "-c", EXP_CHILD], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().splitlines()[-1] == "LOADED ['jax']"
 
 
@@ -120,3 +156,19 @@ def test_serving_entry_points_default_to_cuda():
         build_prefill(m, "prefill_32k")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_decode_step(m, "decode_32k")
+
+
+def test_experiment_entry_points_default_to_cuda(tmp_path):
+    from repro_torch.exp.run import main, run_grid, run_online
+    from repro_torch.exp.scenarios import get_scenario
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_grid(get_scenario("paper-smoke"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_online(get_scenario("online-smoke"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--grid", "paper-smoke", "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--grid", "online-smoke", "--out", str(tmp_path)])
+    assert not (tmp_path / "BENCH_paper_grid.json").exists()
