@@ -15,8 +15,9 @@ Phases (each raises on failure, so the script exits non-zero):
    registers, shared memory and spills;
 3. affinity kernel vs plain — the CUDA kernel against the plain torch
    version on the card, bitwise, at the reference tests' shapes, the
-   main paths' round buckets (the five most frequent of phases 5 and 8
-   among them; both phases check it) and a large round, both through
+   main paths' round buckets (the five most frequent of phases 5, 8 and
+   10 among them; the three phases check it) and a large round, both
+   through
    the nine-tensor wrapper and through a packed round (stage, one copy
    over, the kernel, one copy back, one wait); prints per-shape times,
    the packed round's time and its link bound at a host-to-device rate
@@ -28,7 +29,10 @@ Phases (each raises on failure, so the script exits non-zero):
 6. attention and SSD kernels vs plain — flash attention and the SSD
    chunk and carry kernels against their plain torch versions on the
    card at the reference sweep's shapes and at zamba2-1.2b's (and
-   mamba2-780m's) serving shapes, both request sets' lengths included
+   mamba2-780m's) serving shapes, both request sets' lengths included;
+   flash attention also at head dim 80 (causal and not, fp32 and bf16)
+   and at phase 9's serving shapes (head dims 128, 80 and 64, hubert's
+   [4,16,2048,80] in both dtypes)
    (bf16 attention, on the tensor-core kernel at every head width,
    element by element within one bf16 step of the plain version; the
    bf16 SSD chunk pass on the tensor cores, with the worst ratio to its
@@ -61,7 +65,27 @@ Phases (each raises on failure, so the script exits non-zero):
    7,928 rounds / 3,051 batched calls, every task placed and every
    makespan and cost finite, rounds timed as in phase 5; then the same
    cell through ``run_grid(device="cpu")``, whose artifact the card's
-   equals but for the backend fields.
+   equals but for the backend fields;
+9. transformer families at full width — llama3-8b (dense, 32 layers,
+   d_model 4096, GQA 32/8, head dim 128), qwen2-moe-a2.7b (MoE, 24
+   layers, 60→64 experts, top-4, shared FFN 5632, bf16 weights),
+   hubert-xlarge (audio encoder, 48 layers, head dim 80, non-causal) and
+   internvl2-1b (VLM, 24 layers, head dim 64, 256 patch embeddings),
+   seeded random weights, bf16 compute, through ``build`` and the serve
+   builders: after an untimed warm-up request, 4 × 2048-position
+   prompts and 16 greedy decode tokens (hubert: prefill only); one FA
+   launch per layer in every prefill and none in decode (counts
+   checked); each decode step held against ``forward``, hubert's
+   prefill against the same prefill with the plain attention; the MoE
+   router on the card against the CPU on layer 0's input; prefill s,
+   decode ms per step, peak GiB and a ``torch.profiler`` split of one
+   prefill and decode step;
+10. WaaS platform — ``repro_torch.waas.platform.sweep`` on the card and
+   on the CPU at its defaults (no round reaches the auction) and at 400
+   jobs at 1000 per minute (978 rounds, one affinity launch each, the
+   five most frequent buckets held in phase 3): rows equal, launches
+   equal to the CPU's count of rounds; then ``straggler_experiment``
+   with slowdowns 2 and 4 on both devices, rows equal.
 
 The second-last lines are the kernel record (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is the device record.
@@ -70,8 +94,11 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
+import dataclasses
 import functools
 import json
+import math
 import re
 import shutil
 import statistics
@@ -93,13 +120,16 @@ GS = dict(gs_read=50.0, gs_write=30.0, bp_ms=1000.0)
 FIELDS = ("best_vm", "best_tier", "est_finish", "est_cost")
 # (B, T, V) shapes: the reference kernel tests' (T, V) at B = 1 and 3, the
 # main paths' round buckets (half their rows inert), among them the
-# HELD_TOP most frequent of phase 5's paper cell and of phase 8's hot cell
-# (both phases check that), and one large round.
+# HELD_TOP most frequent of phase 5's paper cell, of phase 8's hot cell and
+# of phase 10's WaaS sweep (the three phases check that), and one large
+# round.
 TEST_TV = [(16, 32), (37, 100), (64, 7), (1, 1)]
 BUCKETS = [(1, 64, 64), (1, 64, 128), (1, 512, 128), (2, 512, 512),
            (1, 256, 1024), (4, 4, 1024),
            (1, 256, 256), (1, 512, 256), (1, 256, 512), (1, 2, 512),
-           (4, 2, 1024), (2, 256, 512), (1, 512, 512)]
+           (4, 2, 1024), (2, 256, 512), (1, 512, 512),
+           (1, 8, 256), (1, 4, 256), (1, 2, 256), (2, 8, 256),
+           (2, 16, 256)]
 HELD_TOP = 5
 LARGE = (16, 1024, 1024)
 HEADLINE = (1, 256, 1024)      # the shape the kernel record reports
@@ -488,8 +518,7 @@ def phase_full_width(torch, rate: float) -> int:
 # ---------------------------------------------------------------------------
 
 # (B, L, H, D, causal, dtype): the reference sweep (tests/test_kernels.py,
-# test_flash_attention_sweep), then zamba2-1.2b's shared-attention shapes
-# for request sets (a) and (b) below.
+# test_flash_attention_sweep).
 FA_SWEEP = [(2, 256, 4, 64, True, "float32"),
             (1, 128, 2, 128, False, "float32"),
             (2, 200, 3, 64, True, "float32"),
@@ -498,8 +527,21 @@ FA_SWEEP = [(2, 256, 4, 64, True, "float32"),
             (1, 128, 2, 128, False, "bfloat16"),
             (2, 200, 3, 64, True, "bfloat16"),
             (1, 96, 1, 32, True, "bfloat16")]
+# Head dim 80 (hubert-xlarge's), causal and not, in both dtypes.
+FA_D80 = [(2, 200, 3, 80, True, "float32"),
+          (2, 200, 3, 80, False, "float32"),
+          (2, 200, 3, 80, True, "bfloat16"),
+          (2, 200, 3, 80, False, "bfloat16")]
+# The serving paths' shapes after GQA's head repeat: zamba2-1.2b's request
+# sets (a) and (b) (phase 7), then phase 9's llama3-8b, qwen2-moe-a2.7b,
+# hubert-xlarge (also in fp32, held to 2e-5) and internvl2-1b at 4 x 2048.
 FA_SERVING = [(4, 2048, 32, 64, True, "bfloat16"),
-              (1, 32768, 32, 64, True, "bfloat16")]
+              (1, 32768, 32, 64, True, "bfloat16"),
+              (4, 2048, 32, 128, True, "bfloat16"),
+              (4, 2048, 16, 128, True, "bfloat16"),
+              (4, 2048, 16, 80, False, "bfloat16"),
+              (4, 2048, 16, 80, False, "float32"),
+              (4, 2048, 16, 64, True, "bfloat16")]
 FA_HEADLINE = FA_SERVING[0]
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # max|Δ| over the output
 # bf16 outputs are also held element by element to one bf16 rounding step
@@ -595,7 +637,7 @@ def phase_attention(torch) -> dict:
         "time; MMA floor = the bf16 kernel's own tensor-core work (8·D "
         "flops per pair: p·v three times) at the bf16 peak")
     rows, worst = {}, 0.0
-    for i, shape in enumerate(FA_SWEEP + FA_SERVING):
+    for i, shape in enumerate(FA_SWEEP + FA_D80 + FA_SERVING):
         B, L, H, D, causal, dtype = shape
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         tdt = getattr(torch, dtype)
@@ -811,27 +853,46 @@ def sync(torch, device) -> None:
         torch.cuda.synchronize()
 
 
+def prompt_batch(torch, cfg, B, L, seed) -> dict:
+    """B seeded prompts of L positions, on the host: tokens, with the VLM
+    family's patch embeddings (they overwrite the first ``n_patches``
+    positions), or the audio family's frame embeddings."""
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.frame_dim:
+        return {"frames": torch.randn((B, L, cfg.frame_dim),
+                                      generator=gen).bfloat16()}
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, L), dtype=torch.int64,
+                                     generator=gen)}
+    if cfg.n_patches:
+        batch["patches"] = torch.randn((B, cfg.n_patches, cfg.patch_dim),
+                                       generator=gen).bfloat16()
+    return batch
+
+
 def serve_request(torch, model, params, B, L, steps, seed, counts=None):
-    """Prefill B prompts of L seeded tokens, then ``steps`` greedy decode
-    steps, through the serve builders.  ``counts`` (callable → tuple)
-    is read around the prefill and the decode loop."""
+    """Prefill B seeded prompts of L positions, then ``steps`` greedy
+    decode steps, through the serve builders (an encoder-only arch:
+    prefill only, ``steps`` = 0).  ``counts`` (callable → tuple) is read
+    around the prefill and the decode loop."""
     from repro_torch.serve.serve_step import build_decode_step, \
         build_prefill
     dev = model.device
     prefill = build_prefill(model, "prefill_32k", device=dev,
                             max_seq=L + steps)
-    decode = build_decode_step(model, "decode_32k", device=dev)
-    prompt = torch.randint(0, model.cfg.vocab, (B, L), dtype=torch.int64,
-                           generator=torch.Generator().manual_seed(seed))
+    prompt = prompt_batch(torch, model.cfg, B, L, seed)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     c0 = counts() if counts else None
     sync(torch, dev)
     t0 = time.perf_counter()
-    logits, state = prefill(params, {"tokens": prompt})
+    logits, state = prefill(params, prompt)
     sync(torch, dev)
     prefill_s = time.perf_counter() - t0
     c1 = counts() if counts else None
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("non-finite prefill logits")
+    if steps:
+        decode = build_decode_step(model, "decode_32k", device=dev)
     tok = logits[:, -1].argmax(-1, keepdim=True)
     fed, dec_logits, step_ms = [], [], []
     for _ in range(steps):
@@ -843,33 +904,38 @@ def serve_request(torch, model, params, B, L, steps, seed, counts=None):
         sync(torch, dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
     c2 = counts() if counts else None
-    dec = torch.stack(dec_logits, 1).float()
-    if not bool(torch.isfinite(dec).all()):
-        raise AssertionError("non-finite decode logits")
-    if int(state["length"]) != L + steps:
-        raise AssertionError(f"state length {int(state['length'])} != "
-                             f"{L + steps}")
+    dec = None
+    if steps:
+        dec = torch.stack(dec_logits, 1).float()
+        if not bool(torch.isfinite(dec).all()):
+            raise AssertionError("non-finite decode logits")
+        if int(state["length"]) != L + steps:
+            raise AssertionError(f"state length {int(state['length'])} != "
+                                 f"{L + steps}")
     peak = (torch.cuda.max_memory_allocated() / 2**30
             if dev.type == "cuda" else float("nan"))
-    return dict(prompt=prompt, fed=torch.cat(fed, 1), dec_logits=dec,
-                prefill_s=prefill_s, step_ms=step_ms, peak_gib=peak,
-                counts=(c0, c1, c2))
+    return dict(prompt=prompt, fed=torch.cat(fed, 1) if fed else None,
+                logits=logits, dec_logits=dec, prefill_s=prefill_s,
+                step_ms=step_ms, peak_gib=peak, counts=(c0, c1, c2))
 
 
-def check_decode_vs_forward(torch, model, params, res) -> float:
+def check_decode_vs_forward(torch, model, params, res,
+                            tag="serve") -> float:
     """Each decode step's logits against ``forward`` over the prompt plus
     the fed tokens, at the same position.  The forward sequence is padded
     to a whole number of SSD chunks (64) with tokens after every compared
     position, which causality keeps out of the compared logits."""
     prompt, fed = res["prompt"], res["fed"].cpu()
-    seq = torch.cat([prompt, fed], 1)
+    seq = torch.cat([prompt["tokens"], fed], 1)
     n = seq.shape[1]
     pad = -n % 64 if n > 64 else 0
     seq = torch.cat([seq, torch.zeros((seq.shape[0], pad),
                                       dtype=seq.dtype)], 1)
+    batch = dict(prompt, tokens=seq)
     with torch.inference_mode():
-        full = model.forward(params, {"tokens": seq.to(model.device)})
-    L, steps = prompt.shape[1], fed.shape[1]
+        full = model.forward(params, {k: v.to(model.device)
+                                      for k, v in batch.items()})
+    L, steps = prompt["tokens"].shape[1], fed.shape[1]
     ref = full[:, L:L + steps].float()                   # [B, steps, V]
     err = (res["dec_logits"] - ref).abs().amax(dim=(0, 2))
     bar = DECODE_BAR * ref.abs().amax(dim=(0, 2)).clamp(min=1.0)
@@ -877,7 +943,7 @@ def check_decode_vs_forward(torch, model, params, res) -> float:
         raise AssertionError(f"decode vs forward: max|Δ| per step "
                              f"{err.tolist()} vs bars {bar.tolist()}")
     worst = int((err / bar).argmax())
-    log(f"[serve] decode vs forward over {L} + {steps} tokens (padded to "
+    log(f"[{tag}] decode vs forward over {L} + {steps} tokens (padded to "
         f"{seq.shape[1]}), each step under its bar; closest step {worst}: "
         f"max|Δ| {float(err[worst]):.4g} < {float(bar[worst]):.4g}; "
         f"max|Δ| over all steps {float(err.max()):.4g}")
@@ -975,13 +1041,13 @@ def phase_serving(torch) -> dict:
     # wall times above.
     for name, B, L, _ in REQUESTS:
         res = results[name]
-        prompt = res["prompt"].cuda()
+        prompt = {k: v.cuda() for k, v in res["prompt"].items()}
         prefill = build_prefill(model, "prefill_32k", max_seq=L + 1)
         decode = build_decode_step(model, "decode_32k")
-        _, state = prefill(params, {"tokens": prompt})
+        _, state = prefill(params, prompt)
         tok = res["fed"][:, :1]
         for what, fn, wall_ms in (
-                ("prefill", lambda: prefill(params, {"tokens": prompt}),
+                ("prefill", lambda: prefill(params, prompt),
                  res["prefill_s"] * 1e3),
                 ("decode step", lambda: decode(params, state, tok),
                  statistics.median(res["step_ms"]))):
@@ -1228,6 +1294,395 @@ def phase_experiments(torch, rate: float) -> dict:
     return dict(launches=launches, wall=wall, round_s=round_s)
 
 
+# ---------------------------------------------------------------------------
+# The transformer families at full width
+# ---------------------------------------------------------------------------
+
+# (arch, requests, prompt positions, greedy decode tokens, weight dtype):
+# full width and depth, seeded random weights, bf16 compute.  The MoE
+# arch holds bf16 weights (15.15 B parameters: ~30 GB, against ~61 GB in
+# fp32), as the reference's serve paths do; the others fp32, as phase 7.
+# hubert-xlarge is encoder-only: prefill alone.
+TRANSFORMERS = [("llama3-8b", 4, 2048, 16, None),
+                ("qwen2-moe-a2.7b", 4, 2048, 16, "bfloat16"),
+                ("hubert-xlarge", 4, 2048, 0, None),
+                ("internvl2-1b", 4, 2048, 16, None)]
+# The MoE router on the card against the CPU on one layer's input: in
+# fp32 every token routes alike but where the CPU's k-th and (k+1)-th
+# gates lie within ROUTING_TIE of each other; in bf16 at most
+# ROUTING_FLIP_SHARE of the tokens may route differently (the two
+# devices sum the bf16 logits' products in another order).
+ROUTING_TIE = 1e-6
+ROUTING_FLIP_SHARE = 0.01
+
+
+def check_routing(torch, model, params, prompt) -> dict:
+    """Layer 0's MoE input (embedding, then the layer's attention) on the
+    card; its top-k experts per token from the card's router and from the
+    CPU's on the same input, in fp32 and in bf16."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import layer_params, position_ids
+    from repro_torch.models.layers import attention, rmsnorm
+    cfg, run = model.cfg, model.run
+    with torch.inference_mode():
+        h = tf.embed_inputs(params, {k: v.cuda() for k, v in prompt.items()},
+                            cfg, run)
+        B, L = h.shape[:2]
+        lp = layer_params(params, 0)
+        pos = position_ids(B, L, h.device)
+        h = h + attention(lp["attn"], rmsnorm(h, lp["ln1"], cfg.rms_eps),
+                          pos, cfg, run)
+        xt = rmsnorm(h, lp["ln2"], cfg.rms_eps).reshape(B * L, -1)
+        router = {"router": lp["moe"]["router"]}
+        router_cpu = {"router": router["router"].cpu()}
+        out = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x = xt.to(dt)
+            _, e_card = moe_mod._router(router, x, cfg)
+            _, e_cpu = moe_mod._router(router_cpu, x.cpu(), cfg)
+            differ = (e_card.cpu().sort(-1).values
+                      != e_cpu.sort(-1).values).any(-1)
+            g = moe_mod._gates(router_cpu, x.cpu(), cfg).sort(
+                -1, descending=True).values
+            tie = (g[:, cfg.top_k - 1] - g[:, cfg.top_k]) <= ROUTING_TIE
+            out[str(dt).replace("torch.", "")] = (
+                int(differ.sum()), int((differ & tie).sum()), B * L)
+    flips, ties, n = out["float32"]
+    if flips != ties:
+        raise AssertionError(f"routing: {flips - ties} of {n} tokens route "
+                             f"differently on the card in fp32 away from a "
+                             f"tie")
+    bf, _, _ = out["bfloat16"]
+    if bf > ROUTING_FLIP_SHARE * n:
+        raise AssertionError(f"routing: {bf} of {n} tokens route "
+                             f"differently on the card in bf16")
+    log(f"[tf] MoE routing, layer 0's input ({n} tokens, top-{cfg.top_k} of "
+        f"{cfg.n_experts}): card vs CPU, tokens whose experts differ: fp32 "
+        f"{flips} (all within {ROUTING_TIE} of a tie), bf16 {bf} (bar "
+        f"{ROUTING_FLIP_SHARE} of tokens)")
+    return out
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """Every ``moe._router`` call's top-k experts, in call order (one
+    per MoE layer per model call), while the block runs."""
+    from repro_torch.models import moe as moe_mod
+    router = moe_mod._router
+    routes = []
+
+    def recording(p, xt, cfg):
+        w, e = router(p, xt, cfg)
+        routes.append(e)
+        return w, e
+    moe_mod._router = recording
+    try:
+        yield routes
+    finally:
+        moe_mod._router = router
+
+
+def drop_shares(cfg, routes, capacity_factor) -> list:
+    """Share of each call's (token, expert) slots past its expert's
+    capacity, as ``moe._moe_dense`` sizes it."""
+    from repro_torch.models import moe as moe_mod
+    e_pad = cfg.n_experts_padded or cfg.n_experts
+    out = []
+    for e in routes:
+        flat = e.reshape(-1).long()
+        cap = max(int(math.ceil(flat.numel() / e_pad * capacity_factor)), 8)
+        pos = moe_mod._positions_within_expert(flat)
+        out.append(float((pos >= cap).float().mean()))
+    return out
+
+
+def check_moe_decode_vs_forward(torch, model, params, B, L, steps) -> dict:
+    """An MoE arch's decode held against ``forward`` where the two
+    compute the same function: at capacity factor e_pad / top_k no slot
+    can drop (at the config's 1.25 the prefill's 8192 tokens overflow
+    the experts random weights favour, a 4-token decode step never
+    does), and each decode token's experts, recorded per layer, are given
+    to ``forward`` at that token's position (a bf16 router that lands on
+    another expert moves a logit by more than the bar).  Returns the
+    max|Δ| and how many (token, layer) routes ``forward`` would have
+    chosen otherwise."""
+    from repro_torch.models import moe as moe_mod
+    cfg = model.cfg
+    k, n = cfg.top_k, cfg.n_layers
+    e_pad = cfg.n_experts_padded or cfg.n_experts
+    nodrop = dataclasses.replace(
+        model, run=model.run.with_(moe_capacity=e_pad / k))
+    with routes_recorded() as routes:
+        res = serve_request(torch, nodrop, params, B, L, steps, seed=L + 1)
+    if max(drop_shares(cfg, routes, e_pad / k)) != 0.0:
+        raise AssertionError("a slot dropped at capacity factor e_pad/k")
+    dec = routes[n:]                     # step-major, n_layers per step
+    router = moe_mod._router
+    layer, flips = [0], [0]
+
+    def given(p, xt, cfg_):
+        _, e = router(p, xt, cfg_)
+        i = layer[0]
+        layer[0] += 1
+        e = e.reshape(B, -1, k).clone()
+        for j in range(steps):
+            want = dec[j * n + i].reshape(B, k)
+            flips[0] += int((e[:, L + j].sort(-1).values
+                             != want.sort(-1).values).any(-1).sum())
+            e[:, L + j] = want
+        e = e.reshape(-1, k)
+        w = moe_mod._gates(p, xt, cfg_).gather(-1, e.long())
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), e
+    moe_mod._router = given
+    try:
+        err = check_decode_vs_forward(torch, nodrop, params, res, "tf")
+    finally:
+        moe_mod._router = router
+    log(f"[tf] decode held against forward at capacity factor {e_pad / k} "
+        f"(no slot dropped), each decode token's experts given to forward: "
+        f"{flips[0]} of {B * steps * n} (token, layer) routes would have "
+        f"differed in bf16")
+    return dict(err=err, flips=flips[0], pairs=B * steps * n)
+
+
+def check_prefill_vs_plain(torch, model, params, res) -> float:
+    """An encoder-only prefill (every position's logits) through the
+    kernel against the same prefill with the plain attention on the
+    card, each position within DECODE_BAR of its largest logit."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    kernel = fa_ops.flash_attention
+    fa_ops.flash_attention = \
+        lambda q, k, v, causal=True: attention_ref(q, k, v, causal)
+    try:
+        with torch.inference_mode():
+            ref = model.forward(params, {k: v.cuda() for k, v in
+                                         res["prompt"].items()}).float()
+    finally:
+        fa_ops.flash_attention = kernel
+    got = res["logits"].float()
+    err = (got - ref).abs().amax(-1)
+    bar = DECODE_BAR * ref.abs().amax(-1).clamp(min=1.0)
+    if not bool((err < bar).all()):
+        raise AssertionError(f"prefill vs plain attention: max|Δ| "
+                             f"{float(err.max())}")
+    log(f"[tf] prefill through the kernel vs the plain attention on the "
+        f"card, {ref.shape[0]} x {ref.shape[1]} positions, each under "
+        f"{DECODE_BAR}·max(max|ref|, 1): max|Δ| {float(err.max()):.4g}, "
+        f"worst ratio to its bar {float((err / bar).max()):.4g}")
+    return float(err.max())
+
+
+def phase_transformers(torch) -> dict:
+    import gc
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build
+    from repro_torch.serve.serve_step import build_decode_step, \
+        build_prefill
+    out = {}
+    for arch, B, L, steps, wdt in TRANSFORMERS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build(arch, device="cuda")
+        cfg = model.cfg
+        params = model.init(0, getattr(torch, wdt) if wdt else None)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_gib = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[tf] {arch} ({cfg.family}): {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head dim "
+            f"{cfg.hd}, causal {cfg.causal}, {model.n_params():,} "
+            f"parameters in {wdt or 'float32'} from a seeded generator in "
+            f"{init_s:.3f} s (peak {init_gib:.3f} GiB while drawn), compute "
+            f"{model.run.compute_dtype}")
+        # Warm-up request (cuBLAS handles, the allocator's pools, first
+        # launches), outside the timed and counted run.
+        serve_request(torch, model, params, 1, cfg.n_patches + 64,
+                      min(steps, 2), seed=0)
+        fa_ops.LAUNCHES = 0
+        with routes_recorded() as routes:
+            res = serve_request(torch, model, params, B, L, steps, seed=L,
+                                counts=lambda: (fa_ops.LAUNCHES,))
+        (c0,), (c1,), (c2,) = res["counts"]
+        if c1 - c0 != cfg.n_layers:
+            raise AssertionError(f"{arch}: prefill launched {c1 - c0} FA "
+                                 f"kernels, expected {cfg.n_layers}")
+        if c2 != c1:
+            raise AssertionError(f"{arch}: decode launched the FA kernel")
+        launches = fa_ops.LAUNCHES
+        step_ms = res["step_ms"]
+        dec = (f"{steps} greedy decode steps: median "
+               f"{statistics.median(step_ms):.3f} ms, max "
+               f"{max(step_ms):.3f} ms per step (host clock, "
+               f"synchronised), {B * steps * 1e3 / sum(step_ms):.1f} "
+               f"tokens/s" if steps else "no decode (encoder-only)")
+        log(f"[tf] {arch} {B} x {L}-position prompts: prefill "
+            f"{res['prefill_s']:.3f} s ({B * L / res['prefill_s']:.1f} "
+            f"positions/s), {c1 - c0} FA launches; {dec}; peak allocated "
+            f"{res['peak_gib']:.3f} GiB")
+        routing = drops = None
+        if cfg.n_experts:
+            cf = model.run.moe_capacity
+            drops = drop_shares(cfg, routes[:cfg.n_layers], cf)
+            dec_drops = drop_shares(cfg, routes[cfg.n_layers:], cf)
+            log(f"[tf] {arch} prefill at capacity factor {cf}: dropped "
+                f"slot share per layer {[round(d, 4) for d in drops]} "
+                f"(mean {statistics.mean(drops):.4f}); decode steps' "
+                f"largest {max(dec_drops)}")
+            routing = check_routing(torch, model, params, res["prompt"])
+            err = check_moe_decode_vs_forward(torch, model, params, B, L,
+                                              steps)
+        elif steps:
+            err = check_decode_vs_forward(torch, model, params, res, "tf")
+        else:
+            err = check_prefill_vs_plain(torch, model, params, res)
+        # Where the device time goes: one more prefill (and decode step)
+        # under the profiler; idle share against the unprofiled walls.
+        prompt = {k: v.cuda() for k, v in res["prompt"].items()}
+        prefill = build_prefill(model, "prefill_32k", max_seq=L + 1)
+        calls = [("prefill", lambda: prefill(params, prompt),
+                  res["prefill_s"] * 1e3)]
+        if steps:
+            decode = build_decode_step(model, "decode_32k")
+            _, state = prefill(params, prompt)
+            tok = res["fed"][:, :1]
+            calls.append(("decode step", lambda: decode(params, state, tok),
+                          statistics.median(step_ms)))
+        split = {}
+        for what, fn, wall_ms in calls:
+            by = device_breakdown(torch, fn)
+            if what == "prefill" and not by["fa_kernel"] > 0:
+                raise AssertionError(f"{arch}: no device time under "
+                                     f"fa_kernel in a prefill")
+            busy = by["fa_kernel"] + by["other"]
+            split[what] = dict(fa_kernel=by["fa_kernel"], other=by["other"],
+                               busy=busy, wall=wall_ms,
+                               idle=max(0.0, 1 - busy / wall_ms))
+            log(f"[tf] {arch} {what} device time, ms: fa_kernel "
+                f"{by['fa_kernel']:.3f}, other kernels {by['other']:.3f}; "
+                f"busy {busy:.3f} of {wall_ms:.3f} wall, idle share "
+                f"{split[what]['idle']:.4f}")
+        out[arch] = dict(launches=launches, prefill_s=res["prefill_s"],
+                         step_ms=(statistics.median(step_ms) if steps
+                                  else None),
+                         peak_gib=res["peak_gib"], init_gib=init_gib,
+                         err=err, routing=routing, drops=drops,
+                         split=split)
+        del params, model, res, prompt, calls, prefill
+        if steps:
+            del state, decode
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The ML-job WaaS platform
+# ---------------------------------------------------------------------------
+
+# ``sweep``'s defaults (24 jobs, rates 1 and 4 per minute) send no round
+# to the auction; this grid (400 jobs at 1000 per minute, the same code)
+# sends 978, counted at the ``_score_round`` seam of a CPU run.
+WAAS_KERNEL_SWEEP = dict(n_jobs=400, rates=(1000.0,))
+WAAS_KERNEL_ROUNDS = 978
+NOART = "/nonexistent"   # no dry-run artifacts: the analytic cost model
+
+
+def cpu_rounds(fn):
+    """``fn()`` and the rounds it scores at the ``_score_round`` seam."""
+    from repro_torch.core import cycles
+    score = cycles._score_round
+    n = [0]
+
+    def counted(cfg_, view):
+        n[0] += 1
+        return score(cfg_, view)
+    cycles._score_round = counted
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        return out, n[0], time.perf_counter() - t0
+    finally:
+        cycles._score_round = score
+
+
+def check_sweep_rows(rows, n_jobs, what) -> None:
+    """Every policy ran every job to its end with one placement per task
+    (the tier histogram counts placements), makespans finite and
+    positive."""
+    from repro_torch.waas.mljobs import ml_workload
+    for r in rows:
+        wfs = ml_workload(n_jobs, r["rate_wf_per_min"], seed=r["seed"],
+                          art_dir=NOART)
+        if (r["n_workflows"] != n_jobs or sum(r["tier_hist"].values())
+                != sum(w.n_tasks for w in wfs)):
+            raise AssertionError(f"{what} {r['policy']}: not every job ran "
+                                 f"to its end")
+        if not (np.isfinite(r["mean_makespan_s"])
+                and r["mean_makespan_s"] > 0):
+            raise AssertionError(f"{what} {r['policy']}: makespan "
+                                 f"{r['mean_makespan_s']}")
+
+
+def phase_waas(torch, rate: float) -> dict:
+    """``repro_torch.waas.platform`` on the card against the CPU: the
+    sweep at its defaults and at ``WAAS_KERNEL_SWEEP``, then the chaos
+    straggler experiment.  Sweep rows carry no backend field, so they
+    must be equal whole."""
+    from repro_torch.kernels.affinity import ops
+    from repro_torch.waas import platform
+    out = {}
+    for tag, kw in (("defaults", {}), ("kernel grid", WAAS_KERNEL_SWEEP)):
+        n_jobs = kw.get("n_jobs", 24)
+        cpu, rounds, cpu_wall = cpu_rounds(
+            lambda: platform.sweep(art_dir=NOART, device="cpu", **kw))
+        card = lambda: platform.sweep(art_dir=NOART,  # noqa: E731
+                                      device="cuda", **kw)
+        if rounds:
+            rows, wall, launches, buckets, round_s, link_bytes = \
+                timed_rounds(torch, card)
+        else:
+            ops.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rows = card()
+            wall, launches = time.perf_counter() - t0, ops.LAUNCHES
+        if rows != cpu:
+            raise AssertionError(f"waas sweep ({tag}): card rows differ "
+                                 f"from the CPU's")
+        if launches != rounds:
+            raise AssertionError(f"waas sweep ({tag}): {launches} launches "
+                                 f"on the card, {rounds} rounds on the CPU")
+        check_sweep_rows(rows, n_jobs, f"waas sweep ({tag})")
+        log(f"[waas] sweep {kw or '(defaults)'}: {len(rows)} rows equal to "
+            f"the CPU's; {launches} affinity launches = the CPU's {rounds} "
+            f"rounds; wall {wall:.3f} s on the card, {cpu_wall:.3f} s on "
+            f"the CPU")
+        for r in rows:
+            log(f"[waas]   {r['policy']:9s} rate {r['rate_wf_per_min']} "
+                f"mean makespan {r['mean_makespan_s']:.3f} s, budget met "
+                f"{r['budget_met']:.3f}, utilization "
+                f"{r['utilization']:.3f}, locality "
+                f"{r['locality_hit_rate']:.3f}")
+        out[tag] = dict(launches=launches, wall=wall, cpu_wall=cpu_wall)
+    if launches != WAAS_KERNEL_ROUNDS:
+        raise AssertionError(f"waas kernel grid: {launches} launches, "
+                             f"expected {WAAS_KERNEL_ROUNDS}")
+    log_rounds("waas", wall, launches, buckets, round_s, link_bytes, rate)
+    check_held("waas", buckets)
+    out["round_s"] = round_s
+    chaos = dict(slowdowns=(2.0, 4.0), art_dir=NOART)
+    card = platform.straggler_experiment(device="cuda", **chaos)
+    if card != platform.straggler_experiment(device="cpu", **chaos):
+        raise AssertionError("straggler experiment: card rows differ from "
+                             "the CPU's")
+    for pol, rows in card.items():
+        log(f"[waas] stragglers {pol:8s} (slowdown, mean makespan s, budget "
+            f"met, detected): {rows}; equal on the CPU")
+    return out
+
+
 def main() -> int:
     import torch
     smi = phase_device(torch)
@@ -1239,6 +1694,10 @@ def main() -> int:
     sd = phase_ssd(torch)
     serve = phase_serving(torch)
     exp = phase_experiments(torch, k["link_rate"])
+    tf = phase_transformers(torch)
+    waas = phase_waas(torch, k["link_rate"])
+    from repro_torch.kernels.flash_attention.kernel import \
+        HEAD_DIMS as FA_HEAD_DIMS
     head = k["rows"][HEADLINE]
     fa_head = fa["rows"][FA_HEADLINE]
     ssd_head = sd["rows"][SSD_HEADLINE]
@@ -1251,6 +1710,8 @@ def main() -> int:
         "launches": launches,
         # The experiment harness's full-width cell (phase 8).
         "launches_exp_run": exp["launches"],
+        # The WaaS platform's kernel grid (phase 10).
+        "launches_waas": waas["kernel grid"]["launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1277,6 +1738,15 @@ def main() -> int:
         "library_ms": fa_head["library_ms"],
         "shape": [B, H, L, D],
         "tflops": fa_head["tflops"],
+        "head_dims": list(FA_HEAD_DIMS),
+        # Phase 9: launches per arch (one prefill each).
+        "launches_transformers": {a: r["launches"] for a, r in tf.items()},
+        # Every serving shape of phase 6 ([B, H, L, D], causal, dtype).
+        "serving": [dict(shape=[b, h, l, d], causal=c, dtype=dt,
+                         **{key: fa["rows"][(b, l, h, d, c, dt)][key]
+                            for key in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "err")})
+                    for b, l, h, d, c, dt in FA_SERVING],
     }, {
         "name": "ssd_chunk",
         "route": "cuda",

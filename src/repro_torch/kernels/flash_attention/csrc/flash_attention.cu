@@ -29,7 +29,14 @@
 //   (D, H, L, B), 128-byte swizzle; 64-byte at D = 32, where a row is 64
 //   bytes), each stage guarded by a `full` and an `empty` mbarrier, so
 //   the next tiles load while the current one is multiplied.  TMA fills
-//   rows past L with zeros; the -1e30 masks do the rest.  A consumer
+//   rows past L with zeros; the -1e30 masks do the rest.  A head dim above
+//   64 that is not a multiple of 64 (D = 80, hubert-xlarge's) is loaded
+//   in whole 64-column boxes too: the last box reaches past D and TMA
+//   fills its columns D .. 127 with zeros, so the tiles are laid out as
+//   at D = 128.  q k^T then takes only D / 16 k16 steps (the zero columns
+//   are not multiplied), p v runs at N = 128, and the zero output columns
+//   are not written.  That keeps the 128-byte swizzle and the descriptors
+//   of D = 64 and 128; p v does 128/80 of the work it needs.  A consumer
 //   warpgroup computes S = q k^T with wgmma m64n64k16 (q and k both
 //   K-major from shared memory), takes the row max and sum on S's fp32
 //   accumulator in registers (a row lies in 4 lanes: two shuffles), and
@@ -278,7 +285,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 struct Geo {
   static constexpr int CB = D < 64 ? D : 64;    // columns per box
-  static constexpr int NB = D / CB;             // boxes per row
+  static constexpr int NB = (D + CB - 1) / CB;  // boxes per row
   static constexpr int ROW = CB * 2;            // bytes of a box row
   static constexpr int BOX = kTcKeys * ROW;     // bytes of a box
   static constexpr int TILE = NB * BOX;         // bytes of a 64-row tile
@@ -735,6 +742,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int c = 0; c < G::NB; ++c)
 #pragma unroll
       for (int i = 0; i < G::ON / 4; ++i) {
+        if (c * G::CB + 8 * i >= D) break;  // a box's zero columns past D
         const int col = c * G::CB + 8 * i + c0;
         *reinterpret_cast<__nv_bfloat162*>(ob + qi * row + col) =
             __floats2bfloat162_rn(oacc[c][4 * i + 2 * hh] / denom,
@@ -745,7 +753,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 // Tensor map over a contiguous bf16 [B, L, H, D] tensor, viewed as 4-D
 // (D, H, L, B) with a box of (CB, 1, 64, 1) and the swizzle that matches
-// a box row of CB * 2 bytes.  Rows past L read as zeros.
+// a box row of CB * 2 bytes.  Rows past L, and columns past D in the last
+// box (D = 80), read as zeros.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int L, int H,
                      int D) {
   const int cb = D < 64 ? D : 64;
@@ -801,6 +810,8 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v,
         return (int)launch_f32<32>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
       case 64:
         return (int)launch_f32<64>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
+      case 80:
+        return (int)launch_f32<80>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
       case 128:
         return (int)launch_f32<128>(q, k, v, o, B, H, Lq, Lk, scale, causal,
                                     s);
@@ -811,6 +822,8 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v,
         return (int)launch_tc<32>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
       case 64:
         return (int)launch_tc<64>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
+      case 80:
+        return (int)launch_tc<80>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
       case 128:
         return (int)launch_tc<128>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
     }

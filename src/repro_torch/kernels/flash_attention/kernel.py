@@ -16,7 +16,9 @@ The dtype picks the kernel: bf16 (the model's serving dtype) goes to
 ``fa_kernel_tc`` (wgmma on the tensor cores, K and V through a TMA ring,
 p split into three bf16 terms so that the products stay exact); fp32
 (the reference sweep's dtype, held to 2e-5) goes to ``fa_kernel_f32`` on
-the CUDA cores.
+the CUDA cores.  Head dims: ``HEAD_DIMS``; at D = 80 the bf16 kernel
+lays its tiles out as at D = 128, the columns past 80 zero-filled by the
+tensor-map copies, and writes only the first 80 output columns.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 from ..build import CudaLibrary, check_launch
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535
 

@@ -1,4 +1,4 @@
-"""Model zoo behind one functional facade (SSM and hybrid families so
-far)."""
+"""Model zoo: the 10 assigned architectures behind one functional
+facade."""
 from .common import ModelConfig, RunConfig  # noqa: F401
 from .registry import Model, build  # noqa: F401

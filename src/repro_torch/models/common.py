@@ -167,31 +167,55 @@ def tree_leaves(tree: PyTree) -> list:
 
 
 def _init_leaf(s: ParamSpec, base_std: float, gen: torch.Generator,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    dt = dtype if dtype is not None and s.dtype.is_floating_point \
+        else s.dtype
     if s.init == "zeros":
-        return torch.zeros(s.shape, dtype=s.dtype, device=device)
+        return torch.zeros(s.shape, dtype=dt, device=device)
     if s.init == "ones":
-        return torch.ones(s.shape, dtype=s.dtype, device=device)
+        return torch.ones(s.shape, dtype=dt, device=device)
     std = base_std
     if s.init == "scaled":  # output projections: scale by 1/sqrt(2*fan-in-ish)
         std = base_std / math.sqrt(2.0)
-    return (torch.randn(s.shape, generator=gen, dtype=torch.float32,
-                        device=device) * std).to(s.dtype)
+    if dtype is None or len(s.shape) < 3:
+        return (torch.randn(s.shape, generator=gen, dtype=torch.float32,
+                            device=device) * std).to(dt)
+    # Cast as drawn, one slice of the leading (layer) axis at a time, so
+    # that no fp32 copy of a whole stacked leaf is ever held.
+    out = torch.empty(s.shape, dtype=dt, device=device)
+    for i in range(s.shape[0]):
+        out[i] = torch.randn(s.shape[1:], generator=gen,
+                             dtype=torch.float32, device=device) * std
+    return out
 
 
 def init_params(gen: torch.Generator, spec_tree: PyTree,
                 base_std: float = 0.02,
-                device: Union[str, torch.device] = "cpu") -> PyTree:
+                device: Union[str, torch.device] = "cpu",
+                dtype: Optional[torch.dtype] = None) -> PyTree:
     """Materialize a spec tree: leaves drawn from ``gen`` in sorted-key
     order (normal·std, ``scaled`` = std/√2, zeros, ones) on ``device``,
-    which must be the generator's device."""
+    which must be the generator's device.  ``dtype`` overrides the
+    floating leaves' dtype (serving holds bf16 weights, as the
+    reference's ``Model.abstract(dtype)`` does); each leaf of rank 3 or
+    more is then drawn and cast a leading slice at a time."""
     device = torch.device(device)
 
     def walk(t):
         if isinstance(t, dict):
             return {k: walk(t[k]) for k in sorted(t)}
-        return _init_leaf(t, base_std, gen, device)
+        return _init_leaf(t, base_std, gen, device, dtype)
     return walk(spec_tree)
+
+
+def abstract_params(spec_tree: PyTree,
+                    dtype: Optional[torch.dtype] = None) -> PyTree:
+    """(shape, dtype) of every leaf, nothing allocated; ``dtype``
+    overrides the floating leaves'."""
+    return tree_map(lambda s: (s.shape, dtype if dtype is not None
+                               and s.dtype.is_floating_point else s.dtype),
+                    spec_tree)
 
 
 def param_count(spec_tree: PyTree) -> int:
@@ -201,6 +225,17 @@ def param_count(spec_tree: PyTree) -> int:
 # ---------------------------------------------------------------------------
 # Tiny helpers shared across model files
 # ---------------------------------------------------------------------------
+
+
+def layer_params(params: PyTree, i: int) -> PyTree:
+    """Layer ``i``'s parameters: views into the stacked
+    ``params["layers"]`` leaves (the reference scans over them)."""
+    return tree_map(lambda x: x[i], params["layers"])
+
+
+def position_ids(B: int, L: int, device) -> torch.Tensor:
+    """Positions 0 .. L-1 of each of B rows, int32 ``[B, L]``."""
+    return torch.arange(L, dtype=torch.int32, device=device).expand(B, L)
 
 
 def cast_tree(tree: PyTree, dtype: torch.dtype) -> PyTree:

@@ -17,10 +17,11 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from .common import ModelConfig, RunConfig, spec, stacked, tree_map
+from .common import (ModelConfig, RunConfig, layer_params, position_ids,
+                     spec, stacked, tree_map)
 from .layers import (attend, attention, attn_specs, cross_entropy,
-                     decode_attention, embed, embed_specs, logits_out, mlp,
-                     mlp_specs, project_qkv, rmsnorm)
+                     decode_attention, embed, embed_specs, kv_cache_specs,
+                     logits_out, mlp, mlp_specs, project_qkv, rmsnorm)
 from .ssm import (ssm_block, ssm_block_decode, ssm_block_with_state,
                   ssm_specs, ssm_state_specs)
 
@@ -49,15 +50,6 @@ def hybrid_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return s
 
 
-def _layer(params, i: int):
-    """Layer ``i``'s parameters: views into the stacked leaves."""
-    return tree_map(lambda x: x[i], params["layers"])
-
-
-def _positions(B: int, L: int, device) -> torch.Tensor:
-    return torch.arange(L, dtype=torch.int32, device=device).expand(B, L)
-
-
 def _shared_block(sa, x: torch.Tensor, positions, cfg: ModelConfig,
                   run: RunConfig) -> torch.Tensor:
     x = x + attention(sa["attn"], rmsnorm(x, sa["ln"], cfg.rms_eps),
@@ -73,9 +65,9 @@ def _is_attn_layer(cfg: ModelConfig, i: int) -> bool:
 def forward(params, batch, cfg: ModelConfig, run: RunConfig) -> torch.Tensor:
     h = embed(params["embed"], batch["tokens"], run)
     B, L = h.shape[:2]
-    positions = _positions(B, L, h.device)
+    positions = position_ids(B, L, h.device)
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+        lp = layer_params(params, i)
         h = h + ssm_block(lp["ssm"], rmsnorm(h, lp["ln"], cfg.rms_eps),
                           cfg, run)
         if _is_attn_layer(cfg, i):
@@ -105,9 +97,7 @@ def state_specs(cfg: ModelConfig, batch: int, max_seq: int,
                                                state_dtype))
     apps = n_attn_apps(cfg)
     if apps:
-        shape = (apps, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-        s["k"] = (shape, torch.bfloat16)
-        s["v"] = (shape, torch.bfloat16)
+        s.update(kv_cache_specs(cfg, batch, max_seq, n_apps=apps))
     s["length"] = ((), torch.int32)
     return s
 
@@ -128,11 +118,11 @@ def prefill(params, batch, cfg: ModelConfig, run: RunConfig, max_seq: int):
     if L < cfg.ssm_conv_width - 1:
         raise ValueError(f"prompt of {L} tokens is shorter than the conv "
                          f"buffer ({cfg.ssm_conv_width - 1})")
-    positions = _positions(B, L, h.device)
+    positions = position_ids(B, L, h.device)
     state = init_state(cfg, B, max_seq, h.device)
     sa = params.get("shared_attn")
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+        lp = layer_params(params, i)
         out, st = ssm_block_with_state(
             lp["ssm"], rmsnorm(h, lp["ln"], cfg.rms_eps), cfg, run)
         h = h + out
@@ -165,7 +155,7 @@ def decode_step(params, state, tokens: torch.Tensor, cfg: ModelConfig,
     sa = params.get("shared_attn")
     new_state = {k: torch.empty_like(state[k]) for k in SSM_KEYS}
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+        lp = layer_params(params, i)
         st_i = {k: state[k][i] for k in SSM_KEYS}
         out, new_st = ssm_block_decode(
             lp["ssm"], rmsnorm(h, lp["ln"], cfg.rms_eps), st_i, cfg, run)

@@ -138,15 +138,21 @@ def attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def kv_cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
+                   n_apps: int = 0, dtype=torch.bfloat16) -> Dict[str, Tuple]:
+    """(shape, dtype) of each cache leaf.  ``n_apps`` > 0 builds a
+    hybrid-model cache (one per shared-attention application)."""
+    layers = n_apps if n_apps else cfg.n_layers
+    shape = (layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    return {"k": (shape, dtype), "v": (shape, dtype),
+            "length": ((), torch.int32)}
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    hd = cfg.hd
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "length": torch.zeros((), dtype=torch.int32, device=device),
-    }
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in kv_cache_specs(cfg, batch, max_seq,
+                                                 dtype=dtype).items()}
 
 
 def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,

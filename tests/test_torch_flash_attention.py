@@ -64,6 +64,23 @@ def test_plain_matches_reference_sweep(B, L, H, D, causal, dtype):
         np.testing.assert_allclose(as_np(got), as_np(ref), atol=tol)
 
 
+# hubert-xlarge's head dim (80, not a multiple of 64), causal and not
+# (the model is non-causal), at a ragged length; same tolerances.
+D80 = [(2, 200, 3, 80, causal, dtype) for causal in (True, False)
+       for dtype in DT]
+
+
+@pytest.mark.parametrize("B,L,H,D,causal,dtype", D80)
+def test_plain_matches_reference_head_dim_80(B, L, H, D, causal, dtype):
+    js, ts = both(make(B * L + D, B, L, L, H, D), dtype)
+    got = ops.flash_attention(*ts, causal=causal)
+    assert got.dtype == ts[0].dtype and got.shape == ts[0].shape
+    tol = DT[dtype][2]
+    for ref in (j_fa(*js, causal=causal, interpret=True),
+                j_ref(*js, causal=causal)):
+        np.testing.assert_allclose(as_np(got), as_np(ref), atol=tol)
+
+
 @pytest.mark.parametrize("Lq,Lk", [(1, 40), (16, 200), (64, 64), (7, 129)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_matches_reference_lk_ne_lq(Lq, Lk, causal):
@@ -129,7 +146,7 @@ def fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def emulate_tensor_core_kernel(q, k, v, causal=True, terms=3):
+def emulate_tensor_core_kernel(q, k, v, causal=True, terms=3, scale=None):
     """The bf16 CUDA kernel's arithmetic in torch, on the CPU.
 
     Per key tile of 64: raw logits S from bf16 q·kᵀ summed in fp32,
@@ -141,10 +158,12 @@ def emulate_tensor_core_kernel(q, k, v, causal=True, terms=3):
     exact exp2 and sums rounded to nearest; the card's ``ex2.approx.ftz``
     and the tensor cores' accumulation are covered only by the
     ``cuda``-marked tests and chip_smoke.py's phase 6.
-    Returns the output and the largest split residual."""
+    ``scale`` defaults to 1/√D.  Returns the output and the largest
+    split residual."""
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
-    c = (torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    c = (torch.tensor(scale, dtype=torch.float32)
          * torch.tensor(LOG2E, dtype=torch.float32))
     qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
     m = torch.full((B, H, Lq, 1), -1e30)
@@ -187,6 +206,23 @@ def test_three_term_split_meets_the_bf16_element_bar(L):
     assert element_ratio(got, want) <= 1.0
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_three_term_split_meets_the_bf16_element_bar_at_head_dim_80(causal):
+    """At D = 80 the kernel multiplies tiles laid out as at D = 128 whose
+    columns 80..127 are zero: the emulation at D = 128 on zero-padded q,
+    k and v (scale 1/√80, as the wrapper passes) gives the same first 80
+    columns and zeros after them, within the element bar of the plain
+    version at D = 80."""
+    _, ts = both(make(80, 1, 256, 256, 2, 80), "bfloat16")
+    padded = [torch.nn.functional.pad(t, (0, 48)) for t in ts]
+    got, residual = emulate_tensor_core_kernel(
+        *padded, causal=causal, scale=1.0 / math.sqrt(80))
+    want = attention_ref(*ts, causal=causal)
+    assert residual == 0.0
+    assert torch.equal(got[..., 80:], torch.zeros_like(got[..., 80:]))
+    assert element_ratio(got[..., :80], want) <= 1.0
+
+
 def test_one_bf16_term_misses_the_element_bar():
     """Why the split: p rounded once to bf16 (the usual tensor-core flash
     attention) breaks the element bar by orders of magnitude."""
@@ -199,7 +235,8 @@ def test_one_bf16_term_misses_the_element_bar():
 # (B, Lq, Lk, H, D, causal, dtype): the reference sweep, a cached-prefix
 # shape and zamba2-1.2b's serving head width at a short prompt; then the
 # bf16 (tensor-core) kernel at every head width, a ragged length and
-# cached-prefix shapes.
+# cached-prefix shapes; then D = 80 (hubert-xlarge) in both dtypes,
+# causal and not, at its serving length too.
 CUDA_SHAPES = [s[:2] + (s[1],) + s[2:] for s in SWEEP] + [
     (2, 16, 200, 2, 64, True, "float32"),
     (1, 2048, 2048, 32, 64, True, "bfloat16"),
@@ -207,7 +244,13 @@ CUDA_SHAPES = [s[:2] + (s[1],) + s[2:] for s in SWEEP] + [
     (1, 128, 128, 2, 128, False, "bfloat16"),
     (2, 200, 200, 3, 64, True, "bfloat16"),
     (2, 16, 200, 2, 64, True, "bfloat16"),
-    (2, 100, 300, 2, 128, True, "bfloat16")]
+    (2, 100, 300, 2, 128, True, "bfloat16"),
+    (2, 200, 200, 3, 80, True, "float32"),
+    (2, 200, 200, 3, 80, False, "float32"),
+    (2, 200, 200, 3, 80, True, "bfloat16"),
+    (2, 200, 200, 3, 80, False, "bfloat16"),
+    (1, 2048, 2048, 4, 80, False, "bfloat16"),
+    (2, 16, 200, 2, 80, True, "bfloat16")]
 
 
 @pytest.mark.cuda

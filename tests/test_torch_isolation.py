@@ -2,8 +2,10 @@
 
 * A subprocess that blocks ``jax`` (``sys.modules["jax"] = None``)
   imports ``repro_torch.core.batch_engine`` and runs a tiny CPU grid,
-  then builds the zamba2-1.2b smoke model on the CPU, prefills a prompt
-  through the serve builders and decodes one token; afterwards no
+  then builds the zamba2-1.2b and qwen2-moe-a2.7b smoke models on the
+  CPU (the hybrid and the transformer/MoE stacks), prefills a prompt
+  through the serve builders and decodes one token with each, and runs
+  a small ``repro_torch.waas.platform.sweep``; afterwards no
   ``repro.*`` or ``jax*`` module is loaded.  A second such subprocess
   imports ``repro_torch.exp.run`` and runs a one-cell ``paper-smoke``
   grid and a checkpointed, resumed stream with trace and report files.
@@ -50,6 +52,16 @@ logits, state = build_prefill(m, "prefill_32k", device="cpu",
 logits, state = build_decode_step(m, "decode_32k", device="cpu")(
     params, state, logits.argmax(-1))
 assert logits.shape == (2, 1, m.cfg.vocab) and int(state["length"]) == 17
+m = build("qwen2-moe-a2.7b", smoke=True, device="cpu")
+params = m.init(0)
+logits, state = build_prefill(m, "prefill_32k", device="cpu",
+                              max_seq=24)(params, {"tokens": toks})
+logits, state = build_decode_step(m, "decode_32k", device="cpu")(
+    params, state, logits.argmax(-1))
+assert logits.shape == (2, 1, m.cfg.vocab) and int(state["length"]) == 17
+from repro_torch.waas.platform import sweep
+assert len(sweep(n_jobs=4, rates=(2.0,), art_dir="/nonexistent",
+                 device="cpu")) == len(ALL_POLICIES)
 bad = sorted(m for m in sys.modules
              if m == "repro" or m.startswith("repro.")
              or m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -192,14 +192,6 @@ def test_init_is_seeded():
                        torch.ones_like(a["layers"]["ssm"]["D"]))
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2-moe-a2.7b",
-                                  "hubert-xlarge", "internvl2-1b"])
-def test_transformer_families_not_ported_yet(arch):
-    m = build(arch, smoke=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        m.specs()
-
-
 def test_serve_builders_run_on_cpu():
     from repro_torch.serve.serve_step import build_decode_step, build_prefill
     tm = build("zamba2-1.2b", smoke=True, device="cpu")
