@@ -10,9 +10,10 @@ Phases (each raises on failure, so the script exits non-zero):
 1. device — requires CUDA, prints the card's name and power limit; turns
    TF32 off for matmuls and cuDNN (the reference's numbers are fp32 or
    bf16, never TF32);
-2. build — compiles the three kernel sources from ``src/`` with nvcc,
-   one process per source, started together; prints each build's
-   registers, shared memory and spills;
+2. build — compiles the four kernel sources from ``src/`` with nvcc
+   (affinity, flash attention forward and backward, SSD), one process
+   per source, started together; prints each build's registers, shared
+   memory and spills;
 3. affinity kernel vs plain — the CUDA kernel against the plain torch
    version on the card, bitwise, at the reference tests' shapes, the
    main paths' round buckets (the five most frequent of phases 5, 8 and
@@ -38,6 +39,14 @@ Phases (each raises on failure, so the script exits non-zero):
    bf16 SSD chunk pass on the tensor cores, with the worst ratio to its
    bar at one, two and three bf16 terms); prints kernel, plain, bound
    and library times and achieved TFLOP/s, and the whole ``ssd()``;
+   flash attention's forward also at phase 11's [2, 32, 4096, 128]; the
+   three backward kernels (``flash_attention_bwd.cu``) against
+   ``attention_bwd_ref`` at the sweep's shapes, head dim 80, phase 11
+   (b)'s four archs' attention and [2, 32, 4096, 128] bf16 causal (fp32
+   within 1e-4·max(max|ref|, 1), bf16 per element within
+   2^-7·|ref| + 1e-5·max|ref|), the forward's log-sum-exp against
+   ``attention_lse_ref``; backward, per-kernel, plain, bound and library
+   (SDPA forward and backward minus forward) times;
 7. serving at full width — zamba2-1.2b (38 layers, d_model 2048, seeded
    random fp32 weights, bf16 compute) through ``build`` and the serve
    builders:
@@ -85,7 +94,23 @@ Phases (each raises on failure, so the script exits non-zero):
    jobs at 1000 per minute (978 rounds, one affinity launch each, the
    five most frequent buckets held in phase 3): rows equal, launches
    equal to the CPU's count of rounds; then ``straggler_experiment``
-   with slowdowns 2 and 4 on both devices, rows equal.
+   with slowdowns 2 and 4 on both devices, rows equal;
+11. training at full width — seeded fp32 weights, bf16 compute, remat
+   "dots", through ``build``, ``make_train_step`` and
+   ``data.pipeline.batch_at``: (a) llama3-8b, 4 of its 32 layers (32 do
+   not fit with AdamW state), 2 x 4096 tokens, one warm-up and 6 timed
+   steps: step s, tokens/s, peak GiB, launches per step checked (one FA
+   forward per layer, kept by the remat policy; one backward pass of
+   three kernels per layer), a ``torch.profiler`` split of one more
+   step, its idle share against that step's own wall;
+   (b) llama3-8b, qwen2-moe-a2.7b, hubert-xlarge and internvl2-1b at 2
+   layers, 1 x 2048: one step's loss and every gradient leaf held
+   against the same step with the plain attention on the card (the MoE
+   router's experts pinned between the two); (c) ``FaultyTrainer``
+   (fail_prob 0.25, seed 1) over 15 steps of llama3-8b smoke on the card
+   and on the CPU: same restarts, failed steps and history, losses
+   within 2e-2, the card's last checkpoint restored on the CPU bit for
+   bit; (d) ``ssd`` under grad on the card raises.
 
 The second-last lines are the kernel record (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is the device record.
@@ -237,7 +262,8 @@ def kernel_libs() -> dict:
     from repro_torch.kernels.affinity import kernel as aff
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd import kernel as ssd
-    return {"affinity": aff.LIB, "flash_attention": fa.LIB, "ssd": ssd.LIB}
+    return {"affinity": aff.LIB, "flash_attention": fa.LIB,
+            "flash_attention_bwd": fa.LIB_BWD, "ssd": ssd.LIB}
 
 
 def phase_build() -> None:
@@ -543,6 +569,25 @@ FA_SERVING = [(4, 2048, 32, 64, True, "bfloat16"),
               (4, 2048, 16, 80, False, "float32"),
               (4, 2048, 16, 64, True, "bfloat16")]
 FA_HEADLINE = FA_SERVING[0]
+# Phase 11 (a)'s attention: llama3-8b at 2 x 4096 tokens (train_4k's
+# sequence), GQA's heads repeated; forward and backward are timed here.
+FA_TRAIN = (2, 4096, 32, 128, True, "bfloat16")
+# The backward kernels (flash_attention_bwd.cu) against attention_bwd_ref:
+# the reference sweep, head dim 80, phase 11 (b)'s four archs' attention
+# at 1 x 2048 (llama3-8b, qwen2-moe-a2.7b, hubert-xlarge non-causal,
+# internvl2-1b) and the headline training shape.
+FA_BWD_SHAPES = FA_SWEEP + FA_D80 + [(1, 2048, 32, 128, True, "bfloat16"),
+                                     (1, 2048, 16, 128, True, "bfloat16"),
+                                     (1, 2048, 16, 80, False, "bfloat16"),
+                                     (1, 2048, 16, 64, True, "bfloat16"),
+                                     FA_TRAIN]
+# Bars of dq, dk, dv against attention_bwd_ref (the plain version in fp32
+# on the same inputs, o and lse): fp32 max|Δ| <= 1e-4·max(max|ref|, 1);
+# bf16 per element |Δ| <= 2^-7·|ref| + 1e-5·max|ref| of the tensor (the
+# kernels compute in fp32 and round once to bf16).  The forward's lse and
+# the preprocess kernel's D: max|Δ| <= 1e-4·max(max|ref|, 1).
+FA_BWD_F32 = 1e-4
+FA_BWD_BF16_REL, FA_BWD_BF16_ABS = 2.0 ** -7, 1e-5
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # max|Δ| over the output
 # bf16 outputs are also held element by element to one bf16 rounding step
 # of the reference plus fp32 slack, |Δ| <= 2^-7·|ref| + 1e-6: the kernel
@@ -637,7 +682,7 @@ def phase_attention(torch) -> dict:
         "time; MMA floor = the bf16 kernel's own tensor-core work (8·D "
         "flops per pair: p·v three times) at the bf16 peak")
     rows, worst = {}, 0.0
-    for i, shape in enumerate(FA_SWEEP + FA_D80 + FA_SERVING):
+    for i, shape in enumerate(FA_SWEEP + FA_D80 + FA_SERVING + [FA_TRAIN]):
         B, L, H, D, causal, dtype = shape
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         tdt = getattr(torch, dtype)
@@ -683,6 +728,132 @@ def phase_attention(torch) -> dict:
             f"{ms / lib:.2f}{extra}; max|Δ| {err:.3g} <= "
             f"{FA_TOL[dtype]}{rel}")
         del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return dict(rows=rows, max_abs_err=worst)
+
+
+def fa_bwd_bounds(B, L, H, D, causal, dtype):
+    """(least ms, what bounds it) of the whole backward and of each
+    kernel, from the work each must do: the backward 10·D flops per
+    unmasked pair (S, dP, dV, dK, dQ at 2·D each) and q, k, v, o, dO, lse
+    read, dq, dk, dv written once; dK/dV 8·D per pair (S, dP, dV, dK); dQ
+    6·D (S, dP, dQ); the preprocess 2·D flops per row, o and dO read and
+    D written."""
+    pairs = fa_pairs(B, L, H, causal)
+    tile = B * L * H * D * esize(dtype)
+    stat = B * H * L * 4
+    return {"backward": bound(10 * D * pairs, 8 * tile + stat, dtype),
+            "preprocess": bound(2 * D * B * L * H, 2 * tile + stat, dtype),
+            "dkdv": bound(8 * D * pairs, 6 * tile + 2 * stat, dtype),
+            "dq": bound(6 * D * pairs, 5 * tile + 2 * stat, dtype)}
+
+
+def bwd_ratio(torch, got, want, dtype) -> float:
+    """Worst |Δ| over its bar (at most 1 passes)."""
+    g, w = got.float(), want.float()
+    if dtype == "float32":
+        return float((g - w).abs().max()) / (
+            FA_BWD_F32 * max(float(w.abs().max()), 1.0))
+    bar = FA_BWD_BF16_REL * w.abs() + FA_BWD_BF16_ABS * float(w.abs().max())
+    return float(((g - w).abs() / bar).max())
+
+
+def phase_attention_bwd(torch) -> dict:
+    """The three backward kernels against attention_bwd_ref (and the
+    forward's lse against attention_lse_ref) on the card; times of the
+    whole backward and of each kernel, the plain version, the bound and
+    the library call's backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref
+    dev = torch.device("cuda")
+    log("[fa-bwd] per call, ms (CUDA events, median after a warm-up): "
+        "backward = fa_bwd_preprocess + fa_bwd_dkdv + fa_bwd_dq through "
+        "flash_attention_bwd_cuda (CUDA cores, fp32 arithmetic); plain = "
+        "attention_bwd_ref on the card (and each kernel's own plain "
+        "step); library = F.scaled_dot_product_attention(is_causal) "
+        "forward and backward minus its forward, on [B, H, L, D] views "
+        "(timed only, never used by the port); bound = the least time for "
+        "each one's work (backward 10·D flops per pair at the dtype's "
+        "peak) and what bounds it")
+    rows, worst = {}, 0.0
+    for i, shape in enumerate(FA_BWD_SHAPES):
+        B, L, H, D, causal, dtype = shape
+        gen = torch.Generator(device=dev).manual_seed(300 + i)
+        tdt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn((B, L, H, D), generator=gen, device=dev)
+                       .to(tdt) for _ in range(4))
+        o, lse = fa.flash_attention_cuda(q, k, v, causal, lse=True)
+        want_lse = ref.attention_lse_ref(q, k, causal)
+        delta = fa.bwd_preprocess_cuda(o, do)
+        want_delta = ref.bwd_preprocess_ref(o, do)
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
+        want = ref.attention_bwd_ref(q, k, v, o, do, lse, causal)
+        torch.cuda.synchronize()
+        for what, g, w in (("lse", lse, want_lse), ("D", delta, want_delta)):
+            err = max_err(torch, g, w)
+            if not err <= FA_BWD_F32 * max(float(w.abs().max()), 1.0):
+                raise AssertionError(f"flash attention {what} {shape}: "
+                                     f"max|Δ| {err}")
+        ratios = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.dtype != tdt or g.shape != w.shape:
+                raise AssertionError(f"backward {shape}: {name} is "
+                                     f"{g.dtype} {list(g.shape)}")
+            ratios[name] = bwd_ratio(torch, g, w, dtype)
+            if not ratios[name] <= 1.0:
+                raise AssertionError(
+                    f"flash attention backward {shape}: {name}'s worst "
+                    f"|Δ| is {ratios[name]} times its bar")
+            worst = max(worst, max_err(torch, g, w))
+        del got, want
+        ms = {
+            "backward": timed_ms(torch, lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, do, lse, causal), 0.2),
+            "preprocess": timed_ms(torch, lambda: fa.bwd_preprocess_cuda(
+                o, do), 0.1),
+            "dkdv": timed_ms(torch, lambda: fa.bwd_dkdv_cuda(
+                q, k, v, do, lse, delta, causal), 0.2),
+            "dq": timed_ms(torch, lambda: fa.bwd_dq_cuda(
+                q, k, v, do, lse, delta, causal), 0.2)}
+        plain = {
+            "backward": timed_ms(torch, lambda: ref.attention_bwd_ref(
+                q, k, v, o, do, lse, causal), 0.2),
+            "preprocess": timed_ms(torch, lambda: ref.bwd_preprocess_ref(
+                o, do), 0.1),
+            "dkdv": timed_ms(torch, lambda: ref.bwd_dkdv_ref(
+                q, k, v, do, lse, delta, causal), 0.2),
+            "dq": timed_ms(torch, lambda: ref.bwd_dq_ref(
+                q, k, v, do, lse, delta, causal), 0.2)}
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def lib_fwd_bwd():
+            out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal)
+            torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        lib = timed_ms(torch, lib_fwd_bwd, 0.2) - timed_ms(torch, lib_fwd,
+                                                          0.1)
+        bounds = fa_bwd_bounds(B, L, H, D, causal, dtype)
+        rows[shape] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                           bounds=bounds, ratios=ratios)
+        parts = "; ".join(
+            f"{k} {ms[k]:.5f} (plain {plain[k]:.5f}, bound "
+            f"{bounds[k][0]:.6f} {bounds[k][1]})"
+            for k in ("preprocess", "dkdv", "dq"))
+        log(f"[fa-bwd] [B,H,L,D]={[B, H, L, D]} causal={causal} {dtype}: "
+            f"backward {ms['backward']:.5f} plain {plain['backward']:.5f} "
+            f"library {lib:.5f} bound {bounds['backward'][0]:.6f} "
+            f"({bounds['backward'][1]}), backward/library "
+            f"{ms['backward'] / lib:.2f}; {parts}; worst |Δ|/bar "
+            + ", ".join(f"{k} {r:.4g}" for k, r in ratios.items())
+            + " <= 1")
+        del q, k, v, do, o, lse, delta, qt, kt, vt, dot
     torch.cuda.empty_cache()
     return dict(rows=rows, max_abs_err=worst)
 
@@ -950,21 +1121,27 @@ def check_decode_vs_forward(torch, model, params, res,
     return float(err.max())
 
 
-def device_breakdown(torch, fn) -> dict:
+def device_breakdown(torch, fn,
+                     names=("fa_kernel", "ssd_chunk", "ssd_carry"),
+                     span=None) -> dict:
     """Device time (ms) of one call of ``fn`` by kernel, from a
     ``torch.profiler`` trace: the ported kernels by name (``ssd_chunk``
     covers ``ssd_chunk_tc`` and ``ssd_chunk_kernel``, ``ssd_carry`` covers
-    ``ssd_carry_tc`` and ``ssd_carry_kernel``), every other device kernel
-    as ``other``."""
+    ``ssd_carry_tc`` and ``ssd_carry_kernel``, ``fa_kernel`` the forward
+    flash-attention kernels), every other device kernel as ``other``.
+    A ``span`` list gets the profiled call's own wall time (ms, host
+    clock, synchronised), so that busy and wall come from one run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    out = {"fa_kernel": 0.0, "ssd_chunk": 0.0, "ssd_carry": 0.0,
-           "other": 0.0}
+        if span is not None:
+            span.append((time.perf_counter() - t0) * 1e3)
+    out = dict.fromkeys(names + ("other",), 0.0)
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
             continue
@@ -1683,6 +1860,329 @@ def phase_waas(torch, rate: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training at full width
+# ---------------------------------------------------------------------------
+
+# (a) llama3-8b at full width, 2 x 4096 tokens (train_4k's sequence, its
+# batch of 256 cut to 2), depth cut from 32 layers to 4: at 32 the fp32
+# parameters, gradients and two AdamW moments alone take ~8e9 x 16 bytes,
+# more than the card's 80 GB; at 4 they take ~31 GB.
+TRAIN_HEADLINE = ("llama3-8b", 4, 2, 4096)
+TRAIN_WARMUP, TRAIN_STEPS = 1, 6
+# (b) every transformer family: one step at full width, 2 layers, 1 x 2048
+# (the plain attention it is held against materialises [B, H, L, L] per
+# layer), through the kernels and again with attention_ref on the card.
+TRAIN_FAMILIES = ("llama3-8b", "qwen2-moe-a2.7b", "hubert-xlarge",
+                  "internvl2-1b")
+FAMILY_LAYERS, FAMILY_B, FAMILY_L = 2, 1, 2048
+# Both runs compute in bf16 and differ only in the attention (the kernels
+# against the plain version, each within one bf16 step of fp32): the loss
+# within 2e-2 relative and each gradient leaf within 2e-2·max|ref| of that
+# leaf, the bf16 bar of tests/test_torch_train.py (where the port and the
+# reference, which rounds p to bf16, stay within 0.0096·max|ref|).
+TRAIN_LOSS_REL = 2e-2
+TRAIN_GRAD_REL = 2e-2
+# (c) FaultyTrainer on the card and on the CPU: the reference test's plan
+# (tests/test_train.py::test_faulty_trainer_recovers), 15 steps of
+# llama3-8b smoke on batch_at batches of 4 x 64, bf16 compute; losses
+# within 2e-2 relative (bf16 on two devices, the card's attention through
+# the kernels).
+FT_PLAN = dict(fail_prob=0.25, seed=1, ckpt_every=3, keep=2)
+FT_STEPS = 15
+FT_LOSS_REL = 2e-2
+FA_BWD_KERNELS = ("fa_bwd_preprocess", "fa_bwd_dkdv", "fa_bwd_dq")
+
+
+def train_model(arch: str, n_layers: int, device="cuda", smoke=False):
+    """``build`` with remat "dots" (bf16 compute, fp32 parameters: the
+    RunConfig's defaults), depth cut to ``n_layers`` unless 0."""
+    from repro_torch.models import RunConfig, build
+    model = build(arch, RunConfig(remat="dots"), smoke=smoke, device=device)
+    if n_layers:
+        model = dataclasses.replace(model,
+                                    cfg=model.cfg.with_(n_layers=n_layers))
+    return model
+
+
+def phase_train_headline(torch) -> dict:
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    arch, n_layers, B, L = TRAIN_HEADLINE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = train_model(arch, n_layers)
+    cfg = model.cfg
+    params = model.init(0)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    log(f"[train] (a) {arch}: {n_layers} of 32 layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head dim "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {model.n_params():,} "
+        f"fp32 parameters and AdamW state from a seeded generator in "
+        f"{time.perf_counter() - t0:.3f} s ({torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB); bf16 compute, remat {model.run.remat}; batches {B} x {L} "
+        f"from data.pipeline.batch_at")
+    step = make_train_step(model)
+    dc = DataConfig(seed=0, seq_len=L, global_batch=B)
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    batches = [batch_at(dc, s, cfg) for s in range(n + 1)]
+    for s in range(TRAIN_WARMUP):
+        params, opt, _ = step(params, opt, batches[s])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.LAUNCHES = 0
+    fa_ops.BWD_LAUNCHES = 0
+    times, losses = [], []
+    for s in range(TRAIN_WARMUP, n):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batches[s])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    launches = (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = (n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"(a) {TRAIN_STEPS} steps launched {launches} "
+                             f"(FA forward, FA backward passes), expected "
+                             f"{want}: remat dots keeps the forward")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(a) non-finite loss {losses}")
+    if int(opt["step"]) != n:
+        raise AssertionError(f"(a) opt step {int(opt['step'])} != {n}")
+    step_s = statistics.median(times)
+    log(f"[train] (a) {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: "
+        f"median {step_s:.4f} s, max {max(times):.4f} s per step (host "
+        f"clock, synchronised), {B * L / step_s:.1f} tokens/s; losses "
+        f"{[round(x, 4) for x in losses]}; per step {n_layers} FA forward "
+        f"launches (remat dots keeps them) and {n_layers} FA backward "
+        f"passes ({3 * n_layers} backward kernel launches); peak allocated "
+        f"{peak:.3f} GiB; opt step {int(opt['step'])}")
+    # One more step under the profiler: its busy time and its own wall
+    # give the idle share.
+    span = []
+    by = device_breakdown(torch, lambda: step(params, opt, batches[n]),
+                          ("fa_kernel",) + FA_BWD_KERNELS, span=span)
+    busy = sum(by.values())
+    wall = span[0]
+    split = dict(by, busy=busy, wall=wall, idle=max(0.0, 1 - busy / wall))
+    for name in ("fa_kernel",) + FA_BWD_KERNELS:
+        if not by[name] > 0:
+            raise AssertionError(f"(a) no device time under {name}")
+    log("[train] (a) one profiled step's device time by kernel, ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in by.items())
+        + f"; busy {busy:.3f} of that step's {wall:.3f} wall (host clock, "
+        f"synchronised; the unprofiled median {step_s * 1e3:.3f}), idle "
+        f"share {split['idle']:.4f}")
+    del params, opt, step, model, batches
+    torch.cuda.empty_cache()
+    return dict(fa_launches=launches[0], bwd_launches=launches[1],
+                step_s=step_s, tokens_per_s=B * L / step_s, peak_gib=peak,
+                split=split, losses=losses)
+
+
+@contextlib.contextmanager
+def routes_pinned():
+    """The MoE router with each layer's experts pinned: the first call
+    for a layer (keyed by its router weight) records the experts it
+    picks, every later call (the recomputation under remat, the second
+    run) takes them; the weights are the gates at those experts,
+    renormalised, in every call alike (the router's own weights are the
+    same values, taken from a sort).  Yields a dict of how many tokens
+    the later calls' own router would have routed otherwise."""
+    from repro_torch.models import moe as moe_mod
+    router = moe_mod._router
+    pinned, flips = {}, {}
+
+    def pin(p, xt, cfg):
+        # The same ops in every call: a recomputation under remat must
+        # repeat its forward's.
+        _, e = router(p, xt, cfg)
+        key = p["router"].data_ptr()
+        pinned.setdefault(key, e)
+        flips[key] = int((e.sort(-1).values != pinned[key].sort(-1)
+                          .values).any(-1).sum())
+        e = pinned[key]
+        w = moe_mod._gates(p, xt, cfg).gather(-1, e.long())
+        return w / w.sum(-1, keepdim=True).clamp(min=1e-9), e
+    moe_mod._router = pin
+    try:
+        yield flips
+    finally:
+        moe_mod._router = router
+
+
+def family_grads(torch, model, params, batch, plain: bool):
+    """loss_and_grads of one step, through the kernels or with the
+    attention swapped for the plain version on the card (the same
+    test-only swap as check_prefill_vs_plain)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.train.train_step import loss_and_grads
+    kernel = fa_ops.flash_attention
+    if plain:
+        fa_ops.flash_attention = \
+            lambda q, k, v, causal=True: attention_ref(q, k, v, causal)
+    try:
+        return loss_and_grads(model, params, batch)
+    finally:
+        fa_ops.flash_attention = kernel
+
+
+def phase_train_families(torch) -> dict:
+    import gc
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.common import tree_leaves
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        torch.cuda.empty_cache()
+        model = train_model(arch, FAMILY_LAYERS)
+        cfg = model.cfg
+        params = model.init(0)
+        batch = batch_at(DataConfig(seed=1, seq_len=FAMILY_L,
+                                    global_batch=FAMILY_B), 0, cfg)
+        with routes_pinned() as flips:
+            before = (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES)
+            loss, _, grads = family_grads(torch, model, params, batch, False)
+            torch.cuda.synchronize()
+            got = (fa_ops.LAUNCHES - before[0],
+                   fa_ops.BWD_LAUNCHES - before[1])
+            ref_loss, _, ref_grads = family_grads(torch, model, params,
+                                                  batch, True)
+            torch.cuda.synchronize()
+        if got != (cfg.n_layers, cfg.n_layers):
+            raise AssertionError(f"(b) {arch}: one step launched {got} (FA "
+                                 f"forward, FA backward passes), expected "
+                                 f"{cfg.n_layers} each")
+        loss_err = abs(float(loss) - float(ref_loss))
+        if not loss_err <= TRAIN_LOSS_REL * abs(float(ref_loss)):
+            raise AssertionError(f"(b) {arch}: loss {float(loss)} vs plain "
+                                 f"attention's {float(ref_loss)}")
+        worst, worst_key = 0.0, None
+        keys = [k for k, _ in _flatten(params)]
+        for key, g, r in zip(keys, tree_leaves(grads), tree_leaves(ref_grads)):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"(b) {arch}: non-finite grad {key}")
+            scale = float(r.abs().max())
+            err = float((g - r).abs().max())
+            ratio = err / (TRAIN_GRAD_REL * scale) if scale > 0 else (
+                0.0 if err == 0 else math.inf)
+            if ratio > worst:
+                worst, worst_key = ratio, key
+        if not worst <= 1.0:
+            raise AssertionError(f"(b) {arch}: grad {worst_key} is {worst} "
+                                 f"times its bar {TRAIN_GRAD_REL}·max|ref|")
+        n_flips = sum(flips.values())
+        log(f"[train] (b) {arch} ({cfg.family}): {cfg.n_layers} layers at "
+            f"full width, {model.n_params():,} parameters, {FAMILY_B} x "
+            f"{FAMILY_L}: {got[0]} FA forward launches and {got[1]} FA "
+            f"backward passes in the step; loss {float(loss):.6f} against "
+            f"{float(ref_loss):.6f} with the plain attention; {len(keys)} "
+            f"gradient leaves, worst |Δ| / ({TRAIN_GRAD_REL}·max|ref|) "
+            f"{worst:.4g} ({worst_key}) <= 1"
+            + (f"; routes pinned to the kernel run's, {n_flips} token "
+               f"routes the plain run would have changed" if cfg.n_experts
+               else ""))
+        out[arch] = dict(launches=got, loss=float(loss),
+                         ref_loss=float(ref_loss), worst=worst)
+        del params, grads, ref_grads, model
+        gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_faults(torch) -> dict:
+    import tempfile
+    from repro_torch import ckpt
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.ft.faults import FaultPlan, FaultyTrainer
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    dc = DataConfig(seed=0, seq_len=64, global_batch=4)
+    init = train_model("llama3-8b", 0, "cpu", smoke=True).init(0)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            model = train_model("llama3-8b", 0, dev, smoke=True)
+            params = tree_map(lambda t: t.to(dev, copy=True), init)
+            tr = FaultyTrainer(f"{tmp}/{dev}", FaultPlan(**FT_PLAN))
+            t0 = time.perf_counter()
+            params, opt, hist = tr.run(
+                params=params, opt=init_opt_state(params), n_steps=FT_STEPS,
+                step_fn=make_train_step(model),
+                batch_fn=lambda s: batch_at(dc, s, model.cfg), device=dev)
+            sync(torch, dev)
+            runs[dev] = dict(tr=tr, params=params, opt=opt, hist=hist,
+                             wall=time.perf_counter() - t0)
+        card, cpu = runs["cuda"], runs["cpu"]
+        same = (card["tr"].restarts == cpu["tr"].restarts
+                and card["tr"].failed_steps == cpu["tr"].failed_steps
+                and card["hist"]["step"] == cpu["hist"]["step"])
+        if not same or card["tr"].restarts == 0:
+            raise AssertionError(
+                f"(c) card restarts {card['tr'].restarts} at "
+                f"{card['tr'].failed_steps}, steps {card['hist']['step']}; "
+                f"CPU {cpu['tr'].restarts} at {cpu['tr'].failed_steps}, "
+                f"{cpu['hist']['step']}")
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(card["hist"]["loss"], cpu["hist"]["loss"]))
+        if not rel <= FT_LOSS_REL:
+            raise AssertionError(f"(c) losses apart by {rel} relative")
+        last = ckpt.latest_step(f"{tmp}/cuda")
+        restored, _ = ckpt.restore_section(f"{tmp}/cuda", last, init,
+                                           device="cpu")
+        restored_opt, _ = ckpt.restore_section(
+            f"{tmp}/cuda", last, init_opt_state(init), device="cpu",
+            section="opt")
+        for a, b in zip(tree_leaves(restored) + tree_leaves(restored_opt),
+                        tree_leaves(card["params"])
+                        + tree_leaves(card["opt"])):
+            if a.dtype != b.dtype or not torch.equal(a, b.cpu()):
+                raise AssertionError("(c) the card's last checkpoint does "
+                                     "not restore on the CPU bit for bit")
+    log(f"[train] (c) FaultyTrainer {FT_PLAN}, {FT_STEPS} steps of "
+        f"llama3-8b smoke: card and CPU both restarted "
+        f"{card['tr'].restarts} times, failing at steps "
+        f"{card['tr'].failed_steps}, history steps equal; losses within "
+        f"{rel:.3g} relative (bar {FT_LOSS_REL}); the card's last "
+        f"checkpoint (step {last}) restores on the CPU bit for bit; wall "
+        f"{card['wall']:.3f} s on the card, {cpu['wall']:.3f} s on the CPU")
+    return dict(restarts=card["tr"].restarts,
+                failed_steps=card["tr"].failed_steps, loss_rel=rel)
+
+
+def phase_train_ssd_guard(torch) -> None:
+    from repro_torch.kernels.ssd.ops import ssd
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1, 64, 2, 16), generator=gen, device="cuda",
+                    requires_grad=True)
+    dt = torch.rand((1, 64, 2), generator=gen, device="cuda")
+    A = -torch.rand((2,), generator=gen, device="cuda")
+    Bm = torch.randn((1, 64, 16), generator=gen, device="cuda")
+    try:
+        ssd(x, dt, A, Bm, Bm.clone())
+    except NotImplementedError as e:
+        log(f"[train] (d) ssd under grad on the card raises: {e}")
+        return
+    raise AssertionError("(d) ssd under grad on the card returned outputs "
+                         "cut from autograd")
+
+
+def phase_train(torch) -> dict:
+    head = phase_train_headline(torch)
+    families = phase_train_families(torch)
+    faults = phase_train_faults(torch)
+    phase_train_ssd_guard(torch)
+    return dict(head, families=families, faults=faults)
+
+
 def main() -> int:
     import torch
     smi = phase_device(torch)
@@ -1691,11 +2191,18 @@ def main() -> int:
     phase_parity()
     launches = phase_full_width(torch, k["link_rate"])
     fa = phase_attention(torch)
+    t0 = time.perf_counter()
+    fab = phase_attention_bwd(torch)
+    log(f"[fa-bwd] phase 6's backward checks took "
+        f"{time.perf_counter() - t0:.3f} s")
     sd = phase_ssd(torch)
     serve = phase_serving(torch)
     exp = phase_experiments(torch, k["link_rate"])
     tf = phase_transformers(torch)
     waas = phase_waas(torch, k["link_rate"])
+    t0 = time.perf_counter()
+    train = phase_train(torch)
+    log(f"[train] phase 11 took {time.perf_counter() - t0:.3f} s")
     from repro_torch.kernels.flash_attention.kernel import \
         HEAD_DIMS as FA_HEAD_DIMS
     head = k["rows"][HEADLINE]
@@ -1741,6 +2248,12 @@ def main() -> int:
         "head_dims": list(FA_HEAD_DIMS),
         # Phase 9: launches per arch (one prefill each).
         "launches_transformers": {a: r["launches"] for a, r in tf.items()},
+        # Phase 11 (a): the training headline's timed steps (remat dots
+        # keeps each forward: one launch per layer per step).
+        "launches_train": train["fa_launches"],
+        "train": {key: fa["rows"][FA_TRAIN][key]
+                  for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "err")},
         # Every serving shape of phase 6 ([B, H, L, D], causal, dtype).
         "serving": [dict(shape=[b, h, l, d], causal=c, dtype=dt,
                          **{key: fa["rows"][(b, l, h, d, c, dt)][key]
@@ -1777,6 +2290,38 @@ def main() -> int:
         "library_ms": None,
         "shape": list(SSD_HEADLINE),
     }]}
+    bwd = fab["rows"][FA_TRAIN]
+    Bt, Lt, Ht, Dt, _, _ = FA_TRAIN
+    whole = dict(ms=bwd["ms"]["backward"],
+                 plain_ms=bwd["plain_ms"]["backward"],
+                 bound_ms=bwd["bounds"]["backward"][0],
+                 bound_by=bwd["bounds"]["backward"][1],
+                 library_ms=bwd["library_ms"])
+    for key, name in zip(("preprocess", "dkdv", "dq"), FA_BWD_KERNELS):
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_bwd.cu",
+            # No Pallas kernel: XLA's gradient of the jnp attention.
+            "replaces": "src/repro/models/layers.py:145",
+            "tpu_kernel": False,
+            # Phase 11 (a): each backward pass launches each kernel once.
+            "launches": train["bwd_launches"],
+            "max_abs_err": fab["max_abs_err"],
+            "ms": bwd["ms"][key],
+            "plain_ms": bwd["plain_ms"][key],
+            "bound_ms": bwd["bounds"][key][0],
+            "bound_by": bwd["bounds"][key][1],
+            # No single PyTorch call computes one kernel's share; the
+            # whole backward's library time is under "backward".
+            "library_ms": None,
+            "shape": [Bt, Ht, Lt, Dt],
+            "backward": whole,
+            # Phase 11 (b): backward passes in one step per arch.
+            "launches_families": {a: r["launches"][1] for a, r in
+                                  train["families"].items()},
+        })
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

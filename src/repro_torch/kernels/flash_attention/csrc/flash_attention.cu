@@ -11,6 +11,11 @@
 // real query row sees key 0 in the first key tile and its max is finite
 // before any masked tile.
 //
+// With a non-null `lse` ([B, H, Lq] fp32) both kernels also write each
+// row's log-sum-exp of its scaled, masked logits, m + log l in natural-log
+// units, which the backward kernels (flash_attention_bwd.cu) recompute P
+// from.  Serving passes null and writes nothing more.
+//
 // Bound: operations.  The function does 4*D flops per unmasked (q, k)
 // pair (D multiply-adds for q.k, D for p.v) and moves only q, k, v and o
 // once, so at the serving shapes (L = 2048 or 32768, D = 64) it sits far
@@ -111,8 +116,9 @@ constexpr size_t f32_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     fa_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int H,
-                  int Lq, int Lk, float scale, int causal) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int H, int Lq, int Lk,
+                  float scale, int causal) {
   constexpr int RC = D / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;                 // [kBQ][D + 1]
@@ -246,13 +252,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < RC; ++c)
       ob[qi * row + tx + 16 * c] = acc[i][c] / denom;
+    // m is in scaled-logit units here; every lane of the half-warp holds
+    // the row's m and l.
+    if (lse != nullptr && tx == 0)
+      lse[((int64_t)b * H + h) * Lq + qi] = m[i] + logf(denom);
   }
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int Lq, int Lk, float scale, int causal,
-                       cudaStream_t stream) {
+                       float* lse, int B, int H, int Lq, int Lk, float scale,
+                       int causal, cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_kernel_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -261,7 +271,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
   fa_kernel_f32<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Lq, Lk,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Lq, Lk,
       scale, causal);
   return cudaGetLastError();
 }
@@ -277,6 +287,7 @@ constexpr int kTcThreads = 384;   // two consumer warpgroups + a producer one
 constexpr int kProducerWarp = 8;
 constexpr int kConsumerWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared-memory geometry at head dim D.  Every 64-row tile (a k or v
 // stage, each half of the q tile) is stored as NB boxes of [64 rows][CB]
@@ -582,8 +593,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     fa_kernel_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk,
-                 float scale, int causal) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int H, int Lq, int Lk, float scale, int causal) {
   using G = Geo<D>;
   constexpr int WG_ROWS = 64;
   extern __shared__ uint8_t smem_raw[];
@@ -738,6 +749,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int qi = qrow[hh];
     if (qi >= Lq) continue;
     const float denom = fmaxf(lr, 1e-30f);
+    // p = 2^(S c - mL) / l, so the row's log-sum-exp of the scaled logits
+    // is ln 2 · (mL + log2 l); the row's four lanes hold the same mL.
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((int64_t)b * H + h) * Lq + qi] = kLn2 * (mL[hh] + log2f(denom));
 #pragma unroll
     for (int c = 0; c < G::NB; ++c)
 #pragma unroll
@@ -774,8 +789,8 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int L, int H,
 
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int Lq, int Lk, float scale, int causal,
-                      cudaStream_t stream) {
+                      float* lse, int B, int H, int Lq, int Lk, float scale,
+                      int causal, cudaStream_t stream) {
   // TMA needs 16-byte aligned tensors.
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) & 15)
@@ -791,7 +806,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + kTcRows - 1) / kTcRows, H, B);
   fa_kernel_tc<D><<<grid, kTcThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, Lq, Lk, scale, causal);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, scale,
+      causal);
   return cudaGetLastError();
 }
 
@@ -799,34 +815,29 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
 // kernel); q, k, v and o share it.  q and o are contiguous [B, Lq, H, D],
-// k and v contiguous [B, Lk, H, D].
+// k and v contiguous [B, Lk, H, D]; lse is null or fp32 [B, H, Lq].
 extern "C" int fa_launch(const void* q, const void* k, const void* v,
-                         void* o, int dtype, int B, int H, int Lq, int Lk,
-                         int D, float scale, int causal, void* stream) {
+                         void* o, void* lse, int dtype, int B, int H, int Lq,
+                         int Lk, int D, float scale, int causal,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
+#define FA_ARGS q, k, v, o, ls, B, H, Lq, Lk, scale, causal, s
   if (dtype == 0) {
     switch (D) {
-      case 32:
-        return (int)launch_f32<32>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
-      case 64:
-        return (int)launch_f32<64>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
-      case 80:
-        return (int)launch_f32<80>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
-      case 128:
-        return (int)launch_f32<128>(q, k, v, o, B, H, Lq, Lk, scale, causal,
-                                    s);
+      case 32: return (int)launch_f32<32>(FA_ARGS);
+      case 64: return (int)launch_f32<64>(FA_ARGS);
+      case 80: return (int)launch_f32<80>(FA_ARGS);
+      case 128: return (int)launch_f32<128>(FA_ARGS);
     }
   } else if (dtype == 1) {
     switch (D) {
-      case 32:
-        return (int)launch_tc<32>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
-      case 64:
-        return (int)launch_tc<64>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
-      case 80:
-        return (int)launch_tc<80>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
-      case 128:
-        return (int)launch_tc<128>(q, k, v, o, B, H, Lq, Lk, scale, causal, s);
+      case 32: return (int)launch_tc<32>(FA_ARGS);
+      case 64: return (int)launch_tc<64>(FA_ARGS);
+      case 80: return (int)launch_tc<80>(FA_ARGS);
+      case 128: return (int)launch_tc<128>(FA_ARGS);
     }
   }
+#undef FA_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -10,6 +10,13 @@ tensor it runs ``ref.ssd_ref``.  There is no fallback from one to the
 other.  ``LAUNCHES`` counts chunk-kernel launches, ``CARRY_LAUNCHES``
 carry-kernel launches.
 
+The kernels have no backward yet (ROADMAP Queue 1 item 9b), and their
+outputs are fresh tensors that autograd cannot see through.  So on a
+CUDA tensor :func:`ssd` raises when grad is enabled and any input
+requires grad, rather than return outputs cut from the graph; the plain
+version is not taken in their place.  On the CPU, ``ssd_ref`` is
+differentiated by autograd and the SSM and hybrid families train there.
+
 :func:`ssd_decode` is the single-token recurrence; the reference has no
 kernel for it, so its torch ops are the port on every device.
 """
@@ -44,6 +51,13 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
     if device.type != "cuda":
         raise ValueError(f"ssd has no path for device {device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, init_state)):
+        raise NotImplementedError(
+            "the SSD kernels have no backward yet (ROADMAP Queue 1 item 9b: "
+            "SSD chunk and carry backward kernels and SSM/hybrid training "
+            "on the card); train the SSM and hybrid families on the CPU")
     from .kernel import ssd_carry_cuda, ssd_chunks_cuda
     out_dtype = x.dtype
     cum = chunk_cumsum(dt, A, chunk)

@@ -166,6 +166,18 @@ def tree_leaves(tree: PyTree) -> list:
     return [tree]
 
 
+def tree_unflatten(tree: PyTree, leaves: Sequence) -> PyTree:
+    """``tree``'s nested dicts with its leaves replaced by ``leaves``,
+    taken in sorted-key order (``tree_leaves``' inverse)."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return next(it)
+    return walk(tree)
+
+
 def _init_leaf(s: ParamSpec, base_std: float, gen: torch.Generator,
                device: torch.device,
                dtype: Optional[torch.dtype] = None) -> torch.Tensor:

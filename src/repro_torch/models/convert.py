@@ -16,7 +16,9 @@ from ..device import resolve_device
 
 
 def to_tensor(a, device: torch.device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a)
+    if not a.flags.c_contiguous:   # (ascontiguousarray makes a 0-d leaf 1-d)
+        a = np.ascontiguousarray(a)
     if not a.flags.writeable:      # a JAX array's buffer is read-only
         a = a.copy()
     if a.dtype.name == "bfloat16":

@@ -21,7 +21,8 @@ from .common import (ModelConfig, RunConfig, layer_params, position_ids,
                      spec, stacked, tree_map)
 from .layers import (attend, attention, attn_specs, cross_entropy,
                      decode_attention, embed, embed_specs, kv_cache_specs,
-                     logits_out, mlp, mlp_specs, project_qkv, rmsnorm)
+                     logits_out, mlp, mlp_specs, project_qkv, remat,
+                     rmsnorm)
 from .ssm import (ssm_block, ssm_block_decode, ssm_block_with_state,
                   ssm_specs, ssm_state_specs)
 
@@ -66,12 +67,19 @@ def forward(params, batch, cfg: ModelConfig, run: RunConfig) -> torch.Tensor:
     h = embed(params["embed"], batch["tokens"], run)
     B, L = h.shape[:2]
     positions = position_ids(B, L, h.device)
+
+    def layer(hh, lp, sa):
+        """One layer and, at every ``attn_every``-th, the shared block:
+        the reference's scanned (and rematerialised) body."""
+        hh = hh + ssm_block(lp["ssm"], rmsnorm(hh, lp["ln"], cfg.rms_eps),
+                            cfg, run)
+        if sa is not None:
+            hh = _shared_block(sa, hh, positions, cfg, run)
+        return hh
+    body = remat(layer, run)
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        h = h + ssm_block(lp["ssm"], rmsnorm(h, lp["ln"], cfg.rms_eps),
-                          cfg, run)
-        if _is_attn_layer(cfg, i):
-            h = _shared_block(params["shared_attn"], h, positions, cfg, run)
+        sa = params["shared_attn"] if _is_attn_layer(cfg, i) else None
+        h = body(h, layer_params(params, i), sa)
     h = rmsnorm(h, params["ln_f"], cfg.rms_eps)
     return logits_out(params["embed"], h, cfg, run)
 

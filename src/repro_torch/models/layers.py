@@ -11,16 +11,62 @@ of it, not a fallback.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt_mod
 
 from ..kernels.flash_attention import ops as fa_ops
 from .common import ModelConfig, ParamSpec, RunConfig, spec
 
 F32 = torch.float32
+
+# ---------------------------------------------------------------------------
+# Remat policy
+# ---------------------------------------------------------------------------
+
+
+# The ops whose outputs ``remat="dots"`` keeps: every matrix product
+# (what ``jax.checkpoint_policies.checkpoint_dots`` keeps, attention's
+# einsums included) and the flash-attention forward, which on the card
+# computes those einsums in one kernel (registered by this module's import
+# of the kernel's ops).
+_SAVED_BY_DOTS = frozenset((
+    torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+    torch.ops.repro_torch.flash_attention_fwd.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    P = ckpt_mod.CheckpointPolicy
+    return P.MUST_SAVE if op in _SAVED_BY_DOTS else P.PREFER_RECOMPUTE
+
+
+def remat(fn: Callable, run: RunConfig) -> Callable:
+    """The reference's remat policy around a layer body.  ``"none"``:
+    the plain body; ``"full"``: nothing kept, the body recomputed in the
+    backward (``jax.checkpoint`` with ``nothing_saveable``); ``"dots"``:
+    selective checkpointing that keeps the matrix products' outputs
+    (``checkpoint_dots``).  Without grad (serving) every policy runs the
+    plain body: there is no backward to recompute for."""
+    if run.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {run.remat!r}")
+    if run.remat == "none":
+        return fn
+    kw: Dict[str, Any] = {"use_reentrant": False}
+    if run.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt_mod.create_selective_checkpoint_contexts, _dots_policy)
+
+    def body(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt_mod.checkpoint(fn, *args, **kw)
+    return body
+
 
 # ---------------------------------------------------------------------------
 # Norms

@@ -4,10 +4,10 @@ and the VLM backbone (InternVL2: stubbed patch embeddings + decoder LM).
 The reference's parameter tree: layers stacked along a leading
 ``[n_layers, ...]`` axis, the same tree for the forward, prefill and
 decode paths.  Layers are a Python loop over views into the stacked
-leaves (the reference's ``jax.lax.scan``).  The reference's remat policy
-and sharding constraints are training and mesh concerns: they come with
-the training and parallelism slices (ROADMAP Queue 1 items 9 and 11),
-and the layer body here is the plain one.
+leaves (the reference's ``jax.lax.scan``).  Under grad each layer body
+runs inside the reference's remat policy (``layers.remat``); the
+reference's sharding constraints come with the parallelism slice
+(ROADMAP Queue 1 item 11).
 
 Full-sequence attention goes through ``layers.attend``, and so through
 the flash-attention kernel on every CUDA tensor; decode attention is
@@ -24,7 +24,7 @@ from .common import (ModelConfig, RunConfig, layer_params, position_ids,
                      spec, stacked, tree_map)
 from .layers import (attend, attn_specs, cross_entropy, decode_attention,
                      embed, embed_specs, init_kv_cache, logits_out, mlp,
-                     mlp_specs, project_qkv, rmsnorm)
+                     mlp_specs, project_qkv, remat, rmsnorm)
 
 
 # ---------------------------------------------------------------------------
@@ -86,8 +86,10 @@ def _layer_body(h: torch.Tensor, lp, positions, cfg: ModelConfig,
 
 def backbone(params, h: torch.Tensor, positions, cfg: ModelConfig,
              run: RunConfig) -> torch.Tensor:
+    body = remat(
+        lambda hh, lp: _layer_body(hh, lp, positions, cfg, run), run)
     for i in range(cfg.n_layers):
-        h = _layer_body(h, layer_params(params, i), positions, cfg, run)
+        h = body(h, layer_params(params, i))
     return rmsnorm(h, params["ln_f"], cfg.rms_eps)
 
 

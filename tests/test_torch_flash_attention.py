@@ -9,6 +9,12 @@ on the same seeded numpy inputs, at the reference sweep's shapes
 the port's plain version keep them in fp32).  The CUDA kernel is held
 against the plain version on the card (``cuda`` marker).
 
+The backward: the plain ``attention_bwd_ref`` (and ``attention_lse_ref``)
+against torch.autograd of ``attention_ref`` and ``jax.vjp`` of the
+reference's ``attention_ref``; the custom operator's autograd wiring and
+launch counts with the kernels' entry points swapped for their plain
+versions; the backward kernels against ``attention_bwd_ref`` on the card.
+
 The bf16 kernel runs both products on the tensor cores with p split into
 three bf16 terms; ``emulate_tensor_core_kernel`` repeats that arithmetic
 on the CPU, so the split is held to the card's element bar here too.
@@ -23,6 +29,7 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as j_fa
 from repro.kernels.flash_attention.ref import attention_ref as j_ref
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention import ref as ref_mod
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 DT = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -271,3 +278,221 @@ def test_cuda_kernel_matches_plain(B, Lq, Lk, H, D, causal, dtype):
                                atol=DT[dtype][2])
     if dtype == "bfloat16":
         assert element_ratio(got, want) <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# The backward: plain versions, the autograd wiring and the kernels
+# ---------------------------------------------------------------------------
+#
+# ``attention_bwd_ref`` (the backward kernels' oracle) is held against
+# torch.autograd of ``attention_ref`` and against ``jax.vjp`` of the
+# reference's jnp ``attention_ref``, in fp32, within the fp32 bar
+# 1e-4·max(max|ref|, 1) (fp32 sums in another order), at the reference
+# sweep's fp32 shapes, every head dim, causal and not, and a cached-prefix
+# shape (Lk > Lq).
+
+BWD_SHAPES = [(B, L, L, H, D, causal) for B, L, H, D, causal, dtype in SWEEP
+              if dtype == "float32"] + [
+    (2, 200, 200, 3, 80, True), (2, 200, 200, 3, 80, False),
+    (1, 64, 64, 2, 128, True), (2, 16, 200, 2, 64, True),
+    (1, 50, 70, 2, 32, False)]
+
+
+def grad_bar(ref):
+    """The fp32 bar: 1e-4·max(max|ref|, 1)."""
+    return 1e-4 * max(float(ref.abs().max()), 1.0)
+
+
+def grad_inputs(B, Lq, Lk, H, D, seed=0, dtype=torch.float32):
+    arrs = make(seed, B, Lq, Lk, H, D)
+    do = np.random.default_rng(seed + 1).normal(
+        size=(B, Lq, H, D)).astype(np.float32)
+    return [torch.from_numpy(a).to(dtype) for a in arrs + [do]]
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,D,causal", BWD_SHAPES)
+def test_bwd_ref_matches_autograd_and_reference_vjp(B, Lq, Lk, H, D,
+                                                    causal):
+    import jax
+    q, k, v, do = grad_inputs(B, Lq, Lk, H, D, seed=Lq + D)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = attention_ref(*leaves, causal=causal)
+    auto = torch.autograd.grad(o, leaves, do)
+    lse = ref_mod.attention_lse_ref(q, k, causal)
+    got = ref_mod.attention_bwd_ref(q, k, v, o.detach(), do, lse, causal)
+    _, vjp = jax.vjp(lambda a, b, c: j_ref(a, b, c, causal=causal),
+                     *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do.numpy()))
+    for name, g, a, j in zip("qkv", got, auto, jgrads):
+        assert g.dtype == torch.float32 and g.shape == a.shape
+        for want in (a, torch.from_numpy(np.array(j))):
+            err = float((g - want.float()).abs().max())
+            assert err <= grad_bar(want), (name, err)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_lse_ref_is_the_rows_logsumexp(causal):
+    """Against the reference's masked fp32 logits (jnp), row by row."""
+    q, k, _, _ = grad_inputs(2, 40, 72, 3, 32, seed=5)
+    got = ref_mod.attention_lse_ref(q, k, causal, max_logits=1000)
+    qj, kj = jnp.asarray(q.numpy()), jnp.asarray(k.numpy())
+    logits = jnp.einsum("bqhd,bkhd->bhqk", qj, kj) / np.sqrt(32.0)
+    if causal:
+        qi = jnp.arange(40)[:, None] + 32
+        logits = jnp.where(qi >= jnp.arange(72)[None, :], logits, -1e30)
+    want = np.asarray(jax_logsumexp(logits, axis=-1))
+    assert got.shape == (2, 3, 40) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def jax_logsumexp(x, axis):
+    import jax
+    return jax.nn.logsumexp(x, axis=axis)
+
+
+def test_bwd_ref_row_blocking_changes_only_the_sum_order():
+    """dK and dV sum the query blocks' contributions: blocked and whole
+    agree to fp32 rounding of those sums (1e-5 absolute; the gradients
+    here are O(1))."""
+    q, k, v, do = grad_inputs(2, 100, 100, 2, 64, seed=9)
+    o = attention_ref(q, k, v, causal=True)
+    lse = ref_mod.attention_lse_ref(q, k, True)
+    whole = ref_mod.attention_bwd_ref(q, k, v, o, do, lse, True,
+                                      max_logits=1 << 40)
+    parts = ref_mod.attention_bwd_ref(q, k, v, o, do, lse, True,
+                                      max_logits=777)
+    for a, b in zip(whole, parts):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+
+
+@pytest.fixture
+def plain_kernels(monkeypatch):
+    """The CUDA entry points swapped for their plain versions, so that
+    the custom forward operator and its registered backward run on CPU
+    tensors: the autograd wiring, the saved tensors and the launch counts
+    are checked here; the kernels' arithmetic only on the card."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    def fwd(q, k, v, causal=True, lse=False):
+        o = attention_ref(q, k, v, causal)
+        return (o, ref_mod.attention_lse_ref(q, k, causal)) if lse else o
+    monkeypatch.setattr(kernel, "flash_attention_cuda", fwd)
+    monkeypatch.setattr(kernel, "flash_attention_bwd_cuda",
+                        ref_mod.attention_bwd_ref)
+    monkeypatch.setattr(ops, "LAUNCHES", 0)
+    monkeypatch.setattr(ops, "BWD_LAUNCHES", 0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_autograd_function_gives_the_plain_gradient(plain_kernels, causal):
+    q, k, v, do = grad_inputs(2, 48, 48, 2, 32, seed=3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ops.flash_attention_fwd(*leaves, causal)[0]
+    got = torch.autograd.grad(out, leaves, do)
+    assert (ops.LAUNCHES, ops.BWD_LAUNCHES) == (1, 1)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*plain, causal=causal), plain,
+                               do)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= grad_bar(w)
+
+
+@pytest.mark.parametrize("remat,fwd_launches", [("none", 1), ("dots", 1),
+                                                ("full", 2)])
+def test_remat_dots_keeps_the_forward_launch(plain_kernels, remat,
+                                             fwd_launches):
+    """Under ``remat="dots"`` selective checkpointing keeps the forward
+    operator's output, as the reference's ``checkpoint_dots`` keeps
+    attention's products: one forward launch per step; ``"full"``
+    launches it again in the backward."""
+    from repro_torch.models.common import RunConfig
+    from repro_torch.models.layers import remat as remat_policy
+    q, k, v, do = grad_inputs(1, 32, 32, 2, 32, seed=4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    body = remat_policy(lambda a, b, c: ops.flash_attention_fwd(
+        a * 2, b, c, True)[0].sin(), RunConfig(remat=remat))
+    torch.autograd.grad(body(*leaves), leaves, do)
+    assert (ops.LAUNCHES, ops.BWD_LAUNCHES) == (fwd_launches, 1)
+
+
+def test_cpu_path_under_grad_is_the_plain_version():
+    q, k, v, do = grad_inputs(1, 32, 32, 1, 32, seed=6)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (ops.LAUNCHES, ops.BWD_LAUNCHES)
+    torch.autograd.grad(ops.flash_attention(*leaves), leaves, do)
+    assert (ops.LAUNCHES, ops.BWD_LAUNCHES) == before
+
+
+def test_backward_wrappers_reject_what_the_kernels_do_not_take():
+    from repro_torch.kernels.flash_attention import kernel
+    q, k, v, do = grad_inputs(1, 32, 32, 1, 32)
+    lse = torch.zeros((1, 1, 32))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kernel.flash_attention_bwd_cuda(q, k, v, q, do, lse)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.bwd_preprocess_cuda(q, do)
+
+
+# Bars of the backward kernels against ``attention_bwd_ref`` on the card
+# (chip_smoke.py's FA_BWD_*): fp32 |Δ| <= 1e-4·max(max|ref|, 1); bf16 (the
+# plain version in fp32 on the same bf16 inputs, o and lse) |Δ| <=
+# 2^-7·|ref| + 1e-5·max|ref| per element of each tensor: the kernels
+# compute in fp32 and round once to bf16.
+BWD_BF16_REL, BWD_BF16_ABS = 2.0 ** -7, 1e-5
+CUDA_BWD_SHAPES = [s + (dt,) for s in BWD_SHAPES
+                   for dt in ("float32", "bfloat16")] + [
+    (1, 2048, 2048, 8, 128, True, "bfloat16"),
+    (1, 1024, 1024, 4, 80, False, "bfloat16"),
+    (1, 1024, 1024, 4, 64, True, "bfloat16")]
+
+
+def bwd_within_bar(got, want, dtype):
+    g, w = got.float(), want.float()
+    if dtype == "float32":
+        return float((g - w).abs().max()) <= grad_bar(w)
+    bar = BWD_BF16_REL * w.abs() + BWD_BF16_ABS * float(w.abs().max())
+    return bool(((g - w).abs() <= bar).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk,H,D,causal,dtype", CUDA_BWD_SHAPES)
+def test_cuda_backward_kernels_match_plain(B, Lq, Lk, H, D, causal, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.flash_attention import kernel
+    tdt = DT[dtype][1]
+    q, k, v, do = (t.cuda() for t in grad_inputs(B, Lq, Lk, H, D, 1, tdt))
+    o, lse = kernel.flash_attention_cuda(q, k, v, causal, lse=True)
+    want_lse = ref_mod.attention_lse_ref(q, k, causal)
+    torch.cuda.synchronize()
+    assert float((lse - want_lse).abs().max()) <= 1e-4 * max(
+        float(want_lse.abs().max()), 1.0)
+    got = kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
+    want = ref_mod.attention_bwd_ref(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == tdt and g.shape == w.shape, name
+        assert bwd_within_bar(g, w, dtype), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_autograd_function_matches_plain_autograd(causal):
+    """``flash_attention`` under grad on CUDA tensors (fp32): the kernels'
+    gradient against torch.autograd of the plain version, one forward
+    and one backward pass counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, do = (t.cuda() for t in grad_inputs(2, 200, 200, 3, 64, 2))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (ops.LAUNCHES, ops.BWD_LAUNCHES)
+    out = ops.flash_attention(*leaves, causal=causal)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    assert (ops.LAUNCHES - before[0], ops.BWD_LAUNCHES - before[1]) == (1, 1)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*plain, causal=causal), plain,
+                               do)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= grad_bar(w)

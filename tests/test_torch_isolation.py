@@ -9,10 +9,16 @@
   ``repro.*`` or ``jax*`` module is loaded.  A second such subprocess
   imports ``repro_torch.exp.run`` and runs a one-cell ``paper-smoke``
   grid and a checkpointed, resumed stream with trace and report files.
+  A third trains: ``batch_at`` batches through ``make_train_step`` on
+  the llama3-8b and zamba2-1.2b smoke models under ``FaultyTrainer``
+  (checkpoints written and restored), with ``remat="dots"``.
 * A source scan of ``src/repro_torch/`` and ``chip_smoke.py`` finds no
   ``import jax`` and no import of ``repro.``.
 * Without a CUDA device, the entry points (the experiment harness and
-  its CLI included) refuse to run unless the caller asks for the CPU.
+  its CLI included, and ``restore_section``) refuse to run unless the
+  caller asks for the CPU.
+* On a card, ``ssd`` under grad raises (its kernels have no backward
+  yet) rather than return outputs cut from autograd (``cuda`` marker).
 """
 import os
 import re
@@ -113,6 +119,42 @@ def test_experiment_harness_runs_with_jax_blocked():
     assert proc.stdout.strip().splitlines()[-1] == "LOADED ['jax']"
 
 
+TRAIN_CHILD = r"""
+import sys, tempfile
+sys.modules["jax"] = None
+from repro_torch.data.pipeline import DataConfig, batch_at
+from repro_torch.ft.faults import FaultPlan, FaultyTrainer
+from repro_torch.models import RunConfig, build
+from repro_torch.train.optim import init_opt_state
+from repro_torch.train.train_step import make_train_step
+for arch in ("llama3-8b", "zamba2-1.2b"):
+    m = build(arch, RunConfig(remat="dots"), smoke=True, device="cpu")
+    params = m.init(0)
+    dc = DataConfig(seq_len=32, global_batch=2)
+    with tempfile.TemporaryDirectory() as d:
+        tr = FaultyTrainer(d, FaultPlan(fail_prob=0.3, seed=5, ckpt_every=2))
+        params, opt, hist = tr.run(
+            params=params, opt=init_opt_state(params), n_steps=4,
+            step_fn=make_train_step(m),
+            batch_fn=lambda s: batch_at(dc, s, m.cfg), device="cpu")
+    assert hist["step"] == [0, 1, 2, 3] and tr.restarts > 0, (hist, tr)
+    assert int(opt["step"]) >= 4
+bad = sorted(m for m in sys.modules
+             if m == "repro" or m.startswith("repro.")
+             or m == "jax" or m.startswith(("jax.", "jaxlib")))
+print("LOADED", bad)
+"""
+
+
+def test_training_runs_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    proc = subprocess.run([sys.executable, "-c", TRAIN_CHILD], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == "LOADED ['jax']"
+
+
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax|import\s+jaxlib|from\s+jaxlib"
     r"|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))", re.M)
@@ -184,3 +226,33 @@ def test_experiment_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--grid", "online-smoke", "--out", str(tmp_path)])
     assert not (tmp_path / "BENCH_paper_grid.json").exists()
+
+
+def test_restore_section_defaults_to_cuda(tmp_path):
+    from repro_torch import ckpt
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    tree = {"w": torch.ones(3)}
+    ckpt.save(str(tmp_path), 1, tree)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt.restore_section(str(tmp_path), 1, tree)
+    got, _ = ckpt.restore_section(str(tmp_path), 1, tree, device="cpu")
+    assert torch.equal(got["w"], tree["w"])
+
+
+@pytest.mark.cuda
+def test_ssd_under_grad_on_the_card_raises():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the SSD kernels have no CPU mode")
+    from repro_torch.kernels.ssd.ops import ssd
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1, 64, 2, 16), generator=gen, device="cuda",
+                    requires_grad=True)
+    dt = torch.rand((1, 64, 2), generator=gen, device="cuda")
+    A = -torch.rand((2,), generator=gen, device="cuda")
+    Bm = torch.randn((1, 64, 16), generator=gen, device="cuda")
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        ssd(x, dt, A, Bm, Bm.clone())
+    with torch.no_grad():
+        y, _ = ssd(x, dt, A, Bm, Bm.clone())
+    assert y.shape == x.shape
