@@ -40,13 +40,18 @@ Phases (each raises on failure, so the script exits non-zero):
    bar at one, two and three bf16 terms); prints kernel, plain, bound
    and library times and achieved TFLOP/s, and the whole ``ssd()``;
    flash attention's forward also at phase 11's [2, 32, 4096, 128]; the
-   three backward kernels (``flash_attention_bwd.cu``) against
-   ``attention_bwd_ref`` at the sweep's shapes, head dim 80, phase 11
-   (b)'s four archs' attention and [2, 32, 4096, 128] bf16 causal (fp32
-   within 1e-4·max(max|ref|, 1), bf16 per element within
-   2^-7·|ref| + 1e-5·max|ref|), the forward's log-sum-exp against
-   ``attention_lse_ref``; backward, per-kernel, plain, bound and library
-   (SDPA forward and backward minus forward) times;
+   backward (``flash_attention_bwd.cu``: the preprocess, then for bf16
+   the tensor-core ``fa_bwd_dkdv_tc`` and ``fa_bwd_dq_tc``, whose
+   registers, dynamic shared memory and spills from ``-Xptxas -v`` are
+   printed and must show no spill, for fp32 the CUDA-core ``fa_bwd_dkdv``
+   and ``fa_bwd_dq``) against ``attention_bwd_ref`` at the sweep's
+   shapes, head dim 80, phase 11 (b)'s archs' attention (llama3-8b's in
+   fp32 too) and [2, 32, 4096, 128] bf16 causal (fp32 within
+   1e-4·max(max|ref|, 1), bf16 per element within
+   2^-7·|ref| + 1e-5·max|ref|), a second pass equal bit for bit, the
+   forward's log-sum-exp against ``attention_lse_ref``; backward,
+   per-kernel, plain, bound, MMA floor and library (SDPA forward and
+   backward minus forward) times;
 7. serving at full width — zamba2-1.2b (38 layers, d_model 2048, seeded
    random fp32 weights, bf16 compute) through ``build`` and the serve
    builders:
@@ -101,10 +106,13 @@ Phases (each raises on failure, so the script exits non-zero):
    not fit with AdamW state), 2 x 4096 tokens, one warm-up and 6 timed
    steps: step s, tokens/s, peak GiB, launches per step checked (one FA
    forward per layer, kept by the remat policy; one backward pass of
-   three kernels per layer), a ``torch.profiler`` split of one more
-   step, its idle share against that step's own wall;
+   three kernels per layer: the preprocess, ``fa_bwd_dkdv_tc`` and
+   ``fa_bwd_dq_tc``, each counted), a ``torch.profiler`` split of one
+   more step, its idle share against that step's own wall and FA's
+   backward's share of its device time;
    (b) llama3-8b, qwen2-moe-a2.7b, hubert-xlarge and internvl2-1b at 2
-   layers, 1 x 2048: one step's loss and every gradient leaf held
+   layers, 1 x 2048, and llama3-8b again with fp32 compute (the fp32
+   backward kernels): one step's loss and every gradient leaf held
    against the same step with the plain attention on the card (the MoE
    router's experts pinned between the two); (c) ``FaultyTrainer``
    (fail_prob 0.25, seed 1) over 15 steps of llama3-8b smoke on the card
@@ -572,15 +580,18 @@ FA_HEADLINE = FA_SERVING[0]
 # Phase 11 (a)'s attention: llama3-8b at 2 x 4096 tokens (train_4k's
 # sequence), GQA's heads repeated; forward and backward are timed here.
 FA_TRAIN = (2, 4096, 32, 128, True, "bfloat16")
+# Phase 11 (b)'s fp32 step (llama3-8b, fp32 compute): the CUDA-core
+# backward kernels' shape on a main path.
+FA_TRAIN_F32 = (1, 2048, 32, 128, True, "float32")
 # The backward kernels (flash_attention_bwd.cu) against attention_bwd_ref:
 # the reference sweep, head dim 80, phase 11 (b)'s four archs' attention
 # at 1 x 2048 (llama3-8b, qwen2-moe-a2.7b, hubert-xlarge non-causal,
-# internvl2-1b) and the headline training shape.
+# internvl2-1b; llama3-8b also in fp32) and the headline training shape.
 FA_BWD_SHAPES = FA_SWEEP + FA_D80 + [(1, 2048, 32, 128, True, "bfloat16"),
                                      (1, 2048, 16, 128, True, "bfloat16"),
                                      (1, 2048, 16, 80, False, "bfloat16"),
                                      (1, 2048, 16, 64, True, "bfloat16"),
-                                     FA_TRAIN]
+                                     FA_TRAIN_F32, FA_TRAIN]
 # Bars of dq, dk, dv against attention_bwd_ref (the plain version in fp32
 # on the same inputs, o and lse): fp32 max|Δ| <= 1e-4·max(max|ref|, 1);
 # bf16 per element |Δ| <= 2^-7·|ref| + 1e-5·max|ref| of the tensor (the
@@ -748,6 +759,57 @@ def fa_bwd_bounds(B, L, H, D, causal, dtype):
             "dq": bound(6 * D * pairs, 5 * tile + 2 * stat, dtype)}
 
 
+def ptxas_report(log_text: str, kernel: str) -> list:
+    """(D, registers, spill stores, spill loads) of each instantiation of
+    ``kernel`` in nvcc's ``-Xptxas -v`` output."""
+    out, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            d = re.search(rf"{kernel}ILi(\d+)E", name)
+            cur = [int(d.group(1)), None, None, None] if d else None
+            if cur:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur[2], cur[3] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur[1] = int(m.group(1))
+    return [tuple(r) for r in sorted(out)]
+
+
+def check_tc_builds(fa) -> dict:
+    """The tensor-core backward kernels' registers, dynamic shared memory
+    and spills from this run's build (phase 2); raises on a spill or a
+    missing instantiation."""
+    lib = fa.LIB_BWD.load()
+    text = fa.LIB_BWD.build_info.get("log", "")
+    out = {}
+    for which, name in enumerate(("fa_bwd_dkdv_tc", "fa_bwd_dq_tc")):
+        rows = ptxas_report(text, name)
+        if [r[0] for r in rows] != sorted(fa.HEAD_DIMS):
+            raise AssertionError(f"{name}: ptxas reported head dims "
+                                 f"{[r[0] for r in rows]}")
+        for D, regs, st, ld in rows:
+            smem = lib.fa_bwd_tc_smem_bytes(which, D)
+            if st or ld:
+                raise AssertionError(f"{name}<{D}> spills: {st} bytes "
+                                     f"stored, {ld} loaded")
+            log(f"[fa-bwd] {name}<{D}>: {regs} registers a thread at "
+                f"launch (setmaxnreg: 232 a consumer, 40 the producer), "
+                f"{smem:,} bytes of dynamic shared memory, spills {st} "
+                f"stores / {ld} loads")
+            out[f"{name}<{D}>"] = dict(registers=regs, smem=smem,
+                                       spill_stores=st, spill_loads=ld)
+    return out
+
+
 def bwd_ratio(torch, got, want, dtype) -> float:
     """Worst |Δ| over its bar (at most 1 passes)."""
     g, w = got.float(), want.float()
@@ -767,15 +829,20 @@ def phase_attention_bwd(torch) -> dict:
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ref
     dev = torch.device("cuda")
+    builds = check_tc_builds(fa)
     log("[fa-bwd] per call, ms (CUDA events, median after a warm-up): "
-        "backward = fa_bwd_preprocess + fa_bwd_dkdv + fa_bwd_dq through "
-        "flash_attention_bwd_cuda (CUDA cores, fp32 arithmetic); plain = "
+        "backward = fa_bwd_preprocess, then dK/dV and dQ through "
+        "flash_attention_bwd_cuda (bf16: fa_bwd_dkdv_tc and fa_bwd_dq_tc "
+        "on the tensor cores, P and dS in three bf16 terms; fp32: "
+        "fa_bwd_dkdv and fa_bwd_dq on the CUDA cores); plain = "
         "attention_bwd_ref on the card (and each kernel's own plain "
         "step); library = F.scaled_dot_product_attention(is_causal) "
         "forward and backward minus its forward, on [B, H, L, D] views "
         "(timed only, never used by the port); bound = the least time for "
         "each one's work (backward 10·D flops per pair at the dtype's "
-        "peak) and what bounds it")
+        "peak) and what bounds it; MMA floor = a bf16 kernel's own "
+        "tensor-core work at the bf16 peak (dK/dV 18·D flops per pair, dQ "
+        "10·D)")
     rows, worst = {}, 0.0
     for i, shape in enumerate(FA_BWD_SHAPES):
         B, L, H, D, causal, dtype = shape
@@ -788,8 +855,14 @@ def phase_attention_bwd(torch) -> dict:
         delta = fa.bwd_preprocess_cuda(o, do)
         want_delta = ref.bwd_preprocess_ref(o, do)
         got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
         want = ref.attention_bwd_ref(q, k, v, o, do, lse, causal)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            raise AssertionError(f"flash attention backward {shape}: two "
+                                 f"passes differ (the kernels use no "
+                                 f"atomics)")
+        del again
         for what, g, w in (("lse", lse, want_lse), ("D", delta, want_delta)):
             err = max_err(torch, g, w)
             if not err <= FA_BWD_F32 * max(float(w.abs().max()), 1.0):
@@ -842,9 +915,17 @@ def phase_attention_bwd(torch) -> dict:
         bounds = fa_bwd_bounds(B, L, H, D, causal, dtype)
         rows[shape] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                            bounds=bounds, ratios=ratios)
+        names = {"preprocess": "fa_bwd_preprocess",
+                 "dkdv": fa.bwd_kernel("dkdv", tdt),
+                 "dq": fa.bwd_kernel("dq", tdt)}
+        pairs = fa_pairs(B, L, H, causal)
+        floor = {"dkdv": 18 * D * pairs / BF16_OPS_PER_S * 1e3,
+                 "dq": 10 * D * pairs / BF16_OPS_PER_S * 1e3}
         parts = "; ".join(
-            f"{k} {ms[k]:.5f} (plain {plain[k]:.5f}, bound "
-            f"{bounds[k][0]:.6f} {bounds[k][1]})"
+            f"{names[k]} {ms[k]:.5f} (plain {plain[k]:.5f}, bound "
+            f"{bounds[k][0]:.6f} {bounds[k][1]}"
+            + (f", MMA floor {floor[k]:.6f}" if dtype == "bfloat16"
+               and k in floor else "") + ")"
             for k in ("preprocess", "dkdv", "dq"))
         log(f"[fa-bwd] [B,H,L,D]={[B, H, L, D]} causal={causal} {dtype}: "
             f"backward {ms['backward']:.5f} plain {plain['backward']:.5f} "
@@ -855,7 +936,7 @@ def phase_attention_bwd(torch) -> dict:
             + " <= 1")
         del q, k, v, do, o, lse, delta, qt, kt, vt, dot
     torch.cuda.empty_cache()
-    return dict(rows=rows, max_abs_err=worst)
+    return dict(rows=rows, max_abs_err=worst, builds=builds)
 
 
 def ssd_inputs(torch, shape, seed):
@@ -1875,6 +1956,9 @@ TRAIN_WARMUP, TRAIN_STEPS = 1, 6
 # layer), through the kernels and again with attention_ref on the card.
 TRAIN_FAMILIES = ("llama3-8b", "qwen2-moe-a2.7b", "hubert-xlarge",
                   "internvl2-1b")
+# and the dense arch with fp32 compute: the step that takes the fp32
+# (CUDA-core) backward kernels, held to the same bars.
+TRAIN_FP32 = ("llama3-8b",)
 FAMILY_LAYERS, FAMILY_B, FAMILY_L = 2, 1, 2048
 # Both runs compute in bf16 and differ only in the attention (the kernels
 # against the plain version, each within one bf16 step of fp32): the loss
@@ -1891,22 +1975,36 @@ TRAIN_GRAD_REL = 2e-2
 FT_PLAN = dict(fail_prob=0.25, seed=1, ckpt_every=3, keep=2)
 FT_STEPS = 15
 FT_LOSS_REL = 2e-2
-FA_BWD_KERNELS = ("fa_bwd_preprocess", "fa_bwd_dkdv", "fa_bwd_dq")
+# The backward kernels a bf16 training step launches (one each per layer).
+FA_BWD_KERNELS = ("fa_bwd_preprocess", "fa_bwd_dkdv_tc", "fa_bwd_dq_tc")
 
 
-def train_model(arch: str, n_layers: int, device="cuda", smoke=False):
-    """``build`` with remat "dots" (bf16 compute, fp32 parameters: the
-    RunConfig's defaults), depth cut to ``n_layers`` unless 0."""
+def train_model(arch: str, n_layers: int, device="cuda", smoke=False,
+                compute="bfloat16"):
+    """``build`` with remat "dots" (bf16 compute unless ``compute`` says
+    otherwise, fp32 parameters: the RunConfig's defaults), depth cut to
+    ``n_layers`` unless 0."""
+    import torch
     from repro_torch.models import RunConfig, build
-    model = build(arch, RunConfig(remat="dots"), smoke=smoke, device=device)
+    run = RunConfig(remat="dots", compute_dtype=getattr(torch, compute))
+    model = build(arch, run, smoke=smoke, device=device)
     if n_layers:
         model = dataclasses.replace(model,
                                     cfg=model.cfg.with_(n_layers=n_layers))
     return model
 
 
+def bwd_kernel_launches(fa) -> dict:
+    """The backward kernels' launch counts, reset to 0."""
+    got = dict(fa.BWD_KERNEL_LAUNCHES)
+    for name in fa.BWD_KERNEL_LAUNCHES:
+        fa.BWD_KERNEL_LAUNCHES[name] = 0
+    return got
+
+
 def phase_train_headline(torch) -> dict:
     from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.train.optim import init_opt_state
     from repro_torch.train.train_step import make_train_step
@@ -1936,6 +2034,7 @@ def phase_train_headline(torch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fa_ops.LAUNCHES = 0
     fa_ops.BWD_LAUNCHES = 0
+    bwd_kernel_launches(fa)
     times, losses = [], []
     for s in range(TRAIN_WARMUP, n):
         t0 = time.perf_counter()
@@ -1944,12 +2043,18 @@ def phase_train_headline(torch) -> dict:
         times.append(time.perf_counter() - t0)
         losses.append(float(met["loss"]))
     launches = (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES)
+    by_kernel = bwd_kernel_launches(fa)
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = (n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS)
     if launches != want:
         raise AssertionError(f"(a) {TRAIN_STEPS} steps launched {launches} "
                              f"(FA forward, FA backward passes), expected "
                              f"{want}: remat dots keeps the forward")
+    want_k = {n: (want[1] if n in FA_BWD_KERNELS else 0) for n in by_kernel}
+    if by_kernel != want_k:
+        raise AssertionError(f"(a) backward kernel launches {by_kernel}, "
+                             f"expected {want_k}: bf16 goes to the "
+                             f"tensor-core kernels")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"(a) non-finite loss {losses}")
     if int(opt["step"]) != n:
@@ -1960,7 +2065,9 @@ def phase_train_headline(torch) -> dict:
         f"clock, synchronised), {B * L / step_s:.1f} tokens/s; losses "
         f"{[round(x, 4) for x in losses]}; per step {n_layers} FA forward "
         f"launches (remat dots keeps them) and {n_layers} FA backward "
-        f"passes ({3 * n_layers} backward kernel launches); peak allocated "
+        f"passes ({3 * n_layers} backward kernel launches: "
+        + ", ".join(f"{k} {v}" for k, v in by_kernel.items())
+        + " over the steps); peak allocated "
         f"{peak:.3f} GiB; opt step {int(opt['step'])}")
     # One more step under the profiler: its busy time and its own wall
     # give the idle share.
@@ -1969,7 +2076,9 @@ def phase_train_headline(torch) -> dict:
                           ("fa_kernel",) + FA_BWD_KERNELS, span=span)
     busy = sum(by.values())
     wall = span[0]
-    split = dict(by, busy=busy, wall=wall, idle=max(0.0, 1 - busy / wall))
+    fa_bwd_ms = sum(by[name] for name in FA_BWD_KERNELS)
+    split = dict(by, busy=busy, wall=wall, idle=max(0.0, 1 - busy / wall),
+                 fa_bwd_share=fa_bwd_ms / busy)
     for name in ("fa_kernel",) + FA_BWD_KERNELS:
         if not by[name] > 0:
             raise AssertionError(f"(a) no device time under {name}")
@@ -1977,12 +2086,14 @@ def phase_train_headline(torch) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in by.items())
         + f"; busy {busy:.3f} of that step's {wall:.3f} wall (host clock, "
         f"synchronised; the unprofiled median {step_s * 1e3:.3f}), idle "
-        f"share {split['idle']:.4f}")
+        f"share {split['idle']:.4f}; FA backward {fa_bwd_ms:.3f} ms, "
+        f"{split['fa_bwd_share']:.4f} of the step's device time")
     del params, opt, step, model, batches
     torch.cuda.empty_cache()
     return dict(fa_launches=launches[0], bwd_launches=launches[1],
-                step_s=step_s, tokens_per_s=B * L / step_s, peak_gib=peak,
-                split=split, losses=losses)
+                bwd_kernel_launches=by_kernel, step_s=step_s,
+                tokens_per_s=B * L / step_s, peak_gib=peak, split=split,
+                losses=losses)
 
 
 @contextlib.contextmanager
@@ -2037,22 +2148,26 @@ def phase_train_families(torch) -> dict:
     import gc
     from repro_torch.ckpt.checkpoint import _flatten
     from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models.common import tree_leaves
     out = {}
-    for arch in TRAIN_FAMILIES:
+    for arch, compute in ([(a, "bfloat16") for a in TRAIN_FAMILIES]
+                          + [(a, "float32") for a in TRAIN_FP32]):
         torch.cuda.empty_cache()
-        model = train_model(arch, FAMILY_LAYERS)
+        model = train_model(arch, FAMILY_LAYERS, compute=compute)
         cfg = model.cfg
         params = model.init(0)
         batch = batch_at(DataConfig(seed=1, seq_len=FAMILY_L,
                                     global_batch=FAMILY_B), 0, cfg)
         with routes_pinned() as flips:
             before = (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES)
+            bwd_kernel_launches(fa)
             loss, _, grads = family_grads(torch, model, params, batch, False)
             torch.cuda.synchronize()
             got = (fa_ops.LAUNCHES - before[0],
                    fa_ops.BWD_LAUNCHES - before[1])
+            by_kernel = bwd_kernel_launches(fa)
             ref_loss, _, ref_grads = family_grads(torch, model, params,
                                                   batch, True)
             torch.cuda.synchronize()
@@ -2060,6 +2175,13 @@ def phase_train_families(torch) -> dict:
             raise AssertionError(f"(b) {arch}: one step launched {got} (FA "
                                  f"forward, FA backward passes), expected "
                                  f"{cfg.n_layers} each")
+        dt = getattr(torch, compute)
+        ran = {"fa_bwd_preprocess", fa.bwd_kernel("dkdv", dt),
+               fa.bwd_kernel("dq", dt)}
+        want_k = {n: (cfg.n_layers if n in ran else 0) for n in by_kernel}
+        if by_kernel != want_k:
+            raise AssertionError(f"(b) {arch} {compute}: backward kernel "
+                                 f"launches {by_kernel}, expected {want_k}")
         loss_err = abs(float(loss) - float(ref_loss))
         if not loss_err <= TRAIN_LOSS_REL * abs(float(ref_loss)):
             raise AssertionError(f"(b) {arch}: loss {float(loss)} vs plain "
@@ -2079,18 +2201,23 @@ def phase_train_families(torch) -> dict:
             raise AssertionError(f"(b) {arch}: grad {worst_key} is {worst} "
                                  f"times its bar {TRAIN_GRAD_REL}·max|ref|")
         n_flips = sum(flips.values())
-        log(f"[train] (b) {arch} ({cfg.family}): {cfg.n_layers} layers at "
+        log(f"[train] (b) {arch} ({cfg.family}, {compute} compute): "
+            f"{cfg.n_layers} layers at "
             f"full width, {model.n_params():,} parameters, {FAMILY_B} x "
             f"{FAMILY_L}: {got[0]} FA forward launches and {got[1]} FA "
-            f"backward passes in the step; loss {float(loss):.6f} against "
+            f"backward passes in the step ("
+            + ", ".join(f"{k} {v}" for k, v in by_kernel.items() if v)
+            + f"); loss {float(loss):.6f} against "
             f"{float(ref_loss):.6f} with the plain attention; {len(keys)} "
             f"gradient leaves, worst |Δ| / ({TRAIN_GRAD_REL}·max|ref|) "
             f"{worst:.4g} ({worst_key}) <= 1"
             + (f"; routes pinned to the kernel run's, {n_flips} token "
                f"routes the plain run would have changed" if cfg.n_experts
                else ""))
-        out[arch] = dict(launches=got, loss=float(loss),
-                         ref_loss=float(ref_loss), worst=worst)
+        key = arch if compute == "bfloat16" else f"{arch} {compute}"
+        out[key] = dict(launches=got, bwd_kernel_launches=by_kernel,
+                        loss=float(loss), ref_loss=float(ref_loss),
+                        worst=worst)
         del params, grads, ref_grads, model
         gc.collect()
     torch.cuda.empty_cache()
@@ -2290,14 +2417,22 @@ def main() -> int:
         "library_ms": None,
         "shape": list(SSD_HEADLINE),
     }]}
-    bwd = fab["rows"][FA_TRAIN]
-    Bt, Lt, Ht, Dt, _, _ = FA_TRAIN
-    whole = dict(ms=bwd["ms"]["backward"],
-                 plain_ms=bwd["plain_ms"]["backward"],
-                 bound_ms=bwd["bounds"]["backward"][0],
-                 bound_by=bwd["bounds"]["backward"][1],
-                 library_ms=bwd["library_ms"])
-    for key, name in zip(("preprocess", "dkdv", "dq"), FA_BWD_KERNELS):
+    # The backward's kernels: the bf16 ones (and the preprocess) at the
+    # training headline, launched by phase 11 (a); the fp32 ones at phase
+    # 11 (b)'s fp32 step, which launched them.
+    f32_run = train["families"][f"{TRAIN_FP32[0]} float32"]
+    for key, name, shape, launches in (
+            ("preprocess", "fa_bwd_preprocess", FA_TRAIN,
+             train["bwd_kernel_launches"]),
+            ("dkdv", "fa_bwd_dkdv_tc", FA_TRAIN,
+             train["bwd_kernel_launches"]),
+            ("dq", "fa_bwd_dq_tc", FA_TRAIN, train["bwd_kernel_launches"]),
+            ("dkdv", "fa_bwd_dkdv", FA_TRAIN_F32,
+             f32_run["bwd_kernel_launches"]),
+            ("dq", "fa_bwd_dq", FA_TRAIN_F32,
+             f32_run["bwd_kernel_launches"])):
+        bwd = fab["rows"][shape]
+        Bt, Lt, Ht, Dt, causal, dtype = shape
         record["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -2306,8 +2441,8 @@ def main() -> int:
             # No Pallas kernel: XLA's gradient of the jnp attention.
             "replaces": "src/repro/models/layers.py:145",
             "tpu_kernel": False,
-            # Phase 11 (a): each backward pass launches each kernel once.
-            "launches": train["bwd_launches"],
+            # Phase 11: each backward pass launches the kernel once.
+            "launches": launches[name],
             "max_abs_err": fab["max_abs_err"],
             "ms": bwd["ms"][key],
             "plain_ms": bwd["plain_ms"][key],
@@ -2317,11 +2452,23 @@ def main() -> int:
             # whole backward's library time is under "backward".
             "library_ms": None,
             "shape": [Bt, Ht, Lt, Dt],
-            "backward": whole,
-            # Phase 11 (b): backward passes in one step per arch.
-            "launches_families": {a: r["launches"][1] for a, r in
-                                  train["families"].items()},
+            "dtype": dtype,
+            "backward": dict(ms=bwd["ms"]["backward"],
+                             plain_ms=bwd["plain_ms"]["backward"],
+                             bound_ms=bwd["bounds"]["backward"][0],
+                             bound_by=bwd["bounds"]["backward"][1],
+                             library_ms=bwd["library_ms"]),
+            # Phase 11 (b): launches in one step per arch (and dtype).
+            "launches_families": {a: r["bwd_kernel_launches"][name]
+                                  for a, r in train["families"].items()},
+            **({"build": {k: v for k, v in fab["builds"].items()
+                          if k.startswith(name + "<")}}
+               if name.endswith("_tc") else {}),
         })
+    idle = [k["name"] for k in record["kernels"] if not k["launches"] > 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on their main path: "
+                             f"{idle}")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,9 @@ Every kernel of the port is one ``csrc/<name>.cu`` with ``extern "C"``
 entry points that return ``cudaGetLastError()``.  :class:`CudaLibrary`
 compiles it at first use with ``nvcc`` for ``sm_90a`` into
 ``<kernel dir>/build/<name>-<hash>/lib<name>.so`` (git-ignored; the hash
-covers the source and the flags), loads it, and lets the kernel module
-declare its entry points' ctypes signatures.  Nothing is built or loaded
-when a module is imported.
+covers the source, the headers it includes and the flags), loads it, and
+lets the kernel module declare its entry points' ctypes signatures.
+Nothing is built or loaded when a module is imported.
 """
 from __future__ import annotations
 
@@ -42,12 +42,16 @@ class CudaLibrary:
 
     ``bind`` receives the loaded ``ctypes.CDLL`` and sets ``argtypes`` and
     ``restype`` of its entry points (``c_void_p`` for pointers and the
-    stream, so that ctypes never cuts a 64-bit value)."""
+    stream, so that ctypes never cuts a 64-bit value).  ``headers`` are
+    the files the source includes from the repository: they are hashed
+    with it, so that a changed header rebuilds the library."""
 
     def __init__(self, name: str, source: Path, flags: Sequence[str],
-                 bind: Callable[[ctypes.CDLL], None]):
+                 bind: Callable[[ctypes.CDLL], None],
+                 headers: Sequence[Path] = ()):
         self.name = name
         self.source = Path(source)
+        self.headers = tuple(Path(h) for h in headers)
         self.flags = tuple(BASE_FLAGS) + tuple(flags)
         self.build_root = self.source.parent.parent / "build"
         self._bind = bind
@@ -59,8 +63,9 @@ class CudaLibrary:
     def build(self) -> Path:
         """Compile the source if it has not been built with these flags
         yet; return the shared library's path."""
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(self.flags).encode()).hexdigest()
+        digest = hashlib.sha256(
+            b"".join(f.read_bytes() for f in (self.source, *self.headers))
+            + " ".join(self.flags).encode()).hexdigest()
         out_dir = self.build_root / f"{self.name}-{digest[:16]}"
         lib = out_dir / f"lib{self.name}.so"
         if lib.exists():

@@ -90,10 +90,7 @@
 //   and logits of columns tx + 16 j, so a row's max and sum are half-warp
 //   shuffles; p goes through shared memory for the p v product.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fa_hopper.cuh"
 
 namespace {
 
@@ -281,189 +278,18 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 // ---------------------------------------------------------------------------
 
 constexpr int kTcRows = 128;      // query rows per block: two warpgroups
-constexpr int kTcKeys = 64;       // keys per tile
+constexpr int kTcKeys = kTile;    // keys per tile
 constexpr int kStages = 4;        // k/v stages in shared memory
 constexpr int kTcThreads = 384;   // two consumer warpgroups + a producer one
 constexpr int kProducerWarp = 8;
 constexpr int kConsumerWarps = 8;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared-memory geometry at head dim D.  Every 64-row tile (a k or v
-// stage, each half of the q tile) is stored as NB boxes of [64 rows][CB]
-// bf16, each box written by one TMA copy in the swizzled layout that the
-// wgmma descriptors name.
+// Shared memory of fa_kernel_tc: q (two tiles), the k and v rings, then
+// 1 + 2 * kStages mbarriers; 1024 bytes of slack to align the base to the
+// swizzle atom.
 template <int D>
-struct Geo {
-  static constexpr int CB = D < 64 ? D : 64;    // columns per box
-  static constexpr int NB = (D + CB - 1) / CB;  // boxes per row
-  static constexpr int ROW = CB * 2;            // bytes of a box row
-  static constexpr int BOX = kTcKeys * ROW;     // bytes of a box
-  static constexpr int TILE = NB * BOX;         // bytes of a 64-row tile
-  static constexpr int KSTEPS = CB / 16;        // k16 steps per box
-  static constexpr int LAYOUT = ROW == 128 ? 1 : 2;  // 128B / 64B swizzle
-  static constexpr int ON = D < 64 ? D / 2 : 32;     // O registers per box
-  // q (two tiles), k and v rings, then 1 + 2 * kStages mbarriers; 1024
-  // bytes of slack to align the base to the swizzle atom.
-  static constexpr int SMEM =
-      1024 + (2 + 2 * kStages) * TILE + 8 * (1 + 2 * kStages);
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One box of a 4-D tensor map (D, H, L, B) into shared memory; completion
-// is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d, int h, int row,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d),
-      "r"(h), "r"(row), "r"(b)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle layout (1 = 128B, 2 = 64B).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed groups of products are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x on the special-function unit; results under 2^-126 flush to 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-// Splits the fp32 pair (x, y) into three bf16 pairs whose sum is (x, y):
-// each term is the rounding of what the earlier ones left.
-__device__ __forceinline__ void split3(float x, float y, uint32_t& t1,
-                                       uint32_t& t2, uint32_t& t3) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(x, y);
-  const float rx = x - __low2float(a), ry = y - __high2float(a);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(rx, ry);
-  const __nv_bfloat162 c =
-      __floats2bfloat162_rn(rx - __low2float(b), ry - __high2float(b));
-  t1 = *reinterpret_cast<const uint32_t*>(&a);
-  t2 = *reinterpret_cast<const uint32_t*>(&b);
-  t3 = *reinterpret_cast<const uint32_t*>(&c);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
+constexpr int tc_smem_bytes() {
+  return 1024 + (2 + 2 * kStages) * Geo<D>::TILE + 8 * (1 + 2 * kStages);
 }
 
 // One online-softmax step on a key tile's raw logits S (its accumulator
@@ -524,68 +350,6 @@ __device__ __forceinline__ void accumulate(float (&oacc)[NB][ON],
     for (int r = 0; r < ON; ++r)
       oacc[c][r] = fmaf(oacc[c][r], alpha[(r >> 1) & 1], tacc[c][r]);
   }
-}
-
-// S = q k^T over one key tile: k16 step j reads box j / KSTEPS, 32 bytes
-// further along the row per step inside it (both operands K-major).
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&sacc)[32], uint32_t sq,
-                                         uint32_t sk) {
-  using G = Geo<D>;
-  constexpr uint32_t kSbo = 8 * G::ROW;  // bytes between 8-row groups
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    const uint32_t at = (j / G::KSTEPS) * G::BOX + (j % G::KSTEPS) * 32;
-    wgmma_ss_n64(sacc, gmma_desc(sq + at, 16, kSbo, G::LAYOUT),
-                 gmma_desc(sk + at, 16, kSbo, G::LAYOUT), j > 0);
-  }
-}
-
-// O += p v over one key tile, p split into three bf16 terms.  p is S's
-// accumulator fragment; k16 step j takes its registers 8 j .. 8 j + 7,
-// packed to bf16 pairs in the order of the A operand's registers.  v is
-// MN-major: step j starts 16 key rows further on.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&tacc)[Geo<D>::NB][Geo<D>::ON],
-                                         const float (&p)[32], uint32_t sv) {
-  using G = Geo<D>;
-  constexpr uint32_t kSbo = 8 * G::ROW;
-  uint32_t pa[4][3][4];  // [k16 step][term][A register]
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = 8 * j + 4 * (a >> 1) + 2 * (a & 1);
-      split3(p[r], p[r + 1], pa[j][0][a], pa[j][1][a], pa[j][2][a]);
-    }
-#pragma unroll
-  for (int c = 0; c < G::NB; ++c) fence_regs(tacc[c]);
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int term = 0; term < 3; ++term)
-#pragma unroll
-      for (int c = 0; c < G::NB; ++c) {
-        const uint64_t dv =
-            gmma_desc(sv + c * G::BOX + j * 16 * G::ROW, kSbo, kSbo,
-                      G::LAYOUT);
-        const int acc = j > 0 || term > 0;  // the first step starts at 0
-        if constexpr (G::ON == 32)
-          wgmma_rs_n64(tacc[c], pa[j][term], dv, acc);
-        else
-          wgmma_rs_n32(tacc[c], pa[j][term], dv, acc);
-      }
-}
-
-// One arrival per consumer warp on an `empty` barrier, once the warp is
-// done with the stage (lane 0 arrives; predicated, not branched).
-__device__ __forceinline__ void release(uint32_t bar, int lane) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
-      "r"(lane)
-      : "memory");
 }
 
 template <int D>
@@ -766,41 +530,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-// Tensor map over a contiguous bf16 [B, L, H, D] tensor, viewed as 4-D
-// (D, H, L, B) with a box of (CB, 1, 64, 1) and the swizzle that matches
-// a box row of CB * 2 bytes.  Rows past L, and columns past D in the last
-// box (D = 80), read as zeros.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int L, int H,
-                     int D) {
-  const int cb = D < 64 ? D : 64;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)L * H * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cb, 1, (cuuint32_t)kTcKeys, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      cb == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int H, int Lq, int Lk, float scale,
                       int causal, cudaStream_t stream) {
-  // TMA needs 16-byte aligned tensors.
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v)) & 15)
-    return cudaErrorMisalignedAddress;
+  if (!aligned16(q, k, v)) return cudaErrorMisalignedAddress;
   CUtensorMap mq, mk, mv;
   cudaError_t err = make_map(&mq, q, B, Lq, H, D);
   if (err == cudaSuccess) err = make_map(&mk, k, B, Lk, H, D);
   if (err == cudaSuccess) err = make_map(&mv, v, B, Lk, H, D);
   if (err != cudaSuccess) return err;
-  constexpr int smem = Geo<D>::SMEM;
+  constexpr int smem = tc_smem_bytes<D>();
   err = cudaFuncSetAttribute(
       fa_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -1,33 +1,38 @@
 """Build and launch the CUDA flash-attention kernels: the forward
 (``csrc/flash_attention.cu``) and its gradient
-(``csrc/flash_attention_bwd.cu``, its own library).
+(``csrc/flash_attention_bwd.cu``, its own library); both include the
+Hopper building blocks of ``csrc/fa_hopper.cuh``.
 
 Each is compiled at first use with ``nvcc`` for ``sm_90a``
-(``kernels/build.py``) and loaded with ``ctypes``; nothing is built when
-this module is imported.  Build flags: ``kernels/build.py``'s base flags
-(``-O3``, ``-Xptxas -v``); the forward adds ``-lcuda``, for
-``cuTensorMapEncodeTiled`` (libcuda), which builds the TMA tensor maps.  No
-``--use_fast_math``, multiply-add contraction allowed — the kernels are
-held to a tolerance against the plain versions, not to bits.  The bf16
-forward takes its exponentials from ``ex2.approx.ftz`` on the
-special-function unit (inline PTX); the fp32 forward and the backward
-use the accurate ``expf``.  The forward divides by the row sum with the
-accurate division.
+(``kernels/build.py``, the hash covering the header too) and loaded with
+``ctypes``; nothing is built when this module is imported.  Build flags:
+``kernels/build.py``'s base flags (``-O3``, ``-Xptxas -v``) and
+``-lcuda``, for ``cuTensorMapEncodeTiled`` (libcuda), which builds the
+TMA tensor maps.  No ``--use_fast_math``, multiply-add contraction
+allowed — the kernels are held to a tolerance against the plain
+versions, not to bits.  The bf16 kernels take their exponentials from
+``ex2.approx.ftz`` on the special-function unit (inline PTX); the fp32
+kernels use the accurate ``expf``.  The forward divides by the row sum
+with the accurate division.
 
-The dtype picks the forward kernel: bf16 (the model's serving dtype) goes to
-``fa_kernel_tc`` (wgmma on the tensor cores, K and V through a TMA ring,
-p split into three bf16 terms so that the products stay exact); fp32
-(the reference sweep's dtype, held to 2e-5) goes to ``fa_kernel_f32`` on
-the CUDA cores.  Head dims: ``HEAD_DIMS``; at D = 80 the bf16 kernel
-lays its tiles out as at D = 128, the columns past 80 zero-filled by the
-tensor-map copies, and writes only the first 80 output columns.  With
-``lse`` given, either writes each row's log-sum-exp as well.
+The dtype picks the kernels: bf16 (the models' dtype) goes to the tensor
+cores (wgmma, tiles through a TMA ring, p and dS split into three bf16
+terms so that the products stay exact); fp32 (the reference sweep's
+dtype, held to 2e-5 forward and 1e-4·max backward, which needs fp32
+products) to the CUDA cores.  Head dims: ``HEAD_DIMS``; at D = 80 the
+bf16 kernels lay their tiles out as at D = 128, the columns past 80
+zero-filled by the tensor-map copies, and write only the first 80
+output columns.
 
-The backward (:func:`flash_attention_bwd_cuda`) launches three kernels
-in order on the CUDA cores, in fp32 for either dtype:
-``fa_bwd_preprocess`` (D = rowsum(dO ∘ O)), ``fa_bwd_dkdv`` and
-``fa_bwd_dq``; each has its own wrapper here and its plain version in
-``ref.py``.
+* Forward (:func:`flash_attention_cuda`): ``fa_kernel_tc`` or
+  ``fa_kernel_f32``; with ``lse`` given, either writes each row's
+  log-sum-exp as well.
+* Backward (:func:`flash_attention_bwd_cuda`): three launches in order,
+  ``fa_bwd_preprocess`` (D = rowsum(dO ∘ O), either dtype), then dK/dV
+  and dQ: ``fa_bwd_dkdv_tc`` and ``fa_bwd_dq_tc`` for bf16,
+  ``fa_bwd_dkdv`` and ``fa_bwd_dq`` for fp32.  Each step has its own
+  wrapper here and its plain version in ``ref.py``; ``BWD_KERNEL_LAUNCHES``
+  counts each kernel's launches.
 """
 from __future__ import annotations
 
@@ -57,16 +62,30 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.fa_bwd_preprocess_launch.argtypes = [P] * 3 + [I] * 5 + [P]
     lib.fa_bwd_dkdv_launch.argtypes = [P] * 8 + [I] * 6 + [F, I, P]
     lib.fa_bwd_dq_launch.argtypes = [P] * 7 + [I] * 6 + [F, I, P]
+    lib.fa_bwd_tc_smem_bytes.argtypes = [I, I]
     for fn in (lib.fa_bwd_preprocess_launch, lib.fa_bwd_dkdv_launch,
-               lib.fa_bwd_dq_launch):
+               lib.fa_bwd_dq_launch, lib.fa_bwd_tc_smem_bytes):
         fn.restype = ctypes.c_int
 
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+HEADERS = (CSRC / "fa_hopper.cuh",)
 LIB = CudaLibrary("flash_attention", CSRC / "flash_attention.cu",
-                  ("-lcuda",), _bind)
+                  ("-lcuda",), _bind, HEADERS)
 LIB_BWD = CudaLibrary("flash_attention_bwd", CSRC / "flash_attention_bwd.cu",
-                      (), _bind_bwd)
+                      ("-lcuda",), _bind_bwd, HEADERS)
+
+# Launches of each backward kernel through the wrappers below (reset them
+# to 0 and read them back around a run).
+BWD_KERNELS = ("fa_bwd_preprocess", "fa_bwd_dkdv", "fa_bwd_dq",
+               "fa_bwd_dkdv_tc", "fa_bwd_dq_tc")
+BWD_KERNEL_LAUNCHES = dict.fromkeys(BWD_KERNELS, 0)
+
+
+def bwd_kernel(step: str, dtype: torch.dtype) -> str:
+    """The kernel that the dK/dV (``step="dkdv"``) or dQ (``"dq"``)
+    wrapper launches for ``dtype``: the tensor-core one for bf16."""
+    return f"fa_bwd_{step}" + ("_tc" if dtype == torch.bfloat16 else "")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -98,6 +117,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the tensor maps need (a
+    contiguous view at an odd offset is copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -153,16 +179,18 @@ def bwd_preprocess_cuda(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
         o.data_ptr(), do.data_ptr(), delta.data_ptr(), DTYPES[o.dtype], B,
         H, Lq, D, _stream(o))
     check_launch(err, "flash attention backward (preprocess)")
+    BWD_KERNEL_LAUNCHES["fa_bwd_preprocess"] += 1
     return delta
 
 
 def bwd_dkdv_cuda(q, k, v, do, lse, delta, causal: bool = True):
-    """``fa_bwd_dkdv``: (dK, dV) [B, Lk, H, D] in q's dtype."""
+    """``fa_bwd_dkdv_tc`` (bf16) or ``fa_bwd_dkdv`` (fp32): (dK, dV)
+    [B, Lk, H, D] in q's dtype."""
     _check(q, k, v, causal, "bwd_dkdv_cuda")
     _check_grad_inputs(q, do, stats=(lse, delta))
     B, Lq, H, D = q.shape
-    q, k, v, do, lse, delta = (t.contiguous()
-                               for t in (q, k, v, do, lse, delta))
+    q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = LIB_BWD.load().fa_bwd_dkdv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -170,16 +198,18 @@ def bwd_dkdv_cuda(q, k, v, do, lse, delta, causal: bool = True):
         dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype], B, H, Lq, k.shape[1],
         D, 1.0 / math.sqrt(D), int(causal), _stream(q))
     check_launch(err, "flash attention backward (dK, dV)")
+    BWD_KERNEL_LAUNCHES[bwd_kernel("dkdv", q.dtype)] += 1
     return dk, dv
 
 
 def bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True):
-    """``fa_bwd_dq``: dQ [B, Lq, H, D] in q's dtype."""
+    """``fa_bwd_dq_tc`` (bf16) or ``fa_bwd_dq`` (fp32): dQ [B, Lq, H, D]
+    in q's dtype."""
     _check(q, k, v, causal, "bwd_dq_cuda")
     _check_grad_inputs(q, do, stats=(lse, delta))
     B, Lq, H, D = q.shape
-    q, k, v, do, lse, delta = (t.contiguous()
-                               for t in (q, k, v, do, lse, delta))
+    q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
     dq = torch.empty_like(q)
     err = LIB_BWD.load().fa_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -187,6 +217,7 @@ def bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True):
         dq.data_ptr(), DTYPES[q.dtype], B, H, Lq, k.shape[1], D,
         1.0 / math.sqrt(D), int(causal), _stream(q))
     check_launch(err, "flash attention backward (dQ)")
+    BWD_KERNEL_LAUNCHES[bwd_kernel("dq", q.dtype)] += 1
     return dq
 
 
@@ -196,9 +227,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True):
     """(dq, dk, dv) of the forward at output ``o`` for the output
     gradient ``do``, from the forward's log-sum-exp ``lse`` (fp32
-    [B, H, Lq]): the three backward kernels, one launch each, on the
-    current stream without synchronising.  Same checks as the forward;
-    ``o`` and ``do`` must match q."""
+    [B, H, Lq]): the three backward kernels for q's dtype, one launch
+    each, on the current stream without synchronising.  Same checks as
+    the forward; ``o`` and ``do`` must match q."""
     _check(q, k, v, causal, "flash_attention_bwd_cuda")
     _check_grad_inputs(q, o, do, stats=(lse,))
     delta = bwd_preprocess_cuda(o, do)

@@ -18,7 +18,10 @@ versions; the backward kernels against ``attention_bwd_ref`` on the card.
 The bf16 kernel runs both products on the tensor cores with p split into
 three bf16 terms; ``emulate_tensor_core_kernel`` repeats that arithmetic
 on the CPU, so the split is held to the card's element bar here too.
+The bf16 backward kernels do the same with P and dS
+(``emulate_tensor_core_bwd``).
 """
+import functools
 import math
 
 import jax.numpy as jnp
@@ -239,6 +242,77 @@ def test_one_bf16_term_misses_the_element_bar():
     assert element_ratio(got, attention_ref(*ts, causal=True)) > 10.0
 
 
+def emulate_tensor_core_bwd(q, k, v, do, lse, delta, causal=True, terms=3,
+                            scale=None):
+    """The bf16 backward kernels' arithmetic (``fa_bwd_dkdv_tc``,
+    ``fa_bwd_dq_tc``) in torch, on the CPU.
+
+    Per (64-key, 64-query) tile: S = q·kᵀ and dP = dO·vᵀ from bf16
+    inputs summed in fp32; with c = scale·log2(e) and l2 = lse·log2(e) in
+    fp32, P = exp2(fma(S, c, −l2)), 0 where masked; dS = P ∘ (dP − D).
+    P and dS are split into bf16 terms; each tile's dV = Σ Pᵀ-terms·dO,
+    dK = Σ dSᵀ-terms·q and dQ = Σ dS-terms·k is summed in fp32 from
+    zero and added to an fp32 running sum (dK/dV over the query tiles in
+    order, dQ over the key tiles in order), as the kernels fold each
+    tile; dK and dQ are scaled once at the end and all three rounded to
+    q's dtype.  Tiles wholly above the causal diagonal are skipped, as
+    the kernels skip them.  This model uses an exact exp2 and sums
+    rounded to nearest; the card's ``ex2.approx.ftz`` and the tensor
+    cores' own accumulation are covered by the ``cuda``-marked tests and
+    chip_smoke.py's phase 6.  ``lse`` and ``delta`` are fp32 [B, H, Lq];
+    ``scale`` defaults to 1/√D.  Returns (dq, dk, dv) and the largest
+    split residual."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    f32 = functools.partial(torch.tensor, dtype=torch.float32)
+    c = f32(scale) * f32(LOG2E)
+    qf, kf, vf, dof = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))
+    l2 = (lse.float() * f32(LOG2E))[..., None]
+    dl = delta.float()[..., None]
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    off = Lk - Lq
+    residual = 0.0
+
+    def terms_of(x):
+        nonlocal residual
+        parts, rest = split_bf16(x, terms)
+        residual = max(residual, float(rest.abs().max()))
+        return [t.float() for t in parts]
+
+    for k0 in range(0, Lk, KEY_TILE):
+        ks, vs = kf[:, :, k0:k0 + KEY_TILE], vf[:, :, k0:k0 + KEY_TILE]
+        ki = torch.arange(k0, min(k0 + KEY_TILE, Lk))[None, :]
+        for q0 in range(0, Lq, KEY_TILE):
+            if causal and min(q0 + KEY_TILE, Lq) - 1 + off < k0:
+                continue
+            qs, dos = qf[:, :, q0:q0 + KEY_TILE], dof[:, :, q0:q0 + KEY_TILE]
+            s = qs @ ks.transpose(-1, -2)
+            dp = dos @ vs.transpose(-1, -2)
+            p = torch.exp2(fma(s, c, -l2[:, :, q0:q0 + KEY_TILE]))
+            if causal:
+                qi = torch.arange(q0, min(q0 + KEY_TILE, Lq))[:, None] + off
+                p = torch.where(qi >= ki, p, torch.zeros(()))
+            ds = p * (dp - dl[:, :, q0:q0 + KEY_TILE])
+            p_t, ds_t = terms_of(p), terms_of(ds)
+            dv[:, :, k0:k0 + KEY_TILE] += tile_sum(
+                [t.transpose(-1, -2) for t in p_t], dos)
+            dk[:, :, k0:k0 + KEY_TILE] += tile_sum(
+                [t.transpose(-1, -2) for t in ds_t], qs)
+            dq[:, :, q0:q0 + KEY_TILE] += tile_sum(ds_t, ks)
+    sc = f32(scale)
+    return tuple((g * m).permute(0, 2, 1, 3).to(q.dtype)
+                 for g, m in ((dq, sc), (dk, sc), (dv, 1.0))), residual
+
+
+def tile_sum(a_terms, b):
+    """Σ a·b over the terms, summed in fp32 from zero in term order."""
+    t = a_terms[0] @ b
+    for a in a_terms[1:]:
+        t = t + a @ b
+    return t
+
+
 # (B, Lq, Lk, H, D, causal, dtype): the reference sweep, a cached-prefix
 # shape and zamba2-1.2b's serving head width at a short prompt; then the
 # bf16 (tensor-core) kernel at every head width, a ragged length and
@@ -431,6 +505,28 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
         kernel.flash_attention_bwd_cuda(q, k, v, q, do, lse)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.bwd_preprocess_cuda(q, do)
+    for wrapper in (kernel.bwd_dkdv_cuda, kernel.bwd_dq_cuda):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            wrapper(q, k, v, do, lse, lse)
+
+
+def test_backward_kernels_follow_the_dtype():
+    """bf16 goes to the tensor-core kernels, fp32 to the CUDA-core ones;
+    a tensor the tensor maps would read at an odd offset is copied to an
+    aligned one first, not refused."""
+    from repro_torch.kernels.flash_attention import kernel
+    assert kernel.bwd_kernel("dkdv", torch.bfloat16) == "fa_bwd_dkdv_tc"
+    assert kernel.bwd_kernel("dq", torch.bfloat16) == "fa_bwd_dq_tc"
+    assert kernel.bwd_kernel("dkdv", torch.float32) == "fa_bwd_dkdv"
+    assert kernel.bwd_kernel("dq", torch.float32) == "fa_bwd_dq"
+    assert set(kernel.BWD_KERNEL_LAUNCHES) == set(kernel.BWD_KERNELS)
+    flat = torch.arange(1 + 2 * 3 * 32, dtype=torch.bfloat16)
+    view = flat[1:].view(1, 2, 3, 32)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    ready = kernel._tma_ready(view)
+    assert ready.data_ptr() % 16 == 0 and torch.equal(ready, view)
+    whole = flat[:-1].view(1, 2, 3, 32)
+    assert kernel._tma_ready(whole).data_ptr() == whole.data_ptr()
 
 
 # Bars of the backward kernels against ``attention_bwd_ref`` on the card
@@ -443,7 +539,16 @@ CUDA_BWD_SHAPES = [s + (dt,) for s in BWD_SHAPES
                    for dt in ("float32", "bfloat16")] + [
     (1, 2048, 2048, 8, 128, True, "bfloat16"),
     (1, 1024, 1024, 4, 80, False, "bfloat16"),
-    (1, 1024, 1024, 4, 64, True, "bfloat16")]
+    (1, 1024, 1024, 4, 64, True, "bfloat16"),
+    # The tensor-core kernels at ragged lengths: non-causal with Lq > Lk
+    # and Lq < Lk, causal with Lk > Lq (the diagonal inside a key tile),
+    # at every head dim.
+    (2, 130, 70, 2, 128, False, "bfloat16"),
+    (1, 70, 130, 3, 80, False, "bfloat16"),
+    (2, 100, 300, 2, 128, True, "bfloat16"),
+    (1, 70, 333, 2, 80, True, "bfloat16"),
+    (2, 190, 250, 2, 64, True, "bfloat16"),
+    (1, 33, 100, 4, 32, True, "bfloat16")]
 
 
 def bwd_within_bar(got, want, dtype):
@@ -452,6 +557,65 @@ def bwd_within_bar(got, want, dtype):
         return float((g - w).abs().max()) <= grad_bar(w)
     bar = BWD_BF16_REL * w.abs() + BWD_BF16_ABS * float(w.abs().max())
     return bool(((g - w).abs() <= bar).all())
+
+
+def bwd_bf16_ratio(got, want):
+    """Worst |Δ| / (2^-7·|ref| + 1e-5·max|ref|) of one tensor; at most 1
+    passes."""
+    g, w = got.float(), want.float()
+    bar = BWD_BF16_REL * w.abs() + BWD_BF16_ABS * float(w.abs().max())
+    return float(((g - w).abs() / bar).max())
+
+
+def bf16_bwd_case(L, H, D, causal, seed):
+    """bf16 q, k, v, dO and what the kernels get from the forward and the
+    preprocess (o, lse, D), with attention_bwd_ref's (dq, dk, dv)."""
+    q, k, v, do = grad_inputs(1, L, L, H, D, seed=seed, dtype=torch.bfloat16)
+    o = attention_ref(q, k, v, causal)
+    lse = ref_mod.attention_lse_ref(q, k, causal)
+    delta = ref_mod.bwd_preprocess_ref(o, do)
+    want = ref_mod.attention_bwd_ref(q, k, v, o, do, lse, causal)
+    return (q, k, v, do, lse, delta), want
+
+
+@pytest.mark.parametrize("L", [256, 2048])
+def test_backward_three_term_split_meets_the_bf16_element_bar(L):
+    """The bf16 backward kernels' arithmetic (bf16 products, P and dS in
+    three bf16 terms, each tile summed from zero and added in fp32) keeps
+    dq, dk and dv within the element bar of attention_bwd_ref, and the
+    three terms hold P and dS exactly."""
+    args, want = bf16_bwd_case(L, 1, 64, True, seed=L)
+    got, residual = emulate_tensor_core_bwd(*args, causal=True)
+    assert residual == 0.0
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert bwd_bf16_ratio(g, w) <= 1.0, name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_three_term_split_meets_the_bf16_element_bar_at_head_dim_80(
+        causal):
+    """At D = 80 the kernels multiply tiles laid out as at D = 128 whose
+    columns 80..127 are zero: the emulation at D = 128 on zero-padded q,
+    k, v and dO (scale 1/√80) gives zeros past column 80 and, before it,
+    dq, dk and dv within the element bar of the plain version at D = 80."""
+    args, want = bf16_bwd_case(256, 2, 80, causal, seed=80)
+    padded = [torch.nn.functional.pad(t, (0, 48)) for t in args[:4]]
+    got, residual = emulate_tensor_core_bwd(
+        *padded, *args[4:], causal=causal, scale=1.0 / math.sqrt(80))
+    assert residual == 0.0
+    for name, g, w in zip("qkv", got, want):
+        assert torch.equal(g[..., 80:], torch.zeros_like(g[..., 80:])), name
+        assert bwd_bf16_ratio(g[..., :80], w) <= 1.0, name
+
+
+def test_backward_one_bf16_term_misses_the_element_bar():
+    """Why the split: P and dS rounded once to bf16 (the usual
+    tensor-core backward) break the element bar."""
+    args, want = bf16_bwd_case(256, 1, 64, True, seed=256)
+    got, residual = emulate_tensor_core_bwd(*args, causal=True, terms=1)
+    assert residual > 0.0
+    assert max(bwd_bf16_ratio(g, w) for g, w in zip(got, want)) > 10.0
 
 
 @pytest.mark.cuda
@@ -467,32 +631,64 @@ def test_cuda_backward_kernels_match_plain(B, Lq, Lk, H, D, causal, dtype):
     torch.cuda.synchronize()
     assert float((lse - want_lse).abs().max()) <= 1e-4 * max(
         float(want_lse.abs().max()), 1.0)
+    before = dict(kernel.BWD_KERNEL_LAUNCHES)
     got = kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
     want = ref_mod.attention_bwd_ref(q, k, v, o, do, lse, causal)
     torch.cuda.synchronize()
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == tdt and g.shape == w.shape, name
         assert bwd_within_bar(g, w, dtype), name
+    # bf16 goes to the tensor-core kernels, fp32 to the CUDA-core ones.
+    ran = {n for n, c in kernel.BWD_KERNEL_LAUNCHES.items()
+           if c != before[n]}
+    assert ran == {"fa_bwd_preprocess", kernel.bwd_kernel("dkdv", tdt),
+                   kernel.bwd_kernel("dq", tdt)}
+    # No atomics: a second pass gives the same bits.
+    again = kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    for name, g, a in zip("qkv", got, again):
+        assert torch.equal(g, a), name
+
+
+# A train step's bf16 gradient bar (chip_smoke.py's TRAIN_GRAD_REL): the
+# kernels take D from the stored bf16 output, as FA2 does, which moves the
+# gradient by up to ~1% of its max against autograd of the plain version.
+AUTOGRAD_BF16_REL = 2e-2
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,D", [(2, 200, 3, 64), (1, 130, 2, 128),
+                                     (1, 100, 2, 80), (2, 96, 2, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_cuda_autograd_function_matches_plain_autograd(causal):
-    """``flash_attention`` under grad on CUDA tensors (fp32): the kernels'
-    gradient against torch.autograd of the plain version, one forward
-    and one backward pass counted."""
+def test_cuda_autograd_function_matches_plain_autograd(causal, dtype, B, L,
+                                                       H, D):
+    """``flash_attention`` under grad on CUDA tensors: the kernels'
+    gradient against torch.autograd of the plain version (fp32 within
+    1e-4·max, bf16 within 2e-2·max), one forward and one backward pass
+    counted, the backward on the dtype's kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    q, k, v, do = (t.cuda() for t in grad_inputs(2, 200, 200, 3, 64, 2))
+    from repro_torch.kernels.flash_attention import kernel
+    tdt = DT[dtype][1]
+    q, k, v, do = (t.cuda() for t in grad_inputs(B, L, L, H, D, 2, tdt))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = (ops.LAUNCHES, ops.BWD_LAUNCHES)
+    tc_before = kernel.BWD_KERNEL_LAUNCHES[kernel.bwd_kernel("dkdv", tdt)]
     out = ops.flash_attention(*leaves, causal=causal)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, leaves, do)
     assert (ops.LAUNCHES - before[0], ops.BWD_LAUNCHES - before[1]) == (1, 1)
+    assert kernel.BWD_KERNEL_LAUNCHES[
+        kernel.bwd_kernel("dkdv", tdt)] == tc_before + 1
     plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
     want = torch.autograd.grad(attention_ref(*plain, causal=causal), plain,
                                do)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
-        assert float((g - w).abs().max()) <= grad_bar(w)
+        assert g.dtype == tdt
+        err = float((g.float() - w.float()).abs().max())
+        if dtype == "float32":
+            assert err <= grad_bar(w)
+        else:
+            assert err <= AUTOGRAD_BF16_REL * float(w.float().abs().max())
