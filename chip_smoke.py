@@ -10,10 +10,10 @@ Phases (each raises on failure, so the script exits non-zero):
 1. device — requires CUDA, prints the card's name and power limit; turns
    TF32 off for matmuls and cuDNN (the reference's numbers are fp32 or
    bf16, never TF32);
-2. build — compiles the four kernel sources from ``src/`` with nvcc
-   (affinity, flash attention forward and backward, SSD), one process
-   per source, started together; prints each build's registers, shared
-   memory and spills;
+2. build — compiles the five kernel sources from ``src/`` with nvcc
+   (affinity, flash attention forward and backward, SSD forward and
+   backward), one process per source, started together; prints each
+   build's registers, shared memory and spills;
 3. affinity kernel vs plain — the CUDA kernel against the plain torch
    version on the card, bitwise, at the reference tests' shapes, the
    main paths' round buckets (the five most frequent of phases 5, 8 and
@@ -51,7 +51,17 @@ Phases (each raises on failure, so the script exits non-zero):
    2^-7·|ref| + 1e-5·max|ref|), a second pass equal bit for bit, the
    forward's log-sum-exp against ``attention_lse_ref``; backward,
    per-kernel, plain, bound, MMA floor and library (SDPA forward and
-   backward minus forward) times;
+   backward minus forward) times; the SSD backward (``ssd_bwd.cu``:
+   ``ssd_carry_bwd`` and ``ssd_chunk_bwd``, and the whole backward of
+   the op ``repro_torch::ssd_fwd``) against ``ssd_carry_bwd_ref``,
+   ``ssd_chunk_bwd_ref`` and ``ssd_bwd_ref`` at the reference sweep's
+   shapes whose chunk the kernels take (Q <= 64) and at phase 11's
+   training shapes [2, 4096, 48, 64, 128, 64] (mamba2-780m) and
+   [2, 4096, 64, 64, 64, 64] (zamba2-1.2b), bf16 and fp32, with a
+   nonzero initial state and final-state gradient (each
+   gradient within 1e-4·max(max|ref|, 1), the op's bf16 gradients within
+   one bf16 step more; a second pass equal bit for bit; the worst ratio
+   printed), with kernel, plain and bound times;
 7. serving at full width — zamba2-1.2b (38 layers, d_model 2048, seeded
    random fp32 weights, bf16 compute) through ``build`` and the serve
    builders:
@@ -114,11 +124,23 @@ Phases (each raises on failure, so the script exits non-zero):
    layers, 1 x 2048, and llama3-8b again with fp32 compute (the fp32
    backward kernels): one step's loss and every gradient leaf held
    against the same step with the plain attention on the card (the MoE
-   router's experts pinned between the two); (c) ``FaultyTrainer``
+   router's experts pinned between the two); likewise mamba2-780m at 2
+   layers and zamba2-1.2b at 6 (one shared-attention application), held
+   against the same step with the plain attention and ``ssd_ref``, their
+   SSD launches (forward chunk and carry, backward passes (each one
+   chunk-state launch), ``ssd_carry_bwd``, ``ssd_chunk_bwd``: one each per
+   layer) and
+   FA launches checked; (c) ``FaultyTrainer``
    (fail_prob 0.25, seed 1) over 15 steps of llama3-8b smoke on the card
    and on the CPU: same restarts, failed steps and history, losses
    within 2e-2, the card's last checkpoint restored on the CPU bit for
-   bit; (d) ``ssd`` under grad on the card raises.
+   bit; (d) mamba2-780m at full width and depth (48 layers, d_model
+   1536, 48 SSD heads, P 64, N 128), 2 x 4096 tokens, one warm-up and 6
+   timed steps: step s, tokens/s, peak GiB, launches per step checked
+   (48 each of the SSD forward's chunk and carry launches, backward
+   passes (each one chunk-state launch), ``ssd_carry_bwd`` and
+   ``ssd_chunk_bwd``), a ``torch.profiler`` split of one more step by
+   kernel, its idle share and the SSD backward's share of device time.
 
 The second-last lines are the kernel record (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is the device record.
@@ -271,7 +293,8 @@ def kernel_libs() -> dict:
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd import kernel as ssd
     return {"affinity": aff.LIB, "flash_attention": fa.LIB,
-            "flash_attention_bwd": fa.LIB_BWD, "ssd": ssd.LIB}
+            "flash_attention_bwd": fa.LIB_BWD, "ssd": ssd.LIB,
+            "ssd_bwd": ssd.LIB_BWD}
 
 
 def phase_build() -> None:
@@ -1089,6 +1112,162 @@ def phase_ssd(torch) -> dict:
                 terms=TERMS)
 
 
+# The SSD backward (ssd_bwd.cu) against its plain versions, on the same
+# inputs with a nonzero initial state and final-state gradient: the
+# reference sweep's shapes at chunks the kernels take (up to
+# kernel.BWD_MAX_Q = 64 rows; the sweep's Q = 128 shape has no backward) and
+# phase 11's training shapes, mamba2-780m's and zamba2-1.2b's at 2 x 4096,
+# each in bf16 and fp32.  Bar: per gradient max|Δ| <= 1e-4·max(max|ref|,
+# 1); a bf16 gradient of the whole op (rounded once from fp32, as the
+# plain version's) per element within 2^-7·|ref| more, one bf16 step.
+SSD_TRAIN = [(2, 4096, 48, 64, 128, 64), (2, 4096, 64, 64, 64, 64)]
+SSD_BWD_SHAPES = [(s, dt) for s in SSD_SWEEP + SSD_TRAIN if s[5] <= 64
+                  for dt in ("bfloat16", "float32")]
+SSD_BWD_BAR = 1e-4
+SSD_BWD_BF16_REL = 2.0 ** -7
+
+
+def ssd_bwd_bounds(B, L, H, P, N, Q, dtype, groups):
+    """(least ms, what bounds it) of each backward kernel and the whole
+    backward: flops at the inputs' dtype's peak (as ``ssd_bound``) against
+    bytes.  Carry: 2·N·P flops per (row, head) for Cᵀ·dy and 2 per state
+    element and chunk for each walk; the chunk states read, h_prev and g
+    written (fp32), C, dy, cum, init, dfinal and d init_state once.
+    Chunk: per (b, chunk, head) 2Q²P (dW and dx over the lower triangle)
+    + 6QNP (dx's state term, g·x, dy·h_prev), per (b, chunk) 3Q²N (C·Bᵀ
+    and the dC, dB products); x, dy, dt, cum, B, C, g and h_prev read,
+    dx, dcum, ddt and the groups' partial dB, dC written.  Whole: the
+    chunk states (2QNP per (b, chunk, head); the gradient needs no
+    y_intra) and both kernels' flops; its inputs read and gradients
+    written once."""
+    nc = L // Q
+    e = esize(dtype)
+    stack = B * nc * H * N * P * 4
+    state = B * H * N * P * 4
+    carry_f = 2 * B * L * H * N * P + 4 * B * nc * H * N * P
+    chunk_f = B * nc * (H * (2 * Q * Q * P + 6 * Q * N * P) + 3 * Q * Q * N)
+    state_f = B * H * nc * 2 * Q * N * P
+    carry_b = (3 * stack + B * L * N * e + B * L * H * P * e + B * L * H * 4
+               + 3 * state)
+    chunk_b = (2 * B * L * H * P * e + 2 * B * L * H * 4 + 2 * B * L * N * e
+               + 2 * stack + B * L * H * P * 4 + 2 * B * L * H * 4
+               + 2 * groups * B * L * N * 4)
+    whole_b = (3 * B * L * H * P * e + 2 * B * L * H * 4 + 4 * B * L * N * e
+               + 3 * state + 2 * H * 4)
+    return {"carry": bound(carry_f, carry_b, dtype),
+            "chunk": bound(chunk_f, chunk_b, dtype),
+            "backward": bound(state_f + carry_f + chunk_f, whole_b, dtype)}
+
+
+def hold_grads(torch, what, names, got, again, want) -> dict:
+    """Each gradient against the plain version's (the bars above) and a
+    second pass bit for bit; returns (worst ratio to the bar, max|Δ|) per
+    name."""
+    out = {}
+    for name, g, a, w in zip(names, got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"{what} {name}: two passes differ (the "
+                                 f"kernels use no atomics)")
+        gf, wf = g.float(), w.float()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what} {name}: {g.dtype} "
+                                 f"{list(g.shape)}, plain {w.dtype} "
+                                 f"{list(w.shape)}")
+        err = (gf - wf).abs()
+        scale = SSD_BWD_BAR * max(float(wf.abs().max()), 1.0)
+        if g.dtype == torch.bfloat16:
+            ratio = float((err / (SSD_BWD_BF16_REL * wf.abs() + scale))
+                          .max())
+        else:
+            ratio = float(err.max()) / scale
+        if not ratio <= 1.0:
+            raise AssertionError(f"{what} {name}: worst |Δ| is {ratio} "
+                                 f"times its bar")
+        out[name] = (ratio, float(err.max()))
+    return out
+
+
+def phase_ssd_bwd(torch) -> dict:
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_bwd_ref,
+                                             ssd_carry_bwd_ref,
+                                             ssd_chunk_bwd_ref)
+    log("[ssd-bwd] per call, ms (CUDA events, median after a warm-up): "
+        "carry = ssd_carry_bwd (h_prev and g, two walks), chunk = "
+        "ssd_chunk_bwd (each chunk's gradients), both on the CUDA cores in "
+        "fp32; backward = the op's whole backward (ops.ssd_bwd: the "
+        "chunk-state launch, both kernels, the groups' sum and the "
+        "cumsum's gradient); plain = ssd_carry_bwd_ref, ssd_chunk_bwd_ref, "
+        "ssd_bwd_ref on the card; bound = the least time for each one's "
+        "work (flops at the inputs' dtype's peak, or bytes) and what "
+        "bounds it; no single PyTorch call computes any of them (library: "
+        "none)")
+    rows, worst, errs = {}, {}, {"carry": 0.0, "chunk": 0.0}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (shape, dtype) in enumerate(SSD_BWD_SHAPES):
+        B, L, H, P, N, Q = shape
+        tdt = getattr(torch, dtype)
+        x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 500 + i)
+        gen = torch.Generator(device="cuda").manual_seed(600 + i)
+        dy, h0, df = (torch.randn(s, generator=gen, device="cuda")
+                      for s in ((B, L, H, P), (B, H, N, P), (B, H, N, P)))
+        x, Bm, Cm, dy = (t.to(tdt) for t in (x, Bm, Cm, dy))
+        cum = chunk_cumsum(dt, A, Q)
+        _, states = sk.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+        args = (states, cum, Cm, dy, Q, h0, df)
+        held = {"carry": hold_grads(
+            torch, f"ssd_carry_bwd {shape} {dtype}",
+            ("h_prev", "g", "d init_state"), sk.ssd_carry_bwd_cuda(*args),
+            sk.ssd_carry_bwd_cuda(*args), ssd_carry_bwd_ref(*args))}
+        h_prev, g, _ = ssd_carry_bwd_ref(*args)
+        G = sk.bwd_heads_per_block(B * L // Q, H, sms)
+        args = (x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
+        held["chunk"] = hold_grads(
+            torch, f"ssd_chunk_bwd {shape} {dtype}",
+            ("dx", "dcum", "ddt", "dB", "dC"), sk.ssd_chunk_bwd_cuda(*args),
+            sk.ssd_chunk_bwd_cuda(*args), ssd_chunk_bwd_ref(*args, G))
+        whole = (x, dt, A, Bm, Cm, dy, Q, h0, df)
+        held["backward"] = hold_grads(
+            torch, f"SSD backward {shape} {dtype}",
+            ("dx", "ddt", "dA", "dB", "dC", "d init_state"),
+            ops.ssd_bwd(*whole), ops.ssd_bwd(*whole), ssd_bwd_ref(*whole))
+        torch.cuda.synchronize()
+        for k in ("carry", "chunk"):
+            errs[k] = max(errs[k], *(e for _, e in held[k].values()))
+        for k, v in held.items():
+            worst[k] = max(worst.get(k, 0.0), *(r for r, _ in v.values()))
+        ms = {"carry": timed_ms(torch, lambda: sk.ssd_carry_bwd_cuda(
+                  states, cum, Cm, dy, Q, h0, df)),
+              "chunk": timed_ms(torch, lambda: sk.ssd_chunk_bwd_cuda(*args)),
+              "backward": timed_ms(torch, lambda: ops.ssd_bwd(*whole))}
+        plain = {"carry": timed_ms(torch, lambda: ssd_carry_bwd_ref(
+                     states, cum, Cm, dy, Q, h0, df), 0.2),
+                 "chunk": timed_ms(torch, lambda: ssd_chunk_bwd_ref(
+                     *args, G), 0.2),
+                 "backward": timed_ms(torch, lambda: ssd_bwd_ref(*whole),
+                                      0.2)}
+        bounds = ssd_bwd_bounds(B, L, H, P, N, Q, dtype, H // G)
+        rows[(shape, dtype)] = dict(ms=ms, plain_ms=plain, bounds=bounds,
+                                    held=held, heads_per_block=G)
+        log(f"[ssd-bwd] [B,L,H,P,N,Q]={list(shape)} {dtype} ({G} heads "
+            f"per block): "
+            + "; ".join(f"{k} {ms[k]:.5f} plain {plain[k]:.5f} bound "
+                        f"{bounds[k][0]:.6f} ({bounds[k][1]})"
+                        for k in ("carry", "chunk", "backward"))
+            + "; worst |Δ|/bar " + ", ".join(
+                f"{k} {max(r for r, _ in v.values()):.4g}"
+                for k, v in held.items())
+            + " <= 1, two passes equal")
+        del x, dt, A, Bm, Cm, dy, h0, df, cum, states, h_prev, g, args
+        del whole
+        torch.cuda.empty_cache()
+    log("[ssd-bwd] worst |Δ|/bar over every shape: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in worst.items()))
+    return dict(rows=rows, worst=worst, carry_max_abs_err=errs["carry"],
+                chunk_max_abs_err=errs["chunk"])
+
+
 # ---------------------------------------------------------------------------
 # Serving at full width
 # ---------------------------------------------------------------------------
@@ -1204,14 +1383,16 @@ def check_decode_vs_forward(torch, model, params, res,
 
 def device_breakdown(torch, fn,
                      names=("fa_kernel", "ssd_chunk", "ssd_carry"),
-                     span=None) -> dict:
+                     span=None, others=None) -> dict:
     """Device time (ms) of one call of ``fn`` by kernel, from a
     ``torch.profiler`` trace: the ported kernels by name (``ssd_chunk``
     covers ``ssd_chunk_tc`` and ``ssd_chunk_kernel``, ``ssd_carry`` covers
     ``ssd_carry_tc`` and ``ssd_carry_kernel``, ``fa_kernel`` the forward
     flash-attention kernels), every other device kernel as ``other``.
     A ``span`` list gets the profiled call's own wall time (ms, host
-    clock, synchronised), so that busy and wall come from one run."""
+    clock, synchronised), so that busy and wall come from one run; an
+    ``others`` dict gets the ``other`` kernels' device time (ms) by
+    name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1230,6 +1411,8 @@ def device_breakdown(torch, fn,
                      getattr(ev, "self_cuda_time_total", 0.0))
         name = next((n for n in out if n in ev.key), "other")
         out[name] += us / 1e3
+        if name == "other" and others is not None:
+            others[ev.key] = others.get(ev.key, 0.0) + us / 1e3
     return out
 
 
@@ -1951,17 +2134,22 @@ def phase_waas(torch, rate: float) -> dict:
 # more than the card's 80 GB; at 4 they take ~31 GB.
 TRAIN_HEADLINE = ("llama3-8b", 4, 2, 4096)
 TRAIN_WARMUP, TRAIN_STEPS = 1, 6
-# (b) every transformer family: one step at full width, 2 layers, 1 x 2048
-# (the plain attention it is held against materialises [B, H, L, L] per
-# layer), through the kernels and again with attention_ref on the card.
-TRAIN_FAMILIES = ("llama3-8b", "qwen2-moe-a2.7b", "hubert-xlarge",
-                  "internvl2-1b")
+# (b) every family: one step at full width, 1 x 2048 (the plain attention
+# it is held against materialises [B, H, L, L] per layer), through the
+# kernels and again with attention_ref and ssd_ref on the card: (arch,
+# layers), the transformer families and mamba2-780m at 2 layers,
+# zamba2-1.2b at 6, whose sixth applies the shared attention block
+# (models/hybrid.py:61).
+TRAIN_FAMILIES = (("llama3-8b", 2), ("qwen2-moe-a2.7b", 2),
+                  ("hubert-xlarge", 2), ("internvl2-1b", 2),
+                  ("mamba2-780m", 2), ("zamba2-1.2b", 6))
 # and the dense arch with fp32 compute: the step that takes the fp32
 # (CUDA-core) backward kernels, held to the same bars.
-TRAIN_FP32 = ("llama3-8b",)
-FAMILY_LAYERS, FAMILY_B, FAMILY_L = 2, 1, 2048
-# Both runs compute in bf16 and differ only in the attention (the kernels
-# against the plain version, each within one bf16 step of fp32): the loss
+TRAIN_FP32 = (("llama3-8b", 2),)
+FAMILY_B, FAMILY_L = 1, 2048
+# Both runs compute in bf16 and differ only in the attention and the SSD
+# (the kernels against the plain versions, each within one bf16 step of
+# fp32): the loss
 # within 2e-2 relative and each gradient leaf within 2e-2·max|ref| of that
 # leaf, the bf16 bar of tests/test_torch_train.py (where the port and the
 # reference, which rounds p to bf16, stay within 0.0096·max|ref|).
@@ -1977,6 +2165,19 @@ FT_STEPS = 15
 FT_LOSS_REL = 2e-2
 # The backward kernels a bf16 training step launches (one each per layer).
 FA_BWD_KERNELS = ("fa_bwd_preprocess", "fa_bwd_dkdv_tc", "fa_bwd_dq_tc")
+# (d) mamba2-780m at full width and depth: 48 layers, d_model 1536, 48 SSD
+# heads (P 64, N 128), 2 x 4096 tokens (train_4k's sequence, its batch of
+# 256 cut to 2); its parameters, gradients and AdamW moments take ~12.5 GB,
+# so no depth cut.
+TRAIN_SSM = ("mamba2-780m", 48, 2, 4096)
+# The SSD's launch counters in kernels/ssd/ops.py: the forward's chunk and
+# carry launches and backward passes (each launches the chunk kernel once
+# for the chunk states).
+SSD_COUNTERS = ("LAUNCHES", "CARRY_LAUNCHES", "BWD_LAUNCHES")
+# The profiler's names for the SSD kernels, the backward's first (each
+# contains a forward kernel's name).
+SSD_PROFILE = ("ssd_chunk_bwd", "ssd_carry_bwd", "ssd_chunk", "ssd_carry")
+OTHERS_SHOWN = 10    # (d) lists this many of the other kernels by time
 
 
 def train_model(arch: str, n_layers: int, device="cuda", smoke=False,
@@ -2002,13 +2203,23 @@ def bwd_kernel_launches(fa) -> dict:
     return got
 
 
-def phase_train_headline(torch) -> dict:
+def ssd_counts() -> dict:
+    """The SSD's launch counters (``SSD_COUNTERS``) and each backward
+    kernel's."""
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return dict({c: getattr(ssd_ops, c) for c in SSD_COUNTERS},
+                **sk.BWD_KERNEL_LAUNCHES)
+
+
+def timed_steps(torch, tag, arch, n_layers, B, L, describe, reset) -> dict:
+    """Build ``arch`` (``train_model``: seeded fp32 weights, bf16
+    compute, remat "dots"), take ``TRAIN_WARMUP`` steps, call ``reset``
+    (launch counts to 0), then ``TRAIN_STEPS`` timed steps (host clock,
+    synchronised) on ``data.pipeline.batch_at`` batches of B x L."""
     from repro_torch.data.pipeline import DataConfig, batch_at
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.train.optim import init_opt_state
     from repro_torch.train.train_step import make_train_step
-    arch, n_layers, B, L = TRAIN_HEADLINE
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2017,13 +2228,12 @@ def phase_train_headline(torch) -> dict:
     params = model.init(0)
     opt = init_opt_state(params)
     torch.cuda.synchronize()
-    log(f"[train] (a) {arch}: {n_layers} of 32 layers, d_model "
-        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head dim "
-        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {model.n_params():,} "
+    log(f"[train] ({tag}) {arch}: {describe(cfg)}; {model.n_params():,} "
         f"fp32 parameters and AdamW state from a seeded generator in "
-        f"{time.perf_counter() - t0:.3f} s ({torch.cuda.max_memory_allocated() / 2**30:.3f} "
-        f"GiB); bf16 compute, remat {model.run.remat}; batches {B} x {L} "
-        f"from data.pipeline.batch_at")
+        f"{time.perf_counter() - t0:.3f} s "
+        f"({torch.cuda.max_memory_allocated() / 2**30:.3f} GiB); bf16 "
+        f"compute, remat {model.run.remat}; batches {B} x {L} from "
+        f"data.pipeline.batch_at")
     step = make_train_step(model)
     dc = DataConfig(seed=0, seq_len=L, global_batch=B)
     n = TRAIN_WARMUP + TRAIN_STEPS
@@ -2032,9 +2242,7 @@ def phase_train_headline(torch) -> dict:
         params, opt, _ = step(params, opt, batches[s])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.LAUNCHES = 0
-    fa_ops.BWD_LAUNCHES = 0
-    bwd_kernel_launches(fa)
+    reset()
     times, losses = [], []
     for s in range(TRAIN_WARMUP, n):
         t0 = time.perf_counter()
@@ -2042,9 +2250,48 @@ def phase_train_headline(torch) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(met["loss"]))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"({tag}) non-finite loss {losses}")
+    if int(opt["step"]) != n:
+        raise AssertionError(f"({tag}) opt step {int(opt['step'])} != {n}")
+    return dict(model=model, params=params, opt=opt, step=step,
+                next_batch=batches[n], times=times, losses=losses,
+                peak=torch.cuda.max_memory_allocated() / 2**30,
+                step_s=statistics.median(times))
+
+
+def profiled_step(torch, tag, run, names, others=None) -> dict:
+    """One more step of ``run`` under the profiler: device time by kernel
+    (``names``; each must show some), busy time, the step's own wall and
+    the idle share between them (``others``: see device_breakdown)."""
+    span = []
+    by = device_breakdown(torch, lambda: run["step"](
+        run["params"], run["opt"], run["next_batch"]), names, span=span,
+        others=others)
+    for name in names:
+        if not by[name] > 0:
+            raise AssertionError(f"({tag}) no device time under {name}")
+    busy = sum(by.values())
+    return dict(by, busy=busy, wall=span[0],
+                idle=max(0.0, 1 - busy / span[0]))
+
+
+def phase_train_headline(torch) -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    arch, n_layers, B, L = TRAIN_HEADLINE
+
+    def reset():
+        fa_ops.LAUNCHES = 0
+        fa_ops.BWD_LAUNCHES = 0
+        bwd_kernel_launches(fa)
+    run = timed_steps(
+        torch, "a", arch, n_layers, B, L,
+        lambda c: f"{n_layers} of 32 layers, d_model {c.d_model}, heads "
+                  f"{c.n_heads}/{c.n_kv_heads}, head dim {c.hd}, d_ff "
+                  f"{c.d_ff}, vocab {c.vocab}", reset)
     launches = (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES)
     by_kernel = bwd_kernel_launches(fa)
-    peak = torch.cuda.max_memory_allocated() / 2**30
     want = (n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS)
     if launches != want:
         raise AssertionError(f"(a) {TRAIN_STEPS} steps launched {launches} "
@@ -2055,11 +2302,7 @@ def phase_train_headline(torch) -> dict:
         raise AssertionError(f"(a) backward kernel launches {by_kernel}, "
                              f"expected {want_k}: bf16 goes to the "
                              f"tensor-core kernels")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"(a) non-finite loss {losses}")
-    if int(opt["step"]) != n:
-        raise AssertionError(f"(a) opt step {int(opt['step'])} != {n}")
-    step_s = statistics.median(times)
+    step_s, times, losses = run["step_s"], run["times"], run["losses"]
     log(f"[train] (a) {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: "
         f"median {step_s:.4f} s, max {max(times):.4f} s per step (host "
         f"clock, synchronised), {B * L / step_s:.1f} tokens/s; losses "
@@ -2068,30 +2311,81 @@ def phase_train_headline(torch) -> dict:
         f"passes ({3 * n_layers} backward kernel launches: "
         + ", ".join(f"{k} {v}" for k, v in by_kernel.items())
         + " over the steps); peak allocated "
-        f"{peak:.3f} GiB; opt step {int(opt['step'])}")
-    # One more step under the profiler: its busy time and its own wall
-    # give the idle share.
-    span = []
-    by = device_breakdown(torch, lambda: step(params, opt, batches[n]),
-                          ("fa_kernel",) + FA_BWD_KERNELS, span=span)
-    busy = sum(by.values())
-    wall = span[0]
-    fa_bwd_ms = sum(by[name] for name in FA_BWD_KERNELS)
-    split = dict(by, busy=busy, wall=wall, idle=max(0.0, 1 - busy / wall),
-                 fa_bwd_share=fa_bwd_ms / busy)
-    for name in ("fa_kernel",) + FA_BWD_KERNELS:
-        if not by[name] > 0:
-            raise AssertionError(f"(a) no device time under {name}")
+        f"{run['peak']:.3f} GiB; opt step {int(run['opt']['step'])}")
+    split = profiled_step(torch, "a", run, ("fa_kernel",) + FA_BWD_KERNELS)
+    fa_bwd_ms = sum(split[name] for name in FA_BWD_KERNELS)
+    split["fa_bwd_share"] = fa_bwd_ms / split["busy"]
     log("[train] (a) one profiled step's device time by kernel, ms: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in by.items())
-        + f"; busy {busy:.3f} of that step's {wall:.3f} wall (host clock, "
-        f"synchronised; the unprofiled median {step_s * 1e3:.3f}), idle "
-        f"share {split['idle']:.4f}; FA backward {fa_bwd_ms:.3f} ms, "
-        f"{split['fa_bwd_share']:.4f} of the step's device time")
-    del params, opt, step, model, batches
+        + ", ".join(f"{k} {split[k]:.3f}" for k in
+                    ("fa_kernel",) + FA_BWD_KERNELS + ("other",))
+        + f"; busy {split['busy']:.3f} of that step's {split['wall']:.3f} "
+        f"wall (host clock, synchronised; the unprofiled median "
+        f"{step_s * 1e3:.3f}), idle share {split['idle']:.4f}; FA backward "
+        f"{fa_bwd_ms:.3f} ms, {split['fa_bwd_share']:.4f} of the step's "
+        f"device time")
+    peak = run["peak"]
+    del run
     torch.cuda.empty_cache()
     return dict(fa_launches=launches[0], bwd_launches=launches[1],
                 bwd_kernel_launches=by_kernel, step_s=step_s,
+                tokens_per_s=B * L / step_s, peak_gib=peak, split=split,
+                losses=losses)
+
+
+def phase_train_ssm(torch) -> dict:
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    arch, n_layers, B, L = TRAIN_SSM
+
+    def reset():
+        for c in SSD_COUNTERS:
+            setattr(ssd_ops, c, 0)
+        for k in sk.BWD_KERNEL_LAUNCHES:
+            sk.BWD_KERNEL_LAUNCHES[k] = 0
+    run = timed_steps(
+        torch, "d", arch, n_layers, B, L,
+        lambda c: f"{c.n_layers} layers, d_model {c.d_model}, "
+                  f"{c.ssm_heads} SSD heads (P {c.ssm_head_dim}, N "
+                  f"{c.ssm_state}), vocab {c.vocab}", reset)
+    counts = ssd_counts()
+    want = n_layers * TRAIN_STEPS
+    if any(v != want for v in counts.values()):
+        raise AssertionError(
+            f"(d) {TRAIN_STEPS} steps launched {counts}, expected {want} "
+            f"each: remat dots keeps the SSD forward (one chunk and one "
+            f"carry launch per layer), and each backward pass launches the "
+            f"chunk kernel for the states and each backward kernel once")
+    step_s, times, losses = run["step_s"], run["times"], run["losses"]
+    log(f"[train] (d) {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: "
+        f"median {step_s:.4f} s, max {max(times):.4f} s per step (host "
+        f"clock, synchronised), {B * L / step_s:.1f} tokens/s; losses "
+        f"{[round(x, 4) for x in losses]}; per step {n_layers} SSD "
+        f"forward chunk and carry launches (remat dots keeps them) and "
+        f"{n_layers} backward passes (the chunk-state launch, "
+        f"ssd_carry_bwd and ssd_chunk_bwd each); over the steps "
+        + ", ".join(f"{k} {v}" for k, v in counts.items())
+        + f"; peak allocated {run['peak']:.3f} GiB; opt step "
+        f"{int(run['opt']['step'])}")
+    others = {}
+    split = profiled_step(torch, "d", run, SSD_PROFILE, others)
+    bwd_ms = split["ssd_chunk_bwd"] + split["ssd_carry_bwd"]
+    split["ssd_bwd_share"] = bwd_ms / split["busy"]
+    log("[train] (d) one profiled step's device time by kernel, ms: "
+        + ", ".join(f"{k} {split[k]:.3f}" for k in SSD_PROFILE + ("other",))
+        + f" (ssd_chunk: the forward's launches and the backward's "
+        f"chunk-state launches); busy {split['busy']:.3f} of that step's "
+        f"{split['wall']:.3f} wall (host clock, synchronised; the "
+        f"unprofiled median {step_s * 1e3:.3f}), idle share "
+        f"{split['idle']:.4f}; the two SSD backward kernels {bwd_ms:.3f} "
+        f"ms, {split['ssd_bwd_share']:.4f} of the step's device time")
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:OTHERS_SHOWN]
+    log(f"[train] (d) the {OTHERS_SHOWN} largest of the other kernels, ms: "
+        + "; ".join(f"{k[:90]} {v:.3f}" for k, v in top))
+    split["top_other"] = dict(top)
+    peak = run["peak"]
+    del run
+    torch.cuda.empty_cache()
+    return dict(ssd_launches=counts, step_s=step_s,
                 tokens_per_s=B * L / step_s, peak_gib=peak, split=split,
                 losses=losses)
 
@@ -2129,19 +2423,32 @@ def routes_pinned():
 
 def family_grads(torch, model, params, batch, plain: bool):
     """loss_and_grads of one step, through the kernels or with the
-    attention swapped for the plain version on the card (the same
-    test-only swap as check_prefill_vs_plain)."""
+    attention and the SSD swapped for their plain versions on the card
+    (the same test-only swap as check_prefill_vs_plain)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_ref
     from repro_torch.train.train_step import loss_and_grads
-    kernel = fa_ops.flash_attention
+    kernels = fa_ops.flash_attention, ssd_ops.ssd
     if plain:
         fa_ops.flash_attention = \
             lambda q, k, v, causal=True: attention_ref(q, k, v, causal)
+        ssd_ops.ssd = ssd_ref
     try:
         return loss_and_grads(model, params, batch)
     finally:
-        fa_ops.flash_attention = kernel
+        fa_ops.flash_attention, ssd_ops.ssd = kernels
+
+
+def family_launches(cfg) -> tuple:
+    """(FA applications, SSD layers) in one pass of ``cfg``'s model."""
+    from repro_torch.models.hybrid import n_attn_apps
+    if cfg.family == "ssm":
+        return 0, cfg.n_layers
+    if cfg.family == "hybrid":
+        return n_attn_apps(cfg), cfg.n_layers
+    return cfg.n_layers, 0
 
 
 def phase_train_families(torch) -> dict:
@@ -2152,40 +2459,47 @@ def phase_train_families(torch) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models.common import tree_leaves
     out = {}
-    for arch, compute in ([(a, "bfloat16") for a in TRAIN_FAMILIES]
-                          + [(a, "float32") for a in TRAIN_FP32]):
+    for arch, n_layers, compute in (
+            [(a, n, "bfloat16") for a, n in TRAIN_FAMILIES]
+            + [(a, n, "float32") for a, n in TRAIN_FP32]):
         torch.cuda.empty_cache()
-        model = train_model(arch, FAMILY_LAYERS, compute=compute)
+        model = train_model(arch, n_layers, compute=compute)
         cfg = model.cfg
         params = model.init(0)
         batch = batch_at(DataConfig(seed=1, seq_len=FAMILY_L,
                                     global_batch=FAMILY_B), 0, cfg)
         with routes_pinned() as flips:
             before = (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES)
+            ssd_before = ssd_counts()
             bwd_kernel_launches(fa)
             loss, _, grads = family_grads(torch, model, params, batch, False)
             torch.cuda.synchronize()
             got = (fa_ops.LAUNCHES - before[0],
                    fa_ops.BWD_LAUNCHES - before[1])
             by_kernel = bwd_kernel_launches(fa)
+            ssd_got = {k: v - ssd_before[k] for k, v in ssd_counts().items()}
             ref_loss, _, ref_grads = family_grads(torch, model, params,
                                                   batch, True)
             torch.cuda.synchronize()
-        if got != (cfg.n_layers, cfg.n_layers):
+        n_fa, n_ssd = family_launches(cfg)
+        if got != (n_fa, n_fa):
             raise AssertionError(f"(b) {arch}: one step launched {got} (FA "
                                  f"forward, FA backward passes), expected "
-                                 f"{cfg.n_layers} each")
+                                 f"{n_fa} each")
+        if any(v != n_ssd for v in ssd_got.values()):
+            raise AssertionError(f"(b) {arch}: one step launched {ssd_got} "
+                                 f"of the SSD, expected {n_ssd} each")
         dt = getattr(torch, compute)
         ran = {"fa_bwd_preprocess", fa.bwd_kernel("dkdv", dt),
                fa.bwd_kernel("dq", dt)}
-        want_k = {n: (cfg.n_layers if n in ran else 0) for n in by_kernel}
+        want_k = {n: (n_fa if n in ran else 0) for n in by_kernel}
         if by_kernel != want_k:
             raise AssertionError(f"(b) {arch} {compute}: backward kernel "
                                  f"launches {by_kernel}, expected {want_k}")
         loss_err = abs(float(loss) - float(ref_loss))
         if not loss_err <= TRAIN_LOSS_REL * abs(float(ref_loss)):
-            raise AssertionError(f"(b) {arch}: loss {float(loss)} vs plain "
-                                 f"attention's {float(ref_loss)}")
+            raise AssertionError(f"(b) {arch}: loss {float(loss)} vs the "
+                                 f"plain versions' {float(ref_loss)}")
         worst, worst_key = 0.0, None
         keys = [k for k, _ in _flatten(params)]
         for key, g, r in zip(keys, tree_leaves(grads), tree_leaves(ref_grads)):
@@ -2207,17 +2521,22 @@ def phase_train_families(torch) -> dict:
             f"{FAMILY_L}: {got[0]} FA forward launches and {got[1]} FA "
             f"backward passes in the step ("
             + ", ".join(f"{k} {v}" for k, v in by_kernel.items() if v)
-            + f"); loss {float(loss):.6f} against "
-            f"{float(ref_loss):.6f} with the plain attention; {len(keys)} "
-            f"gradient leaves, worst |Δ| / ({TRAIN_GRAD_REL}·max|ref|) "
-            f"{worst:.4g} ({worst_key}) <= 1"
+            + ")"
+            + (f", SSD " + ", ".join(f"{k} {v}" for k, v in ssd_got.items())
+               if n_ssd else "")
+            + f"; loss {float(loss):.6f} against "
+            f"{float(ref_loss):.6f} with the plain "
+            + ("attention and ssd_ref" if n_ssd and n_fa else
+               "ssd_ref" if n_ssd else "attention")
+            + f"; {len(keys)} gradient leaves, worst |Δ| / "
+            f"({TRAIN_GRAD_REL}·max|ref|) {worst:.4g} ({worst_key}) <= 1"
             + (f"; routes pinned to the kernel run's, {n_flips} token "
                f"routes the plain run would have changed" if cfg.n_experts
                else ""))
         key = arch if compute == "bfloat16" else f"{arch} {compute}"
         out[key] = dict(launches=got, bwd_kernel_launches=by_kernel,
-                        loss=float(loss), ref_loss=float(ref_loss),
-                        worst=worst)
+                        ssd_launches=ssd_got, loss=float(loss),
+                        ref_loss=float(ref_loss), worst=worst)
         del params, grads, ref_grads, model
         gc.collect()
     torch.cuda.empty_cache()
@@ -2285,29 +2604,12 @@ def phase_train_faults(torch) -> dict:
                 failed_steps=card["tr"].failed_steps, loss_rel=rel)
 
 
-def phase_train_ssd_guard(torch) -> None:
-    from repro_torch.kernels.ssd.ops import ssd
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((1, 64, 2, 16), generator=gen, device="cuda",
-                    requires_grad=True)
-    dt = torch.rand((1, 64, 2), generator=gen, device="cuda")
-    A = -torch.rand((2,), generator=gen, device="cuda")
-    Bm = torch.randn((1, 64, 16), generator=gen, device="cuda")
-    try:
-        ssd(x, dt, A, Bm, Bm.clone())
-    except NotImplementedError as e:
-        log(f"[train] (d) ssd under grad on the card raises: {e}")
-        return
-    raise AssertionError("(d) ssd under grad on the card returned outputs "
-                         "cut from autograd")
-
-
 def phase_train(torch) -> dict:
     head = phase_train_headline(torch)
     families = phase_train_families(torch)
     faults = phase_train_faults(torch)
-    phase_train_ssd_guard(torch)
-    return dict(head, families=families, faults=faults)
+    ssm = phase_train_ssm(torch)
+    return dict(head, families=families, faults=faults, ssm=ssm)
 
 
 def main() -> int:
@@ -2323,6 +2625,10 @@ def main() -> int:
     log(f"[fa-bwd] phase 6's backward checks took "
         f"{time.perf_counter() - t0:.3f} s")
     sd = phase_ssd(torch)
+    t0 = time.perf_counter()
+    sdb = phase_ssd_bwd(torch)
+    log(f"[ssd-bwd] phase 6's SSD backward checks took "
+        f"{time.perf_counter() - t0:.3f} s")
     serve = phase_serving(torch)
     exp = phase_experiments(torch, k["link_rate"])
     tf = phase_transformers(torch)
@@ -2420,7 +2726,7 @@ def main() -> int:
     # The backward's kernels: the bf16 ones (and the preprocess) at the
     # training headline, launched by phase 11 (a); the fp32 ones at phase
     # 11 (b)'s fp32 step, which launched them.
-    f32_run = train["families"][f"{TRAIN_FP32[0]} float32"]
+    f32_run = train["families"][f"{TRAIN_FP32[0][0]} float32"]
     for key, name, shape, launches in (
             ("preprocess", "fa_bwd_preprocess", FA_TRAIN,
              train["bwd_kernel_launches"]),
@@ -2464,6 +2770,41 @@ def main() -> int:
             **({"build": {k: v for k, v in fab["builds"].items()
                           if k.startswith(name + "<")}}
                if name.endswith("_tc") else {}),
+        })
+    # The SSD backward's kernels at phase 11 (d)'s shape (mamba2-780m, 2 x
+    # 4096, bf16), launched by (d).
+    shape = SSD_TRAIN[0]
+    row = sdb["rows"][(shape, "bfloat16")]
+    for key, name in (("carry", "ssd_carry_bwd"), ("chunk", "ssd_chunk_bwd")):
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu",
+            # No Pallas kernel: XLA's gradient of the jnp SSD.
+            "replaces": "src/repro/kernels/ssd/ref.py:19",
+            "tpu_kernel": False,
+            # Phase 11 (d): one launch per layer per step.
+            "launches": train["ssm"]["ssd_launches"][name],
+            "max_abs_err": sdb[f"{key}_max_abs_err"],
+            "ms": row["ms"][key],
+            "plain_ms": row["plain_ms"][key],
+            "bound_ms": row["bounds"][key][0],
+            "bound_by": row["bounds"][key][1],
+            # No single PyTorch call computes either, or the whole
+            # backward (under "backward").
+            "library_ms": None,
+            "shape": list(shape),
+            "dtype": "bfloat16",
+            "heads_per_block": row["heads_per_block"],
+            "backward": dict(ms=row["ms"]["backward"],
+                             plain_ms=row["plain_ms"]["backward"],
+                             bound_ms=row["bounds"]["backward"][0],
+                             bound_by=row["bounds"]["backward"][1]),
+            # Phase 11 (b): launches in one step per arch.
+            "launches_families": {
+                a: r["ssd_launches"][name]
+                for a, r in train["families"].items()
+                if r["ssd_launches"][name]},
         })
     idle = [k["name"] for k in record["kernels"] if not k["launches"] > 0]
     if idle:

@@ -1,12 +1,17 @@
 """Build and launch the CUDA SSD kernels (``csrc/ssd.cu``): the
 intra-chunk pass (:func:`ssd_chunks_cuda`; bf16 on the tensor cores at
 the serving shapes, fp32 on the CUDA cores) and the inter-chunk carry
-(:func:`ssd_carry_cuda`).
+(:func:`ssd_carry_cuda`); and their gradient (``csrc/ssd_bwd.cu``, its
+own library): the carry's two walks (:func:`ssd_carry_bwd_cuda`) and each
+chunk's gradients (:func:`ssd_chunk_bwd_cuda`), both on the CUDA cores
+in fp32 for fp32 and bf16 inputs.  ``BWD_KERNEL_LAUNCHES`` counts the
+backward kernels' launches.
 
-Compiled at first use with ``nvcc`` for ``sm_90a`` (``kernels/build.py``)
-and loaded with ``ctypes``; nothing is built when this module is
-imported.  Build flags: ``-O3``, no fast-math, multiply-add contraction
-allowed — the kernels are held to a tolerance against the plain version.
+Each library is compiled at first use with ``nvcc`` for ``sm_90a``
+(``kernels/build.py``) and loaded with ``ctypes``; nothing is built when
+this module is imported.  Build flags: ``-O3``, no fast-math,
+multiply-add contraction allowed — the kernels are held to a tolerance
+against the plain version.
 """
 from __future__ import annotations
 
@@ -38,8 +43,26 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_carry_launch.restype = ctypes.c_int
 
 
-LIB = CudaLibrary("ssd", Path(__file__).resolve().parent / "csrc" / "ssd.cu",
-                  (), _bind)
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_carry_bwd_launch.argtypes = [P] * 9 + [I] * 7 + [P]
+    lib.ssd_chunk_bwd_launch.argtypes = [P] * 13 + [I] * 8 + [P]
+    for fn in (lib.ssd_carry_bwd_launch, lib.ssd_chunk_bwd_launch):
+        fn.restype = ctypes.c_int
+
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+LIB = CudaLibrary("ssd", CSRC / "ssd.cu", (), _bind)
+LIB_BWD = CudaLibrary("ssd_bwd", CSRC / "ssd_bwd.cu", (), _bind_bwd)
+
+# Launches of each backward kernel through the wrappers below (reset them
+# to 0 and read them back around a run).
+BWD_KERNELS = ("ssd_carry_bwd", "ssd_chunk_bwd")
+BWD_KERNEL_LAUNCHES = dict.fromkeys(BWD_KERNELS, 0)
+# What ssd_chunk_bwd takes: chunks of Q <= 64 rows (a multiple of 4),
+# head widths P <= 64 (a multiple of 4), state sizes N a power of two
+# from 8 to 128.
+BWD_MAX_Q, BWD_MAX_P, BWD_N = 64, 64, (8, 16, 32, 64, 128)
 
 
 def smem_bytes(Q: int, N: int, P: int) -> int:
@@ -68,6 +91,19 @@ def _check_aligned(**tensors) -> None:
     for name, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _check_tensors(device: torch.device, want: dict) -> None:
+    """Each ``name: (tensor, shape, dtypes)`` has that shape, one of the
+    dtypes and is contiguous on ``device``; None entries are skipped."""
+    for name, (t, shape, dtypes) in want.items():
+        if t is None:
+            continue
+        if tuple(t.shape) != tuple(shape) or t.dtype not in dtypes:
+            raise ValueError(f"{name} must be {list(shape)} of {dtypes}, got "
+                             f"{list(t.shape)} {t.dtype}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}")
 
 
 def ssd_chunks_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
@@ -159,19 +195,13 @@ def ssd_carry_cuda(y_intra: torch.Tensor, states: torch.Tensor,
         raise ValueError(f"the carry kernel takes chunks up to 256 rows "
                          f"(two per thread, 512 threads) and its tiles in "
                          f"shared memory; got Q {chunk}, N {N}")
-    want = {"y_intra": (y_intra, (Bsz, L, H, P), (torch.float32,)),
-            "states": (states, (Bsz, nc, H, N, P), (torch.float32,)),
-            "cum": (cum, (Bsz, L, H), (torch.float32,)),
-            "Cm": (Cm, (Bsz, L, N), tuple(DTYPES))}
-    if init_state is not None:
-        want["init_state"] = (init_state, (Bsz, H, N, P), (torch.float32,))
-    for name, (t, shape, dtypes) in want.items():
-        if tuple(t.shape) != shape or t.dtype not in dtypes:
-            raise ValueError(f"{name} must be {list(shape)} of "
-                             f"{dtypes}, got {list(t.shape)} {t.dtype}")
-        if t.device != y_intra.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on "
-                             f"{y_intra.device}")
+    f32 = (torch.float32,)
+    _check_tensors(y_intra.device, {
+        "y_intra": (y_intra, (Bsz, L, H, P), f32),
+        "states": (states, (Bsz, nc, H, N, P), f32),
+        "cum": (cum, (Bsz, L, H), f32),
+        "Cm": (Cm, (Bsz, L, N), tuple(DTYPES)),
+        "init_state": (init_state, (Bsz, H, N, P), f32)})
     if out_dtype not in DTYPES:
         raise ValueError(f"unsupported output dtype {out_dtype}")
     if H > MAX_GRID_YZ or Bsz > MAX_GRID_YZ:
@@ -189,3 +219,141 @@ def ssd_carry_cuda(y_intra: torch.Tensor, states: torch.Tensor,
         Bsz, L, H, P, N, chunk, stream)
     check_launch(err, "SSD carry")
     return y, final
+
+
+def chunk_bwd_smem_bytes(Q: int, N: int, P: int) -> int:
+    """Dynamic shared memory of one ``ssd_chunk_bwd`` block (as
+    ``ChunkBwdSmem`` in ``csrc/ssd_bwd.cu``): B, C and C·Bᵀ and the summed
+    dC·Bᵀ gradient, x and dy per head, and their union of g, h_prev, K and
+    V, rows padded by 4 floats."""
+    ldq, ldn, ldp = Q + 4, N + 4, P + 4
+    union = max(N * ldp + P * ldn, 2 * Q * ldq, 2 * Q * ldn)
+    return 4 * (2 * N * ldq + 2 * Q * ldq + 2 * P * ldq + Q * ldp + union
+                + 9 * Q)
+
+
+def bwd_heads_per_block(pairs: int, H: int, sms: int) -> int:
+    """Heads per ``ssd_chunk_bwd`` block (one block per SM fits its
+    shared memory): the largest divisor of H up to 16 that still gives
+    two blocks per SM, on a card of ``sms`` SMs, over ``pairs`` (batch,
+    chunk) pairs.  The grouping sets the order dB and dC are summed in,
+    so it follows the card's SM count."""
+    for g in (16, 8, 4, 2):
+        if H % g == 0 and pairs * (H // g) >= 2 * sms:
+            return g
+    return 1
+
+
+def ssd_carry_bwd_cuda(states: torch.Tensor, cum: torch.Tensor,
+                       Cm: torch.Tensor, dy: torch.Tensor, chunk: int,
+                       init_state: Optional[torch.Tensor] = None,
+                       dfinal: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``ssd_carry_bwd`` on CUDA tensors: states [B,nc,H,N,P] fp32
+    (the chunk kernel's), cum [B,L,H] fp32, Cm [B,L,N] and dy [B,L,H,P]
+    of one dtype (fp32 or bf16), init_state and dfinal [B,H,N,P] fp32 or
+    None (zeros).  Returns (h_prev, g [B,nc,H,N,P], d init_state
+    [B,H,N,P]), fp32, as ``ref.ssd_carry_bwd_ref``, without
+    synchronising."""
+    if states.dim() != 5 or states.device.type != "cuda":
+        raise ValueError(f"ssd_carry_bwd_cuda needs CUDA states [B, nc, H, "
+                         f"N, P], got {list(states.shape)} on "
+                         f"{states.device}")
+    Bsz, nc, H, N, P = states.shape
+    L = nc * chunk
+    if check_chunk(cum.shape[1], chunk) != nc:
+        raise ValueError(f"cum has {cum.shape[1]} steps, states {nc} chunks "
+                         f"of {chunk}")
+    if P % 8 or N % 8 or N > 256:
+        raise ValueError(f"ssd_carry_bwd takes P and N multiples of 8, N up "
+                         f"to 256; got P {P}, N {N}")
+    slice_p = 16 if P % 16 == 0 else 8
+    if 4 * chunk * (N + slice_p) > MAX_SMEM_BYTES:
+        raise ValueError(f"chunk {chunk}, N {N}: C and dy's slice do not fit "
+                         f"a block's shared memory")
+    if H > MAX_GRID_YZ or Bsz > MAX_GRID_YZ:
+        raise ValueError(f"unsupported shape {list(states.shape)}")
+    if Cm.dtype not in DTYPES:
+        raise ValueError(f"unsupported dtype {Cm.dtype}")
+    f32 = (torch.float32,)
+    _check_tensors(states.device, {
+        "states": (states, (Bsz, nc, H, N, P), f32),
+        "cum": (cum, (Bsz, L, H), f32),
+        "Cm": (Cm, (Bsz, L, N), (Cm.dtype,)),
+        "dy": (dy, (Bsz, L, H, P), (Cm.dtype,)),
+        "init_state": (init_state, (Bsz, H, N, P), f32),
+        "dfinal": (dfinal, (Bsz, H, N, P), f32)})
+    _check_aligned(states=states, init_state=init_state,  # 16-byte loads
+                   dfinal=dfinal)
+    h_prev = torch.empty_like(states)
+    g = torch.empty_like(states)
+    dinit = torch.empty((Bsz, H, N, P), dtype=torch.float32,
+                        device=states.device)
+    stream = torch.cuda.current_stream(states.device).cuda_stream
+    err = LIB_BWD.load().ssd_carry_bwd_launch(
+        states.data_ptr(), cum.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+        None if init_state is None else init_state.data_ptr(),
+        None if dfinal is None else dfinal.data_ptr(), h_prev.data_ptr(),
+        g.data_ptr(), dinit.data_ptr(), DTYPES[Cm.dtype], Bsz, L, H, P, N,
+        chunk, stream)
+    check_launch(err, "SSD carry backward")
+    BWD_KERNEL_LAUNCHES["ssd_carry_bwd"] += 1
+    return h_prev, g, dinit
+
+
+def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                       g: torch.Tensor, h_prev: torch.Tensor, chunk: int):
+    """Launch ``ssd_chunk_bwd`` on CUDA tensors: x, dy [B,L,H,P] and Bm,
+    Cm [B,L,N] of one dtype (fp32 or bf16), dt and cum [B,L,H] fp32, g and
+    h_prev [B,nc,H,N,P] fp32 (:func:`ssd_carry_bwd_cuda`'s).  Returns
+    (dx [B,L,H,P], dcum [B,L,H], ddt [B,L,H], dB, dC [groups,B,L,N]),
+    fp32, as ``ref.ssd_chunk_bwd_ref`` with :func:`bwd_heads_per_block`'s
+    heads per group on x's card, without synchronising."""
+    if x.dim() != 4 or x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_bwd_cuda needs a CUDA x [B, L, H, P], "
+                         f"got {list(x.shape)} on {x.device}")
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = check_chunk(L, chunk)
+    if (chunk % 4 or chunk > BWD_MAX_Q or P % 4 or P > BWD_MAX_P
+            or N not in BWD_N):
+        raise ValueError(f"ssd_chunk_bwd takes chunks and head widths that "
+                         f"are multiples of 4 up to {BWD_MAX_Q} and "
+                         f"{BWD_MAX_P}, and N in {BWD_N}; got Q {chunk}, "
+                         f"P {P}, N {N}")
+    if chunk_bwd_smem_bytes(chunk, N, P) > MAX_SMEM_BYTES:
+        raise ValueError(f"chunk {chunk}, N {N}, P {P} need "
+                         f"{chunk_bwd_smem_bytes(chunk, N, P)} bytes of "
+                         f"shared memory, above {MAX_SMEM_BYTES}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"unsupported dtype {x.dtype}")
+    G = bwd_heads_per_block(
+        Bsz * nc, H,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if H // G > MAX_GRID_YZ or Bsz > MAX_GRID_YZ:
+        raise ValueError(f"unsupported shape {list(x.shape)}")
+    f32 = (torch.float32,)
+    _check_tensors(x.device, {
+        "x": (x, (Bsz, L, H, P), (x.dtype,)),
+        "dt": (dt, (Bsz, L, H), f32), "cum": (cum, (Bsz, L, H), f32),
+        "Bm": (Bm, (Bsz, L, N), (x.dtype,)),
+        "Cm": (Cm, (Bsz, L, N), (x.dtype,)),
+        "dy": (dy, (Bsz, L, H, P), (x.dtype,)),
+        "g": (g, (Bsz, nc, H, N, P), f32),
+        "h_prev": (h_prev, (Bsz, nc, H, N, P), f32)})
+    dx = torch.empty((Bsz, L, H, P), dtype=torch.float32, device=x.device)
+    dcum = torch.empty((Bsz, L, H), dtype=torch.float32, device=x.device)
+    ddt = torch.empty_like(dcum)
+    dB = torch.empty((H // G, Bsz, L, N), dtype=torch.float32,
+                     device=x.device)
+    dC = torch.empty_like(dB)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = LIB_BWD.load().ssd_chunk_bwd_launch(
+        x.data_ptr(), dt.data_ptr(), cum.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), dy.data_ptr(), g.data_ptr(), h_prev.data_ptr(),
+        dx.data_ptr(), dcum.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), DTYPES[x.dtype], Bsz, L, H, P, N, chunk, G, stream)
+    check_launch(err, "SSD chunk backward")
+    BWD_KERNEL_LAUNCHES["ssd_chunk_bwd"] += 1
+    return dx, dcum, ddt, dB, dC

@@ -6,32 +6,46 @@ chunk kernel for the intra-chunk term and the chunk states (bf16 on the
 tensor cores at the serving shapes), then the carry kernel, which walks
 the chunks in order and writes y in x's dtype and the final state; the
 reference keeps that carry in jnp outside its Pallas kernel.  On a CPU
-tensor it runs ``ref.ssd_ref``.  There is no fallback from one to the
-other.  ``LAUNCHES`` counts chunk-kernel launches, ``CARRY_LAUNCHES``
-carry-kernel launches.
+tensor it runs ``ref.ssd_ref``, which autograd differentiates.  There is
+no fallback from one to the other.
 
-The kernels have no backward yet (ROADMAP Queue 1 item 9b), and their
-outputs are fresh tensors that autograd cannot see through.  So on a
-CUDA tensor :func:`ssd` raises when grad is enabled and any input
-requires grad, rather than return outputs cut from the graph; the plain
-version is not taken in their place.  On the CPU, ``ssd_ref`` is
-differentiated by autograd and the SSM and hybrid families train there.
+Under grad, on a CUDA tensor, :func:`ssd` goes through the operator
+``repro_torch::ssd_fwd`` (``torch.library.custom_op``): the same two
+launches, with its gradient registered.  It saves x, dt, A, B, C and
+the initial state, not the chunk states; its backward (:func:`ssd_bwd`)
+launches the chunk kernel once more for them, then ``ssd_carry_bwd``
+(h_prev and the state gradients, two walks over the chunks) and
+``ssd_chunk_bwd`` (each chunk's gradients) from ``csrc/ssd_bwd.cu``, and
+finishes in torch: dB and dC summed over the kernel's head groups in a
+fixed order, the cumsum's gradient (ddt += A·da, dA = Σ dt·da).  The
+backward kernels take chunks of up to ``kernel.BWD_MAX_Q`` rows, and
+:func:`ssd` refuses a longer one under grad.  As one operator the
+forward is seen by selective activation checkpointing
+(``models/layers.py``'s ``remat="dots"``), which keeps its outputs
+instead of launching it again in the backward.
+
+``LAUNCHES`` counts the forward's chunk-kernel launches,
+``CARRY_LAUNCHES`` its carry-kernel launches and ``BWD_LAUNCHES``
+backward passes (each launches the chunk kernel once for the states, and
+each backward kernel once); ``kernel.BWD_KERNEL_LAUNCHES`` counts each
+backward kernel.
 
 :func:`ssd_decode` is the single-token recurrence; the reference has no
 kernel for it, so its torch ops are the port on every device.
 """
-from __future__ import annotations
-
+# No ``from __future__ import annotations``: ``custom_op`` reads the
+# operator's schema from the annotations.
 from typing import Optional, Tuple
 
 import torch
 
-from .ref import chunk_cumsum, ssd_decode_ref, ssd_ref
+from .ref import chunk_cumsum, chunk_cumsum_bwd, ssd_decode_ref, ssd_ref
 
 # Kernel launches made through this module (reset them to 0 and read them
 # back around a run).
-LAUNCHES = 0          # the chunk kernel
+LAUNCHES = 0          # the chunk kernel, in the forward
 CARRY_LAUNCHES = 0    # the carry kernel
+BWD_LAUNCHES = 0      # backward passes
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
@@ -40,12 +54,103 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _kernel_inputs(x, dt, Bm, Cm):
+    """x, B and C in one dtype (fp32 holds any of them exactly when they
+    differ) and dt in fp32, dense, as the kernels read them."""
+    if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        x, Bm, Cm = x.float(), Bm.float(), Cm.float()
+    return _dense(x), dt.float().contiguous(), _dense(Bm), _dense(Cm)
+
+
+def _forward(x, dt, A, Bm, Cm, chunk, init_state):
+    """The chunk and carry kernels: (y in x's dtype, final state fp32)."""
+    global LAUNCHES, CARRY_LAUNCHES
+    from .kernel import ssd_carry_cuda, ssd_chunks_cuda
+    out_dtype = x.dtype
+    x, dt, Bm, Cm = _kernel_inputs(x, dt, Bm, Cm)
+    cum = chunk_cumsum(dt, A, chunk)
+    y_intra, states = ssd_chunks_cuda(x, dt, cum, Bm, Cm, chunk)
+    LAUNCHES += 1
+    if init_state is not None:
+        init_state = _dense(init_state.float())
+    y, final = ssd_carry_cuda(y_intra, states, cum, Cm, chunk, init_state,
+                              out_dtype)
+    CARRY_LAUNCHES += 1
+    return y, final
+
+
+@torch.library.custom_op("repro_torch::ssd_fwd", mutates_args=())
+def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+            init_state: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunk and carry kernels as one operator: (y [B,L,H,P] in x's
+    dtype, final state fp32 [B,H,N,P]).  CUDA tensors only."""
+    return _forward(x, dt, A, Bm, Cm, chunk, init_state)
+
+
+@ssd_fwd.register_fake
+def _(x, dt, A, Bm, Cm, chunk, init_state):
+    Bsz, _, H, P = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((Bsz, H, Bm.shape[-1], P), dtype=torch.float32))
+
+
+def _check_bwd_chunk(chunk: int) -> None:
+    from .kernel import BWD_MAX_Q
+    if chunk > BWD_MAX_Q:
+        raise ValueError(f"the SSD backward kernels take chunks of up to "
+                         f"{BWD_MAX_Q} rows, got {chunk}")
+
+
+def ssd_bwd(x, dt, A, Bm, Cm, dy, chunk, init_state=None, dfinal=None):
+    """The gradient of :func:`ssd` on CUDA tensors for dy (y's) and dfinal
+    (the final state's; None is zeros): (dx, ddt, dA, dB, dC,
+    d init_state), each in its input's dtype (None without an
+    init_state); see the module docstring for the launches."""
+    global BWD_LAUNCHES
+    from . import kernel
+    _check_bwd_chunk(chunk)
+    xk, dtk, Bk, Ck = _kernel_inputs(x, dt, Bm, Cm)
+    cum = chunk_cumsum(dtk, A, chunk)
+    _, states = kernel.ssd_chunks_cuda(xk, dtk, cum, Bk, Ck, chunk)
+    dyk = _dense(dy.to(xk.dtype))
+    init = None if init_state is None else _dense(init_state.float())
+    if dfinal is not None:
+        dfinal = _dense(dfinal.float())
+    h_prev, g, dinit = kernel.ssd_carry_bwd_cuda(states, cum, Ck, dyk,
+                                                 chunk, init, dfinal)
+    del states
+    dx, dcum, ddt, dB, dC = kernel.ssd_chunk_bwd_cuda(xk, dtk, cum, Bk, Ck,
+                                                      dyk, g, h_prev, chunk)
+    ddt_cum, dA = chunk_cumsum_bwd(dcum, dtk, A, chunk)
+    BWD_LAUNCHES += 1
+    return (dx.to(x.dtype), (ddt + ddt_cum).to(dt.dtype), dA.to(A.dtype),
+            dB.sum(0).to(Bm.dtype), dC.sum(0).to(Cm.dtype),
+            None if init_state is None else dinit.to(init_state.dtype))
+
+
+def _setup_context(ctx, inputs, output):
+    x, dt, A, Bm, Cm, chunk, init_state = inputs
+    ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+    ctx.chunk = chunk
+
+
+def _backward(ctx, dy, dfinal):
+    x, dt, A, Bm, Cm, init_state = ctx.saved_tensors
+    dx, ddt, dA, dB, dC, dinit = ssd_bwd(x, dt, A, Bm, Cm, dy, ctx.chunk,
+                                         init_state, dfinal)
+    return dx, ddt, dA, dB, dC, None, dinit
+
+
+ssd_fwd.register_autograd(_backward, setup_context=_setup_context)
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 64,
         init_state: Optional[torch.Tensor] = None,
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """See ``ref.ssd_ref`` for shapes: (y in x's dtype, final state fp32)."""
-    global LAUNCHES, CARRY_LAUNCHES
     device = x.device
     if device.type == "cpu":
         return ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
@@ -54,27 +159,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, init_state)):
-        raise NotImplementedError(
-            "the SSD kernels have no backward yet (ROADMAP Queue 1 item 9b: "
-            "SSD chunk and carry backward kernels and SSM/hybrid training "
-            "on the card); train the SSM and hybrid families on the CPU")
-    from .kernel import ssd_carry_cuda, ssd_chunks_cuda
-    out_dtype = x.dtype
-    cum = chunk_cumsum(dt, A, chunk)
-    if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
-        # The kernel reads x, B and C in one dtype; fp32 holds any of
-        # them exactly.
-        x, Bm, Cm = x.float(), Bm.float(), Cm.float()
-    Cm = _dense(Cm)
-    y_intra, states = ssd_chunks_cuda(
-        _dense(x), dt.float().contiguous(), cum, _dense(Bm), Cm, chunk)
-    LAUNCHES += 1
-    if init_state is not None:
-        init_state = _dense(init_state.float())
-    y, final = ssd_carry_cuda(y_intra, states, cum, Cm, chunk, init_state,
-                              out_dtype)
-    CARRY_LAUNCHES += 1
-    return y, final
+        _check_bwd_chunk(chunk)
+        return ssd_fwd(x, dt, A, Bm, Cm, chunk, init_state)
+    return _forward(x, dt, A, Bm, Cm, chunk, init_state)
 
 
 def ssd_decode(x, dt, A, Bm, Cm, state):

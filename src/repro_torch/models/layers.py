@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt_mod
 
 from ..kernels.flash_attention import ops as fa_ops
+from ..kernels.ssd import ops as ssd_ops  # noqa: F401 (registers ssd_fwd)
 from .common import ModelConfig, ParamSpec, RunConfig, spec
 
 F32 = torch.float32
@@ -30,14 +31,15 @@ F32 = torch.float32
 
 
 # The ops whose outputs ``remat="dots"`` keeps: every matrix product
-# (what ``jax.checkpoint_policies.checkpoint_dots`` keeps, attention's
-# einsums included) and the flash-attention forward, which on the card
-# computes those einsums in one kernel (registered by this module's import
-# of the kernel's ops).
+# (what ``jax.checkpoint_policies.checkpoint_dots`` keeps, attention's and
+# the SSD's einsums included) and the flash-attention and SSD forwards,
+# which on the card compute those einsums in their kernels (registered by
+# this module's imports of the kernels' ops).
 _SAVED_BY_DOTS = frozenset((
     torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
     torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
-    torch.ops.repro_torch.flash_attention_fwd.default))
+    torch.ops.repro_torch.flash_attention_fwd.default,
+    torch.ops.repro_torch.ssd_fwd.default))
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

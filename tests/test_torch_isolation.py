@@ -17,8 +17,8 @@
 * Without a CUDA device, the entry points (the experiment harness and
   its CLI included, and ``restore_section``) refuse to run unless the
   caller asks for the CPU.
-* On a card, ``ssd`` under grad raises (its kernels have no backward
-  yet) rather than return outputs cut from autograd (``cuda`` marker).
+* On a card, ``ssd`` under grad goes through its operator and the
+  backward kernels give the plain version's gradient (``cuda`` marker).
 """
 import os
 import re
@@ -241,18 +241,31 @@ def test_restore_section_defaults_to_cuda(tmp_path):
 
 
 @pytest.mark.cuda
-def test_ssd_under_grad_on_the_card_raises():
+def test_ssd_under_grad_on_the_card_gives_the_plain_gradient():
+    """On a CUDA tensor under grad, ``ssd`` goes through the operator
+    ``repro_torch::ssd_fwd``, whose backward kernels give autograd's
+    gradient of the plain version (within 1e-4·max(max|ref|, 1)); without
+    grad it launches the forward kernels alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the SSD kernels have no CPU mode")
-    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((1, 64, 2, 16), generator=gen, device="cuda",
-                    requires_grad=True)
-    dt = torch.rand((1, 64, 2), generator=gen, device="cuda")
-    A = -torch.rand((2,), generator=gen, device="cuda")
+    x = torch.randn((1, 64, 2, 16), generator=gen, device="cuda")
+    dt = 0.01 + 0.19 * torch.rand((1, 64, 2), generator=gen, device="cuda")
+    A = -0.5 - torch.rand((2,), generator=gen, device="cuda")
     Bm = torch.randn((1, 64, 16), generator=gen, device="cuda")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ssd(x, dt, A, Bm, Bm.clone())
+    Cm = torch.randn((1, 64, 16), generator=gen, device="cuda")
+    dy = torch.randn((1, 64, 2, 16), generator=gen, device="cuda")
+    grads = []
+    for fn in (ops.ssd, ssd_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        y, _ = fn(*leaves, chunk=16)
+        grads.append(torch.autograd.grad(y, leaves, dy))
+    for g, w in zip(*grads):
+        assert float((g - w).abs().max()) <= 1e-4 * max(
+            float(w.abs().max()), 1.0)
+    before = ops.BWD_LAUNCHES
     with torch.no_grad():
-        y, _ = ssd(x, dt, A, Bm, Bm.clone())
-    assert y.shape == x.shape
+        y, _ = ops.ssd(x, dt, A, Bm, Cm, chunk=16)
+    assert y.shape == x.shape and ops.BWD_LAUNCHES == before

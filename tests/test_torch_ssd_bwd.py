@@ -1,0 +1,507 @@
+"""repro_torch's SSD gradient ≡ autograd and the reference's, on the CPU.
+
+The port's plain backward (``repro_torch.kernels.ssd.ref``:
+``ssd_carry_bwd_ref``, ``ssd_chunk_bwd_ref`` and ``ssd_bwd_ref``, explicit
+formulas, what the two backward kernels compute) is held against torch
+autograd of ``ssd_ref`` and against ``jax.vjp`` of the reference's jnp
+``ssd_ref`` on the same seeded numpy inputs: the reference sweep's shapes
+(``tests/test_torch_ssd.py``) and one at Q = 64, N = 128, fp32 and bf16
+x, B, C and dy, with the initial state and the final state's gradient
+both zero and both nonzero.  Bars: fp32 gradients within
+1e-4·max(max|ref|, 1) (fp32 sums in another order); bf16 gradients (dx,
+dB, dC are returned in their inputs' dtype, computed in fp32 and rounded
+once on both sides) within 2^-7·|ref| + 1e-4·max(max|ref|, 1) per
+element, one bf16 rounding step.
+
+Each plain backward piece is held against autograd of the forward piece
+it differentiates; the operator ``repro_torch::ssd_fwd`` with its kernel
+entry points swapped for their plain versions against autograd of
+``ssd_ref``, with its launch counts, and under the remat policies in a
+mamba2 smoke step.  The CUDA kernels are held against their plain
+versions on the card (``cuda`` marker).
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd.ref import ssd_ref as j_ssd_ref
+from repro_torch.kernels.ssd import kernel, ops
+from repro_torch.kernels.ssd import ref as ref_mod
+from repro_torch.kernels.ssd.ref import (chunk_cumsum, chunk_cumsum_bwd,
+                                         ssd_bwd_ref, ssd_carry_bwd_ref,
+                                         ssd_chunk_bwd_ref, ssd_chunks_ref,
+                                         ssd_combine, ssd_ref)
+
+# (B, L, H, P, N, Q): the reference sweep, then Q = 64 with N = 128.
+SHAPES = [(2, 128, 3, 32, 16, 32), (1, 256, 2, 64, 128, 64),
+          (2, 64, 4, 16, 32, 16), (1, 128, 1, 64, 64, 128),
+          (2, 128, 4, 16, 128, 64)]
+NAMES = ("x", "dt", "A", "B", "C", "init_state")
+BF16_REL = 2.0 ** -7
+
+
+def make(seed, B, L, H, P, N, state):
+    """The sweep's recipe (x, B, C normal, dt in [0.01, 0.2], A in
+    -[0.5, 2]), dy normal, and the initial state and dfinal: None,
+    zeros or normal (``state``)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    arrs = [rng.normal(size=(B, L, H, P)).astype(f32),
+            rng.uniform(0.01, 0.2, size=(B, L, H)).astype(f32),
+            (-rng.uniform(0.5, 2.0, size=(H,))).astype(f32),
+            rng.normal(size=(B, L, N)).astype(f32),
+            rng.normal(size=(B, L, N)).astype(f32)]
+    dy = rng.normal(size=(B, L, H, P)).astype(f32)
+    pair = {"none": (None, None),
+            "zero": (np.zeros((B, H, N, P), f32),) * 2,
+            "nonzero": tuple(rng.normal(size=(B, H, N, P)).astype(f32)
+                             for _ in range(2))}[state]
+    return arrs, dy, pair[0], pair[1]
+
+
+def torch_inputs(arrs, dy, h0, df, dtype):
+    """Tensors of the numpy inputs, x, B, C and dy in ``dtype``."""
+    ts = [torch.from_numpy(a) for a in arrs]
+    for i in (0, 3, 4):
+        ts[i] = ts[i].to(dtype)
+    opt = [None if a is None else torch.from_numpy(a) for a in (h0, df)]
+    return ts, torch.from_numpy(dy).to(dtype), opt[0], opt[1]
+
+
+def autograd_grads(ts, dy, h0, df, chunk):
+    """torch autograd of ssd_ref: grads of (x, dt, A, B, C[, init]), in
+    fp32 on the inputs' values (``ssd_ref`` casts C to fp32 in two
+    places, so with bf16 leaves autograd would round dC's two parts to
+    bf16 apart and again as it sums them)."""
+    leaves = [t.float().clone().requires_grad_(True) for t in ts]
+    dy = dy.float()
+    init = None if h0 is None else h0.clone().requires_grad_(True)
+    y, final = ssd_ref(*leaves, chunk=chunk, init_state=init)
+    outs, cots = [y], [dy]
+    if df is not None:
+        outs.append(final)
+        cots.append(df)
+    wrt = leaves + ([init] if init is not None else [])
+    return torch.autograd.grad(outs, wrt, cots)
+
+
+@functools.partial(jax.jit, static_argnums=(0,))
+def _jax_vjp(chunk, args, dy, dfinal):
+    def f(*a):
+        return j_ssd_ref(*a[:5], chunk=chunk,
+                         init_state=a[5] if len(a) > 5 else None)
+    (y, final), vjp = jax.vjp(f, *args)
+    return vjp((dy, jnp.zeros_like(final) if dfinal is None else dfinal))
+
+
+def jax_grads(arrs, dy, h0, df, chunk, dtype):
+    """jax.vjp of the reference's jnp ssd_ref on the same inputs (one
+    compile per shape and dtype)."""
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    xs = [jnp.asarray(a) for a in arrs]
+    for i in (0, 3, 4):
+        xs[i] = xs[i].astype(jdt)
+    args = tuple(xs + ([jnp.asarray(h0)] if h0 is not None else []))
+    return _jax_vjp(chunk, args, jnp.asarray(dy).astype(jdt),
+                    None if df is None else jnp.asarray(df))
+
+
+def np32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def assert_grad_close(name, got, want):
+    """The module docstring's bars: fp32 max|Δ| <= 1e-4·max(max|ref|, 1);
+    a bf16 gradient per element within one bf16 rounding step."""
+    g, w = np32(got), np32(want)
+    assert g.shape == w.shape, (name, g.shape, w.shape)
+    scale = 1e-4 * max(float(np.abs(w).max()), 1.0)
+    bf16 = (got.dtype == torch.bfloat16 if isinstance(got, torch.Tensor)
+            else got.dtype == jnp.bfloat16)
+    if bf16:
+        bad = np.abs(g - w) > BF16_REL * np.abs(w) + scale
+        assert not bad.any(), (name, float(np.abs(g - w).max()))
+    else:
+        assert float(np.abs(g - w).max()) <= scale, (
+            name, float(np.abs(g - w).max()), scale)
+
+
+CASES = [(s, dt, st) for s in SHAPES for dt in ("float32", "bfloat16")
+         for st in ("zero", "nonzero")]
+
+
+@pytest.mark.parametrize("shape,dtype,state", CASES)
+def test_bwd_ref_matches_autograd_and_reference_vjp(shape, dtype, state):
+    B, L, H, P, N, Q = shape
+    tdt = getattr(torch, dtype)
+    arrs, dy, h0, df = make(B * L + N, B, L, H, P, N, state)
+    ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, tdt)
+    got = ssd_bwd_ref(*ts, tdy, chunk=Q, init_state=th0, dfinal=tdf)
+    for t, g in zip(ts + [th0], got):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    want = autograd_grads(ts, tdy, th0, tdf, Q)
+    for name, g, w in zip(NAMES, got, want):
+        assert_grad_close(name, g, w)
+    for name, g, w in zip(NAMES, got, jax_grads(arrs, dy, h0, df, Q, tdt)):
+        assert_grad_close(name, g, w)
+
+
+def test_bwd_ref_without_init_state_or_dfinal():
+    """No initial state: no gradient for it; no dfinal: zeros."""
+    arrs, dy, _, _ = make(3, 1, 64, 2, 16, 32, "none")
+    ts, tdy, _, _ = torch_inputs(arrs, dy, None, None, torch.float32)
+    got = ssd_bwd_ref(*ts, tdy, chunk=16)
+    assert got[5] is None
+    zero = torch.zeros((1, 2, 32, 16))
+    with_zero = ssd_bwd_ref(*ts, tdy, chunk=16, dfinal=zero)
+    for g, w in zip(got[:5], with_zero[:5]):
+        assert torch.equal(g, w)
+    for name, g, w in zip(NAMES, got, autograd_grads(ts, tdy, None, None,
+                                                     16)):
+        assert_grad_close(name, g, w)
+
+
+# ---------------------------------------------------------------------------
+# Each piece against autograd of the forward piece it differentiates
+# ---------------------------------------------------------------------------
+
+def piece_inputs(shape, seed, state="nonzero"):
+    B, L, H, P, N, Q = shape
+    arrs, dy, h0, df = make(seed, B, L, H, P, N, state)
+    ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, torch.float32)
+    x, dt, A, Bm, Cm = ts
+    return x, dt, A, Bm, Cm, tdy, th0, tdf, chunk_cumsum(dt, A, Q)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:3])
+def test_carry_bwd_ref_is_the_carry_gradient(shape):
+    """g is the gradient of the chunk states and d init_state the initial
+    state's through ``ssd_combine``; h_prev the states entering each
+    chunk."""
+    Q = shape[-1]
+    x, dt, A, Bm, Cm, dy, h0, df, cum = piece_inputs(shape, 11)
+    y_intra, states = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+    st = states.clone().requires_grad_(True)
+    init = h0.clone().requires_grad_(True)
+    y, final = ssd_combine(y_intra, st, cum, Cm, Q, init)
+    want_g, want_init = torch.autograd.grad((y, final), (st, init), (dy, df))
+    h_prev, g, dinit = ssd_carry_bwd_ref(states, cum, Cm, dy, Q, h0, df)
+    assert_grad_close("g", g, want_g)
+    assert_grad_close("init", dinit, want_init)
+    h = h0
+    decay = torch.exp(cum.reshape(*states.shape[:2], Q, -1)[:, :, -1])
+    for c in range(states.shape[1]):
+        assert torch.allclose(h_prev[:, c], h, atol=1e-5)
+        h = decay[:, c, :, None, None] * h + states[:, c]
+    assert torch.allclose(h, final, atol=1e-5)
+
+
+def chunk_piece_loss(x, dt, cum, Bm, Cm, dy, g, h_prev, Q):
+    """The scalar whose gradient ``ssd_chunk_bwd_ref`` returns: y_intra
+    and y_inter against dy, the chunk states and the chunk decay against
+    g, with h_prev held fixed."""
+    Bsz, L, H, P = x.shape
+    nc = L // Q
+    y_intra, states = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+    cumc = cum.reshape(Bsz, nc, Q, H)
+    y_inter = torch.einsum("bcin,bchnp->bcihp",
+                           Cm.reshape(Bsz, nc, Q, -1), h_prev) \
+        * torch.exp(cumc)[..., None]
+    decay = torch.exp(cumc[:, :, -1, :])[..., None, None]
+    return ((y_intra * dy).sum() + (states * g).sum()
+            + (y_inter * dy.reshape(Bsz, nc, Q, H, P)).sum()
+            + (decay * h_prev * g).sum())
+
+
+@pytest.mark.parametrize("heads_per_group", [1, 2])
+@pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[4]])
+def test_chunk_bwd_ref_is_the_chunk_gradient(shape, heads_per_group):
+    Q, H = shape[-1], shape[2]
+    if H % heads_per_group:
+        heads_per_group = H
+    x, dt, A, Bm, Cm, dy, h0, df, cum = piece_inputs(shape, 12)
+    _, states = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+    h_prev, g, _ = ssd_carry_bwd_ref(states, cum, Cm, dy, Q, h0, df)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, cum, Bm, Cm)]
+    want = torch.autograd.grad(
+        chunk_piece_loss(*leaves, dy, g, h_prev, Q), leaves)
+    dx, dcum, ddt, dB, dC = ssd_chunk_bwd_ref(x, dt, cum, Bm, Cm, dy, g,
+                                              h_prev, Q, heads_per_group)
+    assert dB.shape == (H // heads_per_group,) + Bm.shape
+    for name, got, w in zip(("dx", "ddt", "dcum", "dB", "dC"),
+                            (dx, ddt, dcum, dB.sum(0), dC.sum(0)), want):
+        assert_grad_close(name, got, w)
+
+
+def test_cumsum_bwd_is_the_cumsum_gradient():
+    x, dt, A, Bm, Cm, dy, _, _, _ = piece_inputs(SHAPES[0], 13)
+    dcum = torch.randn(dt.shape, generator=torch.Generator().manual_seed(0))
+    leaves = [t.clone().requires_grad_(True) for t in (dt, A)]
+    want = torch.autograd.grad(chunk_cumsum(*leaves, 32), leaves, dcum)
+    for name, g, w in zip(("ddt", "dA"),
+                          chunk_cumsum_bwd(dcum, dt, A, 32), want):
+        assert_grad_close(name, g, w)
+
+
+# ---------------------------------------------------------------------------
+# The operator, with its kernel entry points swapped for the plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def plain_kernels(monkeypatch):
+    """The CUDA entry points swapped for their plain versions, so that the
+    custom operator and its registered backward run on CPU tensors: the
+    autograd wiring, the saved tensors, the backward's chunk length and
+    the launch counts are checked here; the kernels' arithmetic only on
+    the card."""
+    monkeypatch.setattr(
+        kernel, "ssd_chunks_cuda",
+        lambda x, dt, cum, Bm, Cm, chunk, terms=None:
+        ssd_chunks_ref(x, dt, cum, Bm, Cm, chunk))
+    monkeypatch.setattr(kernel, "ssd_carry_cuda", ref_mod.ssd_carry_ref)
+    monkeypatch.setattr(kernel, "ssd_carry_bwd_cuda", ssd_carry_bwd_ref)
+    monkeypatch.setattr(kernel, "ssd_chunk_bwd_cuda", ssd_chunk_bwd_ref)
+    for name in ("LAUNCHES", "CARRY_LAUNCHES", "BWD_LAUNCHES"):
+        monkeypatch.setattr(ops, name, 0)
+
+
+def counts():
+    return (ops.LAUNCHES, ops.CARRY_LAUNCHES, ops.BWD_LAUNCHES)
+
+
+@pytest.mark.parametrize("shape,state", [(SHAPES[0], "none"),
+                                         (SHAPES[1], "nonzero"),
+                                         (SHAPES[4], "nonzero")])
+def test_operator_gives_the_plain_gradient(plain_kernels, shape, state):
+    """One forward launch of each kernel, one backward pass (which
+    launches the chunk kernel once more for the states)."""
+    B, L, H, P, N, Q = shape
+    arrs, dy, h0, df = make(21, B, L, H, P, N, state)
+    ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in ts]
+    init = None if th0 is None else th0.clone().requires_grad_(True)
+    y, final = ops.ssd_fwd(*leaves, Q, init)
+    outs, cots = ([y, final], [tdy, tdf]) if tdf is not None else ([y],
+                                                                   [tdy])
+    wrt = leaves + ([init] if init is not None else [])
+    got = torch.autograd.grad(outs, wrt, cots)
+    assert counts() == (1, 1, 1)
+    for name, g, w in zip(NAMES, got, autograd_grads(ts, tdy, th0, tdf, Q)):
+        assert_grad_close(name, g, w)
+
+
+def test_operator_keeps_bf16_gradients_in_their_dtypes(plain_kernels):
+    B, L, H, P, N, Q = SHAPES[2]
+    arrs, dy, h0, df = make(22, B, L, H, P, N, "nonzero")
+    ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in ts]
+    y, final = ops.ssd_fwd(*leaves, Q, th0)
+    assert y.dtype == torch.bfloat16 and final.dtype == torch.float32
+    got = torch.autograd.grad((y, final), leaves, (tdy, tdf))
+    want = ssd_bwd_ref(*ts, tdy, chunk=Q, init_state=th0, dfinal=tdf)
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def test_backward_refuses_a_chunk_above_the_kernels():
+    """The backward kernels take chunks of up to 64 rows; a longer one is
+    refused before anything launches."""
+    assert kernel.BWD_MAX_Q == 64
+    B, L, H, P, N, Q = SHAPES[3]
+    arrs, dy, _, _ = make(23, B, L, H, P, N, "none")
+    ts, tdy, _, _ = torch_inputs(arrs, dy, None, None, torch.float32)
+    with pytest.raises(ValueError, match="chunks of up to 64 rows, got 128"):
+        ops.ssd_bwd(*ts, tdy, Q)
+
+
+def smoke_batch(cfg, B=2, L=32, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, size=(B, L), dtype=np.int64)
+    return {"tokens": torch.from_numpy(toks).int(),
+            "labels": torch.from_numpy(toks).int()}
+
+
+@pytest.mark.parametrize("remat,fwd_launches", [("none", 1), ("dots", 1),
+                                                ("full", 2)])
+def test_remat_dots_keeps_the_ssd_forward(plain_kernels, monkeypatch,
+                                          remat, fwd_launches):
+    """A mamba2 smoke step through the operator: under ``remat="dots"``
+    selective checkpointing keeps its outputs (one forward launch per
+    layer, as the reference's ``checkpoint_dots`` keeps the jnp SSD's
+    einsums); ``"full"`` launches it again in the backward.  The
+    gradients equal those through ``ssd_ref``'s autograd."""
+    from repro_torch.models import RunConfig, build
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.train_step import loss_and_grads
+    model = build("mamba2-780m", RunConfig(remat=remat,
+                                           compute_dtype=torch.float32),
+                  smoke=True, device="cpu")
+    params = model.init(0)
+    batch = smoke_batch(model.cfg)
+    _, _, want = loss_and_grads(model, params, batch)
+    monkeypatch.setattr(ops, "ssd", lambda x, dt, A, Bm, Cm, chunk=64,
+                        init_state=None: ops.ssd_fwd(x, dt, A, Bm, Cm, chunk,
+                                                     init_state))
+    _, _, got = loss_and_grads(model, params, batch)
+    n = model.cfg.n_layers
+    assert counts() == (fwd_launches * n, fwd_launches * n, n)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert float((g - w).abs().max()) <= 1e-4 * max(
+            float(w.abs().max()), 1.0)
+
+
+def test_cpu_path_under_grad_is_the_plain_version():
+    arrs, dy, _, _ = make(5, 1, 32, 2, 16, 8, "none")
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    before = counts()
+    y, _ = ops.ssd(*leaves, chunk=16)
+    torch.autograd.grad(y, leaves, torch.from_numpy(dy))
+    assert counts() == before
+
+
+def test_backward_wrappers_reject_what_the_kernels_do_not_take():
+    x, dt, A, Bm, Cm, dy, h0, df, cum = piece_inputs(SHAPES[0], 14)
+    _, states = ssd_chunks_ref(x, dt, cum, Bm, Cm, 32)
+    with pytest.raises(ValueError, match="needs CUDA states"):
+        kernel.ssd_carry_bwd_cuda(states, cum, Cm, dy, 32)
+    with pytest.raises(ValueError, match="needs a CUDA x"):
+        kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, states, states, 32)
+    # The training shapes (mamba2-780m, zamba2-1.2b) and the sweep's at
+    # the backward's chunk fit a block's shared memory.
+    for Q, N, P in ((64, 128, 64), (64, 64, 64), (32, 16, 32), (16, 32, 16)):
+        assert kernel.chunk_bwd_smem_bytes(Q, N, P) <= kernel.MAX_SMEM_BYTES
+    # Heads per block on an H100 SXM (132 SMs) and PCIe (114): mamba2-780m
+    # at 2 x 4096 (128 (batch, chunk) pairs, 48 heads), zamba2-1.2b at
+    # 1 x 2048 (32 pairs, 64 heads).
+    assert kernel.bwd_heads_per_block(128, 48, 132) == 16
+    assert kernel.bwd_heads_per_block(32, 64, 132) == 4
+    assert kernel.bwd_heads_per_block(32, 64, 114) == 8
+    assert kernel.bwd_heads_per_block(1, 3, 132) == 1
+
+
+def c_signatures(source):
+    """{entry point: [ctypes type per parameter]} of the ``extern "C"``
+    functions of a CUDA source: a pointer parameter is c_void_p, an int
+    c_int."""
+    import ctypes
+    import re
+    text = source.read_text()
+    out = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+        out[name] = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                     for p in params.split(",")]
+    return out
+
+
+@pytest.mark.parametrize("lib", ["LIB", "LIB_BWD"])
+def test_ctypes_bindings_match_the_c_entry_points(lib):
+    """Every entry point is bound with one ctypes type per C parameter:
+    an int too few would pass the stream as a 32-bit int."""
+    import types
+    library = getattr(kernel, lib)
+    want = c_signatures(library.source)
+    fake = types.SimpleNamespace(**{n: types.SimpleNamespace()
+                                    for n in want})
+    library._bind(fake)
+    assert want
+    for name, types_ in want.items():
+        assert getattr(fake, name).argtypes == types_, name
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+# (B, L, H, P, N, Q, dtype): the sweep at the backward's chunk, the two
+# models' head widths at short sequences, both dtypes.
+CUDA_SHAPES = [(2, 128, 3, 32, 16, 32, "float32"),
+               (1, 256, 2, 64, 128, 64, "float32"),
+               (2, 64, 4, 16, 32, 16, "float32"),
+               (1, 128, 1, 64, 64, 64, "float32"),
+               (1, 256, 48, 64, 128, 64, "bfloat16"),
+               (1, 256, 64, 64, 64, 64, "bfloat16"),
+               (2, 256, 48, 64, 128, 64, "float32")]
+
+
+def needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the SSD backward kernels have no "
+                    "CPU mode")
+
+
+def card_inputs(shape, seed, dtype):
+    B, L, H, P, N, Q = shape
+    x, dt, A, Bm, Cm, dy, h0, df, _ = piece_inputs(shape, seed)
+    tdt = getattr(torch, dtype)
+    x, Bm, Cm, dy = (t.to(tdt).cuda() for t in (x, Bm, Cm, dy))
+    dt, A, h0, df = (t.cuda() for t in (dt, A, h0, df))
+    return x, dt, A, Bm, Cm, dy, h0, df, chunk_cumsum(dt, A, Q)
+
+
+def within(got, want):
+    return float((got - want).abs().max()) <= 1e-4 * max(
+        float(want.abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N,Q,dtype", CUDA_SHAPES)
+def test_cuda_backward_kernels_match_plain(B, L, H, P, N, Q, dtype):
+    """Each kernel against its plain version on the same inputs (fp32
+    max|Δ| <= 1e-4·max(max|ref|, 1)); a second pass equal bit for bit."""
+    needs_card()
+    shape = (B, L, H, P, N, Q)
+    x, dt, A, Bm, Cm, dy, h0, df, cum = card_inputs(shape, 30, dtype)
+    _, states = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    got = kernel.ssd_carry_bwd_cuda(states, cum, Cm, dy, Q, h0, df)
+    again = kernel.ssd_carry_bwd_cuda(states, cum, Cm, dy, Q, h0, df)
+    want = ssd_carry_bwd_ref(states, cum, Cm, dy, Q, h0, df)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and within(g, w)
+    h_prev, g = want[0], want[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    G = kernel.bwd_heads_per_block(B * L // Q, H, sms)
+    got = kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
+    again = kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
+    want = ssd_chunk_bwd_ref(x, dt, cum, Bm, Cm, dy, g, h_prev, Q, G)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b) and within(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N,Q,dtype",
+                         CUDA_SHAPES[:6])
+def test_cuda_operator_matches_plain_autograd(B, L, H, P, N, Q, dtype):
+    """``ssd`` under grad on the card: the forward kernels, then the
+    backward kernels, against torch autograd of ``ssd_ref`` on the card,
+    each gradient within 1e-4·max(max|ref|, 1) in fp32 (bf16 gradients
+    within one bf16 step of it)."""
+    needs_card()
+    shape = (B, L, H, P, N, Q)
+    x, dt, A, Bm, Cm, dy, h0, df, _ = card_inputs(shape, 31, dtype)
+    before = dict(kernel.BWD_KERNEL_LAUNCHES)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm, h0)]
+    y, final = ops.ssd(*leaves[:5], chunk=Q, init_state=leaves[5])
+    got = torch.autograd.grad((y, final), leaves, (dy, df))
+    # The plain gradient in fp32 on the inputs' values (see
+    # autograd_grads).
+    plain = [t.float().clone().requires_grad_(True)
+             for t in (x, dt, A, Bm, Cm, h0)]
+    y2, f2 = ssd_ref(*plain[:5], chunk=Q, init_state=plain[5])
+    want = torch.autograd.grad((y2, f2), plain, (dy.float(), df))
+    torch.cuda.synchronize()
+    for name in kernel.BWD_KERNELS:
+        assert kernel.BWD_KERNEL_LAUNCHES[name] == before[name] + 1
+    for t, g, w in zip(leaves, got, want):
+        assert g.dtype == t.dtype
+        scale = 1e-4 * max(float(w.float().abs().max()), 1.0)
+        bar = scale + (BF16_REL * w.float().abs()
+                       if g.dtype == torch.bfloat16 else 0.0)
+        assert bool(((g.float() - w.float()).abs() <= bar).all())
