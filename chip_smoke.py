@@ -52,16 +52,24 @@ Phases (each raises on failure, so the script exits non-zero):
    forward's log-sum-exp against ``attention_lse_ref``; backward,
    per-kernel, plain, bound, MMA floor and library (SDPA forward and
    backward minus forward) times; the SSD backward (``ssd_bwd.cu``:
-   ``ssd_carry_bwd`` and ``ssd_chunk_bwd``, and the whole backward of
+   for bf16 at Q = P = 64, N in {64, 128} the tensor-core
+   ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, whose registers,
+   dynamic shared memory and spills from ``-Xptxas -v`` are printed and
+   must show no spill; for fp32 and every other shape the CUDA-core
+   ``ssd_carry_bwd`` and ``ssd_chunk_bwd``; and the whole backward of
    the op ``repro_torch::ssd_fwd``) against ``ssd_carry_bwd_ref``,
    ``ssd_chunk_bwd_ref`` and ``ssd_bwd_ref`` at the reference sweep's
-   shapes whose chunk the kernels take (Q <= 64) and at phase 11's
+   shapes whose chunk the kernels take (Q <= 64), at phase 11's
    training shapes [2, 4096, 48, 64, 128, 64] (mamba2-780m) and
-   [2, 4096, 64, 64, 64, 64] (zamba2-1.2b), bf16 and fp32, with a
+   [2, 4096, 64, 64, 64, 64] (zamba2-1.2b), bf16 and fp32, and at (b)'s
+   fp32 mamba2-780m step, [1, 2048, 48, 64, 128, 64], with a
    nonzero initial state and final-state gradient (each
    gradient within 1e-4·max(max|ref|, 1), the op's bf16 gradients within
    one bf16 step more; a second pass equal bit for bit; the worst ratio
-   printed), with kernel, plain and bound times;
+   printed), with kernel, plain, bound and MMA-floor times, and at the
+   bf16 training shapes also the CUDA-core kernels on the same inputs
+   and the tensor-core carry at 32 and 64 rows of N a block (each held
+   too);
 7. serving at full width — zamba2-1.2b (38 layers, d_model 2048, seeded
    random fp32 weights, bf16 compute) through ``build`` and the serve
    builders:
@@ -128,9 +136,9 @@ Phases (each raises on failure, so the script exits non-zero):
    layers and zamba2-1.2b at 6 (one shared-attention application), held
    against the same step with the plain attention and ``ssd_ref``, their
    SSD launches (forward chunk and carry, backward passes (each one
-   chunk-state launch), ``ssd_carry_bwd``, ``ssd_chunk_bwd``: one each per
-   layer) and
-   FA launches checked; (c) ``FaultyTrainer``
+   chunk-state launch), ``ssd_carry_bwd_tc``, ``ssd_chunk_bwd_tc``: one
+   each per layer) and FA launches checked, and mamba2-780m again with
+   fp32 compute, which takes ``ssd_carry_bwd`` and ``ssd_chunk_bwd``; (c) ``FaultyTrainer``
    (fail_prob 0.25, seed 1) over 15 steps of llama3-8b smoke on the card
    and on the CPU: same restarts, failed steps and history, losses
    within 2e-2, the card's last checkpoint restored on the CPU bit for
@@ -138,9 +146,10 @@ Phases (each raises on failure, so the script exits non-zero):
    1536, 48 SSD heads, P 64, N 128), 2 x 4096 tokens, one warm-up and 6
    timed steps: step s, tokens/s, peak GiB, launches per step checked
    (48 each of the SSD forward's chunk and carry launches, backward
-   passes (each one chunk-state launch), ``ssd_carry_bwd`` and
-   ``ssd_chunk_bwd``), a ``torch.profiler`` split of one more step by
-   kernel, its idle share and the SSD backward's share of device time.
+   passes (each one chunk-state launch), ``ssd_carry_bwd_tc`` and
+   ``ssd_chunk_bwd_tc``; none of the CUDA-core pair), a
+   ``torch.profiler`` split of one more step by kernel, its idle share
+   and the SSD backward's share of device time.
 
 The second-last lines are the kernel record (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is the device record.
@@ -807,30 +816,41 @@ def ptxas_report(log_text: str, kernel: str) -> list:
     return [tuple(r) for r in sorted(out)]
 
 
-def check_tc_builds(fa) -> dict:
-    """The tensor-core backward kernels' registers, dynamic shared memory
-    and spills from this run's build (phase 2); raises on a spill or a
-    missing instantiation."""
-    lib = fa.LIB_BWD.load()
-    text = fa.LIB_BWD.build_info.get("log", "")
+def check_builds(lib, tag: str, kernels: dict) -> dict:
+    """Registers, dynamic shared memory and spills of tensor-core kernels
+    from this run's build (phase 2; ``-Xptxas -v``): ``kernels`` maps a
+    kernel's name to (the template values it is built for, its shared
+    memory for a value, a note on its registers).  Raises on a spill or
+    a missing instantiation."""
+    lib.load()
+    text = lib.build_info.get("log", "")
     out = {}
-    for which, name in enumerate(("fa_bwd_dkdv_tc", "fa_bwd_dq_tc")):
+    for name, (values, smem, note) in kernels.items():
         rows = ptxas_report(text, name)
-        if [r[0] for r in rows] != sorted(fa.HEAD_DIMS):
-            raise AssertionError(f"{name}: ptxas reported head dims "
-                                 f"{[r[0] for r in rows]}")
-        for D, regs, st, ld in rows:
-            smem = lib.fa_bwd_tc_smem_bytes(which, D)
+        if [r[0] for r in rows] != list(values):
+            raise AssertionError(f"{name}: ptxas reported "
+                                 f"{[r[0] for r in rows]}, expected "
+                                 f"{list(values)}")
+        for v, regs, st, ld in rows:
             if st or ld:
-                raise AssertionError(f"{name}<{D}> spills: {st} bytes "
+                raise AssertionError(f"{name}<{v}> spills: {st} bytes "
                                      f"stored, {ld} loaded")
-            log(f"[fa-bwd] {name}<{D}>: {regs} registers a thread at "
-                f"launch (setmaxnreg: 232 a consumer, 40 the producer), "
-                f"{smem:,} bytes of dynamic shared memory, spills {st} "
+            log(f"[{tag}] {name}<{v}>: {regs} registers a thread{note}, "
+                f"{smem(v):,} bytes of dynamic shared memory, spills {st} "
                 f"stores / {ld} loads")
-            out[f"{name}<{D}>"] = dict(registers=regs, smem=smem,
+            out[f"{name}<{v}>"] = dict(registers=regs, smem=smem(v),
                                        spill_stores=st, spill_loads=ld)
     return out
+
+
+def check_tc_builds(fa) -> dict:
+    """Flash attention's tensor-core backward kernels, per head dim."""
+    lib = fa.LIB_BWD.load()
+    return check_builds(fa.LIB_BWD, "fa-bwd", {
+        name: (sorted(fa.HEAD_DIMS),
+               lambda D, w=which: lib.fa_bwd_tc_smem_bytes(w, D),
+               " at launch (setmaxnreg: 232 a consumer, 40 the producer)")
+        for which, name in enumerate(("fa_bwd_dkdv_tc", "fa_bwd_dq_tc"))})
 
 
 def bwd_ratio(torch, got, want, dtype) -> float:
@@ -1123,6 +1143,10 @@ def phase_ssd(torch) -> dict:
 SSD_TRAIN = [(2, 4096, 48, 64, 128, 64), (2, 4096, 64, 64, 64, 64)]
 SSD_BWD_SHAPES = [(s, dt) for s in SSD_SWEEP + SSD_TRAIN if s[5] <= 64
                   for dt in ("bfloat16", "float32")]
+# Phase 11 (b)'s fp32 mamba2-780m step (1 x 2048), which launches the
+# CUDA-core backward kernels on a main path.
+SSD_TRAIN_F32 = ((1, 2048, 48, 64, 128, 64), "float32")
+SSD_BWD_SHAPES.append(SSD_TRAIN_F32)
 SSD_BWD_BAR = 1e-4
 SSD_BWD_BF16_REL = 2.0 ** -7
 
@@ -1159,6 +1183,37 @@ def ssd_bwd_bounds(B, L, H, P, N, Q, dtype, groups):
             "backward": bound(state_f + carry_f + chunk_f, whole_b, dtype)}
 
 
+def ssd_bwd_mma_floors(B, L, H, P, N, Q, groups, terms):
+    """The bf16 tensor-core kernels' own MMA work at the bf16 peak (ms),
+    as issued: ssd_chunk_bwd_tc per (b, chunk, head) dW = dy·xᵀ once and
+    dx's intra term ``terms`` times over the 10 of 16 k16 × m16 blocks at
+    or below the diagonal (2Q²P·10/16 each), B·g, x·gᵀ and dy·h_prevᵀ
+    ``terms`` times (2QNP each); per (b, chunk, group) C·Bᵀ once and the
+    dC, dB products ``terms`` times over the same blocks (2Q²N·10/16
+    each).  ssd_carry_bwd_tc: (exp(cum)∘C)ᵀ·dy ``terms`` times, 2QNP per
+    (b, chunk, head)."""
+    nc, tri = L // Q, 10 / 16
+    chunk = B * nc * (H * (2 * Q * Q * P * tri * (1 + terms)
+                           + 3 * 2 * Q * N * P * terms)
+                      + groups * 2 * Q * Q * N * tri * (1 + 2 * terms))
+    carry = B * nc * H * 2 * Q * N * P * terms
+    return {"chunk": chunk / BF16_OPS_PER_S * 1e3,
+            "carry": carry / BF16_OPS_PER_S * 1e3}
+
+
+def check_ssd_tc_builds(sk) -> dict:
+    """The SSD backward's tensor-core kernels: the chunk kernel per N (16
+    heads a block), the carry at its slice of 32 rows of N (64 chunks)."""
+    lib = sk.LIB_BWD.load()
+    return check_builds(sk.LIB_BWD, "ssd-bwd", {
+        "ssd_chunk_bwd_tc": ([64, 128],
+                             lambda n: lib.ssd_bwd_tc_smem_bytes(0, n, 16),
+                             ""),
+        "ssd_carry_bwd_tc": ([32],
+                             lambda r: lib.ssd_bwd_tc_smem_bytes(1, 128, 64),
+                             "")})
+
+
 def hold_grads(torch, what, names, got, again, want) -> dict:
     """Each gradient against the plain version's (the bars above) and a
     second pass bit for bit; returns (worst ratio to the bar, max|Δ|) per
@@ -1193,21 +1248,33 @@ def phase_ssd_bwd(torch) -> dict:
     from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_bwd_ref,
                                              ssd_carry_bwd_ref,
                                              ssd_chunk_bwd_ref)
+    builds = check_ssd_tc_builds(sk)
     log("[ssd-bwd] per call, ms (CUDA events, median after a warm-up): "
-        "carry = ssd_carry_bwd (h_prev and g, two walks), chunk = "
-        "ssd_chunk_bwd (each chunk's gradients), both on the CUDA cores in "
-        "fp32; backward = the op's whole backward (ops.ssd_bwd: the "
-        "chunk-state launch, both kernels, the groups' sum and the "
+        "carry = the carry backward (h_prev and g, two walks), chunk = the "
+        "chunk backward (each chunk's gradients), each the kernel the "
+        "wrappers dispatch to (kernel.bwd_kernels: bf16 at Q = P = 64, N "
+        f"in {{64, 128}} on the tensor cores, ssd_carry_bwd_tc and "
+        f"ssd_chunk_bwd_tc with fp32 operands in {sk.BWD_TERMS} bf16 terms; "
+        "fp32 and every other shape on the CUDA cores, ssd_carry_bwd and "
+        "ssd_chunk_bwd); backward = the op's whole backward (ops.ssd_bwd: "
+        "the chunk-state launch, both kernels, the groups' sum and the "
         "cumsum's gradient); plain = ssd_carry_bwd_ref, ssd_chunk_bwd_ref, "
         "ssd_bwd_ref on the card; bound = the least time for each one's "
         "work (flops at the inputs' dtype's peak, or bytes) and what "
-        "bounds it; no single PyTorch call computes any of them (library: "
-        "none)")
-    rows, worst, errs = {}, {}, {"carry": 0.0, "chunk": 0.0}
+        "bounds it; MMA floor = a tensor-core kernel's own MMA work at the "
+        "bf16 peak; at the bf16 training shapes also the CUDA-core kernels "
+        "on the same inputs (cuda_cores=True); no single PyTorch call "
+        "computes any of them (library: none)")
+    rows, worst = {}, {}
+    errs = dict.fromkeys(sk.BWD_KERNELS, 0.0)
+    carry_names = ("h_prev", "g", "d init_state")
+    chunk_names = ("dx", "dcum", "ddt", "dB", "dC")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, (shape, dtype) in enumerate(SSD_BWD_SHAPES):
         B, L, H, P, N, Q = shape
         tdt = getattr(torch, dtype)
+        names = dict(zip(("carry", "chunk"), sk.bwd_kernels(tdt, Q, P, N)))
+        tc = names["chunk"].endswith("_tc")
         x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 500 + i)
         gen = torch.Generator(device="cuda").manual_seed(600 + i)
         dy, h0, df = (torch.randn(s, generator=gen, device="cuda")
@@ -1215,18 +1282,20 @@ def phase_ssd_bwd(torch) -> dict:
         x, Bm, Cm, dy = (t.to(tdt) for t in (x, Bm, Cm, dy))
         cum = chunk_cumsum(dt, A, Q)
         _, states = sk.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
-        args = (states, cum, Cm, dy, Q, h0, df)
+        cargs = (states, cum, Cm, dy, Q, h0, df)
+        want_carry = ssd_carry_bwd_ref(*cargs)
         held = {"carry": hold_grads(
-            torch, f"ssd_carry_bwd {shape} {dtype}",
-            ("h_prev", "g", "d init_state"), sk.ssd_carry_bwd_cuda(*args),
-            sk.ssd_carry_bwd_cuda(*args), ssd_carry_bwd_ref(*args))}
-        h_prev, g, _ = ssd_carry_bwd_ref(*args)
+            torch, f"{names['carry']} {shape} {dtype}", carry_names,
+            sk.ssd_carry_bwd_cuda(*cargs), sk.ssd_carry_bwd_cuda(*cargs),
+            want_carry)}
+        h_prev, g, _ = want_carry
         G = sk.bwd_heads_per_block(B * L // Q, H, sms)
         args = (x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
+        want_chunk = ssd_chunk_bwd_ref(*args, G)
         held["chunk"] = hold_grads(
-            torch, f"ssd_chunk_bwd {shape} {dtype}",
-            ("dx", "dcum", "ddt", "dB", "dC"), sk.ssd_chunk_bwd_cuda(*args),
-            sk.ssd_chunk_bwd_cuda(*args), ssd_chunk_bwd_ref(*args, G))
+            torch, f"{names['chunk']} {shape} {dtype}", chunk_names,
+            sk.ssd_chunk_bwd_cuda(*args), sk.ssd_chunk_bwd_cuda(*args),
+            want_chunk)
         whole = (x, dt, A, Bm, Cm, dy, Q, h0, df)
         held["backward"] = hold_grads(
             torch, f"SSD backward {shape} {dtype}",
@@ -1234,38 +1303,72 @@ def phase_ssd_bwd(torch) -> dict:
             ops.ssd_bwd(*whole), ops.ssd_bwd(*whole), ssd_bwd_ref(*whole))
         torch.cuda.synchronize()
         for k in ("carry", "chunk"):
-            errs[k] = max(errs[k], *(e for _, e in held[k].values()))
+            errs[names[k]] = max(errs[names[k]],
+                                 *(e for _, e in held[k].values()))
         for k, v in held.items():
             worst[k] = max(worst.get(k, 0.0), *(r for r, _ in v.values()))
         ms = {"carry": timed_ms(torch, lambda: sk.ssd_carry_bwd_cuda(
-                  states, cum, Cm, dy, Q, h0, df)),
+                  *cargs)),
               "chunk": timed_ms(torch, lambda: sk.ssd_chunk_bwd_cuda(*args)),
               "backward": timed_ms(torch, lambda: ops.ssd_bwd(*whole))}
         plain = {"carry": timed_ms(torch, lambda: ssd_carry_bwd_ref(
-                     states, cum, Cm, dy, Q, h0, df), 0.2),
+                     *cargs), 0.2),
                  "chunk": timed_ms(torch, lambda: ssd_chunk_bwd_ref(
                      *args, G), 0.2),
                  "backward": timed_ms(torch, lambda: ssd_bwd_ref(*whole),
                                       0.2)}
         bounds = ssd_bwd_bounds(B, L, H, P, N, Q, dtype, H // G)
-        rows[(shape, dtype)] = dict(ms=ms, plain_ms=plain, bounds=bounds,
-                                    held=held, heads_per_block=G)
+        row = dict(ms=ms, plain_ms=plain, bounds=bounds, held=held,
+                   heads_per_block=G, names=names)
+        extra = ""
+        if tc:
+            row["mma"] = ssd_bwd_mma_floors(B, L, H, P, N, Q, H // G,
+                                            sk.BWD_TERMS)
+            extra = "; MMA floor " + ", ".join(
+                f"{k} {v:.6f}" for k, v in row["mma"].items())
+        if tc and shape in SSD_TRAIN:
+            # The CUDA-core kernels on the same bf16 inputs, held and
+            # timed.
+            core = {
+                "carry": hold_grads(
+                    torch, f"ssd_carry_bwd {shape} {dtype}", carry_names,
+                    sk.ssd_carry_bwd_cuda(*cargs, cuda_cores=True),
+                    sk.ssd_carry_bwd_cuda(*cargs, cuda_cores=True),
+                    want_carry),
+                "chunk": hold_grads(
+                    torch, f"ssd_chunk_bwd {shape} {dtype}", chunk_names,
+                    sk.ssd_chunk_bwd_cuda(*args, cuda_cores=True),
+                    sk.ssd_chunk_bwd_cuda(*args, cuda_cores=True),
+                    want_chunk)}
+            for k, name in (("carry", "ssd_carry_bwd"),
+                            ("chunk", "ssd_chunk_bwd")):
+                errs[name] = max(errs[name],
+                                 *(e for _, e in core[k].values()))
+            row["core_ms"] = {
+                "carry": timed_ms(torch, lambda: sk.ssd_carry_bwd_cuda(
+                    *cargs, cuda_cores=True)),
+                "chunk": timed_ms(torch, lambda: sk.ssd_chunk_bwd_cuda(
+                    *args, cuda_cores=True))}
+            extra += (f"; on the CUDA cores: ssd_carry_bwd "
+                      f"{row['core_ms']['carry']:.5f}, ssd_chunk_bwd "
+                      f"{row['core_ms']['chunk']:.5f}")
+        rows[(shape, dtype)] = row
         log(f"[ssd-bwd] [B,L,H,P,N,Q]={list(shape)} {dtype} ({G} heads "
             f"per block): "
-            + "; ".join(f"{k} {ms[k]:.5f} plain {plain[k]:.5f} bound "
-                        f"{bounds[k][0]:.6f} ({bounds[k][1]})"
+            + "; ".join(f"{names.get(k, k)} {ms[k]:.5f} plain "
+                        f"{plain[k]:.5f} bound {bounds[k][0]:.6f} "
+                        f"({bounds[k][1]})"
                         for k in ("carry", "chunk", "backward"))
-            + "; worst |Δ|/bar " + ", ".join(
+            + extra + "; worst |Δ|/bar " + ", ".join(
                 f"{k} {max(r for r, _ in v.values()):.4g}"
                 for k, v in held.items())
             + " <= 1, two passes equal")
         del x, dt, A, Bm, Cm, dy, h0, df, cum, states, h_prev, g, args
-        del whole
+        del whole, cargs, want_carry, want_chunk
         torch.cuda.empty_cache()
     log("[ssd-bwd] worst |Δ|/bar over every shape: " + ", ".join(
         f"{k} {v:.4g}" for k, v in worst.items()))
-    return dict(rows=rows, worst=worst, carry_max_abs_err=errs["carry"],
-                chunk_max_abs_err=errs["chunk"])
+    return dict(rows=rows, worst=worst, errs=errs, builds=builds)
 
 
 # ---------------------------------------------------------------------------
@@ -2145,7 +2248,7 @@ TRAIN_FAMILIES = (("llama3-8b", 2), ("qwen2-moe-a2.7b", 2),
                   ("mamba2-780m", 2), ("zamba2-1.2b", 6))
 # and the dense arch with fp32 compute: the step that takes the fp32
 # (CUDA-core) backward kernels, held to the same bars.
-TRAIN_FP32 = (("llama3-8b", 2),)
+TRAIN_FP32 = (("llama3-8b", 2), ("mamba2-780m", 2))
 FAMILY_B, FAMILY_L = 1, 2048
 # Both runs compute in bf16 and differ only in the attention and the SSD
 # (the kernels against the plain versions, each within one bf16 step of
@@ -2349,12 +2452,17 @@ def phase_train_ssm(torch) -> dict:
                   f"{c.ssm_state}), vocab {c.vocab}", reset)
     counts = ssd_counts()
     want = n_layers * TRAIN_STEPS
-    if any(v != want for v in counts.values()):
+    cfg = run["model"].cfg
+    ran = set(SSD_COUNTERS) | set(sk.bwd_kernels(
+        torch.bfloat16, 64, cfg.ssm_head_dim, cfg.ssm_state))
+    want_d = {k: (want if k in ran else 0) for k in counts}
+    if counts != want_d:
         raise AssertionError(
-            f"(d) {TRAIN_STEPS} steps launched {counts}, expected {want} "
-            f"each: remat dots keeps the SSD forward (one chunk and one "
+            f"(d) {TRAIN_STEPS} steps launched {counts}, expected "
+            f"{want_d}: remat dots keeps the SSD forward (one chunk and one "
             f"carry launch per layer), and each backward pass launches the "
-            f"chunk kernel for the states and each backward kernel once")
+            f"chunk kernel for the states and each bf16 tensor-core "
+            f"backward kernel once")
     step_s, times, losses = run["step_s"], run["times"], run["losses"]
     log(f"[train] (d) {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: "
         f"median {step_s:.4f} s, max {max(times):.4f} s per step (host "
@@ -2362,7 +2470,7 @@ def phase_train_ssm(torch) -> dict:
         f"{[round(x, 4) for x in losses]}; per step {n_layers} SSD "
         f"forward chunk and carry launches (remat dots keeps them) and "
         f"{n_layers} backward passes (the chunk-state launch, "
-        f"ssd_carry_bwd and ssd_chunk_bwd each); over the steps "
+        f"ssd_carry_bwd_tc and ssd_chunk_bwd_tc each); over the steps "
         + ", ".join(f"{k} {v}" for k, v in counts.items())
         + f"; peak allocated {run['peak']:.3f} GiB; opt step "
         f"{int(run['opt']['step'])}")
@@ -2376,8 +2484,9 @@ def phase_train_ssm(torch) -> dict:
         f"chunk-state launches); busy {split['busy']:.3f} of that step's "
         f"{split['wall']:.3f} wall (host clock, synchronised; the "
         f"unprofiled median {step_s * 1e3:.3f}), idle share "
-        f"{split['idle']:.4f}; the two SSD backward kernels {bwd_ms:.3f} "
-        f"ms, {split['ssd_bwd_share']:.4f} of the step's device time")
+        f"{split['idle']:.4f}; the two SSD backward kernels "
+        f"(ssd_carry_bwd_tc, ssd_chunk_bwd_tc) {bwd_ms:.3f} ms, "
+        f"{split['ssd_bwd_share']:.4f} of the step's device time")
     top = sorted(others.items(), key=lambda kv: -kv[1])[:OTHERS_SHOWN]
     log(f"[train] (d) the {OTHERS_SHOWN} largest of the other kernels, ms: "
         + "; ".join(f"{k[:90]} {v:.3f}" for k, v in top))
@@ -2457,6 +2566,7 @@ def phase_train_families(torch) -> dict:
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.models.common import tree_leaves
     out = {}
     for arch, n_layers, compute in (
@@ -2486,10 +2596,16 @@ def phase_train_families(torch) -> dict:
             raise AssertionError(f"(b) {arch}: one step launched {got} (FA "
                                  f"forward, FA backward passes), expected "
                                  f"{n_fa} each")
-        if any(v != n_ssd for v in ssd_got.values()):
-            raise AssertionError(f"(b) {arch}: one step launched {ssd_got} "
-                                 f"of the SSD, expected {n_ssd} each")
         dt = getattr(torch, compute)
+        # The SSD's counters and the backward pair the dispatch picks for
+        # this compute dtype (chunk min(64, L) = 64) once per layer each.
+        ssd_ran = set(SSD_COUNTERS) | (set(sk.bwd_kernels(
+            dt, 64, cfg.ssm_head_dim, cfg.ssm_state)) if n_ssd else set())
+        want_ssd = {k: (n_ssd if k in ssd_ran else 0) for k in ssd_got}
+        if ssd_got != want_ssd:
+            raise AssertionError(f"(b) {arch} {compute}: one step launched "
+                                 f"{ssd_got} of the SSD, expected "
+                                 f"{want_ssd}")
         ran = {"fa_bwd_preprocess", fa.bwd_kernel("dkdv", dt),
                fa.bwd_kernel("dq", dt)}
         want_k = {n: (n_fa if n in ran else 0) for n in by_kernel}
@@ -2522,8 +2638,8 @@ def phase_train_families(torch) -> dict:
             f"backward passes in the step ("
             + ", ".join(f"{k} {v}" for k, v in by_kernel.items() if v)
             + ")"
-            + (f", SSD " + ", ".join(f"{k} {v}" for k, v in ssd_got.items())
-               if n_ssd else "")
+            + (f", SSD " + ", ".join(f"{k} {v}" for k, v in ssd_got.items()
+                                     if v) if n_ssd else "")
             + f"; loss {float(loss):.6f} against "
             f"{float(ref_loss):.6f} with the plain "
             + ("attention and ssd_ref" if n_ssd and n_fa else
@@ -2771,11 +2887,21 @@ def main() -> int:
                           if k.startswith(name + "<")}}
                if name.endswith("_tc") else {}),
         })
-    # The SSD backward's kernels at phase 11 (d)'s shape (mamba2-780m, 2 x
-    # 4096, bf16), launched by (d).
-    shape = SSD_TRAIN[0]
-    row = sdb["rows"][(shape, "bfloat16")]
-    for key, name in (("carry", "ssd_carry_bwd"), ("chunk", "ssd_chunk_bwd")):
+    # The SSD backward's kernels: the tensor-core pair at phase 11 (d)'s
+    # shape (mamba2-780m, 2 x 4096, bf16), launched by (d); the CUDA-core
+    # pair at (b)'s fp32 mamba2-780m step (1 x 2048), which launched them.
+    ssm_f32 = train["families"]["mamba2-780m float32"]
+    for key, name, (shape, dtype), launches in (
+            ("carry", "ssd_carry_bwd_tc", (SSD_TRAIN[0], "bfloat16"),
+             train["ssm"]["ssd_launches"]),
+            ("chunk", "ssd_chunk_bwd_tc", (SSD_TRAIN[0], "bfloat16"),
+             train["ssm"]["ssd_launches"]),
+            ("carry", "ssd_carry_bwd", SSD_TRAIN_F32,
+             ssm_f32["ssd_launches"]),
+            ("chunk", "ssd_chunk_bwd", SSD_TRAIN_F32,
+             ssm_f32["ssd_launches"])):
+        row = sdb["rows"][(shape, dtype)]
+        tc = name.endswith("_tc")
         record["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -2783,9 +2909,9 @@ def main() -> int:
             # No Pallas kernel: XLA's gradient of the jnp SSD.
             "replaces": "src/repro/kernels/ssd/ref.py:19",
             "tpu_kernel": False,
-            # Phase 11 (d): one launch per layer per step.
-            "launches": train["ssm"]["ssd_launches"][name],
-            "max_abs_err": sdb[f"{key}_max_abs_err"],
+            # (d): one launch per layer per step; (b): one per layer.
+            "launches": launches[name],
+            "max_abs_err": sdb["errs"][name],
             "ms": row["ms"][key],
             "plain_ms": row["plain_ms"][key],
             "bound_ms": row["bounds"][key][0],
@@ -2794,17 +2920,22 @@ def main() -> int:
             # backward (under "backward").
             "library_ms": None,
             "shape": list(shape),
-            "dtype": "bfloat16",
+            "dtype": dtype,
             "heads_per_block": row["heads_per_block"],
             "backward": dict(ms=row["ms"]["backward"],
                              plain_ms=row["plain_ms"]["backward"],
                              bound_ms=row["bounds"]["backward"][0],
                              bound_by=row["bounds"]["backward"][1]),
-            # Phase 11 (b): launches in one step per arch.
+            # Phase 11 (b): launches in one step per arch (and dtype).
             "launches_families": {
                 a: r["ssd_launches"][name]
                 for a, r in train["families"].items()
                 if r["ssd_launches"][name]},
+            **({# The CUDA-core kernel on the same bf16 inputs.
+                "cuda_core_ms": row["core_ms"][key],
+                "build": {k: v for k, v in sdb["builds"].items()
+                          if k.startswith(name + "<")}}
+               if tc else {}),
         })
     idle = [k["name"] for k in record["kernels"] if not k["launches"] > 0]
     if idle:

@@ -86,14 +86,13 @@
 // Bound: bytes — y_intra and the chunk states read once (fp32), C and
 // cum, y written in its dtype and the final state: about 1.3 GB, 0.40 ms
 // at 3.35 TB/s, for the 1 x 32,768-token prompt of zamba2-1.2b.
+//
+// The mma.sync, ldmatrix and cp.async helpers are in ssd_mma.cuh, which
+// the backward (ssd_bwd.cu) includes too.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ssd_mma.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;
 constexpr int kNumSMs = 132;
@@ -207,67 +206,6 @@ constexpr int kP = 64;          // head width
 constexpr int kTcThreads = 128;
 constexpr int kLdP = kP + 8;    // padded x row (bf16): ldmatrix rows on
                                 // distinct banks
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// d += a b: m16n8k16, bf16 inputs, fp32 accumulator.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Splits the fp32 pair (x, y) into NT bf16 pairs: each term is the
-// rounding of what the earlier ones left (the first element in the low
-// half, as the fragments want it).
-template <int NT>
-__device__ __forceinline__ void split(float x, float y, uint32_t (&t)[NT]) {
-#pragma unroll
-  for (int k = 0; k < NT; ++k) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(x, y);
-    t[k] = bits(a);
-    x -= __low2float(a);
-    y -= __high2float(a);
-  }
-}
 
 size_t tc_smem_bytes(int N, int NT, int G) {
   return 2 * ((size_t)(2 + NT) * kQ * (N + 8) + 2 * (size_t)kQ * kLdP) +
@@ -723,14 +661,6 @@ cudaError_t launch_carry_ps(const void* y_intra, const void* states,
 // operands), so every product is exact and the sums are fp32.  One warp
 // per 16 rows of the chunk.
 constexpr int kCarryTerms = 3;
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_u32(p))
-      : "memory");
-}
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);

@@ -4,57 +4,105 @@
 // The reference has no backward Pallas kernel: it trains through its jnp
 // SSD (repro/kernels/ssd/ref.py::ssd_ref), which XLA differentiates.  The
 // port's forward is two kernels whose outputs autograd cannot see
-// through, so its gradient is written out here as two kernels, launched
-// in order by the op repro_torch::ssd_fwd's backward after one more
-// launch of the chunk kernel for the chunk states S_c (kept out of the
-// forward's saved tensors: at 48 layers they would take ~9.6 GB).  All
-// arithmetic is fp32; bf16 inputs are converted exactly as they are read.
-// The formulas, and their plain versions, are in ../ref.py
-// (ssd_carry_bwd_ref, ssd_chunk_bwd_ref).
+// through, so its gradient is written out here, launched in order by the
+// op repro_torch::ssd_fwd's backward after one more launch of the chunk
+// kernel for the chunk states S_c (kept out of the forward's saved
+// tensors: at 48 layers they would take ~9.6 GB).  The formulas, and
+// their plain versions, are in ../ref.py (ssd_carry_bwd_ref,
+// ssd_chunk_bwd_ref).  Two pairs of kernels, chosen by the wrapper
+// (kernel.py::bwd_kernels) as the forward's chunk kernels are: bf16 x,
+// B, C and dy at Q = P = 64, N = 64 or 128 (the models' training shapes)
+// on the tensor cores, fp32 and every other shape on the CUDA cores.
 //
-// * ssd_carry_bwd: one block per (slice of PS columns of P, head, batch),
-//   as the forward carry.  Each thread owns two rows of N and four
-//   columns of the slice, so both walks keep their state in registers:
+// The carry's walks, per (batch, head) and element (n, p) of the state:
 //     forward  h_prev_c = h,  h = exp(cum_last,c) h + S_c      (writes the
 //              [B, nc, H, N, P] stack of h_prev)
 //     reverse  g_c = g,  g = exp(cum_last,c) g + sum_i exp(cum_i) C_i (x) dy_i
 //              from g = dfinal (zeros without one); what is left is
 //              d init_state.
-//   The reverse walk stages the chunk's C and exp(cum_i) dy_i (this slice)
-//   in shared memory, fp32, and forms C^T . dy on the CUDA cores.
-//   Bound: bytes (S_c read, h_prev and g written, fp32).
+// Bound: bytes (S_c read, h_prev and g written, fp32: ~604 MB at
+// [B, L, H, P, N] = [2, 4096, 48, 64, 128]).
 //
-// * ssd_chunk_bwd: one block of 256 threads per (chunk, group of G heads,
-//   batch).  C . B^T depends on (batch, chunk) only, so the block forms it
-//   once, keeps it in shared memory with B and C (transposed, fp32), and
-//   walks its G heads.  For each head, with E_ij = exp(cum_i - cum_j) for
-//   i >= j (a plain 0 above the diagonal, never inf * 0), K = (C . B^T) o E,
-//   W_ij = K_ij dt_j, dW_ij = dy_i . x_j, d_j = exp(cum_last - cum_j) dt_j,
-//   g the gradient of S_c and h_prev the state entering the chunk:
+// Each chunk's gradients, with E_ij = exp(cum_i - cum_j) for i >= j (a
+// plain 0 above the diagonal, never computed there, so never inf * 0),
+// K = (C . B^T) o E, W_ij = K_ij dt_j, dW_ij = dy_i . x_j,
+// d_j = exp(cum_last - cum_j) dt_j, g the gradient of S_c and h_prev the
+// state entering the chunk:
 //     dx_j   = dt_j sum_i K_ij dy_i + d_j B_j^T g
 //     dcum_i = sum_j T_ij - sum_j T_ji - d_i <B_i (x) x_i, g>
 //              + exp(cum_i) <C_i . h_prev, dy_i>            (T = dW o W)
 //     ddt_j  = sum_i dW_ij K_ij + exp(cum_last - cum_j) <B_j (x) x_j, g>
 //     dcum_last += sum_j d_j <B_j (x) x_j, g> + exp(cum_last) <g, h_prev>
-//   (ddt without the cumsum's part: the op adds A . da), and accumulates
-//   over its heads sum_h dW o E o dt (for dC = . B and dB = ^T . C at the
-//   end), sum_h d_j g x_j (dB) and sum_h exp(cum_i) h_prev dy_i (dC) in
-//   registers.  dB and dC are written as one partial sum per group,
-//   [H / G, B, L, N]; the op sums the groups in a fixed order.  No
-//   atomics: two passes are equal bit for bit.  Every product runs as 4 x 4
-//   register tiles over two k-major operands in shared memory (two 16-byte
-//   loads per 16 multiply-adds).
-//   Bound: operations, fp32 on the CUDA cores (~6 Q N P + 2 Q^2 P flops per
-//   (b, c, h)).  The tensor-core version (C . B^T, dW and the dx products
-//   on mma.sync, as ssd_chunk_tc) is later work.
+// (ddt without the cumsum's part: the op adds A . da), with dC += (sum_h
+// dW o E o dt) . B + exp(cum_i) h_prev dy_i and dB += its transpose . C +
+// d_j g x_j, summed over a group of G heads and written as one partial
+// sum per group, [H / G, B, L, N]; the op sums the groups in a fixed
+// order.  No atomics anywhere: two passes are equal bit for bit.
+// Bound: bytes (x, dy, B, C, g and h_prev read, dx and the partials
+// written: 0.191 ms at the mamba2-780m shape above, bf16).
+//
+// * ssd_chunk_bwd_tc (bf16): one block of 8 warps per (chunk, group of G
+//   heads, batch), G from kernel.py::bwd_heads_per_block (16 at the
+//   training shapes).  B and C are staged once per group with cp.async,
+//   and (C . B^T)^T is formed once on mma.sync m16n8k16 (bf16 inputs:
+//   exact products, fp32 sums) and kept in fragment order in shared
+//   memory.  Each head's x and dy (bf16) and g and h_prev (fp32, straight
+//   from the [B, nc, H, N, P] stacks) are copied with cp.async one head
+//   ahead into a second buffer while the block works on this head
+//   (~80 KB in flight an SM).  Warp (r, S) takes rows 16 r.. of the chunk
+//   and half S of each product's columns; every product runs on mma.sync
+//   with fp32 accumulators, the bf16 operand as read and the fp32 one
+//   split into kBwdTerms bf16 terms (t1 = bf16(v), t2 = bf16(v - t1)):
+//   dW^T = x . dy^T on the tiles at or right of the diagonal (one pass);
+//   dx = d_j (B . g) + (K o dt)^T . dy, K o dt built in registers from the
+//   (C . B^T)^T fragments (an accumulator pair of n-tiles is one A
+//   fragment); x . g^T (into dB) and dy . h_prev^T (into dC), the running
+//   dB and dC in registers over the group's heads; and at the group's end
+//   (sum_h dW o E o dt)^T . C and its transpose against B, that sum kept
+//   in registers over the heads and split once.  Each head's g and
+//   h_prev are split once, in place, into two bf16 planes whose 16-byte
+//   column groups are swizzled by the row (plane_off), so that every
+//   fragment of them, read as [n][p] or transposed, is one conflict-free
+//   ldmatrix; splitting at each use would split every g value 8 times
+//   over the block.  Row and column sums (of T, V = dW o K,
+//   <B_j (x) x_j, g> = x_j . (B . g)_j, <C_i . h_prev, dy_i>) are warp
+//   shuffles over the fragments and a fixed-order sum of per-warp
+//   partials; <g, h_prev> and the dcum tail likewise.  The MMA work at
+//   two terms is ~47 GFLOP at the shape above (0.047 ms at the bf16
+//   peak), a quarter of the byte bound: the copies decide.
+// * ssd_carry_bwd_tc (bf16): one block per (slice of kCarryRows = 32
+//   rows of N, head, batch); its first two warps walk forward, the other
+//   two back, each pair at its own pace.  The forward walk streams
+//   the state slices through a kCarryStages-deep cp.async ring, each
+//   thread copying and reading only its own float4s (no barrier); the
+//   reverse walk rings the chunk's C slice, dy tile and cum column
+//   (kCarryStages - 1 chunks in flight, a named barrier per step) and
+//   forms (exp(cum) o C)^T . dy on mma.sync: C's slice is the A operand
+//   (ldmatrix.trans), scaled by exp(cum_i) and split into kBwdTerms bf16
+//   terms (scaling C's side splits a quarter as many values a thread as
+//   scaling dy's, for the same exactness), dy the B operand as read.
+//   h and g stay in fp32 registers.  Cutting N into slices gives more
+//   walks in flight (384 blocks of 128 threads at the shape above with
+//   32 rows, against the 96 (batch, head) pairs) and each block reads
+//   only its slice of C; dy is read once per slice, from L2 for all but
+//   the first.  The slice was set by measurement (H100 80GB HBM3,
+//   700 W, the two slices timed in turns): at [2, 4096, 48, 64, 128, 64]
+//   32 rows took 0.36342 ms against 0.37925 for 64; at N = 64 the two
+//   were within the runs' spread (0.25530 / 0.26078 in one run, 0.24267
+//   / 0.22627 in another).
+// * ssd_carry_bwd and ssd_chunk_bwd (fp32, and every other shape): the
+//   CUDA cores, fp32 arithmetic (bf16 inputs converted exactly as read).
+//   ssd_carry_bwd: one block per (slice of PS columns of P, head, batch),
+//   each thread two rows of N and four columns, both walks in registers;
+//   the reverse walk stages the chunk's C and exp(cum_i) dy_i in shared
+//   memory and forms C^T . dy on the CUDA cores.  ssd_chunk_bwd: one
+//   block of 256 threads per (chunk, group of G heads, batch), C . B^T
+//   once in shared memory with B and C (transposed, fp32), every product
+//   as 4 x 4 register tiles over two k-major operands in shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ssd_mma.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;          // ssd_chunk_bwd's block
 constexpr int kCarryMaxThreads = 512;  // ssd_carry_bwd's largest block
@@ -550,22 +598,925 @@ cudaError_t launch_chunk_bwd_mt(const void* x, const void* dt,
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
+// ---------------------------------------------------------------------------
+// Tensor-core kernels: bf16 x, B, C and dy at Q = P = 64, N = 64 or 128
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdTerms = 2;        // bf16 terms of an fp32 operand
+constexpr int kTQ = 64;             // chunk rows
+constexpr int kTP = 64;             // head width
+constexpr int kLdX = kTP + 8;       // padded bf16 row of x and dy: the
+                                    // rows of an ldmatrix on distinct banks
+constexpr int kTcThreads = 256;     // ssd_chunk_bwd_tc: 4 row tiles x 2
+constexpr int kRedFloats = 10 * kTQ + 8;  // its per-head partial sums
+constexpr int kCarryStages = 3;     // ssd_carry_bwd_tc's copy ring
+constexpr int kCarryRows = 32;      // ssd_carry_bwd_tc's slice of N
+
+// Byte offset of (n, p) in a bf16 plane of a g or h_prev tile ([N][64],
+// rows of 128 bytes): the 16-byte column group moves by the row's low
+// three bits, so that the eight rows an ldmatrix reads at one column
+// group sit on distinct banks, with no padding.
+__device__ __forceinline__ int plane_off(int n, int p) {
+  return n * 128 + ((((p >> 3) ^ n) & 7) << 4) + (p & 7) * 2;
+}
+
+// bar.sync with an explicit thread count, which PTX counts per warp: the
+// barrier for threads that reach it from different code in warp-uniform
+// branches (ssd_chunk_bwd_tc's two column halves, ssd_carry_bwd_tc's
+// reverse walk), where __syncthreads() would sit under a divergent
+// condition.
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The sum over the eight lanes of a fragment column (lane / 4 = 0..7);
+// segment_sum(v, 4) is the sum over the four lanes of a fragment row.
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// Shared-memory layout of ssd_chunk_bwd_tc, in bytes
+// (ssd_bwd_tc_smem_bytes reports it).
+struct ChunkTcSmem {
+  size_t c, b, cb, x, dy, g, hp, dts, cums, red, total;
+  __host__ __device__ ChunkTcSmem(int N, int G) {
+    const size_t bc = (size_t)kTQ * (N + 8) * 2;  // C or B, bf16
+    const size_t xd = (size_t)kTQ * kLdX * 2;     // one x or dy buffer
+    const size_t st = (size_t)N * kTP * 4;        // one g or h_prev buffer
+    c = 0;
+    b = c + bc;
+    cb = b + bc;         // (C . B^T)^T fragments: [4 row tiles][8][32] x 4
+    x = cb + 4 * 8 * 32 * 16;   // 2 buffers
+    dy = x + 2 * xd;     // 2 buffers
+    g = dy + 2 * xd;     // 2 buffers
+    hp = g + 2 * st;     // 2 buffers
+    dts = hp + 2 * st;   // [G][kTQ]
+    cums = dts + (size_t)G * kTQ * 4;
+    red = cums + (size_t)G * kTQ * 4;
+    total = red + (size_t)kRedFloats * 4;
+  }
+};
+
+// The work of one warp of ssd_chunk_bwd_tc: rows 16 r .. 16 r + 15 of the
+// chunk (j for dx, dB and the K tile, i for dC) and half S of the columns
+// of each product (i for dW and the running dC . B^T gradient, p for dx,
+// n for dB and dC).  S is a template parameter so that every register
+// array is indexed by constants.
+template <int N, int NT, int S>
+__device__ __forceinline__ void chunk_bwd_tc_warp(
+    const bf16* __restrict__ x, const bf16* __restrict__ dy,
+    const float* __restrict__ g, const float* __restrict__ hp,
+    float* __restrict__ dx, float* __restrict__ dcum,
+    float* __restrict__ ddt, float* __restrict__ db_part,
+    float* __restrict__ dc_part, unsigned char* smem_raw, int L, int H,
+    int G) {
+  constexpr int kLdN = N + 8;   // padded bf16 row of B and C
+  constexpr int NH = N / 2;     // this warp's half of N
+  constexpr int NTN = NH / 8;   // its n8 tiles
+  const ChunkTcSmem lay(N, G);
+  const bf16* cs = reinterpret_cast<const bf16*>(smem_raw + lay.c);
+  const bf16* bs = reinterpret_cast<const bf16*>(smem_raw + lay.b);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + lay.x);
+  bf16* dys = reinterpret_cast<bf16*>(smem_raw + lay.dy);
+  float* gs = reinterpret_cast<float*>(smem_raw + lay.g);
+  float* hs = reinterpret_cast<float*>(smem_raw + lay.hp);
+  float4* cbs = reinterpret_cast<float4*>(smem_raw + lay.cb);
+  const float* dts = reinterpret_cast<const float*>(smem_raw + lay.dts);
+  const float* cums = reinterpret_cast<const float*>(smem_raw + lay.cums);
+  float* red_rowt = reinterpret_cast<float*>(smem_raw + lay.red);  // [4][Q]
+  float* red_colv = red_rowt + 4 * kTQ;    // [2][Q]: sum_i V_ij by half
+  float* red_ured = red_colv + 2 * kTQ;    // [2][Q]: <B_j (x) x_j, g>
+  float* red_inter = red_ured + 2 * kTQ;   // [2][Q]: <C_i . h_prev, dy_i>
+  float* red_gh = red_inter + 2 * kTQ;     // [8]: <g, h_prev> by warp
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lg = lane >> 2, cq = lane & 3;
+  const int r = warp & 3, j0 = 16 * r;
+  const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.x;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * kTQ;
+  // The A fragment of rows j0.. of a padded bf16 tile, k16 step k.
+  auto frag_rows = [&](uint32_t(&a)[4], const bf16* t, int ld, int k) {
+    ldsm_x4(a, t + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + 16 * k +
+                   (lane >> 4) * 8);
+  };
+  // The B fragments of n-tiles 2 m and 2 m + 1 of a padded bf16 tile
+  // stored [n][k] (rows 16 m ..), k16 step k.
+  auto frag_cols = [&](uint32_t(&q)[4], const bf16* t, int ld, int m,
+                       int k) {
+    ldsm_x4(q, t + (16 * m + (lane & 7) + (lane >> 4) * 8) * ld + 16 * k +
+                   ((lane >> 3) & 1) * 8);
+  };
+  // The B fragments of n-tiles 2 m and 2 m + 1 of a padded bf16 tile
+  // stored [k][n] (columns 16 m ..), k16 step k.
+  auto frag_cols_t = [&](uint32_t(&q)[4], const bf16* t, int ld, int m,
+                         int k) {
+    ldsm_x4_t(q, t + (16 * k + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                     16 * m + (lane >> 4) * 8);
+  };
+  // x, dy, g and h_prev of head h into buffer `buf` with cp.async: this
+  // warp's share of the block's copies.
+  auto load_head = [&](int h, int buf) {
+    bf16* xd = xs + buf * kTQ * kLdX;
+    bf16* dd = dys + buf * kTQ * kLdX;
+    for (int e = tid; e < kTQ * (kTP / 8); e += kTcThreads) {
+      const int i = e >> 3, k8 = (e & 7) * 8;
+      const int64_t o = ((row0 + i) * H + h) * kTP + k8;
+      cp_async16(xd + i * kLdX + k8, x + o);
+      cp_async16(dd + i * kLdX + k8, dy + o);
+    }
+    const int64_t st = (((int64_t)b * nc + c) * H + h) * (int64_t)N * kTP;
+    float* gd = gs + buf * N * kTP;
+    float* hd = hs + buf * N * kTP;
+    for (int e = tid; e < N * (kTP / 4); e += kTcThreads) {
+      cp_async16(gd + 4 * e, g + st + 4 * e);
+      cp_async16(hd + 4 * e, hp + st + 4 * e);
+    }
+  };
+
+  // (C . B^T)^T: rows j0.. of B against every row of C, the m16n8 tile t
+  // covering columns (i) 8 t ..; only the tiles at or right of the
+  // diagonal's (i >= j) are formed.  bf16 inputs: exact products.  It is
+  // kept for the group's heads in shared memory in fragment order (one
+  // float4 a lane and tile: conflict-free reads), once for both halves:
+  // in registers it would leave too few for the rest.
+  {
+    float cbt[8][4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cbt[t][e] = 0.f;
+#pragma unroll
+    for (int kn = 0; kn < N / 16; ++kn) {
+      uint32_t a[4];
+      frag_rows(a, bs, kLdN, kn);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        if (m < r) continue;
+        uint32_t q[4];
+        frag_cols(q, cs, kLdN, m, kn);
+        mma(cbt[2 * m], a, q[0], q[1]);
+        mma(cbt[2 * m + 1], a, q[2], q[3]);
+      }
+    }
+    if (S == 0) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        cbs[(r * 8 + t) * 32 + lane] =
+            make_float4(cbt[t][0], cbt[t][1], cbt[t][2], cbt[t][3]);
+    }
+  }
+
+  // Over the group's heads: dcb the running sum of dW o E o dt
+  // (transposed: rows j, this warp's half of i), dba and dca the running
+  // dB (rows j) and dC (rows i) over this warp's half of n.
+  float dcb[4][4], dba[NTN][4], dca[NTN][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) dcb[t][e] = 0.f;
+#pragma unroll
+    for (int t = 0; t < NTN; ++t) dba[t][e] = dca[t][e] = 0.f;
+  }
+
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = grp * G + gi, buf = gi & 1;
+    // Head gi's tiles have landed; every warp is done with head gi - 1
+    // (its buffers and the partial sums).
+    cp_async_wait_all();
+    group_sync(0, kTcThreads);
+    if (gi + 1 < G) load_head(h + 1, buf ^ 1);
+    cp_async_commit();
+    const bf16* xb = xs + buf * kTQ * kLdX;
+    const bf16* dyb = dys + buf * kTQ * kLdX;
+    unsigned char* gp = reinterpret_cast<unsigned char*>(gs + buf * N * kTP);
+    unsigned char* hq = reinterpret_cast<unsigned char*>(hs + buf * N * kTP);
+    // g and h_prev split once into their NT = 2 bf16 terms, each a plane
+    // (plane_off) in place of the fp32 tile (plane k at byte k N 128): the
+    // warps then read every fragment with one ldmatrix, where splitting
+    // at each use would split a g value 8 times and an h_prev value 4.
+    // <g, h_prev> on the way.
+    {
+      static_assert(NT == 2, "two bf16 planes fill the fp32 tile exactly");
+      constexpr int kPer = N * kTP / 4 / kTcThreads;   // float4s a thread
+      float4 gv[kPer], hv[kPer];
+      float gh = 0.f;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int e = tid + kTcThreads * k;
+        gv[k] = reinterpret_cast<const float4*>(gp)[e];
+        hv[k] = reinterpret_cast<const float4*>(hq)[e];
+        gh = fmaf(gv[k].x, hv[k].x, fmaf(gv[k].y, hv[k].y,
+             fmaf(gv[k].z, hv[k].z, fmaf(gv[k].w, hv[k].w, gh))));
+      }
+      gh = segment_sum(gh, 32);
+      if (lane == 0) red_gh[warp] = gh;
+      group_sync(0, kTcThreads);   // every read of the fp32 tiles is done
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int e = tid + kTcThreads * k;
+        const int o = plane_off(e >> 4, (e & 15) * 4);
+        uint32_t a[2], b[2];
+        split<2>(gv[k].x, gv[k].y, a);
+        split<2>(gv[k].z, gv[k].w, b);
+        *reinterpret_cast<uint2*>(gp + o) = make_uint2(a[0], b[0]);
+        *reinterpret_cast<uint2*>(gp + N * 128 + o) = make_uint2(a[1], b[1]);
+        split<2>(hv[k].x, hv[k].y, a);
+        split<2>(hv[k].z, hv[k].w, b);
+        *reinterpret_cast<uint2*>(hq + o) = make_uint2(a[0], b[0]);
+        *reinterpret_cast<uint2*>(hq + N * 128 + o) = make_uint2(a[1], b[1]);
+      }
+      group_sync(0, kTcThreads);   // the planes are complete
+    }
+    // The B fragments of n-tiles 2 m and 2 m + 1 of term k of a plane
+    // pair, k16 step kk: `t` (transposed) for a tile read as [k][n] (k =
+    // the row n of g, n = its column p), else as [n][k].
+    auto frag_plane = [&](uint32_t(&q)[4], const unsigned char* pl, int k,
+                          int m, int kk, bool t) {
+      const unsigned char* base = pl + k * N * 128;
+      if (t)
+        ldsm_x4_t(q, base + plane_off(16 * kk + (lane & 7) +
+                                          ((lane >> 3) & 1) * 8,
+                                      16 * m + (lane >> 4) * 8));
+      else
+        ldsm_x4(q, base + plane_off(16 * m + (lane & 7) + (lane >> 4) * 8,
+                                    16 * kk + ((lane >> 3) & 1) * 8));
+    };
+    const float* dg = dts + gi * kTQ;
+    const float* cg = cums + gi * kTQ;
+    const float cl = cg[kTQ - 1];
+    // This thread's two rows, j0 + lg and j0 + lg + 8.
+    float dtr[2], cur[2], dr[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int j = j0 + lg + 8 * rr;
+      dtr[rr] = dg[j];
+      cur[rr] = cg[j];
+      dr[rr] = expf(cl - cur[rr]) * dtr[rr];   // d_j
+    }
+
+    // dW^T = x . dy^T on this warp's half of i (exact products).
+    float dwt[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dwt[t][e] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < 4; ++kp) {
+      uint32_t a[4];
+      frag_rows(a, xb, kLdX, kp);
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        if (2 * S + l < r) continue;
+        uint32_t q[4];
+        frag_cols(q, dyb, kLdX, 2 * S + l, kp);
+        mma(dwt[2 * l], a, q[0], q[1]);
+        mma(dwt[2 * l + 1], a, q[2], q[3]);
+      }
+    }
+
+    // dx's state term on this warp's half of p: B . g (g in NT terms),
+    // and <B_j (x) x_j, g> = sum_p x_j[p] (B . g)[j][p] on the way.
+    float dxa[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dxa[t][e] = 0.f;
+    // The k loops that index no register array stay rolled: unrolled,
+    // their hoisted loads and splits leave too few registers at N = 128.
+#pragma unroll 2
+    for (int kn = 0; kn < N / 16; ++kn) {
+      uint32_t a[4];
+      frag_rows(a, bs, kLdN, kn);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int k = 0; k < NT; ++k) {
+          uint32_t q[4];
+          frag_plane(q, gp, k, 2 * S + m, kn, true);
+          mma(dxa[2 * m], a, q[0], q[1]);
+          mma(dxa[2 * m + 1], a, q[2], q[3]);
+        }
+    }
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int pt = 0; pt < 4; ++pt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float2 xv = unpack2(*reinterpret_cast<const uint32_t*>(
+            xb + (j0 + lg + 8 * rr) * kLdX + 32 * S + 8 * pt + 2 * cq));
+        part[rr] = fmaf(xv.x, dxa[pt][2 * rr],
+                        fmaf(xv.y, dxa[pt][2 * rr + 1], part[rr]));
+      }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      part[rr] = segment_sum(part[rr], 4);
+      if (cq == 0) red_ured[S * kTQ + j0 + lg + 8 * rr] = part[rr];
+#pragma unroll
+      for (int pt = 0; pt < 4; ++pt) {
+        dxa[pt][2 * rr] *= dr[rr];
+        dxa[pt][2 * rr + 1] *= dr[rr];
+      }
+    }
+
+    // dx's intra term, (K o dt)^T . dy, with K^T o dt built in registers
+    // from (C . B^T)^T's fragments k16 step by k16 step (each accumulator
+    // pair of n-tiles is one A fragment) and split into NT terms; on this
+    // warp's half of i also V = dW o K (row sums: sum_i V_ij; column sums
+    // of V o dt_j: sum_j T_ij) and the running sum of dW o E o dt.
+    float colp[2] = {0.f, 0.f}, tcol[4][2];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) tcol[t][0] = tcol[t][1] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < r) continue;    // every i of the step is below j
+      uint32_t wa[NT][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = 2 * kk + half;
+        const int i = 8 * t + 2 * cq;
+        const float ci[2] = {cg[i], cg[i + 1]};
+        const float4 cb4 = cbs[(r * 8 + t) * 32 + lane];
+        const float cbt[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int j = j0 + lg + 8 * rr;
+          float w[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // E_ij = exp(cum_i - cum_j) for i >= j, else a plain 0.
+            const float ex = i + e >= j ? expf(ci[e] - cur[rr]) : 0.f;
+            const float kv = cbt[2 * rr + e] * ex;
+            w[e] = kv * dtr[rr];
+            if ((t >> 2) == S) {
+              const int lt = t & 3;   // the tile within this half
+              const float dw = dwt[lt][2 * rr + e];
+              const float v = dw * kv;
+              colp[rr] += v;
+              tcol[lt][e] = fmaf(v, dtr[rr], tcol[lt][e]);
+              dcb[lt][2 * rr + e] =
+                  fmaf(dw * ex, dtr[rr], dcb[lt][2 * rr + e]);
+            }
+          }
+          uint32_t tt[NT];
+          split<NT>(w[0], w[1], tt);
+#pragma unroll
+          for (int k = 0; k < NT; ++k) wa[k][2 * half + rr] = tt[k];
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        uint32_t q[4];
+        frag_cols_t(q, dyb, kLdX, 2 * S + m, kk);
+#pragma unroll
+        for (int k = 0; k < NT; ++k) {
+          mma(dxa[2 * m], wa[k], q[0], q[1]);
+          mma(dxa[2 * m + 1], wa[k], q[2], q[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float* o = dx + ((row0 + j0 + lg + 8 * rr) * H + h) * kTP + 32 * S +
+                 2 * cq;
+#pragma unroll
+      for (int pt = 0; pt < 4; ++pt)
+        *reinterpret_cast<float2*>(o + 8 * pt) =
+            make_float2(dxa[pt][2 * rr], dxa[pt][2 * rr + 1]);
+      colp[rr] = segment_sum(colp[rr], 4);
+      if (cq == 0) red_colv[S * kTQ + j0 + lg + 8 * rr] = colp[rr];
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = column_sum(tcol[t][e]);
+        if (lg == 0) red_rowt[r * kTQ + 32 * S + 8 * t + 2 * cq + e] = v;
+      }
+
+    // x . g^T on this warp's half of n, into dB as d_j (x . g^T)_j.
+    {
+      float acc[NTN][4];
+#pragma unroll
+      for (int t = 0; t < NTN; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+      for (int kp = 0; kp < 4; ++kp) {
+        uint32_t a[4];
+        frag_rows(a, xb, kLdX, kp);
+#pragma unroll
+        for (int m = 0; m < NTN / 2; ++m)
+#pragma unroll
+          for (int k = 0; k < NT; ++k) {
+            uint32_t q[4];
+            frag_plane(q, gp, k, S * NTN / 2 + m, kp, false);
+            mma(acc[2 * m], a, q[0], q[1]);
+            mma(acc[2 * m + 1], a, q[2], q[3]);
+          }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dba[nt][e] = fmaf(dr[e >> 1], acc[nt][e], dba[nt][e]);
+    }
+
+    // dy . h_prev^T on this warp's half of n (rows i), into dC as
+    // exp(cum_i) (dy . h_prev^T)_i, and <C_i . h_prev, dy_i> on the way.
+    {
+      float acc[NTN][4];
+#pragma unroll
+      for (int t = 0; t < NTN; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+      for (int kp = 0; kp < 4; ++kp) {
+        uint32_t a[4];
+        frag_rows(a, dyb, kLdX, kp);
+#pragma unroll
+        for (int m = 0; m < NTN / 2; ++m)
+#pragma unroll
+          for (int k = 0; k < NT; ++k) {
+            uint32_t q[4];
+            frag_plane(q, hq, k, S * NTN / 2 + m, kp, false);
+            mma(acc[2 * m], a, q[0], q[1]);
+            mma(acc[2 * m + 1], a, q[2], q[3]);
+          }
+      }
+      float ip[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int i = j0 + lg + 8 * rr;
+        const float ec = expf(cur[rr]);
+#pragma unroll
+        for (int nt = 0; nt < NTN; ++nt) {
+          const float2 cv = unpack2(*reinterpret_cast<const uint32_t*>(
+              cs + i * kLdN + S * NH + 8 * nt + 2 * cq));
+          ip[rr] = fmaf(cv.x, acc[nt][2 * rr],
+                        fmaf(cv.y, acc[nt][2 * rr + 1], ip[rr]));
+          dca[nt][2 * rr] = fmaf(ec, acc[nt][2 * rr], dca[nt][2 * rr]);
+          dca[nt][2 * rr + 1] =
+              fmaf(ec, acc[nt][2 * rr + 1], dca[nt][2 * rr + 1]);
+        }
+        ip[rr] = segment_sum(ip[rr], 4);
+        if (cq == 0) red_inter[S * kTQ + i] = ip[rr];
+      }
+    }
+
+    group_sync(0, kTcThreads);
+
+    // dcum and ddt of the head's rows, from the partial sums in a fixed
+    // order: warp 0, two rows a lane.
+    if (warp == 0) {
+      float v[2], w[2], tail = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = lane + 32 * u;
+        const float rowt = ((red_rowt[j] + red_rowt[kTQ + j]) +
+                            red_rowt[2 * kTQ + j]) + red_rowt[3 * kTQ + j];
+        const float colv = red_colv[j] + red_colv[kTQ + j];
+        const float ured = red_ured[j] + red_ured[kTQ + j];
+        const float inter =
+            expf(cg[j]) * (red_inter[j] + red_inter[kTQ + j]);
+        const float dex = expf(cl - cg[j]), dj = dex * dg[j];
+        v[u] = rowt - dg[j] * colv - dj * ured + inter;
+        w[u] = fmaf(dex, ured, colv);
+        tail = fmaf(dj, ured, tail);
+      }
+      tail = segment_sum(tail, 32);
+      if (lane == 31) {
+        float gh = 0.f;
+        for (int k = 0; k < kTcThreads / 32; ++k) gh += red_gh[k];
+        v[1] += expf(cl) * gh + tail;   // row Q - 1: the chunk's decay
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int64_t o = (row0 + lane + 32 * u) * H + h;
+        dcum[o] = v[u];
+        ddt[o] = w[u];
+      }
+    }
+  }
+
+  // dB += (sum_h dW o E o dt)^T . C and dC += (sum_h dW o E o dt) . B,
+  // the sum staged in fp32 over the g buffers (no copy is in flight) and
+  // split into NT terms; then this group's partial sums.
+  constexpr int kLdS = kTQ + 4;
+  float* scr = gs;   // [j][kLdS]
+  group_sync(0, kTcThreads);   // every warp is done with the last head
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      *reinterpret_cast<float2*>(scr + (j0 + lg + 8 * rr) * kLdS + 32 * S +
+                                 8 * t + 2 * cq) =
+          make_float2(dcb[t][2 * rr], dcb[t][2 * rr + 1]);
+  group_sync(0, kTcThreads);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk < r) continue;   // rows j against i >= j
+    uint32_t ta[NT][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          scr + (j0 + lg + 8 * (q & 1)) * kLdS + 16 * kk + 2 * cq +
+          8 * (q >> 1));
+      uint32_t tt[NT];
+      split<NT>(v.x, v.y, tt);
+#pragma unroll
+      for (int k = 0; k < NT; ++k) ta[k][q] = tt[k];
+    }
+#pragma unroll
+    for (int m = 0; m < NTN / 2; ++m) {
+      uint32_t q[4];
+      frag_cols_t(q, cs, kLdN, S * NTN / 2 + m, kk);
+#pragma unroll
+      for (int k = 0; k < NT; ++k) {
+        mma(dba[2 * m], ta[k], q[0], q[1]);
+        mma(dba[2 * m + 1], ta[k], q[2], q[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk > r) continue;   // rows i against j <= i
+    uint32_t ta[NT][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = j0 + lg + 8 * (q & 1), j = 16 * kk + 2 * cq + 8 * (q >> 1);
+      uint32_t tt[NT];
+      split<NT>(scr[j * kLdS + i], scr[(j + 1) * kLdS + i], tt);
+#pragma unroll
+      for (int k = 0; k < NT; ++k) ta[k][q] = tt[k];
+    }
+#pragma unroll
+    for (int m = 0; m < NTN / 2; ++m) {
+      uint32_t q[4];
+      frag_cols_t(q, bs, kLdN, S * NTN / 2 + m, kk);
+#pragma unroll
+      for (int k = 0; k < NT; ++k) {
+        mma(dca[2 * m], ta[k], q[0], q[1]);
+        mma(dca[2 * m + 1], ta[k], q[2], q[3]);
+      }
+    }
+  }
+  const int64_t part0 = (int64_t)grp * gridDim.z * L * N;   // this group
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int64_t o = part0 + (row0 + j0 + lg + 8 * rr) * N + S * NH +
+                      2 * cq;
+#pragma unroll
+    for (int nt = 0; nt < NTN; ++nt) {
+      *reinterpret_cast<float2*>(db_part + o + 8 * nt) =
+          make_float2(dba[nt][2 * rr], dba[nt][2 * rr + 1]);
+      *reinterpret_cast<float2*>(dc_part + o + 8 * nt) =
+          make_float2(dca[nt][2 * rr], dca[nt][2 * rr + 1]);
+    }
+  }
+}
+
+template <int N, int NT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    ssd_chunk_bwd_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ cum,
+                     const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+                     const bf16* __restrict__ dy, const float* __restrict__ g,
+                     const float* __restrict__ hp, float* __restrict__ dx,
+                     float* __restrict__ dcum, float* __restrict__ ddt,
+                     float* __restrict__ db_part, float* __restrict__ dc_part,
+                     int L, int H, int G) {
+  constexpr int kLdN = N + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ChunkTcSmem lay(N, G);
+  bf16* cs = reinterpret_cast<bf16*>(smem_raw + lay.c);
+  bf16* bs = reinterpret_cast<bf16*>(smem_raw + lay.b);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + lay.x);
+  bf16* dys = reinterpret_cast<bf16*>(smem_raw + lay.dy);
+  float* gs = reinterpret_cast<float*>(smem_raw + lay.g);
+  float* hs = reinterpret_cast<float*>(smem_raw + lay.hp);
+  float* dts = reinterpret_cast<float*>(smem_raw + lay.dts);
+  float* cums = reinterpret_cast<float*>(smem_raw + lay.cums);
+  const int tid = threadIdx.x;
+  const int c = blockIdx.x, h0 = blockIdx.y * G, b = blockIdx.z;
+  const int nc = gridDim.x;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * kTQ;
+
+  // B and C once per group, and the first head's x, dy, g and h_prev.
+  for (int e = tid; e < kTQ * (N / 8); e += kTcThreads) {
+    const int i = e / (N / 8), k8 = (e % (N / 8)) * 8;
+    cp_async16(cs + i * kLdN + k8, cm + (row0 + i) * N + k8);
+    cp_async16(bs + i * kLdN + k8, bm + (row0 + i) * N + k8);
+  }
+  for (int e = tid; e < kTQ * (kTP / 8); e += kTcThreads) {
+    const int i = e >> 3, k8 = (e & 7) * 8;
+    const int64_t o = ((row0 + i) * H + h0) * kTP + k8;
+    cp_async16(xs + i * kLdX + k8, x + o);
+    cp_async16(dys + i * kLdX + k8, dy + o);
+  }
+  const int64_t st = (((int64_t)b * nc + c) * H + h0) * (int64_t)N * kTP;
+  for (int e = tid; e < N * (kTP / 4); e += kTcThreads) {
+    cp_async16(gs + 4 * e, g + st + 4 * e);
+    cp_async16(hs + 4 * e, hp + st + 4 * e);
+  }
+  cp_async_commit();
+  for (int e = tid; e < kTQ * G; e += kTcThreads) {
+    const int i = e / G, gi = e % G;
+    dts[gi * kTQ + i] = dt[(row0 + i) * H + h0 + gi];
+    cums[gi * kTQ + i] = cum[(row0 + i) * H + h0 + gi];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // Warps 0-3 take the first half of each product's columns, 4-7 the
+  // second; both run the same barriers in the same order, each a
+  // group_sync(0, kTcThreads) reached from its own template body.
+  if (tid < kTcThreads / 2)
+    chunk_bwd_tc_warp<N, NT, 0>(x, dy, g, hp, dx, dcum, ddt,
+                                db_part, dc_part, smem_raw, L, H, G);
+  else
+    chunk_bwd_tc_warp<N, NT, 1>(x, dy, g, hp, dx, dcum, ddt,
+                                db_part, dc_part, smem_raw, L, H, G);
+}
+
+template <int N>
+cudaError_t launch_chunk_bwd_tc(const void* x, const void* dt,
+                                const void* cum, const void* bm,
+                                const void* cm, const void* dy,
+                                const void* g, const void* hp, void* dx,
+                                void* dcum, void* ddt, void* db_part,
+                                void* dc_part, int B, int L, int H, int G,
+                                cudaStream_t stream) {
+  const size_t smem = ChunkTcSmem(N, G).total;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_bwd_tc<N, kBwdTerms>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(L / kTQ, H / G, B);
+  ssd_chunk_bwd_tc<N, kBwdTerms><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(cum), static_cast<const bf16*>(bm),
+      static_cast<const bf16*>(cm), static_cast<const bf16*>(dy),
+      static_cast<const float*>(g), static_cast<const float*>(hp),
+      static_cast<float*>(dx), static_cast<float*>(dcum),
+      static_cast<float*>(ddt), static_cast<float*>(db_part),
+      static_cast<float*>(dc_part), L, H, G);
+  return cudaGetLastError();
+}
+
+// Shared-memory layout of ssd_carry_bwd_tc, in bytes
+// (ssd_bwd_tc_smem_bytes reports it): the forward walk's ring of
+// state slices, the reverse walk's rings of C slices, dy tiles and cum
+// columns, and every chunk's exp(cum_last).
+struct CarryTcSmem {
+  size_t s, c, dy, cum, dec, total;
+  __host__ __device__ CarryTcSmem(int NS, int nc) {
+    s = 0;
+    c = s + kCarryStages * (size_t)NS * kTP * 4;
+    dy = c + kCarryStages * (size_t)kTQ * (NS + 8) * 2;
+    cum = dy + kCarryStages * (size_t)kTQ * kLdX * 2;
+    dec = cum + kCarryStages * (size_t)kTQ * 4;
+    total = dec + ((size_t)nc * 4 + 15) / 16 * 16;
+  }
+};
+
+// One block per (slice of NS rows of N, head, batch): warps 0 .. NS/16 - 1
+// walk forward (h_prev), the others walk back (g), each group at its own
+// pace.
+template <int NS, int NT>
+__global__ void __launch_bounds__(4 * NS)
+    ssd_carry_bwd_tc(const float* __restrict__ states,
+                     const float* __restrict__ cum,
+                     const bf16* __restrict__ cm, const bf16* __restrict__ dy,
+                     const float* __restrict__ init,
+                     const float* __restrict__ dfinal,
+                     float* __restrict__ h_prev, float* __restrict__ g_out,
+                     float* __restrict__ dinit, int L, int H, int N) {
+  constexpr int W = NS / 16;        // warps of each walk
+  constexpr int kGroup = 32 * W;    // threads of each walk
+  constexpr int kLdC = NS + 8;      // padded bf16 row of a C slice
+  constexpr int kPer = NS * kTP / 4 / kGroup;   // float4s a forward thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = L / kTQ;
+  const CarryTcSmem lay(NS, nc);
+  float* ring_s = reinterpret_cast<float*>(smem_raw + lay.s);
+  bf16* ring_c = reinterpret_cast<bf16*>(smem_raw + lay.c);
+  bf16* ring_dy = reinterpret_cast<bf16*>(smem_raw + lay.dy);
+  float* ring_cum = reinterpret_cast<float*>(smem_raw + lay.cum);
+  float* dec = reinterpret_cast<float*>(smem_raw + lay.dec);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * NS, h = blockIdx.y, b = blockIdx.z;
+  const int64_t whole = ((int64_t)b * H + h) * (int64_t)N * kTP;
+  auto at = [&](int c) {
+    return (((int64_t)b * nc + c) * H + h) * (int64_t)N * kTP;
+  };
+
+  for (int c = tid; c < nc; c += blockDim.x)
+    dec[c] = expf(cum[((int64_t)b * L + (int64_t)c * kTQ + kTQ - 1) * H + h]);
+  __syncthreads();
+
+  if (warp < W) {
+    // Forward: h_prev_c = h, h = exp(cum_last,c) h + S_c.  Thread tid owns
+    // the float4s tid + kGroup k of the [NS][P] slice and copies exactly
+    // those, so it waits for its own copies and needs no barrier.
+    auto off = [&](int k) {
+      const int e = tid + kGroup * k;
+      return (int64_t)(n0 + (e >> 4)) * kTP + (e & 15) * 4;
+    };
+    auto issue = [&](int c) {
+      float* dst = ring_s + (c % kCarryStages) * NS * kTP;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        cp_async16(dst + 4 * (tid + kGroup * k), states + at(c) + off(k));
+    };
+    float4 hv[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      hv[k] = init ? ld4(init + whole + off(k))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < kCarryStages - 1; ++c) {
+      if (c < nc) issue(c);
+      cp_async_commit();
+    }
+    for (int c = 0; c < nc; ++c) {
+      cp_async_wait<kCarryStages - 2>();   // chunk c's slice has landed
+      if (c + kCarryStages - 1 < nc) issue(c + kCarryStages - 1);
+      cp_async_commit();
+      const float* src = ring_s + (c % kCarryStages) * NS * kTP;
+      const float d = dec[c];
+      const int64_t s = at(c);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        st4(h_prev + s + off(k), hv[k]);
+        hv[k] = decay4(d, hv[k], ld4(src + 4 * (tid + kGroup * k)));
+      }
+    }
+    return;
+  }
+
+  // Reverse: g_c = g, g = exp(cum_last,c) g + sum_i exp(cum_i) C_i (x) dy_i,
+  // the sum as (exp(cum) o C)^T . dy on mma.sync: C's slice is the A
+  // operand (ldmatrix.trans), scaled by exp(cum_i) and split into NT
+  // terms, dy the B operand as read.  g stays in fp32 registers in the
+  // accumulator layout: rows n0 + 16 rw + lg (+ 8), columns 8 pt + 2 q.
+  const int rt = tid - kGroup, rw = warp - W;
+  const int lg = lane >> 2, cq = lane & 3;
+  auto issue = [&](int t) {   // step t walks chunk nc - 1 - t
+    const int st = t % kCarryStages;
+    const int64_t r0 = (int64_t)b * L + (int64_t)(nc - 1 - t) * kTQ;
+    bf16* cd = ring_c + st * kTQ * kLdC;
+    bf16* dd = ring_dy + st * kTQ * kLdX;
+    float* cu = ring_cum + st * kTQ;
+    for (int e = rt; e < kTQ * (NS / 8); e += kGroup) {
+      const int i = e / (NS / 8), k8 = (e % (NS / 8)) * 8;
+      cp_async16(cd + i * kLdC + k8, cm + (r0 + i) * N + n0 + k8);
+    }
+    for (int e = rt; e < kTQ * (kTP / 8); e += kGroup) {
+      const int i = e >> 3, k8 = (e & 7) * 8;
+      cp_async16(dd + i * kLdX + k8, dy + ((r0 + i) * H + h) * kTP + k8);
+    }
+    for (int e = rt; e < kTQ; e += kGroup)
+      cp_async4(cu + e, cum + (r0 + e) * H + h);
+  };
+  float gv[8][4];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int64_t o = whole + (int64_t)(n0 + 16 * rw + lg + 8 * rr) * kTP +
+                      2 * cq;
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt) {
+      const float2 v = dfinal
+                           ? *reinterpret_cast<const float2*>(dfinal + o +
+                                                              8 * pt)
+                           : make_float2(0.f, 0.f);
+      gv[pt][2 * rr] = v.x;
+      gv[pt][2 * rr + 1] = v.y;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kCarryStages - 1; ++t) {
+    if (t < nc) issue(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nc; ++t) {
+    const int c = nc - 1 - t, st = t % kCarryStages;
+    // Chunk c's tiles have landed; every warp of the walk is done with
+    // step t - 1's stage, which the copy below refills.
+    cp_async_wait<kCarryStages - 2>();
+    group_sync(1, kGroup);
+    if (t + kCarryStages - 1 < nc) issue(t + kCarryStages - 1);
+    cp_async_commit();
+    const bf16* cst = ring_c + st * kTQ * kLdC;
+    const bf16* dst = ring_dy + st * kTQ * kLdX;
+    const float* cu = ring_cum + st * kTQ;
+    float acc[8][4];
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[pt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      ldsm_x4_t(a, cst + (16 * kk + (lane & 7) + (lane >> 4) * 8) * kLdC +
+                       16 * rw + ((lane >> 3) & 1) * 8);
+      const int i = 16 * kk + 2 * cq;
+      const float e0 = expf(cu[i]), e1 = expf(cu[i + 1]);
+      const float e8 = expf(cu[i + 8]), e9 = expf(cu[i + 9]);
+      uint32_t ta[NT][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 v = unpack2(a[q]);
+        uint32_t tt[NT];
+        split<NT>(v.x * (q < 2 ? e0 : e8), v.y * (q < 2 ? e1 : e9), tt);
+#pragma unroll
+        for (int k = 0; k < NT; ++k) ta[k][q] = tt[k];
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        uint32_t q[4];
+        ldsm_x4_t(q, dst + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               kLdX +
+                         16 * m + (lane >> 4) * 8);
+#pragma unroll
+        for (int k = 0; k < NT; ++k) {
+          mma(acc[2 * m], ta[k], q[0], q[1]);
+          mma(acc[2 * m + 1], ta[k], q[2], q[3]);
+        }
+      }
+    }
+    const float d = dec[c];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float* o = g_out + at(c) + (int64_t)(n0 + 16 * rw + lg + 8 * rr) * kTP +
+                 2 * cq;
+#pragma unroll
+      for (int pt = 0; pt < 8; ++pt) {
+        *reinterpret_cast<float2*>(o + 8 * pt) =
+            make_float2(gv[pt][2 * rr], gv[pt][2 * rr + 1]);
+        gv[pt][2 * rr] = fmaf(d, gv[pt][2 * rr], acc[pt][2 * rr]);
+        gv[pt][2 * rr + 1] = fmaf(d, gv[pt][2 * rr + 1], acc[pt][2 * rr + 1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float* o = dinit + whole + (int64_t)(n0 + 16 * rw + lg + 8 * rr) * kTP +
+               2 * cq;
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt)
+      *reinterpret_cast<float2*>(o + 8 * pt) =
+          make_float2(gv[pt][2 * rr], gv[pt][2 * rr + 1]);
+  }
+}
+
+cudaError_t launch_carry_bwd_tc(const void* states, const void* cum,
+                                const void* cm, const void* dy,
+                                const void* init, const void* dfinal,
+                                void* h_prev, void* g, void* dinit, int B,
+                                int L, int H, int N, cudaStream_t stream) {
+  constexpr int NS = kCarryRows;
+  const size_t smem = CarryTcSmem(NS, L / kTQ).total;
+  if (N % NS || smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_carry_bwd_tc<NS, kBwdTerms>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(N / NS, H, B);
+  ssd_carry_bwd_tc<NS, kBwdTerms><<<grid, 4 * NS, smem, stream>>>(
+      static_cast<const float*>(states), static_cast<const float*>(cum),
+      static_cast<const bf16*>(cm), static_cast<const bf16*>(dy),
+      static_cast<const float*>(init), static_cast<const float*>(dfinal),
+      static_cast<float*>(h_prev), static_cast<float*>(g),
+      static_cast<float*>(dinit), L, H, N);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 for C and dy.  states, h_prev and g
 // [B, L / Q, H, N, P], cum [B, L, H], init, dfinal and dinit [B, H, N, P]
 // fp32 (init and dfinal may be null: zeros), C [B, L, N], dy [B, L, H, P];
 // all contiguous and 16-byte aligned; P and N multiples of 8, N at most
-// 256.
+// 256.  tc = 0 runs ssd_carry_bwd on the CUDA cores; tc = 1 runs
+// ssd_carry_bwd_tc (bf16 at Q = P = 64, N = 64 or 128).
 extern "C" int ssd_carry_bwd_launch(const void* states, const void* cum,
                                     const void* cm, const void* dy,
                                     const void* init, const void* dfinal,
                                     void* h_prev, void* g, void* dinit,
                                     int dtype, int B, int L, int H, int P,
-                                    int N, int Q, void* stream) {
+                                    int N, int Q, int tc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P % 8 || N % 8 || N > 256 || Q < 1 || L % Q)
     return (int)cudaErrorInvalidValue;
+  if (tc) {
+    if (dtype != 1 || Q != kTQ || P != kTP || (N != 64 && N != 128))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_carry_bwd_tc(states, cum, cm, dy, init, dfinal,
+                                    h_prev, g, dinit, B, L, H, N, s);
+  }
   const bool wide = P % 16 == 0;
 #define SSD_CARRY_BWD(T, PS)                                                \
   return (int)launch_carry_bwd_ps<T, PS>(states, cum, cm, dy, init, dfinal, \
@@ -584,7 +1535,8 @@ extern "C" int ssd_carry_bwd_launch(const void* states, const void* cum,
 // g and h_prev [B, L / Q, H, N, P] fp32; db_part and dc_part
 // [H / G, B, L, N] fp32; all contiguous and 16-byte aligned.  Q a multiple
 // of 4 up to 64, P a multiple of 4 up to 64, N a power of two from 8 to
-// 128, G a divisor of H.
+// 128, G a divisor of H.  tc = 0 runs ssd_chunk_bwd on the CUDA cores;
+// tc = 1 runs ssd_chunk_bwd_tc (bf16 at Q = P = 64, N = 64 or 128).
 extern "C" int ssd_chunk_bwd_launch(const void* x, const void* dt,
                                     const void* cum, const void* bm,
                                     const void* cm, const void* dy,
@@ -592,11 +1544,23 @@ extern "C" int ssd_chunk_bwd_launch(const void* x, const void* dt,
                                     void* dcum, void* ddt, void* db_part,
                                     void* dc_part, int dtype, int B, int L,
                                     int H, int P, int N, int Q, int G,
-                                    void* stream) {
+                                    int tc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q % 4 || Q < 4 || Q > 64 || L % Q || P % 4 || P < 4 || P > 64 ||
       !pow2(N) || N < 8 || N > 128 || G < 1 || H % G)
     return (int)cudaErrorInvalidValue;
+  if (tc) {
+    if (dtype != 1 || Q != kTQ || P != kTP)
+      return (int)cudaErrorInvalidValue;
+#define SSD_CHUNK_BWD_TC(NN)                                                \
+  return (int)launch_chunk_bwd_tc<NN>(x, dt, cum, bm, cm, dy, g, hp, dx,    \
+                                      dcum, ddt, db_part, dc_part, B, L, H, \
+                                      G, s)
+    if (N == 64) SSD_CHUNK_BWD_TC(64);
+    if (N == 128) SSD_CHUNK_BWD_TC(128);
+#undef SSD_CHUNK_BWD_TC
+    return (int)cudaErrorInvalidValue;
+  }
   const int mt = ((Q / 4) * (N / 4) + kThreads - 1) / kThreads;  // 1 or 2
 #define SSD_CHUNK_BWD(T, MT)                                                 \
   return (int)launch_chunk_bwd_mt<T, MT>(x, dt, cum, bm, cm, dy, g, hp, dx,  \
@@ -608,4 +1572,14 @@ extern "C" int ssd_chunk_bwd_launch(const void* x, const void* dt,
   if (dtype == 1 && mt == 2) SSD_CHUNK_BWD(bf16, 2);
 #undef SSD_CHUNK_BWD
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory (bytes) of ssd_chunk_bwd_tc (which = 0) at state
+// size N with n heads a block, or of ssd_carry_bwd_tc (which = 1) at n
+// chunks; -1 for anything else.
+extern "C" int ssd_bwd_tc_smem_bytes(int which, int N, int n) {
+  if ((N != 64 && N != 128) || n < 1) return -1;
+  if (which == 0) return (int)ChunkTcSmem(N, n).total;
+  if (which == 1) return (int)CarryTcSmem(kCarryRows, n).total;
+  return -1;
 }

@@ -3,15 +3,22 @@ intra-chunk pass (:func:`ssd_chunks_cuda`; bf16 on the tensor cores at
 the serving shapes, fp32 on the CUDA cores) and the inter-chunk carry
 (:func:`ssd_carry_cuda`); and their gradient (``csrc/ssd_bwd.cu``, its
 own library): the carry's two walks (:func:`ssd_carry_bwd_cuda`) and each
-chunk's gradients (:func:`ssd_chunk_bwd_cuda`), both on the CUDA cores
-in fp32 for fp32 and bf16 inputs.  ``BWD_KERNEL_LAUNCHES`` counts the
-backward kernels' launches.
+chunk's gradients (:func:`ssd_chunk_bwd_cuda`).  The backward wrappers
+choose the kernel by dtype and shape (:func:`bwd_kernels`): bf16 at
+Q = P = 64, N in {64, 128} on the tensor cores (``ssd_carry_bwd_tc``,
+``ssd_chunk_bwd_tc``: ``mma.sync`` with the fp32 operands in
+``BWD_TERMS`` bf16 terms, the next head's or chunks' tiles copied with
+``cp.async`` while the block computes; bound by bytes), fp32 and every
+other shape on the CUDA cores in fp32 (``ssd_carry_bwd``,
+``ssd_chunk_bwd``).  A refused launch raises: there is no fallback from
+one kernel to the other.  ``BWD_KERNEL_LAUNCHES`` counts each backward
+kernel's launches.
 
 Each library is compiled at first use with ``nvcc`` for ``sm_90a``
 (``kernels/build.py``) and loaded with ``ctypes``; nothing is built when
-this module is imported.  Build flags: ``-O3``, no fast-math,
-multiply-add contraction allowed — the kernels are held to a tolerance
-against the plain version.
+this module is imported.  Both sources include ``csrc/ssd_mma.cuh``.
+Build flags: ``-O3``, no fast-math, multiply-add contraction allowed —
+the kernels are held to a tolerance against the plain version.
 """
 from __future__ import annotations
 
@@ -45,19 +52,32 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_carry_bwd_launch.argtypes = [P] * 9 + [I] * 7 + [P]
-    lib.ssd_chunk_bwd_launch.argtypes = [P] * 13 + [I] * 8 + [P]
-    for fn in (lib.ssd_carry_bwd_launch, lib.ssd_chunk_bwd_launch):
+    lib.ssd_carry_bwd_launch.argtypes = [P] * 9 + [I] * 8 + [P]
+    lib.ssd_chunk_bwd_launch.argtypes = [P] * 13 + [I] * 9 + [P]
+    lib.ssd_bwd_tc_smem_bytes.argtypes = [I] * 3
+    for fn in (lib.ssd_carry_bwd_launch, lib.ssd_chunk_bwd_launch,
+               lib.ssd_bwd_tc_smem_bytes):
         fn.restype = ctypes.c_int
 
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-LIB = CudaLibrary("ssd", CSRC / "ssd.cu", (), _bind)
-LIB_BWD = CudaLibrary("ssd_bwd", CSRC / "ssd_bwd.cu", (), _bind_bwd)
+# Both sources include the mma.sync / ldmatrix / cp.async helpers: an edit
+# there rebuilds both libraries.
+HEADERS = (CSRC / "ssd_mma.cuh",)
+LIB = CudaLibrary("ssd", CSRC / "ssd.cu", (), _bind, headers=HEADERS)
+LIB_BWD = CudaLibrary("ssd_bwd", CSRC / "ssd_bwd.cu", (), _bind_bwd,
+                      headers=HEADERS)
 
+# bf16 terms of the backward tensor-core kernels' fp32 operands (g,
+# h_prev, K o dt, the summed dC . B^T gradient, exp(cum) o C); the CPU
+# emulation (tests/test_torch_ssd_bwd.py) picks the fewest that keep every
+# output within half its bar.  csrc/ssd_bwd.cu's kBwdTerms is the same.
+BWD_TERMS = 2
 # Launches of each backward kernel through the wrappers below (reset them
-# to 0 and read them back around a run).
-BWD_KERNELS = ("ssd_carry_bwd", "ssd_chunk_bwd")
+# to 0 and read them back around a run): the CUDA-core kernels take fp32
+# and the shapes the tensor-core ones (``_tc``, :func:`tc_shape`) do not.
+BWD_KERNELS = ("ssd_carry_bwd", "ssd_chunk_bwd", "ssd_carry_bwd_tc",
+               "ssd_chunk_bwd_tc")
 BWD_KERNEL_LAUNCHES = dict.fromkeys(BWD_KERNELS, 0)
 # What ssd_chunk_bwd takes: chunks of Q <= 64 rows (a multiple of 4),
 # head widths P <= 64 (a multiple of 4), state sizes N a power of two
@@ -232,6 +252,16 @@ def chunk_bwd_smem_bytes(Q: int, N: int, P: int) -> int:
                 + 9 * Q)
 
 
+def bwd_kernels(dtype: torch.dtype, Q: int, P: int, N: int
+                ) -> Tuple[str, str]:
+    """(carry, chunk) backward kernels the wrappers launch for inputs of
+    ``dtype`` at this shape: the tensor-core pair where the forward's
+    tensor-core chunk kernel applies (:func:`tc_shape`), else the
+    CUDA-core pair."""
+    tc = "_tc" if tc_shape(dtype, Q, P, N) else ""
+    return f"ssd_carry_bwd{tc}", f"ssd_chunk_bwd{tc}"
+
+
 def bwd_heads_per_block(pairs: int, H: int, sms: int) -> int:
     """Heads per ``ssd_chunk_bwd`` block (one block per SM fits its
     shared memory): the largest divisor of H up to 16 that still gives
@@ -247,14 +277,20 @@ def bwd_heads_per_block(pairs: int, H: int, sms: int) -> int:
 def ssd_carry_bwd_cuda(states: torch.Tensor, cum: torch.Tensor,
                        Cm: torch.Tensor, dy: torch.Tensor, chunk: int,
                        init_state: Optional[torch.Tensor] = None,
-                       dfinal: Optional[torch.Tensor] = None
+                       dfinal: Optional[torch.Tensor] = None,
+                       cuda_cores: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``ssd_carry_bwd`` on CUDA tensors: states [B,nc,H,N,P] fp32
-    (the chunk kernel's), cum [B,L,H] fp32, Cm [B,L,N] and dy [B,L,H,P]
-    of one dtype (fp32 or bf16), init_state and dfinal [B,H,N,P] fp32 or
-    None (zeros).  Returns (h_prev, g [B,nc,H,N,P], d init_state
-    [B,H,N,P]), fp32, as ``ref.ssd_carry_bwd_ref``, without
-    synchronising."""
+    """Launch the carry backward on CUDA tensors: states [B,nc,H,N,P]
+    fp32 (the chunk kernel's), cum [B,L,H] fp32, Cm [B,L,N] and dy
+    [B,L,H,P] of one dtype (fp32 or bf16), init_state and dfinal
+    [B,H,N,P] fp32 or None (zeros).  Returns (h_prev, g [B,nc,H,N,P],
+    d init_state [B,H,N,P]), fp32, as ``ref.ssd_carry_bwd_ref``, without
+    synchronising.
+
+    The kernel follows :func:`bwd_kernels`: ``ssd_carry_bwd_tc`` for bf16
+    at the tensor-core shapes, ``ssd_carry_bwd`` otherwise or when
+    ``cuda_cores`` is set.  A launch the kernel refuses (a decay table of
+    the chunks beyond its shared memory) raises."""
     if states.dim() != 5 or states.device.type != "cuda":
         raise ValueError(f"ssd_carry_bwd_cuda needs CUDA states [B, nc, H, "
                          f"N, P], got {list(states.shape)} on "
@@ -285,6 +321,9 @@ def ssd_carry_bwd_cuda(states: torch.Tensor, cum: torch.Tensor,
         "dfinal": (dfinal, (Bsz, H, N, P), f32)})
     _check_aligned(states=states, init_state=init_state,  # 16-byte loads
                    dfinal=dfinal)
+    tc = tc_shape(Cm.dtype, chunk, P, N) and not cuda_cores
+    if tc:
+        _check_aligned(Cm=Cm, dy=dy)   # cp.async copies
     h_prev = torch.empty_like(states)
     g = torch.empty_like(states)
     dinit = torch.empty((Bsz, H, N, P), dtype=torch.float32,
@@ -295,21 +334,26 @@ def ssd_carry_bwd_cuda(states: torch.Tensor, cum: torch.Tensor,
         None if init_state is None else init_state.data_ptr(),
         None if dfinal is None else dfinal.data_ptr(), h_prev.data_ptr(),
         g.data_ptr(), dinit.data_ptr(), DTYPES[Cm.dtype], Bsz, L, H, P, N,
-        chunk, stream)
-    check_launch(err, "SSD carry backward")
-    BWD_KERNEL_LAUNCHES["ssd_carry_bwd"] += 1
+        chunk, int(tc), stream)
+    name = "ssd_carry_bwd_tc" if tc else "ssd_carry_bwd"
+    check_launch(err, name)
+    BWD_KERNEL_LAUNCHES[name] += 1
     return h_prev, g, dinit
 
 
 def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                        Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
-                       g: torch.Tensor, h_prev: torch.Tensor, chunk: int):
-    """Launch ``ssd_chunk_bwd`` on CUDA tensors: x, dy [B,L,H,P] and Bm,
-    Cm [B,L,N] of one dtype (fp32 or bf16), dt and cum [B,L,H] fp32, g and
-    h_prev [B,nc,H,N,P] fp32 (:func:`ssd_carry_bwd_cuda`'s).  Returns
-    (dx [B,L,H,P], dcum [B,L,H], ddt [B,L,H], dB, dC [groups,B,L,N]),
-    fp32, as ``ref.ssd_chunk_bwd_ref`` with :func:`bwd_heads_per_block`'s
-    heads per group on x's card, without synchronising."""
+                       g: torch.Tensor, h_prev: torch.Tensor, chunk: int,
+                       cuda_cores: bool = False):
+    """Launch the chunk backward on CUDA tensors: x, dy [B,L,H,P] and
+    Bm, Cm [B,L,N] of one dtype (fp32 or bf16), dt and cum [B,L,H] fp32,
+    g and h_prev [B,nc,H,N,P] fp32 (:func:`ssd_carry_bwd_cuda`'s).
+    Returns (dx [B,L,H,P], dcum [B,L,H], ddt [B,L,H], dB, dC
+    [groups,B,L,N]), fp32, as ``ref.ssd_chunk_bwd_ref`` with
+    :func:`bwd_heads_per_block`'s heads per group on x's card, without
+    synchronising.  The kernel follows :func:`bwd_kernels`:
+    ``ssd_chunk_bwd_tc`` for bf16 at the tensor-core shapes,
+    ``ssd_chunk_bwd`` otherwise or when ``cuda_cores`` is set."""
     if x.dim() != 4 or x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_bwd_cuda needs a CUDA x [B, L, H, P], "
                          f"got {list(x.shape)} on {x.device}")
@@ -322,15 +366,16 @@ def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                          f"are multiples of 4 up to {BWD_MAX_Q} and "
                          f"{BWD_MAX_P}, and N in {BWD_N}; got Q {chunk}, "
                          f"P {P}, N {N}")
-    if chunk_bwd_smem_bytes(chunk, N, P) > MAX_SMEM_BYTES:
-        raise ValueError(f"chunk {chunk}, N {N}, P {P} need "
-                         f"{chunk_bwd_smem_bytes(chunk, N, P)} bytes of "
-                         f"shared memory, above {MAX_SMEM_BYTES}")
     if x.dtype not in DTYPES:
         raise ValueError(f"unsupported dtype {x.dtype}")
+    tc = tc_shape(x.dtype, chunk, P, N) and not cuda_cores
     G = bwd_heads_per_block(
         Bsz * nc, H,
         torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if not tc and chunk_bwd_smem_bytes(chunk, N, P) > MAX_SMEM_BYTES:
+        raise ValueError(f"chunk {chunk}, N {N}, P {P} need "
+                         f"{chunk_bwd_smem_bytes(chunk, N, P)} bytes of "
+                         f"shared memory, above {MAX_SMEM_BYTES}")
     if H // G > MAX_GRID_YZ or Bsz > MAX_GRID_YZ:
         raise ValueError(f"unsupported shape {list(x.shape)}")
     f32 = (torch.float32,)
@@ -342,6 +387,8 @@ def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
         "dy": (dy, (Bsz, L, H, P), (x.dtype,)),
         "g": (g, (Bsz, nc, H, N, P), f32),
         "h_prev": (h_prev, (Bsz, nc, H, N, P), f32)})
+    if tc:    # 16-byte cp.async copies
+        _check_aligned(x=x, Bm=Bm, Cm=Cm, dy=dy, g=g, h_prev=h_prev)
     dx = torch.empty((Bsz, L, H, P), dtype=torch.float32, device=x.device)
     dcum = torch.empty((Bsz, L, H), dtype=torch.float32, device=x.device)
     ddt = torch.empty_like(dcum)
@@ -353,7 +400,9 @@ def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
         x.data_ptr(), dt.data_ptr(), cum.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), dy.data_ptr(), g.data_ptr(), h_prev.data_ptr(),
         dx.data_ptr(), dcum.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
-        dC.data_ptr(), DTYPES[x.dtype], Bsz, L, H, P, N, chunk, G, stream)
-    check_launch(err, "SSD chunk backward")
-    BWD_KERNEL_LAUNCHES["ssd_chunk_bwd"] += 1
+        dC.data_ptr(), DTYPES[x.dtype], Bsz, L, H, P, N, chunk, G, int(tc),
+        stream)
+    name = "ssd_chunk_bwd_tc" if tc else "ssd_chunk_bwd"
+    check_launch(err, name)
+    BWD_KERNEL_LAUNCHES[name] += 1
     return dx, dcum, ddt, dB, dC

@@ -13,9 +13,12 @@ Under grad, on a CUDA tensor, :func:`ssd` goes through the operator
 ``repro_torch::ssd_fwd`` (``torch.library.custom_op``): the same two
 launches, with its gradient registered.  It saves x, dt, A, B, C and
 the initial state, not the chunk states; its backward (:func:`ssd_bwd`)
-launches the chunk kernel once more for them, then ``ssd_carry_bwd``
-(h_prev and the state gradients, two walks over the chunks) and
-``ssd_chunk_bwd`` (each chunk's gradients) from ``csrc/ssd_bwd.cu``, and
+launches the chunk kernel once more for them, then the carry backward
+(h_prev and the state gradients, two walks over the chunks) and the chunk
+backward (each chunk's gradients) from ``csrc/ssd_bwd.cu`` — for bf16 at
+the models' shapes (Q = P = 64, N in {64, 128}) the tensor-core
+``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, else the CUDA-core
+``ssd_carry_bwd`` and ``ssd_chunk_bwd`` (``kernel.bwd_kernels``) — and
 finishes in torch: dB and dC summed over the kernel's head groups in a
 fixed order, the cumsum's gradient (ddt += A·da, dA = Σ dt·da).  The
 backward kernels take chunks of up to ``kernel.BWD_MAX_Q`` rows, and

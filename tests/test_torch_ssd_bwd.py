@@ -21,6 +21,7 @@ mamba2 smoke step.  The CUDA kernels are held against their plain
 versions on the card (``cuda`` marker).
 """
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -415,6 +416,183 @@ def test_ctypes_bindings_match_the_c_entry_points(lib):
 
 
 # ---------------------------------------------------------------------------
+# The tensor-core backward kernels' arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def bf16_terms(v, n):
+    """``n`` bf16-valued fp32 terms of ``v``: each the round-to-nearest
+    bf16 of what the earlier ones left, as the kernels split."""
+    terms = []
+    for _ in range(n):
+        t = v.bfloat16().float()
+        terms.append(t)
+        v = v - t
+    return terms
+
+
+def split_sum(v, n):
+    """What a product sees of ``v`` split into ``n`` bf16 terms, each
+    multiplied exactly by a bf16 partner: the sum of the terms."""
+    return sum(bf16_terms(v, n))
+
+
+def emulate_tensor_core_carry_bwd(states, cum, Cm, dy, chunk, init_state,
+                                  dfinal, terms):
+    """``ssd_carry_bwd_tc``'s arithmetic: the walks in fp32; each chunk's
+    Σ_i exp(cum_i) C_i ⊗ dy_i with exp(cum_i)·C_i (fp32) split into
+    ``terms`` bf16 terms and dy as read (bf16), exact products, fp32
+    sums."""
+    Bsz, nc, H, N, P = states.shape
+    f32 = torch.float32
+    cumc = cum.to(f32).reshape(Bsz, nc, chunk, H)
+    decay = torch.exp(cumc[:, :, -1, :])[..., None, None]
+    h = (torch.zeros((Bsz, H, N, P)) if init_state is None
+         else init_state.to(f32))
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = decay[:, c] * h + states[:, c]
+    ec = Cm.bfloat16().float().reshape(Bsz, nc, chunk, 1, N) \
+        * torch.exp(cumc)[..., None]                       # [b,c,i,h,n]
+    dyc = dy.bfloat16().float().reshape(Bsz, nc, chunk, H, P)
+    cdy = torch.einsum("bcihn,bcihp->bchnp", split_sum(ec, terms), dyc)
+    g = torch.zeros((Bsz, H, N, P)) if dfinal is None else dfinal.to(f32)
+    gs = [g] * nc
+    for c in reversed(range(nc)):
+        gs[c] = g
+        g = decay[:, c] * g + cdy[:, c]
+    return torch.stack(h_prevs, 1), torch.stack(gs, 1), g
+
+
+def emulate_tensor_core_chunk_bwd(x, dt, cum, Bm, Cm, dy, g, h_prev, chunk,
+                                  heads_per_group, terms):
+    """``ssd_chunk_bwd_tc``'s arithmetic: x, B, C and dy in bf16; C·Bᵀ and
+    dW = dy·xᵀ with exact products and fp32 sums; every product with an
+    fp32 operand (K∘dt for dx, g for B·g and x·gᵀ, h_prev for dy·h_prevᵀ,
+    the group's summed dW∘E∘dt for dB and dC) with that operand split into
+    ``terms`` bf16 terms; ⟨B_j ⊗ x_j, g⟩ as x_j · (B·g)_j and the other
+    reductions in fp32.  Returns what ``ssd_chunk_bwd_ref`` does."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nc, G = L // chunk, heads_per_group
+    f32 = torch.float32
+    xc = x.bfloat16().float().reshape(Bsz, nc, chunk, H, P)
+    dyc = dy.bfloat16().float().reshape(Bsz, nc, chunk, H, P)
+    dtc = dt.to(f32).reshape(Bsz, nc, chunk, H)
+    cumc = cum.to(f32).reshape(Bsz, nc, chunk, H)
+    Bc = Bm.bfloat16().float().reshape(Bsz, nc, chunk, N)
+    Cc = Cm.bfloat16().float().reshape(Bsz, nc, chunk, N)
+    gt, ht = split_sum(g.to(f32), terms), split_sum(h_prev.to(f32), terms)
+    iota = torch.arange(chunk)
+    causal = (iota[:, None] >= iota[None, :])[None, None, :, :, None]
+    seg = cumc[:, :, :, None, :] - cumc[:, :, None, :, :]
+    E = torch.where(causal, torch.exp(seg), 0.0)            # [b,c,i,j,h]
+    K = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None] * E
+    dt_j = dtc[:, :, None, :, :]
+    dW = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    V = dW * K
+    T = V * dt_j
+    dexp = torch.exp(cumc[:, :, -1:, :] - cumc)
+    d = dexp * dtc
+    bg = torch.einsum("bcjn,bchnp->bcjhp", Bc, gt)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", split_sum(K * dt_j, terms), dyc) \
+        + d[..., None] * bg
+    ured = (xc * bg).sum(-1)
+    ecum = torch.exp(cumc)
+    dyh = torch.einsum("bcihp,bchnp->bcihn", dyc, ht)
+    dcum = T.sum(3) - T.sum(2) - d * ured \
+        + ecum * torch.einsum("bcin,bcihn->bcih", Cc, dyh)
+    dcum[:, :, -1, :] += (d * ured).sum(2) + torch.exp(cumc[:, :, -1, :]) \
+        * (g * h_prev).sum((-2, -1))
+    ddt = V.sum(2) + dexp * ured
+    dCB = split_sum((dW * E * dt_j).reshape(Bsz, nc, chunk, chunk, H // G, G)
+                    .sum(5), terms)
+    shape = (-1, Bsz, L, N)
+    gx = torch.einsum("bcjhp,bchnp->bcjhn", xc, gt)
+    dB = torch.einsum("bcijg,bcin->gbcjn", dCB, Cc).reshape(shape) \
+        + ref_mod._group_heads(d[..., None] * gx, G)
+    dC = torch.einsum("bcijg,bcjn->gbcin", dCB, Bc).reshape(shape) \
+        + ref_mod._group_heads(ecum[..., None] * dyh, G)
+    return (dx.reshape(Bsz, L, H, P), dcum.reshape(Bsz, L, H),
+            ddt.reshape(Bsz, L, H), dB, dC)
+
+
+# The tensor-core kernels' shapes (Q = P = 64, N = 128 and 64), a few heads
+# and chunks, bf16 inputs with a nonzero initial state and dfinal.
+BWD_EMU_SHAPES = [(1, 256, 4, 64, 128, 64), (2, 256, 4, 64, 64, 64)]
+
+
+def bwd_emulation_ratios(terms):
+    """Worst max|Δ| / (1e-4·max(max|ref|, 1)) per output of each emulated
+    kernel against its plain version on the same inputs, over
+    ``BWD_EMU_SHAPES``."""
+    worst = {}
+    for B, L, H, P, N, Q in BWD_EMU_SHAPES:
+        arrs, dy, h0, df = make(B * L + N, B, L, H, P, N, "nonzero")
+        ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, torch.bfloat16)
+        x, dt, A, Bm, Cm = ts
+        cum = chunk_cumsum(dt, A, Q)
+        _, states = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+        args = (states, cum, Cm, tdy, Q, th0, tdf)
+        want = ssd_carry_bwd_ref(*args)
+        got = emulate_tensor_core_carry_bwd(*args, terms)
+        named = list(zip(("h_prev", "g", "d init_state"), got, want))
+        h_prev, g = want[0], want[1]
+        args = (x, dt, cum, Bm, Cm, tdy, g, h_prev, Q, 2)
+        named += zip(("dx", "dcum", "ddt", "dB", "dC"),
+                     emulate_tensor_core_chunk_bwd(*args, terms),
+                     ssd_chunk_bwd_ref(*args))
+        for name, a, w in named:
+            bar = 1e-4 * max(float(w.abs().max()), 1.0)
+            worst[name] = max(worst.get(name, 0.0),
+                              float((a - w).abs().max()) / bar)
+    return worst
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3])
+def test_tensor_core_bwd_emulation_meets_the_bar(terms):
+    """``BWD_TERMS`` (2) and three terms keep every output of both
+    emulated kernels within half its bar, three nearly exact; one term (a
+    single bf16 rounding) misses the bar.  The worst ratios are printed
+    (``-s``)."""
+    assert kernel.BWD_TERMS == 2
+    ratios = bwd_emulation_ratios(terms)
+    print(f"\nterms={terms}: worst max|Δ|/bar " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ratios.items()))
+    if terms == 1:
+        assert max(ratios.values()) > 1.0, ratios
+    else:
+        # BWD_TERMS is the fewest terms with a margin of 2 on every output.
+        assert max(ratios.values()) <= 0.5, ratios
+    if terms == 3:
+        assert max(ratios.values()) <= 0.01, ratios
+
+
+def test_backward_dispatch_by_dtype_and_shape():
+    """bf16 at the forward tensor-core kernel's shapes takes the ``_tc``
+    pair; fp32, or bf16 at any other chunk, head width or state size,
+    the CUDA-core pair."""
+    bf, f32 = torch.bfloat16, torch.float32
+    tc = ("ssd_carry_bwd_tc", "ssd_chunk_bwd_tc")
+    core = ("ssd_carry_bwd", "ssd_chunk_bwd")
+    assert kernel.bwd_kernels(bf, 64, 64, 128) == tc
+    assert kernel.bwd_kernels(bf, 64, 64, 64) == tc
+    assert kernel.bwd_kernels(f32, 64, 64, 128) == core
+    for Q, P, N in ((32, 64, 128), (64, 32, 128), (64, 64, 32),
+                    (16, 16, 32)):
+        assert kernel.bwd_kernels(bf, Q, P, N) == core
+    assert set(tc + core) == set(kernel.BWD_KERNELS)
+
+
+def test_bwd_terms_is_the_kernels_term_count():
+    """``BWD_TERMS``, which the CPU emulation holds to the bars, is the
+    term count the tensor-core kernels are built with (``kBwdTerms``)."""
+    src = (kernel.CSRC / "ssd_bwd.cu").read_text()
+    found = re.findall(r"constexpr int kBwdTerms = (\d+);", src)
+    assert found == [str(kernel.BWD_TERMS)]
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -497,11 +675,114 @@ def test_cuda_operator_matches_plain_autograd(B, L, H, P, N, Q, dtype):
     y2, f2 = ssd_ref(*plain[:5], chunk=Q, init_state=plain[5])
     want = torch.autograd.grad((y2, f2), plain, (dy.float(), df))
     torch.cuda.synchronize()
+    ran = kernel.bwd_kernels(getattr(torch, dtype), Q, P, N)
     for name in kernel.BWD_KERNELS:
-        assert kernel.BWD_KERNEL_LAUNCHES[name] == before[name] + 1
+        assert kernel.BWD_KERNEL_LAUNCHES[name] == before[name] + (
+            name in ran)
     for t, g, w in zip(leaves, got, want):
         assert g.dtype == t.dtype
         scale = 1e-4 * max(float(w.float().abs().max()), 1.0)
         bar = scale + (BF16_REL * w.float().abs()
                        if g.dtype == torch.bfloat16 else 0.0)
         assert bool(((g.float() - w.float()).abs() <= bar).all())
+
+
+@pytest.mark.cuda
+def test_tensor_core_backward_tiles_fit_shared_memory():
+    """At the training shapes, as the library reports them:
+    ssd_chunk_bwd_tc with 16 heads per block (one block an SM),
+    ssd_carry_bwd_tc with two blocks an SM (the carry's decay table at 64
+    and 512 chunks)."""
+    needs_card()
+    smem = kernel.LIB_BWD.load().ssd_bwd_tc_smem_bytes
+    for N in (64, 128):
+        assert 0 < smem(0, N, 16) <= kernel.MAX_SMEM_BYTES
+    assert smem(0, 128, 16) == 229_920
+    for nc in (64, 512):
+        assert 2 * (smem(1, 128, nc) + 1024) <= 228 * 1024
+    assert smem(2, 128, 16) == smem(0, 32, 16) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N,Q", [(1, 256, 48, 64, 128, 64),
+                                         (1, 256, 64, 64, 64, 64)])
+def test_cuda_tensor_core_backward_kernels_match_plain(B, L, H, P, N, Q):
+    """``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc`` on bf16 inputs
+    against their plain versions
+    (fp32 max|Δ| <= 1e-4·max(max|ref|, 1)), a second pass equal bit for
+    bit, each launch counted under its own name."""
+    needs_card()
+    shape = (B, L, H, P, N, Q)
+    x, dt, A, Bm, Cm, dy, h0, df, cum = card_inputs(shape, 32, "bfloat16")
+    _, states = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    before = dict(kernel.BWD_KERNEL_LAUNCHES)
+    args = (states, cum, Cm, dy, Q, h0, df)
+    got = kernel.ssd_carry_bwd_cuda(*args)
+    again = kernel.ssd_carry_bwd_cuda(*args)
+    want = ssd_carry_bwd_ref(*args)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and within(g, w)
+    h_prev, g = want[0], want[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    G = kernel.bwd_heads_per_block(B * L // Q, H, sms)
+    args = (x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
+    got = kernel.ssd_chunk_bwd_cuda(*args)
+    again = kernel.ssd_chunk_bwd_cuda(*args)
+    want = ssd_chunk_bwd_ref(*args, G)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b) and within(a, w)
+    for name in kernel.BWD_KERNELS:
+        assert kernel.BWD_KERNEL_LAUNCHES[name] == before[name] + 2 * (
+            name.endswith("_tc"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,Q", [("bfloat16", 32), ("float32", 64)])
+def test_cuda_wrappers_send_other_inputs_to_the_cuda_cores(dtype, Q):
+    """bf16 at a chunk of 32, and fp32 at the tensor-core shape, reach
+    the CUDA-core kernels through the wrappers' dispatch."""
+    needs_card()
+    shape = (1, 256, 4, 64, 128, Q)
+    x, dt, A, Bm, Cm, dy, h0, df, cum = card_inputs(shape, 33, dtype)
+    _, states = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    before = dict(kernel.BWD_KERNEL_LAUNCHES)
+    h_prev, g, _ = kernel.ssd_carry_bwd_cuda(states, cum, Cm, dy, Q, h0, df)
+    got = kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
+    want = ssd_chunk_bwd_ref(x, dt, cum, Bm, Cm, dy, g, h_prev, Q,
+                             kernel.bwd_heads_per_block(
+                                 256 // Q, 4, torch.cuda.get_device_properties(
+                                     0).multi_processor_count))
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert within(a, w)
+    for name in kernel.BWD_KERNELS:
+        assert kernel.BWD_KERNEL_LAUNCHES[name] == before[name] + (
+            not name.endswith("_tc"))
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_launch_failure_raises(monkeypatch):
+    """A refused ``_tc`` launch raises; the wrapper launches no other
+    kernel in its place and counts nothing."""
+    needs_card()
+    import types
+    shape = (1, 128, 2, 64, 64, 64)
+    x, dt, A, Bm, Cm, dy, h0, df, cum = card_inputs(shape, 34, "bfloat16")
+    _, states = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, 64)
+    calls = []
+
+    def refuse(*args):
+        calls.append(args)
+        return 1     # cudaErrorInvalidValue
+    fake = types.SimpleNamespace(ssd_carry_bwd_launch=refuse,
+                                 ssd_chunk_bwd_launch=refuse)
+    monkeypatch.setattr(kernel.LIB_BWD, "load", lambda: fake)
+    before = dict(kernel.BWD_KERNEL_LAUNCHES)
+    with pytest.raises(RuntimeError, match="ssd_carry_bwd_tc"):
+        kernel.ssd_carry_bwd_cuda(states, cum, Cm, dy, 64, h0, df)
+    g = torch.zeros_like(states)
+    with pytest.raises(RuntimeError, match="ssd_chunk_bwd_tc"):
+        kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, g, g, 64)
+    assert len(calls) == 2 and kernel.BWD_KERNEL_LAUNCHES == before
