@@ -149,7 +149,23 @@ Phases (each raises on failure, so the script exits non-zero):
    passes (each one chunk-state launch), ``ssd_carry_bwd_tc`` and
    ``ssd_chunk_bwd_tc``; none of the CUDA-core pair), a
    ``torch.profiler`` split of one more step by kernel, its idle share
-   and the SSD backward's share of device time.
+   and the SSD backward's share of device time;
+12. mesh — a one-rank NCCL process group and its (1, 1) ``("data",
+   "model")`` mesh (no other backend is tried): (a) llama3-8b as in
+   11 (a) and (b) mamba2-780m as in 11 (d), one step through
+   ``build_train_step`` on the mesh against the unsharded step from
+   equal parameters and moments: loss, parameters and moments bitwise
+   (else phase 11's bar, the differing leaves named), every kernel's
+   launches equal; then 6 steps of each in turns, medians printed
+   side by side (DTensor's host overhead); (c) llama3-8b (4 layers)
+   and zamba2-1.2b served through the builders with ``mesh=`` and
+   without, 4 x 2048 prompts and 16 and 32 greedy decode tokens:
+   logits bitwise (else the decode bar), the state on
+   ``state_shardings``' placements, launches equal; (d) the
+   simulator's round buffers on the mesh (``set_round_buffer_mesh``):
+   phase 4's seed-0 grid unchanged, one paper-smoke cell equal with
+   and without, the same affinity launches.  Every time printed
+   stands beside the card's name and power limit.
 
 The second-last lines are the kernel record (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is the device record.
@@ -439,7 +455,7 @@ def signature(res):
             res.vm_count_by_type, res.vm_seconds_by_type)
 
 
-def phase_parity() -> None:
+def phase_parity(seeds=(0, 1, 2), tag="parity") -> dict:
     """Grids scored on the card ≡ the host-only SimEngine, on the
     reference engine tests' workload (8 small workflows at 6 wf/min,
     budgets in [0.5, 1.0]), all five policies, seeds 0-2.
@@ -447,7 +463,8 @@ def phase_parity() -> None:
     These auctions stay under the serial-tail threshold, which would drain
     them on the host; with the threshold at 1 every auction round is
     scored by the kernel.  Serial and kernel resolution are bit-exact, so
-    the results must not move."""
+    the results must not move.  Returns, per seed, the members'
+    signatures and the kernel launches."""
     from repro_torch.core import cycles
     from repro_torch.core.batch_engine import simulate_batch
     from repro_torch.core.engine import SimEngine
@@ -460,8 +477,9 @@ def phase_parity() -> None:
     by_name = {p.name: p for p in ALL_POLICIES}
     tail = cycles.AUCTION_TAIL_PAIRS
     cycles.AUCTION_TAIL_PAIRS = 1
+    out = {}
     try:
-        for seed in (0, 1, 2):
+        for seed in seeds:
             spec = WorkloadSpec(n_workflows=8, arrival_rate_per_min=6.0,
                                 seed=seed, sizes=("small",), budget_lo=0.5,
                                 budget_hi=1.0)
@@ -479,11 +497,14 @@ def phase_parity() -> None:
                 if signature(ref) != signature(e.result):
                     raise AssertionError(f"grid != SimEngine: {e.policy} "
                                          f"seed {seed}")
-            log(f"[parity] seed {seed}: {len(grid.entries)} members "
+            out[seed] = ([signature(e.result) for e in grid.entries],
+                         launches)
+            log(f"[{tag}] seed {seed}: {len(grid.entries)} members "
                 f"identical to the host-only SimEngine, {launches} kernel "
                 f"launches (serial-tail threshold 1 instead of {tail})")
     finally:
         cycles.AUCTION_TAIL_PAIRS = tail
+    return out
 
 
 def timed_rounds(torch, fn):
@@ -2728,12 +2749,333 @@ def phase_train(torch) -> dict:
     return dict(head, families=families, faults=faults, ssm=ssm)
 
 
+# ---------------------------------------------------------------------------
+# The mesh path: one-rank NCCL mesh against the unsharded path
+# ---------------------------------------------------------------------------
+
+# (tag, arch, layers (0: all), batch, tokens): phase 11 (a)'s and (d)'s
+# configurations, one step compared, then MESH_STEPS timed in turns.
+MESH_TRAIN = (("a", "llama3-8b", 4, 2, 4096), ("b", "mamba2-780m", 0, 2, 4096))
+MESH_STEPS = 6
+# (arch, layers (0: all), requests, prompt tokens, greedy decode tokens):
+# phase 9's llama3-8b cut to 4 layers, phase 7's zamba2-1.2b request (a).
+MESH_SERVE = (("llama3-8b", 4, 4, 2048, 16), ("zamba2-1.2b", 0, 4, 2048, 32))
+# The paper-smoke cell that sends the most rounds to the kernel (19 on
+# the CPU; its montage cells send none).
+MESH_SIM_CELL = dict(apps=("sipht",), rates=(6.0,),
+                     budget_intervals=((0.75, 1.0),))
+
+
+@contextlib.contextmanager
+def one_rank_mesh(torch):
+    """A one-rank NCCL process group on a free local port and its (1, 1)
+    ``("data", "model")`` mesh, destroyed on exit.  No other backend is
+    tried: without NCCL this raises."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_nccl_available():
+        raise RuntimeError("this PyTorch has no NCCL")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        dist.barrier()
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def kernel_counts() -> dict:
+    """Every kernel launch counter of the model path: flash attention's
+    forward and backward passes and backward kernels, the SSD's
+    counters and backward kernels."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    return dict({"fa": fa_ops.LAUNCHES, "fa_bwd": fa_ops.BWD_LAUNCHES},
+                **{f"fa:{k}": v for k, v in fa.BWD_KERNEL_LAUNCHES.items()},
+                **ssd_counts())
+
+
+def reset_kernel_counts() -> None:
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
+    for c in SSD_COUNTERS:
+        setattr(ssd_ops, c, 0)
+    for d in (fa.BWD_KERNEL_LAUNCHES, sk.BWD_KERNEL_LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def counted(torch, fn):
+    """``fn()`` with every launch counter set to 0 just before; returns
+    its result, its wall (host clock, synchronised) and the counts."""
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, kernel_counts()
+
+
+def distributed_copy(tree, mesh, placements):
+    """A DTensor copy of ``tree`` on ``placements``, one leaf at a time
+    (never two copies of the whole tree beside the original)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [
+        distribute_tensor(x.clone(), mesh, pl, src_data_rank=None)
+        for x, pl in zip(tree_leaves(tree), tree_leaves(placements))])
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtypes, shapes and bits (``a`` may be a one-rank DTensor)."""
+    import torch
+    from repro_torch.parallel.sharding import whole
+    a = whole(a)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.view(ints), b.view(ints))
+
+
+def mesh_train(torch, mesh, tag, arch, n_layers, B, L, smi) -> dict:
+    """One step of ``arch`` through ``build_train_step`` on the mesh
+    against the unsharded ``make_train_step``, from equal parameters and
+    moments on the same batch: loss, parameters and moments bitwise (else
+    phase 11's bar, each differing leaf named), every launch count
+    equal; then ``MESH_STEPS`` steps of each in turns, timed."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.parallel.sharding import whole
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.train_step import build_train_step, \
+        make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = train_model(arch, n_layers)
+    cfg = model.cfg
+    params = model.init(0)
+    opt = init_opt_state(params)
+    fn, ppl, opl, _ = build_train_step(model, mesh, "train_4k")
+    dparams = distributed_copy(params, mesh, ppl)
+    dopt = distributed_copy(opt, mesh, opl)
+    step = make_train_step(model)
+    dc = DataConfig(seed=0, seq_len=L, global_batch=B)
+    batches = [batch_at(dc, s, cfg) for s in range(1 + MESH_STEPS)]
+    (params, opt, met), plain_s, c_plain = counted(
+        torch, lambda: step(params, opt, batches[0]))
+    (dparams, dopt, dmet), mesh_s, c_mesh = counted(
+        torch, lambda: fn(dparams, dopt, batches[0]))
+    if c_plain != c_mesh or not c_plain.get("fa", 0) + c_plain.get(
+            "LAUNCHES", 0) > 0:
+        raise AssertionError(f"(12 {tag}) launches on the mesh {c_mesh}, "
+                             f"unsharded {c_plain}")
+    pairs = [("loss", dmet["loss"], met["loss"])]
+    pairs += [(f"params/{k}", a, b) for (k, a), (_, b) in
+              zip(_flatten(dparams), _flatten(params))]
+    pairs += [(f"opt/{k}", a, b) for (k, a), (_, b) in
+              zip(_flatten(dopt), _flatten(opt))]
+    diff = [n for n, a, b in pairs if not same_bits(a, b)]
+    if diff:
+        rel = max(abs(float(dmet["loss"]) - float(met["loss"]))
+                  / abs(float(met["loss"])), 0.0)
+        worst = max(float((whole(a).float() - b.float()).abs().max())
+                    / max(float(b.float().abs().max()), 1e-30)
+                    for n, a, b in pairs[1:] if n in diff)
+        if not (rel <= TRAIN_LOSS_REL and worst <= TRAIN_GRAD_REL):
+            raise AssertionError(f"(12 {tag}) mesh step differs in {diff[:8]}"
+                                 f"; loss rel {rel}, worst leaf {worst}")
+        log(f"[mesh] (12 {tag}) NOT bitwise: {len(diff)} of {len(pairs)} "
+            f"differ ({diff[:8]}); loss rel {rel:.3g}, worst leaf "
+            f"{worst:.3g} of its max (phase 11's bar {TRAIN_GRAD_REL})")
+    times = {"plain": [], "mesh": []}
+    for s in range(1, 1 + MESH_STEPS):
+        order = ("plain", "mesh") if s % 2 else ("mesh", "plain")
+        for which in order:
+            if which == "plain":
+                (params, opt, _), t, c = counted(
+                    torch, lambda: step(params, opt, batches[s]))
+            else:
+                (dparams, dopt, _), t, c = counted(
+                    torch, lambda: fn(dparams, dopt, batches[s]))
+            if c != c_plain:
+                raise AssertionError(f"(12 {tag}) {which} step {s} launched "
+                                     f"{c}, expected {c_plain}")
+            times[which].append(t)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[mesh] (12 {tag}) {arch}, {cfg.n_layers} layers, {B} x {L}, remat "
+        f"{model.run.remat}: one step on the (1, 1) NCCL mesh against the "
+        f"unsharded step: loss {float(met['loss']):.6f}, "
+        + ("loss, parameters and moments bitwise equal"
+           if not diff else f"{len(diff)} leaves off by a rounding")
+        + f" ({len(pairs)} compared); launches per step equal: "
+        + ", ".join(f"{k} {v}" for k, v in c_plain.items() if v)
+        + f"; {MESH_STEPS} steps each in turns: median {med['mesh']:.4f} s "
+        f"on the mesh, {med['plain']:.4f} s unsharded ({med['mesh'] / med['plain']:.4f}x; "
+        f"host clock, synchronised), first steps {mesh_s:.4f} / "
+        f"{plain_s:.4f} s; peak allocated {peak:.3f} GiB; {smi}")
+    del params, opt, dparams, dopt
+    torch.cuda.empty_cache()
+    return dict(launches=c_plain, bitwise=not diff, differ=diff,
+                mesh_s=med["mesh"], plain_s=med["plain"], peak_gib=peak)
+
+
+def mesh_serve(torch, mesh, arch, n_layers, B, L, steps, smi) -> dict:
+    """Prefill B seeded prompts of L positions and ``steps`` greedy decode
+    steps through the serve builders with ``mesh=`` and without: logits
+    bitwise (else the decode bar, 0.15·max(max|ref|, 1)), the state on
+    ``state_shardings``' placements, launch counts equal."""
+    from repro_torch.models import build
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve.serve_step import build_decode_step, \
+        build_prefill
+    torch.cuda.empty_cache()
+    model = build(arch, device="cuda")
+    if n_layers:
+        model = dataclasses.replace(model,
+                                    cfg=model.cfg.with_(n_layers=n_layers))
+    cfg = model.cfg
+    params = model.init(0)
+    prompt = prompt_batch(torch, cfg, B, L, seed=L)
+    runs = {}
+    for which in ("plain", "mesh"):
+        m = mesh if which == "mesh" else None
+        p = params if m is None else shd.distribute(
+            params, mesh, shd.model_param_shardings(model, mesh, "serve"))
+        prefill = build_prefill(model, "prefill_32k", device="cuda",
+                                max_seq=L + steps, mesh=m)
+        decode = build_decode_step(model, "decode_32k", device="cuda",
+                                   mesh=m)
+        (logits, state), pre_s, c_pre = counted(
+            torch, lambda: prefill(p, prompt))
+        placed = m is None or shd.placements_of(state) == \
+            shd.state_shardings(model, mesh, "prefill_32k")
+        outs, step_s = [shd.whole(logits)], []
+        reset_kernel_counts()
+        for _ in range(steps):
+            tok = shd.whole(logits)[:, -1].argmax(-1, keepdim=True)
+            (logits, state), t, _ = counted(
+                torch, lambda: decode(p, state, tok))
+            outs.append(shd.whole(logits))
+            step_s.append(t)
+        c_dec = kernel_counts()
+        placed = placed and (m is None or shd.placements_of(state) ==
+                             shd.state_shardings(model, mesh, "decode_32k"))
+        if not placed:
+            raise AssertionError(f"(12 c) {arch}: the mesh state is not on "
+                                 f"state_shardings' placements")
+        runs[which] = dict(outs=outs, pre_s=pre_s, counts=(c_pre, c_dec),
+                           dec_ms=statistics.median(step_s) * 1e3,
+                           length=int(shd.whole(state["length"])))
+        del p, state
+    a, b = runs["mesh"], runs["plain"]
+    if a["counts"] != b["counts"] or a["length"] != L + steps \
+            or b["length"] != L + steps:
+        raise AssertionError(f"(12 c) {arch}: launches {a['counts']} and "
+                             f"length {a['length']} on the mesh, "
+                             f"{b['counts']} and {b['length']} unsharded, "
+                             f"length {L + steps} expected")
+    diff = [i for i, (x, y) in enumerate(zip(a["outs"], b["outs"]))
+            if not same_bits(x, y)]
+    worst = max((float((x.float() - y.float()).abs().max())
+                 / max(float(y.float().abs().max()), 1.0)
+                 for x, y in zip(a["outs"], b["outs"])), default=0.0)
+    if diff and not worst <= 0.15:
+        raise AssertionError(f"(12 c) {arch}: logits differ at steps {diff}"
+                             f", worst {worst}")
+    log(f"[mesh] (12 c) {arch}, {cfg.n_layers} layers, {B} x {L} and "
+        f"{steps} decode tokens: logits "
+        + ("bitwise equal" if not diff else
+           f"differ at steps {diff[:8]} (worst {worst:.3g}, bar 0.15)")
+        + f" to the unsharded builders'; state on state_shardings' "
+        f"placements; launches (prefill, decode) equal: "
+        + ", ".join(f"{k} {v}" for k, v in b["counts"][0].items() if v)
+        + f" per prefill; prefill {a['pre_s']:.4f} s on the mesh, "
+        f"{b['pre_s']:.4f} unsharded; decode median {a['dec_ms']:.3f} ms "
+        f"on the mesh, {b['dec_ms']:.3f} unsharded (host clock, "
+        f"synchronised); {smi}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=b["counts"], bitwise=not diff, worst=worst,
+                mesh_prefill_s=a["pre_s"], plain_prefill_s=b["pre_s"],
+                mesh_decode_ms=a["dec_ms"], plain_decode_ms=b["dec_ms"])
+
+
+def mesh_simulator(torch, mesh, parity: dict, smi) -> dict:
+    """The simulator's round-buffer seam with the mesh set: phase 4's
+    seed-0 grid gives phase 4's SimResults and launches, and one
+    paper-smoke cell gives the artifact and launches it gives without."""
+    import tempfile
+    from repro_torch.core import cycles
+    from repro_torch.exp.run import run_grid
+    from repro_torch.exp.scenarios import get_scenario
+    from repro_torch.kernels.affinity import ops as aff_ops
+    from repro_torch.parallel.sharding import replicated
+    one = dataclasses.replace(get_scenario("paper-smoke"), **MESH_SIM_CELL)
+    arts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for which in ("plain", "mesh"):
+            cycles.set_round_buffer_mesh(mesh if which == "mesh" else None)
+            try:
+                if which == "mesh":
+                    if cycles._ROUND_BUFFER_PLACEMENT != replicated(mesh):
+                        raise AssertionError("(12 d) the round buffers' "
+                                             "placement is not replicated")
+                    again = phase_parity((0,), tag="mesh d")
+                    if again[0] != parity[0]:
+                        raise AssertionError("(12 d) phase 4's seed-0 grid "
+                                             "moved with the mesh set")
+                aff_ops.LAUNCHES = 0
+                art = run_grid(one, device="cuda",
+                               trace_dir=f"{tmp}/{which}")
+                arts[which] = (art, aff_ops.LAUNCHES)
+            finally:
+                cycles.set_round_buffer_mesh(None)
+    (a, na), (b, nb) = arts["mesh"], arts["plain"]
+    diff = sorted(k for k in set(a) | set(b)
+                  if k not in BACKEND_FIELDS and a.get(k) != b.get(k))
+    if diff or na != nb or not na > 0:
+        raise AssertionError(f"(12 d) the paper-smoke cell differs in {diff}"
+                             f"; launches {na} with the mesh, {nb} without")
+    log(f"[mesh] (12 d) round buffers on the mesh (replicated): phase 4's "
+        f"seed-0 grid identical, {parity[0][1]} launches as in phase 4; "
+        f"one paper-smoke cell ({len(a['cells'])} rows) equal with and "
+        f"without the mesh, {na} affinity launches each; {smi}")
+    return dict(launches=na, parity_launches=parity[0][1])
+
+
+def phase_mesh(torch, parity: dict, smi: str) -> dict:
+    out = {}
+    with one_rank_mesh(torch) as mesh:
+        log(f"[mesh] one-rank NCCL group, mesh {mesh.mesh_dim_names} "
+            f"{tuple(mesh.shape)} on {torch.cuda.get_device_name(0)}")
+        for tag, arch, n_layers, B, L in MESH_TRAIN:
+            out[tag] = mesh_train(torch, mesh, tag, arch, n_layers, B, L, smi)
+        out["c"] = {arch: mesh_serve(torch, mesh, arch, n_layers, B, L,
+                                     steps, smi)
+                    for arch, n_layers, B, L, steps in MESH_SERVE}
+        out["d"] = mesh_simulator(torch, mesh, parity, smi)
+    return out
+
+
 def main() -> int:
     import torch
     smi = phase_device(torch)
     phase_build()
     k = phase_kernel(torch)
-    phase_parity()
+    parity = phase_parity()
     launches = phase_full_width(torch, k["link_rate"])
     fa = phase_attention(torch)
     t0 = time.perf_counter()
@@ -2752,6 +3094,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train = phase_train(torch)
     log(f"[train] phase 11 took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    mesh = phase_mesh(torch, parity, smi)
+    log(f"[mesh] phase 12 took {time.perf_counter() - t0:.3f} s")
     from repro_torch.kernels.flash_attention.kernel import \
         HEAD_DIMS as FA_HEAD_DIMS
     head = k["rows"][HEADLINE]
@@ -2764,6 +3109,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/affinity/csrc/affinity.cu",
         "replaces": "src/repro/kernels/affinity/kernel.py:24",
         "launches": launches,
+        # Phase 12 (d): one paper-smoke cell with the mesh set.
+        "launches_mesh": mesh["d"]["launches"],
         # The experiment harness's full-width cell (phase 8).
         "launches_exp_run": exp["launches"],
         # The WaaS platform's kernel grid (phase 10).
@@ -2800,6 +3147,11 @@ def main() -> int:
         # Phase 11 (a): the training headline's timed steps (remat dots
         # keeps each forward: one launch per layer per step).
         "launches_train": train["fa_launches"],
+        # Phase 12: one step (a) and one request each (c) on the
+        # one-rank mesh, equal to the unsharded path's.
+        "launches_mesh": {"train": mesh["a"]["launches"]["fa"],
+                          **{a: r["launches"][0]["fa"]
+                             for a, r in mesh["c"].items()}},
         "train": {key: fa["rows"][FA_TRAIN][key]
                   for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "err")},
@@ -2823,6 +3175,11 @@ def main() -> int:
         "library_ms": None,
         "shape": list(SSD_HEADLINE),
         "terms": sd["terms"],
+        # Phase 12: one mamba2-780m step (b) and one zamba2-1.2b prefill
+        # (c) on the one-rank mesh, equal to the unsharded path's.
+        "launches_mesh": {"train": mesh["b"]["launches"]["LAUNCHES"],
+                          "zamba2-1.2b": mesh["c"]["zamba2-1.2b"][
+                              "launches"][0]["LAUNCHES"]},
     }, {
         "name": "ssd_carry",
         "route": "cuda",
@@ -2831,6 +3188,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd/ops.py:40",
         "tpu_kernel": False,
         "launches": serve["carry_launches"],
+        "launches_mesh": {"train": mesh["b"]["launches"]["CARRY_LAUNCHES"],
+                          "zamba2-1.2b": mesh["c"]["zamba2-1.2b"][
+                              "launches"][0]["CARRY_LAUNCHES"]},
         "max_abs_err": sd["carry_max_abs_err"],
         "ms": ssd_head["carry_ms"],
         "plain_ms": ssd_head["carry_plain_ms"],
@@ -2865,6 +3225,8 @@ def main() -> int:
             "tpu_kernel": False,
             # Phase 11: each backward pass launches the kernel once.
             "launches": launches[name],
+            # Phase 12 (a): one bf16 step on the one-rank mesh.
+            "launches_mesh": mesh["a"]["launches"].get("fa:" + name, 0),
             "max_abs_err": fab["max_abs_err"],
             "ms": bwd["ms"][key],
             "plain_ms": bwd["plain_ms"][key],
@@ -2911,6 +3273,8 @@ def main() -> int:
             "tpu_kernel": False,
             # (d): one launch per layer per step; (b): one per layer.
             "launches": launches[name],
+            # Phase 12 (b): one bf16 step on the one-rank mesh.
+            "launches_mesh": mesh["b"]["launches"].get(name, 0),
             "max_abs_err": sdb["errs"][name],
             "ms": row["ms"][key],
             "plain_ms": row["plain_ms"][key],

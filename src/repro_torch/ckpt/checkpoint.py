@@ -13,7 +13,9 @@ checkpoints.  Two kinds share the scheme:
   ``"/"``-joined dict path, in the reference's flattening order (sorted
   keys); the manifest records each leaf's file, shape and dtype.  Leaves
   are restored as tensors on the device asked for (``None`` means
-  ``"cuda"``).  A bfloat16 leaf is written as the reference writes one
+  ``"cuda"``), or split onto a device mesh (which may differ from the
+  one that wrote them: an elastic restart).  A DTensor leaf is written
+  whole: every rank of its mesh gathers it, rank 0 writes.  A bfloat16 leaf is written as the reference writes one
   (``np.save`` of an ``ml_dtypes`` bfloat16 array: a ``'<V2'`` array of
   the raw 16-bit words, manifest dtype ``"bfloat16"``) and read back
   bit for bit, without ``ml_dtypes``;
@@ -81,6 +83,12 @@ def _flatten(tree: PyTree) -> List[Tuple[str, Any]]:
     return out
 
 
+def _rank() -> int:
+    """This process's rank in the default group (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _leaf_to_file(path: str, leaf) -> Tuple[Tuple[int, ...], str]:
     """Write one leaf as ``.npy`` the way the reference writes it; returns
     its shape and manifest dtype."""
@@ -112,7 +120,18 @@ def save_sections(ckpt_dir: str, step: int,
                   sections: Mapping[str, Optional[PyTree]],
                   extra: Optional[Dict] = None) -> str:
     """Atomic tree checkpoint: one named section per tree (``None``
-    sections are skipped).  Returns the final directory."""
+    sections are skipped).  Returns the final directory.  Under an
+    initialised process group every rank calls this (DTensor leaves are
+    gathered whole), rank 0 writes, and all ranks return once the
+    directory is committed."""
+    from ..parallel.sharding import whole
+    if _rank() != 0:
+        for tree in sections.values():
+            if tree is not None:
+                for _, leaf in _flatten(tree):
+                    whole(leaf)
+        _barrier()
+        return os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp, final = _atomic_step_dir(ckpt_dir, step)
     manifest: Dict[str, Any] = {"step": step, "kind": "params",
                                 "extra": extra or {}}
@@ -123,7 +142,8 @@ def save_sections(ckpt_dir: str, step: int,
                 continue
             for key, leaf in _flatten(tree):
                 fn = f"{name}__{key.replace('/', '__')}.npy"
-                shape, dtype = _leaf_to_file(os.path.join(tmp, fn), leaf)
+                shape, dtype = _leaf_to_file(os.path.join(tmp, fn),
+                                             whole(leaf))
                 manifest[name][key] = {"file": fn, "shape": list(shape),
                                        "dtype": dtype}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -132,7 +152,15 @@ def save_sections(ckpt_dir: str, step: int,
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+    finally:
+        _barrier()
     return final
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def save(ckpt_dir: str, step: int, params: PyTree,
@@ -144,12 +172,19 @@ def save(ckpt_dir: str, step: int, params: PyTree,
 
 def restore_section(ckpt_dir: str, step: Optional[int], template: PyTree,
                     device: Union[None, str, torch.device] = None,
-                    section: str = "params") -> Tuple[PyTree, int]:
+                    section: str = "params", *, mesh=None,
+                    placements: Optional[PyTree] = None
+                    ) -> Tuple[PyTree, int]:
     """Restore ``section`` onto ``template``'s tree structure (the latest
-    step when ``step`` is None), each leaf a tensor on ``device``
-    (``None`` means ``"cuda"``, raising without CUDA; the reference takes
-    shardings here).  A leaf whose shape differs from the template's
-    raises ``ValueError``."""
+    step when ``step`` is None).  Each leaf is loaded whole and becomes
+    a tensor on ``device`` (``None`` means ``"cuda"``, raising without
+    CUDA) or, with ``mesh`` and ``placements`` (a tree of DTensor
+    placement lists shaped like ``template``; the reference's
+    ``shardings``), a DTensor split onto ``mesh`` — which may differ from
+    the mesh that wrote it.  A leaf whose shape differs from the
+    template's raises ``ValueError``."""
+    if (mesh is None) != (placements is None):
+        raise ValueError("pass mesh and placements together")
     dev = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -162,14 +197,19 @@ def restore_section(ckpt_dir: str, step: Optional[int], template: PyTree,
     for key, leaf in _flatten(template):
         meta = manifest[section][key]
         t = _leaf_from_file(os.path.join(d, meta["file"]), meta["dtype"])
-        want = tuple(np.shape(leaf))
+        want = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
+            else tuple(np.shape(leaf))
         if want != tuple(t.shape):
             raise ValueError(
                 f"checkpoint {section}/{key} has shape {tuple(t.shape)}, "
                 f"template expects {want} — a re-shard may change the "
                 "mesh, never the array shapes")
         out.append(t.to(dev))
-    return tree_unflatten(template, out), step
+    tree = tree_unflatten(template, out)
+    if mesh is not None:
+        from ..parallel.sharding import distribute
+        tree = distribute(tree, mesh, placements)
+    return tree, step
 
 
 # Back-compat alias (the pre-generalization public name).
@@ -258,6 +298,10 @@ def restore_stream(ckpt_dir: str, step: Optional[int] = None
 
 
 def prune(ckpt_dir: str, keep: int = 3) -> None:
+    """Delete all but the newest ``keep`` steps (rank 0's job under a
+    process group)."""
+    if _rank() != 0:
+        return
     steps = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
                    if d.startswith("step_"))
     for s in steps[:-keep]:

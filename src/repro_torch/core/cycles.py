@@ -255,6 +255,26 @@ class _ThreadLocalBuffers(threading.local):
 
 _ROUND_BUFFERS = _ThreadLocalBuffers()
 
+# Mesh placement seam for the round buffers (stubbed: splitting the
+# rounds over a mesh is deferred tuning).  ``parallel.sharding`` is
+# imported lazily: it pulls in the model registry, which has no business
+# on the simulation hot path.
+_ROUND_BUFFER_PLACEMENT = None
+
+
+def set_round_buffer_mesh(mesh) -> None:
+    """Install a device mesh for future round-buffer placement.  With
+    ``mesh=None`` (the default state) nothing is recorded; with a mesh,
+    the replicated placement (``parallel.sharding.round_buffer_placement``)
+    is computed and recorded but — as in the reference — only consulted
+    by tests: the rounds are staged and scored as without a mesh."""
+    global _ROUND_BUFFER_PLACEMENT
+    if mesh is None:
+        _ROUND_BUFFER_PLACEMENT = None
+        return
+    from ..parallel.sharding import round_buffer_placement
+    _ROUND_BUFFER_PLACEMENT = round_buffer_placement(mesh)
+
 
 class CycleRequest:
     """One simulation's auction state inside a (possibly multi-sim) cycle.

@@ -5,9 +5,8 @@ as a beyond-paper feature at two levels:
 
 1. **Training level** — ``FaultyTrainer`` wraps a train loop with
    (a) periodic async-ish checkpointing, (b) injected step failures
-   (probability per step), (c) restart-from-latest onto the device
-   asked for (the reference's elastic re-shard onto another mesh comes
-   with the parallelism slice, ROADMAP Queue 1 item 11).
+   (probability per step), (c) restart-from-latest with elastic
+   re-shard: the restore may target a different mesh.
 2. **Scheduler level** — the WaaS simulator can mark tasks failed at
    runtime; EBPSM re-queues them and the budget-update loop (Alg. 3)
    absorbs the wasted cost exactly like any other uncertainty.  Straggler
@@ -54,12 +53,18 @@ class FaultyTrainer:
 
     def run(self, *, params, opt, n_steps: int, step_fn: Callable,
             batch_fn: Callable[[int], Any], device=None,
-            start_step: int = 0):
+            start_step: int = 0, mesh=None, shardings=None,
+            opt_shardings=None):
         """Returns (params, opt, history).  ``step_fn(params,opt,batch)``.
 
         A restart restores params and opt from the latest checkpoint onto
-        ``device`` (``None`` means ``"cuda"``; the reference takes
-        shardings here).  ``step_fn`` may update params and opt in place
+        ``device`` (``None`` means ``"cuda"``) or, with ``mesh``, split
+        onto it: params by ``shardings`` and opt by ``opt_shardings``
+        (trees of placement lists, as ``train_step.build_train_step``
+        returns them; the reference restores opt unsharded, which on a
+        mesh here means replicated).  Under a process group every rank
+        runs this loop with the same plan, so all fail and restart at
+        the same steps.  ``step_fn`` may update params and opt in place
         (``train_step.make_train_step`` does): a restart replaces both
         with the restored trees, and a failure is injected before the
         step runs, so no half-applied update survives."""
@@ -93,9 +98,23 @@ class FaultyTrainer:
                 if last is None:     # no checkpoint yet → restart from init
                     step = start_step
                     continue
-                params, _ = ckpt.restore_section(self.ckpt_dir, last, params,
-                                                 device, "params")
-                opt, _ = ckpt.restore_section(self.ckpt_dir, last, opt,
-                                              device, "opt")
+                params, _ = ckpt.restore_section(
+                    self.ckpt_dir, last, params, device, "params",
+                    **self._onto(mesh, shardings, params))
+                opt, _ = ckpt.restore_section(
+                    self.ckpt_dir, last, opt, device, "opt",
+                    **self._onto(mesh, opt_shardings, opt))
                 step = last
         return params, opt, history
+
+    @staticmethod
+    def _onto(mesh, shardings, template) -> Dict[str, Any]:
+        """restore_section's mesh keywords: a missing placement tree
+        means replicated leaves."""
+        if mesh is None:
+            return {}
+        if shardings is None:
+            from ..models.common import tree_map
+            from ..parallel.sharding import replicated
+            shardings = tree_map(lambda _: replicated(mesh), template)
+        return {"mesh": mesh, "placements": shardings}

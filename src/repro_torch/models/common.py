@@ -3,14 +3,15 @@
 Parameters are plain nested dicts of tensors.  Every leaf is declared
 once as a :class:`ParamSpec` carrying its shape, dtype, initializer and
 logical axis names; the spec tree yields the materialized parameters and
-the parameter count.  The logical axes stay on the specs for the
-sharding rules of a later slice.
+the parameter count.  The sharding rules below map those logical axes
+onto a ``("data", "model")`` device mesh (``parallel/sharding.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -232,6 +233,116 @@ def abstract_params(spec_tree: PyTree,
 
 def param_count(spec_tree: PyTree) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(spec_tree))
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules: logical axis name → mesh axis (None = replicated).
+#
+# 2-D "FSDP × TP" layout: the 'data' mesh axis shards both the batch and the
+# fully-sharded parameter axis; the 'model' mesh axis holds tensor-parallel
+# (heads / ffn / vocab / experts) shards.  The multi-pod 'pod' axis extends
+# data parallelism.
+# ---------------------------------------------------------------------------
+
+TRAIN_RULES: Dict[str, Any] = {
+    "embed": "data",        # FSDP: shard the big replicated axis over data
+    "seq_act": "model",     # sequence parallelism on the residual stream
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "ffn": "model",
+    "experts": "model",     # expert parallelism over the TP axis
+    "expert_ffn": None,
+    "layers": None,
+    "ssm_inner": "model",
+    "ssm_heads": "model",
+    "ssm_state": None,
+    "conv_w": None,
+    "patch": None,
+    "batch": "data",
+    "seq": None,
+    "pod_batch": ("pod", "data"),   # batch sharded over pod×data when multi-pod
+}
+
+# Serving: params TP-sharded over 'model', replicated over 'data'; batch over
+# 'data'.  (FSDP gather per step would dominate small-batch decode.)
+SERVE_RULES: Dict[str, Any] = dict(TRAIN_RULES)
+SERVE_RULES.update({"embed": None, "seq_act": None})
+
+# Long-context decode (batch=1): KV cache / sequence sharded over 'data'.
+LONG_RULES: Dict[str, Any] = dict(SERVE_RULES)
+LONG_RULES.update({"batch": None, "seq": "data"})
+
+# A partition spec: one entry per tensor dimension, each a mesh-axis
+# name, a tuple of them (one dimension over several mesh axes) or None.
+PSpec = Tuple[Any, ...]
+
+
+def logical_to_pspec(axes: Sequence[Optional[str]], rules: Dict[str, Any],
+                     mesh_axis_names: Sequence[str],
+                     shape: Optional[Sequence[int]] = None,
+                     axis_sizes: Optional[Dict[str, int]] = None) -> PSpec:
+    """Map logical axes → a partition spec.  When ``shape``/``axis_sizes``
+    are given, shardings that do not divide the dimension are dropped
+    (replicated).  A mesh axis claimed by two dimensions shards only the
+    first."""
+    entries: List[Any] = []
+    for i, ax in enumerate(axes):
+        m = None if ax is None else rules.get(ax, None)
+        if isinstance(m, tuple):
+            ms = tuple(x for x in m if x in mesh_axis_names)
+            e = (ms[0] if len(ms) == 1 else ms) if ms else None
+        else:
+            e = m if m in mesh_axis_names else None
+        if e is not None and shape is not None and axis_sizes is not None:
+            total = math.prod(axis_sizes.get(n, 1)
+                              for n in (e if isinstance(e, tuple) else (e,)))
+            if shape[i] % total != 0:
+                e = None
+        entries.append(e)
+    seen = set()
+    clean: List[Any] = []
+    for e in entries:
+        names = e if isinstance(e, tuple) else ((e,) if e else ())
+        if any(n in seen for n in names):
+            clean.append(None)
+            continue
+        seen.update(names)
+        clean.append(e)
+    return tuple(clean)
+
+
+def param_pspecs(spec_tree: PyTree, rules: Dict[str, Any],
+                 mesh_axis_names: Sequence[str],
+                 axis_sizes: Optional[Dict[str, int]] = None) -> PyTree:
+    return tree_map(lambda s: logical_to_pspec(s.axes, rules, mesh_axis_names,
+                                               s.shape, axis_sizes),
+                    spec_tree)
+
+
+def batch_pspec(rules: Dict[str, Any], mesh_axis_names: Sequence[str],
+                multi_pod: bool) -> PSpec:
+    ax = "pod_batch" if multi_pod and "pod" in mesh_axis_names else "batch"
+    return logical_to_pspec((ax,), rules, mesh_axis_names)
+
+
+def placements(pspec: PSpec, mesh) -> list:
+    """A partition spec as a DTensor placement list for ``mesh`` (a
+    ``DeviceMesh`` with named dimensions): ``Shard(d)`` on every mesh
+    dimension that tensor dimension ``d`` names, ``Replicate()`` on the
+    others.  A mesh dimension of size 1 splits nothing and stays
+    ``Replicate()`` (DTensor refuses some reshapes of a length-1
+    dimension split over it)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out: list = [Replicate()] * mesh.ndim
+    names = mesh.mesh_dim_names
+    for d, e in enumerate(pspec):
+        for n in (e if isinstance(e, tuple) else ((e,) if e else ())):
+            i = names.index(n)
+            if mesh.shape[i] > 1:
+                out[i] = Shard(d)
+    return out
 
 
 # ---------------------------------------------------------------------------

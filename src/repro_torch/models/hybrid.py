@@ -17,14 +17,17 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..parallel import ctx
+from ..parallel.ctx import constrain
 from .common import (ModelConfig, RunConfig, layer_params, position_ids,
                      spec, stacked, tree_map)
 from .layers import (attend, attention, attn_specs, cross_entropy,
-                     decode_attention, embed, embed_specs, kv_cache_specs,
+                     decode_attention, embed, embed_specs, kv_cache_axes,
+                     kv_cache_specs,
                      logits_out, mlp, mlp_specs, project_qkv, remat,
                      rmsnorm)
-from .ssm import (ssm_block, ssm_block_decode, ssm_block_with_state,
-                  ssm_specs, ssm_state_specs)
+from .ssm import (SSM_STATE_AXES, ssm_block, ssm_block_decode,
+                  ssm_block_with_state, ssm_specs, ssm_state_specs)
 
 SSM_KEYS = ("ssd", "conv_x", "conv_B", "conv_C")
 
@@ -70,7 +73,9 @@ def forward(params, batch, cfg: ModelConfig, run: RunConfig) -> torch.Tensor:
 
     def layer(hh, lp, sa):
         """One layer and, at every ``attn_every``-th, the shared block:
-        the reference's scanned (and rematerialised) body."""
+        the reference's scanned (and rematerialised) body, its residual
+        constrained to the reference's ``("batch", "seq_act", None)``."""
+        hh = constrain(hh, ("batch", "seq_act", None))
         hh = hh + ssm_block(lp["ssm"], rmsnorm(hh, lp["ln"], cfg.rms_eps),
                             cfg, run)
         if sa is not None:
@@ -110,9 +115,20 @@ def state_specs(cfg: ModelConfig, batch: int, max_seq: int,
     return s
 
 
+def state_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical axes of every decode-state leaf."""
+    ax: Dict[str, Tuple] = dict(SSM_STATE_AXES)
+    apps = n_attn_apps(cfg)
+    if apps:
+        ax.update(kv_cache_axes(apps))
+    ax["length"] = ()
+    return ax
+
+
 def init_state(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> Dict[str, torch.Tensor]:
-    return {k: torch.zeros(shape, dtype=dt, device=device)
+    axes = state_axes(cfg)
+    return {k: ctx.zeros(shape, dt, device, axes[k])
             for k, (shape, dt) in state_specs(cfg, batch, max_seq).items()}
 
 

@@ -21,6 +21,8 @@ from torch.utils import checkpoint as ckpt_mod
 
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.ssd import ops as ssd_ops  # noqa: F401 (registers ssd_fwd)
+from ..parallel import ctx
+from ..parallel.ctx import constrain, local_call
 from .common import ModelConfig, ParamSpec, RunConfig, spec
 
 F32 = torch.float32
@@ -53,7 +55,9 @@ def remat(fn: Callable, run: RunConfig) -> Callable:
     backward (``jax.checkpoint`` with ``nothing_saveable``); ``"dots"``:
     selective checkpointing that keeps the matrix products' outputs
     (``checkpoint_dots``).  Without grad (serving) every policy runs the
-    plain body: there is no backward to recompute for."""
+    plain body: there is no backward to recompute for.  The body carries
+    the sharding scope it runs under into its recomputation
+    (``parallel.ctx.carry``)."""
     if run.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {run.remat!r}")
     if run.remat == "none":
@@ -66,7 +70,7 @@ def remat(fn: Callable, run: RunConfig) -> Callable:
     def body(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return ckpt_mod.checkpoint(fn, *args, **kw)
+        return ckpt_mod.checkpoint(ctx.carry(fn), *args, **kw)
     return body
 
 
@@ -168,7 +172,10 @@ def attend(params: Dict[str, torch.Tensor], q: torch.Tensor,
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    o = fa_ops.flash_attention(q, k, v, causal=causal)
+    # On a mesh each rank runs the kernel on its batch and head shard.
+    heads = ("batch", None, "heads", None)
+    o = local_call(lambda q, k, v: fa_ops.flash_attention(q, k, v, causal),
+                   (q, k, v), (heads,) * 3, ((heads, q.shape),))
     return _out_proj(o, params["wo"], run.compute_dtype)
 
 
@@ -196,9 +203,17 @@ def kv_cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
             "length": ((), torch.int32)}
 
 
+def kv_cache_axes(n_apps: int = 0) -> Dict[str, Tuple]:
+    """Logical axes of each cache leaf; a hybrid-model cache (``n_apps``
+    > 0) leads with its applications, which no rule shards."""
+    ax = (None if n_apps else "layers", "batch", "seq", "kv_heads", None)
+    return {"k": ax, "v": ax, "length": ()}
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    return {k: torch.zeros(shape, dtype=dt, device=device)
+    axes = kv_cache_axes()
+    return {k: ctx.zeros(shape, dt, device, axes[k])
             for k, (shape, dt) in kv_cache_specs(cfg, batch, max_seq,
                                                  dtype=dtype).items()}
 
@@ -226,20 +241,36 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     slot = length.reshape(1).long()
-    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
-    rep = cfg.n_heads // cfg.n_kv_heads
+    ctx.index_copy_(k_cache, 1, slot, k)
+    ctx.index_copy_(v_cache, 1, slot, v)
+    # On a mesh each rank attends with its batch and kv-head shard; its
+    # query heads are the groups of its kv heads, so they are split only
+    # when the kv heads are.
+    heads = ("batch", None, "heads" if ctx.shards("kv_heads", Hkv) else None,
+             None)
+    cache = ("batch", None, "kv_heads", None)
+    o = local_call(lambda q, kc, vc, n: _cached_attention(q, kc, vc, n, cdt),
+                   (q, k_cache, v_cache, length),
+                   (heads, cache, cache, ()), ((heads, q.shape),))
+    return _out_proj(o, params["wo"], cdt), k_cache, v_cache
+
+
+def _cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, length: torch.Tensor,
+                      cdt: torch.dtype) -> torch.Tensor:
+    """Queries q [B,1,Hq,D] over the first ``length+1`` slots of the
+    caches [B,S,Hkv,D] → [B,1,Hq,D]."""
+    B, S, Hkv, D = k_cache.shape
     kk = k_cache.to(cdt)
     vv = v_cache.to(cdt)
     scale = torch.tensor(1.0 / math.sqrt(D), dtype=F32)
     # [B,1,Hq,D] x [B,S,Hkv,D] — group query heads over kv heads.
-    qg = q.reshape(B, 1, Hkv, rep, D)
+    qg = q.reshape(B, 1, Hkv, q.shape[2] // Hkv, D)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, kk).to(F32) * scale
-    mask = torch.arange(S, device=x.device) <= length
+    mask = torch.arange(S, device=q.device) <= length
     logits = torch.where(mask, logits, -1e30)
     p = torch.softmax(logits, dim=-1).to(cdt)
-    o = torch.einsum("bhrqk,bkhd->bqhrd", p, vv).reshape(B, 1, Hkv * rep, D)
-    return _out_proj(o, params["wo"], cdt), k_cache, v_cache
+    return torch.einsum("bhrqk,bkhd->bqhrd", p, vv).reshape(q.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -291,8 +322,10 @@ def logits_out(params, x: torch.Tensor, cfg: ModelConfig,
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean CE over (optionally masked) positions; fp32 accumulation."""
-    logits = logits.to(F32)
+    """Mean CE over (optionally masked) positions; fp32 accumulation.
+    On a mesh the vocabulary is gathered first: the gold logit is read
+    from the whole row."""
+    logits = constrain(logits.to(F32), ("batch",) + (None,) * (logits.ndim - 1))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels[..., None].long(),
                                 dim=-1)[..., 0]

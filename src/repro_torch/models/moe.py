@@ -1,10 +1,15 @@
-"""Mixture-of-Experts layer: top-k routing with capacity dispatch on one
-device (the reference's ``_moe_dense``).
+"""Mixture-of-Experts layer: top-k routing with capacity dispatch.
 
-The reference's expert-parallel ``_moe_shard_map`` (tokens bucketed per
-destination shard, exchanged with all-to-alls) comes with the
-parallelism slice (ROADMAP Queue 1 item 11); with no mesh in scope the
-reference takes ``_moe_dense`` as well, so both compute the same thing.
+Two paths, chosen as the reference chooses them (:func:`moe`):
+
+* ``_moe_dense`` — every expert on every token of the batch, one device
+  (on a mesh: the whole problem on every rank);
+* ``_moe_expert_parallel`` — the reference's ``_moe_shard_map``: on a
+  mesh with a ``'model'`` axis, each rank routes its local tokens,
+  buckets them per destination shard (capacity from the *local* token
+  count) and exchanges them with one all-to-all over ``'model'``; each
+  rank runs its own ``e_pad / tp`` experts and a second all-to-all
+  brings the outputs back.
 
 Position-within-expert uses a stable argsort and ``searchsorted``, as the
 reference does.  The dispatch scatter (``.at[idx].add``) is
@@ -24,8 +29,13 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import ctx
 from .common import ModelConfig, ParamSpec, RunConfig, spec
 from .layers import mlp, mlp_specs
+
+# Calls of the expert-parallel path (reset to 0 and read back around a
+# run to see which path a step took).
+EXPERT_PARALLEL_CALLS = 0
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -113,28 +123,126 @@ def _moe_dense(params, x: torch.Tensor, cfg: ModelConfig, run: RunConfig,
     return torch.bmm(w[:, None, :], out_k).reshape(B, S, d)
 
 
+def _moe_expert_parallel(params, x: torch.Tensor, cfg: ModelConfig,
+                         run: RunConfig, capacity_factor: float, mesh,
+                         batch_axis: str, seq_axis: Optional[str]
+                         ) -> torch.Tensor:
+    """The reference's ``_moe_shard_map``, run by ``ctx.local_call``
+    (router replicated, experts split over ``'model'``, tokens as
+    ``(batch_axis, seq_axis, None)``)."""
+    global EXPERT_PARALLEL_CALLS
+    from torch.distributed._functional_collectives import \
+        all_to_all_single_autograd
+    from ..parallel.sharding import mesh_axis_sizes
+    cdt = run.compute_dtype
+    e_pad = cfg.n_experts_padded or cfg.n_experts
+    k = cfg.top_k
+    tp = mesh_axis_sizes(mesh)["model"]
+    e_local = e_pad // tp
+    group = mesh.get_group("model")
+
+    def a2a(t: torch.Tensor) -> torch.Tensor:
+        """Tiled all-to-all: row block j goes to model shard j."""
+        return all_to_all_single_autograd(t.contiguous(), None, None, group)
+
+    def body(router, w_gate, w_up, w_down, x_loc):
+        Bl, Sl, d = x_loc.shape
+        Tl = Bl * Sl
+        xt = x_loc.reshape(Tl, d)
+        top_w, top_e = _router({"router": router}, xt, cfg)
+
+        cap = max(int(math.ceil(Tl * k / e_pad * capacity_factor)), 4)
+        flat_e = top_e.reshape(-1).long()                # [Tl*k]
+        pos = _positions_within_expert(flat_e)
+        keep = pos < cap
+        # destination shard flat_e // e_local, local expert flat_e % e_local
+        idx = flat_e * cap + torch.clamp(pos, max=cap - 1)
+        src = (xt.repeat_interleave(k, dim=0)
+               * keep[:, None].to(xt.dtype)).to(cdt)
+        send = torch.zeros((tp * e_local * cap, d), dtype=cdt,
+                           device=x_loc.device)
+        send.index_add_(0, idx, src)
+        recv = a2a(send)
+        # my experts' tokens from every source: [tp*cap per expert]
+        grouped = recv.reshape(tp, e_local, cap, d).transpose(0, 1)
+        y = _expert_ffn(grouped.reshape(e_local, tp * cap, d),
+                        w_gate, w_up, w_down)
+        y = y.reshape(e_local, tp, cap, d).transpose(0, 1)
+        back = a2a(y.reshape(tp * e_local * cap, d))
+        out_k = back[idx].reshape(Tl, k, d)
+        w = (top_w * keep.reshape(Tl, k)).to(cdt)
+        return torch.bmm(w[:, None, :], out_k).reshape(Bl, Sl, d)
+
+    EXPERT_PARALLEL_CALLS += 1
+    xax = (batch_axis, seq_axis, None)
+    wax = ("experts", None, None)
+    return ctx.local_call(
+        body, (params["router"].to(cdt), params["w_gate"].to(cdt),
+               params["w_up"].to(cdt), params["w_down"].to(cdt), x),
+        ((None, None), wax, wax, wax, xax), ((xax, x.shape),))
+
+
+def _expert_parallel_axes(x: torch.Tensor, cfg: ModelConfig):
+    """(mesh, batch axis, seq axis) when ``x`` lies on a mesh in scope on
+    which the reference takes its expert-parallel path — a ``'model'``
+    axis of tp > 1 that divides the padded experts, a batch that divides
+    the data axes — else None.  The sequence is split over ``'model'``
+    when the rules put the residual stream there and it divides."""
+    scope = ctx.current()
+    if scope is None or not ctx.is_dtensor(x):
+        return None
+    from ..parallel.sharding import mesh_axis_sizes
+    mesh, rules = scope
+    sizes = mesh_axis_sizes(mesh)
+    e_pad = cfg.n_experts_padded or cfg.n_experts
+    tp = sizes.get("model", 1)
+    dp = sizes.get("pod", 1) * sizes.get("data", 1)
+    B, S, _ = x.shape
+    if not (tp > 1 and e_pad % tp == 0 and B % dp == 0):
+        return None
+    seq = "seq_act" if (rules.get("seq_act") == "model"
+                        and S % tp == 0) else None
+    return mesh, ("pod_batch" if "pod" in sizes else "batch"), seq
+
+
 def moe(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         run: RunConfig, capacity_factor: Optional[float] = None
         ) -> torch.Tensor:
     """x: [B, S, d] → [B, S, d]: the routed experts plus the shared
-    expert, if any, behind its sigmoid gate."""
+    expert, if any, behind its sigmoid gate.  The expert-parallel path
+    when a mesh in scope allows it (``_expert_parallel_axes``), else the
+    dense path (on a mesh: gathered, the same on every rank)."""
     if capacity_factor is None:
         capacity_factor = run.moe_capacity
     cdt = run.compute_dtype
-    B, S, d = x.shape
-    y = _moe_dense(params, x, cfg, run, capacity_factor)
+    ep = _expert_parallel_axes(x, cfg)
+    if ep is not None:
+        y = _moe_expert_parallel(params, x, cfg, run, capacity_factor, *ep)
+    else:
+        names = ("router", "w_gate", "w_up", "w_down")
+        whole = tuple((None,) * params[n].ndim for n in names)
+        y = ctx.local_call(
+            lambda x, *w: _moe_dense(dict(zip(names, w)), x, cfg, run,
+                                     capacity_factor),
+            (x,) + tuple(params[n] for n in names),
+            ((None, None, None),) + whole, (((None, None, None), x.shape),))
     if cfg.shared_ff:
-        xt = x.reshape(B * S, d)
-        sg = torch.sigmoid((xt @ params["shared_gate"].to(cdt))
+        # [B, S, d] products are the reference's [B*S, d] ones (matmul
+        # folds the leading dims); unflattened, a DTensor keeps its split
+        # batch and sequence.
+        sg = torch.sigmoid((x @ params["shared_gate"].to(cdt))
                            .float()).to(cdt)
-        y = y + (mlp(params["shared"], xt, run) * sg).reshape(B, S, d)
+        y = y + mlp(params["shared"], x, run) * sg
     return y
 
 
 def moe_load_balance_loss(params, x: torch.Tensor, cfg: ModelConfig,
                           run: RunConfig) -> torch.Tensor:
-    """Auxiliary load-balancing loss (Switch-style fraction·prob)."""
+    """Auxiliary load-balancing loss (Switch-style fraction·prob).  On a
+    mesh the tokens are laid out on the batch first (the embedding's own
+    layout splits d_model, which DTensor's reshape backward mishandles)."""
     e_pad = cfg.n_experts_padded or cfg.n_experts
+    x = ctx.constrain(x, ("batch", None, None))
     xt = x.reshape(x.shape[0] * x.shape[1], -1).to(run.compute_dtype)
     gates = _gates(params, xt, cfg)
     top1 = torch.argmax(gates, dim=-1)

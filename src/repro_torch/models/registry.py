@@ -1,7 +1,9 @@
 """Model facade: one object per architecture exposing the whole lifecycle —
 specs → init → loss/forward → prefill/decode — plus ``(shape, dtype)``
 stand-ins for the inputs (``input_specs``), the serving state
-(``state_specs``) and the parameters (``abstract``).
+(``state_specs``) and the parameters (``abstract``), and the logical
+axes of the inputs and the state (``input_axes``, ``state_axes``) for
+the sharding rules.
 
 The SSM and hybrid families (mamba2-780m, zamba2-1.2b) go to
 ``models/hybrid.py``; the dense, MoE, audio and VLM families to
@@ -19,7 +21,7 @@ from . import hybrid as hybrid_mod
 from . import transformer as tf_mod
 from .common import (ModelConfig, RunConfig, abstract_params, init_params,
                      param_count, reduce_config)
-from .layers import kv_cache_specs
+from .layers import kv_cache_axes, kv_cache_specs
 
 SSM_FAMILIES = ("ssm", "hybrid")
 
@@ -123,6 +125,26 @@ class Model:
                 batch["patches"] = ((B, cfg.n_patches, cfg.patch_dim), bf16)
             return batch
         return {"tokens": ((B, 1), i32)}
+
+    def input_axes(self, shape_name: str) -> Dict[str, Tuple]:
+        """Logical axes of each input tensor (for sharding via rules)."""
+        from ..configs.shapes import SHAPES
+        decode = SHAPES[shape_name].kind == "decode"
+        ax: Dict[str, Tuple] = {}
+        for k in self.input_specs(shape_name):
+            if k in ("tokens", "labels", "mask"):
+                ax[k] = ("batch", None if decode else "seq")
+            elif k == "frames":
+                ax[k] = ("batch", "seq", None)
+            elif k == "patches":
+                ax[k] = ("batch", None, None)
+        return ax
+
+    def state_axes(self) -> Dict[str, Tuple]:
+        """Logical axes of each decode-state leaf."""
+        if self.cfg.family in SSM_FAMILIES:
+            return hybrid_mod.state_axes(self.cfg)
+        return kv_cache_axes()
 
     def state_specs(self, shape_name: str) -> Optional[Dict[str, Tuple]]:
         """(shape, dtype) of the decode/prefill state (KV cache / SSM

@@ -4,6 +4,8 @@ The full-sequence block runs the SSD scan through ``kernels/ssd/ops.py``
 (the CUDA kernel for CUDA tensors, the plain torch version for CPU
 tensors).  The decode step's recurrence (``ssd_decode``) has no kernel in
 the reference, so its torch ops are the port of it on every device.
+On a mesh both run on each rank's batch and head shard
+(``parallel.ctx.local_call``): every head's scan is independent.
 """
 from __future__ import annotations
 
@@ -13,10 +15,18 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd import ops as ssd_ops
+from ..parallel.ctx import local_call
 from .common import ModelConfig, ParamSpec, RunConfig, spec
 from .layers import rmsnorm
 
 F32 = torch.float32
+
+# Logical axes of the SSD scan's operands (``ref.ssd_ref``'s shapes).
+_X = ("batch", None, "ssm_heads", None)          # x, y: [B, L, H, P]
+_DT = ("batch", None, "ssm_heads")               # dt: [B, L, H]
+_A = ("ssm_heads",)                              # A: [H]
+_BC = ("batch", None, None)                      # B, C: [B, L, N]
+_STATE = ("batch", "ssm_heads", None, None)      # state: [B, H, N, P]
 
 
 def ssm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -51,10 +61,13 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv.  x: [B,L,C]; w: [K,C].  The taps are
     unrolled in x's dtype, as in the reference (``F.conv1d`` would go
-    through cuDNN, in TF32 for fp32 by default)."""
+    through cuDNN, in TF32 for fp32 by default).  The K-1 leading zeros
+    are concatenated rather than padded: some DTensor releases give
+    ``constant_pad_nd`` a placement for one mesh dimension only."""
     K = w.shape[0]
     L = x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    zero = torch.zeros_like(x[:, :1])
+    xp = torch.cat([zero] * (K - 1) + [x], dim=1)
     out = torch.zeros_like(x)
     for k in range(K):  # K is tiny (4)
         out = out + xp[:, k:k + L, :] * w[k][None, None, :]
@@ -93,7 +106,12 @@ def ssm_block_with_state(params, x: torch.Tensor, cfg: ModelConfig,
                   + params["dt_bias"].to(F32))
     A = -torch.exp(params["A_log"].to(F32))
     xh = _split_heads(xz, H)
-    y, final = ssd_ops.ssd(xh, dt, A, Bm, Cm, chunk=min(64, x.shape[1]))
+    chunk = min(64, x.shape[1])
+    B, _, H, P = xh.shape
+    y, final = local_call(
+        lambda *a: ssd_ops.ssd(*a, chunk=chunk), (xh, dt, A, Bm, Cm),
+        (_X, _DT, _A, _BC, _BC),
+        ((_X, xh.shape), (_STATE, (B, H, cfg.ssm_state, P))))
     y = y.to(cdt) + params["D"].to(cdt)[None, None, :, None] * xh
     y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
     z = F.silu(x @ params["w_z"].to(cdt))
@@ -130,6 +148,15 @@ def ssm_state_specs(cfg: ModelConfig, batch: int, n_layers: int,
     }
 
 
+# Logical axes of each SSM state leaf.
+SSM_STATE_AXES = {
+    "ssd": ("layers", "batch", "ssm_heads", None, None),
+    "conv_x": ("layers", "batch", None, "ssm_inner"),
+    "conv_B": ("layers", "batch", None, None),
+    "conv_C": ("layers", "batch", None, None),
+}
+
+
 def init_ssm_state(cfg: ModelConfig, batch: int, n_layers: int,
                    dtype=F32, device=None) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros(shape, dtype=dt, device=device)
@@ -157,8 +184,13 @@ def ssm_block_decode(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
                   + params["dt_bias"].to(F32))
     A = -torch.exp(params["A_log"].to(F32))
     xh = xc.reshape(x.shape[0], H, cfg.ssm_head_dim)
-    y, ssd_state = ssd_ops.ssd_decode(xh, dt, A, bc, cc,
-                                      state["ssd"].to(F32))
+    # decode operands drop the length axis: x [B,H,P], dt [B,H], B/C [B,N]
+    x1, dt1, bc1 = (_X[0],) + _X[2:], _DT[:1] + _DT[2:], _BC[:1] + _BC[2:]
+    ssd_state = state["ssd"].to(F32)
+    y, ssd_state = local_call(
+        ssd_ops.ssd_decode, (xh, dt, A, bc, cc, ssd_state),
+        (x1, dt1, _A, bc1, bc1, _STATE),
+        ((x1, xh.shape), (_STATE, ssd_state.shape)))
     y = y.to(cdt) + params["D"].to(cdt)[None, :, None] * xh
     y = y.reshape(x.shape[0], cfg.d_inner)
     z = F.silu(x @ params["w_z"].to(cdt))

@@ -5,9 +5,10 @@ The reference's parameter tree: layers stacked along a leading
 ``[n_layers, ...]`` axis, the same tree for the forward, prefill and
 decode paths.  Layers are a Python loop over views into the stacked
 leaves (the reference's ``jax.lax.scan``).  Under grad each layer body
-runs inside the reference's remat policy (``layers.remat``); the
-reference's sharding constraints come with the parallelism slice
-(ROADMAP Queue 1 item 11).
+runs inside the reference's remat policy (``layers.remat``).  Each
+layer body constrains the residual stream to ``("batch", "seq_act",
+None)`` before and after attention, as the reference does; outside a
+sharding scope (``parallel.ctx``) that is a no-op.
 
 Full-sequence attention goes through ``layers.attend``, and so through
 the flash-attention kernel on every CUDA tensor; decode attention is
@@ -19,6 +20,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..parallel.ctx import constrain
 from . import moe as moe_mod
 from .common import (ModelConfig, RunConfig, layer_params, position_ids,
                      spec, stacked, tree_map)
@@ -74,6 +76,7 @@ def _layer_body(h: torch.Tensor, lp, positions, cfg: ModelConfig,
     """One block.  ``cache`` = (k, v) slices of a KV cache: the layer's
     keys (post-qk-norm, post-RoPE) and values are written into their
     first L slots, the layout ``decode_attention`` reads."""
+    h = constrain(h, ("batch", "seq_act", None))
     q, k, v = project_qkv(lp["attn"], rmsnorm(h, lp["ln1"], cfg.rms_eps),
                           positions, cfg, run)
     if cache is not None:
@@ -81,6 +84,7 @@ def _layer_body(h: torch.Tensor, lp, positions, cfg: ModelConfig,
         cache[0][:, :L] = k
         cache[1][:, :L] = v
     h = h + attend(lp["attn"], q, k, v, cfg, run, cfg.causal)
+    h = constrain(h, ("batch", "seq_act", None))
     return h + _ffn(lp, rmsnorm(h, lp["ln2"], cfg.rms_eps), cfg, run)
 
 

@@ -1,7 +1,7 @@
-"""Training step builder, on one device.
+"""Training step builders.
 
-``make_train_step(model)`` returns a (params, opt, batch) → (params, opt,
-metrics) function, the reference's unsharded step:
+``make_train_step(model, mesh=None)`` returns a (params, opt, batch) →
+(params, opt, metrics) function, the reference's step:
 
 - gradients by ``torch.autograd.grad`` over the parameter tree's leaves
   (all floating), the layer bodies under the run's remat policy (none /
@@ -11,12 +11,25 @@ metrics) function, the reference's unsharded step:
   gradients and losses, the auxiliary loss dropped from the metrics;
 - optional single cast of the parameter tree to the compute dtype at
   step entry (``run.cast_params_once``), differentiated through;
-- the AdamW update of ``optim.adamw_update``, in place.
+- the AdamW update of ``optim.adamw_update``, in place;
+- with a ``DeviceMesh``, all of it inside ``parallel.ctx.scope(mesh,
+  train_rules(run))``: parameters, moments and batch are DTensors, the
+  model's ``constrain`` calls lay the residual stream out on the rules,
+  the kernels run on each rank's shards, and AdamW's elementwise update
+  runs on the local shards (only the gradients' global norm is reduced).
+
+``build_train_step(model, mesh, shape_name)`` adds the reference's
+explicit layout: it returns the step with the placements of parameters,
+optimizer state and batch, and splits inputs that arrive as plain
+tensors onto them.
+
+``RunConfig.grad_compression`` is not wired: the reference's docstring
+says its ``'int8'`` value compresses the data-parallel gradient
+reduction, but its step never reads it, and neither does this one.
+``parallel/collectives.py`` holds the int8 all-reduce, with no caller.
 
 The batch (numpy arrays or tensors) is moved to the model's device; the
-step runs there.  The sharded step (``build_train_step``, ``train_rules``,
-the int8 gradient compression) comes with the parallelism slice (ROADMAP
-Queue 1 item 11): ``make_train_step`` with a mesh raises.
+step runs there.
 """
 from __future__ import annotations
 
@@ -24,8 +37,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..models.common import cast_tree, tree_leaves, tree_map, tree_unflatten
+from ..models.common import (TRAIN_RULES, RunConfig, cast_tree, tree_leaves,
+                             tree_map, tree_unflatten)
 from ..models.registry import Model
+from ..parallel import ctx
+from ..parallel import sharding as shd
 from . import optim
 
 PyTree = Any
@@ -38,6 +54,21 @@ def _on_device(model: Model, batch) -> Dict[str, torch.Tensor]:
 def _detached(metrics: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v.detach() if isinstance(v, torch.Tensor) else v
             for k, v in metrics.items()}
+
+
+def train_rules(run: RunConfig) -> Dict[str, Any]:
+    rules = dict(TRAIN_RULES)
+    if not run.seq_parallel:
+        rules["seq_act"] = None
+    return rules
+
+
+def _check_mesh(mesh) -> None:
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                        f"(launch.mesh.make_host_mesh), not "
+                        f"{type(mesh).__name__}")
 
 
 def _value_and_grad(lf, params: PyTree):
@@ -97,16 +128,15 @@ def _accum_microbatches(model: Model, params, batch, n_micro: int):
 
 
 def make_train_step(model: Model, mesh: Optional[Any] = None):
-    """The unsharded train step of ``model`` (see the module docstring).
-    The returned step updates ``params`` and the moments of ``opt`` in
-    place and returns them with the new ``step``."""
+    """The train step of ``model`` (see the module docstring), sharded
+    when ``mesh`` (a ``DeviceMesh``) is given.  The returned step updates
+    ``params`` and the moments of ``opt`` in place and returns them with
+    the new ``step``; on a mesh its metrics are whole tensors."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the sharded train step comes with the parallelism slice "
-            "(ROADMAP Queue 1 item 11); pass mesh=None")
+        _check_mesh(mesh)
     run = model.run
 
-    def train_step(params, opt, batch) -> Tuple[PyTree, Dict, Dict]:
+    def step(params, opt, batch) -> Tuple[PyTree, Dict, Dict]:
         batch = _on_device(model, batch)
         if run.cast_params_once:
             # a single tree-cast inside the grad
@@ -125,4 +155,35 @@ def make_train_step(model: Model, mesh: Optional[Any] = None):
         metrics.update(opt_metrics)
         return params, opt, metrics
 
+    if mesh is None:
+        return step
+    rules = train_rules(run)
+
+    def train_step(params, opt, batch) -> Tuple[PyTree, Dict, Dict]:
+        with ctx.scope(mesh, rules):
+            params, opt, metrics = step(params, opt, batch)
+        return params, opt, shd.full(metrics)
+
     return train_step
+
+
+def build_train_step(model: Model, mesh, shape_name: str = "train_4k"):
+    """The sharded step with the reference's explicit layout: returns
+    ``(fn, param_placements, opt_placements, batch_placements)``, each a
+    tree of DTensor placement lists.  ``fn(params, opt, batch)`` splits
+    any plain-tensor input onto its placements (every rank passes the
+    same whole values) and runs ``make_train_step(model, mesh)``."""
+    _check_mesh(mesh)
+    param_pl = shd.model_param_shardings(model, mesh, kind="train")
+    opt_pl = {"mu": param_pl, "nu": param_pl, "step": shd.replicated(mesh)}
+    batch_pl = shd.batch_shardings(model, mesh, shape_name, kind="train")
+    step = make_train_step(model, mesh)
+
+    def fn(params, opt, batch):
+        batch = _on_device(model, batch)
+        pl = {k: batch_pl.get(k, shd.replicated(mesh)) for k in batch}
+        return step(shd.distribute(params, mesh, param_pl),
+                    shd.distribute(opt, mesh, opt_pl),
+                    shd.distribute(batch, mesh, pl))
+
+    return fn, param_pl, opt_pl, batch_pl

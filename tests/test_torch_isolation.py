@@ -1,12 +1,16 @@
 """repro_torch stands alone: no jax, nothing of the reference package.
 
 * A subprocess that blocks ``jax`` (``sys.modules["jax"] = None``)
-  imports ``repro_torch.core.batch_engine`` and runs a tiny CPU grid,
+  imports ``repro_torch.parallel.ctx`` first (the models import it: no
+  cycle), then ``repro_torch.core.batch_engine`` and runs a tiny CPU grid,
   then builds the zamba2-1.2b and qwen2-moe-a2.7b smoke models on the
   CPU (the hybrid and the transformer/MoE stacks), prefills a prompt
   through the serve builders and decodes one token with each, and runs
-  a small ``repro_torch.waas.platform.sweep``; afterwards no
-  ``repro.*`` or ``jax*`` module is loaded.  A second such subprocess
+  a small ``repro_torch.waas.platform.sweep``, and imports the
+  parallelism modules (``repro_torch.parallel.*``,
+  ``repro_torch.launch.mesh`` and ``roofline``) and builds the rule
+  tables' placements; afterwards no ``repro.*`` or ``jax*`` module is
+  loaded.  A second such subprocess
   imports ``repro_torch.exp.run`` and runs a one-cell ``paper-smoke``
   grid and a checkpointed, resumed stream with trace and report files.
   A third trains: ``batch_at`` batches through ``make_train_step`` on
@@ -18,7 +22,9 @@
   its CLI included, and ``restore_section``) refuse to run unless the
   caller asks for the CPU.
 * On a card, ``ssd`` under grad goes through its operator and the
-  backward kernels give the plain version's gradient (``cuda`` marker).
+  backward kernels give the plain version's gradient, and a train step
+  on a one-rank NCCL mesh launches flash attention as the unsharded
+  step does (``cuda`` marker).
 """
 import os
 import re
@@ -35,6 +41,8 @@ PORT = ROOT / "src" / "repro_torch"
 CHILD = r"""
 import sys
 sys.modules["jax"] = None
+# first, before anything has loaded the models that import it
+from repro_torch.parallel.ctx import scope
 from repro_torch.core.batch_engine import simulate_batch
 from repro_torch.core.scheduler import ALL_POLICIES
 from repro_torch.core.types import PlatformConfig
@@ -68,6 +76,16 @@ assert logits.shape == (2, 1, m.cfg.vocab) and int(state["length"]) == 17
 from repro_torch.waas.platform import sweep
 assert len(sweep(n_jobs=4, rates=(2.0,), art_dir="/nonexistent",
                  device="cpu")) == len(ALL_POLICIES)
+import types
+from repro_torch.launch import mesh as launch_mesh, roofline
+from repro_torch.parallel import collectives, ctx, sharding
+stand_in = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(2, 4), ndim=2)
+for kind in ("train", "serve"):
+    pl = sharding.model_param_shardings(m, stand_in, kind)
+    assert len(pl["layers"]["attn"]["wq"]) == 2
+assert sharding.state_shardings(m, stand_in, "decode_32k")["k"]
+assert roofline.PEAK_FLOPS == 989e12 and ctx.current() is None
 bad = sorted(m for m in sys.modules
              if m == "repro" or m.startswith("repro.")
              or m == "jax" or m.startswith(("jax.", "jaxlib")))
@@ -269,3 +287,45 @@ def test_ssd_under_grad_on_the_card_gives_the_plain_gradient():
     with torch.no_grad():
         y, _ = ops.ssd(x, dt, A, Bm, Cm, chunk=16)
     assert y.shape == x.shape and ops.BWD_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_mesh_train_step_on_the_card_launches_as_unsharded():
+    """A llama3-8b smoke train step on a one-rank NCCL ``("data",
+    "model")`` mesh (``build_train_step``) launches flash attention's
+    forward and backward as often as the unsharded step, and gives its
+    loss."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import socket
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import RunConfig, build
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.train_step import build_train_step, \
+        make_train_step
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(device_type="cuda")
+        m = build("llama3-8b", RunConfig(remat="dots"), smoke=True,
+                  device="cuda")
+        p = m.init(0)
+        batch = batch_at(DataConfig(seq_len=64, global_batch=2), 0, m.cfg)
+        runs = []
+        for fn in (make_train_step(m), build_train_step(m, mesh)[0]):
+            fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
+            q = tree_map(lambda t: t.clone(), p)
+            _, _, met = fn(q, init_opt_state(q), batch)
+            torch.cuda.synchronize()
+            runs.append((fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES,
+                         float(met["loss"])))
+        assert runs[0] == runs[1] and runs[0][0] == m.cfg.n_layers, runs
+    finally:
+        dist.destroy_process_group()

@@ -424,8 +424,9 @@ def test_remat_policies_give_equal_grads(arch, remat):
 
 
 def test_train_step_with_a_mesh_raises():
+    """A mesh must be a ``DeviceMesh``: anything else is refused."""
     tm = build("llama3-8b", RUN, smoke=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(tm, mesh=object())
 
 
