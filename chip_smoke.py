@@ -165,7 +165,22 @@ Phases (each raises on failure, so the script exits non-zero):
    simulator's round buffers on the mesh (``set_round_buffer_mesh``):
    phase 4's seed-0 grid unchanged, one paper-smoke cell equal with
    and without, the same affinity launches.  Every time printed
-   stands beside the card's name and power limit.
+   stands beside the card's name and power limit;
+13. dry run — ``repro_torch.launch.dryrun`` on the card's path (the
+   kernels' operators through their fakes, nothing launched): (a)
+   phase 11 (a)'s step traced on a one-rank fake group's (1, 1) mesh
+   (its own process) against the same step run on the card: flops
+   equal to ``FlopCounterMode``'s count exactly, predicted peak
+   (arguments + temporaries) within 10% of ``max_memory_allocated``;
+   (b) ``python -m repro_torch.launch.dryrun`` on the (16, 16) mesh of a
+   256-rank fake group for llama3-8b train_4k, qwen2-moe-a2.7b
+   train_4k, mamba2-780m prefill_32k, llama3-8b decode_32k and
+   zamba2-1.2b long_500k at full width and depth, the five processes
+   started together, each exiting 0: trace s, flops, bytes and
+   collective bytes per device, live GiB, and the roofline table; (c)
+   phase 10's sweep (defaults) with ``art_dir`` on those artifacts, on
+   the card and on the CPU: rows equal, launches equal to the CPU's
+   rounds, every cost read of a cell with an artifact equal to its flops.
 
 The second-last lines are the kernel record (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is the device record.
@@ -179,6 +194,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -3070,6 +3086,215 @@ def phase_mesh(torch, parity: dict, smi: str) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 13: the dry run
+# ---------------------------------------------------------------------------
+
+# (a) Phase 11 (a)'s step (TRAIN_HEADLINE), traced by the dry run on a
+# one-rank fake group's (1, 1) mesh in a process of its own (a process
+# group is process-wide, and phase 12's NCCL group has come and gone in
+# this one); writes the counts to the file named.
+DRY_ONE_RANK = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+arch, n_layers, B, L = cs.TRAIN_HEADLINE
+assert SHAPES["train_4k"].seq_len == L
+model = cs.train_model(arch, n_layers)
+dryrun.fake_group(1)
+counts = dryrun.trace(model, make_mesh((1, 1), ("data", "model")),
+                      "train_4k", B)
+with open(sys.argv[2], "w") as f:
+    json.dump(counts, f)
+"""
+# Predicted peak live bytes (arguments + temporaries) within this share of
+# the real step's torch.cuda.max_memory_allocated.
+DRY_MEM_REL = 0.10
+# (b) One cell per kind at full width and depth on the production
+# (16, 16) mesh: train (dense; MoE, expert parallel), prefill (SSM),
+# decode (dense, a 32k KV cache), long-context decode (hybrid).
+DRY_CELLS = (("llama3-8b", "train_4k"), ("qwen2-moe-a2.7b", "train_4k"),
+             ("mamba2-780m", "prefill_32k"), ("llama3-8b", "decode_32k"),
+             ("zamba2-1.2b", "long_500k"))
+DRY_TIMEOUT_S = 600
+
+
+def dry_live(art: dict) -> int:
+    """The roofline's live bytes of an artifact: arguments and
+    temporaries, and a prefill's new cache (``roofline.analyze``)."""
+    mem = art["memory"]
+    live = mem["argument_bytes"] + mem["temp_bytes"]
+    return live + (mem["output_bytes"] if art["kind"] == "prefill" else 0)
+
+
+def dry_one_rank(torch, smi: str) -> dict:
+    """(a): the dry run's flops and peak of phase 11 (a)'s step against
+    the same step run on the card: ``FlopCounterMode``'s count of one
+    step after a warm-up (the same operators and formulas: equal
+    exactly) and its ``max_memory_allocated`` (within DRY_MEM_REL)."""
+    import tempfile
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    arch, n_layers, B, L = TRAIN_HEADLINE
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "counts.json"
+        subprocess.run([sys.executable, "-c", DRY_ONE_RANK, str(ROOT),
+                        str(out)], check=True, timeout=DRY_TIMEOUT_S)
+        dry = json.loads(out.read_text())
+    dry_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    model = train_model(arch, n_layers)
+    params = model.init(0)
+    opt = init_opt_state(params)
+    step = make_train_step(model)
+    dc = DataConfig(seed=0, seq_len=L, global_batch=B)
+    params, opt, _ = step(params, opt, batch_at(dc, 0, model.cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        params, opt, met = step(params, opt, batch_at(dc, 1, model.cfg))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(float(met["loss"])):
+        raise AssertionError(f"(a) non-finite loss {float(met['loss'])}")
+    real = fc.get_total_flops()
+    mem = dry["memory"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    log(f"[dryrun] (a) {arch} ({n_layers} layers, {B} x {L}, remat "
+        f"{model.run.remat}) on a one-rank fake mesh, traced in "
+        f"{dry['trace_s']:.3f} s ({dry_s:.3f} s with the process): flops "
+        f"{dry['flops']:.0f} predicted, {real} counted by FlopCounterMode "
+        f"in the real step ("
+        + ", ".join(f"{k} {v}" for k, v in
+                    fc.get_flop_counts()["Global"].items())
+        + f"); peak {predicted / 2**30:.3f} GiB predicted (arguments "
+        f"{mem['argument_bytes'] / 2**30:.3f}, temporaries "
+        f"{mem['temp_bytes'] / 2**30:.3f}), {peak / 2**30:.3f} GiB "
+        f"max_memory_allocated ({predicted / peak:.4f}); {smi}")
+    if dry["flops"] != real:
+        raise AssertionError(f"(a) dry-run flops {dry['flops']} != the real "
+                             f"step's {real}")
+    if abs(predicted - peak) > DRY_MEM_REL * peak:
+        raise AssertionError(f"(a) predicted peak {predicted} bytes is not "
+                             f"within {DRY_MEM_REL} of the real {peak}")
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return dict(flops=real, predicted_gib=predicted / 2**30,
+                peak_gib=peak / 2**30, trace_s=dry["trace_s"])
+
+
+def dry_cells(art_dir: Path, smi: str) -> dict:
+    """(b): ``python -m repro_torch.launch.dryrun`` for each of DRY_CELLS
+    (all started together, each its own process), exit 0 each; each
+    cell's trace time, flops and live bytes per device, and the roofline
+    table over them."""
+    from repro_torch.launch import roofline
+    t0 = time.perf_counter()
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--out", str(art_dir)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cell in DRY_CELLS}
+    logs = {cell: p.communicate(timeout=DRY_TIMEOUT_S)[0]
+            for cell, p in procs.items()}
+    wall = time.perf_counter() - t0
+    failed = [c for c, p in procs.items() if p.returncode != 0]
+    if failed:
+        raise AssertionError("dry run failed for " + "; ".join(
+            f"{c}:\n{logs[c][-3000:]}" for c in failed))
+    out = {}
+    for arch, shape in DRY_CELLS:
+        art = json.loads((art_dir / f"singlepod__{arch}__{shape}.json")
+                         .read_text())
+        if art["device"] != "cuda" or art["mesh"]["n_devices"] != 256:
+            raise AssertionError(f"({arch}, {shape}) traced on "
+                                 f"{art['device']}, {art['mesh']}")
+        live = dry_live(art)
+        out[(arch, shape)] = dict(trace_s=art["lower_s"],
+                                  flops=art["flops_per_device"],
+                                  live_gib=live / 2**30)
+        log(f"[dryrun] (b) {arch} x {shape} on {art['mesh']['axes']}: "
+            f"traced in {art['lower_s']} s, flops/dev "
+            f"{art['flops_per_device']:.6g}, bytes/dev "
+            f"{art['bytes_accessed_per_device']:.6g}, collective bytes/dev "
+            f"{art['collective_bytes_per_device']:.6g}, live "
+            f"{live / 2**30:.3f} GiB/dev")
+    log(f"[dryrun] (b) {len(DRY_CELLS)} processes together in {wall:.3f} s "
+        f"({smi}); roofline (H100 rates):")
+    for row in roofline.table(str(art_dir)).splitlines():
+        log(f"[dryrun]   {row}")
+    return dict(cells=out, wall=wall)
+
+
+def dry_waas(torch, art_dir: Path) -> dict:
+    """(c): phase 10's sweep (defaults) with ``art_dir`` set to (b)'s
+    artifacts, on the card and on the CPU: rows equal, launches equal to
+    the CPU's rounds; every cost it reads of a cell with an artifact is
+    that artifact's flops (the rest take the analytic fallback)."""
+    from repro_torch.kernels.affinity import ops
+    from repro_torch.waas import mljobs, platform
+    measured = mljobs.StageCostModel(str(art_dir)).measured
+    want = {c for c in DRY_CELLS}
+    if not set(measured) <= want or len(measured) != len(want):
+        raise AssertionError(f"(c) the cost model reads {sorted(measured)} "
+                             f"from the artifacts, expected {sorted(want)}")
+    reads = []
+    original = mljobs.StageCostModel.step_gflops
+
+    def recorded(self, arch, shape):
+        got = original(self, arch, shape)
+        reads.append(((arch, shape), (arch, shape) in self.measured,
+                      got == self.measured.get((arch, shape), -1.0) / 1e9))
+        return got
+    mljobs.StageCostModel.step_gflops = recorded
+    try:
+        cpu, rounds, cpu_wall = cpu_rounds(
+            lambda: platform.sweep(art_dir=str(art_dir), device="cpu"))
+        ops.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rows = platform.sweep(art_dir=str(art_dir), device="cuda")
+        wall, launches = time.perf_counter() - t0, ops.LAUNCHES
+    finally:
+        mljobs.StageCostModel.step_gflops = original
+    if rows != cpu:
+        raise AssertionError("(c) sweep on the dry-run artifacts: card rows "
+                             "differ from the CPU's")
+    if launches != rounds:
+        raise AssertionError(f"(c) {launches} launches on the card, "
+                             f"{rounds} rounds on the CPU")
+    hits = [c for c, m, _ in reads if m]
+    if not hits or not all(same for _, m, same in reads if m):
+        raise AssertionError("(c) the sweep read no cost from the dry-run "
+                             "artifacts, or one not equal to its flops")
+    fallback = sorted({c for c, m, _ in reads if not m})
+    check_sweep_rows(rows, 24, "(c) sweep on the dry-run artifacts")
+    log(f"[dryrun] (c) WaaS sweep (defaults) on the artifacts: {len(rows)} "
+        f"rows, card = CPU; {launches} affinity launches = the CPU's "
+        f"{rounds} rounds; {len(reads)} stage costs read, {len(hits)} from "
+        f"the artifacts ({sorted(set(hits))}), the rest from the analytic "
+        f"fallback for cells without one ({fallback}); wall {wall:.3f} s on "
+        f"the card, {cpu_wall:.3f} s on the CPU")
+    return dict(rows=len(rows), reads=len(reads), from_artifacts=len(hits),
+                launches=launches)
+
+
+def phase_dryrun(torch, smi: str) -> dict:
+    import tempfile
+    out = {"a": dry_one_rank(torch, smi)}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["b"] = dry_cells(Path(tmp), smi)
+        out["c"] = dry_waas(torch, Path(tmp))
+    return out
+
+
 def main() -> int:
     import torch
     smi = phase_device(torch)
@@ -3097,6 +3322,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh = phase_mesh(torch, parity, smi)
     log(f"[mesh] phase 12 took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    phase_dryrun(torch, smi)
+    log(f"[dryrun] phase 13 took {time.perf_counter() - t0:.3f} s")
     from repro_torch.kernels.flash_attention.kernel import \
         HEAD_DIMS as FA_HEAD_DIMS
     head = k["rows"][HEADLINE]

@@ -9,23 +9,40 @@ reference keeps that carry in jnp outside its Pallas kernel.  On a CPU
 tensor it runs ``ref.ssd_ref``, which autograd differentiates.  There is
 no fallback from one to the other.
 
-Under grad, on a CUDA tensor, :func:`ssd` goes through the operator
-``repro_torch::ssd_fwd`` (``torch.library.custom_op``): the same two
-launches, with its gradient registered.  It saves x, dt, A, B, C and
-the initial state, not the chunk states; its backward (:func:`ssd_bwd`)
-launches the chunk kernel once more for them, then the carry backward
-(h_prev and the state gradients, two walks over the chunks) and the chunk
-backward (each chunk's gradients) from ``csrc/ssd_bwd.cu`` — for bf16 at
-the models' shapes (Q = P = 64, N in {64, 128}) the tensor-core
-``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, else the CUDA-core
-``ssd_carry_bwd`` and ``ssd_chunk_bwd`` (``kernel.bwd_kernels``) — and
-finishes in torch: dB and dC summed over the kernel's head groups in a
-fixed order, the cumsum's gradient (ddt += A·da, dA = Σ dt·da).  The
-backward kernels take chunks of up to ``kernel.BWD_MAX_Q`` rows, and
+Every launch goes through an operator (``torch.library.custom_op``) with
+a fake, so that the dry run (``launch/dryrun.py``) traces the card's
+path under ``FakeTensorMode`` without launching, and with a flop formula
+(``torch.utils.flop_counter``):
+
+* ``repro_torch::ssd_fwd``, the two forward launches, with and without
+  grad.  Under grad its gradient is registered.  It saves x, dt, A, B, C
+  and the initial state, not the chunk states.
+* ``repro_torch::ssd_bwd`` (:func:`ssd_bwd`), the gradient: the chunk
+  kernel once more for the chunk states, then the carry backward (h_prev
+  and the state gradients, two walks over the chunks) and the chunk
+  backward (each chunk's gradients) from ``csrc/ssd_bwd.cu`` — for bf16
+  at the models' shapes (Q = P = 64, N in {64, 128}) the tensor-core
+  ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, else the CUDA-core
+  ``ssd_carry_bwd`` and ``ssd_chunk_bwd`` (``kernel.bwd_kernels``) — and
+  it finishes in torch: dB and dC summed over the kernel's head groups in
+  a fixed order, the cumsum's gradient (ddt += A·da, dA = Σ dt·da).
+
+The backward kernels take chunks of up to ``kernel.BWD_MAX_Q`` rows, and
 :func:`ssd` refuses a longer one under grad.  As one operator the
 forward is seen by selective activation checkpointing
 (``models/layers.py``'s ``remat="dots"``), which keeps its outputs
 instead of launching it again in the backward.
+
+Flops, per (batch, head, chunk) of Q rows, with N the state width and P
+the head width (:func:`ssd_fwd_flops`, :func:`ssd_bwd_flops`): the chunk
+pass 2Q²N + 2Q²P + 2QNP (C·Bᵀ, its decayed product with x, the chunk
+state Bᵀ·x), the carry 2·N per y element (C·h_prev: 2QNP).  The backward
+counts the products its three launches issue: the chunk pass again for
+the states; the carry backward's (exp(cum) ∘ C)ᵀ·dy, 2QNP; the chunk
+backward's x·dyᵀ, (K ∘ dt)ᵀ·dy, B·g, x·gᵀ and dy·h_prevᵀ, 4Q²P + 6QNP,
+and once per block of G heads (``kernel.bwd_heads_per_block``) C·Bᵀ and
+the head-summed (dW ∘ E ∘ dt)ᵀ against C and B, 6Q²N.  Elementwise work
+(decays, cumsums, row sums) is not counted.
 
 ``LAUNCHES`` counts the forward's chunk-kernel launches,
 ``CARRY_LAUNCHES`` its carry-kernel launches and ``BWD_LAUNCHES``
@@ -40,7 +57,10 @@ kernel for it, so its torch ops are the port on every device.
 # operator's schema from the annotations.
 from typing import Optional, Tuple
 
+import math
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .ref import chunk_cumsum, chunk_cumsum_bwd, ssd_decode_ref, ssd_ref
 
@@ -65,8 +85,13 @@ def _kernel_inputs(x, dt, Bm, Cm):
     return _dense(x), dt.float().contiguous(), _dense(Bm), _dense(Cm)
 
 
-def _forward(x, dt, A, Bm, Cm, chunk, init_state):
-    """The chunk and carry kernels: (y in x's dtype, final state fp32)."""
+@torch.library.custom_op("repro_torch::ssd_fwd", mutates_args=())
+def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+            init_state: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunk and carry kernels as one operator: (y [B,L,H,P] in x's
+    dtype, final state fp32 [B,H,N,P]).  CUDA tensors only."""
     global LAUNCHES, CARRY_LAUNCHES
     from .kernel import ssd_carry_cuda, ssd_chunks_cuda
     out_dtype = x.dtype
@@ -80,16 +105,6 @@ def _forward(x, dt, A, Bm, Cm, chunk, init_state):
                               out_dtype)
     CARRY_LAUNCHES += 1
     return y, final
-
-
-@torch.library.custom_op("repro_torch::ssd_fwd", mutates_args=())
-def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-            Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
-            init_state: Optional[torch.Tensor]
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chunk and carry kernels as one operator: (y [B,L,H,P] in x's
-    dtype, final state fp32 [B,H,N,P]).  CUDA tensors only."""
-    return _forward(x, dt, A, Bm, Cm, chunk, init_state)
 
 
 @ssd_fwd.register_fake
@@ -106,14 +121,18 @@ def _check_bwd_chunk(chunk: int) -> None:
                          f"{BWD_MAX_Q} rows, got {chunk}")
 
 
-def ssd_bwd(x, dt, A, Bm, Cm, dy, chunk, init_state=None, dfinal=None):
-    """The gradient of :func:`ssd` on CUDA tensors for dy (y's) and dfinal
-    (the final state's; None is zeros): (dx, ddt, dA, dB, dC,
-    d init_state), each in its input's dtype (None without an
-    init_state); see the module docstring for the launches."""
+@torch.library.custom_op("repro_torch::ssd_bwd", mutates_args=())
+def _ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+             chunk: int, init_state: Optional[torch.Tensor],
+             dfinal: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward launches as one operator: (dx, ddt, dA, dB, dC in
+    their inputs' dtypes, d init_state fp32 [B,H,N,P]).  CUDA tensors
+    only."""
     global BWD_LAUNCHES
     from . import kernel
-    _check_bwd_chunk(chunk)
     xk, dtk, Bk, Ck = _kernel_inputs(x, dt, Bm, Cm)
     cum = chunk_cumsum(dtk, A, chunk)
     _, states = kernel.ssd_chunks_cuda(xk, dtk, cum, Bk, Ck, chunk)
@@ -129,8 +148,73 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, chunk, init_state=None, dfinal=None):
     ddt_cum, dA = chunk_cumsum_bwd(dcum, dtk, A, chunk)
     BWD_LAUNCHES += 1
     return (dx.to(x.dtype), (ddt + ddt_cum).to(dt.dtype), dA.to(A.dtype),
-            dB.sum(0).to(Bm.dtype), dC.sum(0).to(Cm.dtype),
+            dB.sum(0).to(Bm.dtype), dC.sum(0).to(Cm.dtype), dinit)
+
+
+@_ssd_bwd.register_fake
+def _(x, dt, A, Bm, Cm, dy, chunk, init_state, dfinal):
+    Bsz, _, H, P = x.shape
+    return (x.new_empty(x.shape), dt.new_empty(dt.shape),
+            A.new_empty(A.shape), Bm.new_empty(Bm.shape),
+            Cm.new_empty(Cm.shape),
+            x.new_empty((Bsz, H, Bm.shape[-1], P), dtype=torch.float32))
+
+
+def ssd_bwd(x, dt, A, Bm, Cm, dy, chunk, init_state=None, dfinal=None):
+    """The gradient of :func:`ssd` on CUDA tensors for dy (y's) and dfinal
+    (the final state's; None is zeros): (dx, ddt, dA, dB, dC,
+    d init_state), each in its input's dtype (None without an
+    init_state), through the operator ``repro_torch::ssd_bwd``; see the
+    module docstring for the launches."""
+    _check_bwd_chunk(chunk)
+    *grads, dinit = _ssd_bwd(x, dt, A, Bm, Cm, dy, chunk, init_state,
+                             dfinal)
+    return (*grads,
             None if init_state is None else dinit.to(init_state.dtype))
+
+
+# H100 SXM's SM count: the head grouping the backward's flops follow on a
+# device that is not a card (``kernel.bwd_heads_per_block``).
+H100_SMS = 132
+
+
+def ssd_fwd_flops(Bsz: int, L: int, H: int, P: int, N: int,
+                  chunk: int) -> int:
+    """The forward's flops (module docstring): chunk pass and carry."""
+    nc = math.ceil(L / chunk)
+    Q = chunk
+    return (Bsz * H * nc * (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P)
+            + 2 * N * Bsz * L * H * P)
+
+
+def ssd_bwd_flops(Bsz: int, L: int, H: int, P: int, N: int, chunk: int,
+                  sms: int = H100_SMS) -> int:
+    """The backward's flops (module docstring): the chunk pass for the
+    states, the carry backward's and the chunk backward's products, the
+    last with ``kernel.bwd_heads_per_block``'s groups on a card of
+    ``sms`` SMs."""
+    from .kernel import bwd_heads_per_block
+    nc = math.ceil(L / chunk)
+    Q = chunk
+    G = bwd_heads_per_block(Bsz * nc, H, sms)
+    per_head = ((2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P)
+                + 2 * Q * N * P + 4 * Q * Q * P + 6 * Q * N * P)
+    return Bsz * nc * (H * per_head + (H // G) * 6 * Q * Q * N)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_fwd)
+def _fwd_flops(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk,
+               *args, **kwargs) -> int:
+    Bsz, L, H, P = x_shape
+    return ssd_fwd_flops(Bsz, L, H, P, B_shape[-1], chunk)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_bwd, get_raw=True)
+def _bwd_flops(x, dt, A, Bm, Cm, dy, chunk, *args, **kwargs) -> int:
+    Bsz, L, H, P = x.shape
+    sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
+           if x.device.type == "cuda" else H100_SMS)
+    return ssd_bwd_flops(Bsz, L, H, P, Bm.shape[-1], chunk, sms)
 
 
 def _setup_context(ctx, inputs, output):
@@ -163,8 +247,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, init_state)):
         _check_bwd_chunk(chunk)
-        return ssd_fwd(x, dt, A, Bm, Cm, chunk, init_state)
-    return _forward(x, dt, A, Bm, Cm, chunk, init_state)
+    return ssd_fwd(x, dt, A, Bm, Cm, chunk, init_state)
 
 
 def ssd_decode(x, dt, A, Bm, Cm, state):

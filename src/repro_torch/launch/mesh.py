@@ -4,8 +4,6 @@ Functions, not module-level constants: importing this module touches no
 process group.  A mesh spans the ranks of the process group that the
 caller has initialised (``torch.distributed.init_process_group`` with
 its own address, world size and rank: nothing here finds a cluster).
-The reference's fixed production topologies are not carried over: the
-device count is the group's.
 """
 from __future__ import annotations
 
@@ -25,6 +23,20 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
                          "differ in length")
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """The dry run's two meshes (``launch/dryrun.py``): ``(16, 16)`` over
+    ``("data", "model")``, or with ``multi_pod`` ``(2, 16, 16)`` over
+    ``("pod", "data", "model")``, where ``'pod'`` extends data
+    parallelism.  The group must have 256 or 512 ranks.  The dry run
+    makes them ranks of a fake process group (``backend="fake"``), one
+    process standing in for 256 or 512 H100s — 32 or 64 nodes of eight
+    GPUs — none of which is touched."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type)
 
 
 def make_host_mesh(model: int = 1, data: Optional[int] = None,

@@ -135,10 +135,23 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 # ---------------------------------------------------------------------------
 
 
-def _proj_heads(x: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
-    """``einsum("bld,dhk->blhk", x, w)``: [B, L, d] × [d, H, D]."""
+def _proj_heads(x: torch.Tensor, w: torch.Tensor, cdt,
+                axis: str) -> torch.Tensor:
+    """``einsum("bld,dhk->blhk", x, w)``: [B, L, d] × [d, H, D].  On a
+    mesh a column-parallel product on each rank's shards
+    (``local_call``): x whole but for its batch, w's heads split as the
+    rules split ``axis`` (heads or kv heads) of H, else whole.  DTensor
+    (torch 2.11) would pick its own split of the H·D columns, which the
+    heads (or the weight gradient's [d, H, D] view) need not divide."""
     d, H, D = w.shape
-    return (x @ w.to(cdt).reshape(d, H * D)).unflatten(-1, (H, D))
+
+    def product(x, w):
+        h = w.shape[1]
+        return (x @ w.to(cdt).reshape(d, h * D)).unflatten(-1, (h, D))
+    heads = axis if ctx.shards(axis, H) else None
+    lead = ("batch",) + (None,) * (x.ndim - 2)
+    return local_call(product, (x, w), (lead + (None,), (None, heads, None)),
+                      ((lead + (heads, None), (*x.shape[:-1], H, D)),))
 
 
 def _out_proj(o: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
@@ -147,14 +160,34 @@ def _out_proj(o: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
     return o.flatten(-2) @ w.to(cdt).reshape(H * D, d)
 
 
+def seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [B, L, ...] on a mesh with its sequence whole (the batch
+    split, nothing else): sequence parallelism's gather before a block's
+    products, which fold (B, L) into rows — a fold DTensor refuses with L
+    split in torch 2.11.  Outside a mesh scope, ``x``."""
+    return constrain(x, ("batch",) + (None,) * (x.ndim - 1))
+
+
+def seq_split(y: torch.Tensor) -> torch.Tensor:
+    """A block's output [B, L, d] on a mesh laid out as the residual
+    stream it joins (``("batch", "seq_act", None)``: sequence
+    parallelism's reduce-scatter), so that its gradient comes back on the
+    block's own layout, the sequence whole, not split as the stream's.
+    Outside a mesh scope, or for a single token [B, d], ``y``."""
+    if y.ndim < 3:
+        return y
+    return constrain(y, ("batch", "seq_act") + (None,) * (y.ndim - 2))
+
+
 def project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor,
                 positions: torch.Tensor, cfg: ModelConfig, run: RunConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q [B,L,Hq,D], k and v [B,L,Hkv,D]: projected, q/k-normed, roped."""
     cdt = run.compute_dtype
-    q = _proj_heads(x, params["wq"], cdt)
-    k = _proj_heads(x, params["wk"], cdt)
-    v = _proj_heads(x, params["wv"], cdt)
+    x = seq_whole(x)
+    q = _proj_heads(x, params["wq"], cdt, "heads")
+    k = _proj_heads(x, params["wk"], cdt, "kv_heads")
+    v = _proj_heads(x, params["wv"], cdt, "kv_heads")
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"], cfg.rms_eps)
         k = rmsnorm(k, params["k_norm"], cfg.rms_eps)
@@ -176,7 +209,7 @@ def attend(params: Dict[str, torch.Tensor], q: torch.Tensor,
     heads = ("batch", None, "heads", None)
     o = local_call(lambda q, k, v: fa_ops.flash_attention(q, k, v, causal),
                    (q, k, v), (heads,) * 3, ((heads, q.shape),))
-    return _out_proj(o, params["wo"], run.compute_dtype)
+    return seq_split(_out_proj(o, params["wo"], run.compute_dtype))
 
 
 def attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -231,9 +264,9 @@ def decode_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     Attention spans the first ``length+1`` cache slots (masked)."""
     cdt = run.compute_dtype
     B, S, Hkv, D = k_cache.shape
-    q = _proj_heads(x, params["wq"], cdt)
-    k = _proj_heads(x, params["wk"], cdt)
-    v = _proj_heads(x, params["wv"], cdt)
+    q = _proj_heads(x, params["wq"], cdt, "heads")
+    k = _proj_heads(x, params["wk"], cdt, "kv_heads")
+    v = _proj_heads(x, params["wv"], cdt, "kv_heads")
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"], cfg.rms_eps)
         k = rmsnorm(k, params["k_norm"], cfg.rms_eps)
@@ -290,9 +323,10 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamSp
 def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
         run: RunConfig) -> torch.Tensor:
     cdt = run.compute_dtype
+    x = seq_whole(x)
     g = x @ params["w_gate"].to(cdt)
     u = x @ params["w_up"].to(cdt)
-    return (F.silu(g) * u) @ params["w_down"].to(cdt)
+    return seq_split((F.silu(g) * u) @ params["w_down"].to(cdt))
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +342,47 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def embed(params, tokens: torch.Tensor, run: RunConfig) -> torch.Tensor:
-    return params["tok"].to(run.compute_dtype)[tokens]
+    table = params["tok"].to(run.compute_dtype)
+    if ctx.current() is None or not ctx.is_dtensor(table):
+        return table[tokens]
+    return _embed_split_vocab(table, tokens)
+
+
+def _embed_split_vocab(table: torch.Tensor,
+                       tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` on a mesh, by hand: the table laid out on its
+    vocabulary alone, the tokens as they lie (their batch split); each
+    rank looks its tokens up in its own rows (zeros for the others'), and
+    the rows are summed over the ranks that split the vocabulary.
+    DTensor's own indexing (torch 2.11) has no rule for tokens split over
+    pod and data, and its gradient (``index_put``) fails on a split
+    table; here both are local."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = table.device_mesh
+    table = constrain(table, ("vocab", None))
+    if not ctx.is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    (n, _), (v0, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+    # a rank's table gradient covers its own tokens only: a partial sum
+    # over the mesh axes that split the tokens but not the table
+    grad_pl = [Partial() if t.is_replicate() and k.is_shard() else t
+               for t, k in zip(table.placements, tokens.placements)]
+    rows = table.to_local(grad_placements=grad_pl)
+    ids = tokens.to_local() - v0
+    inside = ((ids >= 0) & (ids < n)).unsqueeze(-1)
+    local = rows[ids.clamp(0, n - 1)] * inside.to(rows.dtype)
+    pl = [Partial() if t.is_shard(0) else k
+          for t, k in zip(table.placements, tokens.placements)]
+    out = DTensor.from_local(local, mesh, pl, run_check=False,
+                             shape=(*tokens.shape, table.shape[1]),
+                             stride=torch.empty(*tokens.shape, table.shape[1],
+                                                device="meta").stride())
+    return out.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                   for p in pl])
 
 
 def logits_out(params, x: torch.Tensor, cfg: ModelConfig,
@@ -317,7 +391,7 @@ def logits_out(params, x: torch.Tensor, cfg: ModelConfig,
         w = params["tok"].to(run.compute_dtype).T
     else:
         w = params["unembed"].to(run.compute_dtype)
-    return x @ w
+    return seq_whole(x) @ w
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

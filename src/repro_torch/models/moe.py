@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from ..parallel import ctx
 from .common import ModelConfig, ParamSpec, RunConfig, spec
-from .layers import mlp, mlp_specs
+from .layers import mlp, mlp_specs, seq_split, seq_whole
 
 # Calls of the expert-parallel path (reset to 0 and read back around a
 # run to see which path a step took).
@@ -228,12 +228,13 @@ def moe(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
             ((None, None, None),) + whole, (((None, None, None), x.shape),))
     if cfg.shared_ff:
         # [B, S, d] products are the reference's [B*S, d] ones (matmul
-        # folds the leading dims); unflattened, a DTensor keeps its split
-        # batch and sequence.
-        sg = torch.sigmoid((x @ params["shared_gate"].to(cdt))
-                           .float()).to(cdt)
-        y = y + mlp(params["shared"], x, run) * sg
-    return y
+        # folds the leading dims), the sequence whole on a mesh; the gate
+        # joins the expert's output laid out as it is (``seq_split``).
+        xw = seq_whole(x)
+        sg = seq_split(torch.sigmoid((xw @ params["shared_gate"].to(cdt))
+                                     .float()).to(cdt))
+        y = y + mlp(params["shared"], xw, run) * sg
+    return seq_split(y)
 
 
 def moe_load_balance_loss(params, x: torch.Tensor, cfg: ModelConfig,

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from ..kernels.ssd import ops as ssd_ops
 from ..parallel.ctx import local_call
 from .common import ModelConfig, ParamSpec, RunConfig, spec
-from .layers import rmsnorm
+from .layers import rmsnorm, seq_split, seq_whole
 
 F32 = torch.float32
 
@@ -94,6 +94,7 @@ def ssm_block_with_state(params, x: torch.Tensor, cfg: ModelConfig,
     layer's final decode state: the SSD state from the same scan and the
     last K-1 pre-conv inputs, fp32)."""
     cdt = run.compute_dtype
+    x = seq_whole(x)
     H = cfg.ssm_heads
     K = cfg.ssm_conv_width
     xt = x @ params["w_x"].to(cdt)
@@ -120,7 +121,7 @@ def ssm_block_with_state(params, x: torch.Tensor, cfg: ModelConfig,
              "conv_x": xt[:, -(K - 1):, :].to(F32),
              "conv_B": bt[:, -(K - 1):, :].to(F32),
              "conv_C": ct[:, -(K - 1):, :].to(F32)}
-    return y @ params["w_out"].to(cdt), state
+    return seq_split(y @ params["w_out"].to(cdt)), state
 
 
 def ssm_block(params, x: torch.Tensor, cfg: ModelConfig,

@@ -180,6 +180,18 @@ class _ScaleGrad(torch.autograd.Function):
         return g * ctx.k, None
 
 
+class _DenseGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def local_call(fn: Callable, args: Sequence, arg_axes: Sequence,
                out_axes: Sequence):
     """``fn(*args)`` on each rank's local shards (the reference's
@@ -226,6 +238,12 @@ def local_call(fn: Callable, args: Sequence, arg_axes: Sequence,
               for pl in out_pl]
 
     def body(*local_args):
+        # A shard's gradient leaves the call as a DTensor whose strides
+        # DTensor takes to be contiguous; a plain version's gradient can
+        # be laid out otherwise (an einsum's), and a view of it would
+        # then fail on the shard alone.
+        local_args = [_DenseGrad.apply(a) if isinstance(a, torch.Tensor)
+                      and a.requires_grad else a for a in local_args]
         out = fn(*local_args)
         outs = out if isinstance(out, tuple) else (out,)
         outs = tuple(_ScaleGrad.apply(o, 1.0 / c)
