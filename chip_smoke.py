@@ -31,9 +31,15 @@ Phases (each raises on failure, so the script exits non-zero):
    chunk and carry kernels against their plain torch versions on the
    card at the reference sweep's shapes and at zamba2-1.2b's (and
    mamba2-780m's) serving shapes, both request sets' lengths included;
-   flash attention also at head dim 80 (causal and not, fp32 and bf16)
-   and at phase 9's serving shapes (head dims 128, 80 and 64, hubert's
-   [4,16,2048,80] in both dtypes)
+   flash attention also at head dim 80 (causal and not, fp32 and bf16),
+   at phase 9's serving shapes (head dims 128, 80 and 64, hubert's
+   [4,16,2048,80] in both dtypes) and at phase 14's ([4,32,2048,96],
+   [4,16,2048,256], and forward and backward [2,32,4096,96],
+   [2,16,4096,256]); the head-dim domain at small shapes (16 head dims
+   from 1 to 256, both dtypes, three shapes each: forward, lse and the
+   backward kernels at the bars below, two passes bit for bit equal);
+   every flash-attention kernel at every column bucket without a spill
+   and with the shared memory of ``kernel.py``'s mirror
    (bf16 attention, on the tensor-core kernel at every head width,
    element by element within one bf16 step of the plain version; the
    bf16 SSD chunk pass on the tensor cores, with the worst ratio to its
@@ -180,7 +186,17 @@ Phases (each raises on failure, so the script exits non-zero):
    collective bytes per device, live GiB, and the roofline table; (c)
    phase 10's sweep (defaults) with ``art_dir`` on those artifacts, on
    the card and on the CPU: rows equal, launches equal to the CPU's
-   rounds, every cost read of a cell with an artifact equal to its flops.
+   rounds, every cost read of a cell with an artifact equal to its flops;
+14. dense model at head dims 96 and 256 — llama3-8b's widths (d_model
+   4096, d_ff 14336, vocab 128256) with its heads replaced through
+   ``ModelConfig``: (i) 32/8 heads of 96 (Phi-3-mini's geometry), (ii)
+   16/8 heads of 256 (Gemma-7B's), each served as phase 9's llama3-8b
+   (32 layers, 4 × 2048 prompts, 16 greedy decode tokens held against
+   ``forward``, one FA launch per layer per prefill, a profiled
+   prefill) and trained as phase 11 (a) (4 of 32 layers, 2 × 4096, 6
+   timed steps, launches per step checked, a profiled step) and 11 (b)
+   (2 layers, 1 × 2048, loss and gradients against the plain attention
+   within 2e-2).
 
 The second-last lines are the kernel record (JSON) and the card's
 ``nvidia-smi`` name and power limit; the last line is the device record.
@@ -652,6 +668,23 @@ FA_TRAIN = (2, 4096, 32, 128, True, "bfloat16")
 # Phase 11 (b)'s fp32 step (llama3-8b, fp32 compute): the CUDA-core
 # backward kernels' shape on a main path.
 FA_TRAIN_F32 = (1, 2048, 32, 128, True, "float32")
+# Phase 14's attention, llama3-8b's widths at head dims 96 (32 heads,
+# Phi-3-mini's) and 256 (16 heads, Gemma-7B's), GQA's heads repeated: the
+# 4 x 2048 prefill (forward) and the 2 x 4096 train step (forward and
+# backward).
+FA_HD_SERVING = [(4, 2048, 32, 96, True, "bfloat16"),
+                 (4, 2048, 16, 256, True, "bfloat16")]
+FA_HD_TRAIN = [(2, 4096, 32, 96, True, "bfloat16"),
+               (2, 4096, 16, 256, True, "bfloat16")]
+# The head-dim domain (1 <= D <= 256) at small shapes, forward and
+# backward, both dtypes: each column bucket below, inside and at its top,
+# multiples of 8 and not (a bf16 D that is not is padded to one), odd
+# ones; (B, Lq, Lk, H, causal): a ragged causal square, non-causal with
+# Lq > Lk, causal over a cached prefix.
+FA_DOMAIN_DIMS = (1, 8, 17, 24, 32, 48, 64, 80, 96, 100, 112, 128, 160,
+                  192, 200, 256)
+FA_DOMAIN_SHAPES = ((2, 200, 200, 3, True), (1, 130, 70, 2, False),
+                    (1, 70, 333, 2, True))
 # The backward kernels (flash_attention_bwd.cu) against attention_bwd_ref:
 # the reference sweep, head dim 80, phase 11 (b)'s four archs' attention
 # at 1 x 2048 (llama3-8b, qwen2-moe-a2.7b, hubert-xlarge non-causal,
@@ -660,7 +693,7 @@ FA_BWD_SHAPES = FA_SWEEP + FA_D80 + [(1, 2048, 32, 128, True, "bfloat16"),
                                      (1, 2048, 16, 128, True, "bfloat16"),
                                      (1, 2048, 16, 80, False, "bfloat16"),
                                      (1, 2048, 16, 64, True, "bfloat16"),
-                                     FA_TRAIN_F32, FA_TRAIN]
+                                     FA_TRAIN_F32, FA_TRAIN] + FA_HD_TRAIN
 # Bars of dq, dk, dv against attention_bwd_ref (the plain version in fp32
 # on the same inputs, o and lse): fp32 max|Δ| <= 1e-4·max(max|ref|, 1);
 # bf16 per element |Δ| <= 2^-7·|ref| + 1e-5·max|ref| of the tensor (the
@@ -750,7 +783,7 @@ def max_err(torch, got, want) -> float:
 def phase_attention(torch) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_cuda
+        bucket, flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
     dev = torch.device("cuda")
     log("[fa] per call, ms (CUDA events, median after a warm-up): kernel "
@@ -759,10 +792,12 @@ def phase_attention(torch) -> dict:
         "on the same tensors ([B, H, L, D] views; timed only, never used "
         "by the port); bound = the least time for the work (4·D flops per "
         "pair) and what bounds it; TFLOP/s = those flops over the kernel "
-        "time; MMA floor = the bf16 kernel's own tensor-core work (8·D "
-        "flops per pair: p·v three times) at the bf16 peak")
+        "time; MMA floor = the bf16 kernel's own tensor-core work (8·W "
+        "flops per pair, W the head dim's column bucket: q·k once, p·v "
+        "three times) at the bf16 peak")
     rows, worst = {}, 0.0
-    for i, shape in enumerate(FA_SWEEP + FA_D80 + FA_SERVING + [FA_TRAIN]):
+    for i, shape in enumerate(FA_SWEEP + FA_D80 + FA_SERVING + [FA_TRAIN]
+                              + FA_HD_SERVING + FA_HD_TRAIN):
         B, L, H, D, causal, dtype = shape
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         tdt = getattr(torch, dtype)
@@ -777,9 +812,7 @@ def phase_attention(torch) -> dict:
                                  f"> {FA_TOL[dtype]}")
         rel = ""
         if dtype == "bfloat16":
-            ratio = float(((got.float() - want.float()).abs()
-                           / (FA_BF16_REL * want.float().abs()
-                              + FA_BF16_ABS)).max())
+            ratio = fwd_ratio(torch, got, want, dtype)
             if not ratio <= 1.0:
                 raise AssertionError(
                     f"flash attention {shape}: an element's |Δ| is {ratio} "
@@ -801,7 +834,7 @@ def phase_attention(torch) -> dict:
         extra = ""
         if dtype == "bfloat16":
             extra += (f"; MMA floor "
-                      f"{8 * D * pairs / BF16_OPS_PER_S * 1e3:.6f}")
+                      f"{8 * bucket(D) * pairs / BF16_OPS_PER_S * 1e3:.6f}")
         log(f"[fa] [B,H,L,D]={[B, H, L, D]} causal={causal} {dtype}: "
             f"kernel {ms:.5f} plain {plain:.5f} library {lib:.5f} bound "
             f"{bms:.6f} ({bby}); {tflops:.1f} TFLOP/s, kernel/library "
@@ -880,14 +913,53 @@ def check_builds(lib, tag: str, kernels: dict) -> dict:
     return out
 
 
+# setmaxnreg's split of each flash-attention tensor-core kernel's
+# registers (none for the CUDA-core kernels).
+FA_REG_NOTES = {
+    "fa_kernel_tc": " at launch (setmaxnreg: 240 a consumer, 24 the "
+                    "producer)",
+    "fa_bwd_dkdv_tc": " at launch (setmaxnreg: 232 a consumer, 40 the "
+                      "producer)",
+    "fa_bwd_dq_tc": " at launch (setmaxnreg: 232 a consumer, 40 the "
+                    "producer)"}
+
+
 def check_tc_builds(fa) -> dict:
-    """Flash attention's tensor-core backward kernels, per head dim."""
-    lib = fa.LIB_BWD.load()
-    return check_builds(fa.LIB_BWD, "fa-bwd", {
-        name: (sorted(fa.HEAD_DIMS),
-               lambda D, w=which: lib.fa_bwd_tc_smem_bytes(w, D),
-               " at launch (setmaxnreg: 232 a consumer, 40 the producer)")
-        for which, name in enumerate(("fa_bwd_dkdv_tc", "fa_bwd_dq_tc"))})
+    """Every flash-attention kernel (forward and backward, tensor-core
+    and CUDA-core) at every column bucket: no spill, and each
+    library's shared memory equal to ``kernel.py``'s mirror."""
+    out = {}
+    for lib_obj, tag, size in (
+            (fa.LIB, "fa", lambda which, W: fa.LIB.load().fa_smem_bytes(
+                which, W)),
+            (fa.LIB_BWD, "fa-bwd",
+             lambda which, W: fa.LIB_BWD.load().fa_bwd_smem_bytes(which,
+                                                                   W))):
+        kernels = {}
+        for name, (mirror, which) in fa.SMEM.items():
+            if (name.startswith("fa_kernel")) != (lib_obj is fa.LIB):
+                continue
+            for W in fa.BUCKETS:
+                got = size(which, W)
+                if got != mirror(W) or not got <= fa.SMEM_LIMIT:
+                    raise AssertionError(
+                        f"{name}<{W}>: the library's shared memory {got} "
+                        f"against kernel.py's {mirror(W)} (limit "
+                        f"{fa.SMEM_LIMIT})")
+            kernels[name] = (fa.BUCKETS,
+                             lambda W, w=which: size(w, W),
+                             FA_REG_NOTES.get(name, ""))
+        out.update(check_builds(lib_obj, tag, kernels))
+    buckets = [fa.LIB.load().fa_head_bucket(D)
+               for D in range(0, fa.MAX_HEAD_DIM + 2)]
+    want = [0] + [fa.bucket(D) for D in range(1, fa.MAX_HEAD_DIM + 1)] + [0]
+    if buckets != want:
+        raise AssertionError("the library's head-dim buckets differ from "
+                             "kernel.bucket's")
+    log(f"[fa] head dims 1..{fa.MAX_HEAD_DIM} in buckets {fa.BUCKETS}, the "
+        f"library's fa_head_bucket equal to kernel.bucket at every D; "
+        f"every kernel's shared memory equal to its mirror in kernel.py")
+    return out
 
 
 def bwd_ratio(torch, got, want, dtype) -> float:
@@ -898,6 +970,85 @@ def bwd_ratio(torch, got, want, dtype) -> float:
             FA_BWD_F32 * max(float(w.abs().max()), 1.0))
     bar = FA_BWD_BF16_REL * w.abs() + FA_BWD_BF16_ABS * float(w.abs().max())
     return float(((g - w).abs() / bar).max())
+
+
+def fwd_ratio(torch, got, want, dtype) -> float:
+    """Worst forward |Δ| over its bar: fp32 FA_TOL, bf16 per element
+    2^-7·|ref| + 1e-6 (at most 1 passes)."""
+    g, w = got.float(), want.float()
+    if dtype == "float32":
+        return float((g - w).abs().max()) / FA_TOL[dtype]
+    return float(((g - w).abs() / (FA_BF16_REL * w.abs()
+                                    + FA_BF16_ABS)).max())
+
+
+def phase_attention_domain(torch) -> dict:
+    """Every head dim of FA_DOMAIN_DIMS at FA_DOMAIN_SHAPES, both dtypes:
+    the forward (with its lse) and the three backward kernels against
+    the plain versions at phase 6's bars, each run twice, bitwise equal;
+    returns the worst ratio to its bar per dtype and direction."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref
+    dev = torch.device("cuda")
+    worst = {}
+    t0 = time.perf_counter()
+    n = 0
+    for D in FA_DOMAIN_DIMS:
+        for dtype in ("bfloat16", "float32"):
+            tdt = getattr(torch, dtype)
+            for B, Lq, Lk, H, causal in FA_DOMAIN_SHAPES:
+                gen = torch.Generator(device=dev).manual_seed(D + Lq)
+                q, do = (torch.randn((B, Lq, H, D), generator=gen,
+                                     device=dev).to(tdt) for _ in range(2))
+                k, v = (torch.randn((B, Lk, H, D), generator=gen,
+                                    device=dev).to(tdt) for _ in range(2))
+                o, lse = fa.flash_attention_cuda(q, k, v, causal, lse=True)
+                o2, lse2 = fa.flash_attention_cuda(q, k, v, causal, lse=True)
+                got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
+                again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                    causal)
+                want_o = ref.attention_ref(q, k, v, causal)
+                want_lse = ref.attention_lse_ref(q, k, causal)
+                want = ref.attention_bwd_ref(q, k, v, o, do, lse, causal)
+                torch.cuda.synchronize()
+                case = f"D={D} {dtype} {[B, Lq, Lk, H]} causal={causal}"
+                if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+                        and all(torch.equal(a, g)
+                                for a, g in zip(got, again))):
+                    raise AssertionError(f"flash attention {case}: two "
+                                         f"passes differ")
+                if o.shape != q.shape or o.dtype != tdt:
+                    raise AssertionError(f"flash attention {case}: output "
+                                         f"{o.dtype} {list(o.shape)}")
+                ratios = {"fwd": fwd_ratio(torch, o, want_o, dtype)}
+                lse_err = max_err(torch, lse, want_lse)
+                if not lse_err <= FA_BWD_F32 * max(
+                        float(want_lse.abs().max()), 1.0):
+                    raise AssertionError(f"flash attention lse {case}: "
+                                         f"max|Δ| {lse_err}")
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    if g.shape != w.shape or g.dtype != tdt:
+                        raise AssertionError(f"backward {case}: {name} is "
+                                             f"{g.dtype} {list(g.shape)}")
+                    ratios[name] = bwd_ratio(torch, g, w, dtype)
+                bad = {k: r for k, r in ratios.items() if not r <= 1.0}
+                if bad:
+                    raise AssertionError(f"flash attention {case}: worst "
+                                         f"|Δ| over its bar {bad}")
+                for key, r in ratios.items():
+                    slot = (dtype, "fwd" if key == "fwd" else "bwd")
+                    worst[slot] = max(worst.get(slot, 0.0), r)
+                n += 1
+                del q, k, v, do, o, o2, lse, lse2, got, again, want
+    log(f"[fa] head-dim domain: {n} cases (D in {list(FA_DOMAIN_DIMS)}, "
+        f"bf16 and fp32, (B, Lq, Lk, H, causal) in "
+        f"{[list(s) for s in FA_DOMAIN_SHAPES]}): forward, lse and the "
+        f"backward kernels within phase 6's bars, two passes equal bit "
+        f"for bit, in {time.perf_counter() - t0:.3f} s; worst |Δ|/bar "
+        + ", ".join(f"{dt} {d} {r:.4g}" for (dt, d), r in
+                    sorted(worst.items())))
+    torch.cuda.empty_cache()
+    return {f"{dt} {d}": r for (dt, d), r in worst.items()}
 
 
 def phase_attention_bwd(torch) -> dict:
@@ -921,8 +1072,8 @@ def phase_attention_bwd(torch) -> dict:
         "(timed only, never used by the port); bound = the least time for "
         "each one's work (backward 10·D flops per pair at the dtype's "
         "peak) and what bounds it; MMA floor = a bf16 kernel's own "
-        "tensor-core work at the bf16 peak (dK/dV 18·D flops per pair, dQ "
-        "10·D)")
+        "tensor-core work at the bf16 peak (dK/dV 18·W flops per pair, dQ "
+        "10·W, W the head dim's column bucket)")
     rows, worst = {}, 0.0
     for i, shape in enumerate(FA_BWD_SHAPES):
         B, L, H, D, causal, dtype = shape
@@ -999,8 +1150,9 @@ def phase_attention_bwd(torch) -> dict:
                  "dkdv": fa.bwd_kernel("dkdv", tdt),
                  "dq": fa.bwd_kernel("dq", tdt)}
         pairs = fa_pairs(B, L, H, causal)
-        floor = {"dkdv": 18 * D * pairs / BF16_OPS_PER_S * 1e3,
-                 "dq": 10 * D * pairs / BF16_OPS_PER_S * 1e3}
+        W = fa.bucket(D)
+        floor = {"dkdv": 18 * W * pairs / BF16_OPS_PER_S * 1e3,
+                 "dq": 10 * W * pairs / BF16_OPS_PER_S * 1e3}
         parts = "; ".join(
             f"{names[k]} {ms[k]:.5f} (plain {plain[k]:.5f}, bound "
             f"{bounds[k][0]:.6f} {bounds[k][1]}"
@@ -2321,17 +2473,18 @@ OTHERS_SHOWN = 10    # (d) lists this many of the other kernels by time
 
 
 def train_model(arch: str, n_layers: int, device="cuda", smoke=False,
-                compute="bfloat16"):
+                compute="bfloat16", over=None):
     """``build`` with remat "dots" (bf16 compute unless ``compute`` says
     otherwise, fp32 parameters: the RunConfig's defaults), depth cut to
-    ``n_layers`` unless 0."""
+    ``n_layers`` unless 0, the config's fields in ``over`` replaced."""
     import torch
     from repro_torch.models import RunConfig, build
     run = RunConfig(remat="dots", compute_dtype=getattr(torch, compute))
     model = build(arch, run, smoke=smoke, device=device)
     if n_layers:
-        model = dataclasses.replace(model,
-                                    cfg=model.cfg.with_(n_layers=n_layers))
+        over = dict(over or {}, n_layers=n_layers)
+    if over:
+        model = dataclasses.replace(model, cfg=model.cfg.with_(**over))
     return model
 
 
@@ -2352,18 +2505,20 @@ def ssd_counts() -> dict:
                 **sk.BWD_KERNEL_LAUNCHES)
 
 
-def timed_steps(torch, tag, arch, n_layers, B, L, describe, reset) -> dict:
+def timed_steps(torch, tag, arch, n_layers, B, L, describe, reset,
+                over=None) -> dict:
     """Build ``arch`` (``train_model``: seeded fp32 weights, bf16
-    compute, remat "dots"), take ``TRAIN_WARMUP`` steps, call ``reset``
-    (launch counts to 0), then ``TRAIN_STEPS`` timed steps (host clock,
-    synchronised) on ``data.pipeline.batch_at`` batches of B x L."""
+    compute, remat "dots", the config's fields in ``over`` replaced),
+    take ``TRAIN_WARMUP`` steps, call ``reset`` (launch counts to 0),
+    then ``TRAIN_STEPS`` timed steps (host clock, synchronised) on
+    ``data.pipeline.batch_at`` batches of B x L."""
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.train.optim import init_opt_state
     from repro_torch.train.train_step import make_train_step
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = train_model(arch, n_layers)
+    model = train_model(arch, n_layers, over=over)
     cfg = model.cfg
     params = model.init(0)
     opt = init_opt_state(params)
@@ -2416,32 +2571,49 @@ def profiled_step(torch, tag, run, names, others=None) -> dict:
                 idle=max(0.0, 1 - busy / span[0]))
 
 
-def phase_train_headline(torch) -> dict:
+def check_train_launches(tag: str, n_layers: int) -> tuple:
+    """The FA launches of ``TRAIN_STEPS`` bf16 steps at ``n_layers``
+    layers since the counts were reset: one forward (remat dots keeps
+    it) and one backward pass per layer per step, each backward pass one
+    launch of each of ``FA_BWD_KERNELS``.  Returns ((forward launches,
+    backward passes), each backward kernel's launches), the latter
+    reset to 0."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    arch, n_layers, B, L = TRAIN_HEADLINE
-
-    def reset():
-        fa_ops.LAUNCHES = 0
-        fa_ops.BWD_LAUNCHES = 0
-        bwd_kernel_launches(fa)
-    run = timed_steps(
-        torch, "a", arch, n_layers, B, L,
-        lambda c: f"{n_layers} of 32 layers, d_model {c.d_model}, heads "
-                  f"{c.n_heads}/{c.n_kv_heads}, head dim {c.hd}, d_ff "
-                  f"{c.d_ff}, vocab {c.vocab}", reset)
     launches = (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES)
     by_kernel = bwd_kernel_launches(fa)
     want = (n_layers * TRAIN_STEPS, n_layers * TRAIN_STEPS)
     if launches != want:
-        raise AssertionError(f"(a) {TRAIN_STEPS} steps launched {launches} "
-                             f"(FA forward, FA backward passes), expected "
-                             f"{want}: remat dots keeps the forward")
+        raise AssertionError(f"({tag}) {TRAIN_STEPS} steps launched "
+                             f"{launches} (FA forward, FA backward "
+                             f"passes), expected {want}: remat dots keeps "
+                             f"the forward")
     want_k = {n: (want[1] if n in FA_BWD_KERNELS else 0) for n in by_kernel}
     if by_kernel != want_k:
-        raise AssertionError(f"(a) backward kernel launches {by_kernel}, "
-                             f"expected {want_k}: bf16 goes to the "
-                             f"tensor-core kernels")
+        raise AssertionError(f"({tag}) backward kernel launches "
+                             f"{by_kernel}, expected {want_k}: bf16 goes to "
+                             f"the tensor-core kernels")
+    return launches, by_kernel
+
+
+def reset_fa_counts() -> None:
+    """Flash attention's launch counts (forward, backward passes, each
+    backward kernel) to 0."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    fa_ops.LAUNCHES = 0
+    fa_ops.BWD_LAUNCHES = 0
+    bwd_kernel_launches(fa)
+
+
+def phase_train_headline(torch) -> dict:
+    arch, n_layers, B, L = TRAIN_HEADLINE
+    run = timed_steps(
+        torch, "a", arch, n_layers, B, L,
+        lambda c: f"{n_layers} of 32 layers, d_model {c.d_model}, heads "
+                  f"{c.n_heads}/{c.n_kv_heads}, head dim {c.hd}, d_ff "
+                  f"{c.d_ff}, vocab {c.vocab}", reset_fa_counts)
+    launches, by_kernel = check_train_launches("a", n_layers)
     step_s, times, losses = run["step_s"], run["times"], run["losses"]
     log(f"[train] (a) {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: "
         f"median {step_s:.4f} s, max {max(times):.4f} s per step (host "
@@ -2587,6 +2759,34 @@ def family_grads(torch, model, params, batch, plain: bool):
         fa_ops.flash_attention, ssd_ops.ssd = kernels
 
 
+def grads_vs_plain(torch, tag, params, loss, ref_loss, grads,
+                   ref_grads) -> tuple:
+    """A step's loss within TRAIN_LOSS_REL of the plain versions' and
+    every gradient leaf within TRAIN_GRAD_REL·max|ref| of the leaf.
+    Returns (leaf keys, the worst ratio to its bar, its leaf)."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.models.common import tree_leaves
+    loss_err = abs(float(loss) - float(ref_loss))
+    if not loss_err <= TRAIN_LOSS_REL * abs(float(ref_loss)):
+        raise AssertionError(f"{tag}: loss {float(loss)} vs the plain "
+                             f"versions' {float(ref_loss)}")
+    worst, worst_key = 0.0, None
+    keys = [k for k, _ in _flatten(params)]
+    for key, g, r in zip(keys, tree_leaves(grads), tree_leaves(ref_grads)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{tag}: non-finite grad {key}")
+        scale = float(r.abs().max())
+        err = float((g - r).abs().max())
+        ratio = err / (TRAIN_GRAD_REL * scale) if scale > 0 else (
+            0.0 if err == 0 else math.inf)
+        if ratio > worst:
+            worst, worst_key = ratio, key
+    if not worst <= 1.0:
+        raise AssertionError(f"{tag}: grad {worst_key} is {worst} times "
+                             f"its bar {TRAIN_GRAD_REL}·max|ref|")
+    return keys, worst, worst_key
+
+
 def family_launches(cfg) -> tuple:
     """(FA applications, SSD layers) in one pass of ``cfg``'s model."""
     from repro_torch.models.hybrid import n_attn_apps
@@ -2599,12 +2799,10 @@ def family_launches(cfg) -> tuple:
 
 def phase_train_families(torch) -> dict:
     import gc
-    from repro_torch.ckpt.checkpoint import _flatten
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd import kernel as sk
-    from repro_torch.models.common import tree_leaves
     out = {}
     for arch, n_layers, compute in (
             [(a, n, "bfloat16") for a, n in TRAIN_FAMILIES]
@@ -2649,24 +2847,8 @@ def phase_train_families(torch) -> dict:
         if by_kernel != want_k:
             raise AssertionError(f"(b) {arch} {compute}: backward kernel "
                                  f"launches {by_kernel}, expected {want_k}")
-        loss_err = abs(float(loss) - float(ref_loss))
-        if not loss_err <= TRAIN_LOSS_REL * abs(float(ref_loss)):
-            raise AssertionError(f"(b) {arch}: loss {float(loss)} vs the "
-                                 f"plain versions' {float(ref_loss)}")
-        worst, worst_key = 0.0, None
-        keys = [k for k, _ in _flatten(params)]
-        for key, g, r in zip(keys, tree_leaves(grads), tree_leaves(ref_grads)):
-            if not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"(b) {arch}: non-finite grad {key}")
-            scale = float(r.abs().max())
-            err = float((g - r).abs().max())
-            ratio = err / (TRAIN_GRAD_REL * scale) if scale > 0 else (
-                0.0 if err == 0 else math.inf)
-            if ratio > worst:
-                worst, worst_key = ratio, key
-        if not worst <= 1.0:
-            raise AssertionError(f"(b) {arch}: grad {worst_key} is {worst} "
-                                 f"times its bar {TRAIN_GRAD_REL}·max|ref|")
+        keys, worst, worst_key = grads_vs_plain(
+            torch, f"(b) {arch}", params, loss, ref_loss, grads, ref_grads)
         n_flips = sum(flips.values())
         log(f"[train] (b) {arch} ({cfg.family}, {compute} compute): "
             f"{cfg.n_layers} layers at "
@@ -3295,6 +3477,166 @@ def phase_dryrun(torch, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Dense models at head dims outside the kernels' first four
+# ---------------------------------------------------------------------------
+
+# llama3-8b's widths (src/repro/configs/llama3_8b.py: d_model 4096, d_ff
+# 14336, vocab 128256, 32 layers, RoPE θ 500k) with the attention's head
+# geometry replaced through the port's ModelConfig (a config the
+# reference's ModelConfig takes too, not a new arch of the zoo): (i) 32
+# query heads of 96 over 8 kv heads, Phi-3-mini's head geometry; (ii) 16
+# of 256 over 8, Gemma-7B's.
+HEAD_DIM_VARIANTS = (("hd96", dict(n_heads=32, n_kv_heads=8, head_dim=96)),
+                     ("hd256", dict(n_heads=16, n_kv_heads=8,
+                                    head_dim=256)))
+# Serving as phase 9's llama3-8b (full depth, seeded fp32 weights, bf16
+# compute): requests, prompt positions, greedy decode tokens.
+HD_SERVE = (4, 2048, 16)
+# Training as phase 11 (a): 4 of 32 layers, 2 x 4096 tokens.
+HD_TRAIN_LAYERS, HD_TRAIN_B, HD_TRAIN_L = 4, 2, 4096
+# And as 11 (b): one step at 2 layers, 1 x 2048, against the plain
+# attention.
+HD_HOLD_LAYERS = 2
+
+
+def head_dim_serving(torch, tag, over) -> dict:
+    """Phase 9's llama3-8b request with the replaced heads: after a
+    warm-up request, 4 x 2048 prompts and 16 greedy decode tokens, one FA
+    launch per layer per prefill and none in decode, each decode step
+    held against ``forward``, one profiled prefill."""
+    import gc
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build
+    from repro_torch.serve.serve_step import build_prefill
+    B, L, steps = HD_SERVE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build("llama3-8b", device="cuda")
+    model = dataclasses.replace(model, cfg=model.cfg.with_(**over))
+    cfg = model.cfg
+    params = model.init(0)
+    log(f"[hd] {tag} serving: llama3-8b's widths, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head "
+        f"dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{model.n_params():,} seeded fp32 parameters, compute "
+        f"{model.run.compute_dtype}")
+    serve_request(torch, model, params, 1, 64, 2, seed=0)
+    fa_ops.LAUNCHES = 0
+    res = serve_request(torch, model, params, B, L, steps, seed=L,
+                        counts=lambda: (fa_ops.LAUNCHES,))
+    (c0,), (c1,), (c2,) = res["counts"]
+    if c1 - c0 != cfg.n_layers or c2 != c1:
+        raise AssertionError(f"({tag}) prefill launched {c1 - c0} FA "
+                             f"kernels (expected {cfg.n_layers}), decode "
+                             f"{c2 - c1} (expected 0)")
+    err = check_decode_vs_forward(torch, model, params, res, "hd")
+    step_ms = statistics.median(res["step_ms"])
+    prompt = {k: v.cuda() for k, v in res["prompt"].items()}
+    prefill = build_prefill(model, "prefill_32k", max_seq=L + 1)
+    by = device_breakdown(torch, lambda: prefill(params, prompt))
+    if not by["fa_kernel"] > 0:
+        raise AssertionError(f"({tag}) no device time under fa_kernel in "
+                             f"a prefill")
+    busy = by["fa_kernel"] + by["other"]
+    wall = res["prefill_s"] * 1e3
+    log(f"[hd] {tag} {B} x {L}-position prompts: prefill "
+        f"{res['prefill_s']:.4f} s ({B * L / res['prefill_s']:.1f} "
+        f"positions/s), {c1 - c0} FA launches; {steps} greedy decode "
+        f"steps: median {step_ms:.3f} ms, max {max(res['step_ms']):.3f} "
+        f"ms per step (host clock, synchronised); peak allocated "
+        f"{res['peak_gib']:.3f} GiB; one profiled prefill's device time, "
+        f"ms: fa_kernel {by['fa_kernel']:.3f}, other kernels "
+        f"{by['other']:.3f}, busy {busy:.3f} of {wall:.3f} wall, idle "
+        f"share {max(0.0, 1 - busy / wall):.4f}")
+    out = dict(launches=c1 - c0, prefill_s=res["prefill_s"],
+               step_ms=step_ms, peak_gib=res["peak_gib"], err=err,
+               fa_ms=by["fa_kernel"], other_ms=by["other"], busy=busy,
+               idle=max(0.0, 1 - busy / wall))
+    del params, model, res, prompt, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def head_dim_training(torch, tag, over) -> dict:
+    """Phase 11 (a)'s step with the replaced heads (4 of 32 layers,
+    2 x 4096, remat dots, 6 timed steps, launches checked, one profiled
+    step), then 11 (b)'s one step at 2 layers, 1 x 2048, against the
+    plain attention."""
+    import gc
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    run = timed_steps(
+        torch, tag, "llama3-8b", HD_TRAIN_LAYERS, HD_TRAIN_B, HD_TRAIN_L,
+        lambda c: f"{HD_TRAIN_LAYERS} of 32 layers, d_model {c.d_model}, "
+                  f"heads {c.n_heads}/{c.n_kv_heads}, head dim {c.hd}",
+        reset_fa_counts, over=over)
+    launches, by_kernel = check_train_launches(tag, HD_TRAIN_LAYERS)
+    step_s = run["step_s"]
+    tokens = HD_TRAIN_B * HD_TRAIN_L / step_s
+    split = profiled_step(torch, tag, run, ("fa_kernel",) + FA_BWD_KERNELS)
+    fa_bwd_ms = sum(split[name] for name in FA_BWD_KERNELS)
+    log(f"[hd] {tag} training: {TRAIN_STEPS} steps after {TRAIN_WARMUP} "
+        f"warm-up: median {step_s:.4f} s, max {max(run['times']):.4f} s "
+        f"per step (host clock, synchronised), {tokens:.1f} tokens/s; "
+        f"losses {[round(x, 4) for x in run['losses']]}; "
+        f"{launches[0]} FA forward launches and {launches[1]} backward "
+        f"passes (" + ", ".join(f"{k} {v}" for k, v in by_kernel.items()
+                                if v)
+        + f"); peak allocated {run['peak']:.3f} GiB; one profiled step, "
+        f"ms: fa_kernel {split['fa_kernel']:.3f}, FA backward "
+        f"{fa_bwd_ms:.3f} ("
+        + ", ".join(f"{k} {split[k]:.3f}" for k in FA_BWD_KERNELS)
+        + f"), other {split['other']:.3f}; busy {split['busy']:.3f} of "
+        f"{split['wall']:.3f} wall, idle share {split['idle']:.4f}")
+    out = dict(fa_launches=launches[0], bwd_launches=launches[1],
+               bwd_kernel_launches=by_kernel, step_s=step_s,
+               tokens_per_s=tokens, peak_gib=run["peak"],
+               fa_fwd_ms=split["fa_kernel"], fa_bwd_ms=fa_bwd_ms,
+               busy=split["busy"], idle=split["idle"])
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = train_model("llama3-8b", HD_HOLD_LAYERS, over=over)
+    params = model.init(0)
+    batch = batch_at(DataConfig(seed=1, seq_len=FAMILY_L,
+                                global_batch=FAMILY_B), 0, model.cfg)
+    reset_fa_counts()
+    loss, _, grads = family_grads(torch, model, params, batch, False)
+    torch.cuda.synchronize()
+    got = (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES)
+    if got != (HD_HOLD_LAYERS, HD_HOLD_LAYERS):
+        raise AssertionError(f"({tag}) the {FAMILY_B} x {FAMILY_L} step "
+                             f"launched {got} (FA forward, backward "
+                             f"passes), expected {HD_HOLD_LAYERS} each")
+    ref_loss, _, ref_grads = family_grads(torch, model, params, batch, True)
+    torch.cuda.synchronize()
+    keys, worst, worst_key = grads_vs_plain(
+        torch, f"({tag}) {FAMILY_B} x {FAMILY_L}", params, loss, ref_loss,
+        grads, ref_grads)
+    log(f"[hd] {tag} one step at {HD_HOLD_LAYERS} layers, {FAMILY_B} x "
+        f"{FAMILY_L}, through the kernels against the plain attention on "
+        f"the card: loss {float(loss):.6f} against {float(ref_loss):.6f}; "
+        f"{len(keys)} gradient leaves, worst |Δ| / ({TRAIN_GRAD_REL}·"
+        f"max|ref|) {worst:.4g} ({worst_key}) <= 1")
+    out.update(loss=float(loss), ref_loss=float(ref_loss), worst=worst)
+    del params, grads, ref_grads, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_head_dims(torch) -> dict:
+    """Phase 14: both HEAD_DIM_VARIANTS served and trained on the
+    hand-written kernels."""
+    out = {}
+    for tag, over in HEAD_DIM_VARIANTS:
+        out[tag] = dict(serve=head_dim_serving(torch, tag, over),
+                        train=head_dim_training(torch, tag, over))
+    return out
+
+
 def main() -> int:
     import torch
     smi = phase_device(torch)
@@ -3303,6 +3645,7 @@ def main() -> int:
     parity = phase_parity()
     launches = phase_full_width(torch, k["link_rate"])
     fa = phase_attention(torch)
+    fa["domain"] = phase_attention_domain(torch)
     t0 = time.perf_counter()
     fab = phase_attention_bwd(torch)
     log(f"[fa-bwd] phase 6's backward checks took "
@@ -3325,8 +3668,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_dryrun(torch, smi)
     log(f"[dryrun] phase 13 took {time.perf_counter() - t0:.3f} s")
-    from repro_torch.kernels.flash_attention.kernel import \
-        HEAD_DIMS as FA_HEAD_DIMS
+    t0 = time.perf_counter()
+    hd = phase_head_dims(torch)
+    log(f"[hd] phase 14 took {time.perf_counter() - t0:.3f} s")
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     head = k["rows"][HEADLINE]
     fa_head = fa["rows"][FA_HEADLINE]
     ssd_head = sd["rows"][SSD_HEADLINE]
@@ -3369,7 +3714,25 @@ def main() -> int:
         "library_ms": fa_head["library_ms"],
         "shape": [B, H, L, D],
         "tflops": fa_head["tflops"],
-        "head_dims": list(FA_HEAD_DIMS),
+        # The head dims the kernels take: 1..256 in column buckets (bf16
+        # padded to a multiple of 8), swept at small shapes in phase 6.
+        "head_dims": {"domain": [1, fa_kernel.MAX_HEAD_DIM],
+                      "buckets": list(fa_kernel.BUCKETS),
+                      "swept": list(FA_DOMAIN_DIMS),
+                      "worst_ratio_to_bar": fa["domain"]},
+        # Phase 14: launches per prefill and per 6 timed train steps.
+        "launches_head_dims": {
+            tag: {"prefill": r["serve"]["launches"],
+                  "train": r["train"]["fa_launches"]}
+            for tag, r in hd.items()},
+        # Phase 6 at phase 14's shapes ([B, H, L, D], causal, dtype).
+        "head_dim_rows": [dict(shape=[b, h, l, d], causal=c, dtype=dt,
+                               **{key: fa["rows"][(b, l, h, d, c, dt)][key]
+                                  for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms",
+                                              "err")})
+                          for b, l, h, d, c, dt in FA_HD_SERVING
+                          + FA_HD_TRAIN],
         # Phase 9: launches per arch (one prefill each).
         "launches_transformers": {a: r["launches"] for a, r in tf.items()},
         # Phase 11 (a): the training headline's timed steps (remat dots
@@ -3473,6 +3836,10 @@ def main() -> int:
             # Phase 11 (b): launches in one step per arch (and dtype).
             "launches_families": {a: r["bwd_kernel_launches"][name]
                                   for a, r in train["families"].items()},
+            # Phase 14: launches in the 6 timed steps per head dim.
+            "launches_head_dims": {
+                tag: r["train"]["bwd_kernel_launches"][name]
+                for tag, r in hd.items()},
             **({"build": {k: v for k, v in fab["builds"].items()
                           if k.startswith(name + "<")}}
                if name.endswith("_tc") else {}),

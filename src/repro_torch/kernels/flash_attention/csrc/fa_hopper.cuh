@@ -8,10 +8,15 @@
 //
 // Every tile is 64 rows of a [B, L, H, D] bf16 tensor, stored as NB boxes
 // of [64 rows][CB columns], each written by one TMA copy in the swizzled
-// layout that the wgmma descriptors name.  Two ways to read a tile:
+// layout that the wgmma descriptors name.  The kernels are built for a few
+// column buckets W (fa_bucket: 32, 64, 128, 192, 256) and take the head
+// dim D <= W at run time: the tensor maps span the true D, so TMA fills
+// the box columns D .. W - 1 with zeros, the products run over all W
+// columns (the zeros add exact zeros) and the epilogues write only the
+// first D output columns.  Two ways to read a tile:
 //
 // * K-major (issue_qk): the tile is an operand whose contraction runs
-//   along its D columns (q and k in q k^T; k and q in k q^T; v and dO in
+//   along its W columns (q and k in q k^T; k and q in k q^T; v and dO in
 //   v dO^T), 32 bytes further along the row per k16 step.
 // * MN-major (issue_pv): the tile is the B operand of a product whose
 //   contraction runs along its 64 rows (v in p v; dO and q in P^T dO and
@@ -33,19 +38,40 @@ constexpr int kTile = 64;         // rows of every TMA tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared-memory geometry of a 64-row tile at head dim D.
-template <int D>
+// Shared-memory geometry of a 64-row tile of W columns (a bucket).
+template <int W>
 struct Geo {
-  static constexpr int CB = D < 64 ? D : 64;    // columns per box
-  static constexpr int NB = (D + CB - 1) / CB;  // boxes per row
+  static constexpr int CB = W < 64 ? W : 64;    // columns per box
+  static constexpr int NB = (W + CB - 1) / CB;  // boxes per row
   static constexpr int ROW = CB * 2;            // bytes of a box row
   static constexpr int BOX = kTile * ROW;       // bytes of a box
   static constexpr int TILE = NB * BOX;         // bytes of a 64-row tile
   static constexpr int KSTEPS = CB / 16;        // k16 steps per box
   static constexpr int LAYOUT = ROW == 128 ? 1 : 2;  // 128B / 64B swizzle
-  static constexpr int ON = D < 64 ? D / 2 : 32;     // accumulator registers
+  static constexpr int ON = W < 64 ? W / 2 : 32;     // accumulator registers
                                                      // per box (M = 64)
 };
+
+// Stages of a ring whose stage holds two W-column tiles (the forward's k
+// and v, dK/dV's q and dO): as deep as fits beside the kernel's other
+// tiles in the 232,448 bytes a block may use, at most 4.
+template <int W>
+__host__ __device__ constexpr int ring_stages() {
+  return W <= 128 ? 4 : W <= 192 ? 3 : 2;
+}
+
+// The column bucket of head dim D: the kernels' tiles are W columns wide
+// and D's own columns come first; 0 past 256.  Mirrored by kernel.py's
+// ``bucket``.
+inline int fa_bucket(int D) {
+  if (D < 1) return 0;
+  if (D <= 32) return 32;
+  if (D <= 64) return 64;
+  if (D <= 128) return 128;
+  if (D <= 192) return 192;
+  if (D <= 256) return 256;
+  return 0;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -205,33 +231,34 @@ __device__ __forceinline__ void zero(float (&r)[N]) {
 }
 
 // acc = A B^T over one pair of 64-row tiles, both K-major (A and B each a
-// [64 rows][D] tile): k16 step j reads box j / KSTEPS, 32 bytes further
-// along the row per step inside it.  Only D / 16 steps run, so at D = 80
-// the zero columns 80..127 of the boxes are not multiplied.
-template <int D>
+// [64 rows][W] tile): k16 step j reads box j / KSTEPS, 32 bytes further
+// along the row per step inside it.  All W / 16 steps run: the columns
+// past the true D are zeros in both tiles and add exact zeros.
+template <int W>
 __device__ __forceinline__ void issue_qk(float (&acc)[32], uint32_t sa,
                                          uint32_t sb) {
-  using G = Geo<D>;
+  using G = Geo<W>;
   constexpr uint32_t kSbo = 8 * G::ROW;  // bytes between 8-row groups
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
+  for (int j = 0; j < W / 16; ++j) {
     const uint32_t at = (j / G::KSTEPS) * G::BOX + (j % G::KSTEPS) * 32;
     wgmma_ss_n64(acc, gmma_desc(sa + at, 16, kSbo, G::LAYOUT),
                  gmma_desc(sb + at, 16, kSbo, G::LAYOUT), j > 0);
   }
 }
 
-// acc = X B summed from zero, X a [64][64] fp32 accumulator fragment
-// (the A operand, its columns the contraction) split into three bf16
-// terms, B a [64 rows][D] tile read MN-major.  k16 step j takes X's
-// registers 8 j .. 8 j + 7, packed to bf16 pairs in the order of the A
-// operand's registers, and B's rows 16 j .. 16 j + 15.  The three terms
-// hold every fp32 value exactly, so with bf16 B every product is exact.
-template <int D>
+// acc = X B, X a [64][64] fp32 accumulator fragment (the A operand, its
+// columns the contraction) split into three bf16 terms, B a [64 rows][W]
+// tile read MN-major: summed from zero, or with `carry` added to what acc
+// holds.  k16 step j takes X's registers 8 j .. 8 j + 7, packed to bf16
+// pairs in the order of the A operand's registers, and B's rows
+// 16 j .. 16 j + 15.  The three terms hold every fp32 value exactly, so
+// with bf16 B every product is exact.
+template <int W>
 __device__ __forceinline__ void issue_pv(
-    float (&acc)[Geo<D>::NB][Geo<D>::ON], const float (&x)[32],
-    uint32_t sb) {
-  using G = Geo<D>;
+    float (&acc)[Geo<W>::NB][Geo<W>::ON], const float (&x)[32],
+    uint32_t sb, int carry) {
+  using G = Geo<W>;
   constexpr uint32_t kSbo = 8 * G::ROW;
   uint32_t xa[4][3][4];  // [k16 step][term][A register]
 #pragma unroll
@@ -253,12 +280,21 @@ __device__ __forceinline__ void issue_pv(
         const uint64_t db =
             gmma_desc(sb + c * G::BOX + j * 16 * G::ROW, kSbo, kSbo,
                       G::LAYOUT);
-        const int add = j > 0 || term > 0;  // the first step starts at 0
+        // Without `carry` the first step starts at 0.
+        const int add = carry || j > 0 || term > 0;
         if constexpr (G::ON == 32)
           wgmma_rs_n64(acc[c], xa[j][term], db, add);
         else
           wgmma_rs_n32(acc[c], xa[j][term], db, add);
       }
+}
+
+// Keeps the compiler from reading an accumulator that asynchronous
+// products wrote before the wait that finished them.
+template <int NB, int ON>
+__device__ __forceinline__ void settle(float (&acc)[NB][ON]) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
 }
 
 // One arrival per consumer warp on an `empty` barrier, once the warp is
@@ -272,12 +308,13 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
 }
 
 // Tensor map over a contiguous bf16 [B, L, H, D] tensor, viewed as 4-D
-// (D, H, L, B) with a box of (CB, 1, 64, 1) and the swizzle that matches
-// a box row of CB * 2 bytes.  Rows past L, and columns past D in the last
-// box (D = 80), read as zeros.
+// (D, H, L, B) with a box of (cb, 1, 64, 1) (cb = Geo<W>::CB of the
+// kernel's bucket) and the swizzle that matches a box row of cb * 2 bytes.
+// Rows past L, and box columns past D, read as zeros.  D must be a
+// multiple of 8 (the row stride a multiple of 16 bytes).
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int L, int H,
-                     int D) {
-  const int cb = D < 64 ? D : 64;
+                     int D, int cb) {
+  if (D % 8 != 0) return cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,

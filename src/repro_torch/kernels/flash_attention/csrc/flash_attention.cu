@@ -11,6 +11,16 @@
 // real query row sees key 0 in the first key tile and its max is finite
 // before any masked tile.
 //
+// Head dims: the reference's D "rides along whole", up to 256.  Each
+// kernel is built for the column buckets W = 32, 64, 128, 192, 256
+// (fa_bucket in fa_hopper.cuh) and takes the true D <= W at run time:
+// columns D .. W - 1 of every tile are zeros (TMA's fill for bf16, masked
+// loads for fp32), which add exact zeros to q k^T and give zero output
+// columns, and only the first D output columns are written.  The scale is
+// the caller's (1/sqrt(D) of the true D).  bf16 needs D a multiple of 8
+// (a tensor map's rows are whole 16-byte units); the wrapper zero-pads q,
+// k and v to that.
+//
 // With a non-null `lse` ([B, H, Lq] fp32) both kernels also write each
 // row's log-sum-exp of its scaled, masked logits, m + log l in natural-log
 // units, which the backward kernels (flash_attention_bwd.cu) recompute P
@@ -18,7 +28,7 @@
 //
 // Bound: operations.  The function does 4*D flops per unmasked (q, k)
 // pair (D multiply-adds for q.k, D for p.v) and moves only q, k, v and o
-// once, so at the serving shapes (L = 2048 or 32768, D = 64) it sits far
+// once, so at the serving shapes (L = 2048 or 32768, D >= 64) it sits far
 // above the card's ridge point.  At D = 64 the exponentials come close to
 // the products: one ex2 per pair at 16 per clock per SM.
 //
@@ -29,28 +39,26 @@
 //   consumer warpgroups of 64 rows each and a producer warpgroup, of
 //   which one thread issues the copies (setmaxnreg moves registers from
 //   the producer to the consumers).  The producer loads the q tile once
-//   and the k and v tiles of 64 keys through a ring of kStages stages in
-//   shared memory with TMA (cp.async.bulk.tensor, 4-D tensor maps over
-//   (D, H, L, B), 128-byte swizzle; 64-byte at D = 32, where a row is 64
-//   bytes), each stage guarded by a `full` and an `empty` mbarrier, so
-//   the next tiles load while the current one is multiplied.  TMA fills
-//   rows past L with zeros; the -1e30 masks do the rest.  A head dim above
-//   64 that is not a multiple of 64 (D = 80, hubert-xlarge's) is loaded
-//   in whole 64-column boxes too: the last box reaches past D and TMA
-//   fills its columns D .. 127 with zeros, so the tiles are laid out as
-//   at D = 128.  q k^T then takes only D / 16 k16 steps (the zero columns
-//   are not multiplied), p v runs at N = 128, and the zero output columns
-//   are not written.  That keeps the 128-byte swizzle and the descriptors
-//   of D = 64 and 128; p v does 128/80 of the work it needs.  A consumer
-//   warpgroup computes S = q k^T with wgmma m64n64k16 (q and k both
-//   K-major from shared memory), takes the row max and sum on S's fp32
-//   accumulator in registers (a row lies in 4 lanes: two shuffles), and
-//   computes each tile's P V with wgmma m64nDk16 (m64n64 per 64 columns
-//   at D = 128), P from registers (S's accumulator fragment maps onto the
-//   A fragments of the k16 steps once packed to bf16 pairs) and V from
-//   shared memory (MN-major, the transpose bit set).  Tile t's q k^T is
-//   issued before tile t - 1's P V: the split of P runs while the tensor
-//   cores do q k^T, the softmax of tile t while they do P V.
+//   and the k and v tiles of 64 keys through a ring of ring_stages<W>
+//   stages in shared memory with TMA (cp.async.bulk.tensor, 4-D tensor
+//   maps over (D, H, L, B), 64-column boxes with the 128-byte swizzle; at
+//   W = 32 one 32-column box with the 64-byte swizzle), each stage guarded
+//   by a `full` and an `empty` mbarrier, so the next tiles load while the
+//   current one is multiplied.  TMA fills rows past L and columns past D
+//   with zeros; the -1e30 masks do the rest.  The ring is 4 stages deep up
+//   to W = 128, 3 at 192 and 2 at 256 (each stage holds a k and a v tile
+//   of W columns): tc_smem_bytes, under the 232,448 bytes a block may
+//   take.  q k^T runs all W / 16 k16 steps and p v all W columns, so a D
+//   below its bucket (80 or 96 at W = 128) pays for the zero columns.  A
+//   consumer warpgroup computes S = q k^T with wgmma m64n64k16 (q and k
+//   both K-major from shared memory), takes the row max and sum on S's
+//   fp32 accumulator in registers (a row lies in 4 lanes: two shuffles),
+//   and computes each tile's P V with wgmma m64n64k16 per 64 columns
+//   (m64n32 at W = 32), P from registers (S's accumulator fragment maps
+//   onto the A fragments of the k16 steps once packed to bf16 pairs) and V
+//   from shared memory (MN-major, the transpose bit set).  Tile t's q k^T
+//   is issued before tile t - 1's P V: the split of P runs while the
+//   tensor cores do q k^T, the softmax of tile t while they do P V.
 //
 //   P is split into three bf16 terms, p1 = bf16(p), p2 = bf16(p - p1),
 //   p3 = bf16(p - p1 - p2), and T = p1 V + p2 V + p3 V.  The three terms
@@ -62,15 +70,22 @@
 //   tensor-core flash attention) misses that bar by a factor of 200-350
 //   on near-zero outputs (a CPU emulation of this arithmetic is in
 //   tests/test_torch_flash_attention.py).  The price is the MMA work:
-//   8*D flops per pair (2*D for q.k, 3 * 2*D for p.v), against the
+//   8*W flops per pair (2*W for q.k, 3 * 2*W for p.v), against the
 //   function's 4*D.
 //
-//   Each tile's T is summed from zero on the tensor cores and the running
-//   output is kept on the CUDA cores, O = O * alpha + T in fp32.  With O
-//   carried in the wgmma accumulator across all key tiles instead, rows
-//   of 32,768 keys missed the bar on the H100 at every head width: the
-//   accumulator's sums over thousands of k16 steps drift further from
-//   the exact sum than fp32 rounding does.
+//   The order of the output's sums follows the registers.  Up to W = 128
+//   each tile's T is summed from zero on the tensor cores (tacc) and the
+//   running output is kept on the CUDA cores, O = O * alpha + T in fp32:
+//   with O carried in the wgmma accumulator across all key tiles instead,
+//   rows of 32,768 keys missed the bar on the H100 at every head width
+//   (the accumulator's sums over thousands of k16 steps drift further from
+//   the exact sum than fp32 rounding does).  At W = 192 and 256 a second
+//   accumulator of 64 x W fp32 does not fit beside O (W / 2 registers a
+//   thread each, 256 at W = 256, over the 240 a consumer thread has), so
+//   there O is rescaled by alpha on the CUDA cores before the tile's P V
+//   and the three terms' products accumulate into O itself (the CPU
+//   emulation holds this order to the bar at 2,048 keys; chip_smoke.py
+//   phase 6 holds it on the card up to 4,096).
 //
 //   Softmax in log2 units: with c = scale * log2(e), p = 2^(S c - m c)
 //   from one fma on the raw logit S, m c rounded once per row and tile,
@@ -85,10 +100,12 @@
 // * fp32 (the reference sweep's and the tests' dtype, held to 2e-5, which
 //   needs fp32 products): fa_kernel_f32, the first port's kernel on the
 //   CUDA cores.  One block of 256 threads per (64 query rows, head,
-//   batch); q, k and v tiles staged in shared memory in fp32, rows padded
-//   by one word; the thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i
-//   and logits of columns tx + 16 j, so a row's max and sum are half-warp
-//   shuffles; p goes through shared memory for the p v product.
+//   batch); q, k and v tiles of W columns staged in shared memory in
+//   fp32 (columns past D zero), rows padded by one word (f32_smem_bytes:
+//   213,760 bytes at W = 256); the thread (ty, tx) of a 16 x 16 grid owns
+//   rows ty + 16 i and logits of columns tx + 16 j, so a row's max and sum
+//   are half-warp shuffles; q k^T runs over the true D rounded up to 8
+//   columns; p goes through shared memory for the p v product.
 
 #include "fa_hopper.cuh"
 
@@ -104,24 +121,24 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
 
-template <int D>
-constexpr size_t f32_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
+template <int W>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return (int)sizeof(float) *
+         (kBQ * (W + 1) + kBK * (W + 1) + kBK * W + kBQ * (kBK + 1));
 }
 
-template <int D>
+template <int W>
 __global__ void __launch_bounds__(kThreads)
     fa_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
-                  float* __restrict__ lse, int H, int Lq, int Lk,
+                  float* __restrict__ lse, int H, int Lq, int Lk, int D,
                   float scale, int causal) {
-  constexpr int RC = D / 16;  // output columns per thread
+  constexpr int RC = W / 16;  // output columns per thread
   extern __shared__ float smem[];
-  float* qs = smem;                 // [kBQ][D + 1]
-  float* ks = qs + kBQ * (D + 1);   // [kBK][D + 1]
-  float* vs = ks + kBK * (D + 1);   // [kBK][D]
-  float* ps = vs + kBK * D;         // [kBQ][kBK + 1]
+  float* qs = smem;                 // [kBQ][W + 1]
+  float* ks = qs + kBQ * (W + 1);   // [kBK][W + 1]
+  float* vs = ks + kBK * (W + 1);   // [kBK][W]
+  float* ps = vs + kBK * W;         // [kBQ][kBK + 1]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -138,10 +155,10 @@ __global__ void __launch_bounds__(kThreads)
   const float* vb = v + ((int64_t)b * Lk * H + h) * D;
   float* ob = o + ((int64_t)b * Lq * H + h) * D;
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
+  for (int e = tid; e < kBQ * W; e += kThreads) {
+    const int r = e / W, c = e % W;
     const int qi = q0 + r;
-    qs[r * (D + 1) + c] = qi < Lq ? qb[qi * row + c] : 0.f;
+    qs[r * (W + 1) + c] = qi < Lq && c < D ? qb[qi * row + c] : 0.f;
   }
 
   float acc[4][RC];
@@ -163,12 +180,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < nk; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's k, v and p are consumed
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
+    for (int e = tid; e < kBK * W; e += kThreads) {
+      const int r = e / W, c = e % W;
       const int ki = k0 + r;
-      const bool in = ki < Lk;
-      ks[r * (D + 1) + c] = in ? kb[ki * row + c] : 0.f;
-      vs[r * D + c] = in ? vb[ki * row + c] : 0.f;
+      const bool in = ki < Lk && c < D;
+      ks[r * (W + 1) + c] = in ? kb[ki * row + c] : 0.f;
+      vs[r * W + c] = in ? vb[ki * row + c] : 0.f;
     }
     __syncthreads();
 
@@ -177,17 +194,22 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+    // Over D in whole groups of 8 columns (the tiles' columns past D are
+    // zero, and W is a multiple of 8).
+    for (int d0 = 0; d0 < D; d0 += 8) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * (D + 1) + d];
+      for (int dd = 0; dd < 8; ++dd) {
+        const int d = d0 + dd;
+        float qv[4], kv[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * (D + 1) + d];
+        for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * (W + 1) + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * (W + 1) + d];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
     }
 
 #pragma unroll
@@ -233,7 +255,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * (kBK + 1) + j];
 #pragma unroll
-      for (int c = 0; c < RC; ++c) vv[c] = vs[j * D + tx + 16 * c];
+      for (int c = 0; c < RC; ++c) vv[c] = vs[j * W + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -248,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < RC; ++c)
-      ob[qi * row + tx + 16 * c] = acc[i][c] / denom;
+      if (tx + 16 * c < D) ob[qi * row + tx + 16 * c] = acc[i][c] / denom;
     // m is in scaled-logit units here; every lane of the half-warp holds
     // the row's m and l.
     if (lse != nullptr && tx == 0)
@@ -256,20 +278,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int W>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int H, int Lq, int Lk, float scale,
-                       int causal, cudaStream_t stream) {
-  constexpr size_t smem = f32_smem_bytes<D>();
+                       float* lse, int B, int H, int Lq, int Lk, int D,
+                       float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = f32_smem_bytes<W>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fa_kernel_f32<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
-  fa_kernel_f32<D><<<grid, kThreads, smem, stream>>>(
+  fa_kernel_f32<W><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, Lq, Lk,
-      scale, causal);
+      D, scale, causal);
   return cudaGetLastError();
 }
 
@@ -279,17 +300,17 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 constexpr int kTcRows = 128;      // query rows per block: two warpgroups
 constexpr int kTcKeys = kTile;    // keys per tile
-constexpr int kStages = 4;        // k/v stages in shared memory
 constexpr int kTcThreads = 384;   // two consumer warpgroups + a producer one
 constexpr int kProducerWarp = 8;
 constexpr int kConsumerWarps = 8;
 
 // Shared memory of fa_kernel_tc: q (two tiles), the k and v rings, then
-// 1 + 2 * kStages mbarriers; 1024 bytes of slack to align the base to the
+// 1 + 2 * stages mbarriers; 1024 bytes of slack to align the base to the
 // swizzle atom.
-template <int D>
-constexpr int tc_smem_bytes() {
-  return 1024 + (2 + 2 * kStages) * Geo<D>::TILE + 8 * (1 + 2 * kStages);
+template <int W>
+__host__ __device__ constexpr int tc_smem_bytes() {
+  return 1024 + (2 + 2 * ring_stages<W>()) * Geo<W>::TILE +
+         8 * (1 + 2 * ring_stages<W>());
 }
 
 // One online-softmax step on a key tile's raw logits S (its accumulator
@@ -338,7 +359,7 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 // O = O alpha + T in fp32, alpha per row half of the fragment; T is a
-// finished tile's p v.
+// finished tile's p v (W <= 128).
 template <int NB, int ON>
 __device__ __forceinline__ void accumulate(float (&oacc)[NB][ON],
                                            float (&tacc)[NB][ON],
@@ -352,22 +373,37 @@ __device__ __forceinline__ void accumulate(float (&oacc)[NB][ON],
   }
 }
 
-template <int D>
+// O = O alpha in fp32 before a tile's p v accumulates into O (W > 128).
+template <int NB, int ON>
+__device__ __forceinline__ void rescale(float (&oacc)[NB][ON],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    fence_regs(oacc[c]);
+#pragma unroll
+    for (int r = 0; r < ON; ++r) oacc[c][r] *= alpha[(r >> 1) & 1];
+  }
+}
+
+template <int W>
 __global__ void __launch_bounds__(kTcThreads, 1)
     fa_kernel_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int H, int Lq, int Lk, float scale, int causal) {
-  using G = Geo<D>;
+                 int H, int Lq, int Lk, int D, float scale, int causal) {
+  using G = Geo<W>;
   constexpr int WG_ROWS = 64;
+  constexpr int S = ring_stages<W>();
+  // O carried in the tensor cores' accumulator (see the header).
+  constexpr bool kCarry = W > 128;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sk = sq + 2 * G::TILE;          // k ring
-  const uint32_t sv = sk + kStages * G::TILE;    // v ring
-  const uint32_t qbar = sv + kStages * G::TILE;  // q loaded
-  const uint32_t full0 = qbar + 8;               // stage s: + 8 s
-  const uint32_t empty0 = full0 + 8 * kStages;
+  const uint32_t sk = sq + 2 * G::TILE;        // k ring
+  const uint32_t sv = sk + S * G::TILE;        // v ring
+  const uint32_t qbar = sv + S * G::TILE;      // q loaded
+  const uint32_t full0 = qbar + 8;             // stage s: + 8 s
+  const uint32_t empty0 = full0 + 8 * S;
 
   const float scale2 = scale * kLog2e;  // raw logits to log2 units
   const int n_qt = (Lq + kTcRows - 1) / kTcRows;
@@ -386,7 +422,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
@@ -403,8 +439,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           tma_load(sq + half * G::TILE + c * G::BOX, &tq, qbar, c * G::CB, h,
                    q0 + half * WG_ROWS, b);
       for (int t = 0; t < nk; ++t) {
-        const int s = t % kStages;
-        if (t >= kStages) mbar_wait(empty0 + 8 * s, (t / kStages - 1) & 1);
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty0 + 8 * s, (t / S - 1) & 1);
         const uint32_t full = full0 + 8 * s;
         mbar_expect_tx(full, 2 * G::TILE);
         for (int c = 0; c < G::NB; ++c) {
@@ -431,12 +467,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int qrow[2] = {first + r0, first + r0 + 8};
   const uint32_t sqw = sq + wg * G::TILE;
 
-  // O runs in fp32 on the CUDA cores: each tile's p v is summed from
-  // zero on the tensor cores (tacc) and added as O = O alpha + T, since
-  // the tensor cores' fp32 accumulation, carried over the thousands of
-  // k16 steps of a long row, drifts past one bf16 step of the output.
+  // O runs in fp32.  Up to W = 128 each tile's p v is summed from zero on
+  // the tensor cores (tacc) and added on the CUDA cores as
+  // O = O alpha + T, since the tensor cores' fp32 accumulation, carried
+  // over the thousands of k16 steps of a long row, drifts past one bf16
+  // step of the output; above 128, O is rescaled and the products add
+  // into it (tacc is then never used and takes no registers).
   float oacc[G::NB][G::ON];
-  float tacc[G::NB][G::ON];
+  [[maybe_unused]] float tacc[G::NB][G::ON];
 #pragma unroll
   for (int c = 0; c < G::NB; ++c) zero(oacc[c]);
   float m[2] = {kNegInf, kNegInf};
@@ -462,7 +500,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     float sacc[32];
     zero(sacc);
     wgmma_fence();
-    issue_qk<D>(sacc, sqw, sk);
+    issue_qk<W>(sacc, sqw, sk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sacc);
@@ -470,15 +508,19 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                  off, causal);
   }
   for (int t = 1; t < nw; ++t) {
-    const int s = t % kStages;
-    const int prev = (t - 1) % kStages;
-    mbar_wait(full0 + 8 * s, (t / kStages) & 1);
+    const int s = t % S;
+    const int prev = (t - 1) % S;
+    mbar_wait(full0 + 8 * s, (t / S) & 1);
+    if constexpr (kCarry) rescale<G::NB, G::ON>(oacc, alpha);
     float sacc[32];
     zero(sacc);
     wgmma_fence();
-    issue_qk<D>(sacc, sqw, sk + s * G::TILE);
+    issue_qk<W>(sacc, sqw, sk + s * G::TILE);
     wgmma_commit();
-    issue_pv<D>(tacc, p, sv + prev * G::TILE);
+    if constexpr (kCarry)
+      issue_pv<W>(oacc, p, sv + prev * G::TILE, 1);
+    else
+      issue_pv<W>(tacc, p, sv + prev * G::TILE, 0);
     wgmma_commit();
     wgmma_wait<1>();  // q k^T of tile t is done, p v of t - 1 runs on
     fence_regs(sacc);
@@ -487,20 +529,32 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                  first, Lk, off, causal);
     wgmma_wait<0>();
     release(empty0 + 8 * prev, lane);
-    accumulate<G::NB, G::ON>(oacc, tacc, alpha);
+    if constexpr (kCarry)
+      settle<G::NB, G::ON>(oacc);
+    else
+      accumulate<G::NB, G::ON>(oacc, tacc, alpha);
     alpha[0] = alpha_t[0];
     alpha[1] = alpha_t[1];
   }
   if (nw > 0) {
-    issue_pv<D>(tacc, p, sv + ((nw - 1) % kStages) * G::TILE);
+    const uint32_t sv_last = sv + ((nw - 1) % S) * G::TILE;
+    if constexpr (kCarry) {
+      rescale<G::NB, G::ON>(oacc, alpha);
+      issue_pv<W>(oacc, p, sv_last, 1);
+    } else {
+      issue_pv<W>(tacc, p, sv_last, 0);
+    }
     wgmma_commit();
     wgmma_wait<0>();
-    release(empty0 + 8 * ((nw - 1) % kStages), lane);
-    accumulate<G::NB, G::ON>(oacc, tacc, alpha);
+    release(empty0 + 8 * ((nw - 1) % S), lane);
+    if constexpr (kCarry)
+      settle<G::NB, G::ON>(oacc);
+    else
+      accumulate<G::NB, G::ON>(oacc, tacc, alpha);
   }
   for (int t = nw; t < nk; ++t) {
-    mbar_wait(full0 + 8 * (t % kStages), (t / kStages) & 1);
-    release(empty0 + 8 * (t % kStages), lane);
+    mbar_wait(full0 + 8 * (t % S), (t / S) & 1);
+    release(empty0 + 8 * (t % S), lane);
   }
 
   const int64_t row = (int64_t)H * D;  // elements between sequence rows
@@ -521,7 +575,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int c = 0; c < G::NB; ++c)
 #pragma unroll
       for (int i = 0; i < G::ON / 4; ++i) {
-        if (c * G::CB + 8 * i >= D) break;  // a box's zero columns past D
+        if (c * G::CB + 8 * i >= D) break;  // the zero columns past D
         const int col = c * G::CB + 8 * i + c0;
         *reinterpret_cast<__nv_bfloat162*>(ob + qi * row + col) =
             __floats2bfloat162_rn(oacc[c][4 * i + 2 * hh] / denom,
@@ -530,28 +584,57 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-template <int D>
+template <int W>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int B, int H, int Lq, int Lk, float scale,
-                      int causal, cudaStream_t stream) {
+                      float* lse, int B, int H, int Lq, int Lk, int D,
+                      float scale, int causal, cudaStream_t stream) {
   if (!aligned16(q, k, v)) return cudaErrorMisalignedAddress;
   CUtensorMap mq, mk, mv;
-  cudaError_t err = make_map(&mq, q, B, Lq, H, D);
-  if (err == cudaSuccess) err = make_map(&mk, k, B, Lk, H, D);
-  if (err == cudaSuccess) err = make_map(&mv, v, B, Lk, H, D);
+  cudaError_t err = make_map(&mq, q, B, Lq, H, D, Geo<W>::CB);
+  if (err == cudaSuccess) err = make_map(&mk, k, B, Lk, H, D, Geo<W>::CB);
+  if (err == cudaSuccess) err = make_map(&mv, v, B, Lk, H, D, Geo<W>::CB);
   if (err != cudaSuccess) return err;
-  constexpr int smem = tc_smem_bytes<D>();
+  constexpr int smem = tc_smem_bytes<W>();
   err = cudaFuncSetAttribute(
-      fa_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_kernel_tc<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + kTcRows - 1) / kTcRows, H, B);
-  fa_kernel_tc<D><<<grid, kTcThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, scale,
+  fa_kernel_tc<W><<<grid, kTcThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, D, scale,
       causal);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// `return CALL<W>(...)` for the bucket of head dim D (then falls through
+// past 256: the caller returns cudaErrorInvalidValue).
+#define FA_BUCKETS(CALL, ...)                                              \
+  switch (fa_bucket(D)) {                                                  \
+    case 32: return (int)CALL<32>(__VA_ARGS__);                            \
+    case 64: return (int)CALL<64>(__VA_ARGS__);                            \
+    case 128: return (int)CALL<128>(__VA_ARGS__);                          \
+    case 192: return (int)CALL<192>(__VA_ARGS__);                          \
+    case 256: return (int)CALL<256>(__VA_ARGS__);                          \
+  }
+
+// The bucket of head dim D (0 past the domain), as the launches pick it.
+extern "C" int fa_head_bucket(int D) { return fa_bucket(D); }
+
+// Dynamic shared memory (bytes) of fa_kernel_tc (which = 0) or
+// fa_kernel_f32 (which = 1) at bucket W; -1 for anything else.
+extern "C" int fa_smem_bytes(int which, int W) {
+  switch (W) {
+#define FA_SMEM(V)                                   \
+  case V:                                            \
+    return which == 0   ? tc_smem_bytes<V>()         \
+           : which == 1 ? f32_smem_bytes<V>()        \
+                        : -1;
+    FA_SMEM(32) FA_SMEM(64) FA_SMEM(128) FA_SMEM(192) FA_SMEM(256)
+#undef FA_SMEM
+  }
+  return -1;
+}
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
 // kernel); q, k, v and o share it.  q and o are contiguous [B, Lq, H, D],
@@ -562,21 +645,11 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
-#define FA_ARGS q, k, v, o, ls, B, H, Lq, Lk, scale, causal, s
+#define FA_ARGS q, k, v, o, ls, B, H, Lq, Lk, D, scale, causal, s
   if (dtype == 0) {
-    switch (D) {
-      case 32: return (int)launch_f32<32>(FA_ARGS);
-      case 64: return (int)launch_f32<64>(FA_ARGS);
-      case 80: return (int)launch_f32<80>(FA_ARGS);
-      case 128: return (int)launch_f32<128>(FA_ARGS);
-    }
+    FA_BUCKETS(launch_f32, FA_ARGS);
   } else if (dtype == 1) {
-    switch (D) {
-      case 32: return (int)launch_tc<32>(FA_ARGS);
-      case 64: return (int)launch_tc<64>(FA_ARGS);
-      case 80: return (int)launch_tc<80>(FA_ARGS);
-      case 128: return (int)launch_tc<128>(FA_ARGS);
-    }
+    FA_BUCKETS(launch_tc, FA_ARGS);
   }
 #undef FA_ARGS
   return (int)cudaErrorInvalidValue;

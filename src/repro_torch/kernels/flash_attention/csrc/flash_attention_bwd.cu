@@ -12,17 +12,24 @@
 // where the forward masks it (a key at or past Lk, or, under `causal`, a
 // key ki > qi + (Lk - Lq)): its P and dS are 0.
 //
+// Head dims as in the forward: each kernel is built for the column
+// buckets W = 32, 64, 128, 192, 256 (fa_bucket) and takes the true D <= W
+// at run time; the columns D .. W - 1 of every tile are zeros and only
+// the first D output columns are written.  bf16 needs D a multiple of 8
+// (the wrapper zero-pads q, k, v and dO to that).
+//
 // FA2's split, three kernels, none with atomics, so every result is the
 // same from run to run:
 //
 // * fa_bwd_preprocess: D = rowsum(dO o O) per (b, h, query row), one warp
-//   per row, either dtype.  Bound: bytes (reads o and dO once).
-// * dK, dV: per 64 keys, over the query tiles that can see them (under
-//   `causal`, from the keys' own diagonal on): S^T = k q^T,
+//   per row, either dtype, any head dim.  Bound: bytes (reads o and dO
+//   once).
+// * dK, dV: per block of keys, over the query tiles that can see them
+//   (under `causal`, from the keys' own diagonal on): S^T = k q^T,
 //   P^T = exp(scale S^T - lse), dP^T = v dO^T, dS^T = P^T o (dP^T - D),
 //   dV += P^T dO, dK += dS^T q; dK scaled once at the end.
-// * dQ: per query rows, over the key tiles they can see: S, P, dP and dS
-//   as above, dQ += dS k, scaled once at the end.
+// * dQ: per block of query rows, over the key tiles they can see: S, P,
+//   dP and dS as above, dQ += dS k, scaled once at the end.
 //
 // Bound: operations.  The function needs 10 D flops per unmasked pair (S,
 // dP, dV, dK and dQ, 2 D each); the split recomputes S and dP in the dQ
@@ -32,28 +39,32 @@
 //
 // * fp32 (held to 1e-4·max(max|ref|, 1), which needs fp32 products):
 //   fa_bwd_dkdv and fa_bwd_dq on the CUDA cores.  One block of 256
-//   threads per 64 rows; the k and v (or q and dO) tiles in shared memory
-//   in fp32, rows padded by one word, the thread (ty, tx) of a 16 x 16
-//   grid owning rows ty + 16 i and columns tx + 16 c; P and dS go through
-//   shared memory.  A tile's shared-memory reads (8 per 16 multiply-adds
-//   in the S and dP loop) are their limit.  Shared memory at D = 128:
-//   dK/dV 165,888 bytes, dQ 149,248.
+//   threads per f32_rows<W> rows (64 up to W = 128, 32 above, where 64-row
+//   tiles of W fp32 columns no longer fit: dkdv_smem_bytes, dq_smem_bytes);
+//   the k and v (or q and dO) tiles in shared memory in fp32, rows padded
+//   by one word, the thread (ty, tx) of a 16 x 16 grid owning rows
+//   ty + 16 i and columns tx + 16 c; P and dS go through shared memory.
+//   One block fits an SM, so a tile's device-memory loads are issued in
+//   batches (load_tile) and the kernels may take any register count
+//   (__launch_bounds__(256, 1): the default cap of 128 spilled).  A
+//   tile's shared-memory reads (8 per 16 multiply-adds in the S and dP
+//   loop) are their limit.  Shared memory: dK/dV 165,888 bytes at
+//   W = 128 (64 rows), 140,288 at W = 256 (32 rows).
 //
 // * bf16 (the models' training dtype): fa_bwd_dkdv_tc and fa_bwd_dq_tc on
 //   the tensor cores, built from the forward's blocks (fa_hopper.cuh):
-//   blocks of 384 threads, two consumer warpgroups and a producer
-//   warpgroup of which one warp issues the copies (setmaxnreg: 232
-//   registers a consumer thread, 40 a producer thread); tiles of 64 rows
-//   brought by TMA (4-D tensor maps over (D, H, L, B), 128-byte swizzle,
-//   64-byte at D = 32; at D = 80 whole 64-column boxes, zero-filled past
-//   column 80, so the tiles are laid out as at D = 128 and only the first
-//   80 output columns are written) through a ring of kTcStages stages,
-//   each guarded by a `full` and an `empty` mbarrier.  Every product is a
-//   wgmma m64n64k16 (m64n32 for the D = 32 outputs): S^T, dP^T, S and dP
-//   from two K-major tiles in shared memory, as the forward's q k^T;
-//   dV, dK and dQ with the fp32 accumulator fragment of P^T, dS^T or dS
-//   as the A operand from registers and the dO, q or k tile read MN-major
-//   (the transpose bit set), as the forward's p v.
+//   blocks of two consumer warpgroups (one for dQ at W = 256, below) and
+//   a producer warpgroup of which one warp issues the copies (setmaxnreg:
+//   232 registers a consumer thread, 40 a producer thread); tiles of 64
+//   rows brought by TMA (4-D tensor maps over (D, H, L, B), 64-column
+//   boxes with the 128-byte swizzle, one 32-column box with the 64-byte
+//   swizzle at W = 32; columns past D zero-filled) through a ring of
+//   stages, each guarded by a `full` and an `empty` mbarrier.  Every
+//   product is a wgmma m64n64k16 (m64n32 for the W = 32 outputs): S^T,
+//   dP^T, S and dP from two K-major tiles in shared memory, as the
+//   forward's q k^T; dV, dK and dQ with the fp32 accumulator fragment of
+//   P^T, dS^T or dS as the A operand from registers and the dO, q or k
+//   tile read MN-major (the transpose bit set), as the forward's p v.
 //
 //   P and dS are split into three bf16 terms (split3), which hold every
 //   fp32 value exactly, and q, k, v and dO are bf16, so every product is
@@ -61,29 +72,39 @@
 //   order of the sums.  One bf16 rounding of P and dS (the usual
 //   tensor-core backward) misses the element bar, as it does in the
 //   forward (tests/test_torch_flash_attention.py emulates both).  The
-//   price is the MMA work: 18 D flops per pair in dK/dV (S^T twice, dP^T,
-//   dV and dK three times) and 10 D in dQ, against the function's 10 D.
+//   price is the MMA work: 18 W flops per pair in dK/dV (S^T twice, dP^T,
+//   dV and dK three times) and 10 W in dQ, against the function's 10 D.
 //
-//   Sums: each tile's dV, dK or dQ is summed from zero on the tensor cores
-//   (12 k16 steps) and added to a running sum in fp32 registers, as the
-//   forward adds each tile's p v.  The forward found that an accumulator
-//   carried across thousands of k16 steps drifts past one bf16 step; the
-//   backward's bar leaves more room (1e-5·max|ref|), but a running sum
-//   and a tile sum of dK and of dV do not fit one warpgroup's registers
-//   at D = 128 (4 x 64 per thread, with S^T, dP^T and the split A
-//   fragments on top).  So in fa_bwd_dkdv_tc the two consumer warpgroups
-//   split the outputs, not the keys: one block per 64 keys, warpgroup 0
-//   computes S^T and dV (running 64 + tile 64 + S^T 32 + A terms 48
-//   registers at D = 128), warpgroup 1 computes S^T and dP^T and dK
-//   (64 + 64 + 64, the A terms in place of S^T and dP^T once dS is
-//   split).  S^T is computed twice, 2 D flops per pair more than one
-//   warpgroup doing both would need.  The producer loads the keys' k and
-//   v tiles once and rings the query tiles' q and dO, and, written by its
-//   warp's 32 lanes into the stage (the full barrier counts their 32
-//   arrivals beside the copies'), the tiles' lse (times log2 e) and D,
-//   which are per column of S^T here.  fa_bwd_dq_tc has the forward's
-//   shape: one block per 128 query rows, 64 per consumer warpgroup, q
-//   and dO loaded once, k and v rung.
+//   Sums: up to W = 128 each tile's dV, dK or dQ is summed from zero on
+//   the tensor cores (12 k16 steps) and added to a running sum in fp32
+//   registers, as the forward adds each tile's p v.  The forward found
+//   that an accumulator carried across thousands of k16 steps drifts past
+//   one bf16 step; the backward's bar leaves more room (1e-5·max|ref|).
+//   At W = 192 and 256 a tile sum beside the running sum does not fit a
+//   consumer's 232 registers (W / 2 each), so there the three terms'
+//   products accumulate into the running sum itself.  A running sum and a
+//   tile sum of both dK and dV do not fit one warpgroup's registers at
+//   any W >= 128, so in fa_bwd_dkdv_tc the two consumer warpgroups split
+//   the outputs, not the keys: one block per 64 keys, warpgroup 0
+//   computes S^T and dV, warpgroup 1 computes S^T and dP^T and dK (the A
+//   terms in place of S^T and dP^T once dS is split).  S^T is computed
+//   twice, 2 W flops per pair more than one warpgroup doing both would
+//   need.  The producer loads the keys' k and v tiles once and rings the
+//   query tiles' q and dO, and, written by its warp's 32 lanes into the
+//   stage (the full barrier counts their 32 arrivals beside the copies'),
+//   the tiles' lse (times log2 e) and D, which are per column of S^T here.
+//   fa_bwd_dq_tc has the forward's shape: one block per 128 query rows,
+//   64 per consumer warpgroup, q and dO loaded once, k and v rung.  At
+//   W = 256 two q and two dO tiles and even a 2-stage ring of k and v
+//   take 263,208 bytes, over the 232,448 a block may use, so there a
+//   block takes 64 query rows with one consumer warpgroup (197,672
+//   bytes); the output columns are not split between warpgroups, which
+//   would compute S and dP twice.
+//
+//   Ring depths (stages of the rung tiles): dK/dV 4 up to W = 128, 3 at
+//   192, 2 at 256; dQ 4 up to 128, 2 above.  Shared memory: dK/dV
+//   166,984 bytes at W = 128, 199,224 at 192, 198,696 at 256; dQ 197,704,
+//   197,672, 197,672 (dkdv_tc_smem, dq_tc_smem; kernel.py mirrors them).
 //
 //   P = 2^(S scale log2(e) - lse log2(e)) from one fma on the raw logit
 //   and ex2.approx.ftz.  Query tiles (dK/dV: key tiles) wholly masked by
@@ -91,9 +112,6 @@
 //   the diagonal, Lq or Lk (a query at or past Lq has P = 0 in dK/dV; a
 //   key at or past Lk in dQ).  Blocks go heaviest first: dK/dV's key
 //   tile 0 sees every query, dQ's last query tile every key.
-//
-// Shared memory at D = 128: dK/dV 166,984 bytes, dQ 197,704, under the
-// 227 KB a block may take.
 
 #include "fa_hopper.cuh"
 
@@ -104,9 +122,16 @@ namespace {
 // fp32: CUDA cores (and the preprocess, either dtype)
 // ---------------------------------------------------------------------------
 
-constexpr int kB = 64;          // rows of a query or key tile
 constexpr int kThreads = 256;   // a 16 x 16 grid of threads
 constexpr int kPreRows = 8;     // preprocess: rows (warps) per block
+constexpr int kDStep = 4;       // columns per unrolled step of S and dP
+constexpr int kLoadBatch = 8;   // loads a thread keeps in flight
+
+// Rows of a query or key tile of the fp32 kernels at bucket W.
+template <int W>
+__host__ __device__ constexpr int f32_rows() {
+  return W <= 128 ? 64 : 32;
+}
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
@@ -117,29 +142,48 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// Rows r0 .. r0 + 63 of one (b, h) slice (rows `row` elements apart) into
-// shared memory as fp32 [64][D + 1]; rows at or past L as zeros.
-template <int D, typename T>
+// Rows r0 .. r0 + R - 1 of one (b, h) slice (rows `row` elements apart)
+// into shared memory as fp32 [R][W + 1]; rows at or past L and columns at
+// or past D as zeros.  Each thread issues kLoadBatch loads before it
+// stores their values, so that they are in flight together: with one
+// block on an SM, a load and its store in turn leave each device-memory
+// round trip exposed (and all of a thread's loads at once spill).
+template <int W, int R, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* base,
-                                          int64_t row, int r0, int L) {
-  for (int e = threadIdx.x; e < kB * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int gi = r0 + r;
-    dst[r * (D + 1) + c] = gi < L ? ld(base + gi * row + c) : 0.f;
+                                          int64_t row, int r0, int L,
+                                          int D) {
+  constexpr int N = R * W / kThreads;  // elements per thread
+  static_assert(N % kLoadBatch == 0, "tile not a whole number of batches");
+#pragma unroll 1
+  for (int n0 = 0; n0 < N; n0 += kLoadBatch) {
+    float buf[kLoadBatch];
+#pragma unroll
+    for (int n = 0; n < kLoadBatch; ++n) {
+      const int e = threadIdx.x + (n0 + n) * kThreads;
+      const int gi = r0 + e / W, c = e % W;
+      buf[n] = gi < L && c < D ? ld(base + gi * row + c) : 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < kLoadBatch; ++n) {
+      const int e = threadIdx.x + (n0 + n) * kThreads;
+      dst[(e / W) * (W + 1) + e % W] = buf[n];
+    }
   }
 }
 
-// Entries r0 .. r0 + 63 of one row statistic (lse or D) into shared memory.
+// Entries r0 .. r0 + R - 1 of one row statistic (lse or D) into shared
+// memory.
+template <int R>
 __device__ __forceinline__ void load_stat(float* dst, const float* base,
                                           int r0, int L) {
-  for (int e = threadIdx.x; e < kB; e += kThreads)
+  for (int e = threadIdx.x; e < R; e += kThreads)
     dst[e] = r0 + e < L ? base[r0 + e] : 0.f;
 }
 
-template <int D, typename T>
+template <typename T>
 __global__ void __launch_bounds__(kPreRows * 32)
     fa_bwd_preprocess(const T* __restrict__ o, const T* __restrict__ dO,
-                      float* __restrict__ delta, int H, int Lq,
+                      float* __restrict__ delta, int H, int Lq, int D,
                       int64_t nrows) {
   // Row r of [B, Lq, H] in memory order: r = (b Lq + i) H + h.
   const int64_t r = (int64_t)blockIdx.x * kPreRows + threadIdx.x / 32;
@@ -161,36 +205,38 @@ __global__ void __launch_bounds__(kPreRows * 32)
   }
 }
 
-template <int D>
-constexpr size_t dkdv_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(4 * kB * (D + 1) + 2 * kB * (kB + 1) + 2 * kB);
+template <int W>
+__host__ __device__ constexpr int dkdv_smem_bytes() {
+  constexpr int R = f32_rows<W>();
+  return (int)sizeof(float) * (4 * R * (W + 1) + 2 * R * (R + 1) + 2 * R);
 }
 
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
+template <int W, typename T>
+__global__ void __launch_bounds__(kThreads, 1)
     fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dO,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, int H, int Lq, int Lk, float scale,
-                int causal) {
-  constexpr int RC = D / 16;  // columns per thread
-  constexpr int PS = kB + 1;  // row stride of the P and dS tiles
+                T* __restrict__ dv, int H, int Lq, int Lk, int D,
+                float scale, int causal) {
+  constexpr int R = f32_rows<W>();  // keys (and queries) per tile
+  constexpr int RT = R / 16;        // rows of S^T per thread
+  constexpr int RC = W / 16;        // columns per thread
+  constexpr int PS = R + 1;         // row stride of the P and dS tiles
   extern __shared__ float smem[];
-  float* ks = smem;                  // [kB][D + 1]
-  float* vs = ks + kB * (D + 1);     // [kB][D + 1]
-  float* qs = vs + kB * (D + 1);     // [kB][D + 1]
-  float* os = qs + kB * (D + 1);     // dO tile, [kB][D + 1]
-  float* ps = os + kB * (D + 1);     // P^T, [kB keys][PS]
-  float* ss = ps + kB * PS;          // dS^T, [kB keys][PS]
-  float* ls = ss + kB * PS;          // lse of the query tile
-  float* dl = ls + kB;               // D of the query tile
+  float* ks = smem;                  // [R][W + 1]
+  float* vs = ks + R * (W + 1);      // [R][W + 1]
+  float* qs = vs + R * (W + 1);      // [R][W + 1]
+  float* os = qs + R * (W + 1);      // dO tile, [R][W + 1]
+  float* ps = os + R * (W + 1);      // P^T, [R keys][PS]
+  float* ss = ps + R * PS;           // dS^T, [R keys][PS]
+  float* ls = ss + R * PS;           // lse of the query tile
+  float* dl = ls + R;                // D of the query tile
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int k0 = blockIdx.x * kB;
+  const int k0 = blockIdx.x * R;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int off = Lk - Lq;
@@ -203,60 +249,65 @@ __global__ void __launch_bounds__(kThreads)
   const float* lb = lse + ((int64_t)b * H + h) * Lq;
   const float* db = delta + ((int64_t)b * H + h) * Lq;
 
-  load_tile<D>(ks, kb, row, k0, Lk);
-  load_tile<D>(vs, vb, row, k0, Lk);
+  load_tile<W, R>(ks, kb, row, k0, Lk, D);
+  load_tile<W, R>(vs, vb, row, k0, Lk, D);
 
-  float adk[4][RC], adv[4][RC];
+  float adk[RT][RC], adv[RT][RC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int c = 0; c < RC; ++c) adk[i][c] = adv[i][c] = 0.f;
 
   // Query rows qi >= k0 - off can see this block's first key.
-  const int t0 = causal ? max(0, k0 - off) / kB : 0;
-  const int n_qt = (Lq + kB - 1) / kB;
+  const int t0 = causal ? max(0, k0 - off) / R : 0;
+  const int n_qt = (Lq + R - 1) / R;
   for (int t = t0; t < n_qt; ++t) {
-    const int q0 = t * kB;
+    const int q0 = t * R;
     __syncthreads();  // the previous tile's q, dO, P and dS are consumed
-    load_tile<D>(qs, qb, row, q0, Lq);
-    load_tile<D>(os, ob, row, q0, Lq);
-    load_stat(ls, lb, q0, Lq);
-    load_stat(dl, db, q0, Lq);
+    load_tile<W, R>(qs, qb, row, q0, Lq, D);
+    load_tile<W, R>(os, ob, row, q0, Lq, D);
+    load_stat<R>(ls, lb, q0, Lq);
+    load_stat<R>(dl, db, q0, Lq);
     __syncthreads();
 
     // S^T and dP^T: key rows ty + 16 i, query columns tx + 16 j.
-    float s[4][4], dp[4][4];
+    float s[RT][RT], dp[RT][RT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
+      for (int j = 0; j < RT; ++j) s[i][j] = dp[i][j] = 0.f;
+    // Over D in whole groups of kDStep columns (the tiles' columns past D
+    // are zero).
+    for (int d0 = 0; d0 < D; d0 += kDStep) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = ks[(ty + 16 * i) * (D + 1) + d];
-        vv[i] = vs[(ty + 16 * i) * (D + 1) + d];
-      }
+      for (int dd = 0; dd < kDStep; ++dd) {
+        const int d = d0 + dd;
+        float kv[RT], vv[RT], qv[RT], ov[RT];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = qs[(tx + 16 * j) * (D + 1) + d];
-        ov[j] = os[(tx + 16 * j) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+        for (int i = 0; i < RT; ++i) {
+          kv[i] = ks[(ty + 16 * i) * (W + 1) + d];
+          vv[i] = vs[(ty + 16 * i) * (W + 1) + d];
         }
+#pragma unroll
+        for (int j = 0; j < RT; ++j) {
+          qv[j] = qs[(tx + 16 * j) * (W + 1) + d];
+          ov[j] = os[(tx + 16 * j) * (W + 1) + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < RT; ++j) {
+            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RT; ++i) {
       const int kr = ty + 16 * i;
       const int ki = k0 + kr;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         const int qc = tx + 16 * j;
         const int qi = q0 + qc;
         const bool ok = ki < Lk && qi < Lq && (!causal || qi + off >= ki);
@@ -267,22 +318,22 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // dV += P^T dO and dK += dS^T q over the tile's 64 queries.
+    // dV += P^T dO and dK += dS^T q over the tile's R queries.
 #pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      float pv[4], sv[4], ov[RC], qv[RC];
+    for (int c = 0; c < R; ++c) {
+      float pv[RT], sv[RT], ov[RC], qv[RC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RT; ++i) {
         pv[i] = ps[(ty + 16 * i) * PS + c];
         sv[i] = ss[(ty + 16 * i) * PS + c];
       }
 #pragma unroll
       for (int cc = 0; cc < RC; ++cc) {
-        ov[cc] = os[c * (D + 1) + tx + 16 * cc];
-        qv[cc] = qs[c * (D + 1) + tx + 16 * cc];
+        ov[cc] = os[c * (W + 1) + tx + 16 * cc];
+        qv[cc] = qs[c * (W + 1) + tx + 16 * cc];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
         for (int cc = 0; cc < RC; ++cc) {
           adv[i][cc] = fmaf(pv[i], ov[cc], adv[i][cc]);
@@ -294,45 +345,49 @@ __global__ void __launch_bounds__(kThreads)
   T* dkb = dk + ((int64_t)b * Lk * H + h) * D;
   T* dvb = dv + ((int64_t)b * Lk * H + h) * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RT; ++i) {
     const int ki = k0 + ty + 16 * i;
     if (ki >= Lk) continue;
 #pragma unroll
     for (int cc = 0; cc < RC; ++cc) {
+      if (tx + 16 * cc >= D) continue;
       st(dkb + ki * row + tx + 16 * cc, adk[i][cc] * scale);
       st(dvb + ki * row + tx + 16 * cc, adv[i][cc]);
     }
   }
 }
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (size_t)(4 * kB * (D + 1) + kB * (kB + 1) + 2 * kB);
+template <int W>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  constexpr int R = f32_rows<W>();
+  return (int)sizeof(float) * (4 * R * (W + 1) + R * (R + 1) + 2 * R);
 }
 
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
+template <int W, typename T>
+__global__ void __launch_bounds__(kThreads, 1)
     fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dO,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int H, int Lq, int Lk, float scale,
+              T* __restrict__ dq, int H, int Lq, int Lk, int D, float scale,
               int causal) {
-  constexpr int RC = D / 16;
-  constexpr int PS = kB + 1;
+  constexpr int R = f32_rows<W>();
+  constexpr int RT = R / 16;
+  constexpr int RC = W / 16;
+  constexpr int PS = R + 1;
   extern __shared__ float smem[];
-  float* qs = smem;                  // [kB][D + 1]
-  float* os = qs + kB * (D + 1);     // dO tile
-  float* ks = os + kB * (D + 1);
-  float* vs = ks + kB * (D + 1);
-  float* ss = vs + kB * (D + 1);     // dS, [kB queries][PS]
-  float* ls = ss + kB * PS;
-  float* dl = ls + kB;
+  float* qs = smem;                  // [R][W + 1]
+  float* os = qs + R * (W + 1);      // dO tile
+  float* ks = os + R * (W + 1);
+  float* vs = ks + R * (W + 1);
+  float* ss = vs + R * (W + 1);      // dS, [R queries][PS]
+  float* ls = ss + R * PS;
+  float* dl = ls + R;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int n_qt = (Lq + kB - 1) / kB;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kB;  // heaviest first
+  const int n_qt = (Lq + R - 1) / R;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * R;  // heaviest first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int off = Lk - Lq;
@@ -343,59 +398,62 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + ((int64_t)b * Lk * H + h) * D;
   const T* vb = v + ((int64_t)b * Lk * H + h) * D;
 
-  load_tile<D>(qs, qb, row, q0, Lq);
-  load_tile<D>(os, ob, row, q0, Lq);
-  load_stat(ls, lse + ((int64_t)b * H + h) * Lq, q0, Lq);
-  load_stat(dl, delta + ((int64_t)b * H + h) * Lq, q0, Lq);
+  load_tile<W, R>(qs, qb, row, q0, Lq, D);
+  load_tile<W, R>(os, ob, row, q0, Lq, D);
+  load_stat<R>(ls, lse + ((int64_t)b * H + h) * Lq, q0, Lq);
+  load_stat<R>(dl, delta + ((int64_t)b * H + h) * Lq, q0, Lq);
 
-  float adq[4][RC];
+  float adq[RT][RC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int c = 0; c < RC; ++c) adq[i][c] = 0.f;
 
-  int nk = (Lk + kB - 1) / kB;
-  if (causal) nk = min(nk, (min(q0 + kB, Lq) - 1 + off) / kB + 1);
+  int nk = (Lk + R - 1) / R;
+  if (causal) nk = min(nk, (min(q0 + R, Lq) - 1 + off) / R + 1);
   for (int t = 0; t < nk; ++t) {
-    const int k0 = t * kB;
+    const int k0 = t * R;
     __syncthreads();  // the previous tile's k, v and dS are consumed
-    load_tile<D>(ks, kb, row, k0, Lk);
-    load_tile<D>(vs, vb, row, k0, Lk);
+    load_tile<W, R>(ks, kb, row, k0, Lk, D);
+    load_tile<W, R>(vs, vb, row, k0, Lk, D);
     __syncthreads();
 
     // S and dP: query rows ty + 16 i, key columns tx + 16 j.
-    float s[4][4], dp[4][4];
+    float s[RT][RT], dp[RT][RT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+      for (int j = 0; j < RT; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kDStep) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = qs[(ty + 16 * i) * (D + 1) + d];
-        ov[i] = os[(ty + 16 * i) * (D + 1) + d];
-      }
+      for (int dd = 0; dd < kDStep; ++dd) {
+        const int d = d0 + dd;
+        float qv[RT], ov[RT], kv[RT], vv[RT];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = ks[(tx + 16 * j) * (D + 1) + d];
-        vv[j] = vs[(tx + 16 * j) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        for (int i = 0; i < RT; ++i) {
+          qv[i] = qs[(ty + 16 * i) * (W + 1) + d];
+          ov[i] = os[(ty + 16 * i) * (W + 1) + d];
         }
+#pragma unroll
+        for (int j = 0; j < RT; ++j) {
+          kv[j] = ks[(tx + 16 * j) * (W + 1) + d];
+          vv[j] = vs[(tx + 16 * j) * (W + 1) + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < RT; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RT; ++i) {
       const int qr = ty + 16 * i;
       const int qi = q0 + qr;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         const int kc = tx + 16 * j;
         const int ki = k0 + kc;
         const bool ok = ki < Lk && qi < Lq && (!causal || qi + off >= ki);
@@ -405,16 +463,16 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // dQ += dS k over the tile's 64 keys.
+    // dQ += dS k over the tile's R keys.
 #pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      float sv[4], kv[RC];
+    for (int c = 0; c < R; ++c) {
+      float sv[RT], kv[RC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = ss[(ty + 16 * i) * PS + c];
+      for (int i = 0; i < RT; ++i) sv[i] = ss[(ty + 16 * i) * PS + c];
 #pragma unroll
-      for (int cc = 0; cc < RC; ++cc) kv[cc] = ks[c * (D + 1) + tx + 16 * cc];
+      for (int cc = 0; cc < RC; ++cc) kv[cc] = ks[c * (W + 1) + tx + 16 * cc];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
         for (int cc = 0; cc < RC; ++cc)
           adq[i][cc] = fmaf(sv[i], kv[cc], adq[i][cc]);
@@ -423,61 +481,67 @@ __global__ void __launch_bounds__(kThreads)
 
   T* dqb = dq + ((int64_t)b * Lq * H + h) * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RT; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= Lq) continue;
 #pragma unroll
     for (int cc = 0; cc < RC; ++cc)
-      st(dqb + qi * row + tx + 16 * cc, adq[i][cc] * scale);
+      if (tx + 16 * cc < D)
+        st(dqb + qi * row + tx + 16 * cc, adq[i][cc] * scale);
   }
 }
 
-template <int D, typename T>
+template <typename T>
 cudaError_t launch_preprocess(const void* o, const void* dO, void* delta,
-                              int B, int H, int Lq, cudaStream_t stream) {
+                              int B, int H, int Lq, int D,
+                              cudaStream_t stream) {
   const int64_t nrows = (int64_t)B * Lq * H;
   const unsigned blocks = (unsigned)((nrows + kPreRows - 1) / kPreRows);
-  fa_bwd_preprocess<D, T><<<blocks, kPreRows * 32, 0, stream>>>(
+  fa_bwd_preprocess<T><<<blocks, kPreRows * 32, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dO),
-      static_cast<float*>(delta), H, Lq, nrows);
+      static_cast<float*>(delta), H, Lq, D, nrows);
   return cudaGetLastError();
 }
 
-template <int D, typename T>
+template <int W>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
                         const void* dO, const void* lse, const void* delta,
                         void* dk, void* dv, int B, int H, int Lq, int Lk,
-                        float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dkdv_smem_bytes<D>();
+                        int D, float scale, int causal,
+                        cudaStream_t stream) {
+  constexpr int smem = dkdv_smem_bytes<W>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkdv<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fa_bwd_dkdv<W, float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lk + kB - 1) / kB, H, B);
-  fa_bwd_dkdv<D, T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO),
+  constexpr int R = f32_rows<W>();
+  dim3 grid((Lk + R - 1) / R, H, B);
+  fa_bwd_dkdv<W, float><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dO),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Lq, Lk, scale, causal);
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Lq, Lk, D, scale,
+      causal);
   return cudaGetLastError();
 }
 
-template <int D, typename T>
+template <int W>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dO, const void* lse, const void* delta,
-                      void* dq, int B, int H, int Lq, int Lk, float scale,
-                      int causal, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+                      void* dq, int B, int H, int Lq, int Lk, int D,
+                      float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = dq_smem_bytes<W>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dq<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fa_bwd_dq<W, float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + kB - 1) / kB, H, B);
-  fa_bwd_dq<D, T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO),
+  constexpr int R = f32_rows<W>();
+  dim3 grid((Lq + R - 1) / R, H, B);
+  fa_bwd_dq<W, float><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dO),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Lq, Lk, scale, causal);
+      static_cast<float*>(dq), H, Lq, Lk, D, scale, causal);
   return cudaGetLastError();
 }
 
@@ -486,25 +550,38 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 // bf16: tensor cores (wgmma), TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int kTcThreads = 384;   // two consumer warpgroups + a producer one
-constexpr int kProducerWarp = 8;
-constexpr int kConsumerWarps = 8;
-constexpr int kTcStages = 4;      // ring stages
-constexpr int kQRows = 128;       // dQ: query rows per block
+constexpr int kTcThreads = 384;   // dK/dV: two consumer warpgroups + a
+                                  // producer one
 
-// dK/dV: the k and v tiles, kTcStages (q, dO) tile pairs, kTcStages rows
-// of (lse log2 e, D) for 64 queries in fp32, then 1 + 2 kTcStages
-// mbarriers; 1024 bytes of slack to align the base to the swizzle atom.
-template <int D>
-constexpr int dkdv_tc_smem() {
-  return 1024 + (2 + 2 * kTcStages) * Geo<D>::TILE +
-         kTcStages * 2 * kTile * 4 + 8 * (1 + 2 * kTcStages);
+// Ring stages of dQ (k, v tile pairs); dK/dV's (q, dO) ring takes
+// ring_stages.  dQ's two q and dO tiles leave room for fewer.
+template <int W>
+__host__ __device__ constexpr int dq_tc_stages() {
+  return W <= 128 ? 4 : 2;
+}
+// dQ's consumer warpgroups, each of 64 query rows.
+template <int W>
+__host__ __device__ constexpr int dq_tc_warpgroups() {
+  return W <= 192 ? 2 : 1;
 }
 
-// dQ: q and dO (two tiles each), kTcStages (k, v) tile pairs, mbarriers.
-template <int D>
-constexpr int dq_tc_smem() {
-  return 1024 + (4 + 2 * kTcStages) * Geo<D>::TILE + 8 * (1 + 2 * kTcStages);
+// dK/dV: the k and v tiles, the stages' (q, dO) tile pairs, a row of
+// (lse log2 e, D) for 64 queries in fp32 per stage, then 1 + 2 stages
+// mbarriers; 1024 bytes of slack to align the base to the swizzle atom.
+template <int W>
+__host__ __device__ constexpr int dkdv_tc_smem() {
+  constexpr int S = ring_stages<W>();
+  return 1024 + (2 + 2 * S) * Geo<W>::TILE + S * 2 * kTile * 4 +
+         8 * (1 + 2 * S);
+}
+
+// dQ: q and dO (a tile each per warpgroup), the stages' (k, v) tile
+// pairs, mbarriers.
+template <int W>
+__host__ __device__ constexpr int dq_tc_smem() {
+  constexpr int S = dq_tc_stages<W>();
+  return 1024 + (2 * dq_tc_warpgroups<W>() + 2 * S) * Geo<W>::TILE +
+         8 * (1 + 2 * S);
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -522,6 +599,27 @@ __device__ __forceinline__ void fold(float (&acc)[NB][ON],
 #pragma unroll
     for (int r = 0; r < ON; ++r) acc[c][r] += tile[c][r];
   }
+}
+
+// run += X B (fa_hopper.cuh's issue_pv), committed: up to W = 128 summed
+// from zero into `tile` and folded into `run` once done; above, added to
+// `run` by the tensor cores.  Waits for the products and frees the stage.
+template <int W>
+__device__ __forceinline__ void add_product(
+    float (&run)[Geo<W>::NB][Geo<W>::ON],
+    float (&tile)[Geo<W>::NB][Geo<W>::ON], const float (&x)[32],
+    uint32_t sb, uint32_t empty, int lane) {
+  if constexpr (W > 128)
+    issue_pv<W>(run, x, sb, 1);
+  else
+    issue_pv<W>(tile, x, sb, 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  release(empty, lane);
+  if constexpr (W > 128)
+    settle(run);
+  else
+    fold(run, tile);
 }
 
 // In an accumulator fragment of M = 64, N = 64 this thread holds rows
@@ -577,32 +675,33 @@ __device__ __forceinline__ void probs(float (&x)[32], const float (&l2)[2],
 
 // One consumer warpgroup of fa_bwd_dkdv_tc over the block's nt query
 // tiles: dV = sum P^T dO (DK false) or dK = sum dS^T q (DK true, not yet
-// scaled), each tile's product summed from zero and added to `run`.
-template <int D, bool DK>
+// scaled), into `run` (add_product).
+template <int W, bool DK>
 __device__ __forceinline__ void dkdv_consumer(
-    float (&run)[Geo<D>::NB][Geo<D>::ON], uint32_t sk, uint32_t sv,
+    float (&run)[Geo<W>::NB][Geo<W>::ON], uint32_t sk, uint32_t sv,
     uint32_t sq0, const float* stats, uint32_t full0, uint32_t empty0,
     int nt, int t0, int k0, const int (&krow)[2], int c0, int lane,
     float c, int Lq, int off, int causal) {
-  using G = Geo<D>;
+  using G = Geo<W>;
+  constexpr int S = ring_stages<W>();
   for (int t = 0; t < nt; ++t) {
-    const int s = t % kTcStages;
+    const int s = t % S;
     const int q0 = (t0 + t) * kTile;
     const uint32_t sq = sq0 + 2 * s * G::TILE;  // the stage's q tile
     const uint32_t sdo = sq + G::TILE;          // and its dO tile
     const float* ls = stats + s * 2 * kTile;    // lse log2 e, then D
     const bool edge =
         q0 + kTile > Lq || (causal && q0 + off < k0 + kTile - 1);
-    mbar_wait(full0 + 8 * s, (t / kTcStages) & 1);
+    mbar_wait(full0 + 8 * s, (t / S) & 1);
     float sacc[32];
     zero(sacc);
-    float tacc[G::NB][G::ON];
+    [[maybe_unused]] float tacc[G::NB][G::ON];  // a tile's sum (W <= 128)
     if constexpr (DK) {
       float dp[32];
       zero(dp);
       wgmma_fence();
-      issue_qk<D>(sacc, sk, sq);  // S^T = k q^T
-      issue_qk<D>(dp, sv, sdo);   // dP^T = v dO^T
+      issue_qk<W>(sacc, sk, sq);  // S^T = k q^T
+      issue_qk<W>(dp, sv, sdo);   // dP^T = v dO^T
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sacc);
@@ -616,24 +715,20 @@ __device__ __forceinline__ void dkdv_consumer(
         for (int r = 4 * i; r < 4 * i + 4; ++r)
           dp[r] = sacc[r] * (dp[r] - ((r & 1) ? d.y : d.x));
       }
-      issue_pv<D>(tacc, dp, sq);  // dS^T q
+      add_product<W>(run, tacc, dp, sq, empty0 + 8 * s, lane);  // dS^T q
     } else {
       wgmma_fence();
-      issue_qk<D>(sacc, sk, sq);
+      issue_qk<W>(sacc, sk, sq);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sacc);
       probs_t(sacc, ls, c, q0, c0, krow, Lq, off, causal, edge);
-      issue_pv<D>(tacc, sacc, sdo);  // P^T dO
+      add_product<W>(run, tacc, sacc, sdo, empty0 + 8 * s, lane);  // P^T dO
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    release(empty0 + 8 * s, lane);
-    fold(run, tacc);
   }
 }
 
-template <int D>
+template <int W>
 __global__ void __launch_bounds__(kTcThreads, 1)
     fa_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -643,18 +738,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                    const float* __restrict__ delta,
                    __nv_bfloat16* __restrict__ dk,
                    __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk,
-                   float scale, int causal) {
-  using G = Geo<D>;
+                   int D, float scale, int causal) {
+  using G = Geo<W>;
+  constexpr int S = ring_stages<W>();
+  constexpr int kProducerWarp = 8;
+  constexpr int kConsumerWarps = 8;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t sk = (raw + 1023u) & ~1023u;
   const uint32_t sv = sk + G::TILE;
   const uint32_t sq0 = sv + G::TILE;  // stage s: q at + 2 s TILE, then dO
-  const uint32_t sstat = sq0 + 2 * kTcStages * G::TILE;
+  const uint32_t sstat = sq0 + 2 * S * G::TILE;
   float* stats = reinterpret_cast<float*>(smem_raw + (sstat - raw));
-  const uint32_t kvbar = sstat + kTcStages * 2 * kTile * 4;
+  const uint32_t kvbar = sstat + S * 2 * kTile * 4;
   const uint32_t full0 = kvbar + 8;  // stage s: + 8 s
-  const uint32_t empty0 = full0 + 8 * kTcStages;
+  const uint32_t empty0 = full0 + 8 * S;
 
   const int k0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
@@ -671,7 +769,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     mbar_init(kvbar, 1);
-    for (int s = 0; s < kTcStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       // The copies' arrival and one from each lane of the producer warp.
       mbar_init(full0 + 8 * s, 1 + 32);
       mbar_init(empty0 + 8 * s, kConsumerWarps);
@@ -692,10 +790,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         }
       }
       for (int t = 0; t < nt; ++t) {
-        const int s = t % kTcStages;
+        const int s = t % S;
         const int q0 = (t0 + t) * kTile;
-        if (t >= kTcStages)
-          mbar_wait(empty0 + 8 * s, (t / kTcStages - 1) & 1);
+        if (t >= S) mbar_wait(empty0 + 8 * s, (t / S - 1) & 1);
         const uint32_t full = full0 + 8 * s;
         const uint32_t sq = sq0 + 2 * s * G::TILE;
         if (lane == 0) {
@@ -729,10 +826,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   for (int c = 0; c < G::NB; ++c) zero(run[c]);
   mbar_wait(kvbar, 0);
   if (wg == 0)
-    dkdv_consumer<D, false>(run, sk, sv, sq0, stats, full0, empty0, nt, t0,
+    dkdv_consumer<W, false>(run, sk, sv, sq0, stats, full0, empty0, nt, t0,
                             k0, krow, c0, lane, c2, Lq, off, causal);
   else
-    dkdv_consumer<D, true>(run, sk, sv, sq0, stats, full0, empty0, nt, t0,
+    dkdv_consumer<W, true>(run, sk, sv, sq0, stats, full0, empty0, nt, t0,
                            k0, krow, c0, lane, c2, Lq, off, causal);
 
   const float mult = wg == 0 ? 1.f : scale;
@@ -746,7 +843,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int c = 0; c < G::NB; ++c)
 #pragma unroll
       for (int i = 0; i < G::ON / 4; ++i) {
-        if (c * G::CB + 8 * i >= D) break;  // a box's zero columns past D
+        if (c * G::CB + 8 * i >= D) break;  // the zero columns past D
         const int col = c * G::CB + 8 * i + c0;
         *reinterpret_cast<__nv_bfloat162*>(out + ki * row + col) =
             __floats2bfloat162_rn(run[c][4 * i + 2 * hh] * mult,
@@ -755,39 +852,44 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, 1)
+template <int W>
+__global__ void __launch_bounds__(128 * (dq_tc_warpgroups<W>() + 1), 1)
     fa_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap tdo,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk,
+                 __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk, int D,
                  float scale, int causal) {
-  using G = Geo<D>;
+  using G = Geo<W>;
+  constexpr int S = dq_tc_stages<W>();
+  constexpr int WGS = dq_tc_warpgroups<W>();
+  constexpr int kRows = kTile * WGS;           // query rows per block
+  constexpr int kProducerWarp = 4 * WGS;
+  constexpr int kConsumerWarps = 4 * WGS;
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;  // 2 tiles
-  const uint32_t sdo = sq + 2 * G::TILE;                        // 2 tiles
-  const uint32_t sk = sdo + 2 * G::TILE;                        // k ring
-  const uint32_t sv = sk + kTcStages * G::TILE;                 // v ring
-  const uint32_t qbar = sv + kTcStages * G::TILE;  // q and dO loaded
-  const uint32_t full0 = qbar + 8;                 // stage s: + 8 s
-  const uint32_t empty0 = full0 + 8 * kTcStages;
+  const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;  // WGS tiles
+  const uint32_t sdo = sq + WGS * G::TILE;                      // WGS tiles
+  const uint32_t sk = sdo + WGS * G::TILE;                      // k ring
+  const uint32_t sv = sk + S * G::TILE;                         // v ring
+  const uint32_t qbar = sv + S * G::TILE;  // q and dO loaded
+  const uint32_t full0 = qbar + 8;         // stage s: + 8 s
+  const uint32_t empty0 = full0 + 8 * S;
 
-  const int n_qt = (Lq + kQRows - 1) / kQRows;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kQRows;  // heaviest first
+  const int n_qt = (Lq + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kRows;  // heaviest first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int off = Lk - Lq;
   int nk = (Lk + kTile - 1) / kTile;
-  if (causal) nk = min(nk, (min(q0 + kQRows, Lq) - 1 + off) / kTile + 1);
+  if (causal) nk = min(nk, (min(q0 + kRows, Lq) - 1 + off) / kTile + 1);
 
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
   const int lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < kTcStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
@@ -798,8 +900,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   if (warp >= kProducerWarp) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (warp == kProducerWarp && lane == 0) {
-      mbar_expect_tx(qbar, 4 * G::TILE);
-      for (int half = 0; half < 2; ++half)
+      mbar_expect_tx(qbar, 2 * WGS * G::TILE);
+      for (int half = 0; half < WGS; ++half)
         for (int c = 0; c < G::NB; ++c) {
           tma_load(sq + half * G::TILE + c * G::BOX, &tq, qbar, c * G::CB,
                    h, q0 + half * kTile, b);
@@ -807,9 +909,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                    h, q0 + half * kTile, b);
         }
       for (int t = 0; t < nk; ++t) {
-        const int s = t % kTcStages;
-        if (t >= kTcStages)
-          mbar_wait(empty0 + 8 * s, (t / kTcStages - 1) & 1);
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty0 + 8 * s, (t / S - 1) & 1);
         const uint32_t full = full0 + 8 * s;
         mbar_expect_tx(full, 2 * G::TILE);
         for (int c = 0; c < G::NB; ++c) {
@@ -853,16 +954,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     nw = causal ? min(nk, (last + off) / kTile + 1) : nk;
   mbar_wait(qbar, 0);
   for (int t = 0; t < nw; ++t) {
-    const int s = t % kTcStages;
+    const int s = t % S;
     const int k0 = t * kTile;
     const uint32_t sks = sk + s * G::TILE;
-    mbar_wait(full0 + 8 * s, (t / kTcStages) & 1);
+    mbar_wait(full0 + 8 * s, (t / S) & 1);
     float sacc[32], dp[32];
     zero(sacc);
     zero(dp);
     wgmma_fence();
-    issue_qk<D>(sacc, sqw, sks);                   // S = q k^T
-    issue_qk<D>(dp, sdow, sv + s * G::TILE);       // dP = dO v^T
+    issue_qk<W>(sacc, sqw, sks);                   // S = q k^T
+    issue_qk<W>(dp, sdow, sv + s * G::TILE);       // dP = dO v^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sacc);
@@ -873,16 +974,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
     for (int r = 0; r < 32; ++r)
       dp[r] = sacc[r] * (dp[r] - dl[(r >> 1) & 1]);
-    float tacc[G::NB][G::ON];
-    issue_pv<D>(tacc, dp, sks);  // dS k
-    wgmma_commit();
-    wgmma_wait<0>();
-    release(empty0 + 8 * s, lane);
-    fold(run, tacc);
+    [[maybe_unused]] float tacc[G::NB][G::ON];  // a tile's sum (W <= 128)
+    add_product<W>(run, tacc, dp, sks, empty0 + 8 * s, lane);  // dS k
   }
   for (int t = nw; t < nk; ++t) {
-    mbar_wait(full0 + 8 * (t % kTcStages), (t / kTcStages) & 1);
-    release(empty0 + 8 * (t % kTcStages), lane);
+    mbar_wait(full0 + 8 * (t % S), (t / S) & 1);
+    release(empty0 + 8 * (t % S), lane);
   }
 
   const int64_t row = (int64_t)H * D;
@@ -904,108 +1001,111 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-// The four tensor maps over q, k, v and dO.
+// The four tensor maps over q, k, v and dO, with boxes of bucket W.
 struct Maps {
   CUtensorMap q, k, v, dO;
 };
 
+template <int W>
 cudaError_t make_maps(Maps* m, const void* q, const void* k, const void* v,
                       const void* dO, int B, int H, int Lq, int Lk, int D) {
   if (!aligned16(q, k, v, dO)) return cudaErrorMisalignedAddress;
-  cudaError_t err = make_map(&m->q, q, B, Lq, H, D);
-  if (err == cudaSuccess) err = make_map(&m->k, k, B, Lk, H, D);
-  if (err == cudaSuccess) err = make_map(&m->v, v, B, Lk, H, D);
-  if (err == cudaSuccess) err = make_map(&m->dO, dO, B, Lq, H, D);
+  constexpr int cb = Geo<W>::CB;
+  cudaError_t err = make_map(&m->q, q, B, Lq, H, D, cb);
+  if (err == cudaSuccess) err = make_map(&m->k, k, B, Lk, H, D, cb);
+  if (err == cudaSuccess) err = make_map(&m->v, v, B, Lk, H, D, cb);
+  if (err == cudaSuccess) err = make_map(&m->dO, dO, B, Lq, H, D, cb);
   return err;
 }
 
-template <int D>
+template <int W>
 cudaError_t launch_dkdv_tc(const void* q, const void* k, const void* v,
                            const void* dO, const void* lse,
                            const void* delta, void* dk, void* dv, int B,
-                           int H, int Lq, int Lk, float scale, int causal,
-                           cudaStream_t stream) {
+                           int H, int Lq, int Lk, int D, float scale,
+                           int causal, cudaStream_t stream) {
   Maps m;
-  cudaError_t err = make_maps(&m, q, k, v, dO, B, H, Lq, Lk, D);
+  cudaError_t err = make_maps<W>(&m, q, k, v, dO, B, H, Lq, Lk, D);
   if (err != cudaSuccess) return err;
-  constexpr int smem = dkdv_tc_smem<D>();
-  err = cudaFuncSetAttribute(fa_bwd_dkdv_tc<D>,
+  constexpr int smem = dkdv_tc_smem<W>();
+  err = cudaFuncSetAttribute(fa_bwd_dkdv_tc<W>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Lk + kTile - 1) / kTile, H, B);
-  fa_bwd_dkdv_tc<D><<<grid, kTcThreads, smem, stream>>>(
+  fa_bwd_dkdv_tc<W><<<grid, kTcThreads, smem, stream>>>(
       m.q, m.k, m.v, m.dO, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, Lq, Lk, scale, causal);
+      static_cast<__nv_bfloat16*>(dv), H, Lq, Lk, D, scale, causal);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int W>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
                          const void* dO, const void* lse, const void* delta,
-                         void* dq, int B, int H, int Lq, int Lk, float scale,
-                         int causal, cudaStream_t stream) {
+                         void* dq, int B, int H, int Lq, int Lk, int D,
+                         float scale, int causal, cudaStream_t stream) {
   Maps m;
-  cudaError_t err = make_maps(&m, q, k, v, dO, B, H, Lq, Lk, D);
+  cudaError_t err = make_maps<W>(&m, q, k, v, dO, B, H, Lq, Lk, D);
   if (err != cudaSuccess) return err;
-  constexpr int smem = dq_tc_smem<D>();
-  err = cudaFuncSetAttribute(fa_bwd_dq_tc<D>,
+  constexpr int smem = dq_tc_smem<W>();
+  err = cudaFuncSetAttribute(fa_bwd_dq_tc<W>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + kQRows - 1) / kQRows, H, B);
-  fa_bwd_dq_tc<D><<<grid, kTcThreads, smem, stream>>>(
+  constexpr int rows = kTile * dq_tc_warpgroups<W>();
+  dim3 grid((Lq + rows - 1) / rows, H, B);
+  fa_bwd_dq_tc<W><<<grid, 128 * (dq_tc_warpgroups<W>() + 1), smem,
+                    stream>>>(
       m.q, m.k, m.v, m.dO, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H,
-      Lq, Lk, scale, causal);
+      Lq, Lk, D, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// `return CALL<D, T>(...)` for head dim D in {32, 64, 80, 128} (then
-// falls through: the caller returns cudaErrorInvalidValue).
-#define FA_BWD_CASES(CALL, T, ...)                                        \
-  switch (D) {                                                            \
-    case 32: return (int)CALL<32, T>(__VA_ARGS__);                        \
-    case 64: return (int)CALL<64, T>(__VA_ARGS__);                        \
-    case 80: return (int)CALL<80, T>(__VA_ARGS__);                        \
-    case 128: return (int)CALL<128, T>(__VA_ARGS__);                      \
-  }
-// The same for the bf16 tensor-core launchers, CALL<D>(...).
-#define FA_BWD_TC_CASES(CALL, ...)                                        \
-  switch (D) {                                                            \
-    case 32: return (int)CALL<32>(__VA_ARGS__);                           \
-    case 64: return (int)CALL<64>(__VA_ARGS__);                           \
-    case 80: return (int)CALL<80>(__VA_ARGS__);                           \
-    case 128: return (int)CALL<128>(__VA_ARGS__);                         \
+// `return CALL<W>(...)` for the bucket of head dim D (then falls through
+// past 256: the caller returns cudaErrorInvalidValue).
+#define FA_BUCKETS(CALL, ...)                                              \
+  switch (fa_bucket(D)) {                                                  \
+    case 32: return (int)CALL<32>(__VA_ARGS__);                            \
+    case 64: return (int)CALL<64>(__VA_ARGS__);                            \
+    case 128: return (int)CALL<128>(__VA_ARGS__);                          \
+    case 192: return (int)CALL<192>(__VA_ARGS__);                          \
+    case 256: return (int)CALL<256>(__VA_ARGS__);                          \
   }
 
-// Dynamic shared memory (bytes) of fa_bwd_dkdv_tc (which = 0) or
-// fa_bwd_dq_tc (which = 1) at head dim D; -1 for anything else.
-extern "C" int fa_bwd_tc_smem_bytes(int which, int D) {
-  switch (D) {
-    case 32: return which == 0 ? dkdv_tc_smem<32>() : dq_tc_smem<32>();
-    case 64: return which == 0 ? dkdv_tc_smem<64>() : dq_tc_smem<64>();
-    case 80: return which == 0 ? dkdv_tc_smem<80>() : dq_tc_smem<80>();
-    case 128: return which == 0 ? dkdv_tc_smem<128>() : dq_tc_smem<128>();
+// Dynamic shared memory (bytes) at bucket W of fa_bwd_dkdv_tc (which = 0),
+// fa_bwd_dq_tc (1), fa_bwd_dkdv (2) or fa_bwd_dq (3); -1 for anything else.
+extern "C" int fa_bwd_smem_bytes(int which, int W) {
+  switch (W) {
+#define FA_BWD_SMEM(V)                               \
+  case V:                                            \
+    return which == 0   ? dkdv_tc_smem<V>()          \
+           : which == 1 ? dq_tc_smem<V>()            \
+           : which == 2 ? dkdv_smem_bytes<V>()       \
+           : which == 3 ? dq_smem_bytes<V>()         \
+                        : -1;
+    FA_BWD_SMEM(32) FA_BWD_SMEM(64) FA_BWD_SMEM(128) FA_BWD_SMEM(192)
+    FA_BWD_SMEM(256)
+#undef FA_BWD_SMEM
   }
   return -1;
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  o and dO [B, Lq, H, D] in the dtype
-// → delta fp32 [B, H, Lq].
+// → delta fp32 [B, H, Lq]; any D from 1 to 256.
 extern "C" int fa_bwd_preprocess_launch(const void* o, const void* dO,
                                         void* delta, int dtype, int B, int H,
                                         int Lq, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    FA_BWD_CASES(launch_preprocess, float, o, dO, delta, B, H, Lq, s);
-  } else if (dtype == 1) {
-    FA_BWD_CASES(launch_preprocess, __nv_bfloat16, o, dO, delta, B, H, Lq,
-                 s);
-  }
+  if (fa_bucket(D) == 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch_preprocess<float>(o, dO, delta, B, H, Lq, D, s);
+  if (dtype == 1)
+    return (int)launch_preprocess<__nv_bfloat16>(o, dO, delta, B, H, Lq, D,
+                                                 s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1020,11 +1120,11 @@ extern "C" int fa_bwd_dkdv_launch(const void* q, const void* k,
                                   int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    FA_BWD_CASES(launch_dkdv, float, q, k, v, dO, lse, delta, dk, dv, B, H,
-                 Lq, Lk, scale, causal, s);
+    FA_BUCKETS(launch_dkdv, q, k, v, dO, lse, delta, dk, dv, B, H, Lq, Lk,
+               D, scale, causal, s);
   } else if (dtype == 1) {
-    FA_BWD_TC_CASES(launch_dkdv_tc, q, k, v, dO, lse, delta, dk, dv, B, H,
-                    Lq, Lk, scale, causal, s);
+    FA_BUCKETS(launch_dkdv_tc, q, k, v, dO, lse, delta, dk, dv, B, H, Lq,
+               Lk, D, scale, causal, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1038,11 +1138,11 @@ extern "C" int fa_bwd_dq_launch(const void* q, const void* k, const void* v,
                                 int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    FA_BWD_CASES(launch_dq, float, q, k, v, dO, lse, delta, dq, B, H, Lq,
-                 Lk, scale, causal, s);
+    FA_BUCKETS(launch_dq, q, k, v, dO, lse, delta, dq, B, H, Lq, Lk, D,
+               scale, causal, s);
   } else if (dtype == 1) {
-    FA_BWD_TC_CASES(launch_dq_tc, q, k, v, dO, lse, delta, dq, B, H, Lq, Lk,
-                    scale, causal, s);
+    FA_BUCKETS(launch_dq_tc, q, k, v, dO, lse, delta, dq, B, H, Lq, Lk, D,
+               scale, causal, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -19,10 +19,22 @@ The dtype picks the kernels: bf16 (the models' dtype) goes to the tensor
 cores (wgmma, tiles through a TMA ring, p and dS split into three bf16
 terms so that the products stay exact); fp32 (the reference sweep's
 dtype, held to 2e-5 forward and 1e-4·max backward, which needs fp32
-products) to the CUDA cores.  Head dims: ``HEAD_DIMS``; at D = 80 the
-bf16 kernels lay their tiles out as at D = 128, the columns past 80
-zero-filled by the tensor-map copies, and write only the first 80
-output columns.
+products) to the CUDA cores.
+
+Head dims: every D from 1 to ``MAX_HEAD_DIM`` = 256, the bound the
+reference's kernel docstring writes its VMEM budget for; a larger D is
+refused.  Each kernel is built for the column buckets ``BUCKETS`` and
+takes the true D at run time (:func:`bucket`): the tiles are W columns
+wide, the columns past D zero (the tensor-map copies fill them for bf16,
+masked loads for fp32), and only the first D output columns are written.
+A bf16 tensor map needs rows of whole 16-byte units, so where a bf16 D is
+not a multiple of 8 the wrappers zero-pad q, k, v and dO to the next one
+(:func:`padded_dim`) and slice the outputs back; zero columns add exact
+zeros to q·kᵀ and give zero output columns, and the scale stays 1/√D of
+the true D.  The padding is part of the wrapper's one launch.  The
+functions ``*_smem`` mirror the sources' shared-memory formulas per
+bucket (the ring depth and, in the backward, the rows a block takes
+follow the bucket), each under ``SMEM_LIMIT``.
 
 * Forward (:func:`flash_attention_cuda`): ``fa_kernel_tc`` or
   ``fa_kernel_f32``; with ``lse`` given, either writes each row's
@@ -44,7 +56,9 @@ import torch
 
 from ..build import CudaLibrary, check_launch
 
-HEAD_DIMS = (32, 64, 80, 128)
+MAX_HEAD_DIM = 256
+BUCKETS = (32, 64, 128, 192, 256)
+SMEM_LIMIT = 232_448   # dynamic shared memory a block may use on Hopper
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535
 
@@ -53,18 +67,20 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.fa_launch
-    fn.argtypes = [P] * 5 + [I] * 6 + [F, I, P]
-    fn.restype = ctypes.c_int
+    lib.fa_launch.argtypes = [P] * 5 + [I] * 6 + [F, I, P]
+    lib.fa_head_bucket.argtypes = [I]
+    lib.fa_smem_bytes.argtypes = [I, I]
+    for fn in (lib.fa_launch, lib.fa_head_bucket, lib.fa_smem_bytes):
+        fn.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.fa_bwd_preprocess_launch.argtypes = [P] * 3 + [I] * 5 + [P]
     lib.fa_bwd_dkdv_launch.argtypes = [P] * 8 + [I] * 6 + [F, I, P]
     lib.fa_bwd_dq_launch.argtypes = [P] * 7 + [I] * 6 + [F, I, P]
-    lib.fa_bwd_tc_smem_bytes.argtypes = [I, I]
+    lib.fa_bwd_smem_bytes.argtypes = [I, I]
     for fn in (lib.fa_bwd_preprocess_launch, lib.fa_bwd_dkdv_launch,
-               lib.fa_bwd_dq_launch, lib.fa_bwd_tc_smem_bytes):
+               lib.fa_bwd_dq_launch, lib.fa_bwd_smem_bytes):
         fn.restype = ctypes.c_int
 
 
@@ -80,6 +96,102 @@ LIB_BWD = CudaLibrary("flash_attention_bwd", CSRC / "flash_attention_bwd.cu",
 BWD_KERNELS = ("fa_bwd_preprocess", "fa_bwd_dkdv", "fa_bwd_dq",
                "fa_bwd_dkdv_tc", "fa_bwd_dq_tc")
 BWD_KERNEL_LAUNCHES = dict.fromkeys(BWD_KERNELS, 0)
+
+
+def bucket(D: int) -> int:
+    """The column bucket the kernels take head dim D in (``fa_bucket`` in
+    ``csrc/fa_hopper.cuh``); raises outside 1 <= D <= 256."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} is outside 1..{MAX_HEAD_DIM}, the "
+                         f"head dims the kernels take")
+    return next(w for w in BUCKETS if D <= w)
+
+
+def padded_dim(D: int, dtype: torch.dtype) -> int:
+    """The head dim the kernels are launched at: bf16 D rounded up to a
+    multiple of 8 (a tensor map's rows are whole 16-byte units), fp32 D
+    itself.  Never past D's bucket."""
+    bucket(D)
+    return -(-D // 8) * 8 if dtype == torch.bfloat16 else D
+
+
+# Shared memory (bytes) of each kernel at bucket W, mirroring the
+# sources' formulas: 64-row tiles of W bf16 columns in boxes of at most 64
+# (``Geo`` in csrc/fa_hopper.cuh); 1024 bytes of slack align the
+# tensor-core kernels' base, each mbarrier takes 8.
+
+def tile_bytes(W: int) -> int:
+    """A 64-row bf16 tile of bucket W (``Geo<W>::TILE``)."""
+    cb = min(W, 64)
+    return -(-W // cb) * 64 * cb * 2
+
+
+def ring_stages(W: int) -> int:
+    """Ring stages of ``fa_kernel_tc`` (k, v) and ``fa_bwd_dkdv_tc``
+    (q, dO) (``ring_stages`` in csrc/fa_hopper.cuh)."""
+    return 4 if W <= 128 else 3 if W <= 192 else 2
+
+
+def dq_tc_stages(W: int) -> int:
+    """(k, v) ring stages of ``fa_bwd_dq_tc``."""
+    return 4 if W <= 128 else 2
+
+
+def dq_tc_warpgroups(W: int) -> int:
+    """Consumer warpgroups (64 query rows each) of a ``fa_bwd_dq_tc``
+    block: one at W = 256, where two q and dO tiles do not fit."""
+    return 2 if W <= 192 else 1
+
+
+def f32_bwd_rows(W: int) -> int:
+    """Rows of a tile of ``fa_bwd_dkdv`` and ``fa_bwd_dq``."""
+    return 64 if W <= 128 else 32
+
+
+def fwd_tc_smem(W: int) -> int:
+    """``fa_kernel_tc``: two q tiles, the k and v rings, mbarriers."""
+    s = ring_stages(W)
+    return 1024 + (2 + 2 * s) * tile_bytes(W) + 8 * (1 + 2 * s)
+
+
+def fwd_f32_smem(W: int) -> int:
+    """``fa_kernel_f32``: fp32 q, k (rows padded by a word), v and p."""
+    return 4 * (64 * (W + 1) * 2 + 64 * W + 64 * 65)
+
+
+def dkdv_tc_smem(W: int) -> int:
+    """``fa_bwd_dkdv_tc``: k, v, the (q, dO) ring, each stage's lse and D
+    rows for 64 queries in fp32, mbarriers."""
+    s = ring_stages(W)
+    return (1024 + (2 + 2 * s) * tile_bytes(W) + s * 2 * 64 * 4
+            + 8 * (1 + 2 * s))
+
+
+def dq_tc_smem(W: int) -> int:
+    """``fa_bwd_dq_tc``: q and dO per warpgroup, the (k, v) ring,
+    mbarriers."""
+    s = dq_tc_stages(W)
+    return (1024 + (2 * dq_tc_warpgroups(W) + 2 * s) * tile_bytes(W)
+            + 8 * (1 + 2 * s))
+
+
+def dkdv_f32_smem(W: int) -> int:
+    """``fa_bwd_dkdv``: k, v, q, dO tiles, Pᵀ and dSᵀ, lse and D."""
+    r = f32_bwd_rows(W)
+    return 4 * (4 * r * (W + 1) + 2 * r * (r + 1) + 2 * r)
+
+
+def dq_f32_smem(W: int) -> int:
+    """``fa_bwd_dq``: q, dO, k, v tiles, dS, lse and D."""
+    r = f32_bwd_rows(W)
+    return 4 * (4 * r * (W + 1) + r * (r + 1) + 2 * r)
+
+
+# Each kernel's mirror, keyed by kernel name, with the index its
+# library's ``fa_smem_bytes`` / ``fa_bwd_smem_bytes`` takes for it.
+SMEM = {"fa_kernel_tc": (fwd_tc_smem, 0), "fa_kernel_f32": (fwd_f32_smem, 1),
+        "fa_bwd_dkdv_tc": (dkdv_tc_smem, 0), "fa_bwd_dq_tc": (dq_tc_smem, 1),
+        "fa_bwd_dkdv": (dkdv_f32_smem, 2), "fa_bwd_dq": (dq_f32_smem, 3)}
 
 
 def bwd_kernel(step: str, dtype: torch.dtype) -> str:
@@ -106,8 +218,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must match q's device and dtype")
     if q.dtype not in DTYPES:
         raise ValueError(f"unsupported dtype {q.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    bucket(D)
     if causal and Lk < Lq:
         raise ValueError("causal attention needs Lk >= Lq: a query row "
                          "would see no key")
@@ -126,6 +237,21 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _padded(*tensors: torch.Tensor) -> tuple:
+    """The tensors zero-padded along D to ``padded_dim`` (new, contiguous
+    and aligned), or as they are when no padding is needed."""
+    D = tensors[0].shape[-1]
+    pad = padded_dim(D, tensors[0].dtype) - D
+    if not pad:
+        return tensors
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in tensors)
+
+
+def _cut(t: torch.Tensor, D: int) -> torch.Tensor:
+    """A padded output's first D columns, contiguous."""
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, lse: bool = False):
     """Launch the kernel on [B, L, H, D] CUDA tensors on the current
@@ -135,15 +261,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (output, log-sum-exp fp32 [B, H, Lq])."""
     _check(q, k, v, causal, "flash_attention_cuda")
     B, Lq, H, D = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    q, k, v = _padded(q.contiguous(), k.contiguous(), v.contiguous())
+    out = torch.empty_like(q)
     stats = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
              if lse else None)
     err = LIB.load().fa_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         stats.data_ptr() if lse else None, DTYPES[q.dtype], B, H, Lq,
-        k.shape[1], D, 1.0 / math.sqrt(D), int(causal), _stream(q))
+        k.shape[1], q.shape[-1], 1.0 / math.sqrt(D), int(causal),
+        _stream(q))
     check_launch(err, "flash attention")
+    out = _cut(out, D)
     return (out, stats) if lse else out
 
 
@@ -169,9 +297,9 @@ def bwd_preprocess_cuda(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
             or do.dtype != o.dtype or do.device != o.device:
         raise ValueError("o and do must be CUDA tensors of one shape and "
                          "dtype")
-    if o.dtype not in DTYPES or o.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"unsupported dtype {o.dtype} or head dim "
-                         f"{o.shape[-1]}")
+    if o.dtype not in DTYPES:
+        raise ValueError(f"unsupported dtype {o.dtype}")
+    bucket(o.shape[-1])
     B, Lq, H, D = o.shape
     o, do = o.contiguous(), do.contiguous()
     delta = torch.empty((B, H, Lq), dtype=torch.float32, device=o.device)
@@ -189,17 +317,17 @@ def bwd_dkdv_cuda(q, k, v, do, lse, delta, causal: bool = True):
     _check(q, k, v, causal, "bwd_dkdv_cuda")
     _check_grad_inputs(q, do, stats=(lse, delta))
     B, Lq, H, D = q.shape
-    q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+    q, k, v, do = _padded(*(_tma_ready(t) for t in (q, k, v, do)))
     lse, delta = lse.contiguous(), delta.contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = LIB_BWD.load().fa_bwd_dkdv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype], B, H, Lq, k.shape[1],
-        D, 1.0 / math.sqrt(D), int(causal), _stream(q))
+        q.shape[-1], 1.0 / math.sqrt(D), int(causal), _stream(q))
     check_launch(err, "flash attention backward (dK, dV)")
     BWD_KERNEL_LAUNCHES[bwd_kernel("dkdv", q.dtype)] += 1
-    return dk, dv
+    return _cut(dk, D), _cut(dv, D)
 
 
 def bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True):
@@ -208,17 +336,17 @@ def bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True):
     _check(q, k, v, causal, "bwd_dq_cuda")
     _check_grad_inputs(q, do, stats=(lse, delta))
     B, Lq, H, D = q.shape
-    q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+    q, k, v, do = _padded(*(_tma_ready(t) for t in (q, k, v, do)))
     lse, delta = lse.contiguous(), delta.contiguous()
     dq = torch.empty_like(q)
     err = LIB_BWD.load().fa_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), DTYPES[q.dtype], B, H, Lq, k.shape[1], D,
+        dq.data_ptr(), DTYPES[q.dtype], B, H, Lq, k.shape[1], q.shape[-1],
         1.0 / math.sqrt(D), int(causal), _stream(q))
     check_launch(err, "flash attention backward (dQ)")
     BWD_KERNEL_LAUNCHES[bwd_kernel("dq", q.dtype)] += 1
-    return dq
+    return _cut(dq, D)
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,

@@ -19,7 +19,12 @@ The bf16 kernel runs both products on the tensor cores with p split into
 three bf16 terms; ``emulate_tensor_core_kernel`` repeats that arithmetic
 on the CPU, so the split is held to the card's element bar here too.
 The bf16 backward kernels do the same with P and dS
-(``emulate_tensor_core_bwd``).
+(``emulate_tensor_core_bwd``); both emulations also take the order the
+kernels use above a column bucket of 128 (``carry``).
+
+Head dims: the plain forward and backward against the reference across
+1 <= D <= 256 (``HEAD_DIMS``), the kernels' buckets and bf16 padding,
+and the Python mirrors of the kernels' shared memory.
 """
 import functools
 import math
@@ -102,6 +107,103 @@ def test_plain_matches_reference_lk_ne_lq(Lq, Lk, causal):
         np.testing.assert_allclose(as_np(got), as_np(ref), atol=2e-5)
 
 
+# Head dims across the kernels' domain (1 <= D <= 256): below, inside and
+# at the top of each column bucket, multiples of 8 and not (100, 200 are
+# padded to 104, 200 in bf16 on the card), with Lk != Lq (a cached
+# prefix under causal).
+HEAD_DIMS = (8, 24, 48, 96, 100, 112, 160, 192, 200, 256)
+DOMAIN = [(D, causal, dtype) for D in HEAD_DIMS for causal in (True, False)
+          for dtype in DT]
+
+
+@pytest.mark.parametrize("D,causal,dtype", DOMAIN)
+def test_plain_matches_reference_at_every_head_dim(D, causal, dtype):
+    js, ts = both(make(D, 1, 40, 72, 2, D), dtype)
+    got = ops.flash_attention(*ts, causal=causal)
+    assert got.dtype == ts[0].dtype and got.shape == ts[0].shape
+    tol = DT[dtype][2]
+    for ref in (j_fa(*js, causal=causal, interpret=True),
+                j_ref(*js, causal=causal)):
+        np.testing.assert_allclose(as_np(got), as_np(ref), atol=tol)
+
+
+@pytest.mark.parametrize("D,causal,dtype", DOMAIN)
+def test_plain_backward_matches_reference_vjp_at_every_head_dim(D, causal,
+                                                                dtype):
+    """The port's plain backward (``attention_bwd_ref`` from the plain
+    forward's output and log-sum-exp) against ``jax.vjp`` of the
+    reference's jnp attention on the same inputs, at the forward's
+    tolerances."""
+    import jax
+    jdt, tdt, tol = DT[dtype]
+    arrs = make(D + 1, 1, 40, 72, 2, D)
+    do = np.random.default_rng(D).normal(size=(1, 40, 2, D)) \
+        .astype(np.float32)
+    q, k, v, dot = (torch.from_numpy(a).to(tdt) for a in arrs + [do])
+    o = attention_ref(q, k, v, causal)
+    lse = ref_mod.attention_lse_ref(q, k, causal)
+    got = ref_mod.attention_bwd_ref(q, k, v, o, dot, lse, causal)
+    _, vjp = jax.vjp(lambda a, b, c: j_ref(a, b, c, causal=causal),
+                     *(jnp.asarray(a, jdt) for a in arrs))
+    want = vjp(jnp.asarray(do, jdt))
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == tdt and g.shape == w.shape, name
+        np.testing.assert_allclose(as_np(g), as_np(w), atol=tol,
+                                   err_msg=name)
+
+
+def test_buckets_cover_every_head_dim():
+    """Every D from 1 to 256 lands in the smallest bucket that holds it,
+    at a launch width (bf16: the next multiple of 8) inside that bucket;
+    D = 0 and D = 257 are refused with the limit named."""
+    from repro_torch.kernels.flash_attention import kernel
+    for D in range(1, kernel.MAX_HEAD_DIM + 1):
+        w = kernel.bucket(D)
+        assert w in kernel.BUCKETS and D <= w
+        assert all(b < D for b in kernel.BUCKETS if b < w)
+        padded = kernel.padded_dim(D, torch.bfloat16)
+        assert padded % 8 == 0 and D <= padded < D + 8 and padded <= w
+        assert kernel.padded_dim(D, torch.float32) == D
+    for D in (0, kernel.MAX_HEAD_DIM + 1):
+        with pytest.raises(ValueError, match="outside 1..256"):
+            kernel.bucket(D)
+        with pytest.raises(ValueError, match="outside 1..256"):
+            kernel.padded_dim(D, torch.bfloat16)
+
+
+def test_padding_round_trip():
+    """The wrappers' zero-padding along D and the cut back: a bf16 D that
+    is not a multiple of 8 is padded with zero columns to the next one
+    (new contiguous tensors) and a padded output cut back to its first D
+    columns, contiguous; fp32 and bf16 multiples of 8 pass untouched."""
+    from repro_torch.kernels.flash_attention import kernel
+    _, ts = both(make(3, 1, 20, 30, 2, 100), "bfloat16")
+    padded = kernel._padded(*ts)
+    assert all(p.shape[-1] == 104 and p.is_contiguous() for p in padded)
+    assert all(torch.equal(p[..., :100], t) and not p[..., 100:].any()
+               for p, t in zip(padded, ts))
+    cut = kernel._cut(padded[0], 100)
+    assert cut.is_contiguous() and torch.equal(cut, ts[0])
+    assert kernel._cut(ts[0], 100) is ts[0]
+    fp32 = [t.float() for t in ts]
+    assert all(a is b for a, b in zip(kernel._padded(*fp32), fp32))
+    _, even = both(make(3, 1, 20, 30, 2, 96), "bfloat16")
+    assert all(a is b for a, b in zip(kernel._padded(*even), even))
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 192, 256])
+@pytest.mark.parametrize("name", ["fa_kernel_tc", "fa_kernel_f32",
+                                  "fa_bwd_dkdv_tc", "fa_bwd_dq_tc",
+                                  "fa_bwd_dkdv", "fa_bwd_dq"])
+def test_shared_memory_fits_at_every_bucket(name, W):
+    """The Python mirrors of the sources' shared-memory formulas (checked
+    against the libraries' own on the card by chip_smoke.py) stay under
+    the 232,448 bytes a Hopper block may use at every bucket."""
+    from repro_torch.kernels.flash_attention import kernel
+    smem, _ = kernel.SMEM[name]
+    assert 0 < smem(W) <= kernel.SMEM_LIMIT == 232_448
+
+
 @pytest.mark.parametrize("max_logits", [1, 777, 200 * 200 * 6])
 def test_row_blocking_changes_nothing(max_logits):
     """The plain version's query-row blocks (which keep the 32k prompt's
@@ -156,7 +258,8 @@ def fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def emulate_tensor_core_kernel(q, k, v, causal=True, terms=3, scale=None):
+def emulate_tensor_core_kernel(q, k, v, causal=True, terms=3, scale=None,
+                               carry=False):
     """The bf16 CUDA kernel's arithmetic in torch, on the CPU.
 
     Per key tile of 64: raw logits S from bf16 q·kᵀ summed in fp32,
@@ -164,7 +267,10 @@ def emulate_tensor_core_kernel(q, k, v, causal=True, terms=3, scale=None):
     max m of S, mL = m·c, p = exp2(fma(S, c, −mL)) and O's rescale factor
     alpha = exp2(mL_old − mL_new); the tile's T = p1·V + p2·V + p3·V with
     p split into bf16 terms and V in bf16, summed in fp32 from zero; then
-    O = fma(O, alpha, T); finally O / l in q's dtype.  This model uses an
+    O = fma(O, alpha, T); finally O / l in q's dtype.  With ``carry`` (the
+    kernel's order at column buckets above 128) O = O·alpha first and each
+    k16 step's product of each term is added to O itself, in the kernel's
+    order (``carry_sum``).  This model uses an
     exact exp2 and sums rounded to nearest; the card's ``ex2.approx.ftz``
     and the tensor cores' accumulation are covered only by the
     ``cuda``-marked tests and chip_smoke.py's phase 6.
@@ -195,10 +301,10 @@ def emulate_tensor_core_kernel(q, k, v, causal=True, terms=3, scale=None):
         parts, rest = split_bf16(p, terms)
         residual = max(residual, float(rest.abs().max()))
         vt = vf[:, :, k0:k0 + KEY_TILE]
-        t = parts[0].float() @ vt
-        for part in parts[1:]:
-            t = t + part.float() @ vt
-        o = fma(o, alpha, t)
+        if carry:
+            o = carry_sum(o * alpha, [t.float() for t in parts], vt)
+        else:
+            o = fma(o, alpha, tile_sum([t.float() for t in parts], vt))
         mL = mL_new
     return (o / l).permute(0, 2, 1, 3).to(q.dtype), residual
 
@@ -233,6 +339,42 @@ def test_three_term_split_meets_the_bf16_element_bar_at_head_dim_80(causal):
     assert element_ratio(got[..., :80], want) <= 1.0
 
 
+@pytest.mark.parametrize("L", [256, 2048])
+@pytest.mark.parametrize("D", [192, 256])
+def test_carried_accumulator_meets_the_bf16_element_bar(D, L):
+    """At the buckets above 128 the kernel rescales O and lets each k16
+    step's product of the three terms accumulate into it (no tile sum
+    fits the registers beside O): that order stays within one bf16 step
+    of the plain version at every element."""
+    _, ts = both(make(L + D, 1, L, L, 1, D), "bfloat16")
+    got, residual = emulate_tensor_core_kernel(*ts, causal=True, carry=True)
+    want = attention_ref(*ts, causal=True)
+    assert residual == 0.0
+    assert element_ratio(got, want) <= 1.0
+
+
+# A head dim below its bucket, padded as the kernels see it: bf16 24 in
+# bucket 32; 96 (Phi-3-mini's) in 128 with the tile sums; 200 in 256,
+# carried.
+PADDED = [(24, 32, False), (96, 128, False), (200, 256, True)]
+
+
+@pytest.mark.parametrize("D,W,carry", PADDED)
+def test_padded_head_dims_meet_the_bf16_element_bar(D, W, carry):
+    """Tiles of the bucket's W columns, zero past D (scale 1/√D): the
+    first D output columns within the element bar of the plain version
+    at D, zeros after them."""
+    _, ts = both(make(D, 1, 256, 256, 2, D), "bfloat16")
+    padded = [torch.nn.functional.pad(t, (0, W - D)) for t in ts]
+    for causal in (True, False):
+        got, residual = emulate_tensor_core_kernel(
+            *padded, causal=causal, scale=1.0 / math.sqrt(D), carry=carry)
+        assert residual == 0.0
+        assert not got[..., D:].any()
+        assert element_ratio(got[..., :D],
+                             attention_ref(*ts, causal=causal)) <= 1.0
+
+
 def test_one_bf16_term_misses_the_element_bar():
     """Why the split: p rounded once to bf16 (the usual tensor-core flash
     attention) breaks the element bar by orders of magnitude."""
@@ -243,7 +385,7 @@ def test_one_bf16_term_misses_the_element_bar():
 
 
 def emulate_tensor_core_bwd(q, k, v, do, lse, delta, causal=True, terms=3,
-                            scale=None):
+                            scale=None, carry=False):
     """The bf16 backward kernels' arithmetic (``fa_bwd_dkdv_tc``,
     ``fa_bwd_dq_tc``) in torch, on the CPU.
 
@@ -254,7 +396,10 @@ def emulate_tensor_core_bwd(q, k, v, do, lse, delta, causal=True, terms=3,
     dK = Σ dSᵀ-terms·q and dQ = Σ dS-terms·k is summed in fp32 from
     zero and added to an fp32 running sum (dK/dV over the query tiles in
     order, dQ over the key tiles in order), as the kernels fold each
-    tile; dK and dQ are scaled once at the end and all three rounded to
+    tile; with ``carry`` (the kernels' order at column buckets above 128)
+    each k16 step's product of each term is added to the running sum
+    itself (``carry_sum``).  dK and dQ are scaled once at the end and all
+    three rounded to
     q's dtype.  Tiles wholly above the causal diagonal are skipped, as
     the kernels skip them.  This model uses an exact exp2 and sums
     rounded to nearest; the card's ``ex2.approx.ftz`` and the tensor
@@ -295,11 +440,16 @@ def emulate_tensor_core_bwd(q, k, v, do, lse, delta, causal=True, terms=3,
                 p = torch.where(qi >= ki, p, torch.zeros(()))
             ds = p * (dp - dl[:, :, q0:q0 + KEY_TILE])
             p_t, ds_t = terms_of(p), terms_of(ds)
-            dv[:, :, k0:k0 + KEY_TILE] += tile_sum(
-                [t.transpose(-1, -2) for t in p_t], dos)
-            dk[:, :, k0:k0 + KEY_TILE] += tile_sum(
-                [t.transpose(-1, -2) for t in ds_t], qs)
-            dq[:, :, q0:q0 + KEY_TILE] += tile_sum(ds_t, ks)
+            for acc, rows, a_terms, b in (
+                    (dv, slice(k0, k0 + KEY_TILE),
+                     [t.transpose(-1, -2) for t in p_t], dos),
+                    (dk, slice(k0, k0 + KEY_TILE),
+                     [t.transpose(-1, -2) for t in ds_t], qs),
+                    (dq, slice(q0, q0 + KEY_TILE), ds_t, ks)):
+                if carry:
+                    acc[:, :, rows] = carry_sum(acc[:, :, rows], a_terms, b)
+                else:
+                    acc[:, :, rows] += tile_sum(a_terms, b)
     sc = f32(scale)
     return tuple((g * m).permute(0, 2, 1, 3).to(q.dtype)
                  for g, m in ((dq, sc), (dk, sc), (dv, 1.0))), residual
@@ -311,6 +461,16 @@ def tile_sum(a_terms, b):
     for a in a_terms[1:]:
         t = t + a @ b
     return t
+
+
+def carry_sum(acc, a_terms, b, step=16):
+    """acc + Σ a·b with each k16 step's product of each term added to acc
+    in turn (steps outer, terms inner), as wgmma accumulates into a
+    carried accumulator; fp32 sums."""
+    for j in range(0, b.shape[-2], step):
+        for a in a_terms:
+            acc = acc + a[..., j:j + step] @ b[..., j:j + step, :]
+    return acc
 
 
 # (B, Lq, Lk, H, D, causal, dtype): the reference sweep, a cached-prefix
@@ -331,7 +491,14 @@ CUDA_SHAPES = [s[:2] + (s[1],) + s[2:] for s in SWEEP] + [
     (2, 200, 200, 3, 80, True, "bfloat16"),
     (2, 200, 200, 3, 80, False, "bfloat16"),
     (1, 2048, 2048, 4, 80, False, "bfloat16"),
-    (2, 16, 200, 2, 80, True, "bfloat16")]
+    (2, 16, 200, 2, 80, True, "bfloat16")] + [
+    # Every bucket, inside and at its top, padded or not, both dtypes,
+    # causal over a cached prefix and non-causal with Lq > Lk.
+    (B, Lq, Lk, 2, D, causal, dtype) for D in HEAD_DIMS
+    for B, Lq, Lk, causal in ((1, 130, 200, True), (2, 100, 70, False))
+    for dtype in DT] + [
+    (4, 2048, 2048, 4, 96, True, "bfloat16"),
+    (1, 2048, 2048, 4, 256, True, "bfloat16")]
 
 
 @pytest.mark.cuda
@@ -548,7 +715,12 @@ CUDA_BWD_SHAPES = [s + (dt,) for s in BWD_SHAPES
     (2, 100, 300, 2, 128, True, "bfloat16"),
     (1, 70, 333, 2, 80, True, "bfloat16"),
     (2, 190, 250, 2, 64, True, "bfloat16"),
-    (1, 33, 100, 4, 32, True, "bfloat16")]
+    (1, 33, 100, 4, 32, True, "bfloat16")] + [
+    (B, Lq, Lk, 2, D, causal, dtype) for D in HEAD_DIMS
+    for B, Lq, Lk, causal in ((1, 130, 200, True), (2, 100, 70, False))
+    for dtype in ("float32", "bfloat16")] + [
+    (1, 2048, 2048, 4, 96, True, "bfloat16"),
+    (1, 2048, 2048, 4, 256, True, "bfloat16")]
 
 
 def bwd_within_bar(got, want, dtype):
@@ -609,6 +781,37 @@ def test_backward_three_term_split_meets_the_bf16_element_bar_at_head_dim_80(
         assert bwd_bf16_ratio(g[..., :80], w) <= 1.0, name
 
 
+@pytest.mark.parametrize("L", [256, 2048])
+@pytest.mark.parametrize("D", [192, 256])
+def test_backward_carried_accumulator_meets_the_bf16_element_bar(D, L):
+    """At the buckets above 128 the bf16 backward kernels add each k16
+    step's product of the three terms of Pᵀ or dS to the running dV, dK
+    or dQ itself: dq, dk and dv stay within the element bar."""
+    args, want = bf16_bwd_case(L, 1, D, True, seed=L + D)
+    got, residual = emulate_tensor_core_bwd(*args, causal=True, carry=True)
+    assert residual == 0.0
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert bwd_bf16_ratio(g, w) <= 1.0, name
+
+
+@pytest.mark.parametrize("D,W,carry", PADDED)
+def test_backward_padded_head_dims_meet_the_bf16_element_bar(D, W, carry):
+    """The backward on tiles of W columns, zero past D (scale 1/√D): zeros
+    past column D and, before it, dq, dk and dv within the element bar of
+    the plain version at D."""
+    for causal in (True, False):
+        args, want = bf16_bwd_case(256, 2, D, causal, seed=D)
+        padded = [torch.nn.functional.pad(t, (0, W - D)) for t in args[:4]]
+        got, residual = emulate_tensor_core_bwd(
+            *padded, *args[4:], causal=causal, scale=1.0 / math.sqrt(D),
+            carry=carry)
+        assert residual == 0.0
+        for name, g, w in zip("qkv", got, want):
+            assert not g[..., D:].any(), name
+            assert bwd_bf16_ratio(g[..., :D], w) <= 1.0, name
+
+
 def test_backward_one_bf16_term_misses_the_element_bar():
     """Why the split: P and dS rounded once to bf16 (the usual
     tensor-core backward) break the element bar."""
@@ -658,7 +861,9 @@ AUTOGRAD_BF16_REL = 2e-2
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,H,D", [(2, 200, 3, 64), (1, 130, 2, 128),
-                                     (1, 100, 2, 80), (2, 96, 2, 32)])
+                                     (1, 100, 2, 80), (2, 96, 2, 32),
+                                     (1, 100, 2, 96), (1, 100, 2, 100),
+                                     (1, 130, 2, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_autograd_function_matches_plain_autograd(causal, dtype, B, L,
