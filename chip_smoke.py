@@ -65,8 +65,10 @@ Phases (each raises on failure, so the script exits non-zero):
    ``ssd_carry_bwd`` and ``ssd_chunk_bwd``; and the whole backward of
    the op ``repro_torch::ssd_fwd``) against ``ssd_carry_bwd_ref``,
    ``ssd_chunk_bwd_ref`` and ``ssd_bwd_ref`` at the reference sweep's
-   shapes whose chunk the kernels take (Q <= 64), at phase 11's
-   training shapes [2, 4096, 48, 64, 128, 64] (mamba2-780m) and
+   shapes (chunks of 16 to 128 rows), at ``SSD_CHUNKS`` (mamba2-780m's
+   heads at 2 x 4096 in chunks of 128 and 256, and a 50-row chunk; the
+   forward's chunk and carry kernels and the whole ``ssd()`` held there
+   too, each timed), at phase 11's training shapes [2, 4096, 48, 64, 128, 64] (mamba2-780m) and
    [2, 4096, 64, 64, 64, 64] (zamba2-1.2b), bf16 and fp32, and at (b)'s
    fp32 mamba2-780m step, [1, 2048, 48, 64, 128, 64], with a
    nonzero initial state and final-state gradient (each
@@ -144,7 +146,9 @@ Phases (each raises on failure, so the script exits non-zero):
    SSD launches (forward chunk and carry, backward passes (each one
    chunk-state launch), ``ssd_carry_bwd_tc``, ``ssd_chunk_bwd_tc``: one
    each per layer) and FA launches checked, and mamba2-780m again with
-   fp32 compute, which takes ``ssd_carry_bwd`` and ``ssd_chunk_bwd``; (c) ``FaultyTrainer``
+   fp32 compute, which takes ``ssd_carry_bwd`` and ``ssd_chunk_bwd``,
+   and on a 2 x 50 batch (bf16, chunk min(64, L) = 50: the CUDA-core
+   forward and backward kernels, named in the log); (c) ``FaultyTrainer``
    (fail_prob 0.25, seed 1) over 15 steps of llama3-8b smoke on the card
    and on the CPU: same restarts, failed steps and history, losses
    within 2e-2, the card's last checkpoint restored on the CPU bit for
@@ -717,6 +721,13 @@ SSD_SERVING = [(4, 2048, 64, 64, 64, 64), (1, 2048, 48, 64, 128, 64),
 SSD_HEADLINE = SSD_SERVING[0]
 SSD_ATOL = 1e-4      # the sweep's absolute bound
 SSD_REL = 1e-4       # full width: max|Δ| <= 1e-4 · max|ref|
+# Chunks beyond 64 rows and one that is not a multiple of 4, forward and
+# backward, bf16 and fp32: mamba2-780m's heads (48 of P 64, N 128) at
+# 2 x 4096 tokens in chunks of 128 and of 256 (Mamba2's own chunk_size),
+# held to SSD_REL; a 50-row chunk at small widths, held to SSD_ATOL as
+# the sweep.
+SSD_CHUNKS = [(2, 4096, 48, 64, 128, 128), (2, 4096, 48, 64, 128, 256),
+              (1, 50, 2, 16, 16, 50)]
 
 
 def esize(dtype: str) -> int:
@@ -748,10 +759,14 @@ def fa_bound(B, L, H, D, causal, dtype):
 
 
 def ssd_bound(B, L, H, P, N, Q, dtype):
-    """2Q²N + 2Q²P + 2QNP flops per (b, h, chunk); x, dt, cum, y and the
-    chunk states per head, B and C once per (b, chunk)."""
+    """What the chunk pass needs, as ``ssd_bwd_bounds`` counts it: per
+    (b, h, chunk) W·x over the lower triangle, Q(Q+1)·P flops, and the
+    chunk state Bᵀ·(x ∘ dec_end), 2QNP; per (b, chunk) C·Bᵀ over the lower
+    triangle, Q(Q+1)·N (B and C have no head axis).  Bytes: x, dt, cum, y
+    and the chunk states per head, B and C once per (b, chunk)."""
     nc = L // Q
-    flops = B * H * nc * (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P)
+    flops = B * nc * (H * (Q * (Q + 1) * P + 2 * Q * N * P)
+                      + Q * (Q + 1) * N)
     nbytes = (B * L * H * P * (esize(dtype) + 4) + 2 * B * L * H * 4
               + 2 * B * L * N * esize(dtype) + B * nc * H * N * P * 4)
     return bound(flops, nbytes, dtype)
@@ -1317,20 +1332,148 @@ def phase_ssd(torch) -> dict:
             f"{scan:.5f} vs ssd_ref {scan_plain:.5f}")
         del xb, Bb, Cb, want, yi, st, cum, h0
         torch.cuda.empty_cache()
-    return dict(rows=rows, max_abs_err=worst, carry_max_abs_err=carry_worst,
-                terms=TERMS)
+    t0 = time.perf_counter()
+    chunks = ssd_chunk_rows(torch, hold)
+    log(f"[ssd] the chunks of SSD_CHUNKS took {time.perf_counter() - t0:.3f} "
+        f"s")
+    return dict(rows=rows, chunks=chunks, max_abs_err=worst,
+                carry_max_abs_err=carry_worst, terms=TERMS)
+
+
+def ssd_chunk_rows(torch, hold) -> dict:
+    """Phase 6 at SSD_CHUNKS, bf16 and fp32: the chunk kernel against
+    ssd_chunks_ref, the carry (y in fp32, with and without an initial
+    state) against ssd_carry_ref on the plain chunk outputs, and the
+    whole ssd() against ssd_ref (fp32: y and the final state; bf16: y
+    within one bf16 step of the fp32 reference on the same bf16 values),
+    each within SSD_REL·max|ref| at full width or SSD_ATOL at the small
+    shape; then each timed beside its plain version and its bound."""
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.kernel import (fwd_kernels,
+                                                ssd_carry_cuda,
+                                                ssd_chunks_cuda)
+    from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_carry_ref,
+                                             ssd_chunks_ref, ssd_ref)
+    # Each library's shared memory at these chunks, as it reports it,
+    # equal to kernel.py's mirror and within a block's limit.
+    fwd = sk.LIB.load().ssd_smem_bytes
+    bwd = sk.LIB_BWD.load().ssd_bwd_smem_bytes
+    for _, _, _, P, N, Q in SSD_CHUNKS + SSD_SERVING:
+        for got, want, what in (
+                (fwd(0, Q, N, P), sk.smem_bytes(Q, N, P), "chunk kernel"),
+                (fwd(1, Q, N, P), sk.carry_smem_bytes(N, Q, torch.float32),
+                 "carry (fp32 C)"),
+                (fwd(2, Q, N, P), sk.carry_smem_bytes(N, Q, torch.bfloat16),
+                 "carry (bf16 C)"),
+                (fwd(3, Q, N, P), None, "ssd_carry_tc"),
+                (bwd(0, Q, N, P), sk.chunk_bwd_smem_bytes(Q, N, P),
+                 "ssd_chunk_bwd"),
+                (bwd(1, Q, N, P), 4 * Q * (N + 16), "ssd_carry_bwd")):
+            if not 0 < got <= sk.MAX_SMEM_BYTES or want not in (None, got):
+                raise AssertionError(f"{what} at Q {Q}, N {N}, P {P}: the "
+                                     f"library reports {got} bytes, "
+                                     f"kernel.py {want}")
+    log("[ssd] shared memory at SSD_CHUNKS and SSD_SERVING, bytes, as the "
+        "libraries report it (= kernel.py's mirrors): " + "; ".join(
+            f"Q {Q} N {N} P {P}: chunk {fwd(0, Q, N, P)}, carry "
+            f"{fwd(1, Q, N, P)} / {fwd(2, Q, N, P)} / {fwd(3, Q, N, P)}, "
+            f"chunk bwd {bwd(0, Q, N, P)}, carry bwd {bwd(1, Q, N, P)}"
+            for _, _, _, P, N, Q in SSD_CHUNKS))
+    rows = {}
+    for i, shape in enumerate(SSD_CHUNKS):
+        B, L, H, P, N, Q = shape
+        small = L * H < 4096
+        for dtype in ("bfloat16", "float32"):
+            tdt = getattr(torch, dtype)
+            x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 700 + i)
+            x, Bm, Cm = (t.to(tdt) for t in (x, Bm, Cm))
+            names = fwd_kernels(tdt, Q, P, N)
+            tag = f"{dtype} ({names[0]}, {names[1]})"
+
+            def held(name, got, want):
+                if small:
+                    err = max_err(torch, got, want)
+                    if not err <= SSD_ATOL:
+                        raise AssertionError(f"ssd {shape} {name}: max|Δ| "
+                                             f"{err} > {SSD_ATOL}")
+                    log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} {name}: max|Δ| "
+                        f"{err:.3g} <= {SSD_ATOL}")
+                else:
+                    hold(shape, name, got, want)
+            cum = chunk_cumsum(dt, A, Q)
+            want = tuple(t.contiguous()
+                         for t in ssd_chunks_ref(x, dt, cum, Bm, Cm, Q))
+            got = ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+            held("y_intra " + tag, got[0], want[0])
+            held("chunk states " + tag, got[1], want[1])
+            del got
+            h0 = torch.randn((B, H, N, P), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(710 + i))
+            for init, note in ((None, ""), (h0, " (init state)")):
+                gy, gf = ssd_carry_cuda(*want, cum, Cm, Q, init)
+                wy, wf = ssd_carry_ref(*want, cum, Cm, Q, init)
+                held("carry y " + tag + note, gy, wy)
+                held("carry final state " + tag + note, gf, wf)
+                del gy, gf, wy, wf
+            xf, Bf, Cf = x.float(), Bm.float(), Cm.float()
+            want_scan = ssd_ref(xf, dt, A, Bf, Cf, chunk=Q)
+            got_scan = ops.ssd(x, dt, A, Bm, Cm, chunk=Q)
+            if dtype == "float32":
+                held("y " + tag, got_scan[0], want_scan[0])
+            else:
+                wy = want_scan[0]
+                step = float(((got_scan[0].float() - wy).abs()
+                              / (2.0 ** -8 * wy.abs() + SSD_REL * max(
+                                  float(wy.abs().max()), 1.0))).max())
+                if not step <= 1.0:
+                    raise AssertionError(f"ssd {shape} bf16 y: {step} times "
+                                         f"its bound")
+                log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} y {tag}: worst |Δ| / "
+                    f"(2^-8·|ref| + {SSD_REL}·max(max|ref|, 1)) {step:.4g} "
+                    f"<= 1")
+            held("final state " + tag, got_scan[1], want_scan[1])
+            del got_scan, want_scan, xf, Bf, Cf
+            yi, st = want
+            ms = timed_ms(torch, lambda: ssd_chunks_cuda(x, dt, cum, Bm, Cm,
+                                                         Q))
+            plain = timed_ms(torch, lambda: ssd_chunks_ref(x, dt, cum, Bm,
+                                                           Cm, Q), 0.2)
+            carry = timed_ms(torch, lambda: ssd_carry_cuda(
+                yi, st, cum, Cm, Q, None, tdt))
+            carry_plain = timed_ms(torch, lambda: ssd_carry_ref(
+                yi, st, cum, Cm, Q, None, tdt), 0.2)
+            scan = timed_ms(torch, lambda: ops.ssd(x, dt, A, Bm, Cm,
+                                                   chunk=Q))
+            scan_plain = timed_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm,
+                                                         chunk=Q), 0.2)
+            bms, bby = ssd_bound(*shape, dtype)
+            cbms, cbby = carry_bound(*shape, dtype)
+            rows[(shape, dtype)] = dict(
+                kernels=names, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=bby, carry_ms=carry, carry_plain_ms=carry_plain,
+                carry_bound_ms=cbms, carry_bound_by=cbby, scan_ms=scan,
+                scan_plain_ms=scan_plain)
+            log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} {tag}: chunk {ms:.5f} "
+                f"plain {plain:.5f} bound {bms:.6f} ({bby}); carry "
+                f"{carry:.5f} plain {carry_plain:.5f} bound {cbms:.6f} "
+                f"({cbby}); scan {scan:.5f} vs ssd_ref {scan_plain:.5f}")
+            del x, dt, A, Bm, Cm, cum, want, yi, st, h0
+            torch.cuda.empty_cache()
+    return rows
 
 
 # The SSD backward (ssd_bwd.cu) against its plain versions, on the same
 # inputs with a nonzero initial state and final-state gradient: the
-# reference sweep's shapes at chunks the kernels take (up to
-# kernel.BWD_MAX_Q = 64 rows; the sweep's Q = 128 shape has no backward) and
-# phase 11's training shapes, mamba2-780m's and zamba2-1.2b's at 2 x 4096,
-# each in bf16 and fp32.  Bar: per gradient max|Δ| <= 1e-4·max(max|ref|,
-# 1); a bf16 gradient of the whole op (rounded once from fp32, as the
-# plain version's) per element within 2^-7·|ref| more, one bf16 step.
+# reference sweep's shapes (chunks of 16 to 128 rows), phase 11's training
+# shapes, mamba2-780m's and zamba2-1.2b's at 2 x 4096, and SSD_CHUNKS
+# (chunks of 128, 256 and 50 rows), each in bf16 and fp32.  Bar: per
+# gradient max|Δ| <= 1e-4·max(max|ref|, 1); a bf16 gradient of the whole
+# op (rounded once from fp32, as the plain version's) per element within
+# 2^-7·|ref| more, one bf16 step.
 SSD_TRAIN = [(2, 4096, 48, 64, 128, 64), (2, 4096, 64, 64, 64, 64)]
-SSD_BWD_SHAPES = [(s, dt) for s in SSD_SWEEP + SSD_TRAIN if s[5] <= 64
+SSD_BWD_SHAPES = [(s, dt) for s in SSD_SWEEP + SSD_TRAIN + SSD_CHUNKS
                   for dt in ("bfloat16", "float32")]
 # Phase 11 (b)'s fp32 mamba2-780m step (1 x 2048), which launches the
 # CUDA-core backward kernels on a main path.
@@ -2439,6 +2582,11 @@ TRAIN_FAMILIES = (("llama3-8b", 2), ("qwen2-moe-a2.7b", 2),
 # (CUDA-core) backward kernels, held to the same bars.
 TRAIN_FP32 = (("llama3-8b", 2), ("mamba2-780m", 2))
 FAMILY_B, FAMILY_L = 1, 2048
+# and mamba2-780m on a short batch, 2 x 50 tokens (bf16 compute, 2
+# layers): models/ssm.py takes chunk = min(64, L) = 50, a chunk that is
+# not a multiple of 4, which the CUDA-core SSD kernels take forward and
+# backward (arch, layers, compute, batch, tokens).
+TRAIN_SHORT = (("mamba2-780m", 2, "bfloat16", 2, 50),)
 # Both runs compute in bf16 and differ only in the attention and the SSD
 # (the kernels against the plain versions, each within one bf16 step of
 # fp32): the loss
@@ -2804,15 +2952,18 @@ def phase_train_families(torch) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd import kernel as sk
     out = {}
-    for arch, n_layers, compute in (
-            [(a, n, "bfloat16") for a, n in TRAIN_FAMILIES]
-            + [(a, n, "float32") for a, n in TRAIN_FP32]):
+    for arch, n_layers, compute, B, L in (
+            [(a, n, "bfloat16", FAMILY_B, FAMILY_L)
+             for a, n in TRAIN_FAMILIES]
+            + [(a, n, "float32", FAMILY_B, FAMILY_L)
+               for a, n in TRAIN_FP32]
+            + list(TRAIN_SHORT)):
         torch.cuda.empty_cache()
         model = train_model(arch, n_layers, compute=compute)
         cfg = model.cfg
         params = model.init(0)
-        batch = batch_at(DataConfig(seed=1, seq_len=FAMILY_L,
-                                    global_batch=FAMILY_B), 0, cfg)
+        batch = batch_at(DataConfig(seed=1, seq_len=L, global_batch=B), 0,
+                         cfg)
         with routes_pinned() as flips:
             before = (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES)
             ssd_before = ssd_counts()
@@ -2833,9 +2984,11 @@ def phase_train_families(torch) -> dict:
                                  f"{n_fa} each")
         dt = getattr(torch, compute)
         # The SSD's counters and the backward pair the dispatch picks for
-        # this compute dtype (chunk min(64, L) = 64) once per layer each.
+        # this compute dtype at models/ssm.py's chunk, min(64, L), once
+        # per layer each.
+        Q = min(64, L)
         ssd_ran = set(SSD_COUNTERS) | (set(sk.bwd_kernels(
-            dt, 64, cfg.ssm_head_dim, cfg.ssm_state)) if n_ssd else set())
+            dt, Q, cfg.ssm_head_dim, cfg.ssm_state)) if n_ssd else set())
         want_ssd = {k: (n_ssd if k in ssd_ran else 0) for k in ssd_got}
         if ssd_got != want_ssd:
             raise AssertionError(f"(b) {arch} {compute}: one step launched "
@@ -2850,15 +3003,18 @@ def phase_train_families(torch) -> dict:
         keys, worst, worst_key = grads_vs_plain(
             torch, f"(b) {arch}", params, loss, ref_loss, grads, ref_grads)
         n_flips = sum(flips.values())
+        fwd = (" (" + ", ".join(sk.fwd_kernels(
+            dt, Q, cfg.ssm_head_dim, cfg.ssm_state)) + f" at chunk {Q})"
+            if n_ssd else "")
         log(f"[train] (b) {arch} ({cfg.family}, {compute} compute): "
             f"{cfg.n_layers} layers at "
-            f"full width, {model.n_params():,} parameters, {FAMILY_B} x "
-            f"{FAMILY_L}: {got[0]} FA forward launches and {got[1]} FA "
+            f"full width, {model.n_params():,} parameters, {B} x "
+            f"{L}: {got[0]} FA forward launches and {got[1]} FA "
             f"backward passes in the step ("
             + ", ".join(f"{k} {v}" for k, v in by_kernel.items() if v)
             + ")"
             + (f", SSD " + ", ".join(f"{k} {v}" for k, v in ssd_got.items()
-                                     if v) if n_ssd else "")
+                                     if v) + fwd if n_ssd else "")
             + f"; loss {float(loss):.6f} against "
             f"{float(ref_loss):.6f} with the plain "
             + ("attention and ssd_ref" if n_ssd and n_fa else
@@ -2869,9 +3025,12 @@ def phase_train_families(torch) -> dict:
                f"routes the plain run would have changed" if cfg.n_experts
                else ""))
         key = arch if compute == "bfloat16" else f"{arch} {compute}"
+        if L != FAMILY_L:
+            key = f"{key} {B}x{L}"
         out[key] = dict(launches=got, bwd_kernel_launches=by_kernel,
                         ssd_launches=ssd_got, loss=float(loss),
-                        ref_loss=float(ref_loss), worst=worst)
+                        ref_loss=float(ref_loss), worst=worst,
+                        chunk=Q if n_ssd else None)
         del params, grads, ref_grads, model
         gc.collect()
     torch.cuda.empty_cache()
@@ -3672,6 +3831,31 @@ def main() -> int:
     hd = phase_head_dims(torch)
     log(f"[hd] phase 14 took {time.perf_counter() - t0:.3f} s")
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    # Phase 11 (b)'s 2 x 50 mamba2-780m step (chunk 50).
+    short = train["families"]["{} {}x{}".format(*TRAIN_SHORT[0][:1],
+                                                *TRAIN_SHORT[0][3:])]
+
+    def fwd_chunks(which):
+        """Phase 6's rows at SSD_CHUNKS for the chunk (0) or carry (1)
+        kernel."""
+        pre = ("", "carry_")[which]
+        return [dict(shape=list(sh), dtype=dt, kernel=r["kernels"][which],
+                     **{key: r[pre + key] for key in (
+                         "ms", "plain_ms", "bound_ms", "bound_by")})
+                for (sh, dt), r in sd["chunks"].items()]
+
+    def bwd_chunks(key, name):
+        """Phase 6's backward rows at SSD_CHUNKS where ``name`` ran."""
+        return [dict(shape=list(sh), dtype=dt, ms=r["ms"][key],
+                     plain_ms=r["plain_ms"][key],
+                     bound_ms=r["bounds"][key][0],
+                     bound_by=r["bounds"][key][1],
+                     backward=dict(ms=r["ms"]["backward"],
+                                   plain_ms=r["plain_ms"]["backward"],
+                                   bound_ms=r["bounds"]["backward"][0],
+                                   bound_by=r["bounds"]["backward"][1]))
+                for (sh, dt), r in sdb["rows"].items()
+                if sh in SSD_CHUNKS and r["names"][key] == name]
     head = k["rows"][HEADLINE]
     fa_head = fa["rows"][FA_HEADLINE]
     ssd_head = sd["rows"][SSD_HEADLINE]
@@ -3771,6 +3955,10 @@ def main() -> int:
         "launches_mesh": {"train": mesh["b"]["launches"]["LAUNCHES"],
                           "zamba2-1.2b": mesh["c"]["zamba2-1.2b"][
                               "launches"][0]["LAUNCHES"]},
+        # Phase 11 (b)'s 2 x 50 step (chunk 50), and phase 6 at chunks
+        # of 128, 256 and 50 rows.
+        "launches_short": short["ssd_launches"]["LAUNCHES"],
+        "chunks": fwd_chunks(0),
     }, {
         "name": "ssd_carry",
         "route": "cuda",
@@ -3789,6 +3977,8 @@ def main() -> int:
         "bound_by": ssd_head["carry_bound_by"],
         "library_ms": None,
         "shape": list(SSD_HEADLINE),
+        "launches_short": short["ssd_launches"]["CARRY_LAUNCHES"],
+        "chunks": fwd_chunks(1),
     }]}
     # The backward's kernels: the bf16 ones (and the preprocess) at the
     # training headline, launched by phase 11 (a); the fp32 ones at phase
@@ -3890,6 +4080,10 @@ def main() -> int:
                 a: r["ssd_launches"][name]
                 for a, r in train["families"].items()
                 if r["ssd_launches"][name]},
+            # Phase 11 (b)'s 2 x 50 step, and phase 6 at chunks of 128,
+            # 256 and 50 rows where this kernel ran.
+            "launches_short": short["ssd_launches"][name],
+            "chunks": bwd_chunks(key, name),
             **({# The CUDA-core kernel on the same bf16 inputs.
                 "cuda_core_ms": row["core_ms"][key],
                 "build": {k: v for k, v in sdb["builds"].items()

@@ -6,3 +6,6 @@ affinity scoring, is a hand-written CUDA kernel
 (:mod:`repro_torch.kernels.affinity`).  Entry points run on ``"cuda"``
 unless the caller passes ``device="cpu"``.
 """
+from .device import warm_cpu_math as _warm_cpu_math
+
+_warm_cpu_math()

@@ -44,10 +44,15 @@
 //   flops; C . B^T is once per G heads.
 //
 // * ssd_chunk_kernel (fp32 inputs, the reference sweep, held to 1e-4, and
-//   every other shape), the first port's kernel on the CUDA cores: one
-//   block of 256 threads per (chunk, head, batch) stages x, B, C, dt and
-//   cum in dynamic shared memory (B and C rows padded by one word),
-//   builds the [Q, Q] tile W there, then writes y_intra and the state.
+//   every other shape, chunks of 1 to 256 rows), on the CUDA cores: one
+//   block of 256 threads per (chunk, head, batch) stages dt and cum, then
+//   walks the chunk in blocks of up to kRows = 64 rows: for each row
+//   block i, the column blocks j at or below it, staging x and B of j and
+//   C of i in dynamic shared memory (B and C rows padded by one word) and
+//   building that [64, 64] tile of W there, so that no [Q, Q] or [Q, N]
+//   tile is ever held whole.  Each y element sums its j in order; the
+//   chunk state sums the blocks j in order while the last row block is
+//   walked.  At Q <= 64 it is one block, as the first port's kernel was.
 //
 // exp(cum_i - cum_j) is taken only where i >= j: for i < j it can
 // overflow to inf, and the masked entry is a plain 0, never inf * 0.
@@ -62,26 +67,29 @@
 //   h       = exp(cum_last) * h + S_c
 //
 // and writes the final state in fp32 at the end; no [B, nc, H, N, P]
-// stack of h_prev and no fp32 y_inter is ever written.  Nothing the walk
-// reads depends on h except the product itself, so the block reads one
-// chunk ahead of the one it works on.  16-column slices where P is a
-// multiple of 16, else 8.  Two kernels, by C's dtype:
+// stack of h_prev and no fp32 y_inter is ever written.  The walk takes
+// each chunk in tiles of up to kCarryTile = 64 rows (the whole chunk when
+// shorter), h updated after a chunk's last tile, so that the C it stages
+// is two tiles at any chunk length up to 256.  Nothing the walk reads
+// depends on h except the product itself, so the block reads one tile
+// ahead of the one it works on.  16-column slices where P is a multiple
+// of 16, else 8.  Two kernels, by C's dtype:
 //
 // * ssd_carry_tc (bf16 C, the serving path): C . h_prev on mma.sync, one
-//   warp per 16 rows, C the A operand straight from shared memory and
+//   warp per 16 rows of a tile, C the A operand straight from shared memory and
 //   h_prev kept beside its fp32 copy as three bf16 terms (exact), so the
 //   products are exact and the sums fp32.  The same walk on the CUDA
 //   cores runs two shared-memory loads per eight multiply-adds and, with
 //   few warps per SM, was limited by instruction throughput (2.13 ms at
 //   the 32k prompt on the H100 against its 0.40 ms byte bound).
 // * ssd_carry_kernel (fp32 C, and shapes the first does not take): the
-//   CUDA cores.  C is transposed into fp32 ([N][Q], so that a thread's
-//   two rows are one 8-byte read); each thread owns two rows and four
-//   columns of y.
+//   CUDA cores.  C is transposed into fp32 ([N][tile rows], so that a
+//   thread's two rows are one 8-byte read); each thread owns two rows of
+//   a tile and four columns of y.
 //
-// Both copy the next chunk's C with cp.async (double buffer) and read
-// the next chunk's y_intra, cum and state slice into registers while
-// they work on the current one.
+// Both copy the next tile's C with cp.async (double buffer) and read
+// the next tile's y_intra and cum (and, at a chunk's first tile, its
+// state slice) into registers while they work on the current one.
 //
 // Bound: bytes — y_intra and the chunk states read once (fp32), C and
 // cum, y written in its dtype and the final state: about 1.3 GB, 0.40 ms
@@ -105,78 +113,120 @@ __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 // CUDA-core chunk kernel
 // ---------------------------------------------------------------------------
 
+// Rows of the row blocks i and column blocks j of W: kRows, or Q when
+// shorter.
+constexpr int kRows = 64;
+
+int chunk_rows(int Q) { return Q < kRows ? Q : kRows; }
+
+// Shared memory (floats) of one block: dt, cum and dec_end of the chunk;
+// x and B of block j, C of block i, the [R, R] tile of W; and where the
+// chunk has more than one block, y of block i summed over the blocks j.
+// kernel.py's smem_bytes is the same sum.
 size_t smem_floats(int Q, int N, int P) {
-  return (size_t)Q * P + 2 * (size_t)Q * (N + 1) + (size_t)Q * (Q + 1) +
-         3 * (size_t)Q;
+  const int R = chunk_rows(Q);
+  return 3 * (size_t)Q + (size_t)R * P * (Q > R ? 2 : 1) +
+         2 * (size_t)R * (N + 1) + (size_t)R * (R + 1);
 }
 
-template <typename T>
+// One (chunk, head, batch) per block, in blocks of R rows: for each row
+// block I it walks the column blocks J <= I in order, builds that [R, R]
+// tile of W and adds W . x_J into y_I (each y element sums j = 0..i in
+// order, as one pass over the whole row would); while I is the last row
+// block, the walk over every J also adds B_J^T . (x_J o dec_end) into the
+// chunk state, kept in the output between blocks.  kWhole: the chunk is
+// one block (Q <= kRows), the walk's counts and branches known to the
+// compiler.
+template <typename T, bool kWhole>
 __global__ void __launch_bounds__(kThreads)
     ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ cum, const T* __restrict__ bm,
                      const T* __restrict__ cm, float* __restrict__ y,
                      float* __restrict__ state, int L, int H, int P, int N,
-                     int Q) {
+                     int Q, int R) {
   extern __shared__ float smem[];
-  float* xs = smem;                  // [Q][P]
-  float* bs = xs + Q * P;            // [Q][N + 1]
-  float* cs = bs + Q * (N + 1);      // [Q][N + 1]
-  float* ws = cs + Q * (N + 1);      // [Q][Q + 1]
-  float* dts = ws + Q * (Q + 1);     // [Q]
+  float* dts = smem;                 // [Q]
   float* cums = dts + Q;             // [Q]
   float* des = cums + Q;             // [Q]: exp(cum_last - cum_j) * dt_j
+  float* xs = des + Q;               // [R][P]: x of block J
+  float* bs = xs + R * P;            // [R][N + 1]: B of block J
+  float* cs = bs + R * (N + 1);      // [R][N + 1]: C of block I
+  float* ws = cs + R * (N + 1);      // [R][R + 1]: W of (I, J)
+  float* ys = ws + R * (R + 1);      // [R][P]: y of block I, blocks J < I
 
   const int tid = threadIdx.x;
   const int c = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int nc = gridDim.x;
+  const int nb = kWhole ? 1 : (Q + R - 1) / R;
   const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;  // first time step
 
-  for (int e = tid; e < Q * P; e += kThreads) {
-    const int i = e / P, p = e % P;
-    xs[e] = to_f(x[((row0 + i) * H + h) * P + p]);
-  }
-  for (int e = tid; e < Q * N; e += kThreads) {
-    const int i = e / N, n = e % N;
-    bs[i * (N + 1) + n] = to_f(bm[(row0 + i) * N + n]);
-    cs[i * (N + 1) + n] = to_f(cm[(row0 + i) * N + n]);
-  }
   for (int i = tid; i < Q; i += kThreads) {
     dts[i] = dt[(row0 + i) * H + h];
     cums[i] = cum[(row0 + i) * H + h];
   }
   __syncthreads();
-
   for (int i = tid; i < Q; i += kThreads)
     des[i] = expf(cums[Q - 1] - cums[i]) * dts[i];
-  for (int e = tid; e < Q * Q; e += kThreads) {
-    const int i = e / Q, j = e % Q;
-    float w = 0.f;
-    if (i >= j) {
-      float cb = 0.f;
-      for (int n = 0; n < N; ++n)
-        cb = fmaf(cs[i * (N + 1) + n], bs[j * (N + 1) + n], cb);
-      w = cb * expf(cums[i] - cums[j]) * dts[j];
-    }
-    ws[i * (Q + 1) + j] = w;
-  }
-  __syncthreads();
 
-  for (int e = tid; e < Q * P; e += kThreads) {
-    const int i = e / P, p = e % P;
-    float acc = 0.f;
-    for (int j = 0; j <= i; ++j)
-      acc = fmaf(ws[i * (Q + 1) + j], xs[j * P + p], acc);
-    y[((row0 + i) * H + h) * P + p] = acc;
-  }
   float* st = state + (((int64_t)b * nc + c) * H + h) * (int64_t)N * P;
-  for (int e = tid; e < N * P; e += kThreads) {
-    const int n = e / P, p = e % P;
-    float acc = 0.f;
-    for (int j = 0; j < Q; ++j)
-      acc = fmaf(bs[j * (N + 1) + n], xs[j * P + p] * des[j], acc);
-    st[e] = acc;
+  for (int I = 0; I < nb; ++I) {
+    const int i0 = I * R, ni = min(R, Q - i0);
+    __syncthreads();  // every thread is done with block I - 1's C and y
+    for (int e = tid; e < ni * N; e += kThreads) {
+      const int i = e / N, n = e % N;
+      cs[i * (N + 1) + n] = to_f(cm[(row0 + i0 + i) * N + n]);
+    }
+    for (int J = 0; J <= I; ++J) {
+      const int j0 = J * R, nj = min(R, Q - j0);
+      __syncthreads();  // every thread is done with the last x, B and W
+      for (int e = tid; e < nj * P; e += kThreads) {
+        const int j = e / P, p = e % P;
+        xs[e] = to_f(x[((row0 + j0 + j) * H + h) * P + p]);
+      }
+      for (int e = tid; e < nj * N; e += kThreads) {
+        const int j = e / N, n = e % N;
+        bs[j * (N + 1) + n] = to_f(bm[(row0 + j0 + j) * N + n]);
+      }
+      __syncthreads();
+
+      for (int e = tid; e < ni * nj; e += kThreads) {
+        const int ii = e / nj, jj = e % nj;
+        const int i = i0 + ii, j = j0 + jj;
+        float w = 0.f;
+        if (i >= j) {
+          float cb = 0.f;
+          for (int n = 0; n < N; ++n)
+            cb = fmaf(cs[ii * (N + 1) + n], bs[jj * (N + 1) + n], cb);
+          w = cb * expf(cums[i] - cums[j]) * dts[j];
+        }
+        ws[ii * (R + 1) + jj] = w;
+      }
+      __syncthreads();
+
+      for (int e = tid; e < ni * P; e += kThreads) {
+        const int ii = e / P, p = e % P;
+        const int jn = min(nj, i0 + ii - j0 + 1);  // j <= i
+        float acc = J == 0 ? 0.f : ys[e];
+        for (int jj = 0; jj < jn; ++jj)
+          acc = fmaf(ws[ii * (R + 1) + jj], xs[jj * P + p], acc);
+        if (J == I)
+          y[((row0 + i0 + ii) * H + h) * P + p] = acc;
+        else
+          ys[e] = acc;
+      }
+      if (I == nb - 1) {
+        for (int e = tid; e < N * P; e += kThreads) {
+          const int n = e / P, p = e % P;
+          float acc = J == 0 ? 0.f : st[e];
+          for (int jj = 0; jj < nj; ++jj)
+            acc = fmaf(bs[jj * (N + 1) + n], xs[jj * P + p] * des[j0 + jj],
+                       acc);
+          st[e] = acc;
+        }
+      }
+    }
   }
 }
 
@@ -185,15 +235,18 @@ cudaError_t launch_f32(const void* x, const float* dt, const float* cum,
                        const void* bm, const void* cm, float* y,
                        float* state, int B, int L, int H, int P, int N,
                        int Q, cudaStream_t stream) {
+  const int R = chunk_rows(Q);
   const size_t smem = smem_floats(Q, N, P) * sizeof(float);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const auto kernel = R >= Q ? ssd_chunk_kernel<T, true>
+                             : ssd_chunk_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(L / Q, H, B);
-  ssd_chunk_kernel<T><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), dt, cum, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), y, state, L, H, P, N, Q);
+      static_cast<const T*>(cm), y, state, L, H, P, N, Q, R);
   return cudaGetLastError();
 }
 
@@ -484,22 +537,44 @@ __device__ __forceinline__ void unpack(const uint4& raw, float (&f)[8]) {
   }
 }
 
-// A chunk's C, [Q][N], into a padded shared buffer (rows of N + VW).
+// The carry walks each chunk in tiles of up to kCarryTile rows (Q when
+// shorter): the C it stages is two tiles, whatever the chunk length.
+constexpr int kCarryTile = 64;
+
+__host__ __device__ __forceinline__ int carry_tile(int Q) {
+  return Q < kCarryTile ? Q : kCarryTile;
+}
+
+// Rows [row0, row0 + rows) of C into a padded shared buffer (rows of
+// N + VW).
 template <typename TC>
 __device__ __forceinline__ void load_c(TC* dst, const TC* cm, int64_t row0,
-                                       int N, int Q) {
+                                       int N, int rows) {
   constexpr int VW = 16 / sizeof(TC);
   const int ldc = N + VW;
-  for (int e = threadIdx.x; e < Q * (N / VW); e += blockDim.x) {
+  for (int e = threadIdx.x; e < rows * (N / VW); e += blockDim.x) {
     const int i = e / (N / VW), nv = (e % (N / VW)) * VW;
     cp_async16(dst + i * ldc + nv, cm + (row0 + i) * N + nv);
   }
   cp_async_commit();
 }
 
+// A position of the walk: tile k of chunk c (rows k R .. of it, R =
+// carry_tile(Q), nt tiles a chunk), advanced one tile at a time without
+// a division (the walk issues few instructions per tile besides them).
+struct CarryPos {
+  int c, k;
+  __device__ bool first() const { return k == 0; }
+  __device__ bool last(int nt) const { return k == nt - 1; }
+  __device__ CarryPos next(int nt) const {
+    return k + 1 == nt ? CarryPos{c + 1, 0} : CarryPos{c, k + 1};
+  }
+};
+
 size_t carry_smem_bytes(int N, int Q, int PS, int c_size) {
-  return ((size_t)N * PS + (size_t)N * (Q + (Q & 1))) * sizeof(float) +
-         2 * (size_t)Q * (N + 16 / c_size) * c_size;
+  const int R = carry_tile(Q);
+  return ((size_t)N * PS + (size_t)N * (R + (R & 1))) * sizeof(float) +
+         2 * (size_t)R * (N + 16 / c_size) * c_size;
 }
 
 // One float4 of h_prev's slice: h = d * h + s.
@@ -508,7 +583,9 @@ __device__ __forceinline__ float4 carry(float d, float4 h, float4 s) {
                      d * h.w + s.w);
 }
 
-template <typename TC, typename TY, int PS>
+// kWhole: a chunk is one tile (Q <= kCarryTile), the walk's counts and
+// branches known to the compiler.
+template <typename TC, typename TY, int PS, bool kWhole>
 __global__ void __launch_bounds__(kCarryMaxThreads)
     ssd_carry_kernel(const float* __restrict__ y_intra,
                      const float* __restrict__ states,
@@ -519,28 +596,37 @@ __global__ void __launch_bounds__(kCarryMaxThreads)
   constexpr int G4 = PS / 4;                // 4-column groups of a slice
   constexpr int VW = 16 / sizeof(TC);       // C values per 16-byte load
   extern __shared__ __align__(16) float carry_smem[];
+  const int R = kWhole ? Q : kCarryTile;
+  const int nt = kWhole ? 1 : (Q + R - 1) / R;
   const int ldc = N + VW;
-  const int ldq = Q + (Q & 1);   // even, for the 8-byte reads of ct
+  const int ldq = R + (R & 1);   // even, for the 8-byte reads of ct
   float* hs = carry_smem;    // [N][PS]: h_prev's slice
-  float* ct = hs + N * PS;   // [N][ldq]: the chunk's C, transposed, fp32
-  TC* raw = reinterpret_cast<TC*>(ct + N * ldq);  // 2 x [Q][ldc]: C as read
+  float* ct = hs + N * PS;   // [N][ldq]: the tile's C, transposed, fp32
+  TC* raw = reinterpret_cast<TC*>(ct + N * ldq);  // 2 x [R][ldc]: C as read
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int ps0 = blockIdx.x * PS, h = blockIdx.y, b = blockIdx.z;
   const int nc = L / Q;
-  const int i0 = (tid / G4) * 2;   // this thread's rows i0, i0 + 1
+  const int i0 = (tid / G4) * 2;   // this thread's rows i0, i0 + 1 of a tile
   const int q4 = (tid % G4) * 4;   // and columns ps0 + q4 .. + 3
-  const int rows = min(2, Q - i0);  // 1 for the last row of an odd Q
+  auto row0_of = [&](CarryPos p) {
+    return (int64_t)b * L + (int64_t)p.c * Q + (kWhole ? 0 : p.k * R);
+  };
+  auto rows_of = [&](CarryPos p) {
+    return kWhole ? Q : min(R, Q - p.k * R);
+  };
 
-  // What a chunk needs besides C, read into registers one chunk ahead:
-  // this thread's y_intra and cum, the chunk's last cum and the first
-  // kMaxS of the thread's float4s of the chunk state.
+  // What a tile needs besides C, read into registers one tile ahead:
+  // this thread's y_intra and cum; at a chunk's first tile also the
+  // chunk's last cum and the first kMaxS of the thread's float4s of the
+  // chunk state (used after its last tile).
   float4 yi[2], sreg[kMaxS];
   float ci[2], dl;
   auto state_at = [&](int c) {
     return states + (((int64_t)b * nc + c) * H + h) * (int64_t)N * P + ps0;
   };
-  auto prefetch = [&](int c) {
-    const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;
+  auto prefetch = [&](CarryPos p) {
+    const int64_t row0 = row0_of(p);
+    const int rows = min(2, rows_of(p) - i0);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (r >= rows) break;
@@ -549,8 +635,9 @@ __global__ void __launch_bounds__(kCarryMaxThreads)
                                                ps0 + q4);
       ci[r] = cum[row * H + h];
     }
-    dl = cum[(row0 + Q - 1) * H + h];
-    const float* sc = state_at(c);
+    if (!kWhole && !p.first()) return;
+    dl = cum[((int64_t)b * L + (int64_t)p.c * Q + Q - 1) * H + h];
+    const float* sc = state_at(p.c);
 #pragma unroll
     for (int k = 0; k < kMaxS; ++k) {
       const int e = tid + k * nthr;
@@ -564,20 +651,23 @@ __global__ void __launch_bounds__(kCarryMaxThreads)
     const int n = e / PS, p = e % PS;
     hs[e] = init ? init[(((int64_t)b * H + h) * N + n) * P + ps0 + p] : 0.f;
   }
-  load_c(raw, cm, (int64_t)b * L, N, Q);
-  prefetch(0);
-  for (int c = 0; c < nc; ++c) {
-    const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;
-    const TC* cur = raw + (c & 1) * Q * ldc;
-    // C(c) has landed; every thread is done with chunk c - 1 (its C
+  load_c(raw, cm, row0_of({0, 0}), N, rows_of({0, 0}));
+  prefetch({0, 0});
+  int buf = 0;
+  for (CarryPos p{0, 0}; p.c < nc; p = p.next(nt), buf ^= 1) {
+    const CarryPos q = p.next(nt);   // the tile after this one
+    const int64_t row0 = row0_of(p);
+    const int rows_t = rows_of(p);
+    const TC* cur = raw + buf * R * ldc;
+    // C(p) has landed; every thread is done with the tile before (its C
     // buffer, ct and the h update).
     cp_async_wait_all();
     __syncthreads();
-    if (c + 1 < nc)
-      load_c(raw + ((c + 1) & 1) * Q * ldc, cm, row0 + Q, N, Q);
+    if (q.c < nc)
+      load_c(raw + (buf ^ 1) * R * ldc, cm, row0_of(q), N, rows_of(q));
 #pragma unroll 4
-    for (int e = tid; e < Q * (N / VW); e += nthr) {
-      const int i = e % Q, nv = (e / Q) * VW;
+    for (int e = tid; e < rows_t * (N / VW); e += nthr) {
+      const int i = e % rows_t, nv = (e / rows_t) * VW;
       float f[VW];
       unpack(*reinterpret_cast<const uint4*>(cur + i * ldc + nv), f);
 #pragma unroll
@@ -599,6 +689,8 @@ __global__ void __launch_bounds__(kCarryMaxThreads)
       acc[1][2] += cc.y * hv.z;
       acc[1][3] += cc.y * hv.w;
     }
+    const int rows = min(2, rows_t - i0);  // 1 for the last row of an odd
+                                           // tile, none past a short one
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (r >= rows) break;
@@ -607,24 +699,26 @@ __global__ void __launch_bounds__(kCarryMaxThreads)
              yi[r].x + e * acc[r][0], yi[r].y + e * acc[r][1],
              yi[r].z + e * acc[r][2], yi[r].w + e * acc[r][3]);
     }
-    __syncthreads();  // every read of h_prev is done
 
-    const float d = expf(dl);
+    if (kWhole || p.last(nt)) {
+      __syncthreads();  // every read of h_prev is done
+      const float d = expf(dl);
 #pragma unroll
-    for (int k = 0; k < kMaxS; ++k) {
-      const int e = tid + k * nthr;
-      if (e < N * G4) {
+      for (int k = 0; k < kMaxS; ++k) {
+        const int e = tid + k * nthr;
+        if (e < N * G4) {
+          float4* hp = reinterpret_cast<float4*>(hs + 4 * e);
+          *hp = carry(d, *hp, sreg[k]);
+        }
+      }
+      const float* sc = state_at(p.c);
+      for (int e = tid + kMaxS * nthr; e < N * G4; e += nthr) {
         float4* hp = reinterpret_cast<float4*>(hs + 4 * e);
-        *hp = carry(d, *hp, sreg[k]);
+        *hp = carry(d, *hp, *reinterpret_cast<const float4*>(
+                                sc + (e / G4) * P + (e % G4) * 4));
       }
     }
-    const float* sc = state_at(c);
-    for (int e = tid + kMaxS * nthr; e < N * G4; e += nthr) {
-      float4* hp = reinterpret_cast<float4*>(hs + 4 * e);
-      *hp = carry(d, *hp, *reinterpret_cast<const float4*>(
-                              sc + (e / G4) * P + (e % G4) * 4));
-    }
-    if (c + 1 < nc) prefetch(c + 1);
+    if (q.c < nc) prefetch(q);
   }
   __syncthreads();
   for (int e = tid; e < N * PS; e += nthr) {
@@ -639,14 +733,16 @@ cudaError_t launch_carry_ps(const void* y_intra, const void* states,
                             void* y, void* final_state, int B, int L, int H,
                             int P, int N, int Q, cudaStream_t stream) {
   const size_t smem = carry_smem_bytes(N, Q, PS, sizeof(TC));
-  const int threads = ((Q + 1) / 2) * (PS / 4);
-  if (threads > kCarryMaxThreads) return cudaErrorInvalidValue;
+  const int threads = ((carry_tile(Q) + 1) / 2) * (PS / 4);
+  if (threads > kCarryMaxThreads || smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  const auto kernel = Q <= kCarryTile ? ssd_carry_kernel<TC, TY, PS, true>
+                                      : ssd_carry_kernel<TC, TY, PS, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_carry_kernel<TC, TY, PS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(P / PS, H, B);
-  ssd_carry_kernel<TC, TY, PS><<<grid, threads, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const float*>(y_intra), static_cast<const float*>(states),
       static_cast<const float*>(cum), static_cast<const TC*>(cm),
       static_cast<const float*>(init), static_cast<TY*>(y),
@@ -659,7 +755,7 @@ cudaError_t launch_carry_ps(const void* y_intra, const void* states,
 // copy in shared memory (no transpose), h_prev kept in fp32 and, after
 // every update, as three bf16 terms that hold it exactly (the B
 // operands), so every product is exact and the sums are fp32.  One warp
-// per 16 rows of the chunk.
+// per 16 rows of a tile.
 constexpr int kCarryTerms = 3;
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -671,10 +767,10 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 
 size_t carry_tc_smem_bytes(int N, int Q, int PS) {
   return (size_t)N * PS * 4 + kCarryTerms * (size_t)N * PS * 2 +
-         2 * (size_t)Q * (N + 8) * 2;
+         2 * (size_t)carry_tile(Q) * (N + 8) * 2;
 }
 
-template <typename TY, int PS>
+template <typename TY, int PS, bool kWhole>
 __global__ void __launch_bounds__(kCarryMaxThreads)
     ssd_carry_tc(const float* __restrict__ y_intra,
                  const float* __restrict__ states,
@@ -685,16 +781,24 @@ __global__ void __launch_bounds__(kCarryMaxThreads)
   constexpr int NTP = PS / 8;   // n8 tiles of the slice
   constexpr int G4 = PS / 4;    // float4s of a row of the slice
   extern __shared__ __align__(16) float carry_smem[];
+  const int R = kWhole ? Q : kCarryTile;
+  const int nt = kWhole ? 1 : (Q + R - 1) / R;
   const int ldc = N + 8;
   float* hs = carry_smem;                              // [N][PS] fp32
   bf16* ht = reinterpret_cast<bf16*>(hs + N * PS);     // 3 x [N][PS]
-  bf16* raw = ht + kCarryTerms * N * PS;               // 2 x [Q][ldc]
+  bf16* raw = ht + kCarryTerms * N * PS;               // 2 x [R][ldc]
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, cq = lane & 3;
   const int ps0 = blockIdx.x * PS, h = blockIdx.y, b = blockIdx.z;
   const int nc = L / Q;
-  const int r0 = 16 * warp;     // this warp's rows of the chunk
+  const int r0 = 16 * warp;     // this warp's rows of a tile
+  auto row0_of = [&](CarryPos p) {
+    return (int64_t)b * L + (int64_t)p.c * Q + (kWhole ? 0 : p.k * R);
+  };
+  auto rows_of = [&](CarryPos p) {
+    return kWhole ? Q : min(R, Q - p.k * R);
+  };
 
   // h_prev's float4 e (row e / G4 of the slice) into fp32 and its terms.
   auto put_h = [&](int e, float4 v) {
@@ -707,28 +811,32 @@ __global__ void __launch_bounds__(kCarryMaxThreads)
       *reinterpret_cast<uint2*>(ht + k * N * PS + 4 * e) =
           make_uint2(lo[k], hi[k]);
   };
-  // What a chunk needs besides C, read into registers one chunk ahead:
-  // this thread's y_intra and cum, the chunk's last cum and the first
-  // kMaxS of the thread's float4s of the chunk state.
+  // What a tile needs besides C, read into registers one tile ahead:
+  // this warp's y_intra and cum (when the tile has its rows); at a
+  // chunk's first tile also the chunk's last cum and the first kMaxS of
+  // the thread's float4s of the chunk state (used after its last tile).
   float2 yi[2][NTP];
   float4 sreg[kMaxS];
   float ci[2], dl;
   auto state_at = [&](int c) {
     return states + (((int64_t)b * nc + c) * H + h) * (int64_t)N * P + ps0;
   };
-  auto prefetch = [&](int c) {
-    const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;
+  auto prefetch = [&](CarryPos p) {
+    const int64_t row0 = row0_of(p);
+    if (kWhole || r0 < rows_of(p)) {
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int64_t row = row0 + r0 + g + 8 * rr;
+      for (int rr = 0; rr < 2; ++rr) {
+        const int64_t row = row0 + r0 + g + 8 * rr;
 #pragma unroll
-      for (int nt = 0; nt < NTP; ++nt)
-        yi[rr][nt] = *reinterpret_cast<const float2*>(
-            y_intra + (row * H + h) * P + ps0 + 8 * nt + 2 * cq);
-      ci[rr] = cum[row * H + h];
+        for (int nt8 = 0; nt8 < NTP; ++nt8)
+          yi[rr][nt8] = *reinterpret_cast<const float2*>(
+              y_intra + (row * H + h) * P + ps0 + 8 * nt8 + 2 * cq);
+        ci[rr] = cum[row * H + h];
+      }
     }
-    dl = cum[(row0 + Q - 1) * H + h];
-    const float* sc = state_at(c);
+    if (!kWhole && !p.first()) return;
+    dl = cum[((int64_t)b * L + (int64_t)p.c * Q + Q - 1) * H + h];
+    const float* sc = state_at(p.c);
 #pragma unroll
     for (int k = 0; k < kMaxS; ++k) {
       const int e = tid + k * nthr;
@@ -744,61 +852,68 @@ __global__ void __launch_bounds__(kCarryMaxThreads)
                         init + (((int64_t)b * H + h) * N + n) * P + ps0 + q)
                   : make_float4(0.f, 0.f, 0.f, 0.f));
   }
-  load_c(raw, cm, (int64_t)b * L, N, Q);
-  prefetch(0);
-  for (int c = 0; c < nc; ++c) {
-    const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;
-    const bf16* cur = raw + (c & 1) * Q * ldc;
-    // C(c) has landed and h_prev's terms are complete; every warp is done
-    // with chunk c - 1's C buffer.
+  load_c(raw, cm, row0_of({0, 0}), N, rows_of({0, 0}));
+  prefetch({0, 0});
+  int buf = 0;
+  for (CarryPos p{0, 0}; p.c < nc; p = p.next(nt), buf ^= 1) {
+    const CarryPos q = p.next(nt);   // the tile after this one
+    const int64_t row0 = row0_of(p);
+    const bf16* cur = raw + buf * R * ldc;
+    // C(p) has landed and h_prev's terms are complete; every warp is done
+    // with the tile before's C buffer.
     cp_async_wait_all();
     __syncthreads();
-    if (c + 1 < nc)
-      load_c(raw + ((c + 1) & 1) * Q * ldc, cm, row0 + Q, N, Q);
+    if (q.c < nc)
+      load_c(raw + (buf ^ 1) * R * ldc, cm, row0_of(q), N, rows_of(q));
 
-    float acc[NTP][4] = {};
-    for (int kk = 0; kk < N / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, cur + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldc +
-                     16 * kk + (lane >> 4) * 8);
+    // Warp-uniform: whether the tile has this warp's rows.
+    if (kWhole || r0 < rows_of(p)) {
+      float acc[NTP][4] = {};
+      for (int kk = 0; kk < N / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, cur + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldc +
+                       16 * kk + (lane >> 4) * 8);
 #pragma unroll
-      for (int k = 0; k < kCarryTerms; ++k)
+        for (int k = 0; k < kCarryTerms; ++k)
 #pragma unroll
-        for (int nt = 0; nt < NTP; ++nt) {
-          uint32_t bb[2];
-          ldsm_x2_t(bb, ht + k * N * PS +
-                            (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                PS +
-                            8 * nt);
-          mma(acc[nt], a, bb[0], bb[1]);
-        }
+          for (int nt8 = 0; nt8 < NTP; ++nt8) {
+            uint32_t bb[2];
+            ldsm_x2_t(bb, ht + k * N * PS +
+                              (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                  PS +
+                              8 * nt8);
+            mma(acc[nt8], a, bb[0], bb[1]);
+          }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int64_t row = row0 + r0 + g + 8 * rr;
+        const float e = expf(ci[rr]);
+#pragma unroll
+        for (int nt8 = 0; nt8 < NTP; ++nt8)
+          store2(y + (row * H + h) * P + ps0 + 8 * nt8 + 2 * cq,
+                 yi[rr][nt8].x + e * acc[nt8][2 * rr],
+                 yi[rr][nt8].y + e * acc[nt8][2 * rr + 1]);
+      }
     }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int64_t row = row0 + r0 + g + 8 * rr;
-      const float e = expf(ci[rr]);
-#pragma unroll
-      for (int nt = 0; nt < NTP; ++nt)
-        store2(y + (row * H + h) * P + ps0 + 8 * nt + 2 * cq,
-               yi[rr][nt].x + e * acc[nt][2 * rr],
-               yi[rr][nt].y + e * acc[nt][2 * rr + 1]);
-    }
-    __syncthreads();  // every read of h_prev's terms is done
 
-    const float d = expf(dl);
+    if (kWhole || p.last(nt)) {
+      __syncthreads();  // every read of h_prev's terms is done
+      const float d = expf(dl);
 #pragma unroll
-    for (int k = 0; k < kMaxS; ++k) {
-      const int e = tid + k * nthr;
-      if (e < N * G4)
+      for (int k = 0; k < kMaxS; ++k) {
+        const int e = tid + k * nthr;
+        if (e < N * G4)
+          put_h(e, carry(d, *reinterpret_cast<const float4*>(hs + 4 * e),
+                         sreg[k]));
+      }
+      const float* sc = state_at(p.c);
+      for (int e = tid + kMaxS * nthr; e < N * G4; e += nthr)
         put_h(e, carry(d, *reinterpret_cast<const float4*>(hs + 4 * e),
-                       sreg[k]));
+                       *reinterpret_cast<const float4*>(sc + (e / G4) * P +
+                                                        (e % G4) * 4)));
     }
-    const float* sc = state_at(c);
-    for (int e = tid + kMaxS * nthr; e < N * G4; e += nthr)
-      put_h(e, carry(d, *reinterpret_cast<const float4*>(hs + 4 * e),
-                     *reinterpret_cast<const float4*>(sc + (e / G4) * P +
-                                                      (e % G4) * 4)));
-    if (c + 1 < nc) prefetch(c + 1);
+    if (q.c < nc) prefetch(q);
   }
   __syncthreads();
   for (int e = tid; e < N * PS; e += nthr) {
@@ -813,12 +928,13 @@ cudaError_t launch_carry_tc(const void* y_intra, const void* states,
                             void* y, void* final_state, int B, int L, int H,
                             int P, int N, int Q, cudaStream_t stream) {
   const size_t smem = carry_tc_smem_bytes(N, Q, PS);
+  const auto kernel = Q <= kCarryTile ? ssd_carry_tc<TY, PS, true>
+                                      : ssd_carry_tc<TY, PS, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_carry_tc<TY, PS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(P / PS, H, B);
-  ssd_carry_tc<TY, PS><<<grid, (Q / 16) * 32, smem, stream>>>(
+  kernel<<<grid, (carry_tile(Q) / 16) * 32, smem, stream>>>(
       static_cast<const float*>(y_intra), static_cast<const float*>(states),
       static_cast<const float*>(cum), static_cast<const bf16*>(cm),
       static_cast<const float*>(init), static_cast<TY*>(y),
@@ -907,4 +1023,18 @@ extern "C" int ssd_carry_launch(const void* y_intra, const void* states,
   if (c_dtype == 1 && y_dtype == 1) SSD_CARRY(bf16, bf16);
 #undef SSD_CARRY
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory (bytes) of a block at chunk Q, state size N and
+// head width P: the CUDA-core chunk kernel (which = 0), the carry on the
+// CUDA cores with fp32 C (1) or bf16 C (2), the carry on the tensor cores
+// (3), the carries at their 16-column slice; -1 for anything else.
+extern "C" int ssd_smem_bytes(int which, int Q, int N, int P) {
+  if (Q < 1 || N < 1 || P < 1) return -1;
+  if (which == 0)
+    return (int)(smem_floats(Q, N, P) * sizeof(float));
+  if (which == 1) return (int)carry_smem_bytes(N, Q, 16, 4);
+  if (which == 2) return (int)carry_smem_bytes(N, Q, 16, 2);
+  if (which == 3) return (int)carry_tc_smem_bytes(N, Q, 16);
+  return -1;
 }

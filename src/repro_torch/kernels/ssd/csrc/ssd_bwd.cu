@@ -95,10 +95,20 @@
 //   ssd_carry_bwd: one block per (slice of PS columns of P, head, batch),
 //   each thread two rows of N and four columns, both walks in registers;
 //   the reverse walk stages the chunk's C and exp(cum_i) dy_i in shared
-//   memory and forms C^T . dy on the CUDA cores.  ssd_chunk_bwd: one
-//   block of 256 threads per (chunk, group of G heads, batch), C . B^T
-//   once in shared memory with B and C (transposed, fp32), every product
-//   as 4 x 4 register tiles over two k-major operands in shared memory.
+//   memory and forms C^T . dy on the CUDA cores (any chunk up to 256
+//   rows: C and the slice of dy take 4 Q (N + PS) bytes).
+//   ssd_chunk_bwd: one block of 256 threads per (chunk, group of G heads,
+//   batch), chunks of 1 to 256 rows walked in blocks of up to 64 rows
+//   (kBwdRows): first each block of rows for every term it alone gives
+//   (state, inter, and the intra term of the block with itself), then
+//   each pair of blocks (i > j) for the rest of the intra term, C_i .
+//   B_j^T once a pair in shared memory with B and C (transposed, fp32),
+//   every product as 4 x 4 register tiles over two k-major operands in
+//   shared memory.  At Q <= 64 it is the first port's kernel.
+//   dx, dcum, ddt and the dB and dC partials are summed in the outputs,
+//   which only this block writes, each element by one thread in a fixed
+//   order: dx_j and dB_j over the blocks i at or above j, dC_i over the
+//   blocks j at or below i, dcum over both sides.
 
 #include "ssd_mma.cuh"
 
@@ -262,34 +272,65 @@ __device__ __forceinline__ float segment_sum(float v, int width) {
   return v;
 }
 
+// ssd_chunk_bwd walks a chunk in blocks of kBwdRows rows, or of the
+// chunk rounded up to a multiple of 4 when it is shorter; rows past the
+// chunk are zeros in shared memory and are never written out.
+constexpr int kBwdRows = 64;
+constexpr int kMaxGroup = 16;   // heads a block at most
+constexpr int kBwdVecs = 10;    // vectors of a block's rows
+
+__host__ __device__ inline int bwd_rows(int Q) {
+  const int r = (Q + 3) / 4 * 4;
+  return r < kBwdRows ? r : kBwdRows;
+}
+
 // Shared-memory layout of ssd_chunk_bwd, in floats; rows padded by 4 so
 // that they stay 16-byte aligned.
 struct ChunkBwdSmem {
-  int ldq, ldn, ldp;
+  int T, ldq, ldn, ldp;
   size_t bt, ct, cb, dcbt, xt, dyt, dyr, un, vec, total;
   // kernel.py's chunk_bwd_smem_bytes is the same sum.
   __host__ __device__ ChunkBwdSmem(int Q, int N, int P) {
-    ldq = Q + 4;
+    T = bwd_rows(Q);
+    ldq = T + 4;
     ldn = N + 4;
     ldp = P + 4;
-    bt = 0;                                // [N][ldq]  B, transposed
-    ct = bt + (size_t)N * ldq;             // [N][ldq]  C, transposed
-    cb = ct + (size_t)N * ldq;             // [Q][ldq]  C . B^T
-    dcbt = cb + (size_t)Q * ldq;           // [Q][ldq]  sum_h dW o E o dt, ^T
-    xt = dcbt + (size_t)Q * ldq;           // [P][ldq]  x, transposed
-    dyt = xt + (size_t)P * ldq;            // [P][ldq]  dy, transposed
-    dyr = dyt + (size_t)P * ldq;           // [Q][ldp]  dy
-    un = dyr + (size_t)Q * ldp;            // the union below
+    bt = 0;                                // [N][ldq]  B of a block, ^T
+    ct = bt + (size_t)N * ldq;             // [N][ldq]  C of a block, ^T
+    cb = ct + (size_t)N * ldq;             // [T][ldq]  C_i . B_j^T
+    dcbt = cb + (size_t)T * ldq;           // [T][ldq]  sum_h dW o E o dt, ^T
+    xt = dcbt + (size_t)T * ldq;           // [P][ldq]  x of a block, ^T
+    dyt = xt + (size_t)P * ldq;            // [P][ldq]  dy of a block, ^T
+    dyr = dyt + (size_t)P * ldq;           // [T][ldp]  dy of block i
+    un = dyr + (size_t)T * ldp;            // the union below
     // g [N][ldp] and g^T [P][ldn] (h_prev^T replaces g^T); then K and V,
-    // [Q][ldq] each; at the end B and C, [Q][ldn] each.
+    // [T][ldq] each; at a pair's end B_j and C_i, [T][ldn] each.
     size_t u = (size_t)N * ldp + (size_t)P * ldn;
-    if (2 * (size_t)Q * ldq > u) u = 2 * (size_t)Q * ldq;
-    if (2 * (size_t)Q * ldn > u) u = 2 * (size_t)Q * ldn;
-    vec = un + u;                          // 9 vectors of Q
-    total = vec + 9 * (size_t)Q;
+    if (2 * (size_t)T * ldq > u) u = 2 * (size_t)T * ldq;
+    if (2 * (size_t)T * ldn > u) u = 2 * (size_t)T * ldn;
+    vec = un + u;                          // kBwdVecs vectors of T
+    total = vec + kBwdVecs * (size_t)T + kMaxGroup;
   }
 };
 
+// One (chunk, group of G heads, batch) per block, the chunk in blocks of
+// T rows (bwd_rows).  Phase 1, for each block k of rows in order: for
+// each head, every term of those rows that block k alone gives — the
+// state and inter terms (dx's d_j B_j^T g, <B_j (x) x_j, g>, the inter
+// term of dcum; dB's g x_j and dC's h_prev dy_i summed over the heads in
+// registers) and the intra term of the pair (k, k) (dW = dy . x^T at or
+// below the diagonal, K, V = dW o K and the running sum over the heads of
+// dW o E o dt; the row and column sums of V; dx's K^T dy) — then dC_k
+// and dB_k from the registers and that running sum; each written once.
+// At Q <= 64 that is the whole chunk, in the order the first port's
+// kernel summed it.  Phase 2, for each pair of blocks (i, j) with i > j,
+// j the outer walk, i the inner: C_i . B_j^T; for each head, dW, K and V
+// of the pair's tile and the running sum of dW o E o dt; dcum_i += row
+// sums of V o dt, dcum_j -= dt_j . column sums of V, ddt_j += the
+// column sums, dx_j += dt_j (K^T dy_i); at the pair's end dC_i += (sum_h
+// dW o E o dt) . B_j and dB_j += its transpose . C_i — each added to
+// what the block wrote, by the thread that wrote it or after a barrier,
+// so every element sums in a fixed order and two runs are equal.
 template <typename T, int MT>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd_chunk_bwd(const T* __restrict__ x, const float* __restrict__ dt,
@@ -302,7 +343,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   int Q, int G) {
   extern __shared__ __align__(16) float sm[];
   const ChunkBwdSmem lay(Q, N, P);
-  const int ldq = lay.ldq, ldn = lay.ldn, ldp = lay.ldp;
+  const int TR = lay.T, ldq = lay.ldq, ldn = lay.ldn, ldp = lay.ldp;
   float* bt = sm + lay.bt;
   float* ct = sm + lay.ct;
   float* cb = sm + lay.cb;
@@ -312,19 +353,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* dyr = sm + lay.dyr;
   float* gr = sm + lay.un;                 // g [N][ldp]
   float* gt = gr + (size_t)N * ldp;        // g^T, then h_prev^T [P][ldn]
-  float* kk = sm + lay.un;                 // K [Q][ldq]
-  float* vv = kk + (size_t)Q * ldq;        // V = dW o K [Q][ldq]
-  float* brm = sm + lay.un;                // B [Q][ldn] (at the end)
-  float* crm = brm + (size_t)Q * ldn;      // C [Q][ldn]
-  float* dts = sm + lay.vec;               // dt_i
-  float* cums = dts + Q;                   // cum_i
-  float* ecum = cums + Q;                  // exp(cum_i)
-  float* dex = ecum + Q;                   // exp(cum_last - cum_j)
-  float* dd = dex + Q;                     // d_j = dex_j dt_j
-  float* ured = dd + Q;                    // <B_j (x) x_j, g>
-  float* inter = ured + Q;                 // exp(cum_i) <C_i . h_prev, dy_i>
-  float* rowt = inter + Q;                 // sum_j T_ij
-  float* colv = rowt + Q;                  // sum_i V_ij
+  float* kk = sm + lay.un;                 // K [T][ldq]
+  float* vv = kk + (size_t)TR * ldq;       // V = dW o K [T][ldq]
+  float* brm = sm + lay.un;                // B_j [T][ldn] (a pair's end)
+  float* crm = brm + (size_t)TR * ldn;     // C_i [T][ldn]
+  float* ecum = sm + lay.vec;              // exp(cum_i)
+  float* dex = ecum + TR;                  // exp(cum_last - cum_j)
+  float* dd = dex + TR;                    // d_j = dex_j dt_j
+  float* ured = dd + TR;                   // <B_j (x) x_j, g>
+  float* inter = ured + TR;                // exp(cum_i) <C_i . h_prev, dy_i>
+  float* dtsj = inter + TR;                // dt_j
+  float* cumsj = dtsj + TR;                // cum_j
+  float* cumsi = cumsj + TR;               // cum_i (phase 2)
+  float* rowt = cumsi + TR;                // sum_j T_ij over block j
+  float* colv = rowt + TR;                 // sum_i V_ij over block i
+  float* tails = colv + TR;                // [G]: dcum_last's chunk terms
   __shared__ float red[kThreads / 32];
   __shared__ float gh_sum;
 
@@ -332,240 +375,382 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
   const int h0 = grp * G;
   const int nc = L / Q;
+  const int nb = (Q + TR - 1) / TR;
   const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;
-  const int qt = Q / 4, ntn = N / 4, ptn = P / 4;
+  const int qt = TR / 4, ntn = N / 4, ptn = P / 4;
   const int sq_tiles = qt * qt, qn_tiles = qt * ntn, qp_tiles = qt * ptn;
-
-  // B, C transposed; the running sum of dW o E o dt zeroed.
-  for (int e = tid; e < Q * N; e += kThreads) {
-    const int i = e / N, n = e % N;
-    bt[n * ldq + i] = to_f(bm[row0 * N + e]);
-    ct[n * ldq + i] = to_f(cm[row0 * N + e]);
-  }
-  for (int e = tid; e < Q * ldq; e += kThreads) dcbt[e] = 0.f;
-  __syncthreads();
-  // C . B^T on and below the diagonal's tiles.
-  if (tid < sq_tiles && tid % qt <= tid / qt) {
-    const int i0 = (tid / qt) * 4, j0 = (tid % qt) * 4;
-    float acc[4][4] = {};
-    mac4x4(acc, 0, N, [&](int k) { return ld4(ct + k * ldq + i0); },
-           [&](int k) { return ld4(bt + k * ldq + j0); });
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      st4(cb + (i0 + r) * ldq + j0,
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
-  }
-
-  float db[MT][4][4] = {}, dc[MT][4][4] = {};
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = h0 + gi;
-    const int64_t st = (((int64_t)b * nc + c) * H + h) * (int64_t)N * P;
-    __syncthreads();  // C . B^T is complete; the last head is done
-    for (int e = tid; e < Q * P; e += kThreads) {
-      const int i = e / P, p = e % P;
-      const int64_t o = ((row0 + i) * H + h) * P + p;
-      const float dv = to_f(dy[o]);
-      xt[p * ldq + i] = to_f(x[o]);
-      dyt[p * ldq + i] = dv;
-      dyr[i * ldp + p] = dv;
+  const int64_t part0 = ((int64_t)grp * gridDim.z * L) * N;  // this group
+  // This thread's 4 x 4 tile of a [T, P] product (dx) and its rows.
+  const int xj0 = (tid / ptn) * 4, xp0 = (tid % ptn) * 4;
+  // Rows r0.. of B or C, transposed into dst, zeros past the chunk.
+  auto load_t = [&](float* dst, const T* src, int r0) {
+    for (int e = tid; e < TR * N; e += kThreads) {
+      const int i = e / N, n = e % N;
+      dst[n * ldq + i] = r0 + i < Q ? to_f(src[(row0 + r0 + i) * N + n])
+                                    : 0.f;
     }
-    const float cl = cum[(row0 + Q - 1) * H + h];
-    for (int i = tid; i < Q; i += kThreads) {
-      const float ci = cum[(row0 + i) * H + h], ti = dt[(row0 + i) * H + h];
-      dts[i] = ti;
-      cums[i] = ci;
-      ecum[i] = expf(ci);
-      dex[i] = expf(cl - ci);
-      dd[i] = dex[i] * ti;
+  };
+  // Rows r0.. of B and C, row-major into the union, zeros past the chunk.
+  auto load_rows = [&](int jb, int ib) {
+    for (int e = tid; e < TR * N; e += kThreads) {
+      const int i = e / N, n = e % N;
+      brm[i * ldn + n] = jb + i < Q ? to_f(bm[(row0 + jb + i) * N + n])
+                                    : 0.f;
+      crm[i * ldn + n] = ib + i < Q ? to_f(cm[(row0 + ib + i) * N + n])
+                                    : 0.f;
     }
-    for (int e = tid; e < N * P; e += kThreads) {
-      const int n = e / P, p = e % P;
-      const float v = g[st + e];
-      gr[n * ldp + p] = v;
-      gt[p * ldn + n] = v;
-    }
-    __syncthreads();
-
-    // State term: dx_j = d_j B_j^T g; g x_j into dB; <B_j (x) x_j, g>.
-    float dxa[4][4] = {};
-    const int xj0 = (tid / ptn) * 4, xp0 = (tid % ptn) * 4;
-    if (tid < qp_tiles) {
-      mac4x4(dxa, 0, N, [&](int k) { return ld4(bt + k * ldq + xj0); },
-             [&](int k) { return ld4(gr + k * ldp + xp0); });
+  };
+  // C_i . B_j^T from ct and bt on the 4 x 4 tiles (at or below the
+  // diagonal's when i = j).
+  auto c_bt = [&](bool diag) {
+    if (tid < sq_tiles && (!diag || tid % qt <= tid / qt)) {
+      const int a0 = (tid / qt) * 4, c0 = (tid % qt) * 4;
+      float acc[4][4] = {};
+      mac4x4(acc, 0, N, [&](int k) { return ld4(ct + k * ldq + a0); },
+             [&](int k) { return ld4(bt + k * ldq + c0); });
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) dxa[r][q] *= dd[xj0 + r];
+        st4(cb + (a0 + r) * ldq + c0,
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
     }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int t = tid + m * kThreads;
-      const bool ok = t < qn_tiles;
-      const int i0 = (t / ntn) * 4, n0 = (t % ntn) * 4;
-      float tmp[4][4] = {}, part[4] = {};
-      if (ok) {
-        mac4x4(tmp, 0, P, [&](int k) { return ld4(xt + k * ldq + i0); },
-               [&](int k) { return ld4(gt + k * ldn + n0); });
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            part[r] = fmaf(bt[(n0 + q) * ldq + i0 + r], tmp[r][q], part[r]);
-            db[m][r][q] = fmaf(dd[i0 + r], tmp[r][q], db[m][r][q]);
-          }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) part[r] = segment_sum(part[r], ntn);
-      if (ok && n0 == 0)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) ured[i0 + r] = part[r];
-    }
-    __syncthreads();  // done with g^T
-
-    // Inter term: h_prev^T staged over g^T; <g, h_prev> on the way.
-    float gh = 0.f;
-    for (int e = tid; e < N * P; e += kThreads) {
-      const int n = e / P, p = e % P;
-      const float v = hp[st + e];
-      gt[p * ldn + n] = v;
-      gh = fmaf(gr[n * ldp + p], v, gh);
-    }
-    gh = segment_sum(gh, 32);
-    if (lane == 0) red[warp] = gh;
-    __syncthreads();
-    if (tid == 0) {
-      float s = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) s += red[w];
-      gh_sum = s;
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int t = tid + m * kThreads;
-      const bool ok = t < qn_tiles;
-      const int i0 = (t / ntn) * 4, n0 = (t % ntn) * 4;
-      float tmp[4][4] = {}, part[4] = {};
-      if (ok) {
-        mac4x4(tmp, 0, P, [&](int k) { return ld4(dyt + k * ldq + i0); },
-               [&](int k) { return ld4(gt + k * ldn + n0); });
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            part[r] = fmaf(ct[(n0 + q) * ldq + i0 + r], tmp[r][q], part[r]);
-            dc[m][r][q] = fmaf(ecum[i0 + r], tmp[r][q], dc[m][r][q]);
-          }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) part[r] = segment_sum(part[r], ntn);
-      if (ok && n0 == 0)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) inter[i0 + r] = ecum[i0 + r] * part[r];
-    }
-    __syncthreads();  // done with g and h_prev^T: K and V take their place
-
-    // Intra term: dW on and below the diagonal's tiles; K, V and the
-    // running sum of dW o E o dt.
-    if (tid < sq_tiles) {
-      const int mt = tid / qt, nt = tid % qt;
-      const int i0 = mt * 4, j0 = nt * 4;
-      float dw[4][4] = {};
-      if (nt <= mt)
-        mac4x4(dw, 0, P, [&](int k) { return ld4(dyt + k * ldq + i0); },
-               [&](int k) { return ld4(xt + k * ldq + j0); });
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float kr[4], vr[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int i = i0 + r, j = j0 + q;
-          kr[q] = 0.f;
-          vr[q] = 0.f;
-          if (i >= j) {
-            const float e = expf(cums[i] - cums[j]);
-            kr[q] = cb[i * ldq + j] * e;
-            vr[q] = dw[r][q] * kr[q];
-            dcbt[j * ldq + i] = fmaf(dw[r][q] * e, dts[j], dcbt[j * ldq + i]);
-          }
-        }
-        st4(kk + (i0 + r) * ldq + j0, make_float4(kr[0], kr[1], kr[2], kr[3]));
-        st4(vv + (i0 + r) * ldq + j0, make_float4(vr[0], vr[1], vr[2], vr[3]));
-      }
-    }
-    __syncthreads();
-    if (tid < Q) {
-      float s = 0.f;
-      for (int j = 0; j <= tid; ++j) s = fmaf(vv[tid * ldq + j], dts[j], s);
-      rowt[tid] = s;
-    } else if (tid < 2 * Q) {
-      const int j = tid - Q;
-      float s = 0.f;
-      for (int i = j; i < Q; ++i) s += vv[i * ldq + j];
-      colv[j] = s;
-    }
-    if (tid < qp_tiles) {
-      float acc[4][4] = {};
-      mac4x4(acc, xj0, Q, [&](int k) { return ld4(kk + k * ldq + xj0); },
-             [&](int k) { return ld4(dyr + k * ldp + xp0); });
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float tj = dts[xj0 + r];
-        st4(dx + ((row0 + xj0 + r) * H + h) * P + xp0,
-            make_float4(fmaf(tj, acc[r][0], dxa[r][0]),
-                        fmaf(tj, acc[r][1], dxa[r][1]),
-                        fmaf(tj, acc[r][2], dxa[r][2]),
-                        fmaf(tj, acc[r][3], dxa[r][3])));
-      }
-    }
-    __syncthreads();
-    if (tid < Q) {
-      const int j = tid;
-      float v = rowt[j] - dts[j] * colv[j] - dd[j] * ured[j] + inter[j];
-      if (j == Q - 1) {
-        float s = expf(cums[Q - 1]) * gh_sum;
-        for (int k = 0; k < Q; ++k) s = fmaf(dd[k], ured[k], s);
-        v += s;
-      }
-      dcum[(row0 + j) * H + h] = v;
-      ddt[(row0 + j) * H + h] = fmaf(dex[j], ured[j], colv[j]);
-    }
-  }
-
-  // dC += (sum_h dW o E o dt) . B and dB += its transpose . C, with B and
-  // C row-major in the union; then this group's partial sums.
-  __syncthreads();
-  for (int e = tid; e < Q * N; e += kThreads) {
-    const int i = e / N, n = e % N;
-    brm[i * ldn + n] = to_f(bm[row0 * N + e]);
-    crm[i * ldn + n] = to_f(cm[row0 * N + e]);
-  }
-  __syncthreads();
-  const int64_t part0 = ((int64_t)grp * gridDim.z * L) * N;  // this group
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const int t = tid + m * kThreads;
-    if (t >= qn_tiles) continue;
-    const int i0 = (t / ntn) * 4, n0 = (t % ntn) * 4;
-    float acc[4][4] = {};
-    mac4x4(acc, 0, min(Q, i0 + 4),
-           [&](int k) { return ld4(dcbt + k * ldq + i0); },
-           [&](int k) { return ld4(brm + k * ldn + n0); });
-    float acc2[4][4] = {};
-    mac4x4(acc2, i0, Q,
-           [&](int k) {
-             return make_float4(dcbt[i0 * ldq + k], dcbt[(i0 + 1) * ldq + k],
-                                dcbt[(i0 + 2) * ldq + k],
-                                dcbt[(i0 + 3) * ldq + k]);
-           },
-           [&](int k) { return ld4(crm + k * ldn + n0); });
+  };
+  // dW = dy_i . x_j^T on the tiles (at or below the diagonal's when
+  // i = j); K, V and the running sum of dW o E o dt.  E is taken only at
+  // i >= j within the chunk (ni, nj rows of the two blocks).
+  auto intra_tiles = [&](bool diag, const float* ci_, int ni, int nj,
+                         int di) {
+    if (tid >= sq_tiles) return;
+    const int mt = tid / qt, nt = tid % qt;
+    const int a0 = mt * 4, c0 = nt * 4;
+    float dw[4][4] = {};
+    if (!diag || nt <= mt)
+      mac4x4(dw, 0, P, [&](int k) { return ld4(dyt + k * ldq + a0); },
+             [&](int k) { return ld4(xt + k * ldq + c0); });
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int64_t o = part0 + (row0 + i0 + r) * N + n0;
-      st4(dc_part + o,
-          make_float4(dc[m][r][0] + acc[r][0], dc[m][r][1] + acc[r][1],
-                      dc[m][r][2] + acc[r][2], dc[m][r][3] + acc[r][3]));
-      st4(db_part + o,
-          make_float4(db[m][r][0] + acc2[r][0], db[m][r][1] + acc2[r][1],
-                      db[m][r][2] + acc2[r][2], db[m][r][3] + acc2[r][3]));
+      float kr[4], vr[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = a0 + r, j = c0 + q;
+        kr[q] = 0.f;
+        vr[q] = 0.f;
+        if (i < ni && j < nj && di + i >= j) {
+          const float e = expf(ci_[i] - cumsj[j]);
+          kr[q] = cb[i * ldq + j] * e;
+          vr[q] = dw[r][q] * kr[q];
+          dcbt[j * ldq + i] = fmaf(dw[r][q] * e, dtsj[j], dcbt[j * ldq + i]);
+        }
+      }
+      st4(kk + (a0 + r) * ldq + c0, make_float4(kr[0], kr[1], kr[2], kr[3]));
+      st4(vv + (a0 + r) * ldq + c0, make_float4(vr[0], vr[1], vr[2], vr[3]));
+    }
+  };
+  // Row sums of V o dt into rowt, column sums of V into colv.
+  auto row_col_sums = [&](bool diag) {
+    if (tid < TR) {
+      const int jn = diag ? tid + 1 : TR;
+      float s = 0.f;
+      for (int j = 0; j < jn; ++j) s = fmaf(vv[tid * ldq + j], dtsj[j], s);
+      rowt[tid] = s;
+    } else if (tid < 2 * TR) {
+      const int j = tid - TR;
+      float s = 0.f;
+      for (int i = diag ? j : 0; i < TR; ++i) s += vv[i * ldq + j];
+      colv[j] = s;
+    }
+  };
+  // K^T dy_i for this thread's dx tile.
+  auto kt_dy = [&](bool diag, float (&acc)[4][4]) {
+    mac4x4(acc, diag ? xj0 : 0, TR,
+           [&](int k) { return ld4(kk + k * ldq + xj0); },
+           [&](int k) { return ld4(dyr + k * ldp + xp0); });
+  };
+  // (sum_h dW o E o dt) . B_j (rows a0.. of block i) and its transpose
+  // . C_i (rows a0.. of block j) for output tile t of a [T, N] product.
+  auto dcb_products = [&](bool diag, int a0, int n0, float (&acc)[4][4],
+                          float (&acc2)[4][4]) {
+    mac4x4(acc, 0, diag ? min(TR, a0 + 4) : TR,
+           [&](int k) { return ld4(dcbt + k * ldq + a0); },
+           [&](int k) { return ld4(brm + k * ldn + n0); });
+    mac4x4(acc2, diag ? a0 : 0, TR,
+           [&](int k) {
+             return make_float4(dcbt[a0 * ldq + k], dcbt[(a0 + 1) * ldq + k],
+                                dcbt[(a0 + 2) * ldq + k],
+                                dcbt[(a0 + 3) * ldq + k]);
+           },
+           [&](int k) { return ld4(crm + k * ldn + n0); });
+  };
+
+  // Phase 1: block k of rows by block k, every term it alone gives.
+  for (int K = 0; K < nb; ++K) {
+    const int k0 = K * TR, nk = min(TR, Q - k0);
+    __syncthreads();  // every thread is done with the last block's tiles
+    load_t(bt, bm, k0);
+    load_t(ct, cm, k0);
+    for (int e = tid; e < TR * ldq; e += kThreads) dcbt[e] = 0.f;
+    __syncthreads();
+    c_bt(true);
+    float db[MT][4][4] = {}, dc[MT][4][4] = {};
+    for (int gi = 0; gi < G; ++gi) {
+      const int h = h0 + gi;
+      const int64_t st = (((int64_t)b * nc + c) * H + h) * (int64_t)N * P;
+      __syncthreads();  // C . B^T is complete; the last head is done
+      for (int e = tid; e < TR * P; e += kThreads) {
+        const int i = e / P, p = e % P;
+        const bool ok = i < nk;
+        const int64_t o = ((row0 + k0 + i) * H + h) * P + p;
+        const float dv = ok ? to_f(dy[o]) : 0.f;
+        xt[p * ldq + i] = ok ? to_f(x[o]) : 0.f;
+        dyt[p * ldq + i] = dv;
+        dyr[i * ldp + p] = dv;
+      }
+      const float cl = cum[(row0 + Q - 1) * H + h];
+      for (int i = tid; i < TR; i += kThreads) {
+        float ci = 0.f, ti = 0.f, e = 0.f, de = 0.f;
+        if (i < nk) {
+          ci = cum[(row0 + k0 + i) * H + h];
+          ti = dt[(row0 + k0 + i) * H + h];
+          e = expf(ci);
+          de = expf(cl - ci);
+        }
+        dtsj[i] = ti;
+        cumsj[i] = ci;
+        ecum[i] = e;
+        dex[i] = de;
+        dd[i] = de * ti;
+      }
+      for (int e = tid; e < N * P; e += kThreads) {
+        const int n = e / P, p = e % P;
+        const float v = g[st + e];
+        gr[n * ldp + p] = v;
+        gt[p * ldn + n] = v;
+      }
+      __syncthreads();
+
+      // State term: dx_j = d_j B_j^T g; g x_j into dB; <B_j (x) x_j, g>.
+      float dxa[4][4] = {};
+      if (tid < qp_tiles) {
+        mac4x4(dxa, 0, N, [&](int k) { return ld4(bt + k * ldq + xj0); },
+               [&](int k) { return ld4(gr + k * ldp + xp0); });
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) dxa[r][q] *= dd[xj0 + r];
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int t = tid + m * kThreads;
+        const bool ok = t < qn_tiles;
+        const int i0 = (t / ntn) * 4, n0 = (t % ntn) * 4;
+        float tmp[4][4] = {}, part[4] = {};
+        if (ok) {
+          mac4x4(tmp, 0, P, [&](int k) { return ld4(xt + k * ldq + i0); },
+                 [&](int k) { return ld4(gt + k * ldn + n0); });
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              part[r] = fmaf(bt[(n0 + q) * ldq + i0 + r], tmp[r][q],
+                             part[r]);
+              db[m][r][q] = fmaf(dd[i0 + r], tmp[r][q], db[m][r][q]);
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) part[r] = segment_sum(part[r], ntn);
+        if (ok && n0 == 0)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) ured[i0 + r] = part[r];
+      }
+      __syncthreads();  // done with g^T
+
+      // Inter term: h_prev^T staged over g^T; <g, h_prev> on the way.
+      float gh = 0.f;
+      for (int e = tid; e < N * P; e += kThreads) {
+        const int n = e / P, p = e % P;
+        const float v = hp[st + e];
+        gt[p * ldn + n] = v;
+        gh = fmaf(gr[n * ldp + p], v, gh);
+      }
+      gh = segment_sum(gh, 32);
+      if (lane == 0) red[warp] = gh;
+      __syncthreads();
+      if (tid == 0) {
+        float s = 0.f;
+        for (int w = 0; w < kThreads / 32; ++w) s += red[w];
+        gh_sum = s;
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int t = tid + m * kThreads;
+        const bool ok = t < qn_tiles;
+        const int i0 = (t / ntn) * 4, n0 = (t % ntn) * 4;
+        float tmp[4][4] = {}, part[4] = {};
+        if (ok) {
+          mac4x4(tmp, 0, P, [&](int k) { return ld4(dyt + k * ldq + i0); },
+                 [&](int k) { return ld4(gt + k * ldn + n0); });
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              part[r] = fmaf(ct[(n0 + q) * ldq + i0 + r], tmp[r][q],
+                             part[r]);
+              dc[m][r][q] = fmaf(ecum[i0 + r], tmp[r][q], dc[m][r][q]);
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) part[r] = segment_sum(part[r], ntn);
+        if (ok && n0 == 0)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) inter[i0 + r] = ecum[i0 + r] * part[r];
+      }
+      __syncthreads();  // done with g and h_prev^T: K and V take their place
+
+      // Intra term of the pair (k, k).
+      intra_tiles(true, cumsj, nk, nk, 0);
+      __syncthreads();
+      row_col_sums(true);
+      if (tid < qp_tiles) {
+        float acc[4][4] = {};
+        kt_dy(true, acc);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (xj0 + r >= nk) break;
+          const float tj = dtsj[xj0 + r];
+          st4(dx + ((row0 + k0 + xj0 + r) * H + h) * P + xp0,
+              make_float4(fmaf(tj, acc[r][0], dxa[r][0]),
+                          fmaf(tj, acc[r][1], dxa[r][1]),
+                          fmaf(tj, acc[r][2], dxa[r][2]),
+                          fmaf(tj, acc[r][3], dxa[r][3])));
+        }
+      }
+      __syncthreads();
+      if (tid < nk) {
+        const int j = tid;
+        const int64_t o = (row0 + k0 + j) * H + h;
+        dcum[o] = rowt[j] - dtsj[j] * colv[j] - dd[j] * ured[j] + inter[j];
+        ddt[o] = fmaf(dex[j], ured[j], colv[j]);
+      }
+      if (tid == 0) {   // dcum_last: exp(cum_last) <g, h_prev> + sum d U
+        float s = K == 0 ? expf(cl) * gh_sum : tails[gi];
+        for (int k = 0; k < nk; ++k) s = fmaf(dd[k], ured[k], s);
+        tails[gi] = s;
+      }
+    }
+
+    // This block's rows of the group's dB and dC: the registers' terms
+    // and the pair (k, k)'s, with B and C row-major in the union.
+    __syncthreads();
+    load_rows(k0, k0);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int t = tid + m * kThreads;
+      if (t >= qn_tiles) continue;
+      const int a0 = (t / ntn) * 4, n0 = (t % ntn) * 4;
+      float acc[4][4] = {}, acc2[4][4] = {};
+      dcb_products(true, a0, n0, acc, acc2);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (a0 + r >= nk) break;
+        const int64_t o = part0 + (row0 + k0 + a0 + r) * N + n0;
+        st4(dc_part + o,
+            make_float4(dc[m][r][0] + acc[r][0], dc[m][r][1] + acc[r][1],
+                        dc[m][r][2] + acc[r][2], dc[m][r][3] + acc[r][3]));
+        st4(db_part + o,
+            make_float4(db[m][r][0] + acc2[r][0], db[m][r][1] + acc2[r][1],
+                        db[m][r][2] + acc2[r][2], db[m][r][3] + acc2[r][3]));
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < G) dcum[(row0 + Q - 1) * H + h0 + tid] += tails[tid];
+
+  // Phase 2: the intra term of each pair of blocks (i, j), i > j.
+  for (int J = 0; J + 1 < nb; ++J) {
+    const int j0 = J * TR, nj = min(TR, Q - j0);
+    for (int I = J + 1; I < nb; ++I) {
+      const int i0b = I * TR, ni = min(TR, Q - i0b);
+      __syncthreads();  // every thread is done with the last pair's tiles
+      load_t(bt, bm, j0);
+      load_t(ct, cm, i0b);
+      for (int e = tid; e < TR * ldq; e += kThreads) dcbt[e] = 0.f;
+      __syncthreads();
+      c_bt(false);
+
+      for (int gi = 0; gi < G; ++gi) {
+        const int h = h0 + gi;
+        __syncthreads();  // C_i . B_j^T is complete; the last head is done
+        for (int e = tid; e < TR * P; e += kThreads) {
+          const int i = e / P, p = e % P;
+          xt[p * ldq + i] =
+              i < nj ? to_f(x[((row0 + j0 + i) * H + h) * P + p]) : 0.f;
+          const float dv =
+              i < ni ? to_f(dy[((row0 + i0b + i) * H + h) * P + p]) : 0.f;
+          dyt[p * ldq + i] = dv;
+          dyr[i * ldp + p] = dv;
+        }
+        for (int i = tid; i < TR; i += kThreads) {
+          dtsj[i] = i < nj ? dt[(row0 + j0 + i) * H + h] : 0.f;
+          cumsj[i] = i < nj ? cum[(row0 + j0 + i) * H + h] : 0.f;
+          cumsi[i] = i < ni ? cum[(row0 + i0b + i) * H + h] : 0.f;
+        }
+        __syncthreads();
+        intra_tiles(false, cumsi, ni, nj, i0b - j0);
+        __syncthreads();
+        row_col_sums(false);
+        if (tid < qp_tiles) {   // dx_j += dt_j (K^T dy_i)_j
+          float acc[4][4] = {};
+          kt_dy(false, acc);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if (xj0 + r >= nj) break;
+            const float tj = dtsj[xj0 + r];
+            float* o = dx + ((row0 + j0 + xj0 + r) * H + h) * P + xp0;
+            const float4 v = ld4(o);
+            st4(o, make_float4(fmaf(tj, acc[r][0], v.x),
+                               fmaf(tj, acc[r][1], v.y),
+                               fmaf(tj, acc[r][2], v.z),
+                               fmaf(tj, acc[r][3], v.w)));
+          }
+        }
+        __syncthreads();
+        if (tid < TR) {   // rows tid of blocks i and j: distinct elements
+          if (tid < ni) dcum[(row0 + i0b + tid) * H + h] += rowt[tid];
+          if (tid < nj) {
+            const int64_t o = (row0 + j0 + tid) * H + h;
+            dcum[o] -= dtsj[tid] * colv[tid];
+            ddt[o] += colv[tid];
+          }
+        }
+      }
+
+      // dC_i += (sum_h dW o E o dt) . B_j and dB_j += its transpose . C_i.
+      __syncthreads();
+      load_rows(j0, i0b);
+      __syncthreads();
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int t = tid + m * kThreads;
+        if (t >= qn_tiles) continue;
+        const int a0 = (t / ntn) * 4, n0 = (t % ntn) * 4;
+        float acc[4][4] = {}, acc2[4][4] = {};
+        dcb_products(false, a0, n0, acc, acc2);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (a0 + r < ni) {
+            float* o = dc_part + part0 + (row0 + i0b + a0 + r) * N + n0;
+            const float4 v = ld4(o);
+            st4(o, make_float4(v.x + acc[r][0], v.y + acc[r][1],
+                               v.z + acc[r][2], v.w + acc[r][3]));
+          }
+          if (a0 + r < nj) {
+            float* o = db_part + part0 + (row0 + j0 + a0 + r) * N + n0;
+            const float4 v = ld4(o);
+            st4(o, make_float4(v.x + acc2[r][0], v.y + acc2[r][1],
+                               v.z + acc2[r][2], v.w + acc2[r][3]));
+          }
+        }
+      }
     }
   }
 }
@@ -1533,9 +1718,9 @@ extern "C" int ssd_carry_bwd_launch(const void* states, const void* cum,
 // dtype: 0 = float32, 1 = bfloat16 for x, B, C and dy.  x, dy and dx
 // [B, L, H, P]; dt, cum, dcum and ddt [B, L, H] fp32; B, C [B, L, N];
 // g and h_prev [B, L / Q, H, N, P] fp32; db_part and dc_part
-// [H / G, B, L, N] fp32; all contiguous and 16-byte aligned.  Q a multiple
-// of 4 up to 64, P a multiple of 4 up to 64, N a power of two from 8 to
-// 128, G a divisor of H.  tc = 0 runs ssd_chunk_bwd on the CUDA cores;
+// [H / G, B, L, N] fp32; all contiguous and 16-byte aligned.  Q from 1 to
+// 256, P a multiple of 4 up to 64, N a power of two from 8 to 128, G a
+// divisor of H up to 16.  tc = 0 runs ssd_chunk_bwd on the CUDA cores;
 // tc = 1 runs ssd_chunk_bwd_tc (bf16 at Q = P = 64, N = 64 or 128).
 extern "C" int ssd_chunk_bwd_launch(const void* x, const void* dt,
                                     const void* cum, const void* bm,
@@ -1546,8 +1731,8 @@ extern "C" int ssd_chunk_bwd_launch(const void* x, const void* dt,
                                     int H, int P, int N, int Q, int G,
                                     int tc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Q % 4 || Q < 4 || Q > 64 || L % Q || P % 4 || P < 4 || P > 64 ||
-      !pow2(N) || N < 8 || N > 128 || G < 1 || H % G)
+  if (Q < 1 || Q > 256 || L % Q || P % 4 || P < 4 || P > 64 || !pow2(N) ||
+      N < 8 || N > 128 || G < 1 || G > kMaxGroup || H % G)
     return (int)cudaErrorInvalidValue;
   if (tc) {
     if (dtype != 1 || Q != kTQ || P != kTP)
@@ -1561,7 +1746,8 @@ extern "C" int ssd_chunk_bwd_launch(const void* x, const void* dt,
 #undef SSD_CHUNK_BWD_TC
     return (int)cudaErrorInvalidValue;
   }
-  const int mt = ((Q / 4) * (N / 4) + kThreads - 1) / kThreads;  // 1 or 2
+  const int mt = ((bwd_rows(Q) / 4) * (N / 4) + kThreads - 1) /
+                 kThreads;  // 1 or 2
 #define SSD_CHUNK_BWD(T, MT)                                                 \
   return (int)launch_chunk_bwd_mt<T, MT>(x, dt, cum, bm, cm, dy, g, hp, dx,  \
                                          dcum, ddt, db_part, dc_part, B, L, \
@@ -1581,5 +1767,15 @@ extern "C" int ssd_bwd_tc_smem_bytes(int which, int N, int n) {
   if ((N != 64 && N != 128) || n < 1) return -1;
   if (which == 0) return (int)ChunkTcSmem(N, n).total;
   if (which == 1) return (int)CarryTcSmem(kCarryRows, n).total;
+  return -1;
+}
+
+// Dynamic shared memory (bytes) of an ssd_chunk_bwd block (which = 0) or
+// of an ssd_carry_bwd block at its 16-column slice (1), at chunk Q, state
+// size N and head width P; -1 for anything else.
+extern "C" int ssd_bwd_smem_bytes(int which, int Q, int N, int P) {
+  if (Q < 1 || N < 1 || P < 1) return -1;
+  if (which == 0) return (int)(ChunkBwdSmem(Q, N, P).total * sizeof(float));
+  if (which == 1) return (int)carry_bwd_smem_bytes(Q, N, 16);
   return -1;
 }

@@ -48,6 +48,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_chunk_launch.restype = ctypes.c_int
     lib.ssd_carry_launch.argtypes = [P] * 7 + [I] * 8 + [P]
     lib.ssd_carry_launch.restype = ctypes.c_int
+    lib.ssd_smem_bytes.argtypes = [I] * 4
+    lib.ssd_smem_bytes.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
@@ -55,8 +57,9 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.ssd_carry_bwd_launch.argtypes = [P] * 9 + [I] * 8 + [P]
     lib.ssd_chunk_bwd_launch.argtypes = [P] * 13 + [I] * 9 + [P]
     lib.ssd_bwd_tc_smem_bytes.argtypes = [I] * 3
+    lib.ssd_bwd_smem_bytes.argtypes = [I] * 4
     for fn in (lib.ssd_carry_bwd_launch, lib.ssd_chunk_bwd_launch,
-               lib.ssd_bwd_tc_smem_bytes):
+               lib.ssd_bwd_tc_smem_bytes, lib.ssd_bwd_smem_bytes):
         fn.restype = ctypes.c_int
 
 
@@ -79,32 +82,60 @@ BWD_TERMS = 2
 BWD_KERNELS = ("ssd_carry_bwd", "ssd_chunk_bwd", "ssd_carry_bwd_tc",
                "ssd_chunk_bwd_tc")
 BWD_KERNEL_LAUNCHES = dict.fromkeys(BWD_KERNELS, 0)
-# What ssd_chunk_bwd takes: chunks of Q <= 64 rows (a multiple of 4),
-# head widths P <= 64 (a multiple of 4), state sizes N a power of two
-# from 8 to 128.
-BWD_MAX_Q, BWD_MAX_P, BWD_N = 64, 64, (8, 16, 32, 64, 128)
+# The longest chunk the kernels take, forward and backward.
+MAX_CHUNK = 256
+# What ssd_chunk_bwd takes: chunks of 1 to MAX_CHUNK rows, head widths
+# P <= 64 (a multiple of 4), state sizes N a power of two from 8 to 128.
+BWD_MAX_Q, BWD_MAX_P, BWD_N = MAX_CHUNK, 64, (8, 16, 32, 64, 128)
+# Rows of the blocks the CUDA-core chunk kernel, the carry and the
+# CUDA-core chunk backward walk a chunk in (kRows, kCarryTile and kBwdRows
+# in csrc/).
+CHUNK_ROWS = 64
 
 
 def smem_bytes(Q: int, N: int, P: int) -> int:
-    """Dynamic shared memory of one block of the CUDA-core kernel: x
-    [Q,P], B and C [Q,N+1], W [Q,Q+1] and three [Q] vectors, fp32 (as
-    ``smem_floats`` in ``csrc/ssd.cu``)."""
-    return 4 * (Q * P + 2 * Q * (N + 1) + Q * (Q + 1) + 3 * Q)
+    """Dynamic shared memory of one block of the CUDA-core kernel, at R =
+    min(Q, ``CHUNK_ROWS``) rows a block: dt, cum and dec_end [Q]; x
+    [R,P], B and C [R,N+1], W [R,R+1], and y [R,P] where the chunk has
+    more than one block; fp32 (as ``smem_floats`` in ``csrc/ssd.cu``)."""
+    R = min(Q, CHUNK_ROWS)
+    return 4 * (3 * Q + R * P * (2 if Q > R else 1) + 2 * R * (N + 1)
+                + R * (R + 1))
 
 
 def carry_smem_bytes(N: int, Q: int, c_dtype: torch.dtype) -> int:
     """Dynamic shared memory of one carry block at its widest slice (16
-    columns): h_prev [N,16] and C transposed [N,Q] in fp32, and two
-    padded [Q, N + 16 bytes] buffers of C as read (as ``carry_smem_bytes``
-    in ``csrc/ssd.cu``)."""
+    columns), R = min(Q, ``CHUNK_ROWS``) rows a tile: h_prev [N,16] and a
+    tile of C transposed [N,R] in fp32, and two padded [R, N + 16 bytes]
+    buffers of C as read (as ``carry_smem_bytes`` in ``csrc/ssd.cu``)."""
     size = 2 if c_dtype == torch.bfloat16 else 4
-    return 4 * (N * 16 + N * (Q + Q % 2)) + 2 * Q * (N + 16 // size) * size
+    R = min(Q, CHUNK_ROWS)
+    return 4 * (N * 16 + N * (R + R % 2)) + 2 * R * (N + 16 // size) * size
+
+
+def _check_max_chunk(chunk: int, what: str) -> None:
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"the {what} takes chunks of up to {MAX_CHUNK} "
+                         f"rows, got {chunk}")
 
 
 def tc_shape(dtype: torch.dtype, Q: int, P: int, N: int) -> bool:
     """Whether the tensor-core kernel takes this chunk pass."""
     return dtype == torch.bfloat16 and Q == TC_Q and P == TC_P \
         and N in TC_N
+
+
+def fwd_kernels(dtype: torch.dtype, Q: int, P: int, N: int
+                ) -> Tuple[str, str]:
+    """(chunk, carry) forward kernels :func:`ssd_chunks_cuda` and
+    :func:`ssd_carry_cuda` launch for x, B and C of ``dtype`` at this
+    shape: ``ssd_chunk_tc`` where :func:`tc_shape` holds, else
+    ``ssd_chunk_kernel``; ``ssd_carry_tc`` for bf16 C at Q and N
+    multiples of 16, else ``ssd_carry_kernel`` (as ``launch_carry`` in
+    ``csrc/ssd.cu``)."""
+    chunk = "ssd_chunk_tc" if tc_shape(dtype, Q, P, N) else "ssd_chunk_kernel"
+    tc = dtype == torch.bfloat16 and Q % 16 == 0 and N % 16 == 0
+    return chunk, "ssd_carry_tc" if tc else "ssd_carry_kernel"
 
 
 def _check_aligned(**tensors) -> None:
@@ -173,6 +204,7 @@ def ssd_chunks_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                          f"P {P}, N {N}")
     if terms:    # 16-byte cp.async copies
         _check_aligned(x=x, Bm=Bm, Cm=Cm)
+    _check_max_chunk(chunk, "SSD chunk kernel")
     if not terms and smem_bytes(chunk, N, P) > MAX_SMEM_BYTES:
         raise ValueError(f"chunk {chunk}, N {N}, P {P} need "
                          f"{smem_bytes(chunk, N, P)} bytes of shared "
@@ -211,10 +243,10 @@ def ssd_carry_cuda(y_intra: torch.Tensor, states: torch.Tensor,
     if P % 8 or N % 8:
         raise ValueError(f"the carry kernel needs P and N multiples of 8; "
                          f"got P {P}, N {N}")
-    if chunk > 256 or carry_smem_bytes(N, chunk, Cm.dtype) > MAX_SMEM_BYTES:
-        raise ValueError(f"the carry kernel takes chunks up to 256 rows "
-                         f"(two per thread, 512 threads) and its tiles in "
-                         f"shared memory; got Q {chunk}, N {N}")
+    _check_max_chunk(chunk, "SSD carry kernel")
+    if carry_smem_bytes(N, chunk, Cm.dtype) > MAX_SMEM_BYTES:
+        raise ValueError(f"the carry kernel's tiles do not fit shared "
+                         f"memory at Q {chunk}, N {N}")
     f32 = (torch.float32,)
     _check_tensors(y_intra.device, {
         "y_intra": (y_intra, (Bsz, L, H, P), f32),
@@ -241,15 +273,25 @@ def ssd_carry_cuda(y_intra: torch.Tensor, states: torch.Tensor,
     return y, final
 
 
+def bwd_rows(Q: int) -> int:
+    """Rows of the blocks ``ssd_chunk_bwd`` walks a chunk in:
+    ``CHUNK_ROWS``, or the chunk rounded up to a multiple of 4 when
+    shorter (as ``bwd_rows`` in ``csrc/ssd_bwd.cu``)."""
+    return min(-(-Q // 4) * 4, CHUNK_ROWS)
+
+
 def chunk_bwd_smem_bytes(Q: int, N: int, P: int) -> int:
-    """Dynamic shared memory of one ``ssd_chunk_bwd`` block (as
-    ``ChunkBwdSmem`` in ``csrc/ssd_bwd.cu``): B, C and C·Bᵀ and the summed
-    dC·Bᵀ gradient, x and dy per head, and their union of g, h_prev, K and
-    V, rows padded by 4 floats."""
-    ldq, ldn, ldp = Q + 4, N + 4, P + 4
-    union = max(N * ldp + P * ldn, 2 * Q * ldq, 2 * Q * ldn)
-    return 4 * (2 * N * ldq + 2 * Q * ldq + 2 * P * ldq + Q * ldp + union
-                + 9 * Q)
+    """Dynamic shared memory of one ``ssd_chunk_bwd`` block at T =
+    :func:`bwd_rows` rows a block (as ``ChunkBwdSmem`` in
+    ``csrc/ssd_bwd.cu``): B and C of a block, C_i·B_jᵀ and the summed
+    dC·Bᵀ gradient, x and dy of a block, and the union of g, h_prev, K, V
+    and B_j, C_i row-major, rows padded by 4 floats; ten vectors of T and
+    the group's 16 dcum tails."""
+    T = bwd_rows(Q)
+    ldq, ldn, ldp = T + 4, N + 4, P + 4
+    union = max(N * ldp + P * ldn, 2 * T * ldq, 2 * T * ldn)
+    return 4 * (2 * N * ldq + 2 * T * ldq + 2 * P * ldq + T * ldp + union
+                + 10 * T + 16)
 
 
 def bwd_kernels(dtype: torch.dtype, Q: int, P: int, N: int
@@ -303,6 +345,7 @@ def ssd_carry_bwd_cuda(states: torch.Tensor, cum: torch.Tensor,
     if P % 8 or N % 8 or N > 256:
         raise ValueError(f"ssd_carry_bwd takes P and N multiples of 8, N up "
                          f"to 256; got P {P}, N {N}")
+    _check_max_chunk(chunk, "SSD carry backward")
     slice_p = 16 if P % 16 == 0 else 8
     if 4 * chunk * (N + slice_p) > MAX_SMEM_BYTES:
         raise ValueError(f"chunk {chunk}, N {N}: C and dy's slice do not fit "
@@ -360,10 +403,9 @@ def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     Bsz, L, H, P = x.shape
     N = Bm.shape[-1]
     nc = check_chunk(L, chunk)
-    if (chunk % 4 or chunk > BWD_MAX_Q or P % 4 or P > BWD_MAX_P
-            or N not in BWD_N):
-        raise ValueError(f"ssd_chunk_bwd takes chunks and head widths that "
-                         f"are multiples of 4 up to {BWD_MAX_Q} and "
+    if chunk > BWD_MAX_Q or P % 4 or P > BWD_MAX_P or N not in BWD_N:
+        raise ValueError(f"ssd_chunk_bwd takes chunks of up to {BWD_MAX_Q} "
+                         f"rows, head widths that are multiples of 4 up to "
                          f"{BWD_MAX_P}, and N in {BWD_N}; got Q {chunk}, "
                          f"P {P}, N {N}")
     if x.dtype not in DTYPES:

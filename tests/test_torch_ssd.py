@@ -29,6 +29,10 @@ from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_carry_ref,
 
 SWEEP = [(2, 128, 3, 32, 16, 32), (1, 256, 2, 64, 128, 64),
          (2, 64, 4, 16, 32, 16), (1, 128, 1, 64, 64, 128)]
+# Chunks beyond the sweep's: Mamba2's own chunk of 256 rows at its head
+# width and state size, and a chunk of 50 rows (not a multiple of 4), what
+# models/ssm.py picks for a 50-token sequence.
+CHUNKS = [(1, 512, 2, 64, 128, 256), (1, 50, 2, 16, 16, 50)]
 
 
 def make(seed, B, L, H, P, N):
@@ -51,7 +55,7 @@ def close(got, ref, atol=1e-4):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=atol)
 
 
-@pytest.mark.parametrize("B,L,H,P,N,Q", SWEEP)
+@pytest.mark.parametrize("B,L,H,P,N,Q", SWEEP + CHUNKS)
 def test_plain_matches_reference_sweep(B, L, H, P, N, Q):
     seed = B * L + N
     js, ts = jt(make(seed, B, L, H, P, N))
@@ -60,8 +64,8 @@ def test_plain_matches_reference_sweep(B, L, H, P, N, Q):
     refs = (j_ssd(*js, chunk=Q, use_pallas=True), j_ssd_ref(*js, chunk=Q))
     # Both sides still hold the seeded inputs, so a mismatch below comes
     # from a computation, not from an input changed under it (ROADMAP
-    # Queue 3: the one recorded miss here looks like one B or dt element
-    # differing in a low mantissa bit between the sides).
+    # Queue 3 item 1: the misses recorded here came from torch's first
+    # threaded exp of the process, which repro_torch now warms).
     for a, j, t in zip(make(seed, B, L, H, P, N), js, ts):
         assert np.array_equal(np.asarray(j), a)
         assert np.array_equal(t.numpy(), a)
@@ -172,10 +176,15 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 # (B, L, H, P, N, Q, dtype): the reference sweep, then zamba2-1.2b's and
-# mamba2-780m's head widths at short prompts, in the serving dtype.
+# mamba2-780m's head widths at short prompts, in the serving dtype; then
+# chunks of more than one block of rows (256, 128, and 100: a short last
+# block), of 50 rows (not a multiple of 4) and of one row.
 CUDA_SHAPES = [s + ("float32",) for s in SWEEP] + [
     (1, 256, 64, 64, 64, 64, "bfloat16"),
-    (1, 128, 48, 64, 128, 64, "bfloat16")]
+    (1, 128, 48, 64, 128, 64, "bfloat16")] + [
+    s + (dt,) for s in CHUNKS for dt in ("float32", "bfloat16")] + [
+    (1, 256, 4, 64, 128, 128, "bfloat16"), (1, 300, 2, 32, 64, 100, "float32"),
+    (1, 8, 2, 8, 8, 1, "float32")]
 
 
 @pytest.mark.cuda
@@ -352,7 +361,15 @@ def test_cuda_tensor_core_kernel_matches_plain(B, L, H, P, N, Q, terms):
                           # short prompts: an odd chunk, and N > 2 Q on
                           # the tensor cores
                           (1, 14, 2, 16, 64, 7, "bfloat16"),
-                          (1, 48, 2, 64, 128, 16, "bfloat16")])
+                          (1, 48, 2, 64, 128, 16, "bfloat16"),
+                          # chunks walked in tiles of 64 rows: 256 on
+                          # both kernels, a short last tile on each (100
+                          # and 80), 50 rows of bf16 on the CUDA cores
+                          (1, 512, 4, 64, 128, 256, "bfloat16"),
+                          (1, 512, 4, 64, 128, 256, "float32"),
+                          (1, 300, 2, 32, 64, 100, "float32"),
+                          (1, 160, 2, 64, 128, 80, "bfloat16"),
+                          (1, 50, 2, 16, 16, 50, "bfloat16")])
 def test_cuda_carry_kernel_matches_plain(B, L, H, P, N, Q, dtype,
                                          with_init):
     """The carry kernel against ``ssd_combine``: y in fp32 and the final
@@ -402,3 +419,133 @@ def test_cuda_ssd_launches_both_kernels(with_init):
                                                   before[1] + 1)
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The CUDA-core chunk kernel's walk over blocks of rows, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def fma(a, b, c):
+    """fmaf in fp32: the product of two fp32 values is exact in fp64, so
+    the sum is rounded once there, then to fp32 (off from fmaf only where
+    the two roundings meet a tie)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def emulate_blocked_chunks(x, dt, cum, Bm, Cm, chunk, rows):
+    """``ssd_chunk_kernel``'s walk, element by element in its order: row
+    blocks I of ``rows`` rows (the last one short where ``rows`` does not
+    divide the chunk); for each, the column blocks J <= I in order, W's
+    tile at (I, J) (C·Bᵀ as an fmaf chain over n, times exp(cum_i - cum_j)
+    and dt_j where i >= j, else 0), and each y element's fmaf chain over
+    the j of J with j <= i (the kernel's ``jn`` cut), carried from one
+    block J to the next (its ``ys``) and written at J = I; the chunk
+    state's fmaf chain over every j, walked while I is the last row
+    block, carried across J.  Returns (y_intra, states) as
+    ``ssd_chunks_ref``."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = L // chunk
+    f32 = torch.float32
+    xc = x.to(f32).reshape(Bsz, nc, chunk, H, P)
+    dtc = dt.to(f32).reshape(Bsz, nc, chunk, H)
+    cumc = cum.to(f32).reshape(Bsz, nc, chunk, H)
+    Bc = Bm.to(f32).reshape(Bsz, nc, chunk, N)
+    Cc = Cm.to(f32).reshape(Bsz, nc, chunk, N)
+    de = torch.exp(cumc[:, :, -1:, :] - cumc) * dtc     # dec_end · dt
+    y = torch.empty_like(xc)
+    st = torch.empty((Bsz, nc, H, N, P))
+    nb = -(-chunk // rows)
+    for I in range(nb):
+        i0, ni = I * rows, min(rows, chunk - I * rows)
+        ys = torch.zeros((Bsz, nc, ni, H, P))
+        for J in range(I + 1):
+            j0, nj = J * rows, min(rows, chunk - J * rows)
+            cb = torch.zeros((Bsz, nc, ni, nj))
+            for n in range(N):
+                cb = fma(Cc[:, :, i0:i0 + ni, None, n],
+                         Bc[:, :, None, j0:j0 + nj, n], cb)
+            i = torch.arange(i0, i0 + ni)[:, None]
+            j = torch.arange(j0, j0 + nj)[None, :]
+            lower = (i >= j)[None, None, :, :, None]
+            seg = cumc[:, :, i0:i0 + ni, None] - cumc[:, :, None, j0:j0 + nj]
+            w = torch.where(lower, cb[..., None] * torch.exp(
+                torch.where(lower, seg, 0.0)) * dtc[:, :, None, j0:j0 + nj],
+                0.0)
+            for jj in range(nj):
+                keep = (j0 + jj <= torch.arange(i0, i0 + ni))[
+                    None, None, :, None, None]
+                ys = torch.where(keep, fma(w[:, :, :, jj, :, None],
+                                           xc[:, :, None, j0 + jj], ys), ys)
+            if I == nb - 1:
+                acc = torch.zeros_like(st) if J == 0 else st
+                for jj in range(nj):
+                    acc = fma(Bc[:, :, None, j0 + jj, :, None],
+                              (xc[:, :, j0 + jj]
+                               * de[:, :, j0 + jj, :, None])[:, :, :, None],
+                              acc)
+                st = acc
+        y[:, :, i0:i0 + ni] = ys
+    return y.reshape(Bsz, L, H, P), st
+
+
+# Chunks of 128 (the sweep's) and 256 rows (two and four blocks of 64),
+# 100 (a short second block) and 50 (one block).
+BLOCKED = [SWEEP[3], CHUNKS[0], (1, 300, 2, 32, 64, 100), CHUNKS[1]]
+
+
+@pytest.mark.parametrize("B,L,H,P,N,Q", BLOCKED)
+def test_blocked_chunk_emulation_meets_the_bar(B, L, H, P, N, Q):
+    """The blocked walk at the kernel's rows a block (min(Q,
+    ``kernel.CHUNK_ROWS``)) against ``ssd_chunks_ref`` within the kernel's
+    bar (max|Δ| <= 1e-4·max(max|ref|, 1)), and with the plain carry
+    against the reference's ``ssd_ref`` and ``ssd(use_pallas=True)``
+    within the sweep's 1e-4."""
+    from repro_torch.kernels.ssd.kernel import CHUNK_ROWS
+    js, ts = jt(make(B * L + N + 1, B, L, H, P, N))
+    x, dt, A, Bm, Cm = ts
+    cum = chunk_cumsum(dt, A, Q)
+    got = emulate_blocked_chunks(x, dt, cum, Bm, Cm, Q, min(Q, CHUNK_ROWS))
+    want = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * max(float(w.abs().max()), 1.0), err
+    y, final = ssd_combine(*got, cum, Cm, Q)
+    for ry, rs in (j_ssd_ref(*js, chunk=Q),
+                   j_ssd(*js, chunk=Q, use_pallas=True)):
+        close(y, ry)
+        close(final, rs)
+
+
+def test_tiles_fit_shared_memory_at_every_chunk():
+    """At every chunk from 1 to 256 rows, the chunk kernel's blocks and
+    the carry's tiles fit a block's shared memory at the models' widest
+    head (P 64, N 128) and at N 256."""
+    from repro_torch.kernels.ssd.kernel import (MAX_SMEM_BYTES,
+                                                carry_smem_bytes, smem_bytes)
+    for Q in range(1, 257):
+        for N in (128, 256):
+            assert smem_bytes(Q, N, 64) <= MAX_SMEM_BYTES
+            for dtype in (torch.float32, torch.bfloat16):
+                assert carry_smem_bytes(N, Q, dtype) <= MAX_SMEM_BYTES
+    # At Q <= 64 the kernel is one block, with the first port's tiles.
+    assert smem_bytes(64, 128, 64) == 4 * (64 * 64 + 2 * 64 * 129
+                                           + 64 * 65 + 3 * 64)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_tiles_fit_shared_memory():
+    """The libraries' own sizes at Q = 256, N = 128, P = 64, equal to
+    kernel.py's mirrors and within a block's shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sizes come from the library")
+    from repro_torch.kernels.ssd import kernel
+    size = kernel.LIB.load().ssd_smem_bytes
+    Q, N, P = 256, 128, 64
+    want = [kernel.smem_bytes(Q, N, P),
+            kernel.carry_smem_bytes(N, Q, torch.float32),
+            kernel.carry_smem_bytes(N, Q, torch.bfloat16)]
+    for which, w in enumerate(want):
+        assert size(which, Q, N, P) == w <= kernel.MAX_SMEM_BYTES
+    assert 0 < size(3, Q, N, P) <= kernel.MAX_SMEM_BYTES
+    assert size(4, Q, N, P) == -1

@@ -37,10 +37,13 @@ from repro_torch.kernels.ssd.ref import (chunk_cumsum, chunk_cumsum_bwd,
                                          ssd_chunk_bwd_ref, ssd_chunks_ref,
                                          ssd_combine, ssd_ref)
 
-# (B, L, H, P, N, Q): the reference sweep, then Q = 64 with N = 128.
+# (B, L, H, P, N, Q): the reference sweep, then Q = 64 with N = 128; then
+# Mamba2's own chunk of 256 rows at its head width and state size, and a
+# chunk of 50 rows (not a multiple of 4: a 50-token sequence's).
 SHAPES = [(2, 128, 3, 32, 16, 32), (1, 256, 2, 64, 128, 64),
           (2, 64, 4, 16, 32, 16), (1, 128, 1, 64, 64, 128),
-          (2, 128, 4, 16, 128, 64)]
+          (2, 128, 4, 16, 128, 64), (1, 512, 2, 64, 128, 256),
+          (1, 50, 2, 16, 16, 50)]
 NAMES = ("x", "dt", "A", "B", "C", "init_state")
 BF16_REL = 2.0 ** -7
 
@@ -311,13 +314,13 @@ def test_operator_keeps_bf16_gradients_in_their_dtypes(plain_kernels):
 
 
 def test_backward_refuses_a_chunk_above_the_kernels():
-    """The backward kernels take chunks of up to 64 rows; a longer one is
+    """The backward kernels take chunks of up to 256 rows; a longer one is
     refused before anything launches."""
-    assert kernel.BWD_MAX_Q == 64
-    B, L, H, P, N, Q = SHAPES[3]
+    assert kernel.BWD_MAX_Q == 256
+    B, L, H, P, N, Q = 1, 512, 1, 16, 16, 512
     arrs, dy, _, _ = make(23, B, L, H, P, N, "none")
     ts, tdy, _, _ = torch_inputs(arrs, dy, None, None, torch.float32)
-    with pytest.raises(ValueError, match="chunks of up to 64 rows, got 128"):
+    with pytest.raises(ValueError, match="chunks of up to 256 rows, got 512"):
         ops.ssd_bwd(*ts, tdy, Q)
 
 
@@ -373,9 +376,10 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
         kernel.ssd_carry_bwd_cuda(states, cum, Cm, dy, 32)
     with pytest.raises(ValueError, match="needs a CUDA x"):
         kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, states, states, 32)
-    # The training shapes (mamba2-780m, zamba2-1.2b) and the sweep's at
-    # the backward's chunk fit a block's shared memory.
-    for Q, N, P in ((64, 128, 64), (64, 64, 64), (32, 16, 32), (16, 32, 16)):
+    # The training shapes (mamba2-780m, zamba2-1.2b), the sweep's and
+    # Mamba2's chunk of 256 fit a block's shared memory.
+    for Q, N, P in ((64, 128, 64), (64, 64, 64), (32, 16, 32), (16, 32, 16),
+                    (128, 64, 64), (256, 128, 64), (50, 16, 16)):
         assert kernel.chunk_bwd_smem_bytes(Q, N, P) <= kernel.MAX_SMEM_BYTES
     # Heads per block on an H100 SXM (132 SMs) and PCIe (114): mamba2-780m
     # at 2 x 4096 (128 (batch, chunk) pairs, 48 heads), zamba2-1.2b at
@@ -605,6 +609,16 @@ CUDA_SHAPES = [(2, 128, 3, 32, 16, 32, "float32"),
                (1, 256, 48, 64, 128, 64, "bfloat16"),
                (1, 256, 64, 64, 64, 64, "bfloat16"),
                (2, 256, 48, 64, 128, 64, "float32")]
+# Chunks the backward took from this slice on: the sweep's 128 and
+# Mamba2's 256 (blocks of 64 rows), 100 (a short last block), 50 and 7
+# (one block, padded to a multiple of 4) and a single row, both dtypes.
+CHUNK_SHAPES = [s + (dt,) for s in ((1, 128, 1, 64, 64, 128),
+                                    (1, 512, 4, 64, 128, 256),
+                                    (1, 50, 2, 16, 16, 50))
+                for dt in ("float32", "bfloat16")] + [
+    (1, 300, 2, 32, 64, 100, "float32"), (1, 28, 3, 24, 32, 7, "bfloat16"),
+    (1, 8, 2, 8, 8, 1, "float32")]
+CUDA_SHAPES += CHUNK_SHAPES
 
 
 def needs_card():
@@ -655,7 +669,7 @@ def test_cuda_backward_kernels_match_plain(B, L, H, P, N, Q, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,H,P,N,Q,dtype",
-                         CUDA_SHAPES[:6])
+                         CUDA_SHAPES[:6] + CHUNK_SHAPES)
 def test_cuda_operator_matches_plain_autograd(B, L, H, P, N, Q, dtype):
     """``ssd`` under grad on the card: the forward kernels, then the
     backward kernels, against torch autograd of ``ssd_ref`` on the card,
@@ -701,6 +715,22 @@ def test_tensor_core_backward_tiles_fit_shared_memory():
     for nc in (64, 512):
         assert 2 * (smem(1, 128, nc) + 1024) <= 228 * 1024
     assert smem(2, 128, 16) == smem(0, 32, 16) == -1
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_backward_tiles_fit_shared_memory():
+    """The backward library's own sizes at Q = 256, N = 128, P = 64 (the
+    CUDA-core chunk kernel's blocks of 64 rows, the carry's C and dy
+    slice), equal to kernel.py's mirrors and within a block's shared
+    memory."""
+    needs_card()
+    size = kernel.LIB_BWD.load().ssd_bwd_smem_bytes
+    Q, N, P = 256, 128, 64
+    assert size(0, Q, N, P) == kernel.chunk_bwd_smem_bytes(Q, N, P)
+    assert size(1, Q, N, P) == 4 * Q * (N + 16)
+    for which in (0, 1):
+        assert 0 < size(which, Q, N, P) <= kernel.MAX_SMEM_BYTES
+    assert size(2, Q, N, P) == -1
 
 
 @pytest.mark.cuda
@@ -786,3 +816,134 @@ def test_cuda_tensor_core_launch_failure_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="ssd_chunk_bwd_tc"):
         kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, g, g, 64)
     assert len(calls) == 2 and kernel.BWD_KERNEL_LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The CUDA-core chunk backward's walk over blocks of rows, emulated
+# ---------------------------------------------------------------------------
+
+def emulate_blocked_chunk_bwd(x, dt, cum, Bm, Cm, dy, g, h_prev, chunk,
+                              heads_per_group):
+    """``ssd_chunk_bwd``'s walk in fp32, as ``ssd_chunk_bwd_ref``'s
+    outputs.  Each chunk is cut into blocks of T = ``kernel.bwd_rows``
+    rows, zeros past the chunk.  Phase 1, block k by block k: the state
+    and inter terms (dx's d_j Bᵀ_j g, dB's d_j g x_j and dC's exp(cum_i)
+    h_prev dy_i summed over each group's heads, dcum's inter − d·U, ddt's
+    dex·U) and the intra term of the pair (k, k); dcum_last's chunk terms
+    summed block by block and added at the end.  Phase 2, pairs (i, j)
+    with i > j, j the outer walk: the pair's intra term added to what
+    phase 1 wrote.  A pair's intra term: dW, K and V on its tile and the
+    group's sum of dW ∘ E ∘ dt; dcum_i += row sums of V ∘ dt, dcum_j −=
+    dt_j · column sums of V, ddt_j += the column sums, dx_j += dt_j (Kᵀ
+    dy_i), dC_i and dB_j from the group's sum."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nc, G = L // chunk, heads_per_group
+    T = kernel.bwd_rows(chunk)
+    nb = -(-chunk // T)
+    Qp = nb * T
+    f32 = torch.float32
+
+    def padded(t, tail):     # [B, L, *tail] → [B, nc, Qp, *tail], zeros
+        t = t.to(f32).reshape(Bsz, nc, chunk, *tail)
+        out = torch.zeros((Bsz, nc, Qp) + tuple(tail))
+        out[:, :, :chunk] = t
+        return out
+    xc, dyc = padded(x, (H, P)), padded(dy, (H, P))
+    dtc, cumc = padded(dt, (H,)), padded(cum, (H,))
+    Bc, Cc = padded(Bm, (N,)), padded(Cm, (N,))
+    valid = torch.arange(Qp) < chunk
+    g, h_prev = g.to(f32), h_prev.to(f32)
+    cl = cum.to(f32).reshape(Bsz, nc, chunk, H)[:, :, -1, :]  # [B,nc,H]
+    vmask = valid[None, None, :, None]
+    ecum = torch.where(vmask, torch.exp(cumc), 0.0)
+    dex = torch.where(vmask, torch.exp(cl[:, :, None, :] - cumc), 0.0)
+    d = dex * dtc
+
+    def by_group(t):          # [B,nc,r,H,N] → [B,nc,r,groups,N]
+        return t.reshape(*t.shape[:3], H // G, G, N).sum(4)
+    dx = torch.zeros_like(xc)
+    dcum, ddt = torch.zeros_like(dtc), torch.zeros_like(dtc)
+    dB = torch.zeros((Bsz, nc, Qp, H // G, N))
+    dC = torch.zeros_like(dB)
+
+    def pair(I, J):           # the intra term of blocks (i, j), i >= j
+        i, j = slice(I * T, (I + 1) * T), slice(J * T, (J + 1) * T)
+        rows_i, rows_j = torch.arange(Qp)[i], torch.arange(Qp)[j]
+        mask = ((rows_i[:, None] >= rows_j[None, :])
+                & valid[i][:, None] & valid[j][None, :])[
+            None, None, :, :, None]
+        seg = cumc[:, :, i, None, :] - cumc[:, :, None, j, :]
+        E = torch.where(mask, torch.exp(torch.where(mask, seg, 0.0)), 0.0)
+        cb = torch.einsum("bcin,bcjn->bcij", Cc[:, :, i], Bc[:, :, j])
+        Km = cb[..., None] * E
+        dW = torch.einsum("bcihp,bcjhp->bcijh", dyc[:, :, i], xc[:, :, j])
+        V = dW * Km
+        dt_j = dtc[:, :, None, j, :]
+        dcb = (dW * E * dt_j).reshape(*dW.shape[:4], H // G, G).sum(5)
+        dcum[:, :, i] += (V * dt_j).sum(3)
+        colv = V.sum(2)
+        dcum[:, :, j] -= dtc[:, :, j] * colv
+        ddt[:, :, j] += colv
+        dx[:, :, j] += dtc[:, :, j, :, None] * torch.einsum(
+            "bcijh,bcihp->bcjhp", Km, dyc[:, :, i])
+        dC[:, :, i] += torch.einsum("bcijg,bcjn->bcign", dcb, Bc[:, :, j])
+        dB[:, :, j] += torch.einsum("bcijg,bcin->bcjgn", dcb, Cc[:, :, i])
+
+    tail = torch.exp(cl) * (g * h_prev).sum((-2, -1))        # [B,nc,H]
+    for K in range(nb):
+        k = slice(K * T, (K + 1) * T)
+        dx[:, :, k] = d[:, :, k, :, None] * torch.einsum(
+            "bcjn,bchnp->bcjhp", Bc[:, :, k], g)
+        gx = torch.einsum("bcjhp,bchnp->bcjhn", xc[:, :, k], g)
+        ured = torch.einsum("bcjn,bcjhn->bcjh", Bc[:, :, k], gx)
+        dB[:, :, k] = by_group(d[:, :, k, :, None] * gx)
+        dyh = torch.einsum("bcihp,bchnp->bcihn", dyc[:, :, k], h_prev)
+        inter = ecum[:, :, k] * torch.einsum("bcin,bcihn->bcih",
+                                             Cc[:, :, k], dyh)
+        dC[:, :, k] = by_group(ecum[:, :, k, :, None] * dyh)
+        dcum[:, :, k] = inter - d[:, :, k] * ured
+        ddt[:, :, k] = dex[:, :, k] * ured
+        tail = tail + (d[:, :, k] * ured).sum(2)
+        pair(K, K)
+    dcum[:, :, chunk - 1] += tail
+    for J in range(nb):
+        for I in range(J + 1, nb):
+            pair(I, J)
+
+    def cut(t):               # [B, nc, Qp, *tail] → [B, L, *tail]
+        return t[:, :, :chunk].reshape(Bsz, L, *t.shape[3:])
+    return (cut(dx), cut(dcum), cut(ddt), cut(dB).permute(2, 0, 1, 3),
+            cut(dC).permute(2, 0, 1, 3))
+
+
+# Chunks of 128 and 256 rows (two and four blocks), 100 (a short second
+# block) and 50 (one block padded to 52 rows); groups of two heads.
+BLOCKED = [(1, 256, 2, 64, 64, 128), (1, 512, 2, 64, 128, 256),
+           (1, 300, 2, 32, 64, 100), (1, 100, 4, 16, 16, 50)]
+
+
+@pytest.mark.parametrize("shape", BLOCKED)
+def test_blocked_chunk_bwd_emulation_meets_the_bar(shape):
+    """The blocked walk against ``ssd_chunk_bwd_ref`` (fp32 max|Δ| <=
+    1e-4·max(max|ref|, 1), the kernels' bar), and with the plain carry
+    backward and the cumsum's gradient against ``jax.vjp`` of the
+    reference's ``ssd_ref``."""
+    B, L, H, P, N, Q = shape
+    arrs, dy, h0, df = make(B * L + N + 2, B, L, H, P, N, "nonzero")
+    ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, torch.float32)
+    x, dt, A, Bm, Cm = ts
+    cum = chunk_cumsum(dt, A, Q)
+    _, states = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+    h_prev, g, dinit = ssd_carry_bwd_ref(states, cum, Cm, tdy, Q, th0, tdf)
+    got = emulate_blocked_chunk_bwd(x, dt, cum, Bm, Cm, tdy, g, h_prev, Q, 2)
+    want = ssd_chunk_bwd_ref(x, dt, cum, Bm, Cm, tdy, g, h_prev, Q, 2)
+    for name, a, w in zip(("dx", "dcum", "ddt", "dB", "dC"), got, want):
+        assert a.shape == w.shape, name
+        assert_grad_close(name, a, w)
+    dx, dcum, ddt, dB, dC = got
+    ddt_cum, dA = chunk_cumsum_bwd(dcum, dt, A, Q)
+    whole = (dx, ddt + ddt_cum, dA, dB.sum(0), dC.sum(0), dinit)
+    for name, a, w in zip(NAMES, whole, jax_grads(arrs, dy, h0, df, Q,
+                                                  torch.float32)):
+        assert_grad_close(name, a, w)
