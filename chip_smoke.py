@@ -49,15 +49,17 @@ Phases (each raises on failure, so the script exits non-zero):
    backward (``flash_attention_bwd.cu``: the preprocess, then for bf16
    the tensor-core ``fa_bwd_dkdv_tc`` and ``fa_bwd_dq_tc``, whose
    registers, dynamic shared memory and spills from ``-Xptxas -v`` are
-   printed and must show no spill, for fp32 the CUDA-core ``fa_bwd_dkdv``
-   and ``fa_bwd_dq``) against ``attention_bwd_ref`` at the sweep's
-   shapes, head dim 80, phase 11 (b)'s archs' attention (llama3-8b's in
-   fp32 too) and [2, 32, 4096, 128] bf16 causal (fp32 within
+   printed and must show no spill, for fp32 ``fa_bwd_dkdv_tf32`` and
+   ``fa_bwd_dq_tf32`` on the tensor cores in three TF32 terms, likewise
+   checked) against ``attention_bwd_ref`` at the sweep's shapes, head
+   dim 80, phase 11 (b)'s archs' attention (llama3-8b's in fp32 too) and
+   [2, 32, 4096, 128] bf16 and fp32 causal (fp32 within
    1e-4·max(max|ref|, 1), bf16 per element within
    2^-7·|ref| + 1e-5·max|ref|), a second pass equal bit for bit, the
    forward's log-sum-exp against ``attention_lse_ref``; backward,
    per-kernel, plain, bound, MMA floor and library (SDPA forward and
-   backward minus forward) times; the SSD backward (``ssd_bwd.cu``:
+   backward minus forward, with the backend SDPA picked) times; the SSD
+   backward (``ssd_bwd.cu``:
    for bf16 at Q = P = 64, N in {64, 128} the tensor-core
    ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, whose registers,
    dynamic shared memory and spills from ``-Xptxas -v`` are printed and
@@ -231,6 +233,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device-memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 peak outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+TF32_OPS_PER_S = 494.7e12      # H100 SXM dense TF32 tensor-core peak
 OPS_PER_PAIR = 20              # divides, adds, multiplies, ceils, compares
 GS = dict(gs_read=50.0, gs_write=30.0, bp_ms=1000.0)
 FIELDS = ("best_vm", "best_tier", "est_finish", "est_cost")
@@ -336,6 +339,78 @@ def device_ms(torch, fn, name: str, run=RUN):
                                 getattr(ev, "cuda_time_total", 0.0))
             count += ev.count
     return total_us / count / 1e3 if count and total_us > 0 else None
+
+
+# Run in a fresh process by ``sdpa_backends``: argv[1] is a JSON list of
+# [B, L, H, D, causal, dtype]; prints one JSON list of [backend, kernels].
+SDPA_TRACE = r"""
+import json
+import sys
+import torch
+import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+MARKS = (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+         ("efficient", ("fmha", "attention_kernel", "efficient")))
+out = []
+for B, L, H, D, causal, dtype in json.loads(sys.argv[1]):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn((B, L, H, D), generator=gen, device="cuda")
+                   .to(getattr(torch, dtype)).transpose(1, 2)
+                   for _ in range(4))
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        torch.autograd.grad(o, (q, k, v), do)
+    fwd_bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            names[ev.key] = names.get(ev.key, 0.0) + getattr(
+                ev, "self_device_time_total",
+                getattr(ev, "self_cuda_time_total", 0.0))
+    if not names:
+        raise SystemExit(f"SDPA at {[B, L, H, D, causal, dtype]}: the "
+                         f"profiler's trace holds no device kernel")
+    row = ["math", ""]
+    for backend, marks in MARKS:
+        hits = sorted((n for n in names
+                       if any(m in n.lower() for m in marks)),
+                      key=lambda n: -names[n])
+        if hits:
+            row = [backend, "; ".join(h[:80] for h in hits[:2])]
+            break
+    out.append(row)
+    del q, k, v, do
+print(json.dumps(out))
+"""
+
+
+def sdpa_backends(shapes) -> list:
+    """(backend, kernels) of SDPA's forward and backward at each
+    (B, L, H, D, causal, dtype), on [B, H, L, D] views as phase 6 times
+    them, read from a ``torch.profiler`` trace of one call: "cudnn",
+    "flash", "efficient" (the CUTLASS memory-efficient kernels) or "math"
+    (no fused attention kernel); kernels = the names of the longest ones.
+    The traces are taken in a fresh process: in this one, after phase 5's
+    thousands of affinity launches, traces hold no device kernel until a
+    later phase (cause not found).  A trace with no device kernel is an
+    error."""
+    proc = subprocess.run([sys.executable, "-c", SDPA_TRACE,
+                           json.dumps([list(s) for s in shapes])],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"SDPA trace failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return [tuple(r) for r in json.loads(proc.stdout.strip().splitlines()[-1])]
 
 
 def phase_device(torch) -> str:
@@ -669,8 +744,8 @@ FA_HEADLINE = FA_SERVING[0]
 # Phase 11 (a)'s attention: llama3-8b at 2 x 4096 tokens (train_4k's
 # sequence), GQA's heads repeated; forward and backward are timed here.
 FA_TRAIN = (2, 4096, 32, 128, True, "bfloat16")
-# Phase 11 (b)'s fp32 step (llama3-8b, fp32 compute): the CUDA-core
-# backward kernels' shape on a main path.
+# Phase 11 (b)'s fp32 step (llama3-8b, fp32 compute): the fp32 backward
+# kernels' (fa_bwd_dkdv_tf32, fa_bwd_dq_tf32) shape on a main path.
 FA_TRAIN_F32 = (1, 2048, 32, 128, True, "float32")
 # Phase 14's attention, llama3-8b's widths at head dims 96 (32 heads,
 # Phi-3-mini's) and 256 (16 heads, Gemma-7B's), GQA's heads repeated: the
@@ -692,12 +767,15 @@ FA_DOMAIN_SHAPES = ((2, 200, 200, 3, True), (1, 130, 70, 2, False),
 # The backward kernels (flash_attention_bwd.cu) against attention_bwd_ref:
 # the reference sweep, head dim 80, phase 11 (b)'s four archs' attention
 # at 1 x 2048 (llama3-8b, qwen2-moe-a2.7b, hubert-xlarge non-causal,
-# internvl2-1b; llama3-8b also in fp32) and the headline training shape.
+# internvl2-1b; llama3-8b also in fp32) and the headline training shape,
+# in bf16 and (the fp32 kernels at 4096 keys) fp32.
+FA_TRAIN_F32_4K = FA_TRAIN[:5] + ("float32",)
 FA_BWD_SHAPES = FA_SWEEP + FA_D80 + [(1, 2048, 32, 128, True, "bfloat16"),
                                      (1, 2048, 16, 128, True, "bfloat16"),
                                      (1, 2048, 16, 80, False, "bfloat16"),
                                      (1, 2048, 16, 64, True, "bfloat16"),
-                                     FA_TRAIN_F32, FA_TRAIN] + FA_HD_TRAIN
+                                     FA_TRAIN_F32, FA_TRAIN,
+                                     FA_TRAIN_F32_4K] + FA_HD_TRAIN
 # Bars of dq, dk, dv against attention_bwd_ref (the plain version in fp32
 # on the same inputs, o and lse): fp32 max|Δ| <= 1e-4·max(max|ref|, 1);
 # bf16 per element |Δ| <= 2^-7·|ref| + 1e-5·max|ref| of the tensor (the
@@ -738,10 +816,11 @@ def peak_ops(dtype: str) -> float:
     return BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
 
 
-def bound(flops: float, nbytes: float, dtype: str):
-    """(least ms, what bounds it): operations at the dtype's peak rate or
-    bytes at the memory rate, whichever takes longer."""
-    by_ops = flops / peak_ops(dtype) * 1e3
+def bound(flops: float, nbytes: float, dtype: str, ops_per_s=None):
+    """(least ms, what bounds it): operations at ``ops_per_s`` (default
+    the dtype's peak rate) or bytes at the memory rate, whichever takes
+    longer."""
+    by_ops = flops / (ops_per_s or peak_ops(dtype)) * 1e3
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
                                                               "bytes")
@@ -866,39 +945,30 @@ def fa_bwd_bounds(B, L, H, D, causal, dtype):
     unmasked pair (S, dP, dV, dK, dQ at 2·D each) and q, k, v, o, dO, lse
     read, dq, dk, dv written once; dK/dV 8·D per pair (S, dP, dV, dK); dQ
     6·D (S, dP, dQ); the preprocess 2·D flops per row, o and dO read and
-    D written."""
+    D written.  fp32 products are priced at the faster of the CUDA cores
+    and three TF32 tensor-core products a product (TF32_OPS_PER_S / 3),
+    which holds them to the fp32 bar; the preprocess's row sums stay on
+    the CUDA cores."""
     pairs = fa_pairs(B, L, H, causal)
     tile = B * L * H * D * esize(dtype)
     stat = B * H * L * 4
-    return {"backward": bound(10 * D * pairs, 8 * tile + stat, dtype),
+    mm = (None if dtype == "bfloat16"
+          else max(FP32_OPS_PER_S, TF32_OPS_PER_S / 3))
+    return {"backward": bound(10 * D * pairs, 8 * tile + stat, dtype, mm),
             "preprocess": bound(2 * D * B * L * H, 2 * tile + stat, dtype),
-            "dkdv": bound(8 * D * pairs, 6 * tile + 2 * stat, dtype),
-            "dq": bound(6 * D * pairs, 5 * tile + 2 * stat, dtype)}
+            "dkdv": bound(8 * D * pairs, 6 * tile + 2 * stat, dtype, mm),
+            "dq": bound(6 * D * pairs, 5 * tile + 2 * stat, dtype, mm)}
 
 
-def ptxas_report(log_text: str, kernel: str) -> list:
+def ptxas_report(lib, kernel: str) -> list:
     """(D, registers, spill stores, spill loads) of each instantiation of
-    ``kernel`` in nvcc's ``-Xptxas -v`` output."""
-    out, cur = [], None
-    for line in log_text.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-            d = re.search(rf"{kernel}ILi(\d+)E", name)
-            cur = [int(d.group(1)), None, None, None] if d else None
-            if cur:
-                out.append(cur)
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            cur[2], cur[3] = int(m.group(1)), int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur[1] = int(m.group(1))
-    return [tuple(r) for r in sorted(out)]
+    ``kernel`` in ``lib``'s ``-Xptxas -v`` output."""
+    out = []
+    for name, regs in lib.ptxas().items():
+        d = re.search(rf"{kernel}ILi(\d+)E", name)
+        if d:
+            out.append((int(d.group(1)), *regs))
+    return sorted(out)
 
 
 def check_builds(lib, tag: str, kernels: dict) -> dict:
@@ -908,10 +978,9 @@ def check_builds(lib, tag: str, kernels: dict) -> dict:
     memory for a value, a note on its registers).  Raises on a spill or
     a missing instantiation."""
     lib.load()
-    text = lib.build_info.get("log", "")
     out = {}
     for name, (values, smem, note) in kernels.items():
-        rows = ptxas_report(text, name)
+        rows = ptxas_report(lib, name)
         if [r[0] for r in rows] != list(values):
             raise AssertionError(f"{name}: ptxas reported "
                                  f"{[r[0] for r in rows]}, expected "
@@ -928,8 +997,8 @@ def check_builds(lib, tag: str, kernels: dict) -> dict:
     return out
 
 
-# setmaxnreg's split of each flash-attention tensor-core kernel's
-# registers (none for the CUDA-core kernels).
+# setmaxnreg's split of each flash-attention wgmma kernel's registers, and
+# the fp32 backward kernels' blocks (none for the CUDA-core forward).
 FA_REG_NOTES = {
     "fa_kernel_tc": " at launch (setmaxnreg: 240 a consumer, 24 the "
                     "producer)",
@@ -937,6 +1006,9 @@ FA_REG_NOTES = {
                       "producer)",
     "fa_bwd_dq_tc": " at launch (setmaxnreg: 232 a consumer, 40 the "
                     "producer)"}
+FA_REG_NOTES.update(dict.fromkeys(
+    ("fa_bwd_dkdv_tf32", "fa_bwd_dq_tf32"),
+    " (one block an SM: 256 threads up to W = 128, 128 above)"))
 
 
 def check_tc_builds(fa) -> dict:
@@ -1079,16 +1151,22 @@ def phase_attention_bwd(torch) -> dict:
     log("[fa-bwd] per call, ms (CUDA events, median after a warm-up): "
         "backward = fa_bwd_preprocess, then dK/dV and dQ through "
         "flash_attention_bwd_cuda (bf16: fa_bwd_dkdv_tc and fa_bwd_dq_tc "
-        "on the tensor cores, P and dS in three bf16 terms; fp32: "
-        "fa_bwd_dkdv and fa_bwd_dq on the CUDA cores); plain = "
+        "on wgmma, P and dS in three bf16 terms; fp32: fa_bwd_dkdv_tf32 "
+        "and fa_bwd_dq_tf32 on mma.sync, every product three TF32 "
+        "products on split operands); plain = "
         "attention_bwd_ref on the card (and each kernel's own plain "
         "step); library = F.scaled_dot_product_attention(is_causal) "
         "forward and backward minus its forward, on [B, H, L, D] views "
-        "(timed only, never used by the port); bound = the least time for "
-        "each one's work (backward 10·D flops per pair at the dtype's "
-        "peak) and what bounds it; MMA floor = a bf16 kernel's own "
-        "tensor-core work at the bf16 peak (dK/dV 18·W flops per pair, dQ "
-        "10·W, W the head dim's column bucket)")
+        "(timed only, never used by the port), with the backend SDPA "
+        "picked (from the kernel names of a profiler trace in a fresh "
+        "process); bound = the least time for each one's work (backward "
+        "10·D flops per pair at the dtype's peak: bf16 tensor cores, fp32 "
+        "three TF32 tensor-core products a product, 164.9 TFLOP/s) and "
+        "what bounds it; MMA floor = a kernel's own tensor-core work at "
+        "its type's peak (bf16: dK/dV 18·W flops per pair, dQ 10·W; fp32, "
+        "3×TF32: dK/dV 24·W, dQ 18·W at 494.7 TFLOP/s; W the head dim's "
+        "column bucket)")
+    backends = sdpa_backends(FA_BWD_SHAPES)
     rows, worst = {}, 0.0
     for i, shape in enumerate(FA_BWD_SHAPES):
         B, L, H, D, causal, dtype = shape
@@ -1158,25 +1236,31 @@ def phase_attention_bwd(torch) -> dict:
                 F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         lib = timed_ms(torch, lib_fwd_bwd, 0.2) - timed_ms(torch, lib_fwd,
                                                           0.1)
+        backend, lib_kernels = backends[i]
         bounds = fa_bwd_bounds(B, L, H, D, causal, dtype)
-        rows[shape] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                           bounds=bounds, ratios=ratios)
         names = {"preprocess": "fa_bwd_preprocess",
                  "dkdv": fa.bwd_kernel("dkdv", tdt),
                  "dq": fa.bwd_kernel("dq", tdt)}
         pairs = fa_pairs(B, L, H, causal)
         W = fa.bucket(D)
-        floor = {"dkdv": 18 * W * pairs / BF16_OPS_PER_S * 1e3,
-                 "dq": 10 * W * pairs / BF16_OPS_PER_S * 1e3}
+        floor = ({"dkdv": 18 * W * pairs / BF16_OPS_PER_S * 1e3,
+                  "dq": 10 * W * pairs / BF16_OPS_PER_S * 1e3}
+                 if dtype == "bfloat16" else
+                 {"dkdv": 24 * W * pairs / TF32_OPS_PER_S * 1e3,
+                  "dq": 18 * W * pairs / TF32_OPS_PER_S * 1e3})
+        rows[shape] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                           library_backend=backend, bounds=bounds,
+                           mma_floor_ms=floor, ratios=ratios)
         parts = "; ".join(
             f"{names[k]} {ms[k]:.5f} (plain {plain[k]:.5f}, bound "
             f"{bounds[k][0]:.6f} {bounds[k][1]}"
-            + (f", MMA floor {floor[k]:.6f}" if dtype == "bfloat16"
-               and k in floor else "") + ")"
+            + (f", {'3×TF32 ' if dtype == 'float32' else ''}MMA floor "
+               f"{floor[k]:.6f}" if k in floor else "") + ")"
             for k in ("preprocess", "dkdv", "dq"))
         log(f"[fa-bwd] [B,H,L,D]={[B, H, L, D]} causal={causal} {dtype}: "
             f"backward {ms['backward']:.5f} plain {plain['backward']:.5f} "
-            f"library {lib:.5f} bound {bounds['backward'][0]:.6f} "
+            f"library {lib:.5f} ({backend}: {lib_kernels}) bound "
+            f"{bounds['backward'][0]:.6f} "
             f"({bounds['backward'][1]}), backward/library "
             f"{ms['backward'] / lib:.2f}; {parts}; worst |Δ|/bar "
             + ", ".join(f"{k} {r:.4g}" for k, r in ratios.items())
@@ -2578,8 +2662,9 @@ TRAIN_WARMUP, TRAIN_STEPS = 1, 6
 TRAIN_FAMILIES = (("llama3-8b", 2), ("qwen2-moe-a2.7b", 2),
                   ("hubert-xlarge", 2), ("internvl2-1b", 2),
                   ("mamba2-780m", 2), ("zamba2-1.2b", 6))
-# and the dense arch with fp32 compute: the step that takes the fp32
-# (CUDA-core) backward kernels, held to the same bars.
+# and two archs with fp32 compute: the steps that take the fp32 backward
+# kernels (flash attention's TF32 pair, the SSD's CUDA-core pair), held
+# to the same bars.
 TRAIN_FP32 = (("llama3-8b", 2), ("mamba2-780m", 2))
 FAMILY_B, FAMILY_L = 1, 2048
 # and mamba2-780m on a short batch, 2 x 50 tokens (bf16 compute, 2
@@ -3981,8 +4066,8 @@ def main() -> int:
         "chunks": fwd_chunks(1),
     }]}
     # The backward's kernels: the bf16 ones (and the preprocess) at the
-    # training headline, launched by phase 11 (a); the fp32 ones at phase
-    # 11 (b)'s fp32 step, which launched them.
+    # training headline, launched by phase 11 (a); the fp32 ones (TF32
+    # tensor cores) at phase 11 (b)'s fp32 step, which launched them.
     f32_run = train["families"][f"{TRAIN_FP32[0][0]} float32"]
     for key, name, shape, launches in (
             ("preprocess", "fa_bwd_preprocess", FA_TRAIN,
@@ -3990,9 +4075,9 @@ def main() -> int:
             ("dkdv", "fa_bwd_dkdv_tc", FA_TRAIN,
              train["bwd_kernel_launches"]),
             ("dq", "fa_bwd_dq_tc", FA_TRAIN, train["bwd_kernel_launches"]),
-            ("dkdv", "fa_bwd_dkdv", FA_TRAIN_F32,
+            ("dkdv", "fa_bwd_dkdv_tf32", FA_TRAIN_F32,
              f32_run["bwd_kernel_launches"]),
-            ("dq", "fa_bwd_dq", FA_TRAIN_F32,
+            ("dq", "fa_bwd_dq_tf32", FA_TRAIN_F32,
              f32_run["bwd_kernel_launches"])):
         bwd = fab["rows"][shape]
         Bt, Lt, Ht, Dt, causal, dtype = shape
@@ -4013,6 +4098,9 @@ def main() -> int:
             "plain_ms": bwd["plain_ms"][key],
             "bound_ms": bwd["bounds"][key][0],
             "bound_by": bwd["bounds"][key][1],
+            # The kernel's own tensor-core work at its type's peak.
+            **({"mma_floor_ms": bwd["mma_floor_ms"][key]}
+               if key in bwd["mma_floor_ms"] else {}),
             # No single PyTorch call computes one kernel's share; the
             # whole backward's library time is under "backward".
             "library_ms": None,
@@ -4022,7 +4110,8 @@ def main() -> int:
                              plain_ms=bwd["plain_ms"]["backward"],
                              bound_ms=bwd["bounds"]["backward"][0],
                              bound_by=bwd["bounds"]["backward"][1],
-                             library_ms=bwd["library_ms"]),
+                             library_ms=bwd["library_ms"],
+                             library_backend=bwd["library_backend"]),
             # Phase 11 (b): launches in one step per arch (and dtype).
             "launches_families": {a: r["bwd_kernel_launches"][name]
                                   for a, r in train["families"].items()},
@@ -4032,7 +4121,7 @@ def main() -> int:
                 for tag, r in hd.items()},
             **({"build": {k: v for k, v in fab["builds"].items()
                           if k.startswith(name + "<")}}
-               if name.endswith("_tc") else {}),
+               if name != "fa_bwd_preprocess" else {}),
         })
     # The SSD backward's kernels: the tensor-core pair at phase 11 (d)'s
     # shape (mamba2-780m, 2 x 4096, bf16), launched by (d); the CUDA-core

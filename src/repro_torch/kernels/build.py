@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -94,6 +95,26 @@ class CudaLibrary:
         self.build_info.update(seconds=time.perf_counter() - t0,
                                log=(proc.stdout + proc.stderr).strip())
         return lib
+
+    def ptxas(self) -> dict:
+        """{entry function: (registers, spill stores, spill loads)} from
+        the last compile's ``-Xptxas -v`` output in this process (empty
+        if the library was built by another process)."""
+        out, cur = {}, None
+        for line in self.build_info.get("log", "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = m.group(1)
+                out[cur] = [None, None, None]
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and cur:
+                out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                out[cur][0] = int(m.group(1))
+        return {k: tuple(v) for k, v in out.items()}
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:

@@ -38,18 +38,58 @@
 // The dtype picks the dK/dV and dQ kernels, as it picks the forward's:
 //
 // * fp32 (held to 1e-4·max(max|ref|, 1), which needs fp32 products):
-//   fa_bwd_dkdv and fa_bwd_dq on the CUDA cores.  One block of 256
-//   threads per f32_rows<W> rows (64 up to W = 128, 32 above, where 64-row
-//   tiles of W fp32 columns no longer fit: dkdv_smem_bytes, dq_smem_bytes);
-//   the k and v (or q and dO) tiles in shared memory in fp32, rows padded
-//   by one word, the thread (ty, tx) of a 16 x 16 grid owning rows
-//   ty + 16 i and columns tx + 16 c; P and dS go through shared memory.
-//   One block fits an SM, so a tile's device-memory loads are issued in
-//   batches (load_tile) and the kernels may take any register count
-//   (__launch_bounds__(256, 1): the default cap of 128 spilled).  A
-//   tile's shared-memory reads (8 per 16 multiply-adds in the S and dP
-//   loop) are their limit.  Shared memory: dK/dV 165,888 bytes at
-//   W = 128 (64 rows), 140,288 at W = 256 (32 rows).
+//   fa_bwd_dkdv_tf32 and fa_bwd_dq_tf32 on the tensor cores, mma.sync
+//   m16n8k8 with TF32 operands.  Each fp32 operand x is split into
+//   hi = x rounded to 10 mantissa bits, to nearest with ties away from
+//   zero (cvt.rna.tf32.f32's rounding), and lo = x - hi, exact in fp32,
+//   which the tensor cores read cut to 10 mantissa bits (split_tf32); every
+//   product is the three TF32 products hi·hi + hi·lo + lo·hi summed in
+//   fp32 (mma3).  The lo·lo term and lo's cut leave about 2^-21 of each
+//   product, far inside the bar (tests/test_torch_flash_attention.py
+//   emulates one, two and three terms).  wgmma takes tf32 operands from
+//   shared memory only K-major, and dV, dK and dQ contract over the rows
+//   of a [L, D] tile, so the kernels use mma.sync, whose fragments are
+//   read from shared memory in any layout.
+//
+//   Blocks: R = f32_rows<W> rows (64 up to W = 128, 32 above) a block
+//   owns (keys in dK/dV, queries in dQ), the other side streamed in tiles
+//   of R rows through a 2-stage cp.async ring (tf32_load_tile; 16-byte
+//   copies where D % 4 = 0, else 4-byte ones; rows past L and columns
+//   past D zero-filled), so a tile's copies overlap the products of the
+//   tile before it.  2 R / 16 warps a block (8 or 4), one block an SM: in
+//   dK/dV warp j (< R / 16) computes S^T = k q^T for keys 16 j .. 16 j +
+//   15, P^T, and dV += P^T dO, and warp j + R / 16 computes dP^T = v dO^T
+//   for the same keys, takes P^T from warp j through shared memory (a
+//   named barrier a pair), dS^T and dK += dS^T q: each output W / 2 fp32
+//   registers a thread, no product computed twice.  In dQ warp j + h R /
+//   16 (h = 0, 1) takes query rows 16 j .. 16 j + 15 against half h of
+//   each key tile's rows; the halves' dQ sums are added through shared
+//   memory at the end (half 0's plus half 1's: a fixed order, no atomics).
+//
+//   Fragments: S^T, dP^T, S and dP read both operands K-major with
+//   ldmatrix (an 8 x 8 b16 matrix is an 8 x 4 fp32 one, which is the
+//   m16n8k8 tf32 A and B layout); dV, dK and dQ take P^T, dS^T or dS as
+//   the A operand from the accumulator fragments, their columns 2c, 2c + 1
+//   fed as the k indices c, c + 4, and read the B rows in that order with
+//   32-bit loads (mma_tn).  An operand is split as it reaches the
+//   registers: an A fragment once for the warp's n-tiles, a B fragment
+//   once for its three products (a split kept in shared memory would
+//   double the bytes read and the tiles' room).  Tiles are stored
+//   [rows][W] with 16-byte chunk c of row r at c ^ (r % 8), so that
+//   ldmatrix's eight rows and the B loads' rows 2c and 2c + 1 meet no bank
+//   twice.  dV, dK and dQ are summed per tile from zero on the tensor
+//   cores, 8 output n-tiles at a time (4 at W = 256), and added to the
+//   running sums in fp32: the tensor cores' own accumulation cuts rather
+//   than rounds, and carried across 4,096 keys it drifted to half the bar
+//   in dK.  Shared memory, 4 bytes a word: dK/dV k, v (R W each), two
+//   stages of q, dO (R W each) and their lse and D (R each), P^T (R R):
+//   214,016 bytes at W = 128, 201,216 at 256; dQ q, dO and two stages of
+//   k, v: 196,608 at W = 128 and 256 (dkdv_tf32_smem, dq_tf32_smem;
+//   kernel.py mirrors them).  P = exp(S scale - lse) with the accurate
+//   expf; masks on tiles that cross the diagonal, Lq or Lk.  MMA work:
+//   24 W flops a pair in dK/dV, 18 W in dQ (the products' 8 W and 6 W,
+//   three times); mma.sync's TF32 rate, not the splitting, bounds them
+//   (PERF.md, PR 26).
 //
 // * bf16 (the models' training dtype): fa_bwd_dkdv_tc and fa_bwd_dq_tc on
 //   the tensor cores, built from the forward's blocks (fa_hopper.cuh):
@@ -119,65 +159,14 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores (and the preprocess, either dtype)
+// The preprocess (either dtype)
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 256;   // a 16 x 16 grid of threads
 constexpr int kPreRows = 8;     // preprocess: rows (warps) per block
-constexpr int kDStep = 4;       // columns per unrolled step of S and dP
-constexpr int kLoadBatch = 8;   // loads a thread keeps in flight
-
-// Rows of a query or key tile of the fp32 kernels at bucket W.
-template <int W>
-__host__ __device__ constexpr int f32_rows() {
-  return W <= 128 ? 64 : 32;
-}
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// Rows r0 .. r0 + R - 1 of one (b, h) slice (rows `row` elements apart)
-// into shared memory as fp32 [R][W + 1]; rows at or past L and columns at
-// or past D as zeros.  Each thread issues kLoadBatch loads before it
-// stores their values, so that they are in flight together: with one
-// block on an SM, a load and its store in turn leave each device-memory
-// round trip exposed (and all of a thread's loads at once spill).
-template <int W, int R, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
-                                          int64_t row, int r0, int L,
-                                          int D) {
-  constexpr int N = R * W / kThreads;  // elements per thread
-  static_assert(N % kLoadBatch == 0, "tile not a whole number of batches");
-#pragma unroll 1
-  for (int n0 = 0; n0 < N; n0 += kLoadBatch) {
-    float buf[kLoadBatch];
-#pragma unroll
-    for (int n = 0; n < kLoadBatch; ++n) {
-      const int e = threadIdx.x + (n0 + n) * kThreads;
-      const int gi = r0 + e / W, c = e % W;
-      buf[n] = gi < L && c < D ? ld(base + gi * row + c) : 0.f;
-    }
-#pragma unroll
-    for (int n = 0; n < kLoadBatch; ++n) {
-      const int e = threadIdx.x + (n0 + n) * kThreads;
-      dst[(e / W) * (W + 1) + e % W] = buf[n];
-    }
-  }
-}
-
-// Entries r0 .. r0 + R - 1 of one row statistic (lse or D) into shared
-// memory.
-template <int R>
-__device__ __forceinline__ void load_stat(float* dst, const float* base,
-                                          int r0, int L) {
-  for (int e = threadIdx.x; e < R; e += kThreads)
-    dst[e] = r0 + e < L ? base[r0 + e] : 0.f;
 }
 
 template <typename T>
@@ -205,292 +194,6 @@ __global__ void __launch_bounds__(kPreRows * 32)
   }
 }
 
-template <int W>
-__host__ __device__ constexpr int dkdv_smem_bytes() {
-  constexpr int R = f32_rows<W>();
-  return (int)sizeof(float) * (4 * R * (W + 1) + 2 * R * (R + 1) + 2 * R);
-}
-
-template <int W, typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-    fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dO,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, int H, int Lq, int Lk, int D,
-                float scale, int causal) {
-  constexpr int R = f32_rows<W>();  // keys (and queries) per tile
-  constexpr int RT = R / 16;        // rows of S^T per thread
-  constexpr int RC = W / 16;        // columns per thread
-  constexpr int PS = R + 1;         // row stride of the P and dS tiles
-  extern __shared__ float smem[];
-  float* ks = smem;                  // [R][W + 1]
-  float* vs = ks + R * (W + 1);      // [R][W + 1]
-  float* qs = vs + R * (W + 1);      // [R][W + 1]
-  float* os = qs + R * (W + 1);      // dO tile, [R][W + 1]
-  float* ps = os + R * (W + 1);      // P^T, [R keys][PS]
-  float* ss = ps + R * PS;           // dS^T, [R keys][PS]
-  float* ls = ss + R * PS;           // lse of the query tile
-  float* dl = ls + R;                // D of the query tile
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int k0 = blockIdx.x * R;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int off = Lk - Lq;
-
-  const int64_t row = (int64_t)H * D;
-  const T* qb = q + ((int64_t)b * Lq * H + h) * D;
-  const T* ob = dO + ((int64_t)b * Lq * H + h) * D;
-  const T* kb = k + ((int64_t)b * Lk * H + h) * D;
-  const T* vb = v + ((int64_t)b * Lk * H + h) * D;
-  const float* lb = lse + ((int64_t)b * H + h) * Lq;
-  const float* db = delta + ((int64_t)b * H + h) * Lq;
-
-  load_tile<W, R>(ks, kb, row, k0, Lk, D);
-  load_tile<W, R>(vs, vb, row, k0, Lk, D);
-
-  float adk[RT][RC], adv[RT][RC];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int c = 0; c < RC; ++c) adk[i][c] = adv[i][c] = 0.f;
-
-  // Query rows qi >= k0 - off can see this block's first key.
-  const int t0 = causal ? max(0, k0 - off) / R : 0;
-  const int n_qt = (Lq + R - 1) / R;
-  for (int t = t0; t < n_qt; ++t) {
-    const int q0 = t * R;
-    __syncthreads();  // the previous tile's q, dO, P and dS are consumed
-    load_tile<W, R>(qs, qb, row, q0, Lq, D);
-    load_tile<W, R>(os, ob, row, q0, Lq, D);
-    load_stat<R>(ls, lb, q0, Lq);
-    load_stat<R>(dl, db, q0, Lq);
-    __syncthreads();
-
-    // S^T and dP^T: key rows ty + 16 i, query columns tx + 16 j.
-    float s[RT][RT], dp[RT][RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < RT; ++j) s[i][j] = dp[i][j] = 0.f;
-    // Over D in whole groups of kDStep columns (the tiles' columns past D
-    // are zero).
-    for (int d0 = 0; d0 < D; d0 += kDStep) {
-#pragma unroll
-      for (int dd = 0; dd < kDStep; ++dd) {
-        const int d = d0 + dd;
-        float kv[RT], vv[RT], qv[RT], ov[RT];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          kv[i] = ks[(ty + 16 * i) * (W + 1) + d];
-          vv[i] = vs[(ty + 16 * i) * (W + 1) + d];
-        }
-#pragma unroll
-        for (int j = 0; j < RT; ++j) {
-          qv[j] = qs[(tx + 16 * j) * (W + 1) + d];
-          ov[j] = os[(tx + 16 * j) * (W + 1) + d];
-        }
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-#pragma unroll
-          for (int j = 0; j < RT; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-          }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int kr = ty + 16 * i;
-      const int ki = k0 + kr;
-#pragma unroll
-      for (int j = 0; j < RT; ++j) {
-        const int qc = tx + 16 * j;
-        const int qi = q0 + qc;
-        const bool ok = ki < Lk && qi < Lq && (!causal || qi + off >= ki);
-        const float p = ok ? expf(s[i][j] * scale - ls[qc]) : 0.f;
-        ps[kr * PS + qc] = p;
-        ss[kr * PS + qc] = p * (dp[i][j] - dl[qc]);
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T q over the tile's R queries.
-#pragma unroll 4
-    for (int c = 0; c < R; ++c) {
-      float pv[RT], sv[RT], ov[RC], qv[RC];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        pv[i] = ps[(ty + 16 * i) * PS + c];
-        sv[i] = ss[(ty + 16 * i) * PS + c];
-      }
-#pragma unroll
-      for (int cc = 0; cc < RC; ++cc) {
-        ov[cc] = os[c * (W + 1) + tx + 16 * cc];
-        qv[cc] = qs[c * (W + 1) + tx + 16 * cc];
-      }
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int cc = 0; cc < RC; ++cc) {
-          adv[i][cc] = fmaf(pv[i], ov[cc], adv[i][cc]);
-          adk[i][cc] = fmaf(sv[i], qv[cc], adk[i][cc]);
-        }
-    }
-  }
-
-  T* dkb = dk + ((int64_t)b * Lk * H + h) * D;
-  T* dvb = dv + ((int64_t)b * Lk * H + h) * D;
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int ki = k0 + ty + 16 * i;
-    if (ki >= Lk) continue;
-#pragma unroll
-    for (int cc = 0; cc < RC; ++cc) {
-      if (tx + 16 * cc >= D) continue;
-      st(dkb + ki * row + tx + 16 * cc, adk[i][cc] * scale);
-      st(dvb + ki * row + tx + 16 * cc, adv[i][cc]);
-    }
-  }
-}
-
-template <int W>
-__host__ __device__ constexpr int dq_smem_bytes() {
-  constexpr int R = f32_rows<W>();
-  return (int)sizeof(float) * (4 * R * (W + 1) + R * (R + 1) + 2 * R);
-}
-
-template <int W, typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-    fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dO,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int H, int Lq, int Lk, int D, float scale,
-              int causal) {
-  constexpr int R = f32_rows<W>();
-  constexpr int RT = R / 16;
-  constexpr int RC = W / 16;
-  constexpr int PS = R + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [R][W + 1]
-  float* os = qs + R * (W + 1);      // dO tile
-  float* ks = os + R * (W + 1);
-  float* vs = ks + R * (W + 1);
-  float* ss = vs + R * (W + 1);      // dS, [R queries][PS]
-  float* ls = ss + R * PS;
-  float* dl = ls + R;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int n_qt = (Lq + R - 1) / R;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * R;  // heaviest first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int off = Lk - Lq;
-
-  const int64_t row = (int64_t)H * D;
-  const T* qb = q + ((int64_t)b * Lq * H + h) * D;
-  const T* ob = dO + ((int64_t)b * Lq * H + h) * D;
-  const T* kb = k + ((int64_t)b * Lk * H + h) * D;
-  const T* vb = v + ((int64_t)b * Lk * H + h) * D;
-
-  load_tile<W, R>(qs, qb, row, q0, Lq, D);
-  load_tile<W, R>(os, ob, row, q0, Lq, D);
-  load_stat<R>(ls, lse + ((int64_t)b * H + h) * Lq, q0, Lq);
-  load_stat<R>(dl, delta + ((int64_t)b * H + h) * Lq, q0, Lq);
-
-  float adq[RT][RC];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int c = 0; c < RC; ++c) adq[i][c] = 0.f;
-
-  int nk = (Lk + R - 1) / R;
-  if (causal) nk = min(nk, (min(q0 + R, Lq) - 1 + off) / R + 1);
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * R;
-    __syncthreads();  // the previous tile's k, v and dS are consumed
-    load_tile<W, R>(ks, kb, row, k0, Lk, D);
-    load_tile<W, R>(vs, vb, row, k0, Lk, D);
-    __syncthreads();
-
-    // S and dP: query rows ty + 16 i, key columns tx + 16 j.
-    float s[RT][RT], dp[RT][RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < RT; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kDStep) {
-#pragma unroll
-      for (int dd = 0; dd < kDStep; ++dd) {
-        const int d = d0 + dd;
-        float qv[RT], ov[RT], kv[RT], vv[RT];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          qv[i] = qs[(ty + 16 * i) * (W + 1) + d];
-          ov[i] = os[(ty + 16 * i) * (W + 1) + d];
-        }
-#pragma unroll
-        for (int j = 0; j < RT; ++j) {
-          kv[j] = ks[(tx + 16 * j) * (W + 1) + d];
-          vv[j] = vs[(tx + 16 * j) * (W + 1) + d];
-        }
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-#pragma unroll
-          for (int j = 0; j < RT; ++j) {
-            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-            dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-          }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int qr = ty + 16 * i;
-      const int qi = q0 + qr;
-#pragma unroll
-      for (int j = 0; j < RT; ++j) {
-        const int kc = tx + 16 * j;
-        const int ki = k0 + kc;
-        const bool ok = ki < Lk && qi < Lq && (!causal || qi + off >= ki);
-        const float p = ok ? expf(s[i][j] * scale - ls[qr]) : 0.f;
-        ss[qr * PS + kc] = p * (dp[i][j] - dl[qr]);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS k over the tile's R keys.
-#pragma unroll 4
-    for (int c = 0; c < R; ++c) {
-      float sv[RT], kv[RC];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) sv[i] = ss[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int cc = 0; cc < RC; ++cc) kv[cc] = ks[c * (W + 1) + tx + 16 * cc];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int cc = 0; cc < RC; ++cc)
-          adq[i][cc] = fmaf(sv[i], kv[cc], adq[i][cc]);
-    }
-  }
-
-  T* dqb = dq + ((int64_t)b * Lq * H + h) * D;
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= Lq) continue;
-#pragma unroll
-    for (int cc = 0; cc < RC; ++cc)
-      if (tx + 16 * cc < D)
-        st(dqb + qi * row + tx + 16 * cc, adq[i][cc] * scale);
-  }
-}
-
 template <typename T>
 cudaError_t launch_preprocess(const void* o, const void* dO, void* delta,
                               int B, int H, int Lq, int D,
@@ -503,20 +206,571 @@ cudaError_t launch_preprocess(const void* o, const void* dO, void* delta,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// fp32: tensor cores (mma.sync TF32, three terms), cp.async ring
+// ---------------------------------------------------------------------------
+
+// Rows a block of the fp32 kernels owns, and rows of each tile it streams,
+// at bucket W.
 template <int W>
-cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
-                        const void* dO, const void* lse, const void* delta,
-                        void* dk, void* dv, int B, int H, int Lq, int Lk,
-                        int D, float scale, int causal,
-                        cudaStream_t stream) {
-  constexpr int smem = dkdv_smem_bytes<W>();
+__host__ __device__ constexpr int f32_rows() {
+  return W <= 128 ? 64 : 32;
+}
+
+template <int W>
+struct Tf32 {
+  static constexpr int R = f32_rows<W>();
+  static constexpr int G = R / 16;        // warps per role (dK/dV) or half
+  static constexpr int NT = 64 * G;       // threads: two warps per 16 rows
+  static constexpr int S = 2;             // ring stages
+  // Output n-tiles (8 columns each) whose tile sums are taken together
+  // (4 at W = 256, where 8 more sums spill).
+  static constexpr int NG = W / 8 < 8 ? W / 8 : W < 256 ? 8 : 4;
+};
+
+// dK/dV: k, v, the stages' q, dO, lse and D, the P^T exchange.
+template <int W>
+__host__ __device__ constexpr int dkdv_tf32_smem() {
+  constexpr int R = f32_rows<W>();
+  return 4 * (2 * R * W + Tf32<W>::S * (2 * R * W + 2 * R) + R * R);
+}
+
+// dQ: q, dO, the stages' k and v.
+template <int W>
+__host__ __device__ constexpr int dq_tf32_smem() {
+  constexpr int R = f32_rows<W>();
+  return 4 * (2 * R * W + Tf32<W>::S * 2 * R * W);
+}
+
+// Word offset of (row r, column c) in a [rows][W] fp32 tile: 16-byte
+// chunk c / 4 of row r stored at chunk (c / 4) ^ (r % 8).
+template <int W>
+__device__ __forceinline__ int tf32_at(int r, int c) {
+  return r * W + ((((c >> 2) ^ r) & 7) | ((c >> 2) & ~7)) * 4 + (c & 3);
+}
+
+__device__ __forceinline__ void cp_async_zfill16(uint32_t dst,
+                                                 const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_zfill4(uint32_t dst,
+                                                const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows r0 .. r0 + R - 1 of one (b, h) slice (rows `row` elements apart)
+// into the tile at dst, through cp.async (not waited for); rows at or past
+// L and columns at or past D zero.  `vec`: D % 4 = 0, so a 16-byte chunk
+// is all in or all out (the wrapper aligns the tensors to 16 bytes).
+template <int W, int R, int NT>
+__device__ __forceinline__ void tf32_load_tile(float* dst, const float* base,
+                                               int64_t row, int r0, int L,
+                                               int D, bool vec) {
+  const uint32_t s = smem_addr(dst);
+  if (vec) {
+    constexpr int CH = R * W / 4;  // 16-byte chunks
+    static_assert(CH % NT == 0, "a tile is not a whole number of rounds");
+#pragma unroll
+    for (int n = 0; n < CH / NT; ++n) {
+      const int e = threadIdx.x + n * NT;
+      const int r = e / (W / 4), c = 4 * (e % (W / 4));
+      const bool ok = r0 + r < L && c < D;
+      cp_async_zfill16(s + 4 * tf32_at<W>(r, c),
+                       ok ? base + (r0 + r) * row + c : base, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < R * W; e += NT) {
+      const int r = e / W, c = e % W;
+      const bool ok = r0 + r < L && c < D;
+      cp_async_zfill4(s + 4 * tf32_at<W>(r, c),
+                      ok ? base + (r0 + r) * row + c : base, ok);
+    }
+  }
+}
+
+// Entries r0 .. r0 + R - 1 of a row statistic (lse or D) into dst, through
+// cp.async; zero past L.
+template <int R, int NT>
+__device__ __forceinline__ void tf32_load_stat(float* dst, const float* base,
+                                               int r0, int L) {
+  for (int e = threadIdx.x; e < R; e += NT) {
+    const bool ok = r0 + e < L;
+    cp_async_zfill4(smem_addr(dst + e), ok ? base + r0 + e : base, ok);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// x's TF32 terms, as mma.sync reads a .tf32 operand (the top 19 bits of
+// its 32): hi = x rounded to 10 mantissa bits, to nearest with ties away
+// from zero (cvt.rna.tf32.f32's rounding, in two integer operations:
+// ptxas expands cvt.rna.tf32.f32 into a longer compare-and-select
+// sequence), and lo = x - hi, exact in fp32, which the tensor cores read
+// cut to its top 10 mantissa bits (clearing lo's 13 low bits by hand
+// gives the same outputs bit for bit: tools/fa_bwd_ab.py --ceilings).
+// x - hi keeps a NaN a NaN, so a NaN operand still makes its products NaN.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// Fragments of m16n8k8 (g = lane / 4, c = lane % 4): A a0 (row g, k c),
+// a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8, c + 4); B b0 (k c, column g),
+// b1 (k c + 4, g); the accumulator d0, d1 (row g, columns 2c, 2c + 1),
+// d2, d3 (row g + 8).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment split into its TF32 terms.
+struct Tf32A {
+  uint32_t hi[4], lo[4];
+  Tf32A() = default;
+  __device__ __forceinline__ Tf32A(float a0, float a1, float a2, float a3) {
+    split_tf32(a0, hi[0], lo[0]);
+    split_tf32(a1, hi[1], lo[1]);
+    split_tf32(a2, hi[2], lo[2]);
+    split_tf32(a3, hi[3], lo[3]);
+  }
+};
+
+// d[i] += a b[i] for N n-tiles in three TF32 products each, hi·hi +
+// hi·lo + lo·hi (b[i] split into bh[i], bl[i]); one term over every
+// n-tile before the next, so that no product waits on the one before.
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N][4], const Tf32A& a,
+                                     const uint32_t (&bh)[N][2],
+                                     const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], a.hi, bh[i][0], bh[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], a.hi, bl[i][0], bl[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], a.lo, bh[i][0], bh[i][1]);
+}
+
+// acc[p][i] += X_p Y_p^T for NP products at once (more independent sums
+// in flight): X_p the warp's 16 rows and Y_p 8 NN rows of swizzled tiles
+// of W columns, contracted over their first 8 nks columns (both
+// K-major, read with ldmatrix); n-tile i is Y_p's rows 8 i .. 8 i + 7.
+template <int W, int NN, int NP>
+__device__ __forceinline__ void mma_nt(float (&acc)[NP][NN][4],
+                                       const float* const (&x)[NP],
+                                       const float* const (&y)[NP], int nks,
+                                       int lane) {
+  static_assert(NN % 2 == 0, "n-tiles are loaded in pairs");
+  const int sw = lane & 7;  // = the row's r % 8 for every lane below
+  // A: matrices (rows 0-7, k 0-3), (8-15, 0-3), (0-7, 4-7), (8-15, 4-7).
+  const int xrow = (lane & 7) + 8 * ((lane >> 3) & 1), xk = lane >> 4;
+  // B, two n-tiles: (n 0-7, k 0-3), (0-7, 4-7), (8-15, 0-3), (8-15, 4-7).
+  const int yrow = (lane & 7) + 8 * (lane >> 4), yk = (lane >> 3) & 1;
+  uint32_t xa[NP], ya[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    xa[p] = smem_addr(x[p]) + xrow * W * 4;
+    ya[p] = smem_addr(y[p]) + yrow * W * 4;
+  }
+#pragma unroll 1
+  for (int kk = 0; kk < nks; ++kk) {
+    const uint32_t xo = ((2 * kk + xk) ^ sw) << 4;
+    const uint32_t yo = ((2 * kk + yk) ^ sw) << 4;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      uint32_t a[4];
+      ldsm_x4(a, xa[p] + xo);
+      const Tf32A af(__uint_as_float(a[0]), __uint_as_float(a[1]),
+                     __uint_as_float(a[2]), __uint_as_float(a[3]));
+      uint32_t bh[NN][2], bl[NN][2];
+#pragma unroll
+      for (int i = 0; i < NN; i += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, ya[p] + 8 * i * W * 4 + yo);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(b[e]), bh[i + e / 2][e % 2],
+                     bl[i + e / 2][e % 2]);
+      }
+      mma3(acc[p], af, bh, bl);
+    }
+  }
+}
+
+// out[n] += A Y for the output columns 8 n .. 8 n + 7 (in groups of NG
+// n-tiles, none wholly at or past D): A the warp's 16 x 8 NM tile, split
+// (a[m]: accumulator columns 8 m + 2c, 2c + 1 fed as the k indices c,
+// c + 4), Y rows 8 m .. of a swizzled tile of W columns, read in the same
+// order (MN-major).  Each group's product is summed from zero on the
+// tensor cores and added to out in fp32: their own accumulation cuts
+// rather than rounds, and carried across 4,096 keys it drifted to half
+// the bar in dK.
+template <int W, int NM>
+__device__ __forceinline__ void mma_tn(float (&out)[W / 8][4],
+                                       const Tf32A (&a)[NM], const float* y,
+                                       int D, int lane) {
+  constexpr int NG = Tf32<W>::NG;
+  const int g = lane >> 2, c = lane & 3;
+  // Column 8 n + g of row 2c sits in chunk ((2n + g / 4) % 8) ^ 2c of
+  // chunk group n / 4, that of row 2c + 1 in the chunk beside it: the
+  // word offsets for n % 4, the rest is each load's constant offset.
+  const float* y0[4];
+  const float* y1[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int o = (((2 * u) ^ (2 * c)) | (g >> 2)) * 4 + (g & 3);
+    y0[u] = y + 2 * c * W + o;
+    y1[u] = y + (2 * c + 1) * W + (o ^ 4);
+  }
+#pragma unroll
+  for (int n0 = 0; n0 < W / 8; n0 += NG) {
+    if (8 * n0 >= D) break;
+    float t[NG][4];
+#pragma unroll
+    for (int u = 0; u < NG; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) t[u][r] = 0.f;
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+      for (int u = 0; u < NG; ++u) {
+        const int n = n0 + u, at = 8 * m * W + 32 * (n / 4);
+        split_tf32(y0[n % 4][at], bh[u][0], bl[u][0]);
+        split_tf32(y1[n % 4][at], bh[u][1], bl[u][1]);
+      }
+      mma3(t, a[m], bh, bl);
+    }
+#pragma unroll
+    for (int u = 0; u < NG; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) out[n0 + u][r] += t[u][r];
+  }
+}
+
+// The split A operand of mma_tn from a 16 x 8 NM accumulator tile.
+template <int NM>
+__device__ __forceinline__ void split_rows(Tf32A (&a)[NM],
+                                           const float (&x)[NM][4]) {
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+    a[m] = Tf32A(x[m][0], x[m][2], x[m][1], x[m][3]);
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+template <int W>
+__global__ void __launch_bounds__(Tf32<W>::NT, 1)
+    fa_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dO,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Lq, int Lk, int D,
+                     float scale, int causal) {
+  using C = Tf32<W>;
+  constexpr int R = C::R;                   // keys a block; queries a tile
+  constexpr int NQ = R / 8;                 // n-tiles of S^T (queries)
+  constexpr int STAGE = 2 * R * W + 2 * R;  // q, dO, lse, D
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                         // [R][W], swizzled
+  float* vs = ks + R * W;
+  float* ring = vs + R * W;                 // stage s at + s STAGE
+  float* xch = ring + C::S * STAGE;         // P^T, [G][NQ][32 lanes][4]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int j = warp % C::G;                // the warp's 16 keys
+  const bool dk_role = warp >= C::G;        // dP^T, dS^T, dK (else dV)
+  const int k0 = blockIdx.x * R;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int off = Lk - Lq;
+  const bool vec = (D & 3) == 0;
+
+  const int64_t row = (int64_t)H * D;
+  const float* qb = q + ((int64_t)b * Lq * H + h) * D;
+  const float* ob = dO + ((int64_t)b * Lq * H + h) * D;
+  const float* kb = k + ((int64_t)b * Lk * H + h) * D;
+  const float* vb = v + ((int64_t)b * Lk * H + h) * D;
+  const float* lb = lse + ((int64_t)b * H + h) * Lq;
+  const float* db = delta + ((int64_t)b * H + h) * Lq;
+
+  // Query rows qi >= k0 - off can see the block's first key; the wrapper
+  // guarantees Lk >= Lq under `causal`, so at least one tile can.
+  const int t0 = causal ? max(0, k0 - off) / R : 0;
+  const int nt = (Lq + R - 1) / R - t0;
+  auto load_stage = [&](int t, float* st) {
+    const int q0 = (t0 + t) * R;
+    tf32_load_tile<W, R, C::NT>(st, qb, row, q0, Lq, D, vec);
+    tf32_load_tile<W, R, C::NT>(st + R * W, ob, row, q0, Lq, D, vec);
+    tf32_load_stat<R, C::NT>(st + 2 * R * W, lb, q0, Lq);
+    tf32_load_stat<R, C::NT>(st + 2 * R * W + R, db, q0, Lq);
+  };
+  tf32_load_tile<W, R, C::NT>(ks, kb, row, k0, Lk, D, vec);
+  tf32_load_tile<W, R, C::NT>(vs, vb, row, k0, Lk, D, vec);
+  load_stage(0, ring);
+  cp_async_commit();
+
+  float acc[W / 8][4];  // dV or dK (unscaled) of the warp's 16 keys
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[n][r] = 0.f;
+  const int nks = (D + 7) / 8;  // k8 steps reaching a column below D
+  const int g = lane >> 2, c = lane & 3;
+  const int krow = k0 + 16 * j + g;  // and krow + 8
+  const float* const xs[1] = {(dk_role ? vs : ks) + 16 * j * W};
+  float4* xw = reinterpret_cast<float4*>(xch) + j * NQ * 32 + lane;
+
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; tile t - 1's stage and P^T consumed
+    if (t + 1 < nt) load_stage(t + 1, ring + ((t + 1) % C::S) * STAGE);
+    cp_async_commit();
+    const float* qs = ring + (t % C::S) * STAGE;
+    const float* os = qs + R * W;
+    const float* ls = os + R * W;
+    const float* dl = ls + R;
+    const int q0 = (t0 + t) * R;
+
+    // S^T = k q^T (dV role) or dP^T = v dO^T (dK role): keys 16 j + g
+    // (+ 8) by queries 8 i + 2c (+ 1).
+    float s[1][NQ][4];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[0][i][r] = 0.f;
+    const float* const ys[1] = {dk_role ? os : qs};
+    mma_nt<W, NQ, 1>(s, xs, ys, nks, lane);
+
+    if (!dk_role) {
+      // P^T, 0 where masked (a query at or past Lq, or under `causal` a
+      // query qi with qi + off < ki), checked on tiles that cross them.
+      const bool edge = q0 + R > Lq || (causal && q0 + off < k0 + R - 1);
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        const float2 l = *reinterpret_cast<const float2*>(ls + 8 * i + 2 * c);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float p = expf(fmaf(s[0][i][r], scale, -((r & 1) ? l.y : l.x)));
+          if (edge) {
+            const int qi = q0 + 8 * i + 2 * c + (r & 1);
+            const int ki = krow + 8 * (r >> 1);
+            if (!(qi < Lq && (!causal || qi + off >= ki))) p = 0.f;
+          }
+          s[0][i][r] = p;
+        }
+        xw[32 * i] = make_float4(s[0][i][0], s[0][i][1], s[0][i][2],
+                                 s[0][i][3]);
+      }
+      bar_arrive(1 + j, 64);
+    } else {
+      bar_sync(1 + j, 64);  // warp j's P^T is in xch
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        const float4 p = xw[32 * i];
+        const float2 d = *reinterpret_cast<const float2*>(dl + 8 * i + 2 * c);
+        s[0][i][0] = p.x * (s[0][i][0] - d.x);
+        s[0][i][1] = p.y * (s[0][i][1] - d.y);
+        s[0][i][2] = p.z * (s[0][i][2] - d.x);
+        s[0][i][3] = p.w * (s[0][i][3] - d.y);
+      }
+    }
+    // dV += P^T dO, or dK += dS^T q.
+    Tf32A a[NQ];
+    split_rows(a, s[0]);
+    mma_tn<W, NQ>(acc, a, dk_role ? qs : os, D, lane);
+  }
+
+  const float mult = dk_role ? scale : 1.f;
+  float* out = (dk_role ? dk : dv) + ((int64_t)b * Lk * H + h) * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int ki = krow + 8 * hh;
+    if (ki >= Lk) continue;
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * c + e;
+        if (col < D) out[ki * row + col] = acc[n][2 * hh + e] * mult;
+      }
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(Tf32<W>::NT, 1)
+    fa_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dO,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   int H, int Lq, int Lk, int D, float scale, int causal) {
+  using C = Tf32<W>;
+  constexpr int R = C::R;         // query rows a block; keys a tile
+  constexpr int NK = R / 16;      // n-tiles of a warp's half of the keys
+  constexpr int STAGE = 2 * R * W;  // k, v
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;               // [R][W], swizzled
+  float* os = qs + R * W;         // dO
+  float* ring = os + R * W;       // stage s at + s STAGE
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int j = warp % C::G;      // the warp's 16 query rows
+  const int half = warp / C::G;   // its half of each key tile
+  const int n_qt = (Lq + R - 1) / R;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * R;  // heaviest first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int off = Lk - Lq;
+  const bool vec = (D & 3) == 0;
+  int nk = (Lk + R - 1) / R;
+  if (causal) nk = min(nk, (min(q0 + R, Lq) - 1 + off) / R + 1);
+
+  const int64_t row = (int64_t)H * D;
+  const float* kb = k + ((int64_t)b * Lk * H + h) * D;
+  const float* vb = v + ((int64_t)b * Lk * H + h) * D;
+  auto load_stage = [&](int t, float* st) {
+    tf32_load_tile<W, R, C::NT>(st, kb, row, t * R, Lk, D, vec);
+    tf32_load_tile<W, R, C::NT>(st + R * W, vb, row, t * R, Lk, D, vec);
+  };
+  tf32_load_tile<W, R, C::NT>(qs, q + ((int64_t)b * Lq * H + h) * D, row,
+                              q0, Lq, D, vec);
+  tf32_load_tile<W, R, C::NT>(os, dO + ((int64_t)b * Lq * H + h) * D, row,
+                              q0, Lq, D, vec);
+  load_stage(0, ring);
+  cp_async_commit();
+
+  const int g = lane >> 2, c = lane & 3;
+  const int64_t bh = (int64_t)b * H + h;
+  int qrow[2];
+  float l[2], dl[2];  // the rows' lse and D
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    qrow[hh] = q0 + 16 * j + g + 8 * hh;
+    const bool in = qrow[hh] < Lq;
+    l[hh] = in ? lse[bh * Lq + qrow[hh]] : 0.f;
+    dl[hh] = in ? delta[bh * Lq + qrow[hh]] : 0.f;
+  }
+  float acc[W / 8][4];  // dQ (unscaled) of the warp's rows, its keys
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[n][r] = 0.f;
+  const int nks = (D + 7) / 8;
+  const float* const xs[2] = {qs + 16 * j * W, os + 16 * j * W};
+
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; tile t - 1's stage consumed
+    if (t + 1 < nk) load_stage(t + 1, ring + ((t + 1) % C::S) * STAGE);
+    cp_async_commit();
+    const float* kst = ring + (t % C::S) * STAGE + half * (R / 2) * W;
+    const float* vst = kst + R * W;
+    const int k0 = t * R + half * (R / 2);  // the warp's first key
+
+    // S = q k^T and dP = dO v^T: rows 16 j + g (+ 8) by keys
+    // k0 + 8 i + 2c (+ 1).
+    float s[2][NK][4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int i = 0; i < NK; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[p][i][r] = 0.f;
+    const float* const ys[2] = {kst, vst};
+    mma_nt<W, NK, 2>(s, xs, ys, nks, lane);
+
+    // P = exp(S scale - lse), 0 where masked (a key at or past Lk, or
+    // under `causal` a key ki > qi + off); dS = P o (dP - D) into s[1].
+    const bool edge =
+        t * R + R > Lk || (causal && t * R + R - 1 > q0 + off);
+#pragma unroll
+    for (int i = 0; i < NK; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int hh = r >> 1;
+        float p = expf(fmaf(s[0][i][r], scale, -l[hh]));
+        if (edge) {
+          const int ki = k0 + 8 * i + 2 * c + (r & 1);
+          if (!(ki < Lk && (!causal || qrow[hh] + off >= ki))) p = 0.f;
+        }
+        s[1][i][r] = p * (s[1][i][r] - dl[hh]);
+      }
+    Tf32A a[NK];
+    split_rows(a, s[1]);
+    mma_tn<W, NK>(acc, a, kst, D, lane);  // dQ += dS k
+  }
+
+  // dQ = half 0's sum + half 1's, through shared memory (q's tile, no
+  // longer read).
+  cp_async_wait_all();
+  __syncthreads();
+  float4* red = reinterpret_cast<float4*>(qs) + j * (W / 8) * 32 + lane;
+  if (half == 1) {
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+      red[32 * n] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+  }
+  __syncthreads();
+  if (half == 1) return;
+  float* out = dq + ((int64_t)b * Lq * H + h) * D;
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n) {
+    const float4 o = red[32 * n];
+    const float sum[4] = {acc[n][0] + o.x, acc[n][1] + o.y, acc[n][2] + o.z,
+                          acc[n][3] + o.w};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (qrow[hh] >= Lq) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * c + e;
+        if (col < D) out[qrow[hh] * row + col] = sum[2 * hh + e] * scale;
+      }
+    }
+  }
+}
+
+template <int W>
+cudaError_t launch_dkdv_tf32(const void* q, const void* k, const void* v,
+                             const void* dO, const void* lse,
+                             const void* delta, void* dk, void* dv, int B,
+                             int H, int Lq, int Lk, int D, float scale,
+                             int causal, cudaStream_t stream) {
+  constexpr int smem = dkdv_tf32_smem<W>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkdv<W, float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_dkdv_tf32<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   constexpr int R = f32_rows<W>();
   dim3 grid((Lk + R - 1) / R, H, B);
-  fa_bwd_dkdv<W, float><<<grid, kThreads, smem, stream>>>(
+  fa_bwd_dkdv_tf32<W><<<grid, Tf32<W>::NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dO),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -526,25 +780,24 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
 }
 
 template <int W>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dO, const void* lse, const void* delta,
-                      void* dq, int B, int H, int Lq, int Lk, int D,
-                      float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = dq_smem_bytes<W>();
+cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v,
+                           const void* dO, const void* lse,
+                           const void* delta, void* dq, int B, int H, int Lq,
+                           int Lk, int D, float scale, int causal,
+                           cudaStream_t stream) {
+  constexpr int smem = dq_tf32_smem<W>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dq<W, float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fa_bwd_dq_tf32<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   constexpr int R = f32_rows<W>();
   dim3 grid((Lq + R - 1) / R, H, B);
-  fa_bwd_dq<W, float><<<grid, kThreads, smem, stream>>>(
+  fa_bwd_dq_tf32<W><<<grid, Tf32<W>::NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dO),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq), H, Lq, Lk, D, scale, causal);
   return cudaGetLastError();
 }
-
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma), TMA ring
@@ -1077,15 +1330,16 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
   }
 
 // Dynamic shared memory (bytes) at bucket W of fa_bwd_dkdv_tc (which = 0),
-// fa_bwd_dq_tc (1), fa_bwd_dkdv (2) or fa_bwd_dq (3); -1 for anything else.
+// fa_bwd_dq_tc (1), fa_bwd_dkdv_tf32 (2) or fa_bwd_dq_tf32 (3); -1 for
+// anything else.
 extern "C" int fa_bwd_smem_bytes(int which, int W) {
   switch (W) {
 #define FA_BWD_SMEM(V)                               \
   case V:                                            \
     return which == 0   ? dkdv_tc_smem<V>()          \
            : which == 1 ? dq_tc_smem<V>()            \
-           : which == 2 ? dkdv_smem_bytes<V>()       \
-           : which == 3 ? dq_smem_bytes<V>()         \
+           : which == 2 ? dkdv_tf32_smem<V>()        \
+           : which == 3 ? dq_tf32_smem<V>()          \
                         : -1;
     FA_BWD_SMEM(32) FA_BWD_SMEM(64) FA_BWD_SMEM(128) FA_BWD_SMEM(192)
     FA_BWD_SMEM(256)
@@ -1110,7 +1364,7 @@ extern "C" int fa_bwd_preprocess_launch(const void* o, const void* dO,
 }
 
 // q, dO [B, Lq, H, D], k, v [B, Lk, H, D], lse and delta fp32 [B, H, Lq]
-// → dk, dv [B, Lk, H, D] in the dtype: fa_bwd_dkdv (float32) or
+// → dk, dv [B, Lk, H, D] in the dtype: fa_bwd_dkdv_tf32 (float32) or
 // fa_bwd_dkdv_tc (bfloat16).
 extern "C" int fa_bwd_dkdv_launch(const void* q, const void* k,
                                   const void* v, const void* dO,
@@ -1120,8 +1374,8 @@ extern "C" int fa_bwd_dkdv_launch(const void* q, const void* k,
                                   int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    FA_BUCKETS(launch_dkdv, q, k, v, dO, lse, delta, dk, dv, B, H, Lq, Lk,
-               D, scale, causal, s);
+    FA_BUCKETS(launch_dkdv_tf32, q, k, v, dO, lse, delta, dk, dv, B, H, Lq,
+               Lk, D, scale, causal, s);
   } else if (dtype == 1) {
     FA_BUCKETS(launch_dkdv_tc, q, k, v, dO, lse, delta, dk, dv, B, H, Lq,
                Lk, D, scale, causal, s);
@@ -1129,8 +1383,8 @@ extern "C" int fa_bwd_dkdv_launch(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// The same inputs → dq [B, Lq, H, D] in the dtype: fa_bwd_dq (float32) or
-// fa_bwd_dq_tc (bfloat16).
+// The same inputs → dq [B, Lq, H, D] in the dtype: fa_bwd_dq_tf32
+// (float32) or fa_bwd_dq_tc (bfloat16).
 extern "C" int fa_bwd_dq_launch(const void* q, const void* k, const void* v,
                                 const void* dO, const void* lse,
                                 const void* delta, void* dq, int dtype, int B,
@@ -1138,8 +1392,8 @@ extern "C" int fa_bwd_dq_launch(const void* q, const void* k, const void* v,
                                 int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    FA_BUCKETS(launch_dq, q, k, v, dO, lse, delta, dq, B, H, Lq, Lk, D,
-               scale, causal, s);
+    FA_BUCKETS(launch_dq_tf32, q, k, v, dO, lse, delta, dq, B, H, Lq, Lk,
+               D, scale, causal, s);
   } else if (dtype == 1) {
     FA_BUCKETS(launch_dq_tc, q, k, v, dO, lse, delta, dq, B, H, Lq, Lk, D,
                scale, causal, s);

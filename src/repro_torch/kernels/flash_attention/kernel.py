@@ -19,7 +19,10 @@ The dtype picks the kernels: bf16 (the models' dtype) goes to the tensor
 cores (wgmma, tiles through a TMA ring, p and dS split into three bf16
 terms so that the products stay exact); fp32 (the reference sweep's
 dtype, held to 2e-5 forward and 1e-4·max backward, which needs fp32
-products) to the CUDA cores.
+products) to the CUDA cores in the forward and, in the backward, to the
+tensor cores in TF32 (``mma.sync``, every operand split into two TF32
+terms and each product taken as three TF32 products, hi·hi + hi·lo +
+lo·hi, summed in fp32).
 
 Head dims: every D from 1 to ``MAX_HEAD_DIM`` = 256, the bound the
 reference's kernel docstring writes its VMEM budget for; a larger D is
@@ -42,7 +45,7 @@ follow the bucket), each under ``SMEM_LIMIT``.
 * Backward (:func:`flash_attention_bwd_cuda`): three launches in order,
   ``fa_bwd_preprocess`` (D = rowsum(dO ∘ O), either dtype), then dK/dV
   and dQ: ``fa_bwd_dkdv_tc`` and ``fa_bwd_dq_tc`` for bf16,
-  ``fa_bwd_dkdv`` and ``fa_bwd_dq`` for fp32.  Each step has its own
+  ``fa_bwd_dkdv_tf32`` and ``fa_bwd_dq_tf32`` for fp32.  Each step has its own
   wrapper here and its plain version in ``ref.py``; ``BWD_KERNEL_LAUNCHES``
   counts each kernel's launches.
 """
@@ -93,7 +96,7 @@ LIB_BWD = CudaLibrary("flash_attention_bwd", CSRC / "flash_attention_bwd.cu",
 
 # Launches of each backward kernel through the wrappers below (reset them
 # to 0 and read them back around a run).
-BWD_KERNELS = ("fa_bwd_preprocess", "fa_bwd_dkdv", "fa_bwd_dq",
+BWD_KERNELS = ("fa_bwd_preprocess", "fa_bwd_dkdv_tf32", "fa_bwd_dq_tf32",
                "fa_bwd_dkdv_tc", "fa_bwd_dq_tc")
 BWD_KERNEL_LAUNCHES = dict.fromkeys(BWD_KERNELS, 0)
 
@@ -144,8 +147,12 @@ def dq_tc_warpgroups(W: int) -> int:
 
 
 def f32_bwd_rows(W: int) -> int:
-    """Rows of a tile of ``fa_bwd_dkdv`` and ``fa_bwd_dq``."""
+    """Rows a block of ``fa_bwd_dkdv_tf32`` or ``fa_bwd_dq_tf32`` owns
+    (keys or queries), and rows of each tile it streams (``f32_rows``)."""
     return 64 if W <= 128 else 32
+
+
+F32_BWD_STAGES = 2  # the fp32 backward kernels' cp.async ring
 
 
 def fwd_tc_smem(W: int) -> int:
@@ -175,29 +182,34 @@ def dq_tc_smem(W: int) -> int:
             + 8 * (1 + 2 * s))
 
 
-def dkdv_f32_smem(W: int) -> int:
-    """``fa_bwd_dkdv``: k, v, q, dO tiles, Pᵀ and dSᵀ, lse and D."""
+def dkdv_tf32_smem(W: int) -> int:
+    """``fa_bwd_dkdv_tf32``: the k and v tiles, the ring's stages of q
+    and dO tiles with their rows' lse and D, and Pᵀ passed between the
+    warps of a pair; fp32, unpadded (the tiles are swizzled)."""
     r = f32_bwd_rows(W)
-    return 4 * (4 * r * (W + 1) + 2 * r * (r + 1) + 2 * r)
+    return 4 * (2 * r * W + F32_BWD_STAGES * (2 * r * W + 2 * r) + r * r)
 
 
-def dq_f32_smem(W: int) -> int:
-    """``fa_bwd_dq``: q, dO, k, v tiles, dS, lse and D."""
+def dq_tf32_smem(W: int) -> int:
+    """``fa_bwd_dq_tf32``: the q and dO tiles, the ring's stages of k
+    and v tiles."""
     r = f32_bwd_rows(W)
-    return 4 * (4 * r * (W + 1) + r * (r + 1) + 2 * r)
+    return 4 * (2 * r * W + F32_BWD_STAGES * 2 * r * W)
 
 
 # Each kernel's mirror, keyed by kernel name, with the index its
 # library's ``fa_smem_bytes`` / ``fa_bwd_smem_bytes`` takes for it.
 SMEM = {"fa_kernel_tc": (fwd_tc_smem, 0), "fa_kernel_f32": (fwd_f32_smem, 1),
         "fa_bwd_dkdv_tc": (dkdv_tc_smem, 0), "fa_bwd_dq_tc": (dq_tc_smem, 1),
-        "fa_bwd_dkdv": (dkdv_f32_smem, 2), "fa_bwd_dq": (dq_f32_smem, 3)}
+        "fa_bwd_dkdv_tf32": (dkdv_tf32_smem, 2),
+        "fa_bwd_dq_tf32": (dq_tf32_smem, 3)}
 
 
 def bwd_kernel(step: str, dtype: torch.dtype) -> str:
     """The kernel that the dK/dV (``step="dkdv"``) or dQ (``"dq"``)
-    wrapper launches for ``dtype``: the tensor-core one for bf16."""
-    return f"fa_bwd_{step}" + ("_tc" if dtype == torch.bfloat16 else "")
+    wrapper launches for ``dtype``: the wgmma one for bf16, the TF32
+    ``mma.sync`` one for fp32."""
+    return f"fa_bwd_{step}" + ("_tc" if dtype == torch.bfloat16 else "_tf32")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -312,7 +324,7 @@ def bwd_preprocess_cuda(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def bwd_dkdv_cuda(q, k, v, do, lse, delta, causal: bool = True):
-    """``fa_bwd_dkdv_tc`` (bf16) or ``fa_bwd_dkdv`` (fp32): (dK, dV)
+    """``fa_bwd_dkdv_tc`` (bf16) or ``fa_bwd_dkdv_tf32`` (fp32): (dK, dV)
     [B, Lk, H, D] in q's dtype."""
     _check(q, k, v, causal, "bwd_dkdv_cuda")
     _check_grad_inputs(q, do, stats=(lse, delta))
@@ -331,7 +343,7 @@ def bwd_dkdv_cuda(q, k, v, do, lse, delta, causal: bool = True):
 
 
 def bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True):
-    """``fa_bwd_dq_tc`` (bf16) or ``fa_bwd_dq`` (fp32): dQ [B, Lq, H, D]
+    """``fa_bwd_dq_tc`` (bf16) or ``fa_bwd_dq_tf32`` (fp32): dQ [B, Lq, H, D]
     in q's dtype."""
     _check(q, k, v, causal, "bwd_dq_cuda")
     _check_grad_inputs(q, do, stats=(lse, delta))

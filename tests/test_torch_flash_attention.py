@@ -20,7 +20,10 @@ three bf16 terms; ``emulate_tensor_core_kernel`` repeats that arithmetic
 on the CPU, so the split is held to the card's element bar here too.
 The bf16 backward kernels do the same with P and dS
 (``emulate_tensor_core_bwd``); both emulations also take the order the
-kernels use above a column bucket of 128 (``carry``).
+kernels use above a column bucket of 128 (``carry``).  The fp32 backward
+kernels take every product as three TF32 products on split operands
+(``emulate_tf32_bwd``, ``tf32_rna``), held here to the fp32 bar against
+the reference's ``jax.vjp``; one or two TF32 products miss it.
 
 Head dims: the plain forward and backward against the reference across
 1 <= D <= 256 (``HEAD_DIMS``), the kernels' buckets and bf16 padding,
@@ -191,17 +194,29 @@ def test_padding_round_trip():
     assert all(a is b for a, b in zip(kernel._padded(*even), even))
 
 
+# The fp32 backward kernels' shared memory at each bucket, as the
+# source's header states it (64 rows a block up to W = 128, 32 above).
+TF32_SMEM = {"fa_bwd_dkdv_tf32": {32: 66_560, 64: 115_712, 128: 214_016,
+                                  192: 152_064, 256: 201_216},
+             "fa_bwd_dq_tf32": {32: 49_152, 64: 98_304, 128: 196_608,
+                                192: 147_456, 256: 196_608}}
+
+
 @pytest.mark.parametrize("W", [32, 64, 128, 192, 256])
 @pytest.mark.parametrize("name", ["fa_kernel_tc", "fa_kernel_f32",
                                   "fa_bwd_dkdv_tc", "fa_bwd_dq_tc",
-                                  "fa_bwd_dkdv", "fa_bwd_dq"])
+                                  "fa_bwd_dkdv_tf32", "fa_bwd_dq_tf32"])
 def test_shared_memory_fits_at_every_bucket(name, W):
     """The Python mirrors of the sources' shared-memory formulas (checked
     against the libraries' own on the card by chip_smoke.py) stay under
-    the 232,448 bytes a Hopper block may use at every bucket."""
+    the 232,448 bytes a Hopper block may use at every bucket; the fp32
+    backward's are the source's stated figures."""
     from repro_torch.kernels.flash_attention import kernel
     smem, _ = kernel.SMEM[name]
     assert 0 < smem(W) <= kernel.SMEM_LIMIT == 232_448
+    if name in TF32_SMEM:
+        assert smem(W) == TF32_SMEM[name][W]
+        assert kernel.f32_bwd_rows(W) == (64 if W <= 128 else 32)
 
 
 @pytest.mark.parametrize("max_logits", [1, 777, 200 * 200 * 6])
@@ -678,14 +693,14 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_backward_kernels_follow_the_dtype():
-    """bf16 goes to the tensor-core kernels, fp32 to the CUDA-core ones;
-    a tensor the tensor maps would read at an odd offset is copied to an
+    """bf16 goes to the wgmma kernels, fp32 to the TF32 mma.sync ones; a
+    tensor the tensor maps would read at an odd offset is copied to an
     aligned one first, not refused."""
     from repro_torch.kernels.flash_attention import kernel
     assert kernel.bwd_kernel("dkdv", torch.bfloat16) == "fa_bwd_dkdv_tc"
     assert kernel.bwd_kernel("dq", torch.bfloat16) == "fa_bwd_dq_tc"
-    assert kernel.bwd_kernel("dkdv", torch.float32) == "fa_bwd_dkdv"
-    assert kernel.bwd_kernel("dq", torch.float32) == "fa_bwd_dq"
+    assert kernel.bwd_kernel("dkdv", torch.float32) == "fa_bwd_dkdv_tf32"
+    assert kernel.bwd_kernel("dq", torch.float32) == "fa_bwd_dq_tf32"
     assert set(kernel.BWD_KERNEL_LAUNCHES) == set(kernel.BWD_KERNELS)
     flat = torch.arange(1 + 2 * 3 * 32, dtype=torch.bfloat16)
     view = flat[1:].view(1, 2, 3, 32)
@@ -819,6 +834,209 @@ def test_backward_one_bf16_term_misses_the_element_bar():
     got, residual = emulate_tensor_core_bwd(*args, causal=True, terms=1)
     assert residual > 0.0
     assert max(bwd_bf16_ratio(g, w) for g, w in zip(got, want)) > 10.0
+
+
+def tf32_rna(x):
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds (the fp32 backward
+    kernels' ``split_tf32`` does it in integer arithmetic): half a TF32
+    step added to the bits, the 13 bits below cleared; ±inf stays, NaN
+    stays NaN, a value past the largest TF32 goes to inf."""
+    x = x.float()
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (u + 0x1000) & 0xFFFFE000
+    r = torch.where(r >= 1 << 31, r - (1 << 32), r).to(torch.int32)
+    return torch.where(torch.isnan(x), x, r.view(torch.float32))
+
+
+def tf32_cut(x):
+    """fp32 ``x`` as the tensor cores read a .tf32 operand: its 13 lowest
+    bits dropped (the kernels pass lo = x − hi unrounded)."""
+    u = x.float().contiguous().view(torch.int32)
+    return (u & -0x2000).view(torch.float32)
+
+
+def tf32_product(a, b, terms=3):
+    """a @ b as the fp32 backward kernels take it on the tensor cores:
+    hi = tf32_rna(x), lo = tf32_cut(x − hi) for each operand, TF32
+    products exact in fp32 and summed in fp32.  ``terms``: 1 is
+    hi·hi (plain TF32), 2 adds lo_a·hi_b (only a split), 3 adds
+    hi_a·lo_b as well (the kernels' hi·hi + hi·lo + lo·hi).
+
+    The operands are the kernels', the sums are not: torch's fp32 matmul
+    rounds where the tensor cores' accumulation over each k8 step cuts
+    its low bits, so a fault of that kind (a sum carried across many
+    tiles drifting) shows only on the card, where phase 6 of
+    chip_smoke.py holds the kernels to the same bar."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    t = ah @ bh
+    if terms >= 2:
+        t = t + tf32_cut(a - ah) @ bh
+    if terms >= 3:
+        t = t + ah @ tf32_cut(b - bh)
+    return t
+
+
+def emulate_tf32_bwd(q, k, v, do, lse, delta, causal=True, terms=3,
+                     scale=None, rows=64):
+    """The fp32 backward kernels' arithmetic (``fa_bwd_dkdv_tf32``,
+    ``fa_bwd_dq_tf32``) in torch, on the CPU, with each product's sum
+    rounded where the tensor cores cut it (``tf32_product``).
+
+    Blocks of ``rows`` keys (dK/dV) or queries (dQ) against tiles of
+    ``rows`` of the other side (``kernel.f32_bwd_rows``), tiles wholly
+    above the causal diagonal skipped.  Per tile: Sᵀ = k·qᵀ and
+    dPᵀ = v·dOᵀ summed from zero (``tf32_product``), P = exp(fma(S,
+    scale, −lse)) in fp32, 0 where masked, dS = P ∘ (dP − D); each
+    tile's dV = Pᵀ·dO, dK = dSᵀ·q is summed from zero and added to an
+    fp32 running sum.  dQ: each half of a key tile's rows summed from
+    zero into that half's running sum, the halves added at the end.  dK
+    and dQ scaled once at the end.  Returns (dq, dk, dv) in fp32."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    sc = torch.tensor(scale, dtype=torch.float32)
+    qf, kf, vf, dof = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))
+    lse, dl = lse.float()[..., None], delta.float()[..., None]
+    off = Lk - Lq
+
+    def p_ds(qs, ks, dos, vs, q0, k0):
+        s = tf32_product(qs, ks.transpose(-1, -2), terms)
+        dp = tf32_product(dos, vs.transpose(-1, -2), terms)
+        p = torch.exp(fma(s, sc, -lse[:, :, q0:q0 + qs.shape[2]]))
+        if causal:
+            qi = torch.arange(q0, q0 + qs.shape[2])[:, None] + off
+            ki = torch.arange(k0, k0 + ks.shape[2])[None, :]
+            p = torch.where(qi >= ki, p, torch.zeros(()))
+        return p, p * (dp - dl[:, :, q0:q0 + qs.shape[2]])
+
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for k0 in range(0, Lk, rows):
+        ks, vs = kf[:, :, k0:k0 + rows], vf[:, :, k0:k0 + rows]
+        first = max(0, k0 - off) // rows if causal else 0
+        for q0 in range(first * rows, Lq, rows):
+            qs, dos = qf[:, :, q0:q0 + rows], dof[:, :, q0:q0 + rows]
+            p, ds = p_ds(qs, ks, dos, vs, q0, k0)
+            dv[:, :, k0:k0 + rows] += tf32_product(p.transpose(-1, -2), dos,
+                                                   terms)
+            dk[:, :, k0:k0 + rows] += tf32_product(ds.transpose(-1, -2), qs,
+                                                   terms)
+    dq = torch.zeros_like(qf)
+    for q0 in range(0, Lq, rows):
+        qs, dos = qf[:, :, q0:q0 + rows], dof[:, :, q0:q0 + rows]
+        last = min(q0 + rows, Lq) - 1 + off if causal else Lk - 1
+        halves = [torch.zeros_like(qs), torch.zeros_like(qs)]
+        for k0 in range(0, min(Lk, last + 1), rows):
+            for h in (0, 1):
+                a = k0 + h * rows // 2
+                ks = kf[:, :, a:min(a + rows // 2, Lk)]
+                if not ks.shape[2]:
+                    continue
+                _, ds = p_ds(qs, ks, dos, vf[:, :, a:a + ks.shape[2]], q0, a)
+                halves[h] += tf32_product(ds, ks, terms)
+        dq[:, :, q0:q0 + rows] = halves[0] + halves[1]
+    return tuple((g * m).permute(0, 2, 1, 3)
+                 for g, m in ((dq, sc), (dk, sc), (dv, 1.0)))
+
+
+@functools.lru_cache(maxsize=None)
+def tf32_case(B, L, H, D, causal, seed):
+    """fp32 q, k, v, dO; what the kernels get from the forward and the
+    preprocess (lse, D); the reference's ``jax.vjp`` of its fp32
+    ``attention_ref``."""
+    import jax
+    q, k, v, do = grad_inputs(B, L, L, H, D, seed=seed)
+    o = attention_ref(q, k, v, causal)
+    lse = ref_mod.attention_lse_ref(q, k, causal)
+    delta = ref_mod.bwd_preprocess_ref(o, do)
+    _, vjp = jax.vjp(lambda a, b, c: j_ref(a, b, c, causal=causal),
+                     *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want = [torch.from_numpy(np.array(g)) for g in vjp(jnp.asarray(
+        do.numpy()))]
+    return (q, k, v, do, lse, delta), want
+
+
+# (B, L, H, D, causal): the reference sweep's fp32 shapes, head dim 80
+# (hubert-xlarge) both ways, and W = 256 (32 rows a block).
+TF32_SHAPES = [(B, L, H, D, causal) for B, L, H, D, causal, dtype in SWEEP
+               if dtype == "float32"] + [
+    (2, 200, 3, 80, True), (1, 256, 2, 80, False), (1, 256, 2, 256, True)]
+
+
+def tf32_ratios(terms):
+    """Worst |Δ| / (1e-4·max(max|ref|, 1)) of dq, dk, dv per shape."""
+    from repro_torch.kernels.flash_attention import kernel
+    out = {}
+    for B, L, H, D, causal in TF32_SHAPES:
+        args, want = tf32_case(B, L, H, D, causal, seed=L + D)
+        got = emulate_tf32_bwd(*args, causal=causal, terms=terms,
+                               rows=kernel.f32_bwd_rows(kernel.bucket(D)))
+        out[(B, L, H, D, causal)] = max(
+            float((g - w).abs().max()) / grad_bar(w)
+            for g, w in zip(got, want))
+    return out
+
+
+def test_tf32_rna_rounds_as_cvt_rna_tf32():
+    """Ties go away from zero on either sign, a value under the tie goes
+    down, the tie of the smallest subnormals rounds up to the next TF32
+    subnormal, ±inf and NaN stay; every result has its 13 low bits clear
+    and lies within half a TF32 step (2^-11 relative) of its input."""
+    one = 1.0 + 2.0 ** -10                     # the TF32 after 1
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -23, 1.0 + 3 * 2.0 ** -11,
+                      float("inf"), float("-inf"), 0.0, -0.0])
+    want = torch.tensor([one, -one, 1.0, 1.0 + 2.0 ** -9, float("inf"),
+                         float("-inf"), 0.0, -0.0])
+    got = tf32_rna(x)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    # Subnormals: a tie, one under it, a tie above an odd step, and a
+    # negative tie (bits 0x80001000 → 0x80002000).
+    neg = -(1 << 31)
+    sub = torch.tensor([0x1000, 0x0FFF, 0x3000, neg + 0x1000],
+                       dtype=torch.int32).view(torch.float32)
+    bits = tf32_rna(sub).view(torch.int32).tolist()
+    assert bits == [0x2000, 0, 0x4000, neg + 0x2000]
+    nan = tf32_rna(torch.tensor([float("nan"), -float("nan")]))
+    assert torch.isnan(nan).all()
+    assert float(tf32_rna(torch.tensor([3.4028235e38]))[0]) == float("inf")
+    r = torch.from_numpy(np.random.default_rng(0).normal(
+        size=10_000).astype(np.float32)) * 1e3
+    t = tf32_rna(r)
+    assert not (t.view(torch.int32) & 0x1FFF).any()
+    assert ((t - r).abs() <= r.abs() * 2.0 ** -11).all()
+    assert torch.equal(tf32_cut(t), t)
+
+
+@pytest.mark.parametrize("B,L,H,D,causal", TF32_SHAPES)
+def test_tf32_three_terms_meet_the_fp32_backward_bar(B, L, H, D, causal):
+    """The fp32 backward kernels' arithmetic (every product three TF32
+    products on split operands, tile sums from zero added in fp32) keeps
+    dq, dk and dv within 1e-4·max(max|ref|, 1) of the reference's fp32
+    ``jax.vjp``, with a margin of 10: at the sweep's shapes, head dim 80
+    and the 256 bucket's 32-row blocks."""
+    from repro_torch.kernels.flash_attention import kernel
+    args, want = tf32_case(B, L, H, D, causal, seed=L + D)
+    got = emulate_tf32_bwd(*args, causal=causal,
+                           rows=kernel.f32_bwd_rows(kernel.bucket(D)))
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert float((g - w).abs().max()) <= 0.1 * grad_bar(w), name
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3])
+def test_tf32_term_counts(terms):
+    """One TF32 product (plain TF32) and two (only one operand split) miss
+    the fp32 bar at every shape; three (hi·hi + hi·lo + lo·hi, the
+    kernels') meet it.  The worst ratios are printed (``-s``)."""
+    ratios = tf32_ratios(terms)
+    print(f"\nterms={terms}: worst max|Δ|/bar " + ", ".join(
+        f"{list(k)} {v:.4f}" for k, v in ratios.items()))
+    if terms < 3:
+        assert min(ratios.values()) > 1.0, ratios
+    else:
+        assert max(ratios.values()) <= 0.1, ratios
 
 
 @pytest.mark.cuda

@@ -1,0 +1,251 @@
+"""Time the fp32 flash-attention backward kernels (dK/dV and dQ) against
+an older build of their source, in turns, on one card.
+
+``python tools/fa_bwd_ab.py --old DIR``
+
+``DIR`` holds another version's ``flash_attention_bwd.cu`` and
+``fa_hopper.cuh`` (for example
+``src/repro_torch/kernels/flash_attention/csrc/`` of a ``git archive`` of
+the parent commit).  Both are built with ``kernels/build.py`` and called
+on the same fp32 inputs (q, k, v, dO normal; o and lse from the forward
+kernel, D from the preprocess kernel), each through its library's C
+entry points ``fa_bwd_dkdv_launch`` and ``fa_bwd_dq_launch`` into outputs
+made beforehand, so that no Python wrapper's checks or allocations land
+inside the timed window.  Each kernel is timed old, new, new, old: the
+median over 15 windows of ``BURST`` launches back to back, per launch
+(CUDA events).  Also prints each version's worst |Δ| over the fp32 bar
+1e-4·max(max|ref|, 1) against ``attention_bwd_ref``, the largest
+difference between the two, and each library's registers and spills per
+fp32 backward kernel from ``-Xptxas -v``.  Prints the card's name and
+power limit first.  Needs a CUDA card.
+
+``--ceilings`` also times, at the first shape and in turns with the new
+build, variants made from the new source's text, and says whether each
+gives the new build's outputs bit for bit: "no split" (every operand
+passed as both of its TF32 terms: the same three MMAs a product without
+the splitting's arithmetic; wrong results), "no MMA" (each
+``mma.sync`` an empty statement that keeps its operands: the loads,
+splits and the rest without the tensor cores; wrong results) and "lo
+cleared" (the lo term's 13 low bits cleared by hand: equal bits show
+that the tensor cores read a .tf32 operand cut to its top 19); and the
+rate
+of ``mma.sync.m16n8k8`` TF32 issued back to back, eight independent sums
+a warp, at 8 and 16 warps an SM (``MMA_RATE_SRC``).
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import math
+import re
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from ab_common import card, ms  # noqa: E402
+from repro_torch.kernels.build import CudaLibrary  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    attention_bwd_ref  # noqa: E402
+
+# [B, L, H, D], causal: phase 11 (b)'s fp32 llama3-8b attention and phase
+# 11 (a)'s shape.
+SHAPES = (((1, 2048, 32, 128), True), ((2, 4096, 32, 128), True))
+BAR = 1e-4
+
+# The --ceilings variants: (name, text in the source, its replacement).
+MMA_ASM = ('  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "\n'
+           '      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, '
+           '{%0, %1, %2, %3};\\n"')
+VARIANTS = (
+    ("no split",
+     "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+     "  lo = __float_as_uint(x - __uint_as_float(hi));",
+     "  hi = __float_as_uint(x);\n  lo = hi;"),
+    ("no MMA", MMA_ASM,
+     '  asm volatile("// %0 %1 %2 %3 %4 %5 %6 %7 %8 %9\\n"'),
+    ("lo cleared", "  lo = __float_as_uint(x - __uint_as_float(hi));",
+     "  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;"))
+
+# One kernel: 8 independent m16n8k8 TF32 sums a warp, `iters` rounds.
+MMA_RATE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void __launch_bounds__(256) mma_rate(float* out, int iters) {
+  const uint32_t a0 = __float_as_uint(1.f + threadIdx.x), a1 = a0 ^ 0x2000u;
+  const uint32_t b0 = __float_as_uint(0.5f), b1 = __float_as_uint(-0.25f);
+  float d[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+          "{%0, %1, %2, %3};\n"
+          : "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+          : "r"(a0), "r"(a1), "r"(a1), "r"(a0), "r"(b0), "r"(b1));
+  }
+  float s = 0.f;
+  for (int i = 0; i < 8; ++i) s += d[i][0] + d[i][1] + d[i][2] + d[i][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_rate_launch(void* out, int blocks, int iters,
+                               void* stream) {
+  mma_rate<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def report_build(tag, lib) -> None:
+    """Registers and spills of the library's fp32 dK/dV and dQ kernels."""
+    lib.load()
+    for name, (regs, st, ld) in sorted(lib.ptxas().items()):
+        if re.search(r"fa_bwd_(dkdv|dq)(?!_tc)", name):
+            print(f"[{tag}] {name}: {regs} registers, spills {st} / {ld}",
+                  flush=True)
+
+
+def variant_libs() -> dict:
+    """The --ceilings variants of the new source, written under the
+    kernels' git-ignored build directory."""
+    src = (fa.CSRC / "flash_attention_bwd.cu").read_text()
+    hdr = fa.CSRC / "fa_hopper.cuh"
+    out = {}
+    for name, old, new in VARIANTS:
+        if src.count(old) != 1:
+            raise SystemExit(f"--ceilings: the source no longer holds the "
+                             f"text the {name!r} variant replaces")
+        d = fa.LIB_BWD.build_root / "variants" / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "flash_attention_bwd.cu").write_text(src.replace(old, new))
+        (d / "fa_hopper.cuh").write_text(hdr.read_text())
+        out[name] = CudaLibrary("fa_bwd_" + name.replace(" ", "_"),
+                                d / "flash_attention_bwd.cu", ("-lcuda",),
+                                fa._bind_bwd, (d / "fa_hopper.cuh",)).load()
+    return out
+
+
+def mma_rate() -> None:
+    """TFLOP/s of mma.sync m16n8k8 TF32 issued back to back."""
+    d = fa.LIB_BWD.build_root / "variants" / "mma_rate"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "mma_rate.cu").write_text(MMA_RATE_SRC)
+
+    def bind(lib):
+        lib.mma_rate_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p]
+    lib = CudaLibrary("mma_rate", d / "mma_rate.cu", (), bind).load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    iters = 4096
+    for per_sm in (1, 2):
+        blocks = sms * per_sm
+        out = torch.empty(blocks * 256, device="cuda")
+        t = ms(lambda: lib.mma_rate_launch(out.data_ptr(), blocks, iters,
+                                           stream), reps=5)
+        flops = blocks * 8 * iters * 8 * 2 * 16 * 8 * 8
+        print(f"mma.sync m16n8k8 TF32, {8 * per_sm} warps an SM: "
+              f"{flops / (t * 1e-3) / 1e12:.1f} TFLOP/s ({t:.5f} ms)",
+              flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--old", required=True, type=Path)
+    ap.add_argument("--ceilings", action="store_true")
+    args = ap.parse_args()
+    old_dir = args.old.resolve()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card(), flush=True)
+    new_lib = fa.LIB_BWD
+    old_lib = CudaLibrary("flash_attention_bwd_old",
+                          old_dir / "flash_attention_bwd.cu", ("-lcuda",),
+                          fa._bind_bwd, (old_dir / "fa_hopper.cuh",))
+    report_build("new", new_lib)
+    report_build("old", old_lib)
+    libs = {"old": old_lib.load(), "new": new_lib.load()}
+    for (B, L, H, D), causal in SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(B * L + D)
+        q, k, v, do = (torch.randn((B, L, H, D), generator=gen,
+                                   device="cuda") for _ in range(4))
+        o, lse = fa.flash_attention_cuda(q, k, v, causal, lse=True)
+        delta = fa.bwd_preprocess_cuda(o, do)
+        want = attention_bwd_ref(q, k, v, o, do, lse, causal)
+        stream = torch.cuda.current_stream().cuda_stream
+        scale = 1.0 / math.sqrt(D)
+        outs = {tag: [torch.empty_like(q) for _ in range(3)]
+                for tag in libs}
+
+        def dkdv(tag):
+            lib, (_, dk, dv) = libs[tag], outs[tag]
+            return lambda: lib.fa_bwd_dkdv_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), 0, B, H, L, L, D, scale, int(causal), stream)
+
+        def dq(tag):
+            lib, (dqo, _, _) = libs[tag], outs[tag]
+            return lambda: lib.fa_bwd_dq_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dqo.data_ptr(), 0, B, H,
+                L, L, D, scale, int(causal), stream)
+
+        calls = {"dkdv": {t: dkdv(t) for t in libs},
+                 "dq": {t: dq(t) for t in libs}}
+        for step in calls.values():
+            for fn in step.values():
+                if fn() != 0:
+                    raise RuntimeError("launch failed")
+        torch.cuda.synchronize()
+        for tag in libs:
+            ratios = [float((g - w).abs().max())
+                      / (BAR * max(float(w.abs().max()), 1.0))
+                      for g, w in zip(outs[tag], want)]
+            print(f"[B,H,L,D]={[B, H, L, D]} causal={causal} fp32 {tag}: "
+                  f"worst |Δ|/bar dq, dk, dv "
+                  f"{', '.join(f'{r:.4g}' for r in ratios)}", flush=True)
+            if not max(ratios) <= 1.0:
+                raise AssertionError(f"{tag} misses the fp32 bar")
+        diff = [float((a - b).abs().max())
+                for a, b in zip(outs["old"], outs["new"])]
+        for name, step in calls.items():
+            t = (ms(step["old"]), ms(step["new"]), ms(step["new"]),
+                 ms(step["old"]))
+            print(f"[B,H,L,D]={[B, H, L, D]} causal={causal} fp32 {name}: "
+                  f"old, new, new, old ms a launch "
+                  f"{', '.join(f'{x:.5f}' for x in t)}; new / old "
+                  f"{(t[1] + t[2]) / (t[0] + t[3]):.4f}", flush=True)
+        print(f"[B,H,L,D]={[B, H, L, D]}: max|new - old| dq, dk, dv "
+              f"{', '.join(f'{x:.3g}' for x in diff)}", flush=True)
+        if args.ceilings and (B, L, H, D) == SHAPES[0][0]:
+            for name, lib in variant_libs().items():
+                libs[name] = lib
+                outs[name] = [torch.empty_like(q) for _ in range(3)]
+                for step, fn in (("dkdv", dkdv), ("dq", dq)):
+                    t = (ms(fn("new")), ms(fn(name)), ms(fn(name)),
+                         ms(fn("new")))
+                    print(f"[B,H,L,D]={[B, H, L, D]} causal={causal} fp32 "
+                          f"{step}: new, {name}, {name}, new ms a launch "
+                          f"{', '.join(f'{x:.5f}' for x in t)}", flush=True)
+                torch.cuda.synchronize()
+                same = [torch.equal(a, b)
+                        for a, b in zip(outs[name], outs["new"])]
+                print(f"{name}: dq, dk, dv bit for bit the new build's "
+                      f"{same}", flush=True)
+                del libs[name], outs[name]
+            mma_rate()
+        del q, k, v, do, o, lse, delta, want, outs
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,7 +25,6 @@ import argparse
 import ctypes
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -34,6 +33,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
+from ab_common import card, ms  # noqa: E402
 from repro_torch.kernels.build import CudaLibrary  # noqa: E402
 from repro_torch.kernels.ssd import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd.ref import (chunk_cumsum,  # noqa: E402
@@ -58,47 +58,6 @@ def bind_bwd(lib):
     lib.ssd_chunk_bwd_launch.argtypes = [P] * 13 + [I] * 9 + [P]
 
 
-BURST = 10
-
-
-def ms(fn, reps=15):
-    """Median ms per launch over ``reps`` windows of ``BURST`` launches."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(BURST):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / BURST)
-    return statistics.median(times)
-
-
-def ptxas(lib) -> dict:
-    """{entry function: (registers, spill stores, spill loads)} from the
-    library's ``-Xptxas -v`` output (empty if it was built by another
-    process)."""
-    out, cur = {}, None
-    for line in lib.build_info.get("log", "").splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            cur = m.group(1)
-            out[cur] = [None, None, None]
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and cur:
-            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur:
-            out[cur][0] = int(m.group(1))
-    return {k: tuple(v) for k, v in out.items()}
-
-
 def sass_counts(so) -> dict:
     """{function: SASS instructions} from ``cuobjdump -sass``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -119,7 +78,7 @@ def sass_counts(so) -> dict:
 
 def report_builds(tag, libs) -> None:
     for lib in libs:
-        regs, sass = ptxas(lib), sass_counts(lib.build())
+        regs, sass = lib.ptxas(), sass_counts(lib.build())
         for name in sorted(set(regs) | set(sass)):
             if "ssd" not in name:
                 continue
@@ -134,9 +93,7 @@ def main() -> int:
     old_dir = ap.parse_args().old.resolve()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(card(), flush=True)
     hdr = (old_dir / "ssd_mma.cuh",)
     old_libs = (CudaLibrary("ssd_old", old_dir / "ssd.cu", (), bind,
                             headers=hdr),
