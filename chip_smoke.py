@@ -45,7 +45,12 @@ Phases (each raises on failure, so the script exits non-zero):
    bf16 SSD chunk pass on the tensor cores, with the worst ratio to its
    bar at one, two and three bf16 terms); prints kernel, plain, bound
    and library times and achieved TFLOP/s, and the whole ``ssd()``;
-   flash attention's forward also at phase 11's [2, 32, 4096, 128]; the
+   flash attention's forward also at phase 11's [2, 32, 4096, 128], and
+   in fp32 (``fa_kernel_tf32``, every product three TF32 tensor-core
+   products) at phase 11 (b)'s [1, 32, 2048, 128], at [2, 32, 4096, 128]
+   and at [1, 8, 32768, 128] causal, each fp32 row with its lse and the
+   kernel's 3×TF32 MMA floor, every row's second pass equal bit for bit;
+   the
    backward (``flash_attention_bwd.cu``: the preprocess, then for bf16
    the tensor-core ``fa_bwd_dkdv_tc`` and ``fa_bwd_dq_tc``, whose
    registers, dynamic shared memory and spills from ``-Xptxas -v`` are
@@ -367,16 +372,21 @@ for B, L, H, D, causal, dtype in json.loads(sys.argv[1]):
         torch.autograd.grad(o, (q, k, v), do)
     fwd_bwd()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fwd_bwd()
-        torch.cuda.synchronize()
     names = {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            names[ev.key] = names.get(ev.key, 0.0) + getattr(
-                ev, "self_device_time_total",
-                getattr(ev, "self_cuda_time_total", 0.0))
+    # Up to three traces: one of a call of a few microseconds has come
+    # back holding no device kernel on the card.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fwd_bwd()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                names[ev.key] = names.get(ev.key, 0.0) + getattr(
+                    ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if names:
+            break
     if not names:
         raise SystemExit(f"SDPA at {[B, L, H, D, causal, dtype]}: the "
                          f"profiler's trace holds no device kernel")
@@ -402,8 +412,8 @@ def sdpa_backends(shapes) -> list:
     (no fused attention kernel); kernels = the names of the longest ones.
     The traces are taken in a fresh process: in this one, after phase 5's
     thousands of affinity launches, traces hold no device kernel until a
-    later phase (cause not found).  A trace with no device kernel is an
-    error."""
+    later phase (cause not found).  A shape whose three traces hold no
+    device kernel is an error."""
     proc = subprocess.run([sys.executable, "-c", SDPA_TRACE,
                            json.dumps([list(s) for s in shapes])],
                           capture_output=True, text=True, timeout=600)
@@ -744,9 +754,13 @@ FA_HEADLINE = FA_SERVING[0]
 # Phase 11 (a)'s attention: llama3-8b at 2 x 4096 tokens (train_4k's
 # sequence), GQA's heads repeated; forward and backward are timed here.
 FA_TRAIN = (2, 4096, 32, 128, True, "bfloat16")
-# Phase 11 (b)'s fp32 step (llama3-8b, fp32 compute): the fp32 backward
-# kernels' (fa_bwd_dkdv_tf32, fa_bwd_dq_tf32) shape on a main path.
+# Phase 11 (b)'s fp32 step (llama3-8b, fp32 compute): the fp32 kernels'
+# (fa_kernel_tf32, fa_bwd_dkdv_tf32, fa_bwd_dq_tf32) shape on a main path.
 FA_TRAIN_F32 = (1, 2048, 32, 128, True, "float32")
+# One long fp32 row set, forward only: 32,768 keys, where a sum carried
+# across the key tiles would drift furthest (the kernels sum each tile
+# from zero); its plain version is timed once.
+FA_LONG_F32 = (1, 32768, 8, 128, True, "float32")
 # Phase 14's attention, llama3-8b's widths at head dims 96 (32 heads,
 # Phi-3-mini's) and 256 (16 heads, Gemma-7B's), GQA's heads repeated: the
 # 4 x 2048 prefill (forward) and the 2 x 4096 train step (forward and
@@ -832,9 +846,29 @@ def fa_pairs(B, L, H, causal):
 
 
 def fa_bound(B, L, H, D, causal, dtype):
-    """4·D flops per unmasked (q, k) pair; q, k, v and o moved once."""
+    """4·D flops per unmasked (q, k) pair; q, k, v and o moved once.  fp32
+    products are priced at the faster of the CUDA cores and three TF32
+    tensor-core products a product (TF32_OPS_PER_S / 3), as
+    ``fa_bwd_bounds`` prices them."""
     return bound(4 * D * fa_pairs(B, L, H, causal),
-                 4 * B * L * H * D * esize(dtype), dtype)
+                 4 * B * L * H * D * esize(dtype), dtype,
+                 None if dtype == "bfloat16"
+                 else max(FP32_OPS_PER_S, TF32_OPS_PER_S / 3))
+
+
+def fa_mma_floor(B, L, H, D, causal, dtype):
+    """A forward kernel's own tensor-core work at its type's peak (ms):
+    bf16 ``fa_kernel_tc`` 8·W flops a pair (q·k once, p·v three times, W
+    the head dim's column bucket) at the bf16 peak; fp32
+    ``fa_kernel_tf32`` 6·(8⌈D/8⌉ + its p·v columns) (both products three
+    TF32 products) at the dense TF32 peak."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        bucket, fwd_tf32_pv_tiles)
+    pairs = fa_pairs(B, L, H, causal)
+    if dtype == "bfloat16":
+        return 8 * bucket(D) * pairs / BF16_OPS_PER_S * 1e3
+    cols = 8 * -(-D // 8) + 8 * fwd_tf32_pv_tiles(D)
+    return 6 * cols * pairs / TF32_OPS_PER_S * 1e3
 
 
 def ssd_bound(B, L, H, P, N, Q, dtype):
@@ -877,34 +911,56 @@ def max_err(torch, got, want) -> float:
 def phase_attention(torch) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import \
-        bucket, flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                         attention_ref)
     dev = torch.device("cuda")
     log("[fa] per call, ms (CUDA events, median after a warm-up): kernel "
-        "(bf16: tensor cores; fp32: CUDA cores); plain = the torch version "
-        "on the card; library = F.scaled_dot_product_attention(is_causal) "
-        "on the same tensors ([B, H, L, D] views; timed only, never used "
-        "by the port); bound = the least time for the work (4·D flops per "
-        "pair) and what bounds it; TFLOP/s = those flops over the kernel "
-        "time; MMA floor = the bf16 kernel's own tensor-core work (8·W "
-        "flops per pair, W the head dim's column bucket: q·k once, p·v "
-        "three times) at the bf16 peak")
+        "(bf16: fa_kernel_tc on wgmma; fp32: fa_kernel_tf32 on mma.sync, "
+        "every product three TF32 products on split operands); plain = "
+        "the torch version on the card (timed once at 32,768 fp32 keys); "
+        "library = F.scaled_dot_product_attention(is_causal) on the same "
+        "tensors ([B, H, L, D] views; timed only, never used by the "
+        "port); bound = the least time for the work (4·D flops per pair "
+        "at the bf16 peak, fp32 at three TF32 tensor-core products a "
+        "product, 164.9 TFLOP/s) and what bounds it; TFLOP/s = those "
+        "flops over the kernel time; MMA floor = the kernel's own "
+        "tensor-core work at its type's peak (bf16: 8·W flops per pair, "
+        "W the head dim's column bucket: q·k once, p·v three times; fp32, "
+        "3×TF32: 6·(8⌈D/8⌉ + the p·v columns it computes) at 494.7 "
+        "TFLOP/s); fp32 rows also hold the lse to 1e-4·max(max|ref|, 1); "
+        "every row's second pass equal bit for bit")
     rows, worst = {}, 0.0
     for i, shape in enumerate(FA_SWEEP + FA_D80 + FA_SERVING + [FA_TRAIN]
-                              + FA_HD_SERVING + FA_HD_TRAIN):
+                              + FA_HD_SERVING + FA_HD_TRAIN
+                              + [FA_TRAIN_F32, FA_TRAIN_F32_4K,
+                                 FA_LONG_F32]):
         B, L, H, D, causal, dtype = shape
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         tdt = getattr(torch, dtype)
         q, k, v = (torch.randn((B, L, H, D), generator=gen, device=dev)
                    .to(tdt) for _ in range(3))
-        got = flash_attention_cuda(q, k, v, causal)
+        got, lse = flash_attention_cuda(q, k, v, causal, lse=True)
+        again = flash_attention_cuda(q, k, v, causal)
         want = attention_ref(q, k, v, causal)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash attention {shape}: two passes "
+                                 f"differ")
         err = max_err(torch, got, want)
         if not err <= FA_TOL[dtype]:
             raise AssertionError(f"flash attention {shape}: max|Δ| {err} "
                                  f"> {FA_TOL[dtype]}")
         rel = ""
+        if dtype == "float32":
+            want_lse = attention_lse_ref(q, k, causal)
+            lse_err = max_err(torch, lse, want_lse)
+            lse_bar = FA_BWD_F32 * max(float(want_lse.abs().max()), 1.0)
+            if not lse_err <= lse_bar:
+                raise AssertionError(f"flash attention {shape}: lse max|Δ| "
+                                     f"{lse_err} > {lse_bar}")
+            rel = f"; lse max|Δ| {lse_err:.3g} <= {lse_bar:.3g}"
+            del want_lse
         if dtype == "bfloat16":
             ratio = fwd_ratio(torch, got, want, dtype)
             if not ratio <= 1.0:
@@ -915,26 +971,25 @@ def phase_attention(torch) -> dict:
                    f"{ratio:.4g} <= 1")
         worst = max(worst, err)
         ms = timed_ms(torch, lambda: flash_attention_cuda(q, k, v, causal))
-        plain = timed_ms(torch, lambda: attention_ref(q, k, v, causal))
+        plain = timed_ms(torch, lambda: attention_ref(q, k, v, causal),
+                         max_reps=1 if shape == FA_LONG_F32 else 25)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
         bms, bby = fa_bound(B, L, H, D, causal, dtype)
         pairs = fa_pairs(B, L, H, causal)
         tflops = 4 * D * pairs / (ms * 1e-3) / 1e12
+        floor = fa_mma_floor(B, L, H, D, causal, dtype)
         rows[shape] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                            bound_ms=bms, bound_by=bby, err=err,
-                           tflops=tflops)
-        extra = ""
-        if dtype == "bfloat16":
-            extra += (f"; MMA floor "
-                      f"{8 * bucket(D) * pairs / BF16_OPS_PER_S * 1e3:.6f}")
+                           tflops=tflops, mma_floor_ms=floor)
         log(f"[fa] [B,H,L,D]={[B, H, L, D]} causal={causal} {dtype}: "
             f"kernel {ms:.5f} plain {plain:.5f} library {lib:.5f} bound "
             f"{bms:.6f} ({bby}); {tflops:.1f} TFLOP/s, kernel/library "
-            f"{ms / lib:.2f}{extra}; max|Δ| {err:.3g} <= "
-            f"{FA_TOL[dtype]}{rel}")
-        del q, k, v, got, want
+            f"{ms / lib:.2f}; "
+            f"{'3×TF32 ' if dtype == 'float32' else ''}MMA floor "
+            f"{floor:.6f}; max|Δ| {err:.3g} <= {FA_TOL[dtype]}{rel}")
+        del q, k, v, got, again, lse, want
     torch.cuda.empty_cache()
     return dict(rows=rows, max_abs_err=worst)
 
@@ -998,7 +1053,7 @@ def check_builds(lib, tag: str, kernels: dict) -> dict:
 
 
 # setmaxnreg's split of each flash-attention wgmma kernel's registers, and
-# the fp32 backward kernels' blocks (none for the CUDA-core forward).
+# the fp32 (TF32 mma.sync) kernels' blocks.
 FA_REG_NOTES = {
     "fa_kernel_tc": " at launch (setmaxnreg: 240 a consumer, 24 the "
                     "producer)",
@@ -1007,14 +1062,14 @@ FA_REG_NOTES = {
     "fa_bwd_dq_tc": " at launch (setmaxnreg: 232 a consumer, 40 the "
                     "producer)"}
 FA_REG_NOTES.update(dict.fromkeys(
-    ("fa_bwd_dkdv_tf32", "fa_bwd_dq_tf32"),
+    ("fa_kernel_tf32", "fa_bwd_dkdv_tf32", "fa_bwd_dq_tf32"),
     " (one block an SM: 256 threads up to W = 128, 128 above)"))
 
 
 def check_tc_builds(fa) -> dict:
-    """Every flash-attention kernel (forward and backward, tensor-core
-    and CUDA-core) at every column bucket: no spill, and each
-    library's shared memory equal to ``kernel.py``'s mirror."""
+    """Every flash-attention kernel (forward and backward, wgmma and
+    TF32 mma.sync) at every column bucket: no spill, and each library's
+    shared memory equal to ``kernel.py``'s mirror."""
     out = {}
     for lib_obj, tag, size in (
             (fa.LIB, "fa", lambda which, W: fa.LIB.load().fa_smem_bytes(
@@ -4065,10 +4120,38 @@ def main() -> int:
         "launches_short": short["ssd_launches"]["CARRY_LAUNCHES"],
         "chunks": fwd_chunks(1),
     }]}
+    # The fp32 forward (TF32 tensor cores) at phase 11 (b)'s fp32 step,
+    # which launched it once per layer; phase 6's fp32 rows beside it.
+    f32_run = train["families"][f"{TRAIN_FP32[0][0]} float32"]
+    fwd32 = fa["rows"][FA_TRAIN_F32]
+    Bt, Lt, Ht, Dt, _, _ = FA_TRAIN_F32
+    record["kernels"].append({
+        "name": "fa_kernel_tf32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+        "launches": f32_run["launches"][0],
+        "max_abs_err": max(r["err"] for sh, r in fa["rows"].items()
+                           if sh[5] == "float32"),
+        **{key: fwd32[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "mma_floor_ms")},
+        "shape": [Bt, Ht, Lt, Dt],
+        "dtype": "float32",
+        # Every fp32 row of phase 6 ([B, H, L, D], causal).
+        "rows": [dict(shape=[b, h, l, d], causal=c,
+                      **{key: r[key] for key in (
+                          "ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "mma_floor_ms", "err")})
+                 for (b, l, h, d, c, dt), r in fa["rows"].items()
+                 if dt == "float32"],
+        "build": {k: v for k, v in fab["builds"].items()
+                  if k.startswith("fa_kernel_tf32<")},
+    })
     # The backward's kernels: the bf16 ones (and the preprocess) at the
     # training headline, launched by phase 11 (a); the fp32 ones (TF32
     # tensor cores) at phase 11 (b)'s fp32 step, which launched them.
-    f32_run = train["families"][f"{TRAIN_FP32[0][0]} float32"]
     for key, name, shape, launches in (
             ("preprocess", "fa_bwd_preprocess", FA_TRAIN,
              train["bwd_kernel_launches"]),

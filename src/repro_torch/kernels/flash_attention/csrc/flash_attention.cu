@@ -14,8 +14,8 @@
 // Head dims: the reference's D "rides along whole", up to 256.  Each
 // kernel is built for the column buckets W = 32, 64, 128, 192, 256
 // (fa_bucket in fa_hopper.cuh) and takes the true D <= W at run time:
-// columns D .. W - 1 of every tile are zeros (TMA's fill for bf16, masked
-// loads for fp32), which add exact zeros to q k^T and give zero output
+// columns D .. W - 1 of every tile are zeros (TMA's fill for bf16, the
+// cp.async copies' zero fill for fp32), which add exact zeros to q k^T and give zero output
 // columns, and only the first D output columns are written.  The scale is
 // the caller's (1/sqrt(D) of the true D).  bf16 needs D a multiple of 8
 // (a tensor map's rows are whole 16-byte units); the wrapper zero-pads q,
@@ -30,7 +30,9 @@
 // pair (D multiply-adds for q.k, D for p.v) and moves only q, k, v and o
 // once, so at the serving shapes (L = 2048 or 32768, D >= 64) it sits far
 // above the card's ridge point.  At D = 64 the exponentials come close to
-// the products: one ex2 per pair at 16 per clock per SM.
+// the products: one ex2 per pair at 16 per clock per SM.  fp32 products
+// are priced at three TF32 tensor-core products a product (494.7 / 3
+// TFLOP/s), which is how the fp32 kernel takes them.
 //
 // Two kernels, chosen by dtype:
 //
@@ -98,199 +100,367 @@
 //   the end.
 //
 // * fp32 (the reference sweep's and the tests' dtype, held to 2e-5, which
-//   needs fp32 products): fa_kernel_f32, the first port's kernel on the
-//   CUDA cores.  One block of 256 threads per (64 query rows, head,
-//   batch); q, k and v tiles of W columns staged in shared memory in
-//   fp32 (columns past D zero), rows padded by one word (f32_smem_bytes:
-//   213,760 bytes at W = 256); the thread (ty, tx) of a 16 x 16 grid owns
-//   rows ty + 16 i and logits of columns tx + 16 j, so a row's max and sum
-//   are half-warp shuffles; q k^T runs over the true D rounded up to 8
-//   columns; p goes through shared memory for the p v product.
+//   needs fp32 products): fa_kernel_tf32, on the tensor cores with TF32
+//   mma.sync m16n8k8 (fa_tf32.cuh, shared with the fp32 backward).  Each
+//   fp32 operand x is split into hi = x rounded to 10 mantissa bits and
+//   lo = x - hi, and every product is taken as three TF32 products,
+//   hi·hi + hi·lo + lo·hi, summed in fp32 (mma3): about 2^-21 of each
+//   product is lost, where one TF32 product (plain TF32) misses the 2e-5
+//   bar by 4-49x and two by 3-47x (the CPU emulation,
+//   tests/test_torch_flash_attention.py::emulate_tf32_fwd).  wgmma takes
+//   .tf32 operands only K-major from shared memory, and v in p v is read
+//   MN-major, so the kernel uses mma.sync.
+//
+//   Blocks: R = f32_rows<W> query rows (64 up to W = 128, 32 above) per
+//   (row block, head, batch), 2 R / 16 warps (8 or 4), one block an SM;
+//   the q tile is loaded once and split once into its hi and lo tiles,
+//   and the k and v tiles of R keys stream through a 2-stage cp.async
+//   ring (tf32_load_tile; rows past L and columns past D zero-filled), so
+//   the next tile loads while the current one is multiplied.  Warp j + h R / 16 (h = 0, 1) takes query rows
+//   16 j .. 16 j + 15 against half h of each key tile, with its own row
+//   max m, sum l and output O; at the end the halves merge through shared
+//   memory (m = max(m0, m1), a_h = exp(m_h - m), l = l0 a0 + l1 a1,
+//   O = O0 a0 + O1 a1).  A half that none of a warp's rows sees is
+//   skipped; key tiles above the block's causal diagonal are not loaded;
+//   query blocks go heaviest first.  Shared memory: q's hi and lo tiles
+//   and two stages of k and v, R W words each (tf32_smem_bytes: 196,608
+//   bytes at W = 128 and 256; kernel.py mirrors it).
+//
+//   Per key tile: S = q k^T over the true D in k8 steps (qk_tf32, both
+//   operands K-major through ldmatrix, q's terms from their tiles, k split
+//   in registers), summed from zero with hi·hi apart from hi·lo + lo·hi
+//   (more independent sums in flight; it also cut the worst error at
+//   4,096 keys by a quarter on the card); logits S scale,
+//   -1e30 where masked (only on tiles that cross the diagonal or Lk); the
+//   online softmax with the accurate expf (a row spans the four lanes of
+//   its fragment row: two shuffles), p = 0 where masked; then T = p v,
+//   p's accumulator fragment as the split A operand (split_rows) and v's
+//   rows read MN-major from the swizzled tile, summed from zero on the
+//   tensor cores and added as O = O alpha + T in fp32 on the CUDA cores:
+//   O is never carried in the tensor cores' accumulator, whose sums cut
+//   rather than round (carried across 4,096 keys such a sum drifted to
+//   half the backward's bar).  p v runs over groups of Tf32<W>::NG output
+//   n-tiles (4 at W = 256, where more tile sums spill), the last group cut
+//   at the n-tile holding D - 1 (to 2, 4 or NG n-tiles, pv_tf32), so D =
+//   80 computes 80 columns, not its bucket's 128.  lse = m + log l in
+//   natural-log units.  MMA work: 6 (8 ceil(D/8) + the p v columns) flops
+//   a pair (kernel.py's fwd_tf32_pv_tiles).
 
 #include "fa_hopper.cuh"
+#include "fa_tf32.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32: tensor cores (mma.sync TF32, three terms), cp.async ring
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
-
+// Shared memory of fa_kernel_tf32: q's hi and lo tiles and the ring's
+// stages of k and v tiles, fp32, unpadded (the tiles are swizzled).
 template <int W>
-__host__ __device__ constexpr int f32_smem_bytes() {
-  return (int)sizeof(float) *
-         (kBQ * (W + 1) + kBK * (W + 1) + kBK * W + kBQ * (kBK + 1));
+__host__ __device__ constexpr int tf32_smem_bytes() {
+  constexpr int R = f32_rows<W>();
+  return 4 * (2 * R * W + Tf32<W>::S * 2 * R * W);
+}
+
+// s = X Y^T for the warp's 16 rows of q against NN n-tiles (8 rows each)
+// of a swizzled k tile, contracted over their first 8 nks columns, both
+// K-major through ldmatrix (mma_nt's fragments).  X comes as its two TF32
+// terms from their own tiles (q split once a block), Y is split as it
+// reaches the registers.  hi·hi is summed apart from hi·lo + lo·hi, both
+// from zero, and the two added at the end: twice the independent sums in
+// flight, and the tensor cores' cut of the small terms' sum stays small.
+template <int W, int NN>
+__device__ __forceinline__ void qk_tf32(float (&s)[NN][4], const float* xh,
+                                        const float* xl, const float* y,
+                                        int nks, int lane) {
+  const int sw = lane & 7;  // = the row's r % 8 for every lane below
+  // A: matrices (rows 0-7, k 0-3), (8-15, 0-3), (0-7, 4-7), (8-15, 4-7).
+  const int xrow = (lane & 7) + 8 * ((lane >> 3) & 1), xk = lane >> 4;
+  // B: as ldsm_split_b reads them.
+  const int yrow = (lane & 7) + 8 * (lane >> 4), yk = (lane >> 3) & 1;
+  const uint32_t xah = smem_addr(xh) + xrow * W * 4;
+  const uint32_t xal = smem_addr(xl) + xrow * W * 4;
+  const uint32_t ya = smem_addr(y) + yrow * W * 4;
+  float corr[NN][4];
+#pragma unroll
+  for (int i = 0; i < NN; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[i][r] = corr[i][r] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < nks; ++kk) {
+    const uint32_t xo = ((2 * kk + xk) ^ sw) << 4;
+    const uint32_t yo = ((2 * kk + yk) ^ sw) << 4;
+    Tf32A a;
+    ldsm_x4(a.hi, xah + xo);
+    ldsm_x4(a.lo, xal + xo);
+    uint32_t bh[NN][2], bl[NN][2];
+    ldsm_split_b<W, NN>(bh, bl, ya + yo);
+#pragma unroll
+    for (int i = 0; i < NN; ++i) mma_tf32(s[i], a.hi, bh[i][0], bh[i][1]);
+#pragma unroll
+    for (int i = 0; i < NN; ++i) mma_tf32(corr[i], a.hi, bl[i][0], bl[i][1]);
+#pragma unroll
+    for (int i = 0; i < NN; ++i) mma_tf32(corr[i], a.lo, bh[i][0], bh[i][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < NN; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[i][r] += corr[i][r];
+}
+
+// O = O alpha + A Y over the output n-tiles n0 .. n0 + N - 1 (tn_group's
+// product, summed from zero, added in fp32).
+template <int W, int NM, int N>
+__device__ __forceinline__ void pv_group(float (&out)[W / 8][4],
+                                         const Tf32A (&a)[NM],
+                                         const float* (&y0)[4],
+                                         const float* (&y1)[4],
+                                         int n0, const float (&alpha)[2]) {
+  float t[N][4];
+  tn_group<W, NM, N>(t, a, y0, y1, n0);
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      out[n0 + u][r] = fmaf(out[n0 + u][r], alpha[r >> 1], t[u][r]);
+}
+
+// O = O alpha + P V over the output n-tiles below nt = ceil(D / 8), P the
+// split A operand (split_rows), V a swizzled tile of W columns read
+// MN-major: in groups of NG = Tf32<W>::NG n-tiles, the last group cut to
+// the fewest of NG, NG / 2 or NG / 4 n-tiles (at least 2) that reach nt,
+// so that a D below its bucket (80 at W = 128) pays for few zero columns.
+// Rows with no valid key yet have O = 0 and p = 0, so their O stays 0.
+template <int W, int NM>
+__device__ __forceinline__ void pv_tf32(float (&out)[W / 8][4],
+                                        const Tf32A (&a)[NM], const float* y,
+                                        int nt, const float (&alpha)[2],
+                                        int lane) {
+  constexpr int NG = Tf32<W>::NG;
+  constexpr int NG2 = NG / 2 < 2 ? 2 : NG / 2;
+  constexpr int NG4 = NG / 4 < 2 ? 2 : NG / 4;
+  const float* y0[4];
+  const float* y1[4];
+  tn_rows<W>(y0, y1, y, lane);
+#pragma unroll
+  for (int n0 = 0; n0 < W / 8; n0 += NG) {
+    const int left = nt - n0;
+    if (left <= 0) break;
+    if (left > NG2)
+      pv_group<W, NM, NG>(out, a, y0, y1, n0, alpha);
+    else if (left > NG4)
+      pv_group<W, NM, NG2>(out, a, y0, y1, n0, alpha);
+    else
+      pv_group<W, NM, NG4>(out, a, y0, y1, n0, alpha);
+  }
 }
 
 template <int W>
-__global__ void __launch_bounds__(kThreads)
-    fa_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o,
-                  float* __restrict__ lse, int H, int Lq, int Lk, int D,
-                  float scale, int causal) {
-  constexpr int RC = W / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [kBQ][W + 1]
-  float* ks = qs + kBQ * (W + 1);   // [kBK][W + 1]
-  float* vs = ks + kBK * (W + 1);   // [kBK][W]
-  float* ps = vs + kBK * W;         // [kBQ][kBK + 1]
+__global__ void __launch_bounds__(Tf32<W>::NT, 1)
+    fa_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   float* __restrict__ lse, int H, int Lq, int Lk, int D,
+                   float scale, int causal, int vec) {
+  using C = Tf32<W>;
+  constexpr int R = C::R;            // query rows a block; keys a tile
+  constexpr int NK = R / 16;         // n-tiles of a warp's half of a tile
+  constexpr int STAGE = 2 * R * W;   // k, v
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                  // [R][W], swizzled: q, then its hi
+  float* ql = qs + R * W;            // q's lo
+  float* ring = ql + R * W;          // stage s at + s STAGE
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int half_base = tid & 16;  // lane 0 or 16 of this half-warp
-  const int q0 = blockIdx.x * kBQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int j = warp % C::G;         // the warp's 16 query rows
+  const int half = warp / C::G;      // its half of each key tile
+  const int n_qt = (Lq + R - 1) / R;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * R;  // heaviest first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int off = Lk - Lq;
+  int nk = (Lk + R - 1) / R;
+  if (causal) nk = min(nk, (min(q0 + R, Lq) - 1 + off) / R + 1);
 
   const int64_t row = (int64_t)H * D;  // elements between sequence rows
-  const float* qb = q + ((int64_t)b * Lq * H + h) * D;
   const float* kb = k + ((int64_t)b * Lk * H + h) * D;
   const float* vb = v + ((int64_t)b * Lk * H + h) * D;
-  float* ob = o + ((int64_t)b * Lq * H + h) * D;
-
-  for (int e = tid; e < kBQ * W; e += kThreads) {
-    const int r = e / W, c = e % W;
-    const int qi = q0 + r;
-    qs[r * (W + 1) + c] = qi < Lq && c < D ? qb[qi * row + c] : 0.f;
+  auto load_stage = [&](int t, float* st) {
+    tf32_load_tile<W, R, C::NT>(st, kb, row, t * R, Lk, D, vec);
+    tf32_load_tile<W, R, C::NT>(st + R * W, vb, row, t * R, Lk, D, vec);
+  };
+  tf32_load_tile<W, R, C::NT>(qs, q + ((int64_t)b * Lq * H + h) * D, row,
+                              q0, Lq, D, vec);
+  load_stage(0, ring);
+  cp_async_commit();
+  // q's TF32 terms, once: hi in place, lo beside it (the loop's first
+  // barrier orders these writes before the products read them).
+  cp_async_wait_all();
+  __syncthreads();
+  for (int e = threadIdx.x; e < R * W; e += C::NT) {
+    uint32_t hi, lo;
+    split_tf32(qs[e], hi, lo);
+    qs[e] = __uint_as_float(hi);
+    ql[e] = __uint_as_float(lo);
   }
 
-  float acc[4][RC];
-  float m[4], l[4];
+  // In S's and O's accumulator fragments this thread holds rows g and
+  // g + 8 of the warp's 16, columns 8 i + 2c and 8 i + 2c + 1: register
+  // 2 hh + e of n-tile i is (row qrow[hh], column 8 i + 2c + e).
+  const int g = lane >> 2, c = lane & 3;
+  const int first = q0 + 16 * j;              // the warp's first row
+  const int last = min(first + 15, Lq - 1);    // its last (< first: none)
+  const int qrow[2] = {first + g, first + g + 8};
+  float acc[W / 8][4];  // O of the warp's rows over its halves' keys
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int n = 0; n < W / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < RC; ++c) acc[i][c] = 0.f;
-  }
-
-  int nk = (Lk + kBK - 1) / kBK;
-  if (causal) {
-    const int last_key = min(q0 + kBQ, Lq) - 1 + off;
-    nk = min(nk, last_key / kBK + 1);
-  }
+    for (int r = 0; r < 4; ++r) acc[n][r] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's share of the rows' sums
+  // k8 steps of q k^T and output n-tiles of p v reaching a column below D.
+  const int nks = (D + 7) / 8;
 
   for (int t = 0; t < nk; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous tile's k, v and p are consumed
-    for (int e = tid; e < kBK * W; e += kThreads) {
-      const int r = e / W, c = e % W;
-      const int ki = k0 + r;
-      const bool in = ki < Lk && c < D;
-      ks[r * (W + 1) + c] = in ? kb[ki * row + c] : 0.f;
-      vs[r * W + c] = in ? vb[ki * row + c] : 0.f;
-    }
-    __syncthreads();
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; tile t - 1's stage consumed
+    if (t + 1 < nk) load_stage(t + 1, ring + ((t + 1) % C::S) * STAGE);
+    cp_async_commit();
+    const float* kst = ring + (t % C::S) * STAGE + half * (R / 2) * W;
+    const float* vst = kst + R * W;
+    const int k0 = t * R + half * (R / 2);  // the warp's first key
+    // A half that none of the warp's rows sees (rows past Lq, keys past Lk
+    // or past every row's diagonal) would leave m, l and O as they are.
+    if (first > last || k0 >= Lk || (causal && k0 > last + off)) continue;
 
-    float s[4][4];
+    // S = q k^T: rows qrow[hh] by keys k0 + 8 i + 2c (+ 1), summed from
+    // zero; then the logits S scale, -1e30 where masked (a key at or past
+    // Lk, or under `causal` a key ki > qi + off), checked on tiles that
+    // cross them.
+    float s[NK][4];
+    qk_tf32<W, NK>(s, qs + 16 * j * W, ql + 16 * j * W, kst, nks, lane);
+    const bool edge =
+        k0 + R / 2 > Lk || (causal && k0 + R / 2 - 1 > first + off);
+    auto masked = [&](int i, int r) {
+      const int ki = k0 + 8 * i + 2 * c + (r & 1);
+      return !(ki < Lk && (!causal || qrow[r >> 1] + off >= ki));
+    };
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NK; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    // Over D in whole groups of 8 columns (the tiles' columns past D are
-    // zero, and W is a multiple of 8).
-    for (int d0 = 0; d0 < D; d0 += 8) {
-#pragma unroll
-      for (int dd = 0; dd < 8; ++dd) {
-        const int d = d0 + dd;
-        float qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * (W + 1) + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * (W + 1) + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int r = 0; r < 4; ++r) {
+        float x = s[i][r] * scale;
+        if (edge && masked(i, r)) x = kNegInf;
+        s[i][r] = x;
+        mx[r >> 1] = fmaxf(mx[r >> 1], x);
       }
+    // A row's logits lie in the four lanes of its fragment row.
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      alpha[hh] = expf(m[hh] - m_new);
+      m[hh] = m_new;
     }
-
+    // p = exp(x - m), 0 where masked (a row whose keys so far are all
+    // masked has m = -1e30, and exp(0) would count them).
+    float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int qi = q0 + r;
-      float mx = kNegInf;
+    for (int i = 0; i < NK; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ki = k0 + tx + 16 * j;
-        const bool ok = ki < Lk && (!causal || qi + off >= ki);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[r * (kBK + 1) + tx + 16 * j] = p;
-        rs += p;
+      for (int r = 0; r < 4; ++r) {
+        float p = expf(s[i][r] - m[r >> 1]);
+        if (edge && masked(i, r)) p = 0.f;
+        s[i][r] = p;
+        rs[r >> 1] += p;
       }
 #pragma unroll
-      for (int w = 8; w > 0; w >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, w);
-      // Every lane of the half-warp takes lane 0's sum, so the row's l
-      // is the same in all of them.
-      rs = __shfl_sync(0xffffffffu, rs, half_base);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < RC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pv[4], vv[RC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * (kBK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < RC; ++c) vv[c] = vs[j * W + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < RC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];
+    Tf32A a[NK];
+    split_rows(a, s);
+    pv_tf32<W, NK>(acc, a, vst, nks, alpha, lane);  // O = O alpha + p v
   }
 
+  // The two halves' (m, l, O) of each row merge: m = max(m0, m1),
+  // a_h = exp(m_h - m), l = l0 a0 + l1 a1, O = O0 a0 + O1 a1; half 1's go
+  // through shared memory (its O where q's tile was, m and l in the ring).
+  cp_async_wait_all();
+  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= Lq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+  float4* red = reinterpret_cast<float4*>(qs) + j * (W / 8) * 32 + lane;
+  float4* st = reinterpret_cast<float4*>(ring) + j * 32 + lane;
+  if (half == 1) {
 #pragma unroll
-    for (int c = 0; c < RC; ++c)
-      if (tx + 16 * c < D) ob[qi * row + tx + 16 * c] = acc[i][c] / denom;
-    // m is in scaled-logit units here; every lane of the half-warp holds
-    // the row's m and l.
-    if (lse != nullptr && tx == 0)
-      lse[((int64_t)b * H + h) * Lq + qi] = m[i] + logf(denom);
+    for (int n = 0; n < W / 8; ++n) {
+      if (8 * n >= D) break;
+      red[32 * n] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+    }
+    *st = make_float4(m[0], m[1], l[0], l[1]);
+  }
+  __syncthreads();
+  if (half == 1) return;
+  const float4 other = *st;
+  const float m1[2] = {other.x, other.y}, l1[2] = {other.z, other.w};
+  float a0[2], a1[2], denom[2];
+  const int64_t bh = (int64_t)b * H + h;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float mm = fmaxf(m[hh], m1[hh]);
+    a0[hh] = expf(m[hh] - mm);
+    a1[hh] = expf(m1[hh] - mm);
+    denom[hh] = fmaxf(l[hh] * a0[hh] + l1[hh] * a1[hh], 1e-30f);
+    // The row's log-sum-exp of its scaled logits; its four lanes hold
+    // the same m and l.
+    if (lse != nullptr && c == 0 && qrow[hh] < Lq)
+      lse[bh * Lq + qrow[hh]] = mm + logf(denom[hh]);
+  }
+  float* ob = o + ((int64_t)b * Lq * H + h) * D;
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n) {
+    if (8 * n >= D) break;  // the zero columns past D
+    const float4 x = red[32 * n];
+    const float sum[4] = {fmaf(acc[n][0], a0[0], x.x * a1[0]),
+                          fmaf(acc[n][1], a0[0], x.y * a1[0]),
+                          fmaf(acc[n][2], a0[1], x.z * a1[1]),
+                          fmaf(acc[n][3], a0[1], x.w * a1[1])};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (qrow[hh] >= Lq) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * c + e;
+        if (col < D) ob[qrow[hh] * row + col] = sum[2 * hh + e] / denom[hh];
+      }
+    }
   }
 }
 
 template <int W>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int H, int Lq, int Lk, int D,
-                       float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = f32_smem_bytes<W>();
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
+                        float* lse, int B, int H, int Lq, int Lk, int D,
+                        float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = tf32_smem_bytes<W>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel_f32<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_kernel_tf32<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
-  fa_kernel_f32<W><<<grid, kThreads, smem, stream>>>(
+  constexpr int R = f32_rows<W>();
+  dim3 grid((Lq + R - 1) / R, H, B);
+  // 16-byte copies where every row starts on a 16-byte boundary, else
+  // 4-byte ones (a contiguous view at an odd offset).
+  const int vec = (D & 3) == 0 && aligned16(q, k, v);
+  fa_kernel_tf32<W><<<grid, Tf32<W>::NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, Lq, Lk,
-      D, scale, causal);
+      D, scale, causal, vec);
   return cudaGetLastError();
 }
 
@@ -622,13 +792,13 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 extern "C" int fa_head_bucket(int D) { return fa_bucket(D); }
 
 // Dynamic shared memory (bytes) of fa_kernel_tc (which = 0) or
-// fa_kernel_f32 (which = 1) at bucket W; -1 for anything else.
+// fa_kernel_tf32 (which = 1) at bucket W; -1 for anything else.
 extern "C" int fa_smem_bytes(int which, int W) {
   switch (W) {
 #define FA_SMEM(V)                                   \
   case V:                                            \
     return which == 0   ? tc_smem_bytes<V>()         \
-           : which == 1 ? f32_smem_bytes<V>()        \
+           : which == 1 ? tf32_smem_bytes<V>()       \
                         : -1;
     FA_SMEM(32) FA_SMEM(64) FA_SMEM(128) FA_SMEM(192) FA_SMEM(256)
 #undef FA_SMEM
@@ -636,8 +806,8 @@ extern "C" int fa_smem_bytes(int which, int W) {
   return -1;
 }
 
-// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
-// kernel); q, k, v and o share it.  q and o are contiguous [B, Lq, H, D],
+// dtype: 0 = float32 (fa_kernel_tf32, TF32 mma.sync), 1 = bfloat16
+// (fa_kernel_tc, wgmma); q, k, v and o share it.  q and o are contiguous [B, Lq, H, D],
 // k and v contiguous [B, Lk, H, D]; lse is null or fp32 [B, H, Lq].
 extern "C" int fa_launch(const void* q, const void* k, const void* v,
                          void* o, void* lse, int dtype, int B, int H, int Lq,
@@ -647,7 +817,7 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v,
   float* ls = static_cast<float*>(lse);
 #define FA_ARGS q, k, v, o, ls, B, H, Lq, Lk, D, scale, causal, s
   if (dtype == 0) {
-    FA_BUCKETS(launch_f32, FA_ARGS);
+    FA_BUCKETS(launch_tf32, FA_ARGS);
   } else if (dtype == 1) {
     FA_BUCKETS(launch_tc, FA_ARGS);
   }

@@ -1,10 +1,11 @@
 """Build and launch the CUDA flash-attention kernels: the forward
 (``csrc/flash_attention.cu``) and its gradient
 (``csrc/flash_attention_bwd.cu``, its own library); both include the
-Hopper building blocks of ``csrc/fa_hopper.cuh``.
+Hopper building blocks of ``csrc/fa_hopper.cuh`` and the TF32 ones of
+``csrc/fa_tf32.cuh``.
 
 Each is compiled at first use with ``nvcc`` for ``sm_90a``
-(``kernels/build.py``, the hash covering the header too) and loaded with
+(``kernels/build.py``, the hash covering the headers too) and loaded with
 ``ctypes``; nothing is built when this module is imported.  Build flags:
 ``kernels/build.py``'s base flags (``-O3``, ``-Xptxas -v``) and
 ``-lcuda``, for ``cuTensorMapEncodeTiled`` (libcuda), which builds the
@@ -19,17 +20,17 @@ The dtype picks the kernels: bf16 (the models' dtype) goes to the tensor
 cores (wgmma, tiles through a TMA ring, p and dS split into three bf16
 terms so that the products stay exact); fp32 (the reference sweep's
 dtype, held to 2e-5 forward and 1e-4·max backward, which needs fp32
-products) to the CUDA cores in the forward and, in the backward, to the
-tensor cores in TF32 (``mma.sync``, every operand split into two TF32
-terms and each product taken as three TF32 products, hi·hi + hi·lo +
-lo·hi, summed in fp32).
+products) to the tensor cores in TF32, forward and backward
+(``mma.sync``, every operand split into two TF32 terms and each product
+taken as three TF32 products, hi·hi + hi·lo + lo·hi, summed in fp32).
 
 Head dims: every D from 1 to ``MAX_HEAD_DIM`` = 256, the bound the
 reference's kernel docstring writes its VMEM budget for; a larger D is
 refused.  Each kernel is built for the column buckets ``BUCKETS`` and
 takes the true D at run time (:func:`bucket`): the tiles are W columns
 wide, the columns past D zero (the tensor-map copies fill them for bf16,
-masked loads for fp32), and only the first D output columns are written.
+the ``cp.async`` copies' zero fill for fp32), and only the first D output
+columns are written.
 A bf16 tensor map needs rows of whole 16-byte units, so where a bf16 D is
 not a multiple of 8 the wrappers zero-pad q, k, v and dO to the next one
 (:func:`padded_dim`) and slice the outputs back; zero columns add exact
@@ -39,8 +40,8 @@ functions ``*_smem`` mirror the sources' shared-memory formulas per
 bucket (the ring depth and, in the backward, the rows a block takes
 follow the bucket), each under ``SMEM_LIMIT``.
 
-* Forward (:func:`flash_attention_cuda`): ``fa_kernel_tc`` or
-  ``fa_kernel_f32``; with ``lse`` given, either writes each row's
+* Forward (:func:`flash_attention_cuda`): ``fa_kernel_tc`` (bf16) or
+  ``fa_kernel_tf32`` (fp32); with ``lse`` given, either writes each row's
   log-sum-exp as well.
 * Backward (:func:`flash_attention_bwd_cuda`): three launches in order,
   ``fa_bwd_preprocess`` (D = rowsum(dO ∘ O), either dtype), then dK/dV
@@ -88,7 +89,7 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
 
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-HEADERS = (CSRC / "fa_hopper.cuh",)
+HEADERS = (CSRC / "fa_hopper.cuh", CSRC / "fa_tf32.cuh")
 LIB = CudaLibrary("flash_attention", CSRC / "flash_attention.cu",
                   ("-lcuda",), _bind, HEADERS)
 LIB_BWD = CudaLibrary("flash_attention_bwd", CSRC / "flash_attention_bwd.cu",
@@ -146,13 +147,34 @@ def dq_tc_warpgroups(W: int) -> int:
     return 2 if W <= 192 else 1
 
 
-def f32_bwd_rows(W: int) -> int:
-    """Rows a block of ``fa_bwd_dkdv_tf32`` or ``fa_bwd_dq_tf32`` owns
-    (keys or queries), and rows of each tile it streams (``f32_rows``)."""
+def f32_rows(W: int) -> int:
+    """Rows a block of ``fa_kernel_tf32``, ``fa_bwd_dkdv_tf32`` or
+    ``fa_bwd_dq_tf32`` owns (queries or keys), and rows of each tile it
+    streams (``f32_rows`` in csrc/fa_tf32.cuh)."""
     return 64 if W <= 128 else 32
 
 
-F32_BWD_STAGES = 2  # the fp32 backward kernels' cp.async ring
+F32_STAGES = 2  # the fp32 kernels' cp.async ring
+
+
+def tf32_group(W: int) -> int:
+    """Output n-tiles (8 columns each) whose tile sums the fp32 kernels
+    take together (``Tf32<W>::NG``)."""
+    return W // 8 if W // 8 < 8 else 8 if W < 256 else 4
+
+
+def fwd_tf32_pv_tiles(D: int) -> int:
+    """Output n-tiles over which ``fa_kernel_tf32`` computes p·v at head
+    dim D (``pv_tf32``): whole groups of ``tf32_group`` n-tiles, the last
+    cut to the fewest of NG, NG / 2 or NG / 4 (at least 2) that reach the
+    n-tile holding column D − 1."""
+    ng = tf32_group(bucket(D))
+    nt = -(-D // 8)
+    full, left = nt // ng * ng, nt % ng
+    ng2, ng4 = max(ng // 2, 2), max(ng // 4, 2)
+    tail = 0 if not left else ng if left > ng2 else ng2 if left > ng4 \
+        else ng4
+    return full + tail
 
 
 def fwd_tc_smem(W: int) -> int:
@@ -161,9 +183,11 @@ def fwd_tc_smem(W: int) -> int:
     return 1024 + (2 + 2 * s) * tile_bytes(W) + 8 * (1 + 2 * s)
 
 
-def fwd_f32_smem(W: int) -> int:
-    """``fa_kernel_f32``: fp32 q, k (rows padded by a word), v and p."""
-    return 4 * (64 * (W + 1) * 2 + 64 * W + 64 * 65)
+def fwd_tf32_smem(W: int) -> int:
+    """``fa_kernel_tf32``: q's hi and lo tiles and the ring's stages of k
+    and v tiles; fp32, unpadded (the tiles are swizzled)."""
+    r = f32_rows(W)
+    return 4 * (2 * r * W + F32_STAGES * 2 * r * W)
 
 
 def dkdv_tc_smem(W: int) -> int:
@@ -186,20 +210,21 @@ def dkdv_tf32_smem(W: int) -> int:
     """``fa_bwd_dkdv_tf32``: the k and v tiles, the ring's stages of q
     and dO tiles with their rows' lse and D, and Pᵀ passed between the
     warps of a pair; fp32, unpadded (the tiles are swizzled)."""
-    r = f32_bwd_rows(W)
-    return 4 * (2 * r * W + F32_BWD_STAGES * (2 * r * W + 2 * r) + r * r)
+    r = f32_rows(W)
+    return 4 * (2 * r * W + F32_STAGES * (2 * r * W + 2 * r) + r * r)
 
 
 def dq_tf32_smem(W: int) -> int:
     """``fa_bwd_dq_tf32``: the q and dO tiles, the ring's stages of k
     and v tiles."""
-    r = f32_bwd_rows(W)
-    return 4 * (2 * r * W + F32_BWD_STAGES * 2 * r * W)
+    r = f32_rows(W)
+    return 4 * (2 * r * W + F32_STAGES * 2 * r * W)
 
 
 # Each kernel's mirror, keyed by kernel name, with the index its
 # library's ``fa_smem_bytes`` / ``fa_bwd_smem_bytes`` takes for it.
-SMEM = {"fa_kernel_tc": (fwd_tc_smem, 0), "fa_kernel_f32": (fwd_f32_smem, 1),
+SMEM = {"fa_kernel_tc": (fwd_tc_smem, 0),
+        "fa_kernel_tf32": (fwd_tf32_smem, 1),
         "fa_bwd_dkdv_tc": (dkdv_tc_smem, 0), "fa_bwd_dq_tc": (dq_tc_smem, 1),
         "fa_bwd_dkdv_tf32": (dkdv_tf32_smem, 2),
         "fa_bwd_dq_tf32": (dq_tf32_smem, 3)}

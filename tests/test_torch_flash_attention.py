@@ -194,16 +194,18 @@ def test_padding_round_trip():
     assert all(a is b for a, b in zip(kernel._padded(*even), even))
 
 
-# The fp32 backward kernels' shared memory at each bucket, as the
-# source's header states it (64 rows a block up to W = 128, 32 above).
-TF32_SMEM = {"fa_bwd_dkdv_tf32": {32: 66_560, 64: 115_712, 128: 214_016,
+# The fp32 kernels' shared memory at each bucket, as the sources' headers
+# state it (64 rows a block up to W = 128, 32 above).
+TF32_SMEM = {"fa_kernel_tf32": {32: 49_152, 64: 98_304, 128: 196_608,
+                                192: 147_456, 256: 196_608},
+             "fa_bwd_dkdv_tf32": {32: 66_560, 64: 115_712, 128: 214_016,
                                   192: 152_064, 256: 201_216},
              "fa_bwd_dq_tf32": {32: 49_152, 64: 98_304, 128: 196_608,
                                 192: 147_456, 256: 196_608}}
 
 
 @pytest.mark.parametrize("W", [32, 64, 128, 192, 256])
-@pytest.mark.parametrize("name", ["fa_kernel_tc", "fa_kernel_f32",
+@pytest.mark.parametrize("name", ["fa_kernel_tc", "fa_kernel_tf32",
                                   "fa_bwd_dkdv_tc", "fa_bwd_dq_tc",
                                   "fa_bwd_dkdv_tf32", "fa_bwd_dq_tf32"])
 def test_shared_memory_fits_at_every_bucket(name, W):
@@ -216,7 +218,25 @@ def test_shared_memory_fits_at_every_bucket(name, W):
     assert 0 < smem(W) <= kernel.SMEM_LIMIT == 232_448
     if name in TF32_SMEM:
         assert smem(W) == TF32_SMEM[name][W]
-        assert kernel.f32_bwd_rows(W) == (64 if W <= 128 else 32)
+        assert kernel.f32_rows(W) == (64 if W <= 128 else 32)
+
+
+@pytest.mark.parametrize("D,tiles", [(1, 2), (8, 2), (17, 4), (32, 4),
+                                     (48, 8), (64, 8), (80, 10), (96, 12),
+                                     (100, 16), (128, 16), (160, 20),
+                                     (192, 24), (200, 26), (256, 32)])
+def test_tf32_forward_pv_stops_at_the_last_head_column(D, tiles):
+    """``fa_kernel_tf32`` computes p·v over whole groups of
+    ``Tf32<W>::NG`` output n-tiles and a last group cut to 2, 4 or NG
+    n-tiles, never short of column D − 1 and never past its bucket: D =
+    80 takes 10 n-tiles of its bucket's 16 (the 3×TF32 MMA floor that
+    chip_smoke.py prints counts these)."""
+    from repro_torch.kernels.flash_attention import kernel
+    W = kernel.bucket(D)
+    assert kernel.tf32_group(W) == {32: 4, 64: 8, 128: 8, 192: 8,
+                                    256: 4}[W]
+    got = kernel.fwd_tf32_pv_tiles(D)
+    assert got == tiles and 8 * got >= D and got <= W // 8
 
 
 @pytest.mark.parametrize("max_logits", [1, 777, 200 * 200 * 6])
@@ -856,12 +876,14 @@ def tf32_cut(x):
     return (u & -0x2000).view(torch.float32)
 
 
-def tf32_product(a, b, terms=3):
+def tf32_product(a, b, terms=3, apart=False):
     """a @ b as the fp32 backward kernels take it on the tensor cores:
     hi = tf32_rna(x), lo = tf32_cut(x − hi) for each operand, TF32
     products exact in fp32 and summed in fp32.  ``terms``: 1 is
     hi·hi (plain TF32), 2 adds lo_a·hi_b (only a split), 3 adds
-    hi_a·lo_b as well (the kernels' hi·hi + hi·lo + lo·hi).
+    hi_a·lo_b as well (the kernels' hi·hi + hi·lo + lo·hi).  ``apart``:
+    the correction terms summed on their own and added to hi·hi at the
+    end (the forward's q·kᵀ, ``qk_tf32``).
 
     The operands are the kernels', the sums are not: torch's fp32 matmul
     rounds where the tensor cores' accumulation over each k8 step cuts
@@ -870,10 +892,13 @@ def tf32_product(a, b, terms=3):
     chip_smoke.py holds the kernels to the same bar."""
     ah, bh = tf32_rna(a), tf32_rna(b)
     t = ah @ bh
-    if terms >= 2:
-        t = t + tf32_cut(a - ah) @ bh
+    terms_lo = [tf32_cut(a - ah) @ bh] if terms >= 2 else []
     if terms >= 3:
-        t = t + ah @ tf32_cut(b - bh)
+        terms_lo.insert(0, ah @ tf32_cut(b - bh))
+    if apart and terms_lo:
+        return t + sum(terms_lo[1:], terms_lo[0])
+    for x in reversed(terms_lo):
+        t = t + x
     return t
 
 
@@ -884,7 +909,7 @@ def emulate_tf32_bwd(q, k, v, do, lse, delta, causal=True, terms=3,
     rounded where the tensor cores cut it (``tf32_product``).
 
     Blocks of ``rows`` keys (dK/dV) or queries (dQ) against tiles of
-    ``rows`` of the other side (``kernel.f32_bwd_rows``), tiles wholly
+    ``rows`` of the other side (``kernel.f32_rows``), tiles wholly
     above the causal diagonal skipped.  Per tile: Sᵀ = k·qᵀ and
     dPᵀ = v·dOᵀ summed from zero (``tf32_product``), P = exp(fma(S,
     scale, −lse)) in fp32, 0 where masked, dS = P ∘ (dP − D); each
@@ -970,7 +995,7 @@ def tf32_ratios(terms):
     for B, L, H, D, causal in TF32_SHAPES:
         args, want = tf32_case(B, L, H, D, causal, seed=L + D)
         got = emulate_tf32_bwd(*args, causal=causal, terms=terms,
-                               rows=kernel.f32_bwd_rows(kernel.bucket(D)))
+                               rows=kernel.f32_rows(kernel.bucket(D)))
         out[(B, L, H, D, causal)] = max(
             float((g - w).abs().max()) / grad_bar(w)
             for g, w in zip(got, want))
@@ -1019,7 +1044,7 @@ def test_tf32_three_terms_meet_the_fp32_backward_bar(B, L, H, D, causal):
     from repro_torch.kernels.flash_attention import kernel
     args, want = tf32_case(B, L, H, D, causal, seed=L + D)
     got = emulate_tf32_bwd(*args, causal=causal,
-                           rows=kernel.f32_bwd_rows(kernel.bucket(D)))
+                           rows=kernel.f32_rows(kernel.bucket(D)))
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         assert float((g - w).abs().max()) <= 0.1 * grad_bar(w), name
@@ -1037,6 +1062,122 @@ def test_tf32_term_counts(terms):
         assert min(ratios.values()) > 1.0, ratios
     else:
         assert max(ratios.values()) <= 0.1, ratios
+
+
+def emulate_tf32_fwd(q, k, v, causal=True, terms=3, rows=64, width=None):
+    """The fp32 forward kernel's arithmetic (``fa_kernel_tf32``) in torch,
+    on the CPU, each product's sum rounded where the tensor cores cut it
+    (``tf32_product``).
+
+    Key tiles of ``rows`` keys (``kernel.f32_rows``), each split into
+    halves of ``rows / 2``; a block's warps take half h of every tile
+    with their own running row max m, sum l and output O.  Per half: S =
+    q·kᵀ summed from zero (hi·hi apart from hi·lo + lo·hi, added at
+    the end), logits S·scale, −1e30 where masked; m_new =
+    max(m, row max), alpha = exp(m − m_new), p = exp(x − m_new) (0 where
+    masked), l = l·alpha + Σp, the half's T = p·v summed from zero and O
+    = fma(O, alpha, T).  At the end the halves merge: m = max(m₀, m₁),
+    aₕ = exp(mₕ − m), l = l₀a₀ + l₁a₁, O = O₀a₀ + O₁a₁; out = O / l, lse
+    = m + log l.  A tile or half that a block skips (past its causal
+    diagonal, past Lk) leaves the state as a wholly masked one does, so
+    every row runs every half here.  ``width``: q, k, v zero-padded to
+    that many columns (the kernel's bucket), the output cut back to D;
+    scale stays 1/√D.  Returns (out [B, Lq, H, D], lse [B, H, Lq])."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    sc = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    pad = (width or D) - D
+    qf, kf, vf = (torch.nn.functional.pad(t.float(), (0, pad))
+                  .permute(0, 2, 1, 3) for t in (q, k, v))
+    qi = torch.arange(Lq)[:, None] + (Lk - Lq)
+    half = rows // 2
+    m = [torch.full((B, H, Lq, 1), -1e30) for _ in range(2)]
+    l = [torch.zeros((B, H, Lq, 1)) for _ in range(2)]
+    o = [torch.zeros_like(qf) for _ in range(2)]
+    for k0 in range(0, Lk, rows):
+        for h in (0, 1):
+            a = k0 + h * half
+            if a >= Lk:
+                continue
+            ks, vs = kf[:, :, a:a + half], vf[:, :, a:a + half]
+            ki = torch.arange(a, a + ks.shape[2])[None, :]
+            ok = qi >= ki if causal else torch.ones((Lq, ks.shape[2]),
+                                                    dtype=torch.bool)
+            x = torch.where(ok, tf32_product(qf, ks.transpose(-1, -2),
+                                             terms, apart=True) * sc,
+                            torch.tensor(-1e30))
+            m_new = torch.maximum(m[h], x.amax(-1, keepdim=True))
+            alpha = torch.exp(m[h] - m_new)
+            p = torch.where(ok, torch.exp(x - m_new), torch.zeros(()))
+            l[h] = l[h] * alpha + p.sum(-1, keepdim=True)
+            o[h] = fma(o[h], alpha, tf32_product(p, vs, terms))
+            m[h] = m_new
+    mm = torch.maximum(m[0], m[1])
+    a0, a1 = torch.exp(m[0] - mm), torch.exp(m[1] - mm)
+    denom = (l[0] * a0 + l[1] * a1).clamp_min(1e-30)
+    out = fma(o[0], a0, o[1] * a1) / denom
+    return (out[..., :D].permute(0, 2, 1, 3),
+            (mm + torch.log(denom)).squeeze(-1))
+
+
+@functools.lru_cache(maxsize=None)
+def tf32_fwd_case(B, L, H, D, causal, seed):
+    """fp32 q, k, v and the reference's fp32 ``attention_ref`` output and
+    the rows' log-sum-exp (``jax.nn.logsumexp`` of its masked logits)."""
+    q, k, v = (torch.from_numpy(a) for a in make(seed, B, L, L, H, D))
+    qj, kj, vj = (jnp.asarray(t.numpy()) for t in (q, k, v))
+    want = torch.from_numpy(np.array(j_ref(qj, kj, vj, causal=causal)))
+    logits = jnp.einsum("bqhd,bkhd->bhqk", qj, kj) / np.sqrt(
+        np.float32(D))
+    if causal:
+        logits = jnp.where(jnp.arange(L)[:, None] >= jnp.arange(L)[None],
+                           logits, -1e30)
+    lse = torch.from_numpy(np.array(jax_logsumexp(logits, axis=-1)))
+    return (q, k, v), want, lse
+
+
+# (B, L, H, D, causal): D = 64 causal at 256 and 2,048 keys, D = 80 (its
+# bucket 128) both ways, and D = 256 (32 rows a block) at 2,048 keys.
+TF32_FWD_SHAPES = [(1, 256, 2, 64, True), (1, 2048, 2, 64, True),
+                   (2, 200, 3, 80, True), (2, 200, 3, 80, False),
+                   (1, 2048, 1, 256, False)]
+
+
+def tf32_fwd_ratios(B, L, H, D, causal, terms):
+    """Worst |Δ| of the emulated output over 2e-5 and of its lse over
+    1e-4·max(max|ref|, 1)."""
+    from repro_torch.kernels.flash_attention import kernel
+    args, want, want_lse = tf32_fwd_case(B, L, H, D, causal, seed=L + D)
+    W = kernel.bucket(D)
+    got, lse = emulate_tf32_fwd(*args, causal=causal, terms=terms,
+                                rows=kernel.f32_rows(W), width=W)
+    assert got.shape == want.shape and lse.shape == want_lse.shape
+    return (float((got - want).abs().max()) / DT["float32"][2],
+            float((lse - want_lse).abs().max()) / grad_bar(want_lse))
+
+
+@pytest.mark.parametrize("B,L,H,D,causal", TF32_FWD_SHAPES)
+def test_tf32_forward_meets_the_fp32_bar(B, L, H, D, causal):
+    """The fp32 forward kernel's arithmetic (every product three TF32
+    products on split operands, each tile's S and p·v summed from zero,
+    O = O·alpha + T in fp32, the key halves merged at the end) keeps the
+    output within 2e-5 and the lse within 1e-4·max(max|ref|, 1) of the
+    reference's fp32 ``attention_ref``."""
+    out, lse = tf32_fwd_ratios(B, L, H, D, causal, terms=3)
+    print(f"\n{[B, L, H, D]} causal={causal}: worst |Δ|/bar out {out:.4f}"
+          f", lse {lse:.4f}")
+    assert out <= 1.0 and lse <= 1.0
+
+
+@pytest.mark.parametrize("terms", [1, 2])
+def test_tf32_forward_fewer_terms_miss_the_bar(terms):
+    """One TF32 product (plain TF32) and two (one operand split) miss the
+    forward's 2e-5 bar at every shape."""
+    ratios = {s: tf32_fwd_ratios(*s, terms=terms)[0]
+              for s in TF32_FWD_SHAPES}
+    print(f"\nterms={terms}: worst |Δ|/2e-5 " + ", ".join(
+        f"{list(k)} {v:.3f}" for k, v in ratios.items()))
+    assert min(ratios.values()) > 1.0, ratios
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""What the A/B timing tools (``ssd_ab.py``, ``fa_bwd_ab.py``) share: the
+"""What the A/B timing tools (``ssd_ab.py``, ``fa_ab.py``) share: the
 per-launch timer and the card's name and power limit.  Needs a CUDA card
 to call."""
 from __future__ import annotations

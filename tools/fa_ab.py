@@ -1,36 +1,43 @@
-"""Time the fp32 flash-attention backward kernels (dK/dV and dQ) against
-an older build of their source, in turns, on one card.
+"""Time the fp32 flash-attention kernels against an older build of their
+sources, in turns, on one card: the forward (``--mode fwd``) and the
+backward's dK/dV and dQ kernels (``--mode bwd``; both by default).
 
-``python tools/fa_bwd_ab.py --old DIR``
+``python tools/fa_ab.py --old DIR [--mode fwd|bwd|both] [--ceilings]``
 
-``DIR`` holds another version's ``flash_attention_bwd.cu`` and
-``fa_hopper.cuh`` (for example
+``DIR`` holds another version's ``flash_attention.cu``,
+``flash_attention_bwd.cu`` and the headers they include (``fa_hopper.cuh``,
+and ``fa_tf32.cuh`` where that version has it): for example
 ``src/repro_torch/kernels/flash_attention/csrc/`` of a ``git archive`` of
-the parent commit).  Both are built with ``kernels/build.py`` and called
-on the same fp32 inputs (q, k, v, dO normal; o and lse from the forward
-kernel, D from the preprocess kernel), each through its library's C
-entry points ``fa_bwd_dkdv_launch`` and ``fa_bwd_dq_launch`` into outputs
-made beforehand, so that no Python wrapper's checks or allocations land
-inside the timed window.  Each kernel is timed old, new, new, old: the
-median over 15 windows of ``BURST`` launches back to back, per launch
-(CUDA events).  Also prints each version's worst |Δ| over the fp32 bar
-1e-4·max(max|ref|, 1) against ``attention_bwd_ref``, the largest
-difference between the two, and each library's registers and spills per
-fp32 backward kernel from ``-Xptxas -v``.  Prints the card's name and
-power limit first.  Needs a CUDA card.
+the parent commit.  Both versions are built with ``kernels/build.py`` and
+called on the same fp32 inputs, each through its library's C entry
+points into outputs made beforehand, so that no Python wrapper's checks or
+allocations land inside the timed window.  Each kernel is timed old, new,
+new, old: the median over 15 windows of ``BURST`` launches back to back,
+per launch (CUDA events).  Prints the card's name and power limit first,
+each library's registers and spills per fp32 kernel from ``-Xptxas -v``,
+and the largest difference between the two versions' outputs.  Needs a
+CUDA card.
 
-``--ceilings`` also times, at the first shape and in turns with the new
-build, variants made from the new source's text, and says whether each
-gives the new build's outputs bit for bit: "no split" (every operand
-passed as both of its TF32 terms: the same three MMAs a product without
-the splitting's arithmetic; wrong results), "no MMA" (each
-``mma.sync`` an empty statement that keeps its operands: the loads,
-splits and the rest without the tensor cores; wrong results) and "lo
-cleared" (the lo term's 13 low bits cleared by hand: equal bits show
+* Forward: ``fa_launch`` (dtype 0, the fp32 kernel; timed without the
+  log-sum-exp, as serving launches it) at ``FWD_SHAPES``; each version's
+  worst |Δ| over 2e-5 against ``attention_ref`` and its lse's over
+  1e-4·max(max|ref|, 1) against ``attention_lse_ref``.
+* Backward: ``fa_bwd_dkdv_launch`` and ``fa_bwd_dq_launch`` at
+  ``BWD_SHAPES`` (q, k, v, dO normal; o and lse from the new forward, D
+  from the preprocess kernel); each version's worst |Δ| over the fp32
+  bar 1e-4·max(max|ref|, 1) against ``attention_bwd_ref``.
+
+``--ceilings`` (backward) also times, at the first shape and in turns
+with the new build, variants made from the new ``fa_tf32.cuh``'s text,
+and says whether each gives the new build's outputs bit for bit: "no
+split" (every operand passed as both of its TF32 terms: the same three
+MMAs a product without the splitting's arithmetic; wrong results), "no
+MMA" (each ``mma.sync`` an empty statement that keeps its operands: the
+loads, splits and the rest without the tensor cores; wrong results) and
+"lo cleared" (the lo term's 13 low bits cleared by hand: equal bits show
 that the tensor cores read a .tf32 operand cut to its top 19); and the
-rate
-of ``mma.sync.m16n8k8`` TF32 issued back to back, eight independent sums
-a warp, at 8 and 16 warps an SM (``MMA_RATE_SRC``).
+rate of ``mma.sync.m16n8k8`` TF32 issued back to back, eight independent
+sums a warp, at 8 and 16 warps an SM (``MMA_RATE_SRC``).
 """
 from __future__ import annotations
 
@@ -48,13 +55,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from ab_common import card, ms  # noqa: E402
 from repro_torch.kernels.build import CudaLibrary  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import \
-    attention_bwd_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_lse_ref, attention_ref)
 
-# [B, L, H, D], causal: phase 11 (b)'s fp32 llama3-8b attention and phase
-# 11 (a)'s shape.
-SHAPES = (((1, 2048, 32, 128), True), ((2, 4096, 32, 128), True))
+# [B, L, H, D], causal: hubert-xlarge's fp32 attention (non-causal), then
+# phase 11 (b)'s fp32 llama3-8b attention and phase 11 (a)'s shape.
+FWD_SHAPES = (((4, 2048, 16, 80), False), ((1, 2048, 32, 128), True),
+              ((2, 4096, 32, 128), True))
+FWD_BAR = 2e-5
+BWD_SHAPES = (((1, 2048, 32, 128), True), ((2, 4096, 32, 128), True))
 BAR = 1e-4
+HEADERS = ("fa_hopper.cuh", "fa_tf32.cuh")
 
 # The --ceilings variants: (name, text in the source, its replacement).
 MMA_ASM = ('  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "\n'
@@ -101,32 +112,41 @@ extern "C" int mma_rate_launch(void* out, int blocks, int iters,
 """
 
 
-def report_build(tag, lib) -> None:
-    """Registers and spills of the library's fp32 dK/dV and dQ kernels."""
+def old_library(name, source, bind) -> CudaLibrary:
+    """The old version's library: ``source`` with the headers it has."""
+    return CudaLibrary(name, source, ("-lcuda",), bind,
+                       tuple(source.parent / h for h in HEADERS
+                             if (source.parent / h).exists()))
+
+
+def report_build(tag, lib, pattern) -> None:
+    """Registers and spills of the library's kernels matching
+    ``pattern``."""
     lib.load()
     for name, (regs, st, ld) in sorted(lib.ptxas().items()):
-        if re.search(r"fa_bwd_(dkdv|dq)(?!_tc)", name):
+        if re.search(pattern, name):
             print(f"[{tag}] {name}: {regs} registers, spills {st} / {ld}",
                   flush=True)
 
 
 def variant_libs() -> dict:
-    """The --ceilings variants of the new source, written under the
-    kernels' git-ignored build directory."""
-    src = (fa.CSRC / "flash_attention_bwd.cu").read_text()
-    hdr = fa.CSRC / "fa_hopper.cuh"
+    """The --ceilings variants of the new fa_tf32.cuh, written with the
+    backward's source under the kernels' git-ignored build directory."""
+    hdr = (fa.CSRC / "fa_tf32.cuh").read_text()
     out = {}
     for name, old, new in VARIANTS:
-        if src.count(old) != 1:
-            raise SystemExit(f"--ceilings: the source no longer holds the "
+        if hdr.count(old) != 1:
+            raise SystemExit(f"--ceilings: fa_tf32.cuh no longer holds the "
                              f"text the {name!r} variant replaces")
         d = fa.LIB_BWD.build_root / "variants" / name.replace(" ", "_")
         d.mkdir(parents=True, exist_ok=True)
-        (d / "flash_attention_bwd.cu").write_text(src.replace(old, new))
-        (d / "fa_hopper.cuh").write_text(hdr.read_text())
+        for f in ("flash_attention_bwd.cu", "fa_hopper.cuh"):
+            (d / f).write_text((fa.CSRC / f).read_text())
+        (d / "fa_tf32.cuh").write_text(hdr.replace(old, new))
         out[name] = CudaLibrary("fa_bwd_" + name.replace(" ", "_"),
                                 d / "flash_attention_bwd.cu", ("-lcuda",),
-                                fa._bind_bwd, (d / "fa_hopper.cuh",)).load()
+                                fa._bind_bwd,
+                                tuple(d / h for h in HEADERS)).load()
     return out
 
 
@@ -154,25 +174,69 @@ def mma_rate() -> None:
               flush=True)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--old", required=True, type=Path)
-    ap.add_argument("--ceilings", action="store_true")
-    args = ap.parse_args()
-    old_dir = args.old.resolve()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(card(), flush=True)
-    new_lib = fa.LIB_BWD
-    old_lib = CudaLibrary("flash_attention_bwd_old",
-                          old_dir / "flash_attention_bwd.cu", ("-lcuda",),
-                          fa._bind_bwd, (old_dir / "fa_hopper.cuh",))
-    report_build("new", new_lib)
-    report_build("old", old_lib)
+def fwd_mode(old_dir: Path) -> None:
+    """The fp32 forward kernel, old against new, at FWD_SHAPES."""
+    new_lib = fa.LIB
+    old_lib = old_library("flash_attention_old",
+                          old_dir / "flash_attention.cu", fa._bind)
+    pattern = r"fa_kernel_(?!tc)"
+    report_build("new", new_lib, pattern)
+    report_build("old", old_lib, pattern)
     libs = {"old": old_lib.load(), "new": new_lib.load()}
-    for (B, L, H, D), causal in SHAPES:
+    stream = torch.cuda.current_stream().cuda_stream
+    for (B, L, H, D), causal in FWD_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(B * L + D)
+        q, k, v = (torch.randn((B, L, H, D), generator=gen, device="cuda")
+                   for _ in range(3))
+        want = attention_ref(q, k, v, causal)
+        want_lse = attention_lse_ref(q, k, causal)
+        scale = 1.0 / math.sqrt(D)
+        outs = {tag: (torch.empty_like(q),
+                      torch.empty((B, H, L), device="cuda"))
+                for tag in libs}
+
+        def call(tag, lse):
+            lib, (o, stats) = libs[tag], outs[tag]
+            return lambda: lib.fa_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                stats.data_ptr() if lse else None, 0, B, H, L, L, D, scale,
+                int(causal), stream)
+
+        for tag in libs:
+            if call(tag, True)() != 0:
+                raise RuntimeError(f"{tag}: launch failed")
+        torch.cuda.synchronize()
+        for tag, (o, stats) in outs.items():
+            r_o = float((o - want).abs().max()) / FWD_BAR
+            r_l = float((stats - want_lse).abs().max()) / (
+                BAR * max(float(want_lse.abs().max()), 1.0))
+            print(f"[B,H,L,D]={[B, H, L, D]} causal={causal} fp32 forward "
+                  f"{tag}: worst |Δ|/2e-5 {r_o:.4g}, lse |Δ|/bar "
+                  f"{r_l:.4g}", flush=True)
+            if not max(r_o, r_l) <= 1.0:
+                raise AssertionError(f"{tag} misses the fp32 bar")
+        diff = float((outs["old"][0] - outs["new"][0]).abs().max())
+        t = (ms(call("old", False)), ms(call("new", False)),
+             ms(call("new", False)), ms(call("old", False)))
+        print(f"[B,H,L,D]={[B, H, L, D]} causal={causal} fp32 forward: "
+              f"old, new, new, old ms a launch "
+              f"{', '.join(f'{x:.5f}' for x in t)}; new / old "
+              f"{(t[1] + t[2]) / (t[0] + t[3]):.4f}; max|new - old| "
+              f"{diff:.3g}", flush=True)
+        del q, k, v, want, want_lse, outs
+        torch.cuda.empty_cache()
+
+
+def bwd_mode(old_dir: Path, ceilings: bool) -> None:
+    """The fp32 dK/dV and dQ kernels, old against new, at BWD_SHAPES."""
+    new_lib = fa.LIB_BWD
+    old_lib = old_library("flash_attention_bwd_old",
+                          old_dir / "flash_attention_bwd.cu", fa._bind_bwd)
+    pattern = r"fa_bwd_(dkdv|dq)(?!_tc)"
+    report_build("new", new_lib, pattern)
+    report_build("old", old_lib, pattern)
+    libs = {"old": old_lib.load(), "new": new_lib.load()}
+    for (B, L, H, D), causal in BWD_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(B * L + D)
         q, k, v, do = (torch.randn((B, L, H, D), generator=gen,
                                    device="cuda") for _ in range(4))
@@ -225,7 +289,7 @@ def main() -> int:
                   f"{(t[1] + t[2]) / (t[0] + t[3]):.4f}", flush=True)
         print(f"[B,H,L,D]={[B, H, L, D]}: max|new - old| dq, dk, dv "
               f"{', '.join(f'{x:.3g}' for x in diff)}", flush=True)
-        if args.ceilings and (B, L, H, D) == SHAPES[0][0]:
+        if ceilings and (B, L, H, D) == BWD_SHAPES[0][0]:
             for name, lib in variant_libs().items():
                 libs[name] = lib
                 outs[name] = [torch.empty_like(q) for _ in range(3)]
@@ -244,6 +308,25 @@ def main() -> int:
             mma_rate()
         del q, k, v, do, o, lse, delta, want, outs
         torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--old", required=True, type=Path)
+    ap.add_argument("--mode", choices=("fwd", "bwd", "both"),
+                    default="both")
+    ap.add_argument("--ceilings", action="store_true")
+    args = ap.parse_args()
+    old_dir = args.old.resolve()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card(), flush=True)
+    if args.mode in ("fwd", "both"):
+        fwd_mode(old_dir)
+    if args.mode in ("bwd", "both"):
+        bwd_mode(old_dir, args.ceilings)
     return 0
 
 
