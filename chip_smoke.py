@@ -63,7 +63,20 @@ Phases (each raises on failure, so the script exits non-zero):
    2^-7·|ref| + 1e-5·max|ref|), a second pass equal bit for bit, the
    forward's log-sum-exp against ``attention_lse_ref``; backward,
    per-kernel, plain, bound, MMA floor and library (SDPA forward and
-   backward minus forward, with the backend SDPA picked) times; the SSD
+   backward minus forward, with the backend SDPA picked) times; the
+   preprocess also at every column bucket and at head dims 1, 33, 80,
+   96 and 200, both dtypes, on aligned tensors and on views one element
+   into a larger buffer (two passes bit for bit), then timed through its
+   C entry point at phase 11's and 14's training shapes with its share
+   of the byte bound and its builds' registers and spills; the SSD
+   carry ``ssd_carry_tc`` at the serving shapes, phase 11 (d)'s
+   [2, 4096, 48, 64, 128, 64] and [8, 256, 64, 64, 64, 64] (more groups
+   than blocks: each block walks a second group) against
+   ``ssd_carry_ref`` with and without an initial state, two passes bit
+   for bit, timed through its C entry point with the plan it launches
+   (slice width, ring stages, blocks, shared memory equal to
+   ``kernel.py``'s mirror), its share of the byte
+   bound and its builds' registers and spills; the SSD
    backward (``ssd_bwd.cu``:
    for bf16 at Q = P = 64, N in {64, 128} the tensor-core
    ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, whose registers,
@@ -811,6 +824,9 @@ SSD_SWEEP = [(2, 128, 3, 32, 16, 32), (1, 256, 2, 64, 128, 64),
 SSD_SERVING = [(4, 2048, 64, 64, 64, 64), (1, 2048, 48, 64, 128, 64),
                (1, 32768, 64, 64, 64, 64)]
 SSD_HEADLINE = SSD_SERVING[0]
+# zamba2-1.2b's heads at 8 x 256 tokens: 512 groups of the carry's
+# 64-column slices, more than the card holds at once.
+SSD_CARRY_GROUPS = (8, 256, 64, 64, 64, 64)
 SSD_ATOL = 1e-4      # the sweep's absolute bound
 SSD_REL = 1e-4       # full width: max|Δ| <= 1e-4 · max|ref|
 # Chunks beyond 64 rows and one that is not a multiple of 4, forward and
@@ -1322,7 +1338,107 @@ def phase_attention_bwd(torch) -> dict:
             + " <= 1")
         del q, k, v, do, o, lse, delta, qt, kt, vt, dot
     torch.cuda.empty_cache()
-    return dict(rows=rows, max_abs_err=worst, builds=builds)
+    pre = preprocess_rows(torch)
+    return dict(rows=rows, max_abs_err=worst, builds=builds, preprocess=pre)
+
+
+# fa_bwd_preprocess's domain: every column bucket's top, and head dims
+# whose rows its 16-byte pieces do not fit (1, 33, 200 in bf16; 1, 33 in
+# fp32) or fit in uneven counts (80, 96), at (2, 300, 3, D), each also on
+# a view one element into a larger buffer (misaligned); then its time at
+# the training shapes that launch it: phase 11 (a)'s, (b)'s fp32 llama3-8b
+# step's and phase 14's.
+FA_PRE_DIMS = (1, 32, 33, 64, 80, 96, 128, 192, 200, 256)
+FA_PRE_SHAPES = [FA_TRAIN, FA_TRAIN_F32] + FA_HD_TRAIN
+
+
+def offset_view(torch, t, offset: int):
+    """``t``'s values in a contiguous view ``offset`` elements into a
+    larger buffer (not 16-byte aligned at offset 1)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def preprocess_rows(torch) -> dict:
+    """fa_bwd_preprocess against bwd_preprocess_ref (max|Δ| <=
+    FA_BWD_F32·max(max|ref|, 1)), two passes bitwise, at FA_PRE_DIMS in
+    both dtypes, aligned and not; then at FA_PRE_SHAPES its time through
+    the C entry point (BURST launches back to back) and through the
+    wrapper, the plain version's, its byte bound and share of it; its
+    builds' registers and spills."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref
+    dev = torch.device("cuda")
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        for D in FA_PRE_DIMS:
+            for offset in (0, 1):
+                gen = torch.Generator(device=dev).manual_seed(7 * D + offset)
+                o, do = (offset_view(torch, torch.randn(
+                    (2, 300, 3, D), generator=gen, device=dev).to(tdt),
+                    offset) for _ in range(2))
+                got = fa.bwd_preprocess_cuda(o, do)
+                again = fa.bwd_preprocess_cuda(o, do)
+                want = ref.bwd_preprocess_ref(o, do)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"fa_bwd_preprocess D {D} {dtype} "
+                                         f"offset {offset}: two passes "
+                                         f"differ")
+                ratio = max_err(torch, got, want) / (
+                    FA_BWD_F32 * max(float(want.abs().max()), 1.0))
+                if not ratio <= 1.0:
+                    raise AssertionError(f"fa_bwd_preprocess D {D} {dtype} "
+                                         f"offset {offset}: {ratio} times "
+                                         f"its bar")
+                worst = max(worst, ratio)
+    log(f"[fa-bwd] fa_bwd_preprocess at D {list(FA_PRE_DIMS)}, fp32 and "
+        f"bf16, aligned and one element off: worst max|Δ| / "
+        f"({FA_BWD_F32}·max(max|ref|, 1)) {worst:.4g} <= 1; two passes "
+        f"bitwise")
+    lib = fa.LIB_BWD.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = {}
+    for i, shape in enumerate(FA_PRE_SHAPES):
+        B, L, H, D, causal, dtype = shape
+        tdt = getattr(torch, dtype)
+        gen = torch.Generator(device=dev).manual_seed(500 + i)
+        o, do = (torch.randn((B, L, H, D), generator=gen, device=dev)
+                 .to(tdt) for _ in range(2))
+        delta = torch.empty((B, H, L), device=dev)
+        ms = burst_ms(torch, lambda: lib.fa_bwd_preprocess_launch(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(), fa.DTYPES[tdt],
+            B, H, L, D, stream))
+        want = ref.bwd_preprocess_ref(o, do)
+        torch.cuda.synchronize()
+        ratio = max_err(torch, delta, want) / (
+            FA_BWD_F32 * max(float(want.abs().max()), 1.0))
+        if not ratio <= 1.0:
+            raise AssertionError(f"fa_bwd_preprocess {shape}: {ratio} "
+                                 f"times its bar")
+        wrapped = timed_ms(torch, lambda: fa.bwd_preprocess_cuda(o, do), 0.1)
+        plain = timed_ms(torch, lambda: ref.bwd_preprocess_ref(o, do), 0.1)
+        bms, bby = fa_bwd_bounds(B, L, H, D, causal, dtype)["preprocess"]
+        rows[shape] = dict(entry_ms=ms, ms=wrapped, plain_ms=plain,
+                           bound_ms=bms, bound_by=bby, bound_share=bms / ms,
+                           ratio=ratio)
+        log(f"[fa-bwd] fa_bwd_preprocess [B,H,L,D]={[B, H, L, D]} {dtype}: "
+            f"{ms:.5f} ms a launch through fa_bwd_preprocess_launch "
+            f"({ab_common().BURST} back to back), {wrapped:.5f} through the "
+            f"wrapper, "
+            f"plain {plain:.5f}, bound {bms:.6f} ({bby}), {bms / ms:.3f} "
+            f"of it; max|Δ| / bar {ratio:.4g}")
+        del o, do, delta, want
+    builds = build_rows(fa.LIB_BWD, "fa_bwd_preprocess")
+    log("[fa-bwd] fa_bwd_preprocess's builds (-Xptxas -v; no dynamic "
+        "shared memory, 2,048 bytes static): " + "; ".join(
+            f"<{k}> {v[0]} registers, spills {v[1]} / {v[2]}"
+            for k, v in sorted(builds.items())))
+    torch.cuda.empty_cache()
+    return dict(rows=rows, domain_worst=worst, builds=builds)
 
 
 def ssd_inputs(torch, shape, seed):
@@ -1350,7 +1466,92 @@ def carry_bound(B, L, H, P, N, Q, dtype):
     return bound(flops, nbytes, "float32")
 
 
+def burst_ms(torch, fn) -> float:
+    """Median ms per launch of a C entry point, BURST launches back to back
+    a window (``tools/ab_common.py``'s ``ms``), so that no wrapper's host
+    time lands between launches; fails if a launch is refused."""
+    if fn() != 0:
+        raise AssertionError("a timed launch failed")
+    return ab_common().ms(fn)
+
+
+def ab_common():
+    """``tools/ab_common.py``, the A/B tools' timer (BURST launches a
+    window)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import ab_common as module
+    return module
+
+
+def build_rows(lib, kernel: str) -> dict:
+    """{template arguments: [registers, spill stores, spill loads]} of each
+    instantiation of ``kernel`` in ``lib``'s ``-Xptxas -v`` output (this
+    process's build), the arguments written plainly: fp32 or bf16, vec or
+    scalar, integers."""
+    out = {}
+    for name, regs in lib.ptxas().items():
+        m = re.search(rf"{kernel}I(.*?)EE", name)
+        if not m:
+            continue
+        args = (m.group(1).replace("13__nv_bfloat16", "bf16 ")
+                .replace("Lb1E", "vec ").replace("Lb0E", "scalar "))
+        args = re.sub(r"Li(\d+)E?", r"\1 ", args)
+        if args.startswith("f"):
+            args = "fp32 " + args[1:]
+        out[" ".join(args.split())] = list(regs)
+    return out
+
+
+def carry_row(torch, shape, yi, st, cum, Cb, h0, hold) -> dict:
+    """``ssd_carry_tc`` at one bf16 shape: y (fp32) and the final state
+    against ``ssd_carry_ref`` with and without an initial state (``hold``,
+    SSD_REL), two passes bitwise (y in bf16), then its time through the C
+    entry point (y in bf16, BURST launches back to back), the plan it
+    launches with (its shared memory equal to ``kernel.py``'s mirror) and
+    its share of the byte bound."""
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd.ref import ssd_carry_ref
+    B, L, H, P, N, Q = shape
+    for init, tag in ((None, ""), (h0, " (init state)")):
+        gy, gf = sk.ssd_carry_cuda(yi, st, cum, Cb, Q, init)
+        wy, wf = ssd_carry_ref(yi, st, cum, Cb, Q, init)
+        hold(shape, "carry y" + tag, gy, wy)
+        hold(shape, "carry final state" + tag, gf, wf)
+        del gy, gf, wy, wf
+    y, final = sk.ssd_carry_cuda(yi, st, cum, Cb, Q, h0, torch.bfloat16)
+    again = sk.ssd_carry_cuda(yi, st, cum, Cb, Q, h0, torch.bfloat16)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, again[0]) and torch.equal(final, again[1])):
+        raise AssertionError(f"ssd_carry_tc {shape}: two passes differ")
+    del again
+    lib = sk.LIB.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    code = sk.DTYPES[torch.bfloat16]
+    ms = burst_ms(torch, lambda: lib.ssd_carry_launch(
+        yi.data_ptr(), st.data_ptr(), cum.data_ptr(), Cb.data_ptr(), None,
+        y.data_ptr(), final.data_ptr(), code, code, B, L, H, P, N, Q,
+        stream))
+    plan = sk.carry_plan(torch.bfloat16, B, H, P, N, Q)
+    mirror = sk.carry_tc_smem_bytes(N, Q, plan["ps"], plan["stages"])
+    if plan["smem"] != mirror:
+        raise AssertionError(f"ssd_carry_tc {shape}: the library's plan "
+                             f"has {plan['smem']} bytes of shared memory, "
+                             f"kernel.py's mirror {mirror}")
+    bms, bby = carry_bound(*shape, "bfloat16")
+    log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} ssd_carry_tc (y bf16): "
+        f"{ms:.5f} ms a launch through ssd_carry_launch "
+        f"({ab_common().BURST} back to back), bound {bms:.6f} ({bby}), "
+        f"{bms / ms:.3f} of it; plan {plan['ps']}-column slices, "
+        f"{plan['stages']}-stage rings, "
+        f"{plan['blocks']} blocks of {plan['threads']} threads, "
+        f"{plan['smem']:,} bytes of shared memory; two passes bitwise")
+    del y, final
+    return dict(entry_ms=ms, plan=plan, bound_ms=bms, bound_by=bby,
+                bound_share=bms / ms)
+
+
 def phase_ssd(torch) -> dict:
+    from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd import ops
     from repro_torch.kernels.ssd.kernel import (TERMS, ssd_carry_cuda,
                                                 ssd_chunks_cuda)
@@ -1363,6 +1564,7 @@ def phase_ssd(torch) -> dict:
         "ssd_ref; bound = the least time for each kernel's work; no single "
         "PyTorch call computes either function (library_ms = null)")
     rows, worst, carry_worst = {}, 0.0, 0.0
+    carry_rows = {}
 
     def hold(shape, name, got, want, bar_rel=SSD_REL):
         nonlocal worst, carry_worst
@@ -1416,16 +1618,12 @@ def phase_ssd(torch) -> dict:
             f"terms: " + ", ".join(f"{t}: {r:.4g}" for t, r in
                                    ratios.items()))
         # The carry kernel against ssd_combine on the plain chunk outputs,
-        # with and without an initial state, y in fp32.
+        # with and without an initial state, y in fp32; two passes
+        # bitwise, its time through the C entry point and its plan.
         h0 = torch.randn((B, H, N, P), device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(400 + i))
-        for init, tag in ((None, ""), (h0, " (init state)")):
-            gy, gf = ssd_carry_cuda(*want, cum, Cb, Q, init)
-            wy, wf = ssd_carry_ref(*want, cum, Cb, Q, init)
-            hold(shape, "carry y" + tag, gy, wy)
-            hold(shape, "carry final state" + tag, gf, wf)
-            del gy, gf, wy, wf
+        carry_rows[shape] = carry_row(torch, shape, *want, cum, Cb, h0, hold)
         # The whole scan on the same (bf16-valued) inputs in fp32, so that
         # y is compared before any bf16 rounding; then in bf16, y within
         # one bf16 step of the fp32 reference.
@@ -1471,12 +1669,56 @@ def phase_ssd(torch) -> dict:
             f"{scan:.5f} vs ssd_ref {scan_plain:.5f}")
         del xb, Bb, Cb, want, yi, st, cum, h0
         torch.cuda.empty_cache()
+    # Phase 11 (d)'s carry (mamba2-780m, 2 x 4096, bf16 C): 48 launches a
+    # step, held and timed as above, beside its wrapper and plain times.
+    shape = SSD_TRAIN[0]
+    B, L, H, P, N, Q = shape
+    x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 350)
+    xb, Bb, Cb = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+    del x, Bm, Cm
+    cum = chunk_cumsum(dt, A, Q)
+    yi, st = (t.contiguous() for t in ssd_chunks_ref(xb, dt, cum, Bb, Cb, Q))
+    h0 = torch.randn((B, H, N, P), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(450))
+    carry_rows[shape] = carry_row(torch, shape, yi, st, cum, Cb, h0, hold)
+    carry_rows[shape].update(
+        ms=timed_ms(torch, lambda: ssd_carry_cuda(yi, st, cum, Cb, Q, None,
+                                                  torch.bfloat16)),
+        plain_ms=timed_ms(torch, lambda: ssd_carry_ref(yi, st, cum, Cb, Q,
+                                                       None, torch.bfloat16)))
+    del xb, Bb, Cb, yi, st, cum, h0, dt, A
+    torch.cuda.empty_cache()
+    # A persistent grid with more groups than blocks: its rings run on
+    # across a group boundary, h or the initial state is loaded again and
+    # a second final state written by the same block.
+    shape = SSD_CARRY_GROUPS
+    B, L, H, P, N, Q = shape
+    x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 360)
+    xb, Bb, Cb = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+    cum = chunk_cumsum(dt, A, Q)
+    yi, st = (t.contiguous() for t in ssd_chunks_ref(xb, dt, cum, Bb, Cb, Q))
+    h0 = torch.randn((B, H, N, P), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(460))
+    carry_rows[shape] = carry_row(torch, shape, yi, st, cum, Cb, h0, hold)
+    plan = carry_rows[shape]["plan"]
+    if not plan["blocks"] < B * H * (P // plan["ps"]):
+        raise AssertionError(f"ssd_carry_tc {shape}: plan {plan} gives "
+                             "every group a block of its own")
+    del x, Bm, Cm, xb, Bb, Cb, yi, st, cum, h0, dt, A
+    for shape, r in rows.items():
+        carry_rows[shape].update(ms=r["carry_ms"], plain_ms=r["carry_plain_ms"])
+    builds = build_rows(sk.LIB, "ssd_carry_tc")
+    log("[ssd] ssd_carry_tc's builds (-Xptxas -v; shared memory is the "
+        "plan's, above): " + "; ".join(
+            f"<{k}> {v[0]} registers, spills {v[1]} / {v[2]}"
+            for k, v in sorted(builds.items())))
     t0 = time.perf_counter()
     chunks = ssd_chunk_rows(torch, hold)
     log(f"[ssd] the chunks of SSD_CHUNKS took {time.perf_counter() - t0:.3f} "
         f"s")
     return dict(rows=rows, chunks=chunks, max_abs_err=worst,
-                carry_max_abs_err=carry_worst, terms=TERMS)
+                carry_max_abs_err=carry_worst, terms=TERMS,
+                carry_rows=carry_rows, carry_builds=builds)
 
 
 def ssd_chunk_rows(torch, hold) -> dict:
@@ -4118,7 +4360,15 @@ def main() -> int:
         "library_ms": None,
         "shape": list(SSD_HEADLINE),
         "launches_short": short["ssd_launches"]["CARRY_LAUNCHES"],
+        # Phase 11 (d): the mamba2-780m step's 6 timed steps.
+        "launches_train": train["ssm"]["ssd_launches"]["CARRY_LAUNCHES"],
         "chunks": fwd_chunks(1),
+        # ssd_carry_tc at the serving shapes and (d)'s: its time through
+        # the C entry point, its plan and share of the byte bound.
+        "entry_ms": sd["carry_rows"][SSD_HEADLINE]["entry_ms"],
+        "rows": [dict(shape=list(sh), **r)
+                 for sh, r in sd["carry_rows"].items()],
+        "build": sd["carry_builds"],
     }]}
     # The fp32 forward (TF32 tensor cores) at phase 11 (b)'s fp32 step,
     # which launched it once per layer; phase 6's fp32 rows beside it.
@@ -4204,7 +4454,11 @@ def main() -> int:
                 for tag, r in hd.items()},
             **({"build": {k: v for k, v in fab["builds"].items()
                           if k.startswith(name + "<")}}
-               if name != "fa_bwd_preprocess" else {}),
+               if name != "fa_bwd_preprocess" else {
+                   "build": fab["preprocess"]["builds"],
+                   "entry_ms": fab["preprocess"]["rows"][shape]["entry_ms"],
+                   "rows": [dict(shape=list(sh), **r) for sh, r in
+                            fab["preprocess"]["rows"].items()]}),
         })
     # The SSD backward's kernels: the tensor-core pair at phase 11 (d)'s
     # shape (mamba2-780m, 2 x 4096, bf16), launched by (d); the CUDA-core

@@ -21,9 +21,11 @@
 // FA2's split, three kernels, none with atomics, so every result is the
 // same from run to run:
 //
-// * fa_bwd_preprocess: D = rowsum(dO o O) per (b, h, query row), one warp
-//   per row, either dtype, any head dim.  Bound: bytes (reads o and dO
-//   once).
+// * fa_bwd_preprocess: D = rowsum(dO o O) per (b, h, query row), either
+//   dtype, any head dim.  Bound: bytes (reads o and dO once, writes D).
+//   A few lanes a row and several rows in flight a lane, 16-byte loads
+//   where the rows are aligned, D written as runs along Lq (the design
+//   is set out above the kernel).
 // * dK, dV: per block of keys, over the query tiles that can see them
 //   (under `causal`, from the keys' own diagonal on): S^T = k q^T,
 //   P^T = exp(scale S^T - lse), dP^T = v dO^T, dS^T = P^T o (dP^T - D),
@@ -165,48 +167,172 @@ namespace {
 // The preprocess (either dtype)
 // ---------------------------------------------------------------------------
 
-constexpr int kPreRows = 8;     // preprocess: rows (warps) per block
+// A block takes `ti` query rows of one batch row (kPreRowsI, or fewer
+// where that would leave under two blocks an SM of the current device)
+// and up to kPreHeads heads.  Its rows of o and dO, (i, h) pairs, are
+// walked in memory order: TPR lanes (a power of two, the fewest that
+// cover a row's pieces, at most 32) share a row, each summing its
+// pieces, 16 bytes where the rows and both bases are 16-byte aligned
+// (kVec) and one element otherwise, with kPreUnroll rows of each lane
+// loaded before any is summed.  The rows' sums meet in shared memory,
+// and the block writes delta as runs of kPreRowsI along Lq, one per
+// head.
+constexpr int kPreThreads = 256;
+constexpr int kPreRowsI = 16;    // query rows a block, at most
+constexpr int kPreHeads = 32;    // heads a block, at most
+constexpr int kPreUnroll = 4;    // rows a lane has in flight
+
+// acc += dO . o over one piece: 16 bytes, or one element.
+__device__ __forceinline__ float dot_piece(const float* o, const float* d,
+                                           float acc) {
+  const float4 a = *reinterpret_cast<const float4*>(o);
+  const float4 b = *reinterpret_cast<const float4*>(d);
+  acc = fmaf(b.x, a.x, acc);
+  acc = fmaf(b.y, a.y, acc);
+  acc = fmaf(b.z, a.z, acc);
+  return fmaf(b.w, a.w, acc);
+}
+__device__ __forceinline__ float dot_piece(const __nv_bfloat16* o,
+                                           const __nv_bfloat16* d,
+                                           float acc) {
+  const uint4 a = *reinterpret_cast<const uint4*>(o);
+  const uint4 b = *reinterpret_cast<const uint4*>(d);
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    acc = fmaf(__low2float(y[k]), __low2float(x[k]), acc);
+    acc = fmaf(__high2float(y[k]), __high2float(x[k]), acc);
+  }
+  return acc;
+}
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kPreRows * 32)
+// Elements a lane reads at once: 16 bytes (kVec) or one.
+template <typename T, bool kVec>
+__host__ __device__ constexpr int pre_piece() {
+  return kVec ? 16 / (int)sizeof(T) : 1;
+}
+
+template <typename T, bool kVec, int TPR>
+__global__ void __launch_bounds__(kPreThreads)
     fa_bwd_preprocess(const T* __restrict__ o, const T* __restrict__ dO,
                       float* __restrict__ delta, int H, int Lq, int D,
-                      int64_t nrows) {
-  // Row r of [B, Lq, H] in memory order: r = (b Lq + i) H + h.
-  const int64_t r = (int64_t)blockIdx.x * kPreRows + threadIdx.x / 32;
-  if (r >= nrows) return;  // uniform over the warp
-  const int lane = threadIdx.x % 32;
-  const T* op = o + r * D;
-  const T* dp = dO + r * D;
-  float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(ld(dp + c), ld(op + c), acc);
+                      int ti) {
+  constexpr int E = pre_piece<T, kVec>();
+  constexpr int NS = kPreThreads / TPR;   // rows a pass
+  __shared__ float sums[kPreHeads * kPreRowsI];
+  const int b = blockIdx.z, i0 = blockIdx.x * ti;
+  const int h0 = blockIdx.y * kPreHeads;
+  const int nh = min(kPreHeads, H - h0), ni = min(ti, Lq - i0);
+  const int nrows = nh * ni, V = D / E;   // a row's pieces
+  const int sub = threadIdx.x % TPR, slot = threadIdx.x / TPR;
+  // Row (i, h) of [B, Lq, H] in memory order is (b Lq + i) H + h.
+  const int64_t base = ((int64_t)b * Lq + i0) * H + h0;
+  for (int r0 = 0; r0 < nrows; r0 += NS * kPreUnroll) {
+    float acc[kPreUnroll];
+    const T* op[kPreUnroll];
+    const T* dp[kPreUnroll];
+    bool ok[kPreUnroll];
 #pragma unroll
-  for (int w = 16; w > 0; w >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, w);
-  if (lane == 0) {
-    const int h = (int)(r % H);
-    const int64_t bi = r / H;
-    const int i = (int)(bi % Lq);
-    const int64_t b = bi / Lq;
-    delta[(b * H + h) * Lq + i] = acc;
+    for (int u = 0; u < kPreUnroll; ++u) {
+      const int r = r0 + u * NS + slot, ri = r / nh;
+      const int64_t row = base + (int64_t)ri * H + (r - ri * nh);
+      ok[u] = r < nrows;
+      op[u] = o + row * D;
+      dp[u] = dO + row * D;
+      acc[u] = 0.f;
+    }
+    for (int c = sub; c < V; c += TPR) {
+      if constexpr (kVec) {
+        uint4 a[kPreUnroll], d[kPreUnroll];
+#pragma unroll
+        for (int u = 0; u < kPreUnroll; ++u)
+          if (ok[u]) {
+            a[u] = *reinterpret_cast<const uint4*>(op[u] + c * E);
+            d[u] = *reinterpret_cast<const uint4*>(dp[u] + c * E);
+          }
+#pragma unroll
+        for (int u = 0; u < kPreUnroll; ++u)
+          if (ok[u])
+            acc[u] = dot_piece(reinterpret_cast<const T*>(&a[u]),
+                               reinterpret_cast<const T*>(&d[u]), acc[u]);
+      } else {
+        float a[kPreUnroll], d[kPreUnroll];
+#pragma unroll
+        for (int u = 0; u < kPreUnroll; ++u)
+          if (ok[u]) {
+            a[u] = ld(op[u] + c);
+            d[u] = ld(dp[u] + c);
+          }
+#pragma unroll
+        for (int u = 0; u < kPreUnroll; ++u)
+          if (ok[u]) acc[u] = fmaf(d[u], a[u], acc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPreUnroll; ++u) {
+#pragma unroll
+      for (int w = TPR / 2; w > 0; w >>= 1)
+        acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], w);
+      const int r = r0 + u * NS + slot, ri = r / nh;
+      if (sub == 0 && ok[u]) sums[(r - ri * nh) * kPreRowsI + ri] = acc[u];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nh * kPreRowsI; e += kPreThreads) {
+    const int rh = e / kPreRowsI, ri = e % kPreRowsI;
+    if (ri < ni) delta[((int64_t)b * H + h0 + rh) * Lq + i0 + ri] = sums[e];
   }
 }
 
+template <typename T, bool kVec>
+cudaError_t launch_preprocess_v(const T* o, const T* dO, float* delta, int B,
+                                int H, int Lq, int D, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int V = D / pre_piece<T, kVec>();
+  const int hblocks = (H + kPreHeads - 1) / kPreHeads;
+  int ti = kPreRowsI;
+  while (ti > 4 && (int64_t)B * hblocks * ((Lq + ti - 1) / ti) <
+                       2 * (int64_t)sms)
+    ti /= 2;
+  const dim3 grid((Lq + ti - 1) / ti, hblocks, B);
+#define FA_PRE(TPR)                                                        \
+  fa_bwd_preprocess<T, kVec, TPR><<<grid, kPreThreads, 0, stream>>>(      \
+      o, dO, delta, H, Lq, D, ti)
+  if (V <= 1) FA_PRE(1);
+  else if (V <= 2) FA_PRE(2);
+  else if (V <= 4) FA_PRE(4);
+  else if (V <= 8) FA_PRE(8);
+  else if (V <= 16) FA_PRE(16);
+  else FA_PRE(32);
+#undef FA_PRE
+  return cudaGetLastError();
+}
+
+// 16-byte pieces where a row's bytes and both bases allow them, else
+// single elements: two variants of the one kernel.
 template <typename T>
 cudaError_t launch_preprocess(const void* o, const void* dO, void* delta,
                               int B, int H, int Lq, int D,
                               cudaStream_t stream) {
-  const int64_t nrows = (int64_t)B * Lq * H;
-  const unsigned blocks = (unsigned)((nrows + kPreRows - 1) / kPreRows);
-  fa_bwd_preprocess<T><<<blocks, kPreRows * 32, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dO),
-      static_cast<float*>(delta), H, Lq, D, nrows);
-  return cudaGetLastError();
+  const T* op = static_cast<const T*>(o);
+  const T* dp = static_cast<const T*>(dO);
+  float* out = static_cast<float*>(delta);
+  const bool vec = D * sizeof(T) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(o) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dO) % 16 == 0;
+  if (vec)
+    return launch_preprocess_v<T, true>(op, dp, out, B, H, Lq, D, stream);
+  return launch_preprocess_v<T, false>(op, dp, out, B, H, Lq, D, stream);
 }
 
 

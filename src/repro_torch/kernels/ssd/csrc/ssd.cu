@@ -59,9 +59,8 @@
 //
 // The inter-chunk carry has no Pallas counterpart: the
 // reference runs it as a jax.lax.scan plus an einsum (repro/kernels/ssd/
-// ops.py:40-55).  One block per (batch, head, slice of PS columns of P)
-// walks the chunks in order, keeping h_prev [N, PS] in fp32 in shared
-// memory:
+// ops.py:40-55).  For each (batch, head, slice of PS columns of P) it
+// walks the chunks in order, keeping h_prev [N, PS] in fp32:
 //
 //   y[i][p] = y_intra[i][p] + exp(cum_i) * (C_i . h_prev)[p]   (x's dtype)
 //   h       = exp(cum_last) * h + S_c
@@ -69,27 +68,30 @@
 // and writes the final state in fp32 at the end; no [B, nc, H, N, P]
 // stack of h_prev and no fp32 y_inter is ever written.  The walk takes
 // each chunk in tiles of up to kCarryTile = 64 rows (the whole chunk when
-// shorter), h updated after a chunk's last tile, so that the C it stages
-// is two tiles at any chunk length up to 256.  Nothing the walk reads
-// depends on h except the product itself, so the block reads one tile
-// ahead of the one it works on.  16-column slices where P is a multiple
-// of 16, else 8.  Two kernels, by C's dtype:
+// shorter), h updated after a chunk's last tile, so that a staged C tile
+// is at most 64 rows at any chunk length up to 256.  16-column slices
+// where P is a multiple of 16, else 8.  Two kernels, by C's dtype:
 //
-// * ssd_carry_tc (bf16 C, the serving path): C . h_prev on mma.sync, one
-//   warp per 16 rows of a tile, C the A operand straight from shared memory and
-//   h_prev kept beside its fp32 copy as three bf16 terms (exact), so the
-//   products are exact and the sums fp32.  The same walk on the CUDA
-//   cores runs two shared-memory loads per eight multiply-adds and, with
-//   few warps per SM, was limited by instruction throughput (2.13 ms at
-//   the 32k prompt on the H100 against its 0.40 ms byte bound).
+// * ssd_carry_tc (bf16 C, the serving path; the design is set out above
+//   the kernel): warp-specialised, a producer warp keeping a ring of chunk
+//   states in flight, chain warps advancing h in registers, MMA warps
+//   copying their own tiles and computing C . h_prev on mma.sync (h_prev
+//   in three exact bf16 terms, so the products are exact and the sums
+//   fp32) and storing y off the chain; a persistent grid whose slice width
+//   and ring depth follow the shape and the card.
+//   Its first design (one block per slice, all warps through each
+//   tile's product and h's update in turn, one tile's loads in flight)
+//   reached 38-41% of the byte bound.  On the CUDA cores the same walk
+//   ran two shared-memory loads per eight multiply-adds and was limited
+//   by instruction throughput (2.13 ms at the 32k prompt on the H100
+//   against its 0.40 ms byte bound).
 // * ssd_carry_kernel (fp32 C, and shapes the first does not take): the
-//   CUDA cores.  C is transposed into fp32 ([N][tile rows], so that a
-//   thread's two rows are one 8-byte read); each thread owns two rows of
-//   a tile and four columns of y.
-//
-// Both copy the next tile's C with cp.async (double buffer) and read
-// the next tile's y_intra and cum (and, at a chunk's first tile, its
-// state slice) into registers while they work on the current one.
+//   CUDA cores, one block per slice.  C is transposed into fp32 ([N][tile
+//   rows], so that a thread's two rows are one 8-byte read); each thread
+//   owns two rows of a tile and four columns of y.  It copies the next
+//   tile's C with cp.async (double buffer) and reads the next tile's
+//   y_intra and cum (and, at a chunk's first tile, its state slice) into
+//   registers while it works on the current one.
 //
 // Bound: bytes — y_intra and the chunk states read once (fp32), C and
 // cum, y written in its dtype and the final state: about 1.3 GB, 0.40 ms
@@ -97,6 +99,10 @@
 //
 // The mma.sync, ldmatrix and cp.async helpers are in ssd_mma.cuh, which
 // the backward (ssd_bwd.cu) includes too.
+
+#include <array>
+#include <map>
+#include <mutex>
 
 #include "ssd_mma.cuh"
 
@@ -750,13 +756,45 @@ cudaError_t launch_carry_ps(const void* y_intra, const void* states,
   return cudaGetLastError();
 }
 
-// The carry with bf16 C (the serving path) on the tensor cores: C . h_prev
-// with mma.sync m16n8k16, C read as the A operand straight from its
-// copy in shared memory (no transpose), h_prev kept in fp32 and, after
-// every update, as three bf16 terms that hold it exactly (the B
-// operands), so every product is exact and the sums are fp32.  One warp
-// per 16 rows of a tile.
+// The carry with bf16 C (the serving path) on the tensor cores.  The
+// recurrence h <- exp(cum_last) h + S runs along the chunks, one fma per
+// element of h; C . h_prev and the y it adds to hang off it.  So a block,
+// one (batch, head, slice of PS columns) at a time, splits into roles:
+//
+// * a producer warp copies each chunk's state slice and last cum, with
+//   cp.async, into a ring of `stages` chunks; a stage's full mbarrier
+//   completes when its copies land (cp.async.mbarrier.arrive);
+// * chain warps, each holding 16 KW rows of N of h's slice in registers
+//   (32 values a lane; KW = 64 / PS k16 steps), advance h with carry()'s
+//   fma and, before each chunk, publish h_prev as three exact bf16 terms
+//   into a ring of kTermSlots slots, already in mma.sync's B-fragment
+//   order;
+// * MMA warps, one per 16 rows of a tile, each copying its own rows of C,
+//   y_intra and cum with cp.async into its own ring of `stages` tiles
+//   (stages - 1 tiles ahead), compute C . h_prev on mma.sync m16n8k16
+//   from those terms and store y, off the chain.
+//
+// Why this split: a first version staged every tile through one producer
+// warp, whose cp.async issue (~190 cache lines a tile: C rows, y_intra
+// pieces, cum strided by H) kept the MMA warps waiting on their tiles most
+// of the time, and one staged C tile shared by two heads of a block
+// measured slower than a head a block at every shape (PERF.md).  Copied
+// by the MMA warps themselves, the tiles' issue spreads over four warps.
+//
+// The grid is persistent: block i walks the groups i, i + gridDim.x, ...,
+// its rings running on from one group to the next.  carry_tc_plan picks
+// the slice width and the ring depth from the shape and the card's SM
+// count.
+//
+// The sums are the first design's, term for term: per 16 rows, k16 steps
+// outer and terms inner, each accumulator from zero, then y = y_intra +
+// exp(cum) acc, and h = d h + s; so y and the final state are bitwise
+// those of the kernel it replaces (tools/ssd_ab.py).
 constexpr int kCarryTerms = 3;
+constexpr int kCarryPlanStages = 3;      // deepest ring a plan takes
+constexpr int kTermSlots = 2;            // slots of h_prev's terms
+constexpr int kCarryTcMaxThreads = 640;  // 1 + chain + MMA warps
+constexpr long long kWatchdogCycles = 1LL << 34;   // ~10 s of SM clock
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -765,181 +803,527 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-size_t carry_tc_smem_bytes(int N, int Q, int PS) {
-  return (size_t)N * PS * 4 + kCarryTerms * (size_t)N * PS * 2 +
-         2 * (size_t)carry_tile(Q) * (N + 8) * 2;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// One arrival for the warp once all its lanes are done with (or have
+// written) what the barrier guards: lane 0 arrives after __syncwarp,
+// which orders the other lanes' accesses before it.  One arrival a warp
+// rather than a lane: arrivals on one barrier are serialised.
+__device__ __forceinline__ void mbar_arrive_warp(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+// One arrival on `bar` once every cp.async this thread has issued lands.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_done(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Waits for the phase of this parity to complete.  A wait of seconds is a
+// deadlock: it traps, so that the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_done(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_done(bar, parity))
+    if (clock64() - t0 > kWatchdogCycles) __trap();
 }
 
-template <typename TY, int PS, bool kWhole>
-__global__ void __launch_bounds__(kCarryMaxThreads)
+// Waits until at most n (0 to kCarryPlanStages - 1) of this thread's
+// newest cp.async groups are in flight.
+static_assert(kCarryPlanStages == 3, "cp_async_wait_n covers n <= 2");
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n <= 0) cp_async_wait<0>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<2>();
+}
+
+// A slot of a ring and the parity of its current use.
+struct Ring {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ void next(int n) {
+    if (++slot == n) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Shared memory of the tensor-core carry: the barriers; `stages` chunk
+// stages (the state slice [N][PS + 4] fp32 and its last cum, padded to 16
+// bytes); the terms ring (kTermSlots slots of 3 N PS bf16); and per MMA
+// warp `stages` tile stages (its 16 rows of C [16][N + 8] bf16, y_intra
+// [16][ldy] and cum [16] fp32).  The padding keeps ldmatrix, the chain's
+// state reads and the y_intra reads free of bank conflicts.
+__host__ __device__ constexpr int carry_ldy(int PS) {
+  return PS == 8 ? 8 : PS + 8;
+}
+__host__ __device__ inline size_t carry_tc_chunk_bytes(int N, int PS) {
+  return (size_t)N * (PS + 4) * 4 + 16;
+}
+__host__ __device__ inline size_t carry_tc_mma_stage_bytes(int N, int PS) {
+  return 16 * (size_t)(N + 8) * 2 + 16 * (size_t)(carry_ldy(PS) + 1) * 4;
+}
+__host__ __device__ inline size_t carry_tc_bar_bytes(int stages) {
+  return ((2 * stages + 2 * kTermSlots) * 8 + 15) / 16 * 16;
+}
+size_t carry_tc_smem_bytes(int N, int Q, int PS, int stages) {
+  return carry_tc_bar_bytes(stages) +
+         stages * carry_tc_chunk_bytes(N, PS) +
+         (size_t)kTermSlots * kCarryTerms * N * PS * 2 +
+         (size_t)(carry_tile(Q) / 16) * stages *
+             carry_tc_mma_stage_bytes(N, PS);
+}
+// k16 steps (16 rows of N) of h's slice a chain warp holds: 32 values a
+// lane (16 at 8-column slices).
+__host__ __device__ constexpr int carry_kw(int PS) {
+  return PS == 8 ? 4 : 64 / PS;
+}
+__host__ __device__ inline int carry_chain_warps(int N, int PS) {
+  return (N / 16 + carry_kw(PS) - 1) / carry_kw(PS);
+}
+// Threads of a block: the producer warp, the chain warps and one MMA warp
+// per 16 rows of a tile.
+__host__ __device__ inline int carry_tc_threads(int N, int Q, int PS) {
+  return 32 * (1 + carry_chain_warps(N, PS) + carry_tile(Q) / 16);
+}
+
+template <typename TY, int PS>
+__global__ void __launch_bounds__(kCarryTcMaxThreads)
     ssd_carry_tc(const float* __restrict__ y_intra,
                  const float* __restrict__ states,
                  const float* __restrict__ cum, const bf16* __restrict__ cm,
                  const float* __restrict__ init, TY* __restrict__ y,
-                 float* __restrict__ final_state, int L, int H, int P, int N,
-                 int Q) {
-  constexpr int NTP = PS / 8;   // n8 tiles of the slice
-  constexpr int G4 = PS / 4;    // float4s of a row of the slice
-  extern __shared__ __align__(16) float carry_smem[];
-  const int R = kWhole ? Q : kCarryTile;
-  const int nt = kWhole ? 1 : (Q + R - 1) / R;
-  const int ldc = N + 8;
-  float* hs = carry_smem;                              // [N][PS] fp32
-  bf16* ht = reinterpret_cast<bf16*>(hs + N * PS);     // 3 x [N][PS]
-  bf16* raw = ht + kCarryTerms * N * PS;               // 2 x [R][ldc]
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
+                 float* __restrict__ final_state, int B, int L, int H, int P,
+                 int N, int Q, int stages) {
+  constexpr int NTP = PS / 8;           // n8 tiles of the slice
+  constexpr int G4 = PS / 4;            // 16-byte pieces of a slice row
+  constexpr int LDY = carry_ldy(PS);    // y_intra rows in shared memory
+  constexpr int LDS = PS + 4;           // state rows in shared memory
+  constexpr int KW = carry_kw(PS);
+  extern __shared__ __align__(128) unsigned char carry_tc_smem[];
+  const int R = carry_tile(Q), nt = (Q + R - 1) / R, nc = L / Q;
+  const int KK = N / 16, ldc = N + 8;
+  const int cw = carry_chain_warps(N, PS);
+  const int nslice = P / PS, ngroups = B * H * nslice;
+  const size_t chunk_bytes = carry_tc_chunk_bytes(N, PS);
+  uint64_t* chunk_full = reinterpret_cast<uint64_t*>(carry_tc_smem);
+  uint64_t* chunk_empty = chunk_full + stages;
+  uint64_t* terms_full = chunk_empty + stages;
+  uint64_t* terms_empty = terms_full + kTermSlots;
+  unsigned char* chunks = carry_tc_smem + carry_tc_bar_bytes(stages);
+  uint2* terms = reinterpret_cast<uint2*>(chunks + stages * chunk_bytes);
+  const int slot_terms = kCarryTerms * KK * NTP * 32;   // uint2s a slot
+  unsigned char* mma_rings =
+      reinterpret_cast<unsigned char*>(terms + kTermSlots * slot_terms);
+  auto chunk_state = [&](int s) {   // its last cum at [N * LDS]
+    return reinterpret_cast<float*>(chunks + s * chunk_bytes);
+  };
+  auto group = [&](int gi, int& b, int& h, int& ps0) {
+    ps0 = (gi % nslice) * PS;
+    gi /= nslice;
+    h = gi % H;
+    b = gi / H;
+  };
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, cq = lane & 3;
-  const int ps0 = blockIdx.x * PS, h = blockIdx.y, b = blockIdx.z;
-  const int nc = L / Q;
-  const int r0 = 16 * warp;     // this warp's rows of a tile
-  auto row0_of = [&](CarryPos p) {
-    return (int64_t)b * L + (int64_t)p.c * Q + (kWhole ? 0 : p.k * R);
-  };
-  auto rows_of = [&](CarryPos p) {
-    return kWhole ? Q : min(R, Q - p.k * R);
-  };
 
-  // h_prev's float4 e (row e / G4 of the slice) into fp32 and its terms.
-  auto put_h = [&](int e, float4 v) {
-    *reinterpret_cast<float4*>(hs + 4 * e) = v;
-    uint32_t lo[kCarryTerms], hi[kCarryTerms];
-    split<kCarryTerms>(v.x, v.y, lo);
-    split<kCarryTerms>(v.z, v.w, hi);
-#pragma unroll
-    for (int k = 0; k < kCarryTerms; ++k)
-      *reinterpret_cast<uint2*>(ht + k * N * PS + 4 * e) =
-          make_uint2(lo[k], hi[k]);
-  };
-  // What a tile needs besides C, read into registers one tile ahead:
-  // this warp's y_intra and cum (when the tile has its rows); at a
-  // chunk's first tile also the chunk's last cum and the first kMaxS of
-  // the thread's float4s of the chunk state (used after its last tile).
-  float2 yi[2][NTP];
-  float4 sreg[kMaxS];
-  float ci[2], dl;
-  auto state_at = [&](int c) {
-    return states + (((int64_t)b * nc + c) * H + h) * (int64_t)N * P + ps0;
-  };
-  auto prefetch = [&](CarryPos p) {
-    const int64_t row0 = row0_of(p);
-    if (kWhole || r0 < rows_of(p)) {
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int64_t row = row0 + r0 + g + 8 * rr;
-#pragma unroll
-        for (int nt8 = 0; nt8 < NTP; ++nt8)
-          yi[rr][nt8] = *reinterpret_cast<const float2*>(
-              y_intra + (row * H + h) * P + ps0 + 8 * nt8 + 2 * cq);
-        ci[rr] = cum[row * H + h];
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(chunk_full + s, 32);
+      mbar_init(chunk_empty + s, cw);
     }
-    if (!kWhole && !p.first()) return;
-    dl = cum[((int64_t)b * L + (int64_t)p.c * Q + Q - 1) * H + h];
-    const float* sc = state_at(p.c);
-#pragma unroll
-    for (int k = 0; k < kMaxS; ++k) {
-      const int e = tid + k * nthr;
-      if (e < N * G4)
-        sreg[k] = *reinterpret_cast<const float4*>(sc + (e / G4) * P +
-                                                   (e % G4) * 4);
+    for (int j = 0; j < kTermSlots; ++j) {
+      mbar_init(terms_full + j, cw);
+      mbar_init(terms_empty + j, R / 16);
     }
-  };
-
-  for (int e = tid; e < N * G4; e += nthr) {
-    const int n = e / G4, q = (e % G4) * 4;
-    put_h(e, init ? *reinterpret_cast<const float4*>(
-                        init + (((int64_t)b * H + h) * N + n) * P + ps0 + q)
-                  : make_float4(0.f, 0.f, 0.f, 0.f));
-  }
-  load_c(raw, cm, row0_of({0, 0}), N, rows_of({0, 0}));
-  prefetch({0, 0});
-  int buf = 0;
-  for (CarryPos p{0, 0}; p.c < nc; p = p.next(nt), buf ^= 1) {
-    const CarryPos q = p.next(nt);   // the tile after this one
-    const int64_t row0 = row0_of(p);
-    const bf16* cur = raw + buf * R * ldc;
-    // C(p) has landed and h_prev's terms are complete; every warp is done
-    // with the tile before's C buffer.
-    cp_async_wait_all();
-    __syncthreads();
-    if (q.c < nc)
-      load_c(raw + (buf ^ 1) * R * ldc, cm, row0_of(q), N, rows_of(q));
-
-    // Warp-uniform: whether the tile has this warp's rows.
-    if (kWhole || r0 < rows_of(p)) {
-      float acc[NTP][4] = {};
-      for (int kk = 0; kk < N / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, cur + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldc +
-                       16 * kk + (lane >> 4) * 8);
-#pragma unroll
-        for (int k = 0; k < kCarryTerms; ++k)
-#pragma unroll
-          for (int nt8 = 0; nt8 < NTP; ++nt8) {
-            uint32_t bb[2];
-            ldsm_x2_t(bb, ht + k * N * PS +
-                              (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  PS +
-                              8 * nt8);
-            mma(acc[nt8], a, bb[0], bb[1]);
-          }
-      }
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int64_t row = row0 + r0 + g + 8 * rr;
-        const float e = expf(ci[rr]);
-#pragma unroll
-        for (int nt8 = 0; nt8 < NTP; ++nt8)
-          store2(y + (row * H + h) * P + ps0 + 8 * nt8 + 2 * cq,
-                 yi[rr][nt8].x + e * acc[nt8][2 * rr],
-                 yi[rr][nt8].y + e * acc[nt8][2 * rr + 1]);
-      }
-    }
-
-    if (kWhole || p.last(nt)) {
-      __syncthreads();  // every read of h_prev's terms is done
-      const float d = expf(dl);
-#pragma unroll
-      for (int k = 0; k < kMaxS; ++k) {
-        const int e = tid + k * nthr;
-        if (e < N * G4)
-          put_h(e, carry(d, *reinterpret_cast<const float4*>(hs + 4 * e),
-                         sreg[k]));
-      }
-      const float* sc = state_at(p.c);
-      for (int e = tid + kMaxS * nthr; e < N * G4; e += nthr)
-        put_h(e, carry(d, *reinterpret_cast<const float4*>(hs + 4 * e),
-                       *reinterpret_cast<const float4*>(sc + (e / G4) * P +
-                                                        (e % G4) * 4)));
-    }
-    if (q.c < nc) prefetch(q);
   }
   __syncthreads();
-  for (int e = tid; e < N * PS; e += nthr) {
-    const int n = e / PS, p = e % PS;
-    final_state[(((int64_t)b * H + h) * N + n) * P + ps0 + p] = hs[e];
+
+  if (warp == 0) {
+    // The producer: each chunk's state slice and its last cum.
+    Ring cs;
+    for (int gi = blockIdx.x; gi < ngroups; gi += gridDim.x) {
+      int b, h, ps0;
+      group(gi, b, h, ps0);
+      for (int c = 0; c < nc; ++c) {
+        mbar_wait(chunk_empty + cs.slot, cs.phase ^ 1);
+        float* dst = chunk_state(cs.slot);
+        const float* src =
+            states + (((int64_t)b * nc + c) * H + h) * (int64_t)N * P + ps0;
+        for (int e = lane; e < N * G4; e += 32)
+          cp_async16(dst + (e / G4) * LDS + (e % G4) * 4,
+                     src + (int64_t)(e / G4) * P + (e % G4) * 4);
+        if (lane == 0)
+          cp_async4(dst + N * LDS,
+                    cum + ((int64_t)b * L + (int64_t)c * Q + Q - 1) * H + h);
+        mbar_arrive_cp_async(chunk_full + cs.slot);
+        cs.next(stages);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
   }
+
+  if (warp <= cw) {
+    // A chain warp: rows 16 kk0 .. of N.  Lane (g, cq) holds, for each k16
+    // step j and n8 tile of the slice, the four values of h that make its
+    // B fragment: rows 2cq, 2cq + 1, 2cq + 8, 2cq + 9 of the step, column
+    // g of the tile.
+    const int kk0 = KW * (warp - 1), nk = min(KW, KK - kk0);
+    float hv[KW][NTP][4];
+    Ring cs, js;
+    auto row_of = [&](int j, int e) {
+      return 16 * (kk0 + j) + 2 * cq + (e & 1) + 8 * (e >> 1);
+    };
+    for (int gi = blockIdx.x; gi < ngroups; gi += gridDim.x) {
+      int b, h, ps0;
+      group(gi, b, h, ps0);
+      const int64_t bh = (int64_t)b * H + h;
+#pragma unroll
+      for (int j = 0; j < KW; ++j) {
+        if (j >= nk) continue;
+#pragma unroll
+        for (int t8 = 0; t8 < NTP; ++t8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            hv[j][t8][e] = init ? init[(bh * N + row_of(j, e)) * P + ps0 +
+                                       8 * t8 + g]
+                                : 0.f;
+      }
+      for (int c = 0; c < nc; ++c) {
+        mbar_wait(terms_empty + js.slot, js.phase ^ 1);
+        uint2* tb = terms + js.slot * slot_terms;
+#pragma unroll
+        for (int j = 0; j < KW; ++j) {
+          if (j >= nk) continue;
+#pragma unroll
+          for (int t8 = 0; t8 < NTP; ++t8) {
+            uint32_t lo[kCarryTerms], up[kCarryTerms];
+            split<kCarryTerms>(hv[j][t8][0], hv[j][t8][1], lo);
+            split<kCarryTerms>(hv[j][t8][2], hv[j][t8][3], up);
+#pragma unroll
+            for (int t = 0; t < kCarryTerms; ++t)
+              tb[((t * KK + kk0 + j) * NTP + t8) * 32 + lane] =
+                  make_uint2(lo[t], up[t]);
+          }
+        }
+        mbar_arrive_warp(terms_full + js.slot);
+        js.next(kTermSlots);
+        mbar_wait(chunk_full + cs.slot, cs.phase);
+        const float* st = chunk_state(cs.slot);
+        const float d = expf(st[N * LDS]);
+#pragma unroll
+        for (int j = 0; j < KW; ++j) {
+          if (j >= nk) continue;
+#pragma unroll
+          for (int t8 = 0; t8 < NTP; ++t8)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              hv[j][t8][e] =
+                  d * hv[j][t8][e] + st[row_of(j, e) * LDS + 8 * t8 + g];
+        }
+        mbar_arrive_warp(chunk_empty + cs.slot);
+        cs.next(stages);
+      }
+#pragma unroll
+      for (int j = 0; j < KW; ++j) {
+        if (j >= nk) continue;
+#pragma unroll
+        for (int t8 = 0; t8 < NTP; ++t8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            final_state[(bh * N + row_of(j, e)) * P + ps0 + 8 * t8 + g] =
+                hv[j][t8][e];
+      }
+    }
+    return;
+  }
+
+  // An MMA warp: rows r0 .. r0 + 15 of each tile, which it copies itself
+  // into its own ring, stages - 1 tiles ahead of the one it computes.
+  const int r0 = 16 * (warp - 1 - cw);
+  const size_t mstage = carry_tc_mma_stage_bytes(N, PS);
+  unsigned char* ring = mma_rings + (size_t)(warp - 1 - cw) * stages * mstage;
+  auto stage_c = [&](int s) {
+    return reinterpret_cast<bf16*>(ring + s * mstage);
+  };
+  auto stage_y = [&](int s) {
+    return reinterpret_cast<float*>(ring + s * mstage + 16 * ldc * 2);
+  };
+  auto stage_cum = [&](int s) { return stage_y(s) + 16 * LDY; };
+  // The next tile to copy (group, its batch row, head and columns, chunk,
+  // tile) and the stage it goes to; a row of C is NV 16-byte pieces, which
+  // the lanes step through 32 at a time without a division.
+  const int NV = N / 8, di = 32 / NV, dv = 32 % NV;
+  int ngi = blockIdx.x, nb = 0, nh = 0, nps0 = 0, ncc = 0, nk = 0, ws = 0;
+  if (ngi < ngroups) group(ngi, nb, nh, nps0);
+  auto copy_next = [&]() {
+    if (ngi < ngroups) {
+      const int64_t row0 = (int64_t)nb * L + (int64_t)ncc * Q + nk * R + r0;
+      if (r0 < min(R, Q - nk * R)) {
+        bf16* dc = stage_c(ws);
+        const bf16* sc = cm + row0 * N;
+        for (int i = lane / NV, v = lane % NV; i < 16;) {
+          cp_async16(dc + i * ldc + v * 8, sc + (int64_t)i * N + v * 8);
+          i += di;
+          v += dv;
+          if (v >= NV) {
+            v -= NV;
+            ++i;
+          }
+        }
+        float* dy = stage_y(ws);
+        const float* sy = y_intra + (row0 * H + nh) * P + nps0;
+        for (int e = lane; e < 16 * G4; e += 32)
+          cp_async16(dy + (e / G4) * LDY + (e % G4) * 4,
+                     sy + (int64_t)(e / G4) * H * P + (e % G4) * 4);
+        if (lane < 16)
+          cp_async4(stage_cum(ws) + lane, cum + (row0 + lane) * H + nh);
+      }
+      if (++nk == nt) {
+        nk = 0;
+        if (++ncc == nc) {
+          ncc = 0;
+          ngi += gridDim.x;
+          if (ngi < ngroups) group(ngi, nb, nh, nps0);
+        }
+      }
+    }
+    cp_async_commit();   // an empty group past the end keeps the count
+    if (++ws == stages) ws = 0;
+  };
+  for (int s = 1; s < stages; ++s) copy_next();
+  Ring js;
+  int rs = 0;   // the stage of the tile computed next
+  for (int gi = blockIdx.x; gi < ngroups; gi += gridDim.x) {
+    int b, h, ps0;
+    group(gi, b, h, ps0);
+    for (int c = 0; c < nc; ++c) {
+      mbar_wait(terms_full + js.slot, js.phase);
+      const uint2* tb = terms + js.slot * slot_terms;
+      for (int k = 0; k < nt; ++k) {
+        const int64_t row0 = (int64_t)b * L + (int64_t)c * Q + k * R + r0;
+        copy_next();   // into the stage computed last
+        cp_async_wait_n(stages - 1);
+        __syncwarp();   // every lane's copies of this tile have landed
+        if (r0 < min(R, Q - k * R)) {   // warp-uniform
+          const bf16* cur = stage_c(rs);
+          float acc[NTP][4] = {};
+          for (int kk = 0; kk < KK; ++kk) {
+            // The step's fragments first, then its products: the loads of
+            // a step overlap the products of the one before instead of
+            // each product waiting on its own load.
+            uint32_t a[4];
+            uint2 bb[kCarryTerms][NTP];
+            ldsm_x4(a, cur + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldc +
+                           16 * kk + (lane >> 4) * 8);
+#pragma unroll
+            for (int t = 0; t < kCarryTerms; ++t)
+#pragma unroll
+              for (int t8 = 0; t8 < NTP; ++t8)
+                bb[t][t8] = tb[((t * KK + kk) * NTP + t8) * 32 + lane];
+#pragma unroll
+            for (int t = 0; t < kCarryTerms; ++t)
+#pragma unroll
+              for (int t8 = 0; t8 < NTP; ++t8)
+                mma(acc[t8], a, bb[t][t8].x, bb[t][t8].y);
+          }
+          const float* ys = stage_y(rs);
+          const float* cs = stage_cum(rs);
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int i = g + 8 * rr;
+            const float e = expf(cs[i]);
+#pragma unroll
+            for (int t8 = 0; t8 < NTP; ++t8) {
+              const float2 v = *reinterpret_cast<const float2*>(
+                  ys + i * LDY + 8 * t8 + 2 * cq);
+              store2(y + ((row0 + i) * H + h) * P + ps0 + 8 * t8 + 2 * cq,
+                     v.x + e * acc[t8][2 * rr], v.y + e * acc[t8][2 * rr + 1]);
+            }
+          }
+        }
+        __syncwarp();   // every lane is done with the stage it refills next
+        if (++rs == stages) rs = 0;
+      }
+      mbar_arrive_warp(terms_empty + js.slot);
+      js.next(kTermSlots);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// What launch_carry_tc launches: slice width, ring depth, blocks, threads
+// and shared memory.
+struct CarryTcPlan {
+  int ps, stages, blocks, threads;
+  size_t smem;
+};
+
+// One candidate: `PS` columns a slice and a ring of `stages`, with the
+// blocks that `sms` SMs hold at once (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor on the current device); plan->stages = 0 where it does
+// not fit.
+template <typename TY, int PS>
+cudaError_t carry_tc_candidate(int B, int H, int P, int N, int Q, int stages,
+                               int sms, CarryTcPlan* plan) {
+  const auto kernel = ssd_carry_tc<TY, PS>;
+  *plan = CarryTcPlan{PS, 0, 0, 0, 0};
+  const int threads = carry_tc_threads(N, Q, PS);
+  const size_t smem = carry_tc_smem_bytes(N, Q, PS, stages);
+  if (P % PS || threads > kCarryTcMaxThreads || smem > kMaxSmem)
+    return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess || per_sm < 1) return err;
+  const int64_t groups = (int64_t)B * H * (P / PS);
+  const int64_t slots = (int64_t)sms * per_sm;
+  *plan = CarryTcPlan{PS, stages, (int)(groups < slots ? groups : slots),
+                      threads, smem};
+  return cudaSuccess;
+}
+
+template <typename TY>
+cudaError_t carry_tc_candidate(int ps, int B, int H, int P, int N, int Q,
+                               int stages, int sms, CarryTcPlan* plan) {
+  switch (ps) {
+    case 8:
+      return carry_tc_candidate<TY, 8>(B, H, P, N, Q, stages, sms, plan);
+    case 16:
+      return carry_tc_candidate<TY, 16>(B, H, P, N, Q, stages, sms, plan);
+    case 32:
+      return carry_tc_candidate<TY, 32>(B, H, P, N, Q, stages, sms, plan);
+    case 64:
+      return carry_tc_candidate<TY, 64>(B, H, P, N, Q, stages, sms, plan);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The plan (tools/ssd_ab.py --plans at the models' shapes): each block
+// walks its groups' chunks one after another, so what a plan must do is
+// keep every SM busy with every group resident at once, and read rows in
+// long runs.  So: the widest slice (64, 32 or 16 columns; 8 where P is
+// not a multiple of 16) whose groups keep at least three quarters of the
+// SMs busy, at the deepest ring up to kCarryPlanStages with which every
+// group is resident at once (else the deepest that fits); where no slice
+// has that many groups, the narrowest.  plan->stages = 0 where nothing
+// fits (the shape then takes the CUDA-core kernel).
+template <typename TY>
+cudaError_t choose_carry_tc_plan(int B, int H, int P, int N, int Q, int sms,
+                                 CarryTcPlan* plan) {
+  *plan = CarryTcPlan{0, 0, 0, 0, 0};
+  const int slices[] = {64, 32, 16, 8};
+  for (int ps : slices) {
+    if ((ps == 8) != (P % 16 != 0)) continue;
+    const int64_t groups = (int64_t)B * H * (P / ps);
+    CarryTcPlan best{0, 0, 0, 0, 0};
+    for (int stages = kCarryPlanStages; stages >= 1; --stages) {
+      CarryTcPlan c;
+      const cudaError_t err =
+          carry_tc_candidate<TY>(ps, B, H, P, N, Q, stages, sms, &c);
+      if (err != cudaSuccess) return err;
+      if (c.stages == 0) continue;
+      if (best.stages == 0 || c.blocks == groups) best = c;
+      if (c.blocks == groups) break;   // every group resident at once
+    }
+    if (best.stages == 0) continue;
+    *plan = best;   // the narrowest so far
+    if (4 * groups >= 3 * (int64_t)sms) return cudaSuccess;
+  }
+  return cudaSuccess;
+}
+
+// The plan for this shape on the current device, chosen once per (device,
+// shape) and kept: a serving process launches the same few shapes.
+template <typename TY>
+cudaError_t carry_tc_plan(int B, int H, int P, int N, int Q,
+                          CarryTcPlan* plan) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::mutex lock;
+  static std::map<std::array<int, 6>, CarryTcPlan> plans;
+  const std::array<int, 6> key = {dev, B, H, P, N, Q};
+  std::lock_guard<std::mutex> hold(lock);
+  const auto it = plans.find(key);
+  if (it != plans.end()) {
+    *plan = it->second;
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = choose_carry_tc_plan<TY>(B, H, P, N, Q, sms, plan);
+  if (err == cudaSuccess) plans[key] = *plan;
+  return err;
 }
 
 template <typename TY, int PS>
+cudaError_t run_carry_tc(const CarryTcPlan& plan, const void* y_intra,
+                         const void* states, const void* cum, const void* cm,
+                         const void* init, void* y, void* final_state, int B,
+                         int L, int H, int P, int N, int Q,
+                         cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssd_carry_tc<TY, PS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)plan.smem);
+  if (err != cudaSuccess) return err;
+  ssd_carry_tc<TY, PS><<<plan.blocks, plan.threads, plan.smem, stream>>>(
+      static_cast<const float*>(y_intra), static_cast<const float*>(states),
+      static_cast<const float*>(cum), static_cast<const bf16*>(cm),
+      static_cast<const float*>(init), static_cast<TY*>(y),
+      static_cast<float*>(final_state), B, L, H, P, N, Q, plan.stages);
+  return cudaGetLastError();
+}
+
+template <typename TY>
 cudaError_t launch_carry_tc(const void* y_intra, const void* states,
                             const void* cum, const void* cm, const void* init,
                             void* y, void* final_state, int B, int L, int H,
                             int P, int N, int Q, cudaStream_t stream) {
-  const size_t smem = carry_tc_smem_bytes(N, Q, PS);
-  const auto kernel = Q <= kCarryTile ? ssd_carry_tc<TY, PS, true>
-                                      : ssd_carry_tc<TY, PS, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CarryTcPlan plan;
+  const cudaError_t err = carry_tc_plan<TY>(B, H, P, N, Q, &plan);
   if (err != cudaSuccess) return err;
-  dim3 grid(P / PS, H, B);
-  kernel<<<grid, (carry_tile(Q) / 16) * 32, smem, stream>>>(
-      static_cast<const float*>(y_intra), static_cast<const float*>(states),
-      static_cast<const float*>(cum), static_cast<const bf16*>(cm),
-      static_cast<const float*>(init), static_cast<TY*>(y),
-      static_cast<float*>(final_state), L, H, P, N, Q);
-  return cudaGetLastError();
+#define SSD_RUN_CARRY_TC(PS)                                                \
+  return run_carry_tc<TY, PS>(plan, y_intra, states, cum, cm, init, y,       \
+                              final_state, B, L, H, P, N, Q, stream)
+  if (plan.stages == 0) return cudaErrorInvalidValue;
+  if (plan.ps == 8) SSD_RUN_CARRY_TC(8);
+  if (plan.ps == 16) SSD_RUN_CARRY_TC(16);
+  if (plan.ps == 32) SSD_RUN_CARRY_TC(32);
+  SSD_RUN_CARRY_TC(64);
+#undef SSD_RUN_CARRY_TC
+}
+
+// Whether the tensor-core carry takes this shape: its smallest plan (a
+// one-stage ring at the narrowest slice) fits a block.
+bool carry_tc_fits(int N, int Q, int PS) {
+  return carry_tc_smem_bytes(N, Q, PS, 1) <= kMaxSmem &&
+         carry_tc_threads(N, Q, PS) <= kCarryTcMaxThreads;
 }
 
 template <typename TC, typename TY>
@@ -947,17 +1331,14 @@ cudaError_t launch_carry(const void* y_intra, const void* states,
                          const void* cum, const void* cm, const void* init,
                          void* y, void* final_state, int B, int L, int H,
                          int P, int N, int Q, cudaStream_t stream) {
-  // 16-column slices where P allows: every block reads all of C, so
-  // wider slices read C from L2 fewer times over.
+  // 16-column slices (the tensor-core kernel: 16 to 64, its plan's) where
+  // P allows: every block reads all of C, so wider slices read C from L2
+  // fewer times over.
   const bool wide = P % 16 == 0;
   if (sizeof(TC) == 2 && Q % 16 == 0 && N % 16 == 0 &&
-      carry_tc_smem_bytes(N, Q, wide ? 16 : 8) <= kMaxSmem) {
-    if (wide)
-      return launch_carry_tc<TY, 16>(y_intra, states, cum, cm, init, y,
-                                     final_state, B, L, H, P, N, Q, stream);
-    return launch_carry_tc<TY, 8>(y_intra, states, cum, cm, init, y,
-                                  final_state, B, L, H, P, N, Q, stream);
-  }
+      carry_tc_fits(N, Q, wide ? 16 : 8))
+    return launch_carry_tc<TY>(y_intra, states, cum, cm, init, y,
+                               final_state, B, L, H, P, N, Q, stream);
   if (wide)
     return launch_carry_ps<TC, TY, 16>(y_intra, states, cum, cm, init, y,
                                        final_state, B, L, H, P, N, Q, stream);
@@ -1028,13 +1409,38 @@ extern "C" int ssd_carry_launch(const void* y_intra, const void* states,
 // Dynamic shared memory (bytes) of a block at chunk Q, state size N and
 // head width P: the CUDA-core chunk kernel (which = 0), the carry on the
 // CUDA cores with fp32 C (1) or bf16 C (2), the carry on the tensor cores
-// (3), the carries at their 16-column slice; -1 for anything else.
+// at its smallest plan (3: a one-stage ring, the size that decides
+// whether it takes the shape), the carries at their 16-column slice; -1
+// for anything else.
 extern "C" int ssd_smem_bytes(int which, int Q, int N, int P) {
   if (Q < 1 || N < 1 || P < 1) return -1;
   if (which == 0)
     return (int)(smem_floats(Q, N, P) * sizeof(float));
   if (which == 1) return (int)carry_smem_bytes(N, Q, 16, 4);
   if (which == 2) return (int)carry_smem_bytes(N, Q, 16, 2);
-  if (which == 3) return (int)carry_tc_smem_bytes(N, Q, 16);
+  if (which == 3) return (int)carry_tc_smem_bytes(N, Q, 16, 1);
   return -1;
+}
+
+// The plan of the tensor-core carry for bf16 C at this shape, y in
+// y_dtype (0 = float32, 1 = bfloat16): out = {columns a slice, ring
+// stages, blocks, threads, shared-memory bytes}.  Returns 0, 1 where the
+// shape takes the CUDA-core kernel instead, or a CUDA error.
+extern "C" int ssd_carry_plan(int y_dtype, int B, int H, int P, int N, int Q,
+                              int* out) {
+  if (B < 1 || H < 1 || Q < 1 || Q > 256 || P % 8 || Q % 16 || N % 16 ||
+      !carry_tc_fits(N, Q, P % 16 == 0 ? 16 : 8))
+    return 1;
+  CarryTcPlan plan;
+  const cudaError_t err =
+      y_dtype == 0 ? carry_tc_plan<float>(B, H, P, N, Q, &plan)
+                   : carry_tc_plan<bf16>(B, H, P, N, Q, &plan);
+  if (err != cudaSuccess) return (int)err;
+  if (plan.stages == 0) return 1;
+  out[0] = plan.ps;
+  out[1] = plan.stages;
+  out[2] = plan.blocks;
+  out[3] = plan.threads;
+  out[4] = (int)plan.smem;
+  return 0;
 }

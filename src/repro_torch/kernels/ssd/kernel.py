@@ -50,6 +50,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_carry_launch.restype = ctypes.c_int
     lib.ssd_smem_bytes.argtypes = [I] * 4
     lib.ssd_smem_bytes.restype = ctypes.c_int
+    lib.ssd_carry_plan.argtypes = [I] * 6 + [P]
+    lib.ssd_carry_plan.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
@@ -111,6 +113,55 @@ def carry_smem_bytes(N: int, Q: int, c_dtype: torch.dtype) -> int:
     size = 2 if c_dtype == torch.bfloat16 else 4
     R = min(Q, CHUNK_ROWS)
     return 4 * (N * 16 + N * (R + R % 2)) + 2 * R * (N + 16 // size) * size
+
+
+# The tensor-core carry's rings and warps (kCarryTerms, kCarryPlanStages,
+# kTermSlots and kCarryTcMaxThreads in csrc/ssd.cu).
+CARRY_TERMS, CARRY_PLAN_STAGES = 3, 3
+CARRY_TERM_SLOTS, CARRY_TC_MAX_THREADS = 2, 640
+
+
+def carry_tc_smem_bytes(N: int, Q: int, ps: int = 16, stages: int = 1) -> int:
+    """Dynamic shared memory of one ``ssd_carry_tc`` block with slices of
+    ``ps`` columns and rings of ``stages`` (as ``carry_tc_smem_bytes`` in
+    ``csrc/ssd.cu``): the rings' mbarriers; per stage a chunk (the state
+    slice [N, ps + 4] fp32 and its last cum, 16 bytes); the
+    ``CARRY_TERM_SLOTS`` slots of h_prev's three bf16 terms [N, ps]; and per
+    MMA warp (one per 16 rows of R = min(Q, ``CHUNK_ROWS``)) per stage its
+    rows of C [16, N + 8] bf16, y_intra [16, ldy] and cum [16] fp32, ldy =
+    ``ps`` + 8 (8 at ``ps`` = 8).  The defaults are the smallest plan, the
+    size that decides whether the kernel takes a shape
+    (``ssd_smem_bytes(3, ...)``)."""
+    R = min(Q, CHUNK_ROWS)
+    ldy = 8 if ps == 8 else ps + 8
+    bars = ((2 * stages + 2 * CARRY_TERM_SLOTS) * 8 + 15) // 16 * 16
+    chunk = N * (ps + 4) * 4 + 16
+    terms = CARRY_TERM_SLOTS * CARRY_TERMS * N * ps * 2
+    mma_stage = 16 * (N + 8) * 2 + 16 * (ldy + 1) * 4
+    return bars + stages * chunk + terms + (R // 16) * stages * mma_stage
+
+
+def carry_tc_threads(N: int, Q: int, ps: int = 16) -> int:
+    """Threads of an ``ssd_carry_tc`` block: a producer warp, the chain
+    warps (each 32 values of h a lane: 64 // ``ps`` k16 steps of N, 4 at
+    ``ps`` = 8) and one MMA warp per 16 rows of a tile."""
+    kw = 4 if ps == 8 else 64 // ps
+    return 32 * (1 + -(-(N // 16) // kw) + min(Q, CHUNK_ROWS) // 16)
+
+
+def carry_plan(y_dtype: torch.dtype, B: int, H: int, P: int, N: int,
+               Q: int) -> Optional[dict]:
+    """The plan ``ssd_carry_tc`` launches with for bf16 C at this shape (on
+    the current card): columns a slice, ring stages, blocks, threads and
+    shared-memory bytes; None where the shape takes the CUDA-core
+    carry."""
+    out = (ctypes.c_int * 5)()
+    err = LIB.load().ssd_carry_plan(DTYPES[y_dtype], B, H, P, N, Q,
+                                    ctypes.addressof(out))
+    if err == 1:
+        return None
+    check_launch(err, "SSD carry plan")
+    return dict(zip(("ps", "stages", "blocks", "threads", "smem"), out))
 
 
 def _check_max_chunk(chunk: int, what: str) -> None:

@@ -1212,6 +1212,48 @@ def test_cuda_backward_kernels_match_plain(B, Lq, Lk, H, D, causal, dtype):
         assert torch.equal(g, a), name
 
 
+def _offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t``'s values in a contiguous view that starts ``offset`` elements
+    into a larger buffer (misaligned for 16-byte loads at offset 1)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [1, 33, 80, 96, 128, 200, 256])
+def test_cuda_preprocess_matches_plain_at_odd_dims_and_views(D, dtype,
+                                                            offset):
+    """``fa_bwd_preprocess`` against ``bwd_preprocess_ref`` within
+    1e-4·max(max|ref|, 1), at head dims that take its 16-byte pieces and
+    dims that do not, on aligned tensors and on views one element into a
+    larger buffer (which take its element-wise variant), with an odd
+    number of heads and query rows not a multiple of its block's; two
+    passes bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import kernel
+    tdt = DT[dtype][1]
+    rng = np.random.default_rng(D)
+    o, do = (_offset_view(torch.from_numpy(rng.normal(
+        size=(2, 37, 3, D)).astype(np.float32)).to(tdt).cuda(), offset)
+        for _ in range(2))
+    assert (o.data_ptr() % 16 == 0) == (offset == 0)
+    before = kernel.BWD_KERNEL_LAUNCHES["fa_bwd_preprocess"]
+    got = kernel.bwd_preprocess_cuda(o, do)
+    again = kernel.bwd_preprocess_cuda(o, do)
+    want = ref_mod.bwd_preprocess_ref(o, do)
+    torch.cuda.synchronize()
+    assert kernel.BWD_KERNEL_LAUNCHES["fa_bwd_preprocess"] == before + 2
+    assert got.shape == (2, 3, 37) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-4 * max(
+        float(want.abs().max()), 1.0)
+    assert torch.equal(got, again)
+
+
 # A train step's bf16 gradient bar (chip_smoke.py's TRAIN_GRAD_REL): the
 # kernels take D from the stored bf16 output, as FA2 does, which moves the
 # gradient by up to ~1% of its max against autograd of the plain version.

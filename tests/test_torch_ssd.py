@@ -369,7 +369,12 @@ def test_cuda_tensor_core_kernel_matches_plain(B, L, H, P, N, Q, terms):
                           (1, 512, 4, 64, 128, 256, "float32"),
                           (1, 300, 2, 32, 64, 100, "float32"),
                           (1, 160, 2, 64, 128, 80, "bfloat16"),
-                          (1, 50, 2, 16, 16, 50, "bfloat16")])
+                          (1, 50, 2, 16, 16, 50, "bfloat16"),
+                          # the tensor-core carry's 64-column slices
+                          # (256 groups, one a block) and its 8-column
+                          # slices (P = 40)
+                          (4, 512, 64, 64, 64, 64, "bfloat16"),
+                          (1, 128, 4, 40, 32, 32, "bfloat16")])
 def test_cuda_carry_kernel_matches_plain(B, L, H, P, N, Q, dtype,
                                          with_init):
     """The carry kernel against ``ssd_combine``: y in fp32 and the final
@@ -377,6 +382,29 @@ def test_cuda_carry_kernel_matches_plain(B, L, H, P, N, Q, dtype,
     the fp32 plain value."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _hold_carry(B, L, H, P, N, Q, dtype, with_init)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+def test_cuda_carry_blocks_walk_several_groups(with_init):
+    """zamba2-1.2b's heads at 8 x 256 tokens: 512 groups of 64 columns,
+    more than the SMs hold at once, so the persistent grid's blocks each
+    walk a second group (rings running on across the group boundary, h
+    or the initial state loaded again, a second final state written); held
+    as in ``test_cuda_carry_kernel_matches_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.ssd.kernel import carry_plan
+    B, L, H, P, N, Q = 8, 256, 64, 64, 64, 64
+    plan = carry_plan(torch.bfloat16, B, H, P, N, Q)
+    assert plan["blocks"] < B * H * (P // plan["ps"]), plan
+    _hold_carry(B, L, H, P, N, Q, "bfloat16", with_init)
+
+
+def _hold_carry(B, L, H, P, N, Q, dtype, with_init):
+    """The carry kernel against ``ssd_combine`` at one shape (the bars of
+    ``test_cuda_carry_kernel_matches_plain``)."""
     from repro_torch.kernels.ssd.kernel import ssd_carry_cuda
     x, dt, A, Bm, Cm = _cuda_inputs(B, L, H, P, N, Q, dtype)
     cum = chunk_cumsum(dt, A, Q)
@@ -531,6 +559,64 @@ def test_tiles_fit_shared_memory_at_every_chunk():
     # At Q <= 64 the kernel is one block, with the first port's tiles.
     assert smem_bytes(64, 128, 64) == 4 * (64 * 64 + 2 * 64 * 129
                                            + 64 * 65 + 3 * 64)
+
+
+@pytest.mark.parametrize("N", [16, 64, 128, 256])
+def test_tensor_core_carry_fits_shared_memory_at_every_chunk(N):
+    """At every chunk from 1 to 256 rows that ``fwd_kernels`` sends to
+    ``ssd_carry_tc`` (bf16 C, Q a multiple of 16), the kernel's smallest
+    plan (one head a block, a one-stage ring) fits a block's shared memory
+    and thread limit at both slice widths, so that no chunk the first
+    design took falls to the CUDA cores; and the plans the models' shapes
+    take fit too."""
+    from repro_torch.kernels.ssd.kernel import (CARRY_PLAN_STAGES,
+                                                CARRY_TC_MAX_THREADS,
+                                                MAX_SMEM_BYTES,
+                                                carry_tc_smem_bytes,
+                                                carry_tc_threads,
+                                                fwd_kernels)
+    taken = []
+    for Q in range(1, 257):
+        if fwd_kernels(torch.bfloat16, Q, 64, N)[1] != "ssd_carry_tc":
+            assert Q % 16
+            continue
+        taken.append(Q)
+        for ps in (16, 8):
+            assert carry_tc_smem_bytes(N, Q, ps) <= MAX_SMEM_BYTES
+            assert carry_tc_threads(N, Q, ps) <= CARRY_TC_MAX_THREADS
+    assert taken == list(range(16, 257, 16))
+    # At chunk 64 the plan's deepest ring fits at 16-column slices at every
+    # N, and at the models' widths (N <= 128) a 32-column slice with a
+    # one-stage ring does.
+    assert carry_tc_smem_bytes(N, 64, 16, CARRY_PLAN_STAGES) <= MAX_SMEM_BYTES
+    if N <= 128:
+        assert carry_tc_smem_bytes(N, 64, 32, 1) <= MAX_SMEM_BYTES
+        assert carry_tc_threads(N, 64, 32) <= CARRY_TC_MAX_THREADS
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_carry_shared_memory_equals_mirror():
+    """The library's ``ssd_smem_bytes(3, ...)`` equals
+    ``kernel.carry_tc_smem_bytes`` at every chunk the tensor-core carry
+    takes, N in (16, 64, 128, 256); at the models' shapes the plan it
+    launches with has the mirror's shared memory and threads at its heads
+    and stages, and no more blocks than groups."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sizes come from the library")
+    from repro_torch.kernels.ssd import kernel
+    size = kernel.LIB.load().ssd_smem_bytes
+    for N in (16, 64, 128, 256):
+        for Q in range(16, 257, 16):
+            assert size(3, Q, N, 64) == kernel.carry_tc_smem_bytes(N, Q)
+    for B, L, H, P, N, Q in ((1, 32768, 64, 64, 64, 64),
+                             (4, 2048, 64, 64, 64, 64),
+                             (2, 4096, 48, 64, 128, 64)):
+        plan = kernel.carry_plan(torch.bfloat16, B, H, P, N, Q)
+        assert plan["smem"] == kernel.carry_tc_smem_bytes(
+            N, Q, plan["ps"], plan["stages"]) <= kernel.MAX_SMEM_BYTES
+        assert plan["threads"] == kernel.carry_tc_threads(N, Q, plan["ps"])
+        assert 1 <= plan["blocks"] <= B * H * (P // plan["ps"])
+    assert kernel.carry_plan(torch.bfloat16, 1, 2, 64, 64, 50) is None
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """Time the fp32 flash-attention kernels against an older build of their
 sources, in turns, on one card: the forward (``--mode fwd``) and the
-backward's dK/dV and dQ kernels (``--mode bwd``; both by default).
+backward's dK/dV and dQ kernels (``--mode bwd``; both by default); or the
+backward's preprocess, either dtype (``--mode pre``).
 
-``python tools/fa_ab.py --old DIR [--mode fwd|bwd|both] [--ceilings]``
+``python tools/fa_ab.py --old DIR [--mode fwd|bwd|both|pre] [--ceilings]``
 
 ``DIR`` holds another version's ``flash_attention.cu``,
 ``flash_attention_bwd.cu`` and the headers they include (``fa_hopper.cuh``,
@@ -26,6 +27,12 @@ CUDA card.
   ``BWD_SHAPES`` (q, k, v, dO normal; o and lse from the new forward, D
   from the preprocess kernel); each version's worst |Δ| over the fp32
   bar 1e-4·max(max|ref|, 1) against ``attention_bwd_ref``.
+
+* Preprocess: ``fa_bwd_preprocess_launch`` at ``PRE_SHAPES`` (o and dO
+  normal, bf16 and fp32), with each version's worst |Δ| over
+  1e-4·max(max|ref|, 1) against ``bwd_preprocess_ref``, whether the two
+  agree bit for bit, and each one's share of the byte bound (o and dO
+  read, D written once, at 3.35 TB/s).
 
 ``--ceilings`` (backward) also times, at the first shape and in turns
 with the new build, variants made from the new ``fa_tf32.cuh``'s text,
@@ -56,7 +63,7 @@ from ab_common import card, ms  # noqa: E402
 from repro_torch.kernels.build import CudaLibrary  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_bwd_ref, attention_lse_ref, attention_ref)
+    attention_bwd_ref, attention_lse_ref, attention_ref, bwd_preprocess_ref)
 
 # [B, L, H, D], causal: hubert-xlarge's fp32 attention (non-causal), then
 # phase 11 (b)'s fp32 llama3-8b attention and phase 11 (a)'s shape.
@@ -65,6 +72,13 @@ FWD_SHAPES = (((4, 2048, 16, 80), False), ((1, 2048, 32, 128), True),
 FWD_BAR = 2e-5
 BWD_SHAPES = (((1, 2048, 32, 128), True), ((2, 4096, 32, 128), True))
 BAR = 1e-4
+# [B, L, H, D], dtype: phase 11 (a)'s step, (b)'s fp32 llama3-8b step and
+# phase 14's two head dims, each launching the preprocess once a layer.
+PRE_SHAPES = (((2, 4096, 32, 128), torch.bfloat16),
+              ((1, 2048, 32, 128), torch.float32),
+              ((2, 4096, 32, 96), torch.bfloat16),
+              ((2, 4096, 16, 256), torch.bfloat16))
+HBM_BYTES_PER_S = 3.35e12
 HEADERS = ("fa_hopper.cuh", "fa_tf32.cuh")
 
 # The --ceilings variants: (name, text in the source, its replacement).
@@ -310,10 +324,56 @@ def bwd_mode(old_dir: Path, ceilings: bool) -> None:
         torch.cuda.empty_cache()
 
 
+def pre_mode(old_dir: Path) -> None:
+    """The preprocess, old against new, at PRE_SHAPES."""
+    new_lib = fa.LIB_BWD
+    old_lib = old_library("flash_attention_bwd_old",
+                          old_dir / "flash_attention_bwd.cu", fa._bind_bwd)
+    report_build("new", new_lib, r"fa_bwd_preprocess")
+    report_build("old", old_lib, r"fa_bwd_preprocess")
+    libs = {"old": old_lib.load(), "new": new_lib.load()}
+    stream = torch.cuda.current_stream().cuda_stream
+    for (B, L, H, D), dtype in PRE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(B * L + D)
+        o, do = (torch.randn((B, L, H, D), generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        want = bwd_preprocess_ref(o, do)
+        outs = {tag: torch.empty((B, H, L), device="cuda") for tag in libs}
+
+        def call(tag):
+            return lambda: libs[tag].fa_bwd_preprocess_launch(
+                o.data_ptr(), do.data_ptr(), outs[tag].data_ptr(),
+                fa.DTYPES[dtype], B, H, L, D, stream)
+
+        for tag in libs:
+            if call(tag)() != 0:
+                raise RuntimeError(f"{tag}: launch failed")
+        torch.cuda.synchronize()
+        name = f"[B,H,L,D]={[B, H, L, D]} {str(dtype)[6:]} preprocess"
+        for tag, got in outs.items():
+            r = float((got - want).abs().max()) / (
+                BAR * max(float(want.abs().max()), 1.0))
+            print(f"{name} {tag}: worst |Δ|/bar {r:.4g}", flush=True)
+            if not r <= 1.0:
+                raise AssertionError(f"{tag} misses the bar")
+        t = (ms(call("old")), ms(call("new")), ms(call("new")),
+             ms(call("old")))
+        nbytes = 2 * B * L * H * D * o.element_size() + B * H * L * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"{name}: old, new, new, old ms a launch "
+              f"{', '.join(f'{x:.5f}' for x in t)}; new / old "
+              f"{(t[1] + t[2]) / (t[0] + t[3]):.4f}; byte bound "
+              f"{bound:.6f}, share old {2 * bound / (t[0] + t[3]):.3f} new "
+              f"{2 * bound / (t[1] + t[2]):.3f}; bitwise "
+              f"{torch.equal(outs['old'], outs['new'])}", flush=True)
+        del o, do, want, outs
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True, type=Path)
-    ap.add_argument("--mode", choices=("fwd", "bwd", "both"),
+    ap.add_argument("--mode", choices=("fwd", "bwd", "both", "pre"),
                     default="both")
     ap.add_argument("--ceilings", action="store_true")
     args = ap.parse_args()
@@ -327,6 +387,8 @@ def main() -> int:
         fwd_mode(old_dir)
     if args.mode in ("bwd", "both"):
         bwd_mode(old_dir, args.ceilings)
+    if args.mode == "pre":
+        pre_mode(old_dir)
     return 0
 
 

@@ -1,7 +1,7 @@
-"""Time the SSD's CUDA-core kernels against an older build of their
-sources, in turns, on one card.
+"""Time the SSD's kernels against an older build of their sources, in
+turns, on one card: the CUDA-core chunk kernel and backward, and the carry.
 
-``python tools/ssd_ab.py --old DIR``
+``python tools/ssd_ab.py --old DIR [--plans]``
 
 ``DIR`` holds another version's ``ssd.cu``, ``ssd_bwd.cu`` and
 ``ssd_mma.cuh`` (for example ``src/repro_torch/kernels/ssd/csrc/`` of a
@@ -9,15 +9,29 @@ sources, in turns, on one card.
 ``kernels/build.py`` and called at chunk 64 (the chunk both take) on the
 same inputs, each through its library's C entry point into outputs made
 beforehand (no Python wrapper's checks or allocations inside the timed
-window): the CUDA-core chunk kernel (``terms`` 0), the carry, and for
-fp32 the CUDA-core chunk backward.  Each is timed old, new, new, old:
+window): the CUDA-core chunk kernel (``terms`` 0), the carry (bf16:
+``ssd_carry_tc``, whose plan the new build prints), and for fp32 the
+CUDA-core chunk backward.  Each is timed old, new, new, old:
 the median over 15 windows of ``BURST`` launches back to back, per
 launch (CUDA events), so that the card never waits on the host between
 launches.  Also prints whether the two agree bit for bit (the backward:
-max |Δ| per output), each library's registers and spills per kernel
+max |Δ| per output, and whether every output is equal bit for bit),
+each library's registers and spills per kernel
 from ``-Xptxas -v``, and, where ``cuobjdump`` is on the path, each
-kernel's SASS instruction count.  Prints the card's name and power limit
-first.  Needs a CUDA card.
+kernel's SASS instruction count.  For the carry it also prints the host
+time of one call to each build's C entry point (old, new, new, old:
+the median over 9 windows of ``HOST_CALLS`` calls, perf_counter, the
+card's queue never full), which holds the new build's plan lookup.
+Prints the card's name and power limit first.  Needs a CUDA card.
+
+``--plans`` also times the new ``ssd_carry_tc`` at each bf16 shape under
+every plan it can take (slices of 8, 16, 32 and 64 columns, rings of 1
+to 3 stages), with the chosen plan timed before and after, and says
+whether each gives the new build's outputs bit for bit.  The plans are
+forced through a variant of the new ``ssd.cu``, written under the
+kernels' git-ignored build directory, to which ``FORCE_PLAN`` adds an
+entry point ``ssd_carry_force_plan(ps, stages)`` (ps 0: the chosen plan
+again); the library the program loads has no such entry point.
 """
 from __future__ import annotations
 
@@ -25,8 +39,10 @@ import argparse
 import ctypes
 import re
 import shutil
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -40,17 +56,82 @@ from repro_torch.kernels.ssd.ref import (chunk_cumsum,  # noqa: E402
                                          ssd_carry_bwd_ref)
 
 # (B, L, H, P, N, Q), dtype: mamba2-780m's heads at 2 x 4096 in fp32 (the
-# CUDA-core kernels' dtype), then zamba2-1.2b's and mamba2-780m's serving
-# shapes in bf16 forced onto the CUDA-core chunk kernel.
+# CUDA-core kernels' dtype), then in bf16 zamba2-1.2b's 4 x 2048 prefill,
+# mamba2-780m's 2 x 4096 training step and zamba2-1.2b's 32,768-token
+# prompt: the chunk pass forced onto the CUDA-core kernel, the carry on
+# ssd_carry_tc (bf16 C).
 SHAPES = (((2, 4096, 48, 64, 128, 64), torch.float32),
           ((4, 2048, 64, 64, 64, 64), torch.bfloat16),
-          ((2, 4096, 48, 64, 128, 64), torch.bfloat16))
+          ((2, 4096, 48, 64, 128, 64), torch.bfloat16),
+          ((1, 32768, 64, 64, 64, 64), torch.bfloat16))
+
+
+HOST_CALLS = 100
+
+# The --plans variant: a forced plan, read by carry_tc_plan before its
+# cache, and the entry point that sets it.
+PLAN_HEAD = """template <typename TY>
+cudaError_t carry_tc_plan(int B, int H, int P, int N, int Q,
+                          CarryTcPlan* plan) {
+"""
+FORCE_PLAN = (PLAN_HEAD, "int g_force_ps = 0, g_force_stages = 0;\n\n"
+              + PLAN_HEAD + """  if (g_force_ps) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return carry_tc_candidate<TY>(g_force_ps, B, H, P, N, Q, g_force_stages,
+                                  sms, plan);
+  }
+""")
+FORCE_ENTRY = """
+extern "C" int ssd_carry_force_plan(int ps, int stages) {
+  if (ps != 0 && ((ps != 8 && ps != 16 && ps != 32 && ps != 64) ||
+                  stages < 1 || stages > kCarryPlanStages))
+    return (int)cudaErrorInvalidValue;
+  g_force_ps = ps;
+  g_force_stages = stages;
+  return 0;
+}
+"""
 
 
 def bind(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ssd_chunk_launch.argtypes = [P] * 7 + [I] * 8 + [P]
     lib.ssd_carry_launch.argtypes = [P] * 7 + [I] * 8 + [P]
+
+
+def bind_plans(lib):
+    bind(lib)
+    lib.ssd_carry_force_plan.argtypes = [ctypes.c_int] * 2
+
+
+def plans_lib():
+    """The new ssd.cu with FORCE_PLAN and FORCE_ENTRY, built."""
+    src = (sk.CSRC / "ssd.cu").read_text()
+    if src.count(FORCE_PLAN[0]) != 1:
+        raise SystemExit("--plans: ssd.cu no longer holds carry_tc_plan's "
+                         "head as FORCE_PLAN expects it")
+    d = sk.LIB.build_root / "variants" / "carry_plans"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "ssd.cu").write_text(src.replace(*FORCE_PLAN) + FORCE_ENTRY)
+    (d / "ssd_mma.cuh").write_text((sk.CSRC / "ssd_mma.cuh").read_text())
+    return CudaLibrary("ssd_plans", d / "ssd.cu", (), bind_plans,
+                       headers=(d / "ssd_mma.cuh",)).load()
+
+
+def host_us(fn, reps=9):
+    """Median host µs a call over ``reps`` windows of HOST_CALLS calls."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        times.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def bind_bwd(lib):
@@ -87,10 +168,31 @@ def report_builds(tag, libs) -> None:
                   f"{r[2]}, SASS instructions {sass.get(name)}", flush=True)
 
 
+def time_plans(lib, call, out, want, shape) -> None:
+    """The plans variant ``lib`` (``call`` writing ``out``) under every plan
+    it takes at this shape, between two timings of its chosen plan;
+    bitwise against the new build's y and final state ``want``."""
+    chosen = ms(call)
+    for ps in (8, 16, 32, 64):
+        for stages in (1, 2, 3):
+            if lib.ssd_carry_force_plan(ps, stages) != 0 or call() != 0:
+                continue
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(out, want))
+            print(f"{list(shape)} carry plan ps {ps} stages {stages}: "
+                  f"{ms(call):.5f} ms a launch; bitwise the new build's "
+                  f"{same}", flush=True)
+    lib.ssd_carry_force_plan(0, 0)
+    print(f"{list(shape)} carry, chosen plan: {chosen:.5f} then "
+          f"{ms(call):.5f} ms a launch", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True, type=Path)
-    old_dir = ap.parse_args().old.resolve()
+    ap.add_argument("--plans", action="store_true")
+    args = ap.parse_args()
+    old_dir = args.old.resolve()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     print(card(), flush=True)
@@ -104,6 +206,7 @@ def main() -> int:
     report_builds("old", old_libs)
     report_builds("new", (sk.LIB, sk.LIB_BWD))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = plans_lib() if args.plans else None
     for shape, dtype in SHAPES:
         B, L, H, P, N, Q = shape
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -169,13 +272,29 @@ def main() -> int:
         same = {name: [float((a.float() - b.float()).abs().max())
                        for a, b in zip(o["old"], o["new"])]
                 for name, o in outs.items()}
+        bitwise = {name: all(torch.equal(a, b)
+                             for a, b in zip(o["old"], o["new"]))
+                   for name, o in outs.items()}
         pairs = {name: (c["old"], c["new"]) for name, c in calls.items()}
         for name, (fo, fn) in pairs.items():
             t = (ms(fo), ms(fn), ms(fn), ms(fo))
             print(f"{list(shape)} {str(dtype)[6:]} {name}: old, new, new, "
                   f"old ms a launch {', '.join(f'{v:.5f}' for v in t)}; "
                   f"new / old {(t[1] + t[2]) / (t[0] + t[3]):.4f}; max|Δ| "
-                  f"per output {same[name]}", flush=True)
+                  f"per output {same[name]}; bitwise {bitwise[name]}",
+                  flush=True)
+        fo, fn = calls["carry"]["old"], calls["carry"]["new"]
+        t = (host_us(fo), host_us(fn), host_us(fn), host_us(fo))
+        print(f"{list(shape)} {str(dtype)[6:]} carry: host µs a call to "
+              f"ssd_carry_launch, old, new, new, old "
+              f"{', '.join(f'{v:.3f}' for v in t)}", flush=True)
+        if dtype == torch.bfloat16:
+            print(f"{list(shape)} new carry's plan: "
+                  f"{sk.carry_plan(dtype, B, H, P, N, Q)}", flush=True)
+            if args.plans:
+                out = empty((B, L, H, P), dtype=dtype) + empty((B, H, N, P))
+                time_plans(plans, carry(plans, out), out, carry_out["new"],
+                           shape)
     return 0
 
 

@@ -8,7 +8,8 @@ process, on ``DIR/src``, then this checkout's ``src``, this one's again,
 then ``DIR/src`` (old, new, new, old), each building its own kernels.  A
 child measures, with seeded weights and synchronised host clocks:
 
-* zamba2-1.2b served at full width: prefill of 4 x 2048 tokens;
+* zamba2-1.2b served at full width: prefill of 4 x 2048 tokens, and of
+  one 32,768-token prompt;
 * mamba2-780m served at full width and depth: prefill of 4 x 2048;
 * mamba2-780m trained at full width and depth (48 layers), bf16 compute,
   remat "dots", 2 x 4096 tokens a step (``data.pipeline.batch_at``).
@@ -32,16 +33,16 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PROMPT = (4, 2048)
+PROMPT, LONG_PROMPT = (4, 2048), (1, 32768)
 TRAIN = ("mamba2-780m", 2, 4096)
 
 
-def prefill_times(torch, arch: str, reps: int) -> list:
+def prefill_times(torch, arch: str, reps: int, prompt=PROMPT) -> list:
     from repro_torch.models import build
     from repro_torch.serve.serve_step import build_prefill
     model = build(arch, device="cuda")
     params = model.init(0)
-    B, L = PROMPT
+    B, L = prompt
     prefill = build_prefill(model, "prefill_32k", device=model.device,
                             max_seq=L)
     gen = torch.Generator().manual_seed(L)
@@ -91,6 +92,8 @@ def step_times(torch, reps: int) -> list:
 def child(reps: int, steps: int) -> int:
     import torch
     out = {"zamba2-1.2b prefill": prefill_times(torch, "zamba2-1.2b", reps),
+           "zamba2-1.2b 32k prefill": prefill_times(torch, "zamba2-1.2b",
+                                                    reps, LONG_PROMPT),
            "mamba2-780m prefill": prefill_times(torch, "mamba2-780m", reps),
            "mamba2-780m step": step_times(torch, steps)}
     print(json.dumps(out), flush=True)
