@@ -76,12 +76,21 @@ Phases (each raises on failure, so the script exits non-zero):
    for bit, timed through its C entry point with the plan it launches
    (slice width, ring stages, blocks, shared memory equal to
    ``kernel.py``'s mirror), its share of the byte
-   bound and its builds' registers and spills; the SSD
+   bound and its builds' registers and spills; the fp32 chunk pass at
+   ``SSD_TF32_SHAPES`` (Q = P = 64: the sweep's N = 128 shape, (b)'s
+   fp32 step's [1, 2048, 48, 64, 128, 64] and the two training shapes at
+   2 x 4096): ``ssd_chunk_tf32`` (TF32 ``mma.sync``, three products a
+   product; no spill) and the CUDA-core ``ssd_chunk_kernel`` on the same
+   inputs against ``ssd_chunks_ref``, both timed through the C entry
+   point in turns, and the fp32 carry ``ssd_carry_kernel``; the SSD
    backward (``ssd_bwd.cu``:
-   for bf16 at Q = P = 64, N in {64, 128} the tensor-core
-   ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, whose registers,
-   dynamic shared memory and spills from ``-Xptxas -v`` are printed and
-   must show no spill; for fp32 and every other shape the CUDA-core
+   at Q = P = 64, N in {64, 128} for bf16 the tensor-core
+   ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, for fp32 the CUDA-core
+   ``ssd_carry_bwd`` and the tensor-core ``ssd_chunk_bwd_tf32``, the
+   tensor-core kernels' registers, dynamic shared memory and spills from
+   ``-Xptxas -v`` printed and showing no spill, ``ssd_chunk_bwd_tf32``
+   timed in turns with ``ssd_chunk_bwd`` through the C entry point at
+   the fp32 training shapes; for every other shape the CUDA-core
    ``ssd_carry_bwd`` and ``ssd_chunk_bwd``; and the whole backward of
    the op ``repro_torch::ssd_fwd``) against ``ssd_carry_bwd_ref``,
    ``ssd_chunk_bwd_ref`` and ``ssd_bwd_ref`` at the reference sweep's
@@ -165,10 +174,13 @@ Phases (each raises on failure, so the script exits non-zero):
    against the same step with the plain attention and ``ssd_ref``, their
    SSD launches (forward chunk and carry, backward passes (each one
    chunk-state launch), ``ssd_carry_bwd_tc``, ``ssd_chunk_bwd_tc``: one
-   each per layer) and FA launches checked, and mamba2-780m again with
-   fp32 compute, which takes ``ssd_carry_bwd`` and ``ssd_chunk_bwd``,
-   and on a 2 x 50 batch (bf16, chunk min(64, L) = 50: the CUDA-core
-   forward and backward kernels, named in the log); (c) ``FaultyTrainer``
+   each per layer; each forward kernel by name) and FA launches checked,
+   and mamba2-780m again with fp32 compute, which takes
+   ``ssd_chunk_tf32``, ``ssd_carry_kernel``, ``ssd_carry_bwd`` and
+   ``ssd_chunk_bwd_tf32`` (its step also timed in turns with the same
+   step sent to the SSD's CUDA-core kernels), and on a 2 x 50 batch
+   (bf16, chunk min(64, L) = 50: the CUDA-core forward and backward
+   kernels, named in the log); (c) ``FaultyTrainer``
    (fail_prob 0.25, seed 1) over 15 steps of llama3-8b smoke on the card
    and on the CPU: same restarts, failed steps and history, losses
    within 2e-2, the card's last checkpoint restored on the CPU bit for
@@ -887,18 +899,25 @@ def fa_mma_floor(B, L, H, D, causal, dtype):
     return 6 * cols * pairs / TF32_OPS_PER_S * 1e3
 
 
-def ssd_bound(B, L, H, P, N, Q, dtype):
+# fp32 products on the tensor cores (ssd_chunk_tf32, ssd_chunk_bwd_tf32,
+# the fp32 flash-attention kernels): three TF32 products a product.
+TF32_X3_OPS_PER_S = TF32_OPS_PER_S / 3
+
+
+def ssd_bound(B, L, H, P, N, Q, dtype, ops_per_s=None):
     """What the chunk pass needs, as ``ssd_bwd_bounds`` counts it: per
     (b, h, chunk) W·x over the lower triangle, Q(Q+1)·P flops, and the
     chunk state Bᵀ·(x ∘ dec_end), 2QNP; per (b, chunk) C·Bᵀ over the lower
     triangle, Q(Q+1)·N (B and C have no head axis).  Bytes: x, dt, cum, y
-    and the chunk states per head, B and C once per (b, chunk)."""
+    and the chunk states per head, B and C once per (b, chunk).  Flops at
+    ``ops_per_s`` (default the dtype's peak: the CUDA cores for fp32;
+    ``ssd_chunk_tf32`` is priced at TF32_X3_OPS_PER_S)."""
     nc = L // Q
     flops = B * nc * (H * (Q * (Q + 1) * P + 2 * Q * N * P)
                       + Q * (Q + 1) * N)
     nbytes = (B * L * H * P * (esize(dtype) + 4) + 2 * B * L * H * 4
               + 2 * B * L * N * esize(dtype) + B * nc * H * N * P * 4)
-    return bound(flops, nbytes, dtype)
+    return bound(flops, nbytes, dtype, ops_per_s)
 
 
 def timed_ms(torch, fn, budget_s: float = 0.3, max_reps: int = 25) -> float:
@@ -1550,6 +1569,134 @@ def carry_row(torch, shape, yi, st, cum, Cb, h0, hold) -> dict:
                 bound_share=bms / ms)
 
 
+# fp32 at the fp32 tensor-core kernels' shapes (Q = P = 64, N 128 and 64):
+# the reference sweep's, phase 11 (b)'s fp32 mamba2-780m step (1 x 2048,
+# where a main path launches them), and mamba2-780m's and zamba2-1.2b's
+# heads at 2 x 4096.
+SSD_TF32_SHAPES = [SSD_SWEEP[1], (1, 2048, 48, 64, 128, 64),
+                   (2, 4096, 48, 64, 128, 64), (2, 4096, 64, 64, 64, 64)]
+
+
+def ssd_tf32_rows(torch) -> dict:
+    """Phase 6's fp32 forward at SSD_TF32_SHAPES: ``ssd_chunk_tf32`` and
+    the CUDA-core ``ssd_chunk_kernel`` (``terms=0``) on the same inputs
+    against ``ssd_chunks_ref``, each output within
+    SSD_REL·max(max|ref|, 1) (the sweep's 1e-4 where max|ref| < 1), the
+    new kernel's second pass bitwise; both timed through the C entry point
+    in turns (new, CUDA cores, CUDA cores, new), the new one also through
+    its wrapper, the plain version once; the fp32 carry
+    (``ssd_carry_kernel``) held against ``ssd_carry_ref`` and timed the
+    same way; each beside its bound, the new kernel's products priced at
+    TF32_X3_OPS_PER_S, the CUDA-core kernels' at the fp32 CUDA-core rate.
+    Also the heads a block and shared memory the library launches with
+    (equal to kernel.py's mirrors)."""
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_carry_ref,
+                                             ssd_chunks_ref)
+    lib = sk.LIB.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, worst = {}, {"ssd_chunk_tf32": 0.0, "ssd_chunk_kernel": 0.0,
+                       "ssd_carry_kernel": 0.0}
+
+    def held(shape, name, got, want):
+        err, scale = max_err(torch, got, want), float(want.abs().max())
+        if not err <= SSD_REL * max(scale, 1.0):
+            raise AssertionError(f"ssd {shape} {name}: max|Δ| {err} > "
+                                 f"{SSD_REL} * max({scale}, 1)")
+        return err / (SSD_REL * max(scale, 1.0)), err
+
+    for i, shape in enumerate(SSD_TF32_SHAPES):
+        B, L, H, P, N, Q = shape
+        x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 380 + i)
+        cum = chunk_cumsum(dt, A, Q)
+        want = tuple(t.contiguous()
+                     for t in ssd_chunks_ref(x, dt, cum, Bm, Cm, Q))
+        got = sk.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+        again = sk.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+        core = sk.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q, terms=0)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"ssd_chunk_tf32 {shape}: two passes "
+                                 f"differ")
+        ratio = {}
+        for name, out in (("ssd_chunk_tf32", got),
+                          ("ssd_chunk_kernel", core)):
+            r = [held(shape, f"{name} {what}", o, w) for what, o, w in
+                 zip(("y_intra", "chunk states"), out, want)]
+            ratio[name] = max(v for v, _ in r)
+            worst[name] = max(worst[name], *(e for _, e in r))
+        del again, core
+        yi, st = want
+        cy, cf = sk.ssd_carry_cuda(yi, st, cum, Cm, Q)
+        wy, wf = ssd_carry_ref(yi, st, cum, Cm, Q)
+        r = [held(shape, f"ssd_carry_kernel {what}", o, w) for what, o, w in
+             (("y", cy, wy), ("final state", cf, wf))]
+        ratio["ssd_carry_kernel"] = max(v for v, _ in r)
+        worst["ssd_carry_kernel"] = max(worst["ssd_carry_kernel"],
+                                        *(e for _, e in r))
+        del wy, wf
+        y, states = got
+        code = sk.DTYPES[torch.float32]
+
+        def chunk_call(terms):
+            return lambda: lib.ssd_chunk_launch(
+                x.data_ptr(), dt.data_ptr(), cum.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), y.data_ptr(), states.data_ptr(), code, B, L,
+                H, P, N, Q, terms, stream)
+        new, old = chunk_call(sk.TF32_TERMS), chunk_call(0)
+        t = (burst_ms(torch, new), burst_ms(torch, old), burst_ms(torch, old),
+             burst_ms(torch, new))
+        carry_ms = burst_ms(torch, lambda: lib.ssd_carry_launch(
+            yi.data_ptr(), st.data_ptr(), cum.data_ptr(), Cm.data_ptr(),
+            None, cy.data_ptr(), cf.data_ptr(), code, code, B, L, H, P, N, Q,
+            stream))
+        wrapper = timed_ms(torch, lambda: sk.ssd_chunks_cuda(x, dt, cum, Bm,
+                                                             Cm, Q))
+        plain = timed_ms(torch, lambda: ssd_chunks_ref(x, dt, cum, Bm, Cm,
+                                                       Q), 0.2)
+        carry_plain = timed_ms(torch, lambda: ssd_carry_ref(yi, st, cum, Cm,
+                                                            Q), 0.2)
+        G = lib.ssd_chunk_tf32_heads(B, L, H)
+        smem = lib.ssd_chunk_tf32_smem_bytes(N, G)
+        if G != sk.chunk_tf32_heads(B * L // Q, H, sms) or \
+                smem != sk.chunk_tf32_smem_bytes(N, G):
+            raise AssertionError(f"ssd_chunk_tf32 {shape}: the library "
+                                 f"takes {G} heads a block and {smem} "
+                                 f"bytes, kernel.py's mirrors disagree")
+        bms, bby = ssd_bound(*shape, "float32", TF32_X3_OPS_PER_S)
+        cbms, cbby = ssd_bound(*shape, "float32")
+        kbms, kbby = carry_bound(*shape, "float32")
+        rows[shape] = dict(
+            entry_ms=(t[0] + t[3]) / 2, core_entry_ms=(t[1] + t[2]) / 2,
+            turns=list(t), ms=wrapper, plain_ms=plain, bound_ms=bms,
+            bound_by=bby, core_bound_ms=cbms, core_bound_by=cbby,
+            carry_ms=carry_ms, carry_plain_ms=carry_plain,
+            carry_bound_ms=kbms, carry_bound_by=kbby, heads_per_block=G,
+            smem=smem, ratio=ratio)
+        log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} float32 forward: "
+            f"ssd_chunk_tf32 / ssd_chunk_kernel through ssd_chunk_launch, "
+            f"in turns (new, CUDA cores, CUDA cores, new), ms a launch "
+            + ", ".join(f"{v:.5f}" for v in t)
+            + f" (new / CUDA cores {(t[0] + t[3]) / (t[1] + t[2]):.4f}); "
+            f"ssd_chunk_tf32 bound {bms:.6f} ({bby}, 3×TF32), "
+            f"{bms / rows[shape]['entry_ms']:.3f} of it; ssd_chunk_kernel "
+            f"bound {cbms:.6f} ({cbby}); wrapper {wrapper:.5f}, plain "
+            f"{plain:.5f}; {G} heads a block, {smem:,} bytes of shared "
+            f"memory; ssd_carry_kernel (fp32 C) {carry_ms:.5f} through "
+            f"ssd_carry_launch, plain {carry_plain:.5f}, bound {kbms:.6f} "
+            f"({kbby}); worst max|Δ|/bar "
+            + ", ".join(f"{k} {v:.4g}" for k, v in ratio.items())
+            + "; ssd_chunk_tf32's two passes bitwise")
+        del x, dt, A, Bm, Cm, cum, want, got, yi, st, y, states, cy, cf
+        torch.cuda.empty_cache()
+    # Per N at 16 heads a block (two blocks an SM at N = 128); raises on a
+    # spill.
+    builds = check_builds(sk.LIB, "ssd", {"ssd_chunk_tf32": (
+        [64, 128], lambda n: lib.ssd_chunk_tf32_smem_bytes(n, 16), "")})
+    return dict(rows=rows, worst=worst, builds=builds)
+
+
 def phase_ssd(torch) -> dict:
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd import ops
@@ -1716,9 +1863,10 @@ def phase_ssd(torch) -> dict:
     chunks = ssd_chunk_rows(torch, hold)
     log(f"[ssd] the chunks of SSD_CHUNKS took {time.perf_counter() - t0:.3f} "
         f"s")
+    tf32 = ssd_tf32_rows(torch)
     return dict(rows=rows, chunks=chunks, max_abs_err=worst,
                 carry_max_abs_err=carry_worst, terms=TERMS,
-                carry_rows=carry_rows, carry_builds=builds)
+                carry_rows=carry_rows, carry_builds=builds, tf32=tf32)
 
 
 def ssd_chunk_rows(torch, hold) -> dict:
@@ -1864,12 +2012,13 @@ SSD_BWD_BAR = 1e-4
 SSD_BWD_BF16_REL = 2.0 ** -7
 
 
-def ssd_bwd_bounds(B, L, H, P, N, Q, dtype, groups):
+def ssd_bwd_bounds(B, L, H, P, N, Q, dtype, groups, ops_per_s=None):
     """(least ms, what bounds it) of each backward kernel and the whole
-    backward: flops at the inputs' dtype's peak (as ``ssd_bound``) against
-    bytes.  Carry: 2·N·P flops per (row, head) for Cᵀ·dy and 2 per state
-    element and chunk for each walk; the chunk states read, h_prev and g
-    written (fp32), C, dy, cum, init, dfinal and d init_state once.
+    backward: flops at ``ops_per_s`` (default the inputs' dtype's peak, as
+    ``ssd_bound``; ``ssd_chunk_bwd_tf32`` is priced at TF32_X3_OPS_PER_S)
+    against bytes.  Carry: 2·N·P flops per (row, head) for Cᵀ·dy and 2 per
+    state element and chunk for each walk; the chunk states read, h_prev
+    and g written (fp32), C, dy, cum, init, dfinal and d init_state once.
     Chunk: per (b, chunk, head) 2Q²P (dW and dx over the lower triangle)
     + 6QNP (dx's state term, g·x, dy·h_prev), per (b, chunk) 3Q²N (C·Bᵀ
     and the dC, dB products); x, dy, dt, cum, B, C, g and h_prev read,
@@ -1891,9 +2040,10 @@ def ssd_bwd_bounds(B, L, H, P, N, Q, dtype, groups):
                + 2 * groups * B * L * N * 4)
     whole_b = (3 * B * L * H * P * e + 2 * B * L * H * 4 + 4 * B * L * N * e
                + 3 * state + 2 * H * 4)
-    return {"carry": bound(carry_f, carry_b, dtype),
-            "chunk": bound(chunk_f, chunk_b, dtype),
-            "backward": bound(state_f + carry_f + chunk_f, whole_b, dtype)}
+    return {"carry": bound(carry_f, carry_b, dtype, ops_per_s),
+            "chunk": bound(chunk_f, chunk_b, dtype, ops_per_s),
+            "backward": bound(state_f + carry_f + chunk_f, whole_b, dtype,
+                              ops_per_s)}
 
 
 def ssd_bwd_mma_floors(B, L, H, P, N, Q, groups, terms):
@@ -1915,13 +2065,16 @@ def ssd_bwd_mma_floors(B, L, H, P, N, Q, groups, terms):
 
 
 def check_ssd_tc_builds(sk) -> dict:
-    """The SSD backward's tensor-core kernels: the chunk kernel per N (16
+    """The SSD backward's tensor-core kernels: the chunk kernels per N (16
     heads a block), the carry at its slice of 32 rows of N (64 chunks)."""
     lib = sk.LIB_BWD.load()
     return check_builds(sk.LIB_BWD, "ssd-bwd", {
         "ssd_chunk_bwd_tc": ([64, 128],
                              lambda n: lib.ssd_bwd_tc_smem_bytes(0, n, 16),
                              ""),
+        "ssd_chunk_bwd_tf32": (
+            [64, 128], lambda n: lib.ssd_chunk_bwd_tf32_smem_bytes(n, 16),
+            ""),
         "ssd_carry_bwd_tc": ([32],
                              lambda r: lib.ssd_bwd_tc_smem_bytes(1, 128, 64),
                              "")})
@@ -1955,6 +2108,23 @@ def hold_grads(torch, what, names, got, again, want) -> dict:
     return out
 
 
+def chunk_bwd_call(torch, sk, args, G, tc):
+    """A call of the chunk backward's C entry point on ``args`` (the
+    wrapper's) into outputs made beforehand: ``tc`` 1 the tensor-core
+    kernel for the inputs' dtype, 0 ``ssd_chunk_bwd``."""
+    x, dt, cum, Bm, Cm, dy, g, h_prev, Q = args
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    outs = [torch.empty(s, device="cuda") for s in (
+        (B, L, H, P), (B, L, H), (B, L, H), (H // G, B, L, N),
+        (H // G, B, L, N))]
+    lib = sk.LIB_BWD.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: lib.ssd_chunk_bwd_launch(
+        *(t.data_ptr() for t in (x, dt, cum, Bm, Cm, dy, g, h_prev, *outs)),
+        sk.DTYPES[x.dtype], B, L, H, P, N, Q, G, tc, stream)
+
+
 def phase_ssd_bwd(torch) -> dict:
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd import ops
@@ -1968,7 +2138,9 @@ def phase_ssd_bwd(torch) -> dict:
         "wrappers dispatch to (kernel.bwd_kernels: bf16 at Q = P = 64, N "
         f"in {{64, 128}} on the tensor cores, ssd_carry_bwd_tc and "
         f"ssd_chunk_bwd_tc with fp32 operands in {sk.BWD_TERMS} bf16 terms; "
-        "fp32 and every other shape on the CUDA cores, ssd_carry_bwd and "
+        "fp32 there ssd_carry_bwd and ssd_chunk_bwd_tf32 (TF32, three "
+        "products a product, priced at the 3×TF32 rate); every other shape "
+        "on the CUDA cores, ssd_carry_bwd and "
         "ssd_chunk_bwd); backward = the op's whole backward (ops.ssd_bwd: "
         "the chunk-state launch, both kernels, the groups' sum and the "
         "cumsum's gradient); plain = ssd_carry_bwd_ref, ssd_chunk_bwd_ref, "
@@ -2002,7 +2174,7 @@ def phase_ssd_bwd(torch) -> dict:
             sk.ssd_carry_bwd_cuda(*cargs), sk.ssd_carry_bwd_cuda(*cargs),
             want_carry)}
         h_prev, g, _ = want_carry
-        G = sk.bwd_heads_per_block(B * L // Q, H, sms)
+        G = sk.chunk_bwd_heads(names["chunk"], B * L // Q, H, sms)
         args = (x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
         want_chunk = ssd_chunk_bwd_ref(*args, G)
         held["chunk"] = hold_grads(
@@ -2031,6 +2203,12 @@ def phase_ssd_bwd(torch) -> dict:
                  "backward": timed_ms(torch, lambda: ssd_bwd_ref(*whole),
                                       0.2)}
         bounds = ssd_bwd_bounds(B, L, H, P, N, Q, dtype, H // G)
+        tf32 = names["chunk"].endswith("_tf32")
+        if tf32:
+            core_bound = bounds["chunk"]
+            x3 = ssd_bwd_bounds(B, L, H, P, N, Q, dtype, H // G,
+                                TF32_X3_OPS_PER_S)
+            bounds = dict(bounds, chunk=x3["chunk"], backward=x3["backward"])
         row = dict(ms=ms, plain_ms=plain, bounds=bounds, held=held,
                    heads_per_block=G, names=names)
         extra = ""
@@ -2065,6 +2243,35 @@ def phase_ssd_bwd(torch) -> dict:
             extra += (f"; on the CUDA cores: ssd_carry_bwd "
                       f"{row['core_ms']['carry']:.5f}, ssd_chunk_bwd "
                       f"{row['core_ms']['chunk']:.5f}")
+        if tf32 and L * H >= 4096:
+            # ssd_chunk_bwd on the same fp32 inputs (with the heads a block
+            # it takes), held; both kernels through the C entry point in
+            # turns (new, CUDA cores, CUDA cores, new).
+            Gc = sk.bwd_heads_per_block(B * L // Q, H, sms)
+            core = hold_grads(
+                torch, f"ssd_chunk_bwd {shape} {dtype}", chunk_names,
+                sk.ssd_chunk_bwd_cuda(*args, cuda_cores=True),
+                sk.ssd_chunk_bwd_cuda(*args, cuda_cores=True),
+                ssd_chunk_bwd_ref(*args, Gc))
+            errs["ssd_chunk_bwd"] = max(errs["ssd_chunk_bwd"],
+                                        *(e for _, e in core.values()))
+            new, old = (chunk_bwd_call(torch, sk, args, g_, tc)
+                        for g_, tc in ((G, 1), (Gc, 0)))
+            t = (burst_ms(torch, new), burst_ms(torch, old),
+                 burst_ms(torch, old), burst_ms(torch, new))
+            core_ms = timed_ms(torch, lambda: sk.ssd_chunk_bwd_cuda(
+                *args, cuda_cores=True))
+            row.update(core_ms={"chunk": core_ms}, core_bound=core_bound,
+                       entry_ms=(t[0] + t[3]) / 2,
+                       core_entry_ms=(t[1] + t[2]) / 2, turns=list(t))
+            extra += (f"; ssd_chunk_bwd_tf32 / ssd_chunk_bwd through "
+                      f"ssd_chunk_bwd_launch in turns (new, CUDA cores, "
+                      f"CUDA cores, new), ms a launch "
+                      + ", ".join(f"{v:.5f}" for v in t)
+                      + f" (new / CUDA cores "
+                      f"{(t[0] + t[3]) / (t[1] + t[2]):.4f}); ssd_chunk_bwd "
+                      f"wrapper {core_ms:.5f}, bound {core_bound[0]:.6f} "
+                      f"({core_bound[1]}, CUDA cores)")
         rows[(shape, dtype)] = row
         log(f"[ssd-bwd] [B,L,H,P,N,Q]={list(shape)} {dtype} ({G} heads "
             f"per block): "
@@ -3027,12 +3234,38 @@ def bwd_kernel_launches(fa) -> dict:
 
 
 def ssd_counts() -> dict:
-    """The SSD's launch counters (``SSD_COUNTERS``) and each backward
-    kernel's."""
+    """The SSD's launch counters (``SSD_COUNTERS``) and each forward and
+    backward kernel's."""
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd import ops as ssd_ops
     return dict({c: getattr(ssd_ops, c) for c in SSD_COUNTERS},
-                **sk.BWD_KERNEL_LAUNCHES)
+                **sk.FWD_KERNEL_LAUNCHES, **sk.BWD_KERNEL_LAUNCHES)
+
+
+def reset_ssd_counts() -> None:
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    for c in SSD_COUNTERS:
+        setattr(ssd_ops, c, 0)
+    for d in (sk.FWD_KERNEL_LAUNCHES, sk.BWD_KERNEL_LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def ssd_step_counts(dtype, Q: int, P: int, N: int, passes: int) -> dict:
+    """``ssd_counts()`` after ``passes`` SSD layers trained once each under
+    remat dots: one forward (a chunk and a carry launch) and one backward
+    pass (the chunk kernel again for the states, then the backward pair
+    ``kernel.bwd_kernels`` names) per layer."""
+    from repro_torch.kernels.ssd import kernel as sk
+    want = dict.fromkeys(SSD_COUNTERS + sk.FWD_KERNELS + sk.BWD_KERNELS, 0)
+    if passes:
+        chunk, carry = sk.fwd_kernels(dtype, Q, P, N)
+        want.update(dict.fromkeys(SSD_COUNTERS, passes))
+        want[chunk], want[carry] = 2 * passes, passes
+        for k in sk.bwd_kernels(dtype, Q, P, N):
+            want[k] = passes
+    return want
 
 
 def timed_steps(torch, tag, arch, n_layers, B, L, describe, reset,
@@ -3175,26 +3408,17 @@ def phase_train_headline(torch) -> dict:
 
 
 def phase_train_ssm(torch) -> dict:
-    from repro_torch.kernels.ssd import kernel as sk
-    from repro_torch.kernels.ssd import ops as ssd_ops
     arch, n_layers, B, L = TRAIN_SSM
 
-    def reset():
-        for c in SSD_COUNTERS:
-            setattr(ssd_ops, c, 0)
-        for k in sk.BWD_KERNEL_LAUNCHES:
-            sk.BWD_KERNEL_LAUNCHES[k] = 0
     run = timed_steps(
         torch, "d", arch, n_layers, B, L,
         lambda c: f"{c.n_layers} layers, d_model {c.d_model}, "
                   f"{c.ssm_heads} SSD heads (P {c.ssm_head_dim}, N "
-                  f"{c.ssm_state}), vocab {c.vocab}", reset)
+                  f"{c.ssm_state}), vocab {c.vocab}", reset_ssd_counts)
     counts = ssd_counts()
-    want = n_layers * TRAIN_STEPS
     cfg = run["model"].cfg
-    ran = set(SSD_COUNTERS) | set(sk.bwd_kernels(
-        torch.bfloat16, 64, cfg.ssm_head_dim, cfg.ssm_state))
-    want_d = {k: (want if k in ran else 0) for k in counts}
+    want_d = ssd_step_counts(torch.bfloat16, 64, cfg.ssm_head_dim,
+                             cfg.ssm_state, n_layers * TRAIN_STEPS)
     if counts != want_d:
         raise AssertionError(
             f"(d) {TRAIN_STEPS} steps launched {counts}, expected "
@@ -3327,6 +3551,56 @@ def family_launches(cfg) -> tuple:
     return cfg.n_layers, 0
 
 
+@contextlib.contextmanager
+def ssd_on_cuda_cores():
+    """The SSD chunk pass and chunk backward sent to their CUDA-core
+    kernels (``terms=0``, ``cuda_cores=True``) inside the block: what an
+    fp32 step launched before the fp32 tensor-core kernels."""
+    from repro_torch.kernels.ssd import kernel as sk
+    chunks, chunk_bwd = sk.ssd_chunks_cuda, sk.ssd_chunk_bwd_cuda
+    sk.ssd_chunks_cuda = functools.partial(chunks, terms=0)
+    sk.ssd_chunk_bwd_cuda = functools.partial(chunk_bwd, cuda_cores=True)
+    try:
+        yield
+    finally:
+        sk.ssd_chunks_cuda, sk.ssd_chunk_bwd_cuda = chunks, chunk_bwd
+
+
+STEP_TURNS = 5   # timed steps of each kind in ssd_step_turns
+
+
+def ssd_step_turns(torch, model, params, batch, tag) -> dict:
+    """One (b) step (loss and gradients) timed in turns on the SSD's
+    CUDA-core kernels and on the tensor-core ones: each warmed up once,
+    then STEP_TURNS of each, alternating which goes first; host clock,
+    synchronised; median ms of each."""
+    def step(core):
+        with ssd_on_cuda_cores() if core else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            family_grads(torch, model, params, batch, False)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+    times = {True: [], False: []}
+    step(True)
+    step(False)
+    for k in range(STEP_TURNS):
+        for core in ((True, False) if k % 2 == 0 else (False, True)):
+            times[core].append(step(core))
+    out = {"cuda_cores": statistics.median(times[True]),
+           "tensor_cores": statistics.median(times[False]),
+           "turns": {"cuda_cores": times[True],
+                     "tensor_cores": times[False]}}
+    log(f"[train] (b) {tag}: one step in turns, median of {STEP_TURNS} "
+        f"(host clock, synchronised): on the SSD's CUDA-core kernels "
+        f"{out['cuda_cores']:.3f} ms, on the tensor-core ones "
+        f"{out['tensor_cores']:.3f} ms ("
+        f"{out['tensor_cores'] / out['cuda_cores']:.4f}); each run "
+        + ", ".join(f"{v:.3f}" for v in times[False]) + " against "
+        + ", ".join(f"{v:.3f}" for v in times[True]))
+    return out
+
+
 def phase_train_families(torch) -> dict:
     import gc
     from repro_torch.data.pipeline import DataConfig, batch_at
@@ -3365,13 +3639,12 @@ def phase_train_families(torch) -> dict:
                                  f"forward, FA backward passes), expected "
                                  f"{n_fa} each")
         dt = getattr(torch, compute)
-        # The SSD's counters and the backward pair the dispatch picks for
-        # this compute dtype at models/ssm.py's chunk, min(64, L), once
-        # per layer each.
+        # The SSD's counters and the kernels the dispatch picks for this
+        # compute dtype at models/ssm.py's chunk, min(64, L): per layer a
+        # forward and a backward pass.
         Q = min(64, L)
-        ssd_ran = set(SSD_COUNTERS) | (set(sk.bwd_kernels(
-            dt, Q, cfg.ssm_head_dim, cfg.ssm_state)) if n_ssd else set())
-        want_ssd = {k: (n_ssd if k in ssd_ran else 0) for k in ssd_got}
+        want_ssd = ssd_step_counts(dt, Q, cfg.ssm_head_dim, cfg.ssm_state,
+                                   n_ssd)
         if ssd_got != want_ssd:
             raise AssertionError(f"(b) {arch} {compute}: one step launched "
                                  f"{ssd_got} of the SSD, expected "
@@ -3413,6 +3686,9 @@ def phase_train_families(torch) -> dict:
                         ssd_launches=ssd_got, loss=float(loss),
                         ref_loss=float(ref_loss), worst=worst,
                         chunk=Q if n_ssd else None)
+        if compute == "float32" and n_ssd:
+            out[key]["step_ms"] = ssd_step_turns(torch, model, params,
+                                                 batch, key)
         del params, grads, ref_grads, model
         gc.collect()
     torch.cuda.empty_cache()
@@ -3544,14 +3820,10 @@ def kernel_counts() -> dict:
 def reset_kernel_counts() -> None:
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.ssd import kernel as sk
-    from repro_torch.kernels.ssd import ops as ssd_ops
     fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
-    for c in SSD_COUNTERS:
-        setattr(ssd_ops, c, 0)
-    for d in (fa.BWD_KERNEL_LAUNCHES, sk.BWD_KERNEL_LAUNCHES):
-        for k in d:
-            d[k] = 0
+    for k in fa.BWD_KERNEL_LAUNCHES:
+        fa.BWD_KERNEL_LAUNCHES[k] = 0
+    reset_ssd_counts()
 
 
 def counted(torch, fn):
@@ -4460,10 +4732,62 @@ def main() -> int:
                    "rows": [dict(shape=list(sh), **r) for sh, r in
                             fab["preprocess"]["rows"].items()]}),
         })
-    # The SSD backward's kernels: the tensor-core pair at phase 11 (d)'s
-    # shape (mamba2-780m, 2 x 4096, bf16), launched by (d); the CUDA-core
-    # pair at (b)'s fp32 mamba2-780m step (1 x 2048), which launched them.
+    # The SSD's fp32 forward kernels at (b)'s fp32 mamba2-780m step (1 x
+    # 2048): ssd_chunk_tf32 and the fp32 carry ssd_carry_kernel, which that
+    # step launched, and the CUDA-core chunk kernel on the same inputs,
+    # launched on a main path by (b)'s 2 x 50 step (chunk 50).
     ssm_f32 = train["families"]["mamba2-780m float32"]
+    f32_fwd = sd["tf32"]["rows"][SSD_TRAIN_F32[0]]
+    for name, pre, launches in (("ssd_chunk_tf32", "", ssm_f32),
+                                ("ssd_chunk_kernel", "core_", short),
+                                ("ssd_carry_kernel", "carry_", ssm_f32)):
+        entry = f32_fwd["carry_ms" if pre == "carry_" else pre + "entry_ms"]
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+            **({"replaces": "src/repro/kernels/ssd/kernel.py:22"}
+               if pre != "carry_" else {
+                   # No Pallas kernel: the reference's jax.lax.scan and
+                   # einsum.
+                   "replaces": "src/repro/kernels/ssd/ops.py:40",
+                   "tpu_kernel": False}),
+            "launches": launches["ssd_launches"][name],
+            "max_abs_err": sd["tf32"]["worst"][name],
+            # Through the C entry point (BURST launches a window).
+            "ms": entry,
+            "plain_ms": f32_fwd["carry_plain_ms" if pre == "carry_"
+                                else "plain_ms"],
+            "bound_ms": f32_fwd[pre + "bound_ms"],
+            "bound_by": f32_fwd[pre + "bound_by"],
+            "library_ms": None,
+            "shape": list(SSD_TRAIN_F32[0]),
+            "dtype": "float32",
+            **({"wrapper_ms": f32_fwd["ms"],
+                "heads_per_block": f32_fwd["heads_per_block"],
+                "smem": f32_fwd["smem"],
+                "build": sd["tf32"]["builds"],
+                "cuda_core_ms": f32_fwd["core_entry_ms"]}
+               if pre == "" else {}),
+            # Phase 11 (b): launches in one step per arch (and dtype).
+            "launches_families": {
+                a: r["ssd_launches"][name]
+                for a, r in train["families"].items()
+                if r["ssd_launches"][name]},
+            # Phase 6 at SSD_TF32_SHAPES (fp32).
+            "rows": [dict(shape=list(sh), **{
+                k: r[k] for k in ("entry_ms", "core_entry_ms", "turns", "ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "core_bound_ms", "core_bound_by",
+                                  "carry_ms", "carry_bound_ms",
+                                  "heads_per_block", "smem", "ratio")})
+                     for sh, r in sd["tf32"]["rows"].items()],
+        })
+    # The SSD backward's kernels: the tensor-core pair at phase 11 (d)'s
+    # shape (mamba2-780m, 2 x 4096, bf16), launched by (d); at (b)'s fp32
+    # mamba2-780m step (1 x 2048) the CUDA-core carry and
+    # ssd_chunk_bwd_tf32, which it launched, and ssd_chunk_bwd timed on
+    # the same inputs, launched on a main path by (b)'s 2 x 50 step.
     for key, name, (shape, dtype), launches in (
             ("carry", "ssd_carry_bwd_tc", (SSD_TRAIN[0], "bfloat16"),
              train["ssm"]["ssd_launches"]),
@@ -4471,10 +4795,14 @@ def main() -> int:
              train["ssm"]["ssd_launches"]),
             ("carry", "ssd_carry_bwd", SSD_TRAIN_F32,
              ssm_f32["ssd_launches"]),
+            ("chunk", "ssd_chunk_bwd_tf32", SSD_TRAIN_F32,
+             ssm_f32["ssd_launches"]),
             ("chunk", "ssd_chunk_bwd", SSD_TRAIN_F32,
-             ssm_f32["ssd_launches"])):
+             short["ssd_launches"])):
         row = sdb["rows"][(shape, dtype)]
         tc = name.endswith("_tc")
+        core = name == "ssd_chunk_bwd"   # beside ssd_chunk_bwd_tf32
+        bnd = row["core_bound"] if core else row["bounds"][key]
         record["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -4487,10 +4815,13 @@ def main() -> int:
             # Phase 12 (b): one bf16 step on the one-rank mesh.
             "launches_mesh": mesh["b"]["launches"].get(name, 0),
             "max_abs_err": sdb["errs"][name],
-            "ms": row["ms"][key],
+            "ms": row["core_ms"][key] if core else row["ms"][key],
             "plain_ms": row["plain_ms"][key],
-            "bound_ms": row["bounds"][key][0],
-            "bound_by": row["bounds"][key][1],
+            "bound_ms": bnd[0],
+            "bound_by": bnd[1],
+            # Through the C entry point, in turns with the other kernel.
+            **({"entry_ms": row["core_entry_ms" if core else "entry_ms"]}
+               if "entry_ms" in row and key == "chunk" else {}),
             # No single PyTorch call computes either, or the whole
             # backward (under "backward").
             "library_ms": None,
@@ -4510,11 +4841,11 @@ def main() -> int:
             # 256 and 50 rows where this kernel ran.
             "launches_short": short["ssd_launches"][name],
             "chunks": bwd_chunks(key, name),
-            **({# The CUDA-core kernel on the same bf16 inputs.
+            **({# The CUDA-core kernel on the same inputs.
                 "cuda_core_ms": row["core_ms"][key],
                 "build": {k: v for k, v in sdb["builds"].items()
                           if k.startswith(name + "<")}}
-               if tc else {}),
+               if tc or name.endswith("_tf32") else {}),
         })
     idle = [k["name"] for k in record["kernels"] if not k["launches"] > 0]
     if idle:

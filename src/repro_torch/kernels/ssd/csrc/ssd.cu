@@ -12,8 +12,8 @@
 //   S[n][p]  = sum_j B[j][n] * (x[j][p] * exp(cum_last - cum_j) * dt_j)
 //                                                         (chunk state, [N, P])
 //
-// in fp32 whatever the input type, as the reference does.  Two kernels,
-// chosen by the wrapper:
+// in fp32 whatever the input type, as the reference does.  Three
+// kernels, chosen by the wrapper (kernel.py's fwd_kernels):
 //
 // * ssd_chunk_tc (bf16 x, B and C at Q = P = 64, N = 64 or 128: the
 //   serving path), on the tensor cores with mma.sync m16n8k16.  C . B^T
@@ -43,8 +43,35 @@
 //   the state in fp32 (32 KB) for 2 * terms * (Q^2 P / 2 + Q N P) MMA
 //   flops; C . B^T is once per G heads.
 //
-// * ssd_chunk_kernel (fp32 inputs, the reference sweep, held to 1e-4, and
-//   every other shape, chunks of 1 to 256 rows), on the CUDA cores: one
+// * ssd_chunk_tf32 (fp32 x, B and C at Q = P = 64, N = 64 or 128: the
+//   models' fp32 training and the reference sweep's N = 128 shape), on
+//   the tensor cores with mma.sync m16n8k8 in TF32, ssd_chunk_tc's domain
+//   and design with fp32 tiles: every product is three TF32 products
+//   (each fp32 operand split into hi = its TF32 rounding and lo = the
+//   rest; hi·hi + hi·lo + lo·hi, as the fp32 flash-attention kernels take
+//   theirs), so that it meets the fp32 bar (1e-4·max|ref|) with ~0.005 of
+//   it used (the CPU emulation, tests/_ssd_tf32.py; one TF32 product
+//   misses it five-fold).  C . B^T is computed once per group of G heads
+//   and kept in accumulator fragments; W goes from them to the next
+//   product as the bf16 kernel's does, by reading an accumulator's
+//   columns 2c, 2c + 1 as the k slots c, c + 4 and x's rows 2c, 2c + 1
+//   into the same slots; the state's A operand is read from B itself,
+//   each row scaled by its dec_end_j as it is read, so that one split of
+//   each x fragment serves both products and no B ⊙ dec_end tile is
+//   kept.  B, C and x rows are padded to 4 (mod 32) words, where both
+//   the K-major reads (row g, column c) and the MN-major ones (rows 2c
+//   and 2c + 1, column g) meet no bank twice.  G is the largest divisor
+//   of H up to 16 that gives the fewest waves of two blocks an SM, each
+//   weighed by its G + 1 heads' work (tf32_heads in ssd_mma.cuh; its
+//   shared memory at N = 128, 114,688 bytes at G = 16, leaves room for
+//   two blocks).
+//
+//   Bound: bytes, as ssd_chunk_tc's, with x read in fp32 (16 KB a head);
+//   three TF32 products a product at the TF32 peak take about 0.4 of the
+//   byte bound at mamba2-780m's heads.
+//
+// * ssd_chunk_kernel (every other shape, chunks of 1 to 256 rows, and
+//   terms = 0 at any shape), on the CUDA cores: one
 //   block of 256 threads per (chunk, head, batch) stages dt and cum, then
 //   walks the chunk in blocks of up to kRows = 64 rows: for each row
 //   block i, the column blocks j at or below it, staging x and B of j and
@@ -508,6 +535,243 @@ cudaError_t launch_tc(const void* x, const float* dt, const float* cum,
     return launch_tc_n<128, NT>(x, dt, cum, bm, cm, y, state, B, L, H,
                                 stream);
   return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core chunk kernel (fp32: TF32, three products a product)
+// ---------------------------------------------------------------------------
+
+// TF32 products a product (hi·hi + hi·lo + lo·hi): the terms argument
+// that asks the entry point for ssd_chunk_tf32 (kernel.py's TF32_TERMS).
+constexpr int kTf32Terms = 3;
+constexpr int kLdX32 = kP + 4;   // padded fp32 row of x: 68 words, 4 (mod
+                                 // 32), so that rows 2c and 2c + 1 at
+                                 // column g meet no bank twice
+
+// Shared memory of ssd_chunk_tf32 (bytes): C and B [kQ][N + 4] (also 4
+// (mod 32) words a row), two x buffers [kQ][kLdX32], all fp32; dt, cum and
+// dec_end [G][kQ].  kernel.py's chunk_tf32_smem_bytes is the same sum.
+size_t tf32_smem_bytes(int N, int G) {
+  return 4 * (2 * (size_t)kQ * (N + 4) + 2 * (size_t)kQ * kLdX32 +
+              3 * (size_t)G * kQ);
+}
+
+// x of one head, [kQ][kP] fp32, into a padded shared buffer.
+__device__ __forceinline__ void load_x32(float* dst, const float* x,
+                                         int64_t row0, int H, int h) {
+  for (int e = threadIdx.x; e < kQ * (kP / 4); e += kTcThreads) {
+    const int j = e / (kP / 4), k4 = (e % (kP / 4)) * 4;
+    cp_async16(dst + j * kLdX32 + k4, x + ((row0 + j) * H + h) * kP + k4);
+  }
+}
+
+// C . B^T for the warp's rows i0.. against the first NT n-tiles of B (8
+// columns j each: the tiles at or below the diagonal), in three TF32
+// products: cb[nt] is the m16n8 tile of columns 8 nt .. 8 nt + 7.
+template <int N, int NT>
+__device__ __forceinline__ void cb_tf32(float (&cb)[8][4], const float* cs,
+                                        const float* bs, int i0, int g,
+                                        int cq) {
+  constexpr int kLdN = N + 4;
+#pragma unroll 2
+  for (int kn = 0; kn < N / 8; ++kn) {
+    const float* cr = cs + (i0 + g) * kLdN + 8 * kn + cq;
+    const Tf32A a(cr[0], cr[8 * kLdN], cr[4], cr[8 * kLdN + 4]);
+    Tf32B bt[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* br = bs + (8 * nt + g) * kLdN + 8 * kn + cq;
+      bt[nt] = Tf32B(br[0], br[4]);
+    }
+    mma3<NT>(cb, 0, a, bt);
+  }
+}
+
+// One block of 4 warps per (chunk, group of G heads, batch), as
+// ssd_chunk_tc: B and C staged once with cp.async and C . B^T computed
+// once, each warp keeping its 16 rows i of it in accumulator fragments for
+// all G heads.  For each head, x is staged one head ahead (double buffer);
+// per k8 step of j, W = (C . B^T) o exp(cum_i - cum_j) o dt_j is built in
+// registers from the accumulator (its columns 2c and 2c + 1 as the slots c
+// and c + 4; exp only at i >= j, a plain 0 above the diagonal) and
+// multiplied with x (rows 2c and 2c + 1 of the step at column g: the same
+// slots), and the state's A operand, B^T o dec_end, is read straight from
+// B (rows 2c and 2c + 1 of the step, each scaled by its dec_end_j as it is
+// read: no B o dec_end tile), so that one split of x's fragment serves
+// both products.  Warp w takes rows 16 w.. of y (k8 steps up to its
+// diagonal) and rows 64 s + 16 w.. of the state (all 8 steps).
+template <int N>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    ssd_chunk_tf32(const float* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ cum, const float* __restrict__ bm,
+                   const float* __restrict__ cm, float* __restrict__ y,
+                   float* __restrict__ state, int L, int H, int G) {
+  constexpr int kLdN = N + 4;
+  constexpr int kPass = N / 64;     // state row tiles of 16 per warp
+  extern __shared__ __align__(16) float smf[];
+  float* cs = smf;                       // [kQ][kLdN]
+  float* bs = cs + kQ * kLdN;            // [kQ][kLdN]
+  float* xs = bs + kQ * kLdN;            // 2 x [kQ][kLdX32]
+  float* dts = xs + 2 * kQ * kLdX32;     // [G][kQ]
+  float* cums = dts + G * kQ;            // [G][kQ]
+  float* des = cums + G * kQ;            // [G][kQ]: dec_end_j = exp(cum_last
+                                         //   - cum_j) dt_j
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, cq = lane & 3;
+  const int c = blockIdx.x, h0 = blockIdx.y * G, b = blockIdx.z;
+  const int nc = gridDim.x;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * kQ;
+  const int i0 = 16 * warp;
+
+  for (int e = tid; e < kQ * (N / 4); e += kTcThreads) {
+    const int j = e / (N / 4), k4 = (e % (N / 4)) * 4;
+    cp_async16(cs + j * kLdN + k4, cm + (row0 + j) * N + k4);
+    cp_async16(bs + j * kLdN + k4, bm + (row0 + j) * N + k4);
+  }
+  load_x32(xs, x, row0, H, h0);
+  cp_async_commit();
+  for (int e = tid; e < kQ * G; e += kTcThreads) {
+    const int j = e / G, gi = e % G;
+    dts[gi * kQ + j] = dt[(row0 + j) * H + h0 + gi];
+    cums[gi * kQ + j] = cum[(row0 + j) * H + h0 + gi];
+  }
+  __syncthreads();
+  for (int e = tid; e < kQ * G; e += kTcThreads)
+    des[e] = expf(cums[(e / kQ) * kQ + kQ - 1] - cums[e]) * dts[e];
+  cp_async_wait_all();
+  __syncthreads();
+
+  float cb[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cb[nt][e] = 0.f;
+  // Only the n-tiles at or below the warp's diagonal: 2 (w + 1) of them.
+  if (warp == 0) cb_tf32<N, 2>(cb, cs, bs, i0, g, cq);
+  else if (warp == 1) cb_tf32<N, 4>(cb, cs, bs, i0, g, cq);
+  else if (warp == 2) cb_tf32<N, 6>(cb, cs, bs, i0, g, cq);
+  else cb_tf32<N, 8>(cb, cs, bs, i0, g, cq);
+
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = h0 + gi;
+    const float* xb = xs + (gi & 1) * kQ * kLdX32;
+    const float* cg = cums + gi * kQ;
+    const float* dg = dts + gi * kQ;
+    const float* eg = des + gi * kQ;
+    // x(gi) has landed; every warp is done with head gi - 1's x buffer.
+    cp_async_wait_all();
+    __syncthreads();
+    if (gi + 1 < G)
+      load_x32(xs + ((gi + 1) & 1) * kQ * kLdX32, x, row0, H, h + 1);
+    cp_async_commit();
+
+    const float ci[2] = {cg[i0 + g], cg[i0 + g + 8]};
+    float yacc[8][4], sacc[kPass][8][4];
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        yacc[pt][e] = 0.f;
+#pragma unroll
+        for (int s = 0; s < kPass; ++s) sacc[s][pt][e] = 0.f;
+      }
+#pragma unroll
+    for (int kt = 0; kt < kQ / 8; ++kt) {
+      const int j = 8 * kt + 2 * cq;   // slots c and c + 4: j and j + 1
+      const bool diag = kt < 2 * warp + 2;   // a W tile at or below it
+      Tf32A wa;
+      if (diag) {
+        const float cj[2] = {cg[j], cg[j + 1]};
+        const float dj[2] = {dg[j], dg[j + 1]};
+        float w[2][2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int i = i0 + g + 8 * rr;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            w[rr][e] = i >= j + e ? cb[kt][2 * rr + e] *
+                                        expf(ci[rr] - cj[e]) * dj[e]
+                                  : 0.f;
+        }
+        wa = Tf32A(w[0][0], w[1][0], w[0][1], w[1][1]);
+      }
+      Tf32A sa[kPass];
+      {
+        const float d0 = eg[j], d1 = eg[j + 1];
+#pragma unroll
+        for (int s = 0; s < kPass; ++s) {
+          const float* br = bs + j * kLdN + 64 * s + i0 + g;
+          sa[s] = Tf32A(br[0] * d0, br[8] * d0, br[kLdN] * d1,
+                        br[kLdN + 8] * d1);
+        }
+      }
+#pragma unroll
+      for (int p0 = 0; p0 < 8; p0 += 4) {
+        Tf32B xf[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float* xr = xb + j * kLdX32 + 8 * (p0 + u) + g;
+          xf[u] = Tf32B(xr[0], xr[kLdX32]);
+        }
+        if (diag) mma3<4>(yacc, p0, wa, xf);
+#pragma unroll
+        for (int s = 0; s < kPass; ++s) mma3<4>(sacc[s], p0, sa[s], xf);
+      }
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float* yr = y + ((row0 + i0 + g + 8 * rr) * H + h) * kP + 2 * cq;
+#pragma unroll
+      for (int pt = 0; pt < 8; ++pt)
+        *reinterpret_cast<float2*>(yr + 8 * pt) =
+            make_float2(yacc[pt][2 * rr], yacc[pt][2 * rr + 1]);
+    }
+    float* st = state + (((int64_t)b * nc + c) * H + h) * (int64_t)N * kP;
+#pragma unroll
+    for (int s = 0; s < kPass; ++s)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float* sr = st + (64 * s + i0 + g + 8 * rr) * kP + 2 * cq;
+#pragma unroll
+        for (int pt = 0; pt < 8; ++pt)
+          *reinterpret_cast<float2*>(sr + 8 * pt) =
+              make_float2(sacc[s][pt][2 * rr], sacc[s][pt][2 * rr + 1]);
+      }
+  }
+}
+
+// Heads per ssd_chunk_tf32 block: tf32_heads with two blocks an SM (its
+// shared memory at N = 128 and 16 heads leaves room for two), on a card
+// of `sms` SMs.
+int tf32_heads_per_block(int pairs, int H, int sms) {
+  return tf32_heads(pairs, H, 2 * sms);
+}
+
+template <int N>
+cudaError_t launch_tf32_n(const void* x, const float* dt, const float* cum,
+                          const void* bm, const void* cm, float* y,
+                          float* state, int B, int L, int H,
+                          cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int nc = L / kQ;
+  const int G = tf32_heads_per_block(B * nc, H, sms);
+  const size_t smem = tf32_smem_bytes(N, G);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(ssd_chunk_tf32<N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(nc, H / G, B);
+  ssd_chunk_tf32<N><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(x), dt, cum, static_cast<const float*>(bm),
+      static_cast<const float*>(cm), y, state, L, H, G);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1351,9 +1615,10 @@ cudaError_t launch_carry(const void* y_intra, const void* states,
 // dtype: 0 = float32, 1 = bfloat16 for x, B and C; dt, cum, y and state
 // are float32.  x [B, L, H, P], dt and cum [B, L, H], B and C [B, L, N],
 // y [B, L, H, P], state [B, L / Q, H, N, P], all contiguous and 16-byte
-// aligned.  terms = 0 runs the CUDA-core kernel; 1, 2 or 3 the
-// tensor-core kernel with W and B ⊙ dec_end in that many bf16 terms
-// (bf16 only, at Q = P = 64 and N = 64 or 128).
+// aligned.  terms = 0 runs the CUDA-core kernel; at Q = P = 64 and N =
+// 64 or 128, for bf16 1, 2 or 3 run ssd_chunk_tc with W and B ⊙ dec_end
+// in that many bf16 terms, and for fp32 kTf32Terms (3) runs
+// ssd_chunk_tf32.
 extern "C" int ssd_chunk_launch(const void* x, const void* dt,
                                 const void* cum, const void* bm,
                                 const void* cm, void* y, void* state,
@@ -1373,7 +1638,18 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dt,
                                    N, Q, s);
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype != 1 || Q != kQ || P != kP) return (int)cudaErrorInvalidValue;
+  if (Q != kQ || P != kP) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (terms != kTf32Terms) return (int)cudaErrorInvalidValue;
+    if (N == 64)
+      return (int)launch_tf32_n<64>(x, dtf, cumf, bm, cm, yf, sf, B, L, H,
+                                    s);
+    if (N == 128)
+      return (int)launch_tf32_n<128>(x, dtf, cumf, bm, cm, yf, sf, B, L, H,
+                                     s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (terms == 1)
     return (int)launch_tc<1>(x, dtf, cumf, bm, cm, yf, sf, B, L, H, N, s);
   if (terms == 2)
@@ -1404,6 +1680,23 @@ extern "C" int ssd_carry_launch(const void* y_intra, const void* states,
   if (c_dtype == 1 && y_dtype == 1) SSD_CARRY(bf16, bf16);
 #undef SSD_CARRY
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory (bytes) of an ssd_chunk_tf32 block at state size
+// N (64 or 128) with G heads a block, and the heads a block it takes for B
+// batches of L steps and H heads on this card (ssd_chunk_tf32_heads); -1
+// for anything else.
+extern "C" int ssd_chunk_tf32_smem_bytes(int N, int G) {
+  if ((N != 64 && N != 128) || G < 1) return -1;
+  return (int)tf32_smem_bytes(N, G);
+}
+extern "C" int ssd_chunk_tf32_heads(int B, int L, int H) {
+  int dev = 0, sms = 0;
+  if (B < 1 || L < kQ || H < 1 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -1;
+  return tf32_heads_per_block(B * (L / kQ), H, sms);
 }
 
 // Dynamic shared memory (bytes) of a block at chunk Q, state size N and

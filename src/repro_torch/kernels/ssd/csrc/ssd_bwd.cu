@@ -9,10 +9,13 @@
 // kernel for the chunk states S_c (kept out of the forward's saved
 // tensors: at 48 layers they would take ~9.6 GB).  The formulas, and
 // their plain versions, are in ../ref.py (ssd_carry_bwd_ref,
-// ssd_chunk_bwd_ref).  Two pairs of kernels, chosen by the wrapper
-// (kernel.py::bwd_kernels) as the forward's chunk kernels are: bf16 x,
-// B, C and dy at Q = P = 64, N = 64 or 128 (the models' training shapes)
-// on the tensor cores, fp32 and every other shape on the CUDA cores.
+// ssd_chunk_bwd_ref).  The kernels are chosen by the wrapper
+// (kernel.py::bwd_kernels) as the forward's chunk kernels are: at Q = P =
+// 64, N = 64 or 128 (the models' training shapes) bf16 x, B, C and dy on
+// the tensor cores (ssd_carry_bwd_tc, ssd_chunk_bwd_tc), fp32 with the
+// chunk's gradients on the tensor cores in TF32 (ssd_chunk_bwd_tf32) and
+// the carry on the CUDA cores (ssd_carry_bwd); every other shape on the
+// CUDA cores (ssd_carry_bwd, ssd_chunk_bwd).
 //
 // The carry's walks, per (batch, head) and element (n, p) of the state:
 //     forward  h_prev_c = h,  h = exp(cum_last,c) h + S_c      (writes the
@@ -90,8 +93,28 @@
 //   32 rows took 0.36342 ms against 0.37925 for 64; at N = 64 the two
 //   were within the runs' spread (0.25530 / 0.26078 in one run, 0.24267
 //   / 0.22627 in another).
-// * ssd_carry_bwd and ssd_chunk_bwd (fp32, and every other shape): the
-//   CUDA cores, fp32 arithmetic (bf16 inputs converted exactly as read).
+// * ssd_chunk_bwd_tf32 (fp32 at the shapes above): ssd_chunk_bwd_tc's
+//   block, warps, product list, partial sums and barriers on mma.sync
+//   m16n8k8 in TF32, every product three TF32 products (hi·hi + hi·lo +
+//   lo·hi) on operands split as they reach the registers (two integer
+//   operations a split: no split planes are stored).  x, dy, g and h_prev
+//   are fp32 tiles swizzled as the fp32 flash-attention kernels' are
+//   (swz64), read K-major with ldmatrix and MN-major as rows 2c, 2c + 1
+//   in the permuted slots; B and C are rows of N + 8 words, read K-major
+//   as one 8-byte load of columns 2c, 2c + 1 and MN-major as rows c,
+//   c + 4.  At N = 128 one head's x, dy, g and h_prev take 96 KB, so only
+//   x and dy are double-buffered: the next head's g and h_prev are copied
+//   into the single buffers once the head's last product that reads them
+//   (B . g, x . g^T, dy . h_prev^T, done first) is through, while the
+//   block computes dW^T and dx's intra term (227,872 bytes at G = 16).
+//   The summed dW o E o dt is staged twice at the group's end (rows j
+//   over the x buffers, rows i over the dy buffers) so that both of its
+//   products read it K-major.  No atomics and a fixed order: two passes
+//   are equal bit for bit.  Its products at three TF32 products a product
+//   take about 0.6 of its byte bound at mamba2-780m's heads.
+// * ssd_carry_bwd and ssd_chunk_bwd (every other shape, and the fp32
+//   carry): the CUDA cores, fp32 arithmetic (bf16 inputs converted
+//   exactly as read).
 //   ssd_carry_bwd: one block per (slice of PS columns of P, head, batch),
 //   each thread two rows of N and four columns, both walks in registers;
 //   the reverse walk stages the chunk's C and exp(cum_i) dy_i in shared
@@ -1451,6 +1474,634 @@ cudaError_t launch_chunk_bwd_tc(const void* x, const void* dt,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// ssd_chunk_bwd_tf32: fp32 x, B, C and dy at Q = P = 64, N = 64 or 128
+// ---------------------------------------------------------------------------
+
+// Shared-memory layout of ssd_chunk_bwd_tf32, in bytes
+// (ssd_chunk_bwd_tf32_smem_bytes reports it, kernel.py's
+// chunk_bwd_tf32_smem_bytes mirrors it).  B and C are fp32 rows of N + 8
+// words (8 (mod 32): their K-major reads take two slots a lane as one
+// 8-byte load, their MN-major reads rows c and c + 4); x, dy, g and
+// h_prev are [rows][64] fp32 tiles swizzled by swz64.  x and dy are
+// double-buffered, g and h_prev not: at N = 128 a second pair would not
+// fit beside B and C, so the next head's g and h_prev are copied once
+// this head's last product that reads them is done.
+struct ChunkTf32Smem {
+  size_t c, b, cb, x, dy, g, hp, dts, cums, red, total;
+  __host__ __device__ ChunkTf32Smem(int N, int G) {
+    const size_t bc = (size_t)kTQ * (N + 8) * 4;  // C or B
+    const size_t xd = (size_t)kTQ * kTP * 4;      // one x or dy buffer
+    const size_t st = (size_t)N * kTP * 4;        // g or h_prev
+    c = 0;
+    b = c + bc;
+    cb = b + bc;         // (C . B^T)^T fragments: [4 row tiles][8][32] x 4
+    x = cb + 4 * 8 * 32 * 16;   // 2 buffers
+    dy = x + 2 * xd;     // 2 buffers
+    g = dy + 2 * xd;
+    hp = g + st;
+    dts = hp + st;       // [G][kTQ]
+    cums = dts + (size_t)G * kTQ * 4;
+    red = cums + (size_t)G * kTQ * 4;
+    total = red + (size_t)kRedFloats * 4;
+  }
+};
+
+// x and dy of head h, [kTQ][kTP] fp32 each, into swizzled tiles with
+// cp.async: this thread's share of the block's copies.
+__device__ __forceinline__ void tf32_load_xdy(float* xd, float* dd,
+                                              const float* x,
+                                              const float* dy, int64_t row0,
+                                              int H, int h) {
+  for (int e = threadIdx.x; e < kTQ * (kTP / 4); e += kTcThreads) {
+    const int i = e >> 4, c4 = (e & 15) * 4;
+    const int64_t o = ((row0 + i) * H + h) * kTP + c4;
+    cp_async16(xd + swz64(i, c4), x + o);
+    cp_async16(dd + swz64(i, c4), dy + o);
+  }
+}
+
+// g and h_prev of one (chunk, head), [N][kTP] fp32 each from `st` on,
+// into swizzled tiles with cp.async.
+template <int N>
+__device__ __forceinline__ void tf32_load_gh(float* gd, float* hd,
+                                             const float* g, const float* hp,
+                                             int64_t st) {
+  for (int e = threadIdx.x; e < N * (kTP / 4); e += kTcThreads) {
+    const int n = e >> 4, c4 = (e & 15) * 4;
+    cp_async16(gd + swz64(n, c4), g + st + 4 * e);
+    cp_async16(hd + swz64(n, c4), hp + st + 4 * e);
+  }
+}
+
+// The A fragment of rows r0 .. r0 + 15 (r0 a multiple of 8) of a
+// swizzled tile, k8 step k (ldmatrix: rows 0-7 and 8-15 at slots 0-3,
+// then at 4-7), split.  The lane's row r has r % 8 = lane % 8, and its
+// 16-byte chunk 2k + h of the row's 16 sits at (2k + h) ^ (r % 8) (swz64).
+__device__ __forceinline__ Tf32A tf32_rows(const float* t, int r0, int k,
+                                           int lane) {
+  const int row = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  uint32_t a[4];
+  ldsm_x4(a, t + row * kTP + (((2 * k + (lane >> 4)) ^ (lane & 7)) << 2));
+  return Tf32A(__uint_as_float(a[0]), __uint_as_float(a[1]),
+               __uint_as_float(a[2]), __uint_as_float(a[3]));
+}
+
+// The B fragments of the n-tiles of rows n0 .. n0 + 7 and n0 + 8 .. n0 +
+// 15 of a swizzled tile read K-major (its columns the k of the product),
+// k8 step k, split.
+__device__ __forceinline__ void tf32_cols(Tf32B (&b)[2], const float* t,
+                                          int n0, int k, int lane) {
+  const int row = n0 + (lane & 7) + (lane >> 4) * 8;
+  uint32_t q[4];
+  ldsm_x4(q, t + row * kTP +
+                 (((2 * k + ((lane >> 3) & 1)) ^ (lane & 7)) << 2));
+  b[0] = Tf32B(__uint_as_float(q[0]), __uint_as_float(q[1]));
+  b[1] = Tf32B(__uint_as_float(q[2]), __uint_as_float(q[3]));
+}
+
+// (C . B^T)^T on the warp's rows j0.. of B against the i-tiles T0, T0 + 2,
+// .. of C (the two column halves take alternate tiles, at or right of the
+// diagonal's), three TF32 products over N, each slot pair of a lane one
+// 8-byte load of a row; stored in fragment order for the group's heads.
+template <int N, int T0>
+__device__ __forceinline__ void cbt_tf32(float4* cbs, const float* bs,
+                                         const float* cs, int r, int j0,
+                                         int lg, int cq, int lane) {
+  constexpr int kLdN = N + 8;
+  constexpr int NT = (9 - T0) / 2;
+  float cbt[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cbt[t][e] = 0.f;
+#pragma unroll 2
+  for (int kn = 0; kn < N / 8; ++kn) {
+    const float* br = bs + (j0 + lg) * kLdN + 8 * kn + 2 * cq;
+    const float2 v0 = *reinterpret_cast<const float2*>(br);
+    const float2 v1 = *reinterpret_cast<const float2*>(br + 8 * kLdN);
+    const Tf32A a(v0.x, v1.x, v0.y, v1.y);
+    Tf32B bt[NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          cs + (8 * (T0 + 2 * t) + lg) * kLdN + 8 * kn + 2 * cq);
+      bt[t] = Tf32B(v.x, v.y);
+    }
+    mma3<NT>(cbt, 0, a, bt);
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+    cbs[(r * 8 + T0 + 2 * t) * 32 + lane] =
+        make_float4(cbt[t][0], cbt[t][1], cbt[t][2], cbt[t][3]);
+}
+
+// The work of one warp of ssd_chunk_bwd_tf32, as chunk_bwd_tc_warp's:
+// rows 16 r .. 16 r + 15 of the chunk (j for dx, dB and the K tile, i for
+// dC) and half S of the columns of each product.  Every product is three
+// TF32 products on operands split as they reach the registers, on the
+// same slots for both operands: natural (k = c, c + 4) where the A
+// operand is read K-major from x, dy or the staged dC . B^T gradient,
+// permuted (k = 2c, 2c + 1) where it is an accumulator or a pair of B's
+// columns.  Each product is summed from zero on the tensor cores (a k8
+// step at a time, at most N / 8 steps) and added in fp32 where it joins a
+// running sum (dB, dC over the group's heads).
+template <int N, int S>
+__device__ __forceinline__ void chunk_bwd_tf32_warp(
+    const float* __restrict__ x, const float* __restrict__ dy,
+    const float* __restrict__ g, const float* __restrict__ hp,
+    float* __restrict__ dx, float* __restrict__ dcum,
+    float* __restrict__ ddt, float* __restrict__ db_part,
+    float* __restrict__ dc_part, unsigned char* smem_raw, int L, int H,
+    int G) {
+  constexpr int kLdN = N + 8;   // fp32 row of B and C
+  constexpr int NH = N / 2;     // this warp's half of N
+  constexpr int NTN = NH / 8;   // its n8 tiles
+  constexpr int kLdS = kTQ + 4; // the staged dC . B^T gradient's rows
+  const ChunkTf32Smem lay(N, G);
+  const float* cs = reinterpret_cast<const float*>(smem_raw + lay.c);
+  const float* bs = reinterpret_cast<const float*>(smem_raw + lay.b);
+  float* xs = reinterpret_cast<float*>(smem_raw + lay.x);
+  float* dys = reinterpret_cast<float*>(smem_raw + lay.dy);
+  float* gs = reinterpret_cast<float*>(smem_raw + lay.g);
+  float* hs = reinterpret_cast<float*>(smem_raw + lay.hp);
+  float4* cbs = reinterpret_cast<float4*>(smem_raw + lay.cb);
+  const float* dts = reinterpret_cast<const float*>(smem_raw + lay.dts);
+  const float* cums = reinterpret_cast<const float*>(smem_raw + lay.cums);
+  float* red_rowt = reinterpret_cast<float*>(smem_raw + lay.red);  // [4][Q]
+  float* red_colv = red_rowt + 4 * kTQ;    // [2][Q]: sum_i V_ij by half
+  float* red_ured = red_colv + 2 * kTQ;    // [2][Q]: <B_j (x) x_j, g>
+  float* red_inter = red_ured + 2 * kTQ;   // [2][Q]: <C_i . h_prev, dy_i>
+  float* red_gh = red_inter + 2 * kTQ;     // [8]: <g, h_prev> by warp
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lg = lane >> 2, cq = lane & 3;
+  const int r = warp & 3, j0 = 16 * r;
+  const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.x;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * kTQ;
+
+  // This lane's word offsets, in a swizzled tile, of rows 2c and 2c + 1
+  // at its column of each of its half's p n-tiles: the B fragments of g
+  // (B . g) and dy (dx's intra term) read MN-major in the permuted slots;
+  // a k8 step adds 8 rows (the swizzle repeats every 8).
+  int mn[4][2];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      mn[u][e] = swz64(2 * cq + e, 32 * S + 8 * u + lg);
+
+  // (C . B^T)^T: this warp's alternate i-tiles at or right of the
+  // diagonal's (i >= j); read for the group's heads by both halves.
+  if (r == 0) cbt_tf32<N, S>(cbs, bs, cs, r, j0, lg, cq, lane);
+  else if (r == 1) cbt_tf32<N, 2 + S>(cbs, bs, cs, r, j0, lg, cq, lane);
+  else if (r == 2) cbt_tf32<N, 4 + S>(cbs, bs, cs, r, j0, lg, cq, lane);
+  else cbt_tf32<N, 6 + S>(cbs, bs, cs, r, j0, lg, cq, lane);
+
+  // Over the group's heads: dcb the running sum of dW o E o dt
+  // (transposed: rows j, this warp's half of i), dba and dca the running
+  // dB (rows j) and dC (rows i) over this warp's half of n.
+  float dcb[4][4], dba[NTN][4], dca[NTN][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) dcb[t][e] = 0.f;
+#pragma unroll
+    for (int t = 0; t < NTN; ++t) dba[t][e] = dca[t][e] = 0.f;
+  }
+
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = grp * G + gi, buf = gi & 1;
+    // Head gi's tiles have landed; every warp is done with head gi - 1
+    // (its x and dy buffer, the (C . B^T)^T tiles the first time, the
+    // partial sums).
+    cp_async_wait_all();
+    group_sync(0, kTcThreads);
+    if (gi + 1 < G)
+      tf32_load_xdy(xs + (buf ^ 1) * kTQ * kTP, dys + (buf ^ 1) * kTQ * kTP,
+                    x, dy, row0, H, h + 1);
+    cp_async_commit();
+    const float* xb = xs + buf * kTQ * kTP;
+    const float* dyb = dys + buf * kTQ * kTP;
+    const float* dg = dts + gi * kTQ;
+    const float* cg = cums + gi * kTQ;
+    const float cl = cg[kTQ - 1];
+    // This thread's two rows, j0 + lg and j0 + lg + 8.
+    float dtr[2], cur[2], dr[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int j = j0 + lg + 8 * rr;
+      dtr[rr] = dg[j];
+      cur[rr] = cg[j];
+      dr[rr] = expf(cl - cur[rr]) * dtr[rr];   // d_j
+    }
+    // <g, h_prev> over this thread's float4s (the same places in both
+    // tiles).
+    {
+      constexpr int kPer = N * kTP / 4 / kTcThreads;
+      float gh = 0.f;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int e = tid + kTcThreads * k;
+        const float4 gv = reinterpret_cast<const float4*>(gs)[e];
+        const float4 hv = reinterpret_cast<const float4*>(hs)[e];
+        gh = fmaf(gv.x, hv.x, fmaf(gv.y, hv.y,
+             fmaf(gv.z, hv.z, fmaf(gv.w, hv.w, gh))));
+      }
+      gh = segment_sum(gh, 32);
+      if (lane == 0) red_gh[warp] = gh;
+    }
+
+    // dx's state term on this warp's half of p: B . g (k = n, permuted
+    // slots: B's columns 2c, 2c + 1 as one load, g's rows 2c, 2c + 1),
+    // and <B_j (x) x_j, g> = sum_p x_j[p] (B . g)[j][p] on the way.
+    float dxa[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dxa[t][e] = 0.f;
+#pragma unroll 2
+    for (int kn = 0; kn < N / 8; ++kn) {
+      const float* br = bs + (j0 + lg) * kLdN + 8 * kn + 2 * cq;
+      const float2 v0 = *reinterpret_cast<const float2*>(br);
+      const float2 v1 = *reinterpret_cast<const float2*>(br + 8 * kLdN);
+      const Tf32A a(v0.x, v1.x, v0.y, v1.y);
+      const float* gk = gs + 8 * kn * kTP;
+      Tf32B bt[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) bt[u] = Tf32B(gk[mn[u][0]], gk[mn[u][1]]);
+      mma3<4>(dxa, 0, a, bt);
+    }
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int pt = 0; pt < 4; ++pt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float2 xv = *reinterpret_cast<const float2*>(
+            xb + swz64(j0 + lg + 8 * rr, 32 * S + 8 * pt + 2 * cq));
+        part[rr] = fmaf(xv.x, dxa[pt][2 * rr],
+                        fmaf(xv.y, dxa[pt][2 * rr + 1], part[rr]));
+      }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      part[rr] = segment_sum(part[rr], 4);
+      if (cq == 0) red_ured[S * kTQ + j0 + lg + 8 * rr] = part[rr];
+#pragma unroll
+      for (int pt = 0; pt < 4; ++pt) {
+        dxa[pt][2 * rr] *= dr[rr];
+        dxa[pt][2 * rr + 1] *= dr[rr];
+      }
+    }
+
+    // x . g^T on this warp's half of n, into dB as d_j (x . g^T)_j.
+    {
+      float acc[NTN][4];
+#pragma unroll
+      for (int t = 0; t < NTN; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+      for (int kp = 0; kp < kTP / 8; ++kp) {
+        const Tf32A a = tf32_rows(xb, j0, kp, lane);
+#pragma unroll
+        for (int m = 0; m < NTN / 2; ++m) {
+          Tf32B bt[2];
+          tf32_cols(bt, gs, S * NH + 16 * m, kp, lane);
+          mma3<2>(acc, 2 * m, a, bt);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dba[nt][e] = fmaf(dr[e >> 1], acc[nt][e], dba[nt][e]);
+    }
+
+    // dy . h_prev^T on this warp's half of n (rows i), into dC as
+    // exp(cum_i) (dy . h_prev^T)_i, and <C_i . h_prev, dy_i> on the way.
+    {
+      float acc[NTN][4];
+#pragma unroll
+      for (int t = 0; t < NTN; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+      for (int kp = 0; kp < kTP / 8; ++kp) {
+        const Tf32A a = tf32_rows(dyb, j0, kp, lane);
+#pragma unroll
+        for (int m = 0; m < NTN / 2; ++m) {
+          Tf32B bt[2];
+          tf32_cols(bt, hs, S * NH + 16 * m, kp, lane);
+          mma3<2>(acc, 2 * m, a, bt);
+        }
+      }
+      float ip[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int i = j0 + lg + 8 * rr;
+        const float ec = expf(cur[rr]);
+#pragma unroll
+        for (int nt = 0; nt < NTN; ++nt) {
+          const float2 cv = *reinterpret_cast<const float2*>(
+              cs + i * kLdN + S * NH + 8 * nt + 2 * cq);
+          ip[rr] = fmaf(cv.x, acc[nt][2 * rr],
+                        fmaf(cv.y, acc[nt][2 * rr + 1], ip[rr]));
+          dca[nt][2 * rr] = fmaf(ec, acc[nt][2 * rr], dca[nt][2 * rr]);
+          dca[nt][2 * rr + 1] =
+              fmaf(ec, acc[nt][2 * rr + 1], dca[nt][2 * rr + 1]);
+        }
+        ip[rr] = segment_sum(ip[rr], 4);
+        if (cq == 0) red_inter[S * kTQ + i] = ip[rr];
+      }
+    }
+
+    // Every read of g and h_prev is done: the next head's copies go out
+    // while the block works on x and dy.
+    group_sync(0, kTcThreads);
+    if (gi + 1 < G)
+      tf32_load_gh<N>(gs, hs, g, hp,
+                      (((int64_t)b * nc + c) * H + h + 1) * (int64_t)N * kTP);
+    cp_async_commit();
+
+    // dW^T = x . dy^T on this warp's half of i.
+    float dwt[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dwt[t][e] = 0.f;
+#pragma unroll 1
+    for (int kp = 0; kp < kTP / 8; ++kp) {
+      const Tf32A a = tf32_rows(xb, j0, kp, lane);
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        if (2 * S + l < r) continue;   // every i of the pair is below j
+        Tf32B bt[2];
+        tf32_cols(bt, dyb, 16 * (2 * S + l), kp, lane);
+        mma3<2>(dwt, 2 * l, a, bt);
+      }
+    }
+
+    // dx's intra term, (K o dt)^T . dy, with K^T o dt built in registers
+    // from (C . B^T)^T's fragments k8 step by k8 step (an accumulator
+    // tile's columns 2c, 2c + 1 as the slots c, c + 4, dy's rows 2c,
+    // 2c + 1 in the same slots); on this warp's half of i also V = dW o K
+    // (row sums: sum_i V_ij; column sums of V o dt_j: sum_j T_ij) and the
+    // running sum of dW o E o dt.
+    float colp[2] = {0.f, 0.f}, tcol[4][2];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) tcol[t][0] = tcol[t][1] = 0.f;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      if (t < 2 * r) continue;    // every i of the step is below j
+      const int i = 8 * t + 2 * cq;
+      const float ci[2] = {cg[i], cg[i + 1]};
+      const float4 cb4 = cbs[(r * 8 + t) * 32 + lane];
+      const float cbt[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+      float w[2][2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int j = j0 + lg + 8 * rr;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // E_ij = exp(cum_i - cum_j) for i >= j, else a plain 0.
+          const float ex = i + e >= j ? expf(ci[e] - cur[rr]) : 0.f;
+          const float kv = cbt[2 * rr + e] * ex;
+          w[rr][e] = kv * dtr[rr];
+          if ((t >> 2) == S) {
+            const int lt = t & 3;   // the tile within this half
+            const float dw = dwt[lt][2 * rr + e];
+            const float v = dw * kv;
+            colp[rr] += v;
+            tcol[lt][e] = fmaf(v, dtr[rr], tcol[lt][e]);
+            dcb[lt][2 * rr + e] = fmaf(dw * ex, dtr[rr], dcb[lt][2 * rr + e]);
+          }
+        }
+      }
+      const Tf32A wa(w[0][0], w[1][0], w[0][1], w[1][1]);
+      const float* dk = dyb + 8 * t * kTP;
+      Tf32B bt[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) bt[u] = Tf32B(dk[mn[u][0]], dk[mn[u][1]]);
+      mma3<4>(dxa, 0, wa, bt);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float* o = dx + ((row0 + j0 + lg + 8 * rr) * H + h) * kTP + 32 * S +
+                 2 * cq;
+#pragma unroll
+      for (int pt = 0; pt < 4; ++pt)
+        *reinterpret_cast<float2*>(o + 8 * pt) =
+            make_float2(dxa[pt][2 * rr], dxa[pt][2 * rr + 1]);
+      colp[rr] = segment_sum(colp[rr], 4);
+      if (cq == 0) red_colv[S * kTQ + j0 + lg + 8 * rr] = colp[rr];
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = column_sum(tcol[t][e]);
+        if (lg == 0) red_rowt[r * kTQ + 32 * S + 8 * t + 2 * cq + e] = v;
+      }
+
+    group_sync(0, kTcThreads);
+
+    // dcum and ddt of the head's rows, from the partial sums in a fixed
+    // order: warp 0, two rows a lane.
+    if (warp == 0) {
+      float v[2], w[2], tail = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = lane + 32 * u;
+        const float rowt = ((red_rowt[j] + red_rowt[kTQ + j]) +
+                            red_rowt[2 * kTQ + j]) + red_rowt[3 * kTQ + j];
+        const float colv = red_colv[j] + red_colv[kTQ + j];
+        const float ured = red_ured[j] + red_ured[kTQ + j];
+        const float inter =
+            expf(cg[j]) * (red_inter[j] + red_inter[kTQ + j]);
+        const float dex = expf(cl - cg[j]), dj = dex * dg[j];
+        v[u] = rowt - dg[j] * colv - dj * ured + inter;
+        w[u] = fmaf(dex, ured, colv);
+        tail = fmaf(dj, ured, tail);
+      }
+      tail = segment_sum(tail, 32);
+      if (lane == 31) {
+        float gh = 0.f;
+        for (int k = 0; k < kTcThreads / 32; ++k) gh += red_gh[k];
+        v[1] += expf(cl) * gh + tail;   // row Q - 1: the chunk's decay
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int64_t o = (row0 + lane + 32 * u) * H + h;
+        dcum[o] = v[u];
+        ddt[o] = w[u];
+      }
+    }
+  }
+
+  // dB += (sum_h dW o E o dt)^T . C and dC += (sum_h dW o E o dt) . B,
+  // the sum staged over the x buffers as rows j and over the dy buffers as
+  // rows i (no copy is in flight), so that both products read their A
+  // operand K-major; each summed from zero and added to the running sums;
+  // then this group's partial sums.
+  float* scr = xs;    // [j][kLdS]
+  float* scrt = dys;  // [i][kLdS]
+  group_sync(0, kTcThreads);   // every warp is done with the last head
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int j = j0 + lg + 8 * rr, i = 32 * S + 8 * t + 2 * cq;
+      *reinterpret_cast<float2*>(scr + j * kLdS + i) =
+          make_float2(dcb[t][2 * rr], dcb[t][2 * rr + 1]);
+      scrt[i * kLdS + j] = dcb[t][2 * rr];
+      scrt[(i + 1) * kLdS + j] = dcb[t][2 * rr + 1];
+    }
+  group_sync(0, kTcThreads);
+  {
+    float acc[NTN][4];
+#pragma unroll
+    for (int t = 0; t < NTN; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+    for (int kt = 0; kt < kTQ / 8; ++kt) {
+      if (kt < 2 * r) continue;   // rows j against i >= j
+      const float* sr = scr + (j0 + lg) * kLdS + 8 * kt + cq;
+      const Tf32A a(sr[0], sr[8 * kLdS], sr[4], sr[8 * kLdS + 4]);
+      Tf32B bt[NTN];
+#pragma unroll
+      for (int nt = 0; nt < NTN; ++nt) {
+        const float* cr = cs + (8 * kt + cq) * kLdN + S * NH + 8 * nt + lg;
+        bt[nt] = Tf32B(cr[0], cr[4 * kLdN]);
+      }
+      mma3<NTN>(acc, 0, a, bt);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dba[nt][e] += acc[nt][e];
+  }
+  {
+    float acc[NTN][4];
+#pragma unroll
+    for (int t = 0; t < NTN; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+    for (int kt = 0; kt < kTQ / 8; ++kt) {
+      if (kt > 2 * r + 1) continue;   // rows i against j <= i
+      const float* sr = scrt + (j0 + lg) * kLdS + 8 * kt + cq;
+      const Tf32A a(sr[0], sr[8 * kLdS], sr[4], sr[8 * kLdS + 4]);
+      Tf32B bt[NTN];
+#pragma unroll
+      for (int nt = 0; nt < NTN; ++nt) {
+        const float* br = bs + (8 * kt + cq) * kLdN + S * NH + 8 * nt + lg;
+        bt[nt] = Tf32B(br[0], br[4 * kLdN]);
+      }
+      mma3<NTN>(acc, 0, a, bt);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dca[nt][e] += acc[nt][e];
+  }
+  const int64_t part0 = (int64_t)grp * gridDim.z * L * N;   // this group
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int64_t o = part0 + (row0 + j0 + lg + 8 * rr) * N + S * NH +
+                      2 * cq;
+#pragma unroll
+    for (int nt = 0; nt < NTN; ++nt) {
+      *reinterpret_cast<float2*>(db_part + o + 8 * nt) =
+          make_float2(dba[nt][2 * rr], dba[nt][2 * rr + 1]);
+      *reinterpret_cast<float2*>(dc_part + o + 8 * nt) =
+          make_float2(dca[nt][2 * rr], dca[nt][2 * rr + 1]);
+    }
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    ssd_chunk_bwd_tf32(const float* __restrict__ x,
+                       const float* __restrict__ dt,
+                       const float* __restrict__ cum,
+                       const float* __restrict__ bm,
+                       const float* __restrict__ cm,
+                       const float* __restrict__ dy,
+                       const float* __restrict__ g,
+                       const float* __restrict__ hp, float* __restrict__ dx,
+                       float* __restrict__ dcum, float* __restrict__ ddt,
+                       float* __restrict__ db_part,
+                       float* __restrict__ dc_part, int L, int H, int G) {
+  constexpr int kLdN = N + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ChunkTf32Smem lay(N, G);
+  float* cs = reinterpret_cast<float*>(smem_raw + lay.c);
+  float* bs = reinterpret_cast<float*>(smem_raw + lay.b);
+  float* dts = reinterpret_cast<float*>(smem_raw + lay.dts);
+  float* cums = reinterpret_cast<float*>(smem_raw + lay.cums);
+  const int tid = threadIdx.x;
+  const int c = blockIdx.x, h0 = blockIdx.y * G, b = blockIdx.z;
+  const int nc = gridDim.x;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * kTQ;
+
+  // B and C once per group, and the first head's x, dy, g and h_prev.
+  for (int e = tid; e < kTQ * (N / 4); e += kTcThreads) {
+    const int i = e / (N / 4), k4 = (e % (N / 4)) * 4;
+    cp_async16(cs + i * kLdN + k4, cm + (row0 + i) * N + k4);
+    cp_async16(bs + i * kLdN + k4, bm + (row0 + i) * N + k4);
+  }
+  tf32_load_xdy(reinterpret_cast<float*>(smem_raw + lay.x),
+                reinterpret_cast<float*>(smem_raw + lay.dy), x, dy, row0, H,
+                h0);
+  tf32_load_gh<N>(reinterpret_cast<float*>(smem_raw + lay.g),
+                  reinterpret_cast<float*>(smem_raw + lay.hp), g, hp,
+                  (((int64_t)b * nc + c) * H + h0) * (int64_t)N * kTP);
+  cp_async_commit();
+  for (int e = tid; e < kTQ * G; e += kTcThreads) {
+    const int i = e / G, gi = e % G;
+    dts[gi * kTQ + i] = dt[(row0 + i) * H + h0 + gi];
+    cums[gi * kTQ + i] = cum[(row0 + i) * H + h0 + gi];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // Warps 0-3 take the first half of each product's columns, 4-7 the
+  // second; both run the same barriers in the same order.
+  if (tid < kTcThreads / 2)
+    chunk_bwd_tf32_warp<N, 0>(x, dy, g, hp, dx, dcum, ddt, db_part, dc_part,
+                              smem_raw, L, H, G);
+  else
+    chunk_bwd_tf32_warp<N, 1>(x, dy, g, hp, dx, dcum, ddt, db_part, dc_part,
+                              smem_raw, L, H, G);
+}
+
+template <int N>
+cudaError_t launch_chunk_bwd_tf32(const void* x, const void* dt,
+                                  const void* cum, const void* bm,
+                                  const void* cm, const void* dy,
+                                  const void* g, const void* hp, void* dx,
+                                  void* dcum, void* ddt, void* db_part,
+                                  void* dc_part, int B, int L, int H, int G,
+                                  cudaStream_t stream) {
+  const size_t smem = ChunkTf32Smem(N, G).total;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_bwd_tf32<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(L / kTQ, H / G, B);
+  ssd_chunk_bwd_tf32<N><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(cum), static_cast<const float*>(bm),
+      static_cast<const float*>(cm), static_cast<const float*>(dy),
+      static_cast<const float*>(g), static_cast<const float*>(hp),
+      static_cast<float*>(dx), static_cast<float*>(dcum),
+      static_cast<float*>(ddt), static_cast<float*>(db_part),
+      static_cast<float*>(dc_part), L, H, G);
+  return cudaGetLastError();
+}
+
 // Shared-memory layout of ssd_carry_bwd_tc, in bytes
 // (ssd_bwd_tc_smem_bytes reports it): the forward walk's ring of
 // state slices, the reverse walk's rings of C slices, dy tiles and cum
@@ -1721,7 +2372,8 @@ extern "C" int ssd_carry_bwd_launch(const void* states, const void* cum,
 // [H / G, B, L, N] fp32; all contiguous and 16-byte aligned.  Q from 1 to
 // 256, P a multiple of 4 up to 64, N a power of two from 8 to 128, G a
 // divisor of H up to 16.  tc = 0 runs ssd_chunk_bwd on the CUDA cores;
-// tc = 1 runs ssd_chunk_bwd_tc (bf16 at Q = P = 64, N = 64 or 128).
+// tc = 1, at Q = P = 64 and N = 64 or 128, runs ssd_chunk_bwd_tc for bf16
+// and ssd_chunk_bwd_tf32 for fp32.
 extern "C" int ssd_chunk_bwd_launch(const void* x, const void* dt,
                                     const void* cum, const void* bm,
                                     const void* cm, const void* dy,
@@ -1735,14 +2387,14 @@ extern "C" int ssd_chunk_bwd_launch(const void* x, const void* dt,
       N < 8 || N > 128 || G < 1 || G > kMaxGroup || H % G)
     return (int)cudaErrorInvalidValue;
   if (tc) {
-    if (dtype != 1 || Q != kTQ || P != kTP)
-      return (int)cudaErrorInvalidValue;
-#define SSD_CHUNK_BWD_TC(NN)                                                \
-  return (int)launch_chunk_bwd_tc<NN>(x, dt, cum, bm, cm, dy, g, hp, dx,    \
-                                      dcum, ddt, db_part, dc_part, B, L, H, \
-                                      G, s)
-    if (N == 64) SSD_CHUNK_BWD_TC(64);
-    if (N == 128) SSD_CHUNK_BWD_TC(128);
+    if (Q != kTQ || P != kTP) return (int)cudaErrorInvalidValue;
+#define SSD_CHUNK_BWD_TC(KERNEL, NN)                                        \
+  return (int)KERNEL<NN>(x, dt, cum, bm, cm, dy, g, hp, dx, dcum, ddt,      \
+                         db_part, dc_part, B, L, H, G, s)
+    if (dtype == 1 && N == 64) SSD_CHUNK_BWD_TC(launch_chunk_bwd_tc, 64);
+    if (dtype == 1 && N == 128) SSD_CHUNK_BWD_TC(launch_chunk_bwd_tc, 128);
+    if (dtype == 0 && N == 64) SSD_CHUNK_BWD_TC(launch_chunk_bwd_tf32, 64);
+    if (dtype == 0 && N == 128) SSD_CHUNK_BWD_TC(launch_chunk_bwd_tf32, 128);
 #undef SSD_CHUNK_BWD_TC
     return (int)cudaErrorInvalidValue;
   }
@@ -1768,6 +2420,13 @@ extern "C" int ssd_bwd_tc_smem_bytes(int which, int N, int n) {
   if (which == 0) return (int)ChunkTcSmem(N, n).total;
   if (which == 1) return (int)CarryTcSmem(kCarryRows, n).total;
   return -1;
+}
+
+// Dynamic shared memory (bytes) of ssd_chunk_bwd_tf32 at state size N
+// with G heads a block; -1 for anything else.
+extern "C" int ssd_chunk_bwd_tf32_smem_bytes(int N, int G) {
+  if ((N != 64 && N != 128) || G < 1) return -1;
+  return (int)ChunkTf32Smem(N, G).total;
 }
 
 // Dynamic shared memory (bytes) of an ssd_chunk_bwd block (which = 0) or

@@ -1,18 +1,23 @@
 """Build and launch the CUDA SSD kernels (``csrc/ssd.cu``): the
-intra-chunk pass (:func:`ssd_chunks_cuda`; bf16 on the tensor cores at
-the serving shapes, fp32 on the CUDA cores) and the inter-chunk carry
+intra-chunk pass (:func:`ssd_chunks_cuda`) and the inter-chunk carry
 (:func:`ssd_carry_cuda`); and their gradient (``csrc/ssd_bwd.cu``, its
 own library): the carry's two walks (:func:`ssd_carry_bwd_cuda`) and each
-chunk's gradients (:func:`ssd_chunk_bwd_cuda`).  The backward wrappers
-choose the kernel by dtype and shape (:func:`bwd_kernels`): bf16 at
-Q = P = 64, N in {64, 128} on the tensor cores (``ssd_carry_bwd_tc``,
-``ssd_chunk_bwd_tc``: ``mma.sync`` with the fp32 operands in
-``BWD_TERMS`` bf16 terms, the next head's or chunks' tiles copied with
-``cp.async`` while the block computes; bound by bytes), fp32 and every
-other shape on the CUDA cores in fp32 (``ssd_carry_bwd``,
-``ssd_chunk_bwd``).  A refused launch raises: there is no fallback from
-one kernel to the other.  ``BWD_KERNEL_LAUNCHES`` counts each backward
-kernel's launches.
+chunk's gradients (:func:`ssd_chunk_bwd_cuda`).  The wrappers choose the
+kernel by dtype and shape (:func:`fwd_kernels`, :func:`bwd_kernels`): at
+Q = P = 64, N in {64, 128} (the models' shapes) the chunk pass and the
+chunk backward run on the tensor cores with ``mma.sync`` — bf16 in
+``ssd_chunk_tc`` and ``ssd_chunk_bwd_tc`` (fp32 operands in ``TERMS`` or
+``BWD_TERMS`` bf16 terms), fp32 in ``ssd_chunk_tf32`` and
+``ssd_chunk_bwd_tf32`` (TF32, ``TF32_TERMS`` = three products a
+product) — and the bf16 carry backward in ``ssd_carry_bwd_tc``; the next
+head's or chunks' tiles are copied with ``cp.async`` while a block
+computes, and every one of them is bound by bytes.  Every other shape,
+and the fp32 carries, run on the CUDA cores in fp32 (``ssd_chunk_kernel``,
+``ssd_carry_bwd``, ``ssd_chunk_bwd``); the forward carry is
+``ssd_carry_tc`` for bf16 C at Q and N multiples of 16, else
+``ssd_carry_kernel``.  A refused launch raises: there is no fallback from
+one kernel to the other.  ``FWD_KERNEL_LAUNCHES`` and
+``BWD_KERNEL_LAUNCHES`` count each kernel's launches.
 
 Each library is compiled at first use with ``nvcc`` for ``sm_90a``
 (``kernels/build.py``) and loaded with ``ctypes``; nothing is built when
@@ -39,7 +44,17 @@ MAX_GRID_YZ = 65535
 # bf16 terms of the tensor-core kernel's fp32 operands (W and
 # B ⊙ dec_end); PERF.md has the worst ratio to the bar per term count.
 TERMS = 2
-TC_Q, TC_P, TC_N = 64, 64, (64, 128)   # shapes the tensor-core kernel takes
+# TF32 products a product of the fp32 tensor-core kernels (hi·hi + hi·lo +
+# lo·hi): the ``terms`` that asks for ``ssd_chunk_tf32`` (``kTf32Terms``
+# in csrc/ssd.cu).
+TF32_TERMS = 3
+TC_Q, TC_P, TC_N = 64, 64, (64, 128)   # shapes the tensor-core kernels take
+# Launches of each forward kernel through the wrappers below (the op's
+# forward and its backward's chunk-state launch alike; reset them to 0 and
+# read them back around a run).
+FWD_KERNELS = ("ssd_chunk_kernel", "ssd_chunk_tc", "ssd_chunk_tf32",
+               "ssd_carry_kernel", "ssd_carry_tc")
+FWD_KERNEL_LAUNCHES = dict.fromkeys(FWD_KERNELS, 0)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -52,6 +67,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_smem_bytes.restype = ctypes.c_int
     lib.ssd_carry_plan.argtypes = [I] * 6 + [P]
     lib.ssd_carry_plan.restype = ctypes.c_int
+    lib.ssd_chunk_tf32_smem_bytes.argtypes = [I] * 2
+    lib.ssd_chunk_tf32_smem_bytes.restype = ctypes.c_int
+    lib.ssd_chunk_tf32_heads.argtypes = [I] * 3
+    lib.ssd_chunk_tf32_heads.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
@@ -60,8 +79,10 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.ssd_chunk_bwd_launch.argtypes = [P] * 13 + [I] * 9 + [P]
     lib.ssd_bwd_tc_smem_bytes.argtypes = [I] * 3
     lib.ssd_bwd_smem_bytes.argtypes = [I] * 4
+    lib.ssd_chunk_bwd_tf32_smem_bytes.argtypes = [I] * 2
     for fn in (lib.ssd_carry_bwd_launch, lib.ssd_chunk_bwd_launch,
-               lib.ssd_bwd_tc_smem_bytes, lib.ssd_bwd_smem_bytes):
+               lib.ssd_bwd_tc_smem_bytes, lib.ssd_bwd_smem_bytes,
+               lib.ssd_chunk_bwd_tf32_smem_bytes):
         fn.restype = ctypes.c_int
 
 
@@ -79,10 +100,11 @@ LIB_BWD = CudaLibrary("ssd_bwd", CSRC / "ssd_bwd.cu", (), _bind_bwd,
 # output within half its bar.  csrc/ssd_bwd.cu's kBwdTerms is the same.
 BWD_TERMS = 2
 # Launches of each backward kernel through the wrappers below (reset them
-# to 0 and read them back around a run): the CUDA-core kernels take fp32
-# and the shapes the tensor-core ones (``_tc``, :func:`tc_shape`) do not.
+# to 0 and read them back around a run): the CUDA-core kernels take the
+# shapes the tensor-core ones (``_tc`` for bf16, :func:`tc_shape`;
+# ``_tf32`` for fp32, :func:`tf32_shape`) do not, and the fp32 carry.
 BWD_KERNELS = ("ssd_carry_bwd", "ssd_chunk_bwd", "ssd_carry_bwd_tc",
-               "ssd_chunk_bwd_tc")
+               "ssd_chunk_bwd_tc", "ssd_chunk_bwd_tf32")
 BWD_KERNEL_LAUNCHES = dict.fromkeys(BWD_KERNELS, 0)
 # The longest chunk the kernels take, forward and backward.
 MAX_CHUNK = 256
@@ -171,8 +193,15 @@ def _check_max_chunk(chunk: int, what: str) -> None:
 
 
 def tc_shape(dtype: torch.dtype, Q: int, P: int, N: int) -> bool:
-    """Whether the tensor-core kernel takes this chunk pass."""
+    """Whether the bf16 tensor-core kernels (``_tc``) take this chunk."""
     return dtype == torch.bfloat16 and Q == TC_Q and P == TC_P \
+        and N in TC_N
+
+
+def tf32_shape(dtype: torch.dtype, Q: int, P: int, N: int) -> bool:
+    """Whether the fp32 tensor-core kernels (``_tf32``) take this chunk:
+    fp32 at the bf16 ones' shapes."""
+    return dtype == torch.float32 and Q == TC_Q and P == TC_P \
         and N in TC_N
 
 
@@ -180,13 +209,47 @@ def fwd_kernels(dtype: torch.dtype, Q: int, P: int, N: int
                 ) -> Tuple[str, str]:
     """(chunk, carry) forward kernels :func:`ssd_chunks_cuda` and
     :func:`ssd_carry_cuda` launch for x, B and C of ``dtype`` at this
-    shape: ``ssd_chunk_tc`` where :func:`tc_shape` holds, else
+    shape: ``ssd_chunk_tc`` where :func:`tc_shape` holds,
+    ``ssd_chunk_tf32`` where :func:`tf32_shape` does, else
     ``ssd_chunk_kernel``; ``ssd_carry_tc`` for bf16 C at Q and N
     multiples of 16, else ``ssd_carry_kernel`` (as ``launch_carry`` in
     ``csrc/ssd.cu``)."""
-    chunk = "ssd_chunk_tc" if tc_shape(dtype, Q, P, N) else "ssd_chunk_kernel"
+    chunk = ("ssd_chunk_tc" if tc_shape(dtype, Q, P, N) else
+             "ssd_chunk_tf32" if tf32_shape(dtype, Q, P, N) else
+             "ssd_chunk_kernel")
     tc = dtype == torch.bfloat16 and Q % 16 == 0 and N % 16 == 0
     return chunk, "ssd_carry_tc" if tc else "ssd_carry_kernel"
+
+
+def chunk_tf32_smem_bytes(N: int, G: int) -> int:
+    """Dynamic shared memory of one ``ssd_chunk_tf32`` block with G heads
+    (as ``tf32_smem_bytes`` in ``csrc/ssd.cu``): C and B [64, N + 4] and
+    two x buffers [64, 68], fp32; dt, cum and dec_end [G, 64]."""
+    return 4 * (2 * TC_Q * (N + 4) + 2 * TC_Q * (TC_P + 4) + 3 * G * TC_Q)
+
+
+def tf32_heads(pairs: int, H: int, slots: int) -> int:
+    """Heads per block of the fp32 tensor-core kernels over ``pairs``
+    (batch, chunk) pairs when ``slots`` blocks fit the card at once (as
+    ``tf32_heads`` in ``csrc/ssd_mma.cuh``): the divisor g of H up to 16
+    that minimises ceil(blocks / slots)·(g + 1) — the grid's waves times a
+    block's work, its g heads and about one head's more done once a block
+    — the larger g on a tie."""
+    best, cost = 1, None
+    for g in range(1, 17):
+        if H % g:
+            continue
+        c = -(-pairs * (H // g) // slots) * (g + 1)
+        if cost is None or c <= cost:
+            best, cost = g, c
+    return best
+
+
+def chunk_tf32_heads(pairs: int, H: int, sms: int) -> int:
+    """Heads per ``ssd_chunk_tf32`` block (``tf32_heads_per_block`` in
+    ``csrc/ssd.cu``) on a card of ``sms`` SMs: :func:`tf32_heads` with two
+    blocks an SM.  The outputs do not depend on it."""
+    return tf32_heads(pairs, H, 2 * sms)
 
 
 def _check_aligned(**tensors) -> None:
@@ -217,10 +280,12 @@ def ssd_chunks_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     contiguous.  Returns (y_intra [B,L,H,P], states [B,nc,H,N,P]), fp32,
     without synchronising.
 
-    ``terms``: None takes the tensor-core kernel with ``TERMS`` bf16 terms
-    where it applies (:func:`tc_shape`) and the CUDA-core kernel
-    elsewhere; 0 forces the CUDA-core kernel; 1-3 ask for the tensor-core
-    kernel with that many terms."""
+    ``terms``: None takes the tensor-core kernel where it applies
+    (:func:`fwd_kernels`: bf16 with ``TERMS`` bf16 terms, fp32 with
+    ``TF32_TERMS`` TF32 products) and the CUDA-core kernel elsewhere; 0
+    forces the CUDA-core kernel; for bf16 1-3 ask for ``ssd_chunk_tc``
+    with that many terms, for fp32 ``TF32_TERMS`` for
+    ``ssd_chunk_tf32``."""
     if x.dim() != 4:
         raise ValueError(f"x must be [B, L, H, P], got {list(x.shape)}")
     Bsz, L, H, P = x.shape
@@ -246,13 +311,15 @@ def ssd_chunks_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     tc = tc_shape(x.dtype, chunk, P, N)
+    tf32 = tf32_shape(x.dtype, chunk, P, N)
     if terms is None:
-        terms = TERMS if tc else 0
-    if terms not in (0, 1, 2, 3) or (terms and not tc):
-        raise ValueError(f"the tensor-core kernel takes bf16 at Q = "
-                         f"{TC_Q}, P = {TC_P}, N in {TC_N} with 1-3 terms; "
-                         f"got terms={terms} for {x.dtype}, Q {chunk}, "
-                         f"P {P}, N {N}")
+        terms = TERMS if tc else TF32_TERMS if tf32 else 0
+    if terms and not (tc and terms in (1, 2, 3)
+                      or tf32 and terms == TF32_TERMS):
+        raise ValueError(f"the tensor-core kernels take Q = {TC_Q}, P = "
+                         f"{TC_P}, N in {TC_N}: bf16 with 1-3 terms, fp32 "
+                         f"with {TF32_TERMS}; got terms={terms} for "
+                         f"{x.dtype}, Q {chunk}, P {P}, N {N}")
     if terms:    # 16-byte cp.async copies
         _check_aligned(x=x, Bm=Bm, Cm=Cm)
     _check_max_chunk(chunk, "SSD chunk kernel")
@@ -270,7 +337,10 @@ def ssd_chunks_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
         x.data_ptr(), dt.data_ptr(), cum.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), states.data_ptr(), DTYPES[x.dtype],
         Bsz, L, H, P, N, chunk, terms, stream)
-    check_launch(err, "SSD chunk")
+    name = ("ssd_chunk_kernel" if not terms else
+            "ssd_chunk_tf32" if tf32 else "ssd_chunk_tc")
+    check_launch(err, name)
+    FWD_KERNEL_LAUNCHES[name] += 1
     return y, states
 
 
@@ -320,7 +390,9 @@ def ssd_carry_cuda(y_intra: torch.Tensor, states: torch.Tensor,
         Cm.data_ptr(), None if init_state is None else init_state.data_ptr(),
         y.data_ptr(), final.data_ptr(), DTYPES[Cm.dtype], DTYPES[out_dtype],
         Bsz, L, H, P, N, chunk, stream)
-    check_launch(err, "SSD carry")
+    name = fwd_kernels(Cm.dtype, chunk, P, N)[1]
+    check_launch(err, name)
+    FWD_KERNEL_LAUNCHES[name] += 1
     return y, final
 
 
@@ -345,14 +417,38 @@ def chunk_bwd_smem_bytes(Q: int, N: int, P: int) -> int:
                 + 10 * T + 16)
 
 
+def chunk_bwd_tf32_smem_bytes(N: int, G: int) -> int:
+    """Dynamic shared memory of one ``ssd_chunk_bwd_tf32`` block with G
+    heads (as ``ChunkTf32Smem`` in ``csrc/ssd_bwd.cu``): C and B [64,
+    N + 8] fp32; the (C·Bᵀ)ᵀ fragments (16 KiB); two x and two dy buffers
+    [64, 64], one g and one h_prev [N, 64], fp32; dt and cum [G, 64]; the
+    per-head partial sums (10·64 + 8 floats)."""
+    return (2 * TC_Q * (N + 8) * 4 + 4 * 8 * 32 * 16 + 4 * TC_Q * TC_P * 4
+            + 2 * N * TC_P * 4 + 2 * G * TC_Q * 4 + (10 * TC_Q + 8) * 4)
+
+
 def bwd_kernels(dtype: torch.dtype, Q: int, P: int, N: int
                 ) -> Tuple[str, str]:
     """(carry, chunk) backward kernels the wrappers launch for inputs of
-    ``dtype`` at this shape: the tensor-core pair where the forward's
-    tensor-core chunk kernel applies (:func:`tc_shape`), else the
-    CUDA-core pair."""
-    tc = "_tc" if tc_shape(dtype, Q, P, N) else ""
-    return f"ssd_carry_bwd{tc}", f"ssd_chunk_bwd{tc}"
+    ``dtype`` at this shape: where the forward's tensor-core chunk kernels
+    apply, the bf16 tensor-core pair (:func:`tc_shape`) or, for fp32
+    (:func:`tf32_shape`), ``ssd_chunk_bwd_tf32`` beside the CUDA-core
+    carry; else the CUDA-core pair."""
+    if tc_shape(dtype, Q, P, N):
+        return "ssd_carry_bwd_tc", "ssd_chunk_bwd_tc"
+    if tf32_shape(dtype, Q, P, N):
+        return "ssd_carry_bwd", "ssd_chunk_bwd_tf32"
+    return "ssd_carry_bwd", "ssd_chunk_bwd"
+
+
+def chunk_bwd_heads(kernel: str, pairs: int, H: int, sms: int) -> int:
+    """Heads per block (and per dB, dC partial sum) of the chunk backward
+    ``kernel`` (a name :func:`bwd_kernels` gives) on a card of ``sms``
+    SMs: ``ssd_chunk_bwd_tf32`` :func:`tf32_heads` with one block an SM
+    (its shared memory), the others :func:`bwd_heads_per_block`."""
+    if kernel == "ssd_chunk_bwd_tf32":
+        return tf32_heads(pairs, H, sms)
+    return bwd_heads_per_block(pairs, H, sms)
 
 
 def bwd_heads_per_block(pairs: int, H: int, sms: int) -> int:
@@ -444,10 +540,11 @@ def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     g and h_prev [B,nc,H,N,P] fp32 (:func:`ssd_carry_bwd_cuda`'s).
     Returns (dx [B,L,H,P], dcum [B,L,H], ddt [B,L,H], dB, dC
     [groups,B,L,N]), fp32, as ``ref.ssd_chunk_bwd_ref`` with
-    :func:`bwd_heads_per_block`'s heads per group on x's card, without
+    :func:`chunk_bwd_heads`'s heads per group on x's card, without
     synchronising.  The kernel follows :func:`bwd_kernels`:
-    ``ssd_chunk_bwd_tc`` for bf16 at the tensor-core shapes,
-    ``ssd_chunk_bwd`` otherwise or when ``cuda_cores`` is set."""
+    ``ssd_chunk_bwd_tc`` for bf16 and ``ssd_chunk_bwd_tf32`` for fp32 at
+    the tensor-core shapes, ``ssd_chunk_bwd`` otherwise or when
+    ``cuda_cores`` is set."""
     if x.dim() != 4 or x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_bwd_cuda needs a CUDA x [B, L, H, P], "
                          f"got {list(x.shape)} on {x.device}")
@@ -461,9 +558,11 @@ def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                          f"P {P}, N {N}")
     if x.dtype not in DTYPES:
         raise ValueError(f"unsupported dtype {x.dtype}")
-    tc = tc_shape(x.dtype, chunk, P, N) and not cuda_cores
-    G = bwd_heads_per_block(
-        Bsz * nc, H,
+    name = "ssd_chunk_bwd" if cuda_cores else bwd_kernels(x.dtype, chunk, P,
+                                                          N)[1]
+    tc = name != "ssd_chunk_bwd"
+    G = chunk_bwd_heads(
+        name, Bsz * nc, H,
         torch.cuda.get_device_properties(x.device).multi_processor_count)
     if not tc and chunk_bwd_smem_bytes(chunk, N, P) > MAX_SMEM_BYTES:
         raise ValueError(f"chunk {chunk}, N {N}, P {P} need "
@@ -495,7 +594,6 @@ def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
         dx.data_ptr(), dcum.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
         dC.data_ptr(), DTYPES[x.dtype], Bsz, L, H, P, N, chunk, G, int(tc),
         stream)
-    name = "ssd_chunk_bwd_tc" if tc else "ssd_chunk_bwd"
     check_launch(err, name)
     BWD_KERNEL_LAUNCHES[name] += 1
     return dx, dcum, ddt, dB, dC

@@ -2,8 +2,9 @@
 plain torch version, chosen by the device the tensors lie on.
 
 On a CUDA tensor, :func:`ssd` computes the chunk cumsum, launches the
-chunk kernel for the intra-chunk term and the chunk states (bf16 on the
-tensor cores at the serving shapes), then the carry kernel, which walks
+chunk kernel for the intra-chunk term and the chunk states (on the
+tensor cores at Q = P = 64, N in {64, 128}: ``ssd_chunk_tc`` for bf16,
+``ssd_chunk_tf32`` for fp32), then the carry kernel, which walks
 the chunks in order and writes y in x's dtype and the final state; the
 reference keeps that carry in jnp outside its Pallas kernel.  On a CPU
 tensor it runs ``ref.ssd_ref``, which autograd differentiates.  There is
@@ -20,10 +21,12 @@ path under ``FakeTensorMode`` without launching, and with a flop formula
 * ``repro_torch::ssd_bwd`` (:func:`ssd_bwd`), the gradient: the chunk
   kernel once more for the chunk states, then the carry backward (h_prev
   and the state gradients, two walks over the chunks) and the chunk
-  backward (each chunk's gradients) from ``csrc/ssd_bwd.cu`` — for bf16
-  at the models' shapes (Q = P = 64, N in {64, 128}) the tensor-core
-  ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, else the CUDA-core
-  ``ssd_carry_bwd`` and ``ssd_chunk_bwd`` (``kernel.bwd_kernels``) — and
+  backward (each chunk's gradients) from ``csrc/ssd_bwd.cu`` — at the
+  models' shapes (Q = P = 64, N in {64, 128}) for bf16 the tensor-core
+  ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, for fp32 the CUDA-core
+  ``ssd_carry_bwd`` and the tensor-core ``ssd_chunk_bwd_tf32``, else the
+  CUDA-core ``ssd_carry_bwd`` and ``ssd_chunk_bwd``
+  (``kernel.bwd_kernels``) — and
   it finishes in torch: dB and dC summed over the kernel's head groups in
   a fixed order, the cumsum's gradient (ddt += A·da, dA = Σ dt·da).
 
@@ -40,15 +43,15 @@ state Bᵀ·x), the carry 2·N per y element (C·h_prev: 2QNP).  The backward
 counts the products its three launches issue: the chunk pass again for
 the states; the carry backward's (exp(cum) ∘ C)ᵀ·dy, 2QNP; the chunk
 backward's x·dyᵀ, (K ∘ dt)ᵀ·dy, B·g, x·gᵀ and dy·h_prevᵀ, 4Q²P + 6QNP,
-and once per block of G heads (``kernel.bwd_heads_per_block``) C·Bᵀ and
+and once per block of G heads (``kernel.chunk_bwd_heads``) C·Bᵀ and
 the head-summed (dW ∘ E ∘ dt)ᵀ against C and B, 6Q²N.  Elementwise work
 (decays, cumsums, row sums) is not counted.
 
 ``LAUNCHES`` counts the forward's chunk-kernel launches,
 ``CARRY_LAUNCHES`` its carry-kernel launches and ``BWD_LAUNCHES``
 backward passes (each launches the chunk kernel once for the states, and
-each backward kernel once); ``kernel.BWD_KERNEL_LAUNCHES`` counts each
-backward kernel.
+each backward kernel once); ``kernel.FWD_KERNEL_LAUNCHES`` and
+``kernel.BWD_KERNEL_LAUNCHES`` count each kernel by name.
 
 :func:`ssd_decode` is the single-token recurrence; the reference has no
 kernel for it, so its torch ops are the port on every device.
@@ -77,11 +80,16 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _kernel_inputs_dtype(x, Bm, Cm) -> torch.dtype:
+    """The dtype :func:`_kernel_inputs` gives x, B and C."""
+    return x.dtype if Bm.dtype == Cm.dtype == x.dtype else torch.float32
+
+
 def _kernel_inputs(x, dt, Bm, Cm):
     """x, B and C in one dtype (fp32 holds any of them exactly when they
     differ) and dt in fp32, dense, as the kernels read them."""
-    if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
-        x, Bm, Cm = x.float(), Bm.float(), Cm.float()
+    dtype = _kernel_inputs_dtype(x, Bm, Cm)
+    x, Bm, Cm = (t.to(dtype) for t in (x, Bm, Cm))
     return _dense(x), dt.float().contiguous(), _dense(Bm), _dense(Cm)
 
 
@@ -188,15 +196,16 @@ def ssd_fwd_flops(Bsz: int, L: int, H: int, P: int, N: int,
 
 
 def ssd_bwd_flops(Bsz: int, L: int, H: int, P: int, N: int, chunk: int,
-                  sms: int = H100_SMS) -> int:
+                  sms: int = H100_SMS, dtype: torch.dtype = torch.bfloat16
+                  ) -> int:
     """The backward's flops (module docstring): the chunk pass for the
     states, the carry backward's and the chunk backward's products, the
-    last with ``kernel.bwd_heads_per_block``'s groups on a card of
-    ``sms`` SMs."""
-    from .kernel import bwd_heads_per_block
+    last with the groups of heads ``kernel.chunk_bwd_heads`` gives the
+    chunk backward for inputs of ``dtype`` on a card of ``sms`` SMs."""
+    from .kernel import bwd_kernels, chunk_bwd_heads
     nc = math.ceil(L / chunk)
     Q = chunk
-    G = bwd_heads_per_block(Bsz * nc, H, sms)
+    G = chunk_bwd_heads(bwd_kernels(dtype, Q, P, N)[1], Bsz * nc, H, sms)
     per_head = ((2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P)
                 + 2 * Q * N * P + 4 * Q * Q * P + 6 * Q * N * P)
     return Bsz * nc * (H * per_head + (H // G) * 6 * Q * Q * N)
@@ -214,7 +223,8 @@ def _bwd_flops(x, dt, A, Bm, Cm, dy, chunk, *args, **kwargs) -> int:
     Bsz, L, H, P = x.shape
     sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
            if x.device.type == "cuda" else H100_SMS)
-    return ssd_bwd_flops(Bsz, L, H, P, Bm.shape[-1], chunk, sms)
+    return ssd_bwd_flops(Bsz, L, H, P, Bm.shape[-1], chunk, sms,
+                         _kernel_inputs_dtype(x, Bm, Cm))
 
 
 def _setup_context(ctx, inputs, output):

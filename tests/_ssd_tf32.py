@@ -1,0 +1,159 @@
+"""The fp32 SSD tensor-core kernels' arithmetic in torch, on the CPU
+(``ssd_chunk_tf32`` in ``csrc/ssd.cu``, ``ssd_chunk_bwd_tf32`` in
+``csrc/ssd_bwd.cu``), shared by ``test_torch_ssd.py`` and
+``test_torch_ssd_bwd.py``.
+
+Every product of the two kernels is taken on ``mma.sync`` m16n8k8 with
+TF32 operands: each fp32 operand split into hi = its TF32 rounding (to
+nearest, ties away from zero) and lo = what is left (which the tensor
+cores read cut to TF32), and each product taken as hi·hi + hi·lo + lo·hi
+(:func:`tf32_mm`), k8 step by k8 step in order, each step's k in the
+slot order the kernel feeds (``NATURAL`` or ``PERMUTED``).  The sums are
+torch's fp32 sums, not the tensor cores' (whose accumulation over a step
+cuts rather than rounds): a fault of that kind shows only on the card.
+"""
+import torch
+
+# The k of each of the 8 slots of a k8 step: slots c and c + 4 hold k = c
+# and c + 4 (an operand read K-major), or k = 2c and 2c + 1 (an
+# accumulator's columns 2c, 2c + 1 read as an A fragment, and the B rows
+# that meet them).
+NATURAL = (0, 1, 2, 3, 4, 5, 6, 7)
+PERMUTED = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32_rna(x):
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as the kernels' ``split_tf32`` rounds it (half a TF32
+    step added to the bits, the 13 bits below cleared)."""
+    x = x.float()
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (u + 0x1000) & 0xFFFFE000
+    r = torch.where(r >= 1 << 31, r - (1 << 32), r).to(torch.int32)
+    return torch.where(torch.isnan(x), x, r.view(torch.float32))
+
+
+def tf32_cut(x):
+    """fp32 ``x`` as the tensor cores read a .tf32 operand: its 13 lowest
+    bits dropped."""
+    u = x.float().contiguous().view(torch.int32)
+    return (u & -0x2000).view(torch.float32)
+
+
+def tf32_mm(a, b, slots=NATURAL, terms=3, init=None):
+    """``init`` + a @ b (a [..., M, K], b [..., K, N], K a multiple of 8)
+    as the kernels take it: per k8 step in order, the step's k in
+    ``slots`` order, hi·hi, then (``terms`` 3) hi·lo, then (``terms`` >= 2)
+    lo·hi added to the running sum.  ``terms`` 1 is plain TF32, 2 splits
+    only ``a``."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    al, bl = tf32_cut(a - ah), tf32_cut(b - bh)
+    K = a.shape[-1]
+    out = torch.zeros(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+                      + (a.shape[-2], b.shape[-1])) if init is None \
+        else init.float()
+    order = torch.tensor(slots)
+    for k0 in range(0, K, 8):
+        idx = k0 + order
+        pa = [ah[..., idx], al[..., idx]]
+        pb = [bh[..., idx, :], bl[..., idx, :]]
+        out = out + pa[0] @ pb[0]
+        if terms >= 3:
+            out = out + pa[0] @ pb[1]
+        if terms >= 2:
+            out = out + pa[1] @ pb[0]
+    return out
+
+
+def emulate_tf32_chunks(x, dt, cum, Bm, Cm, chunk, terms=3):
+    """``ssd_chunk_tf32``'s arithmetic: C·Bᵀ (natural slots over n); W =
+    (C·Bᵀ) ∘ exp(cum_i − cum_j) ∘ dt_j in fp32 (0 above the diagonal);
+    y = W·x and the state (B ∘ dec_end)ᵀ·x, dec_end_j = exp(cum_last −
+    cum_j) dt_j, B scaled as it is read (permuted slots over j).  Returns
+    (y_intra [B,L,H,P], states [B,nc,H,N,P]) as ``ssd_chunks_ref``."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = L // chunk
+    f32 = torch.float32
+    xc = x.to(f32).reshape(Bsz, nc, chunk, H, P).permute(0, 1, 3, 2, 4)
+    dtc = dt.to(f32).reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)
+    cumc = cum.to(f32).reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)
+    Bc = Bm.to(f32).reshape(Bsz, nc, chunk, N)
+    Cc = Cm.to(f32).reshape(Bsz, nc, chunk, N)
+    cb = tf32_mm(Cc, Bc.transpose(-1, -2), NATURAL, terms)   # [b,c,i,j]
+    iota = torch.arange(chunk)
+    causal = iota[:, None] >= iota[None, :]
+    seg = cumc[..., :, None] - cumc[..., None, :]            # [b,c,h,i,j]
+    w = torch.where(causal, cb[:, :, None] * torch.exp(
+        torch.where(causal, seg, 0.0)) * dtc[..., None, :], 0.0)
+    y = tf32_mm(w, xc, PERMUTED, terms)                      # [b,c,h,i,p]
+    dec = torch.exp(cumc[..., -1:] - cumc) * dtc             # [b,c,h,j]
+    bd = Bc[:, :, None] * dec[..., None]                     # [b,c,h,j,n]
+    st = tf32_mm(bd.transpose(-1, -2), xc, PERMUTED, terms)  # [b,c,h,n,p]
+    return y.permute(0, 1, 3, 2, 4).reshape(Bsz, L, H, P), st
+
+
+def emulate_tf32_chunk_bwd(x, dt, cum, Bm, Cm, dy, g, h_prev, chunk,
+                           heads_per_group, terms=3):
+    """``ssd_chunk_bwd_tf32``'s arithmetic, as ``ssd_chunk_bwd_ref``'s
+    outputs: (C·Bᵀ)ᵀ = B·Cᵀ and B·g over n with B's columns in permuted
+    slots; dWᵀ = x·dyᵀ, x·gᵀ and dy·h_prevᵀ over p in natural slots;
+    dx's intra term (K∘dt)ᵀ·dy, K∘dt built from (C·Bᵀ)ᵀ in fp32, in
+    permuted slots added onto the state term d_j (B·g)_j; the group's
+    summed dW∘E∘dt against C and B in natural slots, each summed from zero
+    and added to the running dB, dC; row and column sums in fp32."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nc, G = L // chunk, heads_per_group
+    f32 = torch.float32
+
+    def heads(t, width):          # [B,L,H,w] -> [b,c,h,Q,w]
+        return t.to(f32).reshape(Bsz, nc, chunk, H, width).permute(
+            0, 1, 3, 2, 4)
+    xc, dyc = heads(x, P), heads(dy, P)
+    dtc = dt.to(f32).reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)
+    cumc = cum.to(f32).reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)
+    Bc = Bm.to(f32).reshape(Bsz, nc, chunk, N)
+    Cc = Cm.to(f32).reshape(Bsz, nc, chunk, N)
+    gc, hc = g.to(f32), h_prev.to(f32)                      # [b,c,h,n,p]
+    cbt = tf32_mm(Bc, Cc.transpose(-1, -2), PERMUTED, terms)  # [b,c,j,i]
+    iota = torch.arange(chunk)
+    causal_ji = iota[None, :] >= iota[:, None]               # i >= j
+    seg = cumc[..., None, :] - cumc[..., :, None]            # [b,c,h,j,i]
+    ex = torch.where(causal_ji, torch.exp(torch.where(causal_ji, seg, 0.0)),
+                     0.0)
+    dt_j = dtc[..., :, None]
+    kv = cbt[:, :, None] * ex                                # Kᵀ [j, i]
+    dwt = tf32_mm(xc, dyc.transpose(-1, -2), NATURAL, terms)  # dWᵀ [j, i]
+    dec = torch.exp(cumc[..., -1:] - cumc)
+    d = dec * dtc                                            # [b,c,h,j]
+    bg = tf32_mm(Bc[:, :, None], gc, PERMUTED, terms)        # [b,c,h,j,p]
+    ured = (xc * bg).sum(-1)
+    dx = tf32_mm(kv * dt_j, dyc, PERMUTED, terms, init=d[..., None] * bg)
+    v = dwt * kv
+    colv = v.sum(-1)                                         # Σ_i V_ij
+    rowt = (v * dt_j).sum(-2)                                # Σ_j T_ij
+    gx = tf32_mm(xc, gc.transpose(-1, -2), NATURAL, terms)   # [b,c,h,j,n]
+    dyh = tf32_mm(dyc, hc.transpose(-1, -2), NATURAL, terms)  # [b,c,h,i,n]
+    ecum = torch.exp(cumc)
+    inter = ecum * (Cc[:, :, None] * dyh).sum(-1)
+    dcum = rowt - dtc * colv - d * ured + inter
+    dcum[..., -1] += (d * ured).sum(-1) + torch.exp(cumc[..., -1]) \
+        * (gc * hc).sum((-2, -1))
+    ddt = colv + dec * ured
+    # Per group of G heads: the running sums over its heads, then the
+    # summed dW∘E∘dt's products.
+    grp = (Bsz, nc, H // G, G)
+    dcbt = (dwt * ex * dt_j).reshape(*grp, chunk, chunk).sum(3)  # [.,g,j,i]
+    db = (d[..., None] * gx).reshape(*grp, chunk, N).sum(3) \
+        + tf32_mm(dcbt, Cc[:, :, None], NATURAL, terms)
+    dc = (ecum[..., None] * dyh).reshape(*grp, chunk, N).sum(3) \
+        + tf32_mm(dcbt.transpose(-1, -2), Bc[:, :, None], NATURAL, terms)
+
+    def rows(t):                  # [b,c,h,Q] -> [B,L,H]
+        return t.permute(0, 1, 3, 2).reshape(Bsz, L, H)
+
+    def parts(t):                 # [b,c,g,Q,N] -> [groups,B,L,N]
+        return t.permute(2, 0, 1, 3, 4).reshape(-1, Bsz, L, N)
+    return (dx.permute(0, 1, 3, 2, 4).reshape(Bsz, L, H, P), rows(dcum),
+            rows(ddt), parts(db), parts(dc))

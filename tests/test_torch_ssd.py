@@ -12,13 +12,18 @@ held against the plain versions on the card (``cuda`` marker).
 The bf16 chunk kernel runs its products on the tensor cores with its two
 fp32 operands (W and B ⊙ dec_end) split into bf16 terms;
 ``emulate_tensor_core_chunks`` repeats that arithmetic on the CPU, so the
-split is held to the kernel's bars here too.
+split is held to the kernel's bars here too.  The fp32 one
+(``ssd_chunk_tf32``) takes three TF32 products a product;
+``_ssd_tf32.emulate_tf32_chunks`` repeats it and is held against the
+reference's own chunk pass and scan.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _ssd_tf32 import emulate_tf32_chunks
+from repro.kernels.ssd.kernel import ssd_chunks as j_chunks
 from repro.kernels.ssd.ops import ssd as j_ssd
 from repro.kernels.ssd.ref import ssd_decode_ref as j_decode
 from repro.kernels.ssd.ref import ssd_ref as j_ssd_ref
@@ -635,3 +640,154 @@ def test_cuda_forward_tiles_fit_shared_memory():
         assert size(which, Q, N, P) == w <= kernel.MAX_SMEM_BYTES
     assert 0 < size(3, Q, N, P) <= kernel.MAX_SMEM_BYTES
     assert size(4, Q, N, P) == -1
+
+
+# ---------------------------------------------------------------------------
+# The fp32 tensor-core chunk kernel (TF32, three products a product)
+# ---------------------------------------------------------------------------
+
+# fp32 at ssd_chunk_tf32's shapes (Q = P = 64): the reference sweep's
+# N = 128 shape, and N = 64 with more heads and chunks.
+TF32_SHAPES = [SWEEP[1], (2, 256, 4, 64, 64, 64)]
+
+
+def tf32_case(B, L, H, P, N, Q):
+    js, ts = jt(make(B * L + N + 2, B, L, H, P, N))
+    x, dt, A, Bm, Cm = ts
+    return js, ts, chunk_cumsum(dt, A, Q)
+
+
+@pytest.mark.parametrize("B,L,H,P,N,Q", TF32_SHAPES)
+def test_tf32_chunk_emulation_meets_the_bar(B, L, H, P, N, Q):
+    """``ssd_chunk_tf32``'s arithmetic against the reference's own chunk
+    pass, its Pallas ``ssd_chunks`` in interpret mode, within a tenth of
+    1e-4·max(max|ref|, 1); carried by the plain carry, y and the final
+    state within the sweep's 1e-4 of the reference's ``ssd_ref`` and
+    ``ssd(use_pallas=True)``."""
+    js, ts, cum = tf32_case(B, L, H, P, N, Q)
+    x, dt, A, Bm, Cm = ts
+    got = emulate_tf32_chunks(x, dt, cum, Bm, Cm, Q)
+    want = j_chunks(*(jnp.asarray(t.numpy()) for t in (x, dt, cum, Bm, Cm)),
+                    Q)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= 0.1 * 1e-4 * max(float(np.abs(w).max()), 1.0), err
+    y, final = ssd_combine(*got, cum, Cm, Q)
+    for ry, rs in (j_ssd_ref(*js, chunk=Q),
+                   j_ssd(*js, chunk=Q, use_pallas=True)):
+        close(y, ry)
+        close(final, rs)
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3])
+def test_tf32_chunk_term_counts(terms):
+    """One TF32 product a product (plain TF32) misses 1e-4·max|ref| of
+    ``ssd_chunks_ref`` on the same inputs; three (hi·hi + hi·lo + lo·hi,
+    the kernel's ``kernel.TF32_TERMS``) meet it.  The worst ratios are
+    printed (``-s``)."""
+    from repro_torch.kernels.ssd.kernel import TF32_TERMS
+    assert TF32_TERMS == 3
+    ratios = {}
+    for shape in TF32_SHAPES:
+        _, ts, cum = tf32_case(*shape)
+        x, dt, A, Bm, Cm = ts
+        Q = shape[-1]
+        got = emulate_tf32_chunks(x, dt, cum, Bm, Cm, Q, terms)
+        want = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+        ratios[shape] = max(float((g - w).abs().max())
+                            / (1e-4 * float(w.abs().max()))
+                            for g, w in zip(got, want))
+    print(f"\nTF32 products={terms}: worst max|Δ|/bar " + ", ".join(
+        f"{list(k)} {v:.4f}" for k, v in ratios.items()))
+    if terms == 1:
+        assert min(ratios.values()) > 1.0, ratios
+    if terms == 3:
+        assert max(ratios.values()) <= 0.1, ratios
+
+
+def test_forward_dispatch_by_dtype_and_shape():
+    """fp32 at Q = P = 64, N in {64, 128} takes ``ssd_chunk_tf32``, bf16
+    there ``ssd_chunk_tc``; every other chunk, head width or state size
+    the CUDA-core kernel; the carries as before."""
+    from repro_torch.kernels.ssd.kernel import FWD_KERNELS, fwd_kernels
+    f32, bf = torch.float32, torch.bfloat16
+    assert fwd_kernels(f32, 64, 64, 128) == ("ssd_chunk_tf32",
+                                             "ssd_carry_kernel")
+    assert fwd_kernels(f32, 64, 64, 64)[0] == "ssd_chunk_tf32"
+    assert fwd_kernels(bf, 64, 64, 128) == ("ssd_chunk_tc", "ssd_carry_tc")
+    for Q, P, N in ((32, 64, 128), (64, 32, 128), (64, 64, 32),
+                    (128, 64, 128), (50, 16, 16)):
+        for dtype in (f32, bf):
+            assert fwd_kernels(dtype, Q, P, N)[0] == "ssd_chunk_kernel"
+    assert set(FWD_KERNELS) == {
+        fwd_kernels(dt, Q, 64, N)[k] for dt in (f32, bf)
+        for Q, N in ((64, 128), (50, 16)) for k in (0, 1)}
+
+
+def test_tf32_tiles_fit_two_blocks_an_sm():
+    """``ssd_chunk_tf32``'s shared memory (``kernel.chunk_tf32_smem_bytes``)
+    at its largest, N = 128 with 16 heads a block, leaves room for two
+    blocks an SM (228 KiB, 1 KiB reserved a block).  Its heads a block
+    (``kernel.tf32_heads``: the fewest waves of two blocks an SM, each
+    weighed by G + 1): 6 at the (b) fp32 step's 1 × 2048 (256 blocks, one
+    wave on 132 SMs), 12 at mamba2-780m's 2 × 4096 (512 blocks, two)."""
+    from repro_torch.kernels.ssd.kernel import (chunk_tf32_heads,
+                                                chunk_tf32_smem_bytes)
+    assert chunk_tf32_smem_bytes(128, 16) == 4 * (2 * 64 * 132 + 2 * 64 * 68
+                                                  + 3 * 16 * 64)
+    assert 2 * (chunk_tf32_smem_bytes(128, 16) + 1024) <= 228 * 1024
+    G = chunk_tf32_heads(32, 48, 132)
+    assert G == 6 and 32 * 48 // G <= 2 * 132
+    assert chunk_tf32_heads(128, 48, 132) == 12
+    assert chunk_tf32_heads(128, 64, 132) == 16
+    assert chunk_tf32_heads(1, 3, 132) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N,Q", [(1, 256, 2, 64, 128, 64),
+                                         (1, 128, 48, 64, 128, 64),
+                                         (2, 512, 8, 64, 64, 64)])
+def test_cuda_tf32_chunk_kernel_matches_plain(B, L, H, P, N, Q):
+    """``ssd_chunk_tf32`` on fp32 inputs against the plain version, within
+    1e-4·max|ref| for y_intra and the states, a second pass equal bit for
+    bit, each launch counted under its name; ``terms=0`` still takes the
+    CUDA-core kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.ssd import kernel
+    x, dt, A, Bm, Cm = _cuda_inputs(B, L, H, P, N, Q, "float32")
+    cum = chunk_cumsum(dt, A, Q)
+    before = dict(kernel.FWD_KERNEL_LAUNCHES)
+    want = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+    got = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    again = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    core = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q, terms=0)
+    torch.cuda.synchronize()
+    for g, a, c, w in zip(got, again, core, want):
+        assert torch.equal(g, a)
+        for t in (g, c):
+            err = float((t - w).abs().max())
+            assert err <= 1e-4 * float(w.abs().max()), err
+    for name in kernel.FWD_KERNELS:
+        assert kernel.FWD_KERNEL_LAUNCHES[name] == before[name] + {
+            "ssd_chunk_tf32": 2, "ssd_chunk_kernel": 1}.get(name, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_tf32_shared_memory_equals_mirror():
+    """The library's ``ssd_chunk_tf32_smem_bytes`` and
+    ``ssd_chunk_tf32_heads`` equal kernel.py's mirrors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sizes come from the library")
+    from repro_torch.kernels.ssd import kernel
+    lib = kernel.LIB.load()
+    for N in (64, 128):
+        for G in range(1, 17):
+            assert lib.ssd_chunk_tf32_smem_bytes(N, G) == \
+                kernel.chunk_tf32_smem_bytes(N, G) <= kernel.MAX_SMEM_BYTES
+    assert lib.ssd_chunk_tf32_smem_bytes(32, 4) == -1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, L, H in ((1, 2048, 48), (2, 4096, 48), (1, 256, 2)):
+        assert lib.ssd_chunk_tf32_heads(B, L, H) == kernel.chunk_tf32_heads(
+            B * L // 64, H, sms)

@@ -18,7 +18,12 @@ it differentiates; the operator ``repro_torch::ssd_fwd`` with its kernel
 entry points swapped for their plain versions against autograd of
 ``ssd_ref``, with its launch counts, and under the remat policies in a
 mamba2 smoke step.  The CUDA kernels are held against their plain
-versions on the card (``cuda`` marker).
+versions on the card (``cuda`` marker).  The fp32 tensor-core chunk
+backward's arithmetic (``ssd_chunk_bwd_tf32``: three TF32 products a
+product) is emulated on the CPU (``_ssd_tf32.emulate_tf32_chunk_bwd``)
+and held, with the plain carry backward and the fp32 forward kernel's
+emulated chunk states, against ``jax.vjp`` of the reference's
+``ssd_ref``.
 """
 import functools
 import re
@@ -29,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _ssd_tf32 import emulate_tf32_chunk_bwd, emulate_tf32_chunks
 from repro.kernels.ssd.ref import ssd_ref as j_ssd_ref
 from repro_torch.kernels.ssd import kernel, ops
 from repro_torch.kernels.ssd import ref as ref_mod
@@ -572,20 +578,25 @@ def test_tensor_core_bwd_emulation_meets_the_bar(terms):
         assert max(ratios.values()) <= 0.01, ratios
 
 
-def test_backward_dispatch_by_dtype_and_shape():
-    """bf16 at the forward tensor-core kernel's shapes takes the ``_tc``
-    pair; fp32, or bf16 at any other chunk, head width or state size,
-    the CUDA-core pair."""
-    bf, f32 = torch.bfloat16, torch.float32
-    tc = ("ssd_carry_bwd_tc", "ssd_chunk_bwd_tc")
-    core = ("ssd_carry_bwd", "ssd_chunk_bwd")
-    assert kernel.bwd_kernels(bf, 64, 64, 128) == tc
-    assert kernel.bwd_kernels(bf, 64, 64, 64) == tc
-    assert kernel.bwd_kernels(f32, 64, 64, 128) == core
-    for Q, P, N in ((32, 64, 128), (64, 32, 128), (64, 64, 32),
-                    (16, 16, 32)):
-        assert kernel.bwd_kernels(bf, Q, P, N) == core
-    assert set(tc + core) == set(kernel.BWD_KERNELS)
+BWD_TC = ("ssd_carry_bwd_tc", "ssd_chunk_bwd_tc")
+BWD_TF32 = ("ssd_carry_bwd", "ssd_chunk_bwd_tf32")
+BWD_CORE = ("ssd_carry_bwd", "ssd_chunk_bwd")
+
+
+@pytest.mark.parametrize("dtype,Q,P,N,want", [
+    ("bfloat16", 64, 64, 128, BWD_TC), ("bfloat16", 64, 64, 64, BWD_TC),
+    ("float32", 64, 64, 128, BWD_TF32), ("float32", 64, 64, 64, BWD_TF32)]
+    + [(dt, Q, P, N, BWD_CORE) for dt in ("bfloat16", "float32")
+       for Q, P, N in ((32, 64, 128), (64, 32, 128), (64, 64, 32),
+                       (16, 16, 32))])
+def test_backward_dispatch_by_dtype_and_shape(dtype, Q, P, N, want):
+    """At the forward tensor-core kernels' shapes (Q = P = 64, N in {64,
+    128}) bf16 takes the ``_tc`` pair and fp32 ``ssd_chunk_bwd_tf32``
+    beside the CUDA-core carry; at any other chunk, head width or state
+    size either dtype takes the CUDA-core pair; the pairs name every
+    backward kernel."""
+    assert kernel.bwd_kernels(getattr(torch, dtype), Q, P, N) == want
+    assert set(BWD_TC + BWD_TF32 + BWD_CORE) == set(kernel.BWD_KERNELS)
 
 
 def test_bwd_terms_is_the_kernels_term_count():
@@ -658,7 +669,9 @@ def test_cuda_backward_kernels_match_plain(B, L, H, P, N, Q, dtype):
         assert torch.equal(g, a) and within(g, w)
     h_prev, g = want[0], want[1]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    G = kernel.bwd_heads_per_block(B * L // Q, H, sms)
+    G = kernel.chunk_bwd_heads(
+        kernel.bwd_kernels(getattr(torch, dtype), Q, P, N)[1], B * L // Q, H,
+        sms)
     got = kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
     again = kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
     want = ssd_chunk_bwd_ref(x, dt, cum, Bm, Cm, dy, g, h_prev, Q, G)
@@ -769,27 +782,32 @@ def test_cuda_tensor_core_backward_kernels_match_plain(B, L, H, P, N, Q):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,Q", [("bfloat16", 32), ("float32", 64)])
+@pytest.mark.parametrize("dtype,Q", [("bfloat16", 32), ("float32", 32),
+                                     ("float32", 64)])
 def test_cuda_wrappers_send_other_inputs_to_the_cuda_cores(dtype, Q):
-    """bf16 at a chunk of 32, and fp32 at the tensor-core shape, reach
-    the CUDA-core kernels through the wrappers' dispatch."""
+    """bf16 and fp32 at a chunk of 32 reach the CUDA-core kernels through
+    the wrappers' dispatch; fp32 at the tensor-core shape the CUDA-core
+    carry and ``ssd_chunk_bwd_tf32``."""
     needs_card()
     shape = (1, 256, 4, 64, 128, Q)
     x, dt, A, Bm, Cm, dy, h0, df, cum = card_inputs(shape, 33, dtype)
     _, states = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
     before = dict(kernel.BWD_KERNEL_LAUNCHES)
+    ran = kernel.bwd_kernels(getattr(torch, dtype), Q, 64, 128)
+    assert ran[0] == "ssd_carry_bwd"
     h_prev, g, _ = kernel.ssd_carry_bwd_cuda(states, cum, Cm, dy, Q, h0, df)
     got = kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
     want = ssd_chunk_bwd_ref(x, dt, cum, Bm, Cm, dy, g, h_prev, Q,
-                             kernel.bwd_heads_per_block(
-                                 256 // Q, 4, torch.cuda.get_device_properties(
+                             kernel.chunk_bwd_heads(
+                                 ran[1], 256 // Q, 4,
+                                 torch.cuda.get_device_properties(
                                      0).multi_processor_count))
     torch.cuda.synchronize()
     for a, w in zip(got, want):
         assert within(a, w)
     for name in kernel.BWD_KERNELS:
         assert kernel.BWD_KERNEL_LAUNCHES[name] == before[name] + (
-            not name.endswith("_tc"))
+            name in ran)
 
 
 @pytest.mark.cuda
@@ -947,3 +965,136 @@ def test_blocked_chunk_bwd_emulation_meets_the_bar(shape):
     for name, a, w in zip(NAMES, whole, jax_grads(arrs, dy, h0, df, Q,
                                                   torch.float32)):
         assert_grad_close(name, a, w)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 tensor-core chunk backward (TF32, three products a product)
+# ---------------------------------------------------------------------------
+
+# fp32 at ssd_chunk_bwd_tf32's shapes (Q = P = 64): the reference sweep's
+# N = 128 shape and N = 64 with more heads and chunks, heads in groups of
+# two as the kernel groups them.
+TF32_BWD_SHAPES = [(1, 256, 2, 64, 128, 64), (2, 256, 4, 64, 64, 64)]
+
+
+def tf32_bwd_case(shape, terms=3):
+    """The inputs, the fp32 kernels' emulated chunk backward at ``terms``
+    (with the emulated forward kernel's chunk states through the plain
+    carry backward, as the op's backward launches them) and the plain
+    chunk backward on the same g and h_prev."""
+    B, L, H, P, N, Q = shape
+    arrs, dy, h0, df = make(B * L + N + 3, B, L, H, P, N, "nonzero")
+    ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, torch.float32)
+    x, dt, A, Bm, Cm = ts
+    cum = chunk_cumsum(dt, A, Q)
+    _, states = emulate_tf32_chunks(x, dt, cum, Bm, Cm, Q, terms)
+    h_prev, g, dinit = ssd_carry_bwd_ref(states, cum, Cm, tdy, Q, th0, tdf)
+    args = (x, dt, cum, Bm, Cm, tdy, g, h_prev, Q, 2)
+    got = emulate_tf32_chunk_bwd(*args, terms=terms)
+    return (arrs, dy, h0, df, ts, cum, dinit), got, ssd_chunk_bwd_ref(*args)
+
+
+@pytest.mark.parametrize("shape", TF32_BWD_SHAPES)
+def test_tf32_chunk_bwd_emulation_meets_the_bar(shape):
+    """``ssd_chunk_bwd_tf32``'s arithmetic keeps every output within a
+    tenth of 1e-4·max(max|ref|, 1) of ``ssd_chunk_bwd_ref``; finished as
+    the op finishes (the groups' sums, the cumsum's gradient), with the
+    fp32 forward kernel's emulated chunk states, every gradient is within
+    1e-4·max(max|ref|, 1) of the reference's ``jax.vjp`` of ``ssd_ref``."""
+    Q = shape[-1]
+    (arrs, dy, h0, df, ts, cum, dinit), got, want = tf32_bwd_case(shape)
+    for name, a, w in zip(("dx", "dcum", "ddt", "dB", "dC"), got, want):
+        assert a.shape == w.shape, name
+        bar = 1e-4 * max(float(w.abs().max()), 1.0)
+        assert float((a - w).abs().max()) <= 0.1 * bar, name
+    dx, dcum, ddt, dB, dC = got
+    ddt_cum, dA = chunk_cumsum_bwd(dcum, ts[1], ts[2], Q)
+    grads = (dx, ddt + ddt_cum, dA, dB.sum(0), dC.sum(0), dinit)
+    for name, g, w in zip(NAMES, grads, jax_grads(arrs, dy, h0, df, Q,
+                                                  torch.float32)):
+        assert_grad_close(name, g, w)
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3])
+def test_tf32_chunk_bwd_term_counts(terms):
+    """One TF32 product a product (plain TF32) misses the fp32 bar of
+    ``ssd_chunk_bwd_ref``; three (the kernel's) keep every output within a
+    tenth of it.  The worst ratios are printed (``-s``)."""
+    worst = {}
+    for shape in TF32_BWD_SHAPES:
+        _, got, want = tf32_bwd_case(shape, terms)
+        for name, a, w in zip(("dx", "dcum", "ddt", "dB", "dC"), got, want):
+            bar = 1e-4 * max(float(w.abs().max()), 1.0)
+            worst[name] = max(worst.get(name, 0.0),
+                              float((a - w).abs().max()) / bar)
+    print(f"\nTF32 products={terms}: worst max|Δ|/bar " + ", ".join(
+        f"{k} {v:.4f}" for k, v in worst.items()))
+    if terms == 1:
+        assert max(worst.values()) > 1.0, worst
+    if terms == 3:
+        assert max(worst.values()) <= 0.1, worst
+
+
+def test_tf32_backward_tiles_fit_shared_memory():
+    """``ssd_chunk_bwd_tf32``'s shared memory (``kernel.
+    chunk_bwd_tf32_smem_bytes``) fits a block at N = 128 with 16 heads a
+    block, the most ``kernel.tf32_heads`` gives; a second g and h_prev
+    buffer would not.  Its heads a block (one block an SM): 12 at the (b)
+    fp32 step's 1 × 2048 (128 blocks, one wave on 132 SMs), 16 at 2 ×
+    4096; ``chunk_bwd_heads`` gives the bf16 and CUDA-core kernels' rule
+    elsewhere."""
+    assert kernel.chunk_bwd_tf32_smem_bytes(128, 16) == 227_872
+    assert kernel.chunk_bwd_tf32_smem_bytes(128, 16) <= kernel.MAX_SMEM_BYTES
+    assert kernel.chunk_bwd_tf32_smem_bytes(128, 16) + 2 * 128 * 64 * 4 > \
+        kernel.MAX_SMEM_BYTES
+    assert kernel.chunk_bwd_tf32_smem_bytes(64, 16) <= kernel.MAX_SMEM_BYTES
+    assert kernel.chunk_bwd_heads("ssd_chunk_bwd_tf32", 32, 48, 132) == 12
+    assert kernel.chunk_bwd_heads("ssd_chunk_bwd_tf32", 128, 48, 132) == 16
+    for name in ("ssd_chunk_bwd_tc", "ssd_chunk_bwd"):
+        assert kernel.chunk_bwd_heads(name, 32, 48, 132) == \
+            kernel.bwd_heads_per_block(32, 48, 132) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N,Q", [(1, 256, 48, 64, 128, 64),
+                                         (1, 256, 64, 64, 64, 64),
+                                         (2, 512, 8, 64, 128, 64)])
+def test_cuda_tf32_backward_kernel_matches_plain(B, L, H, P, N, Q):
+    """``ssd_chunk_bwd_tf32`` on fp32 inputs against its plain version
+    (max|Δ| <= 1e-4·max(max|ref|, 1)), a second pass equal bit for bit,
+    each launch counted under its name; ``cuda_cores=True`` still takes
+    ``ssd_chunk_bwd``."""
+    needs_card()
+    shape = (B, L, H, P, N, Q)
+    x, dt, A, Bm, Cm, dy, h0, df, cum = card_inputs(shape, 35, "float32")
+    _, states = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    h_prev, g, _ = ssd_carry_bwd_ref(states, cum, Cm, dy, Q, h0, df)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    args = (x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
+    before = dict(kernel.BWD_KERNEL_LAUNCHES)
+    got = kernel.ssd_chunk_bwd_cuda(*args)
+    again = kernel.ssd_chunk_bwd_cuda(*args)
+    core = kernel.ssd_chunk_bwd_cuda(*args, cuda_cores=True)
+    # Each kernel's partial dB, dC sums over its own groups of heads.
+    want = ssd_chunk_bwd_ref(*args, kernel.tf32_heads(B * L // Q, H, sms))
+    want_core = ssd_chunk_bwd_ref(
+        *args, kernel.bwd_heads_per_block(B * L // Q, H, sms))
+    torch.cuda.synchronize()
+    for a, b, c, w, wc in zip(got, again, core, want, want_core):
+        assert torch.equal(a, b) and within(a, w) and within(c, wc)
+    for name in kernel.BWD_KERNELS:
+        assert kernel.BWD_KERNEL_LAUNCHES[name] == before[name] + {
+            "ssd_chunk_bwd_tf32": 2, "ssd_chunk_bwd": 1}.get(name, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_tf32_backward_shared_memory_equals_mirror():
+    """The library's ``ssd_chunk_bwd_tf32_smem_bytes`` equals kernel.py's
+    mirror at every group size, within a block's shared memory."""
+    needs_card()
+    size = kernel.LIB_BWD.load().ssd_chunk_bwd_tf32_smem_bytes
+    for N in (64, 128):
+        for G in range(1, 17):
+            assert size(N, G) == kernel.chunk_bwd_tf32_smem_bytes(N, G) \
+                <= kernel.MAX_SMEM_BYTES
+    assert size(32, 4) == -1

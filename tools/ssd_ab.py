@@ -1,7 +1,7 @@
 """Time the SSD's kernels against an older build of their sources, in
-turns, on one card: the CUDA-core chunk kernel and backward, and the carry.
+turns, on one card: the chunk kernel and backward, and the carry.
 
-``python tools/ssd_ab.py --old DIR [--plans]``
+``python tools/ssd_ab.py --old DIR [--plans] [--heads]``
 
 ``DIR`` holds another version's ``ssd.cu``, ``ssd_bwd.cu`` and
 ``ssd_mma.cuh`` (for example ``src/repro_torch/kernels/ssd/csrc/`` of a
@@ -9,9 +9,15 @@ turns, on one card: the CUDA-core chunk kernel and backward, and the carry.
 ``kernels/build.py`` and called at chunk 64 (the chunk both take) on the
 same inputs, each through its library's C entry point into outputs made
 beforehand (no Python wrapper's checks or allocations inside the timed
-window): the CUDA-core chunk kernel (``terms`` 0), the carry (bf16:
-``ssd_carry_tc``, whose plan the new build prints), and for fp32 the
-CUDA-core chunk backward.  Each is timed old, new, new, old:
+window): the chunk kernel (bf16: the CUDA-core kernel, ``terms`` 0; fp32:
+``ssd_chunk_tf32``, ``terms`` 3, where the old build takes it, else the
+old build's CUDA-core kernel), the carry (bf16: ``ssd_carry_tc``, whose
+plan the new build prints), and for fp32 the chunk backward
+(``ssd_chunk_bwd_tf32``, ``tc`` 1, where the old build takes it, else
+``ssd_chunk_bwd``).  For fp32 the new build's tensor-core kernels are
+also timed against its own CUDA-core kernels on the same inputs (the
+rows "chunk, CUDA cores" and "chunk bwd, CUDA cores": "old" is the
+CUDA-core kernel).  Each is timed old, new, new, old:
 the median over 15 windows of ``BURST`` launches back to back, per
 launch (CUDA events), so that the card never waits on the host between
 launches.  Also prints whether the two agree bit for bit (the backward:
@@ -32,6 +38,13 @@ forced through a variant of the new ``ssd.cu``, written under the
 kernels' git-ignored build directory, to which ``FORCE_PLAN`` adds an
 entry point ``ssd_carry_force_plan(ps, stages)`` (ps 0: the chosen plan
 again); the library the program loads has no such entry point.
+
+``--heads`` also times the new fp32 tensor-core kernels at each fp32
+shape at every group of heads a block they can take (each divisor of H
+up to 16), ``ssd_chunk_bwd_tf32`` through its entry point's ``G``
+argument and ``ssd_chunk_tf32`` through a variant of the new ``ssd.cu``
+to which ``FORCE_HEADS`` adds ``ssd_chunk_tf32_force_heads(g)`` (0: the
+kernel's own choice), and prints the group each takes by itself.
 """
 from __future__ import annotations
 
@@ -55,12 +68,14 @@ from repro_torch.kernels.ssd import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd.ref import (chunk_cumsum,  # noqa: E402
                                          ssd_carry_bwd_ref)
 
-# (B, L, H, P, N, Q), dtype: mamba2-780m's heads at 2 x 4096 in fp32 (the
-# CUDA-core kernels' dtype), then in bf16 zamba2-1.2b's 4 x 2048 prefill,
+# (B, L, H, P, N, Q), dtype: mamba2-780m's heads in fp32 at 1 x 2048
+# (phase 11 (b)'s fp32 step in chip_smoke.py) and 2 x 4096 (the fp32
+# tensor-core kernels' dtype), then in bf16 zamba2-1.2b's 4 x 2048 prefill,
 # mamba2-780m's 2 x 4096 training step and zamba2-1.2b's 32,768-token
 # prompt: the chunk pass forced onto the CUDA-core kernel, the carry on
 # ssd_carry_tc (bf16 C).
-SHAPES = (((2, 4096, 48, 64, 128, 64), torch.float32),
+SHAPES = (((1, 2048, 48, 64, 128, 64), torch.float32),
+          ((2, 4096, 48, 64, 128, 64), torch.float32),
           ((4, 2048, 64, 64, 64, 64), torch.bfloat16),
           ((2, 4096, 48, 64, 128, 64), torch.bfloat16),
           ((1, 32768, 64, 64, 64, 64), torch.bfloat16))
@@ -118,6 +133,61 @@ def plans_lib():
     (d / "ssd_mma.cuh").write_text((sk.CSRC / "ssd_mma.cuh").read_text())
     return CudaLibrary("ssd_plans", d / "ssd.cu", (), bind_plans,
                        headers=(d / "ssd_mma.cuh",)).load()
+
+
+# The --heads variant: the forward's heads a block forced by an entry
+# point.
+HEADS_HEAD = "int tf32_heads_per_block(int pairs, int H, int sms) {\n"
+FORCE_HEADS = (HEADS_HEAD, "int g_force_heads = 0;\n\n" + HEADS_HEAD
+               + "  if (g_force_heads) return g_force_heads;\n")
+FORCE_HEADS_ENTRY = """
+extern "C" int ssd_chunk_tf32_force_heads(int g) {
+  if (g < 0 || g > 16) return (int)cudaErrorInvalidValue;
+  g_force_heads = g;
+  return 0;
+}
+"""
+
+
+def heads_lib():
+    """The new ssd.cu with FORCE_HEADS and FORCE_HEADS_ENTRY, built."""
+    src = (sk.CSRC / "ssd.cu").read_text()
+    if src.count(FORCE_HEADS[0]) != 1:
+        raise SystemExit("--heads: ssd.cu no longer holds "
+                         "tf32_heads_per_block as FORCE_HEADS expects it")
+    d = sk.LIB.build_root / "variants" / "tf32_heads"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "ssd.cu").write_text(src.replace(*FORCE_HEADS) + FORCE_HEADS_ENTRY)
+    (d / "ssd_mma.cuh").write_text((sk.CSRC / "ssd_mma.cuh").read_text())
+
+    def bind_heads(lib):
+        bind(lib)
+        lib.ssd_chunk_tf32_force_heads.argtypes = [ctypes.c_int]
+    return CudaLibrary("ssd_tf32_heads", d / "ssd.cu", (), bind_heads,
+                       headers=(d / "ssd_mma.cuh",)).load()
+
+
+def time_heads(lib, fwd, bwd, shape, sms) -> None:
+    """The fp32 tensor-core kernels at every group of heads a block:
+    ``fwd()`` through the --heads variant ``lib``, ``bwd(G)`` a call of
+    the new backward library with G heads a block."""
+    B, L, H, P, N, Q = shape
+    pairs = B * L // Q
+    for g in range(1, 17):
+        if H % g:
+            continue
+        assert lib.ssd_chunk_tf32_force_heads(g) == 0 and fwd() == 0
+        t_fwd = ms(fwd)
+        call = bwd(g)
+        assert call() == 0
+        print(f"{list(shape)} float32 at {g} heads a block "
+              f"({pairs * H // g} blocks): ssd_chunk_tf32 {t_fwd:.5f}, "
+              f"ssd_chunk_bwd_tf32 {ms(call):.5f} ms a launch", flush=True)
+    lib.ssd_chunk_tf32_force_heads(0)
+    print(f"{list(shape)} float32: the kernels take "
+          f"{sk.chunk_tf32_heads(pairs, H, sms)} (forward) and "
+          f"{sk.tf32_heads(pairs, H, sms)} "
+          f"(backward) heads a block", flush=True)
 
 
 def host_us(fn, reps=9):
@@ -191,6 +261,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True, type=Path)
     ap.add_argument("--plans", action="store_true")
+    ap.add_argument("--heads", action="store_true")
     args = ap.parse_args()
     old_dir = args.old.resolve()
     if not torch.cuda.is_available():
@@ -207,6 +278,7 @@ def main() -> int:
     report_builds("new", (sk.LIB, sk.LIB_BWD))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = plans_lib() if args.plans else None
+    heads = heads_lib() if args.heads else None
     for shape, dtype in SHAPES:
         B, L, H, P, N, Q = shape
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -224,14 +296,23 @@ def main() -> int:
             return [torch.empty(s, device="cuda", dtype=dtype)
                     for s in shapes]
 
-        def chunk(lib, out):
+        f32 = dtype == torch.float32
+
+        def chunk(lib, out, terms=0):
             return lambda: lib.ssd_chunk_launch(
                 x.data_ptr(), dt.data_ptr(), cum.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), code,
-                B, L, H, P, N, Q, 0, stream)
+                B, L, H, P, N, Q, terms, stream)
+
+        def taken(make):
+            """The TF32 call where the library takes it, else the
+            CUDA-core one."""
+            fn = make(1)
+            return fn if fn() == 0 else make(0)
         chunk_out = {v: empty((B, L, H, P), (B, L // Q, H, N, P))
-                     for v in ("old", "new")}
+                     for v in ("old", "new", "core")}
         yi, st = chunk_out["new"]
+        tf32 = sk.TF32_TERMS if f32 else 0
 
         def carry(lib, out):
             return lambda: lib.ssd_carry_launch(
@@ -240,9 +321,16 @@ def main() -> int:
                 H, P, N, Q, stream)
         carry_out = {v: empty((B, L, H, P), dtype=dtype) + empty((B, H, N, P))
                      for v in ("old", "new")}
-        calls = {"chunk": {"old": chunk(old, chunk_out["old"]),
-                           "new": chunk(new, chunk_out["new"])}}
-        outs = {"chunk": chunk_out}
+        calls = {"chunk": {
+            "old": taken(lambda t: chunk(old, chunk_out["old"], t * tf32)),
+            "new": chunk(new, chunk_out["new"], tf32)}}
+        outs = {"chunk": {k: chunk_out[k] for k in ("old", "new")}}
+        if f32:
+            calls["chunk, CUDA cores"] = {
+                "old": chunk(new, chunk_out["core"]),
+                "new": calls["chunk"]["new"]}
+            outs["chunk, CUDA cores"] = {"old": chunk_out["core"],
+                                         "new": chunk_out["new"]}
         for fn in calls["chunk"].values():
             assert fn() == 0
         calls["carry"] = {"old": carry(old, carry_out["old"]),
@@ -250,26 +338,42 @@ def main() -> int:
         outs["carry"] = carry_out
         if dtype == torch.float32:
             h_prev, g, _ = ssd_carry_bwd_ref(st, cum, Cm, dy, Q)
-            G = sk.bwd_heads_per_block(B * L // Q, H, sms)
+            # Heads a block: the TF32 kernel's rule for a TF32 call,
+            # ssd_chunk_bwd's for a CUDA-core one (the partial dB, dC
+            # sums follow it).
+            groups = {1: sk.tf32_heads(B * L // Q, H, sms),
+                      0: sk.bwd_heads_per_block(B * L // Q, H, sms)}
 
-            def bwd(lib, out):
+            def bwd(lib, out, tc=0):
+                G = groups[tc]
+                if out[3].shape[0] != H // G:
+                    out[3:] = empty((H // G, B, L, N), (H // G, B, L, N))
                 return lambda: lib.ssd_chunk_bwd_launch(
                     x.data_ptr(), dt.data_ptr(), cum.data_ptr(),
                     Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
                     g.data_ptr(), h_prev.data_ptr(),
                     *[o.data_ptr() for o in out], code, B, L, H, P, N, Q,
-                    G, 0, stream)
+                    G, tc, stream)
             bwd_out = {v: empty((B, L, H, P), (B, L, H), (B, L, H),
-                                (H // G, B, L, N), (H // G, B, L, N))
-                       for v in ("old", "new")}
-            calls["chunk bwd"] = {"old": bwd(old_bwd_lib, bwd_out["old"]),
-                                  "new": bwd(new_bwd_lib, bwd_out["new"])}
-            outs["chunk bwd"] = bwd_out
+                                (1, B, L, N), (1, B, L, N))
+                       for v in ("old", "new", "core")}
+            calls["chunk bwd"] = {
+                "old": taken(lambda t: bwd(old_bwd_lib, bwd_out["old"], t)),
+                "new": bwd(new_bwd_lib, bwd_out["new"], 1)}
+            outs["chunk bwd"] = {k: bwd_out[k] for k in ("old", "new")}
+            calls["chunk bwd, CUDA cores"] = {
+                "old": bwd(new_bwd_lib, bwd_out["core"]),
+                "new": calls["chunk bwd"]["new"]}
+            outs["chunk bwd, CUDA cores"] = {"old": bwd_out["core"],
+                                             "new": bwd_out["new"]}
         for name in calls:
             for fn in calls[name].values():
                 assert fn() == 0
         torch.cuda.synchronize()
-        same = {name: [float((a.float() - b.float()).abs().max())
+        # Partial dB, dC sums over other groups of heads: their sums.
+        same = {name: [float((a.float().sum(0) - b.float().sum(0)).abs()
+                             .max() if a.shape != b.shape else
+                             (a.float() - b.float()).abs().max())
                        for a, b in zip(o["old"], o["new"])]
                 for name, o in outs.items()}
         bitwise = {name: all(torch.equal(a, b)
@@ -283,6 +387,19 @@ def main() -> int:
                   f"new / old {(t[1] + t[2]) / (t[0] + t[3]):.4f}; max|Δ| "
                   f"per output {same[name]}; bitwise {bitwise[name]}",
                   flush=True)
+        if f32 and args.heads:
+            out = empty((B, L, H, P), (B, L // Q, H, N, P))
+
+            def bwd_at(G):
+                outs = empty((B, L, H, P), (B, L, H), (B, L, H),
+                             (H // G, B, L, N), (H // G, B, L, N))
+                return lambda: new_bwd_lib.ssd_chunk_bwd_launch(
+                    x.data_ptr(), dt.data_ptr(), cum.data_ptr(),
+                    Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+                    g.data_ptr(), h_prev.data_ptr(),
+                    *[o.data_ptr() for o in outs], code, B, L, H, P, N, Q,
+                    G, 1, stream)
+            time_heads(heads, chunk(heads, out, tf32), bwd_at, shape, sms)
         fo, fn = calls["carry"]["old"], calls["carry"]["new"]
         t = (host_us(fo), host_us(fn), host_us(fn), host_us(fo))
         print(f"{list(shape)} {str(dtype)[6:]} carry: host µs a call to "
