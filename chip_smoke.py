@@ -82,15 +82,17 @@ Phases (each raises on failure, so the script exits non-zero):
    2 x 4096): ``ssd_chunk_tf32`` (TF32 ``mma.sync``, three products a
    product; no spill) and the CUDA-core ``ssd_chunk_kernel`` on the same
    inputs against ``ssd_chunks_ref``, both timed through the C entry
-   point in turns, and the fp32 carry ``ssd_carry_kernel``; the SSD
-   backward (``ssd_bwd.cu``:
+   point in turns, and likewise the fp32 carries ``ssd_carry_tf32`` (its
+   plan, no spill, two passes bitwise) and ``ssd_carry_kernel`` against
+   ``ssd_carry_ref``; the SSD backward (``ssd_bwd.cu``:
    at Q = P = 64, N in {64, 128} for bf16 the tensor-core
-   ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, for fp32 the CUDA-core
-   ``ssd_carry_bwd`` and the tensor-core ``ssd_chunk_bwd_tf32``, the
+   ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, for fp32 the TF32
+   ``ssd_carry_bwd_tf32`` and ``ssd_chunk_bwd_tf32``, the
    tensor-core kernels' registers, dynamic shared memory and spills from
-   ``-Xptxas -v`` printed and showing no spill, ``ssd_chunk_bwd_tf32``
-   timed in turns with ``ssd_chunk_bwd`` through the C entry point at
-   the fp32 training shapes; for every other shape the CUDA-core
+   ``-Xptxas -v`` printed and showing no spill, the fp32 pair held and
+   timed in turns with the CUDA-core ``ssd_carry_bwd`` and
+   ``ssd_chunk_bwd`` through the C entry points at the fp32 training
+   shapes; for every other shape the CUDA-core
    ``ssd_carry_bwd`` and ``ssd_chunk_bwd``; and the whole backward of
    the op ``repro_torch::ssd_fwd``) against ``ssd_carry_bwd_ref``,
    ``ssd_chunk_bwd_ref`` and ``ssd_bwd_ref`` at the reference sweep's
@@ -176,9 +178,10 @@ Phases (each raises on failure, so the script exits non-zero):
    chunk-state launch), ``ssd_carry_bwd_tc``, ``ssd_chunk_bwd_tc``: one
    each per layer; each forward kernel by name) and FA launches checked,
    and mamba2-780m again with fp32 compute, which takes
-   ``ssd_chunk_tf32``, ``ssd_carry_kernel``, ``ssd_carry_bwd`` and
-   ``ssd_chunk_bwd_tf32`` (its step also timed in turns with the same
-   step sent to the SSD's CUDA-core kernels), and on a 2 x 50 batch
+   ``ssd_chunk_tf32``, ``ssd_carry_tf32``, ``ssd_carry_bwd_tf32`` and
+   ``ssd_chunk_bwd_tf32`` (two launches of each checked; its step also
+   timed in turns with the same step sent to the SSD's four CUDA-core
+   kernels), and on a 2 x 50 batch
    (bf16, chunk min(64, L) = 50: the CUDA-core forward and backward
    kernels, named in the log); (c) ``FaultyTrainer``
    (fail_prob 0.25, seed 1) over 15 steps of llama3-8b smoke on the card
@@ -1474,15 +1477,16 @@ def ssd_inputs(torch, shape, seed):
     return x, dt, A, Bm, Cm
 
 
-def carry_bound(B, L, H, P, N, Q, dtype):
-    """2·N flops per y element on the CUDA cores; y_intra and the chunk
-    states read once (fp32), C and cum, y written in ``dtype`` and the
-    final state (fp32)."""
+def carry_bound(B, L, H, P, N, Q, dtype, ops_per_s=None):
+    """2·N flops per y element, on the CUDA cores unless ``ops_per_s``
+    says otherwise (``ssd_carry_tf32`` at TF32_X3_OPS_PER_S); y_intra and
+    the chunk states read once (fp32), C and cum, y written in ``dtype``
+    and the final state (fp32)."""
     nc = L // Q
     flops = 2 * B * L * H * N * P + 2 * B * nc * H * N * P
     nbytes = (B * L * H * P * (4 + esize(dtype)) + B * nc * H * N * P * 4
               + B * L * N * esize(dtype) + B * L * H * 4 + B * H * N * P * 4)
-    return bound(flops, nbytes, "float32")
+    return bound(flops, nbytes, "float32", ops_per_s)
 
 
 def burst_ms(torch, fn) -> float:
@@ -1584,20 +1588,25 @@ def ssd_tf32_rows(torch) -> dict:
     SSD_REL·max(max|ref|, 1) (the sweep's 1e-4 where max|ref| < 1), the
     new kernel's second pass bitwise; both timed through the C entry point
     in turns (new, CUDA cores, CUDA cores, new), the new one also through
-    its wrapper, the plain version once; the fp32 carry
-    (``ssd_carry_kernel``) held against ``ssd_carry_ref`` and timed the
-    same way; each beside its bound, the new kernel's products priced at
+    its wrapper, the plain version once; likewise the fp32 carries,
+    ``ssd_carry_tf32`` (``ssd_carry_launch``) and ``ssd_carry_kernel``
+    (``cuda_cores=True``, ``ssd_carry_core_launch``) against
+    ``ssd_carry_ref`` with an initial state, the plan ``ssd_carry_tf32``
+    launches with (its shared memory equal to kernel.py's mirror); each
+    beside its bound, the new kernels' products priced at
     TF32_X3_OPS_PER_S, the CUDA-core kernels' at the fp32 CUDA-core rate.
-    Also the heads a block and shared memory the library launches with
-    (equal to kernel.py's mirrors)."""
+    Also the heads a block and shared memory the chunk kernel launches
+    with (equal to kernel.py's mirrors), and both new kernels' builds
+    (no spill)."""
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_carry_ref,
                                              ssd_chunks_ref)
     lib = sk.LIB.load()
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f32 = torch.float32
     rows, worst = {}, {"ssd_chunk_tf32": 0.0, "ssd_chunk_kernel": 0.0,
-                       "ssd_carry_kernel": 0.0}
+                       "ssd_carry_tf32": 0.0, "ssd_carry_kernel": 0.0}
 
     def held(shape, name, got, want):
         err, scale = max_err(torch, got, want), float(want.abs().max())
@@ -1605,6 +1614,11 @@ def ssd_tf32_rows(torch) -> dict:
             raise AssertionError(f"ssd {shape} {name}: max|Δ| {err} > "
                                  f"{SSD_REL} * max({scale}, 1)")
         return err / (SSD_REL * max(scale, 1.0)), err
+
+    def turns(new, old):
+        """(new, CUDA cores, CUDA cores, new) ms a launch."""
+        return (burst_ms(torch, new), burst_ms(torch, old),
+                burst_ms(torch, old), burst_ms(torch, new))
 
     for i, shape in enumerate(SSD_TF32_SHAPES):
         B, L, H, P, N, Q = shape
@@ -1620,39 +1634,52 @@ def ssd_tf32_rows(torch) -> dict:
             raise AssertionError(f"ssd_chunk_tf32 {shape}: two passes "
                                  f"differ")
         ratio = {}
-        for name, out in (("ssd_chunk_tf32", got),
-                          ("ssd_chunk_kernel", core)):
-            r = [held(shape, f"{name} {what}", o, w) for what, o, w in
-                 zip(("y_intra", "chunk states"), out, want)]
+
+        def hold_all(name, pairs):
+            r = [held(shape, f"{name} {what}", o, w) for what, o, w in pairs]
             ratio[name] = max(v for v, _ in r)
             worst[name] = max(worst[name], *(e for _, e in r))
+        for name, out in (("ssd_chunk_tf32", got),
+                          ("ssd_chunk_kernel", core)):
+            hold_all(name, zip(("y_intra", "chunk states"), out, want))
         del again, core
         yi, st = want
-        cy, cf = sk.ssd_carry_cuda(yi, st, cum, Cm, Q)
-        wy, wf = ssd_carry_ref(yi, st, cum, Cm, Q)
-        r = [held(shape, f"ssd_carry_kernel {what}", o, w) for what, o, w in
-             (("y", cy, wy), ("final state", cf, wf))]
-        ratio["ssd_carry_kernel"] = max(v for v, _ in r)
-        worst["ssd_carry_kernel"] = max(worst["ssd_carry_kernel"],
-                                        *(e for _, e in r))
-        del wy, wf
+        h0 = torch.randn((B, H, N, P), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(390 + i))
+        wy, wf = ssd_carry_ref(yi, st, cum, Cm, Q, h0)
+        cy, cf = sk.ssd_carry_cuda(yi, st, cum, Cm, Q, h0)
+        again = sk.ssd_carry_cuda(yi, st, cum, Cm, Q, h0)
+        ky, kf = sk.ssd_carry_cuda(yi, st, cum, Cm, Q, h0, cuda_cores=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(cy, again[0]) and torch.equal(cf, again[1])):
+            raise AssertionError(f"ssd_carry_tf32 {shape}: two passes "
+                                 f"differ")
+        for name, y_, f_ in (("ssd_carry_tf32", cy, cf),
+                             ("ssd_carry_kernel", ky, kf)):
+            hold_all(name, (("y", y_, wy), ("final state", f_, wf)))
+        del wy, wf, again, ky, kf
         y, states = got
-        code = sk.DTYPES[torch.float32]
+        code = sk.DTYPES[f32]
 
         def chunk_call(terms):
             return lambda: lib.ssd_chunk_launch(
                 x.data_ptr(), dt.data_ptr(), cum.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), y.data_ptr(), states.data_ptr(), code, B, L,
                 H, P, N, Q, terms, stream)
-        new, old = chunk_call(sk.TF32_TERMS), chunk_call(0)
-        t = (burst_ms(torch, new), burst_ms(torch, old), burst_ms(torch, old),
-             burst_ms(torch, new))
-        carry_ms = burst_ms(torch, lambda: lib.ssd_carry_launch(
-            yi.data_ptr(), st.data_ptr(), cum.data_ptr(), Cm.data_ptr(),
-            None, cy.data_ptr(), cf.data_ptr(), code, code, B, L, H, P, N, Q,
-            stream))
+
+        def carry_call(entry):
+            return lambda: entry(
+                yi.data_ptr(), st.data_ptr(), cum.data_ptr(), Cm.data_ptr(),
+                None, cy.data_ptr(), cf.data_ptr(), code, code, B, L, H, P,
+                N, Q, stream)
+        t = turns(chunk_call(sk.TF32_TERMS), chunk_call(0))
+        tc = turns(carry_call(lib.ssd_carry_launch),
+                   carry_call(lib.ssd_carry_core_launch))
         wrapper = timed_ms(torch, lambda: sk.ssd_chunks_cuda(x, dt, cum, Bm,
                                                              Cm, Q))
+        carry_wrapper = timed_ms(torch, lambda: sk.ssd_carry_cuda(
+            yi, st, cum, Cm, Q))
         plain = timed_ms(torch, lambda: ssd_chunks_ref(x, dt, cum, Bm, Cm,
                                                        Q), 0.2)
         carry_plain = timed_ms(torch, lambda: ssd_carry_ref(yi, st, cum, Cm,
@@ -1664,16 +1691,27 @@ def ssd_tf32_rows(torch) -> dict:
             raise AssertionError(f"ssd_chunk_tf32 {shape}: the library "
                                  f"takes {G} heads a block and {smem} "
                                  f"bytes, kernel.py's mirrors disagree")
+        plan = sk.carry_plan(f32, B, H, P, N, Q, c_dtype=f32)
+        mirror = sk.carry_tc_smem_bytes(N, Q, plan["ps"], plan["stages"],
+                                        f32)
+        if plan["smem"] != mirror:
+            raise AssertionError(f"ssd_carry_tf32 {shape}: the library's "
+                                 f"plan has {plan['smem']} bytes of shared "
+                                 f"memory, kernel.py's mirror {mirror}")
         bms, bby = ssd_bound(*shape, "float32", TF32_X3_OPS_PER_S)
         cbms, cbby = ssd_bound(*shape, "float32")
-        kbms, kbby = carry_bound(*shape, "float32")
+        kbms, kbby = carry_bound(*shape, "float32", TF32_X3_OPS_PER_S)
+        kcbms, kcbby = carry_bound(*shape, "float32")
         rows[shape] = dict(
             entry_ms=(t[0] + t[3]) / 2, core_entry_ms=(t[1] + t[2]) / 2,
             turns=list(t), ms=wrapper, plain_ms=plain, bound_ms=bms,
             bound_by=bby, core_bound_ms=cbms, core_bound_by=cbby,
-            carry_ms=carry_ms, carry_plain_ms=carry_plain,
-            carry_bound_ms=kbms, carry_bound_by=kbby, heads_per_block=G,
-            smem=smem, ratio=ratio)
+            carry_entry_ms=(tc[0] + tc[3]) / 2,
+            carry_core_entry_ms=(tc[1] + tc[2]) / 2, carry_turns=list(tc),
+            carry_ms=carry_wrapper, carry_plain_ms=carry_plain,
+            carry_bound_ms=kbms, carry_bound_by=kbby,
+            carry_core_bound_ms=kcbms, carry_core_bound_by=kcbby,
+            carry_plan=plan, heads_per_block=G, smem=smem, ratio=ratio)
         log(f"[ssd] [B,L,H,P,N,Q]={list(shape)} float32 forward: "
             f"ssd_chunk_tf32 / ssd_chunk_kernel through ssd_chunk_launch, "
             f"in turns (new, CUDA cores, CUDA cores, new), ms a launch "
@@ -1683,18 +1721,36 @@ def ssd_tf32_rows(torch) -> dict:
             f"{bms / rows[shape]['entry_ms']:.3f} of it; ssd_chunk_kernel "
             f"bound {cbms:.6f} ({cbby}); wrapper {wrapper:.5f}, plain "
             f"{plain:.5f}; {G} heads a block, {smem:,} bytes of shared "
-            f"memory; ssd_carry_kernel (fp32 C) {carry_ms:.5f} through "
-            f"ssd_carry_launch, plain {carry_plain:.5f}, bound {kbms:.6f} "
-            f"({kbby}); worst max|Δ|/bar "
+            f"memory; ssd_carry_tf32 / ssd_carry_kernel through "
+            f"ssd_carry_launch / ssd_carry_core_launch in turns "
+            + ", ".join(f"{v:.5f}" for v in tc)
+            + f" (new / CUDA cores {(tc[0] + tc[3]) / (tc[1] + tc[2]):.4f}),"
+            f" bound {kbms:.6f} ({kbby}), "
+            f"{kbms / rows[shape]['carry_entry_ms']:.3f} of it; wrapper "
+            f"{carry_wrapper:.5f}, plain {carry_plain:.5f}; plan "
+            f"{plan['ps']}-column slices, {plan['stages']}-stage rings, "
+            f"{plan['blocks']} blocks of {plan['threads']} threads, "
+            f"{plan['smem']:,} bytes; worst max|Δ|/bar "
             + ", ".join(f"{k} {v:.4g}" for k, v in ratio.items())
-            + "; ssd_chunk_tf32's two passes bitwise")
-        del x, dt, A, Bm, Cm, cum, want, got, yi, st, y, states, cy, cf
+            + "; ssd_chunk_tf32's and ssd_carry_tf32's two passes bitwise")
+        del x, dt, A, Bm, Cm, cum, want, got, yi, st, y, states, cy, cf, h0
         torch.cuda.empty_cache()
     # Per N at 16 heads a block (two blocks an SM at N = 128); raises on a
     # spill.
     builds = check_builds(sk.LIB, "ssd", {"ssd_chunk_tf32": (
         [64, 128], lambda n: lib.ssd_chunk_tf32_smem_bytes(n, 16), "")})
-    return dict(rows=rows, worst=worst, builds=builds)
+    carry_builds = build_rows(sk.LIB, "ssd_carry_tf32")
+    spills = {k: v for k, v in carry_builds.items() if v[1] or v[2]}
+    if len(carry_builds) != 8 or spills:
+        raise AssertionError(f"ssd_carry_tf32's builds {carry_builds}: "
+                             f"expected 8 (y fp32 or bf16 at 8, 16, 32 and "
+                             f"64 columns), no spill")
+    log("[ssd] ssd_carry_tf32's builds (-Xptxas -v; shared memory is the "
+        "plan's, above): " + "; ".join(
+            f"<{k}> {v[0]} registers, spills {v[1]} / {v[2]}"
+            for k, v in sorted(carry_builds.items())))
+    return dict(rows=rows, worst=worst, builds=builds,
+                carry_builds=carry_builds)
 
 
 def phase_ssd(torch) -> dict:
@@ -2066,7 +2122,8 @@ def ssd_bwd_mma_floors(B, L, H, P, N, Q, groups, terms):
 
 def check_ssd_tc_builds(sk) -> dict:
     """The SSD backward's tensor-core kernels: the chunk kernels per N (16
-    heads a block), the carry at its slice of 32 rows of N (64 chunks)."""
+    heads a block), the carries at their slice of 32 rows of N (64
+    chunks)."""
     lib = sk.LIB_BWD.load()
     return check_builds(sk.LIB_BWD, "ssd-bwd", {
         "ssd_chunk_bwd_tc": ([64, 128],
@@ -2077,7 +2134,9 @@ def check_ssd_tc_builds(sk) -> dict:
             ""),
         "ssd_carry_bwd_tc": ([32],
                              lambda r: lib.ssd_bwd_tc_smem_bytes(1, 128, 64),
-                             "")})
+                             ""),
+        "ssd_carry_bwd_tf32": (
+            [32], lambda r: lib.ssd_carry_bwd_tf32_smem_bytes(64), "")})
 
 
 def hold_grads(torch, what, names, got, again, want) -> dict:
@@ -2106,6 +2165,21 @@ def hold_grads(torch, what, names, got, again, want) -> dict:
                                  f"times its bar")
         out[name] = (ratio, float(err.max()))
     return out
+
+
+def carry_bwd_call(torch, sk, cargs, tc):
+    """A call of the carry backward's C entry point on ``cargs`` (the
+    wrapper's) into outputs made beforehand: ``tc`` 1 the tensor-core
+    kernel for the inputs' dtype, 0 ``ssd_carry_bwd``."""
+    states, cum, Cm, dy, Q, h0, df = cargs
+    B, nc, H, N, P = states.shape
+    outs = [torch.empty_like(states), torch.empty_like(states),
+            torch.empty((B, H, N, P), device="cuda")]
+    lib = sk.LIB_BWD.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: lib.ssd_carry_bwd_launch(
+        *(t.data_ptr() for t in (states, cum, Cm, dy, h0, df, *outs)),
+        sk.DTYPES[Cm.dtype], B, nc * Q, H, P, N, Q, tc, stream)
 
 
 def chunk_bwd_call(torch, sk, args, G, tc):
@@ -2138,7 +2212,7 @@ def phase_ssd_bwd(torch) -> dict:
         "wrappers dispatch to (kernel.bwd_kernels: bf16 at Q = P = 64, N "
         f"in {{64, 128}} on the tensor cores, ssd_carry_bwd_tc and "
         f"ssd_chunk_bwd_tc with fp32 operands in {sk.BWD_TERMS} bf16 terms; "
-        "fp32 there ssd_carry_bwd and ssd_chunk_bwd_tf32 (TF32, three "
+        "fp32 there ssd_carry_bwd_tf32 and ssd_chunk_bwd_tf32 (TF32, three "
         "products a product, priced at the 3×TF32 rate); every other shape "
         "on the CUDA cores, ssd_carry_bwd and "
         "ssd_chunk_bwd); backward = the op's whole backward (ops.ssd_bwd: "
@@ -2205,10 +2279,9 @@ def phase_ssd_bwd(torch) -> dict:
         bounds = ssd_bwd_bounds(B, L, H, P, N, Q, dtype, H // G)
         tf32 = names["chunk"].endswith("_tf32")
         if tf32:
-            core_bound = bounds["chunk"]
-            x3 = ssd_bwd_bounds(B, L, H, P, N, Q, dtype, H // G,
-                                TF32_X3_OPS_PER_S)
-            bounds = dict(bounds, chunk=x3["chunk"], backward=x3["backward"])
+            core_bound = {k: bounds[k] for k in ("carry", "chunk")}
+            bounds = ssd_bwd_bounds(B, L, H, P, N, Q, dtype, H // G,
+                                    TF32_X3_OPS_PER_S)
         row = dict(ms=ms, plain_ms=plain, bounds=bounds, held=held,
                    heads_per_block=G, names=names)
         extra = ""
@@ -2244,34 +2317,53 @@ def phase_ssd_bwd(torch) -> dict:
                       f"{row['core_ms']['carry']:.5f}, ssd_chunk_bwd "
                       f"{row['core_ms']['chunk']:.5f}")
         if tf32 and L * H >= 4096:
-            # ssd_chunk_bwd on the same fp32 inputs (with the heads a block
-            # it takes), held; both kernels through the C entry point in
-            # turns (new, CUDA cores, CUDA cores, new).
+            # The CUDA-core kernels on the same fp32 inputs (ssd_chunk_bwd
+            # with the heads a block it takes), held; each pair through
+            # its C entry point in turns (new, CUDA cores, CUDA cores,
+            # new).
             Gc = sk.bwd_heads_per_block(B * L // Q, H, sms)
-            core = hold_grads(
-                torch, f"ssd_chunk_bwd {shape} {dtype}", chunk_names,
-                sk.ssd_chunk_bwd_cuda(*args, cuda_cores=True),
-                sk.ssd_chunk_bwd_cuda(*args, cuda_cores=True),
-                ssd_chunk_bwd_ref(*args, Gc))
-            errs["ssd_chunk_bwd"] = max(errs["ssd_chunk_bwd"],
-                                        *(e for _, e in core.values()))
-            new, old = (chunk_bwd_call(torch, sk, args, g_, tc)
-                        for g_, tc in ((G, 1), (Gc, 0)))
-            t = (burst_ms(torch, new), burst_ms(torch, old),
-                 burst_ms(torch, old), burst_ms(torch, new))
-            core_ms = timed_ms(torch, lambda: sk.ssd_chunk_bwd_cuda(
-                *args, cuda_cores=True))
-            row.update(core_ms={"chunk": core_ms}, core_bound=core_bound,
-                       entry_ms=(t[0] + t[3]) / 2,
-                       core_entry_ms=(t[1] + t[2]) / 2, turns=list(t))
-            extra += (f"; ssd_chunk_bwd_tf32 / ssd_chunk_bwd through "
-                      f"ssd_chunk_bwd_launch in turns (new, CUDA cores, "
-                      f"CUDA cores, new), ms a launch "
-                      + ", ".join(f"{v:.5f}" for v in t)
-                      + f" (new / CUDA cores "
-                      f"{(t[0] + t[3]) / (t[1] + t[2]):.4f}); ssd_chunk_bwd "
-                      f"wrapper {core_ms:.5f}, bound {core_bound[0]:.6f} "
-                      f"({core_bound[1]}, CUDA cores)")
+            core = {
+                "carry": hold_grads(
+                    torch, f"ssd_carry_bwd {shape} {dtype}", carry_names,
+                    sk.ssd_carry_bwd_cuda(*cargs, cuda_cores=True),
+                    sk.ssd_carry_bwd_cuda(*cargs, cuda_cores=True),
+                    want_carry),
+                "chunk": hold_grads(
+                    torch, f"ssd_chunk_bwd {shape} {dtype}", chunk_names,
+                    sk.ssd_chunk_bwd_cuda(*args, cuda_cores=True),
+                    sk.ssd_chunk_bwd_cuda(*args, cuda_cores=True),
+                    ssd_chunk_bwd_ref(*args, Gc))}
+            for k, name in (("carry", "ssd_carry_bwd"),
+                            ("chunk", "ssd_chunk_bwd")):
+                errs[name] = max(errs[name],
+                                 *(e for _, e in core[k].values()))
+            calls = {"carry": (carry_bwd_call(torch, sk, cargs, 1),
+                               carry_bwd_call(torch, sk, cargs, 0)),
+                     "chunk": (chunk_bwd_call(torch, sk, args, G, 1),
+                               chunk_bwd_call(torch, sk, args, Gc, 0))}
+            t = {k: (burst_ms(torch, new), burst_ms(torch, old),
+                     burst_ms(torch, old), burst_ms(torch, new))
+                 for k, (new, old) in calls.items()}
+            row.update(
+                core_ms={
+                    "carry": timed_ms(torch, lambda: sk.ssd_carry_bwd_cuda(
+                        *cargs, cuda_cores=True)),
+                    "chunk": timed_ms(torch, lambda: sk.ssd_chunk_bwd_cuda(
+                        *args, cuda_cores=True))},
+                core_bound=core_bound, turns=t,
+                entry_ms={k: (v[0] + v[3]) / 2 for k, v in t.items()},
+                core_entry_ms={k: (v[1] + v[2]) / 2 for k, v in t.items()})
+            for k in ("carry", "chunk"):
+                v = t[k]
+                extra += (f"; {names[k]} / ssd_{k}_bwd through "
+                          f"ssd_{k}_bwd_launch in turns (new, CUDA cores, "
+                          f"CUDA cores, new), ms a launch "
+                          + ", ".join(f"{u:.5f}" for u in v)
+                          + f" (new / CUDA cores "
+                          f"{(v[0] + v[3]) / (v[1] + v[2]):.4f}); "
+                          f"ssd_{k}_bwd wrapper {row['core_ms'][k]:.5f}, "
+                          f"bound {core_bound[k][0]:.6f} "
+                          f"({core_bound[k][1]}, CUDA cores)")
         rows[(shape, dtype)] = row
         log(f"[ssd-bwd] [B,L,H,P,N,Q]={list(shape)} {dtype} ({G} heads "
             f"per block): "
@@ -2408,10 +2500,12 @@ def device_breakdown(torch, fn,
                      names=("fa_kernel", "ssd_chunk", "ssd_carry"),
                      span=None, others=None) -> dict:
     """Device time (ms) of one call of ``fn`` by kernel, from a
-    ``torch.profiler`` trace: the ported kernels by name (``ssd_chunk``
-    covers ``ssd_chunk_tc`` and ``ssd_chunk_kernel``, ``ssd_carry`` covers
-    ``ssd_carry_tc`` and ``ssd_carry_kernel``, ``fa_kernel`` the forward
-    flash-attention kernels), every other device kernel as ``other``.
+    ``torch.profiler`` trace: the ported kernels by name, each kernel
+    under the first name of ``names`` it contains (``ssd_chunk`` covers
+    ``ssd_chunk_tc``, ``ssd_chunk_tf32`` and ``ssd_chunk_kernel``,
+    ``ssd_carry`` covers ``ssd_carry_tc``, ``ssd_carry_tf32`` and
+    ``ssd_carry_kernel``, ``fa_kernel`` the forward flash-attention
+    kernels), every other device kernel as ``other``.
     A ``span`` list gets the profiled call's own wall time (ms, host
     clock, synchronised), so that busy and wall come from one run; an
     ``others`` dict gets the ``other`` kernels' device time (ms) by
@@ -3204,7 +3298,9 @@ TRAIN_SSM = ("mamba2-780m", 48, 2, 4096)
 # for the chunk states).
 SSD_COUNTERS = ("LAUNCHES", "CARRY_LAUNCHES", "BWD_LAUNCHES")
 # The profiler's names for the SSD kernels, the backward's first (each
-# contains a forward kernel's name).
+# contains a forward kernel's name): a kernel lands under the first it
+# contains, so ssd_carry_bwd_tc and ssd_carry_bwd_tf32 under
+# ssd_carry_bwd, ssd_carry_tc and ssd_carry_tf32 under ssd_carry.
 SSD_PROFILE = ("ssd_chunk_bwd", "ssd_carry_bwd", "ssd_chunk", "ssd_carry")
 OTHERS_SHOWN = 10    # (d) lists this many of the other kernels by time
 
@@ -3553,17 +3649,22 @@ def family_launches(cfg) -> tuple:
 
 @contextlib.contextmanager
 def ssd_on_cuda_cores():
-    """The SSD chunk pass and chunk backward sent to their CUDA-core
-    kernels (``terms=0``, ``cuda_cores=True``) inside the block: what an
-    fp32 step launched before the fp32 tensor-core kernels."""
+    """The SSD's four kernels sent to their CUDA-core versions inside the
+    block (``terms=0`` for the chunk pass, ``cuda_cores=True`` for the
+    carry, the carry backward and the chunk backward): what an fp32 step
+    launched before the fp32 tensor-core kernels."""
     from repro_torch.kernels.ssd import kernel as sk
-    chunks, chunk_bwd = sk.ssd_chunks_cuda, sk.ssd_chunk_bwd_cuda
-    sk.ssd_chunks_cuda = functools.partial(chunks, terms=0)
-    sk.ssd_chunk_bwd_cuda = functools.partial(chunk_bwd, cuda_cores=True)
+    names = ("ssd_chunks_cuda", "ssd_carry_cuda", "ssd_carry_bwd_cuda",
+             "ssd_chunk_bwd_cuda")
+    saved = {n: getattr(sk, n) for n in names}
+    sk.ssd_chunks_cuda = functools.partial(saved[names[0]], terms=0)
+    for n in names[1:]:
+        setattr(sk, n, functools.partial(saved[n], cuda_cores=True))
     try:
         yield
     finally:
-        sk.ssd_chunks_cuda, sk.ssd_chunk_bwd_cuda = chunks, chunk_bwd
+        for n, fn in saved.items():
+            setattr(sk, n, fn)
 
 
 STEP_TURNS = 5   # timed steps of each kind in ssd_step_turns
@@ -3649,6 +3750,13 @@ def phase_train_families(torch) -> dict:
             raise AssertionError(f"(b) {arch} {compute}: one step launched "
                                  f"{ssd_got} of the SSD, expected "
                                  f"{want_ssd}")
+        if n_ssd and compute == "float32" and Q == 64:
+            # The fp32 tensor-core SSD kernels, each once per layer.
+            tf32 = {k: ssd_got[k] for k in (
+                "ssd_carry_tf32", "ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32")}
+            if tf32 != dict.fromkeys(tf32, n_ssd):
+                raise AssertionError(f"(b) {arch} fp32: {tf32}, expected "
+                                     f"{n_ssd} launches of each")
         ran = {"fa_bwd_preprocess", fa.bwd_kernel("dkdv", dt),
                fa.bwd_kernel("dq", dt)}
         want_k = {n: (n_fa if n in ran else 0) for n in by_kernel}
@@ -4733,31 +4841,32 @@ def main() -> int:
                             fab["preprocess"]["rows"].items()]}),
         })
     # The SSD's fp32 forward kernels at (b)'s fp32 mamba2-780m step (1 x
-    # 2048): ssd_chunk_tf32 and the fp32 carry ssd_carry_kernel, which that
-    # step launched, and the CUDA-core chunk kernel on the same inputs,
-    # launched on a main path by (b)'s 2 x 50 step (chunk 50).
+    # 2048): ssd_chunk_tf32 and ssd_carry_tf32, which that step launched,
+    # and the CUDA-core ssd_chunk_kernel and ssd_carry_kernel timed on the
+    # same inputs, launched on a main path by (b)'s 2 x 50 step (chunk 50).
     ssm_f32 = train["families"]["mamba2-780m float32"]
     f32_fwd = sd["tf32"]["rows"][SSD_TRAIN_F32[0]]
     for name, pre, launches in (("ssd_chunk_tf32", "", ssm_f32),
                                 ("ssd_chunk_kernel", "core_", short),
-                                ("ssd_carry_kernel", "carry_", ssm_f32)):
-        entry = f32_fwd["carry_ms" if pre == "carry_" else pre + "entry_ms"]
+                                ("ssd_carry_tf32", "carry_", ssm_f32),
+                                ("ssd_carry_kernel", "carry_core_", short)):
+        carry = pre.startswith("carry_")
         record["kernels"].append({
             "name": name,
             "route": "cuda",
             "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
             **({"replaces": "src/repro/kernels/ssd/kernel.py:22"}
-               if pre != "carry_" else {
+               if not carry else {
                    # No Pallas kernel: the reference's jax.lax.scan and
                    # einsum.
                    "replaces": "src/repro/kernels/ssd/ops.py:40",
                    "tpu_kernel": False}),
             "launches": launches["ssd_launches"][name],
             "max_abs_err": sd["tf32"]["worst"][name],
-            # Through the C entry point (BURST launches a window).
-            "ms": entry,
-            "plain_ms": f32_fwd["carry_plain_ms" if pre == "carry_"
-                                else "plain_ms"],
+            # Through the C entry point (BURST launches a window), in
+            # turns with the other kernel.
+            "ms": f32_fwd[pre + "entry_ms"],
+            "plain_ms": f32_fwd["carry_plain_ms" if carry else "plain_ms"],
             "bound_ms": f32_fwd[pre + "bound_ms"],
             "bound_by": f32_fwd[pre + "bound_by"],
             "library_ms": None,
@@ -4769,6 +4878,11 @@ def main() -> int:
                 "build": sd["tf32"]["builds"],
                 "cuda_core_ms": f32_fwd["core_entry_ms"]}
                if pre == "" else {}),
+            **({"wrapper_ms": f32_fwd["carry_ms"],
+                "plan": f32_fwd["carry_plan"],
+                "build": sd["tf32"]["carry_builds"],
+                "cuda_core_ms": f32_fwd["carry_core_entry_ms"]}
+               if pre == "carry_" else {}),
             # Phase 11 (b): launches in one step per arch (and dtype).
             "launches_families": {
                 a: r["ssd_launches"][name]
@@ -4779,30 +4893,38 @@ def main() -> int:
                 k: r[k] for k in ("entry_ms", "core_entry_ms", "turns", "ms",
                                   "plain_ms", "bound_ms", "bound_by",
                                   "core_bound_ms", "core_bound_by",
-                                  "carry_ms", "carry_bound_ms",
                                   "heads_per_block", "smem", "ratio")})
+                     if not carry else dict(shape=list(sh), **{
+                k[6:]: r[k] for k in (
+                    "carry_entry_ms", "carry_core_entry_ms", "carry_turns",
+                    "carry_ms", "carry_plain_ms", "carry_bound_ms",
+                    "carry_bound_by", "carry_core_bound_ms",
+                    "carry_core_bound_by", "carry_plan")})
                      for sh, r in sd["tf32"]["rows"].items()],
         })
     # The SSD backward's kernels: the tensor-core pair at phase 11 (d)'s
     # shape (mamba2-780m, 2 x 4096, bf16), launched by (d); at (b)'s fp32
-    # mamba2-780m step (1 x 2048) the CUDA-core carry and
-    # ssd_chunk_bwd_tf32, which it launched, and ssd_chunk_bwd timed on
-    # the same inputs, launched on a main path by (b)'s 2 x 50 step.
+    # mamba2-780m step (1 x 2048) the fp32 tensor-core pair, which it
+    # launched, and the CUDA-core pair timed on the same inputs, launched
+    # on a main path by (b)'s 2 x 50 step.
     for key, name, (shape, dtype), launches in (
             ("carry", "ssd_carry_bwd_tc", (SSD_TRAIN[0], "bfloat16"),
              train["ssm"]["ssd_launches"]),
             ("chunk", "ssd_chunk_bwd_tc", (SSD_TRAIN[0], "bfloat16"),
              train["ssm"]["ssd_launches"]),
-            ("carry", "ssd_carry_bwd", SSD_TRAIN_F32,
+            ("carry", "ssd_carry_bwd_tf32", SSD_TRAIN_F32,
              ssm_f32["ssd_launches"]),
             ("chunk", "ssd_chunk_bwd_tf32", SSD_TRAIN_F32,
              ssm_f32["ssd_launches"]),
+            ("carry", "ssd_carry_bwd", SSD_TRAIN_F32,
+             short["ssd_launches"]),
             ("chunk", "ssd_chunk_bwd", SSD_TRAIN_F32,
              short["ssd_launches"])):
         row = sdb["rows"][(shape, dtype)]
         tc = name.endswith("_tc")
-        core = name == "ssd_chunk_bwd"   # beside ssd_chunk_bwd_tf32
-        bnd = row["core_bound"] if core else row["bounds"][key]
+        # The CUDA-core kernels beside the fp32 tensor-core ones.
+        core = name in ("ssd_carry_bwd", "ssd_chunk_bwd")
+        bnd = row["core_bound"][key] if core else row["bounds"][key]
         record["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -4820,8 +4942,8 @@ def main() -> int:
             "bound_ms": bnd[0],
             "bound_by": bnd[1],
             # Through the C entry point, in turns with the other kernel.
-            **({"entry_ms": row["core_entry_ms" if core else "entry_ms"]}
-               if "entry_ms" in row and key == "chunk" else {}),
+            **({"entry_ms": row["core_entry_ms" if core else "entry_ms"][
+                key]} if "entry_ms" in row else {}),
             # No single PyTorch call computes either, or the whole
             # backward (under "backward").
             "library_ms": None,

@@ -97,28 +97,34 @@
 // each chunk in tiles of up to kCarryTile = 64 rows (the whole chunk when
 // shorter), h updated after a chunk's last tile, so that a staged C tile
 // is at most 64 rows at any chunk length up to 256.  16-column slices
-// where P is a multiple of 16, else 8.  Two kernels, by C's dtype:
+// where P is a multiple of 16, else 8.  Three kernels, by C's dtype and
+// the shape:
 //
-// * ssd_carry_tc (bf16 C, the serving path; the design is set out above
-//   the kernel): warp-specialised, a producer warp keeping a ring of chunk
-//   states in flight, chain warps advancing h in registers, MMA warps
-//   copying their own tiles and computing C . h_prev on mma.sync (h_prev
-//   in three exact bf16 terms, so the products are exact and the sums
-//   fp32) and storing y off the chain; a persistent grid whose slice width
-//   and ring depth follow the shape and the card.
+// * ssd_carry_tc (bf16 C, the serving path) and ssd_carry_tf32 (fp32 C,
+//   the models' fp32 training), at Q and N multiples of 16 where the
+//   layout fits a block; one walk, set out above carry_tc_walk:
+//   warp-specialised, a producer warp keeping a ring of chunk states in
+//   flight, chain warps advancing h in registers, MMA warps copying their
+//   own tiles and computing C . h_prev on mma.sync (bf16: h_prev in three
+//   exact bf16 terms, so the products are exact and the sums fp32; fp32:
+//   TF32 m16n8k8, three TF32 products a product, h_prev in two TF32
+//   planes and C split as read) and storing y off the chain; a
+//   persistent grid whose slice width and ring depth follow the shape and
+//   the card.
 //   Its first design (one block per slice, all warps through each
 //   tile's product and h's update in turn, one tile's loads in flight)
 //   reached 38-41% of the byte bound.  On the CUDA cores the same walk
 //   ran two shared-memory loads per eight multiply-adds and was limited
 //   by instruction throughput (2.13 ms at the 32k prompt on the H100
 //   against its 0.40 ms byte bound).
-// * ssd_carry_kernel (fp32 C, and shapes the first does not take): the
-//   CUDA cores, one block per slice.  C is transposed into fp32 ([N][tile
-//   rows], so that a thread's two rows are one 8-byte read); each thread
-//   owns two rows of a tile and four columns of y.  It copies the next
-//   tile's C with cp.async (double buffer) and reads the next tile's
-//   y_intra and cum (and, at a chunk's first tile, its state slice) into
-//   registers while it works on the current one.
+// * ssd_carry_kernel (every other shape: Q or N not a multiple of 16, as
+//   the models' chunk of 50 rows): the CUDA cores, one block per slice.
+//   C is transposed into fp32 ([N][tile rows], so that a thread's two rows
+//   are one 8-byte read); each thread owns two rows of a tile and four
+//   columns of y.  It copies the next tile's C with cp.async (double
+//   buffer) and reads the next tile's y_intra and cum (and, at a chunk's
+//   first tile, its state slice) into registers while it works on the
+//   current one.  ssd_carry_core_launch runs it at any shape.
 //
 // Bound: bytes — y_intra and the chunk states read once (fp32), C and
 // cum, y written in its dtype and the final state: about 1.3 GB, 0.40 ms
@@ -1020,23 +1026,33 @@ cudaError_t launch_carry_ps(const void* y_intra, const void* states,
   return cudaGetLastError();
 }
 
-// The carry with bf16 C (the serving path) on the tensor cores.  The
-// recurrence h <- exp(cum_last) h + S runs along the chunks, one fma per
-// element of h; C . h_prev and the y it adds to hang off it.  So a block,
-// one (batch, head, slice of PS columns) at a time, splits into roles:
+// The carry on the tensor cores: ssd_carry_tc for bf16 C (the serving
+// path), ssd_carry_tf32 for fp32 C (the models' fp32 training and the
+// reference sweep's fp32 shapes).  The recurrence h <- exp(cum_last) h + S
+// runs along the chunks, one fma per element of h; C . h_prev and the y it
+// adds to hang off it.  So a block, one (batch, head, slice of PS columns)
+// at a time, splits into roles:
 //
 // * a producer warp copies each chunk's state slice and last cum, with
 //   cp.async, into a ring of `stages` chunks; a stage's full mbarrier
 //   completes when its copies land (cp.async.mbarrier.arrive);
-// * chain warps, each holding 16 KW rows of N of h's slice in registers
-//   (32 values a lane; KW = 64 / PS k16 steps), advance h with carry()'s
-//   fma and, before each chunk, publish h_prev as three exact bf16 terms
-//   into a ring of kTermSlots slots, already in mma.sync's B-fragment
-//   order;
-// * MMA warps, one per 16 rows of a tile, each copying its own rows of C,
-//   y_intra and cum with cp.async into its own ring of `stages` tiles
-//   (stages - 1 tiles ahead), compute C . h_prev on mma.sync m16n8k16
-//   from those terms and store y, off the chain.
+// * chain warps, each holding 16 KW rows of N of h's slice in fp32
+//   registers (32 values a lane; KW = 64 / PS k16 steps), advance h with
+//   carry()'s fma and, before each chunk, publish h_prev into a ring of
+//   kTermSlots slots, already in mma.sync's B-fragment order: for bf16 C
+//   as three exact bf16 terms (m16n8k16), for fp32 C as two TF32 planes,
+//   hi and lo (split_tf32; m16n8k8, the k slots c and c + 4 holding rows
+//   2c and 2c + 1 of each k8 step);
+// * MMA warps, one per 16 rows of a tile, each copying its own rows of C
+//   (rows of N + 8 elements), y_intra and cum with cp.async into its own
+//   ring of `stages` tiles (stages - 1 tiles ahead), compute C . h_prev on
+//   mma.sync and store y, off the chain.  bf16: ldmatrix fragments of C
+//   against each term.  fp32: C's columns 2c, 2c + 1 of each k8 step read
+//   as one 8-byte load (rows of N + 8 words, 8 (mod 32), so that the
+//   warp's loads meet no bank twice), split as read, and every product
+//   taken as three TF32 products (hi·hi + hi·lo + lo·hi, as
+//   ssd_chunk_tf32's), which meets the fp32 bar where one TF32 product
+//   misses it (tests/_ssd_tf32.py).
 //
 // Why this split: a first version staged every tile through one producer
 // warp, whose cp.async issue (~190 cache lines a tile: C rows, y_intra
@@ -1044,21 +1060,55 @@ cudaError_t launch_carry_ps(const void* y_intra, const void* states,
 // of the time, and one staged C tile shared by two heads of a block
 // measured slower than a head a block at every shape (PERF.md).  Copied
 // by the MMA warps themselves, the tiles' issue spreads over four warps.
+// The fp32 kernel is the same walk with C's tiles twice as wide and
+// h_prev in two planes of 4 bytes where the bf16 one has three of 2: its
+// plans fit fewer stages or blocks in an SM's shared memory.
 //
 // The grid is persistent: block i walks the groups i, i + gridDim.x, ...,
 // its rings running on from one group to the next.  carry_tc_plan picks
-// the slice width and the ring depth from the shape and the card's SM
-// count.
+// the slice width and the ring depth from the shape, C's type and the
+// card's SM count.
 //
-// The sums are the first design's, term for term: per 16 rows, k16 steps
-// outer and terms inner, each accumulator from zero, then y = y_intra +
-// exp(cum) acc, and h = d h + s; so y and the final state are bitwise
-// those of the kernel it replaces (tools/ssd_ab.py).
+// The sums of ssd_carry_tc are the first design's, term for term: per 16
+// rows, k16 steps outer and terms inner, each accumulator from zero, then
+// y = y_intra + exp(cum) acc, and h = d h + s; so y and the final state
+// are bitwise those of the kernel it replaces (tools/ssd_ab.py).
+// ssd_carry_tf32: per 16 rows, k8 steps outer, hi·hi, hi·lo, lo·hi over
+// the slice's n8 tiles inner (mma3), the accumulator from zero.  Neither
+// uses atomics: two passes are equal bit for bit.
+//
+// Bound: bytes, as the CUDA-core carry's.  At mamba2-780m's heads the
+// fp32 kernel's products, three TF32 products a product at mma.sync's
+// ~310 TFLOP/s, take about half the byte bound.
 constexpr int kCarryTerms = 3;
 constexpr int kCarryPlanStages = 3;      // deepest ring a plan takes
 constexpr int kTermSlots = 2;            // slots of h_prev's terms
-constexpr int kCarryTcMaxThreads = 640;  // 1 + chain + MMA warps
 constexpr long long kWatchdogCycles = 1LL << 34;   // ~10 s of SM clock
+
+// What the two tensor-core carries take from C's type: h_prev's planes a
+// slot (bf16 terms, or the TF32 hi and lo) and the k rows of one mma.sync
+// (m16n8k16 or m16n8k8).  A slot holds planes x (N / kStep) k steps x
+// (PS / 8) n8 tiles x 32 lanes of uint2: planes N PS sizeof(TC) bytes.
+template <typename TC>
+struct CarryTc;
+template <>
+struct CarryTc<bf16> {
+  static constexpr int kPlanes = kCarryTerms;
+  static constexpr int kStep = 16;
+};
+template <>
+struct CarryTc<float> {
+  static constexpr int kPlanes = 2;
+  static constexpr int kStep = 8;
+};
+
+// The most threads a tensor-core carry block takes (1 + chain + MMA
+// warps): 640, which caps a thread at 96 registers; the fp32 kernel at
+// 64-column slices needs 128 (it spills at 96), so it takes 512.
+template <typename TC>
+__host__ __device__ constexpr int carry_tc_max_threads(int PS) {
+  return sizeof(TC) == 4 && PS == 64 ? 512 : 640;
+}
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -1133,30 +1183,34 @@ struct Ring {
   }
 };
 
-// Shared memory of the tensor-core carry: the barriers; `stages` chunk
+// Shared memory of a tensor-core carry: the barriers; `stages` chunk
 // stages (the state slice [N][PS + 4] fp32 and its last cum, padded to 16
-// bytes); the terms ring (kTermSlots slots of 3 N PS bf16); and per MMA
-// warp `stages` tile stages (its 16 rows of C [16][N + 8] bf16, y_intra
-// [16][ldy] and cum [16] fp32).  The padding keeps ldmatrix, the chain's
-// state reads and the y_intra reads free of bank conflicts.
+// bytes); the terms ring (kTermSlots slots of planes N PS values of C's
+// type); and per MMA warp `stages` tile stages (its 16 rows of C
+// [16][N + 8] in C's type, y_intra [16][ldy] and cum [16] fp32).  The
+// padding keeps ldmatrix, the fp32 fragment loads, the chain's state
+// reads and the y_intra reads free of bank conflicts.
 __host__ __device__ constexpr int carry_ldy(int PS) {
   return PS == 8 ? 8 : PS + 8;
 }
 __host__ __device__ inline size_t carry_tc_chunk_bytes(int N, int PS) {
   return (size_t)N * (PS + 4) * 4 + 16;
 }
+template <typename TC>
 __host__ __device__ inline size_t carry_tc_mma_stage_bytes(int N, int PS) {
-  return 16 * (size_t)(N + 8) * 2 + 16 * (size_t)(carry_ldy(PS) + 1) * 4;
+  return 16 * (size_t)(N + 8) * sizeof(TC) +
+         16 * (size_t)(carry_ldy(PS) + 1) * 4;
 }
 __host__ __device__ inline size_t carry_tc_bar_bytes(int stages) {
   return ((2 * stages + 2 * kTermSlots) * 8 + 15) / 16 * 16;
 }
+template <typename TC>
 size_t carry_tc_smem_bytes(int N, int Q, int PS, int stages) {
   return carry_tc_bar_bytes(stages) +
          stages * carry_tc_chunk_bytes(N, PS) +
-         (size_t)kTermSlots * kCarryTerms * N * PS * 2 +
+         (size_t)kTermSlots * CarryTc<TC>::kPlanes * N * PS * sizeof(TC) +
          (size_t)(carry_tile(Q) / 16) * stages *
-             carry_tc_mma_stage_bytes(N, PS);
+             carry_tc_mma_stage_bytes<TC>(N, PS);
 }
 // k16 steps (16 rows of N) of h's slice a chain warp holds: 32 values a
 // lane (16 at 8-column slices).
@@ -1172,22 +1226,24 @@ __host__ __device__ inline int carry_tc_threads(int N, int Q, int PS) {
   return 32 * (1 + carry_chain_warps(N, PS) + carry_tile(Q) / 16);
 }
 
-template <typename TY, int PS>
-__global__ void __launch_bounds__(kCarryTcMaxThreads)
-    ssd_carry_tc(const float* __restrict__ y_intra,
-                 const float* __restrict__ states,
-                 const float* __restrict__ cum, const bf16* __restrict__ cm,
-                 const float* __restrict__ init, TY* __restrict__ y,
-                 float* __restrict__ final_state, int B, int L, int H, int P,
-                 int N, int Q, int stages) {
+// The walk of either tensor-core carry (the design above), C of type TC.
+template <typename TC, typename TY, int PS>
+__device__ __forceinline__ void carry_tc_walk(
+    unsigned char* carry_tc_smem, const float* __restrict__ y_intra,
+    const float* __restrict__ states, const float* __restrict__ cum,
+    const TC* __restrict__ cm, const float* __restrict__ init,
+    TY* __restrict__ y, float* __restrict__ final_state, int B, int L, int H,
+    int P, int N, int Q, int stages) {
+  constexpr bool kTf32 = sizeof(TC) == 4;
+  constexpr int kPlanes = CarryTc<TC>::kPlanes;
   constexpr int NTP = PS / 8;           // n8 tiles of the slice
   constexpr int G4 = PS / 4;            // 16-byte pieces of a slice row
   constexpr int LDY = carry_ldy(PS);    // y_intra rows in shared memory
   constexpr int LDS = PS + 4;           // state rows in shared memory
   constexpr int KW = carry_kw(PS);
-  extern __shared__ __align__(128) unsigned char carry_tc_smem[];
+  constexpr int VW = 16 / sizeof(TC);   // C values a 16-byte piece
   const int R = carry_tile(Q), nt = (Q + R - 1) / R, nc = L / Q;
-  const int KK = N / 16, ldc = N + 8;
+  const int KK = N / CarryTc<TC>::kStep, ldc = N + 8;
   const int cw = carry_chain_warps(N, PS);
   const int nslice = P / PS, ngroups = B * H * nslice;
   const size_t chunk_bytes = carry_tc_chunk_bytes(N, PS);
@@ -1197,7 +1253,7 @@ __global__ void __launch_bounds__(kCarryTcMaxThreads)
   uint64_t* terms_empty = terms_full + kTermSlots;
   unsigned char* chunks = carry_tc_smem + carry_tc_bar_bytes(stages);
   uint2* terms = reinterpret_cast<uint2*>(chunks + stages * chunk_bytes);
-  const int slot_terms = kCarryTerms * KK * NTP * 32;   // uint2s a slot
+  const int slot_terms = kPlanes * KK * NTP * 32;   // uint2s a slot
   unsigned char* mma_rings =
       reinterpret_cast<unsigned char*>(terms + kTermSlots * slot_terms);
   auto chunk_state = [&](int s) {   // its last cum at [N * LDS]
@@ -1253,8 +1309,9 @@ __global__ void __launch_bounds__(kCarryTcMaxThreads)
     // A chain warp: rows 16 kk0 .. of N.  Lane (g, cq) holds, for each k16
     // step j and n8 tile of the slice, the four values of h that make its
     // B fragment: rows 2cq, 2cq + 1, 2cq + 8, 2cq + 9 of the step, column
-    // g of the tile.
-    const int kk0 = KW * (warp - 1), nk = min(KW, KK - kk0);
+    // g of the tile (for fp32 C, rows 2cq and 2cq + 1 of each of the
+    // step's two k8 steps, in their slots cq and cq + 4).
+    const int kk0 = KW * (warp - 1), nk = min(KW, N / 16 - kk0);
     float hv[KW][NTP][4];
     Ring cs, js;
     auto row_of = [&](int j, int e) {
@@ -1283,13 +1340,25 @@ __global__ void __launch_bounds__(kCarryTcMaxThreads)
           if (j >= nk) continue;
 #pragma unroll
           for (int t8 = 0; t8 < NTP; ++t8) {
-            uint32_t lo[kCarryTerms], up[kCarryTerms];
-            split<kCarryTerms>(hv[j][t8][0], hv[j][t8][1], lo);
-            split<kCarryTerms>(hv[j][t8][2], hv[j][t8][3], up);
+            if constexpr (kTf32) {
 #pragma unroll
-            for (int t = 0; t < kCarryTerms; ++t)
-              tb[((t * KK + kk0 + j) * NTP + t8) * 32 + lane] =
-                  make_uint2(lo[t], up[t]);
+              for (int s = 0; s < 2; ++s) {
+                uint2 hi, lo;
+                split_tf32(hv[j][t8][2 * s], hi.x, lo.x);
+                split_tf32(hv[j][t8][2 * s + 1], hi.y, lo.y);
+                const int ks = 2 * (kk0 + j) + s;
+                tb[(ks * NTP + t8) * 32 + lane] = hi;
+                tb[((KK + ks) * NTP + t8) * 32 + lane] = lo;
+              }
+            } else {
+              uint32_t lo[kCarryTerms], up[kCarryTerms];
+              split<kCarryTerms>(hv[j][t8][0], hv[j][t8][1], lo);
+              split<kCarryTerms>(hv[j][t8][2], hv[j][t8][3], up);
+#pragma unroll
+              for (int t = 0; t < kCarryTerms; ++t)
+                tb[((t * KK + kk0 + j) * NTP + t8) * 32 + lane] =
+                    make_uint2(lo[t], up[t]);
+            }
           }
         }
         mbar_arrive_warp(terms_full + js.slot);
@@ -1327,29 +1396,30 @@ __global__ void __launch_bounds__(kCarryTcMaxThreads)
   // An MMA warp: rows r0 .. r0 + 15 of each tile, which it copies itself
   // into its own ring, stages - 1 tiles ahead of the one it computes.
   const int r0 = 16 * (warp - 1 - cw);
-  const size_t mstage = carry_tc_mma_stage_bytes(N, PS);
+  const size_t mstage = carry_tc_mma_stage_bytes<TC>(N, PS);
   unsigned char* ring = mma_rings + (size_t)(warp - 1 - cw) * stages * mstage;
   auto stage_c = [&](int s) {
-    return reinterpret_cast<bf16*>(ring + s * mstage);
+    return reinterpret_cast<TC*>(ring + s * mstage);
   };
   auto stage_y = [&](int s) {
-    return reinterpret_cast<float*>(ring + s * mstage + 16 * ldc * 2);
+    return reinterpret_cast<float*>(ring + s * mstage +
+                                    16 * ldc * (int)sizeof(TC));
   };
   auto stage_cum = [&](int s) { return stage_y(s) + 16 * LDY; };
   // The next tile to copy (group, its batch row, head and columns, chunk,
   // tile) and the stage it goes to; a row of C is NV 16-byte pieces, which
   // the lanes step through 32 at a time without a division.
-  const int NV = N / 8, di = 32 / NV, dv = 32 % NV;
+  const int NV = N / VW, di = 32 / NV, dv = 32 % NV;
   int ngi = blockIdx.x, nb = 0, nh = 0, nps0 = 0, ncc = 0, nk = 0, ws = 0;
   if (ngi < ngroups) group(ngi, nb, nh, nps0);
   auto copy_next = [&]() {
     if (ngi < ngroups) {
       const int64_t row0 = (int64_t)nb * L + (int64_t)ncc * Q + nk * R + r0;
       if (r0 < min(R, Q - nk * R)) {
-        bf16* dc = stage_c(ws);
-        const bf16* sc = cm + row0 * N;
+        TC* dc = stage_c(ws);
+        const TC* sc = cm + row0 * N;
         for (int i = lane / NV, v = lane % NV; i < 16;) {
-          cp_async16(dc + i * ldc + v * 8, sc + (int64_t)i * N + v * 8);
+          cp_async16(dc + i * ldc + v * VW, sc + (int64_t)i * N + v * VW);
           i += di;
           v += dv;
           if (v >= NV) {
@@ -1392,26 +1462,49 @@ __global__ void __launch_bounds__(kCarryTcMaxThreads)
         cp_async_wait_n(stages - 1);
         __syncwarp();   // every lane's copies of this tile have landed
         if (r0 < min(R, Q - k * R)) {   // warp-uniform
-          const bf16* cur = stage_c(rs);
+          const TC* cur = stage_c(rs);
           float acc[NTP][4] = {};
-          for (int kk = 0; kk < KK; ++kk) {
-            // The step's fragments first, then its products: the loads of
-            // a step overlap the products of the one before instead of
-            // each product waiting on its own load.
-            uint32_t a[4];
-            uint2 bb[kCarryTerms][NTP];
-            ldsm_x4(a, cur + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldc +
-                           16 * kk + (lane >> 4) * 8);
+          if constexpr (kTf32) {
+            for (int kk = 0; kk < KK; ++kk) {
+              // Columns 2cq, 2cq + 1 of the k8 step as the slots cq,
+              // cq + 4 (rows g and g + 8), split as read; h_prev's planes
+              // as the chain published them.
+              const float2 u = *reinterpret_cast<const float2*>(
+                  cur + g * ldc + 8 * kk + 2 * cq);
+              const float2 w = *reinterpret_cast<const float2*>(
+                  cur + (g + 8) * ldc + 8 * kk + 2 * cq);
+              Tf32B bt[NTP];
 #pragma unroll
-            for (int t = 0; t < kCarryTerms; ++t)
+              for (int t8 = 0; t8 < NTP; ++t8) {
+                const uint2 hi = tb[(kk * NTP + t8) * 32 + lane];
+                const uint2 lo = tb[((KK + kk) * NTP + t8) * 32 + lane];
+                bt[t8].hi[0] = hi.x;
+                bt[t8].hi[1] = hi.y;
+                bt[t8].lo[0] = lo.x;
+                bt[t8].lo[1] = lo.y;
+              }
+              mma3<NTP>(acc, 0, Tf32A(u.x, w.x, u.y, w.y), bt);
+            }
+          } else {
+            for (int kk = 0; kk < KK; ++kk) {
+              // The step's fragments first, then its products: the loads
+              // of a step overlap the products of the one before instead
+              // of each product waiting on its own load.
+              uint32_t a[4];
+              uint2 bb[kCarryTerms][NTP];
+              ldsm_x4(a, cur + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldc +
+                             16 * kk + (lane >> 4) * 8);
 #pragma unroll
-              for (int t8 = 0; t8 < NTP; ++t8)
-                bb[t][t8] = tb[((t * KK + kk) * NTP + t8) * 32 + lane];
+              for (int t = 0; t < kCarryTerms; ++t)
 #pragma unroll
-            for (int t = 0; t < kCarryTerms; ++t)
+                for (int t8 = 0; t8 < NTP; ++t8)
+                  bb[t][t8] = tb[((t * KK + kk) * NTP + t8) * 32 + lane];
 #pragma unroll
-              for (int t8 = 0; t8 < NTP; ++t8)
-                mma(acc[t8], a, bb[t][t8].x, bb[t][t8].y);
+              for (int t = 0; t < kCarryTerms; ++t)
+#pragma unroll
+                for (int t8 = 0; t8 < NTP; ++t8)
+                  mma(acc[t8], a, bb[t][t8].x, bb[t][t8].y);
+            }
           }
           const float* ys = stage_y(rs);
           const float* cs = stage_cum(rs);
@@ -1438,6 +1531,43 @@ __global__ void __launch_bounds__(kCarryTcMaxThreads)
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+template <typename TY, int PS>
+__global__ void __launch_bounds__(carry_tc_max_threads<bf16>(PS))
+    ssd_carry_tc(const float* __restrict__ y_intra,
+                 const float* __restrict__ states,
+                 const float* __restrict__ cum, const bf16* __restrict__ cm,
+                 const float* __restrict__ init, TY* __restrict__ y,
+                 float* __restrict__ final_state, int B, int L, int H, int P,
+                 int N, int Q, int stages) {
+  extern __shared__ __align__(128) unsigned char carry_tc_smem[];
+  carry_tc_walk<bf16, TY, PS>(carry_tc_smem, y_intra, states, cum, cm, init,
+                              y, final_state, B, L, H, P, N, Q, stages);
+}
+
+template <typename TY, int PS>
+__global__ void __launch_bounds__(carry_tc_max_threads<float>(PS))
+    ssd_carry_tf32(const float* __restrict__ y_intra,
+                   const float* __restrict__ states,
+                   const float* __restrict__ cum,
+                   const float* __restrict__ cm,
+                   const float* __restrict__ init, TY* __restrict__ y,
+                   float* __restrict__ final_state, int B, int L, int H,
+                   int P, int N, int Q, int stages) {
+  extern __shared__ __align__(128) unsigned char carry_tc_smem[];
+  carry_tc_walk<float, TY, PS>(carry_tc_smem, y_intra, states, cum, cm,
+                               init, y, final_state, B, L, H, P, N, Q,
+                               stages);
+}
+
+// The kernel of the tensor-core carry for C of type TC.
+template <typename TC, typename TY, int PS>
+constexpr auto carry_tc_kernel() {
+  if constexpr (sizeof(TC) == 2)
+    return ssd_carry_tc<TY, PS>;
+  else
+    return ssd_carry_tf32<TY, PS>;
+}
+
 // What launch_carry_tc launches: slice width, ring depth, blocks, threads
 // and shared memory.
 struct CarryTcPlan {
@@ -1449,14 +1579,14 @@ struct CarryTcPlan {
 // blocks that `sms` SMs hold at once (cudaOccupancyMaxActiveBlocksPer-
 // Multiprocessor on the current device); plan->stages = 0 where it does
 // not fit.
-template <typename TY, int PS>
+template <typename TC, typename TY, int PS>
 cudaError_t carry_tc_candidate(int B, int H, int P, int N, int Q, int stages,
                                int sms, CarryTcPlan* plan) {
-  const auto kernel = ssd_carry_tc<TY, PS>;
+  const auto kernel = carry_tc_kernel<TC, TY, PS>();
   *plan = CarryTcPlan{PS, 0, 0, 0, 0};
   const int threads = carry_tc_threads(N, Q, PS);
-  const size_t smem = carry_tc_smem_bytes(N, Q, PS, stages);
-  if (P % PS || threads > kCarryTcMaxThreads || smem > kMaxSmem)
+  const size_t smem = carry_tc_smem_bytes<TC>(N, Q, PS, stages);
+  if (P % PS || threads > carry_tc_max_threads<TC>(PS) || smem > kMaxSmem)
     return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1472,18 +1602,21 @@ cudaError_t carry_tc_candidate(int B, int H, int P, int N, int Q, int stages,
   return cudaSuccess;
 }
 
-template <typename TY>
+template <typename TC, typename TY>
 cudaError_t carry_tc_candidate(int ps, int B, int H, int P, int N, int Q,
                                int stages, int sms, CarryTcPlan* plan) {
   switch (ps) {
     case 8:
-      return carry_tc_candidate<TY, 8>(B, H, P, N, Q, stages, sms, plan);
+      return carry_tc_candidate<TC, TY, 8>(B, H, P, N, Q, stages, sms, plan);
     case 16:
-      return carry_tc_candidate<TY, 16>(B, H, P, N, Q, stages, sms, plan);
+      return carry_tc_candidate<TC, TY, 16>(B, H, P, N, Q, stages, sms,
+                                            plan);
     case 32:
-      return carry_tc_candidate<TY, 32>(B, H, P, N, Q, stages, sms, plan);
+      return carry_tc_candidate<TC, TY, 32>(B, H, P, N, Q, stages, sms,
+                                            plan);
     case 64:
-      return carry_tc_candidate<TY, 64>(B, H, P, N, Q, stages, sms, plan);
+      return carry_tc_candidate<TC, TY, 64>(B, H, P, N, Q, stages, sms,
+                                            plan);
   }
   return cudaErrorInvalidValue;
 }
@@ -1496,8 +1629,9 @@ cudaError_t carry_tc_candidate(int ps, int B, int H, int P, int N, int Q,
 // SMs busy, at the deepest ring up to kCarryPlanStages with which every
 // group is resident at once (else the deepest that fits); where no slice
 // has that many groups, the narrowest.  plan->stages = 0 where nothing
-// fits (the shape then takes the CUDA-core kernel).
-template <typename TY>
+// fits (the shape then takes the CUDA-core kernel).  The rule is the same
+// for both kernels; their shared memory differs (carry_tc_smem_bytes).
+template <typename TC, typename TY>
 cudaError_t choose_carry_tc_plan(int B, int H, int P, int N, int Q, int sms,
                                  CarryTcPlan* plan) {
   *plan = CarryTcPlan{0, 0, 0, 0, 0};
@@ -1509,7 +1643,7 @@ cudaError_t choose_carry_tc_plan(int B, int H, int P, int N, int Q, int sms,
     for (int stages = kCarryPlanStages; stages >= 1; --stages) {
       CarryTcPlan c;
       const cudaError_t err =
-          carry_tc_candidate<TY>(ps, B, H, P, N, Q, stages, sms, &c);
+          carry_tc_candidate<TC, TY>(ps, B, H, P, N, Q, stages, sms, &c);
       if (err != cudaSuccess) return err;
       if (c.stages == 0) continue;
       if (best.stages == 0 || c.blocks == groups) best = c;
@@ -1522,9 +1656,10 @@ cudaError_t choose_carry_tc_plan(int B, int H, int P, int N, int Q, int sms,
   return cudaSuccess;
 }
 
-// The plan for this shape on the current device, chosen once per (device,
-// shape) and kept: a serving process launches the same few shapes.
-template <typename TY>
+// The plan for this shape and C's type on the current device, chosen once
+// per (device, shape) and kept: a serving process launches the same few
+// shapes.
+template <typename TC, typename TY>
 cudaError_t carry_tc_plan(int B, int H, int P, int N, int Q,
                           CarryTcPlan* plan) {
   int dev = 0, sms = 0;
@@ -1541,40 +1676,40 @@ cudaError_t carry_tc_plan(int B, int H, int P, int N, int Q,
   }
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = choose_carry_tc_plan<TY>(B, H, P, N, Q, sms, plan);
+  err = choose_carry_tc_plan<TC, TY>(B, H, P, N, Q, sms, plan);
   if (err == cudaSuccess) plans[key] = *plan;
   return err;
 }
 
-template <typename TY, int PS>
+template <typename TC, typename TY, int PS>
 cudaError_t run_carry_tc(const CarryTcPlan& plan, const void* y_intra,
                          const void* states, const void* cum, const void* cm,
                          const void* init, void* y, void* final_state, int B,
                          int L, int H, int P, int N, int Q,
                          cudaStream_t stream) {
+  const auto kernel = carry_tc_kernel<TC, TY, PS>();
   const cudaError_t err = cudaFuncSetAttribute(
-      ssd_carry_tc<TY, PS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)plan.smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return err;
-  ssd_carry_tc<TY, PS><<<plan.blocks, plan.threads, plan.smem, stream>>>(
+  kernel<<<plan.blocks, plan.threads, plan.smem, stream>>>(
       static_cast<const float*>(y_intra), static_cast<const float*>(states),
-      static_cast<const float*>(cum), static_cast<const bf16*>(cm),
+      static_cast<const float*>(cum), static_cast<const TC*>(cm),
       static_cast<const float*>(init), static_cast<TY*>(y),
       static_cast<float*>(final_state), B, L, H, P, N, Q, plan.stages);
   return cudaGetLastError();
 }
 
-template <typename TY>
+template <typename TC, typename TY>
 cudaError_t launch_carry_tc(const void* y_intra, const void* states,
                             const void* cum, const void* cm, const void* init,
                             void* y, void* final_state, int B, int L, int H,
                             int P, int N, int Q, cudaStream_t stream) {
   CarryTcPlan plan;
-  const cudaError_t err = carry_tc_plan<TY>(B, H, P, N, Q, &plan);
+  const cudaError_t err = carry_tc_plan<TC, TY>(B, H, P, N, Q, &plan);
   if (err != cudaSuccess) return err;
 #define SSD_RUN_CARRY_TC(PS)                                                \
-  return run_carry_tc<TY, PS>(plan, y_intra, states, cum, cm, init, y,       \
-                              final_state, B, L, H, P, N, Q, stream)
+  return run_carry_tc<TC, TY, PS>(plan, y_intra, states, cum, cm, init, y,   \
+                                  final_state, B, L, H, P, N, Q, stream)
   if (plan.stages == 0) return cudaErrorInvalidValue;
   if (plan.ps == 8) SSD_RUN_CARRY_TC(8);
   if (plan.ps == 16) SSD_RUN_CARRY_TC(16);
@@ -1583,27 +1718,29 @@ cudaError_t launch_carry_tc(const void* y_intra, const void* states,
 #undef SSD_RUN_CARRY_TC
 }
 
-// Whether the tensor-core carry takes this shape: its smallest plan (a
-// one-stage ring at the narrowest slice) fits a block.
-bool carry_tc_fits(int N, int Q, int PS) {
-  return carry_tc_smem_bytes(N, Q, PS, 1) <= kMaxSmem &&
-         carry_tc_threads(N, Q, PS) <= kCarryTcMaxThreads;
+// Whether the tensor-core carry for C of type TC takes this shape: Q and N
+// multiples of 16, and its smallest plan (a one-stage ring at the
+// narrowest slice) fits a block.
+template <typename TC>
+bool carry_tc_fits(int N, int Q, int P) {
+  const int ps = P % 16 == 0 ? 16 : 8;
+  return Q % 16 == 0 && N % 16 == 0 &&
+         carry_tc_smem_bytes<TC>(N, Q, ps, 1) <= kMaxSmem &&
+         carry_tc_threads(N, Q, ps) <= carry_tc_max_threads<TC>(ps);
 }
 
 template <typename TC, typename TY>
 cudaError_t launch_carry(const void* y_intra, const void* states,
                          const void* cum, const void* cm, const void* init,
                          void* y, void* final_state, int B, int L, int H,
-                         int P, int N, int Q, cudaStream_t stream) {
-  // 16-column slices (the tensor-core kernel: 16 to 64, its plan's) where
-  // P allows: every block reads all of C, so wider slices read C from L2
-  // fewer times over.
-  const bool wide = P % 16 == 0;
-  if (sizeof(TC) == 2 && Q % 16 == 0 && N % 16 == 0 &&
-      carry_tc_fits(N, Q, wide ? 16 : 8))
-    return launch_carry_tc<TY>(y_intra, states, cum, cm, init, y,
-                               final_state, B, L, H, P, N, Q, stream);
-  if (wide)
+                         int P, int N, int Q, bool cuda_cores,
+                         cudaStream_t stream) {
+  if (!cuda_cores && carry_tc_fits<TC>(N, Q, P))
+    return launch_carry_tc<TC, TY>(y_intra, states, cum, cm, init, y,
+                                   final_state, B, L, H, P, N, Q, stream);
+  // 16-column slices where P allows: every block reads all of C, so wider
+  // slices read C from L2 fewer times over.
+  if (P % 16 == 0)
     return launch_carry_ps<TC, TY, 16>(y_intra, states, cum, cm, init, y,
                                        final_state, B, L, H, P, N, Q, stream);
   return launch_carry_ps<TC, TY, 8>(y_intra, states, cum, cm, init, y,
@@ -1663,23 +1800,45 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dt,
 // y_intra [B, L, H, P] and states [B, L / Q, H, N, P] fp32, cum [B, L, H]
 // fp32, C [B, L, N], init [B, H, N, P] fp32 or null, y [B, L, H, P],
 // final_state [B, H, N, P] fp32; all contiguous and 16-byte aligned,
-// Q at most 256, P and N multiples of 8.
-extern "C" int ssd_carry_launch(const void* y_intra, const void* states,
-                                const void* cum, const void* cm,
-                                const void* init, void* y, void* final_state,
-                                int c_dtype, int y_dtype, int B, int L, int H,
-                                int P, int N, int Q, void* stream) {
+// Q at most 256, P and N multiples of 8.  ssd_carry_launch runs the
+// tensor-core carry where it takes the shape (ssd_carry_tc for bf16 C,
+// ssd_carry_tf32 for fp32 C: Q and N multiples of 16, its layout within a
+// block), else ssd_carry_kernel; ssd_carry_core_launch runs
+// ssd_carry_kernel at any shape (the CUDA cores, for comparison).
+static int carry_entry(const void* y_intra, const void* states,
+                       const void* cum, const void* cm, const void* init,
+                       void* y, void* final_state, int c_dtype, int y_dtype,
+                       int B, int L, int H, int P, int N, int Q,
+                       bool cuda_cores, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q > 256 || P % 8 || N % 8) return (int)cudaErrorInvalidValue;
 #define SSD_CARRY(TC, TY)                                                   \
   return (int)launch_carry<TC, TY>(y_intra, states, cum, cm, init, y,        \
-                                   final_state, B, L, H, P, N, Q, s)
+                                   final_state, B, L, H, P, N, Q,            \
+                                   cuda_cores, s)
   if (c_dtype == 0 && y_dtype == 0) SSD_CARRY(float, float);
   if (c_dtype == 0 && y_dtype == 1) SSD_CARRY(float, bf16);
   if (c_dtype == 1 && y_dtype == 0) SSD_CARRY(bf16, float);
   if (c_dtype == 1 && y_dtype == 1) SSD_CARRY(bf16, bf16);
 #undef SSD_CARRY
   return (int)cudaErrorInvalidValue;
+}
+extern "C" int ssd_carry_launch(const void* y_intra, const void* states,
+                                const void* cum, const void* cm,
+                                const void* init, void* y, void* final_state,
+                                int c_dtype, int y_dtype, int B, int L, int H,
+                                int P, int N, int Q, void* stream) {
+  return carry_entry(y_intra, states, cum, cm, init, y, final_state, c_dtype,
+                     y_dtype, B, L, H, P, N, Q, false, stream);
+}
+extern "C" int ssd_carry_core_launch(const void* y_intra, const void* states,
+                                     const void* cum, const void* cm,
+                                     const void* init, void* y,
+                                     void* final_state, int c_dtype,
+                                     int y_dtype, int B, int L, int H, int P,
+                                     int N, int Q, void* stream) {
+  return carry_entry(y_intra, states, cum, cm, init, y, final_state, c_dtype,
+                     y_dtype, B, L, H, P, N, Q, true, stream);
 }
 
 // Dynamic shared memory (bytes) of an ssd_chunk_tf32 block at state size
@@ -1701,33 +1860,43 @@ extern "C" int ssd_chunk_tf32_heads(int B, int L, int H) {
 
 // Dynamic shared memory (bytes) of a block at chunk Q, state size N and
 // head width P: the CUDA-core chunk kernel (which = 0), the carry on the
-// CUDA cores with fp32 C (1) or bf16 C (2), the carry on the tensor cores
-// at its smallest plan (3: a one-stage ring, the size that decides
-// whether it takes the shape), the carries at their 16-column slice; -1
-// for anything else.
+// CUDA cores with fp32 C (1) or bf16 C (2), ssd_carry_tc at its smallest
+// plan (3: a one-stage ring, the size that decides whether it takes the
+// shape), the carries at their 16-column slice; -1 for anything else.
 extern "C" int ssd_smem_bytes(int which, int Q, int N, int P) {
   if (Q < 1 || N < 1 || P < 1) return -1;
   if (which == 0)
     return (int)(smem_floats(Q, N, P) * sizeof(float));
   if (which == 1) return (int)carry_smem_bytes(N, Q, 16, 4);
   if (which == 2) return (int)carry_smem_bytes(N, Q, 16, 2);
-  if (which == 3) return (int)carry_tc_smem_bytes(N, Q, 16, 1);
+  if (which == 3) return (int)carry_tc_smem_bytes<bf16>(N, Q, 16, 1);
   return -1;
 }
 
-// The plan of the tensor-core carry for bf16 C at this shape, y in
-// y_dtype (0 = float32, 1 = bfloat16): out = {columns a slice, ring
-// stages, blocks, threads, shared-memory bytes}.  Returns 0, 1 where the
-// shape takes the CUDA-core kernel instead, or a CUDA error.
-extern "C" int ssd_carry_plan(int y_dtype, int B, int H, int P, int N, int Q,
-                              int* out) {
-  if (B < 1 || H < 1 || Q < 1 || Q > 256 || P % 8 || Q % 16 || N % 16 ||
-      !carry_tc_fits(N, Q, P % 16 == 0 ? 16 : 8))
+// Dynamic shared memory (bytes) of a tensor-core carry block for C of
+// c_dtype (0 = float32: ssd_carry_tf32, 1 = bfloat16: ssd_carry_tc) at
+// chunk Q, state size N, slices of ps columns and rings of `stages`; -1
+// for anything else.
+extern "C" int ssd_carry_tc_smem_bytes(int c_dtype, int N, int Q, int ps,
+                                       int stages) {
+  if (Q < 1 || N < 1 || (ps != 8 && ps != 16 && ps != 32 && ps != 64) ||
+      stages < 1 || stages > kCarryPlanStages)
+    return -1;
+  if (c_dtype == 0) return (int)carry_tc_smem_bytes<float>(N, Q, ps, stages);
+  if (c_dtype == 1) return (int)carry_tc_smem_bytes<bf16>(N, Q, ps, stages);
+  return -1;
+}
+
+template <typename TC>
+int carry_plan_entry(int y_dtype, int B, int H, int P, int N, int Q,
+                     int* out) {
+  if (B < 1 || H < 1 || Q < 1 || Q > 256 || P % 8 ||
+      !carry_tc_fits<TC>(N, Q, P))
     return 1;
   CarryTcPlan plan;
   const cudaError_t err =
-      y_dtype == 0 ? carry_tc_plan<float>(B, H, P, N, Q, &plan)
-                   : carry_tc_plan<bf16>(B, H, P, N, Q, &plan);
+      y_dtype == 0 ? carry_tc_plan<TC, float>(B, H, P, N, Q, &plan)
+                   : carry_tc_plan<TC, bf16>(B, H, P, N, Q, &plan);
   if (err != cudaSuccess) return (int)err;
   if (plan.stages == 0) return 1;
   out[0] = plan.ps;
@@ -1736,4 +1905,18 @@ extern "C" int ssd_carry_plan(int y_dtype, int B, int H, int P, int N, int Q,
   out[3] = plan.threads;
   out[4] = (int)plan.smem;
   return 0;
+}
+
+// The plan of the tensor-core carry at this shape, y in y_dtype (0 =
+// float32, 1 = bfloat16): ssd_carry_plan for bf16 C (ssd_carry_tc),
+// ssd_carry_tf32_plan for fp32 C.  out = {columns a slice, ring stages,
+// blocks, threads, shared-memory bytes}.  Returns 0, 1 where the shape
+// takes the CUDA-core kernel instead, or a CUDA error.
+extern "C" int ssd_carry_plan(int y_dtype, int B, int H, int P, int N, int Q,
+                              int* out) {
+  return carry_plan_entry<bf16>(y_dtype, B, H, P, N, Q, out);
+}
+extern "C" int ssd_carry_tf32_plan(int y_dtype, int B, int H, int P, int N,
+                                   int Q, int* out) {
+  return carry_plan_entry<float>(y_dtype, B, H, P, N, Q, out);
 }

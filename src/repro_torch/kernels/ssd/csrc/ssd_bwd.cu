@@ -12,10 +12,9 @@
 // ssd_chunk_bwd_ref).  The kernels are chosen by the wrapper
 // (kernel.py::bwd_kernels) as the forward's chunk kernels are: at Q = P =
 // 64, N = 64 or 128 (the models' training shapes) bf16 x, B, C and dy on
-// the tensor cores (ssd_carry_bwd_tc, ssd_chunk_bwd_tc), fp32 with the
-// chunk's gradients on the tensor cores in TF32 (ssd_chunk_bwd_tf32) and
-// the carry on the CUDA cores (ssd_carry_bwd); every other shape on the
-// CUDA cores (ssd_carry_bwd, ssd_chunk_bwd).
+// the tensor cores (ssd_carry_bwd_tc, ssd_chunk_bwd_tc), fp32 on the
+// tensor cores in TF32 (ssd_carry_bwd_tf32, ssd_chunk_bwd_tf32); every
+// other shape on the CUDA cores (ssd_carry_bwd, ssd_chunk_bwd).
 //
 // The carry's walks, per (batch, head) and element (n, p) of the state:
 //     forward  h_prev_c = h,  h = exp(cum_last,c) h + S_c      (writes the
@@ -93,6 +92,19 @@
 //   32 rows took 0.36342 ms against 0.37925 for 64; at N = 64 the two
 //   were within the runs' spread (0.25530 / 0.26078 in one run, 0.24267
 //   / 0.22627 in another).
+// * ssd_carry_bwd_tf32 (fp32 at the shapes above): ssd_carry_bwd_tc's
+//   block, warps, rings and slices (carry_bwd_walk serves both), with
+//   fp32 C slices and dy tiles in the rings.  The forward walk is the same
+//   code.  The reverse walk forms (exp(cum) o C)^T . dy on mma.sync
+//   m16n8k8 in TF32, three TF32 products a product: C's slice is the A
+//   operand, read MN-major (rows c and c + 4 of each k8 step, column g),
+//   scaled by exp(cum_i) as it is read and then split; dy is the B
+//   operand, split as it is read.  Rows of NS + 8 and P + 8 words (8 (mod
+//   32)) keep both reads free of bank conflicts.  At 32 rows of N, 64
+//   chunks take ~109 KB a block: two blocks an SM.  g stays in fp32
+//   registers; no atomics, a fixed order: two passes are equal bit for
+//   bit.  Bound: bytes; its products at three TF32 products a product
+//   take about a quarter of the byte bound at mamba2-780m's heads.
 // * ssd_chunk_bwd_tf32 (fp32 at the shapes above): ssd_chunk_bwd_tc's
 //   block, warps, product list, partial sums and barriers on mma.sync
 //   m16n8k8 in TF32, every product three TF32 products (hi·hi + hi·lo +
@@ -112,9 +124,9 @@
 //   products read it K-major.  No atomics and a fixed order: two passes
 //   are equal bit for bit.  Its products at three TF32 products a product
 //   take about 0.6 of its byte bound at mamba2-780m's heads.
-// * ssd_carry_bwd and ssd_chunk_bwd (every other shape, and the fp32
-//   carry): the CUDA cores, fp32 arithmetic (bf16 inputs converted
-//   exactly as read).
+// * ssd_carry_bwd and ssd_chunk_bwd (every other shape): the CUDA cores,
+//   fp32 arithmetic (bf16 inputs converted exactly as read); tc = 0 at
+//   the entry points runs them at any shape.
 //   ssd_carry_bwd: one block per (slice of PS columns of P, head, batch),
 //   each thread two rows of N and four columns, both walks in registers;
 //   the reverse walk stages the chunk's C and exp(cum_i) dy_i in shared
@@ -2102,44 +2114,51 @@ cudaError_t launch_chunk_bwd_tf32(const void* x, const void* dt,
   return cudaGetLastError();
 }
 
-// Shared-memory layout of ssd_carry_bwd_tc, in bytes
-// (ssd_bwd_tc_smem_bytes reports it): the forward walk's ring of
-// state slices, the reverse walk's rings of C slices, dy tiles and cum
-// columns, and every chunk's exp(cum_last).
+// Shared-memory layout of ssd_carry_bwd_tc (C and dy in bf16: esize 2)
+// and ssd_carry_bwd_tf32 (fp32: esize 4), in bytes (ssd_bwd_tc_smem_bytes
+// and ssd_carry_bwd_tf32_smem_bytes report them): the forward walk's ring
+// of state slices, the reverse walk's rings of C slices [kTQ][NS + 8] and
+// dy tiles [kTQ][kLdX], in C's type, and of cum columns, and every chunk's
+// exp(cum_last).  Rows of NS + 8 and kTP + 8 elements: in bf16 the eight
+// rows of an ldmatrix on distinct banks; in fp32 8 (mod 32) words, so that
+// the MN-major fragment reads (rows c and c + 4, column g) meet no bank
+// twice.
 struct CarryTcSmem {
   size_t s, c, dy, cum, dec, total;
-  __host__ __device__ CarryTcSmem(int NS, int nc) {
+  __host__ __device__ CarryTcSmem(int NS, int nc, int esize = 2) {
     s = 0;
     c = s + kCarryStages * (size_t)NS * kTP * 4;
-    dy = c + kCarryStages * (size_t)kTQ * (NS + 8) * 2;
-    cum = dy + kCarryStages * (size_t)kTQ * kLdX * 2;
+    dy = c + kCarryStages * (size_t)kTQ * (NS + 8) * esize;
+    cum = dy + kCarryStages * (size_t)kTQ * kLdX * esize;
     dec = cum + kCarryStages * (size_t)kTQ * 4;
     total = dec + ((size_t)nc * 4 + 15) / 16 * 16;
   }
 };
 
-// One block per (slice of NS rows of N, head, batch): warps 0 .. NS/16 - 1
-// walk forward (h_prev), the others walk back (g), each group at its own
-// pace.
-template <int NS, int NT>
-__global__ void __launch_bounds__(4 * NS)
-    ssd_carry_bwd_tc(const float* __restrict__ states,
-                     const float* __restrict__ cum,
-                     const bf16* __restrict__ cm, const bf16* __restrict__ dy,
-                     const float* __restrict__ init,
-                     const float* __restrict__ dfinal,
-                     float* __restrict__ h_prev, float* __restrict__ g_out,
-                     float* __restrict__ dinit, int L, int H, int N) {
+// The two walks of ssd_carry_bwd_tc (T = bf16, h_prev's and (exp(cum) o
+// C)'s operands in NT bf16 terms) and ssd_carry_bwd_tf32 (T = float, TF32
+// m16n8k8, three TF32 products a product): one block per (slice of NS
+// rows of N, head, batch); warps 0 .. NS/16 - 1 walk forward (h_prev), the
+// others walk back (g), each group at its own pace.
+template <typename T, int NS, int NT>
+__device__ __forceinline__ void carry_bwd_walk(
+    unsigned char* smem_raw, const float* __restrict__ states,
+    const float* __restrict__ cum, const T* __restrict__ cm,
+    const T* __restrict__ dy, const float* __restrict__ init,
+    const float* __restrict__ dfinal, float* __restrict__ h_prev,
+    float* __restrict__ g_out, float* __restrict__ dinit, int L, int H,
+    int N) {
+  constexpr bool kTf32 = sizeof(T) == 4;
   constexpr int W = NS / 16;        // warps of each walk
   constexpr int kGroup = 32 * W;    // threads of each walk
-  constexpr int kLdC = NS + 8;      // padded bf16 row of a C slice
+  constexpr int kLdC = NS + 8;      // padded row of a C slice
+  constexpr int VW = 16 / sizeof(T);   // values a 16-byte copy
   constexpr int kPer = NS * kTP / 4 / kGroup;   // float4s a forward thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nc = L / kTQ;
-  const CarryTcSmem lay(NS, nc);
+  const CarryTcSmem lay(NS, nc, sizeof(T));
   float* ring_s = reinterpret_cast<float*>(smem_raw + lay.s);
-  bf16* ring_c = reinterpret_cast<bf16*>(smem_raw + lay.c);
-  bf16* ring_dy = reinterpret_cast<bf16*>(smem_raw + lay.dy);
+  T* ring_c = reinterpret_cast<T*>(smem_raw + lay.c);
+  T* ring_dy = reinterpret_cast<T*>(smem_raw + lay.dy);
   float* ring_cum = reinterpret_cast<float*>(smem_raw + lay.cum);
   float* dec = reinterpret_cast<float*>(smem_raw + lay.dec);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -2195,23 +2214,27 @@ __global__ void __launch_bounds__(4 * NS)
 
   // Reverse: g_c = g, g = exp(cum_last,c) g + sum_i exp(cum_i) C_i (x) dy_i,
   // the sum as (exp(cum) o C)^T . dy on mma.sync: C's slice is the A
-  // operand (ldmatrix.trans), scaled by exp(cum_i) and split into NT
-  // terms, dy the B operand as read.  g stays in fp32 registers in the
+  // operand, read MN-major and scaled by exp(cum_i), dy the B operand.
+  // bf16: C's fragment by ldmatrix.trans, scaled and split into NT bf16
+  // terms; dy as read.  fp32: both read as 32-bit values in the natural
+  // slots (rows i = c and c + 4 of each k8 step), split as read, three
+  // TF32 products a product (mma3).  g stays in fp32 registers in the
   // accumulator layout: rows n0 + 16 rw + lg (+ 8), columns 8 pt + 2 q.
   const int rt = tid - kGroup, rw = warp - W;
   const int lg = lane >> 2, cq = lane & 3;
   auto issue = [&](int t) {   // step t walks chunk nc - 1 - t
     const int st = t % kCarryStages;
     const int64_t r0 = (int64_t)b * L + (int64_t)(nc - 1 - t) * kTQ;
-    bf16* cd = ring_c + st * kTQ * kLdC;
-    bf16* dd = ring_dy + st * kTQ * kLdX;
+    T* cd = ring_c + st * kTQ * kLdC;
+    T* dd = ring_dy + st * kTQ * kLdX;
     float* cu = ring_cum + st * kTQ;
-    for (int e = rt; e < kTQ * (NS / 8); e += kGroup) {
-      const int i = e / (NS / 8), k8 = (e % (NS / 8)) * 8;
+    for (int e = rt; e < kTQ * (NS / VW); e += kGroup) {
+      const int i = e / (NS / VW), k8 = (e % (NS / VW)) * VW;
       cp_async16(cd + i * kLdC + k8, cm + (r0 + i) * N + n0 + k8);
     }
-    for (int e = rt; e < kTQ * (kTP / 8); e += kGroup) {
-      const int i = e >> 3, k8 = (e & 7) * 8;
+    constexpr int kRowShift = VW == 8 ? 3 : 4;   // log2(kTP / VW)
+    for (int e = rt; e < kTQ * (kTP / VW); e += kGroup) {
+      const int i = e >> kRowShift, k8 = (e & (kTP / VW - 1)) * VW;
       cp_async16(dd + i * kLdX + k8, dy + ((r0 + i) * H + h) * kTP + k8);
     }
     for (int e = rt; e < kTQ; e += kGroup)
@@ -2245,41 +2268,62 @@ __global__ void __launch_bounds__(4 * NS)
     group_sync(1, kGroup);
     if (t + kCarryStages - 1 < nc) issue(t + kCarryStages - 1);
     cp_async_commit();
-    const bf16* cst = ring_c + st * kTQ * kLdC;
-    const bf16* dst = ring_dy + st * kTQ * kLdX;
+    const T* cst = ring_c + st * kTQ * kLdC;
+    const T* dst = ring_dy + st * kTQ * kLdX;
     const float* cu = ring_cum + st * kTQ;
     float acc[8][4];
 #pragma unroll
     for (int pt = 0; pt < 8; ++pt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[pt][e] = 0.f;
+    if constexpr (kTf32) {
+#pragma unroll 2
+      for (int ks = 0; ks < kTQ / 8; ++ks) {
+        const int i = 8 * ks + cq;   // slots cq and cq + 4: rows i, i + 4
+        const float e0 = expf(cu[i]), e4 = expf(cu[i + 4]);
+        const float* cr = cst + i * kLdC + 16 * rw + lg;
+        const Tf32A a(cr[0] * e0, cr[8] * e0, cr[4 * kLdC] * e4,
+                      cr[4 * kLdC + 8] * e4);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      ldsm_x4_t(a, cst + (16 * kk + (lane & 7) + (lane >> 4) * 8) * kLdC +
-                       16 * rw + ((lane >> 3) & 1) * 8);
-      const int i = 16 * kk + 2 * cq;
-      const float e0 = expf(cu[i]), e1 = expf(cu[i + 1]);
-      const float e8 = expf(cu[i + 8]), e9 = expf(cu[i + 9]);
-      uint32_t ta[NT][4];
+        for (int p0 = 0; p0 < 8; p0 += 4) {
+          Tf32B bt[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float2 v = unpack2(a[q]);
-        uint32_t tt[NT];
-        split<NT>(v.x * (q < 2 ? e0 : e8), v.y * (q < 2 ? e1 : e9), tt);
-#pragma unroll
-        for (int k = 0; k < NT; ++k) ta[k][q] = tt[k];
+          for (int u = 0; u < 4; ++u) {
+            const float* dr = dst + i * kLdX + 8 * (p0 + u) + lg;
+            bt[u] = Tf32B(dr[0], dr[4 * kLdX]);
+          }
+          mma3<4>(acc, p0, a, bt);
+        }
       }
+    } else {
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        uint32_t q[4];
-        ldsm_x4_t(q, dst + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                               kLdX +
-                         16 * m + (lane >> 4) * 8);
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        ldsm_x4_t(a, cst + (16 * kk + (lane & 7) + (lane >> 4) * 8) * kLdC +
+                         16 * rw + ((lane >> 3) & 1) * 8);
+        const int i = 16 * kk + 2 * cq;
+        const float e0 = expf(cu[i]), e1 = expf(cu[i + 1]);
+        const float e8 = expf(cu[i + 8]), e9 = expf(cu[i + 9]);
+        uint32_t ta[NT][4];
 #pragma unroll
-        for (int k = 0; k < NT; ++k) {
-          mma(acc[2 * m], ta[k], q[0], q[1]);
-          mma(acc[2 * m + 1], ta[k], q[2], q[3]);
+        for (int q = 0; q < 4; ++q) {
+          const float2 v = unpack2(a[q]);
+          uint32_t tt[NT];
+          split<NT>(v.x * (q < 2 ? e0 : e8), v.y * (q < 2 ? e1 : e9), tt);
+#pragma unroll
+          for (int k = 0; k < NT; ++k) ta[k][q] = tt[k];
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          uint32_t q[4];
+          ldsm_x4_t(q, dst + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 kLdX +
+                           16 * m + (lane >> 4) * 8);
+#pragma unroll
+          for (int k = 0; k < NT; ++k) {
+            mma(acc[2 * m], ta[k], q[0], q[1]);
+            mma(acc[2 * m + 1], ta[k], q[2], q[3]);
+          }
         }
       }
     }
@@ -2308,22 +2352,59 @@ __global__ void __launch_bounds__(4 * NS)
   }
 }
 
+template <int NS, int NT>
+__global__ void __launch_bounds__(4 * NS)
+    ssd_carry_bwd_tc(const float* __restrict__ states,
+                     const float* __restrict__ cum,
+                     const bf16* __restrict__ cm, const bf16* __restrict__ dy,
+                     const float* __restrict__ init,
+                     const float* __restrict__ dfinal,
+                     float* __restrict__ h_prev, float* __restrict__ g_out,
+                     float* __restrict__ dinit, int L, int H, int N) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  carry_bwd_walk<bf16, NS, NT>(smem_raw, states, cum, cm, dy, init, dfinal,
+                               h_prev, g_out, dinit, L, H, N);
+}
+
+template <int NS>
+__global__ void __launch_bounds__(4 * NS)
+    ssd_carry_bwd_tf32(const float* __restrict__ states,
+                       const float* __restrict__ cum,
+                       const float* __restrict__ cm,
+                       const float* __restrict__ dy,
+                       const float* __restrict__ init,
+                       const float* __restrict__ dfinal,
+                       float* __restrict__ h_prev, float* __restrict__ g_out,
+                       float* __restrict__ dinit, int L, int H, int N) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  carry_bwd_walk<float, NS, 0>(smem_raw, states, cum, cm, dy, init, dfinal,
+                               h_prev, g_out, dinit, L, H, N);
+}
+
+// ssd_carry_bwd_tc (bf16) or ssd_carry_bwd_tf32 (fp32) at kCarryRows rows
+// of N a block.
+template <typename T>
 cudaError_t launch_carry_bwd_tc(const void* states, const void* cum,
                                 const void* cm, const void* dy,
                                 const void* init, const void* dfinal,
                                 void* h_prev, void* g, void* dinit, int B,
                                 int L, int H, int N, cudaStream_t stream) {
   constexpr int NS = kCarryRows;
-  const size_t smem = CarryTcSmem(NS, L / kTQ).total;
+  const auto kernel = [] {
+    if constexpr (sizeof(T) == 2)
+      return ssd_carry_bwd_tc<NS, kBwdTerms>;
+    else
+      return ssd_carry_bwd_tf32<NS>;
+  }();
+  const size_t smem = CarryTcSmem(NS, L / kTQ, sizeof(T)).total;
   if (N % NS || smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_carry_bwd_tc<NS, kBwdTerms>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(N / NS, H, B);
-  ssd_carry_bwd_tc<NS, kBwdTerms><<<grid, 4 * NS, smem, stream>>>(
+  kernel<<<grid, 4 * NS, smem, stream>>>(
       static_cast<const float*>(states), static_cast<const float*>(cum),
-      static_cast<const bf16*>(cm), static_cast<const bf16*>(dy),
+      static_cast<const T*>(cm), static_cast<const T*>(dy),
       static_cast<const float*>(init), static_cast<const float*>(dfinal),
       static_cast<float*>(h_prev), static_cast<float*>(g),
       static_cast<float*>(dinit), L, H, N);
@@ -2336,8 +2417,9 @@ cudaError_t launch_carry_bwd_tc(const void* states, const void* cum,
 // [B, L / Q, H, N, P], cum [B, L, H], init, dfinal and dinit [B, H, N, P]
 // fp32 (init and dfinal may be null: zeros), C [B, L, N], dy [B, L, H, P];
 // all contiguous and 16-byte aligned; P and N multiples of 8, N at most
-// 256.  tc = 0 runs ssd_carry_bwd on the CUDA cores; tc = 1 runs
-// ssd_carry_bwd_tc (bf16 at Q = P = 64, N = 64 or 128).
+// 256.  tc = 0 runs ssd_carry_bwd on the CUDA cores; tc = 1, at Q = P =
+// 64 and N = 64 or 128, runs ssd_carry_bwd_tc for bf16 and
+// ssd_carry_bwd_tf32 for fp32.
 extern "C" int ssd_carry_bwd_launch(const void* states, const void* cum,
                                     const void* cm, const void* dy,
                                     const void* init, const void* dfinal,
@@ -2348,10 +2430,17 @@ extern "C" int ssd_carry_bwd_launch(const void* states, const void* cum,
   if (P % 8 || N % 8 || N > 256 || Q < 1 || L % Q)
     return (int)cudaErrorInvalidValue;
   if (tc) {
-    if (dtype != 1 || Q != kTQ || P != kTP || (N != 64 && N != 128))
+    if (Q != kTQ || P != kTP || (N != 64 && N != 128))
       return (int)cudaErrorInvalidValue;
-    return (int)launch_carry_bwd_tc(states, cum, cm, dy, init, dfinal,
-                                    h_prev, g, dinit, B, L, H, N, s);
+    if (dtype == 1)
+      return (int)launch_carry_bwd_tc<bf16>(states, cum, cm, dy, init,
+                                            dfinal, h_prev, g, dinit, B, L,
+                                            H, N, s);
+    if (dtype == 0)
+      return (int)launch_carry_bwd_tc<float>(states, cum, cm, dy, init,
+                                             dfinal, h_prev, g, dinit, B, L,
+                                             H, N, s);
+    return (int)cudaErrorInvalidValue;
   }
   const bool wide = P % 16 == 0;
 #define SSD_CARRY_BWD(T, PS)                                                \
@@ -2437,4 +2526,11 @@ extern "C" int ssd_bwd_smem_bytes(int which, int Q, int N, int P) {
   if (which == 0) return (int)(ChunkBwdSmem(Q, N, P).total * sizeof(float));
   if (which == 1) return (int)carry_bwd_smem_bytes(Q, N, 16);
   return -1;
+}
+
+// Dynamic shared memory (bytes) of ssd_carry_bwd_tf32 at n chunks of kTQ
+// rows; -1 for anything else.
+extern "C" int ssd_carry_bwd_tf32_smem_bytes(int n) {
+  if (n < 1) return -1;
+  return (int)CarryTcSmem(kCarryRows, n, 4).total;
 }

@@ -109,7 +109,8 @@ __device__ __forceinline__ float2 unpack2(uint32_t r) {
 
 // ---------------------------------------------------------------------------
 // TF32: fp32 operands on the tensor cores (ssd_chunk_tf32,
-// ssd_chunk_bwd_tc's fp32 sibling ssd_chunk_bwd_tf32).  split_tf32 and
+// ssd_carry_tf32 and the backward's ssd_chunk_bwd_tf32 and
+// ssd_carry_bwd_tf32, the bf16 kernels' fp32 siblings).  split_tf32 and
 // mma_tf32 are the flash-attention fp32 kernels' (fa_tf32.cuh), copied:
 // each fp32 operand is split into two TF32 terms and every product taken
 // as three TF32 products, hi·hi + hi·lo + lo·hi, summed in fp32 (the

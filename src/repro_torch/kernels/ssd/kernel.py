@@ -5,19 +5,20 @@ own library): the carry's two walks (:func:`ssd_carry_bwd_cuda`) and each
 chunk's gradients (:func:`ssd_chunk_bwd_cuda`).  The wrappers choose the
 kernel by dtype and shape (:func:`fwd_kernels`, :func:`bwd_kernels`): at
 Q = P = 64, N in {64, 128} (the models' shapes) the chunk pass and the
-chunk backward run on the tensor cores with ``mma.sync`` — bf16 in
-``ssd_chunk_tc`` and ``ssd_chunk_bwd_tc`` (fp32 operands in ``TERMS`` or
-``BWD_TERMS`` bf16 terms), fp32 in ``ssd_chunk_tf32`` and
-``ssd_chunk_bwd_tf32`` (TF32, ``TF32_TERMS`` = three products a
-product) — and the bf16 carry backward in ``ssd_carry_bwd_tc``; the next
-head's or chunks' tiles are copied with ``cp.async`` while a block
-computes, and every one of them is bound by bytes.  Every other shape,
-and the fp32 carries, run on the CUDA cores in fp32 (``ssd_chunk_kernel``,
-``ssd_carry_bwd``, ``ssd_chunk_bwd``); the forward carry is
-``ssd_carry_tc`` for bf16 C at Q and N multiples of 16, else
-``ssd_carry_kernel``.  A refused launch raises: there is no fallback from
-one kernel to the other.  ``FWD_KERNEL_LAUNCHES`` and
-``BWD_KERNEL_LAUNCHES`` count each kernel's launches.
+chunk backward and the carry backward run on the tensor cores with
+``mma.sync`` — bf16 in ``ssd_chunk_tc``, ``ssd_chunk_bwd_tc`` and
+``ssd_carry_bwd_tc`` (fp32 operands in ``TERMS`` or ``BWD_TERMS`` bf16
+terms), fp32 in ``ssd_chunk_tf32``, ``ssd_chunk_bwd_tf32`` and
+``ssd_carry_bwd_tf32`` (TF32, ``TF32_TERMS`` = three products a
+product); the next head's or chunks' tiles are copied with ``cp.async``
+while a block computes, and every one of them is bound by bytes.  The
+forward carry is ``ssd_carry_tc`` for bf16 C and ``ssd_carry_tf32`` for
+fp32 C at Q and N multiples of 16 (where its layout fits a block).
+Every other shape runs on the CUDA cores in fp32 (``ssd_chunk_kernel``,
+``ssd_carry_kernel``, ``ssd_carry_bwd``, ``ssd_chunk_bwd``).  A refused
+launch raises: there is no fallback from one kernel to the other.
+``FWD_KERNEL_LAUNCHES`` and ``BWD_KERNEL_LAUNCHES`` count each kernel's
+launches.
 
 Each library is compiled at first use with ``nvcc`` for ``sm_90a``
 (``kernels/build.py``) and loaded with ``ctypes``; nothing is built when
@@ -53,7 +54,7 @@ TC_Q, TC_P, TC_N = 64, 64, (64, 128)   # shapes the tensor-core kernels take
 # forward and its backward's chunk-state launch alike; reset them to 0 and
 # read them back around a run).
 FWD_KERNELS = ("ssd_chunk_kernel", "ssd_chunk_tc", "ssd_chunk_tf32",
-               "ssd_carry_kernel", "ssd_carry_tc")
+               "ssd_carry_kernel", "ssd_carry_tc", "ssd_carry_tf32")
 FWD_KERNEL_LAUNCHES = dict.fromkeys(FWD_KERNELS, 0)
 
 
@@ -61,12 +62,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ssd_chunk_launch.argtypes = [P] * 7 + [I] * 8 + [P]
     lib.ssd_chunk_launch.restype = ctypes.c_int
-    lib.ssd_carry_launch.argtypes = [P] * 7 + [I] * 8 + [P]
-    lib.ssd_carry_launch.restype = ctypes.c_int
+    for fn in (lib.ssd_carry_launch, lib.ssd_carry_core_launch):
+        fn.argtypes = [P] * 7 + [I] * 8 + [P]
+        fn.restype = ctypes.c_int
     lib.ssd_smem_bytes.argtypes = [I] * 4
     lib.ssd_smem_bytes.restype = ctypes.c_int
-    lib.ssd_carry_plan.argtypes = [I] * 6 + [P]
-    lib.ssd_carry_plan.restype = ctypes.c_int
+    lib.ssd_carry_tc_smem_bytes.argtypes = [I] * 5
+    lib.ssd_carry_tc_smem_bytes.restype = ctypes.c_int
+    for fn in (lib.ssd_carry_plan, lib.ssd_carry_tf32_plan):
+        fn.argtypes = [I] * 6 + [P]
+        fn.restype = ctypes.c_int
     lib.ssd_chunk_tf32_smem_bytes.argtypes = [I] * 2
     lib.ssd_chunk_tf32_smem_bytes.restype = ctypes.c_int
     lib.ssd_chunk_tf32_heads.argtypes = [I] * 3
@@ -80,9 +85,11 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.ssd_bwd_tc_smem_bytes.argtypes = [I] * 3
     lib.ssd_bwd_smem_bytes.argtypes = [I] * 4
     lib.ssd_chunk_bwd_tf32_smem_bytes.argtypes = [I] * 2
+    lib.ssd_carry_bwd_tf32_smem_bytes.argtypes = [I]
     for fn in (lib.ssd_carry_bwd_launch, lib.ssd_chunk_bwd_launch,
                lib.ssd_bwd_tc_smem_bytes, lib.ssd_bwd_smem_bytes,
-               lib.ssd_chunk_bwd_tf32_smem_bytes):
+               lib.ssd_chunk_bwd_tf32_smem_bytes,
+               lib.ssd_carry_bwd_tf32_smem_bytes):
         fn.restype = ctypes.c_int
 
 
@@ -102,10 +109,13 @@ BWD_TERMS = 2
 # Launches of each backward kernel through the wrappers below (reset them
 # to 0 and read them back around a run): the CUDA-core kernels take the
 # shapes the tensor-core ones (``_tc`` for bf16, :func:`tc_shape`;
-# ``_tf32`` for fp32, :func:`tf32_shape`) do not, and the fp32 carry.
+# ``_tf32`` for fp32, :func:`tf32_shape`) do not.
 BWD_KERNELS = ("ssd_carry_bwd", "ssd_chunk_bwd", "ssd_carry_bwd_tc",
-               "ssd_chunk_bwd_tc", "ssd_chunk_bwd_tf32")
+               "ssd_chunk_bwd_tc", "ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32")
 BWD_KERNEL_LAUNCHES = dict.fromkeys(BWD_KERNELS, 0)
+# The tensor-core carry backward's ring depth and rows of N a block
+# (kCarryStages and kCarryRows in csrc/ssd_bwd.cu).
+CARRY_BWD_STAGES, CARRY_ROWS = 3, 32
 # The longest chunk the kernels take, forward and backward.
 MAX_CHUNK = 256
 # What ssd_chunk_bwd takes: chunks of 1 to MAX_CHUNK rows, head widths
@@ -137,49 +147,72 @@ def carry_smem_bytes(N: int, Q: int, c_dtype: torch.dtype) -> int:
     return 4 * (N * 16 + N * (R + R % 2)) + 2 * R * (N + 16 // size) * size
 
 
-# The tensor-core carry's rings and warps (kCarryTerms, kCarryPlanStages,
-# kTermSlots and kCarryTcMaxThreads in csrc/ssd.cu).
-CARRY_TERMS, CARRY_PLAN_STAGES = 3, 3
+# The tensor-core carries' rings and warps (kCarryTerms, kCarryPlanStages,
+# kTermSlots and carry_tc_max_threads in csrc/ssd.cu): h_prev in three
+# bf16 terms (``ssd_carry_tc``) or two TF32 planes, hi and lo
+# (``ssd_carry_tf32``); at most 640 threads a block at the slices that
+# decide whether a kernel takes a shape (16 or 8 columns).
+CARRY_TERMS, CARRY_TF32_PLANES, CARRY_PLAN_STAGES = 3, 2, 3
 CARRY_TERM_SLOTS, CARRY_TC_MAX_THREADS = 2, 640
 
 
-def carry_tc_smem_bytes(N: int, Q: int, ps: int = 16, stages: int = 1) -> int:
-    """Dynamic shared memory of one ``ssd_carry_tc`` block with slices of
-    ``ps`` columns and rings of ``stages`` (as ``carry_tc_smem_bytes`` in
-    ``csrc/ssd.cu``): the rings' mbarriers; per stage a chunk (the state
-    slice [N, ps + 4] fp32 and its last cum, 16 bytes); the
-    ``CARRY_TERM_SLOTS`` slots of h_prev's three bf16 terms [N, ps]; and per
-    MMA warp (one per 16 rows of R = min(Q, ``CHUNK_ROWS``)) per stage its
-    rows of C [16, N + 8] bf16, y_intra [16, ldy] and cum [16] fp32, ldy =
+def carry_tc_smem_bytes(N: int, Q: int, ps: int = 16, stages: int = 1,
+                        c_dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one tensor-core carry block for C of
+    ``c_dtype`` (``ssd_carry_tc`` for bf16, ``ssd_carry_tf32`` for fp32)
+    with slices of ``ps`` columns and rings of ``stages`` (as
+    ``carry_tc_smem_bytes`` in ``csrc/ssd.cu``): the rings' mbarriers; per
+    stage a chunk (the state slice [N, ps + 4] fp32 and its last cum, 16
+    bytes); the ``CARRY_TERM_SLOTS`` slots of h_prev's planes [N, ps] in
+    C's type (three bf16 terms, or the TF32 hi and lo); and per MMA warp
+    (one per 16 rows of R = min(Q, ``CHUNK_ROWS``)) per stage its rows of C
+    [16, N + 8] in C's type, y_intra [16, ldy] and cum [16] fp32, ldy =
     ``ps`` + 8 (8 at ``ps`` = 8).  The defaults are the smallest plan, the
-    size that decides whether the kernel takes a shape
-    (``ssd_smem_bytes(3, ...)``)."""
+    size that decides whether the kernel takes a shape."""
+    size = 2 if c_dtype == torch.bfloat16 else 4
+    planes = CARRY_TERMS if size == 2 else CARRY_TF32_PLANES
     R = min(Q, CHUNK_ROWS)
     ldy = 8 if ps == 8 else ps + 8
     bars = ((2 * stages + 2 * CARRY_TERM_SLOTS) * 8 + 15) // 16 * 16
     chunk = N * (ps + 4) * 4 + 16
-    terms = CARRY_TERM_SLOTS * CARRY_TERMS * N * ps * 2
-    mma_stage = 16 * (N + 8) * 2 + 16 * (ldy + 1) * 4
+    terms = CARRY_TERM_SLOTS * planes * N * ps * size
+    mma_stage = 16 * (N + 8) * size + 16 * (ldy + 1) * 4
     return bars + stages * chunk + terms + (R // 16) * stages * mma_stage
 
 
 def carry_tc_threads(N: int, Q: int, ps: int = 16) -> int:
-    """Threads of an ``ssd_carry_tc`` block: a producer warp, the chain
-    warps (each 32 values of h a lane: 64 // ``ps`` k16 steps of N, 4 at
-    ``ps`` = 8) and one MMA warp per 16 rows of a tile."""
+    """Threads of a tensor-core carry block (``ssd_carry_tc`` or
+    ``ssd_carry_tf32``): a producer warp, the chain warps (each 32 values
+    of h a lane: 64 // ``ps`` k16 steps of N, 4 at ``ps`` = 8) and one MMA
+    warp per 16 rows of a tile."""
     kw = 4 if ps == 8 else 64 // ps
     return 32 * (1 + -(-(N // 16) // kw) + min(Q, CHUNK_ROWS) // 16)
 
 
+def carry_tc_takes(c_dtype: torch.dtype, Q: int, P: int, N: int) -> bool:
+    """Whether the tensor-core carry for C of ``c_dtype`` takes this shape
+    (``carry_tc_fits`` in ``csrc/ssd.cu``): Q and N multiples of 16, and
+    its smallest plan (a one-stage ring at 16-column slices, 8 where P is
+    not a multiple of 16) within a block's shared memory and threads."""
+    ps = 16 if P % 16 == 0 else 8
+    return (Q % 16 == 0 and N % 16 == 0
+            and carry_tc_smem_bytes(N, Q, ps, 1, c_dtype) <= MAX_SMEM_BYTES
+            and carry_tc_threads(N, Q, ps) <= CARRY_TC_MAX_THREADS)
+
+
 def carry_plan(y_dtype: torch.dtype, B: int, H: int, P: int, N: int,
-               Q: int) -> Optional[dict]:
-    """The plan ``ssd_carry_tc`` launches with for bf16 C at this shape (on
-    the current card): columns a slice, ring stages, blocks, threads and
-    shared-memory bytes; None where the shape takes the CUDA-core
-    carry."""
+               Q: int, c_dtype: torch.dtype = torch.bfloat16
+               ) -> Optional[dict]:
+    """The plan the tensor-core carry launches with for C of ``c_dtype``
+    at this shape (on the current card; ``ssd_carry_tc`` for bf16,
+    ``ssd_carry_tf32`` for fp32): columns a slice, ring stages, blocks,
+    threads and shared-memory bytes; None where the shape takes the
+    CUDA-core carry."""
     out = (ctypes.c_int * 5)()
-    err = LIB.load().ssd_carry_plan(DTYPES[y_dtype], B, H, P, N, Q,
-                                    ctypes.addressof(out))
+    lib = LIB.load()
+    entry = (lib.ssd_carry_plan if c_dtype == torch.bfloat16
+             else lib.ssd_carry_tf32_plan)
+    err = entry(DTYPES[y_dtype], B, H, P, N, Q, ctypes.addressof(out))
     if err == 1:
         return None
     check_launch(err, "SSD carry plan")
@@ -211,14 +244,16 @@ def fwd_kernels(dtype: torch.dtype, Q: int, P: int, N: int
     :func:`ssd_carry_cuda` launch for x, B and C of ``dtype`` at this
     shape: ``ssd_chunk_tc`` where :func:`tc_shape` holds,
     ``ssd_chunk_tf32`` where :func:`tf32_shape` does, else
-    ``ssd_chunk_kernel``; ``ssd_carry_tc`` for bf16 C at Q and N
-    multiples of 16, else ``ssd_carry_kernel`` (as ``launch_carry`` in
+    ``ssd_chunk_kernel``; where :func:`carry_tc_takes` holds (Q and N
+    multiples of 16) ``ssd_carry_tc`` for bf16 C and ``ssd_carry_tf32``
+    for fp32 C, else ``ssd_carry_kernel`` (as ``launch_carry`` in
     ``csrc/ssd.cu``)."""
     chunk = ("ssd_chunk_tc" if tc_shape(dtype, Q, P, N) else
              "ssd_chunk_tf32" if tf32_shape(dtype, Q, P, N) else
              "ssd_chunk_kernel")
-    tc = dtype == torch.bfloat16 and Q % 16 == 0 and N % 16 == 0
-    return chunk, "ssd_carry_tc" if tc else "ssd_carry_kernel"
+    carry = ("ssd_carry_kernel" if not carry_tc_takes(dtype, Q, P, N) else
+             "ssd_carry_tc" if dtype == torch.bfloat16 else "ssd_carry_tf32")
+    return chunk, carry
 
 
 def chunk_tf32_smem_bytes(N: int, G: int) -> int:
@@ -347,13 +382,15 @@ def ssd_chunks_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
 def ssd_carry_cuda(y_intra: torch.Tensor, states: torch.Tensor,
                    cum: torch.Tensor, Cm: torch.Tensor, chunk: int,
                    init_state: Optional[torch.Tensor] = None,
-                   out_dtype: torch.dtype = torch.float32
+                   out_dtype: torch.dtype = torch.float32,
+                   cuda_cores: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the carry kernel on CUDA tensors: y_intra [B,L,H,P] and
     states [B,nc,H,N,P] fp32 (the chunk kernel's outputs), cum [B,L,H]
     fp32, Cm [B,L,N] fp32 or bf16, init_state [B,H,N,P] or None.  Returns
     (y [B,L,H,P] in ``out_dtype``, final state [B,H,N,P] fp32) without
-    synchronising."""
+    synchronising.  The kernel follows :func:`fwd_kernels`;
+    ``cuda_cores`` forces ``ssd_carry_kernel``."""
     if y_intra.dim() != 4 or y_intra.device.type != "cuda":
         raise ValueError(f"ssd_carry_cuda needs a CUDA y_intra [B, L, H, "
                          f"P], got {list(y_intra.shape)} on "
@@ -385,12 +422,15 @@ def ssd_carry_cuda(y_intra: torch.Tensor, states: torch.Tensor,
     final = torch.empty((Bsz, H, N, P), dtype=torch.float32,
                         device=y_intra.device)
     stream = torch.cuda.current_stream(y_intra.device).cuda_stream
-    err = LIB.load().ssd_carry_launch(
+    lib = LIB.load()
+    entry = lib.ssd_carry_core_launch if cuda_cores else lib.ssd_carry_launch
+    err = entry(
         y_intra.data_ptr(), states.data_ptr(), cum.data_ptr(),
         Cm.data_ptr(), None if init_state is None else init_state.data_ptr(),
         y.data_ptr(), final.data_ptr(), DTYPES[Cm.dtype], DTYPES[out_dtype],
         Bsz, L, H, P, N, chunk, stream)
-    name = fwd_kernels(Cm.dtype, chunk, P, N)[1]
+    name = ("ssd_carry_kernel" if cuda_cores
+            else fwd_kernels(Cm.dtype, chunk, P, N)[1])
     check_launch(err, name)
     FWD_KERNEL_LAUNCHES[name] += 1
     return y, final
@@ -417,6 +457,20 @@ def chunk_bwd_smem_bytes(Q: int, N: int, P: int) -> int:
                 + 10 * T + 16)
 
 
+def carry_bwd_tc_smem_bytes(nc: int, c_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one ``ssd_carry_bwd_tc`` (bf16) or
+    ``ssd_carry_bwd_tf32`` (fp32) block at ``nc`` chunks of 64 rows (as
+    ``CarryTcSmem`` in ``csrc/ssd_bwd.cu``): rings of ``CARRY_BWD_STAGES``
+    state slices [32, 64] fp32, C slices [64, 40] and dy tiles [64, 72] in
+    C's type and cum columns [64] fp32; every chunk's exp(cum_last), padded
+    to 16 bytes."""
+    size = 2 if c_dtype == torch.bfloat16 else 4
+    S, NS = CARRY_BWD_STAGES, CARRY_ROWS
+    return (S * NS * TC_P * 4 + S * TC_Q * (NS + 8) * size
+            + S * TC_Q * (TC_P + 8) * size + S * TC_Q * 4
+            + (nc * 4 + 15) // 16 * 16)
+
+
 def chunk_bwd_tf32_smem_bytes(N: int, G: int) -> int:
     """Dynamic shared memory of one ``ssd_chunk_bwd_tf32`` block with G
     heads (as ``ChunkTf32Smem`` in ``csrc/ssd_bwd.cu``): C and B [64,
@@ -431,13 +485,12 @@ def bwd_kernels(dtype: torch.dtype, Q: int, P: int, N: int
                 ) -> Tuple[str, str]:
     """(carry, chunk) backward kernels the wrappers launch for inputs of
     ``dtype`` at this shape: where the forward's tensor-core chunk kernels
-    apply, the bf16 tensor-core pair (:func:`tc_shape`) or, for fp32
-    (:func:`tf32_shape`), ``ssd_chunk_bwd_tf32`` beside the CUDA-core
-    carry; else the CUDA-core pair."""
+    apply, the bf16 tensor-core pair (:func:`tc_shape`) or the fp32 one
+    (:func:`tf32_shape`); else the CUDA-core pair."""
     if tc_shape(dtype, Q, P, N):
         return "ssd_carry_bwd_tc", "ssd_chunk_bwd_tc"
     if tf32_shape(dtype, Q, P, N):
-        return "ssd_carry_bwd", "ssd_chunk_bwd_tf32"
+        return "ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32"
     return "ssd_carry_bwd", "ssd_chunk_bwd"
 
 
@@ -477,9 +530,10 @@ def ssd_carry_bwd_cuda(states: torch.Tensor, cum: torch.Tensor,
     synchronising.
 
     The kernel follows :func:`bwd_kernels`: ``ssd_carry_bwd_tc`` for bf16
-    at the tensor-core shapes, ``ssd_carry_bwd`` otherwise or when
-    ``cuda_cores`` is set.  A launch the kernel refuses (a decay table of
-    the chunks beyond its shared memory) raises."""
+    and ``ssd_carry_bwd_tf32`` for fp32 at the tensor-core shapes,
+    ``ssd_carry_bwd`` otherwise or when ``cuda_cores`` is set.  A launch
+    the kernel refuses (a decay table of the chunks beyond its shared
+    memory) raises."""
     if states.dim() != 5 or states.device.type != "cuda":
         raise ValueError(f"ssd_carry_bwd_cuda needs CUDA states [B, nc, H, "
                          f"N, P], got {list(states.shape)} on "
@@ -511,7 +565,9 @@ def ssd_carry_bwd_cuda(states: torch.Tensor, cum: torch.Tensor,
         "dfinal": (dfinal, (Bsz, H, N, P), f32)})
     _check_aligned(states=states, init_state=init_state,  # 16-byte loads
                    dfinal=dfinal)
-    tc = tc_shape(Cm.dtype, chunk, P, N) and not cuda_cores
+    name = "ssd_carry_bwd" if cuda_cores else bwd_kernels(Cm.dtype, chunk,
+                                                          P, N)[0]
+    tc = name != "ssd_carry_bwd"
     if tc:
         _check_aligned(Cm=Cm, dy=dy)   # cp.async copies
     h_prev = torch.empty_like(states)
@@ -525,7 +581,6 @@ def ssd_carry_bwd_cuda(states: torch.Tensor, cum: torch.Tensor,
         None if dfinal is None else dfinal.data_ptr(), h_prev.data_ptr(),
         g.data_ptr(), dinit.data_ptr(), DTYPES[Cm.dtype], Bsz, L, H, P, N,
         chunk, int(tc), stream)
-    name = "ssd_carry_bwd_tc" if tc else "ssd_carry_bwd"
     check_launch(err, name)
     BWD_KERNEL_LAUNCHES[name] += 1
     return h_prev, g, dinit

@@ -4,7 +4,9 @@ plain torch version, chosen by the device the tensors lie on.
 On a CUDA tensor, :func:`ssd` computes the chunk cumsum, launches the
 chunk kernel for the intra-chunk term and the chunk states (on the
 tensor cores at Q = P = 64, N in {64, 128}: ``ssd_chunk_tc`` for bf16,
-``ssd_chunk_tf32`` for fp32), then the carry kernel, which walks
+``ssd_chunk_tf32`` for fp32), then the carry kernel (at Q and N multiples
+of 16 on the tensor cores: ``ssd_carry_tc`` for bf16 C, ``ssd_carry_tf32``
+for fp32 C; else ``ssd_carry_kernel``), which walks
 the chunks in order and writes y in x's dtype and the final state; the
 reference keeps that carry in jnp outside its Pallas kernel.  On a CPU
 tensor it runs ``ref.ssd_ref``, which autograd differentiates.  There is
@@ -23,8 +25,8 @@ path under ``FakeTensorMode`` without launching, and with a flop formula
   and the state gradients, two walks over the chunks) and the chunk
   backward (each chunk's gradients) from ``csrc/ssd_bwd.cu`` — at the
   models' shapes (Q = P = 64, N in {64, 128}) for bf16 the tensor-core
-  ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, for fp32 the CUDA-core
-  ``ssd_carry_bwd`` and the tensor-core ``ssd_chunk_bwd_tf32``, else the
+  ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, for fp32 the TF32
+  ``ssd_carry_bwd_tf32`` and ``ssd_chunk_bwd_tf32``, else the
   CUDA-core ``ssd_carry_bwd`` and ``ssd_chunk_bwd``
   (``kernel.bwd_kernels``) — and
   it finishes in torch: dB and dC summed over the kernel's head groups in

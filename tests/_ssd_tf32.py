@@ -1,9 +1,9 @@
 """The fp32 SSD tensor-core kernels' arithmetic in torch, on the CPU
-(``ssd_chunk_tf32`` in ``csrc/ssd.cu``, ``ssd_chunk_bwd_tf32`` in
-``csrc/ssd_bwd.cu``), shared by ``test_torch_ssd.py`` and
-``test_torch_ssd_bwd.py``.
+(``ssd_chunk_tf32`` and ``ssd_carry_tf32`` in ``csrc/ssd.cu``,
+``ssd_chunk_bwd_tf32`` and ``ssd_carry_bwd_tf32`` in ``csrc/ssd_bwd.cu``),
+shared by ``test_torch_ssd.py`` and ``test_torch_ssd_bwd.py``.
 
-Every product of the two kernels is taken on ``mma.sync`` m16n8k8 with
+Every product of the four kernels is taken on ``mma.sync`` m16n8k8 with
 TF32 operands: each fp32 operand split into hi = its TF32 rounding (to
 nearest, ties away from zero) and lo = what is left (which the tensor
 cores read cut to TF32), and each product taken as hi·hi + hi·lo + lo·hi
@@ -157,3 +157,60 @@ def emulate_tf32_chunk_bwd(x, dt, cum, Bm, Cm, dy, g, h_prev, chunk,
         return t.permute(2, 0, 1, 3, 4).reshape(-1, Bsz, L, N)
     return (dx.permute(0, 1, 3, 2, 4).reshape(Bsz, L, H, P), rows(dcum),
             rows(ddt), parts(db), parts(dc))
+
+
+def emulate_tf32_carry(y_intra, states, cum, Cm, chunk, init_state=None,
+                       out_dtype=torch.float32, terms=3):
+    """``ssd_carry_tf32``'s arithmetic: the chain h = exp(cum_last)·h + S_c
+    in fp32; each chunk's C·h_prev with C split as read and h_prev in the
+    two TF32 planes the chain warps publish (permuted slots over n: the
+    k slots c, c + 4 hold columns 2c, 2c + 1 of C, one 8-byte read); y =
+    y_intra + exp(cum)·acc, cast to ``out_dtype``.  Returns (y [B,L,H,P],
+    final state [B,H,N,P]) as ``ssd_carry_ref``."""
+    Bsz, nc, H, N, P = states.shape
+    L = nc * chunk
+    f32 = torch.float32
+    cumc = cum.to(f32).reshape(Bsz, nc, chunk, H)
+    decay = torch.exp(cumc[:, :, -1, :])[..., None, None]   # [b,c,h,1,1]
+    h = (torch.zeros((Bsz, H, N, P)) if init_state is None
+         else init_state.to(f32))
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = decay[:, c] * h + states[:, c].to(f32)
+    hp = torch.stack(h_prevs, 1)                            # [b,c,h,n,p]
+    Cc = Cm.to(f32).reshape(Bsz, nc, 1, chunk, N)
+    acc = tf32_mm(Cc, hp, PERMUTED, terms)                  # [b,c,h,i,p]
+    y = y_intra.to(f32).reshape(Bsz, nc, chunk, H, P) \
+        + torch.exp(cumc)[..., None] * acc.permute(0, 1, 3, 2, 4)
+    return y.reshape(Bsz, L, H, P).to(out_dtype), h
+
+
+def emulate_tf32_carry_bwd(states, cum, Cm, dy, chunk, init_state=None,
+                           dfinal=None, terms=3):
+    """``ssd_carry_bwd_tf32``'s arithmetic: the forward walk in fp32; the
+    reverse walk's Σ_i exp(cum_i) C_i ⊗ dy_i per chunk as
+    (exp(cum) ∘ C)ᵀ·dy, C scaled by exp(cum_i) in fp32 and then split, dy
+    split as read (natural slots over i), and g = exp(cum_last)·g + that
+    product.
+    Returns (h_prev, g, d init_state) as ``ssd_carry_bwd_ref``."""
+    Bsz, nc, H, N, P = states.shape
+    f32 = torch.float32
+    cumc = cum.to(f32).reshape(Bsz, nc, chunk, H)
+    decay = torch.exp(cumc[:, :, -1, :])[..., None, None]
+    h = (torch.zeros((Bsz, H, N, P)) if init_state is None
+         else init_state.to(f32))
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = decay[:, c] * h + states[:, c].to(f32)
+    ec = Cm.to(f32).reshape(Bsz, nc, chunk, 1, N) \
+        * torch.exp(cumc)[..., None]                        # [b,c,i,h,n]
+    dyc = dy.to(f32).reshape(Bsz, nc, chunk, H, P).permute(0, 1, 3, 2, 4)
+    cdy = tf32_mm(ec.permute(0, 1, 3, 4, 2), dyc, NATURAL, terms)
+    g = torch.zeros((Bsz, H, N, P)) if dfinal is None else dfinal.to(f32)
+    gs = [g] * nc
+    for c in reversed(range(nc)):
+        gs[c] = g
+        g = decay[:, c] * g + cdy[:, c]
+    return torch.stack(h_prevs, 1), torch.stack(gs, 1), g

@@ -12,17 +12,18 @@ held against the plain versions on the card (``cuda`` marker).
 The bf16 chunk kernel runs its products on the tensor cores with its two
 fp32 operands (W and B ⊙ dec_end) split into bf16 terms;
 ``emulate_tensor_core_chunks`` repeats that arithmetic on the CPU, so the
-split is held to the kernel's bars here too.  The fp32 one
-(``ssd_chunk_tf32``) takes three TF32 products a product;
-``_ssd_tf32.emulate_tf32_chunks`` repeats it and is held against the
-reference's own chunk pass and scan.
+split is held to the kernel's bars here too.  The fp32 ones
+(``ssd_chunk_tf32``, and the carry ``ssd_carry_tf32``) take three TF32
+products a product; ``_ssd_tf32.emulate_tf32_chunks`` and
+``emulate_tf32_carry`` repeat them and are held against the plain
+versions and the reference's own chunk pass and scan.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _ssd_tf32 import emulate_tf32_chunks
+from _ssd_tf32 import emulate_tf32_carry, emulate_tf32_chunks
 from repro.kernels.ssd.kernel import ssd_chunks as j_chunks
 from repro.kernels.ssd.ops import ssd as j_ssd
 from repro.kernels.ssd.ref import ssd_decode_ref as j_decode
@@ -709,17 +710,27 @@ def test_tf32_chunk_term_counts(terms):
 def test_forward_dispatch_by_dtype_and_shape():
     """fp32 at Q = P = 64, N in {64, 128} takes ``ssd_chunk_tf32``, bf16
     there ``ssd_chunk_tc``; every other chunk, head width or state size
-    the CUDA-core kernel; the carries as before."""
+    the CUDA-core kernel.  The carry: at Q and N multiples of 16
+    ``ssd_carry_tc`` for bf16 C and ``ssd_carry_tf32`` for fp32 C, else
+    ``ssd_carry_kernel`` (the models' chunk of 50, odd chunks)."""
     from repro_torch.kernels.ssd.kernel import FWD_KERNELS, fwd_kernels
     f32, bf = torch.float32, torch.bfloat16
     assert fwd_kernels(f32, 64, 64, 128) == ("ssd_chunk_tf32",
-                                             "ssd_carry_kernel")
-    assert fwd_kernels(f32, 64, 64, 64)[0] == "ssd_chunk_tf32"
+                                             "ssd_carry_tf32")
+    assert fwd_kernels(f32, 64, 64, 64) == ("ssd_chunk_tf32",
+                                            "ssd_carry_tf32")
     assert fwd_kernels(bf, 64, 64, 128) == ("ssd_chunk_tc", "ssd_carry_tc")
     for Q, P, N in ((32, 64, 128), (64, 32, 128), (64, 64, 32),
                     (128, 64, 128), (50, 16, 16)):
         for dtype in (f32, bf):
             assert fwd_kernels(dtype, Q, P, N)[0] == "ssd_chunk_kernel"
+    for Q, P, N in ((32, 64, 128), (64, 32, 128), (128, 64, 128),
+                    (256, 64, 128), (16, 16, 32), (32, 40, 16)):
+        assert fwd_kernels(f32, Q, P, N)[1] == "ssd_carry_tf32"
+        assert fwd_kernels(bf, Q, P, N)[1] == "ssd_carry_tc"
+    for Q, P, N in ((50, 16, 16), (100, 32, 64), (64, 64, 40), (7, 16, 64)):
+        for dtype in (f32, bf):
+            assert fwd_kernels(dtype, Q, P, N)[1] == "ssd_carry_kernel"
     assert set(FWD_KERNELS) == {
         fwd_kernels(dt, Q, 64, N)[k] for dt in (f32, bf)
         for Q, N in ((64, 128), (50, 16)) for k in (0, 1)}
@@ -791,3 +802,164 @@ def test_cuda_tf32_shared_memory_equals_mirror():
     for B, L, H in ((1, 2048, 48), (2, 4096, 48), (1, 256, 2)):
         assert lib.ssd_chunk_tf32_heads(B, L, H) == kernel.chunk_tf32_heads(
             B * L // 64, H, sms)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 tensor-core carry (TF32, three products a product)
+# ---------------------------------------------------------------------------
+
+def tf32_carry_ratios(shape, terms, init):
+    """Worst max|Δ| / (1e-4·max(max|ref|, 1)) of the emulated
+    ``ssd_carry_tf32`` against ``ssd_carry_ref`` (y, final state) on the
+    plain chunk outputs, with a nonzero initial state where ``init``."""
+    B, L, H, P, N, Q = shape
+    _, ts, cum = tf32_case(*shape)
+    x, dt, A, Bm, Cm = ts
+    yi, st = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+    h0 = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(B, H, N, P)).astype(np.float32)) if init else None
+    got = emulate_tf32_carry(yi, st, cum, Cm, Q, h0, terms=terms)
+    want = ssd_carry_ref(yi, st, cum, Cm, Q, h0)
+    return max(float((g - w).abs().max())
+               / (1e-4 * max(float(w.abs().max()), 1.0))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+@pytest.mark.parametrize("B,L,H,P,N,Q", TF32_SHAPES)
+def test_tf32_carry_emulation_meets_the_bar(B, L, H, P, N, Q, with_init):
+    """``ssd_carry_tf32``'s arithmetic keeps y and the final state within
+    a tenth of 1e-4·max(max|ref|, 1) of ``ssd_carry_ref``; the whole fp32
+    SSD with both emulated tensor-core kernels (``ssd_chunk_tf32``, then
+    ``ssd_carry_tf32``) is within the sweep's 1e-4 of the reference's
+    ``ssd(use_pallas=True)`` (its Pallas chunk kernel in interpret mode and
+    its jnp carry) and ``ssd_ref`` on the same seeded inputs."""
+    shape = (B, L, H, P, N, Q)
+    assert tf32_carry_ratios(shape, 3, with_init) <= 0.1
+    js, ts, cum = tf32_case(*shape)
+    x, dt, A, Bm, Cm = ts
+    h0 = np.random.default_rng(12).normal(size=(B, H, N, P)).astype(
+        np.float32) if with_init else None
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    yi, st = emulate_tf32_chunks(x, dt, cum, Bm, Cm, Q)
+    y, final = emulate_tf32_carry(yi, st, cum, Cm, Q, th0)
+    for ry, rs in (j_ssd(*js, chunk=Q, use_pallas=True, init_state=jh0),
+                   j_ssd_ref(*js, chunk=Q, init_state=jh0)):
+        close(y, ry)
+        close(final, rs)
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3])
+def test_tf32_carry_term_counts(terms):
+    """One TF32 product a product (plain TF32) misses 1e-4·max|ref| of
+    ``ssd_carry_ref`` on the same inputs; three (``ssd_carry_tf32``'s
+    hi·hi + hi·lo + lo·hi) keep y and the final state within a tenth of
+    it.  The worst ratios are printed (``-s``)."""
+    ratios = {shape: tf32_carry_ratios(shape, terms, True)
+              for shape in TF32_SHAPES}
+    print(f"\nTF32 products={terms}: carry worst max|Δ|/bar " + ", ".join(
+        f"{list(k)} {v:.4f}" for k, v in ratios.items()))
+    if terms == 1:
+        assert min(ratios.values()) > 1.0, ratios
+    if terms == 3:
+        assert max(ratios.values()) <= 0.1, ratios
+
+
+def test_tf32_carry_fits_shared_memory():
+    """``ssd_carry_tf32``'s shared memory (``kernel.carry_tc_smem_bytes``
+    with fp32 C: C's tiles in fp32, h_prev in two TF32 planes): at
+    mamba2-780m's N = 128 and chunk 64, 84,288 bytes at 16-column slices
+    and one stage (two blocks an SM), 187,264 at three (one), and a
+    32-column slice fits two stages but not three; every chunk from 16 to
+    256 rows in steps of 16 at N up to 256 fits its smallest plan, so that
+    ``fwd_kernels`` names it there."""
+    from repro_torch.kernels.ssd.kernel import (MAX_SMEM_BYTES,
+                                                carry_tc_smem_bytes,
+                                                carry_tc_takes,
+                                                carry_tc_threads)
+    f32 = torch.float32
+    assert carry_tc_smem_bytes(128, 64, 16, 1, f32) == 84_288
+    assert 2 * (carry_tc_smem_bytes(128, 64, 16, 1, f32) + 1024) \
+        <= 228 * 1024
+    assert carry_tc_smem_bytes(128, 64, 16, 3, f32) == 187_264
+    assert carry_tc_smem_bytes(128, 64, 32, 2, f32) <= MAX_SMEM_BYTES \
+        < carry_tc_smem_bytes(128, 64, 32, 3, f32)
+    # The bf16 kernel's sizes are those it had: bf16 is the default.
+    assert carry_tc_smem_bytes(128, 64, 16, 2) == 92_768
+    assert carry_tc_threads(128, 64, 16) == 224
+    for N in (16, 64, 128, 256):
+        for Q in range(16, 257, 16):
+            assert carry_tc_takes(f32, Q, 64, N)
+            assert carry_tc_takes(f32, Q, 40, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+@pytest.mark.parametrize("B,L,H,P,N,Q", [(1, 256, 2, 64, 128, 64),
+                                         (1, 2048, 48, 64, 128, 64),
+                                         (2, 512, 8, 64, 64, 64),
+                                         (1, 128, 4, 40, 32, 32)])
+def test_cuda_tf32_carry_kernel_matches_plain(B, L, H, P, N, Q, with_init):
+    """``ssd_carry_tf32`` on fp32 C against ``ssd_carry_ref``: y (fp32)
+    and the final state within 1e-4·max(max|ref|, 1), a second pass equal
+    bit for bit, y in bf16 with the same final state, each launch counted
+    under its name; ``cuda_cores=True`` still takes ``ssd_carry_kernel``,
+    held too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.ssd import kernel
+    x, dt, A, Bm, Cm = _cuda_inputs(B, L, H, P, N, Q, "float32")
+    cum = chunk_cumsum(dt, A, Q)
+    yi, st = (t.contiguous() for t in ssd_chunks_ref(x, dt, cum, Bm, Cm, Q))
+    h0 = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(B, H, N, P)).astype(np.float32)).cuda() if with_init else None
+    before = dict(kernel.FWD_KERNEL_LAUNCHES)
+    got = kernel.ssd_carry_cuda(yi, st, cum, Cm, Q, h0)
+    again = kernel.ssd_carry_cuda(yi, st, cum, Cm, Q, h0)
+    yb, fb = kernel.ssd_carry_cuda(yi, st, cum, Cm, Q, h0, torch.bfloat16)
+    core = kernel.ssd_carry_cuda(yi, st, cum, Cm, Q, h0, cuda_cores=True)
+    want = ssd_carry_ref(yi, st, cum, Cm, Q, h0)
+    torch.cuda.synchronize()
+    for g, a, c, w in zip(got, again, core, want):
+        bar = 1e-4 * max(float(w.abs().max()), 1.0)
+        assert torch.equal(g, a)
+        assert float((g - w).abs().max()) <= bar
+        assert float((c - w).abs().max()) <= bar
+    assert torch.equal(fb, got[1]) and yb.dtype == torch.bfloat16
+    assert torch.equal(yb, got[0].bfloat16())
+    for name in kernel.FWD_KERNELS:
+        assert kernel.FWD_KERNEL_LAUNCHES[name] == before[name] + {
+            "ssd_carry_tf32": 3, "ssd_carry_kernel": 1}.get(name, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_tf32_carry_shared_memory_equals_mirror():
+    """The library's ``ssd_carry_tc_smem_bytes`` equals
+    ``kernel.carry_tc_smem_bytes`` for both C types at every slice, ring
+    depth and chunk the tensor-core carries take, N in (16, 64, 128, 256);
+    at the fp32 shapes phase 6 times, ``ssd_carry_tf32``'s plan has the
+    mirror's shared memory and threads and no more blocks than groups."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sizes come from the library")
+    from repro_torch.kernels.ssd import kernel
+    size = kernel.LIB.load().ssd_carry_tc_smem_bytes
+    for dtype in (torch.float32, torch.bfloat16):
+        for N in (16, 64, 128, 256):
+            for Q in range(16, 257, 16):
+                for ps in (8, 16, 32, 64):
+                    for stages in (1, 2, 3):
+                        assert size(kernel.DTYPES[dtype], N, Q, ps,
+                                    stages) == kernel.carry_tc_smem_bytes(
+                                        N, Q, ps, stages, dtype)
+    assert size(2, 128, 64, 16, 1) == size(0, 128, 64, 16, 4) == -1
+    f32 = torch.float32
+    for B, L, H, P, N, Q in ((1, 2048, 48, 64, 128, 64),
+                             (2, 4096, 48, 64, 128, 64),
+                             (2, 4096, 64, 64, 64, 64)):
+        plan = kernel.carry_plan(f32, B, H, P, N, Q, c_dtype=f32)
+        assert plan["smem"] == kernel.carry_tc_smem_bytes(
+            N, Q, plan["ps"], plan["stages"], f32) <= kernel.MAX_SMEM_BYTES
+        assert plan["threads"] == kernel.carry_tc_threads(N, Q, plan["ps"])
+        assert 1 <= plan["blocks"] <= B * H * (P // plan["ps"])
+    assert kernel.carry_plan(f32, 1, 2, 64, 64, 50, c_dtype=f32) is None

@@ -18,12 +18,13 @@ it differentiates; the operator ``repro_torch::ssd_fwd`` with its kernel
 entry points swapped for their plain versions against autograd of
 ``ssd_ref``, with its launch counts, and under the remat policies in a
 mamba2 smoke step.  The CUDA kernels are held against their plain
-versions on the card (``cuda`` marker).  The fp32 tensor-core chunk
-backward's arithmetic (``ssd_chunk_bwd_tf32``: three TF32 products a
-product) is emulated on the CPU (``_ssd_tf32.emulate_tf32_chunk_bwd``)
-and held, with the plain carry backward and the fp32 forward kernel's
+versions on the card (``cuda`` marker).  The fp32 tensor-core backward
+kernels' arithmetic (``ssd_chunk_bwd_tf32`` and ``ssd_carry_bwd_tf32``:
+three TF32 products a product) is emulated on the CPU
+(``_ssd_tf32.emulate_tf32_chunk_bwd``, ``emulate_tf32_carry_bwd``) and
+held against the plain versions and, with the fp32 forward kernel's
 emulated chunk states, against ``jax.vjp`` of the reference's
-``ssd_ref``.
+``ssd_ref`` and ``ssd``.
 """
 import functools
 import re
@@ -34,7 +35,9 @@ import numpy as np
 import pytest
 import torch
 
-from _ssd_tf32 import emulate_tf32_chunk_bwd, emulate_tf32_chunks
+from _ssd_tf32 import (emulate_tf32_carry_bwd, emulate_tf32_chunk_bwd,
+                       emulate_tf32_chunks)
+from repro.kernels.ssd.ops import ssd as j_ssd
 from repro.kernels.ssd.ref import ssd_ref as j_ssd_ref
 from repro_torch.kernels.ssd import kernel, ops
 from repro_torch.kernels.ssd import ref as ref_mod
@@ -579,7 +582,7 @@ def test_tensor_core_bwd_emulation_meets_the_bar(terms):
 
 
 BWD_TC = ("ssd_carry_bwd_tc", "ssd_chunk_bwd_tc")
-BWD_TF32 = ("ssd_carry_bwd", "ssd_chunk_bwd_tf32")
+BWD_TF32 = ("ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32")
 BWD_CORE = ("ssd_carry_bwd", "ssd_chunk_bwd")
 
 
@@ -591,10 +594,9 @@ BWD_CORE = ("ssd_carry_bwd", "ssd_chunk_bwd")
                        (16, 16, 32))])
 def test_backward_dispatch_by_dtype_and_shape(dtype, Q, P, N, want):
     """At the forward tensor-core kernels' shapes (Q = P = 64, N in {64,
-    128}) bf16 takes the ``_tc`` pair and fp32 ``ssd_chunk_bwd_tf32``
-    beside the CUDA-core carry; at any other chunk, head width or state
-    size either dtype takes the CUDA-core pair; the pairs name every
-    backward kernel."""
+    128}) bf16 takes the ``_tc`` pair and fp32 the ``_tf32`` pair; at any
+    other chunk, head width or state size either dtype takes the CUDA-core
+    pair; the pairs name every backward kernel."""
     assert kernel.bwd_kernels(getattr(torch, dtype), Q, P, N) == want
     assert set(BWD_TC + BWD_TF32 + BWD_CORE) == set(kernel.BWD_KERNELS)
 
@@ -786,15 +788,15 @@ def test_cuda_tensor_core_backward_kernels_match_plain(B, L, H, P, N, Q):
                                      ("float32", 64)])
 def test_cuda_wrappers_send_other_inputs_to_the_cuda_cores(dtype, Q):
     """bf16 and fp32 at a chunk of 32 reach the CUDA-core kernels through
-    the wrappers' dispatch; fp32 at the tensor-core shape the CUDA-core
-    carry and ``ssd_chunk_bwd_tf32``."""
+    the wrappers' dispatch; fp32 at the tensor-core shape the ``_tf32``
+    pair."""
     needs_card()
     shape = (1, 256, 4, 64, 128, Q)
     x, dt, A, Bm, Cm, dy, h0, df, cum = card_inputs(shape, 33, dtype)
     _, states = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
     before = dict(kernel.BWD_KERNEL_LAUNCHES)
     ran = kernel.bwd_kernels(getattr(torch, dtype), Q, 64, 128)
-    assert ran[0] == "ssd_carry_bwd"
+    assert ran[0] == ("ssd_carry_bwd" if Q == 32 else "ssd_carry_bwd_tf32")
     h_prev, g, _ = kernel.ssd_carry_bwd_cuda(states, cum, Cm, dy, Q, h0, df)
     got = kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
     want = ssd_chunk_bwd_ref(x, dt, cum, Bm, Cm, dy, g, h_prev, Q,
@@ -1098,3 +1100,143 @@ def test_cuda_tf32_backward_shared_memory_equals_mirror():
             assert size(N, G) == kernel.chunk_bwd_tf32_smem_bytes(N, G) \
                 <= kernel.MAX_SMEM_BYTES
     assert size(32, 4) == -1
+
+
+# ---------------------------------------------------------------------------
+# The fp32 tensor-core carry backward (TF32, three products a product)
+# ---------------------------------------------------------------------------
+
+@functools.partial(jax.jit, static_argnums=(0,))
+def _jax_ops_vjp(chunk, args, dy, dfinal):
+    """jax.vjp of the reference's ``ssd`` (its default path) with an
+    initial state."""
+    def f(*a):
+        return j_ssd(*a[:5], chunk=chunk, init_state=a[5])
+    _, vjp = jax.vjp(f, *args)
+    return vjp((dy, dfinal))
+
+
+def tf32_carry_bwd_ratios(shape, terms):
+    """Worst max|Δ| / (1e-4·max(max|ref|, 1)) per output of the emulated
+    ``ssd_carry_bwd_tf32`` against ``ssd_carry_bwd_ref`` on the same
+    inputs (a nonzero initial state and dfinal)."""
+    B, L, H, P, N, Q = shape
+    arrs, dy, h0, df = make(B * L + N + 4, B, L, H, P, N, "nonzero")
+    ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, torch.float32)
+    x, dt, A, Bm, Cm = ts
+    cum = chunk_cumsum(dt, A, Q)
+    _, states = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+    args = (states, cum, Cm, tdy, Q, th0, tdf)
+    return {name: float((a - w).abs().max())
+            / (1e-4 * max(float(w.abs().max()), 1.0))
+            for name, a, w in zip(("h_prev", "g", "d init_state"),
+                                  emulate_tf32_carry_bwd(*args, terms=terms),
+                                  ssd_carry_bwd_ref(*args))}
+
+
+@pytest.mark.parametrize("shape", TF32_BWD_SHAPES)
+def test_tf32_carry_bwd_emulation_meets_the_bar(shape):
+    """``ssd_carry_bwd_tf32``'s arithmetic keeps h_prev, g and d
+    init_state within a tenth of 1e-4·max(max|ref|, 1) of
+    ``ssd_carry_bwd_ref``; the whole fp32 backward with every fp32
+    tensor-core kernel emulated (the chunk states of ``ssd_chunk_tf32``,
+    ``ssd_carry_bwd_tf32``, then ``ssd_chunk_bwd_tf32``, finished as the
+    op finishes) is within 1e-4·max(max|ref|, 1) of ``jax.vjp`` of the
+    reference's ``ssd`` on the same seeded inputs (dx, dt, dA, dB, dC, d
+    init_state)."""
+    assert max(tf32_carry_bwd_ratios(shape, 3).values()) <= 0.1
+    B, L, H, P, N, Q = shape
+    arrs, dy, h0, df = make(B * L + N + 5, B, L, H, P, N, "nonzero")
+    ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, torch.float32)
+    x, dt, A, Bm, Cm = ts
+    cum = chunk_cumsum(dt, A, Q)
+    _, states = emulate_tf32_chunks(x, dt, cum, Bm, Cm, Q)
+    h_prev, g, dinit = emulate_tf32_carry_bwd(states, cum, Cm, tdy, Q, th0,
+                                              tdf)
+    dx, dcum, ddt, dB, dC = emulate_tf32_chunk_bwd(
+        x, dt, cum, Bm, Cm, tdy, g, h_prev, Q, 2)
+    ddt_cum, dA = chunk_cumsum_bwd(dcum, dt, A, Q)
+    grads = (dx, ddt + ddt_cum, dA, dB.sum(0), dC.sum(0), dinit)
+    want = _jax_ops_vjp(Q, tuple(jnp.asarray(a) for a in arrs + [h0]),
+                        jnp.asarray(dy), jnp.asarray(df))
+    for name, got, w in zip(NAMES, grads, want):
+        assert_grad_close(name, got, w)
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3])
+def test_tf32_carry_bwd_term_counts(terms):
+    """One TF32 product a product (plain TF32) misses the fp32 bar of
+    ``ssd_carry_bwd_ref`` in g and d init_state; three (the kernel's)
+    keep every output within a tenth of it.  The worst ratios are printed
+    (``-s``)."""
+    worst = {}
+    for shape in TF32_BWD_SHAPES:
+        for name, r in tf32_carry_bwd_ratios(shape, terms).items():
+            worst[name] = max(worst.get(name, 0.0), r)
+    print(f"\nTF32 products={terms}: carry backward worst max|Δ|/bar "
+          + ", ".join(f"{k} {v:.4f}" for k, v in worst.items()))
+    assert worst["h_prev"] == 0.0   # the forward walk has no product
+    if terms == 1:
+        assert min(worst["g"], worst["d init_state"]) > 1.0, worst
+    if terms == 3:
+        assert max(worst.values()) <= 0.1, worst
+
+
+def test_tf32_carry_bwd_fits_two_blocks_an_sm():
+    """``ssd_carry_bwd_tf32``'s shared memory (``kernel.
+    carry_bwd_tc_smem_bytes`` with fp32 C: the bf16 kernel's rings with C
+    and dy in fp32): 111,488 bytes at (b)'s 32 chunks of 64 rows, 111,616
+    at 64, two blocks an SM up to 512 chunks (a 32k sequence); the bf16
+    kernel's sizes are those it had."""
+    f32, bf = torch.float32, torch.bfloat16
+    assert kernel.carry_bwd_tc_smem_bytes(64, f32) == 111_616
+    assert kernel.carry_bwd_tc_smem_bytes(32, f32) == 111_488
+    assert kernel.carry_bwd_tc_smem_bytes(64, bf) == 68_608
+    for nc in (32, 64, 512):
+        assert 2 * (kernel.carry_bwd_tc_smem_bytes(nc, f32) + 1024) \
+            <= 228 * 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N,Q", [(1, 256, 48, 64, 128, 64),
+                                         (1, 256, 64, 64, 64, 64),
+                                         (1, 2048, 48, 64, 128, 64),
+                                         (2, 512, 8, 64, 128, 64)])
+def test_cuda_tf32_carry_bwd_kernel_matches_plain(B, L, H, P, N, Q):
+    """``ssd_carry_bwd_tf32`` on fp32 inputs against its plain version
+    (max|Δ| <= 1e-4·max(max|ref|, 1)), with and without an initial state
+    and dfinal, a second pass equal bit for bit, each launch counted under
+    its name; ``cuda_cores=True`` still takes ``ssd_carry_bwd``, held
+    too."""
+    needs_card()
+    shape = (B, L, H, P, N, Q)
+    x, dt, A, Bm, Cm, dy, h0, df, cum = card_inputs(shape, 36, "float32")
+    _, states = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    before = dict(kernel.BWD_KERNEL_LAUNCHES)
+    for extra in ((h0, df), (None, None)):
+        args = (states, cum, Cm, dy, Q) + extra
+        got = kernel.ssd_carry_bwd_cuda(*args)
+        again = kernel.ssd_carry_bwd_cuda(*args)
+        core = kernel.ssd_carry_bwd_cuda(*args, cuda_cores=True)
+        want = ssd_carry_bwd_ref(*args)
+        torch.cuda.synchronize()
+        for a, b, c, w in zip(got, again, core, want):
+            assert torch.equal(a, b) and within(a, w) and within(c, w)
+    for name in kernel.BWD_KERNELS:
+        assert kernel.BWD_KERNEL_LAUNCHES[name] == before[name] + {
+            "ssd_carry_bwd_tf32": 4, "ssd_carry_bwd": 2}.get(name, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_tf32_carry_bwd_shared_memory_equals_mirror():
+    """The library's ``ssd_carry_bwd_tf32_smem_bytes`` and
+    ``ssd_bwd_tc_smem_bytes(1, ...)`` equal ``kernel.
+    carry_bwd_tc_smem_bytes`` for fp32 and bf16 at 1 to 512 chunks."""
+    needs_card()
+    lib = kernel.LIB_BWD.load()
+    for nc in range(1, 513):
+        assert lib.ssd_carry_bwd_tf32_smem_bytes(nc) == \
+            kernel.carry_bwd_tc_smem_bytes(nc, torch.float32)
+        assert lib.ssd_bwd_tc_smem_bytes(1, 128, nc) == \
+            kernel.carry_bwd_tc_smem_bytes(nc, torch.bfloat16)
+    assert lib.ssd_carry_bwd_tf32_smem_bytes(0) == -1

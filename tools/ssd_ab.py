@@ -1,5 +1,6 @@
 """Time the SSD's kernels against an older build of their sources, in
-turns, on one card: the chunk kernel and backward, and the carry.
+turns, on one card: the chunk kernel and backward, and the carry and its
+backward.
 
 ``python tools/ssd_ab.py --old DIR [--plans] [--heads]``
 
@@ -11,13 +12,18 @@ same inputs, each through its library's C entry point into outputs made
 beforehand (no Python wrapper's checks or allocations inside the timed
 window): the chunk kernel (bf16: the CUDA-core kernel, ``terms`` 0; fp32:
 ``ssd_chunk_tf32``, ``terms`` 3, where the old build takes it, else the
-old build's CUDA-core kernel), the carry (bf16: ``ssd_carry_tc``, whose
-plan the new build prints), and for fp32 the chunk backward
-(``ssd_chunk_bwd_tf32``, ``tc`` 1, where the old build takes it, else
-``ssd_chunk_bwd``).  For fp32 the new build's tensor-core kernels are
-also timed against its own CUDA-core kernels on the same inputs (the
-rows "chunk, CUDA cores" and "chunk bwd, CUDA cores": "old" is the
-CUDA-core kernel).  Each is timed old, new, new, old:
+old build's CUDA-core kernel), the carry (``ssd_carry_launch``: bf16
+``ssd_carry_tc``, fp32 ``ssd_carry_tf32`` where the build has it, else
+``ssd_carry_kernel``; the new build prints its plan), the carry backward
+(``ssd_carry_bwd_launch`` with ``tc`` 1: bf16 ``ssd_carry_bwd_tc``, fp32
+``ssd_carry_bwd_tf32`` where the build takes it, else ``ssd_carry_bwd``)
+and for fp32 the chunk backward (``ssd_chunk_bwd_tf32``, ``tc`` 1, where
+the old build takes it, else ``ssd_chunk_bwd``).  For fp32 the new
+build's tensor-core kernels are also timed against its own CUDA-core
+kernels on the same inputs (the rows "chunk, CUDA cores", "carry, CUDA
+cores" (``ssd_carry_core_launch``), "carry bwd, CUDA cores" and "chunk
+bwd, CUDA cores": "old" is the CUDA-core kernel).  Each is timed old,
+new, new, old:
 the median over 15 windows of ``BURST`` launches back to back, per
 launch (CUDA events), so that the card never waits on the host between
 launches.  Also prints whether the two agree bit for bit (the backward:
@@ -30,10 +36,11 @@ the median over 9 windows of ``HOST_CALLS`` calls, perf_counter, the
 card's queue never full), which holds the new build's plan lookup.
 Prints the card's name and power limit first.  Needs a CUDA card.
 
-``--plans`` also times the new ``ssd_carry_tc`` at each bf16 shape under
-every plan it can take (slices of 8, 16, 32 and 64 columns, rings of 1
-to 3 stages), with the chosen plan timed before and after, and says
-whether each gives the new build's outputs bit for bit.  The plans are
+``--plans`` also times the new tensor-core carry at each shape
+(``ssd_carry_tc`` for bf16, ``ssd_carry_tf32`` for fp32) under every plan
+it can take (slices of 8, 16, 32 and 64 columns, rings of 1 to 3 stages),
+with the chosen plan timed before and after, and says whether each gives
+the new build's outputs bit for bit.  The plans are
 forced through a variant of the new ``ssd.cu``, written under the
 kernels' git-ignored build directory, to which ``FORCE_PLAN`` adds an
 entry point ``ssd_carry_force_plan(ps, stages)`` (ps 0: the chosen plan
@@ -69,13 +76,14 @@ from repro_torch.kernels.ssd.ref import (chunk_cumsum,  # noqa: E402
                                          ssd_carry_bwd_ref)
 
 # (B, L, H, P, N, Q), dtype: mamba2-780m's heads in fp32 at 1 x 2048
-# (phase 11 (b)'s fp32 step in chip_smoke.py) and 2 x 4096 (the fp32
-# tensor-core kernels' dtype), then in bf16 zamba2-1.2b's 4 x 2048 prefill,
-# mamba2-780m's 2 x 4096 training step and zamba2-1.2b's 32,768-token
-# prompt: the chunk pass forced onto the CUDA-core kernel, the carry on
-# ssd_carry_tc (bf16 C).
+# (phase 11 (b)'s fp32 step in chip_smoke.py) and 2 x 4096, and
+# zamba2-1.2b's at 2 x 4096 (the fp32 tensor-core kernels' dtype), then in
+# bf16 zamba2-1.2b's 4 x 2048 prefill, mamba2-780m's 2 x 4096 training step
+# and zamba2-1.2b's 32,768-token prompt: the chunk pass forced onto the
+# CUDA-core kernel, the carry on ssd_carry_tc (bf16 C).
 SHAPES = (((1, 2048, 48, 64, 128, 64), torch.float32),
           ((2, 4096, 48, 64, 128, 64), torch.float32),
+          ((2, 4096, 64, 64, 64, 64), torch.float32),
           ((4, 2048, 64, 64, 64, 64), torch.bfloat16),
           ((2, 4096, 48, 64, 128, 64), torch.bfloat16),
           ((1, 32768, 64, 64, 64, 64), torch.bfloat16))
@@ -85,7 +93,7 @@ HOST_CALLS = 100
 
 # The --plans variant: a forced plan, read by carry_tc_plan before its
 # cache, and the entry point that sets it.
-PLAN_HEAD = """template <typename TY>
+PLAN_HEAD = """template <typename TC, typename TY>
 cudaError_t carry_tc_plan(int B, int H, int P, int N, int Q,
                           CarryTcPlan* plan) {
 """
@@ -94,8 +102,8 @@ FORCE_PLAN = (PLAN_HEAD, "int g_force_ps = 0, g_force_stages = 0;\n\n"
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return carry_tc_candidate<TY>(g_force_ps, B, H, P, N, Q, g_force_stages,
-                                  sms, plan);
+    return carry_tc_candidate<TC, TY>(g_force_ps, B, H, P, N, Q,
+                                      g_force_stages, sms, plan);
   }
 """)
 FORCE_ENTRY = """
@@ -207,6 +215,7 @@ def host_us(fn, reps=9):
 def bind_bwd(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ssd_chunk_bwd_launch.argtypes = [P] * 13 + [I] * 9 + [P]
+    lib.ssd_carry_bwd_launch.argtypes = [P] * 9 + [I] * 8 + [P]
 
 
 def sass_counts(so) -> dict:
@@ -314,13 +323,24 @@ def main() -> int:
         yi, st = chunk_out["new"]
         tf32 = sk.TF32_TERMS if f32 else 0
 
-        def carry(lib, out):
-            return lambda: lib.ssd_carry_launch(
+        def carry(lib, out, core=False):
+            entry = lib.ssd_carry_core_launch if core else lib.ssd_carry_launch
+            return lambda: entry(
                 yi.data_ptr(), st.data_ptr(), cum.data_ptr(), Cm.data_ptr(),
                 None, out[0].data_ptr(), out[1].data_ptr(), code, code, B, L,
                 H, P, N, Q, stream)
         carry_out = {v: empty((B, L, H, P), dtype=dtype) + empty((B, H, N, P))
-                     for v in ("old", "new")}
+                     for v in ("old", "new", "core")}
+        h0, df = (torch.randn((B, H, N, P), generator=gen, device="cuda")
+                  for _ in range(2))
+
+        def carry_bwd(lib, out, tc=1):
+            return lambda: lib.ssd_carry_bwd_launch(
+                st.data_ptr(), cum.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+                h0.data_ptr(), df.data_ptr(), *[o.data_ptr() for o in out],
+                code, B, L, H, P, N, Q, tc, stream)
+        cbwd_out = {v: empty(st.shape, st.shape, (B, H, N, P))
+                    for v in ("old", "new", "core")}
         calls = {"chunk": {
             "old": taken(lambda t: chunk(old, chunk_out["old"], t * tf32)),
             "new": chunk(new, chunk_out["new"], tf32)}}
@@ -335,7 +355,23 @@ def main() -> int:
             assert fn() == 0
         calls["carry"] = {"old": carry(old, carry_out["old"]),
                           "new": carry(new, carry_out["new"])}
-        outs["carry"] = carry_out
+        outs["carry"] = {k: carry_out[k] for k in ("old", "new")}
+        calls["carry bwd"] = {
+            "old": taken(lambda t: carry_bwd(old_bwd_lib, cbwd_out["old"],
+                                             t)),
+            "new": carry_bwd(new_bwd_lib, cbwd_out["new"])}
+        outs["carry bwd"] = {k: cbwd_out[k] for k in ("old", "new")}
+        if f32:
+            calls["carry, CUDA cores"] = {
+                "old": carry(new, carry_out["core"], core=True),
+                "new": calls["carry"]["new"]}
+            outs["carry, CUDA cores"] = {"old": carry_out["core"],
+                                         "new": carry_out["new"]}
+            calls["carry bwd, CUDA cores"] = {
+                "old": carry_bwd(new_bwd_lib, cbwd_out["core"], 0),
+                "new": calls["carry bwd"]["new"]}
+            outs["carry bwd, CUDA cores"] = {"old": cbwd_out["core"],
+                                             "new": cbwd_out["new"]}
         if dtype == torch.float32:
             h_prev, g, _ = ssd_carry_bwd_ref(st, cum, Cm, dy, Q)
             # Heads a block: the TF32 kernel's rule for a TF32 call,
@@ -405,13 +441,13 @@ def main() -> int:
         print(f"{list(shape)} {str(dtype)[6:]} carry: host µs a call to "
               f"ssd_carry_launch, old, new, new, old "
               f"{', '.join(f'{v:.3f}' for v in t)}", flush=True)
-        if dtype == torch.bfloat16:
-            print(f"{list(shape)} new carry's plan: "
-                  f"{sk.carry_plan(dtype, B, H, P, N, Q)}", flush=True)
-            if args.plans:
-                out = empty((B, L, H, P), dtype=dtype) + empty((B, H, N, P))
-                time_plans(plans, carry(plans, out), out, carry_out["new"],
-                           shape)
+        print(f"{list(shape)} new carry's plan: "
+              f"{sk.carry_plan(dtype, B, H, P, N, Q, c_dtype=dtype)}",
+              flush=True)
+        if args.plans:
+            out = empty((B, L, H, P), dtype=dtype) + empty((B, H, N, P))
+            time_plans(plans, carry(plans, out), out, carry_out["new"],
+                       shape)
     return 0
 
 
