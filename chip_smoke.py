@@ -108,7 +108,16 @@ Phases (each raises on failure, so the script exits non-zero):
    printed), with kernel, plain, bound and MMA-floor times, and at the
    bf16 training shapes also the CUDA-core kernels on the same inputs
    and the tensor-core carry at 32 and 64 rows of N a block (each held
-   too);
+   too); and at ``SSD_TILED`` (bf16, mamba2-780m's heads at 2 x 4096 in
+   chunks of 128 and 256, zamba2-1.2b's in chunks of 256) the
+   tensor-core kernels over 64 x 64 tiles: ``ssd()`` under grad with
+   every SSD count set to 0 before it and read after (the launches of
+   ``ssd_chunk_tc_tiled`` and ``ssd_chunk_bwd_tc_tiled`` counted by
+   name), y, the final state and every gradient against ``ssd_ref`` and
+   its autograd; each kernel and its CUDA-core counterpart against the
+   plain version (a second pass bitwise), timed through the C entry
+   points in turns beside its bound, wrapper and plain times; both
+   kernels' builds (no spill) and shared memory (= kernel.py's mirrors);
 7. serving at full width — zamba2-1.2b (38 layers, d_model 2048, seeded
    random fp32 weights, bf16 compute) through ``build`` and the serve
    builders:
@@ -1498,6 +1507,13 @@ def burst_ms(torch, fn) -> float:
     return ab_common().ms(fn)
 
 
+def turns(torch, new, old) -> tuple:
+    """(new, old, old, new) ms a launch of two C entry points
+    (``burst_ms``): a kernel and the one it is held against, in turns."""
+    return (burst_ms(torch, new), burst_ms(torch, old),
+            burst_ms(torch, old), burst_ms(torch, new))
+
+
 def ab_common():
     """``tools/ab_common.py``, the A/B tools' timer (BURST launches a
     window)."""
@@ -1615,11 +1631,6 @@ def ssd_tf32_rows(torch) -> dict:
                                  f"{SSD_REL} * max({scale}, 1)")
         return err / (SSD_REL * max(scale, 1.0)), err
 
-    def turns(new, old):
-        """(new, CUDA cores, CUDA cores, new) ms a launch."""
-        return (burst_ms(torch, new), burst_ms(torch, old),
-                burst_ms(torch, old), burst_ms(torch, new))
-
     for i, shape in enumerate(SSD_TF32_SHAPES):
         B, L, H, P, N, Q = shape
         x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 380 + i)
@@ -1673,8 +1684,8 @@ def ssd_tf32_rows(torch) -> dict:
                 yi.data_ptr(), st.data_ptr(), cum.data_ptr(), Cm.data_ptr(),
                 None, cy.data_ptr(), cf.data_ptr(), code, code, B, L, H, P,
                 N, Q, stream)
-        t = turns(chunk_call(sk.TF32_TERMS), chunk_call(0))
-        tc = turns(carry_call(lib.ssd_carry_launch),
+        t = turns(torch, chunk_call(sk.TF32_TERMS), chunk_call(0))
+        tc = turns(torch, carry_call(lib.ssd_carry_launch),
                    carry_call(lib.ssd_carry_core_launch))
         wrapper = timed_ms(torch, lambda: sk.ssd_chunks_cuda(x, dt, cum, Bm,
                                                              Cm, Q))
@@ -2248,7 +2259,7 @@ def phase_ssd_bwd(torch) -> dict:
             sk.ssd_carry_bwd_cuda(*cargs), sk.ssd_carry_bwd_cuda(*cargs),
             want_carry)}
         h_prev, g, _ = want_carry
-        G = sk.chunk_bwd_heads(names["chunk"], B * L // Q, H, sms)
+        G = sk.chunk_bwd_heads(names["chunk"], B * L // Q, H, sms, Q)
         args = (x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
         want_chunk = ssd_chunk_bwd_ref(*args, G)
         held["chunk"] = hold_grads(
@@ -2381,6 +2392,221 @@ def phase_ssd_bwd(torch) -> dict:
     log("[ssd-bwd] worst |Δ|/bar over every shape: " + ", ".join(
         f"{k} {v:.4g}" for k, v in worst.items()))
     return dict(rows=rows, worst=worst, errs=errs, builds=builds)
+
+
+# bf16 at the chunks the tiled tensor-core kernels take: mamba2-780m's
+# heads (48 of P 64, N 128) at 2 x 4096 tokens in chunks of 128 and 256,
+# and zamba2-1.2b's (64 of P 64, N 64) in chunks of 256 rows.
+SSD_TILED = SSD_CHUNKS[:2] + [(2, 4096, 64, 64, 64, 256)]
+
+
+def ssd_tiled_rows(torch) -> dict:
+    """Phase 6's bf16 chunks of 128 to 256 rows at SSD_TILED: the main
+    path first, ``ops.ssd`` under grad with every SSD count set to 0 just
+    before it and read just after (the launches ``ssd_step_counts`` names:
+    ``ssd_chunk_tc_tiled`` twice, ``ssd_chunk_bwd_tc_tiled`` once), y and
+    the final state against ``ssd_ref`` and each gradient against autograd
+    of ``ssd_ref`` on the same values in fp32 (SSD_BWD_BAR·max(max|ref|, 1)
+    plus one bf16 step for a bf16 gradient); then ``ssd_chunk_tc_tiled``
+    and the CUDA-core ``ssd_chunk_kernel`` (``terms=0``) against
+    ``ssd_chunks_ref`` (SSD_REL·max|ref|) and ``ssd_chunk_bwd_tc_tiled``
+    and the CUDA-core ``ssd_chunk_bwd`` (``cuda_cores=True``) against
+    ``ssd_chunk_bwd_ref`` with each one's heads a group (hold_grads), the
+    new kernels' second passes bitwise; each pair timed through its C
+    entry points in turns (new, CUDA cores, CUDA cores, new), the new ones
+    also through their wrappers, the plain versions once, each beside its
+    bound.  Also the libraries' shared memory at every tiled chunk equal to
+    kernel.py's mirrors, and both kernels' builds (no spill)."""
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_carry_bwd_ref,
+                                             ssd_chunk_bwd_ref,
+                                             ssd_chunks_ref, ssd_ref)
+    lib, lib_bwd = sk.LIB.load(), sk.LIB_BWD.load()
+    for N in (64, 128):
+        for Q in sk.TILED_Q:
+            for got, want, what in (
+                    (lib.ssd_chunk_tiled_smem_bytes(N, Q),
+                     sk.chunk_tiled_smem_bytes(N, Q), "ssd_chunk_tc_tiled"),
+                    (lib_bwd.ssd_chunk_bwd_tiled_smem_bytes(N, Q),
+                     sk.chunk_bwd_tiled_smem_bytes(N, Q),
+                     "ssd_chunk_bwd_tc_tiled")):
+                if got != want or not 0 < got <= sk.MAX_SMEM_BYTES:
+                    raise AssertionError(f"{what} at N {N}, Q {Q}: the "
+                                         f"library reports {got} bytes, "
+                                         f"kernel.py {want}")
+    builds = check_builds(sk.LIB, "ssd", {"ssd_chunk_tc_tiled": (
+        [64, 128], lambda n: lib.ssd_chunk_tiled_smem_bytes(n, 256),
+        " (at Q = 256)")})
+    builds.update(check_builds(sk.LIB_BWD, "ssd-bwd", {
+        "ssd_chunk_bwd_tc_tiled": (
+            [64, 128], lambda n: lib_bwd.ssd_chunk_bwd_tiled_smem_bytes(
+                n, 256), " (at Q = 256)")}))
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bf = torch.bfloat16
+    code = sk.DTYPES[bf]
+    rows, launches = {}, {"ssd_chunk_tc_tiled": 0, "ssd_chunk_bwd_tc_tiled": 0}
+    worst = dict.fromkeys(("ssd_chunk_tc_tiled", "ssd_chunk_bwd_tc_tiled",
+                           "ssd_chunk_kernel", "ssd_chunk_bwd", "ssd"), 0.0)
+
+    for i, shape in enumerate(SSD_TILED):
+        B, L, H, P, N, Q = shape
+        x, dt, A, Bm, Cm = ssd_inputs(torch, shape, 800 + i)
+        gen = torch.Generator(device="cuda").manual_seed(810 + i)
+        dy, h0, df = (torch.randn(s, generator=gen, device="cuda")
+                      for s in ((B, L, H, P), (B, H, N, P), (B, H, N, P)))
+        x, Bm, Cm, dy = (t.to(bf) for t in (x, Bm, Cm, dy))
+        if sk.fwd_kernels(bf, Q, P, N)[0] != "ssd_chunk_tc_tiled" or \
+                sk.bwd_kernels(bf, Q, P, N)[1] != "ssd_chunk_bwd_tc_tiled":
+            raise AssertionError(f"{shape}: the wrappers do not name the "
+                                 f"tiled kernels")
+        # The main path: ssd() under grad, forward and backward.
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (x, dt, A, Bm, Cm, h0)]
+        reset_ssd_counts()
+        y, final = ops.ssd(*leaves[:5], chunk=Q, init_state=leaves[5])
+        got = torch.autograd.grad((y, final), leaves, (dy, df))
+        torch.cuda.synchronize()
+        counts = ssd_counts()
+        want_counts = ssd_step_counts(bf, Q, P, N, 1)
+        if counts != want_counts:
+            raise AssertionError(f"ssd {shape} under grad launched {counts}, "
+                                 f"expected {want_counts}")
+        for name in launches:
+            launches[name] += counts[name]
+        plain = [t.float().clone().requires_grad_(True)
+                 for t in (x, dt, A, Bm, Cm, h0)]
+        wy, wf = ssd_ref(*plain[:5], chunk=Q, init_state=plain[5])
+        want = torch.autograd.grad((wy, wf), plain, (dy.float(), df))
+        y, final, wy, wf = (t.detach() for t in (y, final, wy, wf))
+        step = float(((y.float() - wy).abs()
+                      / (2.0 ** -8 * wy.abs() + SSD_REL * max(
+                          float(wy.abs().max()), 1.0))).max())
+        if not step <= 1.0:
+            raise AssertionError(f"ssd {shape} bf16 y: {step} times its "
+                                 f"bound")
+        ratios = {"y": step, "final state": max_err(torch, final, wf)
+                  / (SSD_REL * max(float(wf.abs().max()), 1.0))}
+        for name, t, g, w in zip(("dx", "ddt", "dA", "dB", "dC",
+                                  "d init_state"), leaves, got, want):
+            scale = SSD_BWD_BAR * max(float(w.abs().max()), 1.0)
+            bar = scale + (SSD_BWD_BF16_REL * w.abs()
+                           if t.dtype == bf else 0.0)
+            ratios[name] = float(((g.float() - w).abs() / bar).max())
+        if not max(ratios.values()) <= 1.0:
+            raise AssertionError(f"ssd {shape} under grad: worst |Δ|/bar "
+                                 f"{ratios}")
+        worst["ssd"] = max(worst["ssd"], *ratios.values())
+        del leaves, y, final, got, plain, wy, wf, want
+        torch.cuda.empty_cache()
+
+        # The forward kernels against the plain chunk pass.
+        cum = chunk_cumsum(dt, A, Q)
+        want = tuple(t.contiguous()
+                     for t in ssd_chunks_ref(x, dt, cum, Bm, Cm, Q))
+        got = sk.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+        again = sk.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+        core = sk.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q, terms=0)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"ssd_chunk_tc_tiled {shape}: two passes "
+                                 f"differ")
+        for name, out in (("ssd_chunk_tc_tiled", got),
+                          ("ssd_chunk_kernel", core)):
+            for what, o, w in zip(("y_intra", "chunk states"), out, want):
+                err, scale = max_err(torch, o, w), float(w.abs().max())
+                if not err <= SSD_REL * scale:
+                    raise AssertionError(f"{name} {shape} {what}: max|Δ| "
+                                         f"{err} > {SSD_REL} * {scale}")
+                ratios[f"{name} {what}"] = err / (SSD_REL * scale)
+                worst[name] = max(worst[name], err)
+        del again, core
+        states = want[1]
+        yo, so = got
+
+        # The chunk backward kernels against their plain version.
+        h_prev, g, _ = ssd_carry_bwd_ref(states, cum, Cm, dy, Q, h0, df)
+        args = (x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
+        G = sk.chunk_bwd_heads("ssd_chunk_bwd_tc_tiled", B * L // Q, H, sms,
+                               Q)
+        Gc = sk.chunk_bwd_heads("ssd_chunk_bwd", B * L // Q, H, sms, Q)
+        names = ("dx", "dcum", "ddt", "dB", "dC")
+        for name, out, again, groups in (
+                ("ssd_chunk_bwd_tc_tiled", sk.ssd_chunk_bwd_cuda(*args),
+                 sk.ssd_chunk_bwd_cuda(*args), G),
+                ("ssd_chunk_bwd", sk.ssd_chunk_bwd_cuda(*args,
+                                                        cuda_cores=True),
+                 sk.ssd_chunk_bwd_cuda(*args, cuda_cores=True), Gc)):
+            held = hold_grads(torch, f"{name} {shape}", names, out, again,
+                              ssd_chunk_bwd_ref(*args, groups))
+            worst[name] = max(worst[name], *(e for _, e in held.values()))
+            ratios.update({f"{name} {k}": r for k, (r, _) in held.items()})
+            del out, again
+        torch.cuda.synchronize()
+
+        # Each pair through its C entry points in turns.
+        def chunk_call(terms):
+            return lambda: lib.ssd_chunk_launch(
+                x.data_ptr(), dt.data_ptr(), cum.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), yo.data_ptr(), so.data_ptr(), code, B, L, H,
+                P, N, Q, terms, stream)
+        tails = torch.empty((B, L // Q, Q // 64, H), device="cuda")
+        outs = [torch.empty(s, device="cuda") for s in (
+            (B, L, H, P), (B, L, H), (B, L, H), (H // G, B, L, N),
+            (H // G, B, L, N))]
+        tiled_bwd = lambda: lib_bwd.ssd_chunk_bwd_tiled_launch(  # noqa: E731
+            *(t.data_ptr() for t in (x, dt, cum, Bm, Cm, dy, g, h_prev,
+                                     *outs, tails)),
+            code, B, L, H, P, N, Q, G, stream)
+        t_fwd = turns(torch, chunk_call(sk.TERMS), chunk_call(0))
+        t_bwd = turns(torch, tiled_bwd,
+                      chunk_bwd_call(torch, sk, args, Gc, 0))
+        fwd_wrapper = timed_ms(torch, lambda: sk.ssd_chunks_cuda(
+            x, dt, cum, Bm, Cm, Q))
+        bwd_wrapper = timed_ms(torch, lambda: sk.ssd_chunk_bwd_cuda(*args))
+        fwd_plain = timed_ms(torch, lambda: ssd_chunks_ref(x, dt, cum, Bm, Cm,
+                                                           Q), 0.2)
+        bwd_plain = timed_ms(torch, lambda: ssd_chunk_bwd_ref(*args, G), 0.2)
+        fbms, fbby = ssd_bound(*shape, "bfloat16")
+        bbms, bbby = ssd_bwd_bounds(*shape, "bfloat16", H // G)["chunk"]
+        cbbms, cbbby = ssd_bwd_bounds(*shape, "bfloat16", H // Gc)["chunk"]
+        rows[shape] = dict(
+            counts={k: counts[k] for k in launches},
+            fwd=dict(entry_ms=(t_fwd[0] + t_fwd[3]) / 2,
+                     core_entry_ms=(t_fwd[1] + t_fwd[2]) / 2,
+                     turns=list(t_fwd), ms=fwd_wrapper, plain_ms=fwd_plain,
+                     bound_ms=fbms, bound_by=fbby),
+            bwd=dict(entry_ms=(t_bwd[0] + t_bwd[3]) / 2,
+                     core_entry_ms=(t_bwd[1] + t_bwd[2]) / 2,
+                     turns=list(t_bwd), ms=bwd_wrapper, plain_ms=bwd_plain,
+                     bound_ms=bbms, bound_by=bbby, core_bound_ms=cbbms,
+                     core_bound_by=cbbby, heads_per_block=G,
+                     core_heads_per_block=Gc),
+            ratios=ratios)
+        r = rows[shape]
+        log(f"[ssd-tiled] [B,L,H,P,N,Q]={list(shape)} bfloat16: main path "
+            f"ssd() under grad launched {r['counts']}; "
+            f"ssd_chunk_tc_tiled / ssd_chunk_kernel through ssd_chunk_launch "
+            f"in turns (new, CUDA cores, CUDA cores, new), ms a launch "
+            + ", ".join(f"{v:.5f}" for v in t_fwd)
+            + f" (new / CUDA cores "
+            f"{(t_fwd[0] + t_fwd[3]) / (t_fwd[1] + t_fwd[2]):.4f}), bound "
+            f"{fbms:.6f} ({fbby}), {fbms / r['fwd']['entry_ms']:.3f} of it; "
+            f"wrapper {fwd_wrapper:.5f}, plain {fwd_plain:.5f}; "
+            f"ssd_chunk_bwd_tc_tiled ({G} heads a group) / ssd_chunk_bwd "
+            f"({Gc}) through their entry points in turns "
+            + ", ".join(f"{v:.5f}" for v in t_bwd)
+            + f" (new / CUDA cores "
+            f"{(t_bwd[0] + t_bwd[3]) / (t_bwd[1] + t_bwd[2]):.4f}), bound "
+            f"{bbms:.6f} ({bbby}), {bbms / r['bwd']['entry_ms']:.3f} of it; "
+            f"wrapper {bwd_wrapper:.5f}, plain {bwd_plain:.5f}; worst "
+            f"|Δ|/bar " + ", ".join(f"{k} {v:.4g}" for k, v in ratios.items())
+            + "; the new kernels' second passes bitwise")
+        del x, dt, A, Bm, Cm, dy, h0, df, cum, want, got, yo, so, states
+        del h_prev, g, args, outs, tails
+        torch.cuda.empty_cache()
+    return dict(rows=rows, launches=launches, worst=worst, builds=builds)
 
 
 # ---------------------------------------------------------------------------
@@ -3261,8 +3487,9 @@ TRAIN_FAMILIES = (("llama3-8b", 2), ("qwen2-moe-a2.7b", 2),
                   ("hubert-xlarge", 2), ("internvl2-1b", 2),
                   ("mamba2-780m", 2), ("zamba2-1.2b", 6))
 # and two archs with fp32 compute: the steps that take the fp32 backward
-# kernels (flash attention's TF32 pair, the SSD's CUDA-core pair), held
-# to the same bars.
+# kernels (flash attention's TF32 pair, the SSD's TF32 kernels:
+# ssd_chunk_tf32, ssd_carry_tf32, ssd_carry_bwd_tf32, ssd_chunk_bwd_tf32),
+# held to the same bars.
 TRAIN_FP32 = (("llama3-8b", 2), ("mamba2-780m", 2))
 FAMILY_B, FAMILY_L = 1, 2048
 # and mamba2-780m on a short batch, 2 x 50 tokens (bf16 compute, 2
@@ -4576,6 +4803,10 @@ def main() -> int:
     sdb = phase_ssd_bwd(torch)
     log(f"[ssd-bwd] phase 6's SSD backward checks took "
         f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    sdt = ssd_tiled_rows(torch)
+    log(f"[ssd-tiled] phase 6's tiled SSD checks took "
+        f"{time.perf_counter() - t0:.3f} s")
     serve = phase_serving(torch)
     exp = phase_experiments(torch, k["link_rate"])
     tf = phase_transformers(torch)
@@ -4968,6 +5199,44 @@ def main() -> int:
                 "build": {k: v for k, v in sdb["builds"].items()
                           if k.startswith(name + "<")}}
                if tc or name.endswith("_tf32") else {}),
+        })
+    # The bf16 tensor-core kernels over 64 x 64 tiles at chunks of 128 to
+    # 256 rows: launched by phase 6's ssd() under grad at SSD_TILED (the
+    # counts set to 0 before each shape's run and read after it), timed
+    # at mamba2-780m's heads in chunks of 256 rows, every SSD_TILED shape
+    # under "rows".
+    tiled_head = sdt["rows"][SSD_TILED[1]]
+    for name, key, source, replaces in (
+            ("ssd_chunk_tc_tiled", "fwd", "ssd.cu",
+             "src/repro/kernels/ssd/kernel.py:22"),
+            ("ssd_chunk_bwd_tc_tiled", "bwd", "ssd_bwd.cu",
+             "src/repro/kernels/ssd/ref.py:19")):
+        r = tiled_head[key]
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd/csrc/" + source,
+            "replaces": replaces,
+            **({} if key == "fwd" else {
+                # No Pallas kernel: XLA's gradient of the jnp SSD.
+                "tpu_kernel": False}),
+            "launches": sdt["launches"][name],
+            "max_abs_err": sdt["worst"][name],
+            # Through the C entry point (BURST launches a window), in
+            # turns with the CUDA-core kernel.
+            "ms": r["entry_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            "shape": list(SSD_TILED[1]),
+            "dtype": "bfloat16",
+            "wrapper_ms": r["ms"],
+            "cuda_core_ms": r["core_entry_ms"],
+            "build": {k: v for k, v in sdt["builds"].items()
+                      if k.startswith(name + "<")},
+            "rows": [dict(shape=list(sh), launches=v["counts"][name],
+                          **v[key]) for sh, v in sdt["rows"].items()],
         })
     idle = [k["name"] for k in record["kernels"] if not k["launches"] > 0]
     if idle:

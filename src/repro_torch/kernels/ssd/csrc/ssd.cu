@@ -12,7 +12,7 @@
 //   S[n][p]  = sum_j B[j][n] * (x[j][p] * exp(cum_last - cum_j) * dt_j)
 //                                                         (chunk state, [N, P])
 //
-// in fp32 whatever the input type, as the reference does.  Three
+// in fp32 whatever the input type, as the reference does.  Four
 // kernels, chosen by the wrapper (kernel.py's fwd_kernels):
 //
 // * ssd_chunk_tc (bf16 x, B and C at Q = P = 64, N = 64 or 128: the
@@ -42,6 +42,28 @@
 //   Bound: bytes.  Per (b, c, h) it reads x (8 KB) and writes y_intra and
 //   the state in fp32 (32 KB) for 2 * terms * (Q^2 P / 2 + Q N P) MMA
 //   flops; C . B^T is once per G heads.
+//
+// * ssd_chunk_tc_tiled (bf16 x, B and C at Q = 128, 192 or 256, P = 64, N
+//   = 64 or 128: Mamba2's own chunk of 256 rows and the Pallas kernel's
+//   chunk lengths), ssd_chunk_tc's arithmetic over 64 x 64 tiles.  At Q =
+//   256 a warp's row of C . B^T would take 128 registers and C and B
+//   alone 139 KB of shared memory, so the chunk is cut into row blocks of
+//   kQ = 64 and the grid into tasks: per (chunk, group of G heads, batch)
+//   one block of 4 warps for each row block I of y_intra, and one for each
+//   64-row slice s of the chunk state (Q / 64 + N / 64 blocks a chunk, so
+//   that at 2 x 4096 tokens the 32 chunks of 256 rows still give the card
+//   hundreds of blocks).  A row task forms C_I . B_J^T for J <= I once for
+//   its heads and keeps it in shared memory in fragment order (at most
+//   64 KB), then streams each head's x tiles J <= I through a two-stage
+//   cp.async ring, building each W tile in registers as ssd_chunk_tc does;
+//   a state task keeps its slice of B for the whole chunk (36 KB) and reads
+//   the A operand (B o dec_end)^T from it with ldmatrix.trans, scaling and
+//   splitting it in registers.  Each output element is summed in one block
+//   over J in order: deterministic.  At Q = 64 the grid would be the same
+//   as ssd_chunk_tc's, which stays the kernel there.
+//
+//   Bound: bytes, as ssd_chunk_tc's; x is read by every row task at or
+//   below its tiles and by the state tasks, from L2 after the first.
 //
 // * ssd_chunk_tf32 (fp32 x, B and C at Q = P = 64, N = 64 or 128: the
 //   models' fp32 training and the reference sweep's N = 128 shape), on
@@ -540,6 +562,364 @@ cudaError_t launch_tc(const void* x, const float* dt, const float* cum,
   if (N == 128)
     return launch_tc_n<128, NT>(x, dt, cum, bm, cm, y, state, B, L, H,
                                 stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core chunk kernel over 64 x 64 tiles (bf16, Q = 128, 192, 256)
+// ---------------------------------------------------------------------------
+
+constexpr int kTiledMaxQ = 256;   // four row blocks of kQ
+constexpr int kTiledTerms = 2;    // bf16 terms of W and B o dec_end
+                                  // (kernel.py's TERMS)
+constexpr int kLdSlice = kQ + 8;  // padded bf16 row of a 64-column slice
+                                  // of B
+
+// Shared memory of ssd_chunk_tc_tiled (bytes), whichever task a block
+// takes: region 0, the C . B^T fragments of a row task ([Q / kQ] tiles of
+// [4 warps][8 n-tiles][32 lanes] float4) or a state task's slice of B
+// ([Q][kLdSlice] bf16, smaller); region 1, a row task's C_I and B_J
+// ([kQ][N + 8] bf16 each) while it forms C . B^T, then the ring of two x tiles
+// ([kQ][kLdP] bf16) both tasks stream; and dt and cum of the chunk for two
+// heads ([2][2][Q] fp32).  kernel.py's chunk_tiled_smem_bytes is the same
+// sum.
+struct TiledSmem {
+  size_t cb, r1, dtc, total;
+  __host__ __device__ TiledSmem(int N, int Q) {
+    const size_t setup = 2 * (size_t)kQ * (N + 8) * 2;
+    const size_t ring = 2 * (size_t)kQ * kLdP * 2;
+    cb = 0;
+    r1 = (size_t)(Q / kQ) * 4 * 8 * 32 * 16;
+    dtc = r1 + (setup > ring ? setup : ring);
+    total = dtc + 4 * (size_t)Q * 4;
+  }
+};
+
+// dt and cum of head h over the chunk's Q rows into dst ([Q] dt, then [Q]
+// cum), 4-byte cp.async copies (the rows are H floats apart).
+__device__ __forceinline__ void load_dtcum(float* dst, const float* dt,
+                                           const float* cum, int64_t row0,
+                                           int H, int h, int Q) {
+  for (int e = threadIdx.x; e < 2 * Q; e += kTcThreads) {
+    const int j = e < Q ? e : e - Q;
+    cp_async4(dst + e, (e < Q ? dt : cum) + (row0 + j) * H + h);
+  }
+}
+
+// x's B fragments for k16 step kk of a [kQ][kLdP] bf16 tile (ldmatrix
+// .trans): xf[pt] for columns 8 pt .. 8 pt + 7.
+__device__ __forceinline__ void x_frags(uint32_t (&xf)[8][2], const bf16* xb,
+                                        int kk, int lane) {
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    uint32_t r[4];
+    ldsm_x4_t(r, xb + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdP +
+                     16 * np + (lane >> 4) * 8);
+    xf[2 * np][0] = r[0];
+    xf[2 * np][1] = r[1];
+    xf[2 * np + 1][0] = r[2];
+    xf[2 * np + 1][1] = r[3];
+  }
+}
+
+// A row task: rows I kQ .. of y_intra for the block's G heads.  C_I . B_J^T
+// for J <= I is formed once (bf16 inputs, exact products, fp32 sums: warp w
+// its rows 16 w .. against all 64 columns, as ssd_chunk_tc) and kept in
+// shared memory in fragment order (one float4 a lane and n-tile); then for
+// each head the x tiles J = 0 .. I stream through the ring and each W tile
+// is built in registers from those fragments, exp(cum_i - cum_j) and dt_j
+// (a plain 0 above the diagonal of J = I, whose k16 steps above it are
+// skipped), split into NT bf16 terms and multiplied with x_J, y summed over
+// J in order in one accumulator.
+template <int N, int NT>
+__device__ __forceinline__ void chunk_tiled_rows(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ cum, const bf16* __restrict__ bm,
+    const bf16* __restrict__ cm, float* __restrict__ y,
+    unsigned char* smem_raw, int L, int H, int G, int Q, int I) {
+  constexpr int kLdN = N + 8;
+  const TiledSmem lay(N, Q);
+  float4* cbs = reinterpret_cast<float4*>(smem_raw + lay.cb);
+  bf16* cs = reinterpret_cast<bf16*>(smem_raw + lay.r1);   // C_I
+  bf16* bs = cs + kQ * kLdN;                               // B_J
+  bf16* xr = reinterpret_cast<bf16*>(smem_raw + lay.r1);   // 2 x [kQ][kLdP]
+  float* dtc = reinterpret_cast<float*>(smem_raw + lay.dtc);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, cq = lane & 3;
+  const int nb = Q / kQ;
+  const int c = blockIdx.x / (nb + N / 64), h0 = blockIdx.y * G;
+  const int b = blockIdx.z;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;
+  const int i0 = 16 * warp;
+
+  for (int e = tid; e < kQ * (N / 8); e += kTcThreads) {
+    const int j = e / (N / 8), k8 = (e % (N / 8)) * 8;
+    cp_async16(cs + j * kLdN + k8, cm + (row0 + kQ * I + j) * N + k8);
+  }
+  load_dtcum(dtc, dt, cum, row0, H, h0, Q);
+  for (int J = 0; J <= I; ++J) {
+    for (int e = tid; e < kQ * (N / 8); e += kTcThreads) {
+      const int j = e / (N / 8), k8 = (e % (N / 8)) * 8;
+      cp_async16(bs + j * kLdN + k8, bm + (row0 + kQ * J + j) * N + k8);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    float cb[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cb[nt][e] = 0.f;
+#pragma unroll
+    for (int kn = 0; kn < N / 16; ++kn) {
+      uint32_t a[4];
+      ldsm_x4(a, cs + (i0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdN +
+                     kn * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        if (J == I && jp > warp) continue;   // above the diagonal
+        uint32_t r[4];
+        ldsm_x4(r, bs + (16 * jp + (lane & 7) + (lane >> 4) * 8) * kLdN +
+                       kn * 16 + ((lane >> 3) & 1) * 8);
+        mma(cb[2 * jp], a, r[0], r[1]);
+        mma(cb[2 * jp + 1], a, r[2], r[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      cbs[((J * 4 + warp) * 8 + nt) * 32 + lane] =
+          make_float4(cb[nt][0], cb[nt][1], cb[nt][2], cb[nt][3]);
+    __syncthreads();   // every warp is done with B_J (and, at the end, C_I)
+  }
+
+  load_x(xr, x, row0, H, h0);
+  cp_async_commit();
+  int seq = 0;
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = h0 + gi;
+    const float* dg = dtc + (gi & 1) * 2 * Q;
+    const float* cg = dg + Q;
+    float yacc[8][4];
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yacc[pt][e] = 0.f;
+    for (int J = 0; J <= I; ++J, ++seq) {
+      // x_J of head gi (and its dt and cum) has landed; every warp is done
+      // with the ring stage and the dt, cum buffer refilled below.
+      cp_async_wait_all();
+      __syncthreads();
+      if (J == 0 && gi + 1 < G)
+        load_dtcum(dtc + ((gi + 1) & 1) * 2 * Q, dt, cum, row0, H, h + 1, Q);
+      if (J < I || gi + 1 < G)
+        load_x(xr + ((seq + 1) & 1) * kQ * kLdP, x,
+               row0 + kQ * (J < I ? J + 1 : 0), H, J < I ? h : h + 1);
+      cp_async_commit();
+      const bf16* xb = xr + (seq & 1) * kQ * kLdP;
+      const float ci[2] = {cg[kQ * I + i0 + g], cg[kQ * I + i0 + g + 8]};
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        if (J == I && kk > warp) continue;   // k16 steps above the diagonal
+        uint32_t xf[8][2];
+        x_frags(xf, xb, kk, lane);
+        uint32_t wa[NT][4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float4 cb4 = cbs[((J * 4 + warp) * 8 + 2 * kk + half) * 32 +
+                                 lane];
+          const float cbv[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+          const int j = 16 * kk + 8 * half + 2 * cq;   // within the tile
+          const float cj[2] = {cg[kQ * J + j], cg[kQ * J + j + 1]};
+          const float dj[2] = {dg[kQ * J + j], dg[kQ * J + j + 1]};
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int i = i0 + g + 8 * rr;
+            float w[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              w[e] = (J < I || i >= j + e)
+                         ? cbv[2 * rr + e] * expf(ci[rr] - cj[e]) * dj[e]
+                         : 0.f;
+            uint32_t t[NT];
+            split<NT>(w[0], w[1], t);
+#pragma unroll
+            for (int k = 0; k < NT; ++k) wa[k][2 * half + rr] = t[k];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < NT; ++k)
+#pragma unroll
+          for (int pt = 0; pt < 8; ++pt)
+            mma(yacc[pt], wa[k], xf[pt][0], xf[pt][1]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float* yr = y + ((row0 + kQ * I + i0 + g + 8 * rr) * H + h) * kP +
+                  2 * cq;
+#pragma unroll
+      for (int pt = 0; pt < 8; ++pt)
+        *reinterpret_cast<float2*>(yr + 8 * pt) =
+            make_float2(yacc[pt][2 * rr], yacc[pt][2 * rr + 1]);
+    }
+  }
+}
+
+// A state task: rows 64 s .. of the chunk state for the block's G heads.
+// The slice of B (every row of the chunk, columns 64 s ..) is staged once;
+// for each head the x tiles J = 0 .. nb - 1 stream through the ring, and
+// per k16 step the A operand (B o dec_end)^T is read with ldmatrix.trans
+// from B as stored, each column j scaled by dec_end_j = exp(cum_last -
+// cum_j) dt_j in registers and split into NT bf16 terms, then multiplied
+// with x_J; the state sums J in order in one accumulator.
+template <int N, int NT>
+__device__ __forceinline__ void chunk_tiled_state(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ cum, const bf16* __restrict__ bm,
+    float* __restrict__ state, unsigned char* smem_raw, int L, int H, int G,
+    int Q, int s) {
+  const TiledSmem lay(N, Q);
+  bf16* bsl = reinterpret_cast<bf16*>(smem_raw + lay.cb);   // [Q][kLdSlice]
+  bf16* xr = reinterpret_cast<bf16*>(smem_raw + lay.r1);
+  float* dtc = reinterpret_cast<float*>(smem_raw + lay.dtc);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, cq = lane & 3;
+  const int nb = Q / kQ;
+  const int c = blockIdx.x / (nb + N / 64), h0 = blockIdx.y * G;
+  const int b = blockIdx.z;
+  const int nc = L / Q;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;
+  const int i0 = 16 * warp;
+
+  for (int e = tid; e < Q * (kQ / 8); e += kTcThreads) {
+    const int j = e / (kQ / 8), k8 = (e % (kQ / 8)) * 8;
+    cp_async16(bsl + j * kLdSlice + k8, bm + (row0 + j) * N + kQ * s + k8);
+  }
+  load_dtcum(dtc, dt, cum, row0, H, h0, Q);
+  load_x(xr, x, row0, H, h0);
+  cp_async_commit();
+  int seq = 0;
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = h0 + gi;
+    const float* dg = dtc + (gi & 1) * 2 * Q;
+    const float* cg = dg + Q;
+    float sacc[8][4];
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[pt][e] = 0.f;
+    for (int J = 0; J < nb; ++J, ++seq) {
+      cp_async_wait_all();
+      __syncthreads();
+      if (J == 0 && gi + 1 < G)
+        load_dtcum(dtc + ((gi + 1) & 1) * 2 * Q, dt, cum, row0, H, h + 1, Q);
+      if (J + 1 < nb || gi + 1 < G)
+        load_x(xr + ((seq + 1) & 1) * kQ * kLdP, x,
+               row0 + kQ * (J + 1 < nb ? J + 1 : 0), H,
+               J + 1 < nb ? h : h + 1);
+      cp_async_commit();
+      const bf16* xb = xr + (seq & 1) * kQ * kLdP;
+      const float cl = cg[Q - 1];
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        uint32_t xf[8][2];
+        x_frags(xf, xb, kk, lane);
+        // dec_end of the step's columns j, j + 1 (a[0], a[1]) and j + 8,
+        // j + 9 (a[2], a[3]).
+        const int j = kQ * J + 16 * kk + 2 * cq;
+        float de[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int jj = j + (u & 1) + 8 * (u >> 1);
+          de[u] = expf(cl - cg[jj]) * dg[jj];
+        }
+        uint32_t a[4];
+        ldsm_x4_t(a, bsl + (kQ * J + 16 * kk + (lane & 7) + (lane >> 4) * 8) *
+                               kLdSlice +
+                         i0 + ((lane >> 3) & 1) * 8);
+        uint32_t sa[NT][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 v = unpack2(a[q]);
+          uint32_t t[NT];
+          split<NT>(v.x * de[2 * (q >> 1)], v.y * de[2 * (q >> 1) + 1], t);
+#pragma unroll
+          for (int k = 0; k < NT; ++k) sa[k][q] = t[k];
+        }
+#pragma unroll
+        for (int k = 0; k < NT; ++k)
+#pragma unroll
+          for (int pt = 0; pt < 8; ++pt)
+            mma(sacc[pt], sa[k], xf[pt][0], xf[pt][1]);
+      }
+    }
+    float* st = state + (((int64_t)b * nc + c) * H + h) * (int64_t)N * kP;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float* sr = st + (kQ * s + i0 + g + 8 * rr) * kP + 2 * cq;
+#pragma unroll
+      for (int pt = 0; pt < 8; ++pt)
+        *reinterpret_cast<float2*>(sr + 8 * pt) =
+            make_float2(sacc[pt][2 * rr], sacc[pt][2 * rr + 1]);
+    }
+  }
+}
+
+// One block of 4 warps per (chunk, task, group of G heads, batch): tasks 0
+// .. nb - 1 the row blocks of y_intra, tasks nb .. nb + N / 64 - 1 the
+// 64-row slices of the chunk state.  Every output element is summed by one
+// block in a fixed order: no atomics, two passes equal bit for bit.
+template <int N, int NT>
+__global__ void __launch_bounds__(kTcThreads)
+    ssd_chunk_tc_tiled(const bf16* __restrict__ x,
+                       const float* __restrict__ dt,
+                       const float* __restrict__ cum,
+                       const bf16* __restrict__ bm,
+                       const bf16* __restrict__ cm, float* __restrict__ y,
+                       float* __restrict__ state, int L, int H, int G, int Q) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nb = Q / kQ;
+  const int task = blockIdx.x % (nb + N / 64);
+  if (task < nb)
+    chunk_tiled_rows<N, NT>(x, dt, cum, bm, cm, y, smem_raw, L, H, G, Q,
+                            task);
+  else
+    chunk_tiled_state<N, NT>(x, dt, cum, bm, state, smem_raw, L, H, G, Q,
+                             task - nb);
+}
+
+template <int N, int NT>
+cudaError_t launch_tiled_n(const void* x, const float* dt, const float* cum,
+                           const void* bm, const void* cm, float* y,
+                           float* state, int B, int L, int H, int Q,
+                           cudaStream_t stream) {
+  const int nc = L / Q, tasks = Q / kQ + N / 64;
+  const int G = heads_per_block(B * nc * tasks, H);
+  const size_t smem = TiledSmem(N, Q).total;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_tc_tiled<N, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(nc * tasks, H / G, B);
+  ssd_chunk_tc_tiled<N, NT><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), dt, cum, static_cast<const bf16*>(bm),
+      static_cast<const bf16*>(cm), y, state, L, H, G, Q);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_tiled(const void* x, const float* dt, const float* cum,
+                         const void* bm, const void* cm, float* y,
+                         float* state, int B, int L, int H, int N, int Q,
+                         cudaStream_t stream) {
+  if (Q % kQ || Q <= kQ || Q > kTiledMaxQ) return cudaErrorInvalidValue;
+  if (N == 64)
+    return launch_tiled_n<64, NT>(x, dt, cum, bm, cm, y, state, B, L, H, Q,
+                                  stream);
+  if (N == 128)
+    return launch_tiled_n<128, NT>(x, dt, cum, bm, cm, y, state, B, L, H, Q,
+                                   stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1752,10 +2132,11 @@ cudaError_t launch_carry(const void* y_intra, const void* states,
 // dtype: 0 = float32, 1 = bfloat16 for x, B and C; dt, cum, y and state
 // are float32.  x [B, L, H, P], dt and cum [B, L, H], B and C [B, L, N],
 // y [B, L, H, P], state [B, L / Q, H, N, P], all contiguous and 16-byte
-// aligned.  terms = 0 runs the CUDA-core kernel; at Q = P = 64 and N =
-// 64 or 128, for bf16 1, 2 or 3 run ssd_chunk_tc with W and B ⊙ dec_end
-// in that many bf16 terms, and for fp32 kTf32Terms (3) runs
-// ssd_chunk_tf32.
+// aligned.  terms = 0 runs the CUDA-core kernel; at P = 64 and N = 64 or
+// 128, for bf16 1, 2 or 3 run ssd_chunk_tc (Q = 64) with W and B ⊙
+// dec_end in that many bf16 terms and kTiledTerms (2) runs
+// ssd_chunk_tc_tiled (Q = 128, 192 or 256), and for fp32 at Q = 64
+// kTf32Terms (3) runs ssd_chunk_tf32.
 extern "C" int ssd_chunk_launch(const void* x, const void* dt,
                                 const void* cum, const void* bm,
                                 const void* cm, void* y, void* state,
@@ -1775,7 +2156,13 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dt,
                                    N, Q, s);
     return (int)cudaErrorInvalidValue;
   }
-  if (Q != kQ || P != kP) return (int)cudaErrorInvalidValue;
+  if (P != kP) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && Q != kQ) {
+    if (terms != kTiledTerms) return (int)cudaErrorInvalidValue;
+    return (int)launch_tiled<kTiledTerms>(x, dtf, cumf, bm, cm, yf, sf, B, L,
+                                          H, N, Q, s);
+  }
+  if (Q != kQ) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if (terms != kTf32Terms) return (int)cudaErrorInvalidValue;
     if (N == 64)
@@ -1856,6 +2243,14 @@ extern "C" int ssd_chunk_tf32_heads(int B, int L, int H) {
           cudaSuccess)
     return -1;
   return tf32_heads_per_block(B * (L / kQ), H, sms);
+}
+
+// Dynamic shared memory (bytes) of an ssd_chunk_tc_tiled block at state
+// size N (64 or 128) and chunk Q (128, 192 or 256); -1 for anything else.
+extern "C" int ssd_chunk_tiled_smem_bytes(int N, int Q) {
+  if ((N != 64 && N != 128) || Q % kQ || Q <= kQ || Q > kTiledMaxQ)
+    return -1;
+  return (int)TiledSmem(N, Q).total;
 }
 
 // Dynamic shared memory (bytes) of a block at chunk Q, state size N and

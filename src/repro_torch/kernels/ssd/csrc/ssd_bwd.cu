@@ -13,8 +13,11 @@
 // (kernel.py::bwd_kernels) as the forward's chunk kernels are: at Q = P =
 // 64, N = 64 or 128 (the models' training shapes) bf16 x, B, C and dy on
 // the tensor cores (ssd_carry_bwd_tc, ssd_chunk_bwd_tc), fp32 on the
-// tensor cores in TF32 (ssd_carry_bwd_tf32, ssd_chunk_bwd_tf32); every
-// other shape on the CUDA cores (ssd_carry_bwd, ssd_chunk_bwd).
+// tensor cores in TF32 (ssd_carry_bwd_tf32, ssd_chunk_bwd_tf32); bf16 at
+// Q = 128, 192 and 256 the chunk backward on the tensor cores over 64 x
+// 64 tiles (ssd_chunk_bwd_tc_tiled) and the carry backward on the CUDA
+// cores; every other shape on the CUDA cores (ssd_carry_bwd,
+// ssd_chunk_bwd).
 //
 // The carry's walks, per (batch, head) and element (n, p) of the state:
 //     forward  h_prev_c = h,  h = exp(cum_last,c) h + S_c      (writes the
@@ -72,6 +75,25 @@
 //   partials; <g, h_prev> and the dcum tail likewise.  The MMA work at
 //   two terms is ~47 GFLOP at the shape above (0.047 ms at the bf16
 //   peak), a quarter of the byte bound: the copies decide.
+// * ssd_chunk_bwd_tc_tiled (bf16 at Q = 128, 192 or 256, P = 64, N = 64
+//   or 128): ssd_chunk_bwd_tc's arithmetic over 64 x 64 tiles, one block
+//   of 8 warps per (chunk, 64-row block K, group of G heads, batch), G
+//   from bwd_heads_per_block over the chunk's Q / 64 blocks.  A block
+//   owns every output of its rows, in two phases over its heads: first
+//   each head's state and inter terms (as ssd_chunk_bwd_tc's, g and
+//   h_prev double-buffered), then each head's tiles: the diagonal (K, K),
+//   the tiles below it, (I, K) for I > K (dx_K and the column sums of V),
+//   and beside it, (K, J) for J < K (the row sums of T), the other row
+//   blocks' dy or x and C or B streamed through a two-stage cp.async
+//   ring, each tile's dW o E o dt added to the group's sum for that tile
+//   in shared memory, where g and h_prev were.  At the group's end dB_K
+//   += sum^T . C_I and dC_K += sum . B_J, once a tile as
+//   ssd_chunk_bwd_tc's once a chunk.  A tile off the diagonal is formed
+//   by two blocks (C . B^T and dW twice), and every output element is
+//   summed by one block in a fixed order; only the chunk's dcum_last
+//   gathers terms from every row block (sum_j d_j U_j, and exp(cum_last)
+//   <g, h_prev>), which each block writes to `tails` and the wrapper adds
+//   in a fixed order.
 // * ssd_carry_bwd_tc (bf16): one block per (slice of kCarryRows = 32
 //   rows of N, head, batch); its first two warps walk forward, the other
 //   two back, each pair at its own pace.  The forward walk streams
@@ -1487,6 +1509,934 @@ cudaError_t launch_chunk_bwd_tc(const void* x, const void* dt,
 }
 
 // ---------------------------------------------------------------------------
+// ssd_chunk_bwd_tc_tiled: bf16 at Q = 128, 192, 256, P = 64, N = 64 or 128
+// ---------------------------------------------------------------------------
+
+constexpr int kTiledMaxQ = 256;   // four row blocks of kTQ
+constexpr int kLdScr = kTQ + 4;   // padded fp32 row of the staging tile
+
+// Shared-memory layout of ssd_chunk_bwd_tc_tiled, in bytes
+// (ssd_chunk_bwd_tiled_smem_bytes reports it, kernel.py's
+// chunk_bwd_tiled_smem_bytes mirrors it): C_K and B_K of the block's rows
+// ([kTQ][N + 8] bf16); two x_K and two dy_K buffers ([kTQ][kLdX] bf16);
+// the g and h_prev region ([N][kTP] fp32 each, split in place into two
+// bf16 planes; in the second phase the group's sums of dW o E o dt, Q /
+// kTQ tiles of kAccTile bytes in fragment order); a two-stage ring of the
+// other row blocks' tiles (x_J or dy_I [kTQ][kLdX], B_J or C_I [kTQ][N +
+// 8], bf16; in the first phase, with the staging tile after it, a second
+// g and h_prev); the staging tile ([kTQ][kLdScr] fp32: a tile's C . B^T
+// fragments, or a sum of dW o E o dt); dt and cum of the chunk for two
+// heads ([2][2][Q] fp32); and the per-head partial sums (12 . kTQ + 8
+// floats).
+constexpr size_t kAccTile = 8 * 4 * 32 * 16;   // one tile's sum, bytes
+
+struct TiledBwdSmem {
+  size_t c, b, x, dy, ghp, ring, stage, scr, dtc, red, total;
+  __host__ __device__ TiledBwdSmem(int N, int Q) {
+    const size_t bc = (size_t)kTQ * (N + 8) * 2;
+    const size_t xd = (size_t)kTQ * kLdX * 2;
+    const size_t st = 2 * (size_t)N * kTP * 4;   // g and h_prev
+    const size_t acc = (size_t)(Q / kTQ) * kAccTile;
+    c = 0;
+    b = c + bc;
+    x = b + bc;          // 2 buffers
+    dy = x + 2 * xd;     // 2 buffers
+    ghp = dy + 2 * xd;
+    ring = ghp + (st > acc ? st : acc);   // 2 stages of `stage` bytes:
+    stage = xd + bc;                      // x_J or dy_I, then B_J or C_I
+    scr = ring + 2 * stage;
+    dtc = scr + (size_t)kTQ * kLdScr * 4;
+    red = dtc + 4 * (size_t)Q * 4;
+    total = red + (12 * (size_t)kTQ + 8) * 4;
+  }
+};
+
+// The work of one warp of ssd_chunk_bwd_tc_tiled: rows 16 r .. of the
+// block's row block K (j for dx, dB and the column side, i for dC and the
+// row side) and half S of each product's columns, as chunk_bwd_tc_warp's
+// warps.  Two phases over the group's heads.  The first takes each head's
+// state and inter terms of rows K (B_K . g, x_K . g^T, dy_K . h_prev^T,
+// as ssd_chunk_bwd_tc), with the next head's g and h_prev copied into a
+// second buffer meanwhile, and writes dx's, dcum's and ddt's parts of
+// them.  The second takes each head's tiles: the diagonal (K, K) as
+// ssd_chunk_bwd_tc's chunk; the column side, (I, K) for I > K: dW^T =
+// x_K . dy_I^T, dx_K += (K o dt)^T . dy_I and the column sums of V; the
+// row side, (K, J) for J < K: dW = dy_K . x_J^T and the row sums of T;
+// each tile's dW o E o dt added to the group's sum for that tile in
+// shared memory (where g and h_prev were), and dx, dcum and ddt of rows K
+// completed.  At the group's end dB_K += sum^T . C_I and dC_K += sum .
+// B_J, each tile's sum split once into kBwdTerms bf16 terms, as
+// ssd_chunk_bwd_tc does for its one tile.  C . B^T is formed per head and
+// tile on mma.sync (exact products), its fragments staged where both
+// column halves need them.  dB_K and dC_K are summed over the heads in
+// registers and written once; the chunk's dcum_last terms of these rows
+// (sum_j d_j U_j, and exp(cum_last) <g, h_prev> in the last row block)
+// go into tails, which the wrapper adds to the chunk's last row in a
+// fixed order.  Every sum runs in one block in a fixed order, each output
+// element read back and written by the thread that wrote it: two passes
+// are equal bit for bit.
+template <int N, int S>
+__device__ __forceinline__ void chunk_bwd_tiled_warp(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ cum, const bf16* __restrict__ bm,
+    const bf16* __restrict__ cm, const bf16* __restrict__ dy,
+    const float* __restrict__ g, const float* __restrict__ hp,
+    float* __restrict__ dx, float* __restrict__ dcum,
+    float* __restrict__ ddt, float* __restrict__ db_part,
+    float* __restrict__ dc_part, float* __restrict__ tails,
+    unsigned char* smem_raw, int L, int H, int G, int Q) {
+  constexpr int NT = kBwdTerms;
+  constexpr int kLdN = N + 8;   // padded bf16 row of B and C
+  constexpr int NH = N / 2;     // this warp's half of N
+  constexpr int NTN = NH / 8;   // its n8 tiles
+  const TiledBwdSmem lay(N, Q);
+  const bf16* cs = reinterpret_cast<const bf16*>(smem_raw + lay.c);
+  const bf16* bs = reinterpret_cast<const bf16*>(smem_raw + lay.b);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + lay.x);
+  bf16* dys = reinterpret_cast<bf16*>(smem_raw + lay.dy);
+  float4* acc4 = reinterpret_cast<float4*>(smem_raw + lay.ghp);
+  float* scr = reinterpret_cast<float*>(smem_raw + lay.scr);
+  float4* scr4 = reinterpret_cast<float4*>(scr);
+  float* dtc = reinterpret_cast<float*>(smem_raw + lay.dtc);
+  float* red_ured = reinterpret_cast<float*>(smem_raw + lay.red);  // [2][64]
+  float* red_inter = red_ured + 2 * kTQ;   // [2][64]
+  float* red_gh = red_inter + 2 * kTQ;     // [8]
+  float* red_rowd = red_gh + 8;            // [4][64]: the diagonal's
+  float* red_rows = red_rowd + 4 * kTQ;    // [2][64]: the row side's
+  float* red_colv = red_rows + 2 * kTQ;    // [2][64]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lg = lane >> 2, cq = lane & 3;
+  const int r = warp & 3, j0 = 16 * r;
+  const int nb = Q / kTQ, nc = L / Q;
+  const int c = blockIdx.x / nb, K = blockIdx.x % nb;
+  const int grp = blockIdx.y, b = blockIdx.z;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;   // the chunk's
+  const int64_t rk = row0 + kTQ * K;                      // block K's
+  const int ntiles = nb - 1;         // off-diagonal tiles a head
+  const int ncol = nb - 1 - K;       // of which on the column side
+  auto frag_rows = [&](uint32_t(&a)[4], const bf16* t, int ld, int k) {
+    ldsm_x4(a, t + (j0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + 16 * k +
+                   (lane >> 4) * 8);
+  };
+  auto frag_cols = [&](uint32_t(&q)[4], const bf16* t, int ld, int m,
+                       int k) {
+    ldsm_x4(q, t + (16 * m + (lane & 7) + (lane >> 4) * 8) * ld + 16 * k +
+                   ((lane >> 3) & 1) * 8);
+  };
+  auto frag_cols_t = [&](uint32_t(&q)[4], const bf16* t, int ld, int m,
+                         int k) {
+    ldsm_x4_t(q, t + (16 * k + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                     16 * m + (lane >> 4) * 8);
+  };
+  auto ring_t64 = [&](int stage) {
+    return reinterpret_cast<bf16*>(smem_raw + lay.ring + stage * lay.stage);
+  };
+  auto ring_tn = [&](int stage) {
+    return reinterpret_cast<bf16*>(smem_raw + lay.ring + stage * lay.stage +
+                                   (size_t)kTQ * kLdX * 2);
+  };
+  // Off-diagonal tile t into ring stage `stage`: the column side (t <
+  // ncol) C of row block I = K + 1 + t, the row side B of row block J =
+  // t - ncol; and where h >= 0 head h's dy of I or x of J.
+  auto load_tile = [&](int h, int t, int stage) {
+    const bool col = t < ncol;
+    const int64_t r0 = row0 + kTQ * (col ? K + 1 + t : t - ncol);
+    const bf16* srn = col ? cm : bm;
+    bf16* dn = ring_tn(stage);
+    for (int e = tid; e < kTQ * (N / 8); e += kTcThreads) {
+      const int i = e / (N / 8), k8 = (e % (N / 8)) * 8;
+      cp_async16(dn + i * kLdN + k8, srn + (r0 + i) * N + k8);
+    }
+    if (h < 0) return;
+    const bf16* src = col ? dy : x;
+    bf16* d64 = ring_t64(stage);
+    for (int e = tid; e < kTQ * (kTP / 8); e += kTcThreads) {
+      const int i = e >> 3, k8 = (e & 7) * 8;
+      cp_async16(d64 + i * kLdX + k8, src + ((r0 + i) * H + h) * kTP + k8);
+    }
+  };
+  auto load_xdy = [&](int h, int buf) {
+    for (int e = tid; e < kTQ * (kTP / 8); e += kTcThreads) {
+      const int i = e >> 3, k8 = (e & 7) * 8;
+      const int64_t o = ((rk + i) * H + h) * kTP + k8;
+      cp_async16(xs + buf * kTQ * kLdX + i * kLdX + k8, x + o);
+      cp_async16(dys + buf * kTQ * kLdX + i * kLdX + k8, dy + o);
+    }
+    float* d = dtc + buf * 2 * Q;   // dt [Q], then cum [Q]
+    for (int e = tid; e < 2 * Q; e += kTcThreads) {
+      const int j = e < Q ? e : e - Q;
+      cp_async4(d + e, (e < Q ? dt : cum) + (row0 + j) * H + h);
+    }
+  };
+  // g and h_prev of head h into buffer p: 0 the g and h_prev region, 1
+  // the ring's.
+  auto ghp_at = [&](int p) {
+    return smem_raw + (p ? lay.ring : lay.ghp);
+  };
+  auto load_ghp = [&](int h, int p) {
+    float* gd = reinterpret_cast<float*>(ghp_at(p));
+    float* hd = gd + N * kTP;
+    const int64_t st = (((int64_t)b * nc + c) * H + h) * (int64_t)N * kTP;
+    for (int e = tid; e < N * (kTP / 4); e += kTcThreads) {
+      cp_async16(gd + 4 * e, g + st + 4 * e);
+      cp_async16(hd + 4 * e, hp + st + 4 * e);
+    }
+  };
+  // (C_I . B_K^T)^T for this warp's rows j and its half of the columns i,
+  // into the staging tile in fragment order ([r][8 n-tiles][32] float4);
+  // at the diagonal only the tiles at or right of it.
+  auto stage_cbt = [&](const bf16* ct, bool diag) {
+    float cbt[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cbt[t][e] = 0.f;
+#pragma unroll 2
+    for (int kn = 0; kn < N / 16; ++kn) {
+      uint32_t a[4];
+      frag_rows(a, bs, kLdN, kn);
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        if (diag && 2 * S + l < r) continue;
+        uint32_t q[4];
+        frag_cols(q, ct, kLdN, 2 * S + l, kn);
+        mma(cbt[2 * l], a, q[0], q[1]);
+        mma(cbt[2 * l + 1], a, q[2], q[3]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      scr4[(r * 8 + 4 * S + t) * 32 + lane] =
+          make_float4(cbt[t][0], cbt[t][1], cbt[t][2], cbt[t][3]);
+  };
+  // This warp's float4 of n-tile lt in the group's sum of tile u (0 the
+  // diagonal, 1 + t off-diagonal tile t): its rows, its half of the
+  // columns, fragment order.
+  auto acc_at = [&](int u, int lt) -> float4& {
+    return acc4[((u * 8 + warp) * 4 + lt) * 32 + lane];
+  };
+  auto accumulate = [&](int u, const float (&v)[4][4]) {
+#pragma unroll
+    for (int lt = 0; lt < 4; ++lt) {
+      float4& a = acc_at(u, lt);
+      a = make_float4(a.x + v[lt][0], a.y + v[lt][1], a.z + v[lt][2],
+                      a.w + v[lt][3]);
+    }
+  };
+  // The group's sum of tile u into the staging tile, row-major (this
+  // warp's rows, its half of the columns).
+  auto stage_acc = [&](int u) {
+#pragma unroll
+    for (int lt = 0; lt < 4; ++lt) {
+      const float4 a = acc_at(u, lt);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        *reinterpret_cast<float2*>(scr + (j0 + lg + 8 * rr) * kLdScr +
+                                   32 * S + 8 * lt + 2 * cq) =
+            rr ? make_float2(a.z, a.w) : make_float2(a.x, a.y);
+    }
+  };
+  // acc[n-tiles of this warp's half of N] += (the staged tile, rows j0..,
+  // k16 steps kk_lo .. kk_hi) . tn (stored [k][n]).
+  auto staged_times = [&](float (&acc)[NTN][4], const bf16* tn, int kk_lo,
+                          int kk_hi) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < kk_lo || kk > kk_hi) continue;
+      uint32_t ta[NT][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            scr + (j0 + lg + 8 * (q & 1)) * kLdScr + 16 * kk + 2 * cq +
+            8 * (q >> 1));
+        uint32_t tt[NT];
+        split<NT>(v.x, v.y, tt);
+#pragma unroll
+        for (int k = 0; k < NT; ++k) ta[k][q] = tt[k];
+      }
+#pragma unroll
+      for (int m = 0; m < NTN / 2; ++m) {
+        uint32_t q[4];
+        frag_cols_t(q, tn, kLdN, S * NTN / 2 + m, kk);
+#pragma unroll
+        for (int k = 0; k < NT; ++k) {
+          mma(acc[2 * m], ta[k], q[0], q[1]);
+          mma(acc[2 * m + 1], ta[k], q[2], q[3]);
+        }
+      }
+    }
+  };
+  // The B fragments of n-tiles 2 m and 2 m + 1 of term k of a plane pair,
+  // as chunk_bwd_tc_warp's frag_plane.
+  auto frag_plane = [&](uint32_t(&q)[4], const unsigned char* pl, int k,
+                        int m, int kk, bool t) {
+    const unsigned char* base = pl + k * N * 128;
+    if (t)
+      ldsm_x4_t(q, base + plane_off(16 * kk + (lane & 7) +
+                                        ((lane >> 3) & 1) * 8,
+                                    16 * m + (lane >> 4) * 8));
+    else
+      ldsm_x4(q, base + plane_off(16 * m + (lane & 7) + (lane >> 4) * 8,
+                                  16 * kk + ((lane >> 3) & 1) * 8));
+  };
+
+  // Over the group's heads: dba and dca the running dB (rows j) and dC
+  // (rows i) of this warp's half of n.
+  float dba[NTN][4], dca[NTN][4];
+#pragma unroll
+  for (int t = 0; t < NTN; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dba[t][e] = dca[t][e] = 0.f;
+
+  // Phase 1: each head's state and inter terms of rows K.
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = grp * G + gi, buf = gi & 1;
+    // Head gi's x_K, dy_K, dt, cum, g and h_prev have landed; every warp
+    // is done with head gi - 1 (its buffers, the partial sums).
+    cp_async_wait_all();
+    group_sync(0, kTcThreads);
+    // The next head's, or after the last the second phase's first head's
+    // x_K, dy_K, dt and cum.
+    load_xdy(gi + 1 < G ? h + 1 : grp * G, buf ^ 1);
+    if (gi + 1 < G) load_ghp(h + 1, buf ^ 1);
+    cp_async_commit();
+    const bf16* xb = xs + buf * kTQ * kLdX;
+    const bf16* dyb = dys + buf * kTQ * kLdX;
+    const float* dg = dtc + buf * 2 * Q;
+    const float* cg = dg + Q;
+    const float cl = cg[Q - 1];
+    unsigned char* gp = ghp_at(buf);
+    unsigned char* hq = gp + N * kTP * 4;
+    // g and h_prev split once into two bf16 planes, as ssd_chunk_bwd_tc;
+    // <g, h_prev> on the way.
+    {
+      constexpr int kPer = N * kTP / 4 / kTcThreads;
+      float4 gv[kPer], hv[kPer];
+      float gh = 0.f;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int e = tid + kTcThreads * k;
+        gv[k] = reinterpret_cast<const float4*>(gp)[e];
+        hv[k] = reinterpret_cast<const float4*>(hq)[e];
+        gh = fmaf(gv[k].x, hv[k].x, fmaf(gv[k].y, hv[k].y,
+             fmaf(gv[k].z, hv[k].z, fmaf(gv[k].w, hv[k].w, gh))));
+      }
+      gh = segment_sum(gh, 32);
+      if (lane == 0) red_gh[warp] = gh;
+      group_sync(0, kTcThreads);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int e = tid + kTcThreads * k;
+        const int o = plane_off(e >> 4, (e & 15) * 4);
+        uint32_t a[2], bb[2];
+        split<2>(gv[k].x, gv[k].y, a);
+        split<2>(gv[k].z, gv[k].w, bb);
+        *reinterpret_cast<uint2*>(gp + o) = make_uint2(a[0], bb[0]);
+        *reinterpret_cast<uint2*>(gp + N * 128 + o) = make_uint2(a[1], bb[1]);
+        split<2>(hv[k].x, hv[k].y, a);
+        split<2>(hv[k].z, hv[k].w, bb);
+        *reinterpret_cast<uint2*>(hq + o) = make_uint2(a[0], bb[0]);
+        *reinterpret_cast<uint2*>(hq + N * 128 + o) = make_uint2(a[1], bb[1]);
+      }
+      group_sync(0, kTcThreads);
+    }
+    // This thread's two rows of block K, j0 + lg and j0 + lg + 8.
+    float cur[2], dr[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int j = kTQ * K + j0 + lg + 8 * rr;
+      cur[rr] = cg[j];
+      dr[rr] = expf(cl - cur[rr]) * dg[j];   // d_j
+    }
+
+    // dx_K's state term, d_j (B_K . g), and <B_j (x) x_j, g> on the way.
+    {
+      float dxa[4][4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dxa[t][e] = 0.f;
+#pragma unroll 2
+      for (int kn = 0; kn < N / 16; ++kn) {
+        uint32_t a[4];
+        frag_rows(a, bs, kLdN, kn);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int k = 0; k < NT; ++k) {
+            uint32_t q[4];
+            frag_plane(q, gp, k, 2 * S + m, kn, true);
+            mma(dxa[2 * m], a, q[0], q[1]);
+            mma(dxa[2 * m + 1], a, q[2], q[3]);
+          }
+      }
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int pt = 0; pt < 4; ++pt)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float2 xv = unpack2(*reinterpret_cast<const uint32_t*>(
+              xb + (j0 + lg + 8 * rr) * kLdX + 32 * S + 8 * pt + 2 * cq));
+          part[rr] = fmaf(xv.x, dxa[pt][2 * rr],
+                          fmaf(xv.y, dxa[pt][2 * rr + 1], part[rr]));
+        }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        part[rr] = segment_sum(part[rr], 4);
+        if (cq == 0) red_ured[S * kTQ + j0 + lg + 8 * rr] = part[rr];
+        float* o = dx + ((rk + j0 + lg + 8 * rr) * H + h) * kTP + 32 * S +
+                   2 * cq;
+#pragma unroll
+        for (int pt = 0; pt < 4; ++pt)
+          *reinterpret_cast<float2*>(o + 8 * pt) =
+              make_float2(dxa[pt][2 * rr] * dr[rr],
+                          dxa[pt][2 * rr + 1] * dr[rr]);
+      }
+    }
+    // x_K . g^T into dB as d_j (x . g^T)_j.
+    {
+      float acc[NTN][4];
+#pragma unroll
+      for (int t = 0; t < NTN; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+      for (int kp = 0; kp < 4; ++kp) {
+        uint32_t a[4];
+        frag_rows(a, xb, kLdX, kp);
+#pragma unroll
+        for (int m = 0; m < NTN / 2; ++m)
+#pragma unroll
+          for (int k = 0; k < NT; ++k) {
+            uint32_t q[4];
+            frag_plane(q, gp, k, S * NTN / 2 + m, kp, false);
+            mma(acc[2 * m], a, q[0], q[1]);
+            mma(acc[2 * m + 1], a, q[2], q[3]);
+          }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dba[nt][e] = fmaf(dr[e >> 1], acc[nt][e], dba[nt][e]);
+    }
+    // dy_K . h_prev^T into dC as exp(cum_i) (dy . h_prev^T)_i, and
+    // <C_i . h_prev, dy_i> on the way.
+    {
+      float acc[NTN][4];
+#pragma unroll
+      for (int t = 0; t < NTN; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+      for (int kp = 0; kp < 4; ++kp) {
+        uint32_t a[4];
+        frag_rows(a, dyb, kLdX, kp);
+#pragma unroll
+        for (int m = 0; m < NTN / 2; ++m)
+#pragma unroll
+          for (int k = 0; k < NT; ++k) {
+            uint32_t q[4];
+            frag_plane(q, hq, k, S * NTN / 2 + m, kp, false);
+            mma(acc[2 * m], a, q[0], q[1]);
+            mma(acc[2 * m + 1], a, q[2], q[3]);
+          }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int i = j0 + lg + 8 * rr;
+        const float ec = expf(cur[rr]);
+        float ip = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NTN; ++nt) {
+          const float2 cv = unpack2(*reinterpret_cast<const uint32_t*>(
+              cs + i * kLdN + S * NH + 8 * nt + 2 * cq));
+          ip = fmaf(cv.x, acc[nt][2 * rr], fmaf(cv.y, acc[nt][2 * rr + 1],
+                                                ip));
+          dca[nt][2 * rr] = fmaf(ec, acc[nt][2 * rr], dca[nt][2 * rr]);
+          dca[nt][2 * rr + 1] =
+              fmaf(ec, acc[nt][2 * rr + 1], dca[nt][2 * rr + 1]);
+        }
+        ip = segment_sum(ip, 4);
+        if (cq == 0) red_inter[S * kTQ + i] = ip;
+      }
+    }
+    // Every warp is done with the planes and the partial sums are
+    // complete.  After the last head: the group's sums zeroed where g and
+    // h_prev were, and the second phase's first tile copied.
+    group_sync(0, kTcThreads);
+    if (gi + 1 == G) {
+      for (int e = tid; e < nb * (int)(kAccTile / 16); e += kTcThreads)
+        acc4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      load_tile(grp * G, 0, 0);
+      cp_async_commit();
+    }
+    // dcum's and ddt's state and inter terms of rows K, and this block's
+    // dcum_last terms: warp 0, two rows a lane.
+    if (warp == 0) {
+      float tail = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int k = lane + 32 * u, j = kTQ * K + k;
+        const float ured = red_ured[k] + red_ured[kTQ + k];
+        const float inter =
+            expf(cg[j]) * (red_inter[k] + red_inter[kTQ + k]);
+        const float dex = expf(cl - cg[j]), dj = dex * dg[j];
+        const int64_t o = (rk + k) * H + h;
+        dcum[o] = inter - dj * ured;
+        ddt[o] = dex * ured;
+        tail = fmaf(dj, ured, tail);
+      }
+      tail = segment_sum(tail, 32);
+      if (lane == 0) {
+        if (K == nb - 1) {
+          float gh = 0.f;
+          for (int k = 0; k < kTcThreads / 32; ++k) gh += red_gh[k];
+          tail += expf(cl) * gh;
+        }
+        tails[(((int64_t)b * nc + c) * nb + K) * H + h] = tail;
+      }
+    }
+  }
+
+  // Phase 2: each head's tiles.
+  int seq = 0;   // ring tiles consumed
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = grp * G + gi, buf = (G + gi) & 1;
+    // Head gi's x_K, dy_K, dt, cum and first ring tile have landed; every
+    // warp is done with head gi - 1.
+    cp_async_wait_all();
+    group_sync(0, kTcThreads);
+    if (gi + 1 < G) load_xdy(h + 1, buf ^ 1);
+    cp_async_commit();
+    const bf16* xb = xs + buf * kTQ * kLdX;
+    const bf16* dyb = dys + buf * kTQ * kLdX;
+    const float* dg = dtc + buf * 2 * Q;
+    const float* cg = dg + Q;
+    float dtr[2], cur[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int j = kTQ * K + j0 + lg + 8 * rr;
+      dtr[rr] = dg[j];
+      cur[rr] = cg[j];
+    }
+    // dx_K's intra term over the diagonal and the column side; the column
+    // sums of V (over i, this warp's half) and the row sums of T on the
+    // row side (over j, this warp's half).
+    float dxa[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dxa[t][e] = 0.f;
+    float colp[2] = {0.f, 0.f}, rowp[2] = {0.f, 0.f};
+
+    // The diagonal tile (K, K), as ssd_chunk_bwd_tc's chunk.
+    stage_cbt(cs, true);
+    group_sync(0, kTcThreads);
+    {
+      float dwt[4][4], dcb[4][4], tcol[4][2];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dwt[t][e] = dcb[t][e] = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) tcol[t][0] = tcol[t][1] = 0.f;
+#pragma unroll
+      for (int kp = 0; kp < 4; ++kp) {
+        uint32_t a[4];
+        frag_rows(a, xb, kLdX, kp);
+#pragma unroll
+        for (int l = 0; l < 2; ++l) {
+          if (2 * S + l < r) continue;
+          uint32_t q[4];
+          frag_cols(q, dyb, kLdX, 2 * S + l, kp);
+          mma(dwt[2 * l], a, q[0], q[1]);
+          mma(dwt[2 * l + 1], a, q[2], q[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < r) continue;    // every i of the step is below j
+        uint32_t wa[NT][4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = 2 * kk + half;
+          const int i = 8 * t + 2 * cq;
+          const float ci[2] = {cg[kTQ * K + i], cg[kTQ * K + i + 1]};
+          const float4 cb4 = scr4[(r * 8 + t) * 32 + lane];
+          const float cbt[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int j = j0 + lg + 8 * rr;
+            float w[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float ex = i + e >= j ? expf(ci[e] - cur[rr]) : 0.f;
+              const float kv = cbt[2 * rr + e] * ex;
+              w[e] = kv * dtr[rr];
+              if ((t >> 2) == S) {
+                const int lt = t & 3;
+                const float dw = dwt[lt][2 * rr + e];
+                const float v = dw * kv;
+                colp[rr] += v;
+                tcol[lt][e] = fmaf(v, dtr[rr], tcol[lt][e]);
+                dcb[lt][2 * rr + e] = dw * ex * dtr[rr];
+              }
+            }
+            uint32_t tt[NT];
+            split<NT>(w[0], w[1], tt);
+#pragma unroll
+            for (int k = 0; k < NT; ++k) wa[k][2 * half + rr] = tt[k];
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          uint32_t q[4];
+          frag_cols_t(q, dyb, kLdX, 2 * S + m, kk);
+#pragma unroll
+          for (int k = 0; k < NT; ++k) {
+            mma(dxa[2 * m], wa[k], q[0], q[1]);
+            mma(dxa[2 * m + 1], wa[k], q[2], q[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = column_sum(tcol[t][e]);
+          if (lg == 0) red_rowd[r * kTQ + 32 * S + 8 * t + 2 * cq + e] = v;
+        }
+      accumulate(0, dcb);
+    }
+    group_sync(0, kTcThreads);   // every warp is done with the fragments
+
+    // The off-diagonal tiles, through the ring.
+#pragma unroll 1
+    for (int t = 0; t < ntiles; ++t, ++seq) {
+      if (t > 0) {
+        cp_async_wait_all();
+        group_sync(0, kTcThreads);
+      }
+      if (t + 1 < ntiles)
+        load_tile(h, t + 1, (seq + 1) & 1);
+      else if (gi + 1 < G)
+        load_tile(h + 1, 0, (seq + 1) & 1);
+      cp_async_commit();
+      const bf16* t64 = ring_t64(seq & 1);
+      const bf16* tn = ring_tn(seq & 1);
+      if (t < ncol) {
+        // Column side, tile (I, K): rows j of K, columns i of I.
+        const int I = K + 1 + t;
+        stage_cbt(tn, false);
+        group_sync(0, kTcThreads);
+        float dwt[4][4], dcb[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dwt[u][e] = dcb[u][e] = 0.f;
+#pragma unroll
+        for (int kp = 0; kp < 4; ++kp) {
+          uint32_t a[4];
+          frag_rows(a, xb, kLdX, kp);
+#pragma unroll
+          for (int l = 0; l < 2; ++l) {
+            uint32_t q[4];
+            frag_cols(q, t64, kLdX, 2 * S + l, kp);
+            mma(dwt[2 * l], a, q[0], q[1]);
+            mma(dwt[2 * l + 1], a, q[2], q[3]);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t wa[NT][4];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int u = 2 * kk + half;
+            const int i = 8 * u + 2 * cq;
+            const float ci[2] = {cg[kTQ * I + i], cg[kTQ * I + i + 1]};
+            const float4 cb4 = scr4[(r * 8 + u) * 32 + lane];
+            const float cbt[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              float w[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float ex = expf(ci[e] - cur[rr]);   // i > j
+                const float kv = cbt[2 * rr + e] * ex;
+                w[e] = kv * dtr[rr];
+                if ((u >> 2) == S) {
+                  const int lt = u & 3;
+                  const float dw = dwt[lt][2 * rr + e];
+                  colp[rr] += dw * kv;
+                  dcb[lt][2 * rr + e] = dw * ex * dtr[rr];
+                }
+              }
+              uint32_t tt[NT];
+              split<NT>(w[0], w[1], tt);
+#pragma unroll
+              for (int k = 0; k < NT; ++k) wa[k][2 * half + rr] = tt[k];
+            }
+          }
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            uint32_t q[4];
+            frag_cols_t(q, t64, kLdX, 2 * S + m, kk);
+#pragma unroll
+            for (int k = 0; k < NT; ++k) {
+              mma(dxa[2 * m], wa[k], q[0], q[1]);
+              mma(dxa[2 * m + 1], wa[k], q[2], q[3]);
+            }
+          }
+        }
+        accumulate(1 + t, dcb);
+      } else {
+        // Row side, tile (K, J): rows i of K, columns j of J.
+        const int J = t - ncol;
+        float cbr[4][4], dw[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cbr[u][e] = dw[u][e] = 0.f;
+#pragma unroll 2
+        for (int kn = 0; kn < N / 16; ++kn) {
+          uint32_t a[4];
+          frag_rows(a, cs, kLdN, kn);
+#pragma unroll
+          for (int l = 0; l < 2; ++l) {
+            uint32_t q[4];
+            frag_cols(q, tn, kLdN, 2 * S + l, kn);
+            mma(cbr[2 * l], a, q[0], q[1]);
+            mma(cbr[2 * l + 1], a, q[2], q[3]);
+          }
+        }
+#pragma unroll
+        for (int kp = 0; kp < 4; ++kp) {
+          uint32_t a[4];
+          frag_rows(a, dyb, kLdX, kp);
+#pragma unroll
+          for (int l = 0; l < 2; ++l) {
+            uint32_t q[4];
+            frag_cols(q, t64, kLdX, 2 * S + l, kp);
+            mma(dw[2 * l], a, q[0], q[1]);
+            mma(dw[2 * l + 1], a, q[2], q[3]);
+          }
+        }
+        // cur holds cum of this warp's rows i; dW o E o dt over dw.
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = 32 * S + 8 * u + 2 * cq;
+          const float cj[2] = {cg[kTQ * J + j], cg[kTQ * J + j + 1]};
+          const float dj[2] = {dg[kTQ * J + j], dg[kTQ * J + j + 1]};
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float ex = expf(cur[rr] - cj[e]);   // i > j
+              const float d = dw[u][2 * rr + e];
+              rowp[rr] = fmaf(d * (cbr[u][2 * rr + e] * ex), dj[e],
+                              rowp[rr]);
+              dw[u][2 * rr + e] = d * ex * dj[e];
+            }
+        }
+        accumulate(1 + t, dw);
+      }
+    }
+
+    // dx of rows K: the first phase's state term plus this head's; the
+    // row and column sums' partials.
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float* o = dx + ((rk + j0 + lg + 8 * rr) * H + h) * kTP + 32 * S +
+                 2 * cq;
+#pragma unroll
+      for (int pt = 0; pt < 4; ++pt) {
+        const float2 v = *reinterpret_cast<const float2*>(o + 8 * pt);
+        *reinterpret_cast<float2*>(o + 8 * pt) =
+            make_float2(v.x + dxa[pt][2 * rr], v.y + dxa[pt][2 * rr + 1]);
+      }
+      colp[rr] = segment_sum(colp[rr], 4);
+      rowp[rr] = segment_sum(rowp[rr], 4);
+      if (cq == 0) {
+        red_colv[S * kTQ + j0 + lg + 8 * rr] = colp[rr];
+        red_rows[S * kTQ + j0 + lg + 8 * rr] = rowp[rr];
+      }
+    }
+    group_sync(0, kTcThreads);
+
+    // dcum and ddt of rows K completed from the partial sums in a fixed
+    // order: warp 0, two rows a lane (the lanes that wrote them in the
+    // first phase).
+    if (warp == 0) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int k = lane + 32 * u, j = kTQ * K + k;
+        const float rowt = (((red_rowd[k] + red_rowd[kTQ + k]) +
+                             red_rowd[2 * kTQ + k]) + red_rowd[3 * kTQ + k]) +
+                           (red_rows[k] + red_rows[kTQ + k]);
+        const float colv = red_colv[k] + red_colv[kTQ + k];
+        const int64_t o = (rk + k) * H + h;
+        dcum[o] += rowt - dg[j] * colv;
+        ddt[o] += colv;
+      }
+    }
+  }
+
+  // The group's dB_K += sum^T . C_I and dC_K += sum . B_J, each tile's sum
+  // split once: the diagonal from C_K and B_K, the others' C_I and B_J
+  // through the ring.
+  stage_acc(0);
+  if (ntiles > 0) load_tile(-1, 0, 0);
+  cp_async_commit();
+  group_sync(0, kTcThreads);
+  staged_times(dba, cs, r, 3);   // i >= j
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk > r) continue;        // j <= i, the staged tile read transposed
+    uint32_t ta[NT][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = j0 + lg + 8 * (q & 1);
+      const int j = 16 * kk + 2 * cq + 8 * (q >> 1);
+      uint32_t tt[NT];
+      split<NT>(scr[j * kLdScr + i], scr[(j + 1) * kLdScr + i], tt);
+#pragma unroll
+      for (int k = 0; k < NT; ++k) ta[k][q] = tt[k];
+    }
+#pragma unroll
+    for (int m = 0; m < NTN / 2; ++m) {
+      uint32_t q[4];
+      frag_cols_t(q, bs, kLdN, S * NTN / 2 + m, kk);
+#pragma unroll
+      for (int k = 0; k < NT; ++k) {
+        mma(dca[2 * m], ta[k], q[0], q[1]);
+        mma(dca[2 * m + 1], ta[k], q[2], q[3]);
+      }
+    }
+  }
+#pragma unroll 1
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait_all();
+    group_sync(0, kTcThreads);   // tile t has landed; the staging tile and
+                                 // the other stage are free
+    if (t + 1 < ntiles) load_tile(-1, t + 1, (t + 1) & 1);
+    cp_async_commit();
+    stage_acc(1 + t);
+    group_sync(0, kTcThreads);
+    if (t < ncol)
+      staged_times(dba, ring_tn(t & 1), 0, 3);
+    else
+      staged_times(dca, ring_tn(t & 1), 0, 3);
+  }
+
+  // This group's partial dB and dC of rows K.
+  const int64_t part0 = (int64_t)grp * gridDim.z * L * N;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int64_t o = part0 + (rk + j0 + lg + 8 * rr) * N + S * NH + 2 * cq;
+#pragma unroll
+    for (int nt = 0; nt < NTN; ++nt) {
+      *reinterpret_cast<float2*>(db_part + o + 8 * nt) =
+          make_float2(dba[nt][2 * rr], dba[nt][2 * rr + 1]);
+      *reinterpret_cast<float2*>(dc_part + o + 8 * nt) =
+          make_float2(dca[nt][2 * rr], dca[nt][2 * rr + 1]);
+    }
+  }
+}
+
+// One block of 8 warps per (chunk, row block K, group of G heads, batch).
+template <int N>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    ssd_chunk_bwd_tc_tiled(
+        const bf16* __restrict__ x, const float* __restrict__ dt,
+        const float* __restrict__ cum, const bf16* __restrict__ bm,
+        const bf16* __restrict__ cm, const bf16* __restrict__ dy,
+        const float* __restrict__ g, const float* __restrict__ hp,
+        float* __restrict__ dx, float* __restrict__ dcum,
+        float* __restrict__ ddt, float* __restrict__ db_part,
+        float* __restrict__ dc_part, float* __restrict__ tails, int L, int H,
+        int G, int Q) {
+  constexpr int kLdN = N + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TiledBwdSmem lay(N, Q);
+  bf16* cs = reinterpret_cast<bf16*>(smem_raw + lay.c);
+  bf16* bs = reinterpret_cast<bf16*>(smem_raw + lay.b);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + lay.x);
+  bf16* dys = reinterpret_cast<bf16*>(smem_raw + lay.dy);
+  float* gs = reinterpret_cast<float*>(smem_raw + lay.ghp);
+  float* hs = gs + N * kTP;
+  float* dtc = reinterpret_cast<float*>(smem_raw + lay.dtc);
+  const int tid = threadIdx.x;
+  const int nb = Q / kTQ, nc = L / Q;
+  const int c = blockIdx.x / nb, K = blockIdx.x % nb;
+  const int h0 = blockIdx.y * G, b = blockIdx.z;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;
+  const int64_t rk = row0 + kTQ * K;
+
+  // C_K and B_K once per group, and the first head's x_K, dy_K, dt, cum, g
+  // and h_prev; here rather than in the warps' code, whose registers are
+  // at their limit at N = 128.
+  for (int e = tid; e < kTQ * (N / 8); e += kTcThreads) {
+    const int i = e / (N / 8), k8 = (e % (N / 8)) * 8;
+    cp_async16(cs + i * kLdN + k8, cm + (rk + i) * N + k8);
+    cp_async16(bs + i * kLdN + k8, bm + (rk + i) * N + k8);
+  }
+  for (int e = tid; e < kTQ * (kTP / 8); e += kTcThreads) {
+    const int i = e >> 3, k8 = (e & 7) * 8;
+    const int64_t o = ((rk + i) * H + h0) * kTP + k8;
+    cp_async16(xs + i * kLdX + k8, x + o);
+    cp_async16(dys + i * kLdX + k8, dy + o);
+  }
+  const int64_t st = (((int64_t)b * nc + c) * H + h0) * (int64_t)N * kTP;
+  for (int e = tid; e < N * (kTP / 4); e += kTcThreads) {
+    cp_async16(gs + 4 * e, g + st + 4 * e);
+    cp_async16(hs + 4 * e, hp + st + 4 * e);
+  }
+  for (int e = tid; e < 2 * Q; e += kTcThreads) {
+    const int j = e < Q ? e : e - Q;
+    cp_async4(dtc + e, (e < Q ? dt : cum) + (row0 + j) * H + h0);
+  }
+  cp_async_commit();
+  // Warps 0-3 take the first half of each product's columns, 4-7 the
+  // second; both run the same barriers in the same order.
+  if (tid < kTcThreads / 2)
+    chunk_bwd_tiled_warp<N, 0>(x, dt, cum, bm, cm, dy, g, hp, dx, dcum, ddt,
+                               db_part, dc_part, tails, smem_raw, L, H, G,
+                               Q);
+  else
+    chunk_bwd_tiled_warp<N, 1>(x, dt, cum, bm, cm, dy, g, hp, dx, dcum, ddt,
+                               db_part, dc_part, tails, smem_raw, L, H, G,
+                               Q);
+}
+
+template <int N>
+cudaError_t launch_chunk_bwd_tiled(const void* x, const void* dt,
+                                   const void* cum, const void* bm,
+                                   const void* cm, const void* dy,
+                                   const void* g, const void* hp, void* dx,
+                                   void* dcum, void* ddt, void* db_part,
+                                   void* dc_part, void* tails, int B, int L,
+                                   int H, int Q, int G, cudaStream_t stream) {
+  const size_t smem = TiledBwdSmem(N, Q).total;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_bwd_tc_tiled<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((L / Q) * (Q / kTQ), H / G, B);
+  ssd_chunk_bwd_tc_tiled<N><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(cum), static_cast<const bf16*>(bm),
+      static_cast<const bf16*>(cm), static_cast<const bf16*>(dy),
+      static_cast<const float*>(g), static_cast<const float*>(hp),
+      static_cast<float*>(dx), static_cast<float*>(dcum),
+      static_cast<float*>(ddt), static_cast<float*>(db_part),
+      static_cast<float*>(dc_part), static_cast<float*>(tails), L, H, G, Q);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // ssd_chunk_bwd_tf32: fp32 x, B, C and dy at Q = P = 64, N = 64 or 128
 // ---------------------------------------------------------------------------
 
@@ -2499,6 +3449,39 @@ extern "C" int ssd_chunk_bwd_launch(const void* x, const void* dt,
   if (dtype == 1 && mt == 2) SSD_CHUNK_BWD(bf16, 2);
 #undef SSD_CHUNK_BWD
   return (int)cudaErrorInvalidValue;
+}
+
+// dtype must be 1 (bfloat16 x, B, C and dy); shapes as ssd_chunk_bwd_launch
+// with P = 64, N = 64 or 128 and Q = 128, 192 or 256; tails [B, L / Q,
+// Q / 64, H] fp32 (each row block's terms of its chunk's dcum_last, for
+// the caller to add to the chunk's last row).  Runs ssd_chunk_bwd_tc_tiled,
+// which writes dcum without those terms.
+extern "C" int ssd_chunk_bwd_tiled_launch(
+    const void* x, const void* dt, const void* cum, const void* bm,
+    const void* cm, const void* dy, const void* g, const void* hp, void* dx,
+    void* dcum, void* ddt, void* db_part, void* dc_part, void* tails,
+    int dtype, int B, int L, int H, int P, int N, int Q, int G,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != 1 || P != kTP || Q % kTQ || Q <= kTQ || Q > kTiledMaxQ ||
+      L % Q || G < 1 || G > kMaxGroup || H % G)
+    return (int)cudaErrorInvalidValue;
+#define SSD_CHUNK_BWD_TILED(NN)                                              \
+  return (int)launch_chunk_bwd_tiled<NN>(x, dt, cum, bm, cm, dy, g, hp, dx,  \
+                                         dcum, ddt, db_part, dc_part, tails, \
+                                         B, L, H, Q, G, s)
+  if (N == 64) SSD_CHUNK_BWD_TILED(64);
+  if (N == 128) SSD_CHUNK_BWD_TILED(128);
+#undef SSD_CHUNK_BWD_TILED
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory (bytes) of ssd_chunk_bwd_tc_tiled at state size N
+// (64 or 128) and chunk Q (128, 192 or 256); -1 for anything else.
+extern "C" int ssd_chunk_bwd_tiled_smem_bytes(int N, int Q) {
+  if ((N != 64 && N != 128) || Q % kTQ || Q <= kTQ || Q > kTiledMaxQ)
+    return -1;
+  return (int)TiledBwdSmem(N, Q).total;
 }
 
 // Dynamic shared memory (bytes) of ssd_chunk_bwd_tc (which = 0) at state

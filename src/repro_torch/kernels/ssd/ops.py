@@ -3,10 +3,12 @@ plain torch version, chosen by the device the tensors lie on.
 
 On a CUDA tensor, :func:`ssd` computes the chunk cumsum, launches the
 chunk kernel for the intra-chunk term and the chunk states (on the
-tensor cores at Q = P = 64, N in {64, 128}: ``ssd_chunk_tc`` for bf16,
-``ssd_chunk_tf32`` for fp32), then the carry kernel (at Q and N multiples
-of 16 on the tensor cores: ``ssd_carry_tc`` for bf16 C, ``ssd_carry_tf32``
-for fp32 C; else ``ssd_carry_kernel``), which walks
+tensor cores at P = 64, N in {64, 128}: for bf16 ``ssd_chunk_tc`` at
+Q = 64 and ``ssd_chunk_tc_tiled`` at Q = 128, 192 and 256, for fp32
+``ssd_chunk_tf32`` at Q = 64; else ``ssd_chunk_kernel`` on the CUDA
+cores), then the carry kernel (at Q and N multiples of 16 on the tensor
+cores: ``ssd_carry_tc`` for bf16 C, ``ssd_carry_tf32`` for fp32 C; else
+``ssd_carry_kernel``), which walks
 the chunks in order and writes y in x's dtype and the final state; the
 reference keeps that carry in jnp outside its Pallas kernel.  On a CPU
 tensor it runs ``ref.ssd_ref``, which autograd differentiates.  There is
@@ -26,8 +28,10 @@ path under ``FakeTensorMode`` without launching, and with a flop formula
   backward (each chunk's gradients) from ``csrc/ssd_bwd.cu`` — at the
   models' shapes (Q = P = 64, N in {64, 128}) for bf16 the tensor-core
   ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, for fp32 the TF32
-  ``ssd_carry_bwd_tf32`` and ``ssd_chunk_bwd_tf32``, else the
-  CUDA-core ``ssd_carry_bwd`` and ``ssd_chunk_bwd``
+  ``ssd_carry_bwd_tf32`` and ``ssd_chunk_bwd_tf32``; for bf16 at Q =
+  128, 192 and 256 (P = 64, N in {64, 128}) the CUDA-core
+  ``ssd_carry_bwd`` and the tensor-core ``ssd_chunk_bwd_tc_tiled``; else
+  the CUDA-core ``ssd_carry_bwd`` and ``ssd_chunk_bwd``
   (``kernel.bwd_kernels``) — and
   it finishes in torch: dB and dC summed over the kernel's head groups in
   a fixed order, the cumsum's gradient (ddt += A·da, dA = Σ dt·da).
@@ -46,7 +50,9 @@ counts the products its three launches issue: the chunk pass again for
 the states; the carry backward's (exp(cum) ∘ C)ᵀ·dy, 2QNP; the chunk
 backward's x·dyᵀ, (K ∘ dt)ᵀ·dy, B·g, x·gᵀ and dy·h_prevᵀ, 4Q²P + 6QNP,
 and once per block of G heads (``kernel.chunk_bwd_heads``) C·Bᵀ and
-the head-summed (dW ∘ E ∘ dt)ᵀ against C and B, 6Q²N.  Elementwise work
+the head-summed (dW ∘ E ∘ dt)ᵀ against C and B, 6Q²N
+(``ssd_chunk_bwd_tc_tiled`` forms C·Bᵀ per head over its tiles, 2Q²N a
+head, and the two products once per block, 4Q²N).  Elementwise work
 (decays, cumsums, row sums) is not counted.
 
 ``LAUNCHES`` counts the forward's chunk-kernel launches,
@@ -207,9 +213,13 @@ def ssd_bwd_flops(Bsz: int, L: int, H: int, P: int, N: int, chunk: int,
     from .kernel import bwd_kernels, chunk_bwd_heads
     nc = math.ceil(L / chunk)
     Q = chunk
-    G = chunk_bwd_heads(bwd_kernels(dtype, Q, P, N)[1], Bsz * nc, H, sms)
+    name = bwd_kernels(dtype, Q, P, N)[1]
+    G = chunk_bwd_heads(name, Bsz * nc, H, sms, Q)
     per_head = ((2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P)
                 + 2 * Q * N * P + 4 * Q * Q * P + 6 * Q * N * P)
+    if name == "ssd_chunk_bwd_tc_tiled":
+        return Bsz * nc * (H * (per_head + 2 * Q * Q * N)
+                           + (H // G) * 4 * Q * Q * N)
     return Bsz * nc * (H * per_head + (H // G) * 6 * Q * Q * N)
 
 

@@ -230,10 +230,13 @@ def bf16_terms(v, n):
 
 
 def emulate_tensor_core_chunks(x, dt, cum, Bm, Cm, chunk, terms):
-    """The bf16 chunk kernel's arithmetic: x, B and C in bf16; C·Bᵀ with
+    """The bf16 chunk kernels' arithmetic: x, B and C in bf16; C·Bᵀ with
     exact products and fp32 sums; W and B ⊙ dec_end in fp32, each split
     into ``terms`` bf16 terms whose products are exact, summed in fp32.
-    Returns (y_intra [B,L,H,P], states [B,nc,H,N,P])."""
+    Over chunks longer than 64 rows, ``ssd_chunk_tc_tiled``'s walk over
+    64 × 64 tiles: y of row block I summed over the column blocks J <= I
+    in order, the state over every J in order (at 64 rows the one tile of
+    ``ssd_chunk_tc``).  Returns (y_intra [B,L,H,P], states [B,nc,H,N,P])."""
     Bsz, L, H, P = x.shape
     N = Bm.shape[-1]
     nc = L // chunk
@@ -249,19 +252,30 @@ def emulate_tensor_core_chunks(x, dt, cum, Bm, Cm, chunk, terms):
     seg = cumc[:, :, :, None, :] - cumc[:, :, None, :, :]
     w = torch.where(causal, cb[..., None] * torch.exp(seg)
                     * dtc[:, :, None, :, :], 0.0)           # [b,c,i,j,h]
-    y = sum(torch.einsum("bcijh,bcjhp->bcihp", t, xc)
-            for t in bf16_terms(w, terms))
     de = torch.exp(cumc[:, :, -1:, :] - cumc) * dtc         # [b,c,j,h]
     bd = Bc[:, :, :, None, :] * de[..., None]               # [b,c,j,h,n]
-    st = sum(torch.einsum("bcjhn,bcjhp->bchnp", t, xc)
-             for t in bf16_terms(bd, terms))
+    R = min(chunk, 64)
+    blocks = [slice(k * R, (k + 1) * R) for k in range(chunk // R)]
+    y = torch.zeros_like(xc)
+    st = torch.zeros((Bsz, nc, H, N, P))
+    for J, j in enumerate(blocks):
+        for I in range(J, len(blocks)):
+            i = blocks[I]
+            y[:, :, i] += sum(torch.einsum("bcijh,bcjhp->bcihp", t,
+                                           xc[:, :, j])
+                              for t in bf16_terms(w[:, :, i, j], terms))
+        st += sum(torch.einsum("bcjhn,bcjhp->bchnp", t, xc[:, :, j])
+                  for t in bf16_terms(bd[:, :, j], terms))
     return y.reshape(Bsz, L, H, P), st
 
 
-# The sweep's shapes (bar: 1e-4 absolute) and a narrow zamba2-like shape
-# at the kernel's Q = 64 (bar: 1e-4·max|ref|, the full-width bar).
+# The sweep's shapes (bar: 1e-4 absolute), a narrow zamba2-like shape at
+# ssd_chunk_tc's Q = 64, and ssd_chunk_tc_tiled's chunks of 128, 192 and
+# 256 rows at both state sizes (bar: 1e-4·max|ref|, the full-width bar).
+TILED_SHAPES = [(1, 256, 2, 64, 128, 128), (1, 384, 2, 64, 64, 192),
+                (1, 512, 2, 64, 128, 256), (1, 512, 3, 64, 64, 256)]
 EMU_SHAPES = [s + ("sweep",) for s in SWEEP] + [
-    (2, 256, 4, 64, 64, 64, "full")]
+    (2, 256, 4, 64, 64, 64, "full")] + [s + ("full",) for s in TILED_SHAPES]
 
 
 def emulation_ratios(terms):
@@ -298,6 +312,67 @@ def test_tensor_core_emulation_meets_the_bar(terms):
         assert min(ratios.values()) > 1.0, ratios
     else:
         assert max(ratios.values()) <= 1.0, ratios
+
+
+@pytest.mark.parametrize("B,L,H,P,N,Q", TILED_SHAPES)
+def test_tiled_chunk_emulation_meets_the_bar(B, L, H, P, N, Q):
+    """``ssd_chunk_tc_tiled``'s arithmetic (two bf16 terms, the tile walk)
+    on bf16 inputs against the plain chunk pass, and against the
+    reference's own: its Pallas ``ssd_chunks`` in interpret mode on the
+    same bf16 values, each output within 1e-4·max|ref|; carried by the
+    plain carry, y and the final state within 1e-4·max|ref| of the
+    reference's ``ssd_ref`` and ``ssd(use_pallas=True)``."""
+    from repro_torch.kernels.ssd.kernel import TERMS, tiled_shape
+    assert tiled_shape(torch.bfloat16, Q, P, N)
+    arrs = make(B * L + N + 3, B, L, H, P, N)
+    for i in (0, 3, 4):   # the values the bf16 kernel reads, exactly
+        arrs[i] = torch.from_numpy(arrs[i]).bfloat16().float().numpy()
+    js, ts = jt(arrs)
+    x, dt, A, Bm, Cm = ts
+    cum = chunk_cumsum(dt, A, Q)
+    got = emulate_tensor_core_chunks(x.bfloat16(), dt, cum, Bm.bfloat16(),
+                                     Cm.bfloat16(), Q, TERMS)
+    wants = (ssd_chunks_ref(x, dt, cum, Bm, Cm, Q),
+             j_chunks(*(jnp.asarray(t.numpy())
+                        for t in (x, dt, cum, Bm, Cm)), Q))
+    for want in wants:
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            err = float(np.abs(g.numpy() - w).max())
+            assert err <= 1e-4 * float(np.abs(w).max()), err
+    y, final = ssd_combine(*got, cum, Cm, Q)
+    for ry, rs in (j_ssd_ref(*js, chunk=Q),
+                   j_ssd(*js, chunk=Q, use_pallas=True)):
+        for g, w in ((y, ry), (final, rs)):
+            w = np.asarray(w)
+            err = float(np.abs(g.numpy() - w).max())
+            assert err <= 1e-4 * float(np.abs(w).max()), err
+
+
+def test_tiled_terms_is_the_kernels_term_count():
+    """``ssd_chunk_tc_tiled`` is built with ``kernel.TERMS`` bf16 terms
+    (``kTiledTerms``), the count the emulation above holds to the bar;
+    the wrapper asks for no other."""
+    import re
+    from repro_torch.kernels.ssd import kernel
+    src = (kernel.CSRC / "ssd.cu").read_text()
+    assert re.findall(r"constexpr int kTiledTerms = (\d+);", src) == [
+        str(kernel.TERMS)]
+
+
+def test_tiled_tiles_fit_shared_memory():
+    """``ssd_chunk_tc_tiled``'s shared memory (``kernel.chunk_tiled_smem_
+    bytes``) at every chunk and state size it takes leaves room for two
+    blocks an SM (228 KiB, 1 KiB reserved a block): at its largest, N =
+    128 and Q = 256, the C·Bᵀ fragments of four tiles, C_I and B_J, and dt
+    and cum of two heads."""
+    from repro_torch.kernels.ssd.kernel import (TILED_Q,
+                                                chunk_tiled_smem_bytes)
+    for N in (64, 128):
+        for Q in TILED_Q:
+            assert 2 * (chunk_tiled_smem_bytes(N, Q) + 1024) <= 228 * 1024
+    assert chunk_tiled_smem_bytes(128, 256) == (4 * 16384 + 2 * 64 * 136 * 2
+                                                + 4 * 256 * 4)
 
 
 def test_three_terms_hold_fp32_exactly():
@@ -709,10 +784,12 @@ def test_tf32_chunk_term_counts(terms):
 
 def test_forward_dispatch_by_dtype_and_shape():
     """fp32 at Q = P = 64, N in {64, 128} takes ``ssd_chunk_tf32``, bf16
-    there ``ssd_chunk_tc``; every other chunk, head width or state size
-    the CUDA-core kernel.  The carry: at Q and N multiples of 16
-    ``ssd_carry_tc`` for bf16 C and ``ssd_carry_tf32`` for fp32 C, else
-    ``ssd_carry_kernel`` (the models' chunk of 50, odd chunks)."""
+    there ``ssd_chunk_tc``; bf16 at Q = 128, 192, 256 (P 64, N 64 or 128)
+    ``ssd_chunk_tc_tiled``, fp32 there the CUDA-core kernel; every other
+    chunk, head width or state size the CUDA-core kernel.  The carry: at Q
+    and N multiples of 16 ``ssd_carry_tc`` for bf16 C and
+    ``ssd_carry_tf32`` for fp32 C, else ``ssd_carry_kernel`` (the models'
+    chunk of 50, odd chunks)."""
     from repro_torch.kernels.ssd.kernel import FWD_KERNELS, fwd_kernels
     f32, bf = torch.float32, torch.bfloat16
     assert fwd_kernels(f32, 64, 64, 128) == ("ssd_chunk_tf32",
@@ -720,8 +797,14 @@ def test_forward_dispatch_by_dtype_and_shape():
     assert fwd_kernels(f32, 64, 64, 64) == ("ssd_chunk_tf32",
                                             "ssd_carry_tf32")
     assert fwd_kernels(bf, 64, 64, 128) == ("ssd_chunk_tc", "ssd_carry_tc")
+    for Q in (128, 192, 256):
+        for N in (64, 128):
+            assert fwd_kernels(bf, Q, 64, N) == ("ssd_chunk_tc_tiled",
+                                                 "ssd_carry_tc")
+            assert fwd_kernels(f32, Q, 64, N)[0] == "ssd_chunk_kernel"
     for Q, P, N in ((32, 64, 128), (64, 32, 128), (64, 64, 32),
-                    (128, 64, 128), (50, 16, 16)):
+                    (128, 32, 128), (256, 64, 32), (100, 64, 64),
+                    (50, 16, 16), (50, 64, 128)):
         for dtype in (f32, bf):
             assert fwd_kernels(dtype, Q, P, N)[0] == "ssd_chunk_kernel"
     for Q, P, N in ((32, 64, 128), (64, 32, 128), (128, 64, 128),
@@ -733,7 +816,7 @@ def test_forward_dispatch_by_dtype_and_shape():
             assert fwd_kernels(dtype, Q, P, N)[1] == "ssd_carry_kernel"
     assert set(FWD_KERNELS) == {
         fwd_kernels(dt, Q, 64, N)[k] for dt in (f32, bf)
-        for Q, N in ((64, 128), (50, 16)) for k in (0, 1)}
+        for Q, N in ((64, 128), (256, 128), (50, 16)) for k in (0, 1)}
 
 
 def test_tf32_tiles_fit_two_blocks_an_sm():
@@ -783,6 +866,54 @@ def test_cuda_tf32_chunk_kernel_matches_plain(B, L, H, P, N, Q):
     for name in kernel.FWD_KERNELS:
         assert kernel.FWD_KERNEL_LAUNCHES[name] == before[name] + {
             "ssd_chunk_tf32": 2, "ssd_chunk_kernel": 1}.get(name, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N,Q", [(1, 256, 4, 64, 128, 128),
+                                         (1, 384, 3, 64, 64, 192),
+                                         (2, 512, 8, 64, 128, 256),
+                                         (1, 512, 4, 64, 64, 256)])
+def test_cuda_tiled_chunk_kernel_matches_plain(B, L, H, P, N, Q):
+    """``ssd_chunk_tc_tiled`` on bf16 inputs against the plain version,
+    within 1e-4·max|ref| for y_intra and the states, a second pass equal
+    bit for bit, each launch counted under its name; ``terms=0`` still
+    takes the CUDA-core kernel at these chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.ssd import kernel
+    x, dt, A, Bm, Cm = _cuda_inputs(B, L, H, P, N, Q, "bfloat16")
+    cum = chunk_cumsum(dt, A, Q)
+    before = dict(kernel.FWD_KERNEL_LAUNCHES)
+    want = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+    got = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    again = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    core = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q, terms=0)
+    torch.cuda.synchronize()
+    for g, a, c, w in zip(got, again, core, want):
+        assert torch.equal(g, a)
+        for t in (g, c):
+            err = float((t - w).abs().max())
+            assert err <= 1e-4 * float(w.abs().max()), err
+    for name in kernel.FWD_KERNELS:
+        assert kernel.FWD_KERNEL_LAUNCHES[name] == before[name] + {
+            "ssd_chunk_tc_tiled": 2, "ssd_chunk_kernel": 1}.get(name, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_shared_memory_equals_mirror():
+    """The library's ``ssd_chunk_tiled_smem_bytes`` equals kernel.py's
+    mirror at every chunk and state size the kernel takes, and refuses
+    anything else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sizes come from the library")
+    from repro_torch.kernels.ssd import kernel
+    lib = kernel.LIB.load()
+    for N in (64, 128):
+        for Q in kernel.TILED_Q:
+            assert lib.ssd_chunk_tiled_smem_bytes(N, Q) == \
+                kernel.chunk_tiled_smem_bytes(N, Q) <= kernel.MAX_SMEM_BYTES
+    for N, Q in ((32, 128), (128, 64), (128, 320), (64, 100)):
+        assert lib.ssd_chunk_tiled_smem_bytes(N, Q) == -1
 
 
 @pytest.mark.cuda

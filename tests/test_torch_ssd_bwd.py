@@ -479,12 +479,14 @@ def emulate_tensor_core_carry_bwd(states, cum, Cm, dy, chunk, init_state,
 
 def emulate_tensor_core_chunk_bwd(x, dt, cum, Bm, Cm, dy, g, h_prev, chunk,
                                   heads_per_group, terms):
-    """``ssd_chunk_bwd_tc``'s arithmetic: x, B, C and dy in bf16; C·Bᵀ and
-    dW = dy·xᵀ with exact products and fp32 sums; every product with an
-    fp32 operand (K∘dt for dx, g for B·g and x·gᵀ, h_prev for dy·h_prevᵀ,
-    the group's summed dW∘E∘dt for dB and dC) with that operand split into
-    ``terms`` bf16 terms; ⟨B_j ⊗ x_j, g⟩ as x_j · (B·g)_j and the other
-    reductions in fp32.  Returns what ``ssd_chunk_bwd_ref`` does."""
+    """``ssd_chunk_bwd_tc``'s arithmetic, and over 64 × 64 tiles
+    ``ssd_chunk_bwd_tc_tiled``'s (the same values; only fp32 sums run in
+    another order): x, B, C and dy in bf16; C·Bᵀ and dW = dy·xᵀ with exact
+    products and fp32 sums; every product with an fp32 operand (K∘dt for
+    dx, g for B·g and x·gᵀ, h_prev for dy·h_prevᵀ, the group's summed
+    dW∘E∘dt for dB and dC) with that operand split into ``terms`` bf16
+    terms; ⟨B_j ⊗ x_j, g⟩ as x_j · (B·g)_j and the other reductions in
+    fp32.  Returns what ``ssd_chunk_bwd_ref`` does."""
     Bsz, L, H, P = x.shape
     N = Bm.shape[-1]
     nc, G = L // chunk, heads_per_group
@@ -584,21 +586,29 @@ def test_tensor_core_bwd_emulation_meets_the_bar(terms):
 BWD_TC = ("ssd_carry_bwd_tc", "ssd_chunk_bwd_tc")
 BWD_TF32 = ("ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32")
 BWD_CORE = ("ssd_carry_bwd", "ssd_chunk_bwd")
+BWD_TILED = ("ssd_carry_bwd", "ssd_chunk_bwd_tc_tiled")
 
 
 @pytest.mark.parametrize("dtype,Q,P,N,want", [
     ("bfloat16", 64, 64, 128, BWD_TC), ("bfloat16", 64, 64, 64, BWD_TC),
     ("float32", 64, 64, 128, BWD_TF32), ("float32", 64, 64, 64, BWD_TF32)]
+    + [("bfloat16", Q, 64, N, BWD_TILED) for Q in (128, 192, 256)
+       for N in (64, 128)]
     + [(dt, Q, P, N, BWD_CORE) for dt in ("bfloat16", "float32")
        for Q, P, N in ((32, 64, 128), (64, 32, 128), (64, 64, 32),
-                       (16, 16, 32))])
+                       (16, 16, 32), (128, 32, 128), (100, 64, 64),
+                       (50, 64, 128))]
+    + [("float32", Q, 64, 128, BWD_CORE) for Q in (128, 256)])
 def test_backward_dispatch_by_dtype_and_shape(dtype, Q, P, N, want):
     """At the forward tensor-core kernels' shapes (Q = P = 64, N in {64,
-    128}) bf16 takes the ``_tc`` pair and fp32 the ``_tf32`` pair; at any
-    other chunk, head width or state size either dtype takes the CUDA-core
-    pair; the pairs name every backward kernel."""
+    128}) bf16 takes the ``_tc`` pair and fp32 the ``_tf32`` pair; bf16 at
+    Q = 128, 192, 256 (P 64, N 64 or 128) the CUDA-core carry backward and
+    ``ssd_chunk_bwd_tc_tiled``; at any other chunk (fp32 at those chunks,
+    chunks not a multiple of 64), head width or state size either dtype
+    takes the CUDA-core pair; the pairs name every backward kernel."""
     assert kernel.bwd_kernels(getattr(torch, dtype), Q, P, N) == want
-    assert set(BWD_TC + BWD_TF32 + BWD_CORE) == set(kernel.BWD_KERNELS)
+    assert set(BWD_TC + BWD_TF32 + BWD_CORE + BWD_TILED) == set(
+        kernel.BWD_KERNELS)
 
 
 def test_bwd_terms_is_the_kernels_term_count():
@@ -673,7 +683,7 @@ def test_cuda_backward_kernels_match_plain(B, L, H, P, N, Q, dtype):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     G = kernel.chunk_bwd_heads(
         kernel.bwd_kernels(getattr(torch, dtype), Q, P, N)[1], B * L // Q, H,
-        sms)
+        sms, Q)
     got = kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
     again = kernel.ssd_chunk_bwd_cuda(x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
     want = ssd_chunk_bwd_ref(x, dt, cum, Bm, Cm, dy, g, h_prev, Q, G)
@@ -967,6 +977,173 @@ def test_blocked_chunk_bwd_emulation_meets_the_bar(shape):
     for name, a, w in zip(NAMES, whole, jax_grads(arrs, dy, h0, df, Q,
                                                   torch.float32)):
         assert_grad_close(name, a, w)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core chunk backward over 64 x 64 tiles
+# ---------------------------------------------------------------------------
+
+# ssd_chunk_bwd_tc_tiled's chunks of 128, 192 and 256 rows at both state
+# sizes, heads in groups of two.
+TILED_BWD_SHAPES = [(1, 256, 2, 64, 128, 128), (1, 384, 4, 64, 64, 192),
+                    (1, 512, 2, 64, 128, 256), (1, 512, 4, 64, 64, 256)]
+
+
+def tiled_bwd_case(shape):
+    """Inputs whose x, B, C and dy are bf16 values (so that the
+    reference's fp32 run reads what the kernel reads), with a nonzero
+    initial state and dfinal; the chunk backward's arguments with the plain
+    carry backward's h_prev and g (the carry backward at these chunks is
+    the CUDA-core kernel, fp32), and d init_state."""
+    B, L, H, P, N, Q = shape
+    arrs, dy, h0, df = make(B * L + N + 5, B, L, H, P, N, "nonzero")
+    for i in (0, 3, 4):
+        arrs[i] = torch.from_numpy(arrs[i]).bfloat16().float().numpy()
+    dy = torch.from_numpy(dy).bfloat16().float().numpy()
+    ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, torch.bfloat16)
+    x, dt, A, Bm, Cm = ts
+    cum = chunk_cumsum(dt, A, Q)
+    _, states = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+    h_prev, g, dinit = ssd_carry_bwd_ref(states, cum, Cm, tdy, Q, th0, tdf)
+    return (arrs, dy, h0, df), (x, dt, cum, Bm, Cm, tdy, g, h_prev, Q, 2), \
+        dinit
+
+
+def tiled_bwd_ratios(terms):
+    """Worst max|Δ| / (1e-4·max(max|ref|, 1)) per output of the emulated
+    ``ssd_chunk_bwd_tc_tiled`` against ``ssd_chunk_bwd_ref`` over
+    ``TILED_BWD_SHAPES``."""
+    worst = {}
+    for shape in TILED_BWD_SHAPES:
+        _, args, _ = tiled_bwd_case(shape)
+        for name, a, w in zip(("dx", "dcum", "ddt", "dB", "dC"),
+                              emulate_tensor_core_chunk_bwd(*args, terms),
+                              ssd_chunk_bwd_ref(*args)):
+            bar = 1e-4 * max(float(w.abs().max()), 1.0)
+            worst[name] = max(worst.get(name, 0.0),
+                              float((a - w).abs().max()) / bar)
+    return worst
+
+
+@pytest.mark.parametrize("shape", TILED_BWD_SHAPES)
+def test_tiled_chunk_bwd_emulation_meets_the_bar(shape):
+    """``ssd_chunk_bwd_tc_tiled``'s arithmetic (``BWD_TERMS`` bf16 terms,
+    the group's dW∘E∘dt summed over its heads, then split) against
+    ``ssd_chunk_bwd_ref`` on the same inputs; with the plain carry
+    backward and the cumsum's gradient, the whole gradient against
+    ``jax.vjp`` of the reference's ``ssd_ref`` on the same values, each
+    within 1e-4·max(max|ref|, 1)."""
+    Q, N = shape[-1], shape[4]
+    assert kernel.bwd_kernels(torch.bfloat16, Q, 64, N) == BWD_TILED
+    (arrs, dy, h0, df), args, dinit = tiled_bwd_case(shape)
+    got = emulate_tensor_core_chunk_bwd(*args, kernel.BWD_TERMS)
+    for name, a, w in zip(("dx", "dcum", "ddt", "dB", "dC"), got,
+                          ssd_chunk_bwd_ref(*args)):
+        assert_grad_close(name, a, w)
+    dx, dcum, ddt, dB, dC = got
+    ddt_cum, dA = chunk_cumsum_bwd(dcum, args[1], torch.from_numpy(arrs[2]),
+                                   Q)
+    whole = (dx, ddt + ddt_cum, dA, dB.sum(0), dC.sum(0), dinit)
+    for name, a, w in zip(NAMES, whole, jax_grads(arrs, dy, h0, df, Q,
+                                                  torch.float32)):
+        assert_grad_close(name, a, w)
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3])
+def test_tiled_chunk_bwd_term_counts(terms):
+    """At the tiled chunks one bf16 term misses the bar; ``BWD_TERMS`` (2)
+    keeps every output within half of it, three nearly exact.  The worst
+    ratios are printed (``-s``)."""
+    ratios = tiled_bwd_ratios(terms)
+    print(f"\nterms={terms}: worst max|Δ|/bar " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ratios.items()))
+    if terms == 1:
+        assert max(ratios.values()) > 1.0, ratios
+    else:
+        assert max(ratios.values()) <= 0.5, ratios
+    if terms == 3:
+        assert max(ratios.values()) <= 0.01, ratios
+
+
+def test_tiled_backward_tiles_fit_shared_memory():
+    """``ssd_chunk_bwd_tc_tiled``'s shared memory at every chunk and state
+    size it takes fits a block (one block an SM), and its heads a block
+    follow its Q / 64 blocks a (batch, chunk) pair: 16 at mamba2-780m's
+    and zamba2-1.2b's 2 x 4096 at chunks of 128 and 256 on 132 SMs."""
+    for N in (64, 128):
+        for Q in kernel.TILED_Q:
+            assert kernel.chunk_bwd_tiled_smem_bytes(N, Q) \
+                <= kernel.MAX_SMEM_BYTES
+    assert kernel.chunk_bwd_tiled_smem_bytes(128, 256) == 215_072
+    name = "ssd_chunk_bwd_tc_tiled"
+    for H, Q in ((48, 128), (48, 256), (64, 256)):
+        assert kernel.chunk_bwd_heads(name, 2 * 4096 // Q, H, 132, Q) == 16
+    assert kernel.chunk_bwd_heads(name, 2, 4, 132, 256) == 1
+
+
+def test_tiled_backward_flops_count_its_products():
+    """The op's flop count follows the tiled kernel: C·Bᵀ per head (2Q²N),
+    the group's dW∘E∘dt against C and B once per block of 16 heads
+    (4Q²N); the chunk pass, carry backward and per-head products as at
+    Q = 64."""
+    B, L, H, P, N, Q = 2, 4096, 48, 64, 128, 256
+    nc = L // Q
+    per_head = (2 * Q * Q * N + 6 * Q * Q * P + 10 * Q * N * P)
+    assert ops.ssd_bwd_flops(B, L, H, P, N, Q) == B * nc * (
+        H * (per_head + 2 * Q * Q * N) + H // 16 * 4 * Q * Q * N)
+    G = kernel.bwd_heads_per_block(B * nc, H, 132)
+    assert ops.ssd_bwd_flops(B, L, H, P, N, Q, dtype=torch.float32) == \
+        B * nc * (H * per_head + H // G * 6 * Q * Q * N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N,Q", [(1, 256, 4, 64, 128, 128),
+                                         (1, 384, 6, 64, 64, 192),
+                                         (2, 512, 8, 64, 128, 256),
+                                         (1, 512, 4, 64, 64, 256)])
+def test_cuda_tiled_backward_kernel_matches_plain(B, L, H, P, N, Q):
+    """``ssd_chunk_bwd_tc_tiled`` on bf16 inputs against its plain version
+    with its heads a group (fp32 max|Δ| <= 1e-4·max(max|ref|, 1)), a
+    second pass equal bit for bit, each launch counted under its name;
+    ``cuda_cores=True`` still takes ``ssd_chunk_bwd``, held too."""
+    needs_card()
+    shape = (B, L, H, P, N, Q)
+    x, dt, A, Bm, Cm, dy, h0, df, cum = card_inputs(shape, 35, "bfloat16")
+    _, states = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    h_prev, g, _ = ssd_carry_bwd_ref(states, cum, Cm, dy, Q, h0, df)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    args = (x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
+    before = dict(kernel.BWD_KERNEL_LAUNCHES)
+    got = kernel.ssd_chunk_bwd_cuda(*args)
+    again = kernel.ssd_chunk_bwd_cuda(*args)
+    core = kernel.ssd_chunk_bwd_cuda(*args, cuda_cores=True)
+    torch.cuda.synchronize()
+    want = ssd_chunk_bwd_ref(*args, kernel.chunk_bwd_heads(
+        "ssd_chunk_bwd_tc_tiled", B * L // Q, H, sms, Q))
+    want_core = ssd_chunk_bwd_ref(*args, kernel.bwd_heads_per_block(
+        B * L // Q, H, sms))
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b) and within(a, w)
+    for c, w in zip(core, want_core):
+        assert within(c, w)
+    for name in kernel.BWD_KERNELS:
+        assert kernel.BWD_KERNEL_LAUNCHES[name] == before[name] + {
+            "ssd_chunk_bwd_tc_tiled": 2, "ssd_chunk_bwd": 1}.get(name, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_backward_shared_memory_equals_mirror():
+    """The library's ``ssd_chunk_bwd_tiled_smem_bytes`` equals kernel.py's
+    mirror at every chunk and state size the kernel takes, and refuses
+    anything else."""
+    needs_card()
+    lib = kernel.LIB_BWD.load()
+    for N in (64, 128):
+        for Q in kernel.TILED_Q:
+            assert lib.ssd_chunk_bwd_tiled_smem_bytes(N, Q) == \
+                kernel.chunk_bwd_tiled_smem_bytes(N, Q)
+    for N, Q in ((32, 128), (128, 64), (128, 320), (64, 100)):
+        assert lib.ssd_chunk_bwd_tiled_smem_bytes(N, Q) == -1
 
 
 # ---------------------------------------------------------------------------

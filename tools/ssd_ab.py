@@ -10,15 +10,17 @@ backward.
 ``kernels/build.py`` and called at chunk 64 (the chunk both take) on the
 same inputs, each through its library's C entry point into outputs made
 beforehand (no Python wrapper's checks or allocations inside the timed
-window): the chunk kernel (bf16: the CUDA-core kernel, ``terms`` 0; fp32:
+window): the chunk kernel (bf16: the CUDA-core kernel, ``terms`` 0, and
+the row "chunk tc", ``ssd_chunk_tc`` with ``kernel.TERMS``; fp32:
 ``ssd_chunk_tf32``, ``terms`` 3, where the old build takes it, else the
 old build's CUDA-core kernel), the carry (``ssd_carry_launch``: bf16
 ``ssd_carry_tc``, fp32 ``ssd_carry_tf32`` where the build has it, else
 ``ssd_carry_kernel``; the new build prints its plan), the carry backward
 (``ssd_carry_bwd_launch`` with ``tc`` 1: bf16 ``ssd_carry_bwd_tc``, fp32
 ``ssd_carry_bwd_tf32`` where the build takes it, else ``ssd_carry_bwd``)
-and for fp32 the chunk backward (``ssd_chunk_bwd_tf32``, ``tc`` 1, where
-the old build takes it, else ``ssd_chunk_bwd``).  For fp32 the new
+and the chunk backward (``tc`` 1: bf16 ``ssd_chunk_bwd_tc``, fp32
+``ssd_chunk_bwd_tf32`` where the old build takes it, else
+``ssd_chunk_bwd``).  For fp32 the new
 build's tensor-core kernels are also timed against its own CUDA-core
 kernels on the same inputs (the rows "chunk, CUDA cores", "carry, CUDA
 cores" (``ssd_carry_core_launch``), "carry bwd, CUDA cores" and "chunk
@@ -79,8 +81,9 @@ from repro_torch.kernels.ssd.ref import (chunk_cumsum,  # noqa: E402
 # (phase 11 (b)'s fp32 step in chip_smoke.py) and 2 x 4096, and
 # zamba2-1.2b's at 2 x 4096 (the fp32 tensor-core kernels' dtype), then in
 # bf16 zamba2-1.2b's 4 x 2048 prefill, mamba2-780m's 2 x 4096 training step
-# and zamba2-1.2b's 32,768-token prompt: the chunk pass forced onto the
-# CUDA-core kernel, the carry on ssd_carry_tc (bf16 C).
+# and zamba2-1.2b's 32,768-token prompt: the chunk pass on the CUDA-core
+# kernel and on ssd_chunk_tc, the carry on ssd_carry_tc (bf16 C), the
+# backward on ssd_carry_bwd_tc and ssd_chunk_bwd_tc.
 SHAPES = (((1, 2048, 48, 64, 128, 64), torch.float32),
           ((2, 4096, 48, 64, 128, 64), torch.float32),
           ((2, 4096, 64, 64, 64, 64), torch.float32),
@@ -345,6 +348,12 @@ def main() -> int:
             "old": taken(lambda t: chunk(old, chunk_out["old"], t * tf32)),
             "new": chunk(new, chunk_out["new"], tf32)}}
         outs = {"chunk": {k: chunk_out[k] for k in ("old", "new")}}
+        if not f32:
+            tc_out = {v: empty((B, L, H, P), (B, L // Q, H, N, P))
+                      for v in ("old", "new")}
+            calls["chunk tc"] = {v: chunk(lib, tc_out[v], sk.TERMS)
+                                 for v, lib in (("old", old), ("new", new))}
+            outs["chunk tc"] = tc_out
         if f32:
             calls["chunk, CUDA cores"] = {
                 "old": chunk(new, chunk_out["core"]),
@@ -372,31 +381,32 @@ def main() -> int:
                 "new": calls["carry bwd"]["new"]}
             outs["carry bwd, CUDA cores"] = {"old": cbwd_out["core"],
                                              "new": cbwd_out["new"]}
-        if dtype == torch.float32:
-            h_prev, g, _ = ssd_carry_bwd_ref(st, cum, Cm, dy, Q)
-            # Heads a block: the TF32 kernel's rule for a TF32 call,
-            # ssd_chunk_bwd's for a CUDA-core one (the partial dB, dC
-            # sums follow it).
-            groups = {1: sk.tf32_heads(B * L // Q, H, sms),
-                      0: sk.bwd_heads_per_block(B * L // Q, H, sms)}
+        h_prev, g, _ = ssd_carry_bwd_ref(st, cum, Cm, dy, Q)
+        # Heads a block: the tensor-core kernel's rule for a tc call
+        # (TF32 for fp32), ssd_chunk_bwd's for a CUDA-core one (the
+        # partial dB, dC sums follow it).
+        groups = {1: sk.chunk_bwd_heads(sk.bwd_kernels(dtype, Q, P, N)[1],
+                                        B * L // Q, H, sms, Q),
+                  0: sk.bwd_heads_per_block(B * L // Q, H, sms)}
 
-            def bwd(lib, out, tc=0):
-                G = groups[tc]
-                if out[3].shape[0] != H // G:
-                    out[3:] = empty((H // G, B, L, N), (H // G, B, L, N))
-                return lambda: lib.ssd_chunk_bwd_launch(
-                    x.data_ptr(), dt.data_ptr(), cum.data_ptr(),
-                    Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
-                    g.data_ptr(), h_prev.data_ptr(),
-                    *[o.data_ptr() for o in out], code, B, L, H, P, N, Q,
-                    G, tc, stream)
-            bwd_out = {v: empty((B, L, H, P), (B, L, H), (B, L, H),
-                                (1, B, L, N), (1, B, L, N))
-                       for v in ("old", "new", "core")}
-            calls["chunk bwd"] = {
-                "old": taken(lambda t: bwd(old_bwd_lib, bwd_out["old"], t)),
-                "new": bwd(new_bwd_lib, bwd_out["new"], 1)}
-            outs["chunk bwd"] = {k: bwd_out[k] for k in ("old", "new")}
+        def bwd(lib, out, tc=0):
+            G = groups[tc]
+            if out[3].shape[0] != H // G:
+                out[3:] = empty((H // G, B, L, N), (H // G, B, L, N))
+            return lambda: lib.ssd_chunk_bwd_launch(
+                x.data_ptr(), dt.data_ptr(), cum.data_ptr(),
+                Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+                g.data_ptr(), h_prev.data_ptr(),
+                *[o.data_ptr() for o in out], code, B, L, H, P, N, Q,
+                G, tc, stream)
+        bwd_out = {v: empty((B, L, H, P), (B, L, H), (B, L, H),
+                            (1, B, L, N), (1, B, L, N))
+                   for v in ("old", "new", "core")}
+        calls["chunk bwd"] = {
+            "old": taken(lambda t: bwd(old_bwd_lib, bwd_out["old"], t)),
+            "new": bwd(new_bwd_lib, bwd_out["new"], 1)}
+        outs["chunk bwd"] = {k: bwd_out[k] for k in ("old", "new")}
+        if f32:
             calls["chunk bwd, CUDA cores"] = {
                 "old": bwd(new_bwd_lib, bwd_out["core"]),
                 "new": calls["chunk bwd"]["new"]}
