@@ -108,16 +108,19 @@ Phases (each raises on failure, so the script exits non-zero):
    printed), with kernel, plain, bound and MMA-floor times, and at the
    bf16 training shapes also the CUDA-core kernels on the same inputs
    and the tensor-core carry at 32 and 64 rows of N a block (each held
-   too); and at ``SSD_TILED`` (bf16, mamba2-780m's heads at 2 x 4096 in
-   chunks of 128 and 256, zamba2-1.2b's in chunks of 256) the
-   tensor-core kernels over 64 x 64 tiles: ``ssd()`` under grad with
-   every SSD count set to 0 before it and read after (the launches of
-   ``ssd_chunk_tc_tiled`` and ``ssd_chunk_bwd_tc_tiled`` counted by
-   name), y, the final state and every gradient against ``ssd_ref`` and
-   its autograd; each kernel and its CUDA-core counterpart against the
-   plain version (a second pass bitwise), timed through the C entry
-   points in turns beside its bound, wrapper and plain times; both
-   kernels' builds (no spill) and shared memory (= kernel.py's mirrors);
+   too); and at ``SSD_TILED`` (mamba2-780m's heads at 2 x 4096 in
+   chunks of 128 and 256, zamba2-1.2b's in chunks of 256), bf16 and
+   fp32, the tensor-core kernels over 64 x 64 tiles: ``ssd()`` under
+   grad with every SSD count set to 0 before it and read after (the
+   launches of ``ssd_chunk_tc_tiled`` and ``ssd_chunk_bwd_tc_tiled``, or
+   of ``ssd_chunk_tf32_tiled`` and ``ssd_chunk_bwd_tf32_tiled``, counted
+   by name), y, the final state and every gradient against ``ssd_ref``
+   and its autograd; each kernel and its CUDA-core counterpart against
+   the plain version (a second pass bitwise), timed through the C entry
+   points in turns beside its bound, wrapper and plain times, and in
+   fp32 the carry these chunks take (``ssd_carry_tf32``) in turns with
+   ``ssd_carry_kernel``; every kernel's builds (no spill) and shared
+   memory (= kernel.py's mirrors);
 7. serving at full width — zamba2-1.2b (38 layers, d_model 2048, seeded
    random fp32 weights, bf16 compute) through ``build`` and the serve
    builders:
@@ -2079,7 +2082,7 @@ SSD_BWD_BAR = 1e-4
 SSD_BWD_BF16_REL = 2.0 ** -7
 
 
-def ssd_bwd_bounds(B, L, H, P, N, Q, dtype, groups, ops_per_s=None):
+def ssd_bwd_bounds(B, L, H, P, N, Q, dtype, ops_per_s=None):
     """(least ms, what bounds it) of each backward kernel and the whole
     backward: flops at ``ops_per_s`` (default the inputs' dtype's peak, as
     ``ssd_bound``; ``ssd_chunk_bwd_tf32`` is priced at TF32_X3_OPS_PER_S)
@@ -2089,7 +2092,8 @@ def ssd_bwd_bounds(B, L, H, P, N, Q, dtype, groups, ops_per_s=None):
     Chunk: per (b, chunk, head) 2Q²P (dW and dx over the lower triangle)
     + 6QNP (dx's state term, g·x, dy·h_prev), per (b, chunk) 3Q²N (C·Bᵀ
     and the dC, dB products); x, dy, dt, cum, B, C, g and h_prev read,
-    dx, dcum, ddt and the groups' partial dB, dC written.  Whole: the
+    dx, dcum, ddt, dB and dC written once (a kernel's partial sums of dB
+    and dC per group of heads are its own traffic).  Whole: the
     chunk states (2QNP per (b, chunk, head); the gradient needs no
     y_intra) and both kernels' flops; its inputs read and gradients
     written once."""
@@ -2104,7 +2108,7 @@ def ssd_bwd_bounds(B, L, H, P, N, Q, dtype, groups, ops_per_s=None):
                + 3 * state)
     chunk_b = (2 * B * L * H * P * e + 2 * B * L * H * 4 + 2 * B * L * N * e
                + 2 * stack + B * L * H * P * 4 + 2 * B * L * H * 4
-               + 2 * groups * B * L * N * 4)
+               + 2 * B * L * N * 4)
     whole_b = (3 * B * L * H * P * e + 2 * B * L * H * 4 + 4 * B * L * N * e
                + 3 * state + 2 * H * 4)
     return {"carry": bound(carry_f, carry_b, dtype, ops_per_s),
@@ -2287,11 +2291,11 @@ def phase_ssd_bwd(torch) -> dict:
                      *args, G), 0.2),
                  "backward": timed_ms(torch, lambda: ssd_bwd_ref(*whole),
                                       0.2)}
-        bounds = ssd_bwd_bounds(B, L, H, P, N, Q, dtype, H // G)
+        bounds = ssd_bwd_bounds(B, L, H, P, N, Q, dtype)
         tf32 = names["chunk"].endswith("_tf32")
         if tf32:
             core_bound = {k: bounds[k] for k in ("carry", "chunk")}
-            bounds = ssd_bwd_bounds(B, L, H, P, N, Q, dtype, H // G,
+            bounds = ssd_bwd_bounds(B, L, H, P, N, Q, dtype,
                                     TF32_X3_OPS_PER_S)
         row = dict(ms=ms, plain_ms=plain, bounds=bounds, held=held,
                    heads_per_block=G, names=names)
@@ -2394,61 +2398,82 @@ def phase_ssd_bwd(torch) -> dict:
     return dict(rows=rows, worst=worst, errs=errs, builds=builds)
 
 
-# bf16 at the chunks the tiled tensor-core kernels take: mamba2-780m's
-# heads (48 of P 64, N 128) at 2 x 4096 tokens in chunks of 128 and 256,
-# and zamba2-1.2b's (64 of P 64, N 64) in chunks of 256 rows.
+# The chunks the tiled tensor-core kernels take: mamba2-780m's heads (48
+# of P 64, N 128) at 2 x 4096 tokens in chunks of 128 and 256, and
+# zamba2-1.2b's (64 of P 64, N 64) in chunks of 256 rows; bf16 and fp32.
 SSD_TILED = SSD_CHUNKS[:2] + [(2, 4096, 64, 64, 64, 256)]
+# By dtype: the terms that ask for the tiled forward kernel, and
+# kernel.py's mirrors of the tiled kernels' shared memory (forward,
+# backward), each reported by the library under its name with ``ssd_``
+# before it.
+TILED_KERNELS = {
+    "bfloat16": ("TERMS", "chunk_tiled_smem_bytes",
+                 "chunk_bwd_tiled_smem_bytes"),
+    "float32": ("TF32_TERMS", "chunk_tf32_tiled_smem_bytes",
+                "chunk_bwd_tf32_tiled_smem_bytes")}
 
 
-def ssd_tiled_rows(torch) -> dict:
-    """Phase 6's bf16 chunks of 128 to 256 rows at SSD_TILED: the main
-    path first, ``ops.ssd`` under grad with every SSD count set to 0 just
-    before it and read just after (the launches ``ssd_step_counts`` names:
-    ``ssd_chunk_tc_tiled`` twice, ``ssd_chunk_bwd_tc_tiled`` once), y and
-    the final state against ``ssd_ref`` and each gradient against autograd
-    of ``ssd_ref`` on the same values in fp32 (SSD_BWD_BAR·max(max|ref|, 1)
-    plus one bf16 step for a bf16 gradient); then ``ssd_chunk_tc_tiled``
-    and the CUDA-core ``ssd_chunk_kernel`` (``terms=0``) against
-    ``ssd_chunks_ref`` (SSD_REL·max|ref|) and ``ssd_chunk_bwd_tc_tiled``
-    and the CUDA-core ``ssd_chunk_bwd`` (``cuda_cores=True``) against
-    ``ssd_chunk_bwd_ref`` with each one's heads a group (hold_grads), the
-    new kernels' second passes bitwise; each pair timed through its C
-    entry points in turns (new, CUDA cores, CUDA cores, new), the new ones
-    also through their wrappers, the plain versions once, each beside its
-    bound.  Also the libraries' shared memory at every tiled chunk equal to
-    kernel.py's mirrors, and both kernels' builds (no spill)."""
+def ssd_tiled_rows(torch, dtype: str) -> dict:
+    """Phase 6's chunks of 128 to 256 rows at SSD_TILED in ``dtype``: the
+    main path first, ``ops.ssd`` under grad with every SSD count set to 0
+    just before it and read just after (the launches ``ssd_step_counts``
+    names: the tiled forward kernel twice, the tiled chunk backward once),
+    y and the final state against ``ssd_ref`` and each gradient against
+    autograd of ``ssd_ref`` on the same values in fp32
+    (SSD_BWD_BAR·max(max|ref|, 1), plus one bf16 step for a bf16 y or
+    gradient); then the tiled forward kernel (``kernel.fwd_kernels``) and the
+    CUDA-core ``ssd_chunk_kernel`` (``terms=0``) against ``ssd_chunks_ref``
+    (SSD_REL·max|ref|) and the tiled chunk backward and the CUDA-core
+    ``ssd_chunk_bwd`` (``cuda_cores=True``) against ``ssd_chunk_bwd_ref``
+    with each one's heads a group (hold_grads), the new kernels' second
+    passes bitwise; each pair timed through its C entry points in turns
+    (new, CUDA cores, CUDA cores, new), the new ones also through their
+    wrappers, the plain versions once, each beside its bound (fp32's
+    tensor-core products at TF32_X3_OPS_PER_S).  In fp32 also the carry at
+    these chunks, ``ssd_carry_tf32`` and ``ssd_carry_kernel`` through
+    their C entry points in turns.  Also the libraries' shared memory at
+    every tiled chunk equal to kernel.py's mirrors, and both kernels'
+    builds (no spill)."""
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd import ops
     from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_carry_bwd_ref,
+                                             ssd_carry_ref,
                                              ssd_chunk_bwd_ref,
                                              ssd_chunks_ref, ssd_ref)
+    terms_name, fmirror, bmirror = TILED_KERNELS[dtype]
+    fsmem, bsmem = "ssd_" + fmirror, "ssd_" + bmirror
+    dt_ = getattr(torch, dtype)
+    fname = sk.fwd_kernels(dt_, 256, 64, 128)[0]
+    bname = sk.bwd_kernels(dt_, 256, 64, 128)[1]
+    if not (fname.endswith("_tiled") and bname.endswith("_tiled")):
+        raise AssertionError(f"{dtype} at chunks of 256 rows: the wrappers "
+                             f"name {fname} and {bname}")
     lib, lib_bwd = sk.LIB.load(), sk.LIB_BWD.load()
     for N in (64, 128):
         for Q in sk.TILED_Q:
             for got, want, what in (
-                    (lib.ssd_chunk_tiled_smem_bytes(N, Q),
-                     sk.chunk_tiled_smem_bytes(N, Q), "ssd_chunk_tc_tiled"),
-                    (lib_bwd.ssd_chunk_bwd_tiled_smem_bytes(N, Q),
-                     sk.chunk_bwd_tiled_smem_bytes(N, Q),
-                     "ssd_chunk_bwd_tc_tiled")):
+                    (getattr(lib, fsmem)(N, Q), getattr(sk, fmirror)(N, Q),
+                     fname),
+                    (getattr(lib_bwd, bsmem)(N, Q),
+                     getattr(sk, bmirror)(N, Q), bname)):
                 if got != want or not 0 < got <= sk.MAX_SMEM_BYTES:
                     raise AssertionError(f"{what} at N {N}, Q {Q}: the "
                                          f"library reports {got} bytes, "
                                          f"kernel.py {want}")
-    builds = check_builds(sk.LIB, "ssd", {"ssd_chunk_tc_tiled": (
-        [64, 128], lambda n: lib.ssd_chunk_tiled_smem_bytes(n, 256),
-        " (at Q = 256)")})
-    builds.update(check_builds(sk.LIB_BWD, "ssd-bwd", {
-        "ssd_chunk_bwd_tc_tiled": (
-            [64, 128], lambda n: lib_bwd.ssd_chunk_bwd_tiled_smem_bytes(
-                n, 256), " (at Q = 256)")}))
+    builds = check_builds(sk.LIB, "ssd", {fname: (
+        [64, 128], lambda n: getattr(lib, fsmem)(n, 256), " (at Q = 256)")})
+    builds.update(check_builds(sk.LIB_BWD, "ssd-bwd", {bname: (
+        [64, 128], lambda n: getattr(lib_bwd, bsmem)(n, 256),
+        " (at Q = 256)")}))
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    bf = torch.bfloat16
-    code = sk.DTYPES[bf]
-    rows, launches = {}, {"ssd_chunk_tc_tiled": 0, "ssd_chunk_bwd_tc_tiled": 0}
-    worst = dict.fromkeys(("ssd_chunk_tc_tiled", "ssd_chunk_bwd_tc_tiled",
-                           "ssd_chunk_kernel", "ssd_chunk_bwd", "ssd"), 0.0)
+    f32 = dt_ == torch.float32
+    code = sk.DTYPES[dt_]
+    new_terms = getattr(sk, terms_name)
+    ops_rate = TF32_X3_OPS_PER_S if f32 else None
+    rows, launches = {}, {fname: 0, bname: 0}
+    worst = dict.fromkeys((fname, bname, "ssd_chunk_kernel", "ssd_chunk_bwd",
+                           "ssd"), 0.0)
 
     for i, shape in enumerate(SSD_TILED):
         B, L, H, P, N, Q = shape
@@ -2456,11 +2481,11 @@ def ssd_tiled_rows(torch) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(810 + i)
         dy, h0, df = (torch.randn(s, generator=gen, device="cuda")
                       for s in ((B, L, H, P), (B, H, N, P), (B, H, N, P)))
-        x, Bm, Cm, dy = (t.to(bf) for t in (x, Bm, Cm, dy))
-        if sk.fwd_kernels(bf, Q, P, N)[0] != "ssd_chunk_tc_tiled" or \
-                sk.bwd_kernels(bf, Q, P, N)[1] != "ssd_chunk_bwd_tc_tiled":
-            raise AssertionError(f"{shape}: the wrappers do not name the "
-                                 f"tiled kernels")
+        x, Bm, Cm, dy = (t.to(dt_) for t in (x, Bm, Cm, dy))
+        if sk.fwd_kernels(dt_, Q, P, N)[0] != fname or \
+                sk.bwd_kernels(dt_, Q, P, N)[1] != bname:
+            raise AssertionError(f"{shape} {dtype}: the wrappers do not name "
+                                 f"the tiled kernels")
         # The main path: ssd() under grad, forward and backward.
         leaves = [t.clone().requires_grad_(True)
                   for t in (x, dt, A, Bm, Cm, h0)]
@@ -2469,10 +2494,10 @@ def ssd_tiled_rows(torch) -> dict:
         got = torch.autograd.grad((y, final), leaves, (dy, df))
         torch.cuda.synchronize()
         counts = ssd_counts()
-        want_counts = ssd_step_counts(bf, Q, P, N, 1)
+        want_counts = ssd_step_counts(dt_, Q, P, N, 1)
         if counts != want_counts:
-            raise AssertionError(f"ssd {shape} under grad launched {counts}, "
-                                 f"expected {want_counts}")
+            raise AssertionError(f"ssd {shape} {dtype} under grad launched "
+                                 f"{counts}, expected {want_counts}")
         for name in launches:
             launches[name] += counts[name]
         plain = [t.float().clone().requires_grad_(True)
@@ -2481,10 +2506,10 @@ def ssd_tiled_rows(torch) -> dict:
         want = torch.autograd.grad((wy, wf), plain, (dy.float(), df))
         y, final, wy, wf = (t.detach() for t in (y, final, wy, wf))
         step = float(((y.float() - wy).abs()
-                      / (2.0 ** -8 * wy.abs() + SSD_REL * max(
-                          float(wy.abs().max()), 1.0))).max())
+                      / ((0.0 if f32 else 2.0 ** -8) * wy.abs()
+                         + SSD_REL * max(float(wy.abs().max()), 1.0))).max())
         if not step <= 1.0:
-            raise AssertionError(f"ssd {shape} bf16 y: {step} times its "
+            raise AssertionError(f"ssd {shape} {dtype} y: {step} times its "
                                  f"bound")
         ratios = {"y": step, "final state": max_err(torch, final, wf)
                   / (SSD_REL * max(float(wf.abs().max()), 1.0))}
@@ -2492,11 +2517,11 @@ def ssd_tiled_rows(torch) -> dict:
                                   "d init_state"), leaves, got, want):
             scale = SSD_BWD_BAR * max(float(w.abs().max()), 1.0)
             bar = scale + (SSD_BWD_BF16_REL * w.abs()
-                           if t.dtype == bf else 0.0)
+                           if t.dtype == torch.bfloat16 else 0.0)
             ratios[name] = float(((g.float() - w).abs() / bar).max())
         if not max(ratios.values()) <= 1.0:
-            raise AssertionError(f"ssd {shape} under grad: worst |Δ|/bar "
-                                 f"{ratios}")
+            raise AssertionError(f"ssd {shape} {dtype} under grad: worst "
+                                 f"|Δ|/bar {ratios}")
         worst["ssd"] = max(worst["ssd"], *ratios.values())
         del leaves, y, final, got, plain, wy, wf, want
         torch.cuda.empty_cache()
@@ -2510,10 +2535,8 @@ def ssd_tiled_rows(torch) -> dict:
         core = sk.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q, terms=0)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"ssd_chunk_tc_tiled {shape}: two passes "
-                                 f"differ")
-        for name, out in (("ssd_chunk_tc_tiled", got),
-                          ("ssd_chunk_kernel", core)):
+            raise AssertionError(f"{fname} {shape}: two passes differ")
+        for name, out in ((fname, got), ("ssd_chunk_kernel", core)):
             for what, o, w in zip(("y_intra", "chunk states"), out, want):
                 err, scale = max_err(torch, o, w), float(w.abs().max())
                 if not err <= SSD_REL * scale:
@@ -2528,12 +2551,11 @@ def ssd_tiled_rows(torch) -> dict:
         # The chunk backward kernels against their plain version.
         h_prev, g, _ = ssd_carry_bwd_ref(states, cum, Cm, dy, Q, h0, df)
         args = (x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
-        G = sk.chunk_bwd_heads("ssd_chunk_bwd_tc_tiled", B * L // Q, H, sms,
-                               Q)
+        G = sk.chunk_bwd_heads(bname, B * L // Q, H, sms, Q)
         Gc = sk.chunk_bwd_heads("ssd_chunk_bwd", B * L // Q, H, sms, Q)
         names = ("dx", "dcum", "ddt", "dB", "dC")
         for name, out, again, groups in (
-                ("ssd_chunk_bwd_tc_tiled", sk.ssd_chunk_bwd_cuda(*args),
+                (bname, sk.ssd_chunk_bwd_cuda(*args),
                  sk.ssd_chunk_bwd_cuda(*args), G),
                 ("ssd_chunk_bwd", sk.ssd_chunk_bwd_cuda(*args,
                                                         cuda_cores=True),
@@ -2559,7 +2581,7 @@ def ssd_tiled_rows(torch) -> dict:
             *(t.data_ptr() for t in (x, dt, cum, Bm, Cm, dy, g, h_prev,
                                      *outs, tails)),
             code, B, L, H, P, N, Q, G, stream)
-        t_fwd = turns(torch, chunk_call(sk.TERMS), chunk_call(0))
+        t_fwd = turns(torch, chunk_call(new_terms), chunk_call(0))
         t_bwd = turns(torch, tiled_bwd,
                       chunk_bwd_call(torch, sk, args, Gc, 0))
         fwd_wrapper = timed_ms(torch, lambda: sk.ssd_chunks_cuda(
@@ -2568,15 +2590,17 @@ def ssd_tiled_rows(torch) -> dict:
         fwd_plain = timed_ms(torch, lambda: ssd_chunks_ref(x, dt, cum, Bm, Cm,
                                                            Q), 0.2)
         bwd_plain = timed_ms(torch, lambda: ssd_chunk_bwd_ref(*args, G), 0.2)
-        fbms, fbby = ssd_bound(*shape, "bfloat16")
-        bbms, bbby = ssd_bwd_bounds(*shape, "bfloat16", H // G)["chunk"]
-        cbbms, cbbby = ssd_bwd_bounds(*shape, "bfloat16", H // Gc)["chunk"]
+        fbms, fbby = ssd_bound(*shape, dtype, ops_rate)
+        cfbms, cfbby = ssd_bound(*shape, dtype)
+        bbms, bbby = ssd_bwd_bounds(*shape, dtype, ops_rate)["chunk"]
+        cbbms, cbbby = ssd_bwd_bounds(*shape, dtype)["chunk"]
         rows[shape] = dict(
             counts={k: counts[k] for k in launches},
             fwd=dict(entry_ms=(t_fwd[0] + t_fwd[3]) / 2,
                      core_entry_ms=(t_fwd[1] + t_fwd[2]) / 2,
                      turns=list(t_fwd), ms=fwd_wrapper, plain_ms=fwd_plain,
-                     bound_ms=fbms, bound_by=fbby),
+                     bound_ms=fbms, bound_by=fbby, core_bound_ms=cfbms,
+                     core_bound_by=cfbby),
             bwd=dict(entry_ms=(t_bwd[0] + t_bwd[3]) / 2,
                      core_entry_ms=(t_bwd[1] + t_bwd[2]) / 2,
                      turns=list(t_bwd), ms=bwd_wrapper, plain_ms=bwd_plain,
@@ -2585,22 +2609,63 @@ def ssd_tiled_rows(torch) -> dict:
                      core_heads_per_block=Gc),
             ratios=ratios)
         r = rows[shape]
-        log(f"[ssd-tiled] [B,L,H,P,N,Q]={list(shape)} bfloat16: main path "
+        carry = ""
+        if f32:
+            # The fp32 carry at these chunks: ssd_carry_tf32 against
+            # ssd_carry_kernel on the plain chunk outputs.
+            cy = torch.empty((B, L, H, P), device="cuda")
+            cf = torch.empty((B, H, N, P), device="cuda")
+            yi = want[0]
+            wy, wf = ssd_carry_ref(yi, states, cum, Cm, Q, h0)
+            for cname, core_ in (("ssd_carry_tf32", False),
+                                 ("ssd_carry_kernel", True)):
+                gy, gf = sk.ssd_carry_cuda(yi, states, cum, Cm, Q, h0,
+                                           cuda_cores=core_)
+                for what, o, w in (("y", gy, wy), ("final state", gf, wf)):
+                    err = max_err(torch, o, w)
+                    scale = SSD_REL * max(float(w.abs().max()), 1.0)
+                    if not err <= scale:
+                        raise AssertionError(f"{cname} {shape} {what}: "
+                                             f"max|Δ| {err} > {scale}")
+                    ratios[f"{cname} {what}"] = err / scale
+            del gy, gf, wy, wf
+
+            def carry_call(entry):
+                return lambda: entry(
+                    yi.data_ptr(), states.data_ptr(), cum.data_ptr(),
+                    Cm.data_ptr(), None, cy.data_ptr(), cf.data_ptr(), code,
+                    code, B, L, H, P, N, Q, stream)
+            t_carry = turns(torch, carry_call(lib.ssd_carry_launch),
+                            carry_call(lib.ssd_carry_core_launch))
+            kbms, kbby = carry_bound(*shape, dtype, TF32_X3_OPS_PER_S)
+            plan = sk.carry_plan(dt_, B, H, P, N, Q, c_dtype=dt_)
+            r["carry"] = dict(entry_ms=(t_carry[0] + t_carry[3]) / 2,
+                              core_entry_ms=(t_carry[1] + t_carry[2]) / 2,
+                              turns=list(t_carry), bound_ms=kbms,
+                              bound_by=kbby, plan=plan)
+            carry = (f"; ssd_carry_tf32 / ssd_carry_kernel through "
+                     f"ssd_carry_launch / ssd_carry_core_launch in turns "
+                     + ", ".join(f"{v:.5f}" for v in t_carry)
+                     + f", bound {kbms:.6f} ({kbby}), plan {plan}")
+            del cy, cf, yi
+        log(f"[ssd-tiled] [B,L,H,P,N,Q]={list(shape)} {dtype}: main path "
             f"ssd() under grad launched {r['counts']}; "
-            f"ssd_chunk_tc_tiled / ssd_chunk_kernel through ssd_chunk_launch "
+            f"{fname} / ssd_chunk_kernel through ssd_chunk_launch "
             f"in turns (new, CUDA cores, CUDA cores, new), ms a launch "
             + ", ".join(f"{v:.5f}" for v in t_fwd)
             + f" (new / CUDA cores "
             f"{(t_fwd[0] + t_fwd[3]) / (t_fwd[1] + t_fwd[2]):.4f}), bound "
-            f"{fbms:.6f} ({fbby}), {fbms / r['fwd']['entry_ms']:.3f} of it; "
+            f"{fbms:.6f} ({fbby}), {fbms / r['fwd']['entry_ms']:.3f} of it "
+            f"(CUDA cores' {cfbms:.6f}, {cfbby}); "
             f"wrapper {fwd_wrapper:.5f}, plain {fwd_plain:.5f}; "
-            f"ssd_chunk_bwd_tc_tiled ({G} heads a group) / ssd_chunk_bwd "
+            f"{bname} ({G} heads a group) / ssd_chunk_bwd "
             f"({Gc}) through their entry points in turns "
             + ", ".join(f"{v:.5f}" for v in t_bwd)
             + f" (new / CUDA cores "
             f"{(t_bwd[0] + t_bwd[3]) / (t_bwd[1] + t_bwd[2]):.4f}), bound "
-            f"{bbms:.6f} ({bbby}), {bbms / r['bwd']['entry_ms']:.3f} of it; "
-            f"wrapper {bwd_wrapper:.5f}, plain {bwd_plain:.5f}; worst "
+            f"{bbms:.6f} ({bbby}), {bbms / r['bwd']['entry_ms']:.3f} of it "
+            f"(CUDA cores' {cbbms:.6f}, {cbbby}); "
+            f"wrapper {bwd_wrapper:.5f}, plain {bwd_plain:.5f}{carry}; worst "
             f"|Δ|/bar " + ", ".join(f"{k} {v:.4g}" for k, v in ratios.items())
             + "; the new kernels' second passes bitwise")
         del x, dt, A, Bm, Cm, dy, h0, df, cum, want, got, yo, so, states
@@ -4804,8 +4869,12 @@ def main() -> int:
     log(f"[ssd-bwd] phase 6's SSD backward checks took "
         f"{time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    sdt = ssd_tiled_rows(torch)
-    log(f"[ssd-tiled] phase 6's tiled SSD checks took "
+    sdt = ssd_tiled_rows(torch, "bfloat16")
+    log(f"[ssd-tiled] phase 6's bf16 tiled SSD checks took "
+        f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    sdt32 = ssd_tiled_rows(torch, "float32")
+    log(f"[ssd-tiled] phase 6's fp32 tiled SSD checks took "
         f"{time.perf_counter() - t0:.3f} s")
     serve = phase_serving(torch)
     exp = phase_experiments(torch, k["link_rate"])
@@ -5200,18 +5269,21 @@ def main() -> int:
                           if k.startswith(name + "<")}}
                if tc or name.endswith("_tf32") else {}),
         })
-    # The bf16 tensor-core kernels over 64 x 64 tiles at chunks of 128 to
-    # 256 rows: launched by phase 6's ssd() under grad at SSD_TILED (the
-    # counts set to 0 before each shape's run and read after it), timed
-    # at mamba2-780m's heads in chunks of 256 rows, every SSD_TILED shape
-    # under "rows".
-    tiled_head = sdt["rows"][SSD_TILED[1]]
-    for name, key, source, replaces in (
+    # The tensor-core kernels over 64 x 64 tiles at chunks of 128 to 256
+    # rows, bf16 and fp32: launched by phase 6's ssd() under grad at
+    # SSD_TILED (the counts set to 0 before each shape's run and read after
+    # it), timed at mamba2-780m's heads in chunks of 256 rows, every
+    # SSD_TILED shape under "rows".
+    for name, key, source, replaces, tiled, dtype in (
             ("ssd_chunk_tc_tiled", "fwd", "ssd.cu",
-             "src/repro/kernels/ssd/kernel.py:22"),
+             "src/repro/kernels/ssd/kernel.py:22", sdt, "bfloat16"),
             ("ssd_chunk_bwd_tc_tiled", "bwd", "ssd_bwd.cu",
-             "src/repro/kernels/ssd/ref.py:19")):
-        r = tiled_head[key]
+             "src/repro/kernels/ssd/ref.py:19", sdt, "bfloat16"),
+            ("ssd_chunk_tf32_tiled", "fwd", "ssd.cu",
+             "src/repro/kernels/ssd/kernel.py:22", sdt32, "float32"),
+            ("ssd_chunk_bwd_tf32_tiled", "bwd", "ssd_bwd.cu",
+             "src/repro/kernels/ssd/ref.py:19", sdt32, "float32")):
+        r = tiled["rows"][SSD_TILED[1]][key]
         record["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -5220,8 +5292,8 @@ def main() -> int:
             **({} if key == "fwd" else {
                 # No Pallas kernel: XLA's gradient of the jnp SSD.
                 "tpu_kernel": False}),
-            "launches": sdt["launches"][name],
-            "max_abs_err": sdt["worst"][name],
+            "launches": tiled["launches"][name],
+            "max_abs_err": tiled["worst"][name],
             # Through the C entry point (BURST launches a window), in
             # turns with the CUDA-core kernel.
             "ms": r["entry_ms"],
@@ -5230,13 +5302,18 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": None,
             "shape": list(SSD_TILED[1]),
-            "dtype": "bfloat16",
+            "dtype": dtype,
             "wrapper_ms": r["ms"],
             "cuda_core_ms": r["core_entry_ms"],
-            "build": {k: v for k, v in sdt["builds"].items()
+            "build": {k: v for k, v in tiled["builds"].items()
                       if k.startswith(name + "<")},
             "rows": [dict(shape=list(sh), launches=v["counts"][name],
-                          **v[key]) for sh, v in sdt["rows"].items()],
+                          **v[key]) for sh, v in tiled["rows"].items()],
+            # fp32: the carry these chunks take (ssd_carry_tf32), in turns
+            # with ssd_carry_kernel.
+            **({"carry_rows": [dict(shape=list(sh), **v["carry"])
+                               for sh, v in tiled["rows"].items()]}
+               if dtype == "float32" and key == "fwd" else {}),
         })
     idle = [k["name"] for k in record["kernels"] if not k["launches"] > 0]
     if idle:

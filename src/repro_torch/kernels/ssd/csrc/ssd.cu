@@ -12,7 +12,7 @@
 //   S[n][p]  = sum_j B[j][n] * (x[j][p] * exp(cum_last - cum_j) * dt_j)
 //                                                         (chunk state, [N, P])
 //
-// in fp32 whatever the input type, as the reference does.  Four
+// in fp32 whatever the input type, as the reference does.  Five
 // kernels, chosen by the wrapper (kernel.py's fwd_kernels):
 //
 // * ssd_chunk_tc (bf16 x, B and C at Q = P = 64, N = 64 or 128: the
@@ -91,6 +91,18 @@
 //   Bound: bytes, as ssd_chunk_tc's, with x read in fp32 (16 KB a head);
 //   three TF32 products a product at the TF32 peak take about 0.4 of the
 //   byte bound at mamba2-780m's heads.
+//
+// * ssd_chunk_tf32_tiled (fp32 x, B and C at Q = 128, 192 or 256, P = 64,
+//   N = 64 or 128), ssd_chunk_tc_tiled's grid of row and state tasks with
+//   ssd_chunk_tf32's arithmetic.  A row task forms C_I . B_J^T for J <= I
+//   once for its heads, 64 columns of N at a time (fp32 pieces of C_I and
+//   B_J, [64][68] each, in the region the x ring later takes), and keeps
+//   it in fragment order (at most 64 KB); a state task keeps its fp32
+//   slice of B for the whole chunk ([Q][68], 68 KB at Q = 256).  So a
+//   block takes at most 108,544 bytes: two blocks an SM.  Heads a block
+//   by tf32_heads over the tasks, two blocks an SM.
+//
+//   Bound: bytes, as ssd_chunk_tf32's.
 //
 // * ssd_chunk_kernel (every other shape, chunks of 1 to 256 rows, and
 //   terms = 0 at any shape), on the CUDA cores: one
@@ -1161,6 +1173,335 @@ cudaError_t launch_tf32_n(const void* x, const float* dt, const float* cum,
 }
 
 // ---------------------------------------------------------------------------
+// Tensor-core chunk kernel over 64 x 64 tiles (fp32: TF32, Q = 128, 192, 256)
+// ---------------------------------------------------------------------------
+
+constexpr int kLdPiece = kQ + 4;   // padded fp32 row of a 64-column piece
+                                   // of B or C, or of x (= kLdX32): 4 (mod
+                                   // 32) words
+
+// Shared memory of ssd_chunk_tf32_tiled (bytes), whichever task a block
+// takes: region 0, the C . B^T fragments of a row task ([Q / kQ] tiles of
+// [4 warps][8 n-tiles][32 lanes] float4) or a state task's fp32 slice of
+// B ([Q][kLdPiece], larger); region 1, a row task's 64-column pieces of
+// C_I and B_J ([kQ][kLdPiece] fp32 each) while it forms C . B^T, then the
+// ring of two x tiles ([kQ][kLdX32] fp32, the same size) both tasks
+// stream; and dt and cum of the chunk for two heads ([2][2][Q] fp32).
+// kernel.py's chunk_tf32_tiled_smem_bytes is the same sum.
+struct Tf32TiledSmem {
+  size_t cb, r1, dtc, total;
+  __host__ __device__ Tf32TiledSmem(int Q) {
+    const size_t frags = (size_t)(Q / kQ) * 4 * 8 * 32 * 16;
+    const size_t slice = (size_t)Q * kLdPiece * 4;
+    cb = 0;
+    r1 = frags > slice ? frags : slice;
+    dtc = r1 + 2 * (size_t)kQ * kLdPiece * 4;
+    total = dtc + 4 * (size_t)Q * 4;
+  }
+};
+
+// A row task: rows I kQ .. of y_intra for the block's G heads, as
+// chunk_tiled_rows with ssd_chunk_tf32's arithmetic.  C_I . B_J^T for J <=
+// I is formed once, in three TF32 products, one 64-column piece of N at a
+// time (the accumulators kept in shared memory in fragment order between
+// pieces, so that the sum over n is the one an unbroken walk gives); then
+// for each head the x tiles J = 0 .. I stream through the ring and per k8
+// step W is built in registers from the fragments (columns 2c, 2c + 1 as
+// the slots c, c + 4; exp only at i >= j, a plain 0 above the diagonal of
+// J = I, whose k8 steps above it are skipped) and multiplied with x_J's
+// rows 2c, 2c + 1, y summed over J in order in one accumulator.
+template <int N>
+__device__ __forceinline__ void chunk_tf32_tiled_rows(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ cum, const float* __restrict__ bm,
+    const float* __restrict__ cm, float* __restrict__ y,
+    unsigned char* smem_raw, int L, int H, int G, int Q, int I) {
+  const Tf32TiledSmem lay(Q);
+  float4* cbs = reinterpret_cast<float4*>(smem_raw + lay.cb);
+  float* cs = reinterpret_cast<float*>(smem_raw + lay.r1);   // C_I piece
+  float* bs = cs + kQ * kLdPiece;                            // B_J piece
+  float* xr = reinterpret_cast<float*>(smem_raw + lay.r1);   // 2 x [kQ][kLdX32]
+  float* dtc = reinterpret_cast<float*>(smem_raw + lay.dtc);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, cq = lane & 3;
+  const int nb = Q / kQ;
+  const int c = blockIdx.x / (nb + N / 64), h0 = blockIdx.y * G;
+  const int b = blockIdx.z;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;
+  const int i0 = 16 * warp;
+  // The n-tiles of C . B^T at or below the warp's diagonal in tile I.
+  const int diag_tiles = 2 * warp + 2;
+
+  load_dtcum(dtc, dt, cum, row0, H, h0, Q);
+  for (int kn = 0; kn < N / 64; ++kn) {
+    for (int e = tid; e < kQ * (kQ / 4); e += kTcThreads) {
+      const int j = e / (kQ / 4), k4 = (e % (kQ / 4)) * 4;
+      cp_async16(cs + j * kLdPiece + k4,
+                 cm + (row0 + kQ * I + j) * N + 64 * kn + k4);
+    }
+    for (int J = 0; J <= I; ++J) {
+      for (int e = tid; e < kQ * (kQ / 4); e += kTcThreads) {
+        const int j = e / (kQ / 4), k4 = (e % (kQ / 4)) * 4;
+        cp_async16(bs + j * kLdPiece + k4,
+                   bm + (row0 + kQ * J + j) * N + 64 * kn + k4);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      float cb[8][4];
+      float4* frag = cbs + (J * 4 + warp) * 8 * 32 + lane;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float4 v = kn ? frag[nt * 32] : make_float4(0.f, 0.f, 0.f, 0.f);
+        cb[nt][0] = v.x;
+        cb[nt][1] = v.y;
+        cb[nt][2] = v.z;
+        cb[nt][3] = v.w;
+      }
+      if (J < I) cb_tf32<64, 8>(cb, cs, bs, i0, g, cq);
+      else if (warp == 0) cb_tf32<64, 2>(cb, cs, bs, i0, g, cq);
+      else if (warp == 1) cb_tf32<64, 4>(cb, cs, bs, i0, g, cq);
+      else if (warp == 2) cb_tf32<64, 6>(cb, cs, bs, i0, g, cq);
+      else cb_tf32<64, 8>(cb, cs, bs, i0, g, cq);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        frag[nt * 32] = make_float4(cb[nt][0], cb[nt][1], cb[nt][2], cb[nt][3]);
+      __syncthreads();   // every warp is done with B_J (and, at the end, C_I)
+    }
+  }
+
+  load_x32(xr, x, row0, H, h0);
+  cp_async_commit();
+  int seq = 0;
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = h0 + gi;
+    const float* dg = dtc + (gi & 1) * 2 * Q;
+    const float* cg = dg + Q;
+    float yacc[8][4];
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yacc[pt][e] = 0.f;
+    for (int J = 0; J <= I; ++J, ++seq) {
+      // x_J of head gi (and its dt and cum) has landed; every warp is done
+      // with the ring stage and the dt, cum buffer refilled below.
+      cp_async_wait_all();
+      __syncthreads();
+      if (J == 0 && gi + 1 < G)
+        load_dtcum(dtc + ((gi + 1) & 1) * 2 * Q, dt, cum, row0, H, h + 1, Q);
+      if (J < I || gi + 1 < G)
+        load_x32(xr + ((seq + 1) & 1) * kQ * kLdX32, x,
+                 row0 + kQ * (J < I ? J + 1 : 0), H, J < I ? h : h + 1);
+      cp_async_commit();
+      const float* xb = xr + (seq & 1) * kQ * kLdX32;
+      const float4* frag = cbs + (J * 4 + warp) * 8 * 32 + lane;
+      const float ci[2] = {cg[kQ * I + i0 + g], cg[kQ * I + i0 + g + 8]};
+#pragma unroll
+      for (int kt = 0; kt < kQ / 8; ++kt) {
+        if (J == I && kt >= diag_tiles) continue;   // above the diagonal
+        const int j = 8 * kt + 2 * cq;   // slots c and c + 4: j and j + 1
+        const float4 cb4 = frag[kt * 32];
+        const float cbv[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+        const float cj[2] = {cg[kQ * J + j], cg[kQ * J + j + 1]};
+        const float dj[2] = {dg[kQ * J + j], dg[kQ * J + j + 1]};
+        float w[2][2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int i = i0 + g + 8 * rr;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            w[rr][e] = (J < I || i >= j + e)
+                           ? cbv[2 * rr + e] * expf(ci[rr] - cj[e]) * dj[e]
+                           : 0.f;
+        }
+        const Tf32A wa(w[0][0], w[1][0], w[0][1], w[1][1]);
+#pragma unroll
+        for (int p0 = 0; p0 < 8; p0 += 4) {
+          Tf32B xf[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float* xp = xb + j * kLdX32 + 8 * (p0 + u) + g;
+            xf[u] = Tf32B(xp[0], xp[kLdX32]);
+          }
+          mma3<4>(yacc, p0, wa, xf);
+        }
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float* yr = y + ((row0 + kQ * I + i0 + g + 8 * rr) * H + h) * kP +
+                  2 * cq;
+#pragma unroll
+      for (int pt = 0; pt < 8; ++pt)
+        *reinterpret_cast<float2*>(yr + 8 * pt) =
+            make_float2(yacc[pt][2 * rr], yacc[pt][2 * rr + 1]);
+    }
+  }
+}
+
+// A state task: rows 64 s .. of the chunk state for the block's G heads.
+// The fp32 slice of B (every row of the chunk, columns 64 s ..) is staged
+// once; for each head the x tiles J = 0 .. nb - 1 stream through the ring,
+// and per k8 step the A operand (B o dec_end)^T is read from B as stored
+// (rows j and j + 1 of the step as the slots c and c + 4, column i), each
+// row scaled by its dec_end_j = exp(cum_last - cum_j) dt_j as it is read,
+// and multiplied with x_J's rows j, j + 1 in the same slots; the state
+// sums J in order in one accumulator.
+template <int N>
+__device__ __forceinline__ void chunk_tf32_tiled_state(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ cum, const float* __restrict__ bm,
+    float* __restrict__ state, unsigned char* smem_raw, int L, int H, int G,
+    int Q, int s) {
+  const Tf32TiledSmem lay(Q);
+  float* bsl = reinterpret_cast<float*>(smem_raw + lay.cb);  // [Q][kLdPiece]
+  float* xr = reinterpret_cast<float*>(smem_raw + lay.r1);
+  float* dtc = reinterpret_cast<float*>(smem_raw + lay.dtc);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, cq = lane & 3;
+  const int nb = Q / kQ;
+  const int c = blockIdx.x / (nb + N / 64), h0 = blockIdx.y * G;
+  const int b = blockIdx.z;
+  const int nc = L / Q;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;
+  const int i0 = 16 * warp;
+
+  for (int e = tid; e < Q * (kQ / 4); e += kTcThreads) {
+    const int j = e / (kQ / 4), k4 = (e % (kQ / 4)) * 4;
+    cp_async16(bsl + j * kLdPiece + k4, bm + (row0 + j) * N + kQ * s + k4);
+  }
+  load_dtcum(dtc, dt, cum, row0, H, h0, Q);
+  load_x32(xr, x, row0, H, h0);
+  cp_async_commit();
+  int seq = 0;
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = h0 + gi;
+    const float* dg = dtc + (gi & 1) * 2 * Q;
+    const float* cg = dg + Q;
+    float sacc[8][4];
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[pt][e] = 0.f;
+    for (int J = 0; J < nb; ++J, ++seq) {
+      cp_async_wait_all();
+      __syncthreads();
+      if (J == 0 && gi + 1 < G)
+        load_dtcum(dtc + ((gi + 1) & 1) * 2 * Q, dt, cum, row0, H, h + 1, Q);
+      if (J + 1 < nb || gi + 1 < G)
+        load_x32(xr + ((seq + 1) & 1) * kQ * kLdX32, x,
+                 row0 + kQ * (J + 1 < nb ? J + 1 : 0), H,
+                 J + 1 < nb ? h : h + 1);
+      cp_async_commit();
+      const float* xb = xr + (seq & 1) * kQ * kLdX32;
+      const float cl = cg[Q - 1];
+#pragma unroll
+      for (int kt = 0; kt < kQ / 8; ++kt) {
+        const int j = 8 * kt + 2 * cq;   // within the tile
+        const int jq = kQ * J + j;       // within the chunk
+        const float d0 = expf(cl - cg[jq]) * dg[jq];
+        const float d1 = expf(cl - cg[jq + 1]) * dg[jq + 1];
+        const float* br = bsl + jq * kLdPiece + i0 + g;
+        const Tf32A sa(br[0] * d0, br[8] * d0, br[kLdPiece] * d1,
+                       br[kLdPiece + 8] * d1);
+#pragma unroll
+        for (int p0 = 0; p0 < 8; p0 += 4) {
+          Tf32B xf[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float* xp = xb + j * kLdX32 + 8 * (p0 + u) + g;
+            xf[u] = Tf32B(xp[0], xp[kLdX32]);
+          }
+          mma3<4>(sacc, p0, sa, xf);
+        }
+      }
+    }
+    float* st = state + (((int64_t)b * nc + c) * H + h) * (int64_t)N * kP;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float* sr = st + (kQ * s + i0 + g + 8 * rr) * kP + 2 * cq;
+#pragma unroll
+      for (int pt = 0; pt < 8; ++pt)
+        *reinterpret_cast<float2*>(sr + 8 * pt) =
+            make_float2(sacc[pt][2 * rr], sacc[pt][2 * rr + 1]);
+    }
+  }
+}
+
+// One block of 4 warps per (chunk, task, group of G heads, batch), as
+// ssd_chunk_tc_tiled: tasks 0 .. nb - 1 the row blocks of y_intra, tasks
+// nb .. nb + N / 64 - 1 the 64-row slices of the chunk state.  Every
+// output element is summed by one block in a fixed order: no atomics, two
+// passes equal bit for bit.
+template <int N>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    ssd_chunk_tf32_tiled(const float* __restrict__ x,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ cum,
+                         const float* __restrict__ bm,
+                         const float* __restrict__ cm, float* __restrict__ y,
+                         float* __restrict__ state, int L, int H, int G,
+                         int Q) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nb = Q / kQ;
+  const int task = blockIdx.x % (nb + N / 64);
+  if (task < nb)
+    chunk_tf32_tiled_rows<N>(x, dt, cum, bm, cm, y, smem_raw, L, H, G, Q,
+                             task);
+  else
+    chunk_tf32_tiled_state<N>(x, dt, cum, bm, state, smem_raw, L, H, G, Q,
+                              task - nb);
+}
+
+// Heads per ssd_chunk_tf32_tiled block: tf32_heads over its tasks with two
+// blocks an SM (its shared memory at Q = 256 leaves room for two), on a
+// card of `sms` SMs.
+int tf32_tiled_heads_per_block(int pairs, int Q, int N, int H, int sms) {
+  return tf32_heads(pairs * (Q / kQ + N / 64), H, 2 * sms);
+}
+
+template <int N>
+cudaError_t launch_tf32_tiled_n(const void* x, const float* dt,
+                                const float* cum, const void* bm,
+                                const void* cm, float* y, float* state,
+                                int B, int L, int H, int Q,
+                                cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int nc = L / Q, tasks = Q / kQ + N / 64;
+  const int G = tf32_tiled_heads_per_block(B * nc, Q, N, H, sms);
+  const size_t smem = Tf32TiledSmem(Q).total;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(ssd_chunk_tf32_tiled<N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(nc * tasks, H / G, B);
+  ssd_chunk_tf32_tiled<N><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(x), dt, cum, static_cast<const float*>(bm),
+      static_cast<const float*>(cm), y, state, L, H, G, Q);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tf32_tiled(const void* x, const float* dt,
+                              const float* cum, const void* bm,
+                              const void* cm, float* y, float* state, int B,
+                              int L, int H, int N, int Q,
+                              cudaStream_t stream) {
+  if (Q % kQ || Q <= kQ || Q > kTiledMaxQ) return cudaErrorInvalidValue;
+  if (N == 64)
+    return launch_tf32_tiled_n<64>(x, dt, cum, bm, cm, y, state, B, L, H, Q,
+                                   stream);
+  if (N == 128)
+    return launch_tf32_tiled_n<128>(x, dt, cum, bm, cm, y, state, B, L, H, Q,
+                                    stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
 // Inter-chunk carry
 // ---------------------------------------------------------------------------
 
@@ -2135,8 +2476,9 @@ cudaError_t launch_carry(const void* y_intra, const void* states,
 // aligned.  terms = 0 runs the CUDA-core kernel; at P = 64 and N = 64 or
 // 128, for bf16 1, 2 or 3 run ssd_chunk_tc (Q = 64) with W and B ⊙
 // dec_end in that many bf16 terms and kTiledTerms (2) runs
-// ssd_chunk_tc_tiled (Q = 128, 192 or 256), and for fp32 at Q = 64
-// kTf32Terms (3) runs ssd_chunk_tf32.
+// ssd_chunk_tc_tiled (Q = 128, 192 or 256), and for fp32 kTf32Terms (3)
+// runs ssd_chunk_tf32 (Q = 64) or ssd_chunk_tf32_tiled (Q = 128, 192 or
+// 256).
 extern "C" int ssd_chunk_launch(const void* x, const void* dt,
                                 const void* cum, const void* bm,
                                 const void* cm, void* y, void* state,
@@ -2161,6 +2503,11 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dt,
     if (terms != kTiledTerms) return (int)cudaErrorInvalidValue;
     return (int)launch_tiled<kTiledTerms>(x, dtf, cumf, bm, cm, yf, sf, B, L,
                                           H, N, Q, s);
+  }
+  if (dtype == 0 && Q != kQ) {
+    if (terms != kTf32Terms) return (int)cudaErrorInvalidValue;
+    return (int)launch_tf32_tiled(x, dtf, cumf, bm, cm, yf, sf, B, L, H, N, Q,
+                                  s);
   }
   if (Q != kQ) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
@@ -2251,6 +2598,26 @@ extern "C" int ssd_chunk_tiled_smem_bytes(int N, int Q) {
   if ((N != 64 && N != 128) || Q % kQ || Q <= kQ || Q > kTiledMaxQ)
     return -1;
   return (int)TiledSmem(N, Q).total;
+}
+
+// Dynamic shared memory (bytes) of an ssd_chunk_tf32_tiled block at state
+// size N (64 or 128) and chunk Q (128, 192 or 256), and the heads a block
+// it takes for B batches of L steps and H heads on this card
+// (ssd_chunk_tf32_tiled_heads); -1 for anything else.
+extern "C" int ssd_chunk_tf32_tiled_smem_bytes(int N, int Q) {
+  if ((N != 64 && N != 128) || Q % kQ || Q <= kQ || Q > kTiledMaxQ)
+    return -1;
+  return (int)Tf32TiledSmem(Q).total;
+}
+extern "C" int ssd_chunk_tf32_tiled_heads(int B, int L, int H, int N,
+                                          int Q) {
+  int dev = 0, sms = 0;
+  if (B < 1 || H < 1 || (N != 64 && N != 128) || Q % kQ || Q <= kQ ||
+      Q > kTiledMaxQ || L < Q || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -1;
+  return tf32_tiled_heads_per_block(B * (L / Q), Q, N, H, sms);
 }
 
 // Dynamic shared memory (bytes) of a block at chunk Q, state size N and

@@ -13,11 +13,11 @@
 // (kernel.py::bwd_kernels) as the forward's chunk kernels are: at Q = P =
 // 64, N = 64 or 128 (the models' training shapes) bf16 x, B, C and dy on
 // the tensor cores (ssd_carry_bwd_tc, ssd_chunk_bwd_tc), fp32 on the
-// tensor cores in TF32 (ssd_carry_bwd_tf32, ssd_chunk_bwd_tf32); bf16 at
-// Q = 128, 192 and 256 the chunk backward on the tensor cores over 64 x
-// 64 tiles (ssd_chunk_bwd_tc_tiled) and the carry backward on the CUDA
-// cores; every other shape on the CUDA cores (ssd_carry_bwd,
-// ssd_chunk_bwd).
+// tensor cores in TF32 (ssd_carry_bwd_tf32, ssd_chunk_bwd_tf32); at Q =
+// 128, 192 and 256 the chunk backward on the tensor cores over 64 x 64
+// tiles (bf16 ssd_chunk_bwd_tc_tiled, fp32 ssd_chunk_bwd_tf32_tiled) and
+// the carry backward on the CUDA cores; every other shape on the CUDA
+// cores (ssd_carry_bwd, ssd_chunk_bwd).
 //
 // The carry's walks, per (batch, head) and element (n, p) of the state:
 //     forward  h_prev_c = h,  h = exp(cum_last,c) h + S_c      (writes the
@@ -94,6 +94,20 @@
 //   gathers terms from every row block (sum_j d_j U_j, and exp(cum_last)
 //   <g, h_prev>), which each block writes to `tails` and the wrapper adds
 //   in a fixed order.
+// * ssd_chunk_bwd_tf32_tiled (fp32 at Q = 128, 192 or 256, P = 64, N = 64
+//   or 128): ssd_chunk_bwd_tc_tiled's block, one per (chunk, 64-row block
+//   K, group of G heads, batch), with ssd_chunk_bwd_tf32's TF32 products
+//   (three a product, operands split as read).  In fp32 that kernel's
+//   layout would take 327,712 bytes of shared memory at N = 128, Q = 256,
+//   so the work is ordered to need 229,408: first each head's state and
+//   inter terms and its diagonal tile, g and h_prev single-buffered where
+//   the second phase's ring is, (C_K . B_K^T)^T formed once for the group
+//   and the group's dW o E o dt on the diagonal summed in registers;
+//   then each off-diagonal tile for every head of the group, its C . B^T
+//   formed once and its summed dW o E o dt multiplied with C_I or B_J
+//   once (no per-tile group sums are kept), the heads' x and dy tiles
+//   streamed through a two-stage ring.  The second phase adds its dx,
+//   dcum, ddt, dB and dC terms to what the first wrote, in a fixed order.
 // * ssd_carry_bwd_tc (bf16): one block per (slice of kCarryRows = 32
 //   rows of N, head, batch); its first two warps walk forward, the other
 //   two back, each pair at its own pace.  The forward walk streams
@@ -2558,6 +2572,226 @@ __device__ __forceinline__ void cbt_tf32(float4* cbs, const float* bs,
         make_float4(cbt[t][0], cbt[t][1], cbt[t][2], cbt[t][3]);
 }
 
+// The state and inter terms of one head on a warp's rows 16 r .. (j for
+// dx and dB, i for dC) and half S of each product's columns, shared by
+// ssd_chunk_bwd_tf32 and ssd_chunk_bwd_tf32_tiled: <g, h_prev> over this
+// thread's float4s into red_gh[warp]; dx's state term B . g on the half of
+// p (permuted slots: B's columns 2c, 2c + 1 as one load, g's rows 2c,
+// 2c + 1), <B_j (x) x_j, g> = sum_p x_j[p] (B . g)[j][p] into red_ured on
+// the way, then scaled by d_j (dr); x . g^T into dB as d_j (x . g^T)_j and
+// dy . h_prev^T into dC as exp(cum_i) (dy . h_prev^T)_i on the half of n,
+// <C_i . h_prev, dy_i> into red_inter on the way.  NQ n-tiles of the half
+// at a time: all of them in ssd_chunk_bwd_tf32, half in the tiled kernel,
+// whose registers are at their limit.
+template <int N, int S, int NQ>
+__device__ __forceinline__ void tf32_state_terms(
+    float (&dxa)[4][4], float (&dba)[N / 16][4], float (&dca)[N / 16][4],
+    const float* bs, const float* cs, const float* gs, const float* hs,
+    const float* xb, const float* dyb, const int (&mn)[4][2],
+    const float (&dr)[2], const float (&cur)[2], float* red_gh,
+    float* red_ured, float* red_inter, int j0, int lg, int cq, int lane) {
+  constexpr int kLdN = N + 8;   // fp32 row of B and C
+  constexpr int NH = N / 2;     // this warp's half of N
+  constexpr int NTN = NH / 8;   // its n8 tiles
+  {
+    constexpr int kPer = N * kTP / 4 / kTcThreads;
+    const int tid = threadIdx.x;
+    float gh = 0.f;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int e = tid + kTcThreads * k;
+      const float4 gv = reinterpret_cast<const float4*>(gs)[e];
+      const float4 hv = reinterpret_cast<const float4*>(hs)[e];
+      gh = fmaf(gv.x, hv.x, fmaf(gv.y, hv.y,
+           fmaf(gv.z, hv.z, fmaf(gv.w, hv.w, gh))));
+    }
+    gh = segment_sum(gh, 32);
+    if (lane == 0) red_gh[tid >> 5] = gh;
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dxa[t][e] = 0.f;
+#pragma unroll 2
+  for (int kn = 0; kn < N / 8; ++kn) {
+    const float* br = bs + (j0 + lg) * kLdN + 8 * kn + 2 * cq;
+    const float2 v0 = *reinterpret_cast<const float2*>(br);
+    const float2 v1 = *reinterpret_cast<const float2*>(br + 8 * kLdN);
+    const Tf32A a(v0.x, v1.x, v0.y, v1.y);
+    const float* gk = gs + 8 * kn * kTP;
+    Tf32B bt[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) bt[u] = Tf32B(gk[mn[u][0]], gk[mn[u][1]]);
+    mma3<4>(dxa, 0, a, bt);
+  }
+  {
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int pt = 0; pt < 4; ++pt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float2 xv = *reinterpret_cast<const float2*>(
+            xb + swz64(j0 + lg + 8 * rr, 32 * S + 8 * pt + 2 * cq));
+        part[rr] = fmaf(xv.x, dxa[pt][2 * rr],
+                        fmaf(xv.y, dxa[pt][2 * rr + 1], part[rr]));
+      }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      part[rr] = segment_sum(part[rr], 4);
+      if (cq == 0) red_ured[S * kTQ + j0 + lg + 8 * rr] = part[rr];
+#pragma unroll
+      for (int pt = 0; pt < 4; ++pt) {
+        dxa[pt][2 * rr] *= dr[rr];
+        dxa[pt][2 * rr + 1] *= dr[rr];
+      }
+    }
+  }
+  // x . g^T, into dB.
+#pragma unroll
+  for (int h2 = 0; h2 < NTN / NQ; ++h2) {
+    float acc[NQ][4];
+#pragma unroll
+    for (int t = 0; t < NQ; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+    for (int kp = 0; kp < kTP / 8; ++kp) {
+      const Tf32A a = tf32_rows(xb, j0, kp, lane);
+#pragma unroll
+      for (int m = 0; m < NQ / 2; ++m) {
+        Tf32B bt[2];
+        tf32_cols(bt, gs, S * NH + 8 * NQ * h2 + 16 * m, kp, lane);
+        mma3<2>(acc, 2 * m, a, bt);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dba[NQ * h2 + nt][e] =
+            fmaf(dr[e >> 1], acc[nt][e], dba[NQ * h2 + nt][e]);
+  }
+  // dy . h_prev^T, into dC (exp(cum_i) and the sums of ip in the order
+  // that each kernel's registers take best).
+  float ec[2], ip[2] = {0.f, 0.f};
+  if (NQ < NTN) ec[0] = expf(cur[0]), ec[1] = expf(cur[1]);
+#pragma unroll
+  for (int h2 = 0; h2 < NTN / NQ; ++h2) {
+    float acc[NQ][4];
+#pragma unroll
+    for (int t = 0; t < NQ; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+    for (int kp = 0; kp < kTP / 8; ++kp) {
+      const Tf32A a = tf32_rows(dyb, j0, kp, lane);
+#pragma unroll
+      for (int m = 0; m < NQ / 2; ++m) {
+        Tf32B bt[2];
+        tf32_cols(bt, hs, S * NH + 8 * NQ * h2 + 16 * m, kp, lane);
+        mma3<2>(acc, 2 * m, a, bt);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = j0 + lg + 8 * rr;
+      if (NQ == NTN) ec[rr] = expf(cur[rr]);
+#pragma unroll
+      for (int nt = 0; nt < NQ; ++nt) {
+        const int n = NQ * h2 + nt;
+        const float2 cv = *reinterpret_cast<const float2*>(
+            cs + i * kLdN + S * NH + 8 * n + 2 * cq);
+        ip[rr] = fmaf(cv.x, acc[nt][2 * rr],
+                      fmaf(cv.y, acc[nt][2 * rr + 1], ip[rr]));
+        dca[n][2 * rr] = fmaf(ec[rr], acc[nt][2 * rr], dca[n][2 * rr]);
+        dca[n][2 * rr + 1] =
+            fmaf(ec[rr], acc[nt][2 * rr + 1], dca[n][2 * rr + 1]);
+      }
+      if (h2 == NTN / NQ - 1) {
+        ip[rr] = segment_sum(ip[rr], 4);
+        if (cq == 0) red_inter[S * kTQ + i] = ip[rr];
+      }
+    }
+  }
+}
+
+// acc = (rows j0.. of a) . b^T over p (rows j, half S of the columns; a
+// and b swizzled [64][64] tiles): dW^T = x . dy^T, or dW = dy_K . x_J^T;
+// on a diagonal tile only the column tiles at or right of it.  Shared by
+// ssd_chunk_bwd_tf32 and ssd_chunk_bwd_tf32_tiled.
+template <int S>
+__device__ __forceinline__ void tf32_dw(float (&acc)[4][4], const float* a,
+                                        const float* bt_src, bool diag,
+                                        int r, int j0, int lane) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+  for (int kp = 0; kp < kTP / 8; ++kp) {
+    const Tf32A af = tf32_rows(a, j0, kp, lane);
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      if (diag && 2 * S + l < r) continue;   // every i of the pair < j
+      Tf32B bt[2];
+      tf32_cols(bt, bt_src, 16 * (2 * S + l), kp, lane);
+      mma3<2>(acc, 2 * l, af, bt);
+    }
+  }
+}
+
+// dx's intra term over a tile of rows i (their cum from cgi on) against
+// the warp's rows j (cur, dtr), added to dxa: K^T o dt built in registers
+// from the staged (C . B^T)^T fragments (cbs) k8 step by k8 step, an
+// accumulator tile's columns 2c, 2c + 1 as the slots c, c + 4, and
+// multiplied with dy's rows 2c, 2c + 1 (dyt) in the same slots; on half S
+// of i also V = dW o K (colp: sum_i V_ij; on the diagonal tcol: sum_j
+// V_ij dt_j, the row sums of T) and the running sum of dW o E o dt
+// (dsum).  DIAG: the diagonal tile, where E_ij is a plain 0 for i < j.
+// ssd_chunk_bwd_tf32_tiled's tiles; ssd_chunk_bwd_tf32 writes it out.
+template <int S, bool DIAG>
+__device__ __forceinline__ void tf32_tile_dx(
+    float (&dxa)[4][4], float (&dsum)[4][4], const float (&dwt)[4][4],
+    const float* dyt, const float4* cbs, const float* cgi,
+    const float (&cur)[2], const float (&dtr)[2], const int (&mn)[4][2],
+    float (&colp)[2], float (&tcol)[4][2], int r, int j0, int lg, int cq,
+    int lane) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    if (DIAG && t < 2 * r) continue;   // every i of the step is below j
+    const int i = 8 * t + 2 * cq;
+    const float ci[2] = {cgi[i], cgi[i + 1]};
+    const float4 cb4 = cbs[(r * 8 + t) * 32 + lane];
+    const float cbt[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+    float w[2][2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int j = j0 + lg + 8 * rr;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // E_ij = exp(cum_i - cum_j) for i >= j, else a plain 0.
+        const float ex = !DIAG || i + e >= j ? expf(ci[e] - cur[rr]) : 0.f;
+        const float kv = cbt[2 * rr + e] * ex;
+        w[rr][e] = kv * dtr[rr];
+        if ((t >> 2) == S) {
+          const int lt = t & 3;   // the tile within this half
+          const float dw = dwt[lt][2 * rr + e];
+          const float v = dw * kv;
+          colp[rr] += v;
+          if (DIAG) tcol[lt][e] = fmaf(v, dtr[rr], tcol[lt][e]);
+          dsum[lt][2 * rr + e] = fmaf(dw * ex, dtr[rr], dsum[lt][2 * rr + e]);
+        }
+      }
+    }
+    const Tf32A wa(w[0][0], w[1][0], w[0][1], w[1][1]);
+    const float* dk = dyt + 8 * t * kTP;
+    Tf32B bt[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) bt[u] = Tf32B(dk[mn[u][0]], dk[mn[u][1]]);
+    mma3<4>(dxa, 0, wa, bt);
+  }
+}
+
 // The work of one warp of ssd_chunk_bwd_tf32, as chunk_bwd_tc_warp's:
 // rows 16 r .. 16 r + 15 of the chunk (j for dx, dB and the K tile, i for
 // dC) and half S of the columns of each product.  Every product is three
@@ -2658,125 +2892,11 @@ __device__ __forceinline__ void chunk_bwd_tf32_warp(
       cur[rr] = cg[j];
       dr[rr] = expf(cl - cur[rr]) * dtr[rr];   // d_j
     }
-    // <g, h_prev> over this thread's float4s (the same places in both
-    // tiles).
-    {
-      constexpr int kPer = N * kTP / 4 / kTcThreads;
-      float gh = 0.f;
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const int e = tid + kTcThreads * k;
-        const float4 gv = reinterpret_cast<const float4*>(gs)[e];
-        const float4 hv = reinterpret_cast<const float4*>(hs)[e];
-        gh = fmaf(gv.x, hv.x, fmaf(gv.y, hv.y,
-             fmaf(gv.z, hv.z, fmaf(gv.w, hv.w, gh))));
-      }
-      gh = segment_sum(gh, 32);
-      if (lane == 0) red_gh[warp] = gh;
-    }
-
-    // dx's state term on this warp's half of p: B . g (k = n, permuted
-    // slots: B's columns 2c, 2c + 1 as one load, g's rows 2c, 2c + 1),
-    // and <B_j (x) x_j, g> = sum_p x_j[p] (B . g)[j][p] on the way.
+    // The head's state and inter terms.
     float dxa[4][4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dxa[t][e] = 0.f;
-#pragma unroll 2
-    for (int kn = 0; kn < N / 8; ++kn) {
-      const float* br = bs + (j0 + lg) * kLdN + 8 * kn + 2 * cq;
-      const float2 v0 = *reinterpret_cast<const float2*>(br);
-      const float2 v1 = *reinterpret_cast<const float2*>(br + 8 * kLdN);
-      const Tf32A a(v0.x, v1.x, v0.y, v1.y);
-      const float* gk = gs + 8 * kn * kTP;
-      Tf32B bt[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) bt[u] = Tf32B(gk[mn[u][0]], gk[mn[u][1]]);
-      mma3<4>(dxa, 0, a, bt);
-    }
-    float part[2] = {0.f, 0.f};
-#pragma unroll
-    for (int pt = 0; pt < 4; ++pt)
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const float2 xv = *reinterpret_cast<const float2*>(
-            xb + swz64(j0 + lg + 8 * rr, 32 * S + 8 * pt + 2 * cq));
-        part[rr] = fmaf(xv.x, dxa[pt][2 * rr],
-                        fmaf(xv.y, dxa[pt][2 * rr + 1], part[rr]));
-      }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      part[rr] = segment_sum(part[rr], 4);
-      if (cq == 0) red_ured[S * kTQ + j0 + lg + 8 * rr] = part[rr];
-#pragma unroll
-      for (int pt = 0; pt < 4; ++pt) {
-        dxa[pt][2 * rr] *= dr[rr];
-        dxa[pt][2 * rr + 1] *= dr[rr];
-      }
-    }
-
-    // x . g^T on this warp's half of n, into dB as d_j (x . g^T)_j.
-    {
-      float acc[NTN][4];
-#pragma unroll
-      for (int t = 0; t < NTN; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-#pragma unroll 1
-      for (int kp = 0; kp < kTP / 8; ++kp) {
-        const Tf32A a = tf32_rows(xb, j0, kp, lane);
-#pragma unroll
-        for (int m = 0; m < NTN / 2; ++m) {
-          Tf32B bt[2];
-          tf32_cols(bt, gs, S * NH + 16 * m, kp, lane);
-          mma3<2>(acc, 2 * m, a, bt);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < NTN; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dba[nt][e] = fmaf(dr[e >> 1], acc[nt][e], dba[nt][e]);
-    }
-
-    // dy . h_prev^T on this warp's half of n (rows i), into dC as
-    // exp(cum_i) (dy . h_prev^T)_i, and <C_i . h_prev, dy_i> on the way.
-    {
-      float acc[NTN][4];
-#pragma unroll
-      for (int t = 0; t < NTN; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-#pragma unroll 1
-      for (int kp = 0; kp < kTP / 8; ++kp) {
-        const Tf32A a = tf32_rows(dyb, j0, kp, lane);
-#pragma unroll
-        for (int m = 0; m < NTN / 2; ++m) {
-          Tf32B bt[2];
-          tf32_cols(bt, hs, S * NH + 16 * m, kp, lane);
-          mma3<2>(acc, 2 * m, a, bt);
-        }
-      }
-      float ip[2] = {0.f, 0.f};
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int i = j0 + lg + 8 * rr;
-        const float ec = expf(cur[rr]);
-#pragma unroll
-        for (int nt = 0; nt < NTN; ++nt) {
-          const float2 cv = *reinterpret_cast<const float2*>(
-              cs + i * kLdN + S * NH + 8 * nt + 2 * cq);
-          ip[rr] = fmaf(cv.x, acc[nt][2 * rr],
-                        fmaf(cv.y, acc[nt][2 * rr + 1], ip[rr]));
-          dca[nt][2 * rr] = fmaf(ec, acc[nt][2 * rr], dca[nt][2 * rr]);
-          dca[nt][2 * rr + 1] =
-              fmaf(ec, acc[nt][2 * rr + 1], dca[nt][2 * rr + 1]);
-        }
-        ip[rr] = segment_sum(ip[rr], 4);
-        if (cq == 0) red_inter[S * kTQ + i] = ip[rr];
-      }
-    }
+    tf32_state_terms<N, S, NTN>(dxa, dba, dca, bs, cs, gs, hs, xb, dyb, mn,
+                                dr, cur, red_gh, red_ured, red_inter, j0, lg,
+                                cq, lane);
 
     // Every read of g and h_prev is done: the next head's copies go out
     // while the block works on x and dy.
@@ -2788,28 +2908,16 @@ __device__ __forceinline__ void chunk_bwd_tf32_warp(
 
     // dW^T = x . dy^T on this warp's half of i.
     float dwt[4][4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dwt[t][e] = 0.f;
-#pragma unroll 1
-    for (int kp = 0; kp < kTP / 8; ++kp) {
-      const Tf32A a = tf32_rows(xb, j0, kp, lane);
-#pragma unroll
-      for (int l = 0; l < 2; ++l) {
-        if (2 * S + l < r) continue;   // every i of the pair is below j
-        Tf32B bt[2];
-        tf32_cols(bt, dyb, 16 * (2 * S + l), kp, lane);
-        mma3<2>(dwt, 2 * l, a, bt);
-      }
-    }
+    tf32_dw<S>(dwt, xb, dyb, true, r, j0, lane);
 
-    // dx's intra term, (K o dt)^T . dy, with K^T o dt built in registers
-    // from (C . B^T)^T's fragments k8 step by k8 step (an accumulator
-    // tile's columns 2c, 2c + 1 as the slots c, c + 4, dy's rows 2c,
-    // 2c + 1 in the same slots); on this warp's half of i also V = dW o K
-    // (row sums: sum_i V_ij; column sums of V o dt_j: sum_j T_ij) and the
-    // running sum of dW o E o dt.
+    // dx's intra term, as tf32_tile_dx<S, true> computes it, written out:
+    // through that function this kernel compiles to more instructions and
+    // runs slower.  K^T o dt built in registers from (C . B^T)^T's
+    // fragments k8 step by k8 step (an accumulator tile's columns 2c,
+    // 2c + 1 as the slots c, c + 4, dy's rows 2c, 2c + 1 in the same
+    // slots); on this warp's half of i also V = dW o K (row sums: sum_i
+    // V_ij; column sums of V o dt_j: sum_j T_ij) and the running sum of
+    // dW o E o dt.
     float colp[2] = {0.f, 0.f}, tcol[4][2];
 #pragma unroll
     for (int t = 0; t < 4; ++t) tcol[t][0] = tcol[t][1] = 0.f;
@@ -3061,6 +3169,632 @@ cudaError_t launch_chunk_bwd_tf32(const void* x, const void* dt,
       static_cast<float*>(dx), static_cast<float*>(dcum),
       static_cast<float*>(ddt), static_cast<float*>(db_part),
       static_cast<float*>(dc_part), L, H, G);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// ssd_chunk_bwd_tf32_tiled: fp32 at Q = 128, 192, 256, P = 64, N = 64 or 128
+// ---------------------------------------------------------------------------
+
+// Shared-memory layout of ssd_chunk_bwd_tf32_tiled, in bytes
+// (ssd_chunk_bwd_tf32_tiled_smem_bytes reports it, kernel.py's
+// chunk_bwd_tf32_tiled_smem_bytes mirrors it): C_K and B_K of the block's
+// rows ([kTQ][N + 8] fp32, as ssd_chunk_bwd_tf32's B and C); a two-stage
+// ring of per-head tile pairs ([kTQ][kTP] fp32 each, swizzled by swz64:
+// x_K and dy_K in the first phase, then x_K and dy_I or dy_K and x_J); a
+// two-stage ring of the other row blocks' C_I or B_J ([kTQ][N + 8] fp32;
+// in the first phase the head's g and h_prev, [N][kTP] fp32 each,
+// swizzled); the staging tile ([kTQ][kLdScr] fp32: a tile's (C . B^T)^T
+// fragments, or the group's dW o E o dt on it); dt and cum of the chunk
+// for two heads ([2][2][Q] fp32); and the partial sums (12 . kTQ + 8
+// floats).  ssd_chunk_bwd_tc_tiled's layout in fp32 would take 327,712
+// bytes at N = 128, Q = 256; this one takes 229,408.
+struct Tf32TiledBwdSmem {
+  size_t c, b, pair, bcr, bc, scr, dtc, red, total;
+  __host__ __device__ Tf32TiledBwdSmem(int N, int Q) {
+    bc = (size_t)kTQ * (N + 8) * 4;
+    const size_t xd = (size_t)kTQ * kTP * 4;
+    c = 0;
+    b = c + bc;
+    pair = b + bc;       // 2 stages of two [kTQ][kTP] tiles
+    bcr = pair + 4 * xd;  // 2 stages of `bc` bytes
+    scr = bcr + 2 * bc;
+    dtc = scr + (size_t)kTQ * kLdScr * 4;
+    red = dtc + 4 * (size_t)Q * 4;
+    total = red + (12 * (size_t)kTQ + 8) * 4;
+  }
+};
+
+// The work of one warp of ssd_chunk_bwd_tf32_tiled: rows 16 r .. of the
+// block's row block K (j for dx, dB and the column side, i for dC and the
+// row side) and half S of each product's columns, as
+// chunk_bwd_tiled_warp's warps, with ssd_chunk_bwd_tf32's products:
+// every product three TF32 products on operands split as they reach the
+// registers.  Two phases.  The first walks the group's heads as
+// ssd_chunk_bwd_tf32 walks a chunk's: each head's state and inter terms of
+// rows K (B_K . g, x_K . g^T, dy_K . h_prev^T; its g and h_prev copied
+// once those are done, while the block works on the rest) and its
+// diagonal tile (K, K), from (C_K . B_K^T)^T formed once for the group;
+// the group's dW o E o dt on the diagonal summed in registers and
+// multiplied with C_K and B_K at the end.  The second walks the
+// off-diagonal tiles, each for every head of the group: the column side,
+// (I, K) for I > K (dW^T = x_K . dy_I^T, dx_K += (K o dt)^T . dy_I, the
+// column sums of V), from (C_I . B_K^T)^T formed once a tile and staged;
+// the row side, (K, J) for J < K (dW = dy_K . x_J^T, the row sums of T),
+// from C_K . B_J^T formed once a tile (each warp its own part, staged in
+// its fragments' places).  Each (tile, head)'s x and dy tiles stream
+// through a two-stage ring, each tile's C_I or B_J through another; the
+// group's dW o E o dt on the tile is summed in registers and multiplied
+// with C_I (into dB_K) or B_J (into dC_K) once the tile's heads are done.
+// dx, dcum and ddt of rows K are written in the first phase and the
+// group's partial dB and dC at its end, and each tile's terms added to
+// them in the second in a fixed order (the second phase holds no dB or dC in
+// registers: with them it spilled at N = 128); the dcum_last terms of
+// these rows go into tails, as ssd_chunk_bwd_tc_tiled's.  No atomics: two
+// passes are equal bit for bit.
+template <int N, int S>
+__device__ __forceinline__ void chunk_bwd_tf32_tiled_warp(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ cum, const float* __restrict__ bm,
+    const float* __restrict__ cm, const float* __restrict__ dy,
+    const float* __restrict__ g, const float* __restrict__ hp,
+    float* __restrict__ dx, float* __restrict__ dcum,
+    float* __restrict__ ddt, float* __restrict__ db_part,
+    float* __restrict__ dc_part, float* __restrict__ tails,
+    unsigned char* smem_raw, int L, int H, int G, int Q) {
+  constexpr int kLdN = N + 8;   // fp32 row of B and C
+  constexpr int NH = N / 2;     // this warp's half of N
+  constexpr int NTN = NH / 8;   // its n8 tiles
+  const Tf32TiledBwdSmem lay(N, Q);
+  const float* cs = reinterpret_cast<const float*>(smem_raw + lay.c);
+  const float* bs = reinterpret_cast<const float*>(smem_raw + lay.b);
+  float* gs = reinterpret_cast<float*>(smem_raw + lay.bcr);   // phase 1
+  float* hs = gs + N * kTP;
+  float* scr = reinterpret_cast<float*>(smem_raw + lay.scr);
+  float4* scr4 = reinterpret_cast<float4*>(scr);
+  float* dtc = reinterpret_cast<float*>(smem_raw + lay.dtc);
+  float* red_ured = reinterpret_cast<float*>(smem_raw + lay.red);  // [2][64]
+  float* red_inter = red_ured + 2 * kTQ;   // [2][64]
+  float* red_gh = red_inter + 2 * kTQ;     // [8]
+  float* red_rowd = red_gh + 8;            // [4][64]: the diagonal's
+  float* red_colv = red_rowd + 4 * kTQ;    // [2][64]
+  float* red_half = red_colv + 2 * kTQ;    // [64]: the second half's
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lg = lane >> 2, cq = lane & 3;
+  const int r = warp & 3, j0 = 16 * r;
+  const int nb = Q / kTQ, nc = L / Q;
+  const int c = blockIdx.x / nb, K = blockIdx.x % nb;
+  const int grp = blockIdx.y, b = blockIdx.z;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;   // the chunk's
+  const int64_t rk = row0 + kTQ * K;                      // block K's
+  const int ntiles = nb - 1;         // off-diagonal tiles
+  const int ncol = nb - 1 - K;       // of which on the column side
+
+  // This lane's word offsets, in a swizzled tile, of rows 2c and 2c + 1
+  // at its column of each of its half's p n-tiles (the B fragments of g
+  // and of dy read MN-major in the permuted slots; a k8 step adds 8 rows).
+  int mn[4][2];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      mn[u][e] = swz64(2 * cq + e, 32 * S + 8 * u + lg);
+
+  auto pair_at = [&](int stage, int k) {
+    return reinterpret_cast<float*>(smem_raw + lay.pair +
+                                    (2 * stage + k) * kTQ * kTP * 4);
+  };
+  auto bc_at = [&](int stage) {
+    return reinterpret_cast<float*>(smem_raw + lay.bcr + stage * lay.bc);
+  };
+  // dt and cum of head h over the chunk into buffer `stage`.
+  auto load_dtc = [&](int h, int stage) {
+    float* d = dtc + stage * 2 * Q;   // dt [Q], then cum [Q]
+    for (int e = tid; e < 2 * Q; e += kTcThreads) {
+      const int j = e < Q ? e : e - Q;
+      cp_async4(d + e, (e < Q ? dt : cum) + (row0 + j) * H + h);
+    }
+  };
+  // Head h's pair for off-diagonal tile t into ring stage `stage` (t < 0:
+  // the first phase's x_K and dy_K): the column side (t < ncol) x_K and dy
+  // of row block I = K + 1 + t, the row side dy_K and x of row block J =
+  // t - ncol; and its dt and cum.
+  auto load_pair = [&](int t, int h, int stage) {
+    const bool col = t < ncol;
+    const int64_t r1 =
+        t < 0 ? rk : row0 + kTQ * (col ? K + 1 + t : t - ncol);
+    const float* sa = col ? x : dy;
+    const float* sb = col ? dy : x;
+    float* da = pair_at(stage, 0);
+    float* db = pair_at(stage, 1);
+    for (int e = tid; e < kTQ * (kTP / 4); e += kTcThreads) {
+      const int i = e >> 4, c4 = (e & 15) * 4;
+      cp_async16(da + swz64(i, c4), sa + ((rk + i) * H + h) * kTP + c4);
+      cp_async16(db + swz64(i, c4), sb + ((r1 + i) * H + h) * kTP + c4);
+    }
+    load_dtc(h, stage);
+  };
+  // C of row block I (column side) or B of row block J (row side) of
+  // off-diagonal tile t into its ring stage.
+  auto load_bc = [&](int t) {
+    const bool col = t < ncol;
+    const int64_t r1 = row0 + kTQ * (col ? K + 1 + t : t - ncol);
+    const float* src = col ? cm : bm;
+    float* d = bc_at(t & 1);
+    for (int e = tid; e < kTQ * (N / 4); e += kTcThreads) {
+      const int i = e / (N / 4), k4 = (e % (N / 4)) * 4;
+      cp_async16(d + i * kLdN + k4, src + (r1 + i) * N + k4);
+    }
+  };
+  // v (this warp's rows, its half of the columns) into the staging tile,
+  // row-major, or transposed.
+  auto stage_tile = [&](const float (&v)[4][4], bool transpose) {
+#pragma unroll
+    for (int lt = 0; lt < 4; ++lt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = j0 + lg + 8 * rr, col = 32 * S + 8 * lt + 2 * cq;
+        if (transpose) {
+          scr[col * kLdScr + row] = v[lt][2 * rr];
+          scr[(col + 1) * kLdScr + row] = v[lt][2 * rr + 1];
+        } else {
+          *reinterpret_cast<float2*>(scr + row * kLdScr + col) =
+              make_float2(v[lt][2 * rr], v[lt][2 * rr + 1]);
+        }
+      }
+  };
+  // (the staged tile, rows j0.., k8 steps kt_lo .. kt_hi, natural slots)
+  // . tn (rows the k, [k][n] with rows of N + 8) on this warp's half of n,
+  // half of its n-tiles at a time, each summed from zero and handed to
+  // add(h2, acc) to be added where it goes.
+  constexpr int NQ = NTN / 2;
+  auto staged = [&](const float* tn, int kt_lo, int kt_hi, auto&& add) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float acc[NQ][4];
+#pragma unroll
+      for (int t = 0; t < NQ; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll 1
+      for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+        const float* sr = scr + (j0 + lg) * kLdScr + 8 * kt + cq;
+        const Tf32A a(sr[0], sr[8 * kLdScr], sr[4], sr[8 * kLdScr + 4]);
+        Tf32B bt[NQ];
+#pragma unroll
+        for (int nt = 0; nt < NQ; ++nt) {
+          const float* tr = tn + (8 * kt + cq) * kLdN + S * NH +
+                            8 * (NQ * h2 + nt) + lg;
+          bt[nt] = Tf32B(tr[0], tr[4 * kLdN]);
+        }
+        mma3<NQ>(acc, 0, a, bt);
+      }
+      add(h2, acc);
+    }
+  };
+  // ... into the running run[n-tiles of the half].
+  auto staged_times = [&](float (&run)[NTN][4], const float* tn, int kt_lo,
+                          int kt_hi) {
+    staged(tn, kt_lo, kt_hi, [&](int h2, const float (&acc)[NQ][4]) {
+#pragma unroll
+      for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) run[NQ * h2 + nt][e] += acc[nt][e];
+    });
+  };
+  // ... over all 8 k8 steps into the group's partial dB or dC of rows K in
+  // the output.
+  const int64_t part0 = (int64_t)grp * gridDim.z * L * N;
+  auto staged_into = [&](float* out, const float* tn) {
+    staged(tn, 0, kTQ / 8 - 1, [&](int h2, const float (&acc)[NQ][4]) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float* o = out + part0 + (rk + j0 + lg + 8 * rr) * N + S * NH +
+                   8 * NQ * h2 + 2 * cq;
+#pragma unroll
+        for (int nt = 0; nt < NQ; ++nt) {
+          const float2 v = *reinterpret_cast<const float2*>(o + 8 * nt);
+          *reinterpret_cast<float2*>(o + 8 * nt) = make_float2(
+              v.x + acc[nt][2 * rr], v.y + acc[nt][2 * rr + 1]);
+        }
+      }
+    });
+  };
+  // The two halves' partial sums of this warp's rows, in a fixed order (the
+  // first half's, then the second's), for the lanes of column 0: the
+  // second half's warp hands its sums to the first's over a barrier of the
+  // pair.
+  auto pair_sum = [&](float (&v)[2]) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      v[rr] = segment_sum(v[rr], 4);
+      if (S == 1 && cq == 0) red_half[j0 + lg + 8 * rr] = v[rr];
+    }
+    group_sync(1 + r, 64);
+    if (S == 0)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) v[rr] += red_half[j0 + lg + 8 * rr];
+  };
+
+  // Over the group's heads: dba and dca the running dB (rows j) and dC
+  // (rows i) of this warp's half of n; dsum the group's dW o E o dt on a
+  // tile (this warp's rows, its half of the columns).
+  float dba[NTN][4], dca[NTN][4], dsum[4][4];
+#pragma unroll
+  for (int t = 0; t < NTN; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dba[t][e] = dca[t][e] = 0.f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dsum[t][e] = 0.f;
+
+  // (C_K . B_K^T)^T once for the group: this warp's alternate i-tiles at or
+  // right of the diagonal's, staged for both halves.
+  cp_async_wait_all();
+  group_sync(0, kTcThreads);
+  if (r == 0) cbt_tf32<N, S>(scr4, bs, cs, r, j0, lg, cq, lane);
+  else if (r == 1) cbt_tf32<N, 2 + S>(scr4, bs, cs, r, j0, lg, cq, lane);
+  else if (r == 2) cbt_tf32<N, 4 + S>(scr4, bs, cs, r, j0, lg, cq, lane);
+  else cbt_tf32<N, 6 + S>(scr4, bs, cs, r, j0, lg, cq, lane);
+
+  // Phase 1: each head's state and inter terms of rows K, and its
+  // diagonal tile.
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = grp * G + gi, buf = gi & 1;
+    // Head gi's x_K, dy_K, dt, cum, g and h_prev have landed; every warp
+    // is done with head gi - 1.
+    cp_async_wait_all();
+    group_sync(0, kTcThreads);
+    // The next head's x_K, dy_K, dt and cum; after the last head the
+    // second phase's first pair.
+    if (gi + 1 < G) load_pair(-1, h + 1, buf ^ 1);
+    else load_pair(0, grp * G, buf ^ 1);
+    cp_async_commit();
+    const float* xb = pair_at(buf, 0);
+    const float* dyb = pair_at(buf, 1);
+    const float* dg = dtc + buf * 2 * Q;
+    const float* cg = dg + Q;
+    const float cl = cg[Q - 1];
+    // This thread's two rows of block K, j0 + lg and j0 + lg + 8.
+    float cur[2], dtr[2], dr[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int j = kTQ * K + j0 + lg + 8 * rr;
+      cur[rr] = cg[j];
+      dtr[rr] = dg[j];
+      dr[rr] = expf(cl - cur[rr]) * dtr[rr];   // d_j
+    }
+    // The head's state and inter terms of rows K (n-tiles half at a time).
+    float dxa[4][4];
+    tf32_state_terms<N, S, NQ>(dxa, dba, dca, bs, cs, gs, hs, xb, dyb, mn,
+                               dr, cur, red_gh, red_ured, red_inter, j0, lg,
+                               cq, lane);
+    // Every read of g and h_prev is done: the next head's copies (after
+    // the last head the second phase's first C_I or B_J, where they were)
+    // go out while the block works on the diagonal tile.
+    group_sync(0, kTcThreads);
+    if (gi + 1 < G)
+      tf32_load_gh<N>(gs, hs, g, hp,
+                      (((int64_t)b * nc + c) * H + h + 1) * (int64_t)N * kTP);
+    else
+      load_bc(0);
+    cp_async_commit();
+
+    // The diagonal tile (K, K), as ssd_chunk_bwd_tf32's chunk.
+    {
+      float dwt[4][4], tcol[4][2], colp[2] = {0.f, 0.f};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) tcol[t][0] = tcol[t][1] = 0.f;
+      tf32_dw<S>(dwt, xb, dyb, true, r, j0, lane);
+      tf32_tile_dx<S, true>(dxa, dsum, dwt, dyb, scr4, cg + kTQ * K, cur, dtr,
+                            mn, colp, tcol, r, j0, lg, cq, lane);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float* o = dx + ((rk + j0 + lg + 8 * rr) * H + h) * kTP + 32 * S +
+                   2 * cq;
+#pragma unroll
+        for (int pt = 0; pt < 4; ++pt)
+          *reinterpret_cast<float2*>(o + 8 * pt) =
+              make_float2(dxa[pt][2 * rr], dxa[pt][2 * rr + 1]);
+        colp[rr] = segment_sum(colp[rr], 4);
+        if (cq == 0) red_colv[S * kTQ + j0 + lg + 8 * rr] = colp[rr];
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = column_sum(tcol[t][e]);
+          if (lg == 0) red_rowd[r * kTQ + 32 * S + 8 * t + 2 * cq + e] = v;
+        }
+    }
+    group_sync(0, kTcThreads);   // the partial sums are complete
+
+    // dcum and ddt of rows K (the state, inter and diagonal terms) and
+    // this block's dcum_last terms: warp 0, two rows a lane.
+    if (warp == 0) {
+      float tail = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int k = lane + 32 * u, j = kTQ * K + k;
+        const float rowt = ((red_rowd[k] + red_rowd[kTQ + k]) +
+                            red_rowd[2 * kTQ + k]) + red_rowd[3 * kTQ + k];
+        const float colv = red_colv[k] + red_colv[kTQ + k];
+        const float ured = red_ured[k] + red_ured[kTQ + k];
+        const float inter =
+            expf(cg[j]) * (red_inter[k] + red_inter[kTQ + k]);
+        const float dex = expf(cl - cg[j]), dj = dex * dg[j];
+        const int64_t o = (rk + k) * H + h;
+        dcum[o] = rowt - dg[j] * colv - dj * ured + inter;
+        ddt[o] = fmaf(dex, ured, colv);
+        tail = fmaf(dj, ured, tail);
+      }
+      tail = segment_sum(tail, 32);
+      if (lane == 0) {
+        if (K == nb - 1) {
+          float gh = 0.f;
+          for (int k = 0; k < kTcThreads / 32; ++k) gh += red_gh[k];
+          tail += expf(cl) * gh;
+        }
+        tails[(((int64_t)b * nc + c) * nb + K) * H + h] = tail;
+      }
+    }
+  }
+
+  // The group's dW o E o dt on the diagonal: dB_K += it . C_K over i >= j,
+  // dC_K += its transpose . B_K over j <= i.  Every warp is done with the
+  // fragments (the barrier above).
+  stage_tile(dsum, false);
+  group_sync(0, kTcThreads);
+  staged_times(dba, cs, 2 * r, kTQ / 8 - 1);
+  group_sync(0, kTcThreads);
+  stage_tile(dsum, true);
+  group_sync(0, kTcThreads);
+  staged_times(dca, bs, 0, 2 * r + 1);
+
+  // This group's partial dB and dC of rows K so far; the second phase adds
+  // each tile's products to them in place.
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int64_t o = part0 + (rk + j0 + lg + 8 * rr) * N + S * NH + 2 * cq;
+#pragma unroll
+    for (int nt = 0; nt < NTN; ++nt) {
+      *reinterpret_cast<float2*>(db_part + o + 8 * nt) =
+          make_float2(dba[nt][2 * rr], dba[nt][2 * rr + 1]);
+      *reinterpret_cast<float2*>(dc_part + o + 8 * nt) =
+          make_float2(dca[nt][2 * rr], dca[nt][2 * rr + 1]);
+    }
+  }
+
+  // Phase 2: each off-diagonal tile for every head of the group.
+  int seq = G;   // pairs consumed
+  for (int t = 0; t < ntiles; ++t) {
+    const bool col = t < ncol;
+    const int I = K + 1 + t, J = t - ncol;   // col: I; else J
+    const float* tbc = bc_at(t & 1);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dsum[u][e] = 0.f;
+    for (int gi = 0; gi < G; ++gi, ++seq) {
+      const int h = grp * G + gi, buf = seq & 1;
+      // The pair (and at the tile's first head its C_I or B_J) has
+      // landed; every warp is done with the last pair, the staging tile
+      // and the partial sums.
+      cp_async_wait_all();
+      group_sync(0, kTcThreads);
+      if (gi + 1 < G) load_pair(t, h + 1, buf ^ 1);
+      else if (t + 1 < ntiles) load_pair(t + 1, grp * G, buf ^ 1);
+      if (gi == 0 && t + 1 < ntiles) load_bc(t + 1);
+      cp_async_commit();
+      const float* pa = pair_at(buf, 0);
+      const float* pb = pair_at(buf, 1);
+      const float* dg = dtc + buf * 2 * Q;
+      const float* cg = dg + Q;
+      float cur[2], dtr[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int j = kTQ * K + j0 + lg + 8 * rr;
+        cur[rr] = cg[j];
+        dtr[rr] = dg[j];
+      }
+      // What this head's terms are added to, read now so that the loads
+      // are in flight while the block computes: dx of this warp's rows and
+      // half of p (the column side), dcum and ddt of its rows (the lanes
+      // that add them).
+      float2 dxo[2][4];
+      float dco[2], ddo[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int64_t o = (rk + j0 + lg + 8 * rr) * H + h;
+#pragma unroll
+        for (int pt = 0; pt < 4; ++pt)
+          dxo[rr][pt] = col ? *reinterpret_cast<const float2*>(
+                                  dx + o * kTP + 32 * S + 8 * pt + 2 * cq)
+                            : make_float2(0.f, 0.f);
+        dco[rr] = S == 0 && cq == 0 ? dcum[o] : 0.f;
+        ddo[rr] = S == 0 && cq == 0 && col ? ddt[o] : 0.f;
+      }
+      float dwt[4][4], part[2] = {0.f, 0.f};
+      if (col) {
+        // Column side, tile (I, K): rows j of K, columns i of I.
+        if (gi == 0) {
+          cbt_tf32<N, S>(scr4, bs, tbc, r, j0, lg, cq, lane);
+          group_sync(0, kTcThreads);   // the fragments are staged
+        }
+        float dxa[4][4], tcol[4][2];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dxa[u][e] = 0.f;
+        tf32_dw<S>(dwt, pa, pb, false, r, j0, lane);
+        tf32_tile_dx<S, false>(dxa, dsum, dwt, pb, scr4, cg + kTQ * I, cur,
+                               dtr, mn, part, tcol, r, j0, lg, cq, lane);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float* o = dx + ((rk + j0 + lg + 8 * rr) * H + h) * kTP + 32 * S +
+                     2 * cq;
+#pragma unroll
+          for (int pt = 0; pt < 4; ++pt)
+            *reinterpret_cast<float2*>(o + 8 * pt) =
+                make_float2(dxo[rr][pt].x + dxa[pt][2 * rr],
+                            dxo[rr][pt].y + dxa[pt][2 * rr + 1]);
+        }
+      } else {
+        // Row side, tile (K, J): rows i of K, columns j of J.  C_K . B_J^T
+        // on this warp's half of j, staged in its own fragments' places.
+        if (gi == 0) {
+          float cbr[4][4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cbr[u][e] = 0.f;
+#pragma unroll 2
+          for (int kn = 0; kn < N / 8; ++kn) {
+            const float* ar = cs + (j0 + lg) * kLdN + 8 * kn + 2 * cq;
+            const float2 v0 = *reinterpret_cast<const float2*>(ar);
+            const float2 v1 =
+                *reinterpret_cast<const float2*>(ar + 8 * kLdN);
+            const Tf32A a(v0.x, v1.x, v0.y, v1.y);
+            Tf32B bt[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float2 v = *reinterpret_cast<const float2*>(
+                  tbc + (32 * S + 8 * u + lg) * kLdN + 8 * kn + 2 * cq);
+              bt[u] = Tf32B(v.x, v.y);
+            }
+            mma3<4>(cbr, 0, a, bt);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            scr4[(r * 8 + 4 * S + u) * 32 + lane] =
+                make_float4(cbr[u][0], cbr[u][1], cbr[u][2], cbr[u][3]);
+        }
+        tf32_dw<S>(dwt, pa, pb, false, r, j0, lane);
+        // cur holds cum of this warp's rows i; the row sums of T and
+        // dW o E o dt over dW.
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = 32 * S + 8 * u + 2 * cq;
+          const float cj[2] = {cg[kTQ * J + j], cg[kTQ * J + j + 1]};
+          const float dj[2] = {dg[kTQ * J + j], dg[kTQ * J + j + 1]};
+          const float4 cb4 = scr4[(r * 8 + 4 * S + u) * 32 + lane];
+          const float cbr[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float ex = expf(cur[rr] - cj[e]);   // i > j
+              const float d = dwt[u][2 * rr + e];
+              part[rr] = fmaf(d * (cbr[2 * rr + e] * ex), dj[e], part[rr]);
+              dsum[u][2 * rr + e] =
+                  fmaf(d * ex, dj[e], dsum[u][2 * rr + e]);
+            }
+        }
+      }
+      // This head's terms of dcum and ddt of rows K: the first half's warp
+      // adds both halves' sums.
+      pair_sum(part);
+      if (S == 0 && cq == 0)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int j = kTQ * K + j0 + lg + 8 * rr;
+          const int64_t o = (rk + j0 + lg + 8 * rr) * H + h;
+          if (col) {
+            dcum[o] = dco[rr] - dg[j] * part[rr];
+            ddt[o] = ddo[rr] + part[rr];
+          } else {
+            dcum[o] = dco[rr] + part[rr];
+          }
+        }
+    }
+    // The group's dW o E o dt on the tile against C_I (into dB_K) or B_J
+    // (into dC_K).
+    group_sync(0, kTcThreads);   // every warp is done with the fragments
+    stage_tile(dsum, false);
+    group_sync(0, kTcThreads);
+    staged_into(col ? db_part : dc_part, tbc);
+  }
+}
+
+// One block of 8 warps per (chunk, row block K, group of G heads, batch).
+template <int N>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    ssd_chunk_bwd_tf32_tiled(
+        const float* __restrict__ x, const float* __restrict__ dt,
+        const float* __restrict__ cum, const float* __restrict__ bm,
+        const float* __restrict__ cm, const float* __restrict__ dy,
+        const float* __restrict__ g, const float* __restrict__ hp,
+        float* __restrict__ dx, float* __restrict__ dcum,
+        float* __restrict__ ddt, float* __restrict__ db_part,
+        float* __restrict__ dc_part, float* __restrict__ tails, int L, int H,
+        int G, int Q) {
+  constexpr int kLdN = N + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Tf32TiledBwdSmem lay(N, Q);
+  float* cs = reinterpret_cast<float*>(smem_raw + lay.c);
+  float* bs = reinterpret_cast<float*>(smem_raw + lay.b);
+  float* gs = reinterpret_cast<float*>(smem_raw + lay.bcr);
+  float* dtc = reinterpret_cast<float*>(smem_raw + lay.dtc);
+  const int tid = threadIdx.x;
+  const int nb = Q / kTQ, nc = L / Q;
+  const int c = blockIdx.x / nb, K = blockIdx.x % nb;
+  const int h0 = blockIdx.y * G, b = blockIdx.z;
+  const int64_t row0 = (int64_t)b * L + (int64_t)c * Q;
+  const int64_t rk = row0 + kTQ * K;
+
+  // C_K and B_K once per group, and the first head's x_K, dy_K, dt, cum, g
+  // and h_prev; here rather than in the warps' code, whose registers are
+  // at their limit at N = 128.
+  for (int e = tid; e < kTQ * (N / 4); e += kTcThreads) {
+    const int i = e / (N / 4), k4 = (e % (N / 4)) * 4;
+    cp_async16(cs + i * kLdN + k4, cm + (rk + i) * N + k4);
+    cp_async16(bs + i * kLdN + k4, bm + (rk + i) * N + k4);
+  }
+  tf32_load_xdy(reinterpret_cast<float*>(smem_raw + lay.pair),
+                reinterpret_cast<float*>(smem_raw + lay.pair) + kTQ * kTP, x,
+                dy, rk, H, h0);
+  tf32_load_gh<N>(gs, gs + N * kTP, g, hp,
+                  (((int64_t)b * nc + c) * H + h0) * (int64_t)N * kTP);
+  for (int e = tid; e < 2 * Q; e += kTcThreads) {
+    const int j = e < Q ? e : e - Q;
+    cp_async4(dtc + e, (e < Q ? dt : cum) + (row0 + j) * H + h0);
+  }
+  cp_async_commit();
+  // Warps 0-3 take the first half of each product's columns, 4-7 the
+  // second; both run the same barriers in the same order.
+  if (tid < kTcThreads / 2)
+    chunk_bwd_tf32_tiled_warp<N, 0>(x, dt, cum, bm, cm, dy, g, hp, dx, dcum,
+                                    ddt, db_part, dc_part, tails, smem_raw,
+                                    L, H, G, Q);
+  else
+    chunk_bwd_tf32_tiled_warp<N, 1>(x, dt, cum, bm, cm, dy, g, hp, dx, dcum,
+                                    ddt, db_part, dc_part, tails, smem_raw,
+                                    L, H, G, Q);
+}
+
+template <int N>
+cudaError_t launch_chunk_bwd_tf32_tiled(
+    const void* x, const void* dt, const void* cum, const void* bm,
+    const void* cm, const void* dy, const void* g, const void* hp, void* dx,
+    void* dcum, void* ddt, void* db_part, void* dc_part, void* tails, int B,
+    int L, int H, int Q, int G, cudaStream_t stream) {
+  const size_t smem = Tf32TiledBwdSmem(N, Q).total;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_bwd_tf32_tiled<N>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((L / Q) * (Q / kTQ), H / G, B);
+  ssd_chunk_bwd_tf32_tiled<N><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(cum), static_cast<const float*>(bm),
+      static_cast<const float*>(cm), static_cast<const float*>(dy),
+      static_cast<const float*>(g), static_cast<const float*>(hp),
+      static_cast<float*>(dx), static_cast<float*>(dcum),
+      static_cast<float*>(ddt), static_cast<float*>(db_part),
+      static_cast<float*>(dc_part), static_cast<float*>(tails), L, H, G, Q);
   return cudaGetLastError();
 }
 
@@ -3451,11 +4185,12 @@ extern "C" int ssd_chunk_bwd_launch(const void* x, const void* dt,
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype must be 1 (bfloat16 x, B, C and dy); shapes as ssd_chunk_bwd_launch
-// with P = 64, N = 64 or 128 and Q = 128, 192 or 256; tails [B, L / Q,
-// Q / 64, H] fp32 (each row block's terms of its chunk's dcum_last, for
-// the caller to add to the chunk's last row).  Runs ssd_chunk_bwd_tc_tiled,
-// which writes dcum without those terms.
+// dtype: 0 = float32, 1 = bfloat16 for x, B, C and dy; shapes as
+// ssd_chunk_bwd_launch with P = 64, N = 64 or 128 and Q = 128, 192 or 256;
+// tails [B, L / Q, Q / 64, H] fp32 (each row block's terms of its chunk's
+// dcum_last, for the caller to add to the chunk's last row).  Runs
+// ssd_chunk_bwd_tc_tiled (bf16) or ssd_chunk_bwd_tf32_tiled (fp32), which
+// write dcum without those terms.
 extern "C" int ssd_chunk_bwd_tiled_launch(
     const void* x, const void* dt, const void* cum, const void* bm,
     const void* cm, const void* dy, const void* g, const void* hp, void* dx,
@@ -3463,15 +4198,19 @@ extern "C" int ssd_chunk_bwd_tiled_launch(
     int dtype, int B, int L, int H, int P, int N, int Q, int G,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 1 || P != kTP || Q % kTQ || Q <= kTQ || Q > kTiledMaxQ ||
-      L % Q || G < 1 || G > kMaxGroup || H % G)
+  if ((dtype != 0 && dtype != 1) || P != kTP || Q % kTQ || Q <= kTQ ||
+      Q > kTiledMaxQ || L % Q || G < 1 || G > kMaxGroup || H % G)
     return (int)cudaErrorInvalidValue;
-#define SSD_CHUNK_BWD_TILED(NN)                                              \
-  return (int)launch_chunk_bwd_tiled<NN>(x, dt, cum, bm, cm, dy, g, hp, dx,  \
-                                         dcum, ddt, db_part, dc_part, tails, \
-                                         B, L, H, Q, G, s)
-  if (N == 64) SSD_CHUNK_BWD_TILED(64);
-  if (N == 128) SSD_CHUNK_BWD_TILED(128);
+#define SSD_CHUNK_BWD_TILED(KERNEL, NN)                                     \
+  return (int)KERNEL<NN>(x, dt, cum, bm, cm, dy, g, hp, dx, dcum, ddt,      \
+                         db_part, dc_part, tails, B, L, H, Q, G, s)
+  if (dtype == 1 && N == 64) SSD_CHUNK_BWD_TILED(launch_chunk_bwd_tiled, 64);
+  if (dtype == 1 && N == 128)
+    SSD_CHUNK_BWD_TILED(launch_chunk_bwd_tiled, 128);
+  if (dtype == 0 && N == 64)
+    SSD_CHUNK_BWD_TILED(launch_chunk_bwd_tf32_tiled, 64);
+  if (dtype == 0 && N == 128)
+    SSD_CHUNK_BWD_TILED(launch_chunk_bwd_tf32_tiled, 128);
 #undef SSD_CHUNK_BWD_TILED
   return (int)cudaErrorInvalidValue;
 }
@@ -3482,6 +4221,14 @@ extern "C" int ssd_chunk_bwd_tiled_smem_bytes(int N, int Q) {
   if ((N != 64 && N != 128) || Q % kTQ || Q <= kTQ || Q > kTiledMaxQ)
     return -1;
   return (int)TiledBwdSmem(N, Q).total;
+}
+
+// Dynamic shared memory (bytes) of ssd_chunk_bwd_tf32_tiled at state size
+// N (64 or 128) and chunk Q (128, 192 or 256); -1 for anything else.
+extern "C" int ssd_chunk_bwd_tf32_tiled_smem_bytes(int N, int Q) {
+  if ((N != 64 && N != 128) || Q % kTQ || Q <= kTQ || Q > kTiledMaxQ)
+    return -1;
+  return (int)Tf32TiledBwdSmem(N, Q).total;
 }
 
 // Dynamic shared memory (bytes) of ssd_chunk_bwd_tc (which = 0) at state

@@ -11,18 +11,20 @@ chunk backward and the carry backward run on the tensor cores with
 terms), fp32 in ``ssd_chunk_tf32``, ``ssd_chunk_bwd_tf32`` and
 ``ssd_carry_bwd_tf32`` (TF32, ``TF32_TERMS`` = three products a
 product); the next head's or chunks' tiles are copied with ``cp.async``
-while a block computes, and every one of them is bound by bytes.  For
-bf16 at the longer chunks ``TILED_Q`` (128, 192 and 256 rows: the Pallas
+while a block computes, and every one of them is bound by bytes.  At
+the longer chunks ``TILED_Q`` (128, 192 and 256 rows: the Pallas
 kernel's own, Mamba2's 256), P = 64, N in {64, 128}, the chunk pass and
-the chunk backward run on the tensor cores over 64 x 64 tiles
-(``ssd_chunk_tc_tiled``, ``ssd_chunk_bwd_tc_tiled``, :func:`tiled_shape`)
-and the carry backward on the CUDA cores.  The forward carry is
+the chunk backward run on the tensor cores over 64 x 64 tiles — bf16 in
+``ssd_chunk_tc_tiled`` and ``ssd_chunk_bwd_tc_tiled``
+(:func:`tiled_shape`), fp32 in ``ssd_chunk_tf32_tiled`` and
+``ssd_chunk_bwd_tf32_tiled`` (TF32, :func:`tf32_tiled_shape`) — and the
+carry backward on the CUDA cores.  The forward carry is
 ``ssd_carry_tc`` for bf16 C and ``ssd_carry_tf32`` for fp32 C at Q and N
 multiples of 16 (where its layout fits a block).  Every other shape runs
 on the CUDA cores in fp32 (``ssd_chunk_kernel``, ``ssd_carry_kernel``,
-``ssd_carry_bwd``, ``ssd_chunk_bwd``): fp32 at chunks other than 64, P
-other than 64, and chunks that are not a multiple of 64 (the models'
-chunk of 50 rows, prompts under 64 tokens).  A refused launch raises:
+``ssd_carry_bwd``, ``ssd_chunk_bwd``): P other than 64, N other than 64
+and 128, and chunks that are not a multiple of 64 (the models' chunk of
+50 rows, prompts under 64 tokens).  A refused launch raises:
 there is no fallback from one kernel to the other.
 ``FWD_KERNEL_LAUNCHES`` and ``BWD_KERNEL_LAUNCHES`` count each kernel's
 launches.
@@ -57,15 +59,16 @@ TERMS = 2
 # in csrc/ssd.cu).
 TF32_TERMS = 3
 TC_Q, TC_P, TC_N = 64, 64, (64, 128)   # shapes the tensor-core kernels take
-# Chunks the bf16 tensor-core kernels take over 64 x 64 tiles
-# (``ssd_chunk_tc_tiled``, ``ssd_chunk_bwd_tc_tiled``), at TC_P and TC_N.
+# Chunks the tensor-core kernels take over 64 x 64 tiles (bf16
+# ``ssd_chunk_tc_tiled``, ``ssd_chunk_bwd_tc_tiled``; fp32
+# ``ssd_chunk_tf32_tiled``, ``ssd_chunk_bwd_tf32_tiled``), at TC_P and TC_N.
 TILED_Q = (128, 192, 256)
 # Launches of each forward kernel through the wrappers below (the op's
 # forward and its backward's chunk-state launch alike; reset them to 0 and
 # read them back around a run).
 FWD_KERNELS = ("ssd_chunk_kernel", "ssd_chunk_tc", "ssd_chunk_tf32",
-               "ssd_chunk_tc_tiled", "ssd_carry_kernel", "ssd_carry_tc",
-               "ssd_carry_tf32")
+               "ssd_chunk_tc_tiled", "ssd_chunk_tf32_tiled",
+               "ssd_carry_kernel", "ssd_carry_tc", "ssd_carry_tf32")
 FWD_KERNEL_LAUNCHES = dict.fromkeys(FWD_KERNELS, 0)
 
 
@@ -89,6 +92,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_chunk_tf32_heads.restype = ctypes.c_int
     lib.ssd_chunk_tiled_smem_bytes.argtypes = [I] * 2
     lib.ssd_chunk_tiled_smem_bytes.restype = ctypes.c_int
+    lib.ssd_chunk_tf32_tiled_smem_bytes.argtypes = [I] * 2
+    lib.ssd_chunk_tf32_tiled_smem_bytes.restype = ctypes.c_int
+    lib.ssd_chunk_tf32_tiled_heads.argtypes = [I] * 5
+    lib.ssd_chunk_tf32_tiled_heads.restype = ctypes.c_int
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
@@ -97,6 +104,7 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.ssd_chunk_bwd_launch.argtypes = [P] * 13 + [I] * 9 + [P]
     lib.ssd_chunk_bwd_tiled_launch.argtypes = [P] * 14 + [I] * 8 + [P]
     lib.ssd_chunk_bwd_tiled_smem_bytes.argtypes = [I] * 2
+    lib.ssd_chunk_bwd_tf32_tiled_smem_bytes.argtypes = [I] * 2
     lib.ssd_bwd_tc_smem_bytes.argtypes = [I] * 3
     lib.ssd_bwd_smem_bytes.argtypes = [I] * 4
     lib.ssd_chunk_bwd_tf32_smem_bytes.argtypes = [I] * 2
@@ -104,6 +112,7 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     for fn in (lib.ssd_carry_bwd_launch, lib.ssd_chunk_bwd_launch,
                lib.ssd_chunk_bwd_tiled_launch,
                lib.ssd_chunk_bwd_tiled_smem_bytes,
+               lib.ssd_chunk_bwd_tf32_tiled_smem_bytes,
                lib.ssd_bwd_tc_smem_bytes, lib.ssd_bwd_smem_bytes,
                lib.ssd_chunk_bwd_tf32_smem_bytes,
                lib.ssd_carry_bwd_tf32_smem_bytes):
@@ -126,10 +135,14 @@ BWD_TERMS = 2
 # Launches of each backward kernel through the wrappers below (reset them
 # to 0 and read them back around a run): the CUDA-core kernels take the
 # shapes the tensor-core ones (``_tc`` for bf16, :func:`tc_shape`;
-# ``_tf32`` for fp32, :func:`tf32_shape`) do not.
+# ``_tf32`` for fp32, :func:`tf32_shape`; the ``_tiled`` chunk kernels,
+# :func:`tiled_shape` and :func:`tf32_tiled_shape`) do not.
 BWD_KERNELS = ("ssd_carry_bwd", "ssd_chunk_bwd", "ssd_carry_bwd_tc",
                "ssd_chunk_bwd_tc", "ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32",
-               "ssd_chunk_bwd_tc_tiled")
+               "ssd_chunk_bwd_tc_tiled", "ssd_chunk_bwd_tf32_tiled")
+# The chunk backward kernels over 64 x 64 tiles (their own C entry point,
+# ``ssd_chunk_bwd_tiled_launch``).
+TILED_BWD = ("ssd_chunk_bwd_tc_tiled", "ssd_chunk_bwd_tf32_tiled")
 BWD_KERNEL_LAUNCHES = dict.fromkeys(BWD_KERNELS, 0)
 # The tensor-core carry backward's ring depth and rows of N a block
 # (kCarryStages and kCarryRows in csrc/ssd_bwd.cu).
@@ -264,13 +277,22 @@ def tf32_shape(dtype: torch.dtype, Q: int, P: int, N: int) -> bool:
         and N in TC_N
 
 
+def tf32_tiled_shape(dtype: torch.dtype, Q: int, P: int, N: int) -> bool:
+    """Whether the fp32 tensor-core kernels over 64 x 64 tiles
+    (``ssd_chunk_tf32_tiled``, ``ssd_chunk_bwd_tf32_tiled``) take this
+    chunk: fp32 at :func:`tiled_shape`'s shapes."""
+    return dtype == torch.float32 and Q in TILED_Q and P == TC_P \
+        and N in TC_N
+
+
 def fwd_kernels(dtype: torch.dtype, Q: int, P: int, N: int
                 ) -> Tuple[str, str]:
     """(chunk, carry) forward kernels :func:`ssd_chunks_cuda` and
     :func:`ssd_carry_cuda` launch for x, B and C of ``dtype`` at this
     shape: ``ssd_chunk_tc`` where :func:`tc_shape` holds,
     ``ssd_chunk_tc_tiled`` where :func:`tiled_shape` does,
-    ``ssd_chunk_tf32`` where :func:`tf32_shape` does, else
+    ``ssd_chunk_tf32`` where :func:`tf32_shape` does,
+    ``ssd_chunk_tf32_tiled`` where :func:`tf32_tiled_shape` does, else
     ``ssd_chunk_kernel``; where :func:`carry_tc_takes` holds (Q and N
     multiples of 16) ``ssd_carry_tc`` for bf16 C and ``ssd_carry_tf32``
     for fp32 C, else ``ssd_carry_kernel`` (as ``launch_carry`` in
@@ -278,6 +300,7 @@ def fwd_kernels(dtype: torch.dtype, Q: int, P: int, N: int
     chunk = ("ssd_chunk_tc" if tc_shape(dtype, Q, P, N) else
              "ssd_chunk_tc_tiled" if tiled_shape(dtype, Q, P, N) else
              "ssd_chunk_tf32" if tf32_shape(dtype, Q, P, N) else
+             "ssd_chunk_tf32_tiled" if tf32_tiled_shape(dtype, Q, P, N) else
              "ssd_chunk_kernel")
     carry = ("ssd_carry_kernel" if not carry_tc_takes(dtype, Q, P, N) else
              "ssd_carry_tc" if dtype == torch.bfloat16 else "ssd_carry_tf32")
@@ -292,6 +315,27 @@ def chunk_tiled_smem_bytes(N: int, Q: int) -> int:
     larger; dt and cum of the chunk for two heads, fp32."""
     setup, ring = 2 * TC_Q * (N + 8) * 2, 2 * TC_Q * (TC_P + 8) * 2
     return Q // TC_Q * 16384 + max(setup, ring) + 16 * Q
+
+
+def chunk_tf32_tiled_smem_bytes(N: int, Q: int) -> int:
+    """Dynamic shared memory of one ``ssd_chunk_tf32_tiled`` block (as
+    ``Tf32TiledSmem`` in ``csrc/ssd.cu``; the same at N = 64 and 128): the
+    C·Bᵀ fragments of Q / 64 tiles (16 KiB each) or a state task's fp32
+    slice of B [Q, 68], whichever is larger; the 64-column pieces of C_I
+    and B_J [64, 68] fp32, or the ring of two x tiles [64, 68] fp32 (the
+    same size); dt and cum of the chunk for two heads, fp32."""
+    return max(Q // TC_Q * 16384, Q * (TC_Q + 4) * 4) \
+        + 2 * TC_Q * (TC_P + 4) * 4 + 16 * Q
+
+
+def chunk_tf32_tiled_heads(pairs: int, Q: int, N: int, H: int,
+                           sms: int) -> int:
+    """Heads per ``ssd_chunk_tf32_tiled`` block
+    (``tf32_tiled_heads_per_block`` in ``csrc/ssd.cu``) over ``pairs``
+    (batch, chunk) pairs of Q rows on a card of ``sms`` SMs:
+    :func:`tf32_heads` over its Q / 64 + N / 64 tasks a pair with two
+    blocks an SM.  The outputs do not depend on it."""
+    return tf32_heads(pairs * (Q // TC_Q + N // 64), H, 2 * sms)
 
 
 def chunk_tf32_smem_bytes(N: int, G: int) -> int:
@@ -358,7 +402,8 @@ def ssd_chunks_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     ``TF32_TERMS`` TF32 products) and the CUDA-core kernel elsewhere; 0
     forces the CUDA-core kernel; for bf16 1-3 ask for ``ssd_chunk_tc``
     with that many terms (``ssd_chunk_tc_tiled``, at ``TILED_Q``, takes
-    ``TERMS``), for fp32 ``TF32_TERMS`` for ``ssd_chunk_tf32``."""
+    ``TERMS``), for fp32 ``TF32_TERMS`` for ``ssd_chunk_tf32`` (at
+    ``TILED_Q`` ``ssd_chunk_tf32_tiled``)."""
     if x.dim() != 4:
         raise ValueError(f"x must be [B, L, H, P], got {list(x.shape)}")
     Bsz, L, H, P = x.shape
@@ -385,7 +430,8 @@ def ssd_chunks_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
             raise ValueError(f"{name} is not contiguous")
     tiled = tiled_shape(x.dtype, chunk, P, N)
     tc = tc_shape(x.dtype, chunk, P, N) or tiled
-    tf32 = tf32_shape(x.dtype, chunk, P, N)
+    tf32_tiled = tf32_tiled_shape(x.dtype, chunk, P, N)
+    tf32 = tf32_shape(x.dtype, chunk, P, N) or tf32_tiled
     if terms is None:
         terms = TERMS if tc else TF32_TERMS if tf32 else 0
     if terms and not (tc and terms in ((TERMS,) if tiled else (1, 2, 3))
@@ -393,8 +439,9 @@ def ssd_chunks_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
         raise ValueError(f"the tensor-core kernels take P = {TC_P}, N in "
                          f"{TC_N}: bf16 at Q = {TC_Q} with 1-3 terms and at "
                          f"Q in {TILED_Q} with {TERMS}, fp32 at Q = {TC_Q} "
-                         f"with {TF32_TERMS}; got terms={terms} for "
-                         f"{x.dtype}, Q {chunk}, P {P}, N {N}")
+                         f"and at Q in {TILED_Q} with {TF32_TERMS}; got "
+                         f"terms={terms} for {x.dtype}, Q {chunk}, P {P}, "
+                         f"N {N}")
     if terms:    # 16-byte cp.async copies
         _check_aligned(x=x, Bm=Bm, Cm=Cm)
     _check_max_chunk(chunk, "SSD chunk kernel")
@@ -413,6 +460,7 @@ def ssd_chunks_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
         Cm.data_ptr(), y.data_ptr(), states.data_ptr(), DTYPES[x.dtype],
         Bsz, L, H, P, N, chunk, terms, stream)
     name = ("ssd_chunk_kernel" if not terms else
+            "ssd_chunk_tf32_tiled" if tf32_tiled else
             "ssd_chunk_tf32" if tf32 else
             "ssd_chunk_tc_tiled" if tiled else "ssd_chunk_tc")
     check_launch(err, name)
@@ -527,6 +575,19 @@ def chunk_bwd_tiled_smem_bytes(N: int, Q: int) -> int:
             + 16 * Q + (12 * TC_Q + 8) * 4)
 
 
+def chunk_bwd_tf32_tiled_smem_bytes(N: int, Q: int) -> int:
+    """Dynamic shared memory of one ``ssd_chunk_bwd_tf32_tiled`` block (as
+    ``Tf32TiledBwdSmem`` in ``csrc/ssd_bwd.cu``): C_K and B_K [64, N + 8]
+    fp32; a two-stage ring of a head's pair of x and dy tiles [64, 64]
+    fp32; a two-stage ring of another row block's C or B [64, N + 8] fp32
+    (in the first phase g and h_prev [N, 64] fp32); the staging tile
+    [64, 68] fp32; dt and cum of the chunk for two heads, fp32; the
+    partial sums (12·64 + 8 floats)."""
+    bc, xd = TC_Q * (N + 8) * 4, TC_Q * TC_P * 4
+    return (4 * bc + 4 * xd + TC_Q * (TC_Q + 4) * 4 + 16 * Q
+            + (12 * TC_Q + 8) * 4)
+
+
 def chunk_bwd_tf32_smem_bytes(N: int, G: int) -> int:
     """Dynamic shared memory of one ``ssd_chunk_bwd_tf32`` block with G
     heads (as ``ChunkTf32Smem`` in ``csrc/ssd_bwd.cu``): C and B [64,
@@ -542,12 +603,15 @@ def bwd_kernels(dtype: torch.dtype, Q: int, P: int, N: int
     """(carry, chunk) backward kernels the wrappers launch for inputs of
     ``dtype`` at this shape: where the forward's tensor-core chunk kernels
     apply, the bf16 tensor-core pair (:func:`tc_shape`) or the fp32 one
-    (:func:`tf32_shape`); at :func:`tiled_shape` the CUDA-core carry
-    backward and the tiled chunk backward; else the CUDA-core pair."""
+    (:func:`tf32_shape`); at :func:`tiled_shape` and
+    :func:`tf32_tiled_shape` the CUDA-core carry backward and the tiled
+    chunk backward of the dtype; else the CUDA-core pair."""
     if tc_shape(dtype, Q, P, N):
         return "ssd_carry_bwd_tc", "ssd_chunk_bwd_tc"
     if tiled_shape(dtype, Q, P, N):
         return "ssd_carry_bwd", "ssd_chunk_bwd_tc_tiled"
+    if tf32_tiled_shape(dtype, Q, P, N):
+        return "ssd_carry_bwd", "ssd_chunk_bwd_tf32_tiled"
     if tf32_shape(dtype, Q, P, N):
         return "ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32"
     return "ssd_carry_bwd", "ssd_chunk_bwd"
@@ -559,12 +623,12 @@ def chunk_bwd_heads(kernel: str, pairs: int, H: int, sms: int,
     ``kernel`` (a name :func:`bwd_kernels` gives) over ``pairs`` (batch,
     chunk) pairs of ``Q`` rows on a card of ``sms`` SMs:
     ``ssd_chunk_bwd_tf32`` :func:`tf32_heads` with one block an SM (its
-    shared memory), ``ssd_chunk_bwd_tc_tiled`` :func:`bwd_heads_per_block`
-    over its Q / 64 blocks a pair, the others :func:`bwd_heads_per_block`
-    over the pairs."""
+    shared memory), the tiled kernels (``TILED_BWD``)
+    :func:`bwd_heads_per_block` over their Q / 64 blocks a pair, the
+    others :func:`bwd_heads_per_block` over the pairs."""
     if kernel == "ssd_chunk_bwd_tf32":
         return tf32_heads(pairs, H, sms)
-    if kernel == "ssd_chunk_bwd_tc_tiled":
+    if kernel in TILED_BWD:
         return bwd_heads_per_block(pairs * (Q // TC_Q), H, sms)
     return bwd_heads_per_block(pairs, H, sms)
 
@@ -663,10 +727,11 @@ def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     :func:`chunk_bwd_heads`'s heads per group on x's card, without
     synchronising.  The kernel follows :func:`bwd_kernels`:
     ``ssd_chunk_bwd_tc`` for bf16 and ``ssd_chunk_bwd_tf32`` for fp32 at
-    the tensor-core shapes, ``ssd_chunk_bwd_tc_tiled`` for bf16 at
-    ``TILED_Q`` (each of its row blocks writes its terms of the chunk's
-    dcum_last apart, and they are added to the last row here in a fixed
-    order), ``ssd_chunk_bwd`` otherwise or when ``cuda_cores`` is set."""
+    the tensor-core shapes, ``ssd_chunk_bwd_tc_tiled`` for bf16 and
+    ``ssd_chunk_bwd_tf32_tiled`` for fp32 at ``TILED_Q`` (each of their row
+    blocks writes its terms of the chunk's dcum_last apart, and they are
+    added to the last row here in a fixed order), ``ssd_chunk_bwd``
+    otherwise or when ``cuda_cores`` is set."""
     if x.dim() != 4 or x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_bwd_cuda needs a CUDA x [B, L, H, P], "
                          f"got {list(x.shape)} on {x.device}")
@@ -683,7 +748,7 @@ def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     name = "ssd_chunk_bwd" if cuda_cores else bwd_kernels(x.dtype, chunk, P,
                                                           N)[1]
     tc = name != "ssd_chunk_bwd"
-    tiled = name == "ssd_chunk_bwd_tc_tiled"
+    tiled = name in TILED_BWD
     G = chunk_bwd_heads(
         name, Bsz * nc, H,
         torch.cuda.get_device_properties(x.device).multi_processor_count,

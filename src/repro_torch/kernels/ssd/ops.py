@@ -5,8 +5,8 @@ On a CUDA tensor, :func:`ssd` computes the chunk cumsum, launches the
 chunk kernel for the intra-chunk term and the chunk states (on the
 tensor cores at P = 64, N in {64, 128}: for bf16 ``ssd_chunk_tc`` at
 Q = 64 and ``ssd_chunk_tc_tiled`` at Q = 128, 192 and 256, for fp32
-``ssd_chunk_tf32`` at Q = 64; else ``ssd_chunk_kernel`` on the CUDA
-cores), then the carry kernel (at Q and N multiples of 16 on the tensor
+``ssd_chunk_tf32`` at Q = 64 and ``ssd_chunk_tf32_tiled`` at Q = 128,
+192 and 256; else ``ssd_chunk_kernel`` on the CUDA cores), then the carry kernel (at Q and N multiples of 16 on the tensor
 cores: ``ssd_carry_tc`` for bf16 C, ``ssd_carry_tf32`` for fp32 C; else
 ``ssd_carry_kernel``), which walks
 the chunks in order and writes y in x's dtype and the final state; the
@@ -28,9 +28,10 @@ path under ``FakeTensorMode`` without launching, and with a flop formula
   backward (each chunk's gradients) from ``csrc/ssd_bwd.cu`` — at the
   models' shapes (Q = P = 64, N in {64, 128}) for bf16 the tensor-core
   ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, for fp32 the TF32
-  ``ssd_carry_bwd_tf32`` and ``ssd_chunk_bwd_tf32``; for bf16 at Q =
-  128, 192 and 256 (P = 64, N in {64, 128}) the CUDA-core
-  ``ssd_carry_bwd`` and the tensor-core ``ssd_chunk_bwd_tc_tiled``; else
+  ``ssd_carry_bwd_tf32`` and ``ssd_chunk_bwd_tf32``; at Q = 128, 192
+  and 256 (P = 64, N in {64, 128}) the CUDA-core ``ssd_carry_bwd`` and
+  the tensor-core ``ssd_chunk_bwd_tc_tiled`` (bf16) or
+  ``ssd_chunk_bwd_tf32_tiled`` (fp32); else
   the CUDA-core ``ssd_carry_bwd`` and ``ssd_chunk_bwd``
   (``kernel.bwd_kernels``) — and
   it finishes in torch: dB and dC summed over the kernel's head groups in
@@ -209,7 +210,10 @@ def ssd_bwd_flops(Bsz: int, L: int, H: int, P: int, N: int, chunk: int,
     """The backward's flops (module docstring): the chunk pass for the
     states, the carry backward's and the chunk backward's products, the
     last with the groups of heads ``kernel.chunk_bwd_heads`` gives the
-    chunk backward for inputs of ``dtype`` on a card of ``sms`` SMs."""
+    chunk backward for inputs of ``dtype`` on a card of ``sms`` SMs.
+    ``ssd_chunk_bwd_tc_tiled`` forms C·Bᵀ per head and tile (2Q²N a head)
+    and multiplies the group's summed dW∘E∘dt with C and B once a group
+    (4Q²N); the other kernels do all three products once a group."""
     from .kernel import bwd_kernels, chunk_bwd_heads
     nc = math.ceil(L / chunk)
     Q = chunk

@@ -1,7 +1,8 @@
 """The fp32 SSD tensor-core kernels' arithmetic in torch, on the CPU
-(``ssd_chunk_tf32`` and ``ssd_carry_tf32`` in ``csrc/ssd.cu``,
-``ssd_chunk_bwd_tf32`` and ``ssd_carry_bwd_tf32`` in ``csrc/ssd_bwd.cu``),
-shared by ``test_torch_ssd.py`` and ``test_torch_ssd_bwd.py``.
+(``ssd_chunk_tf32``, ``ssd_chunk_tf32_tiled`` and ``ssd_carry_tf32`` in
+``csrc/ssd.cu``, ``ssd_chunk_bwd_tf32``, ``ssd_chunk_bwd_tf32_tiled`` and
+``ssd_carry_bwd_tf32`` in ``csrc/ssd_bwd.cu``), shared by
+``test_torch_ssd.py`` and ``test_torch_ssd_bwd.py``.
 
 Every product of the four kernels is taken on ``mma.sync`` m16n8k8 with
 TF32 operands: each fp32 operand split into hi = its TF32 rounding (to
@@ -93,6 +94,50 @@ def emulate_tf32_chunks(x, dt, cum, Bm, Cm, chunk, terms=3):
     return y.permute(0, 1, 3, 2, 4).reshape(Bsz, L, H, P), st
 
 
+def emulate_tf32_chunks_tiled(x, dt, cum, Bm, Cm, chunk, terms=3, rows=64):
+    """``ssd_chunk_tf32_tiled``'s walk over tiles of ``rows`` rows: per
+    row block I, C_I·B_Jᵀ for J <= I over n in pieces of 64 columns, each
+    piece's k8 steps continuing the last's sum (natural slots); W_IJ built
+    from it in fp32 (0 above the diagonal of J = I) and y_I summed over J
+    in order in one running sum (permuted slots over j); the state summed
+    over J in order, B ∘ dec_end scaled as read (permuted slots).  Returns
+    (y_intra [B,L,H,P], states [B,nc,H,N,P]) as ``ssd_chunks_ref``."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nc, nb = L // chunk, chunk // rows
+    f32 = torch.float32
+    xc = x.to(f32).reshape(Bsz, nc, chunk, H, P).permute(0, 1, 3, 2, 4)
+    dtc = dt.to(f32).reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)
+    cumc = cum.to(f32).reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)
+    Bc = Bm.to(f32).reshape(Bsz, nc, chunk, N)
+    Cc = Cm.to(f32).reshape(Bsz, nc, chunk, N)
+    blocks = [slice(k * rows, (k + 1) * rows) for k in range(nb)]
+    iota = torch.arange(rows)
+    y = torch.zeros_like(xc)
+    for I, i in enumerate(blocks):
+        acc = None
+        for J, j in enumerate(blocks[:I + 1]):
+            cb = None
+            for n0 in range(0, N, 64):
+                cb = tf32_mm(Cc[:, :, i, n0:n0 + 64],
+                             Bc[:, :, j, n0:n0 + 64].transpose(-1, -2),
+                             NATURAL, terms, init=cb)         # [b,c,i,j]
+            causal = (iota[:, None] >= iota[None, :]) if I == J else \
+                torch.ones((rows, rows), dtype=torch.bool)
+            seg = cumc[..., i, None] - cumc[..., None, j]     # [b,c,h,i,j]
+            w = torch.where(causal, cb[:, :, None] * torch.exp(
+                torch.where(causal, seg, 0.0)) * dtc[..., None, j], 0.0)
+            acc = tf32_mm(w, xc[..., j, :], PERMUTED, terms, init=acc)
+        y[..., i, :] = acc
+    dec = torch.exp(cumc[..., -1:] - cumc) * dtc             # [b,c,h,j]
+    bd = Bc[:, :, None] * dec[..., None]                     # [b,c,h,j,n]
+    st = None
+    for j in blocks:
+        st = tf32_mm(bd[..., j, :].transpose(-1, -2), xc[..., j, :],
+                     PERMUTED, terms, init=st)               # [b,c,h,n,p]
+    return y.permute(0, 1, 3, 2, 4).reshape(Bsz, L, H, P), st
+
+
 def emulate_tf32_chunk_bwd(x, dt, cum, Bm, Cm, dy, g, h_prev, chunk,
                            heads_per_group, terms=3):
     """``ssd_chunk_bwd_tf32``'s arithmetic, as ``ssd_chunk_bwd_ref``'s
@@ -157,6 +202,88 @@ def emulate_tf32_chunk_bwd(x, dt, cum, Bm, Cm, dy, g, h_prev, chunk,
         return t.permute(2, 0, 1, 3, 4).reshape(-1, Bsz, L, N)
     return (dx.permute(0, 1, 3, 2, 4).reshape(Bsz, L, H, P), rows(dcum),
             rows(ddt), parts(db), parts(dc))
+
+
+def emulate_tf32_chunk_bwd_tiled(x, dt, cum, Bm, Cm, dy, g, h_prev, chunk,
+                                 heads_per_group, terms=3, rows=64):
+    """``ssd_chunk_bwd_tf32_tiled``'s arithmetic over tiles of ``rows``
+    rows, as ``ssd_chunk_bwd_ref``'s outputs: each product's operands and
+    slots as :func:`emulate_tf32_chunk_bwd`'s; per row block K, dx_K's
+    intra term on the diagonal continuing the state term d_j (B·g)_j's sum,
+    each column tile (I, K), I > K, summed from zero and added in order;
+    the group's summed dW∘E∘dt split once per tile: on the diagonal
+    against C_K (into dB_K) and B_K (into dC_K), on each column tile
+    against C_I (into dB_K), on each row tile (K, J), J < K, against B_J
+    (into dC_K), each product summed from zero and added in order."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nc, G, nb = L // chunk, heads_per_group, chunk // rows
+    f32 = torch.float32
+
+    def heads(t, width):          # [B,L,H,w] -> [b,c,h,Q,w]
+        return t.to(f32).reshape(Bsz, nc, chunk, H, width).permute(
+            0, 1, 3, 2, 4)
+    xc, dyc = heads(x, P), heads(dy, P)
+    dtc = dt.to(f32).reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)
+    cumc = cum.to(f32).reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)
+    Bc = Bm.to(f32).reshape(Bsz, nc, chunk, N)
+    Cc = Cm.to(f32).reshape(Bsz, nc, chunk, N)
+    gc, hc = g.to(f32), h_prev.to(f32)                      # [b,c,h,n,p]
+    cbt = tf32_mm(Bc, Cc.transpose(-1, -2), PERMUTED, terms)  # [b,c,j,i]
+    iota = torch.arange(chunk)
+    causal_ji = iota[None, :] >= iota[:, None]               # i >= j
+    seg = cumc[..., None, :] - cumc[..., :, None]            # [b,c,h,j,i]
+    ex = torch.where(causal_ji, torch.exp(torch.where(causal_ji, seg, 0.0)),
+                     0.0)
+    dt_j = dtc[..., :, None]
+    kv = cbt[:, :, None] * ex                                # Kᵀ [j, i]
+    dwt = tf32_mm(xc, dyc.transpose(-1, -2), NATURAL, terms)  # dWᵀ [j, i]
+    dec = torch.exp(cumc[..., -1:] - cumc)
+    d = dec * dtc                                            # [b,c,h,j]
+    bg = tf32_mm(Bc[:, :, None], gc, PERMUTED, terms)        # [b,c,h,j,p]
+    ured = (xc * bg).sum(-1)
+    v = dwt * kv
+    colv = v.sum(-1)                                         # Σ_i V_ij
+    rowt = (v * dt_j).sum(-2)                                # Σ_j T_ij
+    gx = tf32_mm(xc, gc.transpose(-1, -2), NATURAL, terms)   # [b,c,h,j,n]
+    dyh = tf32_mm(dyc, hc.transpose(-1, -2), NATURAL, terms)  # [b,c,h,i,n]
+    ecum = torch.exp(cumc)
+    inter = ecum * (Cc[:, :, None] * dyh).sum(-1)
+    dcum = rowt - dtc * colv - d * ured + inter
+    dcum[..., -1] += (d * ured).sum(-1) + torch.exp(cumc[..., -1]) \
+        * (gc * hc).sum((-2, -1))
+    ddt = colv + dec * ured
+    grp = (Bsz, nc, H // G, G)
+    dcbt = (dwt * ex * dt_j).reshape(*grp, chunk, chunk).sum(3)  # [.,g,j,i]
+    db = (d[..., None] * gx).reshape(*grp, chunk, N).sum(3)
+    dc = (ecum[..., None] * dyh).reshape(*grp, chunk, N).sum(3)
+    blocks = [slice(k * rows, (k + 1) * rows) for k in range(nb)]
+    Cg, Bg = Cc[:, :, None], Bc[:, :, None]
+    dx = torch.empty_like(xc)
+    for K, k in enumerate(blocks):
+        acc = tf32_mm((kv * dt_j)[..., k, k], dyc[..., k, :], PERMUTED,
+                      terms, init=(d[..., None] * bg)[..., k, :])
+        db[..., k, :] += tf32_mm(dcbt[..., k, k], Cg[..., k, :], NATURAL,
+                                 terms)
+        dc[..., k, :] += tf32_mm(dcbt[..., k, k].transpose(-1, -2),
+                                 Bg[..., k, :], NATURAL, terms)
+        for i in blocks[K + 1:]:
+            acc = acc + tf32_mm((kv * dt_j)[..., k, i], dyc[..., i, :],
+                                PERMUTED, terms)
+            db[..., k, :] += tf32_mm(dcbt[..., k, i], Cg[..., i, :],
+                                     NATURAL, terms)
+        for j in blocks[:K]:
+            dc[..., k, :] += tf32_mm(dcbt[..., j, k].transpose(-1, -2),
+                                     Bg[..., j, :], NATURAL, terms)
+        dx[..., k, :] = acc
+
+    def rows_(t):                 # [b,c,h,Q] -> [B,L,H]
+        return t.permute(0, 1, 3, 2).reshape(Bsz, L, H)
+
+    def parts(t):                 # [b,c,g,Q,N] -> [groups,B,L,N]
+        return t.permute(2, 0, 1, 3, 4).reshape(-1, Bsz, L, N)
+    return (dx.permute(0, 1, 3, 2, 4).reshape(Bsz, L, H, P), rows_(dcum),
+            rows_(ddt), parts(db), parts(dc))
 
 
 def emulate_tf32_carry(y_intra, states, cum, Cm, chunk, init_state=None,

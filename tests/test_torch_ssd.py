@@ -16,14 +16,17 @@ split is held to the kernel's bars here too.  The fp32 ones
 (``ssd_chunk_tf32``, and the carry ``ssd_carry_tf32``) take three TF32
 products a product; ``_ssd_tf32.emulate_tf32_chunks`` and
 ``emulate_tf32_carry`` repeat them and are held against the plain
-versions and the reference's own chunk pass and scan.
+versions and the reference's own chunk pass and scan, and
+``emulate_tf32_chunks_tiled`` repeats ``ssd_chunk_tf32_tiled``'s walk at
+chunks of 128 to 256 rows.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _ssd_tf32 import emulate_tf32_carry, emulate_tf32_chunks
+from _ssd_tf32 import (emulate_tf32_carry, emulate_tf32_chunks,
+                       emulate_tf32_chunks_tiled)
 from repro.kernels.ssd.kernel import ssd_chunks as j_chunks
 from repro.kernels.ssd.ops import ssd as j_ssd
 from repro.kernels.ssd.ref import ssd_decode_ref as j_decode
@@ -785,8 +788,8 @@ def test_tf32_chunk_term_counts(terms):
 def test_forward_dispatch_by_dtype_and_shape():
     """fp32 at Q = P = 64, N in {64, 128} takes ``ssd_chunk_tf32``, bf16
     there ``ssd_chunk_tc``; bf16 at Q = 128, 192, 256 (P 64, N 64 or 128)
-    ``ssd_chunk_tc_tiled``, fp32 there the CUDA-core kernel; every other
-    chunk, head width or state size the CUDA-core kernel.  The carry: at Q
+    ``ssd_chunk_tc_tiled``, fp32 there ``ssd_chunk_tf32_tiled``; every
+    other chunk, head width or state size the CUDA-core kernel.  The carry: at Q
     and N multiples of 16 ``ssd_carry_tc`` for bf16 C and
     ``ssd_carry_tf32`` for fp32 C, else ``ssd_carry_kernel`` (the models'
     chunk of 50, odd chunks)."""
@@ -801,7 +804,8 @@ def test_forward_dispatch_by_dtype_and_shape():
         for N in (64, 128):
             assert fwd_kernels(bf, Q, 64, N) == ("ssd_chunk_tc_tiled",
                                                  "ssd_carry_tc")
-            assert fwd_kernels(f32, Q, 64, N)[0] == "ssd_chunk_kernel"
+            assert fwd_kernels(f32, Q, 64, N) == ("ssd_chunk_tf32_tiled",
+                                                  "ssd_carry_tf32")
     for Q, P, N in ((32, 64, 128), (64, 32, 128), (64, 64, 32),
                     (128, 32, 128), (256, 64, 32), (100, 64, 64),
                     (50, 16, 16), (50, 64, 128)):
@@ -933,6 +937,159 @@ def test_cuda_tf32_shared_memory_equals_mirror():
     for B, L, H in ((1, 2048, 48), (2, 4096, 48), (1, 256, 2)):
         assert lib.ssd_chunk_tf32_heads(B, L, H) == kernel.chunk_tf32_heads(
             B * L // 64, H, sms)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 tensor-core chunk kernel over 64 x 64 tiles (Q = 128, 192, 256)
+# ---------------------------------------------------------------------------
+
+# fp32 at ssd_chunk_tf32_tiled's chunks of 128, 192 and 256 rows at both
+# state sizes.
+TF32_TILED_SHAPES = [(1, 256, 2, 64, 128, 128), (1, 384, 2, 64, 64, 192),
+                     (1, 512, 2, 64, 128, 256)]
+
+
+def tf32_tiled_ratios(terms):
+    """Worst max|Δ| / (1e-4·max|ref|) over y_intra and the states of the
+    emulated ``ssd_chunk_tf32_tiled`` against ``ssd_chunks_ref``, per
+    shape of ``TF32_TILED_SHAPES``."""
+    out = {}
+    for shape in TF32_TILED_SHAPES:
+        _, ts, cum = tf32_case(*shape)
+        x, dt, A, Bm, Cm = ts
+        Q = shape[-1]
+        got = emulate_tf32_chunks_tiled(x, dt, cum, Bm, Cm, Q, terms)
+        want = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+        out[shape] = max(float((g - w).abs().max())
+                         / (1e-4 * float(w.abs().max()))
+                         for g, w in zip(got, want))
+    return out
+
+
+@pytest.mark.parametrize("B,L,H,P,N,Q", TF32_TILED_SHAPES)
+def test_tf32_tiled_chunk_emulation_meets_the_bar(B, L, H, P, N, Q):
+    """``ssd_chunk_tf32_tiled``'s arithmetic (three TF32 products a
+    product, its walk over 64 x 64 tiles) against the plain chunk pass and
+    the reference's own, its Pallas ``ssd_chunks`` in interpret mode, each
+    output within a tenth of 1e-4·max|ref|, and within 1e-5 of it of the
+    unbroken walk (``emulate_tf32_chunks``: only fp32 sums in another
+    order); carried by the plain carry, y and the final state within
+    1e-4·max|ref| of the reference's ``ssd_ref`` and
+    ``ssd(use_pallas=True)``."""
+    from repro_torch.kernels.ssd.kernel import tf32_tiled_shape
+    assert tf32_tiled_shape(torch.float32, Q, P, N)
+    js, ts, cum = tf32_case(B, L, H, P, N, Q)
+    x, dt, A, Bm, Cm = ts
+    got = emulate_tf32_chunks_tiled(x, dt, cum, Bm, Cm, Q)
+    whole = emulate_tf32_chunks(x, dt, cum, Bm, Cm, Q)
+    wants = (ssd_chunks_ref(x, dt, cum, Bm, Cm, Q),
+             j_chunks(*(jnp.asarray(t.numpy())
+                        for t in (x, dt, cum, Bm, Cm)), Q))
+    for want in wants:
+        for g, u, w in zip(got, whole, want):
+            w = np.asarray(w)
+            scale = 1e-4 * float(np.abs(w).max())
+            assert float(np.abs(g.numpy() - w).max()) <= 0.1 * scale
+            assert float((g - u).abs().max()) <= 0.1 * 1e-4 * scale
+    y, final = ssd_combine(*got, cum, Cm, Q)
+    for ry, rs in (j_ssd_ref(*js, chunk=Q),
+                   j_ssd(*js, chunk=Q, use_pallas=True)):
+        for g, w in ((y, ry), (final, rs)):
+            w = np.asarray(w)
+            err = float(np.abs(g.numpy() - w).max())
+            assert err <= 1e-4 * float(np.abs(w).max()), err
+
+
+@pytest.mark.parametrize("terms", [1, 3])
+def test_tf32_tiled_chunk_term_counts(terms):
+    """At the tiled chunks one TF32 product a product misses
+    1e-4·max|ref| of ``ssd_chunks_ref``; three (``kernel.TF32_TERMS``)
+    keep y_intra and the states within a tenth of it.  The worst ratios
+    are printed (``-s``)."""
+    ratios = tf32_tiled_ratios(terms)
+    print(f"\nTF32 products={terms}: tiled worst max|Δ|/bar " + ", ".join(
+        f"{list(k)} {v:.4f}" for k, v in ratios.items()))
+    if terms == 1:
+        assert min(ratios.values()) > 1.0, ratios
+    else:
+        assert max(ratios.values()) <= 0.1, ratios
+
+
+def test_tf32_tiled_tiles_fit_two_blocks_an_sm():
+    """``ssd_chunk_tf32_tiled``'s shared memory
+    (``kernel.chunk_tf32_tiled_smem_bytes``) at every chunk it takes
+    leaves room for two blocks an SM (228 KiB, 1 KiB reserved a block): at
+    Q = 256 a state task's fp32 slice of B [256, 68], larger than four
+    tiles' C·Bᵀ fragments, the ring of two x tiles [64, 68] and dt and cum
+    of two heads.  Its heads a block (``kernel.chunk_tf32_tiled_heads``):
+    12 at mamba2-780m's 2 × 4096 in chunks of 256 on 132 SMs."""
+    from repro_torch.kernels.ssd.kernel import (TILED_Q,
+                                                chunk_tf32_tiled_heads,
+                                                chunk_tf32_tiled_smem_bytes)
+    for N in (64, 128):
+        for Q in TILED_Q:
+            assert 2 * (chunk_tf32_tiled_smem_bytes(N, Q) + 1024) \
+                <= 228 * 1024
+    assert chunk_tf32_tiled_smem_bytes(128, 256) == (256 * 68 * 4
+                                                     + 2 * 64 * 68 * 4
+                                                     + 4 * 256 * 4)
+    assert chunk_tf32_tiled_smem_bytes(64, 128) == (2 * 64 * 68 * 4 * 2
+                                                    + 4 * 128 * 4)
+    assert chunk_tf32_tiled_heads(32, 256, 128, 48, 132) == 12
+    assert chunk_tf32_tiled_heads(1, 128, 64, 3, 132) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N,Q", [(1, 256, 4, 64, 128, 128),
+                                         (1, 384, 3, 64, 64, 192),
+                                         (2, 512, 8, 64, 128, 256),
+                                         (1, 512, 4, 64, 64, 256)])
+def test_cuda_tf32_tiled_chunk_kernel_matches_plain(B, L, H, P, N, Q):
+    """``ssd_chunk_tf32_tiled`` on fp32 inputs against the plain version,
+    within 1e-4·max|ref| for y_intra and the states, a second pass equal
+    bit for bit, each launch counted under its name; ``terms=0`` still
+    takes the CUDA-core kernel at these chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.ssd import kernel
+    x, dt, A, Bm, Cm = _cuda_inputs(B, L, H, P, N, Q, "float32")
+    cum = chunk_cumsum(dt, A, Q)
+    before = dict(kernel.FWD_KERNEL_LAUNCHES)
+    want = ssd_chunks_ref(x, dt, cum, Bm, Cm, Q)
+    got = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    again = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    core = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q, terms=0)
+    torch.cuda.synchronize()
+    for g, a, c, w in zip(got, again, core, want):
+        assert torch.equal(g, a)
+        for t in (g, c):
+            err = float((t - w).abs().max())
+            assert err <= 1e-4 * float(w.abs().max()), err
+    for name in kernel.FWD_KERNELS:
+        assert kernel.FWD_KERNEL_LAUNCHES[name] == before[name] + {
+            "ssd_chunk_tf32_tiled": 2, "ssd_chunk_kernel": 1}.get(name, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_tf32_tiled_shared_memory_equals_mirror():
+    """The library's ``ssd_chunk_tf32_tiled_smem_bytes`` and
+    ``ssd_chunk_tf32_tiled_heads`` equal kernel.py's mirrors at every
+    chunk and state size the kernel takes, and refuse anything else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sizes come from the library")
+    from repro_torch.kernels.ssd import kernel
+    lib = kernel.LIB.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for N in (64, 128):
+        for Q in kernel.TILED_Q:
+            assert lib.ssd_chunk_tf32_tiled_smem_bytes(N, Q) == \
+                kernel.chunk_tf32_tiled_smem_bytes(N, Q) \
+                <= kernel.MAX_SMEM_BYTES
+            for B, L, H in ((2, 4096, 48), (1, Q, 3)):
+                assert lib.ssd_chunk_tf32_tiled_heads(B, L, H, N, Q) == \
+                    kernel.chunk_tf32_tiled_heads(B * L // Q, Q, N, H, sms)
+    for N, Q in ((32, 128), (128, 64), (128, 320), (64, 100)):
+        assert lib.ssd_chunk_tf32_tiled_smem_bytes(N, Q) == -1
 
 
 # ---------------------------------------------------------------------------

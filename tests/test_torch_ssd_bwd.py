@@ -24,7 +24,9 @@ three TF32 products a product) is emulated on the CPU
 (``_ssd_tf32.emulate_tf32_chunk_bwd``, ``emulate_tf32_carry_bwd``) and
 held against the plain versions and, with the fp32 forward kernel's
 emulated chunk states, against ``jax.vjp`` of the reference's
-``ssd_ref`` and ``ssd``.
+``ssd_ref`` and ``ssd``; at chunks of 128 to 256 rows likewise
+``ssd_chunk_bwd_tf32_tiled``'s walk over 64 x 64 tiles
+(``emulate_tf32_chunk_bwd_tiled``).
 """
 import functools
 import re
@@ -36,7 +38,8 @@ import pytest
 import torch
 
 from _ssd_tf32 import (emulate_tf32_carry_bwd, emulate_tf32_chunk_bwd,
-                       emulate_tf32_chunks)
+                       emulate_tf32_chunk_bwd_tiled, emulate_tf32_chunks,
+                       emulate_tf32_chunks_tiled)
 from repro.kernels.ssd.ops import ssd as j_ssd
 from repro.kernels.ssd.ref import ssd_ref as j_ssd_ref
 from repro_torch.kernels.ssd import kernel, ops
@@ -587,6 +590,7 @@ BWD_TC = ("ssd_carry_bwd_tc", "ssd_chunk_bwd_tc")
 BWD_TF32 = ("ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32")
 BWD_CORE = ("ssd_carry_bwd", "ssd_chunk_bwd")
 BWD_TILED = ("ssd_carry_bwd", "ssd_chunk_bwd_tc_tiled")
+BWD_TF32_TILED = ("ssd_carry_bwd", "ssd_chunk_bwd_tf32_tiled")
 
 
 @pytest.mark.parametrize("dtype,Q,P,N,want", [
@@ -598,17 +602,18 @@ BWD_TILED = ("ssd_carry_bwd", "ssd_chunk_bwd_tc_tiled")
        for Q, P, N in ((32, 64, 128), (64, 32, 128), (64, 64, 32),
                        (16, 16, 32), (128, 32, 128), (100, 64, 64),
                        (50, 64, 128))]
-    + [("float32", Q, 64, 128, BWD_CORE) for Q in (128, 256)])
+    + [("float32", Q, 64, 128, BWD_TF32_TILED) for Q in (128, 256)])
 def test_backward_dispatch_by_dtype_and_shape(dtype, Q, P, N, want):
     """At the forward tensor-core kernels' shapes (Q = P = 64, N in {64,
-    128}) bf16 takes the ``_tc`` pair and fp32 the ``_tf32`` pair; bf16 at
-    Q = 128, 192, 256 (P 64, N 64 or 128) the CUDA-core carry backward and
-    ``ssd_chunk_bwd_tc_tiled``; at any other chunk (fp32 at those chunks,
-    chunks not a multiple of 64), head width or state size either dtype
-    takes the CUDA-core pair; the pairs name every backward kernel."""
+    128}) bf16 takes the ``_tc`` pair and fp32 the ``_tf32`` pair; at Q =
+    128, 192, 256 (P 64, N 64 or 128) the CUDA-core carry backward and the
+    tiled chunk backward of the dtype, ``ssd_chunk_bwd_tc_tiled`` or
+    ``ssd_chunk_bwd_tf32_tiled``; at any other chunk (chunks not a
+    multiple of 64), head width or state size either dtype takes the
+    CUDA-core pair; the pairs name every backward kernel."""
     assert kernel.bwd_kernels(getattr(torch, dtype), Q, P, N) == want
-    assert set(BWD_TC + BWD_TF32 + BWD_CORE + BWD_TILED) == set(
-        kernel.BWD_KERNELS)
+    assert set(BWD_TC + BWD_TF32 + BWD_CORE + BWD_TILED
+               + BWD_TF32_TILED) == set(kernel.BWD_KERNELS)
 
 
 def test_bwd_terms_is_the_kernels_term_count():
@@ -1082,16 +1087,17 @@ def test_tiled_backward_tiles_fit_shared_memory():
 
 
 def test_tiled_backward_flops_count_its_products():
-    """The op's flop count follows the tiled kernel: C·Bᵀ per head (2Q²N),
-    the group's dW∘E∘dt against C and B once per block of 16 heads
-    (4Q²N); the chunk pass, carry backward and per-head products as at
-    Q = 64."""
+    """The op's flop count follows the tiled kernels: in bf16 C·Bᵀ per
+    head (2Q²N) and the group's dW∘E∘dt against C and B once per block of
+    16 heads (4Q²N); in fp32 (``ssd_chunk_bwd_tf32_tiled``) C·Bᵀ and both
+    products once per block of its G heads (6Q²N); the chunk pass, carry
+    backward and per-head products as at Q = 64."""
     B, L, H, P, N, Q = 2, 4096, 48, 64, 128, 256
     nc = L // Q
     per_head = (2 * Q * Q * N + 6 * Q * Q * P + 10 * Q * N * P)
     assert ops.ssd_bwd_flops(B, L, H, P, N, Q) == B * nc * (
         H * (per_head + 2 * Q * Q * N) + H // 16 * 4 * Q * Q * N)
-    G = kernel.bwd_heads_per_block(B * nc, H, 132)
+    G = kernel.chunk_bwd_heads("ssd_chunk_bwd_tf32_tiled", B * nc, H, 132, Q)
     assert ops.ssd_bwd_flops(B, L, H, P, N, Q, dtype=torch.float32) == \
         B * nc * (H * per_head + H // G * 6 * Q * Q * N)
 
@@ -1277,6 +1283,163 @@ def test_cuda_tf32_backward_shared_memory_equals_mirror():
             assert size(N, G) == kernel.chunk_bwd_tf32_smem_bytes(N, G) \
                 <= kernel.MAX_SMEM_BYTES
     assert size(32, 4) == -1
+
+
+# ---------------------------------------------------------------------------
+# The fp32 tensor-core chunk backward over 64 x 64 tiles (Q = 128 to 256)
+# ---------------------------------------------------------------------------
+
+# fp32 at ssd_chunk_bwd_tf32_tiled's chunks of 128, 192 and 256 rows at
+# both state sizes, heads in groups of two.
+TF32_TILED_BWD_SHAPES = [(1, 256, 2, 64, 128, 128), (1, 384, 2, 64, 64, 192),
+                         (1, 512, 2, 64, 128, 256)]
+
+
+def tf32_tiled_bwd_case(shape, terms=3):
+    """As ``tf32_bwd_case`` at the tiled chunks: the inputs, the emulated
+    ``ssd_chunk_bwd_tf32_tiled`` at ``terms`` (with the emulated
+    ``ssd_chunk_tf32_tiled``'s chunk states through the plain carry
+    backward) and the plain chunk backward on the same g and h_prev."""
+    B, L, H, P, N, Q = shape
+    arrs, dy, h0, df = make(B * L + N + 7, B, L, H, P, N, "nonzero")
+    ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, torch.float32)
+    x, dt, A, Bm, Cm = ts
+    cum = chunk_cumsum(dt, A, Q)
+    _, states = emulate_tf32_chunks_tiled(x, dt, cum, Bm, Cm, Q, terms)
+    h_prev, g, dinit = ssd_carry_bwd_ref(states, cum, Cm, tdy, Q, th0, tdf)
+    args = (x, dt, cum, Bm, Cm, tdy, g, h_prev, Q, 2)
+    got = emulate_tf32_chunk_bwd_tiled(*args, terms=terms)
+    return (arrs, dy, h0, df, ts, cum, dinit), got, ssd_chunk_bwd_ref(*args)
+
+
+@pytest.mark.parametrize("shape", TF32_TILED_BWD_SHAPES)
+def test_tf32_tiled_chunk_bwd_emulation_meets_the_bar(shape):
+    """``ssd_chunk_bwd_tf32_tiled``'s arithmetic keeps every output within
+    a tenth of 1e-4·max(max|ref|, 1) of ``ssd_chunk_bwd_ref``; finished as
+    the op finishes, with the fp32 tiled forward kernel's emulated chunk
+    states, every gradient is within 1e-4·max(max|ref|, 1) of the
+    reference's ``jax.vjp`` of ``ssd_ref``."""
+    Q, N = shape[-1], shape[4]
+    assert kernel.bwd_kernels(torch.float32, Q, 64, N) == BWD_TF32_TILED
+    (arrs, dy, h0, df, ts, cum, dinit), got, want = tf32_tiled_bwd_case(
+        shape)
+    for name, a, w in zip(("dx", "dcum", "ddt", "dB", "dC"), got, want):
+        assert a.shape == w.shape, name
+        bar = 1e-4 * max(float(w.abs().max()), 1.0)
+        assert float((a - w).abs().max()) <= 0.1 * bar, name
+    dx, dcum, ddt, dB, dC = got
+    ddt_cum, dA = chunk_cumsum_bwd(dcum, ts[1], ts[2], Q)
+    grads = (dx, ddt + ddt_cum, dA, dB.sum(0), dC.sum(0), dinit)
+    for name, g, w in zip(NAMES, grads, jax_grads(arrs, dy, h0, df, Q,
+                                                  torch.float32)):
+        assert_grad_close(name, g, w)
+
+
+@pytest.mark.parametrize("terms", [1, 3])
+def test_tf32_tiled_chunk_bwd_term_counts(terms):
+    """At the tiled chunks one TF32 product a product misses the fp32 bar
+    of ``ssd_chunk_bwd_ref``; three (the kernel's) keep every output
+    within a tenth of it.  The worst ratios are printed (``-s``)."""
+    worst = {}
+    for shape in TF32_TILED_BWD_SHAPES:
+        _, got, want = tf32_tiled_bwd_case(shape, terms)
+        for name, a, w in zip(("dx", "dcum", "ddt", "dB", "dC"), got, want):
+            bar = 1e-4 * max(float(w.abs().max()), 1.0)
+            worst[name] = max(worst.get(name, 0.0),
+                              float((a - w).abs().max()) / bar)
+    print(f"\nTF32 products={terms}: tiled worst max|Δ|/bar " + ", ".join(
+        f"{k} {v:.4f}" for k, v in worst.items()))
+    if terms == 1:
+        assert max(worst.values()) > 1.0, worst
+    else:
+        assert max(worst.values()) <= 0.1, worst
+
+
+def test_tf32_tiled_backward_tiles_fit_shared_memory():
+    """``ssd_chunk_bwd_tf32_tiled``'s shared memory (``kernel.
+    chunk_bwd_tf32_tiled_smem_bytes``) fits a block at every chunk and
+    state size it takes: 229,408 bytes at N = 128, Q = 256, where
+    ``ssd_chunk_bwd_tc_tiled``'s layout in fp32 (its bf16 tiles at four
+    bytes) would need 327,712.  Its heads a block follow the bf16 tiled
+    kernel's rule."""
+    for N in (64, 128):
+        for Q in kernel.TILED_Q:
+            assert kernel.chunk_bwd_tf32_tiled_smem_bytes(N, Q) \
+                <= kernel.MAX_SMEM_BYTES
+    assert kernel.chunk_bwd_tf32_tiled_smem_bytes(128, 256) == 229_408
+    bc, xd = 64 * 136 * 4, 64 * 64 * 4
+    as_bf16_layout = (2 * bc + 4 * xd + max(2 * 128 * 64 * 4, 4 * 16384)
+                      + 2 * (xd + bc) + 64 * 68 * 4 + 16 * 256
+                      + (12 * 64 + 8) * 4)
+    assert as_bf16_layout == 327_712 > kernel.MAX_SMEM_BYTES
+    for args in ((2 * 4096 // 256, 48, 132, 256), (2, 4, 132, 256)):
+        assert kernel.chunk_bwd_heads("ssd_chunk_bwd_tf32_tiled", *args) == \
+            kernel.chunk_bwd_heads("ssd_chunk_bwd_tc_tiled", *args)
+
+
+def test_core_backward_flops_at_a_chunk_the_tiled_kernels_refuse():
+    """At a chunk of 256 rows that no tiled kernel takes (N = 32), the
+    op's flop count in either dtype follows ``ssd_chunk_bwd``: C·Bᵀ and
+    the group's dW∘E∘dt against C and B once per block of G heads
+    (6Q²N)."""
+    B, L, H, P, N, Q = 2, 4096, 48, 64, 32, 256
+    nc = L // Q
+    per_head = (2 * Q * Q * N + 6 * Q * Q * P + 10 * Q * N * P)
+    G = kernel.bwd_heads_per_block(B * nc, H, 132)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert kernel.bwd_kernels(dtype, Q, P, N) == BWD_CORE
+        assert ops.ssd_bwd_flops(B, L, H, P, N, Q, dtype=dtype) == \
+            B * nc * (H * per_head + H // G * 6 * Q * Q * N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N,Q", [(1, 256, 4, 64, 128, 128),
+                                         (1, 384, 6, 64, 64, 192),
+                                         (2, 512, 8, 64, 128, 256),
+                                         (1, 512, 4, 64, 64, 256)])
+def test_cuda_tf32_tiled_backward_kernel_matches_plain(B, L, H, P, N, Q):
+    """``ssd_chunk_bwd_tf32_tiled`` on fp32 inputs against its plain
+    version with its heads a group (max|Δ| <= 1e-4·max(max|ref|, 1)), a
+    second pass equal bit for bit, each launch counted under its name;
+    ``cuda_cores=True`` still takes ``ssd_chunk_bwd``, held too."""
+    needs_card()
+    shape = (B, L, H, P, N, Q)
+    x, dt, A, Bm, Cm, dy, h0, df, cum = card_inputs(shape, 36, "float32")
+    _, states = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    h_prev, g, _ = ssd_carry_bwd_ref(states, cum, Cm, dy, Q, h0, df)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    args = (x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
+    before = dict(kernel.BWD_KERNEL_LAUNCHES)
+    got = kernel.ssd_chunk_bwd_cuda(*args)
+    again = kernel.ssd_chunk_bwd_cuda(*args)
+    core = kernel.ssd_chunk_bwd_cuda(*args, cuda_cores=True)
+    torch.cuda.synchronize()
+    want = ssd_chunk_bwd_ref(*args, kernel.chunk_bwd_heads(
+        "ssd_chunk_bwd_tf32_tiled", B * L // Q, H, sms, Q))
+    want_core = ssd_chunk_bwd_ref(*args, kernel.bwd_heads_per_block(
+        B * L // Q, H, sms))
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b) and within(a, w)
+    for c, w in zip(core, want_core):
+        assert within(c, w)
+    for name in kernel.BWD_KERNELS:
+        assert kernel.BWD_KERNEL_LAUNCHES[name] == before[name] + {
+            "ssd_chunk_bwd_tf32_tiled": 2, "ssd_chunk_bwd": 1}.get(name, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_tf32_tiled_backward_shared_memory_equals_mirror():
+    """The library's ``ssd_chunk_bwd_tf32_tiled_smem_bytes`` equals
+    kernel.py's mirror at every chunk and state size the kernel takes, and
+    refuses anything else."""
+    needs_card()
+    lib = kernel.LIB_BWD.load()
+    for N in (64, 128):
+        for Q in kernel.TILED_Q:
+            assert lib.ssd_chunk_bwd_tf32_tiled_smem_bytes(N, Q) == \
+                kernel.chunk_bwd_tf32_tiled_smem_bytes(N, Q)
+    for N, Q in ((32, 128), (128, 64), (128, 320), (64, 100)):
+        assert lib.ssd_chunk_bwd_tf32_tiled_smem_bytes(N, Q) == -1
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,12 @@ kernel's SASS instruction count.  For the carry it also prints the host
 time of one call to each build's C entry point (old, new, new, old:
 the median over 9 windows of ``HOST_CALLS`` calls, perf_counter, the
 card's queue never full), which holds the new build's plan lookup.
-Prints the card's name and power limit first.  Needs a CUDA card.
+Then the chunk kernel and chunk backward at the chunks of 128 to 256
+rows (``TILED_SHAPES``), through each build's tiled tensor-core kernels
+where it takes the chunk (bf16 ``ssd_chunk_tc_tiled`` and
+``ssd_chunk_bwd_tc_tiled``, fp32 ``ssd_chunk_tf32_tiled`` and
+``ssd_chunk_bwd_tf32_tiled``), else its CUDA-core kernels.  Prints the
+card's name and power limit first.  Needs a CUDA card.
 
 ``--plans`` also times the new tensor-core carry at each shape
 (``ssd_carry_tc`` for bf16, ``ssd_carry_tf32`` for fp32) under every plan
@@ -91,6 +96,14 @@ SHAPES = (((1, 2048, 48, 64, 128, 64), torch.float32),
           ((2, 4096, 48, 64, 128, 64), torch.bfloat16),
           ((1, 32768, 64, 64, 64, 64), torch.bfloat16))
 
+
+# The chunks of 128 to 256 rows the tiled tensor-core kernels take
+# (chip_smoke.py's SSD_TILED): mamba2-780m's heads at 2 x 4096 in chunks of
+# 128 and 256 and zamba2-1.2b's in chunks of 256, fp32 and bf16.
+TILED_SHAPES = tuple((s, dt) for dt in (torch.float32, torch.bfloat16)
+                     for s in ((2, 4096, 48, 64, 128, 128),
+                               (2, 4096, 48, 64, 128, 256),
+                               (2, 4096, 64, 64, 64, 256)))
 
 HOST_CALLS = 100
 
@@ -219,6 +232,7 @@ def bind_bwd(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ssd_chunk_bwd_launch.argtypes = [P] * 13 + [I] * 9 + [P]
     lib.ssd_carry_bwd_launch.argtypes = [P] * 9 + [I] * 8 + [P]
+    lib.ssd_chunk_bwd_tiled_launch.argtypes = [P] * 14 + [I] * 8 + [P]
 
 
 def sass_counts(so) -> dict:
@@ -267,6 +281,109 @@ def time_plans(lib, call, out, want, shape) -> None:
     lib.ssd_carry_force_plan(0, 0)
     print(f"{list(shape)} carry, chosen plan: {chosen:.5f} then "
           f"{ms(call):.5f} ms a launch", flush=True)
+
+
+def time_tiled(old, old_bwd, new, new_bwd, sms) -> None:
+    """The chunk kernel and chunk backward at ``TILED_SHAPES`` through both
+    builds' C entry points, old, new, new, old: the tiled tensor-core
+    kernels (``ssd_chunk_launch`` with the dtype's terms,
+    ``ssd_chunk_bwd_tiled_launch``), which the new build must take at
+    every shape; the old build's CUDA-core kernels (``terms`` 0,
+    ``ssd_chunk_bwd_launch`` with ``tc`` 0) where it refuses them, named
+    in the line as "old core"; each
+    backward's outputs finished as the wrapper finishes them (its tails
+    added to the chunks' last rows, the partial dB and dC summed over
+    their groups where the two builds group the heads apart)."""
+    for shape, dtype in TILED_SHAPES:
+        B, L, H, P, N, Q = shape
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x, Bm, Cm, dy = (torch.randn(sz, generator=gen, device="cuda")
+                         .to(dtype) for sz in ((B, L, H, P), (B, L, N),
+                                               (B, L, N), (B, L, H, P)))
+        dt = 0.01 + 0.19 * torch.rand((B, L, H), generator=gen,
+                                      device="cuda")
+        A = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device="cuda"))
+        h0, df = (torch.randn((B, H, N, P), generator=gen, device="cuda")
+                  for _ in range(2))
+        cum = chunk_cumsum(dt, A, Q)
+        code = sk.DTYPES[dtype]
+        stream = torch.cuda.current_stream().cuda_stream
+        terms = sk.TERMS if dtype == torch.bfloat16 else sk.TF32_TERMS
+        name = sk.bwd_kernels(dtype, Q, P, N)[1]
+        G = sk.chunk_bwd_heads(name, B * L // Q, H, sms, Q)
+        Gc = sk.bwd_heads_per_block(B * L // Q, H, sms)
+        fwd_out = {v: [torch.empty(sz, device="cuda") for sz in (
+            (B, L, H, P), (B, L // Q, H, N, P))] for v in ("old", "new")}
+
+        def chunk(lib, out, t):
+            return lambda: lib.ssd_chunk_launch(
+                x.data_ptr(), dt.data_ptr(), cum.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), code,
+                B, L, H, P, N, Q, t, stream)
+        calls = {"chunk": {}, "chunk bwd": {}}
+        old_core = {}   # what the old build falls back to its CUDA cores for
+        for v, lib in (("old", old), ("new", new)):
+            fn = chunk(lib, fwd_out[v], terms)
+            if fn() != 0:
+                assert v == "old", f"{shape} {dtype}: the new build " \
+                    f"refuses its tiled chunk kernel"
+                fn, old_core["chunk"] = chunk(lib, fwd_out[v], 0), True
+            calls["chunk"][v] = fn
+        assert calls["chunk"]["old"]() == 0 and calls["chunk"]["new"]() == 0
+        h_prev, g, _ = ssd_carry_bwd_ref(fwd_out["new"][1], cum, Cm, dy, Q,
+                                         h0, df)
+        ins = [t.data_ptr() for t in (x, dt, cum, Bm, Cm, dy, g, h_prev)]
+        bwd_out = {}
+
+        def outs(groups, tiled):
+            return [torch.empty(sz, device="cuda") for sz in (
+                (B, L, H, P), (B, L, H), (B, L, H), (H // groups, B, L, N),
+                (H // groups, B, L, N))] + (
+                [torch.empty((B, L // Q, Q // 64, H), device="cuda")]
+                if tiled else [])
+        for v, lib in (("old", old_bwd), ("new", new_bwd)):
+            o = outs(G, True)
+            fn = (lambda lib=lib, o=o: lib.ssd_chunk_bwd_tiled_launch(
+                *ins, *(t.data_ptr() for t in o), code, B, L, H, P, N, Q, G,
+                stream))
+            if fn() != 0:
+                assert v == "old", f"{shape} {dtype}: the new build " \
+                    f"refuses its tiled chunk backward"
+                old_core["chunk bwd"] = True
+                o = outs(Gc, False)
+                fn = (lambda lib=lib, o=o: lib.ssd_chunk_bwd_launch(
+                    *ins, *(t.data_ptr() for t in o), code, B, L, H, P, N,
+                    Q, Gc, 0, stream))
+            assert fn() == 0
+            calls["chunk bwd"][v], bwd_out[v] = fn, o
+        torch.cuda.synchronize()
+
+        def finished(o):
+            o = [t.clone() for t in o]
+            if len(o) == 6:
+                o[1].view(B, L // Q, Q, H)[:, :, -1] += o[5].sum(2)
+            return [o[0], o[1], o[2], o[3].sum(0), o[4].sum(0)]
+        fo, fn_ = finished(bwd_out["old"]), finished(bwd_out["new"])
+        same = {"chunk": [float((a - b).abs().max())
+                          for a, b in zip(fwd_out["old"], fwd_out["new"])],
+                "chunk bwd": [float((a - b).abs().max())
+                              for a, b in zip(fo, fn_)]}
+        bitwise = {"chunk": all(torch.equal(a, b) for a, b in
+                                zip(fwd_out["old"], fwd_out["new"])),
+                   "chunk bwd": len(bwd_out["old"]) == len(bwd_out["new"])
+                   and all(
+                       a.shape == b.shape and torch.equal(a, b)
+                       for a, b in zip(bwd_out["old"], bwd_out["new"]))}
+        for what, c in calls.items():
+            t = (ms(c["old"]), ms(c["new"]), ms(c["new"]), ms(c["old"]))
+            side = "old core" if old_core.get(what) else "old"
+            print(f"{list(shape)} {str(dtype)[6:]} tiled {what}: {side}, new, "
+                  f"new, old ms a launch {', '.join(f'{v:.5f}' for v in t)}; "
+                  f"new / old {(t[1] + t[2]) / (t[0] + t[3]):.4f}; max|Δ| "
+                  f"per output {same[what]}; bitwise {bitwise[what]}",
+                  flush=True)
+        del x, Bm, Cm, dy, dt, cum, h0, df, fwd_out, bwd_out, g, h_prev
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -458,6 +575,7 @@ def main() -> int:
             out = empty((B, L, H, P), dtype=dtype) + empty((B, H, N, P))
             time_plans(plans, carry(plans, out), out, carry_out["new"],
                        shape)
+    time_tiled(old, old_bwd_lib, new, new_bwd_lib, sms)
     return 0
 
 
