@@ -107,20 +107,22 @@ Phases (each raises on failure, so the script exits non-zero):
    one bf16 step more; a second pass equal bit for bit; the worst ratio
    printed), with kernel, plain, bound and MMA-floor times, and at the
    bf16 training shapes also the CUDA-core kernels on the same inputs
-   and the tensor-core carry at 32 and 64 rows of N a block (each held
-   too); and at ``SSD_TILED`` (mamba2-780m's heads at 2 x 4096 in
+   (held too); and at ``SSD_TILED`` (mamba2-780m's heads at 2 x 4096 in
    chunks of 128 and 256, zamba2-1.2b's in chunks of 256), bf16 and
-   fp32, the tensor-core kernels over 64 x 64 tiles: ``ssd()`` under
-   grad with every SSD count set to 0 before it and read after (the
-   launches of ``ssd_chunk_tc_tiled`` and ``ssd_chunk_bwd_tc_tiled``, or
-   of ``ssd_chunk_tf32_tiled`` and ``ssd_chunk_bwd_tf32_tiled``, counted
-   by name), y, the final state and every gradient against ``ssd_ref``
-   and its autograd; each kernel and its CUDA-core counterpart against
-   the plain version (a second pass bitwise), timed through the C entry
+   fp32, the tensor-core kernels over 64 x 64 tiles and the tensor-core
+   carry backward in 64-row slabs: ``ssd()`` under grad with every SSD
+   count set to 0 before it and read after (the launches of
+   ``ssd_chunk_tc_tiled``, ``ssd_carry_bwd_tc`` and
+   ``ssd_chunk_bwd_tc_tiled``, or of ``ssd_chunk_tf32_tiled``,
+   ``ssd_carry_bwd_tf32`` and ``ssd_chunk_bwd_tf32_tiled``, counted by
+   name), y, the final state and every gradient against ``ssd_ref`` and
+   its autograd; each kernel and its CUDA-core counterpart against the
+   plain version (a second pass bitwise), timed through the C entry
    points in turns beside its bound, wrapper and plain times, and in
    fp32 the carry these chunks take (``ssd_carry_tf32``) in turns with
-   ``ssd_carry_kernel``; every kernel's builds (no spill) and shared
-   memory (= kernel.py's mirrors);
+   ``ssd_carry_kernel``; every kernel's builds (no spill; the carry
+   backward at 1 to 4 slabs a chunk) and shared memory (= kernel.py's
+   mirrors);
 7. serving at full width — zamba2-1.2b (38 layers, d_model 2048, seeded
    random fp32 weights, bf16 compute) through ``build`` and the serve
    builders:
@@ -2085,10 +2087,12 @@ SSD_BWD_BF16_REL = 2.0 ** -7
 def ssd_bwd_bounds(B, L, H, P, N, Q, dtype, ops_per_s=None):
     """(least ms, what bounds it) of each backward kernel and the whole
     backward: flops at ``ops_per_s`` (default the inputs' dtype's peak, as
-    ``ssd_bound``; ``ssd_chunk_bwd_tf32`` is priced at TF32_X3_OPS_PER_S)
-    against bytes.  Carry: 2·N·P flops per (row, head) for Cᵀ·dy and 2 per
-    state element and chunk for each walk; the chunk states read, h_prev
-    and g written (fp32), C, dy, cum, init, dfinal and d init_state once.
+    ``ssd_bound``; the fp32 tensor-core kernels, ``ssd_chunk_bwd_tf32``,
+    ``ssd_carry_bwd_tf32`` and ``ssd_chunk_bwd_tf32_tiled``, are priced at
+    TF32_X3_OPS_PER_S) against bytes.  Carry: 2·N·P flops per (row, head)
+    for Cᵀ·dy and 2 per state element and chunk for each walk; the chunk
+    states read, h_prev and g written (fp32), C, dy, cum, init, dfinal and
+    d init_state once.
     Chunk: per (b, chunk, head) 2Q²P (dW and dx over the lower triangle)
     + 6QNP (dx's state term, g·x, dy·h_prev), per (b, chunk) 3Q²N (C·Bᵀ
     and the dC, dB products); x, dy, dt, cum, B, C, g and h_prev read,
@@ -2137,9 +2141,15 @@ def ssd_bwd_mma_floors(B, L, H, P, N, Q, groups, terms):
 
 def check_ssd_tc_builds(sk) -> dict:
     """The SSD backward's tensor-core kernels: the chunk kernels per N (16
-    heads a block), the carries at their slice of 32 rows of N (64
-    chunks)."""
+    heads a block), the carries (slices of 32 rows of N) per slab count S
+    of their chunks, Q = 64 S up to 256 (shared memory at 2 x 4096 rows,
+    8192 // Q chunks)."""
     lib = sk.LIB_BWD.load()
+    slabs = [q // 64 for q in (64,) + sk.TILED_Q]
+
+    def chunks(S):
+        return 2 * 4096 // (64 * S)
+    note = " (the template value: 64-row slabs a chunk)"
     return check_builds(sk.LIB_BWD, "ssd-bwd", {
         "ssd_chunk_bwd_tc": ([64, 128],
                              lambda n: lib.ssd_bwd_tc_smem_bytes(0, n, 16),
@@ -2147,11 +2157,12 @@ def check_ssd_tc_builds(sk) -> dict:
         "ssd_chunk_bwd_tf32": (
             [64, 128], lambda n: lib.ssd_chunk_bwd_tf32_smem_bytes(n, 16),
             ""),
-        "ssd_carry_bwd_tc": ([32],
-                             lambda r: lib.ssd_bwd_tc_smem_bytes(1, 128, 64),
-                             ""),
+        "ssd_carry_bwd_tc": (
+            slabs, lambda S: lib.ssd_bwd_tc_smem_bytes(1, 128, chunks(S)),
+            note),
         "ssd_carry_bwd_tf32": (
-            [32], lambda r: lib.ssd_carry_bwd_tf32_smem_bytes(64), "")})
+            slabs, lambda S: lib.ssd_carry_bwd_tf32_smem_bytes(chunks(S)),
+            note)})
 
 
 def hold_grads(torch, what, names, got, again, want) -> dict:
@@ -2417,7 +2428,8 @@ def ssd_tiled_rows(torch, dtype: str) -> dict:
     """Phase 6's chunks of 128 to 256 rows at SSD_TILED in ``dtype``: the
     main path first, ``ops.ssd`` under grad with every SSD count set to 0
     just before it and read just after (the launches ``ssd_step_counts``
-    names: the tiled forward kernel twice, the tiled chunk backward once),
+    names: the tiled forward kernel twice, the dtype's tensor-core carry
+    backward and the tiled chunk backward once each),
     y and the final state against ``ssd_ref`` and each gradient against
     autograd of ``ssd_ref`` on the same values in fp32
     (SSD_BWD_BAR·max(max|ref|, 1), plus one bf16 step for a bf16 y or
@@ -2425,15 +2437,19 @@ def ssd_tiled_rows(torch, dtype: str) -> dict:
     CUDA-core ``ssd_chunk_kernel`` (``terms=0``) against ``ssd_chunks_ref``
     (SSD_REL·max|ref|) and the tiled chunk backward and the CUDA-core
     ``ssd_chunk_bwd`` (``cuda_cores=True``) against ``ssd_chunk_bwd_ref``
-    with each one's heads a group (hold_grads), the new kernels' second
-    passes bitwise; each pair timed through its C entry points in turns
-    (new, CUDA cores, CUDA cores, new), the new ones also through their
-    wrappers, the plain versions once, each beside its bound (fp32's
-    tensor-core products at TF32_X3_OPS_PER_S).  In fp32 also the carry at
-    these chunks, ``ssd_carry_tf32`` and ``ssd_carry_kernel`` through
-    their C entry points in turns.  Also the libraries' shared memory at
-    every tiled chunk equal to kernel.py's mirrors, and both kernels'
-    builds (no spill)."""
+    with each one's heads a group, and the tensor-core carry backward
+    (``ssd_carry_bwd_tc`` or ``ssd_carry_bwd_tf32``, 64-row slabs) and
+    the CUDA-core ``ssd_carry_bwd`` against ``ssd_carry_bwd_ref``
+    (hold_grads), the new kernels' second passes bitwise; each pair timed
+    through its C entry points in turns (new, CUDA cores, CUDA cores,
+    new), the new ones also through their wrappers, the plain versions
+    once, each beside its bound (fp32's tensor-core products at
+    TF32_X3_OPS_PER_S; the CUDA cores' bound beside it).  In fp32 also
+    the carry at these chunks, ``ssd_carry_tf32`` and ``ssd_carry_kernel``
+    through their C entry points in turns.  Also the libraries' shared
+    memory at every tiled chunk equal to kernel.py's mirrors, and both
+    kernels' builds (no spill; the carry backward's are
+    ``check_ssd_tc_builds``')."""
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd import ops
     from repro_torch.kernels.ssd.ref import (chunk_cumsum, ssd_carry_bwd_ref,
@@ -2444,10 +2460,11 @@ def ssd_tiled_rows(torch, dtype: str) -> dict:
     fsmem, bsmem = "ssd_" + fmirror, "ssd_" + bmirror
     dt_ = getattr(torch, dtype)
     fname = sk.fwd_kernels(dt_, 256, 64, 128)[0]
-    bname = sk.bwd_kernels(dt_, 256, 64, 128)[1]
-    if not (fname.endswith("_tiled") and bname.endswith("_tiled")):
+    bwd_carry, bname = sk.bwd_kernels(dt_, 256, 64, 128)
+    if not (fname.endswith("_tiled") and bname.endswith("_tiled")
+            and bwd_carry != "ssd_carry_bwd"):
         raise AssertionError(f"{dtype} at chunks of 256 rows: the wrappers "
-                             f"name {fname} and {bname}")
+                             f"name {fname}, {bwd_carry} and {bname}")
     lib, lib_bwd = sk.LIB.load(), sk.LIB_BWD.load()
     for N in (64, 128):
         for Q in sk.TILED_Q:
@@ -2471,9 +2488,9 @@ def ssd_tiled_rows(torch, dtype: str) -> dict:
     code = sk.DTYPES[dt_]
     new_terms = getattr(sk, terms_name)
     ops_rate = TF32_X3_OPS_PER_S if f32 else None
-    rows, launches = {}, {fname: 0, bname: 0}
-    worst = dict.fromkeys((fname, bname, "ssd_chunk_kernel", "ssd_chunk_bwd",
-                           "ssd"), 0.0)
+    rows, launches = {}, {fname: 0, bwd_carry: 0, bname: 0}
+    worst = dict.fromkeys((fname, bwd_carry, bname, "ssd_chunk_kernel",
+                           "ssd_carry_bwd", "ssd_chunk_bwd", "ssd"), 0.0)
 
     for i, shape in enumerate(SSD_TILED):
         B, L, H, P, N, Q = shape
@@ -2483,7 +2500,7 @@ def ssd_tiled_rows(torch, dtype: str) -> dict:
                       for s in ((B, L, H, P), (B, H, N, P), (B, H, N, P)))
         x, Bm, Cm, dy = (t.to(dt_) for t in (x, Bm, Cm, dy))
         if sk.fwd_kernels(dt_, Q, P, N)[0] != fname or \
-                sk.bwd_kernels(dt_, Q, P, N)[1] != bname:
+                sk.bwd_kernels(dt_, Q, P, N) != (bwd_carry, bname):
             raise AssertionError(f"{shape} {dtype}: the wrappers do not name "
                                  f"the tiled kernels")
         # The main path: ssd() under grad, forward and backward.
@@ -2548,8 +2565,19 @@ def ssd_tiled_rows(torch, dtype: str) -> dict:
         states = want[1]
         yo, so = got
 
+        # The carry backward kernels against their plain version.
+        cargs = (states, cum, Cm, dy, Q, h0, df)
+        want_carry = ssd_carry_bwd_ref(*cargs)
+        for name, core_ in ((bwd_carry, False), ("ssd_carry_bwd", True)):
+            held = hold_grads(
+                torch, f"{name} {shape}", ("h_prev", "g", "d init_state"),
+                sk.ssd_carry_bwd_cuda(*cargs, cuda_cores=core_),
+                sk.ssd_carry_bwd_cuda(*cargs, cuda_cores=core_), want_carry)
+            worst[name] = max(worst[name], *(e for _, e in held.values()))
+            ratios.update({f"{name} {k}": r for k, (r, _) in held.items()})
+
         # The chunk backward kernels against their plain version.
-        h_prev, g, _ = ssd_carry_bwd_ref(states, cum, Cm, dy, Q, h0, df)
+        h_prev, g, _ = want_carry
         args = (x, dt, cum, Bm, Cm, dy, g, h_prev, Q)
         G = sk.chunk_bwd_heads(bname, B * L // Q, H, sms, Q)
         Gc = sk.chunk_bwd_heads("ssd_chunk_bwd", B * L // Q, H, sms, Q)
@@ -2584,16 +2612,24 @@ def ssd_tiled_rows(torch, dtype: str) -> dict:
         t_fwd = turns(torch, chunk_call(new_terms), chunk_call(0))
         t_bwd = turns(torch, tiled_bwd,
                       chunk_bwd_call(torch, sk, args, Gc, 0))
+        t_cbwd = turns(torch, carry_bwd_call(torch, sk, cargs, 1),
+                       carry_bwd_call(torch, sk, cargs, 0))
         fwd_wrapper = timed_ms(torch, lambda: sk.ssd_chunks_cuda(
             x, dt, cum, Bm, Cm, Q))
         bwd_wrapper = timed_ms(torch, lambda: sk.ssd_chunk_bwd_cuda(*args))
+        cbwd_wrapper = timed_ms(torch, lambda: sk.ssd_carry_bwd_cuda(*cargs))
         fwd_plain = timed_ms(torch, lambda: ssd_chunks_ref(x, dt, cum, Bm, Cm,
                                                            Q), 0.2)
         bwd_plain = timed_ms(torch, lambda: ssd_chunk_bwd_ref(*args, G), 0.2)
+        cbwd_plain = timed_ms(torch, lambda: ssd_carry_bwd_ref(*cargs), 0.2)
         fbms, fbby = ssd_bound(*shape, dtype, ops_rate)
         cfbms, cfbby = ssd_bound(*shape, dtype)
-        bbms, bbby = ssd_bwd_bounds(*shape, dtype, ops_rate)["chunk"]
-        cbbms, cbbby = ssd_bwd_bounds(*shape, dtype)["chunk"]
+        bounds = ssd_bwd_bounds(*shape, dtype, ops_rate)
+        core_bounds = ssd_bwd_bounds(*shape, dtype)
+        bbms, bbby = bounds["chunk"]
+        cbbms, cbbby = core_bounds["chunk"]
+        cbms, cbby = bounds["carry"]
+        ccbms, ccbby = core_bounds["carry"]
         rows[shape] = dict(
             counts={k: counts[k] for k in launches},
             fwd=dict(entry_ms=(t_fwd[0] + t_fwd[3]) / 2,
@@ -2607,6 +2643,12 @@ def ssd_tiled_rows(torch, dtype: str) -> dict:
                      bound_ms=bbms, bound_by=bbby, core_bound_ms=cbbms,
                      core_bound_by=cbbby, heads_per_block=G,
                      core_heads_per_block=Gc),
+            carry_bwd=dict(entry_ms=(t_cbwd[0] + t_cbwd[3]) / 2,
+                           core_entry_ms=(t_cbwd[1] + t_cbwd[2]) / 2,
+                           turns=list(t_cbwd), ms=cbwd_wrapper,
+                           plain_ms=cbwd_plain, bound_ms=cbms,
+                           bound_by=cbby, core_bound_ms=ccbms,
+                           core_bound_by=ccbby),
             ratios=ratios)
         r = rows[shape]
         carry = ""
@@ -2665,11 +2707,20 @@ def ssd_tiled_rows(torch, dtype: str) -> dict:
             f"{(t_bwd[0] + t_bwd[3]) / (t_bwd[1] + t_bwd[2]):.4f}), bound "
             f"{bbms:.6f} ({bbby}), {bbms / r['bwd']['entry_ms']:.3f} of it "
             f"(CUDA cores' {cbbms:.6f}, {cbbby}); "
-            f"wrapper {bwd_wrapper:.5f}, plain {bwd_plain:.5f}{carry}; worst "
+            f"wrapper {bwd_wrapper:.5f}, plain {bwd_plain:.5f}; "
+            f"{bwd_carry} / ssd_carry_bwd through ssd_carry_bwd_launch in "
+            f"turns "
+            + ", ".join(f"{v:.5f}" for v in t_cbwd)
+            + f" (new / CUDA cores "
+            f"{(t_cbwd[0] + t_cbwd[3]) / (t_cbwd[1] + t_cbwd[2]):.4f}), "
+            f"bound {cbms:.6f} ({cbby}), "
+            f"{cbms / r['carry_bwd']['entry_ms']:.3f} of it (CUDA cores' "
+            f"{ccbms:.6f}, {ccbby}); wrapper {cbwd_wrapper:.5f}, plain "
+            f"{cbwd_plain:.5f}{carry}; worst "
             f"|Δ|/bar " + ", ".join(f"{k} {v:.4g}" for k, v in ratios.items())
             + "; the new kernels' second passes bitwise")
         del x, dt, A, Bm, Cm, dy, h0, df, cum, want, got, yo, so, states
-        del h_prev, g, args, outs, tails
+        del h_prev, g, args, outs, tails, cargs, want_carry
         torch.cuda.empty_cache()
     return dict(rows=rows, launches=launches, worst=worst, builds=builds)
 
@@ -5207,6 +5258,7 @@ def main() -> int:
     # mamba2-780m step (1 x 2048) the fp32 tensor-core pair, which it
     # launched, and the CUDA-core pair timed on the same inputs, launched
     # on a main path by (b)'s 2 x 50 step.
+    tiled_of = {"ssd_carry_bwd_tc": sdt, "ssd_carry_bwd_tf32": sdt32}
     for key, name, (shape, dtype), launches in (
             ("carry", "ssd_carry_bwd_tc", (SSD_TRAIN[0], "bfloat16"),
              train["ssm"]["ssd_launches"]),
@@ -5268,6 +5320,16 @@ def main() -> int:
                 "build": {k: v for k, v in sdb["builds"].items()
                           if k.startswith(name + "<")}}
                if tc or name.endswith("_tf32") else {}),
+            # The carries at chunks of 128 to 256 rows (64-row slabs):
+            # launched by phase 6's ssd() under grad at SSD_TILED, each
+            # shape timed through the C entry point in turns with
+            # ssd_carry_bwd.
+            **({"launches_tiled": tiled_of[name]["launches"][name],
+                "tiled_rows": [
+                    dict(shape=list(sh), launches=v["counts"][name],
+                         **v["carry_bwd"])
+                    for sh, v in tiled_of[name]["rows"].items()]}
+               if name in tiled_of else {}),
         })
     # The tensor-core kernels over 64 x 64 tiles at chunks of 128 to 256
     # rows, bf16 and fp32: launched by phase 6's ssd() under grad at

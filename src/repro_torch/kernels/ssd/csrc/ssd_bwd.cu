@@ -16,8 +16,8 @@
 // tensor cores in TF32 (ssd_carry_bwd_tf32, ssd_chunk_bwd_tf32); at Q =
 // 128, 192 and 256 the chunk backward on the tensor cores over 64 x 64
 // tiles (bf16 ssd_chunk_bwd_tc_tiled, fp32 ssd_chunk_bwd_tf32_tiled) and
-// the carry backward on the CUDA cores; every other shape on the CUDA
-// cores (ssd_carry_bwd, ssd_chunk_bwd).
+// the same carry backward kernels, which walk a chunk in 64-row slabs;
+// every other shape on the CUDA cores (ssd_carry_bwd, ssd_chunk_bwd).
 //
 // The carry's walks, per (batch, head) and element (n, p) of the state:
 //     forward  h_prev_c = h,  h = exp(cum_last,c) h + S_c      (writes the
@@ -108,7 +108,8 @@
 //   once (no per-tile group sums are kept), the heads' x and dy tiles
 //   streamed through a two-stage ring.  The second phase adds its dx,
 //   dcum, ddt, dB and dC terms to what the first wrote, in a fixed order.
-// * ssd_carry_bwd_tc (bf16): one block per (slice of kCarryRows = 32
+// * ssd_carry_bwd_tc (bf16 at Q = 64, 128, 192 or 256, P = 64, N = 64 or
+//   128): one block per (slice of kCarryRows = 32
 //   rows of N, head, batch); its first two warps walk forward, the other
 //   two back, each pair at its own pace.  The forward walk streams
 //   the state slices through a kCarryStages-deep cp.async ring, each
@@ -128,8 +129,16 @@
 //   32 rows took 0.36342 ms against 0.37925 for 64; at N = 64 the two
 //   were within the runs' spread (0.25530 / 0.26078 in one run, 0.24267
 //   / 0.22627 in another).
-// * ssd_carry_bwd_tf32 (fp32 at the shapes above): ssd_carry_bwd_tc's
-//   block, warps, rings and slices (carry_bwd_walk serves both), with
+//   A chunk of Q = 64 S rows (S = 1 to 4, a template parameter) is S
+//   slabs of 64 rows: the ring stages hold one slab each, the reverse walk
+//   takes a step a slab (the chunk's slabs in order, each slab's product
+//   added into the same accumulators), and g is stored and decayed once
+//   the chunk's last slab is in.  Shared memory is that of Q = 64 but for
+//   a decay table of L / Q entries; the walk issues the products of
+//   Q = 64 for the same L, with 1 / S as many serial g updates.
+// * ssd_carry_bwd_tf32 (fp32 at the shapes above and at Q = 128, 192,
+//   256): ssd_carry_bwd_tc's block, warps, rings, slabs and slices
+//   (carry_bwd_walk serves both), with
 //   fp32 C slices and dy tiles in the rings.  The forward walk is the same
 //   code.  The reverse walk forms (exp(cum) o C)^T . dy on mma.sync
 //   m16n8k8 in TF32, three TF32 products a product: C's slice is the A
@@ -3799,11 +3808,11 @@ cudaError_t launch_chunk_bwd_tf32_tiled(
 }
 
 // Shared-memory layout of ssd_carry_bwd_tc (C and dy in bf16: esize 2)
-// and ssd_carry_bwd_tf32 (fp32: esize 4), in bytes (ssd_bwd_tc_smem_bytes
-// and ssd_carry_bwd_tf32_smem_bytes report them): the forward walk's ring
-// of state slices, the reverse walk's rings of C slices [kTQ][NS + 8] and
-// dy tiles [kTQ][kLdX], in C's type, and of cum columns, and every chunk's
-// exp(cum_last).  Rows of NS + 8 and kTP + 8 elements: in bf16 the eight
+// and ssd_carry_bwd_tf32 (fp32: esize 4) at nc chunks of any length, in
+// bytes (ssd_bwd_tc_smem_bytes and ssd_carry_bwd_tf32_smem_bytes report
+// them): the forward walk's ring of state slices, the reverse walk's rings
+// of 64-row slabs (C slices [kTQ][NS + 8] and dy tiles [kTQ][kLdX], in C's
+// type, and cum columns), and every chunk's exp(cum_last).  Rows of NS + 8 and kTP + 8 elements: in bf16 the eight
 // rows of an ldmatrix on distinct banks; in fp32 8 (mod 32) words, so that
 // the MN-major fragment reads (rows c and c + 4, column g) meet no bank
 // twice.
@@ -3821,10 +3830,11 @@ struct CarryTcSmem {
 
 // The two walks of ssd_carry_bwd_tc (T = bf16, h_prev's and (exp(cum) o
 // C)'s operands in NT bf16 terms) and ssd_carry_bwd_tf32 (T = float, TF32
-// m16n8k8, three TF32 products a product): one block per (slice of NS
-// rows of N, head, batch); warps 0 .. NS/16 - 1 walk forward (h_prev), the
-// others walk back (g), each group at its own pace.
-template <typename T, int NS, int NT>
+// m16n8k8, three TF32 products a product) at chunks of S slabs of kTQ
+// rows: one block per (slice of NS rows of N, head, batch); warps
+// 0 .. NS/16 - 1 walk forward (h_prev), the others walk back (g), each
+// group at its own pace.
+template <typename T, int S, int NS, int NT>
 __device__ __forceinline__ void carry_bwd_walk(
     unsigned char* smem_raw, const float* __restrict__ states,
     const float* __restrict__ cum, const T* __restrict__ cm,
@@ -3838,7 +3848,8 @@ __device__ __forceinline__ void carry_bwd_walk(
   constexpr int kLdC = NS + 8;      // padded row of a C slice
   constexpr int VW = 16 / sizeof(T);   // values a 16-byte copy
   constexpr int kPer = NS * kTP / 4 / kGroup;   // float4s a forward thread
-  const int nc = L / kTQ;
+  constexpr int Q = S * kTQ;        // chunk rows
+  const int nc = L / Q;
   const CarryTcSmem lay(NS, nc, sizeof(T));
   float* ring_s = reinterpret_cast<float*>(smem_raw + lay.s);
   T* ring_c = reinterpret_cast<T*>(smem_raw + lay.c);
@@ -3853,7 +3864,7 @@ __device__ __forceinline__ void carry_bwd_walk(
   };
 
   for (int c = tid; c < nc; c += blockDim.x)
-    dec[c] = expf(cum[((int64_t)b * L + (int64_t)c * kTQ + kTQ - 1) * H + h]);
+    dec[c] = expf(cum[((int64_t)b * L + (int64_t)c * Q + Q - 1) * H + h]);
   __syncthreads();
 
   if (warp < W) {
@@ -3897,8 +3908,9 @@ __device__ __forceinline__ void carry_bwd_walk(
   }
 
   // Reverse: g_c = g, g = exp(cum_last,c) g + sum_i exp(cum_i) C_i (x) dy_i,
-  // the sum as (exp(cum) o C)^T . dy on mma.sync: C's slice is the A
-  // operand, read MN-major and scaled by exp(cum_i), dy the B operand.
+  // the sum as (exp(cum) o C)^T . dy on mma.sync, slab by slab into one
+  // accumulator: C's slice is the A operand, read MN-major and scaled by
+  // exp(cum_i), dy the B operand.
   // bf16: C's fragment by ldmatrix.trans, scaled and split into NT bf16
   // terms; dy as read.  fp32: both read as 32-bit values in the natural
   // slots (rows i = c and c + 4 of each k8 step), split as read, three
@@ -3906,9 +3918,12 @@ __device__ __forceinline__ void carry_bwd_walk(
   // accumulator layout: rows n0 + 16 rw + lg (+ 8), columns 8 pt + 2 q.
   const int rt = tid - kGroup, rw = warp - W;
   const int lg = lane >> 2, cq = lane & 3;
-  auto issue = [&](int t) {   // step t walks chunk nc - 1 - t
+  // Step t walks slab t % S of chunk nc - 1 - t / S (the chunk's rows
+  // from 64 (t % S)); cum is the within-chunk cumsum, read as it is.
+  auto issue = [&](int t) {
     const int st = t % kCarryStages;
-    const int64_t r0 = (int64_t)b * L + (int64_t)(nc - 1 - t) * kTQ;
+    const int64_t r0 = (int64_t)b * L + (int64_t)(nc - 1 - t / S) * Q +
+                       (t % S) * kTQ;
     T* cd = ring_c + st * kTQ * kLdC;
     T* dd = ring_dy + st * kTQ * kLdX;
     float* cu = ring_cum + st * kTQ;
@@ -3939,27 +3954,30 @@ __device__ __forceinline__ void carry_bwd_walk(
       gv[pt][2 * rr + 1] = v.y;
     }
   }
+  const int steps = nc * S;
 #pragma unroll
   for (int t = 0; t < kCarryStages - 1; ++t) {
-    if (t < nc) issue(t);
+    if (t < steps) issue(t);
     cp_async_commit();
   }
-  for (int t = 0; t < nc; ++t) {
-    const int c = nc - 1 - t, st = t % kCarryStages;
-    // Chunk c's tiles have landed; every warp of the walk is done with
-    // step t - 1's stage, which the copy below refills.
+  float acc[8][4];
+  for (int t = 0; t < steps; ++t) {
+    const int c = nc - 1 - t / S, st = t % kCarryStages;
+    // Step t's slab has landed; every warp of the walk is done with step
+    // t - 1's stage, which the copy below refills.
     cp_async_wait<kCarryStages - 2>();
     group_sync(1, kGroup);
-    if (t + kCarryStages - 1 < nc) issue(t + kCarryStages - 1);
+    if (t + kCarryStages - 1 < steps) issue(t + kCarryStages - 1);
     cp_async_commit();
     const T* cst = ring_c + st * kTQ * kLdC;
     const T* dst = ring_dy + st * kTQ * kLdX;
     const float* cu = ring_cum + st * kTQ;
-    float acc[8][4];
+    if (t % S == 0) {   // the chunk's first slab
 #pragma unroll
-    for (int pt = 0; pt < 8; ++pt)
+      for (int pt = 0; pt < 8; ++pt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[pt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[pt][e] = 0.f;
+    }
     if constexpr (kTf32) {
 #pragma unroll 2
       for (int ks = 0; ks < kTQ / 8; ++ks) {
@@ -4011,6 +4029,7 @@ __device__ __forceinline__ void carry_bwd_walk(
         }
       }
     }
+    if (t % S != S - 1) continue;   // the chunk has slabs to come
     const float d = dec[c];
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -4036,7 +4055,7 @@ __device__ __forceinline__ void carry_bwd_walk(
   }
 }
 
-template <int NS, int NT>
+template <int S, int NS, int NT>
 __global__ void __launch_bounds__(4 * NS)
     ssd_carry_bwd_tc(const float* __restrict__ states,
                      const float* __restrict__ cum,
@@ -4046,11 +4065,11 @@ __global__ void __launch_bounds__(4 * NS)
                      float* __restrict__ h_prev, float* __restrict__ g_out,
                      float* __restrict__ dinit, int L, int H, int N) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  carry_bwd_walk<bf16, NS, NT>(smem_raw, states, cum, cm, dy, init, dfinal,
-                               h_prev, g_out, dinit, L, H, N);
+  carry_bwd_walk<bf16, S, NS, NT>(smem_raw, states, cum, cm, dy, init,
+                                  dfinal, h_prev, g_out, dinit, L, H, N);
 }
 
-template <int NS>
+template <int S, int NS>
 __global__ void __launch_bounds__(4 * NS)
     ssd_carry_bwd_tf32(const float* __restrict__ states,
                        const float* __restrict__ cum,
@@ -4061,13 +4080,13 @@ __global__ void __launch_bounds__(4 * NS)
                        float* __restrict__ h_prev, float* __restrict__ g_out,
                        float* __restrict__ dinit, int L, int H, int N) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  carry_bwd_walk<float, NS, 0>(smem_raw, states, cum, cm, dy, init, dfinal,
-                               h_prev, g_out, dinit, L, H, N);
+  carry_bwd_walk<float, S, NS, 0>(smem_raw, states, cum, cm, dy, init,
+                                  dfinal, h_prev, g_out, dinit, L, H, N);
 }
 
 // ssd_carry_bwd_tc (bf16) or ssd_carry_bwd_tf32 (fp32) at kCarryRows rows
-// of N a block.
-template <typename T>
+// of N a block, chunks of S slabs of kTQ rows.
+template <typename T, int S>
 cudaError_t launch_carry_bwd_tc(const void* states, const void* cum,
                                 const void* cm, const void* dy,
                                 const void* init, const void* dfinal,
@@ -4076,11 +4095,11 @@ cudaError_t launch_carry_bwd_tc(const void* states, const void* cum,
   constexpr int NS = kCarryRows;
   const auto kernel = [] {
     if constexpr (sizeof(T) == 2)
-      return ssd_carry_bwd_tc<NS, kBwdTerms>;
+      return ssd_carry_bwd_tc<S, NS, kBwdTerms>;
     else
-      return ssd_carry_bwd_tf32<NS>;
+      return ssd_carry_bwd_tf32<S, NS>;
   }();
-  const size_t smem = CarryTcSmem(NS, L / kTQ, sizeof(T)).total;
+  const size_t smem = CarryTcSmem(NS, L / (S * kTQ), sizeof(T)).total;
   if (N % NS || smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -4101,9 +4120,9 @@ cudaError_t launch_carry_bwd_tc(const void* states, const void* cum,
 // [B, L / Q, H, N, P], cum [B, L, H], init, dfinal and dinit [B, H, N, P]
 // fp32 (init and dfinal may be null: zeros), C [B, L, N], dy [B, L, H, P];
 // all contiguous and 16-byte aligned; P and N multiples of 8, N at most
-// 256.  tc = 0 runs ssd_carry_bwd on the CUDA cores; tc = 1, at Q = P =
-// 64 and N = 64 or 128, runs ssd_carry_bwd_tc for bf16 and
-// ssd_carry_bwd_tf32 for fp32.
+// 256.  tc = 0 runs ssd_carry_bwd on the CUDA cores; tc = 1, at Q = 64,
+// 128, 192 or 256, P = 64 and N = 64 or 128, runs ssd_carry_bwd_tc for
+// bf16 and ssd_carry_bwd_tf32 for fp32.
 extern "C" int ssd_carry_bwd_launch(const void* states, const void* cum,
                                     const void* cm, const void* dy,
                                     const void* init, const void* dfinal,
@@ -4114,17 +4133,21 @@ extern "C" int ssd_carry_bwd_launch(const void* states, const void* cum,
   if (P % 8 || N % 8 || N > 256 || Q < 1 || L % Q)
     return (int)cudaErrorInvalidValue;
   if (tc) {
-    if (Q != kTQ || P != kTP || (N != 64 && N != 128))
+    if (Q % kTQ || Q > kTiledMaxQ || P != kTP || (N != 64 && N != 128) ||
+        (dtype != 0 && dtype != 1))
       return (int)cudaErrorInvalidValue;
-    if (dtype == 1)
-      return (int)launch_carry_bwd_tc<bf16>(states, cum, cm, dy, init,
-                                            dfinal, h_prev, g, dinit, B, L,
-                                            H, N, s);
-    if (dtype == 0)
-      return (int)launch_carry_bwd_tc<float>(states, cum, cm, dy, init,
-                                             dfinal, h_prev, g, dinit, B, L,
-                                             H, N, s);
-    return (int)cudaErrorInvalidValue;
+#define SSD_CARRY_BWD_TC(T, S)                                              \
+  return (int)launch_carry_bwd_tc<T, S>(states, cum, cm, dy, init, dfinal, \
+                                        h_prev, g, dinit, B, L, H, N, s)
+    if (dtype == 1 && Q == kTQ) SSD_CARRY_BWD_TC(bf16, 1);
+    if (dtype == 1 && Q == 2 * kTQ) SSD_CARRY_BWD_TC(bf16, 2);
+    if (dtype == 1 && Q == 3 * kTQ) SSD_CARRY_BWD_TC(bf16, 3);
+    if (dtype == 1) SSD_CARRY_BWD_TC(bf16, 4);
+    if (Q == kTQ) SSD_CARRY_BWD_TC(float, 1);
+    if (Q == 2 * kTQ) SSD_CARRY_BWD_TC(float, 2);
+    if (Q == 3 * kTQ) SSD_CARRY_BWD_TC(float, 3);
+    SSD_CARRY_BWD_TC(float, 4);
+#undef SSD_CARRY_BWD_TC
   }
   const bool wide = P % 16 == 0;
 #define SSD_CARRY_BWD(T, PS)                                                \
@@ -4233,7 +4256,7 @@ extern "C" int ssd_chunk_bwd_tf32_tiled_smem_bytes(int N, int Q) {
 
 // Dynamic shared memory (bytes) of ssd_chunk_bwd_tc (which = 0) at state
 // size N with n heads a block, or of ssd_carry_bwd_tc (which = 1) at n
-// chunks; -1 for anything else.
+// chunks of any length it takes; -1 for anything else.
 extern "C" int ssd_bwd_tc_smem_bytes(int which, int N, int n) {
   if ((N != 64 && N != 128) || n < 1) return -1;
   if (which == 0) return (int)ChunkTcSmem(N, n).total;
@@ -4258,8 +4281,8 @@ extern "C" int ssd_bwd_smem_bytes(int which, int Q, int N, int P) {
   return -1;
 }
 
-// Dynamic shared memory (bytes) of ssd_carry_bwd_tf32 at n chunks of kTQ
-// rows; -1 for anything else.
+// Dynamic shared memory (bytes) of ssd_carry_bwd_tf32 at n chunks of any
+// length it takes; -1 for anything else.
 extern "C" int ssd_carry_bwd_tf32_smem_bytes(int n) {
   if (n < 1) return -1;
   return (int)CarryTcSmem(kCarryRows, n, 4).total;

@@ -18,7 +18,8 @@ the chunk backward run on the tensor cores over 64 x 64 tiles — bf16 in
 ``ssd_chunk_tc_tiled`` and ``ssd_chunk_bwd_tc_tiled``
 (:func:`tiled_shape`), fp32 in ``ssd_chunk_tf32_tiled`` and
 ``ssd_chunk_bwd_tf32_tiled`` (TF32, :func:`tf32_tiled_shape`) — and the
-carry backward on the CUDA cores.  The forward carry is
+carry backward is ``ssd_carry_bwd_tc`` or ``ssd_carry_bwd_tf32``, which
+walk a chunk in 64-row slabs.  The forward carry is
 ``ssd_carry_tc`` for bf16 C and ``ssd_carry_tf32`` for fp32 C at Q and N
 multiples of 16 (where its layout fits a block).  Every other shape runs
 on the CUDA cores in fp32 (``ssd_chunk_kernel``, ``ssd_carry_kernel``,
@@ -135,8 +136,9 @@ BWD_TERMS = 2
 # Launches of each backward kernel through the wrappers below (reset them
 # to 0 and read them back around a run): the CUDA-core kernels take the
 # shapes the tensor-core ones (``_tc`` for bf16, :func:`tc_shape`;
-# ``_tf32`` for fp32, :func:`tf32_shape`; the ``_tiled`` chunk kernels,
-# :func:`tiled_shape` and :func:`tf32_tiled_shape`) do not.
+# ``_tf32`` for fp32, :func:`tf32_shape`; at :func:`tiled_shape` and
+# :func:`tf32_tiled_shape` the carries of the dtype and the ``_tiled``
+# chunk kernels) do not.
 BWD_KERNELS = ("ssd_carry_bwd", "ssd_chunk_bwd", "ssd_carry_bwd_tc",
                "ssd_chunk_bwd_tc", "ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32",
                "ssd_chunk_bwd_tc_tiled", "ssd_chunk_bwd_tf32_tiled")
@@ -548,11 +550,12 @@ def chunk_bwd_smem_bytes(Q: int, N: int, P: int) -> int:
 
 def carry_bwd_tc_smem_bytes(nc: int, c_dtype: torch.dtype) -> int:
     """Dynamic shared memory of one ``ssd_carry_bwd_tc`` (bf16) or
-    ``ssd_carry_bwd_tf32`` (fp32) block at ``nc`` chunks of 64 rows (as
-    ``CarryTcSmem`` in ``csrc/ssd_bwd.cu``): rings of ``CARRY_BWD_STAGES``
-    state slices [32, 64] fp32, C slices [64, 40] and dy tiles [64, 72] in
-    C's type and cum columns [64] fp32; every chunk's exp(cum_last), padded
-    to 16 bytes."""
+    ``ssd_carry_bwd_tf32`` (fp32) block at ``nc`` chunks of any length
+    they take, 64 to 256 rows (as ``CarryTcSmem`` in ``csrc/ssd_bwd.cu``):
+    rings of ``CARRY_BWD_STAGES`` state slices [32, 64] fp32 and of 64-row
+    slabs (C slices [64, 40] and dy tiles [64, 72] in C's type, cum
+    columns [64] fp32); every chunk's exp(cum_last), padded to 16
+    bytes."""
     size = 2 if c_dtype == torch.bfloat16 else 4
     S, NS = CARRY_BWD_STAGES, CARRY_ROWS
     return (S * NS * TC_P * 4 + S * TC_Q * (NS + 8) * size
@@ -604,14 +607,15 @@ def bwd_kernels(dtype: torch.dtype, Q: int, P: int, N: int
     ``dtype`` at this shape: where the forward's tensor-core chunk kernels
     apply, the bf16 tensor-core pair (:func:`tc_shape`) or the fp32 one
     (:func:`tf32_shape`); at :func:`tiled_shape` and
-    :func:`tf32_tiled_shape` the CUDA-core carry backward and the tiled
-    chunk backward of the dtype; else the CUDA-core pair."""
+    :func:`tf32_tiled_shape` the same carry backward of the dtype (in
+    64-row slabs) and the tiled chunk backward of the dtype; else the
+    CUDA-core pair."""
     if tc_shape(dtype, Q, P, N):
         return "ssd_carry_bwd_tc", "ssd_chunk_bwd_tc"
     if tiled_shape(dtype, Q, P, N):
-        return "ssd_carry_bwd", "ssd_chunk_bwd_tc_tiled"
+        return "ssd_carry_bwd_tc", "ssd_chunk_bwd_tc_tiled"
     if tf32_tiled_shape(dtype, Q, P, N):
-        return "ssd_carry_bwd", "ssd_chunk_bwd_tf32_tiled"
+        return "ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32_tiled"
     if tf32_shape(dtype, Q, P, N):
         return "ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32"
     return "ssd_carry_bwd", "ssd_chunk_bwd"
@@ -659,8 +663,9 @@ def ssd_carry_bwd_cuda(states: torch.Tensor, cum: torch.Tensor,
     synchronising.
 
     The kernel follows :func:`bwd_kernels`: ``ssd_carry_bwd_tc`` for bf16
-    and ``ssd_carry_bwd_tf32`` for fp32 at the tensor-core shapes,
-    ``ssd_carry_bwd`` otherwise or when ``cuda_cores`` is set.  A launch
+    and ``ssd_carry_bwd_tf32`` for fp32 at the tensor-core shapes and at
+    ``TILED_Q`` (P 64, N 64 or 128), ``ssd_carry_bwd`` otherwise or when
+    ``cuda_cores`` is set.  A launch
     the kernel refuses (a decay table of the chunks beyond its shared
     memory) raises."""
     if states.dim() != 5 or states.device.type != "cuda":

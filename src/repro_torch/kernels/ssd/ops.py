@@ -29,8 +29,9 @@ path under ``FakeTensorMode`` without launching, and with a flop formula
   models' shapes (Q = P = 64, N in {64, 128}) for bf16 the tensor-core
   ``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc``, for fp32 the TF32
   ``ssd_carry_bwd_tf32`` and ``ssd_chunk_bwd_tf32``; at Q = 128, 192
-  and 256 (P = 64, N in {64, 128}) the CUDA-core ``ssd_carry_bwd`` and
-  the tensor-core ``ssd_chunk_bwd_tc_tiled`` (bf16) or
+  and 256 (P = 64, N in {64, 128}) the same carry backward of the dtype
+  (``ssd_carry_bwd_tc`` or ``ssd_carry_bwd_tf32``, walking each chunk in
+  64-row slabs) and the tensor-core ``ssd_chunk_bwd_tc_tiled`` (bf16) or
   ``ssd_chunk_bwd_tf32_tiled`` (fp32); else
   the CUDA-core ``ssd_carry_bwd`` and ``ssd_chunk_bwd``
   (``kernel.bwd_kernels``) — and

@@ -318,8 +318,9 @@ def emulate_tf32_carry_bwd(states, cum, Cm, dy, chunk, init_state=None,
     """``ssd_carry_bwd_tf32``'s arithmetic: the forward walk in fp32; the
     reverse walk's Σ_i exp(cum_i) C_i ⊗ dy_i per chunk as
     (exp(cum) ∘ C)ᵀ·dy, C scaled by exp(cum_i) in fp32 and then split, dy
-    split as read (natural slots over i), and g = exp(cum_last)·g + that
-    product.
+    split as read (natural slots over i), the chunk's 64-row slabs in
+    order into one running sum (one slab up to 64 rows), and g =
+    exp(cum_last)·g + that product.
     Returns (h_prev, g, d init_state) as ``ssd_carry_bwd_ref``."""
     Bsz, nc, H, N, P = states.shape
     f32 = torch.float32
@@ -334,7 +335,12 @@ def emulate_tf32_carry_bwd(states, cum, Cm, dy, chunk, init_state=None,
     ec = Cm.to(f32).reshape(Bsz, nc, chunk, 1, N) \
         * torch.exp(cumc)[..., None]                        # [b,c,i,h,n]
     dyc = dy.to(f32).reshape(Bsz, nc, chunk, H, P).permute(0, 1, 3, 2, 4)
-    cdy = tf32_mm(ec.permute(0, 1, 3, 4, 2), dyc, NATURAL, terms)
+    ect = ec.permute(0, 1, 3, 4, 2)                         # [b,c,h,n,i]
+    slab = min(chunk, 64)
+    cdy = None
+    for s in range(0, chunk, slab):
+        cdy = tf32_mm(ect[..., s:s + slab], dyc[..., s:s + slab, :],
+                      NATURAL, terms, init=cdy)
     g = torch.zeros((Bsz, H, N, P)) if dfinal is None else dfinal.to(f32)
     gs = [g] * nc
     for c in reversed(range(nc)):

@@ -26,7 +26,9 @@ held against the plain versions and, with the fp32 forward kernel's
 emulated chunk states, against ``jax.vjp`` of the reference's
 ``ssd_ref`` and ``ssd``; at chunks of 128 to 256 rows likewise
 ``ssd_chunk_bwd_tf32_tiled``'s walk over 64 x 64 tiles
-(``emulate_tf32_chunk_bwd_tiled``).
+(``emulate_tf32_chunk_bwd_tiled``), and both tensor-core carry
+backwards' walk over 64-row slabs (``emulate_tensor_core_carry_bwd``,
+``emulate_tf32_carry_bwd``).
 """
 import functools
 import re
@@ -457,7 +459,8 @@ def emulate_tensor_core_carry_bwd(states, cum, Cm, dy, chunk, init_state,
     """``ssd_carry_bwd_tc``'s arithmetic: the walks in fp32; each chunk's
     Σ_i exp(cum_i) C_i ⊗ dy_i with exp(cum_i)·C_i (fp32) split into
     ``terms`` bf16 terms and dy as read (bf16), exact products, fp32
-    sums."""
+    sums, the chunk's 64-row slabs summed in order (one slab up to 64
+    rows)."""
     Bsz, nc, H, N, P = states.shape
     f32 = torch.float32
     cumc = cum.to(f32).reshape(Bsz, nc, chunk, H)
@@ -471,7 +474,10 @@ def emulate_tensor_core_carry_bwd(states, cum, Cm, dy, chunk, init_state,
     ec = Cm.bfloat16().float().reshape(Bsz, nc, chunk, 1, N) \
         * torch.exp(cumc)[..., None]                       # [b,c,i,h,n]
     dyc = dy.bfloat16().float().reshape(Bsz, nc, chunk, H, P)
-    cdy = torch.einsum("bcihn,bcihp->bchnp", split_sum(ec, terms), dyc)
+    ecs, slab = split_sum(ec, terms), min(chunk, 64)
+    cdy = sum(torch.einsum("bcihn,bcihp->bchnp", ecs[:, :, s:s + slab],
+                           dyc[:, :, s:s + slab])
+              for s in range(0, chunk, slab))
     g = torch.zeros((Bsz, H, N, P)) if dfinal is None else dfinal.to(f32)
     gs = [g] * nc
     for c in reversed(range(nc)):
@@ -589,8 +595,8 @@ def test_tensor_core_bwd_emulation_meets_the_bar(terms):
 BWD_TC = ("ssd_carry_bwd_tc", "ssd_chunk_bwd_tc")
 BWD_TF32 = ("ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32")
 BWD_CORE = ("ssd_carry_bwd", "ssd_chunk_bwd")
-BWD_TILED = ("ssd_carry_bwd", "ssd_chunk_bwd_tc_tiled")
-BWD_TF32_TILED = ("ssd_carry_bwd", "ssd_chunk_bwd_tf32_tiled")
+BWD_TILED = ("ssd_carry_bwd_tc", "ssd_chunk_bwd_tc_tiled")
+BWD_TF32_TILED = ("ssd_carry_bwd_tf32", "ssd_chunk_bwd_tf32_tiled")
 
 
 @pytest.mark.parametrize("dtype,Q,P,N,want", [
@@ -602,12 +608,15 @@ BWD_TF32_TILED = ("ssd_carry_bwd", "ssd_chunk_bwd_tf32_tiled")
        for Q, P, N in ((32, 64, 128), (64, 32, 128), (64, 64, 32),
                        (16, 16, 32), (128, 32, 128), (100, 64, 64),
                        (50, 64, 128))]
-    + [("float32", Q, 64, 128, BWD_TF32_TILED) for Q in (128, 256)])
+    + [("float32", Q, 64, 128, BWD_TF32_TILED) for Q in (128, 256)]
+    + [("float32", Q, 64, N, BWD_TF32_TILED)
+       for Q, N in ((192, 128), (128, 64), (192, 64), (256, 64))])
 def test_backward_dispatch_by_dtype_and_shape(dtype, Q, P, N, want):
     """At the forward tensor-core kernels' shapes (Q = P = 64, N in {64,
     128}) bf16 takes the ``_tc`` pair and fp32 the ``_tf32`` pair; at Q =
-    128, 192, 256 (P 64, N 64 or 128) the CUDA-core carry backward and the
-    tiled chunk backward of the dtype, ``ssd_chunk_bwd_tc_tiled`` or
+    128, 192, 256 (P 64, N 64 or 128) the carry backward of the dtype
+    (``ssd_carry_bwd_tc`` or ``ssd_carry_bwd_tf32``, in 64-row slabs) and
+    the tiled chunk backward of the dtype, ``ssd_chunk_bwd_tc_tiled`` or
     ``ssd_chunk_bwd_tf32_tiled``; at any other chunk (chunks not a
     multiple of 64), head width or state size either dtype takes the
     CUDA-core pair; the pairs name every backward kernel."""
@@ -998,8 +1007,9 @@ def tiled_bwd_case(shape):
     """Inputs whose x, B, C and dy are bf16 values (so that the
     reference's fp32 run reads what the kernel reads), with a nonzero
     initial state and dfinal; the chunk backward's arguments with the plain
-    carry backward's h_prev and g (the carry backward at these chunks is
-    the CUDA-core kernel, fp32), and d init_state."""
+    carry backward's h_prev and g (the emulated ``ssd_carry_bwd_tc`` at
+    these chunks is held apart, ``test_tiled_carry_bwd_emulation_meets_
+    the_bar``), and d init_state."""
     B, L, H, P, N, Q = shape
     arrs, dy, h0, df = make(B * L + N + 5, B, L, H, P, N, "nonzero")
     for i in (0, 3, 4):
@@ -1580,3 +1590,110 @@ def test_cuda_tf32_carry_bwd_shared_memory_equals_mirror():
         assert lib.ssd_bwd_tc_smem_bytes(1, 128, nc) == \
             kernel.carry_bwd_tc_smem_bytes(nc, torch.bfloat16)
     assert lib.ssd_carry_bwd_tf32_smem_bytes(0) == -1
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core carry backward at chunks of 128 to 256 rows (64-row slabs)
+# ---------------------------------------------------------------------------
+
+# Every tiled chunk at both state sizes, L = 768 (which 128, 192 and 256
+# divide), two heads.
+TILED_CARRY_SHAPES = [(1, 768, 2, 64, N, Q) for Q in kernel.TILED_Q
+                      for N in (64, 128)]
+
+
+def tiled_carry_case(shape, dtype):
+    """Inputs with a nonzero initial state and dfinal (in bf16: x, B, C and
+    dy rounded to bf16 values, so that the reference's fp32 run reads what
+    the kernels read), the chunk states of the dtype's emulated tiled
+    forward kernel (bf16: the plain chunk pass, which ``ssd_chunk_tc_
+    tiled``'s emulation meets), and the emulated carry backward of the
+    dtype (``ssd_carry_bwd_tc`` with ``BWD_TERMS``, ``ssd_carry_bwd_tf32``
+    with three TF32 products) beside ``ssd_carry_bwd_ref`` on the same
+    states."""
+    B, L, H, P, N, Q = shape
+    bf16 = dtype == torch.bfloat16
+    arrs, dy, h0, df = make(B * L + N + Q, B, L, H, P, N, "nonzero")
+    if bf16:
+        for i in (0, 3, 4):
+            arrs[i] = torch.from_numpy(arrs[i]).bfloat16().float().numpy()
+        dy = torch.from_numpy(dy).bfloat16().float().numpy()
+    ts, tdy, th0, tdf = torch_inputs(arrs, dy, h0, df, dtype)
+    x, dt, A, Bm, Cm = ts
+    cum = chunk_cumsum(dt, A, Q)
+    chunks = ssd_chunks_ref if bf16 else emulate_tf32_chunks_tiled
+    _, states = chunks(x, dt, cum, Bm, Cm, Q)
+    cargs = (states, cum, Cm, tdy, Q, th0, tdf)
+    got = (emulate_tensor_core_carry_bwd(*cargs, kernel.BWD_TERMS) if bf16
+           else emulate_tf32_carry_bwd(*cargs))
+    return (arrs, dy, h0, df), ts, tdy, cum, got, ssd_carry_bwd_ref(*cargs)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", TILED_CARRY_SHAPES)
+def test_tiled_carry_bwd_emulation_meets_the_bar(shape, dtype):
+    """The dtype's tensor-core carry backward at Q = 128, 192 and 256,
+    each chunk's (exp(cum) ∘ C)ᵀ·dy a fixed-order sum of its 64-row slabs'
+    products: h_prev, g and d init_state within half (bf16, ``BWD_TERMS``
+    bf16 terms) or a tenth (fp32, three TF32 products) of
+    1e-4·max(max|ref|, 1) of ``ssd_carry_bwd_ref``, the forward walk
+    exact; then the whole gradient from the emulated kernels of the slice
+    (that carry backward, the dtype's tiled chunk backward, finished as
+    the op finishes) within 1e-4·max(max|ref|, 1) of ``jax.vjp`` of the
+    reference's ``ssd_ref`` on the same values."""
+    B, L, H, P, N, Q = shape
+    tdt = getattr(torch, dtype)
+    assert kernel.bwd_kernels(tdt, Q, P, N) == (
+        BWD_TILED if tdt == torch.bfloat16 else BWD_TF32_TILED)
+    (arrs, dy, h0, df), ts, tdy, cum, got, want = tiled_carry_case(shape,
+                                                                   tdt)
+    margin = 0.5 if tdt == torch.bfloat16 else 0.1
+    for name, a, w in zip(("h_prev", "g", "d init_state"), got, want):
+        bar = 1e-4 * max(float(w.abs().max()), 1.0)
+        assert float((a - w).abs().max()) <= margin * bar, name
+    assert torch.equal(got[0], want[0])
+    h_prev, g, dinit = got
+    x, dt, A, Bm, Cm = ts
+    args = (x, dt, cum, Bm, Cm, tdy, g, h_prev, Q, 2)
+    dx, dcum, ddt, dB, dC = (
+        emulate_tensor_core_chunk_bwd(*args, kernel.BWD_TERMS)
+        if tdt == torch.bfloat16 else emulate_tf32_chunk_bwd_tiled(*args))
+    ddt_cum, dA = chunk_cumsum_bwd(dcum, dt, A, Q)
+    whole = (dx, ddt + ddt_cum, dA, dB.sum(0), dC.sum(0), dinit)
+    for name, a, w in zip(NAMES, whole, jax_grads(arrs, dy, h0, df, Q,
+                                                  torch.float32)):
+        assert_grad_close(name, a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,L,H,P,N,Q", [(1, 768, 4, 64, 128, 128),
+                                         (1, 768, 6, 64, 64, 192),
+                                         (2, 1024, 8, 64, 128, 256),
+                                         (1, 512, 4, 64, 64, 256)])
+def test_cuda_tiled_carry_bwd_kernels_match_plain(B, L, H, P, N, Q, dtype):
+    """``ssd_carry_bwd_tc`` (bf16) and ``ssd_carry_bwd_tf32`` (fp32) at the
+    tiled chunks against their plain version (max|Δ| <=
+    1e-4·max(max|ref|, 1)), with and without an initial state and
+    dfinal, a second pass equal bit for bit, each launch counted under its
+    name; ``cuda_cores=True`` still takes ``ssd_carry_bwd``, held too."""
+    needs_card()
+    shape = (B, L, H, P, N, Q)
+    x, dt, A, Bm, Cm, dy, h0, df, cum = card_inputs(shape, 37, dtype)
+    _, states = kernel.ssd_chunks_cuda(x, dt, cum, Bm, Cm, Q)
+    name = kernel.bwd_kernels(getattr(torch, dtype), Q, P, N)[0]
+    assert name == ("ssd_carry_bwd_tc" if dtype == "bfloat16"
+                    else "ssd_carry_bwd_tf32")
+    before = dict(kernel.BWD_KERNEL_LAUNCHES)
+    for extra in ((h0, df), (None, None)):
+        args = (states, cum, Cm, dy, Q) + extra
+        got = kernel.ssd_carry_bwd_cuda(*args)
+        again = kernel.ssd_carry_bwd_cuda(*args)
+        core = kernel.ssd_carry_bwd_cuda(*args, cuda_cores=True)
+        want = ssd_carry_bwd_ref(*args)
+        torch.cuda.synchronize()
+        for a, b, c, w in zip(got, again, core, want):
+            assert torch.equal(a, b) and within(a, w) and within(c, w)
+    for k in kernel.BWD_KERNELS:
+        assert kernel.BWD_KERNEL_LAUNCHES[k] == before[k] + {
+            name: 4, "ssd_carry_bwd": 2}.get(k, 0)

@@ -36,12 +36,15 @@ kernel's SASS instruction count.  For the carry it also prints the host
 time of one call to each build's C entry point (old, new, new, old:
 the median over 9 windows of ``HOST_CALLS`` calls, perf_counter, the
 card's queue never full), which holds the new build's plan lookup.
-Then the chunk kernel and chunk backward at the chunks of 128 to 256
-rows (``TILED_SHAPES``), through each build's tiled tensor-core kernels
-where it takes the chunk (bf16 ``ssd_chunk_tc_tiled`` and
-``ssd_chunk_bwd_tc_tiled``, fp32 ``ssd_chunk_tf32_tiled`` and
-``ssd_chunk_bwd_tf32_tiled``), else its CUDA-core kernels.  Prints the
-card's name and power limit first.  Needs a CUDA card.
+Then the chunk kernel, the carry backward and the chunk backward at the
+chunks of 128 to 256 rows (``TILED_SHAPES``), through each build's
+tensor-core kernels where it takes the chunk (bf16 ``ssd_chunk_tc_tiled``,
+``ssd_carry_bwd_tc`` and ``ssd_chunk_bwd_tc_tiled``, fp32
+``ssd_chunk_tf32_tiled``, ``ssd_carry_bwd_tf32`` and
+``ssd_chunk_bwd_tf32_tiled``), else its CUDA-core kernels; and the new
+build's carry backward there against its own ``ssd_carry_bwd`` (the row
+"carry bwd, CUDA cores").  Prints the card's name and power limit
+first.  Needs a CUDA card.
 
 ``--plans`` also times the new tensor-core carry at each shape
 (``ssd_carry_tc`` for bf16, ``ssd_carry_tf32`` for fp32) under every plan
@@ -284,13 +287,16 @@ def time_plans(lib, call, out, want, shape) -> None:
 
 
 def time_tiled(old, old_bwd, new, new_bwd, sms) -> None:
-    """The chunk kernel and chunk backward at ``TILED_SHAPES`` through both
-    builds' C entry points, old, new, new, old: the tiled tensor-core
-    kernels (``ssd_chunk_launch`` with the dtype's terms,
+    """The chunk kernel, carry backward and chunk backward at
+    ``TILED_SHAPES`` through both builds' C entry points, old, new, new,
+    old: the tensor-core kernels (``ssd_chunk_launch`` with the dtype's
+    terms, ``ssd_carry_bwd_launch`` with ``tc`` 1,
     ``ssd_chunk_bwd_tiled_launch``), which the new build must take at
-    every shape; the old build's CUDA-core kernels (``terms`` 0,
+    every shape; the old build's CUDA-core kernels (``terms`` 0, ``tc`` 0,
     ``ssd_chunk_bwd_launch`` with ``tc`` 0) where it refuses them, named
-    in the line as "old core"; each
+    in the line as "old core"; the new build's tensor-core carry backward
+    also against its own ``ssd_carry_bwd`` ("carry bwd, CUDA cores": "old"
+    is the CUDA-core kernel); each
     backward's outputs finished as the wrapper finishes them (its tails
     added to the chunks' last rows, the partial dB and dC summed over
     their groups where the two builds group the heads apart)."""
@@ -330,8 +336,31 @@ def time_tiled(old, old_bwd, new, new_bwd, sms) -> None:
                 fn, old_core["chunk"] = chunk(lib, fwd_out[v], 0), True
             calls["chunk"][v] = fn
         assert calls["chunk"]["old"]() == 0 and calls["chunk"]["new"]() == 0
-        h_prev, g, _ = ssd_carry_bwd_ref(fwd_out["new"][1], cum, Cm, dy, Q,
-                                         h0, df)
+        st = fwd_out["new"][1]
+
+        def carry_bwd(lib, out, tc):
+            return lambda: lib.ssd_carry_bwd_launch(
+                st.data_ptr(), cum.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+                h0.data_ptr(), df.data_ptr(), *(o.data_ptr() for o in out),
+                code, B, L, H, P, N, Q, tc, stream)
+        cbwd_out = {v: [torch.empty_like(st), torch.empty_like(st),
+                        torch.empty((B, H, N, P), device="cuda")]
+                    for v in ("old", "new", "core")}
+        calls["carry bwd"] = {"new": carry_bwd(new_bwd, cbwd_out["new"], 1)}
+        assert calls["carry bwd"]["new"]() == 0, f"{shape} {dtype}: the " \
+            f"new build refuses its tensor-core carry backward"
+        fn = carry_bwd(old_bwd, cbwd_out["old"], 1)
+        if fn() != 0:
+            fn, old_core["carry bwd"] = (
+                carry_bwd(old_bwd, cbwd_out["old"], 0), True)
+            assert fn() == 0
+        calls["carry bwd"]["old"] = fn
+        calls["carry bwd, CUDA cores"] = {
+            "old": carry_bwd(new_bwd, cbwd_out["core"], 0),
+            "new": calls["carry bwd"]["new"]}
+        for fn in calls["carry bwd, CUDA cores"].values():
+            assert fn() == 0
+        h_prev, g, _ = ssd_carry_bwd_ref(st, cum, Cm, dy, Q, h0, df)
         ins = [t.data_ptr() for t in (x, dt, cum, Bm, Cm, dy, g, h_prev)]
         bwd_out = {}
 
@@ -364,16 +393,20 @@ def time_tiled(old, old_bwd, new, new_bwd, sms) -> None:
                 o[1].view(B, L // Q, Q, H)[:, :, -1] += o[5].sum(2)
             return [o[0], o[1], o[2], o[3].sum(0), o[4].sum(0)]
         fo, fn_ = finished(bwd_out["old"]), finished(bwd_out["new"])
-        same = {"chunk": [float((a - b).abs().max())
-                          for a, b in zip(fwd_out["old"], fwd_out["new"])],
-                "chunk bwd": [float((a - b).abs().max())
-                              for a, b in zip(fo, fn_)]}
-        bitwise = {"chunk": all(torch.equal(a, b) for a, b in
-                                zip(fwd_out["old"], fwd_out["new"])),
-                   "chunk bwd": len(bwd_out["old"]) == len(bwd_out["new"])
-                   and all(
-                       a.shape == b.shape and torch.equal(a, b)
-                       for a, b in zip(bwd_out["old"], bwd_out["new"]))}
+        pairs = {"chunk": (fwd_out["old"], fwd_out["new"]),
+                 "carry bwd": (cbwd_out["old"], cbwd_out["new"]),
+                 "carry bwd, CUDA cores": (cbwd_out["core"],
+                                           cbwd_out["new"])}
+        same = {what: [float((a - b).abs().max()) for a, b in zip(*o)]
+                for what, o in pairs.items()}
+        same["chunk bwd"] = [float((a - b).abs().max())
+                             for a, b in zip(fo, fn_)]
+        bitwise = {what: all(torch.equal(a, b) for a, b in zip(*o))
+                   for what, o in pairs.items()}
+        bitwise["chunk bwd"] = (
+            len(bwd_out["old"]) == len(bwd_out["new"])
+            and all(a.shape == b.shape and torch.equal(a, b)
+                    for a, b in zip(bwd_out["old"], bwd_out["new"])))
         for what, c in calls.items():
             t = (ms(c["old"]), ms(c["new"]), ms(c["new"]), ms(c["old"]))
             side = "old core" if old_core.get(what) else "old"
@@ -383,6 +416,7 @@ def time_tiled(old, old_bwd, new, new_bwd, sms) -> None:
                   f"per output {same[what]}; bitwise {bitwise[what]}",
                   flush=True)
         del x, Bm, Cm, dy, dt, cum, h0, df, fwd_out, bwd_out, g, h_prev
+        del st, cbwd_out
         torch.cuda.empty_cache()
 
 
